@@ -1,0 +1,25 @@
+"""PyTorch/CUDA port of galvatron_tpu, slice by slice.
+
+The JAX package beside this one (``galvatron_tpu``) is the reference every
+module here is held against; this package imports ``torch`` and never
+``jax`` or anything of ``galvatron_tpu``. Module names mirror the reference
+so each counterpart is easy to find:
+
+- ``models/``: ``modeling`` (decoder-LM config, RMSNorm, RoPE, SwiGLU,
+  fused QKV, einsum attention, init), ``generation`` (paged KV-cache
+  forward, host sampling distribution), ``tokenizer`` (byte tokenizer).
+- ``ops/``: ``flash_attention`` (paged decode attention: plain PyTorch
+  version, CUDA kernel wrapper, launch counter), ``csrc/*.cu`` (hand-written
+  Hopper kernels), ``_build`` (nvcc build + ctypes loading at first use).
+- ``serving/``: the continuous-batching engine on the paged KV backend, its
+  scheduler, request lifecycle and block allocator.
+- ``server`` (HTTP front end) and ``cli`` (``serve`` mode).
+- ``bridge``: weights from the JAX package's numpy trees and back.
+
+Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``
+(``--device cpu``); without a card and without that request they raise.
+"""
+
+from galvatron_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,46 @@
+"""Weights between the JAX package and the port.
+
+``params_from_jax`` takes the JAX package's parameter tree as numpy arrays
+(``jax.tree.map(np.asarray, params)``, or a checkpoint's leaves) and returns
+the port's tree of tensors on ``device``, with the same names and layouts:
+``x @ W`` everywhere, the blocked ``(h, 3, n·hd)`` or interleaved
+``(h, kv·group)`` fused QKV, so nothing is transposed. Matmul weights and
+the embedding are cast to the compute dtype once (``modeling.cast_params``);
+norm scales stay fp32. ``params_to_numpy`` is the way back.
+
+This module takes numpy and imports no JAX, so the port stays free of it.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from galvatron_tpu_torch.models import modeling
+from galvatron_tpu_torch.models.modeling import ModelConfig, Params
+
+
+def _tree_map(fn, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_jax(tree_of_numpy: Params, cfg: ModelConfig, device) -> Params:
+    modeling.check_supported(cfg)
+    params = _tree_map(
+        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device), tree_of_numpy
+    )
+    return modeling.cast_params(params, cfg)
+
+
+def params_to_numpy(params: Params) -> Params:
+    """Tensors → numpy (bf16 upcast to fp32, which numpy has no type for)."""
+    return _tree_map(
+        lambda t: (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy(),
+        params,
+    )

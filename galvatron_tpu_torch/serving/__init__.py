@@ -1,0 +1,41 @@
+"""Continuous-batching serving on the paged KV backend.
+
+- [[paged_kv]] ``PagedKVCache``: device block pool + host block allocator
+  with copy-on-write prefix sharing and block-headroom admission.
+- [[scheduler]] ``Scheduler``: FIFO admission queue with TTL and bounded
+  depth (``QueueFull``, ``RequestExpired``).
+- [[resilience]]: the request lifecycle, the engine crash supervisor and the
+  exceptions the server maps to HTTP.
+- [[engine]] ``Engine``: the loop (chunked prefill, host sampling, one
+  decode forward over all slots per iteration, drain and audit).
+"""
+
+from galvatron_tpu_torch.serving.engine import Engine
+from galvatron_tpu_torch.serving.paged_kv import NoFreeBlocks, PagedKVCache
+from galvatron_tpu_torch.serving.resilience import (
+    DeadlineExceeded,
+    EngineClosed,
+    EngineDraining,
+    EngineRestarted,
+    EngineSupervisor,
+    RequestCancelled,
+    RequestShed,
+)
+from galvatron_tpu_torch.serving.scheduler import QueueFull, Request, RequestExpired, Scheduler
+
+__all__ = [
+    "Engine",
+    "PagedKVCache",
+    "NoFreeBlocks",
+    "Scheduler",
+    "Request",
+    "QueueFull",
+    "RequestExpired",
+    "RequestShed",
+    "RequestCancelled",
+    "DeadlineExceeded",
+    "EngineDraining",
+    "EngineClosed",
+    "EngineRestarted",
+    "EngineSupervisor",
+]

@@ -1,0 +1,439 @@
+"""Paged KV cache: block pool + copy-on-write prefix sharing for the engine.
+
+The port's copy of ``galvatron_tpu/serving/paged_kv.py``. The host-side
+block allocator is the reference's, unchanged: every non-null block is
+FREE, OWNED (``refcount >= 1``) or CACHED (``refcount == 0`` but registered
+in the prefix registry, LRU-evictable); block 0 is the reserved null block
+that table padding points at; prefix sharing is block-granular and keyed by
+a cumulative token-chunk hash.
+
+The device side is one torch tensor pair ``(L, num_blocks, block_size,
+kv_heads, head_dim)`` on the engine's device; a copy-on-write block copy is
+an indexed assignment across all layers.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from galvatron_tpu_torch.models import generation
+from galvatron_tpu_torch.models.modeling import ModelConfig
+from galvatron_tpu_torch.serving.kv_slots import effective_max_seq_len
+
+NULL_BLOCK = 0
+
+BLOCK_STATES = ("FREE", "OWNED", "CACHED")
+
+
+class NoFreeBlocks(RuntimeError):
+    """Block pool exhausted: nothing on the free list and no refcount-0
+    prefix block left to evict. Admission gates on ``can_admit`` so this is
+    never raised mid-decode."""
+
+
+def _chunk_hash(parent: bytes, tokens: Sequence[int]) -> bytes:
+    h = hashlib.blake2b(digest_size=16)
+    h.update(parent)
+    h.update(np.asarray(tokens, np.int64).tobytes())
+    return h.digest()
+
+
+def prefix_hashes(tokens: Sequence[int], block_size: int) -> List[bytes]:
+    """Cumulative hash per *full* block-sized chunk of ``tokens``."""
+    out: List[bytes] = []
+    parent = b"galvatron-prefix-root"
+    for i in range(len(tokens) // block_size):
+        parent = _chunk_hash(parent, tokens[i * block_size : (i + 1) * block_size])
+        out.append(parent)
+    return out
+
+
+class PagedKVCache:
+    """Fixed device block pool + host block allocator with COW prefix cache.
+
+    ``num_blocks`` counts pool rows *including* the reserved null block;
+    ``num_blocks=-1`` sizes the pool to ``num_slots * max_blocks`` usable
+    blocks (the same memory as a contiguous slot cache)."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        num_slots: int,
+        device,
+        block_size: int = 16,
+        num_blocks: int = -1,
+        max_seq_len: Optional[int] = None,
+        prefix_cache: bool = True,
+    ):
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        if block_size < 1:
+            raise ValueError(f"kv_block_size must be >= 1, got {block_size}")
+        self.cfg = cfg
+        self.device = device
+        self.num_slots = int(num_slots)
+        self.block_size = int(block_size)
+        self.max_seq_len = effective_max_seq_len(cfg, max_seq_len)
+        self.max_blocks = -(-self.max_seq_len // self.block_size)  # ceil
+        if num_blocks == -1:
+            num_blocks = self.num_slots * self.max_blocks + 1
+        self.num_blocks = int(num_blocks)
+        if self.num_blocks - 1 < self.max_blocks:
+            raise ValueError(
+                f"kv_num_blocks={self.num_blocks} cannot hold one max-length "
+                f"request ({self.max_blocks} blocks + 1 null block)"
+            )
+        self.prefix_cache_enabled = bool(prefix_cache)
+
+        # allocator bookkeeping lock (an RLock: public methods nest)
+        self._lock = threading.RLock()
+
+        self.pool = generation.init_kv_cache(cfg, self.num_blocks, self.block_size, device)
+
+        # slot bookkeeping
+        self.lengths = np.zeros((self.num_slots,), np.int32)
+        self._free_slots: List[int] = list(range(self.num_slots - 1, -1, -1))  # guarded-by: self._lock
+        self._active: set = set()  # guarded-by: self._lock
+
+        # block bookkeeping
+        self.tables = np.zeros((self.num_slots, self.max_blocks), np.int32)
+        self._refcount = np.zeros((self.num_blocks,), np.int32)  # guarded-by: self._lock
+        self._free_blocks: List[int] = list(range(self.num_blocks - 1, 0, -1))  # guarded-by: self._lock
+        self._slot_blocks: Dict[int, List[int]] = {}  # guarded-by: self._lock
+
+        # prefix cache: chunk hash -> block, block -> chunk hash, plus an
+        # LRU over CACHED (refcount-0, registered) blocks only
+        self._registry: Dict[bytes, int] = {}  # guarded-by: self._lock
+        self._block_hash: Dict[int, bytes] = {}  # guarded-by: self._lock
+        self._lru: "OrderedDict[int, None]" = OrderedDict()  # guarded-by: self._lock
+
+        # cumulative counters (survive reset — lifetime totals)
+        self.prefix_hits = 0  # guarded-by: self._lock
+        self.prefix_misses = 0  # guarded-by: self._lock
+        self.prefix_evictions = 0  # guarded-by: self._lock
+        self.cow_copies = 0  # guarded-by: self._lock
+
+    # -- slot allocator -------------------------------------------------------
+
+    def alloc(self) -> Optional[int]:
+        """Claim a free slot with an empty block table; None when occupied."""
+        with self._lock:
+            if not self._free_slots:
+                return None
+            slot = self._free_slots.pop()
+            self._active.add(slot)
+            self.lengths[slot] = 0
+            self.tables[slot, :] = NULL_BLOCK
+            self._slot_blocks[slot] = []
+            return slot
+
+    def free(self, slot: int) -> None:
+        """Release a slot and drop one reference from each of its blocks."""
+        with self._lock:
+            if slot not in self._active:
+                raise ValueError(f"slot {slot} is not active")
+            for b in self._slot_blocks.pop(slot):
+                self._unref(b)
+            self._active.discard(slot)
+            self.lengths[slot] = 0
+            self.tables[slot, :] = NULL_BLOCK
+            self._free_slots.append(slot)
+
+    def reset(self) -> None:
+        """Release everything and reallocate the device pool (engine crash
+        recovery / drain); the prefix registry goes with the old contents."""
+        with self._lock:
+            self._active.clear()
+            self.lengths[:] = 0
+            self._free_slots = list(range(self.num_slots - 1, -1, -1))
+            self.tables[:] = NULL_BLOCK
+            self._refcount[:] = 0
+            self._free_blocks = list(range(self.num_blocks - 1, 0, -1))
+            self._slot_blocks = {}
+            self._registry.clear()
+            self._block_hash.clear()
+            self._lru.clear()
+            self.pool = generation.init_kv_cache(
+                self.cfg, self.num_blocks, self.block_size, self.device
+            )
+
+    # -- views ----------------------------------------------------------------
+
+    @property
+    def free_slots(self) -> int:
+        with self._lock:
+            return len(self._free_slots)
+
+    @property
+    def active_count(self) -> int:
+        with self._lock:
+            return len(self._active)
+
+    def active_slots(self) -> List[int]:
+        with self._lock:
+            return sorted(self._active)
+
+    @property
+    def occupancy(self) -> float:
+        with self._lock:
+            return len(self._active) / self.num_slots
+
+    @property
+    def blocks_total(self) -> int:
+        """Usable blocks (the null block is not allocatable)."""
+        return self.num_blocks - 1
+
+    def blocks_held(self, slot: int) -> int:
+        with self._lock:
+            return len(self._slot_blocks.get(slot, ()))
+
+    def fits(self, prompt_len: int, max_new_tokens: int) -> bool:
+        return prompt_len >= 1 and prompt_len + max_new_tokens <= self.max_seq_len
+
+    # -- block allocator core -------------------------------------------------
+
+    def _take_block(self) -> int:  # holds: self._lock
+        """Pop a free block, evicting the least-recently-used CACHED prefix
+        block if the free list is dry."""
+        if self._free_blocks:
+            return self._free_blocks.pop()
+        if self._lru:
+            b, _ = self._lru.popitem(last=False)
+            h = self._block_hash.pop(b)
+            del self._registry[h]
+            self.prefix_evictions += 1
+            return b
+        raise NoFreeBlocks(
+            f"block pool exhausted ({self.blocks_total} blocks, 0 free, 0 evictable)"
+        )
+
+    def _unref(self, b: int) -> None:  # holds: self._lock
+        if self._refcount[b] <= 0:
+            raise ValueError(f"block {b} refcount underflow")
+        self._refcount[b] -= 1
+        if self._refcount[b] == 0:
+            if b in self._block_hash:
+                self._lru[b] = None  # OWNED -> CACHED (most recently used)
+            else:
+                self._free_blocks.append(b)  # OWNED -> FREE
+
+    def _claim_cached(self, b: int) -> None:  # holds: self._lock
+        """CACHED -> OWNED on the first re-attachment of a registered block."""
+        if self._refcount[b] == 0:
+            del self._lru[b]
+        self._refcount[b] += 1
+
+    def _append_block(self, slot: int) -> None:  # holds: self._lock
+        blocks = self._slot_blocks[slot]
+        if len(blocks) >= self.max_blocks:
+            raise ValueError(f"slot {slot} already holds max_blocks={self.max_blocks}")
+        b = self._take_block()
+        self._refcount[b] += 1
+        self.tables[slot, len(blocks)] = b
+        blocks.append(b)
+
+    def reserve(self, slot: int, upto_len: int) -> None:
+        """Extend the slot's table to cover positions ``[0, upto_len)``. The
+        engine reserves a request's worst case at admission so decode never
+        allocates."""
+        need = -(-int(upto_len) // self.block_size)
+        with self._lock:
+            while len(self._slot_blocks[slot]) < need:
+                self._append_block(slot)
+
+    def ensure_writable(self, slot: int, lo: int, hi: int) -> None:
+        """Copy-on-write guard for a pending write to positions ``[lo, hi)``:
+        a covered block that is shared or registered is replaced by a private
+        copy first."""
+        if hi <= lo:
+            return
+        with self._lock:
+            blocks = self._slot_blocks[slot]
+            first = lo // self.block_size
+            last = min(-(-hi // self.block_size), len(blocks))
+            for i in range(first, last):
+                b = blocks[i]
+                if self._refcount[b] == 1 and b not in self._block_hash:
+                    continue  # sole un-registered owner: write in place
+                nb = self._take_block()
+                self.pool.k[:, nb] = self.pool.k[:, b]
+                self.pool.v[:, nb] = self.pool.v[:, b]
+                self._refcount[nb] = 1
+                self._unref(b)
+                blocks[i] = nb
+                self.tables[slot, i] = nb
+                self.cow_copies += 1
+
+    def append(self, slot: int, n: int = 1) -> None:
+        """Advance a slot by ``n`` positions, allocating and COW-protecting
+        blocks as needed (allocator-level surface; the engine reserves the
+        worst case up front instead)."""
+        with self._lock:
+            lo = int(self.lengths[slot])
+            hi = lo + int(n)
+            if hi > self.max_seq_len:
+                raise ValueError(f"slot {slot} overflow: {hi} > {self.max_seq_len}")
+            self.reserve(slot, hi)
+            self.ensure_writable(slot, lo, hi)
+            self.lengths[slot] = hi
+
+    def fork(self, src: int) -> Optional[int]:
+        """Clone a slot by reference (refcount bump, zero copies); the first
+        divergent write on either side triggers COW. None when no slot is
+        free."""
+        with self._lock:
+            if src not in self._active:
+                raise ValueError(f"slot {src} is not active")
+            slot = self.alloc()
+            if slot is None:
+                return None
+            for b in self._slot_blocks[src]:
+                self._refcount[b] += 1
+            self._slot_blocks[slot] = list(self._slot_blocks[src])
+            self.tables[slot, :] = self.tables[src, :]
+            self.lengths[slot] = self.lengths[src]
+            return slot
+
+    # -- prefix cache ---------------------------------------------------------
+
+    def _match_len(self, tokens: Sequence[int]) -> int:  # holds: self._lock
+        """Longest registered prefix of ``tokens`` in full blocks, capped so
+        at least one prompt token is always re-prefilled."""
+        if not self.prefix_cache_enabled:
+            return 0
+        cap = (len(tokens) - 1) // self.block_size
+        matched = 0
+        for h in prefix_hashes(tokens[: cap * self.block_size], self.block_size):
+            if h not in self._registry:
+                break
+            matched += 1
+        return matched
+
+    def attach_prefix(self, slot: int, tokens: Sequence[int]) -> int:
+        """Attach the longest cached prefix of ``tokens`` to ``slot`` as
+        read-only shared blocks; returns the matched length in tokens."""
+        if not self.prefix_cache_enabled:
+            return 0
+        with self._lock:
+            cap = (len(tokens) - 1) // self.block_size
+            matched = self._match_len(tokens)
+            blocks = self._slot_blocks[slot]
+            if blocks:
+                raise ValueError(f"slot {slot} already holds blocks; attach first")
+            hashes = prefix_hashes(tokens[: matched * self.block_size], self.block_size)
+            for i, h in enumerate(hashes):
+                b = self._registry[h]
+                self._claim_cached(b)
+                self.tables[slot, i] = b
+                blocks.append(b)
+            self.prefix_hits += matched
+            self.prefix_misses += cap - matched
+            return matched * self.block_size
+
+    def register_prefix(self, slot: int, tokens: Sequence[int]) -> int:
+        """Publish the slot's full prompt blocks into the prefix registry
+        (idempotent); returns the number of newly registered blocks."""
+        if not self.prefix_cache_enabled:
+            return 0
+        with self._lock:
+            cap = len(tokens) // self.block_size
+            blocks = self._slot_blocks[slot]
+            added = 0
+            for i, h in enumerate(prefix_hashes(tokens[: cap * self.block_size], self.block_size)):
+                if h in self._registry:
+                    continue
+                b = blocks[i]
+                if b in self._block_hash:
+                    continue  # block already backs a different registered chunk
+                self._registry[h] = b
+                self._block_hash[b] = h
+                added += 1
+            return added
+
+    # -- admission gate -------------------------------------------------------
+
+    def cow_overlap_blocks(self, matched_len: int, prompt_len: int, chunk: int) -> int:
+        """Blocks the slid-left last prefill window can dirty below the
+        attached prefix (COW copies that need spare blocks)."""
+        lo = self.max_seq_len - chunk
+        if prompt_len + chunk <= self.max_seq_len or lo >= matched_len:
+            return 0
+        return -(-matched_len // self.block_size) - lo // self.block_size
+
+    def can_admit(self, tokens: Sequence[int], max_new_tokens: int, chunk: int = 0) -> bool:
+        """True when free + evictable blocks cover this request's worst-case
+        footprint after prefix sharing."""
+        prompt_len = len(tokens)
+        if not self.fits(prompt_len, max_new_tokens):
+            return False
+        with self._lock:
+            matched = self._match_len(tokens)
+            need = -(-(prompt_len + max_new_tokens) // self.block_size) - matched
+            need += self.cow_overlap_blocks(matched * self.block_size, prompt_len, chunk)
+            return need <= len(self._free_blocks) + len(self._lru)
+
+    # -- audit ----------------------------------------------------------------
+
+    def audit(self) -> dict:
+        """Allocator invariant check: slots partition into free/active, every
+        non-null block is FREE xor OWNED xor CACHED, refcounts equal the
+        table references, registry and LRU bookkeeping agree."""
+        with self._lock:
+            free_set = set(self._free_slots)
+            slots_ok = (
+                len(free_set) == len(self._free_slots)
+                and not (free_set & self._active)
+                and (free_set | self._active) == set(range(self.num_slots))
+            )
+            free_blocks = set(self._free_blocks)
+            owned = {b for b in range(1, self.num_blocks) if self._refcount[b] > 0}
+            cached = set(self._lru)
+            refs = np.zeros((self.num_blocks,), np.int32)
+            for blocks in self._slot_blocks.values():
+                for b in blocks:
+                    refs[b] += 1
+            blocks_ok = (
+                len(free_blocks) == len(self._free_blocks)
+                and NULL_BLOCK not in free_blocks | owned | cached
+                and not (free_blocks & owned)
+                and not (free_blocks & cached)
+                and not (owned & cached)
+                and (free_blocks | owned | cached) == set(range(1, self.num_blocks))
+                and bool(np.all(self._refcount >= 0))
+                and bool(np.all(refs == self._refcount))
+                and set(self._registry.values()) == set(self._block_hash)
+                and all(self._registry[h] == b for b, h in self._block_hash.items())
+                and cached == {b for b in self._block_hash if self._refcount[b] == 0}
+                and set(self._slot_blocks) == self._active
+            )
+            return {
+                "ok": slots_ok and blocks_ok,
+                "free": len(self._free_slots),
+                "active": len(self._active),
+                "num_slots": self.num_slots,
+                "blocks_ok": blocks_ok,
+                "blocks_total": self.blocks_total,
+                "blocks_free": len(self._free_blocks),
+                "blocks_cached": len(self._lru),
+                "blocks_active": self.blocks_total - len(self._free_blocks) - len(self._lru),
+            }
+
+    def block_stats(self) -> dict:
+        with self._lock:
+            return {
+                "kv_block_size": self.block_size,
+                "kv_blocks_total": self.blocks_total,
+                "kv_blocks_free": len(self._free_blocks),
+                "kv_blocks_cached": len(self._lru),
+                "kv_blocks_active": self.blocks_total - len(self._free_blocks) - len(self._lru),
+                "prefix_cache_enabled": self.prefix_cache_enabled,
+                "prefix_cache_hits": self.prefix_hits,
+                "prefix_cache_misses": self.prefix_misses,
+                "prefix_cache_evictions": self.prefix_evictions,
+                "cow_copies": self.cow_copies,
+            }

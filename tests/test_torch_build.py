@@ -1,0 +1,69 @@
+"""The port's kernel build orchestration (ops/_build.py), with a stand-in
+compiler: the CPU has no nvcc, but which sources build, where the library
+lands, when a build is reused and how a failed build is reported are plain
+Python."""
+
+import os
+import stat
+import sys
+import textwrap
+
+import pytest
+
+from galvatron_tpu_torch.ops import _build
+
+FAKE_NVCC = textwrap.dedent("""\
+    #!{python}
+    import sys
+    args = sys.argv[1:]
+    out = args[args.index("-o") + 1]
+    src = args[-1]
+    if "{fail}" and src.endswith("{fail}"):
+        print("error: cannot compile " + src)
+        sys.exit(1)
+    print("ptxas info    : Used 32 registers")
+    with open(out, "w") as f:
+        f.write(" ".join(args))
+""")
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    def make(fail=""):
+        path = tmp_path / f"nvcc{fail.replace('.', '_')}"
+        path.write_text(FAKE_NVCC.format(python=sys.executable, fail=fail))
+        path.chmod(path.stat().st_mode | stat.S_IEXEC)
+        monkeypatch.setattr(_build, "_nvcc", lambda: str(path))
+        return str(path)
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "torch_kernels")
+    monkeypatch.setattr(_build, "BUILD_LOG", {})
+    return make
+
+
+def test_every_source_builds_for_sm90a_and_is_reused(fake_nvcc):
+    nvcc = fake_nvcc()
+    assert _build.sources() == ["paged_decode"]
+    log = _build.build_all()
+    target = _build._target("paged_decode", nvcc)
+    assert log["paged_decode"]["path"] == str(target) and target.exists()
+    assert "arch=compute_90a,code=sm_90a" in target.read_text()
+    assert "registers" in log["paged_decode"]["ptxas"]
+    assert [p.name for p in target.parent.iterdir()] == [target.name]  # no temp left
+    mtime = os.path.getmtime(target)
+    _build.BUILD_LOG.clear()
+    assert _build.build_all()["paged_decode"]["ptxas"] == "(cached)"
+    assert os.path.getmtime(target) == mtime
+
+
+def test_the_library_name_follows_source_and_compiler(fake_nvcc):
+    a = _build._target("paged_decode", "cuda-12/bin/nvcc")
+    b = _build._target("paged_decode", "cuda-13/bin/nvcc")
+    assert a != b and a.name.startswith("libpaged_decode-") and a.suffix == ".so"
+
+
+def test_a_failed_build_raises_with_the_compiler_output(fake_nvcc):
+    fake_nvcc(fail="paged_decode.cu")
+    with pytest.raises(RuntimeError, match="cannot compile"):
+        _build.build_all()
+    assert not any(_build.BUILD_DIR.iterdir())  # nothing half-written is left to load

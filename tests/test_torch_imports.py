@@ -1,0 +1,88 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor the
+JAX package, no source imports either, and its entry points refuse to run
+without a card unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "galvatron_tpu_torch"
+
+
+def _forbidden(module: str) -> bool:
+    return (module == "jax" or module.startswith("jax.")
+            or module == "galvatron_tpu" or module.startswith("galvatron_tpu."))
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import galvatron_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'galvatron_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'galvatron_tpu' or m.startswith('galvatron_tpu.'))\n"
+        "print(len([m for m in sys.modules if m.startswith('galvatron_tpu_torch')]))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 20  # every module really was imported
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py", "experiments/torch_decode_profile.py"]
+))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_engine_raises_without_a_card(no_card):
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.serving import Engine
+
+    cfg = modeling.ModelConfig(vocab_size=64, hidden_size=32, num_layers=1, num_heads=2,
+                               ffn_dim=64, max_seq_len=32)
+    params = modeling.init_model_params(cfg, 0, "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(params, cfg, kv_num_blocks=-1)
+
+
+def test_generation_service_raises_without_a_card(no_card):
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
+    from galvatron_tpu_torch.server import GenerationService
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GenerationService(modeling.ModelConfig(), ByteTokenizer(), engine=None)
+
+
+def test_cli_serve_raises_without_a_card(no_card):
+    from galvatron_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["serve", "--num_layers", "1", "--hidden_size", "32", "--num_heads", "2",
+                  "--kv_num_blocks", "-1"])
