@@ -9,23 +9,50 @@ its result line:
 0. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 1. build every kernel from ``galvatron_tpu_torch/ops/csrc`` with nvcc for
    sm_90a (one nvcc per source, all at once), with the ``-Xptxas -v`` report;
-2. each kernel against its plain PyTorch version on the same CUDA tensors,
-   at the main path's shapes (llama-7b decode: 4 rows, 32 heads, head_dim
-   128, 16-token blocks, 128 blocks per row, bf16), a GQA shape and fp32;
-   bf16 must be within one output ulp of the plain version computed in
-   fp32, fp32 within 1e-5. One JSON line per shape with the kernel's,
-   the plain version's and the library call's (SDPA over gathered K/V,
-   timed only) times, and the least time the card could take (bytes over
-   3.35 TB/s, or operations over the peak rate of the input type);
-3. llama-7b width at 2 layers in fp32: prefill + 8 decode steps through
+2. the paged decode kernel against its plain PyTorch version on the same
+   CUDA tensors, at the serving path's shapes (llama-7b decode: 4 rows, 32
+   heads, head_dim 128, 16-token blocks, 128 blocks per row, bf16), a GQA
+   shape and fp32; bf16 must be within one output ulp of the plain version
+   computed in fp32, fp32 within 1e-5. One JSON line per shape with the
+   kernel's, the plain version's and the library call's (SDPA over
+   gathered K/V, timed only) times, and the least time the card could take
+   (bytes over 3.35 TB/s, or operations over the peak rate of the input
+   type);
+3. the flash forward and backward kernels against their plain versions on
+   the same CUDA tensors: the training path's shape (b=8, h=32, s=2048,
+   d=128, bf16, the stacked qkv projection view), ragged s=100 at d=64, GQA
+   with kv_rep 4, and fp32. fp32 within 1e-5 (out, lse) and 1e-4
+   (gradients); bf16 per element within one output ulp plus a share of
+   the row's rms (``bf16_parity_excess`` within ``BF16_PARITY_TOL``). A
+   control, the plain versions with one key tile dropped, must fail the
+   same checks. One JSON line per case with the errors, the control's,
+   kernel, plain, library (SDPA with is_causal over pre-roped q/k, and its
+   autograd backward; timed only) and bound times;
+4. llama-7b width at 2 layers in fp32: prefill + 8 decode steps through
    ``forward_with_cache_paged`` on the card (kernel) and on the CPU (plain
    version); logits within 1e-3, kernel launches == layers x decode steps;
-4. the main path: ``cli serve --model_size llama-7b --kv_num_blocks -1``
+5. llama-7b width at 2 layers in fp32, batch 1, s=512: three
+   ``train_step``s on the card (flash kernels) and on the CPU (plain
+   versions) from the same weights and batches; losses within 1e-3 and
+   each flash kernel launched layers x steps times. Then bf16 over fp32
+   masters, batch 2, s=2048: one forward + backward through the
+   tensor-core kernels against the same step with the wrappers swapped for
+   their plain versions on the card; the loss within 1e-3 and every
+   parameter gradient within 2^-5 relative error, and the dropped-tile
+   control beyond it;
+6. the serving path: ``cli serve --model_size llama-7b --kv_num_blocks -1``
    (32 layers, bf16, random weights from a seed) in a thread of this
    process; 4 concurrent POST /api requests of ~50/300/700-byte prompts and
    one sharing a prefix, 32 greedy tokens each, then a repeated prompt; the
-   kernel's launch count must equal 32 x the engine's decode steps and
-   POST /drain must report no leak.
+   paged kernel's launch count must equal 32 x the engine's decode steps
+   and POST /drain must report no leak;
+7. the training path: ``cli train --model_size llama-7b --num_layers 4
+   --train_iters 10`` (batch 8, seq 2048, bf16 over fp32 masters, AdamW)
+   in-process: every loss finite, 10 ``train_iter`` JSONL records, each
+   flash kernel launched 4 x 10 times; iter_ms (mean of iterations 2-10),
+   tokens/s, MFU and peak device memory; then ``torch.profiler`` over two
+   steady steps of the same configuration: device busy and idle share and
+   the top kernels by device time.
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
@@ -35,6 +62,7 @@ measured to PATH as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import socket
@@ -48,6 +76,13 @@ import urllib.request
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense; fp32 off tensor cores
 SERVE_LAYERS = 32
+TRAIN_LAYERS = 4
+TRAIN_ITERS = 10
+# bf16 train step, kernels against plain versions on the card (phase 5):
+# |loss difference| and the largest per-tensor relative gradient error.
+# An H100 read 7.8e-5 and 0.009; the dropped-tile control 1.7e-3 and 0.146.
+TRAIN_BF16_LOSS_TOL = 1e-3
+TRAIN_BF16_GRAD_TOL = 2 ** -5
 RESULTS: dict = {}
 
 
@@ -232,7 +267,188 @@ def phase_kernels(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: full-width forward, card vs CPU
+# phase 3: flash forward / backward kernels, parity and timing
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # (label, dtype name, b, h, kv heads, s, d, stacked)
+    ("flash main", "bfloat16", 8, 32, 32, 2048, 128, True),
+    ("flash ragged s100 d64", "bfloat16", 8, 32, 32, 100, 64, False),
+    ("flash gqa kv_rep 4", "bfloat16", 8, 32, 8, 2048, 128, False),
+    ("flash fp32", "float32", 2, 32, 32, 2048, 128, True),
+]
+
+
+@contextlib.contextmanager
+def _patched(obj, **attrs):
+    """Set attributes of ``obj`` for the length of a with block."""
+    old = {name: getattr(obj, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(obj, name, value)
+
+
+def _dropped_tile_keep(torch):
+    """The plain versions' causal mask with keys 0-63 dropped for the rows
+    from max(64, s/2): what a kernel that skipped that tile would compute.
+    The parity checks must reject it."""
+
+    def keep(s, device):
+        r = torch.arange(s, device=device)
+        mask = r[:, None] >= r[None, :]
+        mask[max(64, s // 2):, :64] = False
+        return mask
+
+    return keep
+
+
+def _flash_err(torch, fa, got, ref, which):
+    """(error, limit) of a flash kernel result against its plain version:
+    fp32 the max abs error against 1e-5 (forward) or 1e-4 (backward); bf16
+    ``fa.bf16_parity_excess`` against ``fa.BF16_PARITY_TOL``."""
+    if got.dtype == torch.float32:
+        return (got - ref).abs().max().item(), {"fwd": 1e-5, "bwd": 1e-4}[which]
+    return fa.bf16_parity_excess(got, ref), fa.BF16_PARITY_TOL[which]
+
+
+def flash_case(torch, dtype, b, h, kvh, s, d, stacked, seed):
+    """q/k/v as the training path hands them over (views of the stacked
+    (b, s, 3, h, d) projection when ``stacked``), rope tables, and do."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda").to(dtype)
+    qkv = qkv.permute(0, 2, 3, 1, 4)
+    if stacked:
+        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    else:
+        q = qkv[:, 0]
+        k, v = qkv[:, 1, :kvh].contiguous(), qkv[:, 2, :kvh].contiguous()
+    import numpy as np
+
+    inv = 1.0 / (10000.0 ** (np.arange(0, d, 2) / d))
+    freqs = np.outer(np.arange(s), inv)
+    cos = torch.from_numpy(np.cos(freqs).astype(np.float32)).cuda()
+    sin = torch.from_numpy(np.sin(freqs).astype(np.float32)).cuda()
+    do = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
+    return q, k, v, do, cos, sin
+
+
+def flash_bounds(dtype, b, h, kvh, s, d):
+    """Least times of the forward and the backward on these shapes: each
+    input read once and each output written once over 3.35 TB/s, or the
+    causal pairs' products (2 in the forward, 5 in the backward, 2·d
+    operations each per (query, key) pair at or below the diagonal) over the
+    input type's peak, whichever is larger."""
+    esz = 2 if dtype == "bfloat16" else 4
+    pairs = b * h * s * (s + 1) / 2
+    qo = b * h * s * d * esz          # one (b, h, s, d) operand
+    kv = b * kvh * s * d * esz        # k or v
+    tables = 2 * s * (d // 2) * 4
+    lse = b * h * s * 4
+    fwd_bytes = qo + 2 * kv + tables + qo + lse            # q, k, v, tables -> out, lse
+    bwd_bytes = 3 * qo + 2 * kv + lse + tables + 3 * qo    # q,k,v,do,out,lse -> dq,dk,dv
+    peak = PEAK_FLOPS["torch." + dtype]
+    out = {}
+    for name, nbytes, prods in (("fwd", fwd_bytes, 2), ("bwd", bwd_bytes, 5)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = prods * 2 * d * pairs / peak * 1e3
+        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return out
+
+
+def phase_flash(torch):
+    import math
+
+    import torch.nn.functional as F
+
+    from galvatron_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    lines = {}
+    for i, (label, dname, b, h, kvh, s, d, stacked) in enumerate(FLASH_CASES):
+        dtype = getattr(torch, dname)
+        q, k, v, do, cos, sin = flash_case(torch, dtype, b, h, kvh, s, d, stacked, seed=10 + i)
+        rep, sm = h // kvh, 1.0 / math.sqrt(d)
+        before = (fa.flash_fwd.launches, fa.flash_bwd.launches)
+        out, lse = fa.flash_fwd(q, k, v, cos, sin, sm, rep)
+        grads = fa.flash_bwd(q, k, v, do, out, lse, cos, sin, sm, rep)
+        torch.cuda.synchronize()
+        check((fa.flash_fwd.launches, fa.flash_bwd.launches) == (before[0] + 1, before[1] + 1),
+              f"{label}: a kernel did not launch")
+        ref_out, ref_lse = fa.flash_fwd_blocked_plain(q, k, v, cos, sin, sm, rep)
+        kf, vf = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        ref_grads = fa.flash_bwd_blocked_plain(q, kf, vf, do, out, lse, cos, sin, sm)
+        # the control: the plain versions with one key tile dropped
+        with _patched(fa, _causal_keep=_dropped_tile_keep(torch)):
+            ctl_out, _ = fa.flash_fwd_blocked_plain(q, k, v, cos, sin, sm, rep)
+            ctl_grads = fa.flash_bwd_blocked_plain(q, kf, vf, do, out, lse, cos, sin, sm)
+        fwd_abs = (out.float() - ref_out.float()).abs().max().item()
+        bwd_abs = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, ref_grads))
+        lse_err = (lse - ref_lse).abs().max().item()
+        lse_tol = 1e-5 if dtype == torch.float32 else 1e-4
+        fwd_err, fwd_lim = _flash_err(torch, fa, out, ref_out, "fwd")
+        bwd_err = [_flash_err(torch, fa, g, r, "bwd")[0] for g, r in zip(grads, ref_grads)]
+        bwd_lim = _flash_err(torch, fa, grads[0], ref_grads[0], "bwd")[1]
+        ctl_fwd = _flash_err(torch, fa, ctl_out, ref_out, "fwd")[0]
+        ctl_bwd = [_flash_err(torch, fa, c, r, "bwd")[0] for c, r in zip(ctl_grads, ref_grads)]
+        if dtype == torch.float32:
+            tol = "fp32: max abs err, out/lse 1e-5, gradients 1e-4"
+        else:
+            tol = ("bf16: |err| - 1 ulp over the row's rms (bf16_parity_excess), "
+                   f"out {fwd_lim}, gradients {bwd_lim}; lse 1e-4")
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+        del ctl_out, ctl_grads
+        # yardstick: SDPA (is_causal) over pre-roped q/k, and its autograd backward
+        qr = fa._rope_f32(q, cos, sin).to(dtype).detach().requires_grad_(True)
+        kr = fa._rope_f32(kf, cos, sin).to(dtype).detach().requires_grad_(True)
+        vr = vf.detach().clone().requires_grad_(True)
+        lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+        kernel_fwd = time_ms(torch, lambda: fa.flash_fwd(q, k, v, cos, sin, sm, rep), flush)
+        kernel_bwd = time_ms(torch, lambda: fa.flash_bwd(q, k, v, do, out, lse, cos, sin, sm, rep),
+                             flush)
+        plain_fwd = time_ms(torch, lambda: fa.flash_fwd_blocked_plain(q, k, v, cos, sin, sm, rep),
+                            flush, iters=5)
+        plain_bwd = time_ms(torch, lambda: fa.flash_bwd_blocked_plain(
+            q, kf, vf, do, out, lse, cos, sin, sm), flush, iters=5)
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qr, kr, vr, is_causal=True), flush)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qr, kr, vr), do, retain_graph=True), flush)
+        bounds = flash_bounds(dname, b, h, kvh, s, d)
+        line = {"case": label, "dtype": dname, "b": b, "h": h, "kv_heads": kvh, "s": s, "d": d,
+                "stacked": stacked, "tolerance": tol,
+                "fwd_err": fwd_err, "bwd_err_dq_dk_dv": bwd_err,
+                "control_fwd_err": ctl_fwd, "control_bwd_err_dq_dk_dv": ctl_bwd,
+                "fwd_max_abs_err": fwd_abs, "lse_max_abs_err": lse_err,
+                "bwd_max_abs_err": bwd_abs,
+                "fwd_ms": kernel_fwd, "bwd_ms": kernel_bwd,
+                "fwd_plain_ms": plain_fwd, "bwd_plain_ms": plain_bwd,
+                "fwd_library_ms": lib_fwd, "bwd_library_ms": lib_bwd,
+                "fwd_bound_ms": bounds["fwd"][0], "fwd_bound_by": bounds["fwd"][1],
+                "bwd_bound_ms": bounds["bwd"][0], "bwd_bound_by": bounds["bwd"][1]}
+        log(json.dumps(line))
+        lines[label] = line
+        check(finite, f"{label}: non-finite kernel output")
+        check(fwd_err <= fwd_lim, f"{label}: forward err {fwd_err} > {fwd_lim}")
+        check(lse_err <= lse_tol, f"{label}: lse err {lse_err} > {lse_tol}")
+        for name, e, c in zip("qkv", bwd_err, ctl_bwd):
+            check(e <= bwd_lim, f"{label}: d{name} err {e} > {bwd_lim}")
+            check(c > bwd_lim, f"{label}: the dropped-tile control passes for d{name} ({c})")
+        check(ctl_fwd > fwd_lim, f"{label}: the dropped-tile control passes the forward check")
+        del q, k, v, do, out, lse, grads, ref_out, ref_lse, ref_grads, kf, vf, qr, kr, vr
+        del lib_out
+        torch.cuda.empty_cache()
+    RESULTS["flash"] = lines
+    return lines["flash main"]
+
+
+# ---------------------------------------------------------------------------
+# phase 4: full-width forward, card vs CPU
 # ---------------------------------------------------------------------------
 
 
@@ -284,14 +500,135 @@ def phase_forward(torch):
     res = {"layers": cfg.num_layers, "hidden": cfg.hidden_size, "decode_steps": steps,
            "max_abs_logit_diff": max_diff, "tolerance": 1e-3, "launches": launches,
            "seconds": time.perf_counter() - t0}
-    log("phase 3 forward:", json.dumps(res))
+    log("phase 4 forward:", json.dumps(res))
     RESULTS["forward"] = res
     del cpu_params, gpu_params, params, pools
     torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path, cli serve
+# phase 5: full-width train steps, card vs CPU
+# ---------------------------------------------------------------------------
+
+
+def phase_train_parity(torch):
+    import numpy as np
+
+    from galvatron_tpu_torch.core.optim import AdamConfig
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.ops import flash_attention as fa
+    from galvatron_tpu_torch.parallel.hybrid import build_runtime
+
+    cfg = modeling.PRESETS["llama-7b"].replace(num_layers=2, max_seq_len=512,
+                                               attn_impl="flash")
+    steps, t0 = 3, time.perf_counter()
+    adam = AdamConfig(lr=1e-4, weight_decay=0.01, grad_clip=1.0)
+    cpu_params = modeling.init_model_params(cfg, 0, "cpu")
+    runs = {}
+    rng = np.random.RandomState(0)
+    batches = [rng.randint(0, cfg.vocab_size, (1, 513)).astype(np.int32) for _ in range(steps)]
+    for dev in ("cuda", "cpu"):
+        rt = build_runtime(cfg, adam, global_batch_size=1, seq_len=512,
+                           mixed_precision="fp32", device=dev)
+        params = _to(cpu_params, dev) if dev == "cuda" else cpu_params
+        state = rt.state_from(params)
+        before = (fa.flash_fwd.launches, fa.flash_bwd.launches)
+        losses = []
+        for batch in batches:
+            state, loss = rt.train_step(state, torch.from_numpy(batch))
+            losses.append(float(loss))
+        launches = (fa.flash_fwd.launches - before[0], fa.flash_bwd.launches - before[1])
+        runs[dev] = (losses, launches)
+        del state, params, rt
+        torch.cuda.empty_cache()
+    (gpu_losses, gpu_launches), (cpu_losses, cpu_launches) = runs["cuda"], runs["cpu"]
+    diff = max(abs(a - b) for a, b in zip(gpu_losses, cpu_losses))
+    check(all(np.isfinite(gpu_losses)), f"train parity: non-finite card losses {gpu_losses}")
+    check(diff <= 1e-3, f"train parity: card vs CPU losses differ by {diff}")
+    want = cfg.num_layers * steps
+    check(gpu_launches == (want, want),
+          f"train parity: launches {gpu_launches}, expected {want} each")
+    check(cpu_launches == (0, 0), "train parity: the CPU run launched a kernel")
+    res = {"layers": cfg.num_layers, "hidden": cfg.hidden_size, "seq": 512, "batch": 1,
+           "dtype": "float32", "steps": steps, "card_losses": gpu_losses,
+           "cpu_losses": cpu_losses, "max_abs_loss_diff": diff, "tolerance": 1e-3,
+           "launches": {"flash_fwd": gpu_launches[0], "flash_bwd": gpu_launches[1]},
+           "seconds": time.perf_counter() - t0}
+    log("phase 5 train parity:", json.dumps(res))
+    RESULTS["train_parity"] = res
+
+
+def phase_train_bf16(torch):
+    """llama-7b width at 2 layers, bf16 over fp32 masters, batch 2, s=2048:
+    the loss and every parameter gradient of one forward + backward through
+    the bf16 tensor-core flash kernels, against the same step with the two
+    wrappers swapped for their plain versions on the same card (every other
+    op, cuBLAS's GEMMs included, is then the same), and against a control
+    whose plain versions drop one key tile, which must fail."""
+    import numpy as np
+
+    from galvatron_tpu_torch.core.optim import tree_leaves
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.ops import flash_attention as fa
+
+    cfg = modeling.PRESETS["llama-7b"].replace(num_layers=2, attn_impl="flash",
+                                               dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = modeling.init_model_params(cfg, 0, "cuda")
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = torch.from_numpy(
+        np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 2049))).to("cuda")
+
+    def step():
+        loss = modeling.lm_loss(params, batch, cfg)
+        loss.backward()
+        grads = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        return loss.item(), grads
+
+    before = (fa.flash_fwd.launches, fa.flash_bwd.launches)
+    loss, grads = step()
+    launches = (fa.flash_fwd.launches - before[0], fa.flash_bwd.launches - before[1])
+    plain = {"flash_fwd": fa.flash_fwd_blocked_plain, "flash_bwd": fa.flash_bwd_plain}
+    with _patched(fa, **plain):
+        ref_loss, ref_grads = step()
+    with _patched(fa, **plain, _causal_keep=_dropped_tile_keep(torch)):
+        ctl_loss, ctl_grads = step()
+
+    def worst(gs):
+        errs = [((g - r).norm() / r.norm().clamp_min(1e-30)).item()
+                for g, r in zip(gs, ref_grads)]
+        return max(errs)
+
+    grad_err, ctl_grad_err = worst(grads), worst(ctl_grads)
+    res = {"layers": cfg.num_layers, "hidden": cfg.hidden_size, "seq": 2048, "batch": 2,
+           "dtype": "bfloat16", "loss": loss, "plain_loss": ref_loss, "control_loss": ctl_loss,
+           "loss_abs_diff": abs(loss - ref_loss), "loss_tolerance": TRAIN_BF16_LOSS_TOL,
+           "grad_rel_err": grad_err, "grad_tolerance": TRAIN_BF16_GRAD_TOL,
+           "control_grad_rel_err": ctl_grad_err,
+           "launches": {"flash_fwd": launches[0], "flash_bwd": launches[1]},
+           "seconds": time.perf_counter() - t0}
+    log("phase 5 bf16 train parity:", json.dumps(res))
+    RESULTS["train_parity_bf16"] = res
+    check(launches == (cfg.num_layers, cfg.num_layers),
+          f"bf16 train parity: launches {launches}, expected {cfg.num_layers} each")
+    check(all(np.isfinite([loss, *[g.sum().item() for g in grads]])),
+          "bf16 train parity: non-finite loss or gradient")
+    check(abs(loss - ref_loss) <= TRAIN_BF16_LOSS_TOL,
+          f"bf16 train parity: kernel vs plain losses differ by {abs(loss - ref_loss)}")
+    check(grad_err <= TRAIN_BF16_GRAD_TOL,
+          f"bf16 train parity: gradient relative error {grad_err} > {TRAIN_BF16_GRAD_TOL}")
+    check(ctl_grad_err > TRAIN_BF16_GRAD_TOL,
+          f"bf16 train parity: the dropped-tile control passes ({ctl_grad_err})")
+    del params, leaves, grads, ref_grads, ctl_grads
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the serving path, cli serve
 # ---------------------------------------------------------------------------
 
 
@@ -395,9 +732,145 @@ def phase_serve(torch, smi):
         "kernel_launches": launches, "leaked": drained["leaked"],
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    log("phase 4 serve:", json.dumps(res))
+    log("phase 6 serve:", json.dumps(res))
     RESULTS["serve"] = res
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training path, cli train
+# ---------------------------------------------------------------------------
+
+
+def _kernel_intervals(prof):
+    from torch.autograd import DeviceType
+
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _union_us(intervals):
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((s, e) for _, s, e in intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def _category(name: str) -> str:
+    n = name.lower()
+    if "flash_fwd" in n:
+        return "flash_fwd"
+    if "flash_dkdv" in n or "flash_dq" in n or "flash_delta" in n:
+        return "flash_bwd"
+    # cuBLAS on Hopper names its GEMMs nvjet_*; older builds gemm/cutlass/xmma
+    if any(k in n for k in ("nvjet", "gemm", "cutlass", "cublas", "xmma", "gemv")):
+        return "matmul"
+    return "other"
+
+
+def phase_train(torch, smi, tmpdir):
+    from galvatron_tpu_torch import cli
+    from galvatron_tpu_torch.ops import flash_attention as fa
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    path = os.path.join(tmpdir, "train_metrics.jsonl")
+    argv = ["train", "--model_size", "llama-7b", "--num_layers", str(TRAIN_LAYERS),
+            "--train_iters", str(TRAIN_ITERS), "--metrics_path", path]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fa.flash_fwd.launches = 0  # the main path's counts start here
+    fa.flash_bwd.launches = 0
+    rc = cli.main(argv)
+    launches = {"flash_fwd": fa.flash_fwd.launches, "flash_bwd": fa.flash_bwd.launches}
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(rc == 0, f"cli train returned {rc}")
+    recs = [r for r in read_metrics(path) if r["event"] == "train_iter"]
+    check(len(recs) == TRAIN_ITERS, f"{len(recs)} train_iter records, expected {TRAIN_ITERS}")
+    losses = [r["loss"] for r in recs]
+    check(all(isinstance(x, float) and x == x and abs(x) != float("inf") for x in losses),
+          f"non-finite losses {losses}")
+    want = TRAIN_LAYERS * TRAIN_ITERS  # --global_checkpoint 0: no recompute launches
+    check(launches == {"flash_fwd": want, "flash_bwd": want},
+          f"flash launches {launches}, expected {want} each")
+    steady = recs[1:]
+    mean = lambda key: sum(r[key] for r in steady) / len(steady)  # noqa: E731
+    res = {"card": smi, "model": "llama-7b", "layers": TRAIN_LAYERS, "batch": 8, "seq": 2048,
+           "dtype": "bfloat16", "iters": TRAIN_ITERS, "losses": losses,
+           "iter_ms_mean_2_to_10": mean("iter_ms"), "iter_ms": [r["iter_ms"] for r in recs],
+           "tokens_per_s": mean("tokens_per_s"), "tflops_per_device": mean("tflops_per_device"),
+           "mfu": mean("mfu"), "max_memory_allocated_gb": peak_gb, "launches": launches,
+           "seconds": seconds}
+    log("phase 7 train:", json.dumps(res))
+    RESULTS["train"] = res
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def phase_train_profile(torch):
+    """torch.profiler over two steady steps of the main path's
+    configuration (one unprofiled warm step first)."""
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from galvatron_tpu_torch.core.dataloader import build_dataloader
+    from galvatron_tpu_torch.core.optim import AdamConfig
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.parallel.hybrid import build_runtime
+
+    cfg = modeling.PRESETS["llama-7b"].replace(num_layers=TRAIN_LAYERS, attn_impl="flash")
+    rt = build_runtime(cfg, AdamConfig(lr=1e-4, weight_decay=0.01, grad_clip=1.0),
+                       global_batch_size=8, seq_len=2048, mixed_precision="bf16", device="cuda")
+    state = rt.init_state(1234)
+    loader = build_dataloader(rt.cfg, 8, 2048, seed=1234)
+    state, loss = rt.train_step(state, torch.from_numpy(next(loader)))
+    float(loss)
+    steps, batches = 2, [torch.from_numpy(next(loader)) for _ in range(2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches:
+        state, loss = rt.train_step(state, batch)
+        float(loss)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    batches = [torch.from_numpy(next(loader)) for _ in range(2)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for batch in batches:
+            state, loss = rt.train_step(state, batch)
+            float(loss)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3 / steps
+    kernels = _kernel_intervals(prof)
+    check(kernels, "the profiler recorded no device kernel")
+    busy_ms = _union_us(kernels) / 1e3 / steps
+    by_name, by_cat = defaultdict(lambda: [0.0, 0]), defaultdict(float)
+    for name, s, e in kernels:
+        by_name[name][0] += (e - s) / 1e3 / steps
+        by_name[name][1] += 1
+        by_cat[_category(name)] += (e - s) / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    res = {"steps": steps, "wall_ms_per_step": wall_ms, "wall_ms_per_step_profiled": prof_wall_ms,
+           "device_busy_ms_per_step": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "device_idle_share_profiled_wall": 1.0 - busy_ms / prof_wall_ms,
+           "kernel_launches_per_step": len(kernels) / steps,
+           "device_ms_by_category": dict(by_cat),
+           "top_kernels_ms_per_step": [{"name": n[:90], "ms": v[0], "launches_per_step": v[1] / steps}
+                                       for n, v in top]}
+    log("phase 7 train profile:", json.dumps(res))
+    RESULTS["train_profile"] = res
+    del state, rt
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -408,20 +881,40 @@ def main() -> int:
 
     import galvatron_tpu_torch  # noqa: F401 — fails fast outside a checkout
 
+    import tempfile
+
     smi = phase_card(torch)
     phase_build()
-    main_line = phase_kernels(torch)
+    paged_line = phase_kernels(torch)
+    flash_line = phase_flash(torch)
     phase_forward(torch)
-    launches = phase_serve(torch, smi)
-    kernels = {"kernels": [{
-        "name": "paged_decode", "route": "cuda",
-        "source": "galvatron_tpu_torch/ops/csrc/paged_decode.cu",
-        "replaces": "galvatron_tpu/ops/flash_attention.py:1152",
-        "launches": launches, "max_abs_err": main_line["max_abs_err"],
-        "ms": main_line["kernel_ms"], "plain_ms": main_line["plain_ms"],
-        "bound_ms": main_line["bound_ms"], "bound_by": main_line["bound_by"],
-        "library_ms": main_line["library_ms"],
-    }]}
+    phase_train_parity(torch)
+    phase_train_bf16(torch)
+    paged_launches = phase_serve(torch, smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
+        train_launches, _ = phase_train(torch, smi, tmpdir)
+    phase_train_profile(torch)
+    src = "galvatron_tpu_torch/ops/csrc/"
+    kernels = {"kernels": [
+        {"name": "paged_decode", "route": "cuda", "source": src + "paged_decode.cu",
+         "replaces": "galvatron_tpu/ops/flash_attention.py:1152",
+         "launches": paged_launches, "max_abs_err": paged_line["max_abs_err"],
+         "ms": paged_line["kernel_ms"], "plain_ms": paged_line["plain_ms"],
+         "bound_ms": paged_line["bound_ms"], "bound_by": paged_line["bound_by"],
+         "library_ms": paged_line["library_ms"]},
+        {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
+         "replaces": "galvatron_tpu/ops/flash_attention.py:272",
+         "launches": train_launches["flash_fwd"], "max_abs_err": flash_line["fwd_max_abs_err"],
+         "ms": flash_line["fwd_ms"], "plain_ms": flash_line["fwd_plain_ms"],
+         "bound_ms": flash_line["fwd_bound_ms"], "bound_by": flash_line["fwd_bound_by"],
+         "library_ms": flash_line["fwd_library_ms"]},
+        {"name": "flash_bwd", "route": "cuda", "source": src + "flash_bwd.cu",
+         "replaces": "galvatron_tpu/ops/flash_attention.py:514",
+         "launches": train_launches["flash_bwd"], "max_abs_err": flash_line["bwd_max_abs_err"],
+         "ms": flash_line["bwd_ms"], "plain_ms": flash_line["bwd_plain_ms"],
+         "bound_ms": flash_line["bwd_bound_ms"], "bound_by": flash_line["bwd_bound_by"],
+         "library_ms": flash_line["bwd_library_ms"]},
+    ]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

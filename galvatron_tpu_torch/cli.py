@@ -1,12 +1,16 @@
 """CLI of the port: python -m galvatron_tpu_torch.cli <mode> [flags]
 
+  train   train a LLaMA-family decoder on one device: synthetic tokens from
+          --seed, fp32 master weights, AdamW, the blocked-causal flash kernels
+          on the card (--attn_impl auto); a line and a train_iter JSONL record
+          (--metrics_path) per iteration
   serve   REST generation server over the continuous-batching engine on the
           paged KV backend (--kv_num_blocks -1), weights initialised from a
-          seed; runs on the card (--device cuda, the default) or, when asked,
-          on the CPU (--device cpu)
+          seed
 
-The reference's other modes (train, search, profile, generate, warmup, ...)
-are not ported yet (ROADMAP.md §1).
+Both run on the card (--device cuda, the default) or, when asked, on the
+CPU (--device cpu). The reference's other modes (search, profile, generate,
+warmup, ...) are not ported yet (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -22,11 +26,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(__doc__)
         return 0
     mode, rest = argv[0], argv[1:]
-    if mode != "serve":
-        print(f"mode {mode!r} is not ported yet; expected: serve", file=sys.stderr)
+    if mode not in ("serve", "train"):
+        print(f"mode {mode!r} is not ported yet; expected: train or serve", file=sys.stderr)
         return 2
 
     from galvatron_tpu_torch.core.arguments import initialize_galvatron, model_config_from_args
+
+    if mode == "train":
+        from galvatron_tpu_torch.core.trainer import train
+
+        train(initialize_galvatron(mode, rest))
+        return 0
     from galvatron_tpu_torch.device import resolve_device
     from galvatron_tpu_torch.models import modeling
     from galvatron_tpu_torch.models.tokenizer import build_tokenizer

@@ -1,7 +1,9 @@
-"""Flags of the ported modes: the model group and the ``serve`` group of
+"""Flags of the ported modes: the model group, the ``serve`` group, the
+step-program group and the single-device part of the training group of
 ``galvatron_tpu/core/arguments.py``, limited to what the port runs, plus
-``--device``. Flags of unported features are absent, so passing one is an
-argparse error rather than a silently ignored option."""
+``--device``. Flags of unported features (pp/tp/sdp, strategy JSON,
+checkpoints, corpora, ...) are absent, so passing one is an argparse error
+rather than a silently ignored option."""
 
 from __future__ import annotations
 
@@ -9,6 +11,10 @@ import argparse
 import dataclasses
 from typing import Optional, Sequence
 
+import torch
+
+from galvatron_tpu_torch.core.optim import AdamConfig
+from galvatron_tpu_torch.core.schedules import LRSchedule
 from galvatron_tpu_torch.models.modeling import PRESETS, ModelConfig
 
 
@@ -67,12 +73,58 @@ def _add_serve_args(p: argparse.ArgumentParser):
                    "before the engine gives up")
 
 
+def _add_step_program_args(p: argparse.ArgumentParser):
+    g = p.add_argument_group("step program")
+    g.add_argument("--lr", type=float, default=1e-4)
+    g.add_argument("--min_lr", type=float, default=0.0)
+    g.add_argument("--lr_warmup_iters", type=int, default=0)
+    g.add_argument("--lr_decay_iters", type=int, default=0, help="0 = no decay")
+    g.add_argument("--lr_decay_style", type=str, default="cosine",
+                   choices=["constant", "linear", "cosine"])
+    g.add_argument("--weight_decay", type=float, default=0.01)
+    g.add_argument("--grad_clip", type=float, default=1.0)
+    g.add_argument("--mixed_precision", type=str, default="bf16",
+                   choices=["fp32", "bf16", "fp16"],
+                   help="compute dtype over fp32 master weights; fp16 (loss "
+                   "scaling) is not ported yet and raises")
+    g.add_argument("--attn_impl", type=str, default="auto", choices=["auto", "flash", "xla"],
+                   help="auto = the flash kernels on the card, the einsum path on the CPU")
+    g.add_argument("--mlp_recompute", type=str, default="policy",
+                   choices=["off", "gate", "policy"],
+                   help="activation recompute over the MLP/norm/loss regions: 'policy' "
+                   "saves the swiglu gate once per layer and recomputes the fp32 "
+                   "norm/cross-entropy widenings; 'gate' recomputes only the "
+                   "product; 'off' saves everything")
+
+
+def _add_train_args(p: argparse.ArgumentParser):
+    _add_step_program_args(p)
+    g = p.add_argument_group("training")
+    g.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                   help="where training runs; 'cuda' without a card is an error")
+    g.add_argument("--global_train_batch_size", type=int, default=8)
+    g.add_argument("--train_iters", type=int, default=10)
+    g.add_argument("--seed", type=int, default=1234)
+    g.add_argument("--chunks", type=int, default=-1,
+                   help="micro-batches accumulated per step; -1 = heuristic (1 at pp=1)")
+    g.add_argument("--global_checkpoint", type=int, default=0, choices=[0, 1, 2],
+                   help="0 = off, 1 = full-layer recompute, 2 = selective "
+                   "(attention-core-only recompute)")
+    g.add_argument("--metrics_path", type=str, default=None,
+                   help="JSONL metrics sink (one train_iter record per iteration)")
+    g.add_argument("--check_loss", type=int, default=0,
+                   help="1 = fail the run on a non-finite loss")
+
+
 def build_parser(mode: str) -> argparse.ArgumentParser:
-    if mode != "serve":
+    if mode not in ("serve", "train"):
         raise ValueError(f"mode {mode!r} is not ported yet (ROADMAP.md §1)")
     p = argparse.ArgumentParser(f"galvatron_tpu_torch {mode}")
     _add_model_args(p)
-    _add_serve_args(p)
+    if mode == "serve":
+        _add_serve_args(p)
+    else:
+        _add_train_args(p)
     return p
 
 
@@ -99,3 +151,28 @@ def model_config_from_args(ns: argparse.Namespace) -> ModelConfig:
         if missing:
             raise ValueError(f"--set_model_config_manually 1 requires {missing} to be passed")
     return dataclasses.replace(cfg, **overrides)
+
+
+def resolve_attn_impl(cfg: ModelConfig, ns: argparse.Namespace, device) -> ModelConfig:
+    """Apply --attn_impl: 'auto' means the flash kernels on the card and the
+    config's own default on the CPU (the reference's rule: flash on an
+    accelerator)."""
+    impl = getattr(ns, "attn_impl", "auto")
+    if impl != "auto":
+        return cfg.replace(attn_impl=impl)
+    if torch.device(device).type == "cuda":
+        return cfg.replace(attn_impl="flash")
+    return cfg
+
+
+def adam_config_from_args(ns: argparse.Namespace) -> AdamConfig:
+    """Optimizer config from the step-program flags; an LR schedule only
+    when warmup or decay is asked for."""
+    lr_schedule = None
+    if getattr(ns, "lr_warmup_iters", 0) or getattr(ns, "lr_decay_iters", 0):
+        lr_schedule = LRSchedule(
+            lr=ns.lr, min_lr=ns.min_lr, warmup_iters=ns.lr_warmup_iters,
+            decay_iters=ns.lr_decay_iters, decay_style=ns.lr_decay_style,
+        )
+    return AdamConfig(lr=ns.lr, weight_decay=ns.weight_decay, grad_clip=ns.grad_clip,
+                      lr_schedule=lr_schedule)

@@ -1,17 +1,20 @@
 """Decoder-only LLaMA-family Transformer in plain PyTorch tensor functions.
 
-Counterpart of ``galvatron_tpu/models/modeling.py``, limited to what the
-serving slice runs: RoPE (rotate-half), RMSNorm, SwiGLU, the fused QKV
+Counterpart of ``galvatron_tpu/models/modeling.py``, limited to the LLaMA
+family the port runs: RoPE (rotate-half), RMSNorm, SwiGLU, the fused QKV
 projection in both stored layouts (blocked ``(h, 3, n·hd)`` for MHA,
-kv-group-interleaved ``(h, kv·(npg+2)·hd)`` for GQA), the masked-softmax
-einsum attention, embedding and LM head.
+kv-group-interleaved ``(h, kv·(npg+2)·hd)`` for GQA), attention on the
+einsum path (``attn_impl='xla'``) or the blocked-causal flash kernels
+(``'flash'``: the head-major dataflow of ``_attn_block_headmajor``), the
+``mlp_recompute`` policies, embedding, LM head and the sum-form token loss.
 
 Parameters are a nested dict of tensors with the JAX package's names and
 layouts (``x @ W`` everywhere), so the weight bridge (``bridge.py``) is a
-plain copy. Matmul weights and the embedding are stored in the compute
-dtype (cast once at load by :func:`cast_params`, which gives the values
-JAX's per-use ``astype`` gives); norm scales stay fp32, as ``_norm_impl``
-reads them.
+plain copy. Every weight is cast to the compute dtype where it is used
+(``w.to(x.dtype)``, the reference's per-use ``astype``): training keeps
+fp32 master weights and autograd carries the casts; serving casts them once
+at load (:func:`cast_params`), after which the per-use cast is a no-op.
+Norm scales stay fp32, as ``_norm_impl`` reads them.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
 
@@ -46,6 +50,14 @@ class ModelConfig:
     norm_eps: float = 1e-5
     causal: bool = True
     moe_experts: int = 0
+    objective: str = "clm"
+    attn_impl: str = "xla"  # 'xla' | 'flash'
+    # activation recompute over the MLP/norm/loss regions (the reference's
+    # --mlp_recompute): 'policy' saves the gate projection output once per
+    # layer and recomputes the fp32 norm statistics, the silu·gate product
+    # and the cross-entropy fp32 cast; 'gate' recomputes only the product;
+    # 'off' saves everything autograd saves. All three give the same values.
+    mlp_recompute: str = "policy"
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32
 
@@ -84,6 +96,7 @@ _UNPORTED = (
     ("tie_word_embeddings", False, "tied embeddings"),
     ("moe_experts", 0, "mixture-of-experts MLPs"),
     ("causal", True, "bidirectional encoders"),
+    ("objective", "clm", "masked-LM / classification objectives"),
 )
 
 
@@ -175,6 +188,7 @@ def cast_params(params: Params, cfg: ModelConfig) -> Params:
 def qkv_project(x, w, cfg: ModelConfig):
     """Fused QKV GEMM: blocked weights (h, 3, n·hd) give (…, 3, n·hd),
     interleaved weights (h, kv·group) give (…, kv·group)."""
+    w = w.to(x.dtype)
     if cfg.qkv_blocked:
         y = x @ w.reshape(w.shape[0], -1)
         return y.reshape(*x.shape[:-1], 3, w.shape[-1])
@@ -200,16 +214,30 @@ def project_qkv_heads(x, p_attn, cfg: ModelConfig):
 def attn_output(o, p_attn, cfg: ModelConfig):
     """(B, S, n, hd) attention context → (B, S, h)."""
     b, s = o.shape[:2]
-    return o.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p_attn["wo"]
+    return o.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p_attn["wo"].to(o.dtype)
+
+
+def _rms(x, scale, eps: float):
+    x32 = x.float()
+    x32 = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (x32 * scale.float()).to(x.dtype)
+
+
+def _norm_impl(x, p, cfg: ModelConfig):
+    """RMSNorm in fp32, cast back to the input dtype (the reference's
+    ``_norm_impl``; its Pallas ``fused_norm`` path is opt-in and not
+    ported, ROADMAP §1)."""
+    return _rms(x, p["scale"], cfg.norm_eps)
 
 
 def norm(x, p, cfg: ModelConfig):
-    """RMSNorm in fp32, cast back to the input dtype (the reference's
-    ``_norm_impl``; its Pallas ``fused_norm`` path is opt-in and not on
-    this slice)."""
-    x32 = x.float()
-    x32 = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + cfg.norm_eps)
-    return (x32 * p["scale"].float()).to(x.dtype)
+    """Under ``mlp_recompute='policy'`` and with autograd on, the fp32
+    statistics are recomputed in the backward from the compute-dtype input
+    instead of being saved widened (the reference wraps ``_norm_impl`` in
+    ``jax.checkpoint``)."""
+    if cfg.mlp_recompute == "policy" and torch.is_grad_enabled():
+        return checkpoint(_norm_impl, x, p, cfg, use_reentrant=False)
+    return _norm_impl(x, p, cfg)
 
 
 def rope_tables(cfg: ModelConfig, seq_len: int, device, offset: int = 0):
@@ -268,19 +296,245 @@ def attention_xla(q, k, v, cfg: ModelConfig, q_offset):
     return torch.einsum("bnqk,bknh->bqnh", probs, v)
 
 
+def _swiglu(g):
+    f = g.shape[-1] // 2
+    return F.silu(g[..., :f]) * g[..., f:]
+
+
+def _flat(t):
+    return t.reshape(-1, t.shape[-1])
+
+
+class _SwiGLUDown(torch.autograd.Function):
+    """``swiglu(g) @ w2`` saving the gate projection output ``g`` (and the
+    compute-dtype w2) instead of the product: the backward recomputes the
+    product, so the w2 GEMM is not recomputed and no second full-width
+    activation is kept ('gate' recompute)."""
+
+    @staticmethod
+    def forward(ctx, g, w2):
+        ctx.save_for_backward(g, w2)
+        return _swiglu(g) @ w2
+
+    @staticmethod
+    def backward(ctx, dy):
+        g, w2 = ctx.saved_tensors
+        with torch.enable_grad():
+            g_ = g.detach().requires_grad_(True)
+            prod = _swiglu(g_)
+        dw2 = _flat(prod.detach()).t() @ _flat(dy)
+        (dg,) = torch.autograd.grad(prod, g_, dy @ w2.t())
+        return dg, dw2
+
+
+class _MLPBranch(torch.autograd.Function):
+    """The 'policy' MLP branch ``swiglu(rms(x) @ w13) @ w2`` saving only its
+    input x and the gate projection output g (the reference's
+    ``save_only_these_names('mlp_gate')`` region): the backward recomputes
+    the norm (fp32 statistics included) and the silu·gate product, never a
+    GEMM of the forward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, w13, w2, eps):
+        g = _rms(x, scale, eps) @ w13
+        ctx.save_for_backward(x, scale, w13, w2, g)
+        ctx.eps = eps
+        return _swiglu(g) @ w2
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, w13, w2, g = ctx.saved_tensors
+        with torch.enable_grad():
+            x_ = x.detach().requires_grad_(True)
+            s_ = scale.detach().requires_grad_(True)
+            hn = _rms(x_, s_, ctx.eps)
+            g_ = g.detach().requires_grad_(True)
+            prod = _swiglu(g_)
+        dw2 = _flat(prod.detach()).t() @ _flat(dy)
+        (dg,) = torch.autograd.grad(prod, g_, dy @ w2.t())
+        dw13 = _flat(hn.detach()).t() @ _flat(dg)
+        dx, dscale = torch.autograd.grad(hn, (x_, s_), dg @ w13.t())
+        return dx, dscale, dw13, dw2, None
+
+
 def mlp_block(x, p, cfg: ModelConfig):
-    """SwiGLU over the fused [w1 | w3] gate projection."""
-    f = p["w13"].shape[-1] // 2
-    g = x @ p["w13"]
-    return (F.silu(g[..., :f]) * g[..., f:]) @ p["w2"]
+    """SwiGLU over the fused [w1 | w3] gate projection; under 'gate' with
+    autograd on, the product is recomputed in the backward ('policy' is
+    :func:`mlp_residual`'s region)."""
+    g = x @ p["w13"].to(x.dtype)
+    w2 = p["w2"].to(x.dtype)
+    if cfg.mlp_recompute == "gate" and torch.is_grad_enabled():
+        return _SwiGLUDown.apply(g, w2)
+    return _swiglu(g) @ w2
 
 
-def embed(tokens, params):
-    return params["embed"]["tok"][tokens]
+def mlp_residual(x, p, cfg: ModelConfig):
+    """x + MLP(norm(x)); under 'policy' with autograd on, the whole branch
+    is one region that saves only x and the gate output (:class:`_MLPBranch`)."""
+    if cfg.mlp_recompute == "policy" and torch.is_grad_enabled():
+        pm = p["mlp"]
+        return x + _MLPBranch.apply(x, p["mlp_norm"]["scale"], pm["w13"].to(x.dtype),
+                                    pm["w2"].to(x.dtype), cfg.norm_eps)
+    return x + mlp_block(norm(x, p["mlp_norm"], cfg), p["mlp"], cfg)
+
+
+def embed(tokens, params, cfg: Optional[ModelConfig] = None):
+    """Token embedding: the table cast to the compute dtype, then gathered
+    (the reference's order, so the backward scatter-adds in that dtype)."""
+    tok = params["embed"]["tok"]
+    if cfg is not None:
+        tok = tok.to(cfg.dtype)
+    return tok[tokens]
 
 
 def lm_head(x, params):
-    return x @ params["head"]["w"]
+    return x @ params["head"]["w"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention for training: einsum path and the flash kernels
+# ---------------------------------------------------------------------------
+
+
+def _maybe_checkpoint(fn, remat: bool, *args):
+    """``fn(*args)``, recomputed in the backward when ``remat`` (the
+    reference's ``jax.checkpoint`` over the attention core)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def attention(q, k, v, cfg: ModelConfig, rope=None):
+    """(B, S, n, hd) attention on the einsum path, RoPE applied first (the
+    reference's xla branch). The flash path never comes here: ``attn_block``
+    sends a tileable sequence to ``_attn_block_headmajor``, and an
+    untileable one takes this fallback, as in the reference."""
+    if rope is not None:
+        q = apply_rope(q, *rope)
+        k = apply_rope(k, *rope)
+    return attention_xla(q, k, v, cfg, 0)
+
+
+def _attn_block_headmajor(x, p, cfg: ModelConfig, rope, remat_attn: bool):
+    """Flash-path attention with head-major dataflow: the fused projection
+    is viewed as (b, 3, n, s, hd) (MHA) and fed to ``flash_attention_qkv``
+    with no copy, or split from the interleaved GQA layout into q at n heads
+    and k/v at kv heads for ``flash_attention_hm``; the context then goes
+    through the output projection ('bnsd,nde->bse')."""
+    from galvatron_tpu_torch.ops.flash_attention import (
+        flash_attention_hm,
+        flash_attention_qkv,
+        flash_qkv_supported,
+    )
+
+    b, s, h = x.shape
+    hd, n = cfg.head_dim, cfg.num_heads
+    w = p["wqkv"].to(x.dtype)
+    if cfg.qkv_blocked:
+        qkv = (x @ w.reshape(h, 3 * n * hd)).view(b, s, 3, n, hd).permute(0, 2, 3, 1, 4)
+        if flash_qkv_supported(s, hd, cfg.causal, rope):
+            o = _maybe_checkpoint(lambda t: flash_attention_qkv(t, rope=rope), remat_attn, qkv)
+            return _headmajor_out(o, p, x.dtype)
+        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    else:
+        kv, group = qkv_dims(cfg)
+        npg = group // hd - 2  # query heads per kv group, per the stored layout
+        r = (x @ w).view(b, s, kv, npg + 2, hd).permute(0, 2, 3, 1, 4)
+        q = r[:, :, :npg].reshape(b, n, s, hd)
+        k, v = r[:, :, npg], r[:, :, npg + 1]
+    o = _maybe_checkpoint(lambda q_, k_, v_: flash_attention_hm(q_, k_, v_, rope=rope),
+                          remat_attn, q, k, v)
+    return _headmajor_out(o, p, x.dtype)
+
+
+def _headmajor_out(o, p, dtype):
+    b, n, s, hd = o.shape
+    return o.transpose(1, 2).reshape(b, s, n * hd) @ p["wo"].to(dtype)
+
+
+def attn_block(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False):
+    """``remat_attn`` recomputes only the attention core in the backward
+    (the reference's "selective" checkpointing)."""
+    from galvatron_tpu_torch.ops.flash_attention import flash_tileable
+
+    if cfg.attn_impl == "flash" and flash_tileable(x.shape[1]):
+        return _attn_block_headmajor(x, p, cfg, cos_sin, remat_attn)
+    q, k, v = project_qkv_heads(x, p, cfg)
+    o = _maybe_checkpoint(lambda q_, k_, v_: attention(q_, k_, v_, cfg, rope=cos_sin),
+                          remat_attn, q, k, v)
+    return attn_output(o, p, cfg)
+
+
+def decoder_layer(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False):
+    x = x + attn_block(norm(x, p["attn_norm"], cfg), p["attn"], cfg, cos_sin,
+                       remat_attn=remat_attn)
+    return mlp_residual(x, p, cfg)
+
+
+def forward(params, tokens, cfg: ModelConfig, layer_hook=None):
+    """Full forward → logits. ``layer_hook(i, x, layer_params)`` lets the
+    runtime insert per-layer recompute (``parallel/hybrid.py``)."""
+    cos_sin = rope_tables(cfg, tokens.shape[1], tokens.device)
+    x = embed(tokens, params, cfg)
+    for i, lp in enumerate(params["layers"]):
+        if layer_hook is not None:
+            x = layer_hook(i, x, lp)
+        else:
+            x = decoder_layer(x, lp, cfg, cos_sin)
+    x = norm(x, params["final_norm"], cfg)
+    return lm_head(x, params)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def _cross_entropy_sum_impl(logits, labels, ignore_index: int = -100):
+    logits = logits.float()
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, torch.zeros_like(labels))
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, safe[..., None].long())[..., 0]
+    nll = (lse - picked) * mask
+    return nll.sum(), mask.sum()
+
+
+def cross_entropy_sum(logits, labels, ignore_index: int = -100, remat: bool = False):
+    """(nll_sum, valid_token_count) in fp32, the accumulation-safe form.
+    ``remat`` recomputes the fp32 cast and log-sum-exp in the backward from
+    the compute-dtype logits ("cast at the consumer")."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(_cross_entropy_sum_impl, logits, labels, ignore_index,
+                          use_reentrant=False)
+    return _cross_entropy_sum_impl(logits, labels, ignore_index)
+
+
+def ce_remat(cfg: ModelConfig) -> bool:
+    return cfg.mlp_recompute == "policy"
+
+
+def split_batch(batch, cfg: ModelConfig):
+    """(B, S+1) token rows → (inputs, next-token labels), the 'clm'
+    objective; the reference's other objectives raise."""
+    if cfg.objective != "clm":
+        raise NotImplementedError(
+            f"objective {cfg.objective!r} is not ported yet (ROADMAP.md §1 "
+            "'Other model families'); the port trains the 'clm' objective"
+        )
+    return batch[:, :-1], batch[:, 1:]
+
+
+def lm_loss_sum(params, batch, cfg: ModelConfig, layer_hook=None):
+    """(nll_sum, token_count) on a (B, S+1) token batch."""
+    tokens, labels = split_batch(batch, cfg)
+    logits = forward(params, tokens, cfg, layer_hook=layer_hook)
+    return cross_entropy_sum(logits, labels, remat=ce_remat(cfg))
+
+
+def lm_loss(params, batch, cfg: ModelConfig, layer_hook=None):
+    s, n = lm_loss_sum(params, batch, cfg, layer_hook=layer_hook)
+    return s / torch.clamp_min(n, 1)
 
 
 # Preset configs of the LLaMA family (the reference's PRESETS, same sizes)

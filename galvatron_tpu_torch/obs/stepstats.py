@@ -1,0 +1,122 @@
+"""Step accounting: model-FLOPs estimate, tokens/s, achieved TFLOP/s, MFU
+(the port's copy of ``galvatron_tpu/obs/stepstats.py``'s FLOP model).
+
+Model FLOPs (feeds MFU) are fwd + 2x fwd backward with no recompute;
+hardware FLOPs add what recompute replays. Attention-core FLOPs use the
+full s x s product pair (no causal discount), Megatron's convention. The
+peak is the card's published dense bf16 rate, looked up by device name.
+The rate fields are device metrics: on the CPU they are None, never a CPU
+number under a device metric's name.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+
+from galvatron_tpu_torch.models.modeling import ModelConfig
+
+# per-card peak dense bf16 TFLOP/s (NVIDIA data sheets, SXM parts at the
+# full power limit), keyed by the whole torch.cuda.get_device_name(): the
+# PCIe and NVL parts of the same chips ("NVIDIA H100 PCIe", "NVIDIA H100
+# NVL", "NVIDIA H200 NVL") peak lower and are not in the table
+_PEAK_TFLOPS_BY_NAME = {
+    "NVIDIA H100 80GB HBM3": 989.0,
+    "NVIDIA H200": 989.0,
+}
+
+
+def peak_flops_per_device(device) -> Optional[float]:
+    """Peak dense FLOP/s of ``device``, or None for the CPU and cards not
+    in the table (a made-up denominator would be worse than no MFU)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    tf = _PEAK_TFLOPS_BY_NAME.get(torch.cuda.get_device_name(device))
+    return None if tf is None else tf * 1e12
+
+
+def attn_proj_flops_per_token(cfg: ModelConfig) -> float:
+    """QKV + output projection matmul FLOPs for one token, one layer."""
+    h, hd = cfg.hidden_size, cfg.head_dim
+    qkv_cols = h + 2 * cfg.kv_heads * hd
+    return 2.0 * h * qkv_cols + 2.0 * h * h
+
+
+def attn_core_flops_per_token(cfg: ModelConfig, seq_len: int) -> float:
+    """q@k^T and p@v for one token against ``seq_len`` keys (full square)."""
+    return 2.0 * 2.0 * seq_len * cfg.hidden_size
+
+
+def mlp_flops_per_token(cfg: ModelConfig) -> float:
+    return 2.0 * 3 * cfg.hidden_size * cfg.ffn  # gate + up + down (swiglu)
+
+
+def layer_fwd_flops_per_token(cfg: ModelConfig, seq_len: int) -> float:
+    return (
+        attn_proj_flops_per_token(cfg)
+        + attn_core_flops_per_token(cfg, seq_len)
+        + mlp_flops_per_token(cfg)
+    )
+
+
+def head_flops_per_loss_token(cfg: ModelConfig) -> float:
+    return 2.0 * cfg.hidden_size * cfg.vocab_size
+
+
+def _remat_fwd_flops_per_token(cfg: ModelConfig, seq_len: int, ckpt: str) -> float:
+    """Forward compute replayed in the backward, per token over all layers."""
+    if ckpt == "full":
+        per_layer = layer_fwd_flops_per_token(cfg, seq_len)
+    elif ckpt == "selective":
+        per_layer = attn_core_flops_per_token(cfg, seq_len)
+    elif cfg.mlp_recompute != "off":
+        per_layer = mlp_flops_per_token(cfg)
+    else:
+        per_layer = 0.0
+    return cfg.num_layers * per_layer
+
+
+@dataclass
+class StepStats:
+    """Per-step FLOPs for one (model, batch, recompute) shape;
+    ``per_iter(iter_ms)`` turns a measured step time into JSONL fields."""
+
+    cfg: ModelConfig
+    global_bsz: int
+    seq_len: int
+    device: torch.device
+    ckpt: str = "none"
+
+    def __post_init__(self):
+        cfg, seq = self.cfg, self.seq_len
+        tokens = float(self.global_bsz) * seq
+        fwd = tokens * (cfg.num_layers * layer_fwd_flops_per_token(cfg, seq)
+                        + head_flops_per_loss_token(cfg))
+        self.model_flops_per_step = 3.0 * fwd
+        self.hardware_flops_per_step = self.model_flops_per_step + (
+            tokens * _remat_fwd_flops_per_token(cfg, seq, self.ckpt)
+        )
+        self.tokens_per_step = tokens
+        self.on_device = torch.device(self.device).type == "cuda"
+        self._peak = peak_flops_per_device(self.device)
+
+    def per_iter(self, iter_ms: Optional[float]) -> Dict[str, Optional[float]]:
+        """tokens/s, achieved model TFLOP/s, MFU and HFU of one measured
+        iteration on one card; all None off the card (and MFU/HFU for a
+        card of unknown peak)."""
+        out: Dict[str, Optional[float]] = {
+            "tokens_per_s": None, "tflops_per_device": None, "mfu": None, "hfu": None,
+        }
+        if not self.on_device or not iter_ms or iter_ms <= 0:
+            return out
+        s = iter_ms / 1000.0
+        rate = self.model_flops_per_step / s
+        out["tokens_per_s"] = self.tokens_per_step / s
+        out["tflops_per_device"] = rate / 1e12
+        if self._peak:
+            out["mfu"] = rate / self._peak
+            out["hfu"] = self.hardware_flops_per_step / s / self._peak
+        return out

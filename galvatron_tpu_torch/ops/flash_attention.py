@@ -1,9 +1,30 @@
-"""Decode attention over a contiguous cache and over the paged K/V pool.
+"""Flash attention for training, decode attention over a contiguous cache
+and over the paged K/V pool.
 
-Counterpart of ``decode_attention`` and ``paged_decode_attention`` /
-``_paged_decode_kernel`` in ``galvatron_tpu/ops/flash_attention.py``.
+Counterpart of ``galvatron_tpu/ops/flash_attention.py``: the blocked-causal
+forward with fused RoPE (``_fwd_kernel_blocked``) and the combined backward
+(``_bwd_kernel_blocked``) behind ``flash_attention_qkv`` /
+``flash_attention_hm``, their dispatch gates, ``decode_attention`` and
+``paged_decode_attention`` / ``_paged_decode_kernel``.
 
-For the paged op there are three pieces, side by side:
+Each kernel has three pieces, side by side:
+
+- a plain PyTorch version of the kernel's function, rounding where the
+  Pallas kernel rounds (:func:`flash_fwd_blocked_plain`,
+  :func:`flash_bwd_blocked_plain`, :func:`paged_decode_attention_plain`).
+  The CPU tests use it; on the card it is what the kernel is compared with;
+- a wrapper (:func:`flash_fwd`, :func:`flash_bwd`,
+  :func:`paged_decode_attention`): a CPU tensor goes to the plain version, a
+  CUDA tensor launches the hand-written Hopper kernel in ``csrc/`` or
+  raises. There is no fall back from the card to the plain version;
+- a launch counter on the wrapper (``flash_fwd.launches``, ...), a plain
+  integer incremented where the kernel is launched and nowhere else.
+
+The training entries are ``torch.autograd.Function``s, as the reference's
+are ``jax.custom_vjp``s: :class:`FlashQKV` over the stacked (b, 3, h, s, d)
+projection and :class:`FlashHM` over separate head-major q/k/v (GQA).
+
+For the paged op, in detail:
 
 - :func:`paged_decode_attention_plain`: the plain PyTorch version of the
   kernel's function (gather the pages, upcast to fp32, mask, softmax,
@@ -22,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,6 +52,433 @@ from galvatron_tpu_torch.ops import _build
 #: shared memory one thread block may use on Hopper (227 KB)
 _MAX_SMEM_BYTES = 232448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+NEG_INF = -1e30
+LOG2E = 1.4426950408889634  # log2(e)
+LN2 = 0.6931471805599453  # 1/log2(e)
+
+# ---------------------------------------------------------------------------
+# Dispatch gates, copied with their constants from the reference so a shape
+# takes the blocked path here exactly when it does there. The reference
+# sizes its s·d envelopes from a VMEM budget (GALVATRON_FLASH_VMEM_MB,
+# default 64 MB); the port keeps the envelopes that default gives.
+# ---------------------------------------------------------------------------
+
+_VMEM_EFF_MB = 64
+
+
+def _seq_envelope(mb_per_sxd, candidates, floor, budget_mb=None):
+    """Largest s·d envelope whose estimated charge (1.1× safety) fits the
+    budget; the floor is the envelope proven under a 16 MB budget, and a
+    budget below even that disables the blocked path (0)."""
+    budget = _VMEM_EFF_MB if budget_mb is None else budget_mb
+    for sxd in candidates + (floor,):
+        if budget >= mb_per_sxd * sxd * 1.1:
+            return sxd
+    return 0
+
+
+_FWD_MB_PER_SXD = 24.0 / (8192 * 128)
+_BLOCKED_MAX_SEQ_X_DIM = _seq_envelope(_FWD_MB_PER_SXD, (8192 * 128,), 4096 * 128)
+_BLOCKED_MAX_UNROLL = 8
+_BWD_BQ_SUB = 256
+_BWD_BK = 512
+_BWD_MB_PER_SXD = 21.4 / (4096 * 128)
+_BWD_MAX_SEQ_X_DIM = _seq_envelope(_BWD_MB_PER_SXD, (8192 * 128, 4096 * 128), 2048 * 128)
+
+
+def flash_tileable(s: int, block: int = 1024) -> bool:
+    """True when a (…, s, …) shape takes a kernel path (no einsum
+    fallback): the one tileability predicate of the reference."""
+    return s % min(block, s) == 0
+
+
+def _use_blocked(s, d, causal, rope, block_q, block_k) -> bool:
+    return (
+        causal
+        and rope is not None
+        and block_q == block_k
+        and s % block_q == 0
+        and s * d <= _BLOCKED_MAX_SEQ_X_DIM
+        and s // block_q <= _BLOCKED_MAX_UNROLL
+    )
+
+
+def _bwd_blocks(block_q):
+    """(bk, bq_sub) of the reference's combined backward for ``block_q``."""
+    bk = min(_BWD_BK, block_q)
+    return bk, min(_BWD_BQ_SUB, bk)
+
+
+def _use_blocked_bwd(s, d, causal, rope, block_q, block_k) -> bool:
+    bk, bq_sub = _bwd_blocks(block_q)
+    return (
+        _use_blocked(s, d, causal, rope, block_q, block_k)
+        and s * d <= _BWD_MAX_SEQ_X_DIM
+        and s % bk == 0
+        and bk % bq_sub == 0
+    )
+
+
+def flash_qkv_supported(s: int, d: int, causal: bool, rope, block_q: int = 1024) -> bool:
+    """Whether the stacked-qkv blocked path applies (modeling's gate)."""
+    return _use_blocked(s, d, causal, rope, min(block_q, s), min(block_q, s))
+
+
+def _unported_grid(what: str, s: int, d: int, section: str):
+    return NotImplementedError(
+        f"{what} at s={s}, d={d} is outside the blocked-causal envelope: the "
+        f"reference runs its grid flash kernels there, not ported yet "
+        f"(ROADMAP.md §{section})"
+    )
+
+
+# ---------------------------------------------------------------------------
+# Blocked-causal forward / backward: plain versions
+# ---------------------------------------------------------------------------
+
+
+def _rope_f32(x, c, s):
+    """Rotate-half RoPE of (..., s, d) rows against (s, d/2) fp32 tables,
+    in fp32 (the reference's ``_rope_rows``)."""
+    xf = x.float()
+    d2 = xf.shape[-1] // 2
+    x1, x2 = xf[..., :d2], xf[..., d2:]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+def _rope_t_f32(y, c, s):
+    """The transpose rotation (``_rope_rows_t``): gradients w.r.t. roped
+    rows back to gradients w.r.t. the raw rows."""
+    d2 = y.shape[-1] // 2
+    y1, y2 = y[..., :d2], y[..., d2:]
+    return torch.cat([y1 * c + y2 * s, y2 * c - y1 * s], dim=-1)
+
+
+def _causal_keep(s: int, device):
+    r = torch.arange(s, device=device)
+    return r[:, None] >= r[None, :]
+
+
+def flash_fwd_blocked_plain(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
+    """The blocked-causal forward in plain PyTorch. q (b, h, s, d); k/v
+    (b, h / kv_rep, s, d); cos/sin (s, d/2) fp32. Returns (out in q's
+    dtype, fp32 lse (b, h, s, 1)).
+
+    Rounds where ``_fwd_kernel_blocked`` rounds: q roped in fp32 through
+    tables pre-scaled by sm_scale·log2e and cast to the input dtype, k roped
+    through the unscaled tables and cast, base-2 scores in fp32, p cast to
+    the input dtype before the PV product, ``lse = m·ln2 + log(l)``. The
+    softmax runs over the whole row at once (the kernels walk it in tiles;
+    only p's rounding point relative to the running max differs)."""
+    dt = q.dtype
+    lam = sm_scale * LOG2E
+    qs = _rope_f32(q, cos * lam, sin * lam).to(dt).float()
+    kr = _rope_f32(k, cos, sin).to(dt).float()
+    vf = v.float()
+    if kv_rep > 1:
+        kr = kr.repeat_interleave(kv_rep, dim=1)
+        vf = vf.repeat_interleave(kv_rep, dim=1)
+    s2 = qs @ kr.transpose(-1, -2)
+    s2 = s2.masked_fill(~_causal_keep(q.shape[2], q.device), NEG_INF)
+    m = s2.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s2 - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = ((p.to(dt).float() @ vf) / l).to(dt)
+    return out, m * LN2 + torch.log(l)
+
+
+def flash_bwd_blocked_plain(q, k, v, do, out, lse, cos, sin, sm_scale):
+    """The combined blocked-causal backward in plain PyTorch, all of q/k/v
+    at h heads (GQA callers broadcast k/v first). Returns (dq, dk, dv) in
+    q's dtype.
+
+    Rounds where ``_bwd_kernel_blocked`` rounds: p recomputed from lse in
+    base 2, ``dv = p(input dtype)ᵀ·do``, ``ds = p·(dp − delta)`` cast to the
+    input dtype, ``dk = rope_t(LN2 · dsᵀ·q_scaled)`` and ``dq = rope_t(
+    sm_scale · ds·k_roped)``, both counter-rotated with the unscaled
+    tables."""
+    dt = q.dtype
+    lam = sm_scale * LOG2E
+    qs = _rope_f32(q, cos * lam, sin * lam).to(dt).float()
+    kr = _rope_f32(k, cos, sin).to(dt).float()
+    dof = do.float()
+    s2 = qs @ kr.transpose(-1, -2)
+    s2 = s2.masked_fill(~_causal_keep(q.shape[2], q.device), NEG_INF)
+    p = torch.exp2(s2 - lse.reshape(*lse.shape[:3], 1).float() * LOG2E)
+    dv = p.to(dt).float().transpose(-1, -2) @ dof
+    dp = dof @ v.float().transpose(-1, -2)
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta)).to(dt).float()
+    dk = _rope_t_f32((ds.transpose(-1, -2) @ qs) * LN2, cos, sin)
+    dq = _rope_t_f32((ds @ kr) * sm_scale, cos, sin)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_bwd_plain(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1, grads=None):
+    """:func:`flash_bwd`'s plain route, with its signature: k/v broadcast to
+    h heads, :func:`flash_bwd_blocked_plain`, and the results copied into
+    ``grads`` when given."""
+    if kv_rep > 1:
+        k = k.repeat_interleave(kv_rep, dim=1)
+        v = v.repeat_interleave(kv_rep, dim=1)
+    res = flash_bwd_blocked_plain(q, k, v, do, out, lse, cos, sin, sm_scale)
+    if grads is None:
+        return res
+    for dst, src in zip(grads, res):
+        dst.copy_(src)
+    return grads
+
+
+#: How far a bf16 flash kernel may lie from its plain version, as measured
+#: by :func:`bf16_parity_excess` (in units of the row's rms): forward
+#: (out) and backward (dq, dk, dv). Set at 2-3x the largest readings of the
+#: tensor-core kernels at the training shape on an H100 (0.012 forward,
+#: 0.031 backward, dq's tail; ``chip_smoke.py`` phase 3 prints them), where
+#: the plain versions with one key tile dropped read 0.9 and more.
+BF16_PARITY_TOL = {"fwd": 2 ** -5, "bwd": 2 ** -4}
+
+
+def bf16_parity_excess(got, ref):
+    """How far a bf16 kernel result ``got`` lies from its plain version's
+    ``ref`` beyond the rounding both do: the largest (|got − ref| −
+    ulp(ref)) over the rms of ref's row (the last dim), 0 when every
+    element is within one bf16 ulp.
+
+    Both round an fp32 value to bf16, which alone leaves them up to one ulp
+    apart. What the excess measures is how far the two fp32 values differ,
+    and that scales with the row, not with the element: the forward rounds
+    p to bf16 against the running row max where the plain version rounds
+    against the final one (each p off by up to an ulp, ~2^-8 of itself,
+    so ``out`` by ~2^-8 of the row's scale at most); the backward rounds a
+    ds the other way where fp32 summation order moves it across a rounding
+    boundary. A kernel that skips a 64-key tile for a row of n keys moves
+    that row by ~sqrt(64 / n) of its scale, far above either.
+
+    A row whose true value cancels to zero (query 0's dq: its one key is
+    itself, so ds = 0) keeps only fp32 noise; its scale is floored at 2^-10
+    of the whole tensor's rms."""
+    r = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+    floor = r.square().mean().sqrt().clamp_min(1e-30) * 2 ** -10
+    rms = torch.maximum(r.square().mean(dim=-1, keepdim=True).sqrt(), floor)
+    return max(0.0, (((got.float() - r).abs() - ulp) / rms).max().item())
+
+
+# ---------------------------------------------------------------------------
+# Blocked-causal forward / backward: wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_flash_operands(name, tensors, cos, sin, d):
+    dev, dt = tensors[0].device, tensors[0].dtype
+    if dt not in _DTYPE_CODE or any(t.dtype != dt for t in tensors):
+        raise TypeError(
+            f"the {name} kernel takes bf16 or fp32 operands of one dtype, got "
+            f"{sorted({str(t.dtype) for t in tensors})}"
+        )
+    if d % 8 or d > 256:
+        raise ValueError(f"the {name} kernel takes head_dim % 8 == 0 and <= 256, got {d}")
+    if any(t.device != dev for t in tensors) or cos.device != dev or sin.device != dev:
+        raise ValueError(f"{name}: every operand and the rope tables must share one device")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError(f"{name}: the head dim of every operand must be unit-stride")
+    s = tensors[0].shape[2]
+    for t in (cos, sin):
+        if t.dtype != torch.float32 or tuple(t.shape) != (s, d // 2) or not t.is_contiguous():
+            raise ValueError(f"{name}: rope tables must be contiguous fp32 ({s}, {d // 2})")
+
+
+def _strides(*tensors):
+    """(b, h, s) element strides of each (b, h, s, d) operand, flattened."""
+    flat = [st for t in tensors for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
+    """Blocked-causal forward with fused RoPE: (out (b, h, s, d), fp32 lse
+    (b, h, s, 1)). q (b, h, s, d), k/v (b, h / kv_rep, s, d), any strides
+    with a unit-stride head dim (views of the stacked projection go in
+    without a copy). CPU tensors run :func:`flash_fwd_blocked_plain`; CUDA
+    tensors launch ``csrc/flash_fwd.cu``, whose ``out`` is laid out
+    (b, s, h, d) in memory so the output projection reads it as is."""
+    b, h, s, d = q.shape
+    if k.shape != (b, h // kv_rep, s, d) or v.shape != k.shape or h % kv_rep:
+        raise ValueError(f"k/v must be ({b}, {h}/{kv_rep}, {s}, {d}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    _check_flash_operands("flash_fwd", (q, k, v), cos, sin, d)
+    if q.device.type == "cpu":
+        return flash_fwd_blocked_plain(q, k, v, cos, sin, sm_scale, kv_rep)
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
+    launch = _flash_fwd_kernel()
+    with torch.cuda.device(q.device):
+        err = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            cos.data_ptr(), sin.data_ptr(), _strides(q, k, v, out), _DTYPE_CODE[q.dtype],
+            b, h, kv_rep, s, d, float(sm_scale * LOG2E),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+    flash_fwd.launches += 1
+    return out, lse
+
+
+flash_fwd.launches = 0
+
+
+def flash_bwd(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1,
+              grads: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None):
+    """Combined blocked-causal backward: (dq, dk, dv), each (b, h, s, d) in
+    q's dtype; dk/dv are per query head (GQA callers sum them over the
+    group). ``grads`` optionally gives the three outputs to write (e.g. the
+    slots of a stacked dqkv). CPU tensors run :func:`flash_bwd_plain`; CUDA
+    tensors launch ``csrc/flash_bwd.cu``."""
+    b, h, s, d = q.shape
+    _check_flash_operands("flash_bwd", (q, k, v, do, out), cos, sin, d)
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s, 1) or not lse.is_contiguous():
+        raise ValueError(f"flash_bwd: lse must be contiguous fp32 ({b}, {h}, {s}, 1)")
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep, grads)
+    if grads is None:
+        grads = tuple(torch.empty((b, h, s, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    if any(g.shape != q.shape or g.dtype != q.dtype or g.stride(-1) != 1 for g in grads):
+        raise ValueError("flash_bwd: grads must match q's shape and dtype, unit-stride head dim")
+    dq, dk, dv = grads
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    launch = _flash_bwd_kernel()
+    with torch.cuda.device(q.device):
+        err = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), cos.data_ptr(), sin.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), _strides(q, k, v, do, out, dq, dk, dv),
+            _DTYPE_CODE[q.dtype], b, h, kv_rep, s, d, float(sm_scale * LOG2E),
+            float(sm_scale), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd.launches = 0
+
+
+def _flash_fwd_kernel():
+    fn = _build.load("flash_fwd").galvatron_flash_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)] + [
+        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _flash_bwd_kernel():
+    fn = _build.load("flash_bwd").galvatron_flash_bwd
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_longlong)] + [
+        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Autograd entries (the reference's custom_vjp pairs)
+# ---------------------------------------------------------------------------
+
+
+def _check_bwd_gate(s, d, block_q):
+    if not _use_blocked_bwd(s, d, True, True, block_q, block_q):
+        raise _unported_grid("the flash backward", s, d, "2.4")
+
+
+def _unit_stride(t):
+    """An incoming gradient may be an expanded view (stride 0 on the
+    head dim, e.g. from ``out.sum()``); the kernels need a unit-stride head
+    dim and take any other strides."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+class FlashQKV(torch.autograd.Function):
+    """Stacked entry (``_flash_qkv``): the forward reads q/k/v as views of
+    the (b, 3, h, s, d) projection output, saves (qkv, out, lse) and the
+    backward writes a stacked dqkv with qkv's own strides, so neither side
+    copies."""
+
+    @staticmethod
+    def forward(ctx, qkv, cos, sin, sm_scale, block_q):
+        out, lse = flash_fwd(qkv[:, 0], qkv[:, 1], qkv[:, 2], cos, sin, sm_scale)
+        ctx.save_for_backward(qkv, out, lse, cos, sin)
+        ctx.sm_scale, ctx.block_q = sm_scale, block_q
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, out, lse, cos, sin = ctx.saved_tensors
+        _check_bwd_gate(qkv.shape[3], qkv.shape[4], ctx.block_q)
+        do = _unit_stride(do)
+        dqkv = torch.empty_like(qkv)  # keeps qkv's strides
+        flash_bwd(qkv[:, 0], qkv[:, 1], qkv[:, 2], do, out, lse, cos, sin, ctx.sm_scale,
+                  grads=(dqkv[:, 0], dqkv[:, 1], dqkv[:, 2]))
+        return dqkv, None, None, None, None
+
+
+class FlashHM(torch.autograd.Function):
+    """Head-major entry (``_flash``): k/v may carry h / kv_rep heads; the
+    forward maps head h to kv head h // kv_rep, the backward computes dk/dv
+    per query head and sums them over the group (``_flash_bwd_rule``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, sm_scale, block_q):
+        kv_rep = q.shape[1] // k.shape[1]
+        out, lse = flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep)
+        ctx.save_for_backward(q, k, v, out, lse, cos, sin)
+        ctx.sm_scale, ctx.block_q, ctx.kv_rep = sm_scale, block_q, kv_rep
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, cos, sin = ctx.saved_tensors
+        _check_bwd_gate(q.shape[2], q.shape[3], ctx.block_q)
+        do = _unit_stride(do)
+        dq, dk, dv = flash_bwd(q, k, v, do, out, lse, cos, sin, ctx.sm_scale, ctx.kv_rep)
+        if ctx.kv_rep > 1:
+            b, h, s, d = dk.shape
+            dk = dk.reshape(b, h // ctx.kv_rep, ctx.kv_rep, s, d).sum(dim=2)
+            dv = dv.reshape(b, h // ctx.kv_rep, ctx.kv_rep, s, d).sum(dim=2)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_qkv(qkv, sm_scale=None, block_q: int = 1024, rope=None):
+    """Stacked head-major entry: ``qkv`` is the fused projection's
+    (b, 3, h, s, d) output (any strides with a unit-stride head dim),
+    causal with fused RoPE only; returns (b, h, s, d). Callers gate on
+    :func:`flash_qkv_supported`; a shape outside it raises."""
+    s, d = qkv.shape[3], qkv.shape[4]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    block_q = min(block_q, s)
+    if rope is None or not _use_blocked(s, d, True, rope, block_q, block_q):
+        raise _unported_grid("flash_attention_qkv", s, d, "2.3")
+    return FlashQKV.apply(qkv, rope[0], rope[1], float(sm_scale), block_q)
+
+
+def flash_attention_hm(q, k, v, causal: bool = True, sm_scale: Optional[float] = None,
+                       block_q: int = 1024, block_k: int = 1024, rope=None):
+    """Head-major entry: q (b, h, s, d), k/v (b, kv_heads, s, d) with
+    h % kv_heads == 0 (GQA-native); returns (b, h, s, d). The port runs the
+    blocked-causal RoPE kernels; shapes the reference sends to its grid
+    kernels (non-causal, no RoPE, outside the envelope) raise
+    ``NotImplementedError`` naming ROADMAP §2.3."""
+    b, h, s, d = q.shape
+    if h % k.shape[1]:
+        raise ValueError(f"heads {h} not divisible by kv_heads {k.shape[1]}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    block_q = min(block_q, s)
+    block_k = min(block_k, s)
+    if not _use_blocked(s, d, causal, rope, block_q, block_k):
+        raise _unported_grid("flash_attention_hm", s, d, "2.3")
+    return FlashHM.apply(q, k, v, rope[0], rope[1], float(sm_scale), block_q)
 
 
 def decode_attention(q, k, v, q_offset=0, sm_scale=None):

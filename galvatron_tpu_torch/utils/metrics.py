@@ -1,12 +1,110 @@
-"""Thread-safe serving counters, a mergeable latency histogram and a
-quantile window (the port's copy of ``galvatron_tpu/utils/metrics.py``'s
-``Counters``, ``Histogram`` and ``QuantileWindow``, on plain
-``threading`` locks)."""
+"""The JSONL metrics sink, thread-safe serving counters, a mergeable
+latency histogram and a quantile window (the port's copy of
+``galvatron_tpu/utils/metrics.py``'s ``MetricsLogger``, ``Counters``,
+``Histogram`` and ``QuantileWindow``, on plain ``threading`` locks)."""
 
 from __future__ import annotations
 
+import json
+import os
 import threading
+import time
+import warnings
 from typing import Any, Dict, Optional
+
+#: version stamped as a ``schema`` field on versioned JSONL records
+#: (``train_iter``); readers tolerate higher versions and extra fields
+SCHEMA_VERSION = 1
+
+
+class MetricsLogger:
+    """Append-only JSONL metrics writer; no-op when ``path`` is None. One
+    flat JSON object per event with a wall-clock timestamp. Opened in append
+    mode, so a rerun appends after the previous records; a torn final line
+    from a crash is repaired (or dropped, with a warning) before appending."""
+
+    def __init__(self, path: Optional[str] = None):
+        self.path = path
+        self._f = None
+        if path:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            _repair_torn_tail(path)
+            self._f = open(path, "a")
+
+    def log(self, event: str, step: Optional[int] = None, **fields: Any) -> Dict[str, Any]:
+        rec: Dict[str, Any] = {"event": event, "ts": time.time()}
+        if step is not None:
+            rec["step"] = int(step)
+        for k, v in fields.items():
+            if hasattr(v, "item"):  # 0-d tensors / numpy scalars
+                v = v.item()
+            if not isinstance(v, (int, float, str, bool, type(None))):
+                raise TypeError(f"metric {k!r} must be scalar, got {type(v).__name__}")
+            rec[k] = v
+        if self._f is not None:
+            self._f.write(json.dumps(rec) + "\n")
+            self._f.flush()
+        return rec
+
+    def close(self):
+        if self._f is not None:
+            self._f.flush()
+            self._f.close()
+            self._f = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _repair_torn_tail(path: str) -> None:
+    """A crash mid-write can leave a final line with no newline: a tail
+    that parses as a record gets its newline, an unparseable one (a partial
+    record) is truncated away with a warning."""
+    try:
+        size = os.path.getsize(path)
+    except OSError:
+        return
+    if size == 0:
+        return
+    with open(path, "rb+") as f:
+        window = min(size, 1 << 20)
+        f.seek(size - window)
+        data = f.read(window)
+        if data.endswith(b"\n"):
+            return
+        nl = data.rfind(b"\n")
+        tail = data[nl + 1:]
+        if nl < 0 and window < size:
+            f.write(b"\n")
+            return
+        try:
+            json.loads(tail)
+            f.write(b"\n")
+            return
+        except ValueError:
+            pass
+        warnings.warn(f"{path}: dropping torn final JSONL record before appending: {tail[:80]!r}")
+        f.truncate(size - len(tail))
+
+
+def read_metrics(path: str):
+    """The records of a JSONL metrics file (a torn final line is skipped)."""
+    out = []
+    with open(path) as f:
+        lines = f.read().splitlines()
+    for i, line in enumerate(lines):
+        if not line.strip():
+            continue
+        try:
+            out.append(json.loads(line))
+        except ValueError:
+            if i == len(lines) - 1:
+                continue
+            raise
+    return out
 
 
 class Counters:

@@ -43,17 +43,20 @@ def fake_nvcc(tmp_path, monkeypatch):
 
 def test_every_source_builds_for_sm90a_and_is_reused(fake_nvcc):
     nvcc = fake_nvcc()
-    assert _build.sources() == ["paged_decode"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "paged_decode"]
     log = _build.build_all()
-    target = _build._target("paged_decode", nvcc)
-    assert log["paged_decode"]["path"] == str(target) and target.exists()
-    assert "arch=compute_90a,code=sm_90a" in target.read_text()
-    assert "registers" in log["paged_decode"]["ptxas"]
-    assert [p.name for p in target.parent.iterdir()] == [target.name]  # no temp left
-    mtime = os.path.getmtime(target)
+    targets = {name: _build._target(name, nvcc) for name in _build.sources()}
+    for name, target in targets.items():
+        assert log[name]["path"] == str(target) and target.exists()
+        assert "arch=compute_90a,code=sm_90a" in target.read_text()
+        assert "registers" in log[name]["ptxas"]
+    # one library per source and no temp left
+    assert sorted(p.name for p in _build.BUILD_DIR.iterdir()) == sorted(
+        t.name for t in targets.values())
+    mtime = os.path.getmtime(targets["paged_decode"])
     _build.BUILD_LOG.clear()
     assert _build.build_all()["paged_decode"]["ptxas"] == "(cached)"
-    assert os.path.getmtime(target) == mtime
+    assert os.path.getmtime(targets["paged_decode"]) == mtime
 
 
 def test_the_library_name_follows_source_and_compiler(fake_nvcc):
@@ -66,4 +69,19 @@ def test_a_failed_build_raises_with_the_compiler_output(fake_nvcc):
     fake_nvcc(fail="paged_decode.cu")
     with pytest.raises(RuntimeError, match="cannot compile"):
         _build.build_all()
-    assert not any(_build.BUILD_DIR.iterdir())  # nothing half-written is left to load
+    # nothing half-written is left to load: only the sources that built
+    assert sorted(p.name.split("-")[0] for p in _build.BUILD_DIR.iterdir()) == [
+        "libflash_bwd", "libflash_fwd"]
+
+
+def test_a_shared_header_change_rebuilds_every_source(fake_nvcc, tmp_path, monkeypatch):
+    nvcc = fake_nvcc()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu", "common.cuh"):
+        (csrc / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build._target(n, nvcc) for n in ("a", "b")}
+    (csrc / "common.cuh").write_text("// edited\n")
+    after = {n: _build._target(n, nvcc) for n in ("a", "b")}
+    assert all(before[n] != after[n] for n in before)

@@ -1,0 +1,262 @@
+"""The port's blocked-causal flash attention (plain versions, the autograd
+entries and the dispatch gates) against the JAX package's Pallas kernels,
+which run in interpret mode on the CPU, as tests/test_ops.py runs them.
+Inputs come from numpy seeds and go to both sides as the same arrays."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from galvatron_tpu.models import modeling as jm
+from galvatron_tpu.ops import flash_attention as jfa
+from galvatron_tpu_torch.ops import flash_attention as tfa
+
+# fp32: the two sides sum the products in other orders, and the Pallas
+# kernels walk the softmax in blocks while the plain version takes the
+# whole row at once; both differences stay near fp32 rounding of O(1) values
+FWD_ATOL = 2e-5
+GRAD_ATOL = 1e-4
+# bf16: both sides round q/k/p/ds at the same points, but p is rounded
+# against a running max on the JAX side and the row max here, so single
+# elements can land one bf16 ulp apart; outputs are O(1) (ulp 2^-7)
+BF16_ATOL = 2 ** -6
+
+
+def _tables(s, d):
+    cfg = jm.ModelConfig(num_heads=1, hidden_size=d, max_seq_len=s)
+    cos, sin = jm.rope_tables(cfg, s)
+    return np.array(cos), np.array(sin)  # writable copies for torch.from_numpy
+
+
+def _arrays(shapes, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).requires_grad_(True)
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+CASES = {
+    # name: (b, h, kv_heads, s, d, jax block_q)
+    "mha": (2, 4, 4, 64, 32, 1024),
+    "gqa_rep2": (2, 4, 2, 64, 32, 1024),
+    "ragged_s100": (1, 2, 2, 100, 64, 1024),
+    "multiblock_s128_bq32": (1, 2, 2, 128, 32, 32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_hm_forward_and_grads_match_jax(case):
+    b, h, kvh, s, d, bq = CASES[case]
+    q, k, v, w = _arrays([(b, h, s, d), (b, kvh, s, d), (b, kvh, s, d), (b, h, s, d)], seed=len(case))
+    cos, sin = _tables(s, d)
+
+    def jloss(q_, k_, v_):
+        out = jfa.flash_attention_hm(q_, k_, v_, rope=(cos, sin), block_q=bq, block_k=bq)
+        return (out * w).sum(), out
+
+    (jl, jout), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    tout = tfa.flash_attention_hm(tq, tk, tv, rope=(torch.from_numpy(cos), torch.from_numpy(sin)),
+                                  block_q=bq, block_k=bq)
+    (tout * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(_np(tout), np.asarray(jout), atol=FWD_ATOL, rtol=0)
+    for name, got, ref in zip("qkv", (tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(_np(got), np.asarray(ref), atol=GRAD_ATOL, rtol=0,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_qkv_stacked_forward_and_grads_match_jax(dtype):
+    b, h, s, d = 2, 4, 64, 32
+    qkv, w = _arrays([(b, 3, h, s, d), (b, h, s, d)], seed=7)
+    cos, sin = _tables(s, d)
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+
+    def jloss(x):
+        out = jfa.flash_attention_qkv(x, rope=(cos, sin))
+        return (out.astype(jnp.float32) * w).sum(), out
+
+    (_, jout), jg = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(qkv, jdt))
+    tx = _t(qkv, tdt)
+    tout = tfa.flash_attention_qkv(tx, rope=(torch.from_numpy(cos), torch.from_numpy(sin)))
+    (tout.float() * torch.from_numpy(w)).sum().backward()
+    fwd_tol, grad_tol = (FWD_ATOL, GRAD_ATOL) if dtype == "fp32" else (BF16_ATOL, 4 * BF16_ATOL)
+    np.testing.assert_allclose(_np(tout), np.asarray(jout.astype(jnp.float32)), atol=fwd_tol,
+                               rtol=0)
+    np.testing.assert_allclose(_np(tx.grad), np.asarray(jg.astype(jnp.float32)), atol=grad_tol,
+                               rtol=0)
+
+
+def test_qkv_stacked_accepts_a_strided_projection_view():
+    """The stacked input as the projection produces it: a (b, s, 3, h, d)
+    buffer viewed as (b, 3, h, s, d), no copy; its gradient keeps the view's
+    strides (the projection backward reads it as is)."""
+    b, h, s, d = 1, 2, 64, 32
+    (x,) = _arrays([(b, s, 3, h, d)], seed=3)
+    cos, sin = (torch.from_numpy(t) for t in _tables(s, d))
+    base = _t(x)
+    view = base.permute(0, 2, 3, 1, 4)
+    out = tfa.flash_attention_qkv(view, rope=(cos, sin))
+    out.sum().backward()
+    ref_in = _t(x).permute(0, 2, 3, 1, 4).contiguous().detach().requires_grad_(True)
+    ref = tfa.flash_attention_qkv(ref_in, rope=(cos, sin))
+    ref.sum().backward()
+    np.testing.assert_array_equal(_np(out), _np(ref))
+    np.testing.assert_array_equal(_np(base.grad.permute(0, 2, 3, 1, 4)), _np(ref_in.grad))
+
+
+def _dropped_tile_keep(s, device):
+    """The causal mask with keys 0-63 dropped for the rows from
+    max(64, s/2): a kernel that skipped that tile."""
+    r = torch.arange(s, device=device)
+    mask = r[:, None] >= r[None, :]
+    mask[max(64, s // 2):, :64] = False
+    return mask
+
+
+@pytest.mark.parametrize("case", ["ragged_s100", "multiblock_s128_bq32"])
+def test_bf16_parity_rule_holds_jax_and_rejects_a_dropped_tile(case, monkeypatch):
+    """The rule the card holds the bf16 kernels to (``bf16_parity_excess``
+    within ``BF16_PARITY_TOL``), applied to the JAX Pallas kernels against
+    the port's plain versions: with four 32-row blocks the JAX forward
+    rounds p against a running max, as the CUDA kernels do, and passes. The
+    plain versions with a key tile dropped fail it."""
+    b, h, kvh, s, d, bq = CASES[case]
+    q, k, v, w = _arrays([(b, h, s, d), (b, kvh, s, d), (b, kvh, s, d), (b, h, s, d)], seed=13)
+    cos, sin = _tables(s, d)
+
+    def jloss(q_, k_, v_):
+        out = jfa.flash_attention_hm(q_, k_, v_, rope=(cos, sin), block_q=bq, block_k=bq)
+        return (out.astype(jnp.float32) * w).sum(), out
+
+    args = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    (_, jout), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(*args)
+    ref = [torch.from_numpy(np.array(a.astype(jnp.float32))) for a in (jout, *jg)]
+
+    def run():
+        tq, tk, tv = (_t(a, torch.bfloat16) for a in (q, k, v))
+        out = tfa.flash_attention_hm(tq, tk, tv, rope=(torch.from_numpy(cos),
+                                                       torch.from_numpy(sin)),
+                                     block_q=bq, block_k=bq)
+        (out.float() * torch.from_numpy(w)).sum().backward()
+        return [out, tq.grad, tk.grad, tv.grad]
+
+    excess = [tfa.bf16_parity_excess(g, r) for g, r in zip(run(), ref)]
+    assert excess[0] <= tfa.BF16_PARITY_TOL["fwd"]
+    assert max(excess[1:]) <= tfa.BF16_PARITY_TOL["bwd"]
+    monkeypatch.setattr(tfa, "_causal_keep", _dropped_tile_keep)
+    control = [tfa.bf16_parity_excess(g, r) for g, r in zip(run(), ref)]
+    assert control[0] > tfa.BF16_PARITY_TOL["fwd"]
+    assert min(control[1:]) > tfa.BF16_PARITY_TOL["bwd"]
+
+
+def test_bf16_parity_excess_forgives_one_ulp_and_scales_with_the_row():
+    """One ulp of each element is the rounding both sides do: no excess.
+    Past it, the error counts in units of the row's rms, so a row of small
+    values is held as tightly as a row of large ones."""
+    ref = torch.tensor([[1.0, -0.5, 0.25, 2.0], [1e-3, -2e-3, 4e-3, 1e-3]])
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs())) - 7)
+    assert tfa.bf16_parity_excess(ref + ulp, ref) == 0.0
+    rms = ref.square().mean(dim=-1, keepdim=True).sqrt()
+    for row in range(2):
+        got = ref.clone()
+        got[row, 0] += ulp[row, 0] + 0.1 * rms[row, 0]
+        assert tfa.bf16_parity_excess(got, ref) == pytest.approx(0.1, rel=1e-5)
+
+
+def test_flash_bwd_plain_writes_into_given_grads():
+    b, h, s, d = 1, 4, 64, 16
+    q, k, v, do = (torch.from_numpy(a) for a in _arrays([(b, h, s, d), (b, 2, s, d),
+                                                        (b, 2, s, d), (b, h, s, d)], seed=9))
+    cos, sin = (torch.from_numpy(t) for t in _tables(s, d))
+    out, lse = tfa.flash_fwd_blocked_plain(q, k, v, cos, sin, 0.25, 2)
+    res = tfa.flash_bwd_plain(q, k, v, do, out, lse, cos, sin, 0.25, 2)
+    ref = tfa.flash_bwd_blocked_plain(q, k.repeat_interleave(2, 1), v.repeat_interleave(2, 1),
+                                      do, out, lse, cos, sin, 0.25)
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    assert tfa.flash_bwd_plain(q, k, v, do, out, lse, cos, sin, 0.25, 2, grads) is grads
+    for got, into, want in zip(res, grads, ref):
+        assert torch.equal(got, want) and torch.equal(into, want)
+
+
+@pytest.mark.parametrize("case", ["mha", "ragged_s100"])
+def test_plain_forward_lse_matches_jax_blocked_kernel(case):
+    """``flash_fwd_blocked_plain`` against ``_flash_fwd_blocked`` itself
+    (interpret mode): out and the natural-log lse."""
+    b, h, _, s, d, bq = CASES[case]
+    q, k, v = _arrays([(b, h, s, d)] * 3, seed=11)
+    cos, sin = _tables(s, d)
+    jout, jlse = jfa._flash_fwd_blocked(q, k, v, (cos, sin), 1 / np.sqrt(d), min(bq, s), True)
+    tout, tlse = tfa.flash_fwd_blocked_plain(*(torch.from_numpy(a) for a in (q, k, v, cos, sin)),
+                                             1 / np.sqrt(d))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=FWD_ATOL, rtol=0)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=FWD_ATOL, rtol=0)
+
+
+# the shape table of tests/test_ops.py's gate assertions, plus the shapes
+# the port's tests and main path use
+GATE_SHAPES = [
+    (16384, 128, 1024), (8192, 256, 1024), (4096, 128, 128), (8192, 128, 1024),
+    (2048, 128, 1024), (4096, 128, 1024), (100, 64, 1024), (128, 32, 32), (64, 32, 1024),
+    (1536, 128, 1024), (2048, 128, 512),
+]
+
+
+@pytest.mark.parametrize("s,d,bq", GATE_SHAPES)
+def test_gates_agree_with_jax(s, d, bq):
+    cos_sin = (None, None)
+    b = min(bq, s)
+    assert tfa._use_blocked(s, d, True, cos_sin, b, b) == jfa._use_blocked(s, d, True, cos_sin, b, b)
+    assert tfa._use_blocked_bwd(s, d, True, cos_sin, b, b) == jfa._use_blocked_bwd(
+        s, d, True, cos_sin, b, b)
+    assert tfa._bwd_blocks(b) == jfa._bwd_blocks(b)
+    assert tfa.flash_tileable(s, bq) == jfa.flash_tileable(s, bq)
+    assert tfa.flash_qkv_supported(s, d, True, cos_sin) == jfa.flash_qkv_supported(
+        s, d, True, cos_sin)
+    assert not tfa._use_blocked(s, d, False, cos_sin, b, b)
+    assert not tfa._use_blocked(s, d, True, None, b, b)
+
+
+def test_envelopes_are_the_reference_defaults():
+    assert tfa._BLOCKED_MAX_SEQ_X_DIM == jfa._BLOCKED_MAX_SEQ_X_DIM
+    assert tfa._BWD_MAX_SEQ_X_DIM == jfa._BWD_MAX_SEQ_X_DIM
+    assert tfa._BLOCKED_MAX_UNROLL == jfa._BLOCKED_MAX_UNROLL
+
+
+def test_shapes_of_the_grid_kernels_raise_naming_the_roadmap():
+    q = torch.zeros(1, 2, 1536, 32)
+    cos, sin = torch.zeros(1536, 16), torch.zeros(1536, 16)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §2.3"):
+        tfa.flash_attention_hm(q, q, q, rope=(cos, sin))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §2.3"):
+        tfa.flash_attention_hm(q[:, :, :64], q[:, :, :64], q[:, :, :64], rope=None)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    cos, sin = torch.zeros(64, 6), torch.zeros(64, 6)
+    q = torch.zeros(1, 2, 64, 12)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_fwd(q, q, q, cos, sin, 0.3)
+    q = torch.zeros(1, 2, 64, 16, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        tfa.flash_fwd(q, q, q, torch.zeros(64, 8), torch.zeros(64, 8), 0.3)
+
+
+def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
+    b, h, s, d = 1, 2, 64, 16
+    q, k, v = (torch.from_numpy(a) for a in _arrays([(b, h, s, d)] * 3, seed=5))
+    cos, sin = (torch.from_numpy(t) for t in _tables(s, d))
+    before = (tfa.flash_fwd.launches, tfa.flash_bwd.launches)
+    out, lse = tfa.flash_fwd(q, k, v, cos, sin, 0.25)
+    ref_out, ref_lse = tfa.flash_fwd_blocked_plain(q, k, v, cos, sin, 0.25)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    tfa.flash_bwd(q, k, v, out, out, lse, cos, sin, 0.25)
+    assert (tfa.flash_fwd.launches, tfa.flash_bwd.launches) == before

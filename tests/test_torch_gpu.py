@@ -1,6 +1,7 @@
 """Card-side checks of the port (marker ``gpu``): the hand-written paged
-decode kernel against its plain PyTorch version on the same CUDA tensors,
-and the engine on the card against the engine on the CPU. Each test skips,
+decode and flash forward/backward kernels against their plain PyTorch
+versions on the same CUDA tensors, and the engine on the card against the
+engine on the CPU. Each test skips,
 with its reason, where ``torch.cuda.is_available()`` is false; run them on
 the card with ``python -m pytest tests/test_torch_gpu.py -m gpu``."""
 
@@ -86,6 +87,157 @@ def test_engine_on_card_matches_cpu(cuda):
     assert outs[0] == outs[1]
     assert st["decode_steps"] > 0
     assert math.isfinite(st["tokens_per_s"])
+
+
+FLASH_CASES = {
+    # name: (dtype, b, h, kv_heads, s, d, stacked)
+    "main_bf16_stacked": (torch.bfloat16, 2, 32, 32, 2048, 128, True),
+    "ragged_s100_d64": (torch.bfloat16, 2, 4, 4, 100, 64, False),
+    "gqa_rep4": (torch.bfloat16, 2, 32, 8, 512, 128, False),
+    "fp32": (torch.float32, 1, 8, 8, 512, 128, True),
+    "fp32_ragged_d40": (torch.float32, 1, 2, 2, 77, 40, False),
+    "fp32_d256": (torch.float32, 1, 2, 1, 200, 256, False),
+    # bf16 off the tensor-core head dims (64, 128): the CUDA-core kernels
+    "bf16_ragged_d40": (torch.bfloat16, 1, 4, 2, 77, 40, False),
+    "bf16_d256": (torch.bfloat16, 1, 2, 2, 130, 256, True),
+}
+
+
+def _flash_inputs(dtype, b, h, kvh, s, d, stacked, seed=0):
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3, h, d)).astype(np.float32))
+    qkv = qkv.to("cuda", dtype).permute(0, 2, 3, 1, 4)  # the projection's strided view
+    if stacked:
+        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    else:
+        q = qkv[:, 0]
+        k, v = qkv[:, 1, :kvh].contiguous(), qkv[:, 2, :kvh].contiguous()
+    inv = 1.0 / (10000.0 ** (np.arange(0, d, 2) / d))
+    freqs = np.outer(np.arange(s), inv)
+    cos = torch.from_numpy(np.cos(freqs).astype(np.float32)).cuda()
+    sin = torch.from_numpy(np.sin(freqs).astype(np.float32)).cuda()
+    do = torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32)).to("cuda", dtype)
+    return q, k, v, do, cos, sin
+
+
+def _close(got, ref, which):
+    """fp32: max abs error within 1e-5 (forward) or 1e-4 (backward). bf16:
+    ``fa.bf16_parity_excess`` (the error beyond one output ulp, over the
+    row's rms) within ``fa.BF16_PARITY_TOL``."""
+    if got.dtype == torch.float32:
+        return (got - ref).abs().max().item() <= {"fwd": 1e-5, "bwd": 1e-4}[which]
+    return fa.bf16_parity_excess(got, ref) <= fa.BF16_PARITY_TOL[which]
+
+
+def _dropped_tile_keep(s, device):
+    """The causal mask with keys 0-63 dropped for the rows from
+    max(64, s/2): a kernel that skipped that tile."""
+    r = torch.arange(s, device=device)
+    mask = r[:, None] >= r[None, :]
+    mask[max(64, s // 2):, :64] = False
+    return mask
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, case, monkeypatch):
+    """flash_fwd / flash_bwd kernels against their plain versions on the
+    same CUDA tensors, as in ``_close``; lse within 1e-5 (fp32) or 1e-4
+    (bf16: it is never rounded to bf16, only fp32 summation order differs);
+    one launch each. The plain versions with a key tile dropped must fail
+    the same check."""
+    dtype, b, h, kvh, s, d, stacked = FLASH_CASES[case]
+    q, k, v, do, cos, sin = _flash_inputs(dtype, b, h, kvh, s, d, stacked)
+    rep = h // kvh
+    sm = 1.0 / math.sqrt(d)
+    before = (fa.flash_fwd.launches, fa.flash_bwd.launches)
+    out, lse = fa.flash_fwd(q, k, v, cos, sin, sm, rep)
+    grads = fa.flash_bwd(q, k, v, do, out, lse, cos, sin, sm, rep)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref_out, ref_lse = fa.flash_fwd_blocked_plain(q, k, v, cos, sin, sm, rep)
+    assert _close(out, ref_out, "fwd")
+    assert (lse - ref_lse).abs().max().item() <= (1e-5 if dtype == torch.float32 else 1e-4)
+    kf, vf = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    ref_grads = fa.flash_bwd_blocked_plain(q, kf, vf, do, out, lse, cos, sin, sm)
+    for name, g, r in zip("qkv", grads, ref_grads):
+        assert torch.isfinite(g).all(), name
+        assert _close(g, r, "bwd"), name
+    monkeypatch.setattr(fa, "_causal_keep", _dropped_tile_keep)
+    assert not _close(fa.flash_fwd_blocked_plain(q, k, v, cos, sin, sm, rep)[0], ref_out, "fwd")
+    ctl = fa.flash_bwd_blocked_plain(q, kf, vf, do, out, lse, cos, sin, sm)
+    for name, c, r in zip("qkv", ctl, ref_grads):
+        assert not _close(c, r, "bwd"), name
+
+
+@pytest.mark.parametrize("kv_heads", [None, 2])
+def test_train_steps_on_card_match_cpu(cuda, kv_heads):
+    """fp32 train steps through the flash kernels on the card (MHA: the
+    stacked qkv view; GQA: the interleaved projection's k/v views) against
+    the plain versions on the CPU, from the same weights and batches;
+    bf16 on the card (the tensor-core kernels) stays finite."""
+    from galvatron_tpu_torch.core.optim import AdamConfig
+    from galvatron_tpu_torch.parallel.hybrid import build_runtime
+
+    cfg = modeling.ModelConfig(vocab_size=384, hidden_size=256, num_layers=2, num_heads=4,
+                               num_kv_heads=kv_heads, ffn_dim=512, max_seq_len=128,
+                               attn_impl="flash")
+    adam = AdamConfig(lr=1e-3, weight_decay=0.01)
+    cpu_params = modeling.init_model_params(cfg, 0, "cpu")
+    batches = [torch.from_numpy(np.random.RandomState(i).randint(0, 384, (2, 129)))
+               for i in range(2)]
+    losses = {}
+    # the CPU run last: its state updates cpu_params in place
+    for dev, precision in (("cuda", "fp32"), ("cuda", "bf16"), ("cpu", "fp32")):
+        rt = build_runtime(cfg, adam, global_batch_size=2, seq_len=128,
+                           mixed_precision=precision, device=dev)
+        state = rt.state_from(_to(cpu_params, dev))
+        before = fa.flash_fwd.launches
+        losses[dev, precision] = [float(rt.train_step(state, b)[1]) for b in batches]
+        assert fa.flash_fwd.launches - before == (0 if dev == "cpu" else 2 * 2)
+    assert np.allclose(losses["cuda", "fp32"], losses["cpu", "fp32"], atol=1e-4, rtol=0)
+    assert np.all(np.isfinite(losses["cuda", "bf16"]))
+
+
+@pytest.mark.parametrize("kv_heads", [None, 2])
+def test_bf16_grads_through_kernels_match_plain_on_card(cuda, kv_heads, monkeypatch):
+    """bf16 over fp32 masters (the tensor-core kernels at head_dim 64): the
+    loss and every parameter gradient of one forward + backward through the
+    kernels against the same step with the wrappers swapped for their plain
+    versions on the card, so every other op is the same. The largest
+    per-tensor relative gradient error stays under 2^-5; the plain versions
+    with a key tile dropped exceed it."""
+    from galvatron_tpu_torch.core.optim import tree_leaves
+
+    cfg = modeling.ModelConfig(vocab_size=384, hidden_size=256, num_layers=2, num_heads=4,
+                               num_kv_heads=kv_heads, ffn_dim=512, max_seq_len=256,
+                               attn_impl="flash", dtype=torch.bfloat16)
+    params = modeling.init_model_params(cfg, 0, "cuda")
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = torch.from_numpy(np.random.RandomState(0).randint(0, 384, (2, 257))).cuda()
+
+    def step():
+        loss = modeling.lm_loss(params, batch, cfg)
+        loss.backward()
+        grads = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        return loss.item(), grads
+
+    def worst(gs, refs):
+        return max(((g - r).norm() / r.norm()).item() for g, r in zip(gs, refs))
+
+    before = fa.flash_fwd.launches
+    loss, grads = step()
+    assert fa.flash_fwd.launches - before == 2
+    monkeypatch.setattr(fa, "flash_fwd", fa.flash_fwd_blocked_plain)
+    monkeypatch.setattr(fa, "flash_bwd", fa.flash_bwd_plain)
+    ref_loss, ref_grads = step()
+    assert abs(loss - ref_loss) <= 1e-3
+    assert worst(grads, ref_grads) <= 2 ** -5
+    monkeypatch.setattr(fa, "_causal_keep", _dropped_tile_keep)
+    assert worst(step()[1], ref_grads) > 2 ** -5
 
 
 def _to(tree, dev):

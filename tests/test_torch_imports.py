@@ -86,3 +86,22 @@ def test_cli_serve_raises_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["serve", "--num_layers", "1", "--hidden_size", "32", "--num_heads", "2",
                   "--kv_num_blocks", "-1"])
+
+
+def test_cli_train_raises_without_a_card(no_card):
+    from galvatron_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["train", "--num_layers", "1", "--hidden_size", "32", "--num_heads", "2",
+                  "--train_iters", "1"])
+
+
+def test_build_runtime_raises_without_a_card(no_card):
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.parallel.hybrid import build_runtime
+
+    cfg = modeling.ModelConfig(vocab_size=64, hidden_size=32, num_layers=1, num_heads=2,
+                               ffn_dim=64, max_seq_len=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_runtime(cfg)
+    assert build_runtime(cfg, device="cpu").device.type == "cpu"
