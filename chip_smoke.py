@@ -27,32 +27,43 @@ its result line:
    control, the plain versions with one key tile dropped, must fail the
    same checks. One JSON line per case with the errors, the control's,
    kernel, plain, library (SDPA with is_causal over pre-roped q/k, and its
-   autograd backward; timed only) and bound times;
+   autograd backward; timed only) and bound times.
+   Then the grid kernels (forward, dk/dv, dq) against their plain versions
+   the same way: the GPT-2 XL training shape (b=8, h=25, s=1024, d=64,
+   causal, no RoPE, the stacked projection view), non-causal (b=8, h=16,
+   s=512), RoPE past the blocked envelope (b=1, h=4, s=16384, d=128), GQA
+   with kv_rep 4, fp32, and a bf16 call writing fp32 output; the dk/dv and
+   dq kernels' own device times come from a profiler window;
 4. llama-7b width at 2 layers in fp32: prefill + 8 decode steps through
    ``forward_with_cache_paged`` on the card (kernel) and on the CPU (plain
    version); logits within 1e-3, kernel launches == layers x decode steps;
-5. llama-7b width at 2 layers in fp32, batch 1, s=512: three
-   ``train_step``s on the card (flash kernels) and on the CPU (plain
-   versions) from the same weights and batches; losses within 1e-3 and
-   each flash kernel launched layers x steps times. Then bf16 over fp32
-   masters, batch 2, s=2048: one forward + backward through the
-   tensor-core kernels against the same step with the wrappers swapped for
-   their plain versions on the card; the loss within 1e-3 and every
-   parameter gradient within 2^-5 relative error, and the dropped-tile
-   control beyond it;
+5. llama-7b width and gpt-1.5b width, each at 2 layers in fp32, batch 1,
+   s=512: three ``train_step``s on the card (flash kernels: blocked for
+   llama, grid for GPT) and on the CPU (plain versions) from the same
+   weights and batches; losses within 1e-3 and each kernel of the model's
+   path launched layers x steps times, the other family's none. Then bf16
+   over fp32 masters, batch 2 at the preset's sequence length: one forward
+   + backward through the tensor-core kernels against the same step with
+   the wrappers swapped for their plain versions on the card; the loss
+   within 1e-3 and every parameter gradient within 2^-5 relative error, and
+   the dropped-tile control beyond it;
 6. the serving path: ``cli serve --model_size llama-7b --kv_num_blocks -1``
    (32 layers, bf16, random weights from a seed) in a thread of this
    process; 4 concurrent POST /api requests of ~50/300/700-byte prompts and
    one sharing a prefix, 32 greedy tokens each, then a repeated prompt; the
    paged kernel's launch count must equal 32 x the engine's decode steps
    and POST /drain must report no leak;
-7. the training path: ``cli train --model_size llama-7b --num_layers 4
+7. the LLaMA training path: ``cli train --model_size llama-7b --num_layers 4
    --train_iters 10`` (batch 8, seq 2048, bf16 over fp32 masters, AdamW)
    in-process: every loss finite, 10 ``train_iter`` JSONL records, each
-   flash kernel launched 4 x 10 times; iter_ms (mean of iterations 2-10),
-   tokens/s, MFU and peak device memory; then ``torch.profiler`` over two
-   steady steps of the same configuration: device busy and idle share and
-   the top kernels by device time.
+   blocked flash kernel launched 4 x 10 times and the grid kernels none;
+   iter_ms (mean of iterations 2-10), tokens/s, MFU and peak device memory;
+   then ``torch.profiler`` over two steady steps of the same configuration:
+   device busy and idle share and the top kernels by device time;
+8. the GPT training path: ``cli train --model_size gpt-1.5b --train_iters
+   10`` (all 48 layers, batch 8, seq 1024, bf16 over fp32 masters, AdamW)
+   in-process, with the same checks and numbers: each grid kernel launched
+   48 x 10 times and the blocked kernels none; then its profiler window.
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
@@ -76,11 +87,13 @@ import urllib.request
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense; fp32 off tensor cores
 SERVE_LAYERS = 32
-TRAIN_LAYERS = 4
 TRAIN_ITERS = 10
+# the two training paths: (preset, layers driven, batch, seq)
+TRAIN_PATHS = {"llama": ("llama-7b", 4, 8, 2048), "gpt": ("gpt-1.5b", 48, 8, 1024)}
 # bf16 train step, kernels against plain versions on the card (phase 5):
 # |loss difference| and the largest per-tensor relative gradient error.
-# An H100 read 7.8e-5 and 0.009; the dropped-tile control 1.7e-3 and 0.146.
+# An H100 read 7.8e-5 and 0.009 at llama-7b width; the dropped-tile control
+# 1.7e-3 and 0.146.
 TRAIN_BF16_LOSS_TOL = 1e-3
 TRAIN_BF16_GRAD_TOL = 2 ** -5
 RESULTS: dict = {}
@@ -447,6 +460,190 @@ def phase_flash(torch):
     return lines["flash main"]
 
 
+GRID_CASES = [
+    # (label, dtype name, b, h, kv heads, s, d, causal, rope, stacked, out fp32)
+    ("grid gpt", "bfloat16", 8, 25, 25, 1024, 64, True, False, True, False),
+    ("grid non-causal", "bfloat16", 8, 16, 16, 512, 64, False, False, False, False),
+    ("grid rope s16384", "bfloat16", 1, 4, 4, 16384, 128, True, True, False, False),
+    ("grid gqa kv_rep 4", "bfloat16", 8, 32, 8, 1024, 64, True, False, False, False),
+    ("grid fp32", "float32", 2, 25, 25, 1024, 64, True, False, True, False),
+    ("grid out fp32", "bfloat16", 8, 25, 25, 1024, 64, True, False, True, True),
+]
+
+
+def _dropped_grid_keep(torch):
+    """The grid plain versions' mask (causal or full) with keys 0-63
+    dropped for the rows from max(64, s/2): the control."""
+
+    def keep(s, causal, device):
+        r = torch.arange(s, device=device)
+        mask = r[:, None] >= r[None, :] if causal else torch.ones(
+            s, s, dtype=torch.bool, device=device)
+        mask[max(64, s // 2):, :64] = False
+        return mask
+
+    return keep
+
+
+def grid_bounds(dtype, b, h, kvh, s, d, causal, rope, out_esz):
+    """Least times of the grid forward, the whole backward and each of its
+    two kernels on these shapes: inputs read once and outputs written once
+    over 3.35 TB/s, or the products over the (query, key) pairs that are
+    not masked (2·d operations each; 2 products in the forward, 5 in the
+    backward, 4 in the dk/dv kernel: s, dp, dv, dk; 3 in the dq kernel: s,
+    dp, dq) over the input type's peak, whichever is larger."""
+    esz = 2 if dtype == "bfloat16" else 4
+    pairs = b * h * (s * (s + 1) / 2 if causal else s * s)
+    qo = b * h * s * d * esz
+    kv = b * kvh * s * d * esz
+    tables = 2 * s * (d // 2) * 4 if rope else 0
+    row = b * h * s * 4
+    ins_bwd = 2 * qo + 2 * kv + 2 * row + tables          # q, do, k, v, lse, delta
+    parts = {
+        "fwd": (qo + 2 * kv + tables + b * h * s * d * out_esz + row, 2),
+        "bwd": (ins_bwd + 3 * qo, 5),
+        "dkdv": (ins_bwd + 2 * qo, 4),
+        "dq": (ins_bwd + qo, 3),
+    }
+    peak = PEAK_FLOPS["torch." + dtype]
+    out = {}
+    for name, (nbytes, prods) in parts.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = prods * 2 * d * pairs / peak * 1e3
+        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return out
+
+
+def device_ms_by_name(torch, fn, names, iters=10):
+    """Mean device time per call of the kernels whose names contain each of
+    ``names``, from a torch.profiler window over ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {n: 0.0 for n in names}
+    for kname, start, end in _kernel_intervals(prof):
+        for n in names:
+            if n in kname:
+                out[n] += (end - start) / 1e3 / iters
+    check(all(v > 0 for v in out.values()), f"the profiler saw none of {names}: {out}")
+    return out
+
+
+def phase_grid(torch):
+    """The grid forward and the grid dk/dv and dq kernels against their
+    plain versions on the card, with the dropped-tile control, and their
+    times beside the plain versions', SDPA's and the bounds."""
+    import math
+
+    import torch.nn.functional as F
+
+    from galvatron_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    lines = {}
+    for i, (label, dname, b, h, kvh, s, d, causal, rope, stacked, out_fp32) in enumerate(
+            GRID_CASES):
+        dtype = getattr(torch, dname)
+        q, k, v, do, cos, sin = flash_case(torch, dtype, b, h, kvh, s, d, stacked, seed=30 + i)
+        tables = (cos, sin) if rope else None
+        rep, sm = h // kvh, 1.0 / math.sqrt(d)
+        out_dtype = torch.float32 if out_fp32 else None
+        before = (fa.flash_grid_fwd.launches, fa.flash_grid_bwd_parts.dkv_launches,
+                  fa.flash_grid_bwd_parts.dq_launches)
+        out, lse = fa.flash_grid_fwd(q, k, v, tables, sm, causal, rep, out_dtype)
+        delta = (do.float() * out.float()).sum(-1, keepdim=True).contiguous()
+        grads = fa.flash_grid_bwd_parts(q, k, v, do, lse, delta, tables, sm, causal, rep)
+        torch.cuda.synchronize()
+        after = (fa.flash_grid_fwd.launches, fa.flash_grid_bwd_parts.dkv_launches,
+                 fa.flash_grid_bwd_parts.dq_launches)
+        check(after == tuple(n + 1 for n in before), f"{label}: a kernel did not launch")
+        check(out.dtype == (out_dtype or dtype), f"{label}: out is {out.dtype}")
+        kf, vf = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        ref_out, ref_lse = fa.flash_fwd_grid_plain(q, k, v, tables, sm, causal, rep, out_dtype)
+        ref_grads = fa.flash_bwd_grid_plain(q, kf, vf, do, lse, delta, tables, sm, causal)
+        with _patched(fa, _grid_keep=_dropped_grid_keep(torch)):
+            ctl_out, _ = fa.flash_fwd_grid_plain(q, k, v, tables, sm, causal, rep, out_dtype)
+            ctl_grads = fa.flash_bwd_grid_plain(q, kf, vf, do, lse, delta, tables, sm, causal)
+        # the rule follows the input dtype: a bf16 call writing fp32 output
+        # still rounds p and ds to bf16
+        rule = (lambda g, r, w: _flash_err(torch, fa, g.float(), r.float(), w)) \
+            if dtype == torch.float32 else \
+            (lambda g, r, w: (fa.bf16_parity_excess(g, r), fa.BF16_PARITY_TOL[w]))
+        fwd_err, fwd_lim = rule(out, ref_out, "fwd")
+        bwd = [rule(g, r, "bwd") for g, r in zip(grads, ref_grads)]
+        bwd_err, bwd_lim = [e for e, _ in bwd], bwd[0][1]
+        ctl_fwd = rule(ctl_out, ref_out, "fwd")[0]
+        ctl_bwd = [rule(c, r, "bwd")[0] for c, r in zip(ctl_grads, ref_grads)]
+        abs_err = [(g.float() - r.float()).abs().max().item() for g, r in zip(grads, ref_grads)]
+        fwd_abs = (out.float() - ref_out.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        lse_tol = 1e-5 if dtype == torch.float32 else 1e-4
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+        del ctl_out, ctl_grads
+        # yardstick: SDPA over (pre-roped) q/k, and its autograd backward
+        if rope:
+            qr, kr = fa._rope_f32(q, cos, sin).to(dtype), fa._rope_f32(kf, cos, sin).to(dtype)
+        else:
+            qr, kr = q.contiguous(), kf.contiguous()
+        qr, kr = qr.detach().requires_grad_(True), kr.detach().requires_grad_(True)
+        vr = vf.detach().clone().requires_grad_(True)
+        lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
+        fwd_ms = time_ms(torch, lambda: fa.flash_grid_fwd(q, k, v, tables, sm, causal, rep,
+                                                           out_dtype), flush)
+        bwd_ms = time_ms(torch, lambda: fa.flash_grid_bwd_parts(
+            q, k, v, do, lse, delta, tables, sm, causal, rep), flush)
+        split = device_ms_by_name(torch, lambda: (flush.zero_(), fa.flash_grid_bwd_parts(
+            q, k, v, do, lse, delta, tables, sm, causal, rep)), ["grid_dkdv", "grid_dq"])
+        plain_iters = 3 if s > 4096 else 5
+        plain_fwd = time_ms(torch, lambda: fa.flash_fwd_grid_plain(
+            q, k, v, tables, sm, causal, rep, out_dtype), flush, iters=plain_iters)
+        plain_bwd = time_ms(torch, lambda: fa.flash_bwd_grid_plain(
+            q, kf, vf, do, lse, delta, tables, sm, causal), flush, iters=plain_iters)
+        lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qr, kr, vr, is_causal=causal), flush)
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qr, kr, vr), do, retain_graph=True), flush)
+        bounds = grid_bounds(dname, b, h, kvh, s, d, causal, rope, 4 if out_fp32 else
+                             (2 if dtype == torch.bfloat16 else 4))
+        line = {"case": label, "dtype": dname, "b": b, "h": h, "kv_heads": kvh, "s": s, "d": d,
+                "causal": causal, "rope": rope, "stacked": stacked,
+                "out_dtype": str(out.dtype).replace("torch.", ""),
+                "tolerance": ("fp32: max abs err, out/lse 1e-5, gradients 1e-4"
+                              if dtype == torch.float32 else
+                              "bf16: |err| - 1 ulp over the row's rms (bf16_parity_excess), "
+                              f"out {fwd_lim}, gradients {bwd_lim}; lse 1e-4"),
+                "fwd_err": fwd_err, "bwd_err_dq_dk_dv": bwd_err,
+                "control_fwd_err": ctl_fwd, "control_bwd_err_dq_dk_dv": ctl_bwd,
+                "fwd_max_abs_err": fwd_abs, "lse_max_abs_err": lse_err,
+                "bwd_max_abs_err_dq_dk_dv": abs_err,
+                "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "dkdv_ms": split["grid_dkdv"],
+                "dq_ms": split["grid_dq"], "fwd_plain_ms": plain_fwd, "bwd_plain_ms": plain_bwd,
+                "fwd_library_ms": lib_fwd, "bwd_library_ms": lib_bwd,
+                **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+                **{f"{k}_bound_by": v[1] for k, v in bounds.items()}}
+        log(json.dumps(line))
+        lines[label] = line
+        check(finite, f"{label}: non-finite kernel output")
+        check(fwd_err <= fwd_lim, f"{label}: forward err {fwd_err} > {fwd_lim}")
+        check(lse_err <= lse_tol, f"{label}: lse err {lse_err} > {lse_tol}")
+        check(ctl_fwd > fwd_lim, f"{label}: the dropped-tile control passes the forward check")
+        for name, e, c in zip("qkv", bwd_err, ctl_bwd):
+            check(e <= bwd_lim, f"{label}: d{name} err {e} > {bwd_lim}")
+            check(c > bwd_lim, f"{label}: the dropped-tile control passes for d{name} ({c})")
+        del q, k, v, do, out, lse, delta, grads, ref_out, ref_lse, ref_grads, kf, vf
+        del qr, kr, vr, lib_out
+        torch.cuda.empty_cache()
+    RESULTS["grid"] = lines
+    return lines["grid gpt"]
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full-width forward, card vs CPU
 # ---------------------------------------------------------------------------
@@ -511,7 +708,33 @@ def phase_forward(torch):
 # ---------------------------------------------------------------------------
 
 
-def phase_train_parity(torch):
+def flash_counts(fa):
+    """Every flash kernel's launch count."""
+    return {"flash_fwd": fa.flash_fwd.launches, "flash_bwd": fa.flash_bwd.launches,
+            "flash_grid_fwd": fa.flash_grid_fwd.launches,
+            "flash_grid_dkdv": fa.flash_grid_bwd_parts.dkv_launches,
+            "flash_grid_dq": fa.flash_grid_bwd_parts.dq_launches}
+
+
+def reset_flash_counts(fa):
+    fa.flash_fwd.launches = fa.flash_bwd.launches = fa.flash_grid_fwd.launches = 0
+    fa.flash_grid_bwd_parts.dkv_launches = fa.flash_grid_bwd_parts.dq_launches = 0
+
+
+def path_counts(model, n):
+    """The launch counts a run of ``model``'s training path must show: n
+    for each kernel of its path, 0 for the other family's."""
+    mine = ("flash_fwd", "flash_bwd") if model == "llama" else (
+        "flash_grid_fwd", "flash_grid_dkdv", "flash_grid_dq")
+    return {k: (n if k in mine else 0) for k in
+            ("flash_fwd", "flash_bwd", "flash_grid_fwd", "flash_grid_dkdv", "flash_grid_dq")}
+
+
+def _delta(a, b):
+    return {k: a[k] - b[k] for k in a}
+
+
+def phase_train_parity(torch, model):
     import numpy as np
 
     from galvatron_tpu_torch.core.optim import AdamConfig
@@ -519,8 +742,8 @@ def phase_train_parity(torch):
     from galvatron_tpu_torch.ops import flash_attention as fa
     from galvatron_tpu_torch.parallel.hybrid import build_runtime
 
-    cfg = modeling.PRESETS["llama-7b"].replace(num_layers=2, max_seq_len=512,
-                                               attn_impl="flash")
+    preset = TRAIN_PATHS[model][0]
+    cfg = modeling.PRESETS[preset].replace(num_layers=2, max_seq_len=512, attn_impl="flash")
     steps, t0 = 3, time.perf_counter()
     adam = AdamConfig(lr=1e-4, weight_decay=0.01, grad_clip=1.0)
     cpu_params = modeling.init_model_params(cfg, 0, "cpu")
@@ -532,54 +755,52 @@ def phase_train_parity(torch):
                            mixed_precision="fp32", device=dev)
         params = _to(cpu_params, dev) if dev == "cuda" else cpu_params
         state = rt.state_from(params)
-        before = (fa.flash_fwd.launches, fa.flash_bwd.launches)
+        before = flash_counts(fa)
         losses = []
         for batch in batches:
             state, loss = rt.train_step(state, torch.from_numpy(batch))
             losses.append(float(loss))
-        launches = (fa.flash_fwd.launches - before[0], fa.flash_bwd.launches - before[1])
-        runs[dev] = (losses, launches)
+        runs[dev] = (losses, _delta(flash_counts(fa), before))
         del state, params, rt
         torch.cuda.empty_cache()
     (gpu_losses, gpu_launches), (cpu_losses, cpu_launches) = runs["cuda"], runs["cpu"]
     diff = max(abs(a - b) for a, b in zip(gpu_losses, cpu_losses))
-    check(all(np.isfinite(gpu_losses)), f"train parity: non-finite card losses {gpu_losses}")
-    check(diff <= 1e-3, f"train parity: card vs CPU losses differ by {diff}")
-    want = cfg.num_layers * steps
-    check(gpu_launches == (want, want),
-          f"train parity: launches {gpu_launches}, expected {want} each")
-    check(cpu_launches == (0, 0), "train parity: the CPU run launched a kernel")
-    res = {"layers": cfg.num_layers, "hidden": cfg.hidden_size, "seq": 512, "batch": 1,
-           "dtype": "float32", "steps": steps, "card_losses": gpu_losses,
+    check(all(np.isfinite(gpu_losses)), f"{preset} train parity: non-finite losses {gpu_losses}")
+    check(diff <= 1e-3, f"{preset} train parity: card vs CPU losses differ by {diff}")
+    want = path_counts(model, cfg.num_layers * steps)
+    check(gpu_launches == want, f"{preset} train parity: launches {gpu_launches}, expected {want}")
+    check(not any(cpu_launches.values()), f"{preset} train parity: the CPU run launched a kernel")
+    res = {"model": preset, "layers": cfg.num_layers, "hidden": cfg.hidden_size, "seq": 512,
+           "batch": 1, "dtype": "float32", "steps": steps, "card_losses": gpu_losses,
            "cpu_losses": cpu_losses, "max_abs_loss_diff": diff, "tolerance": 1e-3,
-           "launches": {"flash_fwd": gpu_launches[0], "flash_bwd": gpu_launches[1]},
-           "seconds": time.perf_counter() - t0}
+           "launches": gpu_launches, "seconds": time.perf_counter() - t0}
     log("phase 5 train parity:", json.dumps(res))
-    RESULTS["train_parity"] = res
+    RESULTS[f"train_parity_{model}"] = res
 
 
-def phase_train_bf16(torch):
-    """llama-7b width at 2 layers, bf16 over fp32 masters, batch 2, s=2048:
-    the loss and every parameter gradient of one forward + backward through
-    the bf16 tensor-core flash kernels, against the same step with the two
-    wrappers swapped for their plain versions on the same card (every other
-    op, cuBLAS's GEMMs included, is then the same), and against a control
-    whose plain versions drop one key tile, which must fail."""
+def phase_train_bf16(torch, model):
+    """The preset's width at 2 layers, bf16 over fp32 masters, batch 2 at
+    its sequence length: the loss and every parameter gradient of one
+    forward + backward through the bf16 tensor-core flash kernels (blocked
+    for llama, grid for GPT), against the same step with the wrappers
+    swapped for their plain versions on the same card (every other op,
+    cuBLAS's GEMMs included, is then the same), and against a control whose
+    plain versions drop one key tile, which must fail."""
     import numpy as np
 
     from galvatron_tpu_torch.core.optim import tree_leaves
     from galvatron_tpu_torch.models import modeling
     from galvatron_tpu_torch.ops import flash_attention as fa
 
-    cfg = modeling.PRESETS["llama-7b"].replace(num_layers=2, attn_impl="flash",
-                                               dtype=torch.bfloat16)
+    preset, _, _, seq = TRAIN_PATHS[model]
+    cfg = modeling.PRESETS[preset].replace(num_layers=2, attn_impl="flash", dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = modeling.init_model_params(cfg, 0, "cuda")
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     batch = torch.from_numpy(
-        np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 2049))).to("cuda")
+        np.random.RandomState(0).randint(0, cfg.vocab_size, (2, seq + 1))).to("cuda")
 
     def step():
         loss = modeling.lm_loss(params, batch, cfg)
@@ -589,12 +810,17 @@ def phase_train_bf16(torch):
             p.grad = None
         return loss.item(), grads
 
-    before = (fa.flash_fwd.launches, fa.flash_bwd.launches)
+    before = flash_counts(fa)
     loss, grads = step()
-    launches = (fa.flash_fwd.launches - before[0], fa.flash_bwd.launches - before[1])
-    plain = {"flash_fwd": fa.flash_fwd_blocked_plain, "flash_bwd": fa.flash_bwd_plain}
+    launches = _delta(flash_counts(fa), before)
+    if model == "llama":
+        plain = {"flash_fwd": fa.flash_fwd_blocked_plain, "flash_bwd": fa.flash_bwd_plain}
+    else:
+        plain = {"flash_grid_fwd": fa.flash_fwd_grid_plain,
+                 "flash_grid_bwd_parts": fa.flash_grid_bwd_parts_plain}
     with _patched(fa, **plain):
         ref_loss, ref_grads = step()
+    # both families' plain versions take their causal mask from _causal_keep
     with _patched(fa, **plain, _causal_keep=_dropped_tile_keep(torch)):
         ctl_loss, ctl_grads = step()
 
@@ -604,25 +830,25 @@ def phase_train_bf16(torch):
         return max(errs)
 
     grad_err, ctl_grad_err = worst(grads), worst(ctl_grads)
-    res = {"layers": cfg.num_layers, "hidden": cfg.hidden_size, "seq": 2048, "batch": 2,
-           "dtype": "bfloat16", "loss": loss, "plain_loss": ref_loss, "control_loss": ctl_loss,
-           "loss_abs_diff": abs(loss - ref_loss), "loss_tolerance": TRAIN_BF16_LOSS_TOL,
-           "grad_rel_err": grad_err, "grad_tolerance": TRAIN_BF16_GRAD_TOL,
-           "control_grad_rel_err": ctl_grad_err,
-           "launches": {"flash_fwd": launches[0], "flash_bwd": launches[1]},
-           "seconds": time.perf_counter() - t0}
+    res = {"model": preset, "layers": cfg.num_layers, "hidden": cfg.hidden_size, "seq": seq,
+           "batch": 2, "dtype": "bfloat16", "loss": loss, "plain_loss": ref_loss,
+           "control_loss": ctl_loss, "loss_abs_diff": abs(loss - ref_loss),
+           "loss_tolerance": TRAIN_BF16_LOSS_TOL, "grad_rel_err": grad_err,
+           "grad_tolerance": TRAIN_BF16_GRAD_TOL, "control_grad_rel_err": ctl_grad_err,
+           "launches": launches, "seconds": time.perf_counter() - t0}
     log("phase 5 bf16 train parity:", json.dumps(res))
-    RESULTS["train_parity_bf16"] = res
-    check(launches == (cfg.num_layers, cfg.num_layers),
-          f"bf16 train parity: launches {launches}, expected {cfg.num_layers} each")
+    RESULTS[f"train_parity_bf16_{model}"] = res
+    want = path_counts(model, cfg.num_layers)
+    check(launches == want, f"{preset} bf16 train parity: launches {launches}, expected {want}")
     check(all(np.isfinite([loss, *[g.sum().item() for g in grads]])),
-          "bf16 train parity: non-finite loss or gradient")
+          f"{preset} bf16 train parity: non-finite loss or gradient")
     check(abs(loss - ref_loss) <= TRAIN_BF16_LOSS_TOL,
-          f"bf16 train parity: kernel vs plain losses differ by {abs(loss - ref_loss)}")
+          f"{preset} bf16 train parity: kernel vs plain losses differ by {abs(loss - ref_loss)}")
     check(grad_err <= TRAIN_BF16_GRAD_TOL,
-          f"bf16 train parity: gradient relative error {grad_err} > {TRAIN_BF16_GRAD_TOL}")
+          f"{preset} bf16 train parity: gradient relative error {grad_err} > "
+          f"{TRAIN_BF16_GRAD_TOL}")
     check(ctl_grad_err > TRAIN_BF16_GRAD_TOL,
-          f"bf16 train parity: the dropped-tile control passes ({ctl_grad_err})")
+          f"{preset} bf16 train parity: the dropped-tile control passes ({ctl_grad_err})")
     del params, leaves, grads, ref_grads, ctl_grads
     torch.cuda.empty_cache()
 
@@ -765,6 +991,10 @@ def _union_us(intervals):
 
 def _category(name: str) -> str:
     n = name.lower()
+    if "flash_grid_fwd" in n:
+        return "flash_grid_fwd"
+    if "flash_grid_dkdv" in n or "flash_grid_dq" in n:
+        return "flash_grid_bwd"
     if "flash_fwd" in n:
         return "flash_fwd"
     if "flash_dkdv" in n or "flash_dq" in n or "flash_delta" in n:
@@ -775,47 +1005,50 @@ def _category(name: str) -> str:
     return "other"
 
 
-def phase_train(torch, smi, tmpdir):
+def phase_train(torch, smi, tmpdir, model):
     from galvatron_tpu_torch import cli
     from galvatron_tpu_torch.ops import flash_attention as fa
     from galvatron_tpu_torch.utils.metrics import read_metrics
 
-    path = os.path.join(tmpdir, "train_metrics.jsonl")
-    argv = ["train", "--model_size", "llama-7b", "--num_layers", str(TRAIN_LAYERS),
-            "--train_iters", str(TRAIN_ITERS), "--metrics_path", path]
+    from galvatron_tpu_torch.models.modeling import PRESETS
+
+    preset, layers, bsz, seq = TRAIN_PATHS[model]
+    path = os.path.join(tmpdir, f"train_metrics_{model}.jsonl")
+    argv = ["train", "--model_size", preset, "--train_iters", str(TRAIN_ITERS),
+            "--metrics_path", path]
+    if layers != PRESETS[preset].num_layers:  # depth cut (llama-7b: 4 of 32 layers)
+        argv += ["--num_layers", str(layers)]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fa.flash_fwd.launches = 0  # the main path's counts start here
-    fa.flash_bwd.launches = 0
+    reset_flash_counts(fa)  # the main path's counts start here
     rc = cli.main(argv)
-    launches = {"flash_fwd": fa.flash_fwd.launches, "flash_bwd": fa.flash_bwd.launches}
+    launches = flash_counts(fa)  # read right after the main path
     seconds = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(rc == 0, f"cli train returned {rc}")
+    check(rc == 0, f"cli train {preset} returned {rc}")
     recs = [r for r in read_metrics(path) if r["event"] == "train_iter"]
     check(len(recs) == TRAIN_ITERS, f"{len(recs)} train_iter records, expected {TRAIN_ITERS}")
     losses = [r["loss"] for r in recs]
     check(all(isinstance(x, float) and x == x and abs(x) != float("inf") for x in losses),
-          f"non-finite losses {losses}")
-    want = TRAIN_LAYERS * TRAIN_ITERS  # --global_checkpoint 0: no recompute launches
-    check(launches == {"flash_fwd": want, "flash_bwd": want},
-          f"flash launches {launches}, expected {want} each")
+          f"{preset}: non-finite losses {losses}")
+    want = path_counts(model, layers * TRAIN_ITERS)  # --global_checkpoint 0: no recompute
+    check(launches == want, f"{preset}: flash launches {launches}, expected {want}")
     steady = recs[1:]
     mean = lambda key: sum(r[key] for r in steady) / len(steady)  # noqa: E731
-    res = {"card": smi, "model": "llama-7b", "layers": TRAIN_LAYERS, "batch": 8, "seq": 2048,
+    res = {"card": smi, "model": preset, "layers": layers, "batch": bsz, "seq": seq,
            "dtype": "bfloat16", "iters": TRAIN_ITERS, "losses": losses,
            "iter_ms_mean_2_to_10": mean("iter_ms"), "iter_ms": [r["iter_ms"] for r in recs],
            "tokens_per_s": mean("tokens_per_s"), "tflops_per_device": mean("tflops_per_device"),
            "mfu": mean("mfu"), "max_memory_allocated_gb": peak_gb, "launches": launches,
            "seconds": seconds}
-    log("phase 7 train:", json.dumps(res))
-    RESULTS["train"] = res
+    log(f"phase {7 if model == 'llama' else 8} train:", json.dumps(res))
+    RESULTS[f"train_{model}"] = res
     torch.cuda.empty_cache()
     return launches, res
 
 
-def phase_train_profile(torch):
+def phase_train_profile(torch, model):
     """torch.profiler over two steady steps of the main path's
     configuration (one unprofiled warm step first)."""
     from collections import defaultdict
@@ -827,11 +1060,13 @@ def phase_train_profile(torch):
     from galvatron_tpu_torch.models import modeling
     from galvatron_tpu_torch.parallel.hybrid import build_runtime
 
-    cfg = modeling.PRESETS["llama-7b"].replace(num_layers=TRAIN_LAYERS, attn_impl="flash")
+    preset, layers, bsz, seq = TRAIN_PATHS[model]
+    cfg = modeling.PRESETS[preset].replace(num_layers=layers, attn_impl="flash")
     rt = build_runtime(cfg, AdamConfig(lr=1e-4, weight_decay=0.01, grad_clip=1.0),
-                       global_batch_size=8, seq_len=2048, mixed_precision="bf16", device="cuda")
+                       global_batch_size=bsz, seq_len=seq, mixed_precision="bf16",
+                       device="cuda")
     state = rt.init_state(1234)
-    loader = build_dataloader(rt.cfg, 8, 2048, seed=1234)
+    loader = build_dataloader(rt.cfg, bsz, seq, seed=1234)
     state, loss = rt.train_step(state, torch.from_numpy(next(loader)))
     float(loss)
     steps, batches = 2, [torch.from_numpy(next(loader)) for _ in range(2)]
@@ -859,16 +1094,16 @@ def phase_train_profile(torch):
         by_name[name][1] += 1
         by_cat[_category(name)] += (e - s) / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    res = {"steps": steps, "wall_ms_per_step": wall_ms, "wall_ms_per_step_profiled": prof_wall_ms,
-           "device_busy_ms_per_step": busy_ms,
+    res = {"model": preset, "layers": layers, "steps": steps, "wall_ms_per_step": wall_ms,
+           "wall_ms_per_step_profiled": prof_wall_ms, "device_busy_ms_per_step": busy_ms,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
            "device_idle_share_profiled_wall": 1.0 - busy_ms / prof_wall_ms,
            "kernel_launches_per_step": len(kernels) / steps,
            "device_ms_by_category": dict(by_cat),
-           "top_kernels_ms_per_step": [{"name": n[:90], "ms": v[0], "launches_per_step": v[1] / steps}
-                                       for n, v in top]}
-    log("phase 7 train profile:", json.dumps(res))
-    RESULTS["train_profile"] = res
+           "top_kernels_ms_per_step": [
+               {"name": n[:90], "ms": v[0], "launches_per_step": v[1] / steps} for n, v in top]}
+    log(f"phase {7 if model == 'llama' else 8} train profile:", json.dumps(res))
+    RESULTS[f"train_profile_{model}"] = res
     del state, rt
     torch.cuda.empty_cache()
 
@@ -887,33 +1122,57 @@ def main() -> int:
     phase_build()
     paged_line = phase_kernels(torch)
     flash_line = phase_flash(torch)
+    grid_line = phase_grid(torch)
     phase_forward(torch)
-    phase_train_parity(torch)
-    phase_train_bf16(torch)
+    for model in ("llama", "gpt"):
+        phase_train_parity(torch, model)
+        phase_train_bf16(torch, model)
     paged_launches = phase_serve(torch, smi)
+    launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
-        train_launches, _ = phase_train(torch, smi, tmpdir)
-    phase_train_profile(torch)
+        for model in ("llama", "gpt"):
+            launches[model], _ = phase_train(torch, smi, tmpdir, model)
+            phase_train_profile(torch, model)
     src = "galvatron_tpu_torch/ops/csrc/"
+    replaces = "galvatron_tpu/ops/flash_attention.py:"
+
+    def grid_entry(name, source, line_no, count, err, ms, plain, bound, library):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces + line_no, "launches": launches["gpt"][count],
+                "max_abs_err": err, "ms": grid_line[ms], "plain_ms": grid_line[plain],
+                "bound_ms": grid_line[bound + "_bound_ms"],
+                "bound_by": grid_line[bound + "_bound_by"], "library_ms": grid_line[library]}
+
+    dq_err, dk_err, dv_err = grid_line["bwd_max_abs_err_dq_dk_dv"]
     kernels = {"kernels": [
         {"name": "paged_decode", "route": "cuda", "source": src + "paged_decode.cu",
-         "replaces": "galvatron_tpu/ops/flash_attention.py:1152",
+         "replaces": replaces + "1152",
          "launches": paged_launches, "max_abs_err": paged_line["max_abs_err"],
          "ms": paged_line["kernel_ms"], "plain_ms": paged_line["plain_ms"],
          "bound_ms": paged_line["bound_ms"], "bound_by": paged_line["bound_by"],
          "library_ms": paged_line["library_ms"]},
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
-         "replaces": "galvatron_tpu/ops/flash_attention.py:272",
-         "launches": train_launches["flash_fwd"], "max_abs_err": flash_line["fwd_max_abs_err"],
+         "replaces": replaces + "272",
+         "launches": launches["llama"]["flash_fwd"], "max_abs_err": flash_line["fwd_max_abs_err"],
          "ms": flash_line["fwd_ms"], "plain_ms": flash_line["fwd_plain_ms"],
          "bound_ms": flash_line["fwd_bound_ms"], "bound_by": flash_line["fwd_bound_by"],
          "library_ms": flash_line["fwd_library_ms"]},
         {"name": "flash_bwd", "route": "cuda", "source": src + "flash_bwd.cu",
-         "replaces": "galvatron_tpu/ops/flash_attention.py:514",
-         "launches": train_launches["flash_bwd"], "max_abs_err": flash_line["bwd_max_abs_err"],
+         "replaces": replaces + "514",
+         "launches": launches["llama"]["flash_bwd"], "max_abs_err": flash_line["bwd_max_abs_err"],
          "ms": flash_line["bwd_ms"], "plain_ms": flash_line["bwd_plain_ms"],
          "bound_ms": flash_line["bwd_bound_ms"], "bound_by": flash_line["bwd_bound_by"],
          "library_ms": flash_line["bwd_library_ms"]},
+        # the plain and library times of the two backward kernels are those
+        # of the whole backward (the plain version and SDPA compute dq, dk
+        # and dv in one call); each kernel's own time and bound are its own
+        grid_entry("flash_grid_fwd", "flash_grid_fwd.cu", "123", "flash_grid_fwd",
+                   grid_line["fwd_max_abs_err"], "fwd_ms", "fwd_plain_ms", "fwd",
+                   "fwd_library_ms"),
+        grid_entry("flash_grid_dkdv", "flash_grid_bwd.cu", "724", "flash_grid_dkdv",
+                   max(dk_err, dv_err), "dkdv_ms", "bwd_plain_ms", "dkdv", "bwd_library_ms"),
+        grid_entry("flash_grid_dq", "flash_grid_bwd.cu", "792", "flash_grid_dq", dq_err,
+                   "dq_ms", "bwd_plain_ms", "dq", "bwd_library_ms"),
     ]}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

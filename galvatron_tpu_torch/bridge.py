@@ -5,8 +5,10 @@
 the port's tree of tensors on ``device``, with the same names and layouts:
 ``x @ W`` everywhere, the blocked ``(h, 3, n·hd)`` or interleaved
 ``(h, kv·group)`` fused QKV, so nothing is transposed. Matmul weights and
-the embedding are cast to the compute dtype once (``modeling.cast_params``);
-norm scales stay fp32. ``params_to_numpy`` is the way back.
+the embeddings (and, for GPT/OPT trees, the projection biases) are cast to
+the compute dtype once (``modeling.cast_params``); norm scales and biases
+stay fp32. ``params_from_jax`` accepts what training accepts
+(``modeling.check_supported``). ``params_to_numpy`` is the way back.
 
 This module takes numpy and imports no JAX, so the port stays free of it.
 """

@@ -1,12 +1,13 @@
 """CLI of the port: python -m galvatron_tpu_torch.cli <mode> [flags]
 
-  train   train a LLaMA-family decoder on one device: synthetic tokens from
-          --seed, fp32 master weights, AdamW, the blocked-causal flash kernels
-          on the card (--attn_impl auto); a line and a train_iter JSONL record
-          (--metrics_path) per iteration
+  train   train a LLaMA- or GPT/OPT-family decoder on one device: synthetic
+          tokens from --seed, fp32 master weights, AdamW, the flash kernels
+          on the card (--attn_impl auto: blocked-causal with RoPE, grid
+          otherwise); a line and a train_iter JSONL record (--metrics_path)
+          per iteration
   serve   REST generation server over the continuous-batching engine on the
           paged KV backend (--kv_num_blocks -1), weights initialised from a
-          seed
+          seed; LLaMA family only (GPT serving: ROADMAP.md §1.10)
 
 Both run on the card (--device cuda, the default) or, when asked, on the
 CPU (--device cpu). The reference's other modes (search, profile, generate,
@@ -44,9 +45,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     from galvatron_tpu_torch.serving.engine import Engine
 
     ns = initialize_galvatron(mode, rest)
+    cfg = model_config_from_args(ns)
+    modeling.check_serving_supported(cfg)  # before any weight is allocated
     device = resolve_device(ns.device)
     tok = build_tokenizer(ns.tokenizer)
-    cfg = model_config_from_args(ns)
     if tok.vocab_size > cfg.vocab_size:
         cfg = cfg.replace(vocab_size=tok.vocab_size)
     # random weights from seed 0, as the reference's cli does without --load

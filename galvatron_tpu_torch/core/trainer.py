@@ -88,5 +88,8 @@ def train(ns: argparse.Namespace) -> dict:
         "iter_ms": sum(iter_times) / len(iter_times) if iter_times else None,
         "state": state,
         "launches": {"flash_fwd": flash_attention.flash_fwd.launches,
-                     "flash_bwd": flash_attention.flash_bwd.launches},
+                     "flash_bwd": flash_attention.flash_bwd.launches,
+                     "flash_grid_fwd": flash_attention.flash_grid_fwd.launches,
+                     "flash_grid_dkdv": flash_attention.flash_grid_bwd_parts.dkv_launches,
+                     "flash_grid_dq": flash_attention.flash_grid_bwd_parts.dq_launches},
     }

@@ -1,12 +1,14 @@
-"""Decoder-only LLaMA-family Transformer in plain PyTorch tensor functions.
+"""Decoder-only Transformers in plain PyTorch tensor functions.
 
-Counterpart of ``galvatron_tpu/models/modeling.py``, limited to the LLaMA
-family the port runs: RoPE (rotate-half), RMSNorm, SwiGLU, the fused QKV
-projection in both stored layouts (blocked ``(h, 3, n·hd)`` for MHA,
-kv-group-interleaved ``(h, kv·(npg+2)·hd)`` for GQA), attention on the
-einsum path (``attn_impl='xla'``) or the blocked-causal flash kernels
-(``'flash'``: the head-major dataflow of ``_attn_block_headmajor``), the
-``mlp_recompute`` policies, embedding, LM head and the sum-form token loss.
+Counterpart of ``galvatron_tpu/models/modeling.py``, limited to the
+decoder families the port runs: LLaMA (RoPE, RMSNorm, SwiGLU) and GPT/OPT
+(learned positions, LayerNorm, tanh-GELU or ReLU, projection biases, tied
+embeddings). The fused QKV projection in both stored layouts (blocked
+``(h, 3, n·hd)`` for MHA, kv-group-interleaved ``(h, kv·(npg+2)·hd)`` for
+GQA), attention on the einsum path (``attn_impl='xla'``) or the flash
+kernels (``'flash'``: the head-major dataflow of ``_attn_block_headmajor``;
+blocked-causal with RoPE, grid otherwise), the ``mlp_recompute`` policies,
+embedding, LM head and the sum-form token loss.
 
 Parameters are a nested dict of tensors with the JAX package's names and
 layouts (``x @ W`` everywhere), so the weight bridge (``bridge.py``) is a
@@ -14,7 +16,7 @@ plain copy. Every weight is cast to the compute dtype where it is used
 (``w.to(x.dtype)``, the reference's per-use ``astype``): training keeps
 fp32 master weights and autograd carries the casts; serving casts them once
 at load (:func:`cast_params`), after which the per-use cast is a no-op.
-Norm scales stay fp32, as ``_norm_impl`` reads them.
+Norm scales and biases stay fp32, as ``_norm_impl`` reads them.
 """
 
 from __future__ import annotations
@@ -39,12 +41,14 @@ class ModelConfig:
     num_layers: int = 32
     num_heads: int = 32
     num_kv_heads: Optional[int] = None  # None → MHA; < num_heads → GQA
-    ffn_dim: Optional[int] = None  # None → llama 8h/3 rounding
+    ffn_dim: Optional[int] = None  # None → 4h (gelu/relu) or llama 8h/3 rounding
     max_seq_len: int = 2048
-    pos_embed: str = "rope"
-    norm_type: str = "rms"
-    act_fn: str = "swiglu"
+    pos_embed: str = "rope"  # 'rope' | 'learned' ('alibi' is not ported)
+    norm_type: str = "rms"  # 'rms' | 'layernorm'
+    act_fn: str = "swiglu"  # 'swiglu' | 'gelu' (tanh approximation) | 'relu'
     tie_word_embeddings: bool = False
+    # GPT-2-style biases on the qkv/out/MLP GEMMs (norm biases come with
+    # layernorm); needs the blocked qkv layout (no GQA)
     use_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
@@ -53,10 +57,11 @@ class ModelConfig:
     objective: str = "clm"
     attn_impl: str = "xla"  # 'xla' | 'flash'
     # activation recompute over the MLP/norm/loss regions (the reference's
-    # --mlp_recompute): 'policy' saves the gate projection output once per
-    # layer and recomputes the fp32 norm statistics, the silu·gate product
-    # and the cross-entropy fp32 cast; 'gate' recomputes only the product;
-    # 'off' saves everything autograd saves. All three give the same values.
+    # --mlp_recompute): 'policy' saves the (biased) gate projection output
+    # once per layer and recomputes the fp32 norm statistics, the activation
+    # product and the cross-entropy fp32 cast; 'gate' recomputes only the
+    # product; 'off' saves everything autograd saves. All three give the
+    # same values.
     mlp_recompute: str = "policy"
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32
@@ -79,37 +84,60 @@ class ModelConfig:
     def ffn(self) -> int:
         if self.ffn_dim is not None:
             return self.ffn_dim
-        f = int(2 * 4 * self.hidden_size / 3)
-        return (f + 255) // 256 * 256
+        if self.act_fn == "swiglu":
+            f = int(2 * 4 * self.hidden_size / 3)
+            return (f + 255) // 256 * 256
+        return 4 * self.hidden_size
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
 
-#: the families the port does not run yet, each with the config field that
-#: selects it and the value the port supports
-_UNPORTED = (
-    ("pos_embed", "rope", "learned/alibi positions"),
-    ("norm_type", "rms", "layernorm"),
-    ("act_fn", "swiglu", "gelu/relu MLPs"),
-    ("use_bias", False, "projection biases"),
-    ("tie_word_embeddings", False, "tied embeddings"),
-    ("moe_experts", 0, "mixture-of-experts MLPs"),
-    ("causal", True, "bidirectional encoders"),
-    ("objective", "clm", "masked-LM / classification objectives"),
+#: what training runs: (config field, the values the port runs, what the
+#: other values select); anything else raises naming ROADMAP §1.10
+_TRAIN_PORTED = (
+    ("pos_embed", ("rope", "learned"), "ALiBi positions"),
+    ("norm_type", ("rms", "layernorm"), "other norms"),
+    ("act_fn", ("swiglu", "gelu", "relu"), "other MLP activations"),
+    ("moe_experts", (0,), "mixture-of-experts MLPs"),
+    ("causal", (True,), "bidirectional encoders"),
+    ("objective", ("clm",), "masked-LM / classification objectives"),
+)
+#: what serving runs on top of that: the LLaMA family, since
+#: ``generation.forward_with_cache_paged`` knows no learned positions
+_SERVE_PORTED = (
+    ("pos_embed", ("rope",), "learned positions"),
+    ("norm_type", ("rms",), "layernorm"),
+    ("act_fn", ("swiglu",), "gelu/relu MLPs"),
+    ("use_bias", (False,), "projection biases"),
+    ("tie_word_embeddings", (False,), "tied embeddings"),
 )
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run yet
-    (ROADMAP.md §1, "Other model families")."""
-    for field, ported, what in _UNPORTED:
-        if getattr(cfg, field) != ported:
+def _check(cfg: ModelConfig, table, what_runs: str) -> None:
+    for field, ported, what in table:
+        if getattr(cfg, field) not in ported:
             raise NotImplementedError(
                 f"{field}={getattr(cfg, field)!r} ({what}) is not ported yet: "
-                "ROADMAP.md §1 'Other model families'; the port runs the "
-                "LLaMA family (rope, rms, swiglu, no biases, untied head)"
+                f"ROADMAP.md §1.10 'Other model families'; {what_runs}"
             )
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family the port does not train
+    yet (ROADMAP.md §1.10): training runs the LLaMA and GPT/OPT decoders."""
+    _check(cfg, _TRAIN_PORTED, "the port trains causal LLaMA and GPT/OPT decoders")
+    if cfg.use_bias and not cfg.qkv_blocked:
+        raise ValueError("use_bias needs the blocked qkv layout (no GQA)")
+
+
+def check_serving_supported(cfg: ModelConfig) -> None:
+    """:func:`check_supported`, and serving's narrower set: the LLaMA
+    family (rope, rms, swiglu, no biases, untied head); GPT serving is
+    queued under ROADMAP.md §1.10."""
+    check_supported(cfg)
+    _check(cfg, _SERVE_PORTED, "the port serves the LLaMA family (rope, rms, swiglu, no "
+           "biases, untied head)")
 
 
 # ---------------------------------------------------------------------------
@@ -126,8 +154,9 @@ def qkv_dims(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 def init_model_params(cfg: ModelConfig, seed: int, device) -> Params:
-    """Random weights with the reference's distributions (normal·0.02
-    embedding, uniform ±1/sqrt(fan_in) projections, unit norm scales) in
+    """Random weights with the reference's names, shapes and distributions
+    (normal·0.02 token and position tables, uniform ±1/sqrt(fan_in)
+    projections, unit norm scales, zero biases, no ``head`` when tied) in
     ``cfg.param_dtype``, drawn on ``device`` from one ``torch.Generator``.
     The numbers differ from ``jax.random``'s; tests that compare the two
     packages share weights through ``bridge.params_from_jax`` instead."""
@@ -141,30 +170,47 @@ def init_model_params(cfg: ModelConfig, seed: int, device) -> Params:
         w = torch.empty((fan_in, fan_out), dtype=pd, device=device)
         return w.uniform_(-scale, scale, generator=gen)
 
-    def ones():
-        return torch.ones((h,), dtype=pd, device=device)
+    def normal(*shape):
+        return torch.randn(shape, dtype=pd, device=device, generator=gen).mul_(0.02)
 
-    tok = torch.randn((cfg.vocab_size, h), dtype=pd, device=device, generator=gen)
-    params: Params = {"embed": {"tok": tok.mul_(0.02)}, "layers": []}
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=pd, device=device)
+
+    def norm_params():
+        p = {"scale": torch.ones((h,), dtype=pd, device=device)}
+        if cfg.norm_type == "layernorm":
+            p["bias"] = zeros(h)
+        return p
+
+    params: Params = {"embed": {"tok": normal(cfg.vocab_size, h)}, "layers": []}
+    if cfg.pos_embed == "learned":
+        params["embed"]["pos"] = normal(cfg.max_seq_len, h)
     kv, group = qkv_dims(cfg)
+    up = _up_name(cfg)
     for _ in range(cfg.num_layers):
         wqkv = dense(h, kv * group)
         if cfg.qkv_blocked:
             wqkv = wqkv.reshape(h, 3, cfg.num_heads * hd)
-        params["layers"].append({
-            "attn_norm": {"scale": ones()},
-            "attn": {"wqkv": wqkv, "wo": dense(cfg.num_heads * hd, h)},
-            "mlp_norm": {"scale": ones()},
-            "mlp": {"w13": dense(h, 2 * cfg.ffn), "w2": dense(cfg.ffn, h)},
-        })
-    params["final_norm"] = {"scale": ones()}
-    params["head"] = {"w": dense(h, cfg.vocab_size)}
+        attn = {"wqkv": wqkv, "wo": dense(cfg.num_heads * hd, h)}
+        width = 2 * cfg.ffn if cfg.act_fn == "swiglu" else cfg.ffn
+        mlp = {up: dense(h, width), "w2": dense(cfg.ffn, h)}
+        if cfg.use_bias:
+            attn["wqkv_b"] = zeros(3, cfg.num_heads * hd)
+            attn["wo_b"] = zeros(h)
+            mlp[up + "_b"] = zeros(width)
+            mlp["w2_b"] = zeros(h)
+        params["layers"].append({"attn_norm": norm_params(), "attn": attn,
+                                 "mlp_norm": norm_params(), "mlp": mlp})
+    params["final_norm"] = norm_params()
+    if not cfg.tie_word_embeddings:
+        params["head"] = {"w": dense(h, cfg.vocab_size)}
     return params
 
 
 def cast_params(params: Params, cfg: ModelConfig) -> Params:
-    """Matmul weights and the embedding to ``cfg.dtype``, once, IN PLACE in
-    the dict tree; norm scales stay as they are (fp32). Casting
+    """Matmul weights, their biases and the embeddings to ``cfg.dtype``,
+    once, IN PLACE in the dict tree; norm scales and biases stay as they
+    are (fp32). Casting
     ``param_dtype`` weights once gives the same values as the reference's
     per-use ``astype(x.dtype)``. Each cast replaces its source entry as it
     goes, so a full-size model never holds two full copies. Returns
@@ -175,7 +221,7 @@ def cast_params(params: Params, cfg: ModelConfig) -> Params:
         elif isinstance(val, list):
             for v in val:
                 cast_params(v, cfg)
-        elif key != "scale":
+        elif key not in ("scale", "bias"):
             params[key] = val.to(cfg.dtype)
     return params
 
@@ -208,13 +254,25 @@ def split_qkv(qkv, cfg: ModelConfig):
 
 
 def project_qkv_heads(x, p_attn, cfg: ModelConfig):
-    return split_qkv(qkv_project(x, p_attn["wqkv"], cfg), cfg)
+    """Fused projection (+ the optional bias on the blocked (3, n·hd)
+    slots, added after the GEMM) straight to per-head q/k/v."""
+    y = qkv_project(x, p_attn["wqkv"], cfg)
+    if "wqkv_b" in p_attn:
+        y = y + p_attn["wqkv_b"].to(y.dtype)
+    return split_qkv(y, cfg)
 
 
 def attn_output(o, p_attn, cfg: ModelConfig):
-    """(B, S, n, hd) attention context → (B, S, h)."""
+    """(B, S, n, hd) attention context → (B, S, h), + the optional bias."""
     b, s = o.shape[:2]
-    return o.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p_attn["wo"].to(o.dtype)
+    y = o.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p_attn["wo"].to(o.dtype)
+    return _add_bias(y, p_attn, "wo_b")
+
+
+def _add_bias(y, p, name):
+    """``y + p[name]`` in y's dtype when the bias exists (added after its
+    GEMM, the reference's order), else y."""
+    return y + p[name].to(y.dtype) if name in p else y
 
 
 def _rms(x, scale, eps: float):
@@ -223,11 +281,25 @@ def _rms(x, scale, eps: float):
     return (x32 * scale.float()).to(x.dtype)
 
 
+def _layernorm(x, scale, bias, eps: float):
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def _norm_with(x, scale, bias, cfg: ModelConfig):
+    if cfg.norm_type == "rms":
+        return _rms(x, scale, cfg.norm_eps)
+    return _layernorm(x, scale, bias, cfg.norm_eps)
+
+
 def _norm_impl(x, p, cfg: ModelConfig):
-    """RMSNorm in fp32, cast back to the input dtype (the reference's
-    ``_norm_impl``; its Pallas ``fused_norm`` path is opt-in and not
-    ported, ROADMAP §1)."""
-    return _rms(x, p["scale"], cfg.norm_eps)
+    """RMSNorm or LayerNorm in fp32, cast back to the input dtype (the
+    reference's ``_norm_impl``; its Pallas ``fused_norm`` path is opt-in and
+    not ported, ROADMAP §1.3)."""
+    return _norm_with(x, p["scale"], p.get("bias"), cfg)
 
 
 def norm(x, p, cfg: ModelConfig):
@@ -301,93 +373,133 @@ def _swiglu(g):
     return F.silu(g[..., :f]) * g[..., f:]
 
 
+def _gelu(g):
+    return F.gelu(g, approximate="tanh")  # jax.nn.gelu(approximate=True)
+
+
+#: the MLP activations, applied to the (biased) gate projection output
+_ACTS = {"swiglu": _swiglu, "gelu": _gelu, "relu": F.relu}
+
+
+def _up_name(cfg: ModelConfig) -> str:
+    """The gate/up projection: fused [w1 | w3] for SwiGLU, w1 otherwise."""
+    return "w13" if cfg.act_fn == "swiglu" else "w1"
+
+
 def _flat(t):
     return t.reshape(-1, t.shape[-1])
 
 
-class _SwiGLUDown(torch.autograd.Function):
-    """``swiglu(g) @ w2`` saving the gate projection output ``g`` (and the
+def _bias_grad(dy, has_bias: bool):
+    """The gradient of a bias broadcast-added to ``dy``'s rows (None when
+    there is no bias)."""
+    return _flat(dy).sum(dim=0) if has_bias else None
+
+
+class _ActDown(torch.autograd.Function):
+    """``act(g) @ w2`` saving the gate projection output ``g`` (and the
     compute-dtype w2) instead of the product: the backward recomputes the
     product, so the w2 GEMM is not recomputed and no second full-width
     activation is kept ('gate' recompute)."""
 
     @staticmethod
-    def forward(ctx, g, w2):
+    def forward(ctx, g, w2, act_fn):
         ctx.save_for_backward(g, w2)
-        return _swiglu(g) @ w2
+        ctx.act_fn = act_fn
+        return _ACTS[act_fn](g) @ w2
 
     @staticmethod
     def backward(ctx, dy):
         g, w2 = ctx.saved_tensors
         with torch.enable_grad():
             g_ = g.detach().requires_grad_(True)
-            prod = _swiglu(g_)
+            prod = _ACTS[ctx.act_fn](g_)
         dw2 = _flat(prod.detach()).t() @ _flat(dy)
         (dg,) = torch.autograd.grad(prod, g_, dy @ w2.t())
-        return dg, dw2
+        return dg, dw2, None
 
 
 class _MLPBranch(torch.autograd.Function):
-    """The 'policy' MLP branch ``swiglu(rms(x) @ w13) @ w2`` saving only its
-    input x and the gate projection output g (the reference's
-    ``save_only_these_names('mlp_gate')`` region): the backward recomputes
-    the norm (fp32 statistics included) and the silu·gate product, never a
-    GEMM of the forward."""
+    """The 'policy' MLP branch ``act(norm(x) @ w_up + b_up) @ w2 + b2``
+    saving only its input x and the biased gate projection output g (the
+    reference's ``save_only_these_names('mlp_gate')`` region): the backward
+    recomputes the norm (fp32 statistics included) and the activation
+    product, never a GEMM of the forward. Biases may be None."""
 
     @staticmethod
-    def forward(ctx, x, scale, w13, w2, eps):
-        g = _rms(x, scale, eps) @ w13
-        ctx.save_for_backward(x, scale, w13, w2, g)
-        ctx.eps = eps
-        return _swiglu(g) @ w2
+    def forward(ctx, x, scale, nbias, w_up, b_up, w2, b2, cfg):
+        g = _norm_with(x, scale, nbias, cfg) @ w_up
+        if b_up is not None:
+            g = g + b_up
+        ctx.save_for_backward(x, scale, nbias, w_up, w2, g)
+        ctx.cfg, ctx.biased = cfg, (b_up is not None, b2 is not None)
+        y = _ACTS[cfg.act_fn](g) @ w2
+        return y if b2 is None else y + b2
 
     @staticmethod
     def backward(ctx, dy):
-        x, scale, w13, w2, g = ctx.saved_tensors
+        x, scale, nbias, w_up, w2, g = ctx.saved_tensors
         with torch.enable_grad():
-            x_ = x.detach().requires_grad_(True)
-            s_ = scale.detach().requires_grad_(True)
-            hn = _rms(x_, s_, ctx.eps)
+            norm_in = [t.detach().requires_grad_(True) for t in (x, scale, nbias)
+                       if t is not None]  # nbias is None for RMSNorm
+            hn = _norm_with(*norm_in, *([None] * (3 - len(norm_in))), ctx.cfg)
             g_ = g.detach().requires_grad_(True)
-            prod = _swiglu(g_)
+            prod = _ACTS[ctx.cfg.act_fn](g_)
         dw2 = _flat(prod.detach()).t() @ _flat(dy)
         (dg,) = torch.autograd.grad(prod, g_, dy @ w2.t())
-        dw13 = _flat(hn.detach()).t() @ _flat(dg)
-        dx, dscale = torch.autograd.grad(hn, (x_, s_), dg @ w13.t())
-        return dx, dscale, dw13, dw2, None
+        dw_up = _flat(hn.detach()).t() @ _flat(dg)
+        dx, dscale, *dnbias = torch.autograd.grad(hn, norm_in, dg @ w_up.t())
+        return (dx, dscale, dnbias[0] if dnbias else None, dw_up, _bias_grad(dg, ctx.biased[0]),
+                dw2, _bias_grad(dy, ctx.biased[1]), None)
 
 
 def mlp_block(x, p, cfg: ModelConfig):
-    """SwiGLU over the fused [w1 | w3] gate projection; under 'gate' with
+    """``act(x @ w_up + b_up) @ w2 + b2`` (SwiGLU over the fused [w1 | w3],
+    tanh-GELU or ReLU over w1; biases when present); under 'gate' with
     autograd on, the product is recomputed in the backward ('policy' is
     :func:`mlp_residual`'s region)."""
-    g = x @ p["w13"].to(x.dtype)
+    up = _up_name(cfg)
+    g = _add_bias(x @ p[up].to(x.dtype), p, up + "_b")
     w2 = p["w2"].to(x.dtype)
     if cfg.mlp_recompute == "gate" and torch.is_grad_enabled():
-        return _SwiGLUDown.apply(g, w2)
-    return _swiglu(g) @ w2
+        y = _ActDown.apply(g, w2, cfg.act_fn)
+    else:
+        y = _ACTS[cfg.act_fn](g) @ w2
+    return _add_bias(y, p, "w2_b")
 
 
 def mlp_residual(x, p, cfg: ModelConfig):
     """x + MLP(norm(x)); under 'policy' with autograd on, the whole branch
     is one region that saves only x and the gate output (:class:`_MLPBranch`)."""
     if cfg.mlp_recompute == "policy" and torch.is_grad_enabled():
-        pm = p["mlp"]
-        return x + _MLPBranch.apply(x, p["mlp_norm"]["scale"], pm["w13"].to(x.dtype),
-                                    pm["w2"].to(x.dtype), cfg.norm_eps)
+        pm, pn, up = p["mlp"], p["mlp_norm"], _up_name(cfg)
+
+        def cast(name):
+            return pm[name].to(x.dtype) if name in pm else None
+
+        return x + _MLPBranch.apply(x, pn["scale"], pn.get("bias"), cast(up), cast(up + "_b"),
+                                    cast("w2"), cast("w2_b"), cfg)
     return x + mlp_block(norm(x, p["mlp_norm"], cfg), p["mlp"], cfg)
 
 
 def embed(tokens, params, cfg: Optional[ModelConfig] = None):
     """Token embedding: the table cast to the compute dtype, then gathered
-    (the reference's order, so the backward scatter-adds in that dtype)."""
+    (the reference's order, so the backward scatter-adds in that dtype);
+    learned positions add the cast table's first s rows, broadcast over
+    the batch."""
     tok = params["embed"]["tok"]
-    if cfg is not None:
-        tok = tok.to(cfg.dtype)
-    return tok[tokens]
+    if cfg is None:
+        return tok[tokens]
+    x = tok.to(cfg.dtype)[tokens]
+    if cfg.pos_embed == "learned":
+        x = x + params["embed"]["pos"].to(cfg.dtype)[: tokens.shape[1]][None]
+    return x
 
 
-def lm_head(x, params):
+def lm_head(x, params, cfg: Optional[ModelConfig] = None):
+    """Logits; a tied head multiplies by the (compute-dtype) token table."""
+    if cfg is not None and cfg.tie_word_embeddings:
+        return x @ params["embed"]["tok"].to(x.dtype).t()
     return x @ params["head"]["w"].to(x.dtype)
 
 
@@ -417,10 +529,12 @@ def attention(q, k, v, cfg: ModelConfig, rope=None):
 
 def _attn_block_headmajor(x, p, cfg: ModelConfig, rope, remat_attn: bool):
     """Flash-path attention with head-major dataflow: the fused projection
-    is viewed as (b, 3, n, s, hd) (MHA) and fed to ``flash_attention_qkv``
-    with no copy, or split from the interleaved GQA layout into q at n heads
-    and k/v at kv heads for ``flash_attention_hm``; the context then goes
-    through the output projection ('bnsd,nde->bse')."""
+    (+ its bias, added after the GEMM) is viewed as (b, 3, n, s, hd) (MHA)
+    and fed to ``flash_attention_qkv`` with no copy when the blocked RoPE
+    kernels apply, else as q/k/v views to ``flash_attention_hm`` (the grid
+    kernels without RoPE); the GQA layout is split into q at n heads and
+    k/v at kv heads. The context then goes through the output projection
+    ('bnsd,nde->bse') and its bias."""
     from galvatron_tpu_torch.ops.flash_attention import (
         flash_attention_hm,
         flash_attention_qkv,
@@ -431,7 +545,10 @@ def _attn_block_headmajor(x, p, cfg: ModelConfig, rope, remat_attn: bool):
     hd, n = cfg.head_dim, cfg.num_heads
     w = p["wqkv"].to(x.dtype)
     if cfg.qkv_blocked:
-        qkv = (x @ w.reshape(h, 3 * n * hd)).view(b, s, 3, n, hd).permute(0, 2, 3, 1, 4)
+        qkv = (x @ w.reshape(h, 3 * n * hd)).view(b, s, 3, n, hd)
+        if "wqkv_b" in p:
+            qkv = qkv + p["wqkv_b"].to(x.dtype).view(3, n, hd)
+        qkv = qkv.permute(0, 2, 3, 1, 4)
         if flash_qkv_supported(s, hd, cfg.causal, rope):
             o = _maybe_checkpoint(lambda t: flash_attention_qkv(t, rope=rope), remat_attn, qkv)
             return _headmajor_out(o, p, x.dtype)
@@ -442,25 +559,29 @@ def _attn_block_headmajor(x, p, cfg: ModelConfig, rope, remat_attn: bool):
         r = (x @ w).view(b, s, kv, npg + 2, hd).permute(0, 2, 3, 1, 4)
         q = r[:, :, :npg].reshape(b, n, s, hd)
         k, v = r[:, :, npg], r[:, :, npg + 1]
-    o = _maybe_checkpoint(lambda q_, k_, v_: flash_attention_hm(q_, k_, v_, rope=rope),
-                          remat_attn, q, k, v)
+    o = _maybe_checkpoint(
+        lambda q_, k_, v_: flash_attention_hm(q_, k_, v_, causal=cfg.causal, rope=rope),
+        remat_attn, q, k, v)
     return _headmajor_out(o, p, x.dtype)
 
 
 def _headmajor_out(o, p, dtype):
     b, n, s, hd = o.shape
-    return o.transpose(1, 2).reshape(b, s, n * hd) @ p["wo"].to(dtype)
+    y = o.transpose(1, 2).reshape(b, s, n * hd) @ p["wo"].to(dtype)
+    return _add_bias(y, p, "wo_b")
 
 
 def attn_block(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False):
     """``remat_attn`` recomputes only the attention core in the backward
-    (the reference's "selective" checkpointing)."""
+    (the reference's "selective" checkpointing). RoPE tables apply only to
+    ``pos_embed='rope'`` models."""
     from galvatron_tpu_torch.ops.flash_attention import flash_tileable
 
+    rope = cos_sin if cfg.pos_embed == "rope" else None
     if cfg.attn_impl == "flash" and flash_tileable(x.shape[1]):
-        return _attn_block_headmajor(x, p, cfg, cos_sin, remat_attn)
+        return _attn_block_headmajor(x, p, cfg, rope, remat_attn)
     q, k, v = project_qkv_heads(x, p, cfg)
-    o = _maybe_checkpoint(lambda q_, k_, v_: attention(q_, k_, v_, cfg, rope=cos_sin),
+    o = _maybe_checkpoint(lambda q_, k_, v_: attention(q_, k_, v_, cfg, rope=rope),
                           remat_attn, q, k, v)
     return attn_output(o, p, cfg)
 
@@ -474,7 +595,9 @@ def decoder_layer(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False
 def forward(params, tokens, cfg: ModelConfig, layer_hook=None):
     """Full forward → logits. ``layer_hook(i, x, layer_params)`` lets the
     runtime insert per-layer recompute (``parallel/hybrid.py``)."""
-    cos_sin = rope_tables(cfg, tokens.shape[1], tokens.device)
+    cos_sin = None
+    if cfg.pos_embed == "rope":
+        cos_sin = rope_tables(cfg, tokens.shape[1], tokens.device)
     x = embed(tokens, params, cfg)
     for i, lp in enumerate(params["layers"]):
         if layer_hook is not None:
@@ -482,7 +605,7 @@ def forward(params, tokens, cfg: ModelConfig, layer_hook=None):
         else:
             x = decoder_layer(x, lp, cfg, cos_sin)
     x = norm(x, params["final_norm"], cfg)
-    return lm_head(x, params)
+    return lm_head(x, params, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -537,7 +660,17 @@ def lm_loss(params, batch, cfg: ModelConfig, layer_hook=None):
     return s / torch.clamp_min(n, 1)
 
 
-# Preset configs of the LLaMA family (the reference's PRESETS, same sizes)
+def _gpt(vocab_size, hidden_size, num_layers, num_heads, max_seq_len, act_fn="gelu"):
+    """A GPT-2-style (or, with relu, OPT-style) decoder preset: learned
+    positions, LayerNorm, biases, tied embeddings, ffn 4h."""
+    return ModelConfig(use_bias=True, vocab_size=vocab_size, hidden_size=hidden_size,
+                       num_layers=num_layers, num_heads=num_heads, max_seq_len=max_seq_len,
+                       pos_embed="learned", norm_type="layernorm", act_fn=act_fn,
+                       tie_word_embeddings=True)
+
+
+# Preset configs of the decoder families the port runs (the reference's
+# PRESETS, same sizes)
 PRESETS: Dict[str, ModelConfig] = {
     "llama-0.3b": ModelConfig(
         vocab_size=32000, hidden_size=1024, num_layers=24, num_heads=16, max_seq_len=2048
@@ -554,4 +687,15 @@ PRESETS: Dict[str, ModelConfig] = {
         vocab_size=32000, hidden_size=6656, num_layers=60, num_heads=52,
         ffn_dim=17920, max_seq_len=2048,
     ),
+    "gpt-0.3b": _gpt(50257, 1024, 24, 16, 1024),
+    "gpt-1.5b": _gpt(50257, 1600, 48, 25, 1024),  # GPT-2 XL
+    "gpt-2.7b": _gpt(50257, 2560, 32, 32, 2048),
+    "gpt-6.7b": _gpt(50257, 4096, 32, 32, 2048),
+    # OPT: the ReLU branch of the same code (the +2 position offset of HF
+    # checkpoints is an import detail)
+    "opt-125m": _gpt(50272, 768, 12, 12, 2048, "relu"),
+    "opt-1.3b": _gpt(50272, 2048, 24, 32, 2048, "relu"),
+    "opt-6.7b": _gpt(50272, 4096, 32, 32, 2048, "relu"),
+    "opt-13b": _gpt(50272, 5120, 40, 40, 2048, "relu"),
+    "opt-30b": _gpt(50272, 7168, 48, 56, 2048, "relu"),
 }

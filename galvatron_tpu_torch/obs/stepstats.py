@@ -51,7 +51,8 @@ def attn_core_flops_per_token(cfg: ModelConfig, seq_len: int) -> float:
 
 
 def mlp_flops_per_token(cfg: ModelConfig) -> float:
-    return 2.0 * 3 * cfg.hidden_size * cfg.ffn  # gate + up + down (swiglu)
+    n_gemm = 3 if cfg.act_fn == "swiglu" else 2  # gate + up + down vs up + down
+    return 2.0 * n_gemm * cfg.hidden_size * cfg.ffn
 
 
 def layer_fwd_flops_per_token(cfg: ModelConfig, seq_len: int) -> float:

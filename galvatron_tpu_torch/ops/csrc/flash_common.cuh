@@ -1,6 +1,8 @@
-// Shared pieces of the blocked-causal flash kernels (flash_fwd.cu,
-// flash_bwd.cu): element conversion, the rounding points of the Pallas
-// kernels, 16-lane row reductions and the strided (b, h, s, d) views.
+// Shared pieces of the flash kernels, blocked-causal (flash_fwd.cu,
+// flash_bwd.cu) and grid (flash_grid_fwd.cu, flash_grid_bwd.cu): element
+// conversion, the rounding points of the Pallas kernels, 16-lane row
+// reductions, the strided (b, h, s, d) views, row staging, the CUDA-core
+// backward's products and row statistics, and the tensor-core fragments.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -105,6 +107,113 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src, lon
       dst[r * ld + c] = row < s ? to_f32(src[row * ss + c]) : 0.f;
     }
   }
+}
+
+// Scores and dp of one (q tile, k tile) pair of the CUDA-core backward, both
+// from shared memory: sc[i][j] = qs[q] . ks[k], dp[i][j] = dos[q] . vs[k]
+// for q rows ty + 16 i and k columns tx + 16 j.
+template <int RI, int CJ>
+__device__ __forceinline__ void scores_and_dp(const float* qs, const float* dos,
+                                              const float* ks, const float* vs, int ld, int d,
+                                              int ty, int tx, float (&sc)[RI][CJ],
+                                              float (&dp)[RI][CJ]) {
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      sc[i][j] = 0.f;
+      dp[i][j] = 0.f;
+    }
+  for (int c = 0; c < d; ++c) {
+    float qv[RI], dv[RI], kv[CJ], vv[CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      qv[i] = qs[(ty + 16 * i) * ld + c];
+      dv[i] = dos[(ty + 16 * i) * ld + c];
+    }
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      kv[j] = ks[(tx + 16 * j) * ld + c];
+      vv[j] = vs[(tx + 16 * j) * ld + c];
+    }
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+        dp[i][j] = fmaf(dv[i], vv[j], dp[i][j]);
+      }
+  }
+}
+
+// lse * log2(e) and delta of `tile` rows from q0 into shared memory; `at`
+// indexes the (b, h) slice of the contiguous (b, h, s) row statistics
+__device__ __forceinline__ void stage_row_stats(const float* lse, const float* delta,
+                                                size_t at, int s, int q0, int tile,
+                                                float* lse2s, float* dels) {
+  for (int r = threadIdx.x; r < tile; r += kThreads) {
+    const int row = q0 + r;
+    lse2s[r] = row < s ? lse[at + row] * kLog2e : 0.f;
+    dels[r] = row < s ? delta[at + row] : 0.f;
+  }
+}
+
+// Write `rows` rows of fp32 y (shared memory, row stride ld, already scaled)
+// to global memory in T by strides, counter-rotated with the unscaled tables
+// when `cos` is given (gradients w.r.t. roped rows back to the raw rows).
+template <typename T>
+__device__ __forceinline__ void write_rows(const float* ys, int ld, T* dst, long long ss,
+                                           int row0, int rows, int s, int d, const float* cos,
+                                           const float* sin) {
+  const int half = d / 2;
+  for (int e = threadIdx.x; e < rows * half; e += kThreads) {
+    const int r = e / half;
+    const int i = e - r * half;
+    const int row = row0 + r;
+    if (row >= s) continue;
+    float x1 = ys[r * ld + i], x2 = ys[r * ld + i + half];
+    if (cos != nullptr)
+      rope_t(x1, x2, cos[(size_t)row * half + i], sin[(size_t)row * half + i], x1, x2);
+    dst[row * ss + i] = from_f32<T>(x1);
+    dst[row * ss + i + half] = from_f32<T>(x2);
+  }
+}
+
+// p and ds of one tile pair of the CUDA-core backward into shared memory (ps
+// may be null): rows q0 + ty + 16 i, columns k0 + tx + 16 j; masked (above
+// the diagonal when causal) or out-of-range pairs are 0.
+template <typename T, int TILE, int RI, int CJ>
+__device__ __forceinline__ void probs_and_ds(const float (&sc)[RI][CJ],
+                                             const float (&dp)[RI][CJ], const float* lse2s,
+                                             const float* dels, int q0, int k0, int s,
+                                             bool causal, int ty, int tx, float* ps, float* dss) {
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int r = ty + 16 * i;
+    const int row = q0 + r;
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      const int c = tx + 16 * j;
+      const int col = k0 + c;
+      float p = 0.f;
+      if (row < s && col < s && (!causal || col <= row)) p = exp2f(sc[i][j] - lse2s[r]);
+      if (ps != nullptr) ps[r * (TILE + 1) + c] = round_to<T>(p);
+      dss[r * (TILE + 1) + c] = round_to<T>(__fmul_rn(p, __fsub_rn(dp[i][j], dels[r])));
+    }
+  }
+}
+
+// shared memory of the CUDA-core backward kernels: four TILE x (d+1) slabs,
+// two TILE x (TILE+1) score tiles, two row statistics
+template <int TILE>
+size_t bwd_smem_floats(int d) {
+  return 4 * (size_t)TILE * (d + 1) + 2 * (size_t)TILE * (TILE + 1) + 2 * (size_t)TILE;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -268,6 +377,14 @@ __device__ __forceinline__ void stage_tile(bf16* dst, int ld, const bf16* src, l
 // a row of C fragments written as bf16 pairs: out[row][8 n + 2t .. +1]
 __device__ __forceinline__ void st_pair(bf16* p, float lo, float hi) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
+// ... or as fp32 pairs (8-byte aligned: even columns of 16-byte aligned rows)
+__device__ __forceinline__ void st_pair(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
+__device__ __forceinline__ void zero_c(float (&c)[4]) {
+  c[0] = c[1] = c[2] = c[3] = 0.f;
 }
 
 }  // namespace flash

@@ -3,26 +3,34 @@ and over the paged K/V pool.
 
 Counterpart of ``galvatron_tpu/ops/flash_attention.py``: the blocked-causal
 forward with fused RoPE (``_fwd_kernel_blocked``) and the combined backward
-(``_bwd_kernel_blocked``) behind ``flash_attention_qkv`` /
-``flash_attention_hm``, their dispatch gates, ``decode_attention`` and
-``paged_decode_attention`` / ``_paged_decode_kernel``.
+(``_bwd_kernel_blocked``), the grid forward (``_fwd_kernel``) and the grid
+backward (``_bwd_dkv_kernel`` + ``_bwd_dq_kernel``) that serve every other
+shape (no RoPE, non-causal, outside the blocked envelope), behind
+``flash_attention_qkv`` / ``flash_attention_hm`` / ``flash_attention``,
+their dispatch gates, ``decode_attention`` and ``paged_decode_attention`` /
+``_paged_decode_kernel``.
 
 Each kernel has three pieces, side by side:
 
 - a plain PyTorch version of the kernel's function, rounding where the
   Pallas kernel rounds (:func:`flash_fwd_blocked_plain`,
-  :func:`flash_bwd_blocked_plain`, :func:`paged_decode_attention_plain`).
+  :func:`flash_bwd_blocked_plain`, :func:`flash_fwd_grid_plain`,
+  :func:`flash_bwd_grid_plain`, :func:`paged_decode_attention_plain`).
   The CPU tests use it; on the card it is what the kernel is compared with;
-- a wrapper (:func:`flash_fwd`, :func:`flash_bwd`,
-  :func:`paged_decode_attention`): a CPU tensor goes to the plain version, a
-  CUDA tensor launches the hand-written Hopper kernel in ``csrc/`` or
-  raises. There is no fall back from the card to the plain version;
-- a launch counter on the wrapper (``flash_fwd.launches``, ...), a plain
-  integer incremented where the kernel is launched and nowhere else.
+- a wrapper (:func:`flash_fwd`, :func:`flash_bwd`, :func:`flash_grid_fwd`,
+  :func:`flash_grid_bwd_parts`, :func:`paged_decode_attention`): a CPU
+  tensor goes to the plain version, a CUDA tensor launches the hand-written
+  Hopper kernel in ``csrc/`` or raises. There is no fall back from the card
+  to the plain version;
+- a launch counter on the wrapper (``flash_fwd.launches``,
+  ``flash_grid_bwd_parts.dkv_launches``, ...), a plain integer incremented
+  where the kernel is launched and nowhere else.
 
 The training entries are ``torch.autograd.Function``s, as the reference's
 are ``jax.custom_vjp``s: :class:`FlashQKV` over the stacked (b, 3, h, s, d)
-projection and :class:`FlashHM` over separate head-major q/k/v (GQA).
+projection and :class:`FlashHM` over separate head-major q/k/v (GQA); each
+takes the blocked kernels where the reference's gates do and the grid
+kernels elsewhere.
 
 For the paged op, in detail:
 
@@ -125,14 +133,6 @@ def flash_qkv_supported(s: int, d: int, causal: bool, rope, block_q: int = 1024)
     return _use_blocked(s, d, causal, rope, min(block_q, s), min(block_q, s))
 
 
-def _unported_grid(what: str, s: int, d: int, section: str):
-    return NotImplementedError(
-        f"{what} at s={s}, d={d} is outside the blocked-causal envelope: the "
-        f"reference runs its grid flash kernels there, not ported yet "
-        f"(ROADMAP.md §{section})"
-    )
-
-
 # ---------------------------------------------------------------------------
 # Blocked-causal forward / backward: plain versions
 # ---------------------------------------------------------------------------
@@ -223,11 +223,106 @@ def flash_bwd_plain(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1, 
         k = k.repeat_interleave(kv_rep, dim=1)
         v = v.repeat_interleave(kv_rep, dim=1)
     res = flash_bwd_blocked_plain(q, k, v, do, out, lse, cos, sin, sm_scale)
+    return _into(grads, res)
+
+
+def _into(grads, res):
+    """``res`` copied into the given output tensors, or ``res`` itself."""
     if grads is None:
         return res
     for dst, src in zip(grads, res):
         dst.copy_(src)
     return grads
+
+
+# ---------------------------------------------------------------------------
+# Grid forward / backward: plain versions
+# ---------------------------------------------------------------------------
+
+
+def _grid_keep(s: int, causal: bool, device):
+    """The grid kernels' mask: causal below the diagonal, none otherwise."""
+    return _causal_keep(s, device) if causal else None
+
+
+def _grid_operands(q, k, rope):
+    """q and k as the grid kernels multiply them: roped through the
+    unscaled tables and rounded to the input dtype when ``rope`` is given,
+    then read as fp32."""
+    if rope is not None:
+        q = _rope_f32(q, *rope).to(q.dtype)
+        k = _rope_f32(k, *rope).to(k.dtype)
+    return q.float(), k.float()
+
+
+def _grid_scores(qf, kf, sm_scale, causal):
+    """Base-2 scores ``(q·kᵀ) · sm_scale·log2e``, the scale after the
+    product (``_fwd_kernel``), masked with -1e30 above the diagonal."""
+    s2 = (qf @ kf.transpose(-1, -2)) * (sm_scale * LOG2E)
+    keep = _grid_keep(qf.shape[2], causal, qf.device)
+    return s2 if keep is None else s2.masked_fill(~keep, NEG_INF)
+
+
+def flash_fwd_grid_plain(q, k, v, rope, sm_scale, causal, kv_rep: int = 1, out_dtype=None):
+    """The grid forward in plain PyTorch. q (b, h, s, d); k/v
+    (b, h / kv_rep, s, d); ``rope`` None or (cos, sin) (s, d/2) fp32.
+    Returns (out in ``out_dtype`` or q's dtype, fp32 lse (b, h, s, 1)).
+
+    Rounds where ``_fwd_kernel`` rounds, which is not where the blocked
+    kernel does: q and k roped through the unscaled tables and cast to the
+    input dtype, scores scaled by sm_scale·log2e after the fp32 product, p
+    cast to the input dtype before the PV product, ``lse = m·ln2 +
+    log(max(l, 1e-30))``. Non-causal runs unmasked. The softmax takes the
+    whole row at once."""
+    dt = q.dtype
+    qf, kf = _grid_operands(q, k, rope)
+    vf = v.float()
+    if kv_rep > 1:
+        kf = kf.repeat_interleave(kv_rep, dim=1)
+        vf = vf.repeat_interleave(kv_rep, dim=1)
+    s2 = _grid_scores(qf, kf, sm_scale, causal)
+    m = s2.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s2 - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = ((p.to(dt).float() @ vf) / l).to(out_dtype or dt)
+    return out, m * LN2 + torch.log(l)
+
+
+def flash_bwd_grid_plain(q, k, v, do, lse, delta, rope, sm_scale, causal):
+    """The grid backward (``_flash_bwd_parts``) in plain PyTorch, all of
+    q/k/v at h heads; lse and ``delta = Σ do·out`` (both fp32 (b, h, s, 1))
+    come from the caller. Returns (dq, dk, dv) in q's dtype.
+
+    Rounds where ``_bwd_dkv_kernel`` / ``_bwd_dq_kernel`` round: p
+    recomputed in base 2 from the grid scores and lse, ``dv = p(input
+    dtype)ᵀ·do``, ``ds = p·(dp − delta)`` cast to the input dtype,
+    ``dk = rope_t(sm_scale · dsᵀ·q_roped)`` and ``dq = rope_t(sm_scale ·
+    ds·k_roped)`` (no rotation without ``rope``)."""
+    dt = q.dtype
+    qf, kf = _grid_operands(q, k, rope)
+    dof = do.float()
+    s2 = _grid_scores(qf, kf, sm_scale, causal)
+    p = torch.exp2(s2 - lse.float() * LOG2E)
+    dv = p.to(dt).float().transpose(-1, -2) @ dof
+    dp = dof @ v.float().transpose(-1, -2)
+    ds = (p * (dp - delta.float())).to(dt).float()
+    dk = (ds.transpose(-1, -2) @ qf) * sm_scale
+    dq = (ds @ kf) * sm_scale
+    if rope is not None:
+        dk = _rope_t_f32(dk, *rope)
+        dq = _rope_t_f32(dq, *rope)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_grid_bwd_parts_plain(q, k, v, do, lse, delta, rope, sm_scale, causal,
+                               kv_rep: int = 1, grads=None):
+    """:func:`flash_grid_bwd_parts`'s plain route, with its signature: k/v
+    broadcast to h heads, :func:`flash_bwd_grid_plain`, and the results
+    copied into ``grads`` when given."""
+    if kv_rep > 1:
+        k = k.repeat_interleave(kv_rep, dim=1)
+        v = v.repeat_interleave(kv_rep, dim=1)
+    return _into(grads, flash_bwd_grid_plain(q, k, v, do, lse, delta, rope, sm_scale, causal))
 
 
 #: How far a bf16 flash kernel may lie from its plain version, as measured
@@ -271,6 +366,9 @@ def bf16_parity_excess(got, ref):
 
 
 def _check_flash_operands(name, tensors, cos, sin, d):
+    """The kernels' contract, on every device: one dtype (bf16 or fp32),
+    head_dim % 8 == 0 and <= 256, one device, unit-stride head dims, and
+    contiguous fp32 (s, d/2) rope tables unless ``cos`` is None (no RoPE)."""
     dev, dt = tensors[0].device, tensors[0].dtype
     if dt not in _DTYPE_CODE or any(t.dtype != dt for t in tensors):
         raise TypeError(
@@ -279,14 +377,28 @@ def _check_flash_operands(name, tensors, cos, sin, d):
         )
     if d % 8 or d > 256:
         raise ValueError(f"the {name} kernel takes head_dim % 8 == 0 and <= 256, got {d}")
-    if any(t.device != dev for t in tensors) or cos.device != dev or sin.device != dev:
+    tables = () if cos is None else (cos, sin)
+    if any(t.device != dev for t in tensors + tables):
         raise ValueError(f"{name}: every operand and the rope tables must share one device")
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError(f"{name}: the head dim of every operand must be unit-stride")
     s = tensors[0].shape[2]
-    for t in (cos, sin):
+    for t in tables:
         if t.dtype != torch.float32 or tuple(t.shape) != (s, d // 2) or not t.is_contiguous():
             raise ValueError(f"{name}: rope tables must be contiguous fp32 ({s}, {d // 2})")
+
+
+def _check_row_stats(name, b, h, s, **stats):
+    for key, t in stats.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, s, 1) or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous fp32 ({b}, {h}, {s}, 1)")
+
+
+def _check_kv(q, k, v, kv_rep):
+    b, h, s, d = q.shape
+    if k.shape != (b, h // kv_rep, s, d) or v.shape != k.shape or h % kv_rep:
+        raise ValueError(f"k/v must be ({b}, {h}/{kv_rep}, {s}, {d}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
 
 
 def _strides(*tensors):
@@ -303,9 +415,7 @@ def flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
     tensors launch ``csrc/flash_fwd.cu``, whose ``out`` is laid out
     (b, s, h, d) in memory so the output projection reads it as is."""
     b, h, s, d = q.shape
-    if k.shape != (b, h // kv_rep, s, d) or v.shape != k.shape or h % kv_rep:
-        raise ValueError(f"k/v must be ({b}, {h}/{kv_rep}, {s}, {d}), got "
-                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    _check_kv(q, k, v, kv_rep)
     _check_flash_operands("flash_fwd", (q, k, v), cos, sin, d)
     if q.device.type == "cpu":
         return flash_fwd_blocked_plain(q, k, v, cos, sin, sm_scale, kv_rep)
@@ -337,15 +447,10 @@ def flash_bwd(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1,
     tensors launch ``csrc/flash_bwd.cu``."""
     b, h, s, d = q.shape
     _check_flash_operands("flash_bwd", (q, k, v, do, out), cos, sin, d)
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s, 1) or not lse.is_contiguous():
-        raise ValueError(f"flash_bwd: lse must be contiguous fp32 ({b}, {h}, {s}, 1)")
+    _check_row_stats("flash_bwd", b, h, s, lse=lse)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep, grads)
-    if grads is None:
-        grads = tuple(torch.empty((b, h, s, d), dtype=q.dtype, device=q.device) for _ in range(3))
-    if any(g.shape != q.shape or g.dtype != q.dtype or g.stride(-1) != 1 for g in grads):
-        raise ValueError("flash_bwd: grads must match q's shape and dtype, unit-stride head dim")
-    dq, dk, dv = grads
+    dq, dk, dv = _grad_outputs("flash_bwd", q, grads)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     launch = _flash_bwd_kernel()
     with torch.cuda.device(q.device):
@@ -381,14 +486,122 @@ def _flash_bwd_kernel():
     return fn
 
 
+def _grad_outputs(name, q, grads):
+    """The (dq, dk, dv) tensors a backward kernel writes: ``grads`` when
+    given (e.g. the slots of a stacked dqkv), else new ones like q."""
+    if grads is None:
+        return tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    if any(g.shape != q.shape or g.dtype != q.dtype or g.stride(-1) != 1 for g in grads):
+        raise ValueError(f"{name}: grads must match q's shape and dtype, unit-stride head dim")
+    return grads
+
+
+# ---------------------------------------------------------------------------
+# Grid forward / backward: wrappers
+# ---------------------------------------------------------------------------
+
+
+def _tables(rope):
+    """(cos, sin) of ``rope``, or (None, None) without RoPE."""
+    return (None, None) if rope is None else rope
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def flash_grid_fwd(q, k, v, rope, sm_scale, causal: bool, kv_rep: int = 1, out_dtype=None):
+    """Grid forward (``_flash_fwd``): (out (b, h, s, d), fp32 lse
+    (b, h, s, 1)). q (b, h, s, d), k/v (b, h / kv_rep, s, d), any strides
+    with a unit-stride head dim; ``rope`` None or (cos, sin); ``out_dtype``
+    None (q's dtype) or fp32 (ring attention's per-hop outputs). CPU tensors
+    run :func:`flash_fwd_grid_plain`; CUDA tensors launch
+    ``csrc/flash_grid_fwd.cu``, whose ``out`` is laid out (b, s, h, d) in
+    memory so the output projection reads it as is."""
+    b, h, s, d = q.shape
+    _check_kv(q, k, v, kv_rep)
+    cos, sin = _tables(rope)
+    _check_flash_operands("flash_grid_fwd", (q, k, v), cos, sin, d)
+    if out_dtype not in (None, q.dtype, torch.float32):
+        raise TypeError(f"flash_grid_fwd: out_dtype must be None, {q.dtype} or fp32")
+    if q.device.type == "cpu":
+        return flash_fwd_grid_plain(q, k, v, rope, sm_scale, causal, kv_rep, out_dtype)
+    out_dtype = out_dtype or q.dtype
+    out = torch.empty((b, s, h, d), dtype=out_dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
+    launch = _grid_kernel("flash_grid_fwd", "galvatron_flash_grid_fwd", 7, 8)
+    with torch.cuda.device(q.device):
+        err = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _ptr(cos), _ptr(sin), _strides(q, k, v, out), _DTYPE_CODE[q.dtype],
+            int(out_dtype == torch.float32), int(causal), b, h, kv_rep, s, d,
+            float(sm_scale * LOG2E), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_grid_fwd kernel launch failed: CUDA error {err}")
+    flash_grid_fwd.launches += 1
+    return out, lse
+
+
+flash_grid_fwd.launches = 0
+
+
+def flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm_scale, causal: bool,
+                         kv_rep: int = 1,
+                         grads: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None):
+    """Grid backward given the row statistics (``_flash_bwd_parts``): lse
+    and ``delta = Σ do·out``, both contiguous fp32 (b, h, s, 1), may be
+    global ones (ring attention). Returns (dq, dk, dv), each (b, h, s, d) in
+    q's dtype; dk/dv are per query head (GQA callers sum them over the
+    group). ``grads`` optionally gives the three outputs to write. CPU
+    tensors run :func:`flash_bwd_grid_plain`; CUDA tensors launch the dk/dv
+    kernel, then the dq kernel, of ``csrc/flash_grid_bwd.cu``."""
+    b, h, s, d = q.shape
+    _check_kv(q, k, v, kv_rep)
+    cos, sin = _tables(rope)
+    _check_flash_operands("flash_grid_bwd", (q, k, v, do), cos, sin, d)
+    _check_row_stats("flash_grid_bwd", b, h, s, lse=lse, delta=delta)
+    if q.device.type == "cpu":
+        return flash_grid_bwd_parts_plain(q, k, v, do, lse, delta, rope, sm_scale, causal,
+                                          kv_rep, grads)
+    dq, dk, dv = _grad_outputs("flash_grid_bwd", q, grads)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _ptr(cos), _ptr(sin), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _strides(q, k, v, do, dq, dk, dv), _DTYPE_CODE[q.dtype], int(causal), b, h, kv_rep,
+            s, d, float(sm_scale * LOG2E), float(sm_scale))
+
+    def launch(which):
+        fn = _grid_kernel("flash_grid_bwd", f"galvatron_flash_grid_{which}", 11, 7, 2)
+        with torch.cuda.device(q.device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_grid_bwd {which} kernel launch failed: CUDA error {err}")
+
+    launch("dkv")
+    flash_grid_bwd_parts.dkv_launches += 1
+    launch("dq")
+    flash_grid_bwd_parts.dq_launches += 1
+    return dq, dk, dv
+
+
+flash_grid_bwd_parts.dkv_launches = 0
+flash_grid_bwd_parts.dq_launches = 0
+
+
+def _grid_kernel(lib: str, fn_name: str, n_ptrs: int, n_ints: int, n_floats: int = 1):
+    """The ctypes function ``fn_name`` of ``csrc/<lib>.cu``: ``n_ptrs``
+    pointers, the strides array, ``n_ints`` ints, ``n_floats`` floats and
+    the stream."""
+    fn = getattr(_build.load(lib), fn_name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.POINTER(ctypes.c_longlong)] + [
+        ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 # ---------------------------------------------------------------------------
 # Autograd entries (the reference's custom_vjp pairs)
 # ---------------------------------------------------------------------------
-
-
-def _check_bwd_gate(s, d, block_q):
-    if not _use_blocked_bwd(s, d, True, True, block_q, block_q):
-        raise _unported_grid("the flash backward", s, d, "2.4")
 
 
 def _unit_stride(t):
@@ -398,11 +611,20 @@ def _unit_stride(t):
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _grid_bwd(q, k, v, do, out, lse, rope, sm_scale, causal, kv_rep=1, grads=None):
+    """``_flash_bwd``: delta = Σ do·out in fp32 (a torch reduction, as the
+    reference computes it outside Pallas), then the grid dk/dv and dq
+    kernels."""
+    delta = (do.float() * out.float()).sum(dim=-1, keepdim=True).contiguous()
+    return flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm_scale, causal, kv_rep, grads)
+
+
 class FlashQKV(torch.autograd.Function):
     """Stacked entry (``_flash_qkv``): the forward reads q/k/v as views of
     the (b, 3, h, s, d) projection output, saves (qkv, out, lse) and the
     backward writes a stacked dqkv with qkv's own strides, so neither side
-    copies."""
+    copies. The backward takes the grid kernels where the blocked backward's
+    gate fails, as ``_flash_qkv_bwd_rule`` does."""
 
     @staticmethod
     def forward(ctx, qkv, cos, sin, sm_scale, block_q):
@@ -414,61 +636,77 @@ class FlashQKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qkv, out, lse, cos, sin = ctx.saved_tensors
-        _check_bwd_gate(qkv.shape[3], qkv.shape[4], ctx.block_q)
         do = _unit_stride(do)
         dqkv = torch.empty_like(qkv)  # keeps qkv's strides
-        flash_bwd(qkv[:, 0], qkv[:, 1], qkv[:, 2], do, out, lse, cos, sin, ctx.sm_scale,
-                  grads=(dqkv[:, 0], dqkv[:, 1], dqkv[:, 2]))
+        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+        grads = (dqkv[:, 0], dqkv[:, 1], dqkv[:, 2])
+        s, d = qkv.shape[3], qkv.shape[4]
+        if _use_blocked_bwd(s, d, True, (cos, sin), ctx.block_q, ctx.block_q):
+            flash_bwd(q, k, v, do, out, lse, cos, sin, ctx.sm_scale, grads=grads)
+        else:
+            _grid_bwd(q, k, v, do, out, lse, (cos, sin), ctx.sm_scale, True, grads=grads)
         return dqkv, None, None, None, None
 
 
 class FlashHM(torch.autograd.Function):
     """Head-major entry (``_flash``): k/v may carry h / kv_rep heads; the
     forward maps head h to kv head h // kv_rep, the backward computes dk/dv
-    per query head and sums them over the group (``_flash_bwd_rule``)."""
+    per query head and sums them over the group (``_flash_bwd_rule``).
+    Blocked kernels where the reference's gates take them
+    (``_fwd_dispatch``, ``_use_blocked_bwd``), grid kernels elsewhere."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cos, sin, sm_scale, block_q):
+    def forward(ctx, q, k, v, cos, sin, sm_scale, causal, block_q, block_k):
         kv_rep = q.shape[1] // k.shape[1]
-        out, lse = flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep)
+        rope = None if cos is None else (cos, sin)
+        if _use_blocked(q.shape[2], q.shape[3], causal, rope, block_q, block_k):
+            out, lse = flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep)
+        else:
+            out, lse = flash_grid_fwd(q, k, v, rope, sm_scale, causal, kv_rep)
         ctx.save_for_backward(q, k, v, out, lse, cos, sin)
-        ctx.sm_scale, ctx.block_q, ctx.kv_rep = sm_scale, block_q, kv_rep
+        ctx.sm_scale, ctx.causal, ctx.kv_rep = sm_scale, causal, kv_rep
+        ctx.blocks = (block_q, block_k)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse, cos, sin = ctx.saved_tensors
-        _check_bwd_gate(q.shape[2], q.shape[3], ctx.block_q)
+        rope = None if cos is None else (cos, sin)
         do = _unit_stride(do)
-        dq, dk, dv = flash_bwd(q, k, v, do, out, lse, cos, sin, ctx.sm_scale, ctx.kv_rep)
+        s, d = q.shape[2], q.shape[3]
+        if _use_blocked_bwd(s, d, ctx.causal, rope, *ctx.blocks):
+            dq, dk, dv = flash_bwd(q, k, v, do, out, lse, cos, sin, ctx.sm_scale, ctx.kv_rep)
+        else:
+            dq, dk, dv = _grid_bwd(q, k, v, do, out, lse, rope, ctx.sm_scale, ctx.causal,
+                                   ctx.kv_rep)
         if ctx.kv_rep > 1:
             b, h, s, d = dk.shape
             dk = dk.reshape(b, h // ctx.kv_rep, ctx.kv_rep, s, d).sum(dim=2)
             dv = dv.reshape(b, h // ctx.kv_rep, ctx.kv_rep, s, d).sum(dim=2)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_qkv(qkv, sm_scale=None, block_q: int = 1024, rope=None):
     """Stacked head-major entry: ``qkv`` is the fused projection's
     (b, 3, h, s, d) output (any strides with a unit-stride head dim),
     causal with fused RoPE only; returns (b, h, s, d). Callers gate on
-    :func:`flash_qkv_supported`; a shape outside it raises."""
+    :func:`flash_qkv_supported`; a shape outside it raises ``ValueError``."""
     s, d = qkv.shape[3], qkv.shape[4]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     block_q = min(block_q, s)
     if rope is None or not _use_blocked(s, d, True, rope, block_q, block_q):
-        raise _unported_grid("flash_attention_qkv", s, d, "2.3")
+        raise ValueError(f"flash_attention_qkv at s={s}, d={d} is outside the blocked-causal "
+                         "RoPE envelope: gate on flash_qkv_supported")
     return FlashQKV.apply(qkv, rope[0], rope[1], float(sm_scale), block_q)
 
 
 def flash_attention_hm(q, k, v, causal: bool = True, sm_scale: Optional[float] = None,
                        block_q: int = 1024, block_k: int = 1024, rope=None):
     """Head-major entry: q (b, h, s, d), k/v (b, kv_heads, s, d) with
-    h % kv_heads == 0 (GQA-native); returns (b, h, s, d). The port runs the
-    blocked-causal RoPE kernels; shapes the reference sends to its grid
-    kernels (non-causal, no RoPE, outside the envelope) raise
-    ``NotImplementedError`` naming ROADMAP §2.3."""
+    h % kv_heads == 0 (GQA-native); returns (b, h, s, d). Untileable shapes
+    fall back through :func:`flash_attention`'s einsum path, as in the
+    reference."""
     b, h, s, d = q.shape
     if h % k.shape[1]:
         raise ValueError(f"heads {h} not divisible by kv_heads {k.shape[1]}")
@@ -476,9 +714,57 @@ def flash_attention_hm(q, k, v, causal: bool = True, sm_scale: Optional[float] =
         sm_scale = 1.0 / math.sqrt(d)
     block_q = min(block_q, s)
     block_k = min(block_k, s)
-    if not _use_blocked(s, d, causal, rope, block_q, block_k):
-        raise _unported_grid("flash_attention_hm", s, d, "2.3")
-    return FlashHM.apply(q, k, v, rope[0], rope[1], float(sm_scale), block_q)
+    if not flash_tileable(s, block_q) or not flash_tileable(s, block_k):
+        rep = h // k.shape[1]
+        if rep > 1:  # the (B, S, H, D) fallback expects repeated K/V
+            k = k.repeat_interleave(rep, dim=1)
+            v = v.repeat_interleave(rep, dim=1)
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=causal, sm_scale=sm_scale, block_q=block_q,
+                              block_k=block_k, rope=rope)
+        return out.transpose(1, 2)
+    cos, sin = _tables(rope)
+    return FlashHM.apply(q, k, v, cos, sin, float(sm_scale), bool(causal), block_q, block_k)
+
+
+def flash_attention(q, k, v, causal: bool = True, sm_scale: Optional[float] = None,
+                    block_q: int = 1024, block_k: int = 1024, rope=None):
+    """(B, S, n, d) entry (the reference's ``flash_attention``); GQA callers
+    repeat k/v first. One query row goes to :func:`decode_attention`
+    (causal and full masks coincide); an untileable s to the einsum path,
+    honouring the caller's mask and scale; everything else to the kernels
+    through :class:`FlashHM`."""
+    b, s, n, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if s == 1:
+        if rope is not None:
+            q, k = (_rope_f32(t, rope[0][:, None], rope[1][:, None]).to(t.dtype) for t in (q, k))
+        return decode_attention(q, k, v, q_offset=k.shape[1] - 1, sm_scale=sm_scale)
+    block_q = min(block_q, s)
+    block_k = min(block_k, s)
+    if not flash_tileable(s, block_q) or not flash_tileable(s, block_k):
+        if rope is not None:
+            q, k = (_rope_f32(t, rope[0][:, None], rope[1][:, None]).to(t.dtype) for t in (q, k))
+        # the einsum path divides by sqrt(d): pre-scale q to express sm_scale
+        q = q * torch.tensor(sm_scale * math.sqrt(d), dtype=q.dtype)
+        return _einsum_attention(q, k, v, causal)
+    cos, sin = _tables(rope)
+    out = FlashHM.apply(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), cos, sin,
+                        float(sm_scale), bool(causal), block_q, block_k)
+    return out.transpose(1, 2)
+
+
+def _einsum_attention(q, k, v, causal: bool):
+    """The reference's ``attention_xla`` over (B, S, n, d) with n heads on
+    all three: scores in fp32 over sqrt(d), the -1e30 causal mask, softmax,
+    probabilities cast to q's dtype before the PV product."""
+    s, d = q.shape[1], q.shape[3]
+    scores = torch.einsum("bqnh,bknh->bnqk", q, k).float() / math.sqrt(d)
+    if causal:
+        scores = scores.masked_fill(~_causal_keep(s, q.device), NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bnqk,bknh->bqnh", probs, v)
 
 
 def decode_attention(q, k, v, q_offset=0, sm_scale=None):

@@ -55,7 +55,9 @@ def _make_layer_hook(cfg: ModelConfig, ckpt: str):
     layer_cfg = cfg.replace(mlp_recompute="off") if ckpt == "full" else cfg
 
     def hook(i: int, x, lp):
-        cos_sin = _rope_tables(layer_cfg, x.shape[1], x.device)
+        cos_sin = None
+        if layer_cfg.pos_embed == "rope":
+            cos_sin = _rope_tables(layer_cfg, x.shape[1], x.device)
 
         def run(x_):
             return modeling.decoder_layer(x_, lp, layer_cfg, cos_sin,

@@ -113,6 +113,28 @@ def test_qkv_stacked_accepts_a_strided_projection_view():
     np.testing.assert_array_equal(_np(base.grad.permute(0, 2, 3, 1, 4)), _np(ref_in.grad))
 
 
+def test_qkv_backward_past_the_blocked_gate_takes_the_grid_kernels():
+    """block_q 768 at s = 2304: the blocked forward applies but the blocked
+    backward's 512-key tiles do not divide s, so the backward is the grid
+    one on the blocked forward's lse (``_flash_qkv_bwd_rule``'s else
+    branch): gradients against JAX."""
+    b, h, s, d = 1, 1, 2304, 16
+    assert tfa._use_blocked(s, d, True, True, 768, 768)
+    assert not tfa._use_blocked_bwd(s, d, True, True, 768, 768)
+    qkv, w = _arrays([(b, 3, h, s, d), (b, h, s, d)], seed=17)
+    cos, sin = _tables(s, d)
+
+    def jloss(x):
+        return (jfa.flash_attention_qkv(x, rope=(cos, sin), block_q=768) * w).sum()
+
+    jg = jax.grad(jloss)(qkv)
+    tx = _t(qkv)
+    out = tfa.flash_attention_qkv(tx, rope=(torch.from_numpy(cos), torch.from_numpy(sin)),
+                                  block_q=768)
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(_np(tx.grad), np.asarray(jg), atol=GRAD_ATOL, rtol=0)
+
+
 def _dropped_tile_keep(s, device):
     """The causal mask with keys 0-63 dropped for the rows from
     max(64, s/2): a kernel that skipped that tile."""
@@ -232,12 +254,175 @@ def test_envelopes_are_the_reference_defaults():
 
 
 def test_shapes_of_the_grid_kernels_raise_naming_the_roadmap():
-    q = torch.zeros(1, 2, 1536, 32)
-    cos, sin = torch.zeros(1536, 16), torch.zeros(1536, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §2.3"):
-        tfa.flash_attention_hm(q, q, q, rope=(cos, sin))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §2.3"):
-        tfa.flash_attention_hm(q[:, :, :64], q[:, :, :64], q[:, :, :64], rope=None)
+    """The two shapes that raised before the grid kernels were ported (an
+    untileable s = 1536 with RoPE, and no RoPE) now compute: forward and
+    gradients against JAX's ``flash_attention_hm`` (its einsum fallback and
+    its grid kernels in interpret mode)."""
+    for s, rope, seed in ((1536, True, 21), (64, False, 22)):
+        q, k, v, w = _arrays([(1, 2, s, 32), (1, 1, s, 32), (1, 1, s, 32), (1, 2, s, 32)],
+                             seed=seed)
+        _assert_attention_matches_jax("flash_attention_hm", (q, k, v), w,
+                                      _tables(s, 32) if rope else None)
+
+
+def _assert_attention_matches_jax(name, arrays, w, tables=None, **kw):
+    """JAX's and the port's entry ``name`` on the same arrays, with the
+    same rope tables and keywords: outputs and the gradients of
+    sum(out * w)."""
+    def jloss(*qkv):
+        out = getattr(jfa, name)(*qkv, rope=tables, **kw)
+        return (out * w).sum(), out
+
+    (_, jout), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(*arrays)
+    tq, tk, tv = (_t(a) for a in arrays)
+    trope = None if tables is None else tuple(torch.from_numpy(t) for t in tables)
+    tout = getattr(tfa, name)(tq, tk, tv, rope=trope, **kw)
+    (tout * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(_np(tout), np.asarray(jout), atol=FWD_ATOL, rtol=0)
+    for n, got, ref in zip("qkv", (tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(_np(got), np.asarray(ref), atol=GRAD_ATOL, rtol=0,
+                                   err_msg=f"{name} d{n}")
+
+
+# the grid kernels' cases: several 64-row blocks at s = 256, so the JAX
+# side walks a real grid and splits the diagonal blocks from the rest
+GRID_CASES = {
+    # name: (b, h, kv_heads, s, d, causal, rope, dtype, out_fp32)
+    "causal": (2, 2, 2, 256, 32, True, False, "fp32", False),
+    "causal_rope": (1, 2, 2, 256, 32, True, True, "fp32", False),
+    "noncausal": (1, 2, 2, 256, 32, False, False, "fp32", False),
+    "noncausal_rope": (1, 2, 2, 256, 32, False, True, "fp32", False),
+    "gqa_rep2": (1, 4, 2, 256, 32, True, False, "fp32", False),
+    "out_fp32": (1, 2, 2, 256, 32, True, False, "fp32", True),
+    "bf16_causal": (1, 2, 2, 256, 32, True, False, "bf16", False),
+    "bf16_noncausal_rope_out_fp32": (1, 2, 2, 256, 32, False, True, "bf16", True),
+}
+GRID_BLOCK = 64
+
+
+def _grid_inputs(case, seed):
+    b, h, kvh, s, d, causal, rope, dtype, out_fp32 = GRID_CASES[case]
+    q, k, v, do = _arrays([(b, h, s, d), (b, kvh, s, d), (b, kvh, s, d), (b, h, s, d)], seed)
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    tables = _tables(s, d) if rope else None
+    return dict(arrays=(q, k, v, do), jdt=jdt, tdt=tdt, tables=tables, rep=h // kvh,
+                causal=causal, out_dtype=(jnp.float32, torch.float32) if out_fp32 else (None, None),
+                sm=1 / np.sqrt(d))
+
+
+def _grid_close(got, ref, which, dtype):
+    if dtype == "fp32":
+        tol = {"fwd": FWD_GRID_ATOL, "bwd": GRAD_ATOL}[which]
+        np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32), atol=tol, rtol=0)
+    else:
+        assert tfa.bf16_parity_excess(got, torch.from_numpy(np.array(ref, np.float32))) \
+            <= tfa.BF16_PARITY_TOL[which]
+
+
+# fp32 out and lse of the grid plain version against the grid kernel
+FWD_GRID_ATOL = 1e-5
+
+
+def _dropped_grid_keep(s, causal, device):
+    """The grid mask with keys 0-63 dropped for the rows from max(64, s/2)."""
+    r = torch.arange(s, device=device)
+    mask = r[:, None] >= r[None, :] if causal else torch.ones(s, s, dtype=torch.bool)
+    mask[max(64, s // 2):, :64] = False
+    return mask
+
+
+@pytest.mark.parametrize("case", sorted(GRID_CASES))
+def test_grid_forward_plain_matches_jax_kernel(case, monkeypatch):
+    """``flash_fwd_grid_plain`` against ``_flash_fwd`` (interpret mode,
+    64-row blocks): out (in ``out_dtype``) and the natural-log lse. In
+    bf16 the JAX kernel rounds p against a running max, as the CUDA kernel
+    does, and passes the card's rule; the plain version with a key tile
+    dropped fails it."""
+    g = _grid_inputs(case, seed=len(case) + 30)
+    q, k, v, _ = g["arrays"]
+    rope = g["tables"]
+    jout, jlse = jfa._flash_fwd(*(jnp.asarray(a, g["jdt"]) for a in (q, k, v)), rope, g["sm"],
+                                g["causal"], GRID_BLOCK, GRID_BLOCK, True,
+                                out_dtype=g["out_dtype"][0], kv_rep=g["rep"])
+    trope = None if rope is None else tuple(torch.from_numpy(t) for t in rope)
+    tout, tlse = tfa.flash_fwd_grid_plain(*(_t(a, g["tdt"]).detach() for a in (q, k, v)), trope,
+                                          g["sm"], g["causal"], g["rep"], g["out_dtype"][1])
+    assert tout.dtype == (g["out_dtype"][1] or g["tdt"])
+    _grid_close(tout, jout.astype(jnp.float32), "fwd", GRID_CASES[case][7])
+    np.testing.assert_allclose(_np(tlse), np.asarray(jlse), atol=FWD_GRID_ATOL, rtol=0)
+    if GRID_CASES[case][7] == "bf16":
+        monkeypatch.setattr(tfa, "_grid_keep", _dropped_grid_keep)
+        ctl, _ = tfa.flash_fwd_grid_plain(*(_t(a, g["tdt"]).detach() for a in (q, k, v)), trope,
+                                          g["sm"], g["causal"], g["rep"], g["out_dtype"][1])
+        ref = torch.from_numpy(np.array(jout.astype(jnp.float32)))
+        assert tfa.bf16_parity_excess(ctl, ref) > tfa.BF16_PARITY_TOL["fwd"]
+
+
+@pytest.mark.parametrize("case", sorted(GRID_CASES))
+def test_grid_backward_plain_matches_jax_kernels(case):
+    """``flash_bwd_grid_plain`` against ``_flash_bwd_parts`` (interpret
+    mode, 64-row blocks) on caller-given row statistics: lse shifted off the
+    forward's and a random delta, as ring attention's global statistics
+    are not the local ones; k/v broadcast to h heads by the caller."""
+    g = _grid_inputs(case, seed=len(case) + 40)
+    q, k, v, do = g["arrays"]
+    b, h, _, s, d = GRID_CASES[case][:5]
+    rng = np.random.RandomState(5)
+    lse = (rng.standard_normal((b, h, s, 1)) * 0.1 + np.log(s)).astype(np.float32)
+    delta = rng.standard_normal((b, h, s, 1)).astype(np.float32)
+    kf, vf = (np.repeat(a, g["rep"], axis=1) for a in (k, v))
+    rope = g["tables"]
+    jgrads = jfa._flash_bwd_parts(*(jnp.asarray(a, g["jdt"]) for a in (q, kf, vf, do)), lse,
+                                  delta, rope, g["sm"], g["causal"], GRID_BLOCK, GRID_BLOCK, True)
+    trope = None if rope is None else tuple(torch.from_numpy(t) for t in rope)
+    tgrads = tfa.flash_bwd_grid_plain(*(_t(a, g["tdt"]).detach() for a in (q, kf, vf, do)),
+                                      torch.from_numpy(lse), torch.from_numpy(delta), trope,
+                                      g["sm"], g["causal"])
+    for got, ref in zip(tgrads, jgrads):
+        assert got.dtype == g["tdt"]
+        _grid_close(got, ref.astype(jnp.float32), "bwd", GRID_CASES[case][7])
+
+
+def test_grid_bwd_parts_broadcasts_kv_and_writes_into_given_grads():
+    """The wrapper's CPU route: GQA k/v broadcast to h heads before the
+    plain version, results copied into given outputs."""
+    b, h, s, d = 1, 4, 64, 16
+    q, k, v, do = (torch.from_numpy(a) for a in _arrays([(b, h, s, d), (b, 2, s, d),
+                                                        (b, 2, s, d), (b, h, s, d)], seed=9))
+    out, lse = tfa.flash_grid_fwd(q, k, v, None, 0.25, True, 2)
+    delta = (do * out).sum(-1, keepdim=True)
+    ref = tfa.flash_bwd_grid_plain(q, k.repeat_interleave(2, 1), v.repeat_interleave(2, 1), do,
+                                   lse, delta, None, 0.25, True)
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    assert tfa.flash_grid_bwd_parts(q, k, v, do, lse, delta, None, 0.25, True, 2, grads) is grads
+    for into, want in zip(grads, ref):
+        assert torch.equal(into, want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rope", [False, True])
+def test_hm_grid_path_matches_jax(causal, rope):
+    """``flash_attention_hm`` outside the blocked envelope (no RoPE, or
+    non-causal) with four 32-row blocks: forward and gradients through the
+    port's grid route against JAX's grid kernels in interpret mode."""
+    s, d = 128, 32
+    q, k, v, w = _arrays([(1, 4, s, d), (1, 2, s, d), (1, 2, s, d), (1, 4, s, d)],
+                         seed=50 + 2 * causal + rope)
+    _assert_attention_matches_jax("flash_attention_hm", (q, k, v), w,
+                                  _tables(s, d) if rope else None, causal=causal, block_q=32,
+                                  block_k=32)
+
+
+@pytest.mark.parametrize("s,causal,rope", [(1, True, True), (100, True, False),
+                                           (96, False, True), (64, True, False)])
+def test_bsnd_flash_attention_matches_jax(s, causal, rope):
+    """``flash_attention`` over (B, S, n, d): one query row (decode path),
+    an untileable s (the einsum fallback, block 64), and the kernel route."""
+    d = 32
+    q, k, v, w = _arrays([(2, s, 2, d)] * 4, seed=60 + s)
+    _assert_attention_matches_jax("flash_attention", (q, k, v), w,
+                                  _tables(s, d) if rope else None, causal=causal, block_q=64,
+                                  block_k=64)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():

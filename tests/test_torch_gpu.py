@@ -169,18 +169,95 @@ def test_flash_kernels_match_plain(cuda, case, monkeypatch):
         assert not _close(c, r, "bwd"), name
 
 
-@pytest.mark.parametrize("kv_heads", [None, 2])
-def test_train_steps_on_card_match_cpu(cuda, kv_heads):
-    """fp32 train steps through the flash kernels on the card (MHA: the
-    stacked qkv view; GQA: the interleaved projection's k/v views) against
-    the plain versions on the CPU, from the same weights and batches;
-    bf16 on the card (the tensor-core kernels) stays finite."""
+GRID_CASES = {
+    # name: (dtype, b, h, kv_heads, s, d, causal, rope, stacked, out_fp32)
+    "gpt_bf16_stacked": (torch.bfloat16, 2, 25, 25, 1024, 64, True, False, True, False),
+    "noncausal_bf16": (torch.bfloat16, 2, 16, 16, 512, 64, False, False, False, False),
+    "rope_past_envelope_d128": (torch.bfloat16, 1, 2, 2, 2048, 128, True, True, False, False),
+    "gqa_rep4": (torch.bfloat16, 2, 16, 4, 512, 64, True, False, False, False),
+    "out_fp32": (torch.bfloat16, 2, 8, 8, 512, 64, True, False, True, True),
+    "ragged_noncausal_s100": (torch.bfloat16, 1, 4, 4, 100, 64, False, True, False, False),
+    "fp32": (torch.float32, 1, 4, 4, 512, 64, True, False, True, False),
+    "fp32_noncausal_rope_d40": (torch.float32, 1, 2, 2, 77, 40, False, True, False, False),
+    # bf16 off the tensor-core head dims: the CUDA-core kernels
+    "bf16_d40_rope": (torch.bfloat16, 1, 4, 2, 77, 40, True, True, False, False),
+}
+
+
+def _dropped_grid_keep(s, causal, device):
+    """The grid mask with keys 0-63 dropped for the rows from max(64, s/2)."""
+    r = torch.arange(s, device=device)
+    mask = r[:, None] >= r[None, :] if causal else torch.ones(s, s, dtype=torch.bool,
+                                                              device=device)
+    mask[max(64, s // 2):, :64] = False
+    return mask
+
+
+def _grid_close(got, ref, which, dtype):
+    """As ``_close``, by the input dtype: a bf16 kernel writing fp32 output
+    still rounds p and ds to bf16, so it is held to the bf16 rule."""
+    if dtype == torch.float32:
+        return (got - ref).abs().max().item() <= {"fwd": 1e-5, "bwd": 1e-4}[which]
+    return fa.bf16_parity_excess(got, ref) <= fa.BF16_PARITY_TOL[which]
+
+
+@pytest.mark.parametrize("case", sorted(GRID_CASES))
+def test_grid_kernels_match_plain(cuda, case, monkeypatch):
+    """flash_grid_fwd / flash_grid_bwd_parts kernels against their plain
+    versions on the same CUDA tensors (lse within 1e-5 fp32, 1e-4 bf16);
+    one launch of each kernel. The plain versions with a key tile dropped
+    must fail the same check."""
+    dtype, b, h, kvh, s, d, causal, rope, stacked, out_fp32 = GRID_CASES[case]
+    q, k, v, do, cos, sin = _flash_inputs(dtype, b, h, kvh, s, d, stacked)
+    rope = (cos, sin) if rope else None
+    rep, sm = h // kvh, 1.0 / math.sqrt(d)
+    out_dtype = torch.float32 if out_fp32 else None
+    before = (fa.flash_grid_fwd.launches, fa.flash_grid_bwd_parts.dkv_launches,
+              fa.flash_grid_bwd_parts.dq_launches)
+    out, lse = fa.flash_grid_fwd(q, k, v, rope, sm, causal, rep, out_dtype)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True).contiguous()
+    grads = fa.flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm, causal, rep)
+    torch.cuda.synchronize()
+    after = (fa.flash_grid_fwd.launches, fa.flash_grid_bwd_parts.dkv_launches,
+             fa.flash_grid_bwd_parts.dq_launches)
+    assert after == tuple(n + 1 for n in before)
+    assert out.dtype == (out_dtype or dtype)
+    ref_out, ref_lse = fa.flash_fwd_grid_plain(q, k, v, rope, sm, causal, rep, out_dtype)
+    assert _grid_close(out, ref_out, "fwd", dtype)
+    assert (lse - ref_lse).abs().max().item() <= (1e-5 if dtype == torch.float32 else 1e-4)
+    kf, vf = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    ref_grads = fa.flash_bwd_grid_plain(q, kf, vf, do, lse, delta, rope, sm, causal)
+    for name, g, r in zip("qkv", grads, ref_grads):
+        assert torch.isfinite(g).all(), name
+        assert _grid_close(g, r, "bwd", dtype), name
+    monkeypatch.setattr(fa, "_grid_keep", _dropped_grid_keep)
+    ctl_out = fa.flash_fwd_grid_plain(q, k, v, rope, sm, causal, rep, out_dtype)[0]
+    assert not _grid_close(ctl_out, ref_out, "fwd", dtype)
+    ctl = fa.flash_bwd_grid_plain(q, kf, vf, do, lse, delta, rope, sm, causal)
+    for name, c, r in zip("qkv", ctl, ref_grads):
+        assert not _grid_close(c, r, "bwd", dtype), name
+
+
+def _small_cfg(family, **kw):
+    """Small configs of the two families: LLaMA (blocked kernels; MHA or
+    GQA by ``num_kv_heads``) and GPT (learned positions, LayerNorm, gelu,
+    biases, tied head: the grid kernels)."""
+    shape = dict(vocab_size=384, hidden_size=256, num_layers=2, num_heads=4, attn_impl="flash")
+    if family == "gpt":
+        return modeling.PRESETS["gpt-0.3b"].replace(**shape, **kw)
+    return modeling.ModelConfig(ffn_dim=512, **shape, **kw)
+
+
+def _path_launches(family):
+    """The launch counter of the family's forward kernel."""
+    return fa.flash_grid_fwd.launches if family == "gpt" else fa.flash_fwd.launches
+
+
+def _train_steps_match_cpu(family, **kw):
     from galvatron_tpu_torch.core.optim import AdamConfig
     from galvatron_tpu_torch.parallel.hybrid import build_runtime
 
-    cfg = modeling.ModelConfig(vocab_size=384, hidden_size=256, num_layers=2, num_heads=4,
-                               num_kv_heads=kv_heads, ffn_dim=512, max_seq_len=128,
-                               attn_impl="flash")
+    cfg = _small_cfg(family, max_seq_len=128, **kw)
     adam = AdamConfig(lr=1e-3, weight_decay=0.01)
     cpu_params = modeling.init_model_params(cfg, 0, "cpu")
     batches = [torch.from_numpy(np.random.RandomState(i).randint(0, 384, (2, 129)))
@@ -191,26 +268,32 @@ def test_train_steps_on_card_match_cpu(cuda, kv_heads):
         rt = build_runtime(cfg, adam, global_batch_size=2, seq_len=128,
                            mixed_precision=precision, device=dev)
         state = rt.state_from(_to(cpu_params, dev))
-        before = fa.flash_fwd.launches
+        before = _path_launches(family)
         losses[dev, precision] = [float(rt.train_step(state, b)[1]) for b in batches]
-        assert fa.flash_fwd.launches - before == (0 if dev == "cpu" else 2 * 2)
+        assert _path_launches(family) - before == (0 if dev == "cpu" else 2 * 2)
     assert np.allclose(losses["cuda", "fp32"], losses["cpu", "fp32"], atol=1e-4, rtol=0)
     assert np.all(np.isfinite(losses["cuda", "bf16"]))
 
 
 @pytest.mark.parametrize("kv_heads", [None, 2])
-def test_bf16_grads_through_kernels_match_plain_on_card(cuda, kv_heads, monkeypatch):
-    """bf16 over fp32 masters (the tensor-core kernels at head_dim 64): the
-    loss and every parameter gradient of one forward + backward through the
-    kernels against the same step with the wrappers swapped for their plain
-    versions on the card, so every other op is the same. The largest
-    per-tensor relative gradient error stays under 2^-5; the plain versions
-    with a key tile dropped exceed it."""
+def test_train_steps_on_card_match_cpu(cuda, kv_heads):
+    """fp32 train steps through the flash kernels on the card (MHA: the
+    stacked qkv view; GQA: the interleaved projection's k/v views) against
+    the plain versions on the CPU, from the same weights and batches;
+    bf16 on the card (the tensor-core kernels) stays finite."""
+    _train_steps_match_cpu("llama", num_kv_heads=kv_heads)
+
+
+def test_gpt_train_steps_on_card_match_cpu(cuda):
+    """As above for GPT: q/k/v as views of the biased stacked projection
+    through the grid kernels."""
+    _train_steps_match_cpu("gpt")
+
+
+def _bf16_grads_match_plain(family, monkeypatch, **kw):
     from galvatron_tpu_torch.core.optim import tree_leaves
 
-    cfg = modeling.ModelConfig(vocab_size=384, hidden_size=256, num_layers=2, num_heads=4,
-                               num_kv_heads=kv_heads, ffn_dim=512, max_seq_len=256,
-                               attn_impl="flash", dtype=torch.bfloat16)
+    cfg = _small_cfg(family, max_seq_len=256, dtype=torch.bfloat16, **kw)
     params = modeling.init_model_params(cfg, 0, "cuda")
     leaves = tree_leaves(params)
     for p in leaves:
@@ -228,16 +311,36 @@ def test_bf16_grads_through_kernels_match_plain_on_card(cuda, kv_heads, monkeypa
     def worst(gs, refs):
         return max(((g - r).norm() / r.norm()).item() for g, r in zip(gs, refs))
 
-    before = fa.flash_fwd.launches
+    before = _path_launches(family)
     loss, grads = step()
-    assert fa.flash_fwd.launches - before == 2
-    monkeypatch.setattr(fa, "flash_fwd", fa.flash_fwd_blocked_plain)
-    monkeypatch.setattr(fa, "flash_bwd", fa.flash_bwd_plain)
+    assert _path_launches(family) - before == 2
+    if family == "gpt":
+        monkeypatch.setattr(fa, "flash_grid_fwd", fa.flash_fwd_grid_plain)
+        monkeypatch.setattr(fa, "flash_grid_bwd_parts", fa.flash_grid_bwd_parts_plain)
+    else:
+        monkeypatch.setattr(fa, "flash_fwd", fa.flash_fwd_blocked_plain)
+        monkeypatch.setattr(fa, "flash_bwd", fa.flash_bwd_plain)
     ref_loss, ref_grads = step()
     assert abs(loss - ref_loss) <= 1e-3
     assert worst(grads, ref_grads) <= 2 ** -5
     monkeypatch.setattr(fa, "_causal_keep", _dropped_tile_keep)
     assert worst(step()[1], ref_grads) > 2 ** -5
+
+
+@pytest.mark.parametrize("kv_heads", [None, 2])
+def test_bf16_grads_through_kernels_match_plain_on_card(cuda, kv_heads, monkeypatch):
+    """bf16 over fp32 masters (the tensor-core kernels at head_dim 64): the
+    loss and every parameter gradient of one forward + backward through the
+    kernels against the same step with the wrappers swapped for their plain
+    versions on the card, so every other op is the same. The largest
+    per-tensor relative gradient error stays under 2^-5; the plain versions
+    with a key tile dropped exceed it."""
+    _bf16_grads_match_plain("llama", monkeypatch, num_kv_heads=kv_heads)
+
+
+def test_gpt_bf16_grads_through_kernels_match_plain_on_card(cuda, monkeypatch):
+    """As above for GPT through the grid kernels."""
+    _bf16_grads_match_plain("gpt", monkeypatch)
 
 
 def _to(tree, dev):

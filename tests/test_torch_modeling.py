@@ -91,11 +91,22 @@ def test_init_matches_jax_shapes_and_distributions(layout):
 @pytest.mark.parametrize("field,value", [
     ("pos_embed", "learned"), ("norm_type", "layernorm"), ("act_fn", "gelu"),
     ("use_bias", True), ("tie_word_embeddings", True), ("moe_experts", 4),
+    ("pos_embed", "alibi"), ("causal", False), ("objective", "mlm"), ("objective", "cls"),
 ])
 def test_unported_families_raise_naming_the_roadmap(field, value):
+    """What the port does not run raises naming ROADMAP §1.10: training
+    refuses ALiBi, MoE, encoders and non-clm objectives; the GPT/OPT pieces
+    it trains (learned positions, layernorm, gelu, biases, tied head) are
+    still refused by serving's check."""
     _, tcfg = _cfgs(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_model_params(tcfg.replace(**{field: value}), 0, "cpu")
+    cfg = tcfg.replace(**{field: value})
+    if field in ("moe_experts", "causal", "objective") or value == "alibi":
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
+            tm.init_model_params(cfg, 0, "cpu")
+    else:
+        tm.check_supported(cfg)
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
+            tm.check_serving_supported(cfg)
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
