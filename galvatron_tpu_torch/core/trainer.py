@@ -16,6 +16,7 @@ from __future__ import annotations
 import argparse
 import math
 import time
+from typing import Optional
 
 import torch
 
@@ -27,17 +28,22 @@ from galvatron_tpu_torch.core.arguments import (
 from galvatron_tpu_torch.core.dataloader import build_dataloader
 from galvatron_tpu_torch.device import resolve_device
 from galvatron_tpu_torch.obs.stepstats import StepStats
-from galvatron_tpu_torch.ops import flash_attention
+from galvatron_tpu_torch.models.modeling import ModelConfig
+from galvatron_tpu_torch.ops import flash_attention, fused_norm
 from galvatron_tpu_torch.parallel.hybrid import CKPT_MODES, build_runtime
 from galvatron_tpu_torch.utils.metrics import SCHEMA_VERSION, MetricsLogger
 
 
-def train(ns: argparse.Namespace) -> dict:
+def train(ns: argparse.Namespace, cfg: Optional[ModelConfig] = None) -> dict:
     """Train ``ns.train_iters`` steps; returns the losses, the mean
-    iter_ms, the final state and the flash kernels' launch counts as they
-    stand at the end of the run."""
+    iter_ms, the final state and every training kernel's launch count as it
+    stands at the end of the run. ``cfg`` replaces the model the flags
+    describe (the way to fields that have no flag, ``fused_norm`` among
+    them); attention implementation and ``--mlp_recompute`` still come from
+    ``ns``."""
     device = resolve_device(ns.device)
-    cfg = model_config_from_args(ns)
+    if cfg is None:
+        cfg = model_config_from_args(ns)
     cfg = resolve_attn_impl(cfg, ns, device).replace(mlp_recompute=ns.mlp_recompute)
     ckpt = CKPT_MODES[ns.global_checkpoint]
     seq = cfg.max_seq_len
@@ -51,7 +57,8 @@ def train(ns: argparse.Namespace) -> dict:
     print(f"train: {ns.model_size} layers={c.num_layers} hidden={c.hidden_size} "
           f"heads={c.num_heads} seq={seq} batch={bsz} chunks={rt.chunks} "
           f"dtype={str(c.dtype).replace('torch.', '')} attn={c.attn_impl} "
-          f"ckpt={ckpt} mlp_recompute={c.mlp_recompute} on {device}", flush=True)
+          f"ckpt={ckpt} mlp_recompute={c.mlp_recompute} fused_norm={c.fused_norm} "
+          f"on {device}", flush=True)
     state = rt.init_state(ns.seed)
     loader = build_dataloader(rt.cfg, bsz, seq, seed=ns.seed)
     stats = StepStats(rt.cfg, bsz, seq, device=device, ckpt=ckpt)
@@ -91,5 +98,6 @@ def train(ns: argparse.Namespace) -> dict:
                      "flash_bwd": flash_attention.flash_bwd.launches,
                      "flash_grid_fwd": flash_attention.flash_grid_fwd.launches,
                      "flash_grid_dkdv": flash_attention.flash_grid_bwd_parts.dkv_launches,
-                     "flash_grid_dq": flash_attention.flash_grid_bwd_parts.dq_launches},
+                     "flash_grid_dq": flash_attention.flash_grid_bwd_parts.dq_launches,
+                     **fused_norm.launch_counts()},
     }

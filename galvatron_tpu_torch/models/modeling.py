@@ -63,6 +63,12 @@ class ModelConfig:
     # product; 'off' saves everything autograd saves. All three give the
     # same values.
     mlp_recompute: str = "policy"
+    # every norm through the fused kernels of ops/fused_norm.py (the
+    # reference's opt-in flag; a config field there too, no CLI flag). The
+    # kernels save their own residuals, so under 'policy' the MLP branch
+    # leaves the one-region recompute and only the activation product is
+    # recomputed.
+    fused_norm: bool = False
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32
 
@@ -297,16 +303,25 @@ def _norm_with(x, scale, bias, cfg: ModelConfig):
 
 def _norm_impl(x, p, cfg: ModelConfig):
     """RMSNorm or LayerNorm in fp32, cast back to the input dtype (the
-    reference's ``_norm_impl``; its Pallas ``fused_norm`` path is opt-in and
-    not ported, ROADMAP §1.3)."""
+    reference's ``_norm_impl``)."""
     return _norm_with(x, p["scale"], p.get("bias"), cfg)
 
 
 def norm(x, p, cfg: ModelConfig):
-    """Under ``mlp_recompute='policy'`` and with autograd on, the fp32
-    statistics are recomputed in the backward from the compute-dtype input
-    instead of being saved widened (the reference wraps ``_norm_impl`` in
+    """RMSNorm / LayerNorm. With ``cfg.fused_norm`` through the fused
+    kernels' autograd entries (``ops/fused_norm.py``; a width that does not
+    tile takes their plain reference), which save the input and the fp32 row
+    statistics themselves, so no checkpoint wraps them. Otherwise, under
+    ``mlp_recompute='policy'`` and with autograd on, the fp32 statistics are
+    recomputed in the backward from the compute-dtype input instead of
+    being saved widened (the reference wraps ``_norm_impl`` in
     ``jax.checkpoint``)."""
+    if cfg.fused_norm:
+        from galvatron_tpu_torch.ops import fused_norm
+
+        if cfg.norm_type == "rms":
+            return fused_norm.fused_rmsnorm(x, p["scale"], cfg.norm_eps)
+        return fused_norm.fused_layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
     if cfg.mlp_recompute == "policy" and torch.is_grad_enabled():
         return checkpoint(_norm_impl, x, p, cfg, use_reentrant=False)
     return _norm_impl(x, p, cfg)
@@ -456,12 +471,17 @@ class _MLPBranch(torch.autograd.Function):
 def mlp_block(x, p, cfg: ModelConfig):
     """``act(x @ w_up + b_up) @ w2 + b2`` (SwiGLU over the fused [w1 | w3],
     tanh-GELU or ReLU over w1; biases when present); under 'gate' with
-    autograd on, the product is recomputed in the backward ('policy' is
-    :func:`mlp_residual`'s region)."""
+    autograd on, the product is recomputed in the backward. 'policy' is
+    :func:`mlp_residual`'s region, except with ``fused_norm``: the branch
+    then leaves that region (the fused kernels carry their own residuals)
+    and the one-gate-save guarantee falls back to the product-only
+    recompute here, as in the reference."""
     up = _up_name(cfg)
     g = _add_bias(x @ p[up].to(x.dtype), p, up + "_b")
     w2 = p["w2"].to(x.dtype)
-    if cfg.mlp_recompute == "gate" and torch.is_grad_enabled():
+    product_remat = cfg.mlp_recompute == "gate" or (
+        cfg.mlp_recompute == "policy" and cfg.fused_norm)
+    if product_remat and torch.is_grad_enabled():
         y = _ActDown.apply(g, w2, cfg.act_fn)
     else:
         y = _ACTS[cfg.act_fn](g) @ w2
@@ -470,8 +490,11 @@ def mlp_block(x, p, cfg: ModelConfig):
 
 def mlp_residual(x, p, cfg: ModelConfig):
     """x + MLP(norm(x)); under 'policy' with autograd on, the whole branch
-    is one region that saves only x and the gate output (:class:`_MLPBranch`)."""
-    if cfg.mlp_recompute == "policy" and torch.is_grad_enabled():
+    is one region that saves only x and the gate output
+    (:class:`_MLPBranch`). ``fused_norm`` layers keep the plain branch: the
+    region recomputes the plain norm, and the fused kernels save residuals
+    it cannot reach."""
+    if cfg.mlp_recompute == "policy" and not cfg.fused_norm and torch.is_grad_enabled():
         pm, pn, up = p["mlp"], p["mlp_norm"], _up_name(cfg)
 
         def cast(name):

@@ -44,7 +44,7 @@ def fake_nvcc(tmp_path, monkeypatch):
 def test_every_source_builds_for_sm90a_and_is_reused(fake_nvcc):
     nvcc = fake_nvcc()
     assert _build.sources() == ["flash_bwd", "flash_fwd", "flash_grid_bwd", "flash_grid_fwd",
-                                "paged_decode"]
+                                "fused_norm", "paged_decode"]
     log = _build.build_all()
     targets = {name: _build._target(name, nvcc) for name in _build.sources()}
     for name, target in targets.items():
@@ -72,7 +72,8 @@ def test_a_failed_build_raises_with_the_compiler_output(fake_nvcc):
         _build.build_all()
     # nothing half-written is left to load: only the sources that built
     assert sorted(p.name.split("-")[0] for p in _build.BUILD_DIR.iterdir()) == [
-        "libflash_bwd", "libflash_fwd", "libflash_grid_bwd", "libflash_grid_fwd"]
+        "libflash_bwd", "libflash_fwd", "libflash_grid_bwd", "libflash_grid_fwd",
+        "libfused_norm"]
 
 
 def test_a_shared_header_change_rebuilds_every_source(fake_nvcc, tmp_path, monkeypatch):

@@ -1,7 +1,7 @@
 """Card-side checks of the port (marker ``gpu``): the hand-written paged
-decode and flash forward/backward kernels against their plain PyTorch
-versions on the same CUDA tensors, and the engine on the card against the
-engine on the CPU. Each test skips,
+decode, flash forward/backward and fused norm kernels against their plain
+PyTorch versions on the same CUDA tensors, and the engine and the train
+step on the card against the CPU. Each test skips,
 with its reason, where ``torch.cuda.is_available()`` is false; run them on
 the card with ``python -m pytest tests/test_torch_gpu.py -m gpu``."""
 
@@ -13,6 +13,7 @@ import torch
 
 from galvatron_tpu_torch.models import modeling
 from galvatron_tpu_torch.ops import flash_attention as fa
+from galvatron_tpu_torch.ops import fused_norm as fn
 
 pytestmark = pytest.mark.gpu
 
@@ -253,11 +254,19 @@ def _path_launches(family):
     return fa.flash_grid_fwd.launches if family == "gpt" else fa.flash_fwd.launches
 
 
+def _norm_launches(family):
+    """(forward, backward) launch counts of the family's norm kernels."""
+    counts = fn.launch_counts()
+    return (counts["ln_fwd"], counts["ln_bwd"]) if family == "gpt" else (
+        counts["rms_fwd"], counts["rms_bwd"])
+
+
 def _train_steps_match_cpu(family, **kw):
     from galvatron_tpu_torch.core.optim import AdamConfig
     from galvatron_tpu_torch.parallel.hybrid import build_runtime
 
     cfg = _small_cfg(family, max_seq_len=128, **kw)
+    norms = (2 * cfg.num_layers + 1) * 2 if cfg.fused_norm else 0  # per two steps
     adam = AdamConfig(lr=1e-3, weight_decay=0.01)
     cpu_params = modeling.init_model_params(cfg, 0, "cpu")
     batches = [torch.from_numpy(np.random.RandomState(i).randint(0, 384, (2, 129)))
@@ -268,9 +277,11 @@ def _train_steps_match_cpu(family, **kw):
         rt = build_runtime(cfg, adam, global_batch_size=2, seq_len=128,
                            mixed_precision=precision, device=dev)
         state = rt.state_from(_to(cpu_params, dev))
-        before = _path_launches(family)
+        before, norm_before = _path_launches(family), _norm_launches(family)
         losses[dev, precision] = [float(rt.train_step(state, b)[1]) for b in batches]
         assert _path_launches(family) - before == (0 if dev == "cpu" else 2 * 2)
+        assert [a - b for a, b in zip(_norm_launches(family), norm_before)] == [
+            0 if dev == "cpu" else norms] * 2
     assert np.allclose(losses["cuda", "fp32"], losses["cpu", "fp32"], atol=1e-4, rtol=0)
     assert np.all(np.isfinite(losses["cuda", "bf16"]))
 
@@ -288,6 +299,14 @@ def test_gpt_train_steps_on_card_match_cpu(cuda):
     """As above for GPT: q/k/v as views of the biased stacked projection
     through the grid kernels."""
     _train_steps_match_cpu("gpt")
+
+
+@pytest.mark.parametrize("family", ["llama", "gpt"])
+def test_fused_norm_train_steps_on_card_match_cpu(cuda, family):
+    """As above with ``fused_norm=True``: every norm through the RMSNorm
+    (llama) or LayerNorm (gpt) kernels, forward and backward, 2 x layers + 1
+    launches of each a step."""
+    _train_steps_match_cpu(family, fused_norm=True)
 
 
 def _bf16_grads_match_plain(family, monkeypatch, **kw):
@@ -320,7 +339,12 @@ def _bf16_grads_match_plain(family, monkeypatch, **kw):
     else:
         monkeypatch.setattr(fa, "flash_fwd", fa.flash_fwd_blocked_plain)
         monkeypatch.setattr(fa, "flash_bwd", fa.flash_bwd_plain)
+    if cfg.fused_norm:
+        for name in ("rms_fwd", "rms_bwd", "ln_fwd", "ln_bwd"):
+            monkeypatch.setattr(fn, name, getattr(fn, name + "_plain"))
+    norm_before = fn.launch_counts()
     ref_loss, ref_grads = step()
+    assert fn.launch_counts() == norm_before
     assert abs(loss - ref_loss) <= 1e-3
     assert worst(grads, ref_grads) <= 2 ** -5
     monkeypatch.setattr(fa, "_causal_keep", _dropped_tile_keep)
@@ -341,6 +365,102 @@ def test_bf16_grads_through_kernels_match_plain_on_card(cuda, kv_heads, monkeypa
 def test_gpt_bf16_grads_through_kernels_match_plain_on_card(cuda, monkeypatch):
     """As above for GPT through the grid kernels."""
     _bf16_grads_match_plain("gpt", monkeypatch)
+
+
+@pytest.mark.parametrize("family", ["llama", "gpt"])
+def test_fused_norm_bf16_grads_through_kernels_match_plain_on_card(cuda, family, monkeypatch):
+    """As above with ``fused_norm=True``: the flash and the norm wrappers
+    swapped for their plain versions give the reference step."""
+    before = _norm_launches(family)
+    _bf16_grads_match_plain(family, monkeypatch, fused_norm=True)
+    assert [a - b for a, b in zip(_norm_launches(family), before)] == [2 * 2 + 1] * 2
+
+
+NORM_CASES = {
+    # name: (norm, dtype, rows, H)
+    "rms_bf16_train": ("rms", torch.bfloat16, 4096, 4096),
+    "ln_bf16_train": ("ln", torch.bfloat16, 4096, 2048),
+    "rms_fp32": ("rms", torch.float32, 1000, 4096),
+    "ln_fp32": ("ln", torch.float32, 1000, 2048),
+    "rms_one_row": ("rms", torch.bfloat16, 1, 4096),
+    "ln_four_rows_h128": ("ln", torch.bfloat16, 4, 128),
+    "rms_h5120": ("rms", torch.bfloat16, 777, 5120),
+    "ln_h7168_fp32": ("ln", torch.float32, 300, 7168),
+    "ln_h8192": ("ln", torch.bfloat16, 300, 8192),
+}
+# bf16 y / dx by fa.bf16_parity_excess (both sides round one fp32 value,
+# computed with the row sum in another order: within one ulp); dscale / dbias
+# by the largest error over the vector's rms (fp32 column sums in another
+# order); the limits of chip_smoke.py's norm phase
+NORM_BF16_TOL = 2 ** -10
+NORM_COLSUM_TOL = 1e-4
+
+
+def _vec_err(got, ref):
+    return ((got - ref).abs().max() / ref.square().mean().sqrt().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("case", sorted(NORM_CASES))
+def test_norm_kernels_match_plain(cuda, case):
+    """rms_fwd / rms_bwd / ln_fwd / ln_bwd kernels against their plain
+    versions on the same CUDA tensors: fp32 y and statistics within 1e-5, dx
+    within 1e-4; bf16 y and dx within ``NORM_BF16_TOL``; dscale and dbias
+    within ``NORM_COLSUM_TOL``; one launch each, and the same bits on a
+    second launch (no atomics). The plain column sums with the first rows
+    left out must fail the same check."""
+    norm, dtype, n, h = NORM_CASES[case]
+    rng = np.random.RandomState(0)
+    x32 = torch.from_numpy((rng.standard_normal((n, h)) * 1.5 + 0.3).astype(np.float32)).cuda()
+    dy = (torch.from_numpy(rng.standard_normal((n, h)).astype(np.float32)).cuda()
+          + 0.5 * x32).to(dtype)
+    x = x32.to(dtype)
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(h)).astype(np.float32)).cuda()
+    b = torch.from_numpy((0.1 * rng.standard_normal(h)).astype(np.float32)).cuda()
+    if norm == "rms":
+        fwd, plain_fwd = (lambda: fn.rms_fwd(x, g, 1e-5)), (lambda: fn.rms_fwd_plain(x, g, 1e-5))
+        bwd, plain_bwd = fn.rms_bwd, fn.rms_bwd_plain
+    else:
+        fwd = lambda: fn.ln_fwd(x, g, b, 1e-5)  # noqa: E731
+        plain_fwd = lambda: fn.ln_fwd_plain(x, g, b, 1e-5)  # noqa: E731
+        bwd, plain_bwd = fn.ln_bwd, fn.ln_bwd_plain
+    before = _norm_launches("gpt" if norm == "ln" else "llama")
+    y, *stats = fwd()
+    dx, *dvecs = bwd(x, g, *stats, dy)
+    again = bwd(x, g, *stats, dy)
+    torch.cuda.synchronize()
+    after = _norm_launches("gpt" if norm == "ln" else "llama")
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 2)
+    for a, b_ in zip((dx, *dvecs), again):
+        assert torch.equal(a, b_)
+    ref_y, *ref_stats = plain_fwd()
+    ref_dx, *ref_dvecs = plain_bwd(x, g, *stats, dy)
+    for a, r in zip(stats, ref_stats):
+        assert (a - r).abs().max().item() <= 1e-5
+    if dtype == torch.float32:
+        assert (y - ref_y).abs().max().item() <= 1e-5
+        assert (dx - ref_dx).abs().max().item() <= 1e-4
+    else:
+        assert fa.bf16_parity_excess(y, ref_y) <= NORM_BF16_TOL
+        assert fa.bf16_parity_excess(dx, ref_dx) <= NORM_BF16_TOL
+    strip = max(1, n // 256)
+    _, *strip_vecs = plain_bwd(x[:strip], g, *[t[:strip] for t in stats], dy[:strip])
+    for a, r, sv in zip(dvecs, ref_dvecs, strip_vecs):
+        assert torch.isfinite(a).all()
+        assert _vec_err(a, r) <= NORM_COLSUM_TOL
+        assert _vec_err(r - sv, r) > NORM_COLSUM_TOL
+
+
+def test_norm_wrappers_raise_on_the_card_for_what_the_kernels_do_not_take(cuda):
+    """No quiet other path on the card: a width past the kernels' reach, a
+    misaligned view and an fp16 row raise."""
+    g = torch.ones(8320, device="cuda")
+    with pytest.raises(ValueError, match="8192"):
+        fn.rms_fwd(torch.zeros(4, 8320, device="cuda"), g, 1e-5)
+    with pytest.raises(TypeError):
+        fn.rms_fwd(torch.zeros(4, 128, device="cuda", dtype=torch.float16), g[:128], 1e-5)
+    flat = torch.zeros(4 * 128 + 4, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        fn.rms_fwd(flat[4:].view(4, 128), torch.ones(128, device="cuda"), 1e-5)
 
 
 def _to(tree, dev):
