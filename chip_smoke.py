@@ -12,12 +12,12 @@ its result line:
 2. the paged decode kernel against its plain PyTorch version on the same
    CUDA tensors, at the serving path's shapes (llama-7b decode: 4 rows, 32
    heads, head_dim 128, 16-token blocks, 128 blocks per row, bf16), a GQA
-   shape and fp32; bf16 must be within one output ulp of the plain version
-   computed in fp32, fp32 within 1e-5. One JSON line per shape with the
-   kernel's, the plain version's and the library call's (SDPA over
-   gathered K/V, timed only) times, and the least time the card could take
-   (bytes over 3.35 TB/s, or operations over the peak rate of the input
-   type);
+   shape, fp32, one row of 16384 positions and 7-token blocks; bf16 must be
+   within one output ulp of the plain version computed in fp32, fp32 within
+   1e-5. One JSON line per shape with the split plan, the kernel's, the
+   plain version's and the library call's (SDPA over gathered K/V, timed
+   only) times, and the least time the card could take (bytes over 3.35
+   TB/s, or operations over the peak rate of the input type);
 3. the flash forward and backward kernels against their plain versions on
    the same CUDA tensors: the training path's shape (b=8, h=32, s=2048,
    d=128, bf16, the stacked qkv projection view), ragged s=100 at d=64, GQA
@@ -27,7 +27,8 @@ its result line:
    control, the plain versions with one key tile dropped, must fail the
    same checks. One JSON line per case with the errors, the control's,
    kernel, plain, library (SDPA with is_causal over pre-roped q/k, and its
-   autograd backward; timed only) and bound times.
+   autograd backward; timed only) and bound times, and on the bf16 path the
+   forward's two launches (k pre-pass, main kernel) from a profiler window.
    Then the grid kernels (forward, dk/dv, dq) against their plain versions
    the same way: the GPT-2 XL training shape (b=8, h=25, s=1024, d=64,
    causal, no RoPE, the stacked projection view), non-causal (b=8, h=16,
@@ -287,11 +288,17 @@ def phase_kernels(torch):
         ("paged_decode main", bf16, dict(main_shape), rand_offsets),
         ("paged_decode gqa", bf16, dict(main_shape, kv=8), rand_offsets),
         ("paged_decode fp32", fp32, dict(main_shape), rand_offsets),
+        # one row of 16384 positions: the split plan's other end
+        ("paged_decode long row", bf16, dict(main_shape, b=1, mb=1024), [16383]),
+        # --kv_block_size 7: pages that straddle every warp tile
+        ("paged_decode bs7", bf16, dict(main_shape, bs=7, mb=293), rand_offsets),
     ]
     lines = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for i, (label, dtype, shape, offsets) in enumerate(cases):
         case = paged_case(torch, dtype, shape["b"], shape["n"], shape["kv"], shape["d"],
                           shape["bs"], shape["mb"], offsets, seed=i)
+        splits = fa._paged_splits(shape["b"], shape["kv"], shape["mb"] * shape["bs"], sms)
         before = fa.paged_decode_attention.launches
         out = fa.paged_decode_attention(*case)
         torch.cuda.synchronize()
@@ -329,10 +336,15 @@ def phase_kernels(torch):
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qh, kg, vg, attn_mask=mask), flush)
         bound_ms, bound_by = paged_bound(torch, case)
+        parts = device_ms_by_name(torch, lambda: (flush.zero_(), fa.paged_decode_attention(
+            *case)), ["paged_decode_split", "paged_decode_combine"])
         line = {"shape": label, "dtype": str(dtype).replace("torch.", ""), **shape,
-                "offsets": offsets, "max_abs_err": max_err, "tolerance": tol,
-                "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "library_max_abs_err": lib_err, "bound_ms": bound_ms, "bound_by": bound_by,
+                "offsets": offsets, "splits": splits[0], "split_len": splits[1],
+                "max_abs_err": max_err, "tolerance": tol,
+                "kernel_ms": kernel_ms, "split_ms": parts["paged_decode_split"],
+                "combine_ms": parts["paged_decode_combine"], "plain_ms": plain_ms,
+                "library_ms": library_ms, "library_max_abs_err": lib_err,
+                "bound_ms": bound_ms, "bound_by": bound_by,
                 "launches": fa.paged_decode_attention.launches - before}
         log(json.dumps(line))
         lines[label] = line
@@ -496,6 +508,11 @@ def phase_flash(torch):
         lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
             lib_out, (qr, kr, vr), do, retain_graph=True), flush)
         bounds = flash_bounds(dname, b, h, kvh, s, d)
+        # the bf16 tensor-core path is two launches: the k pre-pass, the main kernel
+        split = (device_ms_by_name(torch, lambda: (flush.zero_(), fa.flash_fwd(
+            q, k, v, cos, sin, sm, rep)), ["flash_fwd_rope_k", "flash_fwd_tma"])
+            if dtype == torch.bfloat16 and d in (64, 128) else
+            {"flash_fwd_rope_k": None, "flash_fwd_tma": None})
         line = {"case": label, "dtype": dname, "b": b, "h": h, "kv_heads": kvh, "s": s, "d": d,
                 "stacked": stacked, "tolerance": tol,
                 "fwd_err": fwd_err, "bwd_err_dq_dk_dv": bwd_err,
@@ -503,6 +520,7 @@ def phase_flash(torch):
                 "fwd_max_abs_err": fwd_abs, "lse_max_abs_err": lse_err,
                 "bwd_max_abs_err": bwd_abs,
                 "fwd_ms": kernel_fwd, "bwd_ms": kernel_bwd,
+                "fwd_rope_k_ms": split["flash_fwd_rope_k"], "fwd_main_ms": split["flash_fwd_tma"],
                 "fwd_plain_ms": plain_fwd, "bwd_plain_ms": plain_bwd,
                 "fwd_library_ms": lib_fwd, "bwd_library_ms": lib_bwd,
                 "fwd_bound_ms": bounds["fwd"][0], "fwd_bound_by": bounds["fwd"][1],

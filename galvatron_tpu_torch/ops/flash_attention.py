@@ -44,7 +44,11 @@ For the paged op, in detail:
   to the plain version.
 - ``paged_decode_attention.launches``: a plain integer, incremented where
   the wrapper launches the kernel and nowhere else, so a run can show that
-  its decode steps went through the kernel.
+  its decode steps went through the kernel (one count per call: the split
+  kernel and its combine).
+- :func:`_paged_splits`, the kernel's split plan (shapes only), and
+  :func:`paged_decode_split_plain`, a plain twin of its split-and-combine
+  arithmetic that the tests hold to the reference.
 """
 
 from __future__ import annotations
@@ -155,6 +159,13 @@ def _rope_t_f32(y, c, s):
     return torch.cat([y1 * c + y2 * s, y2 * c - y1 * s], dim=-1)
 
 
+def rope_k_plain(k, cos, sin):
+    """The bf16 forward's k pre-pass in plain PyTorch: k (b, kv heads, s, d)
+    roped through the unscaled tables and rounded to k's dtype (the
+    reference's ``_rope_rows(k, ck, sk).astype(k.dtype)``), contiguous."""
+    return _rope_f32(k, cos, sin).to(k.dtype).contiguous()
+
+
 def _causal_keep(s: int, device):
     r = torch.arange(s, device=device)
     return r[:, None] >= r[None, :]
@@ -174,7 +185,7 @@ def flash_fwd_blocked_plain(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
     dt = q.dtype
     lam = sm_scale * LOG2E
     qs = _rope_f32(q, cos * lam, sin * lam).to(dt).float()
-    kr = _rope_f32(k, cos, sin).to(dt).float()
+    kr = rope_k_plain(k, cos, sin).float()
     vf = v.float()
     if kv_rep > 1:
         kr = kr.repeat_interleave(kv_rep, dim=1)
@@ -421,12 +432,15 @@ def flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
         return flash_fwd_blocked_plain(q, k, v, cos, sin, sm_scale, kv_rep)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
+    # roped k for the bf16 tensor-core path, written by the kernel's pre-pass
+    k_roped = (torch.empty((b, h // kv_rep, s, d), dtype=q.dtype, device=q.device)
+               if q.dtype == torch.bfloat16 and d in (64, 128) else None)
     launch = _flash_fwd_kernel()
     with torch.cuda.device(q.device):
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            cos.data_ptr(), sin.data_ptr(), _strides(q, k, v, out), _DTYPE_CODE[q.dtype],
-            b, h, kv_rep, s, d, float(sm_scale * LOG2E),
+            cos.data_ptr(), sin.data_ptr(), _ptr(k_roped), _strides(q, k, v, out),
+            _DTYPE_CODE[q.dtype], b, h, kv_rep, s, d, float(sm_scale * LOG2E),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -472,7 +486,7 @@ flash_bwd.launches = 0
 
 def _flash_fwd_kernel():
     fn = _build.load("flash_fwd").galvatron_flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)] + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)] + [
         ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -863,20 +877,26 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, q_offset,
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("q, k_pages and v_pages must be 16-byte aligned")
     g = n // kv
+    dcode = _DTYPE_CODE[q.dtype]
     launch, smem_bytes = _kernel()
-    if smem_bytes(g, d) > _MAX_SMEM_BYTES:
+    if smem_bytes(dcode, g, d) > _MAX_SMEM_BYTES:
         raise ValueError(
-            f"group of {g} query heads at head_dim {d} needs {smem_bytes(g, d)} "
+            f"group of {g} query heads at head_dim {d} needs {smem_bytes(dcode, g, d)} "
             f"bytes of shared memory, above the {_MAX_SMEM_BYTES} a block may use"
         )
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    max_blocks = block_tables.shape[1]
+    head_chunks = -(-g // _PAGED_MAX_HEADS)
+    splits, split_len = _paged_splits(b, kv * head_chunks, max_blocks * block_size,
+                                      _num_sms(q.device))
+    work = torch.empty(b * kv * splits * g * (d + 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), q_offset.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[q.dtype], b, kv, g, d, block_size, block_tables.shape[1],
+            block_tables.data_ptr(), q_offset.data_ptr(), work.data_ptr(), out.data_ptr(),
+            dcode, b, kv, g, d, block_size, max_blocks, splits, split_len,
             float(sm_scale), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -887,16 +907,91 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, q_offset,
 
 paged_decode_attention.launches = 0
 
+#: query heads one split block carries; a larger GQA group is cut in chunks
+_PAGED_MAX_HEADS = 8
+#: the split plan's aims: about this many blocks an SM, at least this many
+#: positions a split (a block's fixed costs: its q, its partial, its merge)
+_PAGED_BLOCKS_PER_SM = 4
+_PAGED_MIN_SPLIT = 128
+_PAGED_TILE = 8  # tokens of one warp tile in csrc/paged_decode.cu
+_SM_COUNT = {}
+
+
+def _num_sms(device) -> int:
+    """Streaming multiprocessors of ``device``, read once per device."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def _paged_splits(b: int, kv: int, max_positions: int, num_sms: int) -> Tuple[int, int]:
+    """(splits, positions per split) of the paged kernel: split ``s`` covers
+    positions [s·len, min((s+1)·len, max_positions)). From shapes only — the
+    offsets stay on the card, so reading them would put a host sync into
+    every decode layer. ``kv`` counts the blocks one split needs across
+    heads (kv heads x head chunks). Aims at ``_PAGED_BLOCKS_PER_SM`` blocks
+    an SM with no split under ``_PAGED_MIN_SPLIT`` positions; the length is
+    a whole number of warp tiles and no split is empty by construction."""
+    want = -(-_PAGED_BLOCKS_PER_SM * num_sms // (b * kv))
+    cap = max_positions // _PAGED_MIN_SPLIT
+    splits = max(1, min(want, cap))
+    split_len = -(-max_positions // splits)
+    split_len = -(-split_len // _PAGED_TILE) * _PAGED_TILE
+    return -(-max_positions // split_len), split_len
+
+
+def paged_decode_split_plain(q, k_pages, v_pages, block_tables, q_offset,
+                             splits: Tuple[int, int], sm_scale=None):
+    """The kernel's split-and-combine arithmetic in plain PyTorch, fp32:
+    per split (``splits`` = (count, length), a :func:`_paged_splits` plan)
+    the partial (max, denominator, numerator) of base-2 scores over the
+    split's positions at or below the row's offset, an empty split giving
+    (-inf, 0, 0); then the partials combined in split order and divided.
+    Returns (B, 1, n, d) fp32. A test twin of ``csrc/paged_decode.cu``."""
+    b, _, n, d = q.shape
+    _, block_size, kv, _ = k_pages.shape
+    max_pos = block_tables.shape[1] * block_size
+    g = n // kv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    count, length = splits
+    tables = block_tables.long()
+    k = k_pages[tables].reshape(b, max_pos, kv, d).float()
+    v = v_pages[tables].reshape(b, max_pos, kv, d).float()
+    qg = q[:, 0].reshape(b, kv, g, d).float()
+    s2 = torch.einsum("bkgh,bskh->bkgs", qg, k) * (sm_scale * LOG2E)
+    last = q_offset.long().clamp(max=max_pos - 1)
+    keep = torch.arange(max_pos, device=q.device)[None] <= last[:, None]
+    s2 = s2.masked_fill(~keep[:, None, None, :], -math.inf)
+    parts = []
+    for i in range(count):
+        lo, hi = i * length, min((i + 1) * length, max_pos)
+        si = s2[..., lo:hi]
+        m = si.amax(dim=-1, keepdim=True)
+        p = torch.exp2(si - m.clamp_min(NEG_INF))  # all masked: exp2(-inf) = 0
+        acc = torch.einsum("bkgs,bskh->bkgh", p, v[:, lo:hi])
+        parts.append((m, p.sum(dim=-1, keepdim=True), acc))
+    mm = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    ll = torch.zeros_like(mm)
+    aa = torch.zeros_like(parts[0][2])
+    for m, l_, acc in parts:  # split order, empty splits skipped
+        c = torch.where(m == -math.inf, torch.zeros_like(m), torch.exp2(m - mm))
+        ll = ll + l_ * c
+        aa = aa + acc * c
+    out = torch.where(ll > 0, aa / ll.clamp_min(1e-30), torch.zeros_like(aa))
+    return out.reshape(b, 1, n, d)
+
 
 def _kernel():
     """(launch, smem_bytes) ctypes functions of the built library."""
     lib = _build.load("paged_decode")
     launch = lib.galvatron_paged_decode
-    launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     launch.restype = ctypes.c_int
     smem = lib.galvatron_paged_decode_smem_bytes
-    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.argtypes = [ctypes.c_int] * 3
     smem.restype = ctypes.c_longlong
     return launch, smem

@@ -445,3 +445,27 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
     tfa.flash_bwd(q, k, v, out, out, lse, cos, sin, 0.25)
     assert (tfa.flash_fwd.launches, tfa.flash_bwd.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The bf16 forward's k pre-pass (csrc/flash_fwd.cu ropes k once per call into
+# a scratch): its plain version against the reference's rounding, bitwise.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("layout", ["stacked", "gqa"])
+def test_rope_k_plain_is_bitwise_the_reference_rounding(layout):
+    import jax
+
+    b, h, kvh, s, d = 2, 4, 2, 48, 64
+    rng = np.random.RandomState(5)
+    cos, sin = _tables(s, d)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3, h, d)).astype(np.float32) * 3)
+    qkv = qkv.to(torch.bfloat16).permute(0, 2, 3, 1, 4)  # the projection's strided view
+    k = qkv[:, 1] if layout == "stacked" else qkv[:, 1, :kvh].contiguous()
+    got = tfa.rope_k_plain(k, torch.from_numpy(cos), torch.from_numpy(sin))
+    assert got.is_contiguous() and got.dtype == torch.bfloat16 and got.shape == k.shape
+    kj = jnp.asarray(k.float().numpy()).astype(jnp.bfloat16)
+    rope = jax.vmap(jax.vmap(jfa._rope_rows, (0, None, None)), (0, None, None))
+    ref = np.asarray(rope(kj, jnp.asarray(cos), jnp.asarray(sin)).astype(jnp.bfloat16))
+    assert np.array_equal(got.view(torch.int16).numpy(), ref.view(np.int16))

@@ -66,6 +66,49 @@ def test_kernel_matches_plain_fp32(cuda, kv):
     assert (out - ref).abs().max().item() <= 1e-5
 
 
+def _paged_close(case):
+    """The kernel against the plain version computed in fp32: bf16 within
+    one output ulp + 1e-5, fp32 within 1e-5; one launch."""
+    before = fa.paged_decode_attention.launches
+    out = fa.paged_decode_attention(*case)
+    torch.cuda.synchronize()
+    assert fa.paged_decode_attention.launches == before + 1
+    ref = fa.paged_decode_attention_plain(*[t.float() if t.is_floating_point() else t
+                                            for t in case])
+    err = (out.float() - ref).abs()
+    if out.dtype == torch.float32:
+        return bool(err.max() <= 1e-5)
+    return bool(torch.all(err <= _bf16_ulp(ref) + 1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,kv,bs,mb", [
+    (32, 32, 16, 128), (32, 8, 16, 128), (32, 4, 16, 128), (8, 1, 16, 128),
+    (16, 16, 1, 700), (16, 4, 7, 293), (16, 16, 64, 32),
+], ids=["mha", "gqa4", "gqa8", "g8", "bs1", "bs7", "bs64"])
+def test_paged_kernel_at_split_edges(cuda, n, kv, bs, mb, dtype):
+    """Rows at offset 0, bs - 1, bs, the last position of split 0, the
+    first of split 1 and the row's last position: every edge of a page, a
+    warp tile and a split, over MHA, GQA groups of 4 and 8 and block sizes
+    1, 7, 16 and 64."""
+    _, length = fa._paged_splits(6, kv, mb * bs, fa._num_sms(cuda))
+    offsets = [0, bs - 1, bs, length - 1, length, mb * bs - 1]
+    assert _paged_close(_case(cuda, dtype, 6, n, kv, 128, bs, mb, offsets, seed=bs))
+
+
+def test_paged_kernel_long_row(cuda):
+    """One row of 16384 positions (many splits)."""
+    assert _paged_close(_case(cuda, torch.bfloat16, 1, 32, 32, 128, 16, 1024, [16383]))
+
+
+def test_paged_kernel_all_splits_empty_but_one(cuda):
+    """Every row's offset inside split 0: every other split writes an empty
+    partial that the combine must skip."""
+    _, length = fa._paged_splits(4, 32, 2048, fa._num_sms(cuda))
+    offsets = [3, 0, 100, length - 1]
+    assert _paged_close(_case(cuda, torch.bfloat16, 4, 32, 32, 128, 16, 128, offsets))
+
+
 def test_engine_on_card_matches_cpu(cuda):
     """fp32 greedy output of the engine on the card equals the engine on
     the CPU (plain attention) for prompts sharing a prefix."""
@@ -101,6 +144,12 @@ FLASH_CASES = {
     # bf16 off the tensor-core head dims (64, 128): the CUDA-core kernels
     "bf16_ragged_d40": (torch.bfloat16, 1, 4, 2, 77, 40, False),
     "bf16_d256": (torch.bfloat16, 1, 2, 2, 130, 256, True),
+    # the TMA path at ragged s: a last key tile partly past s, zero-filled
+    "ragged_s1000_d128_stacked": (torch.bfloat16, 1, 8, 8, 1000, 128, True),
+    "ragged_s2047_d64_stacked": (torch.bfloat16, 1, 4, 4, 2047, 64, True),
+    "ragged_s2047_d128_gqa": (torch.bfloat16, 1, 8, 2, 2047, 128, False),
+    "ragged_s1000_d64_gqa": (torch.bfloat16, 2, 8, 4, 1000, 64, False),
+    "ragged_s100_d128_stacked": (torch.bfloat16, 2, 4, 4, 100, 128, True),
 }
 
 

@@ -138,3 +138,90 @@ def test_decode_attention_matches_jax():
     got = tfa.decode_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                                q_offset=torch.from_numpy(offs)).numpy()
     np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# The split-K kernel's plan and arithmetic (csrc/paged_decode.cu). The kernel
+# itself runs only on the card; here its split plan and a plain twin of its
+# partial-and-combine arithmetic are held to the JAX Pallas kernel.
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = [
+    # (b, kv x head chunks, max positions, SMs)
+    (4, 32, 2048, 132), (4, 8, 2048, 132), (1, 32, 16384, 132), (4, 32, 293 * 7, 132),
+    (1, 1, 1, 132), (64, 32, 2048, 132), (3, 2, 385, 114), (2, 2, 128 * 64, 16),
+]
+
+
+@pytest.mark.parametrize("b,kv,max_pos,sms", PLAN_SHAPES)
+def test_paged_split_plan_covers_every_position_once(b, kv, max_pos, sms):
+    splits, length = tfa._paged_splits(b, kv, max_pos, sms)
+    assert splits >= 1 and length % tfa._PAGED_TILE == 0
+    covered = np.zeros(max_pos, np.int64)
+    for s in range(splits):
+        lo, hi = s * length, min((s + 1) * length, max_pos)
+        assert lo < hi, f"split {s} is empty"
+        covered[lo:hi] += 1
+    assert np.all(covered == 1)
+    # no split under the minimum unless the whole row is shorter
+    assert splits == 1 or length >= tfa._PAGED_MIN_SPLIT
+    # at most about the aimed blocks an SM (one more split would pass it)
+    assert splits == 1 or b * kv * (splits - 1) < tfa._PAGED_BLOCKS_PER_SM * sms
+
+
+def test_paged_split_plan_never_reads_the_offsets():
+    """The plan is a function of shapes alone, and the wrapper reads no
+    device value back to the host (a sync in every decode layer)."""
+    import inspect
+
+    assert list(inspect.signature(tfa._paged_splits).parameters) == [
+        "b", "kv", "max_positions", "num_sms"]
+    src = inspect.getsource(tfa.paged_decode_attention)
+    for call in (".item(", ".tolist(", ".cpu(", ".numpy(", "int(q_offset", "bool("):
+        assert call not in src, call
+
+
+def _split_case(bs, g, seed):
+    """kv=2 heads, g query heads each, ~384 positions a row; six rows at
+    offsets 0, bs - 1, bs, a split's last position, the next split's first
+    position and the row's last position."""
+    kv, d = 2, 16
+    mb = -(-384 // bs)
+    max_pos = mb * bs
+    splits = tfa._paged_splits(6, kv, max_pos, 132)
+    length = splits[1]
+    assert splits[0] >= 3  # several splits, most of them past a short row's offset
+    offsets = np.asarray([0, bs - 1, bs, length - 1, length, max_pos - 1], np.int32)
+    b = len(offsets)
+    rng = np.random.RandomState(seed)
+    npages = 1 + b * mb
+    q = rng.randn(b, 1, kv * g, d).astype(np.float32)
+    k = rng.randn(npages, bs, kv, d).astype(np.float32)
+    v = rng.randn(npages, bs, kv, d).astype(np.float32)
+    tables = (rng.permutation(npages - 1)[: b * mb] + 1).reshape(b, mb).astype(np.int32)
+    return (q, k, v, tables, offsets), splits
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("bs", [1, 7, 16, 64])
+def test_paged_split_combine_twin_matches_jax_pallas(bs, g):
+    """The kernel's split-and-combine arithmetic (partials per split in base
+    2, empty splits skipped, combined in split order) against JAX's Pallas
+    kernel (interpret mode), fp32, at split edges and with splits wholly past
+    a row's offset."""
+    case, splits = _split_case(bs, g, seed=bs * 10 + g)
+    q, k, v, tables, offsets = (torch.from_numpy(a) for a in case)
+    got = tfa.paged_decode_split_plain(q, k, v, tables, offsets, splits=splits).numpy()
+    ref = _jax(*case, impl="pallas")
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_paged_split_combine_twin_all_splits_empty_writes_zeros():
+    """A row with nothing to attend (offset < 0; the engine never passes
+    one) gets an empty partial from every split and zeros out, as the
+    kernel's combine writes."""
+    case, splits = _split_case(16, 2, seed=0)
+    q, k, v, tables, offsets = (torch.from_numpy(a) for a in case)
+    offsets[0] = -1
+    got = tfa.paged_decode_split_plain(q, k, v, tables, offsets, splits=splits)
+    assert torch.all(got[0] == 0) and torch.all(torch.isfinite(got))
