@@ -28,13 +28,18 @@ its result line:
    same checks. One JSON line per case with the errors, the control's,
    kernel, plain, library (SDPA with is_causal over pre-roped q/k, and its
    autograd backward; timed only) and bound times, and on the bf16 path the
-   forward's two launches (k pre-pass, main kernel) from a profiler window.
+   forward's two launches (k pre-pass, main kernel) and the backward's three
+   (pre-pass, dk/dv, dq) from a profiler window. Each wrapper's route counts
+   must show the TMA route for bf16 at head_dim 64 / 128 (the CUDA-core one
+   for fp32), and a second backward call on the same inputs must give the
+   same bits of dq, dk and dv.
    Then the grid kernels (forward, dk/dv, dq) against their plain versions
    the same way: the GPT-2 XL training shape (b=8, h=25, s=1024, d=64,
    causal, no RoPE, the stacked projection view), non-causal (b=8, h=16,
    s=512), RoPE past the blocked envelope (b=1, h=4, s=16384, d=128), GQA
    with kv_rep 4, fp32, and a bf16 call writing fp32 output; the dk/dv and
-   dq kernels' own device times come from a profiler window.
+   dq kernels' own device times come from a profiler window, with the same
+   route and repeat checks on the dk/dv kernel.
    Then the four fused norm kernels (RMSNorm and LayerNorm, forward and
    backward) against their plain versions: the training shapes (16384 rows
    x 4096 RMSNorm, 16384 x 2048 LayerNorm) in bf16 and fp32, and edge
@@ -108,6 +113,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -188,7 +194,7 @@ def phase_build():
     total = time.perf_counter() - t0
     for name, entry in logs.items():
         report = [ln.strip() for ln in entry["ptxas"].splitlines()
-                  if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+                  if any(w in ln for w in ("registers", "spill", "Compiling entry", "warning"))]
         log(f"phase 1 build: {name} in {entry['seconds']:.2f} s -> {entry['path']}")
         for ln in report:
             log("  ptxas:", ln)
@@ -380,6 +386,15 @@ def _patched(obj, **attrs):
             setattr(obj, name, value)
 
 
+def _route_taken(fa, routes, before):
+    """The one route a wrapper's call took, from its ``routes`` counts
+    before and after the call."""
+    taken = [r for r in fa.ROUTES if routes[r] != before[r]]
+    check(len(taken) == 1 and routes[taken[0]] == before[taken[0]] + 1,
+          f"route counts {before} -> {routes}")
+    return taken[0]
+
+
 def _dropped_tile_keep(torch):
     """The plain versions' causal mask with keys 0-63 dropped for the rows
     from max(64, s/2): what a kernel that skipped that tile would compute.
@@ -463,11 +478,21 @@ def phase_flash(torch):
         q, k, v, do, cos, sin = flash_case(torch, dtype, b, h, kvh, s, d, stacked, seed=10 + i)
         rep, sm = h // kvh, 1.0 / math.sqrt(d)
         before = (fa.flash_fwd.launches, fa.flash_bwd.launches)
+        routes_before = (dict(fa.flash_fwd.routes), dict(fa.flash_bwd.routes))
         out, lse = fa.flash_fwd(q, k, v, cos, sin, sm, rep)
         grads = fa.flash_bwd(q, k, v, do, out, lse, cos, sin, sm, rep)
+        fwd_route, bwd_route = (_route_taken(fa, w.routes, r)
+                                for w, r in zip((fa.flash_fwd, fa.flash_bwd), routes_before))
+        again = fa.flash_bwd(q, k, v, do, out, lse, cos, sin, sm, rep)
         torch.cuda.synchronize()
-        check((fa.flash_fwd.launches, fa.flash_bwd.launches) == (before[0] + 1, before[1] + 1),
+        check((fa.flash_fwd.launches, fa.flash_bwd.launches) == (before[0] + 1, before[1] + 2),
               f"{label}: a kernel did not launch")
+        repeat_bitwise = all(torch.equal(g, a) for g, a in zip(grads, again))
+        del again
+        tma = dtype == torch.bfloat16 and d in (64, 128)
+        check((fwd_route, bwd_route) == (("tma",) * 2 if tma else ("cuda_core",) * 2),
+              f"{label}: routes {fwd_route} / {bwd_route}")
+        check(repeat_bitwise, f"{label}: two backward calls on the same inputs differ")
         ref_out, ref_lse = fa.flash_fwd_blocked_plain(q, k, v, cos, sin, sm, rep)
         kf, vf = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
         ref_grads = fa.flash_bwd_blocked_plain(q, kf, vf, do, out, lse, cos, sin, sm)
@@ -511,8 +536,12 @@ def phase_flash(torch):
         # the bf16 tensor-core path is two launches: the k pre-pass, the main kernel
         split = (device_ms_by_name(torch, lambda: (flush.zero_(), fa.flash_fwd(
             q, k, v, cos, sin, sm, rep)), ["flash_fwd_rope_k", "flash_fwd_tma"])
-            if dtype == torch.bfloat16 and d in (64, 128) else
-            {"flash_fwd_rope_k": None, "flash_fwd_tma": None})
+            if tma else {"flash_fwd_rope_k": None, "flash_fwd_tma": None})
+        # ... and the backward three: the pre-pass, the dk/dv and the dq kernel
+        bwd_names = ["bwd::prepass_kernel", "bwd::dkdv_kernel", "bwd::dq_kernel"]
+        bwd_split = (device_ms_by_name(torch, lambda: (flush.zero_(), fa.flash_bwd(
+            q, k, v, do, out, lse, cos, sin, sm, rep)), bwd_names)
+            if tma else dict.fromkeys(bwd_names))
         line = {"case": label, "dtype": dname, "b": b, "h": h, "kv_heads": kvh, "s": s, "d": d,
                 "stacked": stacked, "tolerance": tol,
                 "fwd_err": fwd_err, "bwd_err_dq_dk_dv": bwd_err,
@@ -521,6 +550,10 @@ def phase_flash(torch):
                 "bwd_max_abs_err": bwd_abs,
                 "fwd_ms": kernel_fwd, "bwd_ms": kernel_bwd,
                 "fwd_rope_k_ms": split["flash_fwd_rope_k"], "fwd_main_ms": split["flash_fwd_tma"],
+                "fwd_route": fwd_route, "bwd_route": bwd_route,
+                "bwd_repeat_bitwise": repeat_bitwise,
+                "bwd_prepass_ms": bwd_split["bwd::prepass_kernel"],
+                "bwd_dkdv_ms": bwd_split["bwd::dkdv_kernel"], "bwd_dq_ms": bwd_split["bwd::dq_kernel"],
                 "fwd_plain_ms": plain_fwd, "bwd_plain_ms": plain_bwd,
                 "fwd_library_ms": lib_fwd, "bwd_library_ms": lib_bwd,
                 "fwd_bound_ms": bounds["fwd"][0], "fwd_bound_by": bounds["fwd"][1],
@@ -640,11 +673,20 @@ def phase_grid(torch):
                   fa.flash_grid_bwd_parts.dq_launches)
         out, lse = fa.flash_grid_fwd(q, k, v, tables, sm, causal, rep, out_dtype)
         delta = (do.float() * out.float()).sum(-1, keepdim=True).contiguous()
+        routes_before = dict(fa.flash_grid_bwd_parts.dkv_routes)
         grads = fa.flash_grid_bwd_parts(q, k, v, do, lse, delta, tables, sm, causal, rep)
+        dkv_route = _route_taken(fa, fa.flash_grid_bwd_parts.dkv_routes, routes_before)
+        again = fa.flash_grid_bwd_parts(q, k, v, do, lse, delta, tables, sm, causal, rep)
         torch.cuda.synchronize()
         after = (fa.flash_grid_fwd.launches, fa.flash_grid_bwd_parts.dkv_launches,
                  fa.flash_grid_bwd_parts.dq_launches)
-        check(after == tuple(n + 1 for n in before), f"{label}: a kernel did not launch")
+        check(after == (before[0] + 1, before[1] + 2, before[2] + 2),
+              f"{label}: a kernel did not launch")
+        repeat_bitwise = all(torch.equal(g, a) for g, a in zip(grads, again))
+        del again
+        tma = dtype == torch.bfloat16 and d in (64, 128)
+        check(dkv_route == ("tma" if tma else "cuda_core"), f"{label}: dk/dv route {dkv_route}")
+        check(repeat_bitwise, f"{label}: two backward calls on the same inputs differ")
         check(out.dtype == (out_dtype or dtype), f"{label}: out is {out.dtype}")
         kf, vf = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
         ref_out, ref_lse = fa.flash_fwd_grid_plain(q, k, v, tables, sm, causal, rep, out_dtype)
@@ -680,8 +722,13 @@ def phase_grid(torch):
                                                            out_dtype), flush)
         bwd_ms = time_ms(torch, lambda: fa.flash_grid_bwd_parts(
             q, k, v, do, lse, delta, tables, sm, causal, rep), flush)
+        # the dk/dv call's launches (with RoPE on the TMA route: the pre-pass,
+        # then the dk/dv kernel), then the dq kernel
+        dkv_names = (["bwd::dkdv_kernel"] + (["bwd::prepass_kernel"] if rope else [])
+                     if tma else ["grid_dkdv"])
         split = device_ms_by_name(torch, lambda: (flush.zero_(), fa.flash_grid_bwd_parts(
-            q, k, v, do, lse, delta, tables, sm, causal, rep)), ["grid_dkdv", "grid_dq"])
+            q, k, v, do, lse, delta, tables, sm, causal, rep)), dkv_names + ["grid_dq"])
+        dkdv_ms = sum(split[n] for n in dkv_names)
         plain_iters = 3 if s > 4096 else 5
         plain_fwd = time_ms(torch, lambda: fa.flash_fwd_grid_plain(
             q, k, v, tables, sm, causal, rep, out_dtype), flush, iters=plain_iters)
@@ -704,7 +751,9 @@ def phase_grid(torch):
                 "control_fwd_err": ctl_fwd, "control_bwd_err_dq_dk_dv": ctl_bwd,
                 "fwd_max_abs_err": fwd_abs, "lse_max_abs_err": lse_err,
                 "bwd_max_abs_err_dq_dk_dv": abs_err,
-                "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "dkdv_ms": split["grid_dkdv"],
+                "dkv_route": dkv_route, "bwd_repeat_bitwise": repeat_bitwise,
+                "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "dkdv_ms": dkdv_ms,
+                "dkdv_prepass_ms": split.get("bwd::prepass_kernel"),
                 "dq_ms": split["grid_dq"], "fwd_plain_ms": plain_fwd, "bwd_plain_ms": plain_bwd,
                 "fwd_library_ms": lib_fwd, "bwd_library_ms": lib_bwd,
                 **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
@@ -1384,6 +1433,12 @@ def _union_us(intervals):
 
 def _category(name: str) -> str:
     n = name.lower()
+    # the backward's TMA kernels (csrc/flash_bwd_common.cuh) serve both
+    # families: the grid dk/dv kernel is the one with GRID (its second
+    # template argument) true; the pre-pass counts with the blocked backward
+    m = re.search(r"bwd::(prepass|dkdv|dq)_kernel<\d+(, (true|false))?", n)
+    if m:
+        return "flash_grid_bwd" if m.group(3) == "true" else "flash_bwd"
     if "fused_norm_fwd" in n:
         return "norm_fwd"
     if "fused_norm_bwd" in n or "fused_norm_colsum" in n:

@@ -2,8 +2,10 @@
 // flash_bwd.cu) and grid (flash_grid_fwd.cu, flash_grid_bwd.cu): element
 // conversion, the rounding points of the Pallas kernels, 16-lane row
 // reductions, the strided (b, h, s, d) views, row staging, the CUDA-core
-// backward's products and row statistics, the tensor-core fragments, and
-// Hopper's asynchronous pieces (mbarriers, TMA tile loads, wgmma).
+// backward's products and row statistics, the tensor-core fragments,
+// Hopper's asynchronous pieces (mbarriers, TMA tile loads, wgmma) and the
+// host's tensor-map encoding. The backward's TMA + wgmma mainloops are in
+// flash_bwd_common.cuh.
 #pragma once
 
 #include <cuda.h>
@@ -35,6 +37,16 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // dtype) points (roped q/k, p before the PV product, ds)
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
+
+// 2^x on the special-function unit (ex2.approx.ftz: relative error about
+// 2^-22, subnormal results flushed to zero). exp2f's full-range sequence
+// costs several times more, and in the backward's p it is the bulk of the
+// non-tensor work.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // max / sum over the 16 lanes that share one row (lanes 0-15 or 16-31)
 __device__ __forceinline__ float row_max(float v) {
@@ -519,6 +531,23 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
                                                   uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -569,12 +598,16 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-// the products above by width N (S: 128 keys; O: head_dim 64 or 128)
+// the products above by width N (scores: 64 or 128 columns; O, dq, dk, dv:
+// head_dim 64 or 128)
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  static_assert(N == 128, "wgmma width");
-  wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+  static_assert(N == 64 || N == 128, "wgmma width");
+  if constexpr (N == 64)
+    wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
 }
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
@@ -585,5 +618,82 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else
     wgmma_m64n128k16_rs(d, a, desc_b, scale_d);
 }
+
+// Columns 16 kk .. 16 kk + 15 of an accumulator of N columns rounded to
+// bf16 as the A fragment of a register-A product over them (the p / ds
+// register reuse); pack_a does every kk.
+template <int N>
+__device__ __forceinline__ void pack_a_block(const float (&c)[N], uint32_t (&a)[4], int kk) {
+  a[0] = pack_bf16(c[8 * kk], c[8 * kk + 1]);
+  a[1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+  a[2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+  a[3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+}
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&c)[N / 2], uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) pack_a_block(c, a[kk], kk);
+}
+// keep A fragments a register-A wgmma reads live until its wait: the
+// product reads them asynchronously, so the registers must not be reused
+template <int K>
+__device__ __forceinline__ void wgmma_hold_a(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// ---------------------------------------------------------------------------
+// Host side: tensor maps for the TMA loads, encoded at each call through the
+// runtime's driver entry point (no -lcuda).
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, from the driver through the runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &res);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A rank-4 map (d, s, heads, batch) over bf16 rows with element strides
+// (ss, sh, sb), boxes of 64 columns x `rows` rows, 128B swizzle, rows past s
+// read as zeros. A size-1 dim's stride is never read; it is given a valid
+// one. False where the driver lacks the entry point or refuses the map.
+inline bool encode_bhsd(CUtensorMap* map, const void* base, int batch, int heads, int s, int d,
+                        long long sb, long long sh, long long ss, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  if (heads == 1) sh = ss * s;
+  if (batch == 1) sb = sh * heads;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the routes a C entry reports through its `route` argument
+enum Route : int { kRouteCudaCore = 0, kRouteTma = 1 };
 
 }  // namespace flash

@@ -33,9 +33,11 @@
 // scores per thread).
 //
 // C interface (bound with ctypes): pointers and the stream as void*, strides
-// in a host array of long long, returns cudaGetLastError() after the
-// launches. The tensor maps are encoded at each call through the runtime's
-// driver entry point (no -lcuda).
+// in a host array of long long, the route taken written through an int*,
+// returns cudaGetLastError() after the launches. The tensor maps are encoded
+// at each call through the runtime's driver entry point (no -lcuda), before
+// any launch: where the driver refuses one, the call takes the CUDA-core
+// kernel and reports that route.
 
 #include "flash_common.cuh"
 
@@ -334,18 +336,6 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BN / 2], float (&m)[2
   }
 }
 
-// p rounded to bf16: keys 16 kk .. 16 kk + 15 into the A fragment pa[kk]
-template <int BN>
-__device__ __forceinline__ void round_p(const float (&sc)[BN / 2], uint32_t (&pa)[BN / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    pa[kk][0] = flash::pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-    pa[kk][1] = flash::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-    pa[kk][2] = flash::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-    pa[kk][3] = flash::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tm_k,
@@ -457,7 +447,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     online_softmax<BN>(sc, m, l, alpha, kt * BN, r_lo, row_a, row_b, t, s);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-    round_p<BN>(sc, pa);
+    flash::pack_a<BN>(sc, pa);
     flash::wgmma_fence();
     issue_pv<D, BN>(o, pa, stage_of<D>(ring, kt) + C::TILE_BYTES);
     flash::wgmma_wait<0>();
@@ -479,51 +469,22 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &res);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A rank-4 map (d, s, heads, batch) over bf16 rows with element strides
-// (ss, sh, sb), boxes of 64 columns x `rows` rows, 128B swizzle, rows past s
-// read as zeros. A size-1 dim's stride is never read; it is given a valid one.
-bool encode_bhsd(CUtensorMap* map, const void* base, int batch, int heads, int s, int d,
-                 long long sb, long long sh, long long ss, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  if (heads == 1) sh = ss * s;
-  if (batch == 1) sb = sh * heads;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads,
-                              (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// Both tensor maps are encoded before anything is launched: a map the driver
+// refuses (or a driver without the entry point) sends the call to the
+// CUDA-core kernel with nothing run yet, and the route says so.
+template <int D>
+bool encode_maps(const FwdArgs& a, const void* kscratch, CUtensorMap* tk, CUtensorMap* tv) {
+  const int kvheads = a.heads / a.kv_rep;
+  const long long kh = (long long)a.s * D;  // the scratch is contiguous (b, kv heads, s, D)
+  return flash::encode_bhsd(tk, kscratch, a.batch, kvheads, a.s, D, kh * kvheads, kh, D,
+                            TmaCfg<D>::BN) &&
+         flash::encode_bhsd(tv, a.v, a.batch, kvheads, a.s, D, a.vv.b, a.vv.h, a.vv.s,
+                            TmaCfg<D>::BN);
 }
 
 template <int D>
-cudaError_t launch_tma(const FwdArgs& a, void* kscratch, cudaStream_t stream) {
+cudaError_t launch_tma(const FwdArgs& a, void* kscratch, const CUtensorMap& tk,
+                       const CUtensorMap& tv, cudaStream_t stream) {
   using C = TmaCfg<D>;
   const int kvheads = a.heads / a.kv_rep;
   const long long units = (long long)a.batch * kvheads * a.s * (D / 16);
@@ -532,11 +493,6 @@ cudaError_t launch_tma(const FwdArgs& a, void* kscratch, cudaStream_t stream) {
       static_cast<flash::bf16*>(kscratch), units);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  CUtensorMap tk, tv;
-  const long long kh = (long long)a.s * D;  // the scratch is contiguous (b, kv heads, s, D)
-  if (!encode_bhsd(&tk, kscratch, a.batch, kvheads, a.s, D, kh * kvheads, kh, D, C::BN) ||
-      !encode_bhsd(&tv, a.v, a.batch, kvheads, a.s, D, a.vv.b, a.vv.h, a.vv.s, C::BN))
-    return cudaErrorNotSupported;
   auto kernel = flash_fwd_tma_kernel<D>;
   err = flash::allow_smem(kernel, C::SMEM);
   if (err != cudaSuccess) return err;
@@ -571,9 +527,17 @@ bool can_tma(const FwdArgs& a, const void* kscratch) {
 }
 
 template <typename T>
-cudaError_t dispatch(const FwdArgs& a, void* kscratch, cudaStream_t stream) {
-  if (sizeof(T) == 2 && can_tma(a, kscratch))
-    return a.d == 128 ? launch_tma<128>(a, kscratch, stream) : launch_tma<64>(a, kscratch, stream);
+cudaError_t dispatch(const FwdArgs& a, void* kscratch, cudaStream_t stream, int* route) {
+  *route = flash::kRouteCudaCore;
+  if (sizeof(T) == 2 && can_tma(a, kscratch)) {
+    CUtensorMap tk, tv;
+    if (a.d == 128 ? encode_maps<128>(a, kscratch, &tk, &tv)
+                   : encode_maps<64>(a, kscratch, &tk, &tv)) {
+      *route = flash::kRouteTma;
+      return a.d == 128 ? launch_tma<128>(a, kscratch, tk, tv, stream)
+                        : launch_tma<64>(a, kscratch, tk, tv, stream);
+    }
+  }
   if (a.d <= 64) return launch<T, 64, 4>(a, a.batch, stream);
   if (a.d <= 128) return launch<T, 64, 8>(a, a.batch, stream);
   return launch<T, 32, 16>(a, a.batch, stream);
@@ -586,12 +550,13 @@ extern "C" {
 // strides: q, k, v, out as (b, h, s) element strides, 12 values.
 // k_scratch: bf16 (batch, heads / kv_rep, s, d), contiguous, for roped k on
 // the bf16 path at head_dim 64 / 128 (null elsewhere: the CUDA-core kernel).
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launches (cudaErrorNotSupported if a tensor map cannot be encoded).
+// dtype: 0 = float32, 1 = bfloat16. route: set to the route taken
+// (flash::Route: 1 the TMA + wgmma kernel with its pre-pass, 0 the
+// CUDA-core kernel). Returns cudaGetLastError() after the launches.
 int galvatron_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                         const void* cos, const void* sin, void* k_scratch,
                         const long long* strides, int dtype, int batch, int heads, int kv_rep,
-                        int s, int d, float lam, void* stream) {
+                        int s, int d, float lam, void* stream, int* route) {
   if (d % 8 != 0 || d > 256 || d <= 0 || s <= 0 || kv_rep <= 0)
     return (int)cudaErrorInvalidValue;
   FwdArgs a;
@@ -615,8 +580,8 @@ int galvatron_flash_fwd(const void* q, const void* k, const void* v, void* out, 
   a.d = d;
   a.lam = lam;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(a, nullptr, st);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, k_scratch, st);
+  if (dtype == 0) return (int)dispatch<float>(a, nullptr, st, route);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, k_scratch, st, route);
   return (int)cudaErrorInvalidValue;
 }
 

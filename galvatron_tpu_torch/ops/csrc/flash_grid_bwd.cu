@@ -36,19 +36,25 @@
 // Bound: at the GPT-2 XL training shape (b=8, h=25, s=1024, d=64, causal,
 // bf16) the five products take 10 * b * h * s(s+1)/2 * d = 6.7e10
 // operations, 0.068 ms at 989 TFLOP/s, against ~0.19 GB of traffic
-// (0.056 ms at 3.35 TB/s): operations. bf16 at head_dim 64 and 128 runs
-// every product on the tensor cores (mma.sync m16n8k16, fp32 accumulation,
-// p and ds rounded to bf16 straight from registers into A fragments), with
-// CAUSAL and ROPE compile-time; the two kernels recompute the score and dp
-// products, so they issue 7 products, not 5. fp32 and other head dims take
-// CUDA-core kernels with both as run-time flags. No TMA, wgmma or pipelined
-// copy yet.
+// (0.056 ms at 3.35 TB/s): operations. For bf16 at head_dim 64 and 128:
+//   - the dk/dv kernel is the backward's shared Hopper mainloop
+//     (flash_bwd_common.cuh) with the grid's rounding points: a TMA ring
+//     feeding wgmma, q / k / v / do read straight from their strided views;
+//     with RoPE a pre-pass first ropes q and k through the unscaled tables
+//     into scratches the wrapper allocates (each row roped once per call);
+//   - the dq kernel runs every product on the tensor cores with mma.sync
+//     m16n8k16 (fp32 accumulation, ds rounded to bf16 straight from
+//     registers into A fragments), CAUSAL and ROPE compile-time.
+// The two kernels recompute the score and dp products, so they issue 7
+// products, not 5. fp32, other head dims and operands a tensor map cannot
+// take run CUDA-core kernels with both flags at run time; the dk/dv entry
+// encodes its tensor maps before any launch and reports its route.
 //
-// C interface (bound with ctypes): both entries take the same arguments;
-// pointers and the stream as void*, strides in a host array of long long,
-// each returns cudaGetLastError() after its launch.
+// C interface (bound with ctypes): pointers and the stream as void*, strides
+// in a host array of long long; each entry returns cudaGetLastError() after
+// its launches.
 
-#include "flash_common.cuh"
+#include "flash_bwd_common.cuh"
 
 namespace {
 
@@ -261,15 +267,13 @@ __global__ void __launch_bounds__(kThreads) flash_grid_dq_kernel(GridBwdArgs a) 
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (head_dim 64 or 128), the same two kernels: eight
-// warps per block, each owning 16 rows of the block's 128-row tile (keys in
-// the dk/dv kernel, queries in the dq kernel), a warp no row of which a
-// causal tile can reach skipping its products; every product is an
-// mma.sync m16n8k16 with fp32 accumulation, p and ds are rounded to bf16
+// The dq kernel in bf16 on the tensor cores (head_dim 64 or 128): eight warps
+// per block, each owning 16 rows of the block's 128 queries, a warp no row
+// of which a causal tile can reach skipping its products; every product is
+// an mma.sync m16n8k16 with fp32 accumulation, ds is rounded to bf16
 // straight from the score registers into A fragments. Every tile is staged
-// row-major; operands read along the reduction dimension of a B fragment (do
-// and q in the dk/dv kernel, k in the dq kernel) are loaded with ldmatrix
-// .trans.
+// row-major; k, read along the reduction dimension of a B fragment, is
+// loaded with ldmatrix .trans.
 // ---------------------------------------------------------------------------
 
 using flash::kMmaRows;
@@ -325,119 +329,6 @@ __device__ __forceinline__ void write_scaled_row(flash::bf16* dst, const float (
     for (int n = 0; n < ND; ++n)
       flash::st_pair(dst + 8 * n + 2 * t, __fmul_rn(acc[n][2 * r], scale),
                      __fmul_rn(acc[n][2 * r + 1], scale));
-  }
-}
-
-// dk/dv kernel: block (b, h, 128-key tile); warp w owns keys k0 + 16 w ..
-// S^T = k q^T and dP^T = v do^T (A from the k / v tiles, B from row-major
-// q / do), dv += P^T do and dk += dS^T q (B from do / q by ldmatrix .trans).
-// The q tile is walked in two halves of 32 to bound the score registers.
-template <int D, bool CAUSAL, bool ROPE>
-__global__ void __launch_bounds__(kMmaThreads) flash_grid_dkdv_mma_kernel(GridBwdArgs a) {
-  using flash::bf16;
-  constexpr int LD = D + 8, KD = D / 16, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kMmaRows * LD;
-  bf16* qs = vs + kMmaRows * LD;
-  bf16* dos = qs + kMmaTile * LD;
-  float* lse2s = reinterpret_cast<float*>(dos + kMmaTile * LD);
-  float* dels = lse2s + kMmaRows;
-
-  const int s = a.s;
-  const int kt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / a.kv_rep;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int k0 = kt * kMmaRows, r0 = warp * 16;
-  const size_t stats = ((size_t)b * a.heads + h) * s;
-  const bf16* qg = static_cast<const bf16*>(a.q) + b * a.vq.b + h * a.vq.h;
-  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.vk.b + kvh * a.vk.h;
-  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.vv.b + kvh * a.vv.h;
-  const bf16* dg = static_cast<const bf16*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
-
-  flash::stage_tile<D, kMmaRows>(ks, LD, kg, a.vk.s, k0, s, a.cos, a.sin, 1.f, ROPE);
-  flash::stage_tile<D, kMmaRows>(vs, LD, vg, a.vv.s, k0, s, nullptr, nullptr, 1.f, false);
-
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    zero_c(dk[n]);
-    zero_c(dv[n]);
-  }
-  const int key_a = k0 + r0 + g, key_b = key_a + 8;
-
-  const int nqt = (s + kMmaTile - 1) / kMmaTile;
-  for (int qtile = CAUSAL ? k0 / kMmaTile : 0; qtile < nqt; ++qtile) {
-    const int q0 = qtile * kMmaTile;
-    __syncthreads();
-    flash::stage_tile<D, kMmaTile>(qs, LD, qg, a.vq.s, q0, s, a.cos, a.sin, 1.f, ROPE);
-    flash::stage_tile<D, kMmaTile>(dos, LD, dg, a.vdo.s, q0, s, nullptr, nullptr, 1.f, false);
-    flash::stage_row_stats(a.lse, a.delta, stats, s, q0, kMmaTile, lse2s, dels);
-    __syncthreads();
-    // warp-uniform: every query of the tile is above this warp's keys
-    if (CAUSAL && q0 + kMmaTile - 1 < k0 + r0) continue;
-
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = half * 32;  // first query column of this half
-      float st[4][4], dpt[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        zero_c(st[j]);
-        zero_c(dpt[j]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t ka[4], va[4];
-        flash::ld_a(ka, ks, LD, r0, kk * 16, g, t);
-        flash::ld_a(va, vs, LD, r0, kk * 16, g, t);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bf16* qp = qs + (c0 + 8 * j + g) * LD + kk * 16 + 2 * t;
-          const bf16* dp = dos + (c0 + 8 * j + g) * LD + kk * 16 + 2 * t;
-          flash::mma_bf16(st[j], ka, flash::ld_pair(qp), flash::ld_pair(qp + 8));
-          flash::mma_bf16(dpt[j], va, flash::ld_pair(dp), flash::ld_pair(dp + 8));
-        }
-      }
-      // P^T and dS^T: element (key, query) with query column c0 + 8 j + 2 t + (e & 1)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = c0 + 8 * j + 2 * t + (e & 1);
-          grid_p_ds<CAUSAL>(st[j][e], dpt[j][e], q0 + qc, e < 2 ? key_a : key_b, s, qc, lse2s,
-                            dels, a.lam);
-        }
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {  // 16 queries at a time
-        uint32_t pa[4], da[4];
-        flash::c_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-        flash::c_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-        for (int n = 0; n < ND; n += 2) {
-          uint32_t db[4], qb[4];
-          flash::ld_b_trans(db, dos, LD, c0 + kk * 16, 8 * n, lane);
-          flash::ld_b_trans(qb, qs, LD, c0 + kk * 16, 8 * n, lane);
-          flash::mma_bf16(dv[n], pa, db[0], db[1]);
-          flash::mma_bf16(dv[n + 1], pa, db[2], db[3]);
-          flash::mma_bf16(dk[n], da, qb[0], qb[1]);
-          flash::mma_bf16(dk[n + 1], da, qb[2], qb[3]);
-        }
-      }
-    }
-  }
-
-  bf16* dvg = static_cast<bf16*>(a.dv) + b * a.vdv.b + h * a.vdv.h;
-  bf16* dkg = static_cast<bf16*>(a.dk) + b * a.vdk.b + h * a.vdk.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = r == 0 ? key_a : key_b;
-    if (key >= s) continue;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      flash::st_pair(dvg + key * a.vdv.s + 8 * n + 2 * t, dv[n][2 * r], dv[n][2 * r + 1]);
-    write_scaled_row<D, ROPE>(dkg + key * a.vdk.s, dk, r, t, key, a.sm_scale, a.cos, a.sin);
   }
 }
 
@@ -544,11 +435,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_grid_dq_mma_kernel(GridBwdA
 // which of the two kernels a C entry launches
 enum class Pass { kDkDv, kDq };
 
-template <Pass P, int D, bool CAUSAL, bool ROPE>
-cudaError_t launch_mma(const GridBwdArgs& a, int batch, cudaStream_t stream) {
+template <int D, bool CAUSAL, bool ROPE>
+cudaError_t launch_dq_mma(const GridBwdArgs& a, int batch, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<D>();
-  auto kernel = P == Pass::kDkDv ? flash_grid_dkdv_mma_kernel<D, CAUSAL, ROPE>
-                                 : flash_grid_dq_mma_kernel<D, CAUSAL, ROPE>;
+  auto kernel = flash_grid_dq_mma_kernel<D, CAUSAL, ROPE>;
   const cudaError_t err = flash::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.s + kMmaRows - 1) / kMmaRows, a.heads, batch);
@@ -556,14 +446,89 @@ cudaError_t launch_mma(const GridBwdArgs& a, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <Pass P, int D>
-cudaError_t dispatch_mma(const GridBwdArgs& a, int batch, cudaStream_t stream) {
+template <int D>
+cudaError_t dispatch_dq_mma(const GridBwdArgs& a, int batch, cudaStream_t stream) {
   const bool rope = a.cos != nullptr;
   if (a.causal)
-    return rope ? launch_mma<P, D, true, true>(a, batch, stream)
-                : launch_mma<P, D, true, false>(a, batch, stream);
-  return rope ? launch_mma<P, D, false, true>(a, batch, stream)
-              : launch_mma<P, D, false, false>(a, batch, stream);
+    return rope ? launch_dq_mma<D, true, true>(a, batch, stream)
+                : launch_dq_mma<D, true, false>(a, batch, stream);
+  return rope ? launch_dq_mma<D, false, true>(a, batch, stream)
+              : launch_dq_mma<D, false, false>(a, batch, stream);
+}
+
+// The dk/dv kernel's four tensor maps, encoded before any launch: k and v
+// (128-row boxes, the resident tiles) and q and do (W-row boxes, walked),
+// k and q from the pre-pass scratches (contiguous) with RoPE, else from
+// their views.
+template <int D>
+bool encode_dkv_maps(const GridBwdArgs& a, int batch, const void* qs, const void* ks,
+                     CUtensorMap* m) {
+  using flash::encode_bhsd;
+  constexpr int W = flash::bwd::Cfg<D>::W, OWN = flash::bwd::kOwn;
+  const int kvh = a.heads / a.kv_rep, s = a.s;
+  const long long rh = (long long)s * D;  // a scratch head
+  const bool roped = a.cos != nullptr;
+  const bool k_ok = roped ? encode_bhsd(&m[0], ks, batch, kvh, s, D, rh * kvh, rh, D, OWN)
+                          : encode_bhsd(&m[0], a.k, batch, kvh, s, D, a.vk.b, a.vk.h, a.vk.s, OWN);
+  const bool q_ok = roped
+                        ? encode_bhsd(&m[2], qs, batch, a.heads, s, D, rh * a.heads, rh, D, W)
+                        : encode_bhsd(&m[2], a.q, batch, a.heads, s, D, a.vq.b, a.vq.h, a.vq.s, W);
+  return k_ok && q_ok &&
+         encode_bhsd(&m[1], a.v, batch, kvh, s, D, a.vv.b, a.vv.h, a.vv.s, OWN) &&
+         encode_bhsd(&m[3], a.dout, batch, a.heads, s, D, a.vdo.b, a.vdo.h, a.vdo.s, W);
+}
+
+template <int D, bool CAUSAL, bool ROPE>
+cudaError_t launch_dkv_tma(const GridBwdArgs& a, int batch, void* qs, void* ks,
+                           const CUtensorMap* m, cudaStream_t stream) {
+  namespace fb = flash::bwd;
+  using flash::bf16;
+  cudaError_t err;
+  if (ROPE) {  // q and k roped through the unscaled tables, once each
+    fb::PrepassArgs p{};
+    p.q = static_cast<const bf16*>(a.q);
+    p.k = static_cast<const bf16*>(a.k);
+    p.vq = a.vq;
+    p.vk = a.vk;
+    p.cos = a.cos;
+    p.sin = a.sin;
+    p.qscale = 1.f;
+    p.q_out = static_cast<bf16*>(qs);
+    p.k_out = static_cast<bf16*>(ks);
+    p.heads = a.heads;
+    p.kvheads = a.heads / a.kv_rep;
+    p.s = a.s;
+    if ((err = fb::launch_prepass<D>(p, batch, stream)) != cudaSuccess) return err;
+  }
+  fb::Args g{};
+  g.lse = a.lse;
+  g.delta = a.delta;
+  g.cos = a.cos;
+  g.sin = a.sin;
+  g.dk = a.dk;
+  g.dv = a.dv;
+  g.vdk = a.vdk;
+  g.vdv = a.vdv;
+  g.heads = a.heads;
+  g.kv_rep = a.kv_rep;
+  g.s = a.s;
+  g.lam = a.lam;
+  g.dk_scale = a.sm_scale;
+  g.dq_scale = a.sm_scale;
+  const long long blocks = (long long)((a.s + fb::kOwn - 1) / fb::kOwn) * a.heads * batch;
+  return fb::launch_main(fb::dkdv_kernel<D, true, CAUSAL, ROPE>, fb::Cfg<D>::SMEM, blocks, m[0],
+                         m[1], m[2], m[3], g, stream);
+}
+
+template <int D>
+cudaError_t dispatch_dkv_tma(const GridBwdArgs& a, int batch, void* qs, void* ks,
+                             const CUtensorMap* m, cudaStream_t stream) {
+  const bool rope = a.cos != nullptr;
+  if (a.causal)
+    return rope ? launch_dkv_tma<D, true, true>(a, batch, qs, ks, m, stream)
+                : launch_dkv_tma<D, true, false>(a, batch, qs, ks, m, stream);
+  return rope ? launch_dkv_tma<D, false, true>(a, batch, qs, ks, m, stream)
+              : launch_dkv_tma<D, false, false>(a, batch, qs, ks, m, stream);
 }
 
 template <Pass P, typename T, int TILE, int NJ>
@@ -590,11 +555,29 @@ bool can_mma(const GridBwdArgs& a) {
   return a.d == 64 || a.d == 128;
 }
 
+// the dk/dv kernel's TMA route: as can_mma, with the scratches the RoPE
+// pre-pass writes
+bool can_tma(const GridBwdArgs& a, const void* qs, const void* ks) {
+  return can_mma(a) && (a.cos == nullptr || (qs != nullptr && ks != nullptr &&
+                                             flash::aligned16(qs) && flash::aligned16(ks)));
+}
+
 template <Pass P, typename T>
-cudaError_t dispatch(const GridBwdArgs& a, int batch, cudaStream_t stream) {
-  if (sizeof(T) == 2 && can_mma(a))
-    return a.d == 128 ? dispatch_mma<P, 128>(a, batch, stream)
-                      : dispatch_mma<P, 64>(a, batch, stream);
+cudaError_t dispatch(const GridBwdArgs& a, int batch, void* qs, void* ks, cudaStream_t stream,
+                     int* route) {
+  if (route != nullptr) *route = flash::kRouteCudaCore;
+  if (sizeof(T) == 2 && P == Pass::kDkDv && can_tma(a, qs, ks)) {
+    CUtensorMap m[4];
+    if (a.d == 128 ? encode_dkv_maps<128>(a, batch, qs, ks, m)
+                   : encode_dkv_maps<64>(a, batch, qs, ks, m)) {
+      *route = flash::kRouteTma;
+      return a.d == 128 ? dispatch_dkv_tma<128>(a, batch, qs, ks, m, stream)
+                        : dispatch_dkv_tma<64>(a, batch, qs, ks, m, stream);
+    }
+  }
+  if (sizeof(T) == 2 && P == Pass::kDq && can_mma(a))
+    return a.d == 128 ? dispatch_dq_mma<128>(a, batch, stream)
+                      : dispatch_dq_mma<64>(a, batch, stream);
   if (a.d <= 64) return launch<P, T, 64, 4>(a, batch, stream);
   if (a.d <= 128) return launch<P, T, 64, 8>(a, batch, stream);
   return launch<P, T, 32, 16>(a, batch, stream);
@@ -603,8 +586,9 @@ cudaError_t dispatch(const GridBwdArgs& a, int batch, cudaStream_t stream) {
 template <Pass P>
 int run(const void* q, const void* k, const void* v, const void* dout, const void* lse,
         const void* delta, const void* cos, const void* sin, void* dq, void* dk, void* dv,
-        const long long* strides, int dtype, int causal, int batch, int heads, int kv_rep,
-        int s, int d, float lam, float sm_scale, void* stream) {
+        void* qs, void* ks, const long long* strides, int dtype, int causal, int batch,
+        int heads, int kv_rep, int s, int d, float lam, float sm_scale, void* stream,
+        int* route) {
   if (d % 8 != 0 || d > 256 || d <= 0 || s <= 0 || kv_rep <= 0 ||
       (cos == nullptr) != (sin == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -634,8 +618,8 @@ int run(const void* q, const void* k, const void* v, const void* dout, const voi
   a.lam = lam;
   a.sm_scale = sm_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<P, float>(a, batch, st);
-  if (dtype == 1) return (int)dispatch<P, __nv_bfloat16>(a, batch, st);
+  if (dtype == 0) return (int)dispatch<P, float>(a, batch, qs, ks, st, route);
+  if (dtype == 1) return (int)dispatch<P, __nv_bfloat16>(a, batch, qs, ks, st, route);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -645,16 +629,20 @@ extern "C" {
 
 // strides: q, k, v, do, dq, dk, dv as (b, h, s) element strides, 21 values.
 // lse, delta: contiguous fp32 (b, h, s). cos/sin: null without RoPE. dtype:
-// 0 = float32, 1 = bfloat16. The dk/dv entry writes dk and dv, the dq entry
-// dq; each returns cudaGetLastError() after its launch.
+// 0 = float32, 1 = bfloat16. The dk/dv entry writes dk and dv; q_scratch /
+// k_scratch are bf16 contiguous (b, h, s, d) and (b, h / kv_rep, s, d) for
+// the RoPE pre-pass of its bf16 route at head_dim 64 / 128 (null elsewhere),
+// and route is set to the route taken (flash::Route). The dq entry writes
+// dq. Each returns cudaGetLastError() after its launches.
 int galvatron_flash_grid_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, const void* cos,
-                             const void* sin, void* dq, void* dk, void* dv,
-                             const long long* strides, int dtype, int causal, int batch,
-                             int heads, int kv_rep, int s, int d, float lam, float sm_scale,
-                             void* stream) {
-  return run<Pass::kDkDv>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, strides, dtype,
-                          causal, batch, heads, kv_rep, s, d, lam, sm_scale, stream);
+                             const void* sin, void* dq, void* dk, void* dv, void* q_scratch,
+                             void* k_scratch, const long long* strides, int dtype, int causal,
+                             int batch, int heads, int kv_rep, int s, int d, float lam,
+                             float sm_scale, void* stream, int* route) {
+  return run<Pass::kDkDv>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, q_scratch, k_scratch,
+                          strides, dtype, causal, batch, heads, kv_rep, s, d, lam, sm_scale,
+                          stream, route);
 }
 
 int galvatron_flash_grid_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -663,8 +651,9 @@ int galvatron_flash_grid_dq(const void* q, const void* k, const void* v, const v
                             const long long* strides, int dtype, int causal, int batch,
                             int heads, int kv_rep, int s, int d, float lam, float sm_scale,
                             void* stream) {
-  return run<Pass::kDq>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, strides, dtype,
-                        causal, batch, heads, kv_rep, s, d, lam, sm_scale, stream);
+  return run<Pass::kDq>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, nullptr, nullptr,
+                        strides, dtype, causal, batch, heads, kv_rep, s, d, lam, sm_scale,
+                        stream, nullptr);
 }
 
 }  // extern "C"

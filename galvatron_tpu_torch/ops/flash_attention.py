@@ -24,7 +24,18 @@ Each kernel has three pieces, side by side:
   to the plain version;
 - a launch counter on the wrapper (``flash_fwd.launches``,
   ``flash_grid_bwd_parts.dkv_launches``, ...), a plain integer incremented
-  where the kernel is launched and nowhere else.
+  where the kernel is launched and nowhere else; beside it, where a kernel
+  has a TMA route, a count per route (``flash_fwd.routes``,
+  ``flash_bwd.routes``, ``flash_grid_bwd_parts.dkv_routes``: ``tma`` or
+  ``cuda_core``, as the C entry reports it), so the fast route cannot
+  vanish unnoticed.
+
+The bf16 backward at head_dim 64 / 128 (``flash_bwd`` and the grid dk/dv
+kernel) runs one shared Hopper mainloop (``csrc/flash_bwd_common.cuh``): a
+pre-pass ropes q and k once per call into scratches the wrapper allocates
+(:func:`flash_bwd_prepass_plain` is its plain twin), then TMA-fed ``wgmma``
+kernels walk the tiles (:func:`flash_bwd_tiles_plain` is the plain twin of
+their decomposition).
 
 The training entries are ``torch.autograd.Function``s, as the reference's
 are ``jax.custom_vjp``s: :class:`FlashQKV` over the stacked (b, 3, h, s, d)
@@ -64,6 +75,12 @@ from galvatron_tpu_torch.ops import _build
 #: shared memory one thread block may use on Hopper (227 KB)
 _MAX_SMEM_BYTES = 232448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: The routes a C entry reports, by index (``flash::Route`` in
+#: ``csrc/flash_common.cuh``): the CUDA-core kernels (fp32, other head dims,
+#: operands a tensor map cannot take) or the TMA + wgmma kernels. Each
+#: wrapper with a TMA route counts its calls by route in ``.routes``, beside
+#: ``.launches``.
+ROUTES = ("cuda_core", "tma")
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634  # log2(e)
@@ -166,6 +183,24 @@ def rope_k_plain(k, cos, sin):
     return _rope_f32(k, cos, sin).to(k.dtype).contiguous()
 
 
+def rope_q_scaled_plain(q, cos, sin, sm_scale):
+    """q (b, h, s, d) roped through tables pre-scaled by sm_scale·log2e (one
+    fp32 product each) and rounded to q's dtype, contiguous: the reference's
+    ``_rope_rows(q, cos·lam, sin·lam).astype(q.dtype)``, the blocked kernels'
+    q operand."""
+    lam = sm_scale * LOG2E
+    return _rope_f32(q, cos * lam, sin * lam).to(q.dtype).contiguous()
+
+
+def flash_bwd_prepass_plain(q, k, do, out, cos, sin, sm_scale):
+    """The bf16 backward's pre-pass in plain PyTorch: (q', k', delta) with
+    q' = :func:`rope_q_scaled_plain`, k' = :func:`rope_k_plain` and the fp32
+    ``delta = Σ do·out`` per row, (b, h, s). ``csrc/flash_bwd_common.cuh``
+    writes the same three into the scratches the kernels then read."""
+    delta = (do.float() * out.float()).sum(dim=-1)
+    return rope_q_scaled_plain(q, cos, sin, sm_scale), rope_k_plain(k, cos, sin), delta
+
+
 def _causal_keep(s: int, device):
     r = torch.arange(s, device=device)
     return r[:, None] >= r[None, :]
@@ -183,8 +218,7 @@ def flash_fwd_blocked_plain(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
     softmax runs over the whole row at once (the kernels walk it in tiles;
     only p's rounding point relative to the running max differs)."""
     dt = q.dtype
-    lam = sm_scale * LOG2E
-    qs = _rope_f32(q, cos * lam, sin * lam).to(dt).float()
+    qs = rope_q_scaled_plain(q, cos, sin, sm_scale).float()
     kr = rope_k_plain(k, cos, sin).float()
     vf = v.float()
     if kv_rep > 1:
@@ -210,9 +244,8 @@ def flash_bwd_blocked_plain(q, k, v, do, out, lse, cos, sin, sm_scale):
     sm_scale · ds·k_roped)``, both counter-rotated with the unscaled
     tables."""
     dt = q.dtype
-    lam = sm_scale * LOG2E
-    qs = _rope_f32(q, cos * lam, sin * lam).to(dt).float()
-    kr = _rope_f32(k, cos, sin).to(dt).float()
+    qs = rope_q_scaled_plain(q, cos, sin, sm_scale).float()
+    kr = rope_k_plain(k, cos, sin).float()
     dof = do.float()
     s2 = qs @ kr.transpose(-1, -2)
     s2 = s2.masked_fill(~_causal_keep(q.shape[2], q.device), NEG_INF)
@@ -325,6 +358,71 @@ def flash_bwd_grid_plain(q, k, v, do, lse, delta, rope, sm_scale, causal):
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+#: rows one block of the TMA backward kernels owns (two warpgroups of 64,
+#: ``kOwn`` of ``csrc/flash_bwd_common.cuh``)
+_BWD_OWN = 128
+
+
+def _bwd_walk(d: int) -> int:
+    """Rows of the tiles the TMA backward kernels walk at head_dim ``d``
+    (``Cfg<D>::W`` of ``csrc/flash_bwd_common.cuh``)."""
+    return 64 if d == 128 else 128
+
+
+def flash_bwd_tiles_plain(q_op, k_op, v, do, lse, delta, sm_scale, causal=True, grid=False,
+                          rope=None, walk=None):
+    """The TMA backward kernels' decomposition in plain PyTorch, a test twin
+    of ``csrc/flash_bwd_common.cuh``. ``q_op`` / ``k_op`` are the operands
+    as the kernels multiply them (the pre-pass's q', k', or raw q and k for
+    the grid without RoPE), all of q/k/v/do at h heads; lse and delta fp32
+    (b, h, s, 1). dk/dv are summed per 128-key block over ``walk``-row query
+    tiles in the kernel's order (causal: from the tile holding the block's
+    first key), dq per 128-query block over ``walk``-key tiles up to the
+    block's last query; pairs past s or above the diagonal are masked. The
+    blocked scores (``grid`` False) come from q' that carries the scale, the
+    grid ones are scaled by sm_scale·log2e after the product. p and ds are
+    rounded to the input dtype before their products; dk is then scaled by
+    ln 2 (blocked) or sm_scale (grid), dq by sm_scale, both counter-rotated
+    through ``rope`` (unscaled tables) when given. Returns (dq, dk, dv) in
+    the input dtype."""
+    dt = q_op.dtype
+    b, h, s, d = q_op.shape
+    walk = walk or _bwd_walk(d)
+    qf, kf, vf, dof = (t.float() for t in (q_op, k_op, v, do))
+    lse2 = lse.float().reshape(b, h, s, 1) * LOG2E
+    dl = delta.float().reshape(b, h, s, 1)
+    pos = torch.arange(s, device=q_op.device)
+
+    def p_ds(q0, q1, k0, k1):
+        sc = qf[:, :, q0:q1] @ kf[:, :, k0:k1].transpose(-1, -2)
+        if grid:
+            sc = sc * (sm_scale * LOG2E)
+        p = torch.exp2(sc - lse2[:, :, q0:q1])
+        if causal:
+            p = p.masked_fill(pos[q0:q1, None] < pos[None, k0:k1], 0.0)
+        ds = p * (dof[:, :, q0:q1] @ vf[:, :, k0:k1].transpose(-1, -2) - dl[:, :, q0:q1])
+        return p.to(dt).float(), ds.to(dt).float()
+
+    dq, dk, dv = (torch.zeros(b, h, s, d, device=q_op.device) for _ in range(3))
+    for k0 in range(0, s, _BWD_OWN):
+        k1 = min(k0 + _BWD_OWN, s)
+        for q0 in range((k0 // walk) * walk if causal else 0, s, walk):
+            q1 = min(q0 + walk, s)
+            p, ds = p_ds(q0, q1, k0, k1)
+            dv[:, :, k0:k1] += p.transpose(-1, -2) @ dof[:, :, q0:q1]
+            dk[:, :, k0:k1] += ds.transpose(-1, -2) @ qf[:, :, q0:q1]
+    for q0 in range(0, s, _BWD_OWN):
+        q1 = min(q0 + _BWD_OWN, s)
+        for k0 in range(0, q1 if causal else s, walk):
+            p, ds = p_ds(q0, q1, k0, min(k0 + walk, s))
+            dq[:, :, q0:q1] += ds @ kf[:, :, k0:min(k0 + walk, s)]
+    dk = dk * (sm_scale if grid else LN2)
+    dq = dq * sm_scale
+    if rope is not None:
+        dk, dq = _rope_t_f32(dk, *rope), _rope_t_f32(dq, *rope)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
 def flash_grid_bwd_parts_plain(q, k, v, do, lse, delta, rope, sm_scale, causal,
                                kv_rep: int = 1, grads=None):
     """:func:`flash_grid_bwd_parts`'s plain route, with its signature: k/v
@@ -424,7 +522,8 @@ def flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
     with a unit-stride head dim (views of the stacked projection go in
     without a copy). CPU tensors run :func:`flash_fwd_blocked_plain`; CUDA
     tensors launch ``csrc/flash_fwd.cu``, whose ``out`` is laid out
-    (b, s, h, d) in memory so the output projection reads it as is."""
+    (b, s, h, d) in memory so the output projection reads it as is; the
+    route the call took is counted in ``flash_fwd.routes``."""
     b, h, s, d = q.shape
     _check_kv(q, k, v, kv_rep)
     _check_flash_operands("flash_fwd", (q, k, v), cos, sin, d)
@@ -436,20 +535,23 @@ def flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
     k_roped = (torch.empty((b, h // kv_rep, s, d), dtype=q.dtype, device=q.device)
                if q.dtype == torch.bfloat16 and d in (64, 128) else None)
     launch = _flash_fwd_kernel()
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             cos.data_ptr(), sin.data_ptr(), _ptr(k_roped), _strides(q, k, v, out),
             _DTYPE_CODE[q.dtype], b, h, kv_rep, s, d, float(sm_scale * LOG2E),
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(route),
         )
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     flash_fwd.launches += 1
+    flash_fwd.routes[ROUTES[route.value]] += 1
     return out, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.routes = dict.fromkeys(ROUTES, 0)
 
 
 def flash_bwd(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1,
@@ -458,7 +560,9 @@ def flash_bwd(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1,
     q's dtype; dk/dv are per query head (GQA callers sum them over the
     group). ``grads`` optionally gives the three outputs to write (e.g. the
     slots of a stacked dqkv). CPU tensors run :func:`flash_bwd_plain`; CUDA
-    tensors launch ``csrc/flash_bwd.cu``."""
+    tensors launch ``csrc/flash_bwd.cu`` (one count per call in
+    ``flash_bwd.launches``, the route in ``flash_bwd.routes``); two calls on
+    the same inputs give the same bits."""
     b, h, s, d = q.shape
     _check_flash_operands("flash_bwd", (q, k, v, do, out), cos, sin, d)
     _check_row_stats("flash_bwd", b, h, s, lse=lse)
@@ -466,36 +570,53 @@ def flash_bwd(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1,
         return flash_bwd_plain(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep, grads)
     dq, dk, dv = _grad_outputs("flash_bwd", q, grads)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # roped q and k for the bf16 TMA path, written by the kernels' pre-pass
+    q_roped, k_roped = _roped_scratch(q, k)
     launch = _flash_bwd_kernel()
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), out.data_ptr(),
             lse.data_ptr(), cos.data_ptr(), sin.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), _strides(q, k, v, do, out, dq, dk, dv),
-            _DTYPE_CODE[q.dtype], b, h, kv_rep, s, d, float(sm_scale * LOG2E),
-            float(sm_scale), torch.cuda.current_stream().cuda_stream,
+            dv.data_ptr(), delta.data_ptr(), _ptr(q_roped), _ptr(k_roped),
+            _strides(q, k, v, do, out, dq, dk, dv), _DTYPE_CODE[q.dtype], b, h, kv_rep, s, d,
+            float(sm_scale * LOG2E), float(sm_scale), torch.cuda.current_stream().cuda_stream,
+            ctypes.byref(route),
         )
     if err != 0:
         raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
     flash_bwd.launches += 1
+    flash_bwd.routes[ROUTES[route.value]] += 1
     return dq, dk, dv
 
 
 flash_bwd.launches = 0
+flash_bwd.routes = dict.fromkeys(ROUTES, 0)
+
+
+def _roped_scratch(q, k):
+    """(q', k') scratches for a backward's bf16 TMA route at head_dim 64 or
+    128: contiguous like q and like k, written by the kernels' pre-pass;
+    (None, None) elsewhere."""
+    if q.dtype != torch.bfloat16 or q.shape[3] not in (64, 128):
+        return None, None
+    return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+            torch.empty(k.shape, dtype=k.dtype, device=k.device))
 
 
 def _flash_fwd_kernel():
     fn = _build.load("flash_fwd").galvatron_flash_fwd
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)] + [
-        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _flash_bwd_kernel():
     fn = _build.load("flash_bwd").galvatron_flash_bwd
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_longlong)] + [
-        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.POINTER(ctypes.c_longlong)] + [
+        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                             ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return fn
 
@@ -569,7 +690,8 @@ def flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm_scale, causal: bool,
     q's dtype; dk/dv are per query head (GQA callers sum them over the
     group). ``grads`` optionally gives the three outputs to write. CPU
     tensors run :func:`flash_bwd_grid_plain`; CUDA tensors launch the dk/dv
-    kernel, then the dq kernel, of ``csrc/flash_grid_bwd.cu``."""
+    kernel (its route counted in ``.dkv_routes``), then the dq kernel, of
+    ``csrc/flash_grid_bwd.cu``."""
     b, h, s, d = q.shape
     _check_kv(q, k, v, kv_rep)
     cos, sin = _tables(rope)
@@ -579,36 +701,44 @@ def flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm_scale, causal: bool,
         return flash_grid_bwd_parts_plain(q, k, v, do, lse, delta, rope, sm_scale, causal,
                                           kv_rep, grads)
     dq, dk, dv = _grad_outputs("flash_grid_bwd", q, grads)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), _ptr(cos), _ptr(sin), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _strides(q, k, v, do, dq, dk, dv), _DTYPE_CODE[q.dtype], int(causal), b, h, kv_rep,
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), _ptr(cos), _ptr(sin), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    rest = (_strides(q, k, v, do, dq, dk, dv), _DTYPE_CODE[q.dtype], int(causal), b, h, kv_rep,
             s, d, float(sm_scale * LOG2E), float(sm_scale))
-
-    def launch(which):
-        fn = _grid_kernel("flash_grid_bwd", f"galvatron_flash_grid_{which}", 11, 7, 2)
-        with torch.cuda.device(q.device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    # roped q and k for the dk/dv kernel's bf16 TMA route with RoPE
+    q_roped, k_roped = _roped_scratch(q, k) if rope is not None else (None, None)
+    route = ctypes.c_int(-1)
+    dkv = _grid_kernel("flash_grid_bwd", "galvatron_flash_grid_dkv", 13, 7, 2, route=True)
+    dqk = _grid_kernel("flash_grid_bwd", "galvatron_flash_grid_dq", 11, 7, 2)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = dkv(*ptrs, _ptr(q_roped), _ptr(k_roped), *rest, stream, ctypes.byref(route))
         if err != 0:
-            raise RuntimeError(f"flash_grid_bwd {which} kernel launch failed: CUDA error {err}")
-
-    launch("dkv")
-    flash_grid_bwd_parts.dkv_launches += 1
-    launch("dq")
-    flash_grid_bwd_parts.dq_launches += 1
+            raise RuntimeError(f"flash_grid_bwd dkv kernel launch failed: CUDA error {err}")
+        flash_grid_bwd_parts.dkv_launches += 1
+        flash_grid_bwd_parts.dkv_routes[ROUTES[route.value]] += 1
+        err = dqk(*ptrs, *rest, stream)
+        if err != 0:
+            raise RuntimeError(f"flash_grid_bwd dq kernel launch failed: CUDA error {err}")
+        flash_grid_bwd_parts.dq_launches += 1
     return dq, dk, dv
 
 
 flash_grid_bwd_parts.dkv_launches = 0
 flash_grid_bwd_parts.dq_launches = 0
+flash_grid_bwd_parts.dkv_routes = dict.fromkeys(ROUTES, 0)
 
 
-def _grid_kernel(lib: str, fn_name: str, n_ptrs: int, n_ints: int, n_floats: int = 1):
+def _grid_kernel(lib: str, fn_name: str, n_ptrs: int, n_ints: int, n_floats: int = 1,
+                 route: bool = False):
     """The ctypes function ``fn_name`` of ``csrc/<lib>.cu``: ``n_ptrs``
-    pointers, the strides array, ``n_ints`` ints, ``n_floats`` floats and
-    the stream."""
+    pointers, the strides array, ``n_ints`` ints, ``n_floats`` floats, the
+    stream and, with ``route``, the int* the entry reports its route
+    through."""
     fn = getattr(_build.load(lib), fn_name)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.POINTER(ctypes.c_longlong)] + [
-        ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
+        ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats + [ctypes.c_void_p] + (
+        [ctypes.POINTER(ctypes.c_int)] if route else [])
     fn.restype = ctypes.c_int
     return fn
 

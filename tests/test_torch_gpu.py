@@ -150,6 +150,9 @@ FLASH_CASES = {
     "ragged_s2047_d128_gqa": (torch.bfloat16, 1, 8, 2, 2047, 128, False),
     "ragged_s1000_d64_gqa": (torch.bfloat16, 2, 8, 4, 1000, 64, False),
     "ragged_s100_d128_stacked": (torch.bfloat16, 2, 4, 4, 100, 128, True),
+    # the TMA backward at head_dim 64 (128-row walked tiles)
+    "d64_stacked_s1024": (torch.bfloat16, 2, 8, 8, 1024, 64, True),
+    "gqa_rep4_d64": (torch.bfloat16, 2, 16, 4, 512, 64, False),
 }
 
 
@@ -231,6 +234,13 @@ GRID_CASES = {
     "fp32_noncausal_rope_d40": (torch.float32, 1, 2, 2, 77, 40, False, True, False, False),
     # bf16 off the tensor-core head dims: the CUDA-core kernels
     "bf16_d40_rope": (torch.bfloat16, 1, 4, 2, 77, 40, True, True, False, False),
+    # the dk/dv kernel's TMA route at both head dims, causal or not, with and
+    # without RoPE (the pre-pass), stacked or contiguous, GQA, ragged s
+    "noncausal_d128_stacked": (torch.bfloat16, 2, 8, 8, 512, 128, False, False, True, False),
+    "causal_rope_d64_gqa": (torch.bfloat16, 2, 8, 2, 512, 64, True, True, False, False),
+    "noncausal_rope_d128_stacked": (torch.bfloat16, 1, 4, 4, 384, 128, False, True, True, False),
+    "causal_d128_gqa_ragged_s1000": (torch.bfloat16, 2, 8, 2, 1000, 128, True, False, False,
+                                     False),
 }
 
 
@@ -286,6 +296,54 @@ def test_grid_kernels_match_plain(cuda, case, monkeypatch):
     ctl = fa.flash_bwd_grid_plain(q, kf, vf, do, lse, delta, rope, sm, causal)
     for name, c, r in zip("qkv", ctl, ref_grads):
         assert not _grid_close(c, r, "bwd", dtype), name
+
+
+REPEAT_CASES = {
+    # name: (family, dtype, b, h, kv_heads, s, d, causal, rope, stacked)
+    "blocked_main_d128": ("blocked", torch.bfloat16, 2, 32, 32, 2048, 128, True, True, True),
+    "blocked_gqa_d64": ("blocked", torch.bfloat16, 2, 16, 4, 1024, 64, True, True, False),
+    "blocked_fp32": ("blocked", torch.float32, 1, 8, 8, 512, 128, True, True, True),
+    "grid_gpt_d64": ("grid", torch.bfloat16, 2, 25, 25, 1024, 64, True, False, True),
+    "grid_rope_noncausal_d128": ("grid", torch.bfloat16, 1, 8, 2, 512, 128, False, True, False),
+    "grid_fp32": ("grid", torch.float32, 1, 4, 4, 512, 64, True, False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REPEAT_CASES))
+def test_backward_kernels_repeat_bitwise_on_their_route(cuda, case):
+    """Two calls of a backward wrapper on the same inputs give the same bits
+    of dq, dk and dv (sums in registers over in-block loops, no atomics),
+    and the call takes the route its inputs call for: the TMA + wgmma
+    kernels for bf16 at head_dim 64 / 128 with aligned operands, the
+    CUDA-core kernels for fp32. The forward reports its route the same
+    way."""
+    family, dtype, b, h, kvh, s, d, causal, rope, stacked = REPEAT_CASES[case]
+    q, k, v, do, cos, sin = _flash_inputs(dtype, b, h, kvh, s, d, stacked)
+    rep, sm = h // kvh, 1.0 / math.sqrt(d)
+    want = "tma" if dtype == torch.bfloat16 else "cuda_core"
+    if family == "blocked":
+        fwd_before = dict(fa.flash_fwd.routes)
+        out, lse = fa.flash_fwd(q, k, v, cos, sin, sm, rep)
+        assert fa.flash_fwd.routes[want] == fwd_before[want] + 1
+        routes = fa.flash_bwd.routes
+
+        def call():
+            return fa.flash_bwd(q, k, v, do, out, lse, cos, sin, sm, rep)
+    else:
+        tables = (cos, sin) if rope else None
+        out, lse = fa.flash_grid_fwd(q, k, v, tables, sm, causal, rep)
+        delta = (do.float() * out.float()).sum(-1, keepdim=True).contiguous()
+        routes = fa.flash_grid_bwd_parts.dkv_routes
+
+        def call():
+            return fa.flash_grid_bwd_parts(q, k, v, do, lse, delta, tables, sm, causal, rep)
+    before = dict(routes)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert routes == {r: before[r] + (2 if r == want else 0) for r in fa.ROUTES}
+    for name, a, b_ in zip("qkv", first, second):
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, b_), name
 
 
 def _small_cfg(family, **kw):
