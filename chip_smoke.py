@@ -37,9 +37,11 @@ its result line:
    the same way: the GPT-2 XL training shape (b=8, h=25, s=1024, d=64,
    causal, no RoPE, the stacked projection view), non-causal (b=8, h=16,
    s=512), RoPE past the blocked envelope (b=1, h=4, s=16384, d=128), GQA
-   with kv_rep 4, fp32, and a bf16 call writing fp32 output; the dk/dv and
-   dq kernels' own device times come from a profiler window, with the same
-   route and repeat checks on the dk/dv kernel.
+   with kv_rep 4, fp32, and a bf16 call writing fp32 output; the forward's,
+   the dk/dv and the dq kernels' own device times (and the pre-passes' with
+   RoPE) come from profiler windows, with the same route checks on all
+   three (TMA for bf16, the CUDA-core kernels for fp32) and the repeat
+   check on the backward.
    Then the four fused norm kernels (RMSNorm and LayerNorm, forward and
    backward) against their plain versions: the training shapes (16384 rows
    x 4096 RMSNorm, 16384 x 2048 LayerNorm) in bf16 and fp32, and edge
@@ -80,7 +82,8 @@ its result line:
 7. the LLaMA training path: ``cli train --model_size llama-7b --num_layers 4
    --train_iters 10`` (batch 8, seq 2048, bf16 over fp32 masters, AdamW)
    in-process: every loss finite, 10 ``train_iter`` JSONL records, each
-   blocked flash kernel launched 4 x 10 times and the grid kernels none;
+   blocked flash kernel launched 4 x 10 times, every call on the TMA route,
+   and the grid kernels none;
    iter_ms (mean of iterations 2-10), tokens/s, MFU and peak device memory;
    then ``torch.profiler`` over two steady steps of the same configuration:
    device busy and idle share and the top kernels by device time;
@@ -534,9 +537,9 @@ def phase_flash(torch):
             lib_out, (qr, kr, vr), do, retain_graph=True), flush)
         bounds = flash_bounds(dname, b, h, kvh, s, d)
         # the bf16 tensor-core path is two launches: the k pre-pass, the main kernel
+        fwd_names = ["fwd::rope_k_kernel", "fwd::main_kernel"]
         split = (device_ms_by_name(torch, lambda: (flush.zero_(), fa.flash_fwd(
-            q, k, v, cos, sin, sm, rep)), ["flash_fwd_rope_k", "flash_fwd_tma"])
-            if tma else {"flash_fwd_rope_k": None, "flash_fwd_tma": None})
+            q, k, v, cos, sin, sm, rep)), fwd_names) if tma else dict.fromkeys(fwd_names))
         # ... and the backward three: the pre-pass, the dk/dv and the dq kernel
         bwd_names = ["bwd::prepass_kernel", "bwd::dkdv_kernel", "bwd::dq_kernel"]
         bwd_split = (device_ms_by_name(torch, lambda: (flush.zero_(), fa.flash_bwd(
@@ -549,7 +552,8 @@ def phase_flash(torch):
                 "fwd_max_abs_err": fwd_abs, "lse_max_abs_err": lse_err,
                 "bwd_max_abs_err": bwd_abs,
                 "fwd_ms": kernel_fwd, "bwd_ms": kernel_bwd,
-                "fwd_rope_k_ms": split["flash_fwd_rope_k"], "fwd_main_ms": split["flash_fwd_tma"],
+                "fwd_rope_k_ms": split["fwd::rope_k_kernel"],
+                "fwd_main_ms": split["fwd::main_kernel"],
                 "fwd_route": fwd_route, "bwd_route": bwd_route,
                 "bwd_repeat_bitwise": repeat_bitwise,
                 "bwd_prepass_ms": bwd_split["bwd::prepass_kernel"],
@@ -671,11 +675,14 @@ def phase_grid(torch):
         out_dtype = torch.float32 if out_fp32 else None
         before = (fa.flash_grid_fwd.launches, fa.flash_grid_bwd_parts.dkv_launches,
                   fa.flash_grid_bwd_parts.dq_launches)
+        route_counts = (fa.flash_grid_fwd.routes, fa.flash_grid_bwd_parts.dkv_routes,
+                        fa.flash_grid_bwd_parts.dq_routes)
+        routes_before = [dict(r) for r in route_counts]
         out, lse = fa.flash_grid_fwd(q, k, v, tables, sm, causal, rep, out_dtype)
         delta = (do.float() * out.float()).sum(-1, keepdim=True).contiguous()
-        routes_before = dict(fa.flash_grid_bwd_parts.dkv_routes)
         grads = fa.flash_grid_bwd_parts(q, k, v, do, lse, delta, tables, sm, causal, rep)
-        dkv_route = _route_taken(fa, fa.flash_grid_bwd_parts.dkv_routes, routes_before)
+        fwd_route, dkv_route, dq_route = (_route_taken(fa, r, b_)
+                                          for r, b_ in zip(route_counts, routes_before))
         again = fa.flash_grid_bwd_parts(q, k, v, do, lse, delta, tables, sm, causal, rep)
         torch.cuda.synchronize()
         after = (fa.flash_grid_fwd.launches, fa.flash_grid_bwd_parts.dkv_launches,
@@ -685,7 +692,8 @@ def phase_grid(torch):
         repeat_bitwise = all(torch.equal(g, a) for g, a in zip(grads, again))
         del again
         tma = dtype == torch.bfloat16 and d in (64, 128)
-        check(dkv_route == ("tma" if tma else "cuda_core"), f"{label}: dk/dv route {dkv_route}")
+        check((fwd_route, dkv_route, dq_route) == ((("tma" if tma else "cuda_core"),) * 3),
+              f"{label}: forward / dk/dv / dq routes {fwd_route} / {dkv_route} / {dq_route}")
         check(repeat_bitwise, f"{label}: two backward calls on the same inputs differ")
         check(out.dtype == (out_dtype or dtype), f"{label}: out is {out.dtype}")
         kf, vf = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
@@ -722,12 +730,18 @@ def phase_grid(torch):
                                                            out_dtype), flush)
         bwd_ms = time_ms(torch, lambda: fa.flash_grid_bwd_parts(
             q, k, v, do, lse, delta, tables, sm, causal, rep), flush)
-        # the dk/dv call's launches (with RoPE on the TMA route: the pre-pass,
-        # then the dk/dv kernel), then the dq kernel
+        # the forward's launches (with RoPE on the TMA route: the k pre-pass,
+        # then the main kernel); the dk/dv call's (with RoPE on the TMA route:
+        # the pre-pass, then the dk/dv kernel), then the dq kernel's
+        fwd_names = (["fwd::main_kernel"] + (["fwd::rope_k_kernel"] if rope else [])
+                     if tma else ["flash_grid_fwd_kernel"])
+        fwd_split = device_ms_by_name(torch, lambda: (flush.zero_(), fa.flash_grid_fwd(
+            q, k, v, tables, sm, causal, rep, out_dtype)), fwd_names)
         dkv_names = (["bwd::dkdv_kernel"] + (["bwd::prepass_kernel"] if rope else [])
-                     if tma else ["grid_dkdv"])
+                     if tma else ["flash_grid_dkdv_kernel"])
+        dq_name = "bwd::dq_kernel" if tma else "flash_grid_dq_kernel"
         split = device_ms_by_name(torch, lambda: (flush.zero_(), fa.flash_grid_bwd_parts(
-            q, k, v, do, lse, delta, tables, sm, causal, rep)), dkv_names + ["grid_dq"])
+            q, k, v, do, lse, delta, tables, sm, causal, rep)), dkv_names + [dq_name])
         dkdv_ms = sum(split[n] for n in dkv_names)
         plain_iters = 3 if s > 4096 else 5
         plain_fwd = time_ms(torch, lambda: fa.flash_fwd_grid_plain(
@@ -751,10 +765,13 @@ def phase_grid(torch):
                 "control_fwd_err": ctl_fwd, "control_bwd_err_dq_dk_dv": ctl_bwd,
                 "fwd_max_abs_err": fwd_abs, "lse_max_abs_err": lse_err,
                 "bwd_max_abs_err_dq_dk_dv": abs_err,
-                "dkv_route": dkv_route, "bwd_repeat_bitwise": repeat_bitwise,
-                "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "dkdv_ms": dkdv_ms,
+                "fwd_route": fwd_route, "dkv_route": dkv_route, "dq_route": dq_route,
+                "bwd_repeat_bitwise": repeat_bitwise,
+                "fwd_ms": fwd_ms, "fwd_main_ms": fwd_split[fwd_names[0]],
+                "fwd_rope_k_ms": fwd_split.get("fwd::rope_k_kernel"),
+                "bwd_ms": bwd_ms, "dkdv_ms": dkdv_ms,
                 "dkdv_prepass_ms": split.get("bwd::prepass_kernel"),
-                "dq_ms": split["grid_dq"], "fwd_plain_ms": plain_fwd, "bwd_plain_ms": plain_bwd,
+                "dq_ms": split[dq_name], "fwd_plain_ms": plain_fwd, "bwd_plain_ms": plain_bwd,
                 "fwd_library_ms": lib_fwd, "bwd_library_ms": lib_bwd,
                 **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
                 **{f"{k}_bound_by": v[1] for k, v in bounds.items()}}
@@ -1112,6 +1129,18 @@ def kernel_counts():
             "flash_grid_dq": fa.flash_grid_bwd_parts.dq_launches, **fn.launch_counts()}
 
 
+def route_counts():
+    """The flash wrappers' calls by route (``fa.ROUTES``: ``tma`` or
+    ``cuda_core``), keyed as :func:`kernel_counts` keys their launches."""
+    from galvatron_tpu_torch.ops import flash_attention as fa
+
+    return {name: dict(r) for name, r in (
+        ("flash_fwd", fa.flash_fwd.routes), ("flash_bwd", fa.flash_bwd.routes),
+        ("flash_grid_fwd", fa.flash_grid_fwd.routes),
+        ("flash_grid_dkdv", fa.flash_grid_bwd_parts.dkv_routes),
+        ("flash_grid_dq", fa.flash_grid_bwd_parts.dq_routes))}
+
+
 def reset_kernel_counts():
     from galvatron_tpu_torch.ops import flash_attention as fa
     from galvatron_tpu_torch.ops import fused_norm as fn
@@ -1433,12 +1462,13 @@ def _union_us(intervals):
 
 def _category(name: str) -> str:
     n = name.lower()
-    # the backward's TMA kernels (csrc/flash_bwd_common.cuh) serve both
-    # families: the grid dk/dv kernel is the one with GRID (its second
-    # template argument) true; the pre-pass counts with the blocked backward
-    m = re.search(r"bwd::(prepass|dkdv|dq)_kernel<\d+(, (true|false))?", n)
+    # the TMA kernels (csrc/flash_fwd_common.cuh, csrc/flash_bwd_common.cuh)
+    # serve both families, their pre-passes included: the grid's are the ones
+    # with GRID (the second template argument) true
+    m = re.search(r"(fwd|bwd)::(rope_k|main|prepass|dkdv|dq)_kernel<\d+, (true|false)", n)
     if m:
-        return "flash_grid_bwd" if m.group(3) == "true" else "flash_bwd"
+        grid = "flash_grid_" if m.group(3) == "true" else "flash_"
+        return grid + m.group(1)
     if "fused_norm_fwd" in n:
         return "norm_fwd"
     if "fused_norm_bwd" in n or "fused_norm_colsum" in n:
@@ -1486,6 +1516,7 @@ def phase_train(torch, smi, tmpdir, run):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reset_kernel_counts()  # the main path's counts start here
+    routes_before = route_counts()
     if fused:
         ns = initialize_galvatron("train", argv)
         out = trainer.train(ns, cfg=model_config_from_args(ns).replace(fused_norm=True))
@@ -1505,6 +1536,11 @@ def phase_train(torch, smi, tmpdir, run):
           f"{run}: non-finite losses {losses}")
     want = path_counts(model, layers, iters, fused)  # --global_checkpoint 0: no recompute
     check(launches == want, f"{run}: launches {launches}, expected {want}")
+    # every flash call of the path (bf16, head_dim 64 / 128) took the TMA route
+    routes = {k: {r: n - routes_before[k][r] for r, n in v.items()}
+              for k, v in route_counts().items()}
+    check(all(r["tma"] == launches[k] and r["cuda_core"] == 0 for k, r in routes.items()),
+          f"{run}: routes {routes}, launches {launches}")
     steady = recs[1:]
     mean = lambda key: sum(r[key] for r in steady) / len(steady)  # noqa: E731
     res = {"card": smi, "run": run, "model": preset, "layers": layers, "batch": bsz, "seq": seq,
@@ -1512,7 +1548,7 @@ def phase_train(torch, smi, tmpdir, run):
            "iter_ms_mean_from_2": mean("iter_ms"), "iter_ms": [r["iter_ms"] for r in recs],
            "tokens_per_s": mean("tokens_per_s"), "tflops_per_device": mean("tflops_per_device"),
            "mfu": mean("mfu"), "max_memory_allocated_gb": peak_gb, "launches": launches,
-           "seconds": seconds}
+           "tma_routes": {k: r["tma"] for k, r in routes.items()}, "seconds": seconds}
     log(f"phase {phase} train {run}:", json.dumps(res))
     RESULTS[f"train_{run}"] = res
     torch.cuda.empty_cache()

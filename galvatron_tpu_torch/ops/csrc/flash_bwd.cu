@@ -333,7 +333,7 @@ cudaError_t launch_tma(const BwdArgs& a, int batch, void* qs, void* ks, const CU
   p.heads = a.heads;
   p.kvheads = a.heads / a.kv_rep;
   p.s = a.s;
-  cudaError_t err = fb::launch_prepass<D>(p, batch, stream);
+  cudaError_t err = fb::launch_prepass<D, false>(p, batch, stream);
   if (err != cudaSuccess) return err;
 
   fb::Args g{};

@@ -1,12 +1,14 @@
 // The flash backward's Hopper mainloops (bf16, head_dim 64 or 128), shared
 // by the blocked backward (flash_bwd.cu, replacing `_bwd_kernel_blocked`)
-// and the grid dk/dv kernel (flash_grid_bwd.cu, replacing
-// `_bwd_dkv_kernel`):
+// and the grid dk/dv and dq kernels (flash_grid_bwd.cu, replacing
+// `_bwd_dkv_kernel` and `_bwd_dq_kernel`):
 //
-//   prepass_kernel  q' = rope(q) through tables times `qscale` and
-//                   k' = rope(k), each rounded to bf16 once into a
-//                   contiguous scratch, and (blocked) delta = sum(do * out)
-//                   per row in fp32. After it no tile is roped twice.
+//   prepass_kernel  q' = rope(q) through tables times `qscale` (blocked) or
+//                   the unscaled tables (grid) and k' = rope(k), each
+//                   rounded to bf16 once into a contiguous scratch, and
+//                   (blocked) delta = sum(do * out) per row in fp32. After
+//                   it no tile is roped twice; the grid's dk/dv and dq
+//                   kernels both read the one pre-pass's scratches.
 //   dkdv_kernel     one block per (b, h, 128-key tile): S^T = k' q'^T and
 //                   dP^T = v do^T, then dv += P^T do and dk += dS^T q',
 //                   over the query tiles that reach the keys.
@@ -397,8 +399,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 // boxes of W rows (the walked key tiles, kv head h / kv_rep). Warpgroup wg
 // owns queries q0 + 64 wg ..; a thread's rows are row_a and row_a + 8, its
 // score columns the keys k0 + 8j + 2t (+1); p is computed while dP is on
-// the tensor cores. The grid rounding points are reachable through GRID;
-// the grid dq kernel does not take this path yet.
+// the tensor cores. Both families take it: the blocked backward (GRID
+// false) and the grid dq entry (GRID true, causal or not, q' and k' from
+// the dk/dv call's pre-pass with RoPE, raw q and k without).
 template <int D, bool GRID, bool CAUSAL, bool ROPE>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
@@ -491,28 +494,30 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---------------------------------------------------------------------------
 // The pre-pass: one thread per 8 rotated pairs (x[i .. i+8), x[i + D/2 ..
-// i + D/2 + 8)) of a q row (units 0 .. q_units - 1), then of a k row. A q
-// thread also sums do * out over its 16 columns; the D/16 threads of a row
-// are neighbouring lanes, and a shuffle tree gives the row's delta.
+// i + D/2 + 8)) of a q row (units 0 .. q_units - 1), then of a k row.
+// Blocked (GRID false): q's tables are scaled by qscale, and a q thread also
+// sums do * out over its 16 columns; the D/16 threads of a row are
+// neighbouring lanes, and a shuffle tree gives the row's delta. Grid: the
+// unscaled tables for both, no delta (the caller gives it).
 // ---------------------------------------------------------------------------
 
 struct PrepassArgs {
   const bf16* q;
   const bf16* k;
-  const bf16* dout;  // null: no delta
+  const bf16* dout;  // blocked: do and out for delta
   const bf16* out;
   View vq, vk, vdo, vout;
   const float* cos;  // (s, D/2) unscaled
   const float* sin;
-  float qscale;  // the q tables' factor: sm_scale log2(e) (blocked) or 1 (grid)
+  float qscale;  // blocked: the q tables' factor, sm_scale log2(e)
   bf16* q_out;   // contiguous (b, h, s, D)
   bf16* k_out;   // contiguous (b, kv heads, s, D)
-  float* delta;  // (b, h, s), written when dout is given
+  float* delta;  // blocked: (b, h, s)
   int heads, kvheads, s;
   long long q_units, units;
 };
 
-template <int D>
+template <int D, bool GRID>
 __global__ void __launch_bounds__(256) prepass_kernel(const PrepassArgs p) {
   constexpr int HALF = D / 2, U = HALF / 8;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -528,7 +533,7 @@ __global__ void __launch_bounds__(256) prepass_kernel(const PrepassArgs p) {
     const int hh = (int)(bh % nh), b = (int)(bh / nh);
     const View vx = is_q ? p.vq : p.vk;
     const bf16* src = (is_q ? p.q : p.k) + b * vx.b + hh * vx.h + row * vx.s + i0;
-    const float scale = is_q ? p.qscale : 1.f;
+    const float scale = is_q && !GRID ? p.qscale : 1.f;
     float x1[8], x2[8], y1[8], y2[8];
     unpack8(*reinterpret_cast<const uint4*>(src), x1);
     unpack8(*reinterpret_cast<const uint4*>(src + HALF), x2);
@@ -544,7 +549,7 @@ __global__ void __launch_bounds__(256) prepass_kernel(const PrepassArgs p) {
     bf16* dst = (is_q ? p.q_out : p.k_out) + rowid * D + i0;
     *reinterpret_cast<uint4*>(dst) = pack8(y1);
     *reinterpret_cast<uint4*>(dst + HALF) = pack8(y2);
-    if (is_q && p.dout != nullptr) {
+    if (!GRID && is_q) {
       const bf16* dg = p.dout + b * p.vdo.b + hh * p.vdo.h + row * p.vdo.s + i0;
       const bf16* og = p.out + b * p.vout.b + hh * p.vout.h + row * p.vout.s + i0;
 #pragma unroll
@@ -557,7 +562,7 @@ __global__ void __launch_bounds__(256) prepass_kernel(const PrepassArgs p) {
       }
     }
   }
-  if (p.dout != nullptr) {  // uniform: every lane takes part in the shuffles
+  if (!GRID) {  // every lane takes part in the shuffles
 #pragma unroll
     for (int o = U / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
     if (is_q && idx % U == 0) p.delta[rowid] = part;
@@ -565,11 +570,11 @@ __global__ void __launch_bounds__(256) prepass_kernel(const PrepassArgs p) {
 }
 
 // Launch the pre-pass over every q and k row.
-template <int D>
+template <int D, bool GRID>
 cudaError_t launch_prepass(PrepassArgs p, int batch, cudaStream_t stream) {
   p.q_units = (long long)batch * p.heads * p.s * (D / 16);
   p.units = p.q_units + (long long)batch * p.kvheads * p.s * (D / 16);
-  prepass_kernel<D><<<(unsigned)((p.units + 255) / 256), 256, 0, stream>>>(p);
+  prepass_kernel<D, GRID><<<(unsigned)((p.units + 255) / 256), 256, 0, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -2,10 +2,10 @@
 // flash_bwd.cu) and grid (flash_grid_fwd.cu, flash_grid_bwd.cu): element
 // conversion, the rounding points of the Pallas kernels, 16-lane row
 // reductions, the strided (b, h, s, d) views, row staging, the CUDA-core
-// backward's products and row statistics, the tensor-core fragments,
-// Hopper's asynchronous pieces (mbarriers, TMA tile loads, wgmma) and the
-// host's tensor-map encoding. The backward's TMA + wgmma mainloops are in
-// flash_bwd_common.cuh.
+// backward's products and row statistics, bf16 rows and fragments, Hopper's
+// asynchronous pieces (mbarriers, TMA tile loads, wgmma) and the host's
+// tensor-map encoding. The TMA + wgmma mainloops are in
+// flash_fwd_common.cuh (forward) and flash_bwd_common.cuh (backward).
 #pragma once
 
 #include <cuda.h>
@@ -231,29 +231,15 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core pieces (bf16): mma.sync m16n8k16 with fp32 accumulation. With
-// g = lane / 4 and t = lane % 4, a thread holds
-//   A (16 x 16, row-major):  (g, 2t..2t+1) (g+8, 2t..) (g, 2t+8..) (g+8, 2t+8..)
-//   B (16 x 8, k x n):       (k = 2t..2t+1, n = g) (k = 2t+8..2t+9, n = g)
-//   C (16 x 8, fp32):        (g, 2t) (g, 2t+1) (g+8, 2t) (g+8, 2t+1)
-// each pair of bf16 packed in one 32-bit register, the lower index low.
+// bf16 rows and register fragments. The wgmma accumulators and register A
+// operands (below) use the mma.sync m16n8k16 fragment layout: with g =
+// lane / 4 and t = lane % 4, a thread holds C (16 x 8, fp32) elements (g,
+// 2t) (g, 2t+1) (g+8, 2t) (g+8, 2t+1) and A (16 x 16) pairs (g, 2t..2t+1)
+// (g+8, 2t..) (g, 2t+8..) (g+8, 2t+8..), each pair of bf16 packed in one
+// 32-bit register, the lower index low.
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two consecutive bf16 of shared memory (4-byte aligned) as one register
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // (lo, hi) rounded to bf16 and packed, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -261,56 +247,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// the A fragment of rows r0..r0+15, columns k0..k0+15 of a row-major tile
-__device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* tile, int ld, int r0, int k0,
-                                     int g, int t) {
-  const bf16* p = tile + (r0 + g) * ld + k0 + 2 * t;
-  a[0] = ld_pair(p);
-  a[1] = ld_pair(p + 8 * ld);
-  a[2] = ld_pair(p + 8);
-  a[3] = ld_pair(p + 8 * ld + 8);
-}
-
-// B fragments of n-tiles (n0, n0 + 8), k rows k0..k0+15, of a row-major
-// (k x n) tile X with row stride ld, by ldmatrix .trans: b[0], b[1] for
-// n-tile n0 and b[2], b[3] for n0 + 8. Lane l addresses row l % 8 of the
-// 8 x 8 matrix l / 8 (k half (l / 8) % 2, n half l / 16); .trans hands lane
-// (g, t) the pair X[k + 2t .. 2t + 1][n + g] each B fragment register holds.
-__device__ __forceinline__ void ld_b_trans(uint32_t (&b)[4], const bf16* x, int ld, int k0,
-                                           int n0, int lane) {
-  const bf16* p = x + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + n0 + (lane >> 4) * 8;
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(addr));
-}
-
-// the A fragment of a 16 x 16 slice held as two fp32 C tiles (columns
-// 0-7 in c0, 8-15 in c1), rounded to bf16: the FA2 register reuse of p / ds
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                       const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// the tensor-core kernels move rows in 16-byte chunks: every base pointer
-// 16-byte aligned and every (b, h, s) stride a multiple of 8 elements
+// the TMA kernels move rows in 16-byte units: every base pointer 16-byte
+// aligned and every (b, h, s) stride a multiple of 8 elements
 __device__ __host__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 __device__ __host__ __forceinline__ bool rows16(const View& v) {
   return v.b % 8 == 0 && v.h % 8 == 0 && v.s % 8 == 0;
 }
-
-// A block of 8 warps owns 16 rows per warp (kMmaRows) of the tile it
-// accumulates for and walks the other operand in kMmaTile-row tiles: twice
-// as many products per staged row as 64-row blocks.
-constexpr int kMmaWarps = 8;
-constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kMmaRows = 16 * kMmaWarps;  // rows a block owns
-constexpr int kMmaTile = 64;              // rows of a walked tile
 
 __device__ __forceinline__ void unpack8(const uint4& v, float (&x)[8]) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -331,63 +275,6 @@ __device__ __forceinline__ uint4 pack8(const float (&x)[8]) {
   return v;
 }
 
-// Stage one ROWS-row tile of a bf16 (b, h) slice into shared memory,
-// row-major with row stride ld, in 16-byte chunks (rows are 16-byte aligned:
-// see aligned16 / rows16); rows past `s` are zeros. With tables, the rows
-// are roped (tables scaled by `scale` first) and rounded to bf16 once, as
-// stage_rows does.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_tile(bf16* dst, int ld, const bf16* src, long long ss,
-                                           int row0, int s, const float* cos, const float* sin,
-                                           float scale, bool roped) {
-  constexpr int HALF = D / 2;
-  if (roped) {
-    constexpr int CHUNKS = HALF / 8;  // 8-element chunks in each half of a row
-    static_assert(ROWS * CHUNKS % kMmaThreads == 0, "tile does not split evenly");
-#pragma unroll
-    for (int it = 0; it < ROWS * CHUNKS / kMmaThreads; ++it) {
-      const int e = threadIdx.x + it * kMmaThreads;
-      const int r = e / CHUNKS, i0 = (e % CHUNKS) * 8, row = row0 + r;
-      float y1[8], y2[8];
-      if (row < s) {
-        float x1[8], x2[8], c[8], sn[8];
-        unpack8(*reinterpret_cast<const uint4*>(src + row * ss + i0), x1);
-        unpack8(*reinterpret_cast<const uint4*>(src + row * ss + i0 + HALF), x2);
-        const float4* cp = reinterpret_cast<const float4*>(cos + (size_t)row * HALF + i0);
-        const float4* sp = reinterpret_cast<const float4*>(sin + (size_t)row * HALF + i0);
-        const float4 c0 = cp[0], c1 = cp[1], s0 = sp[0], s1 = sp[1];
-        c[0] = c0.x; c[1] = c0.y; c[2] = c0.z; c[3] = c0.w;
-        c[4] = c1.x; c[5] = c1.y; c[6] = c1.z; c[7] = c1.w;
-        sn[0] = s0.x; sn[1] = s0.y; sn[2] = s0.z; sn[3] = s0.w;
-        sn[4] = s1.x; sn[5] = s1.y; sn[6] = s1.z; sn[7] = s1.w;
-#pragma unroll
-        for (int k = 0; k < 8; ++k) {
-          if (scale != 1.f) {
-            c[k] = __fmul_rn(c[k], scale);
-            sn[k] = __fmul_rn(sn[k], scale);
-          }
-          rope(x1[k], x2[k], c[k], sn[k], y1[k], y2[k]);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) y1[k] = y2[k] = 0.f;
-      }
-      *reinterpret_cast<uint4*>(dst + r * ld + i0) = pack8(y1);
-      *reinterpret_cast<uint4*>(dst + r * ld + i0 + HALF) = pack8(y2);
-    }
-  } else {
-    constexpr int CHUNKS = D / 8;
-    static_assert(ROWS * CHUNKS % kMmaThreads == 0, "tile does not split evenly");
-#pragma unroll
-    for (int it = 0; it < ROWS * CHUNKS / kMmaThreads; ++it) {
-      const int e = threadIdx.x + it * kMmaThreads;
-      const int r = e / CHUNKS, c0 = (e % CHUNKS) * 8, row = row0 + r;
-      *reinterpret_cast<uint4*>(dst + r * ld + c0) =
-          row < s ? *reinterpret_cast<const uint4*>(src + row * ss + c0) : make_uint4(0, 0, 0, 0);
-    }
-  }
-}
-
 // a row of C fragments written as bf16 pairs: out[row][8 n + 2t .. +1]
 __device__ __forceinline__ void st_pair(bf16* p, float lo, float hi) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
@@ -395,10 +282,6 @@ __device__ __forceinline__ void st_pair(bf16* p, float lo, float hi) {
 // ... or as fp32 pairs (8-byte aligned: even columns of 16-byte aligned rows)
 __device__ __forceinline__ void st_pair(float* p, float lo, float hi) {
   *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
-}
-
-__device__ __forceinline__ void zero_c(float (&c)[4]) {
-  c[0] = c[1] = c[2] = c[3] = 0.f;
 }
 
 // ---------------------------------------------------------------------------

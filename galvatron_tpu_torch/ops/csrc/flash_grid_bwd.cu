@@ -36,23 +36,21 @@
 // Bound: at the GPT-2 XL training shape (b=8, h=25, s=1024, d=64, causal,
 // bf16) the five products take 10 * b * h * s(s+1)/2 * d = 6.7e10
 // operations, 0.068 ms at 989 TFLOP/s, against ~0.19 GB of traffic
-// (0.056 ms at 3.35 TB/s): operations. For bf16 at head_dim 64 and 128:
-//   - the dk/dv kernel is the backward's shared Hopper mainloop
-//     (flash_bwd_common.cuh) with the grid's rounding points: a TMA ring
-//     feeding wgmma, q / k / v / do read straight from their strided views;
-//     with RoPE a pre-pass first ropes q and k through the unscaled tables
-//     into scratches the wrapper allocates (each row roped once per call);
-//   - the dq kernel runs every product on the tensor cores with mma.sync
-//     m16n8k16 (fp32 accumulation, ds rounded to bf16 straight from
-//     registers into A fragments), CAUSAL and ROPE compile-time.
-// The two kernels recompute the score and dp products, so they issue 7
-// products, not 5. fp32, other head dims and operands a tensor map cannot
-// take run CUDA-core kernels with both flags at run time; the dk/dv entry
-// encodes its tensor maps before any launch and reports its route.
+// (0.056 ms at 3.35 TB/s): operations. For bf16 at head_dim 64 and 128 both
+// kernels are the backward's shared Hopper mainloop (flash_bwd_common.cuh)
+// with the grid's rounding points (GRID true): a TMA ring feeding wgmma, q /
+// k / v / do read straight from their strided views; with RoPE the dk/dv
+// call first ropes q and k through the unscaled tables into scratches the
+// wrapper allocates, and the dq call reads the same scratches (each row
+// roped once per backward). The two kernels recompute the score and dp
+// products, so they issue 7 products, not 5. fp32, other head dims and
+// operands a tensor map cannot take run CUDA-core kernels with both flags at
+// run time; each entry encodes its tensor maps before any launch and
+// reports its route.
 //
 // C interface (bound with ctypes): pointers and the stream as void*, strides
-// in a host array of long long; each entry returns cudaGetLastError() after
-// its launches.
+// in a host array of long long, the route taken written through an int*;
+// each entry returns cudaGetLastError() after its launches.
 
 #include "flash_bwd_common.cuh"
 
@@ -266,225 +264,47 @@ __global__ void __launch_bounds__(kThreads) flash_grid_dq_kernel(GridBwdArgs a) 
   flash::write_rows<T>(ks, ld, dqg, a.vdq.s, q0, TILE, s, d, a.cos, a.sin);
 }
 
-// ---------------------------------------------------------------------------
-// The dq kernel in bf16 on the tensor cores (head_dim 64 or 128): eight warps
-// per block, each owning 16 rows of the block's 128 queries, a warp no row
-// of which a causal tile can reach skipping its products; every product is
-// an mma.sync m16n8k16 with fp32 accumulation, ds is rounded to bf16
-// straight from the score registers into A fragments. Every tile is staged
-// row-major; k, read along the reduction dimension of a B fragment, is
-// loaded with ldmatrix .trans.
-// ---------------------------------------------------------------------------
-
-using flash::kMmaRows;
-using flash::kMmaThreads;
-using flash::kMmaTile;
-using flash::zero_c;
-
-template <int D>
-size_t mma_smem_bytes() {
-  // two owned (kMmaRows) and two walked (kMmaTile) row-major tiles with row
-  // stride D + 8, and two fp32 row statistics of up to kMmaRows rows
-  return (2 * (size_t)kMmaRows + 2 * kMmaTile) * (D + 8) * sizeof(flash::bf16) +
-         2 * kMmaRows * sizeof(float);
-}
-
-// p and ds of one score / dp element (key `key`, query `row` at row-stats
-// index `qi`): p = exp2(s * lam - lse2), masked above the diagonal when
-// CAUSAL and past the end of the sequence; ds = p (dp - delta).
-template <bool CAUSAL>
-__device__ __forceinline__ void grid_p_ds(float& sc, float& dp, int row, int key, int s,
-                                          int qi, const float* lse2s, const float* dels,
-                                          float lam) {
-  float p = 0.f;
-  if (row < s && key < s && (!CAUSAL || key <= row)) p = exp2f(__fmul_rn(sc, lam) - lse2s[qi]);
-  sc = p;
-  dp = __fmul_rn(p, __fsub_rn(dp, dels[qi]));
-}
-
-// One row (r = 0: g, r = 1: g + 8) of a warp's ND accumulator tiles,
-// scaled by `scale`, counter-rotated with ROPE (columns c and c + D/2 sit in
-// tiles n and n + D/16) and written as bf16 pairs.
-template <int D, bool ROPE>
-__device__ __forceinline__ void write_scaled_row(flash::bf16* dst, const float (&acc)[D / 8][4],
-                                                 int r, int t, int row, float scale,
-                                                 const float* cos, const float* sin) {
-  constexpr int ND = D / 8, HALF = D / 2;
-  if constexpr (ROPE) {
-#pragma unroll
-    for (int n = 0; n < ND / 2; ++n) {
-      float x1[2], x2[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int i = 8 * n + 2 * t + e;
-        flash::rope_t(__fmul_rn(acc[n][2 * r + e], scale),
-                      __fmul_rn(acc[n + ND / 2][2 * r + e], scale), cos[(size_t)row * HALF + i],
-                      sin[(size_t)row * HALF + i], x1[e], x2[e]);
-      }
-      flash::st_pair(dst + 8 * n + 2 * t, x1[0], x1[1]);
-      flash::st_pair(dst + HALF + 8 * n + 2 * t, x2[0], x2[1]);
-    }
-  } else {
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      flash::st_pair(dst + 8 * n + 2 * t, __fmul_rn(acc[n][2 * r], scale),
-                     __fmul_rn(acc[n][2 * r + 1], scale));
-  }
-}
-
-// dq kernel: block (b, h, 128-query tile); warp w owns queries q0 + 16 w ..
-// S = q k^T and dP = do v^T (A from the q / do tiles, B from row-major k /
-// v), dq += dS k (B from k by ldmatrix .trans).
-template <int D, bool CAUSAL, bool ROPE>
-__global__ void __launch_bounds__(kMmaThreads) flash_grid_dq_mma_kernel(GridBwdArgs a) {
-  using flash::bf16;
-  constexpr int LD = D + 8, KD = D / 16, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kMmaRows * LD;
-  bf16* ks = dos + kMmaRows * LD;
-  bf16* vs = ks + kMmaTile * LD;
-  float* lse2s = reinterpret_cast<float*>(vs + kMmaTile * LD);
-  float* dels = lse2s + kMmaRows;
-
-  const int s = a.s;
-  const int qtile = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / a.kv_rep;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int q0 = qtile * kMmaRows, r0 = warp * 16;
-  const bf16* qg = static_cast<const bf16*>(a.q) + b * a.vq.b + h * a.vq.h;
-  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.vk.b + kvh * a.vk.h;
-  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.vv.b + kvh * a.vv.h;
-  const bf16* dg = static_cast<const bf16*>(a.dout) + b * a.vdo.b + h * a.vdo.h;
-
-  flash::stage_tile<D, kMmaRows>(qs, LD, qg, a.vq.s, q0, s, a.cos, a.sin, 1.f, ROPE);
-  flash::stage_tile<D, kMmaRows>(dos, LD, dg, a.vdo.s, q0, s, nullptr, nullptr, 1.f, false);
-  flash::stage_row_stats(a.lse, a.delta, ((size_t)b * a.heads + h) * s, s, q0, kMmaRows, lse2s,
-                         dels);
-
-  float dq[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) zero_c(dq[n]);
-  const int row_a = q0 + r0 + g;
-
-  const int nkt = CAUSAL ? (min(q0 + kMmaRows, s) - 1) / kMmaTile + 1
-                         : (s + kMmaTile - 1) / kMmaTile;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * kMmaTile;
-    __syncthreads();
-    flash::stage_tile<D, kMmaTile>(ks, LD, kg, a.vk.s, k0, s, a.cos, a.sin, 1.f, ROPE);
-    flash::stage_tile<D, kMmaTile>(vs, LD, vg, a.vv.s, k0, s, nullptr, nullptr, 1.f, false);
-    __syncthreads();
-    if (CAUSAL && q0 + r0 + 15 < k0) continue;  // every key of the tile is above this warp's rows
-
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = half * 32;  // first key column of this half
-      float sc[4][4], dp[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        zero_c(sc[j]);
-        zero_c(dp[j]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t qa[4], da[4];
-        flash::ld_a(qa, qs, LD, r0, kk * 16, g, t);
-        flash::ld_a(da, dos, LD, r0, kk * 16, g, t);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bf16* kp = ks + (c0 + 8 * j + g) * LD + kk * 16 + 2 * t;
-          const bf16* vp = vs + (c0 + 8 * j + g) * LD + kk * 16 + 2 * t;
-          flash::mma_bf16(sc[j], qa, flash::ld_pair(kp), flash::ld_pair(kp + 8));
-          flash::mma_bf16(dp[j], da, flash::ld_pair(vp), flash::ld_pair(vp + 8));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int lr = r0 + g + (e < 2 ? 0 : 8);  // row within the tile
-          grid_p_ds<CAUSAL>(sc[j][e], dp[j][e], q0 + lr, k0 + c0 + 8 * j + 2 * t + (e & 1), s,
-                            lr, lse2s, dels, a.lam);
-        }
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {  // 16 keys at a time
-        uint32_t da[4];
-        flash::c_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-        for (int n = 0; n < ND; n += 2) {
-          uint32_t kb[4];
-          flash::ld_b_trans(kb, ks, LD, c0 + kk * 16, 8 * n, lane);
-          flash::mma_bf16(dq[n], da, kb[0], kb[1]);
-          flash::mma_bf16(dq[n + 1], da, kb[2], kb[3]);
-        }
-      }
-    }
-  }
-
-  bf16* dqg = static_cast<bf16*>(a.dq) + b * a.vdq.b + h * a.vdq.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
-    if (row < s)
-      write_scaled_row<D, ROPE>(dqg + row * a.vdq.s, dq, r, t, row, a.sm_scale, a.cos, a.sin);
-  }
-}
-
 // which of the two kernels a C entry launches
 enum class Pass { kDkDv, kDq };
 
-template <int D, bool CAUSAL, bool ROPE>
-cudaError_t launch_dq_mma(const GridBwdArgs& a, int batch, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<D>();
-  auto kernel = flash_grid_dq_mma_kernel<D, CAUSAL, ROPE>;
-  const cudaError_t err = flash::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.s + kMmaRows - 1) / kMmaRows, a.heads, batch);
-  kernel<<<grid, kMmaThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t dispatch_dq_mma(const GridBwdArgs& a, int batch, cudaStream_t stream) {
-  const bool rope = a.cos != nullptr;
-  if (a.causal)
-    return rope ? launch_dq_mma<D, true, true>(a, batch, stream)
-                : launch_dq_mma<D, true, false>(a, batch, stream);
-  return rope ? launch_dq_mma<D, false, true>(a, batch, stream)
-              : launch_dq_mma<D, false, false>(a, batch, stream);
-}
-
-// The dk/dv kernel's four tensor maps, encoded before any launch: k and v
-// (128-row boxes, the resident tiles) and q and do (W-row boxes, walked),
-// k and q from the pre-pass scratches (contiguous) with RoPE, else from
-// their views.
-template <int D>
-bool encode_dkv_maps(const GridBwdArgs& a, int batch, const void* qs, const void* ks,
-                     CUtensorMap* m) {
+// A main kernel's four tensor maps, encoded before any launch, in its
+// argument order: dk/dv takes k and v (128-row boxes, resident) then q and
+// do (W-row boxes, walked); dq takes q and do (128, resident) then k and v
+// (W, walked). With RoPE, k and q come from the pre-pass scratches
+// (contiguous), else from their views.
+template <Pass P, int D>
+bool encode_maps(const GridBwdArgs& a, int batch, const void* qs, const void* ks,
+                 CUtensorMap* m) {
   using flash::encode_bhsd;
   constexpr int W = flash::bwd::Cfg<D>::W, OWN = flash::bwd::kOwn;
+  constexpr bool DKV = P == Pass::kDkDv;
+  constexpr int kv_rows = DKV ? OWN : W, q_rows = DKV ? W : OWN;
+  CUtensorMap* mk = m + (DKV ? 0 : 2);  // k, then v
+  CUtensorMap* mq = m + (DKV ? 2 : 0);  // q, then do
   const int kvh = a.heads / a.kv_rep, s = a.s;
   const long long rh = (long long)s * D;  // a scratch head
   const bool roped = a.cos != nullptr;
-  const bool k_ok = roped ? encode_bhsd(&m[0], ks, batch, kvh, s, D, rh * kvh, rh, D, OWN)
-                          : encode_bhsd(&m[0], a.k, batch, kvh, s, D, a.vk.b, a.vk.h, a.vk.s, OWN);
-  const bool q_ok = roped
-                        ? encode_bhsd(&m[2], qs, batch, a.heads, s, D, rh * a.heads, rh, D, W)
-                        : encode_bhsd(&m[2], a.q, batch, a.heads, s, D, a.vq.b, a.vq.h, a.vq.s, W);
+  const bool k_ok =
+      roped ? encode_bhsd(mk, ks, batch, kvh, s, D, rh * kvh, rh, D, kv_rows)
+            : encode_bhsd(mk, a.k, batch, kvh, s, D, a.vk.b, a.vk.h, a.vk.s, kv_rows);
+  const bool q_ok =
+      roped ? encode_bhsd(mq, qs, batch, a.heads, s, D, rh * a.heads, rh, D, q_rows)
+            : encode_bhsd(mq, a.q, batch, a.heads, s, D, a.vq.b, a.vq.h, a.vq.s, q_rows);
   return k_ok && q_ok &&
-         encode_bhsd(&m[1], a.v, batch, kvh, s, D, a.vv.b, a.vv.h, a.vv.s, OWN) &&
-         encode_bhsd(&m[3], a.dout, batch, a.heads, s, D, a.vdo.b, a.vdo.h, a.vdo.s, W);
+         encode_bhsd(mk + 1, a.v, batch, kvh, s, D, a.vv.b, a.vv.h, a.vv.s, kv_rows) &&
+         encode_bhsd(mq + 1, a.dout, batch, a.heads, s, D, a.vdo.b, a.vdo.h, a.vdo.s, q_rows);
 }
 
-template <int D, bool CAUSAL, bool ROPE>
-cudaError_t launch_dkv_tma(const GridBwdArgs& a, int batch, void* qs, void* ks,
-                           const CUtensorMap* m, cudaStream_t stream) {
+// The TMA route of one entry: dk/dv with RoPE first ropes q and k through
+// the unscaled tables into the scratches (each row once per call), then its
+// kernel; dq reads what that pre-pass wrote and ropes nothing.
+template <Pass P, int D, bool CAUSAL, bool ROPE>
+cudaError_t launch_tma(const GridBwdArgs& a, int batch, void* qs, void* ks,
+                       const CUtensorMap* m, cudaStream_t stream) {
   namespace fb = flash::bwd;
   using flash::bf16;
   cudaError_t err;
-  if (ROPE) {  // q and k roped through the unscaled tables, once each
+  if (P == Pass::kDkDv && ROPE) {
     fb::PrepassArgs p{};
     p.q = static_cast<const bf16*>(a.q);
     p.k = static_cast<const bf16*>(a.k);
@@ -492,21 +312,22 @@ cudaError_t launch_dkv_tma(const GridBwdArgs& a, int batch, void* qs, void* ks,
     p.vk = a.vk;
     p.cos = a.cos;
     p.sin = a.sin;
-    p.qscale = 1.f;
     p.q_out = static_cast<bf16*>(qs);
     p.k_out = static_cast<bf16*>(ks);
     p.heads = a.heads;
     p.kvheads = a.heads / a.kv_rep;
     p.s = a.s;
-    if ((err = fb::launch_prepass<D>(p, batch, stream)) != cudaSuccess) return err;
+    if ((err = fb::launch_prepass<D, true>(p, batch, stream)) != cudaSuccess) return err;
   }
   fb::Args g{};
   g.lse = a.lse;
   g.delta = a.delta;
   g.cos = a.cos;
   g.sin = a.sin;
+  g.dq = a.dq;
   g.dk = a.dk;
   g.dv = a.dv;
+  g.vdq = a.vdq;
   g.vdk = a.vdk;
   g.vdv = a.vdv;
   g.heads = a.heads;
@@ -516,19 +337,22 @@ cudaError_t launch_dkv_tma(const GridBwdArgs& a, int batch, void* qs, void* ks,
   g.dk_scale = a.sm_scale;
   g.dq_scale = a.sm_scale;
   const long long blocks = (long long)((a.s + fb::kOwn - 1) / fb::kOwn) * a.heads * batch;
-  return fb::launch_main(fb::dkdv_kernel<D, true, CAUSAL, ROPE>, fb::Cfg<D>::SMEM, blocks, m[0],
+  if (P == Pass::kDkDv)
+    return fb::launch_main(fb::dkdv_kernel<D, true, CAUSAL, ROPE>, fb::Cfg<D>::SMEM, blocks,
+                           m[0], m[1], m[2], m[3], g, stream);
+  return fb::launch_main(fb::dq_kernel<D, true, CAUSAL, ROPE>, fb::Cfg<D>::SMEM, blocks, m[0],
                          m[1], m[2], m[3], g, stream);
 }
 
-template <int D>
-cudaError_t dispatch_dkv_tma(const GridBwdArgs& a, int batch, void* qs, void* ks,
-                             const CUtensorMap* m, cudaStream_t stream) {
+template <Pass P, int D>
+cudaError_t dispatch_tma(const GridBwdArgs& a, int batch, void* qs, void* ks,
+                         const CUtensorMap* m, cudaStream_t stream) {
   const bool rope = a.cos != nullptr;
   if (a.causal)
-    return rope ? launch_dkv_tma<D, true, true>(a, batch, qs, ks, m, stream)
-                : launch_dkv_tma<D, true, false>(a, batch, qs, ks, m, stream);
-  return rope ? launch_dkv_tma<D, false, true>(a, batch, qs, ks, m, stream)
-              : launch_dkv_tma<D, false, false>(a, batch, qs, ks, m, stream);
+    return rope ? launch_tma<P, D, true, true>(a, batch, qs, ks, m, stream)
+                : launch_tma<P, D, true, false>(a, batch, qs, ks, m, stream);
+  return rope ? launch_tma<P, D, false, true>(a, batch, qs, ks, m, stream)
+              : launch_tma<P, D, false, false>(a, batch, qs, ks, m, stream);
 }
 
 template <Pass P, typename T, int TILE, int NJ>
@@ -543,41 +367,35 @@ cudaError_t launch(const GridBwdArgs& a, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-bool can_mma(const GridBwdArgs& a) {
+// The TMA route moves rows in 16-byte units: every base pointer 16-byte
+// aligned and every (b, h, s) stride a multiple of 8 elements; with RoPE it
+// takes the scratches the pre-pass writes (the dq entry is given them only
+// where the dk/dv call took this route and so wrote them).
+bool can_tma(const GridBwdArgs& a, const void* qs, const void* ks) {
   using flash::aligned16;
   using flash::rows16;
-  const void* ptrs[] = {a.q, a.k, a.v, a.dout, a.cos, a.sin, a.dq, a.dk, a.dv};
+  const void* ptrs[] = {a.q, a.k, a.v, a.dout, a.cos, a.sin, a.dq, a.dk, a.dv, qs, ks};
   const View* views[] = {&a.vq, &a.vk, &a.vv, &a.vdo, &a.vdq, &a.vdk, &a.vdv};
   for (const void* p : ptrs)
     if (!aligned16(p)) return false;
   for (const View* v : views)
     if (!rows16(*v)) return false;
-  return a.d == 64 || a.d == 128;
-}
-
-// the dk/dv kernel's TMA route: as can_mma, with the scratches the RoPE
-// pre-pass writes
-bool can_tma(const GridBwdArgs& a, const void* qs, const void* ks) {
-  return can_mma(a) && (a.cos == nullptr || (qs != nullptr && ks != nullptr &&
-                                             flash::aligned16(qs) && flash::aligned16(ks)));
+  return (a.d == 64 || a.d == 128) && (a.cos == nullptr || (qs != nullptr && ks != nullptr));
 }
 
 template <Pass P, typename T>
 cudaError_t dispatch(const GridBwdArgs& a, int batch, void* qs, void* ks, cudaStream_t stream,
                      int* route) {
-  if (route != nullptr) *route = flash::kRouteCudaCore;
-  if (sizeof(T) == 2 && P == Pass::kDkDv && can_tma(a, qs, ks)) {
+  *route = flash::kRouteCudaCore;
+  if (sizeof(T) == 2 && can_tma(a, qs, ks)) {
     CUtensorMap m[4];
-    if (a.d == 128 ? encode_dkv_maps<128>(a, batch, qs, ks, m)
-                   : encode_dkv_maps<64>(a, batch, qs, ks, m)) {
+    if (a.d == 128 ? encode_maps<P, 128>(a, batch, qs, ks, m)
+                   : encode_maps<P, 64>(a, batch, qs, ks, m)) {
       *route = flash::kRouteTma;
-      return a.d == 128 ? dispatch_dkv_tma<128>(a, batch, qs, ks, m, stream)
-                        : dispatch_dkv_tma<64>(a, batch, qs, ks, m, stream);
+      return a.d == 128 ? dispatch_tma<P, 128>(a, batch, qs, ks, m, stream)
+                        : dispatch_tma<P, 64>(a, batch, qs, ks, m, stream);
     }
   }
-  if (sizeof(T) == 2 && P == Pass::kDq && can_mma(a))
-    return a.d == 128 ? dispatch_dq_mma<128>(a, batch, stream)
-                      : dispatch_dq_mma<64>(a, batch, stream);
   if (a.d <= 64) return launch<P, T, 64, 4>(a, batch, stream);
   if (a.d <= 128) return launch<P, T, 64, 8>(a, batch, stream);
   return launch<P, T, 32, 16>(a, batch, stream);
@@ -629,11 +447,13 @@ extern "C" {
 
 // strides: q, k, v, do, dq, dk, dv as (b, h, s) element strides, 21 values.
 // lse, delta: contiguous fp32 (b, h, s). cos/sin: null without RoPE. dtype:
-// 0 = float32, 1 = bfloat16. The dk/dv entry writes dk and dv; q_scratch /
-// k_scratch are bf16 contiguous (b, h, s, d) and (b, h / kv_rep, s, d) for
-// the RoPE pre-pass of its bf16 route at head_dim 64 / 128 (null elsewhere),
-// and route is set to the route taken (flash::Route). The dq entry writes
-// dq. Each returns cudaGetLastError() after its launches.
+// 0 = float32, 1 = bfloat16. q_scratch / k_scratch: bf16 contiguous
+// (b, h, s, d) and (b, h / kv_rep, s, d) for the RoPE pre-pass of the bf16
+// route at head_dim 64 / 128 (null elsewhere): the dk/dv entry writes them,
+// the dq entry reads them, so the dq entry is given them only after a dk/dv
+// call on the same inputs took that route. The dk/dv entry writes dk and dv,
+// the dq entry dq; route is set to the route taken (flash::Route). Each
+// returns cudaGetLastError() after its launches.
 int galvatron_flash_grid_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, const void* cos,
                              const void* sin, void* dq, void* dk, void* dv, void* q_scratch,
@@ -647,13 +467,13 @@ int galvatron_flash_grid_dkv(const void* q, const void* k, const void* v, const 
 
 int galvatron_flash_grid_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, const void* cos,
-                            const void* sin, void* dq, void* dk, void* dv,
-                            const long long* strides, int dtype, int causal, int batch,
-                            int heads, int kv_rep, int s, int d, float lam, float sm_scale,
-                            void* stream) {
-  return run<Pass::kDq>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, nullptr, nullptr,
+                            const void* sin, void* dq, void* dk, void* dv, void* q_scratch,
+                            void* k_scratch, const long long* strides, int dtype, int causal,
+                            int batch, int heads, int kv_rep, int s, int d, float lam,
+                            float sm_scale, void* stream, int* route) {
+  return run<Pass::kDq>(q, k, v, dout, lse, delta, cos, sin, dq, dk, dv, q_scratch, k_scratch,
                         strides, dtype, causal, batch, heads, kv_rep, s, d, lam, sm_scale,
-                        stream, nullptr);
+                        stream, route);
 }
 
 }  // extern "C"

@@ -26,13 +26,20 @@ Each kernel has three pieces, side by side:
   ``flash_grid_bwd_parts.dkv_launches``, ...), a plain integer incremented
   where the kernel is launched and nowhere else; beside it, where a kernel
   has a TMA route, a count per route (``flash_fwd.routes``,
-  ``flash_bwd.routes``, ``flash_grid_bwd_parts.dkv_routes``: ``tma`` or
+  ``flash_bwd.routes``, ``flash_grid_fwd.routes``,
+  ``flash_grid_bwd_parts.dkv_routes`` / ``.dq_routes``: ``tma`` or
   ``cuda_core``, as the C entry reports it), so the fast route cannot
   vanish unnoticed.
 
-The bf16 backward at head_dim 64 / 128 (``flash_bwd`` and the grid dk/dv
-kernel) runs one shared Hopper mainloop (``csrc/flash_bwd_common.cuh``): a
-pre-pass ropes q and k once per call into scratches the wrapper allocates
+The bf16 forwards at head_dim 64 / 128 (``flash_fwd`` and
+``flash_grid_fwd``) run one shared Hopper mainloop
+(``csrc/flash_fwd_common.cuh``): with RoPE a pre-pass ropes k once per call
+into a scratch the wrapper allocates (:func:`rope_k_plain` is its plain
+twin), then a TMA-fed ``wgmma`` kernel walks 128-key tiles
+(:func:`flash_fwd_tiles_plain` is the plain twin of the grid kernel's
+walk). The bf16 backwards (``flash_bwd`` and the grid dk/dv and dq kernels)
+run another (``csrc/flash_bwd_common.cuh``): a pre-pass ropes q and k once
+per call into scratches the wrapper allocates
 (:func:`flash_bwd_prepass_plain` is its plain twin), then TMA-fed ``wgmma``
 kernels walk the tiles (:func:`flash_bwd_tiles_plain` is the plain twin of
 their decomposition).
@@ -332,6 +339,56 @@ def flash_fwd_grid_plain(q, k, v, rope, sm_scale, causal, kv_rep: int = 1, out_d
     return out, m * LN2 + torch.log(l)
 
 
+#: rows of the query blocks and key tiles of the TMA forward (``kRows`` and
+#: ``Cfg<D>::BN`` of ``csrc/flash_fwd_common.cuh``)
+_FWD_TILE = 128
+
+
+def flash_fwd_tiles_plain(q, k, v, rope, sm_scale, causal, kv_rep: int = 1, out_dtype=None):
+    """The grid forward's TMA kernel in plain PyTorch, a test twin of
+    ``csrc/flash_fwd_common.cuh`` with GRID true: per 128-query block, the
+    online softmax over 128-key tiles in the kernel's order (causal: up to
+    the block's last query; otherwise all of them, the last one ragged at an
+    s no tile divides), at ``_fwd_kernel``'s rounding points: q and k roped
+    through the unscaled tables and cast to the input dtype when ``rope`` is
+    given, scores ``(q·kᵀ)·sm_scale·log2e`` in fp32 with the scale after the
+    product, p cast to the input dtype before the PV product against the
+    running max, ``out = acc / max(l, 1e-30)`` in ``out_dtype`` or q's dtype
+    and ``lse = m·ln2 + log(max(l, 1e-30))``. Shapes and returns as
+    :func:`flash_fwd_grid_plain`."""
+    dt = q.dtype
+    b, h, s, d = q.shape
+    qf, kf = _grid_operands(q, k, rope)
+    vf = v.float()
+    if kv_rep > 1:
+        kf = kf.repeat_interleave(kv_rep, dim=1)
+        vf = vf.repeat_interleave(kv_rep, dim=1)
+    lam = sm_scale * LOG2E
+    pos = torch.arange(s, device=q.device)
+    out = torch.empty(b, h, s, d, dtype=out_dtype or dt, device=q.device)
+    lse = torch.empty(b, h, s, 1, device=q.device)
+    for q0 in range(0, s, _FWD_TILE):
+        q1 = min(q0 + _FWD_TILE, s)
+        m = torch.full((b, h, q1 - q0, 1), -math.inf, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(b, h, q1 - q0, d, device=q.device)
+        for k0 in range(0, q1 if causal else s, _FWD_TILE):
+            k1 = min(k0 + _FWD_TILE, s)
+            sc = (qf[:, :, q0:q1] @ kf[:, :, k0:k1].transpose(-1, -2)) * lam
+            if causal:
+                sc = sc.masked_fill(pos[q0:q1, None] < pos[None, k0:k1], NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+            p = torch.exp2(sc - m_new)
+            alpha = torch.exp2(m - m_new)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            acc = alpha * acc + p.to(dt).float() @ vf[:, :, k0:k1]
+            m = m_new
+        lc = l.clamp_min(1e-30)
+        out[:, :, q0:q1] = (acc / lc).to(out.dtype)
+        lse[:, :, q0:q1] = m * LN2 + torch.log(lc)
+    return out, lse
+
+
 def flash_bwd_grid_plain(q, k, v, do, lse, delta, rope, sm_scale, causal):
     """The grid backward (``_flash_bwd_parts``) in plain PyTorch, all of
     q/k/v at h heads; lse and ``delta = Σ do·out`` (both fp32 (b, h, s, 1))
@@ -532,15 +589,15 @@ def flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
     # roped k for the bf16 tensor-core path, written by the kernel's pre-pass
-    k_roped = (torch.empty((b, h // kv_rep, s, d), dtype=q.dtype, device=q.device)
-               if q.dtype == torch.bfloat16 and d in (64, 128) else None)
-    launch = _flash_fwd_kernel()
+    k_roped = torch.empty(k.shape, dtype=k.dtype, device=k.device) if _tma_shape(q) else None
+    launch = _entry("galvatron_flash_fwd")
     route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            cos.data_ptr(), sin.data_ptr(), _ptr(k_roped), _strides(q, k, v, out),
-            _DTYPE_CODE[q.dtype], b, h, kv_rep, s, d, float(sm_scale * LOG2E),
+            cos.data_ptr(), sin.data_ptr(), _ptr(k_roped), _ptr(_work_counter(q)),
+            _strides(q, k, v, out), _DTYPE_CODE[q.dtype], b, h, kv_rep, s, d,
+            float(sm_scale * LOG2E),
             torch.cuda.current_stream().cuda_stream, ctypes.byref(route),
         )
     if err != 0:
@@ -572,7 +629,7 @@ def flash_bwd(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1,
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     # roped q and k for the bf16 TMA path, written by the kernels' pre-pass
     q_roped, k_roped = _roped_scratch(q, k)
-    launch = _flash_bwd_kernel()
+    launch = _entry("galvatron_flash_bwd")
     route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = launch(
@@ -594,29 +651,67 @@ flash_bwd.launches = 0
 flash_bwd.routes = dict.fromkeys(ROUTES, 0)
 
 
+def _tma_shape(q):
+    """Whether q's dtype and head dim are those of the TMA routes (bf16 at
+    head_dim 64 or 128); the C entry checks the rest (alignment, strides,
+    the tensor maps) and reports the route it took."""
+    return q.dtype == torch.bfloat16 and q.shape[3] in (64, 128)
+
+
+_WORK = {}
+
+
+def _work_counter(q):
+    """The persistent TMA forward's item counter for the current stream on
+    q's device: two int32 (the next item, the blocks done), zero between
+    calls, since the last block of each call zeroes them again. Calls on one
+    stream never overlap, so one counter a stream serves them all; None off
+    the TMA route's dtype and head dims."""
+    if not _tma_shape(q):
+        return None
+    key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
+    if key not in _WORK:
+        _WORK[key] = torch.zeros(2, dtype=torch.int32, device=q.device)
+    return _WORK[key]
+
+
 def _roped_scratch(q, k):
     """(q', k') scratches for a backward's bf16 TMA route at head_dim 64 or
     128: contiguous like q and like k, written by the kernels' pre-pass;
     (None, None) elsewhere."""
-    if q.dtype != torch.bfloat16 or q.shape[3] not in (64, 128):
+    if not _tma_shape(q):
         return None, None
     return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
             torch.empty(k.shape, dtype=k.dtype, device=k.device))
 
 
-def _flash_fwd_kernel():
-    fn = _build.load("flash_fwd").galvatron_flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)] + [
-        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    return fn
+def _argtypes(n_ptrs: int, n_ints: int, n_floats: int):
+    """ctypes argument types of a flash C entry: ``n_ptrs`` pointers, the
+    strides array, ``n_ints`` ints, ``n_floats`` floats, the stream and the
+    int* the entry reports its route through."""
+    return ([ctypes.c_void_p] * n_ptrs + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats
+            + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 
-def _flash_bwd_kernel():
-    fn = _build.load("flash_bwd").galvatron_flash_bwd
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.POINTER(ctypes.c_longlong)] + [
-        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-                             ctypes.POINTER(ctypes.c_int)]
+#: The flash C entries: name -> (source in ``csrc/``, ctypes argument types).
+#: A list that does not match the C signature corrupts pointers silently on
+#: the card; a CPU test parses each ``extern "C"`` signature against it.
+_ENTRIES = {
+    "galvatron_flash_fwd": ("flash_fwd", _argtypes(9, 6, 1)),
+    "galvatron_flash_bwd": ("flash_bwd", _argtypes(14, 6, 2)),
+    "galvatron_flash_grid_fwd": ("flash_grid_fwd", _argtypes(9, 8, 1)),
+    "galvatron_flash_grid_dkv": ("flash_grid_bwd", _argtypes(13, 7, 2)),
+    "galvatron_flash_grid_dq": ("flash_grid_bwd", _argtypes(13, 7, 2)),
+}
+
+
+def _entry(name: str):
+    """The ctypes function of the C entry ``name``, its source built and
+    loaded at first use."""
+    lib, argtypes = _ENTRIES[name]
+    fn = getattr(_build.load(lib), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -652,7 +747,8 @@ def flash_grid_fwd(q, k, v, rope, sm_scale, causal: bool, kv_rep: int = 1, out_d
     None (q's dtype) or fp32 (ring attention's per-hop outputs). CPU tensors
     run :func:`flash_fwd_grid_plain`; CUDA tensors launch
     ``csrc/flash_grid_fwd.cu``, whose ``out`` is laid out (b, s, h, d) in
-    memory so the output projection reads it as is."""
+    memory so the output projection reads it as is; the route the call took
+    is counted in ``flash_grid_fwd.routes``."""
     b, h, s, d = q.shape
     _check_kv(q, k, v, kv_rep)
     cos, sin = _tables(rope)
@@ -664,21 +760,29 @@ def flash_grid_fwd(q, k, v, rope, sm_scale, causal: bool, kv_rep: int = 1, out_d
     out_dtype = out_dtype or q.dtype
     out = torch.empty((b, s, h, d), dtype=out_dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
-    launch = _grid_kernel("flash_grid_fwd", "galvatron_flash_grid_fwd", 7, 8)
+    # roped k for the bf16 TMA route with RoPE, written by the kernel's pre-pass
+    k_roped = (torch.empty(k.shape, dtype=k.dtype, device=k.device)
+               if rope is not None and _tma_shape(q) else None)
+    launch = _entry("galvatron_flash_grid_fwd")
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _ptr(cos), _ptr(sin), _strides(q, k, v, out), _DTYPE_CODE[q.dtype],
+            _ptr(cos), _ptr(sin), _ptr(k_roped), _ptr(_work_counter(q)),
+            _strides(q, k, v, out), _DTYPE_CODE[q.dtype],
             int(out_dtype == torch.float32), int(causal), b, h, kv_rep, s, d,
             float(sm_scale * LOG2E), torch.cuda.current_stream().cuda_stream,
+            ctypes.byref(route),
         )
     if err != 0:
         raise RuntimeError(f"flash_grid_fwd kernel launch failed: CUDA error {err}")
     flash_grid_fwd.launches += 1
+    flash_grid_fwd.routes[ROUTES[route.value]] += 1
     return out, lse
 
 
 flash_grid_fwd.launches = 0
+flash_grid_fwd.routes = dict.fromkeys(ROUTES, 0)
 
 
 def flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm_scale, causal: bool,
@@ -690,8 +794,11 @@ def flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm_scale, causal: bool,
     q's dtype; dk/dv are per query head (GQA callers sum them over the
     group). ``grads`` optionally gives the three outputs to write. CPU
     tensors run :func:`flash_bwd_grid_plain`; CUDA tensors launch the dk/dv
-    kernel (its route counted in ``.dkv_routes``), then the dq kernel, of
-    ``csrc/flash_grid_bwd.cu``."""
+    kernel, then the dq kernel, of ``csrc/flash_grid_bwd.cu``, each counted
+    once a call (``.dkv_launches``, ``.dq_launches``) and by its route
+    (``.dkv_routes``, ``.dq_routes``). With RoPE on the bf16 TMA route the
+    dk/dv call's pre-pass ropes q and k once into scratches allocated here,
+    and the dq kernel reads them."""
     b, h, s, d = q.shape
     _check_kv(q, k, v, kv_rep)
     cos, sin = _tables(rope)
@@ -705,42 +812,32 @@ def flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm_scale, causal: bool,
             delta.data_ptr(), _ptr(cos), _ptr(sin), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     rest = (_strides(q, k, v, do, dq, dk, dv), _DTYPE_CODE[q.dtype], int(causal), b, h, kv_rep,
             s, d, float(sm_scale * LOG2E), float(sm_scale))
-    # roped q and k for the dk/dv kernel's bf16 TMA route with RoPE
+    # roped q and k for the bf16 TMA route with RoPE: the dk/dv call's
+    # pre-pass writes them, the dq call reads them
     q_roped, k_roped = _roped_scratch(q, k) if rope is not None else (None, None)
-    route = ctypes.c_int(-1)
-    dkv = _grid_kernel("flash_grid_bwd", "galvatron_flash_grid_dkv", 13, 7, 2, route=True)
-    dqk = _grid_kernel("flash_grid_bwd", "galvatron_flash_grid_dq", 11, 7, 2)
+    dkv_route, dq_route = ctypes.c_int(-1), ctypes.c_int(-1)
+    dkv, dqk = _entry("galvatron_flash_grid_dkv"), _entry("galvatron_flash_grid_dq")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = dkv(*ptrs, _ptr(q_roped), _ptr(k_roped), *rest, stream, ctypes.byref(route))
+        err = dkv(*ptrs, _ptr(q_roped), _ptr(k_roped), *rest, stream, ctypes.byref(dkv_route))
         if err != 0:
             raise RuntimeError(f"flash_grid_bwd dkv kernel launch failed: CUDA error {err}")
         flash_grid_bwd_parts.dkv_launches += 1
-        flash_grid_bwd_parts.dkv_routes[ROUTES[route.value]] += 1
-        err = dqk(*ptrs, *rest, stream)
+        flash_grid_bwd_parts.dkv_routes[ROUTES[dkv_route.value]] += 1
+        if ROUTES[dkv_route.value] != "tma":  # no pre-pass ran: nothing to read
+            q_roped = k_roped = None
+        err = dqk(*ptrs, _ptr(q_roped), _ptr(k_roped), *rest, stream, ctypes.byref(dq_route))
         if err != 0:
             raise RuntimeError(f"flash_grid_bwd dq kernel launch failed: CUDA error {err}")
         flash_grid_bwd_parts.dq_launches += 1
+        flash_grid_bwd_parts.dq_routes[ROUTES[dq_route.value]] += 1
     return dq, dk, dv
 
 
 flash_grid_bwd_parts.dkv_launches = 0
 flash_grid_bwd_parts.dq_launches = 0
 flash_grid_bwd_parts.dkv_routes = dict.fromkeys(ROUTES, 0)
-
-
-def _grid_kernel(lib: str, fn_name: str, n_ptrs: int, n_ints: int, n_floats: int = 1,
-                 route: bool = False):
-    """The ctypes function ``fn_name`` of ``csrc/<lib>.cu``: ``n_ptrs``
-    pointers, the strides array, ``n_ints`` ints, ``n_floats`` floats, the
-    stream and, with ``route``, the int* the entry reports its route
-    through."""
-    fn = getattr(_build.load(lib), fn_name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.POINTER(ctypes.c_longlong)] + [
-        ctypes.c_int] * n_ints + [ctypes.c_float] * n_floats + [ctypes.c_void_p] + (
-        [ctypes.POINTER(ctypes.c_int)] if route else [])
-    fn.restype = ctypes.c_int
-    return fn
+flash_grid_bwd_parts.dq_routes = dict.fromkeys(ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------

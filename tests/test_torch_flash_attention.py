@@ -3,6 +3,8 @@ entries and the dispatch gates) against the JAX package's Pallas kernels,
 which run in interpret mode on the CPU, as tests/test_ops.py runs them.
 Inputs come from numpy seeds and go to both sides as the same arrays."""
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -615,3 +617,141 @@ def test_bwd_tiles_plain_matches_the_whole_row_plain_at_ragged_s(s, walk):
         ref = tfa.flash_bwd_grid_plain(q, k, v, do, lse, delta, None, sm, causal)
         for g, r in zip(got, ref):
             np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 grid forward's TMA kernel (csrc/flash_fwd_common.cuh, GRID true):
+# the plain twin of its walk held to the reference's `_fwd_kernel`.
+# ---------------------------------------------------------------------------
+
+FWD_TILE_CASES = [
+    # (head_dim, dtype, causal, rope, out fp32, s, kv_rep); s = 384 is three
+    # 128-row blocks, s = 200 leaves the last block and key tile ragged
+    *[(d, "bf16", causal, rope, False, 384, 1) for d in (64, 128) for causal in (True, False)
+      for rope in (False, True)],
+    (64, "bf16", True, False, True, 384, 1),
+    (128, "bf16", False, True, True, 384, 1),
+    (64, "bf16", True, True, False, 200, 1),
+    (128, "bf16", False, False, False, 200, 1),
+    (64, "bf16", True, False, False, 384, 2),
+    (64, "fp32", True, True, False, 384, 1),
+    (128, "fp32", False, False, False, 200, 1),
+]
+
+
+@pytest.mark.parametrize("d,dtype,causal,rope,out_fp32,s,rep", FWD_TILE_CASES)
+def test_fwd_tiles_plain_matches_jax_grid_kernel(d, dtype, causal, rope, out_fp32, s, rep):
+    """``flash_fwd_tiles_plain`` (128-query blocks, 128-key tiles, the
+    online softmax in the kernel's order) against ``_flash_fwd`` in
+    interpret mode (blocks of 64, or 40 at s = 200): out in ``out_dtype``
+    within 2^-5 by ``bf16_parity_excess`` (fp32 1e-5), lse within 1e-4 (fp32
+    1e-5); causal or not, with and without RoPE, GQA, ragged s."""
+    b, h = 1, 2 * rep
+    sm = 1 / np.sqrt(d)
+    block = 64 if s % 64 == 0 else 40
+    q, k, v = _arrays([(b, h, s, d), (b, h // rep, s, d), (b, h // rep, s, d)],
+                      seed=90 + d + s + 2 * causal + rope)
+    tables = _tables(s, d) if rope else None
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jout, jlse = jfa._flash_fwd(*(jnp.asarray(a, jdt) for a in (q, k, v)), tables, sm, causal,
+                                block, block, True, out_dtype=jnp.float32 if out_fp32 else None,
+                                kv_rep=rep)
+    trope = None if tables is None else tuple(torch.from_numpy(t) for t in tables)
+    tout, tlse = tfa.flash_fwd_tiles_plain(*(_t(a, tdt).detach() for a in (q, k, v)), trope, sm,
+                                           causal, rep, torch.float32 if out_fp32 else None)
+    assert tout.dtype == (torch.float32 if out_fp32 else tdt) and tlse.shape == (b, h, s, 1)
+    ref = torch.from_numpy(np.array(jout.astype(jnp.float32)))
+    if dtype == "fp32":
+        np.testing.assert_allclose(_np(tout), ref.numpy(), atol=FWD_GRID_ATOL, rtol=0)
+    else:
+        assert tfa.bf16_parity_excess(tout, ref) <= tfa.BF16_PARITY_TOL["fwd"]
+    np.testing.assert_allclose(_np(tlse), np.asarray(jlse),
+                               atol=FWD_GRID_ATOL if dtype == "fp32" else 1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("d,causal,rope,s,rep", [(64, True, False, 384, 2),
+                                                 (128, False, True, 384, 2),
+                                                 (64, True, True, 200, 1),
+                                                 (128, False, False, 200, 1)])
+def test_bwd_tiles_plain_dq_walk_matches_jax_grid_kernels(d, causal, rope, s, rep):
+    """The walk the grid dq kernel now takes (128-query blocks over W-key
+    tiles, q' and k' from the dk/dv call's pre-pass with RoPE) where the
+    cases above leave it open: GQA (k/v broadcast by the caller, as
+    ``flash_grid_bwd_parts`` reads kv head h / kv_rep) and a ragged s whose
+    last query block and key tile are partly past s, in bf16 against
+    ``_flash_bwd_parts`` in interpret mode (blocks of 64, or 40 at
+    s = 200)."""
+    b, h = 1, 2 * rep
+    sm = 1 / np.sqrt(d)
+    block = 64 if s % 64 == 0 else 40
+    q, k, v, do = _arrays([(b, h, s, d), (b, h // rep, s, d), (b, h // rep, s, d), (b, h, s, d)],
+                          seed=110 + d + s + rope)
+    kf, vf = (np.repeat(a, rep, axis=1) for a in (k, v))
+    rng = np.random.RandomState(6)
+    lse = (rng.standard_normal((b, h, s, 1)) * 0.1 + np.log(s)).astype(np.float32)
+    delta = rng.standard_normal((b, h, s, 1)).astype(np.float32)
+    tables = _tables(s, d) if rope else None
+    jgrads = jfa._flash_bwd_parts(*(jnp.asarray(a, jnp.bfloat16) for a in (q, kf, vf, do)), lse,
+                                  delta, tables, sm, causal, block, block, True)
+    tq, tk, tv, tdo = (_t(a, torch.bfloat16).detach() for a in (q, kf, vf, do))
+    trope = None if tables is None else tuple(torch.from_numpy(t) for t in tables)
+    if trope is not None:
+        tq, tk = tfa.rope_k_plain(tq, *trope), tfa.rope_k_plain(tk, *trope)
+    tgrads = tfa.flash_bwd_tiles_plain(tq, tk, tv, tdo, torch.from_numpy(lse),
+                                       torch.from_numpy(delta), sm, causal=causal, grid=True,
+                                       rope=trope)
+    for got, ref in zip(tgrads, jgrads):
+        _tiles_close(got, ref.astype(jnp.float32), "bf16")
+
+
+# ---------------------------------------------------------------------------
+# The C entries' ctypes bindings against their extern "C" signatures
+# ---------------------------------------------------------------------------
+
+_CTYPE_OF = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+             "const long long*": ctypes.POINTER(ctypes.c_longlong), "int": ctypes.c_int,
+             "float": ctypes.c_float, "int*": ctypes.POINTER(ctypes.c_int)}
+
+
+def _c_signature(source, name):
+    """The parameter types of ``int name(...)`` in ``csrc/<source>.cu``,
+    parsed from its ``extern "C"`` block."""
+    import re
+    from pathlib import Path
+
+    text = (Path(tfa.__file__).parent / "csrc" / f"{source}.cu").read_text()
+    extern = text[text.index('extern "C" {'):]
+    params = re.search(r"\bint " + name + r"\(([^)]*)\)", extern).group(1)
+    return [" ".join(p.split()[:-1]).replace(" *", "*") for p in params.split(",")]
+
+
+@pytest.mark.parametrize("name", sorted(tfa._ENTRIES))
+def test_flash_c_entries_match_their_ctypes_argtypes(name):
+    """Every flash C entry's ctypes argument list has one entry per C
+    parameter, each of the matching type: a missing or extra argument
+    shifts every later one and corrupts pointers silently on the card."""
+    source, argtypes = tfa._ENTRIES[name]
+    params = _c_signature(source, name)
+    assert [_CTYPE_OF[p] for p in params] == argtypes
+
+
+def test_grid_route_counters_exist_and_count_nothing_on_cpu():
+    """``flash_grid_fwd.routes`` and ``flash_grid_bwd_parts.dq_routes`` (beside
+    ``dkv_routes``) count the routes the C entries report; CPU tensors run
+    the plain versions and count no route and no launch."""
+    for routes in (tfa.flash_grid_fwd.routes, tfa.flash_grid_bwd_parts.dkv_routes,
+                   tfa.flash_grid_bwd_parts.dq_routes):
+        assert set(routes) == set(tfa.ROUTES)
+    counters = lambda: (dict(tfa.flash_grid_fwd.routes),  # noqa: E731
+                        dict(tfa.flash_grid_bwd_parts.dkv_routes),
+                        dict(tfa.flash_grid_bwd_parts.dq_routes), tfa.flash_grid_fwd.launches,
+                        tfa.flash_grid_bwd_parts.dkv_launches, tfa.flash_grid_bwd_parts.dq_launches)
+    before = counters()
+    b, h, s, d = 1, 2, 64, 64
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _arrays([(b, h, s, d)] * 4, seed=12))
+    cos, sin = (torch.from_numpy(t) for t in _tables(s, d))
+    out, lse = tfa.flash_grid_fwd(q, k, v, (cos, sin), 0.125, True)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    tfa.flash_grid_bwd_parts(q, k, v, do, lse, delta, (cos, sin), 0.125, True)
+    assert counters() == before

@@ -265,8 +265,10 @@ def _grid_close(got, ref, which, dtype):
 def test_grid_kernels_match_plain(cuda, case, monkeypatch):
     """flash_grid_fwd / flash_grid_bwd_parts kernels against their plain
     versions on the same CUDA tensors (lse within 1e-5 fp32, 1e-4 bf16);
-    one launch of each kernel. The plain versions with a key tile dropped
-    must fail the same check."""
+    one launch of each kernel, each on the route its inputs call for (the
+    TMA + wgmma kernels for bf16 at head_dim 64 / 128, the CUDA-core kernels
+    elsewhere). The plain versions with a key tile dropped must fail the
+    same check."""
     dtype, b, h, kvh, s, d, causal, rope, stacked, out_fp32 = GRID_CASES[case]
     q, k, v, do, cos, sin = _flash_inputs(dtype, b, h, kvh, s, d, stacked)
     rope = (cos, sin) if rope else None
@@ -274,6 +276,9 @@ def test_grid_kernels_match_plain(cuda, case, monkeypatch):
     out_dtype = torch.float32 if out_fp32 else None
     before = (fa.flash_grid_fwd.launches, fa.flash_grid_bwd_parts.dkv_launches,
               fa.flash_grid_bwd_parts.dq_launches)
+    routes = (fa.flash_grid_fwd.routes, fa.flash_grid_bwd_parts.dkv_routes,
+              fa.flash_grid_bwd_parts.dq_routes)
+    routes_before = [dict(r) for r in routes]
     out, lse = fa.flash_grid_fwd(q, k, v, rope, sm, causal, rep, out_dtype)
     delta = (do.float() * out.float()).sum(-1, keepdim=True).contiguous()
     grads = fa.flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm, causal, rep)
@@ -281,6 +286,9 @@ def test_grid_kernels_match_plain(cuda, case, monkeypatch):
     after = (fa.flash_grid_fwd.launches, fa.flash_grid_bwd_parts.dkv_launches,
              fa.flash_grid_bwd_parts.dq_launches)
     assert after == tuple(n + 1 for n in before)
+    want = "tma" if dtype == torch.bfloat16 and d in (64, 128) else "cuda_core"
+    for name, r, r0 in zip(("forward", "dk/dv", "dq"), routes, routes_before):
+        assert r == {x: r0[x] + (x == want) for x in fa.ROUTES}, name
     assert out.dtype == (out_dtype or dtype)
     ref_out, ref_lse = fa.flash_fwd_grid_plain(q, k, v, rope, sm, causal, rep, out_dtype)
     assert _grid_close(out, ref_out, "fwd", dtype)
@@ -315,8 +323,8 @@ def test_backward_kernels_repeat_bitwise_on_their_route(cuda, case):
     of dq, dk and dv (sums in registers over in-block loops, no atomics),
     and the call takes the route its inputs call for: the TMA + wgmma
     kernels for bf16 at head_dim 64 / 128 with aligned operands, the
-    CUDA-core kernels for fp32. The forward reports its route the same
-    way."""
+    CUDA-core kernels for fp32 (for the grid, the dk/dv and the dq kernel
+    each). The forward reports its route the same way."""
     family, dtype, b, h, kvh, s, d, causal, rope, stacked = REPEAT_CASES[case]
     q, k, v, do, cos, sin = _flash_inputs(dtype, b, h, kvh, s, d, stacked)
     rep, sm = h // kvh, 1.0 / math.sqrt(d)
@@ -331,9 +339,12 @@ def test_backward_kernels_repeat_bitwise_on_their_route(cuda, case):
             return fa.flash_bwd(q, k, v, do, out, lse, cos, sin, sm, rep)
     else:
         tables = (cos, sin) if rope else None
+        fwd_before = dict(fa.flash_grid_fwd.routes)
         out, lse = fa.flash_grid_fwd(q, k, v, tables, sm, causal, rep)
+        assert fa.flash_grid_fwd.routes[want] == fwd_before[want] + 1
         delta = (do.float() * out.float()).sum(-1, keepdim=True).contiguous()
         routes = fa.flash_grid_bwd_parts.dkv_routes
+        dq_before = dict(fa.flash_grid_bwd_parts.dq_routes)
 
         def call():
             return fa.flash_grid_bwd_parts(q, k, v, do, lse, delta, tables, sm, causal, rep)
@@ -341,9 +352,69 @@ def test_backward_kernels_repeat_bitwise_on_their_route(cuda, case):
     first, second = call(), call()
     torch.cuda.synchronize()
     assert routes == {r: before[r] + (2 if r == want else 0) for r in fa.ROUTES}
+    if family == "grid":
+        assert fa.flash_grid_bwd_parts.dq_routes == {
+            r: dq_before[r] + (2 if r == want else 0) for r in fa.ROUTES}
     for name, a, b_ in zip("qkv", first, second):
         assert torch.isfinite(a).all(), name
         assert torch.equal(a, b_), name
+
+
+@pytest.mark.parametrize("d,causal", [(128, True), (64, False)])
+def test_grid_dq_reads_the_dkv_prepass_scratch(cuda, d, causal):
+    """With RoPE, one ``flash_grid_bwd_parts`` call ropes q and k once: the
+    dk/dv call's pre-pass writes the scratches the wrapper allocates and the
+    dq kernel reads them, so a profiler window over the call holds one
+    pre-pass, one dk/dv and one dq kernel, all on the TMA route; dq (and dk,
+    dv) match the plain version."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, do, cos, sin = _flash_inputs(torch.bfloat16, 2, 8, 2, 512, d, False, seed=3)
+    rep, sm = 4, 1.0 / math.sqrt(d)
+    out, lse = fa.flash_grid_fwd(q, k, v, (cos, sin), sm, causal, rep)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True).contiguous()
+    fa.flash_grid_bwd_parts(q, k, v, do, lse, delta, (cos, sin), sm, causal, rep)  # warm
+    dq_before = dict(fa.flash_grid_bwd_parts.dq_routes)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        grads = fa.flash_grid_bwd_parts(q, k, v, do, lse, delta, (cos, sin), sm, causal, rep)
+        torch.cuda.synchronize()
+    assert fa.flash_grid_bwd_parts.dq_routes["tma"] == dq_before["tma"] + 1
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = {n: sum(n in name for name in names)
+             for n in ("bwd::prepass_kernel", "bwd::dkdv_kernel", "bwd::dq_kernel")}
+    assert count == dict.fromkeys(count, 1), names
+    kf, vf = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    ref = fa.flash_bwd_grid_plain(q, kf, vf, do, lse, delta, (cos, sin), sm, causal)
+    for name, g, r in zip("qkv", grads, ref):
+        assert _grid_close(g, r, "bwd", torch.bfloat16), name
+
+
+@pytest.mark.parametrize("family,d", [("grid", 64), ("blocked", 128)])
+def test_persistent_forward_repeats_and_zeroes_its_counter(cuda, family, d):
+    """The TMA forward is persistent: its blocks take items from a counter
+    that the last block zeroes again. Two calls on one stream, and one on a
+    second stream (a counter of its own), give the same bits, and every
+    counter is zero after them."""
+    q, k, v, _, cos, sin = _flash_inputs(torch.bfloat16, 2, 8, 8, 1000, d, True, seed=4)
+    sm = 1.0 / math.sqrt(d)
+    if family == "grid":
+        call = lambda: fa.flash_grid_fwd(q, k, v, None, sm, True)  # noqa: E731
+        routes = fa.flash_grid_fwd.routes
+    else:
+        call = lambda: fa.flash_fwd(q, k, v, cos, sin, sm)  # noqa: E731
+        routes = fa.flash_fwd.routes
+    before = routes["tma"]
+    first, second = call(), call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        third = call()
+    torch.cuda.synchronize()
+    assert routes["tma"] == before + 3
+    for got in (second, third):
+        assert torch.equal(got[0], first[0]) and torch.equal(got[1], first[1])
+    assert all(int(w.abs().sum()) == 0 for w in fa._WORK.values())
 
 
 def _small_cfg(family, **kw):
