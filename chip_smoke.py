@@ -104,6 +104,31 @@ its result line:
    the same configuration with ``fused_norm=False`` for 4 iterations gives
    the number it stands against; then the fused path's profiler window.
 
+11. per-layer hybrid parallelism at world size 1: ``cli train --model_size
+   llama-7b --num_layers 4 --galvatron_config_path PLAN`` (batch 8 x 2048,
+   bf16, 10 iterations) with a plan the phase writes, recompute ``none``,
+   ``full``, ``selective``, ``none`` per layer: finite losses, no collective,
+   each blocked flash forward launched (4 + 2) x 10 times (the full layer's
+   and the selective layer's recompute run their forward again), the
+   backward 4 x 10, all on the TMA route; iter_ms beside phase 7's and a
+   profiler window;
+12. two ranks sharing card 0 (``LOCAL_RANK`` 0 each) over gloo, started as
+   two ``cli train`` processes (``--rank-worker``: ``trainer.train`` of the
+   same flags, counting each flash launch by its head count) under a plan
+   that changes the DP degree at every boundary (tp=2 + SP ddp; tp=1 zero3
+   with full recompute; tp=2 selective; tp=1 zero2; vocab_tp 2), each rank
+   under a wall-clock limit: (a) fp32, the plan's first two layers at
+   llama-7b width, batch 2 x 512, 3 steps: losses within 1e-3 of the same
+   layers' world-size-1 plan in this process, and every rank's parameter
+   pieces within 2 x 3 x lr of that run's (AdamW's band); (b) bf16, the
+   whole plan at 4 layers, batch 8 x 2048, 3 steps: losses within 2e-2
+   relative of phase 11's (same weights and batches), each rank's flash
+   forward / backward launched 18 / 12 times on the TMA route at 16 heads
+   for the tp=2 layers and 32 for the tp=1 layers; host-staged collectives
+   and iter_ms (a gloo-loopback transport figure, not a parallelism
+   result). 12b (phase name ``nccl``): the same over NCCL on cards 0 and
+   1 where the machine has two; otherwise reported absent.
+
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
 measured to PATH as JSON.
@@ -1186,7 +1211,7 @@ def phase_train_parity(torch, model, fused=False):
     rng = np.random.RandomState(0)
     batches = [rng.randint(0, cfg.vocab_size, (1, 513)).astype(np.int32) for _ in range(steps)]
     for dev in ("cuda", "cpu"):
-        rt = build_runtime(cfg, adam, global_batch_size=1, seq_len=512,
+        rt = build_runtime(cfg, adam=adam, global_batch_size=1, seq_len=512,
                            mixed_precision="fp32", device=dev)
         params = _to(cpu_params, dev) if dev == "cuda" else cpu_params
         state = rt.state_from(params)
@@ -1555,9 +1580,10 @@ def phase_train(torch, smi, tmpdir, run):
     return launches, res
 
 
-def phase_train_profile(torch, run):
+def phase_train_profile(torch, run, hp=None):
     """torch.profiler over two steady steps of a main-path run's
-    configuration (one unprofiled warm step first)."""
+    configuration (one unprofiled warm step first); with ``hp``, phase 11's
+    strategy plan over that configuration."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -1571,9 +1597,13 @@ def phase_train_profile(torch, run):
     preset, layers, bsz, seq = TRAIN_PATHS[model]
     cfg = modeling.PRESETS[preset].replace(num_layers=layers, attn_impl="flash",
                                            fused_norm=fused)
-    rt = build_runtime(cfg, AdamConfig(lr=1e-4, weight_decay=0.01, grad_clip=1.0),
-                       global_batch_size=bsz, seq_len=seq, mixed_precision="bf16",
-                       device="cuda")
+    adam = AdamConfig(lr=1e-4, weight_decay=0.01, grad_clip=1.0)
+    if hp is None:
+        rt = build_runtime(cfg, adam=adam, global_batch_size=bsz, seq_len=seq,
+                           mixed_precision="bf16", device="cuda")
+    else:
+        phase, run = 11, "hybrid"
+        rt = build_runtime(cfg, hp, adam, global_batch_size=bsz, seq_len=seq, device="cuda")
     state = rt.init_state(1234)
     loader = build_dataloader(rt.cfg, bsz, seq, seed=1234)
     state, loss = rt.train_step(state, torch.from_numpy(next(loader)))
@@ -1620,8 +1650,285 @@ def phase_train_profile(torch, run):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: per-layer hybrid parallelism (cli train with a strategy JSON)
+# ---------------------------------------------------------------------------
+
+HYBRID_ITERS = 10  # phase 11
+HYBRID_STEPS = 3  # phase 12
+# phase 11's plan at world size 1: a recompute mode per layer
+HYBRID_W1_CKPT = ("none", "full", "selective", "none")
+# phase 12's plan on two ranks: every boundary changes the DP degree
+# (tp, tp_consec, sp, dp_type, ckpt) per layer; vocab_tp 2
+HYBRID_W2 = ((2, True, True, "ddp", "none"), (1, True, False, "zero3", "full"),
+             (2, True, False, "ddp", "selective"), (1, True, False, "zero2", "none"))
+HYBRID_W2_VOCAB_TP = 2
+HYBRID_FP32_LAYERS = 2  # phase 12a: the plan's first two layers (SP + ddp, zero3 + full)
+HYBRID_FP32_LOSS_TOL = 1e-3  # phase 5's
+HYBRID_BF16_LOSS_RTOL = 2e-2
+HYBRID_RANK_TIMEOUT_S = 420
+
+
+def _hybrid_plan(path, layers, precision, world):
+    """Write a strategy JSON: phase 11's recompute modes at world size 1, or
+    the first ``layers`` layers of phase 12's two-rank plan."""
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig, LayerStrategy
+
+    if world == 1:
+        strategies = [LayerStrategy(ckpt=c) for c in HYBRID_W1_CKPT[:layers]]
+        vocab_tp = 1
+    else:
+        strategies = [LayerStrategy(tp=t, tp_consec=c, sp=sp, dp_type=d, ckpt=k)
+                      for t, c, sp, d, k in HYBRID_W2[:layers]]
+        vocab_tp = HYBRID_W2_VOCAB_TP
+    hp = HybridParallelConfig(layer_strategies=strategies, vocab_tp=vocab_tp,
+                              mixed_precision=precision)
+    hp.save(path)
+    return hp
+
+
+def _hybrid_argv(plan, layers, batch, seq, iters):
+    return ["--model_size", "llama-7b", "--num_layers", str(layers), "--seq_length", str(seq),
+            "--global_train_batch_size", str(batch), "--train_iters", str(iters),
+            "--galvatron_config_path", plan]
+
+
+def _flash_want(hp, steps):
+    """flash_fwd / flash_bwd launches of ``steps`` steps of a llama plan: a
+    forward per layer, one more for each layer recomputed whole or in its
+    attention core; a backward per layer."""
+    extra = sum(1 for s in hp.layer_strategies if s.ckpt in ("full", "selective"))
+    return {"flash_fwd": (hp.num_layers + extra) * steps, "flash_bwd": hp.num_layers * steps}
+
+
+def _flash_heads_want(hp, steps, heads=32):
+    """Launches by local head count: heads / tp for each layer."""
+    fwd, bwd = {}, {}
+    for s in hp.layer_strategies:
+        h = heads // s.tp
+        fwd[h] = fwd.get(h, 0) + (2 if s.ckpt in ("full", "selective") else 1) * steps
+        bwd[h] = bwd.get(h, 0) + steps
+    return {"flash_fwd": fwd, "flash_bwd": bwd}
+
+
+def phase_hybrid_world1(torch, smi, tmpdir):
+    """Phase 11: ``cli train`` of llama-7b width at 4 layers through the
+    strategy path at world size 1, a different recompute mode per layer."""
+    from galvatron_tpu_torch import cli
+    from galvatron_tpu_torch.parallel import comm
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    _, layers, bsz, seq = TRAIN_PATHS["llama"]
+    plan = os.path.join(tmpdir, "plan_world1.json")
+    hp = _hybrid_plan(plan, layers, "bf16", 1)
+    path = os.path.join(tmpdir, "train_metrics_hybrid.jsonl")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    comm.reset_counts()
+    reset_kernel_counts()  # the main path's counts start here
+    routes_before = route_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["train", *_hybrid_argv(plan, layers, bsz, seq, HYBRID_ITERS),
+                   "--metrics_path", path])
+    launches = kernel_counts()  # read right after the main path
+    check(rc == 0, f"phase 11: cli train returned {rc}")
+    recs = [r for r in read_metrics(path) if r["event"] == "train_iter"]
+    check(len(recs) == HYBRID_ITERS, f"phase 11: {len(recs)} train_iter records")
+    losses = [r["loss"] for r in recs]
+    check(all(isinstance(x, float) and abs(x) != float("inf") and x == x for x in losses),
+          f"phase 11: non-finite losses {losses}")
+    want = dict(path_counts("llama", layers, HYBRID_ITERS, False), **_flash_want(hp, HYBRID_ITERS))
+    check(launches == want, f"phase 11: launches {launches}, expected {want}")
+    routes = {k: {r: n - routes_before[k][r] for r, n in v.items()}
+              for k, v in route_counts().items()}
+    check(all(r["tma"] == launches[k] and r["cuda_core"] == 0 for k, r in routes.items()),
+          f"phase 11: routes {routes}")
+    check(comm.issued == 0, f"phase 11: world size 1 issued {comm.issued} collectives")
+    steady = recs[1:]
+    res = {"card": smi, "model": "llama-7b", "layers": layers, "batch": bsz, "seq": seq,
+           "dtype": "bfloat16", "ckpt": list(HYBRID_W1_CKPT), "iters": HYBRID_ITERS,
+           "losses": losses, "iter_ms_mean_from_2": sum(r["iter_ms"] for r in steady) / len(steady),
+           "iter_ms": [r["iter_ms"] for r in recs],
+           "tokens_per_s": sum(r["tokens_per_s"] for r in steady) / len(steady),
+           "mfu": sum(r["mfu"] for r in steady) / len(steady),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "collectives": comm.issued,
+           "seconds": time.perf_counter() - t0}
+    log("phase 11 hybrid world 1:", json.dumps(res))
+    RESULTS["hybrid_world1"] = res
+    phase_train_profile(torch, "llama", hp=hp)
+    return res
+
+
+def _rank_results(outdir, world):
+    out = []
+    for r in range(world):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _launch_ranks(argv, outdir, backend, local_ranks, extra=()):
+    from galvatron_tpu_torch.parallel.launch import launch_local
+
+    cmd = [sys.executable, os.path.abspath(__file__), "--rank-worker", outdir, *extra, "--",
+           *argv, "--dist_backend", backend]
+    ranks = launch_local(cmd, len(local_ranks), timeout_s=HYBRID_RANK_TIMEOUT_S,
+                         local_ranks=local_ranks, cwd=os.path.dirname(os.path.abspath(__file__)))
+    for r in ranks:
+        tail = "\n".join(r.output.splitlines()[-12:])
+        log(f"  rank {r.rank}: rc={r.returncode} killed={r.killed}\n{tail}")
+    check(all(r.returncode == 0 and not r.killed for r in ranks),
+          f"a rank failed or hit its {HYBRID_RANK_TIMEOUT_S} s limit")
+    return _rank_results(outdir, len(local_ranks))
+
+
+def phase_hybrid_ranks(torch, smi, tmpdir, backend, local_ranks, world1):
+    """Phase 12 (two ranks sharing card 0 over gloo) or 12b (two cards over
+    NCCL): (a) fp32 parity of the plan's first two layers against the same
+    layers' world-size-1 plan, (b) the whole bf16 plan at full width against
+    phase 11's losses on the same weights and batches."""
+    import numpy as np
+
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron
+
+    tag = "12" if backend == "gloo" else "12b"
+    world = len(local_ranks)
+    _, layers, bsz, seq = TRAIN_PATHS["llama"]
+    res = {"card": smi, "backend": backend, "local_ranks": list(local_ranks)}
+    t0 = time.perf_counter()
+    # (a) fp32: world size 1 in this process, then the two ranks
+    fl = HYBRID_FP32_LAYERS
+    plan1 = os.path.join(tmpdir, f"plan_fp32_w1_{tag}.json")
+    _hybrid_plan(plan1, fl, "fp32", 1)
+    plan2 = os.path.join(tmpdir, f"plan_fp32_w2_{tag}.json")
+    hp2 = _hybrid_plan(plan2, fl, "fp32", world)
+    argv = _hybrid_argv(plan2, fl, 2, 512, HYBRID_STEPS)
+    ref = trainer.train(initialize_galvatron("train", _hybrid_argv(plan1, fl, 2, 512,
+                                                                   HYBRID_STEPS)))
+    ref_path = os.path.join(tmpdir, f"ref_params_{tag}.pt")
+    torch.save(_to(ref["state"]["params"], "cpu"), ref_path)
+    ref_losses = ref["losses"]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    outdir = os.path.join(tmpdir, f"ranks_fp32_{tag}")
+    os.makedirs(outdir)
+    ranks = _launch_ranks(argv, outdir, backend, local_ranks, ("--ref-params", ref_path))
+    os.remove(ref_path)
+    lr = 1e-4  # cli train's default
+    band = 2 * HYBRID_STEPS * lr  # AdamW moves an element at most ~lr a step on each side
+    diff = max(abs(a - b) for a, b in zip(ranks[0]["losses"], ref_losses))
+    pdiff = max(r["param_max_abs_diff"] for r in ranks)
+    check(all(r["losses"] == ranks[0]["losses"] for r in ranks), "ranks report other losses")
+    check(diff <= HYBRID_FP32_LOSS_TOL, f"phase {tag} (a): losses {ranks[0]['losses']} vs "
+          f"world size 1 {ref_losses}")
+    check(pdiff <= band, f"phase {tag} (a): parameters {pdiff} from world size 1 (band {band})")
+    res["fp32"] = {"layers": fl, "batch": 2, "seq": 512, "steps": HYBRID_STEPS,
+                   "plan": [list(x) for x in HYBRID_W2[:fl]], "losses": ranks[0]["losses"],
+                   "world1_losses": ref_losses, "max_abs_loss_diff": diff,
+                   "tolerance": HYBRID_FP32_LOSS_TOL, "param_max_abs_diff": pdiff,
+                   "param_band": band, "host_staged": [r["host_staged"] for r in ranks]}
+    log(f"phase {tag} (a) hybrid fp32:", json.dumps(res["fp32"]))
+    # (b) bf16 at full width, the whole plan
+    plan = os.path.join(tmpdir, f"plan_bf16_w2_{tag}.json")
+    hp = _hybrid_plan(plan, layers, "bf16", world)
+    outdir = os.path.join(tmpdir, f"ranks_bf16_{tag}")
+    os.makedirs(outdir)
+    ranks = _launch_ranks(_hybrid_argv(plan, layers, bsz, seq, HYBRID_STEPS), outdir, backend,
+                          local_ranks)
+    w1 = world1["losses"][:HYBRID_STEPS]
+    losses = ranks[0]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, w1))
+    check(all(np.isfinite(losses)), f"phase {tag} (b): non-finite losses {losses}")
+    check(rel <= HYBRID_BF16_LOSS_RTOL, f"phase {tag} (b): losses {losses} vs phase 11 {w1}")
+    want = _flash_want(hp, HYBRID_STEPS)
+    heads = _flash_heads_want(hp, HYBRID_STEPS)
+    for r in ranks:
+        # gloo stages every collective of a card tensor through the host; NCCL never
+        check((r["host_staged"] > 0) == (backend == "gloo"),
+              f"phase {tag} (b) rank {r['rank']}: {r['host_staged']} host-staged collectives")
+        got = {k: r["launches"][k] for k in want}
+        check(got == want, f"phase {tag} (b) rank {r['rank']}: launches {got}, expected {want}")
+        check(all(r["routes"][k]["tma"] == want[k] and r["routes"][k]["cuda_core"] == 0
+                  for k in want), f"phase {tag} (b) rank {r['rank']}: routes {r['routes']}")
+        got_heads = {k: {int(h): n for h, n in v.items()} for k, v in r["heads"].items()}
+        check(got_heads == heads,
+              f"phase {tag} (b) rank {r['rank']}: launches by heads {got_heads}, expected {heads}")
+    steady = lambda r: sum(r["iter_times"][1:]) / (len(r["iter_times"]) - 1)  # noqa: E731
+    res["bf16"] = {"layers": layers, "batch": bsz, "seq": seq, "steps": HYBRID_STEPS,
+                   "plan": [list(x) for x in HYBRID_W2], "vocab_tp": HYBRID_W2_VOCAB_TP,
+                   "losses": losses, "phase11_losses": w1, "max_rel_loss_diff": rel,
+                   "tolerance": HYBRID_BF16_LOSS_RTOL,
+                   "launches": [{k: r["launches"][k] for k in want} for r in ranks],
+                   "launches_by_heads": [r["heads"] for r in ranks],
+                   "host_staged": [r["host_staged"] for r in ranks],
+                   "iter_ms_mean_from_2": [steady(r) for r in ranks],
+                   "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in ranks],
+                   "iter_ms_is": ("a gloo-loopback transport figure, not a parallelism result"
+                                  if backend == "gloo" else "NCCL on two cards")}
+    log(f"phase {tag} (b) hybrid bf16:", json.dumps(res["bf16"]))
+    res["seconds"] = time.perf_counter() - t0
+    RESULTS[f"hybrid_ranks_{backend}"] = res
+    return res
+
+
+def rank_worker(outdir, argv, ref_params=None) -> int:
+    """One rank of phase 12: ``cli train``'s own call (``trainer.train`` of
+    the parsed flags), with the flash wrappers' launches also counted by
+    the head count they ran at; writes ``rank<r>.json`` (and, with
+    ``ref_params``, the largest difference of this rank's pieces from the
+    world-size-1 parameters)."""
+    import torch
+
+    from galvatron_tpu_torch import bridge
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron, model_config_from_args
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.ops import flash_attention as fa
+
+    heads = {"flash_fwd": {}, "flash_bwd": {}}
+    for name in heads:
+        orig = getattr(fa, name)
+
+        def counted(q, *a, _orig=orig, _name=name, **kw):
+            h = int(q.shape[1])
+            heads[_name][h] = heads[_name].get(h, 0) + 1
+            return _orig(q, *a, **kw)
+
+        # the wrapper's body counts into the module-level name: carry its counters
+        counted.launches, counted.routes = orig.launches, orig.routes
+        setattr(fa, name, counted)
+    reset_kernel_counts()
+    before = route_counts()
+    ns = initialize_galvatron("train", argv)
+    out = trainer.train(ns)
+    rec = {"rank": out["rank"], "world": out["world"], "losses": out["losses"],
+           "iter_times": out["iter_times"], "launches": kernel_counts(),
+           "routes": {k: {r: n - before[k][r] for r, n in v.items()}
+                      for k, v in route_counts().items()},
+           "heads": heads, "host_staged": out["host_staged"],
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if ref_params:
+        cfg = model_config_from_args(ns)
+        hp = HybridParallelConfig.load(ns.galvatron_config_path)
+        ref = bridge.params_to_numpy(torch.load(ref_params, mmap=True))
+        mine = bridge.params_to_numpy(out["state"]["params"])
+        want = bridge.shard_params(ref, cfg, hp, out["rank"], out["world"])
+        from galvatron_tpu_torch.core.optim import tree_leaves
+
+        rec["param_max_abs_diff"] = max(float(abs(a - b).max())
+                                        for a, b in zip(tree_leaves(mine), tree_leaves(want)))
+    with open(os.path.join(outdir, f"rank{out['rank']}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
 #: the phases by name, for ``--phases``; a full run takes them all
-PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train")
+PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train", "hybrid",
+          "nccl")
 
 
 def main() -> int:
@@ -1631,7 +1938,14 @@ def main() -> int:
                     help="comma-separated subset of the phases to run while developing "
                     f"({', '.join(PHASES)}; the card and the build always run). Only a full "
                     "run prints the kernels line and the result line")
+    ap.add_argument("--rank-worker", default=None, metavar="OUTDIR",
+                    help="(phase 12) run as one rank: the flags after -- are cli train's")
+    ap.add_argument("--ref-params", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("train_argv", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank_worker:
+        argv = args.train_argv[1:] if args.train_argv[:1] == ["--"] else args.train_argv
+        return rank_worker(args.rank_worker, argv, args.ref_params)
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
@@ -1683,6 +1997,26 @@ def main() -> int:
                 ("iter_ms_mean_from_2", "tokens_per_s", "mfu", "max_memory_allocated_gb")}}
             log("fused_norm beside plain:", json.dumps(cmp_))
             RESULTS.setdefault("fused_beside_plain", []).append(cmp_)
+    if "hybrid" in phases or "nccl" in phases:  # 12b stands against phase 11 too
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as tmpdir:
+            world1 = phase_hybrid_world1(torch, smi, tmpdir)
+            if "llama" in train_res:
+                cmp_ = {"path": "llama-7b width, 4 layers, world size 1", **{
+                    k: {"phase7_cli": train_res["llama"][k], "phase11_plan": world1[k]}
+                    for k in ("iter_ms_mean_from_2", "tokens_per_s", "mfu",
+                              "max_memory_allocated_gb")}}
+                log("phase 11 beside phase 7:", json.dumps(cmp_))
+                RESULTS["hybrid_beside_phase7"] = cmp_
+            gc.collect()
+            torch.cuda.empty_cache()
+            if "hybrid" in phases:
+                phase_hybrid_ranks(torch, smi, tmpdir, "gloo", (0, 0), world1)
+            if "nccl" in phases and torch.cuda.device_count() >= 2:
+                phase_hybrid_ranks(torch, smi, tmpdir, "nccl", (0, 1), world1)
+                log("phase 12b nccl on two cards: run")
+            elif "nccl" in phases:
+                log(f"phase 12b nccl on two cards: absent ({torch.cuda.device_count()} card)")
+                RESULTS["hybrid_ranks_nccl"] = "absent: one card"
     if set(phases) != set(PHASES):
         if args.out:
             _write_out(args.out, RESULTS)

@@ -10,12 +10,17 @@ the compute dtype once (``modeling.cast_params``); norm scales and biases
 stay fp32. ``params_from_jax`` accepts what training accepts
 (``modeling.check_supported``). ``params_to_numpy`` is the way back.
 
+``shard_params`` cuts a full tree (numpy) into one rank's pieces under a
+hybrid plan (the layout ``parallel/hybrid.py`` trains), and
+``gather_params`` puts every rank's pieces back into one tree, to compare
+a multi-rank run with the JAX parameters.
+
 This module takes numpy and imports no JAX, so the port stays free of it.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -46,3 +51,35 @@ def params_to_numpy(params: Params) -> Params:
         lambda t: (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy(),
         params,
     )
+
+
+def _plans(cfg: ModelConfig, hp, world: int):
+    from galvatron_tpu_torch.parallel import hybrid
+    from galvatron_tpu_torch.parallel.mesh import RankMesh
+
+    mesh = RankMesh(world)
+    return mesh, hybrid.model_leaf_plans(cfg, hp, mesh, hybrid.param_shapes(cfg))
+
+
+def shard_params(full_tree: Params, cfg: ModelConfig, hp, rank: int, world: int) -> Params:
+    """``rank``'s pieces (numpy) of a full numpy parameter tree under the
+    plan ``hp`` on ``world`` ranks: its TP shard of every parameter, and
+    its DP shard of zero3 ones."""
+    from galvatron_tpu_torch.parallel import hybrid
+
+    mesh, plans = _plans(cfg, hp, world)
+    return hybrid.shard_tree(full_tree, plans, mesh, rank)
+
+
+def gather_params(rank_trees: Sequence[Params], cfg: ModelConfig, hp, world: int) -> Params:
+    """The full numpy tree from every rank's pieces (``rank_trees[r]`` of
+    rank r, numpy; replicas take the lowest rank's copy)."""
+    from galvatron_tpu_torch.parallel import hybrid
+    from galvatron_tpu_torch.parallel.sharding import unshard
+
+    mesh, plans = _plans(cfg, hp, world)
+    if len(rank_trees) != world:
+        raise ValueError(f"{len(rank_trees)} rank trees for a world of {world}")
+    return hybrid.zip_map(
+        lambda lp, *pieces: unshard(pieces[:-1], lp.layout, lp.shape, mesh, lp.pairs),
+        plans, *rank_trees)

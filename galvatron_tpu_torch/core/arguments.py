@@ -1,9 +1,13 @@
 """Flags of the ported modes: the model group, the ``serve`` group, the
-step-program group and the single-device part of the training group of
-``galvatron_tpu/core/arguments.py``, limited to what the port runs, plus
-``--device``. Flags of unported features (pp/tp/sdp, strategy JSON,
-checkpoints, corpora, ...) are absent, so passing one is an argparse error
-rather than a silently ignored option."""
+step-program group, the training group and the hybrid-parallel GLOBAL flags
+of ``galvatron_tpu/core/arguments.py`` (pp=1: TP with its layout, SP,
+DDP / ZeRO-2 / ZeRO-3, recompute, vocab TP / SP, chunks, and
+``--galvatron_config_path``), limited to what the port runs, plus
+``--device`` and ``--dist_backend``. Flags of unported features
+(``--context_parallel_deg``, ``--vpp_deg``, ``--global_tp_overlap``,
+``--grad_overlap``, checkpoints, corpora, ...) are absent, so passing one is
+an argparse error rather than a silently ignored option; ``--pp_deg`` and
+``--mixed_precision fp16`` parse and raise naming their ROADMAP item."""
 
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 
 from galvatron_tpu_torch.core.optim import AdamConfig
 from galvatron_tpu_torch.core.schedules import LRSchedule
+from galvatron_tpu_torch.core.strategy import HybridParallelConfig
 from galvatron_tpu_torch.models.modeling import PRESETS, ModelConfig
 
 
@@ -105,15 +110,43 @@ def _add_train_args(p: argparse.ArgumentParser):
     g.add_argument("--global_train_batch_size", type=int, default=8)
     g.add_argument("--train_iters", type=int, default=10)
     g.add_argument("--seed", type=int, default=1234)
-    g.add_argument("--chunks", type=int, default=-1,
-                   help="micro-batches accumulated per step; -1 = heuristic (1 at pp=1)")
-    g.add_argument("--global_checkpoint", type=int, default=0, choices=[0, 1, 2],
-                   help="0 = off, 1 = full-layer recompute, 2 = selective "
-                   "(attention-core-only recompute)")
+    g.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="process-group backend when WORLD_SIZE > 1: nccl on cuda, gloo on "
+                   "cpu by default; gloo with --device cuda stages every collective "
+                   "through the host")
+    g.add_argument("--dist_timeout_s", type=float, default=600.0,
+                   help="bound on the rendezvous and on every collective")
+    _add_parallel_args(p)
     g.add_argument("--metrics_path", type=str, default=None,
                    help="JSONL metrics sink (one train_iter record per iteration)")
     g.add_argument("--check_loss", type=int, default=0,
                    help="1 = fail the run on a non-finite loss")
+
+
+def _add_parallel_args(p: argparse.ArgumentParser):
+    g = p.add_argument_group("hybrid parallelism (GLOBAL flags, used without "
+                             "--galvatron_config_path)")
+    g.add_argument("--pp_deg", type=int, default=1,
+                   help="pipeline degree; only 1 is ported (ROADMAP.md §1.7)")
+    g.add_argument("--global_tp_deg", type=int, default=1)
+    g.add_argument("--global_tp_consec", type=int, default=1,
+                   help="1 = TP on consecutive ranks (minor mesh axes), 0 = strided")
+    g.add_argument("--sdp", type=int, default=0, help="1 = zero3 on all layers")
+    g.add_argument("--default_dp_type", type=str, default="ddp",
+                   choices=["ddp", "zero2", "zero3"])
+    g.add_argument("--global_checkpoint", type=int, default=0, choices=[0, 1, 2],
+                   help="0 = off, 1 = full-layer recompute, 2 = selective "
+                   "(attention-core-only recompute)")
+    g.add_argument("--sequence_parallel", type=int, default=0)
+    g.add_argument("--chunks", type=int, default=-1,
+                   help="micro-batches accumulated per step; -1 = heuristic (1 at pp=1)")
+    g.add_argument("--vocab_tp", type=int, default=1,
+                   help="TP degree of the embedding and head (vocab-parallel)")
+    g.add_argument("--vocab_sp", type=int, default=0,
+                   help="1 = the embedding/head activations sequence-sharded over vocab TP")
+    g.add_argument("--embed_sdp", type=int, default=0, help="1 = zero3 embedding and head")
+    g.add_argument("--galvatron_config_path", type=str, default=None,
+                   help="per-layer strategy JSON (the reference's searched-config schema)")
 
 
 def build_parser(mode: str) -> argparse.ArgumentParser:
@@ -176,3 +209,46 @@ def adam_config_from_args(ns: argparse.Namespace) -> AdamConfig:
         )
     return AdamConfig(lr=ns.lr, weight_decay=ns.weight_decay, grad_clip=ns.grad_clip,
                       lr_schedule=lr_schedule)
+
+
+def hybrid_config_from_args(ns: argparse.Namespace, num_layers: int,
+                            world: int) -> HybridParallelConfig:
+    """GLOBAL flags → a uniform strategy, or the JSON file → per-layer
+    strategies (the reference's two config modes)."""
+    if ns.pp_deg != 1:
+        raise NotImplementedError(
+            f"--pp_deg {ns.pp_deg}: pipeline parallelism is not ported yet (ROADMAP.md §1.7 "
+            "'Pipeline engines'); the port runs pp=1")
+    if ns.galvatron_config_path:
+        hp = HybridParallelConfig.load(ns.galvatron_config_path)
+        if hp.num_layers != num_layers:
+            raise ValueError(f"config has {hp.num_layers} layers, model has {num_layers}")
+        return hp
+    chunks = ns.chunks if ns.chunks > 0 else default_chunks(
+        ns.global_train_batch_size, ns.pp_deg, world)
+    return HybridParallelConfig.uniform(
+        num_layers,
+        pp=ns.pp_deg,
+        tp=ns.global_tp_deg,
+        tp_consec=bool(ns.global_tp_consec),
+        dp_type="zero3" if ns.sdp else ns.default_dp_type,
+        ckpt=ns.global_checkpoint,
+        sp=bool(ns.sequence_parallel),
+        chunks=chunks,
+        vocab_tp=ns.vocab_tp,
+        vocab_sp=bool(ns.vocab_sp),
+        embed_dp_type="zero3" if ns.embed_sdp else "ddp",
+        mixed_precision=ns.mixed_precision,
+        mlp_recompute=getattr(ns, "mlp_recompute", "policy"),
+    )
+
+
+def default_chunks(global_bsz: int, pp: int, world: int) -> int:
+    """Micro-batch count heuristic (the reference's ``get_chunks``): 1 at
+    pp=1; enough to keep a pipeline filled otherwise."""
+    if pp == 1:
+        return 1
+    if pp > world or world % pp != 0:
+        raise ValueError(f"pp={pp} must divide the device count {world}")
+    local = max(1, global_bsz // (world // pp))
+    return min(local, 2 * pp)

@@ -59,11 +59,15 @@ def _f32(x) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state, cfg: AdamConfig):
+def adamw_update(params, grads, opt_state, cfg: AdamConfig,
+                 grad_norm: Optional[torch.Tensor] = None):
     """One AdamW step in fp32 master precision, in place: ``params`` and
     the moments of ``opt_state`` are updated, ``opt_state["count"]`` is
     advanced. ``grads`` is a tree (or a leaf list in the reference's order)
-    of fp32 gradients. Returns (params, opt_state)."""
+    of fp32 gradients. ``grad_norm`` is the norm ``grad_clip`` clips by
+    when the leaves are shards of a larger gradient (the hybrid runtime's
+    sum over every rank, each replica counted once); by default it is the
+    leaves' own :func:`global_norm`. Returns (params, opt_state)."""
     p_leaves = tree_leaves(params)
     g_leaves = tree_leaves(grads)
     mu, nu = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
@@ -71,7 +75,7 @@ def adamw_update(params, grads, opt_state, cfg: AdamConfig):
     cnt = _f32(count)
     scale = None
     if cfg.grad_clip is not None:
-        gn = global_norm(g_leaves)
+        gn = global_norm(g_leaves) if grad_norm is None else grad_norm
         scale = torch.clamp(cfg.grad_clip / torch.clamp_min(gn, 1e-12), max=1.0)
     # bias corrections in fp32, as the reference computes b ** count.astype(f32)
     b1c = 1.0 - torch.pow(_f32(cfg.b1), cnt)

@@ -168,7 +168,8 @@ def init_model_params(cfg: ModelConfig, seed: int, device) -> Params:
     packages share weights through ``bridge.params_from_jax`` instead."""
     check_supported(cfg)
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(int(seed))
+    # the meta device (shapes only, ``parallel/hybrid.param_shapes``) has no generator
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(int(seed))
     h, hd, pd = cfg.hidden_size, cfg.head_dim, cfg.param_dtype
 
     def dense(fan_in, fan_out):
@@ -230,6 +231,78 @@ def cast_params(params: Params, cfg: ModelConfig) -> Params:
         elif key not in ("scale", "bias"):
             params[key] = val.to(cfg.dtype)
     return params
+
+
+def layer_annotations(cfg: ModelConfig) -> Params:
+    """Logical axes per layer parameter (the reference's): 'tp' = the
+    Megatron-sharded dim (column-parallel output / row-parallel input),
+    'fsdp' = the dim ZeRO shards (``parallel/sharding.py``)."""
+    a: Params = {
+        "attn_norm": {"scale": ("fsdp",)},
+        "attn": {
+            # blocked layout: TP shards the head dim of each q/k/v slot
+            "wqkv": ("fsdp", None, "tp") if cfg.qkv_blocked else ("fsdp", "tp"),
+            "wo": ("tp", "fsdp"),
+        },
+        "mlp_norm": {"scale": ("fsdp",)},
+    }
+    if cfg.use_bias:
+        # column-parallel biases shard with their output dim; the
+        # row-parallel output bias is added once after the reduction
+        a["attn"]["wqkv_b"] = (None, "tp")
+        a["attn"]["wo_b"] = ("fsdp",)
+    up = _up_name(cfg)
+    a["mlp"] = {up: ("fsdp", "tp"), "w2": ("tp", "fsdp")}
+    if cfg.use_bias:
+        a["mlp"][up + "_b"] = ("tp",)
+        a["mlp"]["w2_b"] = ("fsdp",)
+    if cfg.norm_type == "layernorm":
+        a["attn_norm"]["bias"] = ("fsdp",)
+        a["mlp_norm"]["bias"] = ("fsdp",)
+    return a
+
+
+def model_annotations(cfg: ModelConfig) -> Params:
+    """The whole tree's annotations: the embedding (and an untied head) is
+    vocab-parallel over its TP axes."""
+    a: Params = {
+        "embed": {"tok": ("tp", "fsdp")},
+        "layers": [layer_annotations(cfg) for _ in range(cfg.num_layers)],
+        "final_norm": {"scale": ("fsdp",)},
+    }
+    if cfg.pos_embed == "learned":
+        a["embed"]["pos"] = ("fsdp", None)
+    if cfg.norm_type == "layernorm":
+        a["final_norm"]["bias"] = ("fsdp",)
+    if not cfg.tie_word_embeddings:
+        a["head"] = {"w": ("fsdp", "tp")}
+    return a
+
+
+def tp_pairs(name: str, cfg: ModelConfig) -> int:
+    """Stacked projections on a parameter's 'tp' dim: 2 for SwiGLU's fused
+    ``[w1 | w3]`` (and its bias), whose TP shards hold matching columns of
+    both, else 1."""
+    return 2 if cfg.act_fn == "swiglu" and name in ("w13", "w13_b") else 1
+
+
+def tp_local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """The attention / MLP shapes one of ``tp`` ranks computes: n/tp query
+    heads and kv/tp kv heads of the same head_dim (so ``hidden_size`` is
+    n/tp · head_dim inside the attention block) and ffn/tp."""
+    if tp == 1:
+        return cfg
+    kv = None if cfg.num_kv_heads is None else cfg.num_kv_heads // tp
+    return cfg.replace(num_heads=cfg.num_heads // tp, num_kv_heads=kv,
+                       hidden_size=cfg.num_heads // tp * cfg.head_dim, ffn_dim=cfg.ffn // tp)
+
+
+def check_tp_shapes(cfg: ModelConfig, tp: int, what: str) -> None:
+    """A TP degree must split the heads, kv heads and ffn evenly."""
+    for name, n in (("num_heads", cfg.num_heads), ("kv heads", cfg.kv_heads),
+                    ("ffn", cfg.ffn)):
+        if n % tp:
+            raise ValueError(f"{what}: {name} {n} does not split over tp={tp}")
 
 
 # ---------------------------------------------------------------------------
@@ -468,19 +541,21 @@ class _MLPBranch(torch.autograd.Function):
                 dw2, _bias_grad(dy, ctx.biased[1]), None)
 
 
-def mlp_block(x, p, cfg: ModelConfig):
+def mlp_block(x, p, cfg: ModelConfig, product_remat: Optional[bool] = None):
     """``act(x @ w_up + b_up) @ w2 + b2`` (SwiGLU over the fused [w1 | w3],
     tanh-GELU or ReLU over w1; biases when present); under 'gate' with
-    autograd on, the product is recomputed in the backward. 'policy' is
-    :func:`mlp_residual`'s region, except with ``fused_norm``: the branch
+    autograd on (or with ``product_remat``), the product is recomputed in
+    the backward. 'policy' is :func:`mlp_residual`'s region, except with
+    ``fused_norm``: the branch
     then leaves that region (the fused kernels carry their own residuals)
     and the one-gate-save guarantee falls back to the product-only
     recompute here, as in the reference."""
     up = _up_name(cfg)
     g = _add_bias(x @ p[up].to(x.dtype), p, up + "_b")
     w2 = p["w2"].to(x.dtype)
-    product_remat = cfg.mlp_recompute == "gate" or (
-        cfg.mlp_recompute == "policy" and cfg.fused_norm)
+    if product_remat is None:
+        product_remat = cfg.mlp_recompute == "gate" or (
+            cfg.mlp_recompute == "policy" and cfg.fused_norm)
     if product_remat and torch.is_grad_enabled():
         y = _ActDown.apply(g, w2, cfg.act_fn)
     else:
@@ -505,17 +580,29 @@ def mlp_residual(x, p, cfg: ModelConfig):
     return x + mlp_block(norm(x, p["mlp_norm"], cfg), p["mlp"], cfg)
 
 
-def embed(tokens, params, cfg: Optional[ModelConfig] = None):
+def embed(tokens, params, cfg: Optional[ModelConfig] = None, vocab=None):
     """Token embedding: the table cast to the compute dtype, then gathered
     (the reference's order, so the backward scatter-adds in that dtype);
     learned positions add the cast table's first s rows, broadcast over
-    the batch."""
+    the batch. With ``vocab`` (a ``TPRegion``) the table is this rank's
+    vocabulary shard: tokens outside it embed to zero and ``vocab.exit``
+    sums the shards (into this rank's sequence shard under SP), then the
+    positions of those rows are added."""
     tok = params["embed"]["tok"]
     if cfg is None:
         return tok[tokens]
-    x = tok.to(cfg.dtype)[tokens]
+    seq = slice(0, tokens.shape[1])
+    if vocab is not None and vocab.size > 1:
+        n = tok.shape[0]
+        local = tokens - vocab.index * n
+        inside = (local >= 0) & (local < n)
+        x = tok.to(cfg.dtype)[torch.where(inside, local, torch.zeros_like(local))]
+        x = vocab.exit(torch.where(inside[..., None], x, torch.zeros_like(x)))
+        seq = vocab.seq_slice(tokens.shape[1])
+    else:
+        x = tok.to(cfg.dtype)[tokens]
     if cfg.pos_embed == "learned":
-        x = x + params["embed"]["pos"].to(cfg.dtype)[: tokens.shape[1]][None]
+        x = x + params["embed"]["pos"].to(cfg.dtype)[seq][None]
     return x
 
 
@@ -609,25 +696,61 @@ def attn_block(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False):
     return attn_output(o, p, cfg)
 
 
-def decoder_layer(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False):
+def decoder_layer(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False, tp=None):
+    """One layer. ``tp`` (a ``parallel.comm.TPRegion`` of more than one
+    rank) runs it tensor-parallel on this rank's shards: see
+    :func:`_decoder_layer_tp`."""
+    if tp is not None and tp.size > 1:
+        return _decoder_layer_tp(x, p, cfg, cos_sin, remat_attn, tp)
     x = x + attn_block(norm(x, p["attn_norm"], cfg), p["attn"], cfg, cos_sin,
                        remat_attn=remat_attn)
     return mlp_residual(x, p, cfg)
 
 
-def forward(params, tokens, cfg: ModelConfig, layer_hook=None):
+def _without(p, name):
+    return {k: v for k, v in p.items() if k != name}
+
+
+def _decoder_layer_tp(x, p, cfg: ModelConfig, cos_sin, remat_attn: bool, tp):
+    """Megatron's layer on one of ``tp.size`` ranks: the norm on this rank's
+    activation (its sequence shard under SP), ``tp.enter`` (copy, or the
+    sequence all-gather) before the column-parallel qkv / MLP-up GEMMs over
+    the local n/tp heads and ffn/tp columns, ``tp.exit`` (all-reduce, or the
+    reduce-scatter) after the row-parallel wo / w2, then their biases, added
+    once. Under 'gate' and 'policy' the MLP saves the gate output and
+    recomputes the activation product: the one-region 'policy' branch of
+    the single-device layer recomputes the norm from the layer input, and
+    here a collective stands between the two."""
+    local = tp_local_config(cfg, tp.size)
+    pa, pm = p["attn"], p["mlp"]
+    h = tp.enter(norm(x, p["attn_norm"], cfg))
+    y = attn_block(h, _without(pa, "wo_b"), local, cos_sin, remat_attn=remat_attn)
+    x = x + _add_bias(tp.exit(y), pa, "wo_b")
+    h = tp.enter(norm(x, p["mlp_norm"], cfg))
+    y = mlp_block(h, _without(pm, "w2_b"), local, product_remat=cfg.mlp_recompute != "off")
+    return x + _add_bias(tp.exit(y), pm, "w2_b")
+
+
+def forward(params, tokens, cfg: ModelConfig, layer_hook=None, vocab=None, head_hook=None):
     """Full forward → logits. ``layer_hook(i, x, layer_params)`` lets the
-    runtime insert per-layer recompute (``parallel/hybrid.py``)."""
+    runtime insert per-layer recompute and parallelism, ``head_hook(x)``
+    the move of the last layer's output to the head's layout
+    (``parallel/hybrid.py``). With ``vocab`` the embedding and head are
+    vocabulary-parallel and the logits are this rank's vocabulary shard."""
     cos_sin = None
     if cfg.pos_embed == "rope":
         cos_sin = rope_tables(cfg, tokens.shape[1], tokens.device)
-    x = embed(tokens, params, cfg)
+    x = embed(tokens, params, cfg, vocab)
     for i, lp in enumerate(params["layers"]):
         if layer_hook is not None:
             x = layer_hook(i, x, lp)
         else:
             x = decoder_layer(x, lp, cfg, cos_sin)
+    if head_hook is not None:
+        x = head_hook(x)
     x = norm(x, params["final_norm"], cfg)
+    if vocab is not None:
+        x = vocab.enter(x)
     return lm_head(x, params, cfg)
 
 
@@ -646,14 +769,38 @@ def _cross_entropy_sum_impl(logits, labels, ignore_index: int = -100):
     return nll.sum(), mask.sum()
 
 
-def cross_entropy_sum(logits, labels, ignore_index: int = -100, remat: bool = False):
+def _vocab_parallel_ce_sum_impl(logits, labels, vocab, ignore_index: int = -100):
+    """The token NLL sum over a vocabulary-sharded row: max and sum-exp
+    all-reduced over ``vocab``'s group, the label's logit taken from the
+    rank that holds it and summed there too."""
+    logits = logits.float()
+    n = logits.shape[-1]
+    mask = labels != ignore_index
+    local = labels - vocab.index * n
+    inside = mask & (local >= 0) & (local < n)
+    safe = torch.where(inside, local, torch.zeros_like(local))
+    gmax = vocab.max(logits.max(dim=-1).values)
+    sumexp = vocab.sum(torch.exp(logits - gmax[..., None]).sum(dim=-1))
+    picked = logits.gather(-1, safe[..., None].long())[..., 0] * inside
+    picked = vocab.sum(picked)
+    nll = (torch.log(sumexp) + gmax - picked) * mask
+    return nll.sum(), mask.sum()
+
+
+def cross_entropy_sum(logits, labels, ignore_index: int = -100, remat: bool = False,
+                      vocab=None):
     """(nll_sum, valid_token_count) in fp32, the accumulation-safe form.
     ``remat`` recomputes the fp32 cast and log-sum-exp in the backward from
-    the compute-dtype logits ("cast at the consumer")."""
+    the compute-dtype logits ("cast at the consumer"). With ``vocab`` (a
+    ``TPRegion`` of more than one rank) the logits are this rank's
+    vocabulary shard."""
+    if vocab is not None and vocab.size > 1:
+        fn, args = _vocab_parallel_ce_sum_impl, (logits, labels, vocab, ignore_index)
+    else:
+        fn, args = _cross_entropy_sum_impl, (logits, labels, ignore_index)
     if remat and torch.is_grad_enabled():
-        return checkpoint(_cross_entropy_sum_impl, logits, labels, ignore_index,
-                          use_reentrant=False)
-    return _cross_entropy_sum_impl(logits, labels, ignore_index)
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def ce_remat(cfg: ModelConfig) -> bool:
@@ -671,11 +818,13 @@ def split_batch(batch, cfg: ModelConfig):
     return batch[:, :-1], batch[:, 1:]
 
 
-def lm_loss_sum(params, batch, cfg: ModelConfig, layer_hook=None):
-    """(nll_sum, token_count) on a (B, S+1) token batch."""
+def lm_loss_sum(params, batch, cfg: ModelConfig, layer_hook=None, vocab=None, head_hook=None):
+    """(nll_sum, token_count) on a (B, S+1) token batch (this rank's rows,
+    with the hybrid runtime's hooks and vocabulary region)."""
     tokens, labels = split_batch(batch, cfg)
-    logits = forward(params, tokens, cfg, layer_hook=layer_hook)
-    return cross_entropy_sum(logits, labels, remat=ce_remat(cfg))
+    logits = forward(params, tokens, cfg, layer_hook=layer_hook, vocab=vocab,
+                     head_hook=head_hook)
+    return cross_entropy_sum(logits, labels, remat=ce_remat(cfg), vocab=vocab)
 
 
 def lm_loss(params, batch, cfg: ModelConfig, layer_hook=None):

@@ -12,7 +12,7 @@ number under a device metric's name.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
@@ -67,29 +67,35 @@ def head_flops_per_loss_token(cfg: ModelConfig) -> float:
     return 2.0 * cfg.hidden_size * cfg.vocab_size
 
 
-def _remat_fwd_flops_per_token(cfg: ModelConfig, seq_len: int, ckpt: str) -> float:
-    """Forward compute replayed in the backward, per token over all layers."""
-    if ckpt == "full":
-        per_layer = layer_fwd_flops_per_token(cfg, seq_len)
-    elif ckpt == "selective":
-        per_layer = attn_core_flops_per_token(cfg, seq_len)
-    elif cfg.mlp_recompute != "off":
-        per_layer = mlp_flops_per_token(cfg)
-    else:
-        per_layer = 0.0
-    return cfg.num_layers * per_layer
+def _remat_fwd_flops_per_token(cfg: ModelConfig, seq_len: int,
+                               ckpt: Union[str, Sequence[str]]) -> float:
+    """Forward compute replayed in the backward, per token over all layers;
+    ``ckpt`` is one mode for every layer or a list of per-layer modes."""
+    modes = [ckpt] * cfg.num_layers if isinstance(ckpt, str) else list(ckpt)
+    total = 0.0
+    for mode in modes:
+        if mode == "full":
+            total += layer_fwd_flops_per_token(cfg, seq_len)
+        elif mode == "selective":
+            total += attn_core_flops_per_token(cfg, seq_len)
+        elif cfg.mlp_recompute != "off":
+            total += mlp_flops_per_token(cfg)
+    return total
 
 
 @dataclass
 class StepStats:
     """Per-step FLOPs for one (model, batch, recompute) shape;
-    ``per_iter(iter_ms)`` turns a measured step time into JSONL fields."""
+    ``per_iter(iter_ms)`` turns a measured step time into JSONL fields.
+    ``ckpt`` is one recompute mode or a list of per-layer modes; a step of
+    ``world`` ranks shares its FLOPs among them (the per-device rate)."""
 
     cfg: ModelConfig
     global_bsz: int
     seq_len: int
     device: torch.device
-    ckpt: str = "none"
+    ckpt: Union[str, Sequence[str]] = "none"
+    world: int = 1
 
     def __post_init__(self):
         cfg, seq = self.cfg, self.seq_len
@@ -105,8 +111,8 @@ class StepStats:
         self._peak = peak_flops_per_device(self.device)
 
     def per_iter(self, iter_ms: Optional[float]) -> Dict[str, Optional[float]]:
-        """tokens/s, achieved model TFLOP/s, MFU and HFU of one measured
-        iteration on one card; all None off the card (and MFU/HFU for a
+        """tokens/s (global), achieved model TFLOP/s, MFU and HFU per card
+        of one measured iteration; all None off the card (and MFU/HFU for a
         card of unknown peak)."""
         out: Dict[str, Optional[float]] = {
             "tokens_per_s": None, "tflops_per_device": None, "mfu": None, "hfu": None,
@@ -114,10 +120,10 @@ class StepStats:
         if not self.on_device or not iter_ms or iter_ms <= 0:
             return out
         s = iter_ms / 1000.0
-        rate = self.model_flops_per_step / s
+        rate = self.model_flops_per_step / s / self.world
         out["tokens_per_s"] = self.tokens_per_step / s
         out["tflops_per_device"] = rate / 1e12
         if self._peak:
             out["mfu"] = rate / self._peak
-            out["hfu"] = self.hardware_flops_per_step / s / self._peak
+            out["hfu"] = self.hardware_flops_per_step / s / self.world / self._peak
         return out

@@ -1,0 +1,335 @@
+"""Collectives of the hybrid runtime over ``torch.distributed`` groups.
+
+The JAX package needs none of this: GSPMD inserts its collectives. Here they
+are explicit, and only three are used: ``all_reduce``,
+``all_gather_into_tensor`` and ``reduce_scatter_tensor``.
+
+- Megatron's tensor-parallel region pairs as autograd Functions over a
+  group (:class:`TPRegion`): copy (identity forward, all-reduce backward)
+  and reduce (all-reduce forward, identity backward); under sequence
+  parallelism, gather (all-gather of the sequence forward, reduce-scatter
+  backward) and reduce-scatter (the transpose).
+- ZeRO-3's parameter gather (:func:`gather_param`: all-gather forward,
+  reduce-scatter of the fp32 gradient backward) and :class:`Regather`, which
+  frees a gathered layer's parameters after its forward and gathers them
+  again when the backward needs them.
+- The redistribution of an activation between two layers' (batch rows,
+  sequence slice) layouts (:func:`redistribute`).
+
+Convention: a tensor replicated over a group holds the same value on every
+member, and so does its gradient (Megatron's), so a redistribution's
+backward is the same move in the other direction.
+
+**gloo is a host transport.** When a group's backend is gloo and the tensor
+lies on a card, the collective runs on a host copy and the result is copied
+back; ``host_staged`` counts those calls. NCCL never stages. A group of one
+rank issues no collective.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import List, Optional, Tuple
+
+import torch
+
+from galvatron_tpu_torch.parallel.mesh import Axes, Group, RankMesh
+
+#: collectives that ran on a host copy of a card tensor (gloo groups)
+host_staged = 0
+#: collectives issued (all kinds, groups of more than one rank)
+issued = 0
+#: zero3 parameters gathered again in a backward (:class:`Regather`)
+regathered = 0
+
+# torch 2.13 renames the two tensor-list-free collectives (*_single) and warns
+# on the old names, which older releases have alone
+warnings.filterwarnings("ignore", message=r".*(all_gather_into_tensor|reduce_scatter_tensor)"
+                        r"` is deprecated")
+
+
+def reset_counts() -> None:
+    global host_staged, issued, regathered
+    host_staged = issued = regathered = 0
+
+
+def _run(fn, out: torch.Tensor, inp: torch.Tensor, group: Group) -> torch.Tensor:
+    """``fn(out, inp, pg)`` under the staging rule; returns ``out``."""
+    global host_staged, issued
+    issued += 1
+    if group.backend == "gloo" and (out.is_cuda or inp.is_cuda):
+        host_staged += 1
+        h_out = out.detach().cpu()
+        h_in = h_out if inp is out else inp.detach().cpu()
+        fn(h_out, h_in, group.pg)
+        out.copy_(h_out)
+        return out
+    fn(out, inp, group.pg)
+    return out
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+def all_reduce(t: torch.Tensor, group: Optional[Group], op: str = "sum") -> torch.Tensor:
+    """In place over ``group``; returns ``t``."""
+    if group is None or group.size == 1:
+        return t
+    dist = _dist()
+    rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    return _run(lambda o, i, pg: dist.all_reduce(o, op=rop, group=pg), t, t, group)
+
+
+def all_gather(t: torch.Tensor, group: Optional[Group], dim: int = 0) -> torch.Tensor:
+    """The members' tensors concatenated along ``dim`` in group order."""
+    if group is None or group.size == 1:
+        return t
+    dist = _dist()
+    x = t.movedim(dim, 0).contiguous()
+    out = torch.empty((group.size * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _run(lambda o, i, pg: dist.all_gather_into_tensor(o, i, group=pg), out, x, group)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(t: torch.Tensor, group: Optional[Group], dim: int = 0) -> torch.Tensor:
+    """The sum over the members, split along ``dim``: this member's piece."""
+    if group is None or group.size == 1:
+        return t
+    dist = _dist()
+    x = t.movedim(dim, 0).contiguous()
+    if x.shape[0] % group.size:
+        raise ValueError(f"reduce-scatter of {x.shape[0]} along dim {dim} over {group.size}")
+    out = torch.empty((x.shape[0] // group.size,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _run(lambda o, i, pg: dist.reduce_scatter_tensor(o, i, group=pg), out, x, group)
+    return out.movedim(0, dim)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel regions (Megatron's mappings)
+# ---------------------------------------------------------------------------
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, op):
+        return all_reduce(x.contiguous().clone(), group, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class TPRegion:
+    """The tensor-parallel region of a layer (or of the embedding and head)
+    over ``group``: ``enter`` before a column-parallel GEMM, ``exit`` after
+    a row-parallel one. With ``sp`` the activations between regions are
+    sequence-sharded (dim 1)."""
+
+    def __init__(self, group: Group, sp: bool):
+        self.group, self.sp = group, sp
+
+    @property
+    def size(self) -> int:
+        return self.group.size
+
+    @property
+    def index(self) -> int:
+        return self.group.index
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        if self.size == 1:
+            return x
+        return _GatherSeq.apply(x, self.group, 1) if self.sp else _Copy.apply(x, self.group)
+
+    def exit(self, y: torch.Tensor) -> torch.Tensor:
+        if self.size == 1:
+            return y
+        if self.sp:
+            return _ReduceScatterSeq.apply(y, self.group, 1)
+        return _Reduce.apply(y, self.group, "sum")
+
+    def seq_slice(self, seq: int) -> slice:
+        """The positions this rank holds between regions."""
+        if not self.sp or self.size == 1:
+            return slice(0, seq)
+        n = seq // self.size
+        return slice(self.index * n, (self.index + 1) * n)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """All-reduce max of a tensor that needs no gradient."""
+        return all_reduce(x.detach().clone(), self.group, "max")
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """All-reduce sum forward, identity backward (the sum is replicated)."""
+        return x if self.size == 1 else _Reduce.apply(x, self.group, "sum")
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3 parameters
+# ---------------------------------------------------------------------------
+
+
+class _GatherParam(torch.autograd.Function):
+    """A zero3 shard → the whole (TP-local) parameter in ``dtype``; the
+    backward reduce-scatters the fp32 gradient back onto the shard."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, group, dtype):
+        ctx.dim, ctx.group, ctx.sdtype = dim, group, shard.dtype
+        return all_gather(shard.detach().to(dtype), group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.to(ctx.sdtype), ctx.group, ctx.dim), None, None, None
+
+
+class _Marker:
+    """A saved view of a gathered parameter, kept as its shard."""
+
+    __slots__ = ("shard", "dim", "group", "dtype", "size", "stride", "offset")
+
+    def __init__(self, shard, dim, group, dtype, t):
+        self.shard, self.dim, self.group, self.dtype = shard, dim, group, dtype
+        self.size, self.stride, self.offset = t.size(), t.stride(), t.storage_offset()
+
+
+class Regather:
+    """Per-layer ZeRO-3 gathers. :meth:`gather` makes the whole parameter;
+    while :meth:`saving` is active, autograd saves a view of a gathered
+    parameter as a marker (the shard and the view's geometry) instead of
+    the tensor, so the gathered copy is freed when the layer's forward ends
+    and gathered again when the backward unpacks it. A layer under full
+    recompute does not need this: its recompute gathers again."""
+
+    def __init__(self):
+        self._live: List[Tuple[int, torch.Tensor, int, Group, torch.dtype]] = []
+
+    def gather(self, shard: torch.Tensor, dim: int, group: Group, dtype: torch.dtype):
+        full = _GatherParam.apply(shard, dim, group, dtype)
+        self._live.append((full.untyped_storage().data_ptr(), shard, dim, group, dtype))
+        return full
+
+    def saving(self):
+        return torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack)
+
+    def release(self) -> None:
+        """End of the layer's forward: the storages are no longer matched."""
+        self._live.clear()
+
+    def _pack(self, t):
+        try:
+            ptr = t.untyped_storage().data_ptr()
+        except (RuntimeError, NotImplementedError):
+            return t
+        for p, shard, dim, group, dtype in self._live:
+            if p == ptr:
+                return _Marker(shard, dim, group, dtype, t)
+        return t
+
+    def _unpack(self, packed):
+        global regathered
+        if not isinstance(packed, _Marker):
+            return packed
+        regathered += 1
+        with torch.no_grad():
+            full = all_gather(packed.shard.detach().to(packed.dtype), packed.group, packed.dim)
+        return full.as_strided(packed.size, packed.stride, packed.offset)
+
+
+def gather_param(shard: torch.Tensor, dim: int, group: Group, dtype: torch.dtype):
+    """The whole parameter from its zero3 shard (no regather bookkeeping)."""
+    return _GatherParam.apply(shard, dim, group, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Redistribution between layer layouts
+# ---------------------------------------------------------------------------
+
+#: (batch axes, sequence axes) of an activation layout (``mesh.batch_spec``)
+ActLayout = Tuple[Axes, Axes]
+
+
+def _move(x: torch.Tensor, mesh: RankMesh, rank: int, world: Group, src: ActLayout,
+          dst: ActLayout) -> torch.Tensor:
+    """This rank's ``dst`` block from every rank's ``src`` block: one
+    all-gather over the world, then the pieces that cover the block, each
+    taken from the lowest rank that holds it."""
+    b, s = x.shape[0], x.shape[1]
+    rows, seq = b * 2 ** len(src[0]), s * 2 ** len(src[1])
+    blocks = all_gather(x.contiguous(), world, 0).reshape((mesh.world,) + tuple(x.shape))
+    owner = {}
+    for q in range(mesh.world):
+        owner.setdefault((mesh.index(q, src[0]), mesh.index(q, src[1])), q)
+    nb, ns = rows // 2 ** len(dst[0]), seq // 2 ** len(dst[1])
+    r0, c0 = mesh.index(rank, dst[0]) * nb, mesh.index(rank, dst[1]) * ns
+    row_pieces = []
+    for ri in range(r0 // b, (r0 + nb - 1) // b + 1):
+        lo_r, hi_r = max(r0, ri * b), min(r0 + nb, (ri + 1) * b)
+        seq_pieces = []
+        for si in range(c0 // s, (c0 + ns - 1) // s + 1):
+            lo_c, hi_c = max(c0, si * s), min(c0 + ns, (si + 1) * s)
+            q = owner[(ri, si)]
+            seq_pieces.append(blocks[q, lo_r - ri * b:hi_r - ri * b, lo_c - si * s:hi_c - si * s])
+        row_pieces.append(torch.cat(seq_pieces, dim=1) if len(seq_pieces) > 1 else seq_pieces[0])
+    out = torch.cat(row_pieces, dim=0) if len(row_pieces) > 1 else row_pieces[0]
+    return out.contiguous()
+
+
+class _Redistribute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, rank, world, src, dst):
+        ctx.args = (mesh, rank, world, src, dst)
+        return _move(x, mesh, rank, world, src, dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, rank, world, src, dst = ctx.args
+        return _move(g, mesh, rank, world, dst, src), None, None, None, None, None
+
+
+def redistribute(x: torch.Tensor, mesh: RankMesh, rank: int, world: Optional[Group],
+                 src: ActLayout, dst: ActLayout) -> torch.Tensor:
+    """Move an activation from layout ``src`` to ``dst`` (the reference's
+    ``constrain(x, activation_spec)`` at a layer boundary); the backward
+    moves the gradient back. Equal layouts move nothing."""
+    if tuple(map(tuple, src)) == tuple(map(tuple, dst)) or world is None or world.size == 1:
+        return x
+    return _Redistribute.apply(x, mesh, rank, world, src, dst)

@@ -1,34 +1,202 @@
-"""Single-device training runtime (the port's counterpart of
-``build_runtime`` in ``galvatron_tpu/parallel/hybrid.py`` at pp=1 on one
-device, with ``_make_layer_hook``'s per-layer recompute).
+"""Hybrid-parallel training runtime at pp=1 on ``torch.distributed`` (the
+port's counterpart of ``build_runtime`` and ``_make_layer_hook`` in
+``galvatron_tpu/parallel/hybrid.py``).
 
-``build_runtime`` returns a :class:`Runtime` whose ``train_step(state,
-batch)`` runs forward + backward (with sum-form micro-batch accumulation
-when ``chunks > 1``) and the AdamW update on fp32 master weights. The state
-``{"params", "opt", "step"}`` is updated IN PLACE (the reference's jitted
-step donates it); ``train_step`` returns the same dict and the loss as a
-0-d device tensor, so the caller decides when to synchronise. Per-layer
-DP/ZeRO/TP/SP/PP, strategy JSON and collectives are not ported yet
-(ROADMAP.md §1).
+Each decoder layer runs under its own strategy of the plan
+(``core/strategy.py``): a TP degree on consecutive or strided ranks,
+Megatron sequence parallelism, DDP, ZeRO-2 or ZeRO-3 over the ranks left
+for data parallelism, and recompute ``none`` / ``full`` / ``selective``; the
+embedding, final norm and head run under ``vocab_tp`` / ``vocab_sp`` /
+``embed_dp_type``. Where the JAX package states a sharding and lets GSPMD
+insert the collectives, this runtime issues them (``parallel/comm.py``):
+
+- at each layer boundary the activation moves from the previous layer's
+  (batch rows, sequence slice) to this layer's (``comm.redistribute``; the
+  backward is the same move back);
+- zero3 parameters are gathered before the layer's forward, freed after it
+  and gathered again in the backward (inside the recompute under full
+  checkpointing); their gradients are reduce-scattered over DP;
+- zero2 gradients are reduce-scattered, the optimizer updates this rank's
+  shard against its shard of the moments, and the parameter is gathered
+  back; DDP gradients are all-reduced;
+- gradients of parameters replicated over a TP group that saw only this
+  rank's sequence shard (norm scales and row-parallel biases under SP) are
+  summed over that group; without SP every TP rank computes the whole
+  gradient of a replicated parameter;
+- micro-batches (``chunks``) accumulate in sum form: the global token mean
+  divides by the token count all-reduced over the head's DP group.
+
+``train_step(state, batch)`` takes the GLOBAL (B, S+1) token batch on every
+rank (each rank keeps its rows) and updates this rank's state IN PLACE:
+``{"params", "opt", "step"}`` hold its shards. At world size 1 no process
+group exists and no collective runs: this is the single-device runtime.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from dataclasses import dataclass
-from typing import Any, Callable, Dict, Union
+import os
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from galvatron_tpu_torch.core.optim import AdamConfig, adamw_update, init_opt_state, tree_leaves
+from galvatron_tpu_torch.core.optim import AdamConfig, adamw_update, tree_leaves
+from galvatron_tpu_torch.core.strategy import HybridParallelConfig, LayerStrategy
 from galvatron_tpu_torch.device import resolve_device
 from galvatron_tpu_torch.models import modeling
 from galvatron_tpu_torch.models.modeling import ModelConfig
+from galvatron_tpu_torch.parallel import comm
+from galvatron_tpu_torch.parallel.mesh import Group, ProcessGroups, RankMesh, batch_spec
+from galvatron_tpu_torch.parallel.sharding import Layout, local_shape, param_layout, shard
 
 #: --global_checkpoint values → per-layer recompute mode
 CKPT_MODES = {0: "none", 1: "full", 2: "selective"}
 _PRECISION = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def embed_strategy(hp: HybridParallelConfig) -> LayerStrategy:
+    """The embedding / final norm / head strategy (the reference's)."""
+    return LayerStrategy(tp=hp.vocab_tp, tp_consec=True, dp_type=hp.embed_dp_type,
+                         sp=hp.vocab_sp)
+
+
+def refuse_unported(hp: HybridParallelConfig) -> None:
+    """Raise ``NotImplementedError`` for every plan feature the port does
+    not run yet, naming its ROADMAP item."""
+    if hp.pp > 1 or hp.vpp > 1:
+        raise NotImplementedError(
+            f"pipeline parallelism (pp={hp.pp}, vpp={hp.vpp}) is not ported yet: ROADMAP.md "
+            "§1.7 'Pipeline engines'; the port runs pp=1")
+    if hp.mixed_precision == "fp16":
+        raise NotImplementedError(
+            "--mixed_precision fp16 (dynamic loss scaling) is not ported yet (ROADMAP.md §1.1 "
+            "'fp16 and ramp-up'); use bf16 or fp32")
+    if hp.grad_overlap:
+        raise NotImplementedError(
+            "grad_overlap (per-layer ZeRO gradient buckets) is not ported yet: the rest of "
+            "ROADMAP.md §1.6")
+    for i, s in enumerate(hp.layer_strategies):
+        if s.cp > 1:
+            raise NotImplementedError(
+                f"layer {i}: context parallelism (cp={s.cp}) is not ported yet: ROADMAP.md §1.9")
+        if s.ep > 1:
+            raise NotImplementedError(
+                f"layer {i}: expert parallelism (ep={s.ep}) is not ported yet: ROADMAP.md §1.9")
+        if s.tp_overlap:
+            raise NotImplementedError(
+                f"layer {i}: tp_overlap (collective matmul) is not ported yet: the rest of "
+                "ROADMAP.md §1.6")
+
+
+# ---------------------------------------------------------------------------
+# Parameter placement
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class LeafPlan:
+    """Where one parameter lives: its full shape and annotation, the
+    layouts of the parameter and of its optimizer state, the stacked
+    projections on its TP dim, the dtype a zero3 gather produces, and (once
+    groups exist) its TP and DP groups."""
+
+    shape: tuple
+    annot: tuple
+    strategy: LayerStrategy
+    layout: Layout
+    opt_layout: Layout
+    pairs: tuple
+    gather_dtype: torch.dtype
+    tp_group: Optional[Group] = None
+    dp_group: Optional[Group] = None
+
+    @property
+    def tp_dim(self) -> Optional[int]:
+        return next((d for d, (ax, tag) in enumerate(zip(self.layout, self.annot))
+                     if ax and tag == "tp"), None)
+
+    @property
+    def zero3_dim(self) -> Optional[int]:
+        """The dim the parameter itself is split over DP (zero3), or None."""
+        return next((d for d, (ax, tag) in enumerate(zip(self.layout, self.annot))
+                     if ax and tag == "fsdp"), None)
+
+    @property
+    def opt_dim(self) -> Optional[int]:
+        """The dim its gradient and optimizer state are split over DP."""
+        return next((d for d, (ax, tag) in enumerate(zip(self.opt_layout, self.annot))
+                     if ax and tag == "fsdp"), None)
+
+    @property
+    def tp_sum(self) -> bool:
+        """Its gradient is summed over the TP group: replicated there, and
+        computed on a sequence shard."""
+        s = self.strategy
+        return s.sp and s.tp > 1 and self.tp_dim is None
+
+    def counts_in_norm(self) -> bool:
+        """This rank holds the lowest replica of the (reduced) gradient."""
+        tp_ok = self.tp_dim is not None or self.tp_group is None or self.tp_group.index == 0
+        dp_ok = self.opt_dim is not None or self.dp_group is None or self.dp_group.index == 0
+        return tp_ok and dp_ok
+
+
+def _leaf_plan(shape, annot, s: LayerStrategy, name: str, cfg: ModelConfig, mesh: RankMesh):
+    pairs = tuple(modeling.tp_pairs(name, cfg) if tag == "tp" else 1 for tag in annot)
+    dtype = cfg.param_dtype if name in ("scale", "bias") else cfg.dtype
+    return LeafPlan(shape=tuple(shape), strategy=s, annot=tuple(annot),
+                    layout=param_layout(shape, annot, mesh.axes, s),
+                    opt_layout=param_layout(shape, annot, mesh.axes, s, for_opt_state=True),
+                    pairs=pairs, gather_dtype=dtype)
+
+
+def zip_map(fn, tree, *others, name=None):
+    """``fn(leaf, *other_leaves, name)`` over matching trees (dicts keyed,
+    lists in order; a tuple is a leaf: a shape or an annotation); ``name``
+    is the leaf's dict key."""
+    if isinstance(tree, dict):
+        return {k: zip_map(fn, tree[k], *(o[k] for o in others), name=k) for k in tree}
+    if isinstance(tree, list):
+        return [zip_map(fn, t, *(o[i] for o in others), name=name) for i, t in enumerate(tree)]
+    return fn(tree, *others, name)
+
+
+def model_leaf_plans(cfg: ModelConfig, hp: HybridParallelConfig, mesh: RankMesh,
+                     shapes: Any) -> Dict[str, Any]:
+    """A :class:`LeafPlan` per parameter of ``shapes`` (a tree of full
+    shapes): per-layer strategies for the decoder layers, the embedding
+    strategy for everything else (the reference's ``model_param_specs``)."""
+    annots = modeling.model_annotations(cfg)
+    es = embed_strategy(hp)
+    out: Dict[str, Any] = {}
+    for key in shapes:
+        if key == "layers":
+            out[key] = [
+                zip_map(lambda sh, a, n, s=hp.layer_strategies[i]: _leaf_plan(sh, a, s, n, cfg, mesh),
+                         shapes[key][i], annots[key][i])
+                for i in range(len(shapes[key]))]
+        else:
+            out[key] = zip_map(lambda sh, a, n: _leaf_plan(sh, a, es, n, cfg, mesh),
+                                shapes[key], annots[key])
+    return out
+
+
+def param_shapes(cfg: ModelConfig) -> Any:
+    """The full parameter shapes of ``cfg``, without allocating them."""
+    return zip_map(lambda t, n: tuple(t.shape), modeling.init_model_params(cfg, 0, "meta"))
+
+
+def shard_tree(full: Any, plans: Any, mesh: RankMesh, rank: int) -> Any:
+    """``rank``'s pieces of a full parameter tree (tensors or numpy)."""
+    return zip_map(lambda t, lp, n: shard(t, lp.layout, mesh, rank, lp.pairs), full, plans)
+
+
+# ---------------------------------------------------------------------------
+# The runtime
+# ---------------------------------------------------------------------------
 
 
 @dataclass
@@ -36,11 +204,14 @@ class Runtime:
     cfg: ModelConfig
     device: torch.device
     chunks: int
-    ckpt: str
+    ckpt: str  # the layers' recompute mode, or 'per-layer' when they differ
     train_step: Callable
     eval_loss: Callable
     init_state: Callable
     state_from: Callable
+    world: int = 1
+    rank: int = 0
+    ckpts: List[str] = field(default_factory=list)  # per layer
 
 
 @functools.lru_cache(maxsize=8)
@@ -48,22 +219,37 @@ def _rope_tables(cfg: ModelConfig, seq: int, device: torch.device):
     return modeling.rope_tables(cfg, seq, device)
 
 
-def _make_layer_hook(cfg: ModelConfig, ckpt: str):
+def _layer_cfg(cfg: ModelConfig, ckpt: str) -> ModelConfig:
+    # full-layer recompute saves only the layer boundary: a nested gate-save
+    # policy inside it is pure overhead (the reference's rule)
+    return cfg.replace(mlp_recompute="off") if ckpt == "full" else cfg
+
+
+def _make_layer_hook(cfg: ModelConfig, ckpt: Union[str, List[str]], layer_fn=None,
+                     seq_len: Optional[int] = None):
     """Per-layer execution: 'full' recomputes the whole layer in the
     backward (saving only its input; the nested MLP policy is switched off
-    there, as the reference does), 'selective' only the attention core."""
-    layer_cfg = cfg.replace(mlp_recompute="off") if ckpt == "full" else cfg
+    there, as the reference does), 'selective' only the attention core.
+    ``ckpt`` is one mode for every layer or a list of per-layer modes;
+    ``layer_fn(i, x, lp, layer_cfg, cos_sin, ckpt)`` replaces the plain
+    ``decoder_layer`` call (the hybrid runtime's redistribution, ZeRO-3
+    gathers and TP region), whose input may be a sequence shard: the RoPE
+    tables then cover ``seq_len`` positions."""
 
     def hook(i: int, x, lp):
+        mode = ckpt if isinstance(ckpt, str) else ckpt[i]
+        layer_cfg = _layer_cfg(cfg, mode)
         cos_sin = None
         if layer_cfg.pos_embed == "rope":
-            cos_sin = _rope_tables(layer_cfg, x.shape[1], x.device)
+            cos_sin = _rope_tables(layer_cfg, seq_len or x.shape[1], x.device)
+        if layer_fn is not None:
+            return layer_fn(i, x, lp, layer_cfg, cos_sin, mode)
 
         def run(x_):
             return modeling.decoder_layer(x_, lp, layer_cfg, cos_sin,
-                                          remat_attn=ckpt == "selective")
+                                          remat_attn=mode == "selective")
 
-        if ckpt == "full" and torch.is_grad_enabled():
+        if mode == "full" and torch.is_grad_enabled():
             return checkpoint(run, x, use_reentrant=False)
         return run(x)
 
@@ -82,39 +268,184 @@ def _trainable(tree):
     return tree.detach().requires_grad_(True)
 
 
+def _world() -> tuple:
+    """(world size, rank) of the default process group; 1 rank when none
+    exists, and an error when the environment names a larger world that
+    was never initialised."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    env = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    if env > 1:
+        raise RuntimeError(
+            f"WORLD_SIZE={env} but no process group is initialised: call "
+            "core.trainer.init_distributed (cli train does) before build_runtime")
+    return 1, 0
+
+
+def _reduce_dp(g: torch.Tensor, lp: LeafPlan) -> torch.Tensor:
+    """A gradient's reduction over its DP group: nothing for zero3 (its
+    gather's backward reduce-scattered it), a reduce-scatter onto this
+    rank's optimizer shard for zero2, an all-reduce for DDP."""
+    if lp.zero3_dim is not None:
+        return g
+    if lp.opt_dim is not None:
+        return comm.reduce_scatter(g, lp.dp_group, lp.opt_dim)
+    return comm.all_reduce(g, lp.dp_group)
+
+
+def _opt_view(p: torch.Tensor, lp: LeafPlan) -> torch.Tensor:
+    """The part of a zero2 parameter this rank updates (the whole local
+    tensor otherwise)."""
+    if lp.zero3_dim is not None or lp.opt_dim is None:
+        return p
+    size = p.shape[lp.opt_dim] // lp.dp_group.size
+    return p.narrow(lp.opt_dim, lp.dp_group.index * size, size)
+
+
 def build_runtime(
     cfg: ModelConfig,
+    hp: Optional[HybridParallelConfig] = None,
     adam: AdamConfig = AdamConfig(),
     global_batch_size: int = 8,
     seq_len: int = 2048,
-    chunks: int = 1,
-    ckpt: Union[str, int] = "none",
-    mixed_precision: str = "bf16",
+    chunks: Optional[int] = None,
+    ckpt: Union[str, int, None] = None,
+    mixed_precision: Optional[str] = None,
     device=None,
 ) -> Runtime:
-    """The train/eval step for one model config on one device, on
-    (global_batch_size, seq_len + 1) token batches. ``ckpt``:
-    'none' | 'full' | 'selective' (or the --global_checkpoint integer);
-    ``mixed_precision``: 'fp32' | 'bf16' sets the compute dtype (weights
-    stay fp32 masters). ``device`` defaults to ``cuda`` and raises without a
-    card unless 'cpu' is asked for."""
+    """The train/eval step of ``cfg`` under the plan ``hp`` on
+    (global_batch_size, seq_len + 1) token batches. Without ``hp`` the plan
+    is uniform at tp=1 with ``chunks``, ``ckpt`` ('none' | 'full' |
+    'selective', or the --global_checkpoint integer) and
+    ``mixed_precision`` ('fp32' | 'bf16'); with ``hp`` those come from the
+    plan and must not be passed. The world is the default process group's
+    (one rank when there is none). ``device`` defaults to ``cuda`` and
+    raises without a card unless 'cpu' is asked for."""
     device = resolve_device(device)
     modeling.check_supported(cfg)
-    if mixed_precision == "fp16":
-        raise NotImplementedError(
-            "--mixed_precision fp16 (dynamic loss scaling) is not ported yet "
-            "(ROADMAP.md §1); use bf16 or fp32"
-        )
-    if mixed_precision not in _PRECISION:
-        raise ValueError(f"unknown mixed_precision {mixed_precision!r}")
-    cfg = cfg.replace(dtype=_PRECISION[mixed_precision])
-    ckpt = CKPT_MODES.get(ckpt, ckpt)
-    if ckpt not in ("none", "full", "selective"):
-        raise ValueError(f"unknown ckpt mode {ckpt!r}")
-    chunks = max(1, int(chunks))
+    if hp is None:
+        mixed_precision = mixed_precision or "bf16"
+        ckpt = CKPT_MODES.get(ckpt, ckpt) if ckpt is not None else "none"
+        if ckpt not in ("none", "full", "selective"):
+            raise ValueError(f"unknown ckpt mode {ckpt!r}")
+        if mixed_precision not in ("fp16",) + tuple(_PRECISION):
+            raise ValueError(f"unknown mixed_precision {mixed_precision!r}")
+        hp = HybridParallelConfig.uniform(
+            cfg.num_layers, ckpt=ckpt, chunks=max(1, int(chunks or 1)),
+            mixed_precision=mixed_precision, mlp_recompute=cfg.mlp_recompute)
+    elif chunks is not None or ckpt is not None or mixed_precision is not None:
+        raise ValueError("with a plan (hp), chunks / ckpt / mixed_precision come from the plan")
+    refuse_unported(hp)
+    if hp.mixed_precision not in _PRECISION:
+        raise ValueError(f"unknown mixed_precision {hp.mixed_precision!r}")
+    if hp.num_layers != cfg.num_layers:
+        raise ValueError(f"strategy has {hp.num_layers} layer entries but the model has "
+                         f"{cfg.num_layers} layers")
+    strategies = list(hp.layer_strategies)
+    es = embed_strategy(hp)
+    for i, s in enumerate(strategies):
+        modeling.check_tp_shapes(cfg, s.tp, f"layer {i}")
+    if cfg.vocab_size % es.tp:
+        raise ValueError(f"vocab {cfg.vocab_size} does not split over vocab_tp={es.tp}")
+    world, rank = _world()
+    hp.validate(world)
+    cfg = cfg.replace(dtype=_PRECISION[hp.mixed_precision], mlp_recompute=hp.mlp_recompute)
+    chunks = max(1, hp.chunks)
     if global_batch_size % chunks:
         raise ValueError(f"global batch {global_batch_size} not divisible by chunks {chunks}")
-    hook = _make_layer_hook(cfg, ckpt)
+    mesh = RankMesh(world)
+    mb_rows = global_batch_size // chunks
+    for i, s in enumerate(strategies + [es]):
+        what = f"layer {i}" if i < len(strategies) else "embedding/head"
+        try:
+            mesh.batch_rows(rank, s, mb_rows)
+            mesh.seq_slice(rank, s, seq_len)
+        except ValueError as e:
+            raise ValueError(f"{what} ({s}): {e}") from None
+    ckpts = [s.ckpt or "none" for s in strategies]  # LayerStrategy.ckpt: False | 'full' | 'selective'
+
+    axes_list = [mesh.axes.data_axes]
+    for s in strategies + [es]:
+        axes_list += [mesh.tp_axes(s), mesh.dp_axes(s)]
+    groups = ProcessGroups(mesh, rank, axes_list)
+    world_group = groups.get(mesh.axes.data_axes)
+    plans = model_leaf_plans(cfg, hp, mesh, param_shapes(cfg))
+    for lp in tree_leaves(plans):
+        lp.tp_group = groups.get(mesh.tp_axes(lp.strategy))
+        lp.dp_group = groups.get(mesh.dp_axes(lp.strategy))
+    leaf_plans = tree_leaves(plans)
+
+    def act_layout(s):
+        return batch_spec(mesh.axes, s)
+
+    layouts = [act_layout(s) for s in strategies]
+    embed_layout = act_layout(es)
+    tp_regions = [comm.TPRegion(groups.get(mesh.tp_axes(s)), s.sp) if s.tp > 1 else None
+                  for s in strategies]
+    vocab = comm.TPRegion(groups.get(mesh.tp_axes(es)), es.sp) if es.tp > 1 else None
+    embed_dp = groups.get(mesh.dp_axes(es))
+
+    def materialize(tree, tree_plans, regather=None):
+        """zero3 leaves gathered (in the dtype they are used in), the rest
+        as they are."""
+        def leaf(p, lp, name):
+            if lp.zero3_dim is None:
+                return p
+            if regather is not None:
+                return regather.gather(p, lp.zero3_dim, lp.dp_group, lp.gather_dtype)
+            return comm.gather_param(p, lp.zero3_dim, lp.dp_group, lp.gather_dtype)
+        return zip_map(leaf, tree, tree_plans)
+
+    has_zero3 = [any(lp.zero3_dim is not None for lp in tree_leaves(plans["layers"][i]))
+                 for i in range(len(strategies))]
+
+    def layer_fn(i, x, lp, layer_cfg, cos_sin, mode):
+        x = comm.redistribute(x, mesh, rank, world_group,
+                              layouts[i - 1] if i else embed_layout, layouts[i])
+        lplans = plans["layers"][i]
+
+        def run(x_, regather=None):
+            return modeling.decoder_layer(x_, materialize(lp, lplans, regather), layer_cfg,
+                                          cos_sin, remat_attn=mode == "selective",
+                                          tp=tp_regions[i])
+
+        grad = torch.is_grad_enabled()
+        if mode == "full" and grad:
+            # the recompute gathers the zero3 parameters again
+            return checkpoint(run, x, use_reentrant=False)
+        if has_zero3[i] and grad:
+            return _regathering(run, x)
+        return run(x)
+
+    def _regathering(run, x):
+        rg = comm.Regather()
+        with rg.saving():
+            y = run(x, rg)
+        rg.release()
+        return y
+
+    hook = _make_layer_hook(cfg, ckpts, layer_fn, seq_len)
+
+    def head_hook(x):
+        return comm.redistribute(x, mesh, rank, world_group, layouts[-1], embed_layout)
+
+    top_keys = [k for k in plans if k != "layers"]
+    top_zero3 = any(lp.zero3_dim is not None for k in top_keys for lp in tree_leaves(plans[k]))
+
+    def loss_sum(params, mb):
+        """(nll_sum, count) of this rank's rows of a micro-batch."""
+        rows = mesh.batch_rows(rank, es, mb.shape[0])
+        rg = comm.Regather() if top_zero3 and torch.is_grad_enabled() else None
+        top = {k: materialize(params[k], plans[k], rg) for k in top_keys}
+        run_params = dict(top, layers=params["layers"])
+        with rg.saving() if rg is not None else contextlib.nullcontext():
+            out = modeling.lm_loss_sum(run_params, mb[rows], cfg, layer_hook=hook, vocab=vocab,
+                                       head_hook=head_hook)
+        if rg is not None:
+            rg.release()
+        return out
 
     def _batch(batch) -> torch.Tensor:
         if tuple(batch.shape) != (global_batch_size, seq_len + 1):
@@ -122,55 +453,96 @@ def build_runtime(
                              f"got {tuple(batch.shape)}")
         return torch.as_tensor(batch).to(device=device, dtype=torch.long)
 
+    def token_count(batch) -> torch.Tensor:
+        """Loss tokens of the whole batch: this rank's rows of each
+        micro-batch, summed over the head's DP group."""
+        mbs = batch.reshape(chunks, mb_rows, -1)
+        rows = mesh.batch_rows(rank, es, mb_rows)
+        labels = modeling.split_batch(mbs[:, rows].reshape(-1, mbs.shape[-1]), cfg)[1]
+        n = (labels != -100).sum()
+        return comm.all_reduce(n, embed_dp)
+
+    def grad_norm(grads) -> torch.Tensor:
+        sq = sum(torch.sum(torch.square(g.float())) for g, lp in zip(grads, leaf_plans)
+                 if lp.counts_in_norm())
+        if not torch.is_tensor(sq):
+            sq = torch.zeros((), dtype=torch.float32, device=device)
+        return torch.sqrt(comm.all_reduce(sq, world_group))
+
     def train_step(state: Dict[str, Any], batch):
         params = state["params"]
         leaves = tree_leaves(params)
         for p in leaves:
             p.grad = None
         batch = _batch(batch)
-        if chunks == 1:
-            loss = modeling.lm_loss(params, batch, cfg, layer_hook=hook)
-            loss.backward()
-        else:
-            # sum-form accumulation: (nll_sum, token_count) per micro-batch,
-            # gradients of the sums accumulated in fp32, then one division,
-            # so the result is the global token-mean however the ignored
-            # tokens fall across chunks
-            tot_s = torch.zeros((), dtype=torch.float32, device=device)
-            tot_n = torch.zeros((), dtype=torch.long, device=device)
-            for mb in batch.reshape(chunks, batch.shape[0] // chunks, *batch.shape[1:]):
-                s, n = modeling.lm_loss_sum(params, mb, cfg, layer_hook=hook)
-                s.backward()
-                tot_s += s.detach()
-                tot_n += n
-            denom = torch.clamp_min(tot_n, 1).float()
-            loss = tot_s / denom
-            for p in leaves:
-                p.grad.div_(denom)
-        adamw_update(params, [p.grad for p in leaves], state["opt"], adam)
+        denom = torch.clamp_min(token_count(batch), 1).float()
+        # sum-form accumulation: gradients of the nll sums accumulate in
+        # fp32, then one division, so the result is the global token mean
+        # however the ignored tokens fall across chunks and ranks
+        tot_s = torch.zeros((), dtype=torch.float32, device=device)
+        for mb in batch.reshape(chunks, mb_rows, batch.shape[1]):
+            s, _ = loss_sum(params, mb)
+            (s / denom if chunks == 1 else s).backward()
+            tot_s += s.detach()
+        grads = []
+        for p, lp in zip(leaves, leaf_plans):
+            g = p.grad
+            if chunks > 1:
+                g.div_(denom)
+            g = _reduce_dp(g, lp)
+            if lp.tp_sum:
+                g = comm.all_reduce(g, lp.tp_group)
+            grads.append(g)
+        views = [_opt_view(p, lp) for p, lp in zip(leaves, leaf_plans)]
+        gn = grad_norm(grads) if adam.grad_clip is not None else None
+        adamw_update(views, grads, state["opt"], adam, grad_norm=gn)
+        with torch.no_grad():
+            for p, v, lp in zip(leaves, views, leaf_plans):
+                if v is not p:  # zero2: every rank's updated part back into the parameter
+                    p.copy_(comm.all_gather(v, lp.dp_group, lp.opt_dim))
         for p in leaves:
             p.grad = None
         state["step"] += 1
+        loss = comm.all_reduce(tot_s, embed_dp) / denom
         return state, loss.detach()
 
     @torch.no_grad()
     def eval_loss(state, batch):
-        return modeling.lm_loss(state["params"], _batch(batch), cfg, layer_hook=hook)
+        batch = _batch(batch)
+        denom = torch.clamp_min(token_count(batch), 1).float()
+        tot_s = torch.zeros((), dtype=torch.float32, device=device)
+        for mb in batch.reshape(chunks, mb_rows, batch.shape[1]):
+            tot_s += loss_sum(state["params"], mb)[0]
+        return comm.all_reduce(tot_s, embed_dp) / denom
 
     def state_from(params):
-        """A fresh train state over ``params`` (fp32 master tensors on the
-        runtime's device)."""
-        for t in tree_leaves(params):
-            if t.device != device or t.dtype != cfg.param_dtype:
+        """A fresh train state over this rank's parameter pieces (fp32
+        master tensors on the runtime's device; at world size 1, the whole
+        tree)."""
+        def check(t, lp, name):
+            want = local_shape(lp.shape, lp.layout)
+            if t.device != device or t.dtype != cfg.param_dtype or tuple(t.shape) != want:
                 raise ValueError(
-                    f"state_from needs {cfg.param_dtype} parameters on {device}, got "
-                    f"{t.dtype} on {t.device}"
-                )
-        return {"params": _trainable(params), "opt": init_opt_state(params), "step": 0}
+                    f"state_from needs {cfg.param_dtype} pieces of shape {want} on {device}, "
+                    f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+            return torch.zeros(local_shape(lp.shape, lp.opt_layout), dtype=torch.float32,
+                               device=device)
+        mu = zip_map(check, params, plans)
+        nu = zip_map(lambda t, n: torch.zeros_like(t), mu)
+        return {"params": _trainable(params), "opt": {"mu": mu, "nu": nu, "count": 0},
+                "step": 0}
 
     def init_state(seed: int):
-        return state_from(modeling.init_model_params(cfg, seed, device))
+        """Every rank draws the whole model from ``seed`` and keeps its
+        pieces, as tensors of their own (the whole tree is then freed)."""
+        def piece(t, lp, name):
+            if all(ax is None for ax in lp.layout):
+                return t
+            return shard(t, lp.layout, mesh, rank, lp.pairs).clone(
+                memory_format=torch.contiguous_format)
+        return state_from(zip_map(piece, modeling.init_model_params(cfg, seed, device), plans))
 
-    return Runtime(cfg=cfg, device=device, chunks=chunks, ckpt=ckpt,
+    uniform = ckpts[0] if len(set(ckpts)) == 1 else "per-layer"
+    return Runtime(cfg=cfg, device=device, chunks=chunks, ckpt=uniform,
                    train_step=train_step, eval_loss=eval_loss, init_state=init_state,
-                   state_from=state_from)
+                   state_from=state_from, world=world, rank=rank, ckpts=ckpts)

@@ -1,0 +1,208 @@
+"""Ranks on binary mesh axes, and the process groups of a plan (the port's
+counterpart of ``galvatron_tpu/parallel/mesh.py``).
+
+The JAX package factors its world W (at pp=1) into ``m = log2(W)`` binary
+axes ``x0..x{m-1}``, major to minor, over ``jax.devices()`` in order. Here
+rank r stands where device r stands there: its coordinate on axis ``x_i`` is
+bit ``m-1-i`` of r. A layer strategy picks axes the same way
+(:class:`MeshAxes`): TP of degree ``2^k`` takes the minor k axes when
+consecutive, the major k when strided, and DP is the complement. A tensor
+dimension split over an axis tuple is split major to minor, so a rank's
+shard index along it is its coordinates on those axes read as a binary
+number (:meth:`RankMesh.index`).
+
+:class:`ProcessGroups` makes one ``torch.distributed`` group per group of
+ranks a plan needs, once, in the same order on every rank (``new_group`` is
+collective); a group of one rank gets no process group and issues no
+collective.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+from galvatron_tpu_torch.core.strategy import LayerStrategy
+
+Axes = Tuple[str, ...]
+
+
+def _log2(n: int) -> int:
+    k = int(round(math.log2(n))) if n >= 1 else -1
+    if k < 0 or 2**k != n:
+        raise ValueError(f"{n} is not a power of two")
+    return k
+
+
+@dataclass(frozen=True)
+class MeshAxes:
+    """Axis-name bookkeeping for the factored mesh (the reference's rules)."""
+
+    pp: str
+    data_axes: Axes  # binary axes, major → minor
+
+    def tp_axes(self, tp: int, consec: bool = True) -> Axes:
+        """Axes carrying tensor parallelism for a layer with degree ``tp``."""
+        k = _log2(tp)
+        if k > len(self.data_axes):
+            raise ValueError(f"tp={tp} exceeds mesh data extent 2^{len(self.data_axes)}")
+        if k == 0:
+            return ()
+        return self.data_axes[-k:] if consec else self.data_axes[:k]
+
+    def dp_axes(self, tp: int, consec: bool = True, cp: int = 1) -> Axes:
+        """Axes carrying (sharded-)data parallelism: the complement of TP∪CP."""
+        used = set(self.tp_axes(tp, consec)) | set(self.cp_axes(tp, consec, cp))
+        return tuple(a for a in self.data_axes if a not in used)
+
+    def cp_axes(self, tp: int, consec: bool = True, cp: int = 1) -> Axes:
+        """Context-parallel axes: minor axes of the non-TP block."""
+        if cp == 1:
+            return ()
+        k = _log2(cp)
+        rest = [a for a in self.data_axes if a not in set(self.tp_axes(tp, consec))]
+        if k > len(rest):
+            raise ValueError(f"cp={cp} exceeds remaining mesh extent")
+        return tuple(rest[-k:])
+
+
+def build_axes(world: int, axis_prefix: str = "x") -> MeshAxes:
+    """The axes of a pp=1 world of ``world`` ranks (a power of two)."""
+    m = _log2(world)
+    return MeshAxes(pp="pp", data_axes=tuple(f"{axis_prefix}{i}" for i in range(m)))
+
+
+def data_parallel_degree(axes: MeshAxes, s: LayerStrategy) -> int:
+    return 2 ** len(axes.dp_axes(s.tp, s.tp_consec, s.cp))
+
+
+def batch_spec(axes: MeshAxes, s: LayerStrategy) -> Tuple[Axes, Axes]:
+    """(batch axes, sequence axes) of a (batch, seq, ...) activation entering
+    a layer: the batch over the DP axes, the sequence over the TP axes under
+    Megatron-SP (the reference's ``batch_spec``; cp is not ported)."""
+    dp = axes.dp_axes(s.tp, s.tp_consec, s.cp)
+    seq = axes.tp_axes(s.tp, s.tp_consec) if s.sp else ()
+    return dp, seq
+
+
+class RankMesh:
+    """The ranks of a pp=1 world on its binary axes."""
+
+    def __init__(self, world: int):
+        self.world = world
+        self.axes = build_axes(world)
+        self._pos = {a: i for i, a in enumerate(self.axes.data_axes)}
+
+    def coord(self, rank: int, axis: str) -> int:
+        m = len(self.axes.data_axes)
+        return (rank >> (m - 1 - self._pos[axis])) & 1
+
+    def index(self, rank: int, axes: Axes) -> int:
+        """Shard index of ``rank`` along a dimension split over ``axes``."""
+        i = 0
+        for a in axes:
+            i = 2 * i + self.coord(rank, a)
+        return i
+
+    def group(self, rank: int, axes: Axes) -> List[int]:
+        """The ranks that differ from ``rank`` only on ``axes``, in shard
+        index order."""
+        m = len(self.axes.data_axes)
+        base = rank
+        for a in axes:
+            base &= ~(1 << (m - 1 - self._pos[a]))
+        out = []
+        for i in range(2 ** len(axes)):
+            r = base
+            for j, a in enumerate(axes):
+                if (i >> (len(axes) - 1 - j)) & 1:
+                    r |= 1 << (m - 1 - self._pos[a])
+            out.append(r)
+        return out
+
+    def partition(self, axes: Axes) -> List[List[int]]:
+        """Every group over ``axes``, ordered by its first rank."""
+        seen, out = set(), []
+        for r in range(self.world):
+            if r not in seen:
+                g = self.group(r, axes)
+                seen.update(g)
+                out.append(g)
+        return out
+
+    def tp_axes(self, s: LayerStrategy) -> Axes:
+        return self.axes.tp_axes(s.tp, s.tp_consec)
+
+    def dp_axes(self, s: LayerStrategy) -> Axes:
+        return self.axes.dp_axes(s.tp, s.tp_consec, s.cp)
+
+    def batch_rows(self, rank: int, s: LayerStrategy, rows: int) -> slice:
+        """The rows of a ``rows``-row batch that ``rank`` holds under ``s``:
+        the batch split over the DP axes. Uneven splits (which GSPMD pads)
+        raise."""
+        dp_axes, _ = batch_spec(self.axes, s)
+        return _part(rows, self.index(rank, dp_axes), 2 ** len(dp_axes), "batch rows")
+
+    def seq_slice(self, rank: int, s: LayerStrategy, seq: int) -> slice:
+        """The sequence positions ``rank`` holds under ``s``: all of them, or
+        its TP shard under sequence parallelism."""
+        _, seq_axes = batch_spec(self.axes, s)
+        return _part(seq, self.index(rank, seq_axes), 2 ** len(seq_axes), "sequence")
+
+
+def _part(n: int, i: int, parts: int, what: str) -> slice:
+    if n % parts:
+        raise ValueError(f"{what} {n} do not split evenly over {parts} ranks (the port "
+                         "does not pad uneven shards)")
+    size = n // parts
+    return slice(i * size, (i + 1) * size)
+
+
+@dataclass
+class Group:
+    """One group of ranks: ``ranks`` in shard index order, this rank's
+    position in it, and its process group (None for a group of one)."""
+
+    ranks: Tuple[int, ...]
+    index: int
+    pg: Optional[object] = None
+    backend: Optional[str] = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+class ProcessGroups:
+    """Process groups of a plan, made once and in the same order on every
+    rank: for each axis tuple in ``axes_list`` (sorted), every group of that
+    partition in order of its first rank. At world size 1 nothing is
+    created."""
+
+    def __init__(self, mesh: RankMesh, rank: int, axes_list: Iterable[Axes]):
+        self.mesh, self.rank = mesh, rank
+        self._groups: Dict[Axes, Group] = {}
+        wanted = sorted({tuple(a) for a in axes_list}, key=lambda a: (len(a), a))
+        for axes in wanted:
+            mine = None
+            for ranks in mesh.partition(axes):
+                pg = None
+                if len(ranks) > 1:
+                    import torch.distributed as dist
+
+                    pg = dist.new_group(ranks)  # the default group's backend
+                if rank in ranks:
+                    mine = Group(tuple(ranks), ranks.index(rank), pg, _backend_of(pg))
+            self._groups[axes] = mine
+
+    def get(self, axes: Sequence[str]) -> Group:
+        return self._groups[tuple(axes)]
+
+
+def _backend_of(pg) -> Optional[str]:
+    if pg is None:
+        return None
+    import torch.distributed as dist
+
+    return str(dist.get_backend(pg))

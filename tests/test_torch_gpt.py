@@ -188,7 +188,7 @@ def test_five_step_trajectory_matches_jax_build_runtime(chunks):
                                 global_batch_size=4, seq_len=64)
     ref = _jax_params(jcfg, seed=5)
     jstate = jrt.init_state_from(jax.tree.map(jnp.asarray, ref))
-    trt = thybrid.build_runtime(tcfg, topt.AdamConfig(**adam), global_batch_size=4, seq_len=64,
+    trt = thybrid.build_runtime(tcfg, adam=topt.AdamConfig(**adam), global_batch_size=4, seq_len=64,
                                 chunks=chunks, mixed_precision="fp32", device="cpu")
     tstate = trt.state_from(bridge.params_from_jax(ref, tcfg, "cpu"))
     loader = tdl.build_dataloader(tcfg, 4, 64, seed=9)

@@ -452,7 +452,7 @@ def _train_steps_match_cpu(family, **kw):
     losses = {}
     # the CPU run last: its state updates cpu_params in place
     for dev, precision in (("cuda", "fp32"), ("cuda", "bf16"), ("cpu", "fp32")):
-        rt = build_runtime(cfg, adam, global_batch_size=2, seq_len=128,
+        rt = build_runtime(cfg, adam=adam, global_batch_size=2, seq_len=128,
                            mixed_precision=precision, device=dev)
         state = rt.state_from(_to(cpu_params, dev))
         before, norm_before = _path_launches(family), _norm_launches(family)
@@ -647,3 +647,49 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def test_two_ranks_sharing_the_card_over_gloo_train_like_one(cuda, tmp_path):
+    """Two ``cli train`` ranks on card 0 (LOCAL_RANK 0 each) over gloo, a
+    plan that changes its DP degree at every boundary (TP + SP, zero3 under
+    full recompute, selective, zero2; vocab TP), fp32: the losses of 3 steps
+    match the same layers' plan at world size 1 on the card."""
+    import os
+    import sys
+    from pathlib import Path
+
+    from galvatron_tpu_torch import cli
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig, LayerStrategy
+    from galvatron_tpu_torch.parallel.launch import launch_local
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    root = Path(__file__).resolve().parents[1]
+    ckpt = ["none", "full", "selective", "none"]
+    plans = {
+        1: HybridParallelConfig(layer_strategies=[LayerStrategy(ckpt=c) for c in ckpt],
+                                mixed_precision="fp32"),
+        2: HybridParallelConfig(layer_strategies=[
+            LayerStrategy(tp=2, sp=True), LayerStrategy(dp_type="zero3", ckpt="full"),
+            LayerStrategy(tp=2, ckpt="selective"), LayerStrategy(dp_type="zero2")],
+            vocab_tp=2, mixed_precision="fp32"),
+    }
+    losses = {}
+    for world, hp in plans.items():
+        plan, metrics = tmp_path / f"plan{world}.json", tmp_path / f"m{world}.jsonl"
+        hp.save(str(plan))
+        argv = ["train", "--num_layers", "4", "--hidden_size", "256", "--num_heads", "2",
+                "--ffn_dim", "512", "--vocab_size", "256", "--seq_length", "256",
+                "--global_train_batch_size", "4", "--train_iters", "3",
+                "--galvatron_config_path", str(plan), "--metrics_path", str(metrics)]
+        if world == 1:
+            assert cli.main(argv) == 0
+        else:
+            ranks = launch_local(
+                [sys.executable, "-m", "galvatron_tpu_torch.cli", *argv, "--dist_backend",
+                 "gloo"], 2, timeout_s=300, local_ranks=[0, 0], cwd=str(root),
+                env=dict(os.environ, PYTHONPATH=str(root)))
+            assert all(r.returncode == 0 for r in ranks), [r.output[-2000:] for r in ranks]
+        losses[world] = [r["loss"] for r in read_metrics(str(metrics))
+                         if r["event"] == "train_iter"]
+    assert len(losses[2]) == 3
+    np.testing.assert_allclose(losses[2], losses[1], atol=1e-4, rtol=0)

@@ -38,10 +38,38 @@ def test_importing_every_module_loads_no_jax():
     assert int(r.stdout.split()[-1]) >= 20  # every module really was imported
 
 
-@pytest.mark.parametrize("path", sorted(
-    [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py", "experiments/torch_decode_profile.py"]
-))
+#: the hybrid-parallel runtime's modules (strategy codec, ranks and groups,
+#: sharding rules, collectives, the local launcher)
+PARALLEL_MODULES = ("galvatron_tpu_torch.core.strategy", "galvatron_tpu_torch.parallel.mesh",
+                    "galvatron_tpu_torch.parallel.sharding", "galvatron_tpu_torch.parallel.comm",
+                    "galvatron_tpu_torch.parallel.hybrid", "galvatron_tpu_torch.parallel.launch")
+SCANNED = sorted([str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
+                 + ["chip_smoke.py", "experiments/torch_decode_profile.py"])
+
+
+def test_the_scan_covers_the_parallel_modules():
+    for m in PARALLEL_MODULES:
+        assert m.replace(".", "/") + ".py" in SCANNED
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_module_alone_loads_no_jax(module):
+    """Each module of the hybrid runtime, imported first and alone in a
+    fresh interpreter, pulls in neither JAX nor the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'galvatron_tpu' or m.startswith('galvatron_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("path", SCANNED)
 def test_no_source_imports_jax_or_the_jax_package(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -105,3 +133,19 @@ def test_build_runtime_raises_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_runtime(cfg)
     assert build_runtime(cfg, device="cpu").device.type == "cpu"
+
+
+def test_a_rank_without_a_visible_card_raises(monkeypatch):
+    """``cuda:LOCAL_RANK`` must be visible: a rank never wraps around onto
+    fewer cards, and no card at all is the usual error."""
+    from galvatron_tpu_torch.device import rank_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setenv("LOCAL_RANK", "2")
+    with pytest.raises(RuntimeError, match="LOCAL_RANK=2 but only 2"):
+        rank_device("cuda")
+    assert rank_device("cpu").type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        rank_device(None)
