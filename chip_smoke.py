@@ -128,6 +128,24 @@ its result line:
    and iter_ms (a gloo-loopback transport figure, not a parallelism
    result). 12b (phase name ``nccl``): the same over NCCL on cards 0 and
    1 where the machine has two; otherwise reported absent.
+13. pipelines through the same ``--rank-worker`` launcher and strategy
+   JSONs (phase name ``pipeline``): (a) four ranks share card 0 over gloo,
+   pp=2 x tp=2 (SP), 1F1B, fp32, llama-7b width at 2 layers, batch 4 x 512,
+   chunks 2, 3 steps: losses within 1e-3 of the same layers at world size 1
+   in this process and every rank's pieces within AdamW's band of its
+   parameters; (b) two ranks share the card, pp=2, bf16, llama-7b width at
+   phase 7's 4 layers (batch 8 x 2048), chunks 8, under GPipe, 1F1B and
+   interleaved 1F1B (vpp=2), 3 steps each: losses within 2e-2 relative of
+   phase 11's, each rank's blocked flash forward and backward launched
+   (its stage's layers x 8 x 3) times on the TMA route, and 1F1B's stage-0
+   peak memory below GPipe's; (c) gpt-1.5b at all 48 layers, 1F1B over
+   the division 25 / 23, two ranks on the card, batch 8 x 1024, chunks 4,
+   3 steps: the grid kernels and the tied table across stages, losses
+   within 2e-2 relative of phase 8's, each rank's grid kernels (its
+   stage's layers x 4 x 3) on the TMA route. Host-staged messages, p2p
+   counts, iter_ms (a gloo transport figure) and peak memory per rank.
+   13b (phase name ``nccl``): (b) over NCCL on cards 0 and 1 where the
+   machine has two, beside phases 11 and 12b; otherwise reported absent.
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
@@ -657,23 +675,29 @@ def grid_bounds(dtype, b, h, kvh, s, d, causal, rope, out_esz):
     return out
 
 
-def device_ms_by_name(torch, fn, names, iters=10):
+def device_ms_by_name(torch, fn, names, iters=10, windows=3):
     """Mean device time per call of the kernels whose names contain each of
-    ``names``, from a torch.profiler window over ``iters`` calls."""
+    ``names``, from a torch.profiler window over ``iters`` calls. A window in
+    which the tracer recorded none of them is taken again, up to ``windows``
+    in all (seen on card machines: a window missing every kernel of a run
+    whose launches the wrappers counted)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {n: 0.0 for n in names}
-    for kname, start, end in _kernel_intervals(prof):
-        for n in names:
-            if n in kname:
-                out[n] += (end - start) / 1e3 / iters
-    check(all(v > 0 for v in out.values()), f"the profiler saw none of {names}: {out}")
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        intervals = _kernel_intervals(prof)
+        out = {n: sum(end - start for kname, start, end in intervals if n in kname) / 1e3 / iters
+               for n in names}
+        if all(v > 0 for v in out.values()):
+            break
+    seen = sorted({kname[:60] for kname, _, _ in intervals})
+    check(all(v > 0 for v in out.values()),
+          f"the profiler saw none of {names} in {windows} windows: {out}; it saw {seen[:8]}")
     return out
 
 
@@ -1875,9 +1899,210 @@ def phase_hybrid_ranks(torch, smi, tmpdir, backend, local_ranks, world1):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: pipelines (cli train --pp_deg through a strategy JSON)
+# ---------------------------------------------------------------------------
+
+PIPE_STEPS = 3
+# (a) fp32 parity: pp=2 x tp=2 (SP), 1F1B, llama-7b width at 2 layers
+PIPE_FP32 = dict(layers=2, batch=4, seq=512, chunks=2)
+# (b) bf16 at phase 7's shape: chunks 8 under each schedule (pipeline_type, vpp)
+PIPE_BF16_CHUNKS = 8
+PIPE_SCHEDULES = (("gpipe", 1), ("pipedream_flush", 1), ("pipedream_flush", 2))
+# (c) GPT-2 XL at all 48 layers, 1F1B, an uneven division
+PIPE_GPT_DIVISION = (25, 23)
+PIPE_GPT_CHUNKS = 4
+
+
+def _pipe_plan(path, layers, precision, pp=2, tp=1, chunks=1, ptype="pipedream_flush", vpp=1,
+               division=None):
+    """Write a uniform strategy JSON (SP whenever tp > 1)."""
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+
+    hp = HybridParallelConfig.uniform(layers, pp=pp, vpp=vpp, tp=tp, sp=tp > 1, chunks=chunks,
+                                      pipeline_type=ptype, mixed_precision=precision)
+    if division:
+        hp.pp_division = list(division)
+    hp.save(path)
+    return hp
+
+
+def _schedule_name(ptype, vpp):
+    return ("interleaved " if vpp > 1 else "") + ("1F1B" if ptype == "pipedream_flush" else "GPipe")
+
+
+def _steady(r):
+    return sum(r["iter_times"][1:]) / (len(r["iter_times"]) - 1)
+
+
+def _check_stage_launches(tag, ranks, model, chunks, steps):
+    """Each rank launched its family's flash kernels (stage layers x chunks)
+    x steps times, every call on the TMA route, and nothing else."""
+    for r in ranks:
+        want = path_counts(model, len(r["stage_layers"]) * chunks, steps, False)
+        check(r["launches"] == want,
+              f"phase {tag} rank {r['rank']}: launches {r['launches']}, expected {want}")
+        check(all(v["tma"] == r["launches"][k] and v["cuda_core"] == 0
+                  for k, v in r["routes"].items()),
+              f"phase {tag} rank {r['rank']}: routes {r['routes']}")
+
+
+def phase_pipeline_fp32(torch, smi, tmpdir):
+    """Phase 13 (a): four ranks share card 0 over gloo, pp=2 x tp=2 (SP),
+    1F1B, in fp32, against the same layers at world size 1 in this process."""
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron
+
+    c = PIPE_FP32
+    plan1 = os.path.join(tmpdir, "pipe_fp32_w1.json")
+    _pipe_plan(plan1, c["layers"], "fp32", pp=1, chunks=c["chunks"])
+    plan4 = os.path.join(tmpdir, "pipe_fp32_w4.json")
+    _pipe_plan(plan4, c["layers"], "fp32", pp=2, tp=2, chunks=c["chunks"])
+    t0 = time.perf_counter()
+    ref = trainer.train(initialize_galvatron("train", _hybrid_argv(
+        plan1, c["layers"], c["batch"], c["seq"], PIPE_STEPS)))
+    ref_path = os.path.join(tmpdir, "pipe_ref_params.pt")
+    torch.save(_to(ref["state"]["params"], "cpu"), ref_path)
+    ref_losses = ref["losses"]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    outdir = os.path.join(tmpdir, "pipe_fp32")
+    os.makedirs(outdir)
+    ranks = _launch_ranks(_hybrid_argv(plan4, c["layers"], c["batch"], c["seq"], PIPE_STEPS),
+                          outdir, "gloo", (0, 0, 0, 0), ("--ref-params", ref_path))
+    os.remove(ref_path)
+    band = 2 * PIPE_STEPS * 1e-4  # AdamW's band at cli train's lr, as phase 12 (a)
+    diff = max(abs(a - b) for a, b in zip(ranks[0]["losses"], ref_losses))
+    pdiff = max(r["param_max_abs_diff"] for r in ranks)
+    check(all(r["losses"] == ranks[0]["losses"] for r in ranks), "13 (a): ranks report other losses")
+    check(diff <= HYBRID_FP32_LOSS_TOL, f"phase 13 (a): losses {ranks[0]['losses']} vs world "
+          f"size 1 {ref_losses}")
+    check(pdiff <= band, f"phase 13 (a): parameters {pdiff} from world size 1 (band {band})")
+    check(sorted(r["stage"] for r in ranks) == [0, 0, 1, 1], "phase 13 (a): stages")
+    res = {"card": smi, "layers": c["layers"], "batch": c["batch"], "seq": c["seq"],
+           "chunks": c["chunks"], "steps": PIPE_STEPS, "plan": "pp=2 x tp=2 (SP), 1F1B, fp32",
+           "losses": ranks[0]["losses"], "world1_losses": ref_losses, "max_abs_loss_diff": diff,
+           "tolerance": HYBRID_FP32_LOSS_TOL, "param_max_abs_diff": pdiff, "param_band": band,
+           "p2p": [r["p2p"] for r in ranks], "seconds": time.perf_counter() - t0}
+    log("phase 13 (a) pipeline fp32:", json.dumps(res))
+    RESULTS["pipeline_fp32"] = res
+    return res
+
+
+def phase_pipeline_bf16(torch, smi, tmpdir, backend, local_ranks, world1):
+    """Phase 13 (b) (two ranks sharing card 0 over gloo) or 13b (two cards
+    over NCCL): llama-7b width at phase 7's 4 layers and shape, pp=2, chunks
+    8, under GPipe, 1F1B and interleaved 1F1B (vpp=2), against phase 11's
+    losses; 1F1B's stage 0 must peak below GPipe's."""
+    import numpy as np
+
+    tag = "13 (b)" if backend == "gloo" else "13b"
+    _, layers, bsz, seq = TRAIN_PATHS["llama"]
+    w1 = world1["losses"][:PIPE_STEPS]
+    out = {"card": smi, "backend": backend, "local_ranks": list(local_ranks), "layers": layers,
+           "batch": bsz, "seq": seq, "chunks": PIPE_BF16_CHUNKS, "steps": PIPE_STEPS,
+           "phase11_losses": w1, "tolerance": HYBRID_BF16_LOSS_RTOL, "runs": {}}
+    t0 = time.perf_counter()
+    for ptype, vpp in PIPE_SCHEDULES:
+        name = _schedule_name(ptype, vpp)
+        slug = f"{ptype}_vpp{vpp}_{backend}"
+        plan = os.path.join(tmpdir, f"pipe_bf16_{slug}.json")
+        _pipe_plan(plan, layers, "bf16", chunks=PIPE_BF16_CHUNKS, ptype=ptype, vpp=vpp)
+        outdir = os.path.join(tmpdir, f"pipe_bf16_{slug}")
+        os.makedirs(outdir)
+        ranks = _launch_ranks(_hybrid_argv(plan, layers, bsz, seq, PIPE_STEPS), outdir, backend,
+                              local_ranks)
+        losses = ranks[0]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, w1))
+        check(all(np.isfinite(losses)), f"phase {tag} {name}: non-finite losses {losses}")
+        check(rel <= HYBRID_BF16_LOSS_RTOL, f"phase {tag} {name}: losses {losses} vs phase 11 {w1}")
+        _check_stage_launches(f"{tag} {name}", ranks, "llama", PIPE_BF16_CHUNKS, PIPE_STEPS)
+        for r in ranks:
+            check((r["host_staged"] > 0) == (backend == "gloo"),
+                  f"phase {tag} {name} rank {r['rank']}: {r['host_staged']} host-staged messages")
+        by_stage = sorted(ranks, key=lambda r: r["stage"])
+        out["runs"][name] = {
+            "losses": losses, "max_rel_loss_diff": rel,
+            "stage_layers": [r["stage_layers"] for r in by_stage],
+            "launches": [{k: v for k, v in r["launches"].items() if v} for r in by_stage],
+            "p2p": [r["p2p"] for r in by_stage],
+            "host_staged": [r["host_staged"] for r in by_stage],
+            "iter_ms_mean_from_2": [_steady(r) for r in by_stage],
+            "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in by_stage]}
+        log(f"phase {tag} pipeline bf16 {name}:", json.dumps(out["runs"][name]))
+    mem = {n: out["runs"][n]["max_memory_allocated_gb"][0] for n in ("GPipe", "1F1B")}
+    check(mem["1F1B"] < mem["GPipe"], f"phase {tag}: 1F1B's stage-0 peak {mem['1F1B']} GB is "
+          f"not below GPipe's {mem['GPipe']} GB")
+    out["stage0_peak_gb"] = mem
+    out["iter_ms_is"] = ("a gloo-loopback transport figure, not a parallelism result"
+                         if backend == "gloo" else "NCCL on two cards")
+    out["seconds"] = time.perf_counter() - t0
+    RESULTS[f"pipeline_bf16_{backend}"] = out
+    return out
+
+
+def phase_pipeline_gpt(torch, smi, tmpdir, gpt_losses):
+    """Phase 13 (c): gpt-1.5b at all 48 layers, 1F1B over the division
+    25 / 23, two ranks sharing card 0 over gloo: the grid kernels and the
+    tied table across stages, against phase 8's losses."""
+    import numpy as np
+
+    preset, layers, bsz, seq = TRAIN_PATHS["gpt"]
+    plan = os.path.join(tmpdir, "pipe_gpt.json")
+    _pipe_plan(plan, layers, "bf16", chunks=PIPE_GPT_CHUNKS, division=PIPE_GPT_DIVISION)
+    outdir = os.path.join(tmpdir, "pipe_gpt")
+    os.makedirs(outdir)
+    t0 = time.perf_counter()
+    argv = ["--model_size", preset, "--global_train_batch_size", str(bsz),
+            "--train_iters", str(PIPE_STEPS), "--galvatron_config_path", plan]
+    ranks = _launch_ranks(argv, outdir, "gloo", (0, 0))
+    ref = gpt_losses[:PIPE_STEPS]
+    losses = ranks[0]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    check(all(np.isfinite(losses)), f"phase 13 (c): non-finite losses {losses}")
+    check(rel <= HYBRID_BF16_LOSS_RTOL, f"phase 13 (c): losses {losses} vs phase 8 {ref}")
+    by_stage = sorted(ranks, key=lambda r: r["stage"])
+    check([len(r["stage_layers"]) for r in by_stage] == list(PIPE_GPT_DIVISION),
+          f"phase 13 (c): stage layers {[r['stage_layers'] for r in by_stage]}")
+    _check_stage_launches("13 (c)", ranks, "gpt", PIPE_GPT_CHUNKS, PIPE_STEPS)
+    res = {"card": smi, "model": preset, "layers": layers, "batch": bsz, "seq": seq,
+           "division": list(PIPE_GPT_DIVISION), "chunks": PIPE_GPT_CHUNKS, "steps": PIPE_STEPS,
+           "schedule": "1F1B", "losses": losses, "phase8_losses": ref, "max_rel_loss_diff": rel,
+           "tolerance": HYBRID_BF16_LOSS_RTOL,
+           "launches": [{k: v for k, v in r["launches"].items() if v} for r in by_stage],
+           "p2p": [r["p2p"] for r in by_stage],
+           "iter_ms_mean_from_2": [_steady(r) for r in by_stage],
+           "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in by_stage],
+           "iter_ms_is": "a gloo-loopback transport figure, not a parallelism result",
+           "seconds": time.perf_counter() - t0}
+    log("phase 13 (c) pipeline gpt-1.5b:", json.dumps(res))
+    RESULTS["pipeline_gpt"] = res
+    return res
+
+
+def _gpt_reference_losses(torch, tmpdir, train_res):
+    """Phase 8's losses, or (when phase 8 did not run) the same ``cli
+    train`` for the steps phase 13 (c) compares."""
+    if "gpt" in train_res:
+        return train_res["gpt"]["losses"]
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron
+
+    preset, _, bsz, _ = TRAIN_PATHS["gpt"]
+    out = trainer.train(initialize_galvatron("train", [
+        "--model_size", preset, "--global_train_batch_size", str(bsz),
+        "--train_iters", str(PIPE_STEPS)]))
+    losses = out["losses"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
 def rank_worker(outdir, argv, ref_params=None) -> int:
-    """One rank of phase 12: ``cli train``'s own call (``trainer.train`` of
-    the parsed flags), with the flash wrappers' launches also counted by
+    """One rank of phases 12-13: ``cli train``'s own call (``trainer.train``
+    of the parsed flags), with the flash wrappers' launches also counted by
     the head count they ran at; writes ``rank<r>.json`` (and, with
     ``ref_params``, the largest difference of this rank's pieces from the
     world-size-1 parameters)."""
@@ -1909,8 +2134,10 @@ def rank_worker(outdir, argv, ref_params=None) -> int:
            "iter_times": out["iter_times"], "launches": kernel_counts(),
            "routes": {k: {r: n - before[k][r] for r, n in v.items()}
                       for k, v in route_counts().items()},
-           "heads": heads, "host_staged": out["host_staged"],
-           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "heads": heads, "host_staged": out["host_staged"], "p2p": out["p2p"],
+           "stage": out["stage"], "stage_layers": out["stage_layers"],
+           "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                       if torch.cuda.is_available() else None)}
     if ref_params:
         cfg = model_config_from_args(ns)
         hp = HybridParallelConfig.load(ns.galvatron_config_path)
@@ -1928,7 +2155,7 @@ def rank_worker(outdir, argv, ref_params=None) -> int:
 
 #: the phases by name, for ``--phases``; a full run takes them all
 PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train", "hybrid",
-          "nccl")
+          "pipeline", "nccl")
 
 
 def main() -> int:
@@ -1939,7 +2166,7 @@ def main() -> int:
                     f"({', '.join(PHASES)}; the card and the build always run). Only a full "
                     "run prints the kernels line and the result line")
     ap.add_argument("--rank-worker", default=None, metavar="OUTDIR",
-                    help="(phase 12) run as one rank: the flags after -- are cli train's")
+                    help="(phases 12-13) run as one rank: the flags after -- are cli train's")
     ap.add_argument("--ref-params", default=None, help=argparse.SUPPRESS)
     ap.add_argument("train_argv", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -1997,7 +2224,7 @@ def main() -> int:
                 ("iter_ms_mean_from_2", "tokens_per_s", "mfu", "max_memory_allocated_gb")}}
             log("fused_norm beside plain:", json.dumps(cmp_))
             RESULTS.setdefault("fused_beside_plain", []).append(cmp_)
-    if "hybrid" in phases or "nccl" in phases:  # 12b stands against phase 11 too
+    if {"hybrid", "pipeline", "nccl"} & set(phases):  # 12b, 13 and 13b stand against phase 11
         with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as tmpdir:
             world1 = phase_hybrid_world1(torch, smi, tmpdir)
             if "llama" in train_res:
@@ -2011,12 +2238,25 @@ def main() -> int:
             torch.cuda.empty_cache()
             if "hybrid" in phases:
                 phase_hybrid_ranks(torch, smi, tmpdir, "gloo", (0, 0), world1)
+            if "pipeline" in phases:
+                phase_pipeline_fp32(torch, smi, tmpdir)
+                phase_pipeline_bf16(torch, smi, tmpdir, "gloo", (0, 0), world1)
+                phase_pipeline_gpt(torch, smi, tmpdir,
+                                   _gpt_reference_losses(torch, tmpdir, train_res))
             if "nccl" in phases and torch.cuda.device_count() >= 2:
-                phase_hybrid_ranks(torch, smi, tmpdir, "nccl", (0, 1), world1)
+                nccl12 = phase_hybrid_ranks(torch, smi, tmpdir, "nccl", (0, 1), world1)
                 log("phase 12b nccl on two cards: run")
+                nccl13 = phase_pipeline_bf16(torch, smi, tmpdir, "nccl", (0, 1), world1)
+                cmp_ = {"phase11_world1_iter_ms": world1["iter_ms_mean_from_2"],
+                        "phase12b_tp2_iter_ms": nccl12["bf16"]["iter_ms_mean_from_2"],
+                        "phase13b_pp2_iter_ms": {n: r["iter_ms_mean_from_2"]
+                                                 for n, r in nccl13["runs"].items()}}
+                log("phase 13b beside phases 11 and 12b:", json.dumps(cmp_))
+                RESULTS["pipeline_beside_nccl"] = cmp_
             elif "nccl" in phases:
-                log(f"phase 12b nccl on two cards: absent ({torch.cuda.device_count()} card)")
-                RESULTS["hybrid_ranks_nccl"] = "absent: one card"
+                log(f"phases 12b and 13b, nccl on two cards: absent "
+                    f"({torch.cuda.device_count()} card)")
+                RESULTS["hybrid_ranks_nccl"] = RESULTS["pipeline_bf16_nccl"] = "absent: one card"
     if set(phases) != set(PHASES):
         if args.out:
             _write_out(args.out, RESULTS)

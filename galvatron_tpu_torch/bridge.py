@@ -11,9 +11,9 @@ stay fp32. ``params_from_jax`` accepts what training accepts
 (``modeling.check_supported``). ``params_to_numpy`` is the way back.
 
 ``shard_params`` cuts a full tree (numpy) into one rank's pieces under a
-hybrid plan (the layout ``parallel/hybrid.py`` trains), and
-``gather_params`` puts every rank's pieces back into one tree, to compare
-a multi-rank run with the JAX parameters.
+hybrid plan, pipelines included (the layout ``parallel/hybrid.py``
+trains), and ``gather_params`` puts every rank's pieces back into one tree,
+to compare a multi-rank run with the JAX parameters.
 
 This module takes numpy and imports no JAX, so the port stays free of it.
 """
@@ -57,29 +57,52 @@ def _plans(cfg: ModelConfig, hp, world: int):
     from galvatron_tpu_torch.parallel import hybrid
     from galvatron_tpu_torch.parallel.mesh import RankMesh
 
-    mesh = RankMesh(world)
+    mesh = RankMesh(world, hp.pp)
     return mesh, hybrid.model_leaf_plans(cfg, hp, mesh, hybrid.param_shapes(cfg))
+
+
+def _held(tree, cfg: ModelConfig, hp, stage: int):
+    """The part of a full tree that a pipeline stage holds."""
+    from galvatron_tpu_torch.parallel import pipeline
+
+    return pipeline.held_tree(tree, pipeline.device_layers(cfg.num_layers, hp, stage),
+                              stage == 0, stage == hp.pp - 1,
+                              cfg.tie_word_embeddings and hp.pp > 1)
 
 
 def shard_params(full_tree: Params, cfg: ModelConfig, hp, rank: int, world: int) -> Params:
     """``rank``'s pieces (numpy) of a full numpy parameter tree under the
-    plan ``hp`` on ``world`` ranks: its TP shard of every parameter, and
-    its DP shard of zero3 ones."""
+    plan ``hp`` on ``world`` ranks: the part its pipeline stage holds
+    (``pipeline.held_tree``; everything at pp = 1), its TP shard of every
+    parameter there, and its DP shard of zero3 ones."""
     from galvatron_tpu_torch.parallel import hybrid
 
     mesh, plans = _plans(cfg, hp, world)
-    return hybrid.shard_tree(full_tree, plans, mesh, rank)
+    stage = mesh.stage(rank)
+    return hybrid.shard_tree(_held(full_tree, cfg, hp, stage), _held(plans, cfg, hp, stage),
+                             mesh, rank)
 
 
 def gather_params(rank_trees: Sequence[Params], cfg: ModelConfig, hp, world: int) -> Params:
     """The full numpy tree from every rank's pieces (``rank_trees[r]`` of
-    rank r, numpy; replicas take the lowest rank's copy)."""
-    from galvatron_tpu_torch.parallel import hybrid
+    rank r, numpy): each stage's part from its own ranks (replicas take the
+    lowest rank's copy; a tied table held by the first and the last stage is
+    taken once, from the first)."""
+    from galvatron_tpu_torch.parallel import hybrid, pipeline
+    from galvatron_tpu_torch.parallel.mesh import RankMesh
     from galvatron_tpu_torch.parallel.sharding import unshard
 
     mesh, plans = _plans(cfg, hp, world)
     if len(rank_trees) != world:
         raise ValueError(f"{len(rank_trees)} rank trees for a world of {world}")
-    return hybrid.zip_map(
-        lambda lp, *pieces: unshard(pieces[:-1], lp.layout, lp.shape, mesh, lp.pairs),
-        plans, *rank_trees)
+    stage_mesh = RankMesh(mesh.per_stage)
+    full: dict = {"layers": [None] * cfg.num_layers}
+    for stage in range(hp.pp):
+        part = hybrid.zip_map(
+            lambda lp, *pieces: unshard(pieces[:-1], lp.layout, lp.shape, stage_mesh, lp.pairs),
+            _held(plans, cfg, hp, stage), *[rank_trees[r] for r in mesh.stage_ranks(stage)])
+        for n, i in enumerate(pipeline.device_layers(cfg.num_layers, hp, stage)):
+            full["layers"][i] = part["layers"][n]
+        for key in part:
+            full.setdefault(key, part[key])
+    return full

@@ -1,13 +1,14 @@
 """Flags of the ported modes: the model group, the ``serve`` group, the
 step-program group, the training group and the hybrid-parallel GLOBAL flags
-of ``galvatron_tpu/core/arguments.py`` (pp=1: TP with its layout, SP,
-DDP / ZeRO-2 / ZeRO-3, recompute, vocab TP / SP, chunks, and
+of ``galvatron_tpu/core/arguments.py`` (pipelines: ``--pp_deg``,
+``--pp_division``, ``--vpp_deg``, ``--pipeline_type``; TP with its layout,
+SP, DDP / ZeRO-2 / ZeRO-3, recompute, vocab TP / SP, chunks, and
 ``--galvatron_config_path``), limited to what the port runs, plus
 ``--device`` and ``--dist_backend``. Flags of unported features
-(``--context_parallel_deg``, ``--vpp_deg``, ``--global_tp_overlap``,
-``--grad_overlap``, checkpoints, corpora, ...) are absent, so passing one is
-an argparse error rather than a silently ignored option; ``--pp_deg`` and
-``--mixed_precision fp16`` parse and raise naming their ROADMAP item."""
+(``--context_parallel_deg``, ``--global_tp_overlap``, ``--grad_overlap``,
+checkpoints, corpora, ...) are absent, so passing one is an argparse error
+rather than a silently ignored option; ``--mixed_precision fp16`` parses and
+raises naming its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -127,7 +128,16 @@ def _add_parallel_args(p: argparse.ArgumentParser):
     g = p.add_argument_group("hybrid parallelism (GLOBAL flags, used without "
                              "--galvatron_config_path)")
     g.add_argument("--pp_deg", type=int, default=1,
-                   help="pipeline degree; only 1 is ported (ROADMAP.md §1.7)")
+                   help="pipeline degree: stages of WORLD_SIZE / pp_deg ranks each")
+    g.add_argument("--pp_division", type=_int_list, default=None,
+                   help="comma-separated layers per pipeline stage (uneven divisions "
+                   "supported; default: balanced split)")
+    g.add_argument("--vpp_deg", type=int, default=1,
+                   help="virtual pipeline chunks per device (interleaved schedule; needs "
+                   "layers %% (pp*vpp) == 0 and chunks %% pp == 0)")
+    g.add_argument("--pipeline_type", type=str, default="gpipe",
+                   choices=["gpipe", "pipedream_flush"],
+                   help="gpipe = every forward, then every backward; pipedream_flush = 1F1B")
     g.add_argument("--global_tp_deg", type=int, default=1)
     g.add_argument("--global_tp_consec", type=int, default=1,
                    help="1 = TP on consecutive ranks (minor mesh axes), 0 = strided")
@@ -215,10 +225,6 @@ def hybrid_config_from_args(ns: argparse.Namespace, num_layers: int,
                             world: int) -> HybridParallelConfig:
     """GLOBAL flags → a uniform strategy, or the JSON file → per-layer
     strategies (the reference's two config modes)."""
-    if ns.pp_deg != 1:
-        raise NotImplementedError(
-            f"--pp_deg {ns.pp_deg}: pipeline parallelism is not ported yet (ROADMAP.md §1.7 "
-            "'Pipeline engines'); the port runs pp=1")
     if ns.galvatron_config_path:
         hp = HybridParallelConfig.load(ns.galvatron_config_path)
         if hp.num_layers != num_layers:
@@ -226,21 +232,34 @@ def hybrid_config_from_args(ns: argparse.Namespace, num_layers: int,
         return hp
     chunks = ns.chunks if ns.chunks > 0 else default_chunks(
         ns.global_train_batch_size, ns.pp_deg, world)
-    return HybridParallelConfig.uniform(
+    hp = HybridParallelConfig.uniform(
         num_layers,
         pp=ns.pp_deg,
+        vpp=ns.vpp_deg,
         tp=ns.global_tp_deg,
         tp_consec=bool(ns.global_tp_consec),
         dp_type="zero3" if ns.sdp else ns.default_dp_type,
         ckpt=ns.global_checkpoint,
         sp=bool(ns.sequence_parallel),
         chunks=chunks,
+        pipeline_type=ns.pipeline_type,
         vocab_tp=ns.vocab_tp,
         vocab_sp=bool(ns.vocab_sp),
         embed_dp_type="zero3" if ns.embed_sdp else "ddp",
         mixed_precision=ns.mixed_precision,
         mlp_recompute=getattr(ns, "mlp_recompute", "policy"),
     )
+    if ns.pp_division:
+        hp.pp_division = ns.pp_division
+    return hp
+
+
+def _int_list(text: str):
+    """argparse type for comma-separated ints (trailing commas tolerated)."""
+    try:
+        return [int(x) for x in text.split(",") if x.strip()]
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected comma-separated ints, got {text!r}")
 
 
 def default_chunks(global_bsz: int, pp: int, world: int) -> int:

@@ -13,7 +13,8 @@ from ``--galvatron_config_path`` or the GLOBAL flags.
 
 Per iteration: the next batch, one ``train_step``, the loss read back (one
 host synchronisation, then ``torch.cuda.synchronize()`` on the card) and the
-host-clock ``iter_ms`` around all of it. Rank 0 alone prints the loss and,
+host-clock ``iter_ms`` around all of it. Rank 0 alone prints the loss (under
+a pipeline the last stage's, which reaches every rank) and,
 with ``--metrics_path``, writes a ``train_iter`` JSONL record (step, loss,
 batch_size, iter_ms and the per-device rates: tokens_per_s,
 tflops_per_device, mfu, hfu; None on the CPU). The reference's resilience,
@@ -68,10 +69,19 @@ def init_distributed(device: torch.device, backend: Optional[str] = None,
     return True
 
 
+def _pipeline_desc(hp) -> str:
+    if hp.pp == 1:
+        return ""
+    vpp = f" vpp={hp.vpp}" if hp.vpp > 1 else ""
+    div = ",".join(map(str, hp.pp_division))
+    return f"pp={hp.pp} pp_division={div}{vpp} pipeline={hp.pipeline_type} "
+
+
 def train(ns: argparse.Namespace, cfg: Optional[ModelConfig] = None) -> dict:
     """Train ``ns.train_iters`` steps; returns the losses, the mean
-    iter_ms, this rank's final state and every training kernel's launch
-    count as it stands at the end of the run. ``cfg`` replaces the model
+    iter_ms, this rank's final state, its pipeline stage and layers, its
+    host-staged and point-to-point message counts, and every training
+    kernel's launch count as it stands at the end of the run. ``cfg`` replaces the model
     the flags describe (the way to fields that have no flag, ``fused_norm``
     among them); attention implementation and ``--mlp_recompute`` still
     come from ``ns`` (or the plan)."""
@@ -102,13 +112,14 @@ def _train(ns: argparse.Namespace, cfg: Optional[ModelConfig], device: torch.dev
     lead = rt.rank == 0
     c = rt.cfg
     if lead:
-        strategies = sorted({form_strategy(s, 1, rt.world // s.tp) for s in hp.layer_strategies})
+        strategies = sorted({form_strategy(s, rt.pp, rt.world // (rt.pp * s.tp))
+                             for s in hp.layer_strategies})
         print(f"train: {ns.model_size} layers={c.num_layers} hidden={c.hidden_size} "
               f"heads={c.num_heads} seq={seq} batch={bsz} chunks={rt.chunks} "
               f"dtype={str(c.dtype).replace('torch.', '')} attn={c.attn_impl} "
               f"ckpt={rt.ckpt} mlp_recompute={c.mlp_recompute} fused_norm={c.fused_norm} "
               f"world={rt.world} strategies={','.join(strategies)} vocab_tp={hp.vocab_tp} "
-              f"on {device}", flush=True)
+              f"{_pipeline_desc(hp)}on {device}", flush=True)
     state = rt.init_state(ns.seed)
     loader = build_dataloader(rt.cfg, bsz, seq, seed=ns.seed)
     stats = StepStats(rt.cfg, bsz, seq, device=device, ckpt=rt.ckpts, world=rt.world)
@@ -149,7 +160,10 @@ def _train(ns: argparse.Namespace, cfg: Optional[ModelConfig], device: torch.dev
         "state": state,
         "rank": rt.rank,
         "world": rt.world,
+        "stage": rt.stage,
+        "stage_layers": rt.stage_layers,
         "host_staged": comm.host_staged,
+        "p2p": comm.p2p,
         "launches": {"flash_fwd": flash_attention.flash_fwd.launches,
                      "flash_bwd": flash_attention.flash_bwd.launches,
                      "flash_grid_fwd": flash_attention.flash_grid_fwd.launches,

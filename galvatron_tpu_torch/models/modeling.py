@@ -731,23 +731,25 @@ def _decoder_layer_tp(x, p, cfg: ModelConfig, cos_sin, remat_attn: bool, tp):
     return x + _add_bias(tp.exit(y), pm, "w2_b")
 
 
-def forward(params, tokens, cfg: ModelConfig, layer_hook=None, vocab=None, head_hook=None):
-    """Full forward → logits. ``layer_hook(i, x, layer_params)`` lets the
-    runtime insert per-layer recompute and parallelism, ``head_hook(x)``
-    the move of the last layer's output to the head's layout
-    (``parallel/hybrid.py``). With ``vocab`` the embedding and head are
-    vocabulary-parallel and the logits are this rank's vocabulary shard."""
+def forward(params, tokens, cfg: ModelConfig, layer_hook=None):
+    """Full forward → logits. ``layer_hook(i, x, layer_params)`` lets a
+    caller insert per-layer recompute (the hybrid runtime composes
+    :func:`embed`, its layers and :func:`head` itself)."""
     cos_sin = None
     if cfg.pos_embed == "rope":
         cos_sin = rope_tables(cfg, tokens.shape[1], tokens.device)
-    x = embed(tokens, params, cfg, vocab)
+    x = embed(tokens, params, cfg)
     for i, lp in enumerate(params["layers"]):
         if layer_hook is not None:
             x = layer_hook(i, x, lp)
         else:
             x = decoder_layer(x, lp, cfg, cos_sin)
-    if head_hook is not None:
-        x = head_hook(x)
+    return head(x, params, cfg)
+
+
+def head(x, params, cfg: ModelConfig, vocab=None):
+    """The final norm and the head → logits (this rank's vocabulary shard
+    with ``vocab``)."""
     x = norm(x, params["final_norm"], cfg)
     if vocab is not None:
         x = vocab.enter(x)
@@ -818,13 +820,11 @@ def split_batch(batch, cfg: ModelConfig):
     return batch[:, :-1], batch[:, 1:]
 
 
-def lm_loss_sum(params, batch, cfg: ModelConfig, layer_hook=None, vocab=None, head_hook=None):
-    """(nll_sum, token_count) on a (B, S+1) token batch (this rank's rows,
-    with the hybrid runtime's hooks and vocabulary region)."""
+def lm_loss_sum(params, batch, cfg: ModelConfig, layer_hook=None):
+    """(nll_sum, token_count) on a (B, S+1) token batch."""
     tokens, labels = split_batch(batch, cfg)
-    logits = forward(params, tokens, cfg, layer_hook=layer_hook, vocab=vocab,
-                     head_hook=head_hook)
-    return cross_entropy_sum(logits, labels, remat=ce_remat(cfg), vocab=vocab)
+    logits = forward(params, tokens, cfg, layer_hook=layer_hook)
+    return cross_entropy_sum(logits, labels, remat=ce_remat(cfg))
 
 
 def lm_loss(params, batch, cfg: ModelConfig, layer_hook=None):

@@ -72,6 +72,10 @@ def _remat_fwd_flops_per_token(cfg: ModelConfig, seq_len: int,
     """Forward compute replayed in the backward, per token over all layers;
     ``ckpt`` is one mode for every layer or a list of per-layer modes."""
     modes = [ckpt] * cfg.num_layers if isinstance(ckpt, str) else list(ckpt)
+    if len(modes) != cfg.num_layers:
+        # a pipeline stage's own list would count only its layers
+        raise ValueError(f"{len(modes)} recompute modes for {cfg.num_layers} layers: pass "
+                         "every layer's (Runtime.ckpts), not one stage's")
     total = 0.0
     for mode in modes:
         if mode == "full":
@@ -87,8 +91,10 @@ def _remat_fwd_flops_per_token(cfg: ModelConfig, seq_len: int,
 class StepStats:
     """Per-step FLOPs for one (model, batch, recompute) shape;
     ``per_iter(iter_ms)`` turns a measured step time into JSONL fields.
-    ``ckpt`` is one recompute mode or a list of per-layer modes; a step of
-    ``world`` ranks shares its FLOPs among them (the per-device rate)."""
+    ``ckpt`` is one recompute mode or a list of every layer's modes; a step
+    of ``world`` ranks shares the whole model's FLOPs among them (the
+    per-device rate, the reference's: under a pipeline each stage runs only
+    its layers, and the world's devices together run them all)."""
 
     cfg: ModelConfig
     global_bsz: int

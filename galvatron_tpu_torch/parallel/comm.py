@@ -1,8 +1,11 @@
-"""Collectives of the hybrid runtime over ``torch.distributed`` groups.
+"""Collectives and point-to-point transfers of the hybrid runtime over
+``torch.distributed`` groups.
 
-The JAX package needs none of this: GSPMD inserts its collectives. Here they
-are explicit, and only three are used: ``all_reduce``,
-``all_gather_into_tensor`` and ``reduce_scatter_tensor``.
+The JAX package needs none of this: GSPMD inserts its collectives and a
+pipeline moves activations with ``lax.ppermute``. Here they are explicit:
+three collectives (``all_reduce``, ``all_gather_into_tensor`` and
+``reduce_scatter_tensor``) and batches of ``isend`` / ``irecv``
+(:func:`exchange`, on ``batch_isend_irecv``).
 
 - Megatron's tensor-parallel region pairs as autograd Functions over a
   group (:class:`TPRegion`): copy (identity forward, all-reduce backward)
@@ -14,7 +17,8 @@ are explicit, and only three are used: ``all_reduce``,
   frees a gathered layer's parameters after its forward and gathers them
   again when the backward needs them.
 - The redistribution of an activation between two layers' (batch rows,
-  sequence slice) layouts (:func:`redistribute`).
+  sequence slice) layouts over the ranks of one stage (:func:`redistribute`).
+- A pipeline tick's sends and receives between stages (:func:`exchange`).
 
 Convention: a tensor replicated over a group holds the same value on every
 member, and so does its gradient (Megatron's), so a redistribution's
@@ -22,14 +26,15 @@ backward is the same move in the other direction.
 
 **gloo is a host transport.** When a group's backend is gloo and the tensor
 lies on a card, the collective runs on a host copy and the result is copied
-back; ``host_staged`` counts those calls. NCCL never stages. A group of one
-rank issues no collective.
+back; ``host_staged`` counts those calls (and the staged messages of
+:func:`exchange`). NCCL never stages. A group of one rank issues no
+collective.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,6 +46,8 @@ host_staged = 0
 issued = 0
 #: zero3 parameters gathered again in a backward (:class:`Regather`)
 regathered = 0
+#: point-to-point messages posted (sends and receives, :func:`exchange`)
+p2p = 0
 
 # torch 2.13 renames the two tensor-list-free collectives (*_single) and warns
 # on the old names, which older releases have alone
@@ -49,8 +56,8 @@ warnings.filterwarnings("ignore", message=r".*(all_gather_into_tensor|reduce_sca
 
 
 def reset_counts() -> None:
-    global host_staged, issued, regathered
-    host_staged = issued = regathered = 0
+    global host_staged, issued, regathered, p2p
+    host_staged = issued = regathered = p2p = 0
 
 
 def _run(fn, out: torch.Tensor, inp: torch.Tensor, group: Group) -> torch.Tensor:
@@ -290,14 +297,15 @@ ActLayout = Tuple[Axes, Axes]
 def _move(x: torch.Tensor, mesh: RankMesh, rank: int, world: Group, src: ActLayout,
           dst: ActLayout) -> torch.Tensor:
     """This rank's ``dst`` block from every rank's ``src`` block: one
-    all-gather over the world, then the pieces that cover the block, each
-    taken from the lowest rank that holds it."""
+    all-gather over ``world`` (the ranks of this rank's stage), then the
+    pieces that cover the block, each taken from the lowest rank that holds
+    it."""
     b, s = x.shape[0], x.shape[1]
     rows, seq = b * 2 ** len(src[0]), s * 2 ** len(src[1])
-    blocks = all_gather(x.contiguous(), world, 0).reshape((mesh.world,) + tuple(x.shape))
+    blocks = all_gather(x.contiguous(), world, 0).reshape((world.size,) + tuple(x.shape))
     owner = {}
-    for q in range(mesh.world):
-        owner.setdefault((mesh.index(q, src[0]), mesh.index(q, src[1])), q)
+    for i, q in enumerate(world.ranks):
+        owner.setdefault((mesh.index(q, src[0]), mesh.index(q, src[1])), i)
     nb, ns = rows // 2 ** len(dst[0]), seq // 2 ** len(dst[1])
     r0, c0 = mesh.index(rank, dst[0]) * nb, mesh.index(rank, dst[1]) * ns
     row_pieces = []
@@ -327,9 +335,76 @@ class _Redistribute(torch.autograd.Function):
 
 def redistribute(x: torch.Tensor, mesh: RankMesh, rank: int, world: Optional[Group],
                  src: ActLayout, dst: ActLayout) -> torch.Tensor:
-    """Move an activation from layout ``src`` to ``dst`` (the reference's
-    ``constrain(x, activation_spec)`` at a layer boundary); the backward
-    moves the gradient back. Equal layouts move nothing."""
+    """Move an activation from layout ``src`` to ``dst`` over ``world``,
+    the group of this rank's stage (the reference's ``constrain(x,
+    activation_spec)`` at a layer boundary); the backward moves the gradient
+    back. Equal layouts move nothing."""
     if tuple(map(tuple, src)) == tuple(map(tuple, dst)) or world is None or world.size == 1:
         return x
     return _Redistribute.apply(x, mesh, rank, world, src, dst)
+
+
+# ---------------------------------------------------------------------------
+# Point-to-point transfers between pipeline stages
+# ---------------------------------------------------------------------------
+
+
+def open_p2p(device: torch.device) -> None:
+    """One all-reduce of an element over the default group, on every rank,
+    before the first :func:`exchange`: under NCCL the first call on a group
+    that ``batch_isend_irecv`` uses must involve all of its ranks."""
+    dist = _dist()
+    gloo = str(dist.get_backend()) == "gloo"
+    dist.all_reduce(torch.zeros(1, device="cpu" if gloo else device))
+
+
+def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
+             recvs: Sequence[Tuple[torch.Tensor, int]]) -> List:
+    """Post one batch of ``(tensor, dst rank)`` sends and ``(buffer, src
+    rank)`` receives on the default group (``batch_isend_irecv``: one NCCL
+    group call, so a send and a receive between the same two ranks never
+    wait on each other), wait for the receives and return the pending send
+    handles (wait on them, with :func:`wait_all`, before the tensors are
+    reused). Messages between two ranks match in the order posted. A wait
+    is bounded by the world's timeout (``--dist_timeout_s``): gloo raises
+    at it, NCCL's watchdog ends the process. Under gloo a card tensor is
+    staged through a host copy, as the collectives are."""
+    global p2p, host_staged
+    if not sends and not recvs:
+        return []
+    dist = _dist()
+    staged = str(dist.get_backend()) == "gloo"
+    ops, landed, keep = [], [], []
+    for t, dst in sends:
+        if staged and t.is_cuda:
+            host_staged += 1
+            t = t.detach().cpu()
+        t = t.detach().contiguous()
+        keep.append(t)
+        ops.append(dist.P2POp(dist.isend, t, dst))
+    n_send = len(ops)
+    for buf, src in recvs:
+        h = buf
+        if staged and buf.is_cuda:
+            host_staged += 1
+            h = torch.empty(buf.shape, dtype=buf.dtype)
+        landed.append((buf, h))
+        ops.append(dist.P2POp(dist.irecv, h, src))
+    p2p += len(ops)
+    works = dist.batch_isend_irecv(ops)
+    if len(works) == len(ops):  # one handle an op (gloo); NCCL coalesces them into one
+        wait_all(works[n_send:])
+        pending = works[:n_send]
+    else:
+        wait_all(works)
+        pending = []
+    for buf, h in landed:
+        if h is not buf:
+            buf.copy_(h)
+    return [(w, keep) for w in pending]
+
+
+def wait_all(works) -> None:
+    """Wait on handles of :func:`exchange` (or ``Work`` objects)."""
+    for w in works:
+        (w[0] if isinstance(w, tuple) else w).wait()

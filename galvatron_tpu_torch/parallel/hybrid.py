@@ -1,6 +1,7 @@
-"""Hybrid-parallel training runtime at pp=1 on ``torch.distributed`` (the
-port's counterpart of ``build_runtime`` and ``_make_layer_hook`` in
-``galvatron_tpu/parallel/hybrid.py``).
+"""Hybrid-parallel training runtime on ``torch.distributed`` (the port's
+counterpart of ``build_runtime`` and ``_make_layer_hook`` in
+``galvatron_tpu/parallel/hybrid.py``, and of ``build_pipeline_runtime`` in
+``galvatron_tpu/parallel/pipeline.py``).
 
 Each decoder layer runs under its own strategy of the plan
 (``core/strategy.py``): a TP degree on consecutive or strided ranks,
@@ -11,8 +12,8 @@ embedding, final norm and head run under ``vocab_tp`` / ``vocab_sp`` /
 insert the collectives, this runtime issues them (``parallel/comm.py``):
 
 - at each layer boundary the activation moves from the previous layer's
-  (batch rows, sequence slice) to this layer's (``comm.redistribute``; the
-  backward is the same move back);
+  (batch rows, sequence slice) to this layer's over the ranks of the stage
+  (``comm.redistribute``; the backward is the same move back);
 - zero3 parameters are gathered before the layer's forward, freed after it
   and gathered again in the backward (inside the recompute under full
   checkpointing); their gradients are reduce-scattered over DP;
@@ -24,7 +25,18 @@ insert the collectives, this runtime issues them (``parallel/comm.py``):
   summed over that group; without SP every TP rank computes the whole
   gradient of a replicated parameter;
 - micro-batches (``chunks``) accumulate in sum form: the global token mean
-  divides by the token count all-reduced over the head's DP group.
+  divides by the token count of the whole batch.
+
+Pipelines (pp > 1): the world is ``pp`` stages of W/pp ranks
+(``mesh.RankMesh``); each stage holds and runs only its layers
+(``pipeline.held_tree``), stage 0 the embedding, the last stage the final
+norm, head and loss, and the plan's schedule (GPipe, 1F1B, interleaved;
+``pipeline.py``) moves activations and their gradients between stages with
+send/recv. Every stage runs the per-layer code above; pp = 1 is the one
+stage, under 1F1B's order (a micro-batch's forward, then its backward). A
+tied token table is held by the first and the last stage; the two copies'
+gradients are summed over the pair of ranks of one in-stage index, the
+gradient norm counts it once, and the loss reaches every rank.
 
 ``train_step(state, batch)`` takes the GLOBAL (B, S+1) token batch on every
 rank (each rank keeps its rows) and updates this rank's state IN PLACE:
@@ -48,8 +60,14 @@ from galvatron_tpu_torch.core.strategy import HybridParallelConfig, LayerStrateg
 from galvatron_tpu_torch.device import resolve_device
 from galvatron_tpu_torch.models import modeling
 from galvatron_tpu_torch.models.modeling import ModelConfig
-from galvatron_tpu_torch.parallel import comm
+from galvatron_tpu_torch.parallel import comm, pipeline
 from galvatron_tpu_torch.parallel.mesh import Group, ProcessGroups, RankMesh, batch_spec
+from galvatron_tpu_torch.parallel.pipeline_1f1b import pipedream_schedule
+from galvatron_tpu_torch.parallel.pipeline_interleaved import (
+    interleaved_1f1b_schedule,
+    interleaved_schedule,
+    validate_interleaved_strategies,
+)
 from galvatron_tpu_torch.parallel.sharding import Layout, local_shape, param_layout, shard
 
 #: --global_checkpoint values → per-layer recompute mode
@@ -65,11 +83,7 @@ def embed_strategy(hp: HybridParallelConfig) -> LayerStrategy:
 
 def refuse_unported(hp: HybridParallelConfig) -> None:
     """Raise ``NotImplementedError`` for every plan feature the port does
-    not run yet, naming its ROADMAP item."""
-    if hp.pp > 1 or hp.vpp > 1:
-        raise NotImplementedError(
-            f"pipeline parallelism (pp={hp.pp}, vpp={hp.vpp}) is not ported yet: ROADMAP.md "
-            "§1.7 'Pipeline engines'; the port runs pp=1")
+    not run yet (at any pp), naming its ROADMAP item."""
     if hp.mixed_precision == "fp16":
         raise NotImplementedError(
             "--mixed_precision fp16 (dynamic loss scaling) is not ported yet (ROADMAP.md §1.1 "
@@ -211,7 +225,12 @@ class Runtime:
     state_from: Callable
     world: int = 1
     rank: int = 0
-    ckpts: List[str] = field(default_factory=list)  # per layer
+    ckpts: List[str] = field(default_factory=list)  # per layer of the whole model
+    pp: int = 1
+    stage: int = 0  # this rank's pipeline stage
+    stage_layers: List[int] = field(default_factory=list)  # the layers this rank runs
+    #: the last train step's "in_flight": the most micro-batches it held at once
+    stats: Dict[str, int] = field(default_factory=dict)
 
 
 @functools.lru_cache(maxsize=8)
@@ -304,6 +323,28 @@ def _opt_view(p: torch.Tensor, lp: LeafPlan) -> torch.Tensor:
     return p.narrow(lp.opt_dim, lp.dp_group.index * size, size)
 
 
+def _sum_tied(g: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """The tied token table's gradient summed over its two copies (the first
+    and the last stage's ranks of one in-stage index)."""
+    return comm.all_reduce(g, group)
+
+
+def _schedules(hp: HybridParallelConfig, chunks: int):
+    """(train schedule, eval schedule) of the plan: at pp = 1 the forward
+    and backward of each micro-batch in turn (plain accumulation)."""
+    pp, vpp = hp.pp, hp.vpp
+    if pp == 1:
+        return pipedream_schedule(1, chunks), pipeline.gpipe_schedule(1, chunks, train=False)
+    if vpp > 1:
+        train = (interleaved_1f1b_schedule(pp, vpp, chunks)
+                 if hp.pipeline_type == "pipedream_flush"
+                 else interleaved_schedule(pp, vpp, chunks))
+        return train, interleaved_schedule(pp, vpp, chunks, train=False)
+    train = (pipedream_schedule(pp, chunks) if hp.pipeline_type == "pipedream_flush"
+             else pipeline.gpipe_schedule(pp, chunks))
+    return train, pipeline.gpipe_schedule(pp, chunks, train=False)
+
+
 def build_runtime(
     cfg: ModelConfig,
     hp: Optional[HybridParallelConfig] = None,
@@ -321,8 +362,9 @@ def build_runtime(
     'selective', or the --global_checkpoint integer) and
     ``mixed_precision`` ('fp32' | 'bf16'); with ``hp`` those come from the
     plan and must not be passed. The world is the default process group's
-    (one rank when there is none). ``device`` defaults to ``cuda`` and
-    raises without a card unless 'cpu' is asked for."""
+    (one rank when there is none); a plan with pp > 1 runs this rank's
+    pipeline stage under the plan's schedule. ``device`` defaults to
+    ``cuda`` and raises without a card unless 'cpu' is asked for."""
     device = resolve_device(device)
     modeling.check_supported(cfg)
     if hp is None:
@@ -351,11 +393,17 @@ def build_runtime(
         raise ValueError(f"vocab {cfg.vocab_size} does not split over vocab_tp={es.tp}")
     world, rank = _world()
     hp.validate(world)
+    pp = hp.pp
+    if hp.vpp > 1:
+        validate_interleaved_strategies(cfg.num_layers, hp)
+    elif pp > 1:
+        pipeline.validate_pipeline_strategies(cfg.num_layers, hp)
+    vstages = pipeline.virtual_stages(cfg.num_layers, hp)
     cfg = cfg.replace(dtype=_PRECISION[hp.mixed_precision], mlp_recompute=hp.mlp_recompute)
     chunks = max(1, hp.chunks)
     if global_batch_size % chunks:
         raise ValueError(f"global batch {global_batch_size} not divisible by chunks {chunks}")
-    mesh = RankMesh(world)
+    mesh = RankMesh(world, pp)
     mb_rows = global_batch_size // chunks
     for i, s in enumerate(strategies + [es]):
         what = f"layer {i}" if i < len(strategies) else "embedding/head"
@@ -365,17 +413,38 @@ def build_runtime(
         except ValueError as e:
             raise ValueError(f"{what} ({s}): {e}") from None
     ckpts = [s.ckpt or "none" for s in strategies]  # LayerStrategy.ckpt: False | 'full' | 'selective'
+    sched, eval_sched = _schedules(hp, chunks)
+    stage = mesh.stage(rank)
+    last_vstage = len(vstages) - 1
+    first, last = stage == 0, stage == pp - 1
+    layer_ids = pipeline.device_layers(cfg.num_layers, hp, stage)
+    local = {i: n for n, i in enumerate(layer_ids)}
+    tied = cfg.tie_word_embeddings and pp > 1
 
     axes_list = [mesh.axes.data_axes]
     for s in strategies + [es]:
         axes_list += [mesh.tp_axes(s), mesh.dp_axes(s)]
-    groups = ProcessGroups(mesh, rank, axes_list)
-    world_group = groups.get(mesh.axes.data_axes)
-    plans = model_leaf_plans(cfg, hp, mesh, param_shapes(cfg))
+    if pp > 1:
+        axes_list += [(mesh.axes.pp,), mesh.world_axes]
+    # the tied table's two copies: one group per in-stage index, made once
+    extra = {"tied": [[r, r + (pp - 1) * mesh.per_stage] for r in range(mesh.per_stage)]
+             } if tied else None
+    groups = ProcessGroups(mesh, rank, axes_list, extra)
+    if pp > 1:
+        comm.open_p2p(device)
+    stage_group = groups.get(mesh.axes.data_axes)
+    world_group = groups.get(mesh.world_axes)
+    all_plans = model_leaf_plans(cfg, hp, mesh, param_shapes(cfg))
+    plans = pipeline.held_tree(all_plans, layer_ids, first, last, tied)
     for lp in tree_leaves(plans):
         lp.tp_group = groups.get(mesh.tp_axes(lp.strategy))
         lp.dp_group = groups.get(mesh.dp_axes(lp.strategy))
     leaf_plans = tree_leaves(plans)
+    # a tied table's two copies (stage 0's and the last stage's) are summed;
+    # the grad norm counts stage 0's
+    tied_leaf = plans["embed"]["tok"] if tied and (first or last) else None
+    tied_copy = tied_leaf if last else None
+    stats: Dict[str, int] = {}
 
     def act_layout(s):
         return batch_spec(mesh.axes, s)
@@ -398,13 +467,15 @@ def build_runtime(
             return comm.gather_param(p, lp.zero3_dim, lp.dp_group, lp.gather_dtype)
         return zip_map(leaf, tree, tree_plans)
 
-    has_zero3 = [any(lp.zero3_dim is not None for lp in tree_leaves(plans["layers"][i]))
+    has_zero3 = [any(lp.zero3_dim is not None for lp in tree_leaves(all_plans["layers"][i]))
                  for i in range(len(strategies))]
 
     def layer_fn(i, x, lp, layer_cfg, cos_sin, mode):
-        x = comm.redistribute(x, mesh, rank, world_group,
+        # the input arrives in the previous layer's layout, also across a
+        # stage boundary: the receiving stage moves it
+        x = comm.redistribute(x, mesh, rank, stage_group,
                               layouts[i - 1] if i else embed_layout, layouts[i])
-        lplans = plans["layers"][i]
+        lplans = all_plans["layers"][i]
 
         def run(x_, regather=None):
             return modeling.decoder_layer(x_, materialize(lp, lplans, regather), layer_cfg,
@@ -427,25 +498,42 @@ def build_runtime(
         return y
 
     hook = _make_layer_hook(cfg, ckpts, layer_fn, seq_len)
-
-    def head_hook(x):
-        return comm.redistribute(x, mesh, rank, world_group, layouts[-1], embed_layout)
-
     top_keys = [k for k in plans if k != "layers"]
     top_zero3 = any(lp.zero3_dim is not None for k in top_keys for lp in tree_leaves(plans[k]))
 
-    def loss_sum(params, mb):
-        """(nll_sum, count) of this rank's rows of a micro-batch."""
-        rows = mesh.batch_rows(rank, es, mb.shape[0])
-        rg = comm.Regather() if top_zero3 and torch.is_grad_enabled() else None
-        top = {k: materialize(params[k], plans[k], rg) for k in top_keys}
-        run_params = dict(top, layers=params["layers"])
+    def stage_forward(params, k, mb, x):
+        """Virtual stage k on a micro-batch ``mb`` of token rows: embed this
+        rank's rows first (k = 0; otherwise ``x`` is the received
+        activation), its layers, then the final norm, head and loss sum
+        (the last virtual stage: returns (nll_sum, count))."""
+        head = k == last_vstage
+        ends = k == 0 or head
+        rg = comm.Regather() if ends and top_zero3 and torch.is_grad_enabled() else None
+        top = {key: materialize(params[key], plans[key], rg) for key in top_keys} if ends else {}
+        if ends:
+            tokens, labels = modeling.split_batch(mb[mesh.batch_rows(rank, es, mb.shape[0])], cfg)
         with rg.saving() if rg is not None else contextlib.nullcontext():
-            out = modeling.lm_loss_sum(run_params, mb[rows], cfg, layer_hook=hook, vocab=vocab,
-                                       head_hook=head_hook)
+            if k == 0:
+                x = modeling.embed(tokens, top, cfg, vocab)
+            for i in vstages[k]:
+                x = hook(i, x, params["layers"][local[i]])
+            if head:
+                x = comm.redistribute(x, mesh, rank, stage_group, layouts[-1], embed_layout)
+                x = modeling.cross_entropy_sum(modeling.head(x, top, cfg, vocab), labels,
+                                               remat=modeling.ce_remat(cfg), vocab=vocab)
         if rg is not None:
             rg.release()
-        return out
+        return x
+
+    def buffer(kind, k):
+        """An empty activation (or gradient) entering virtual stage k: the
+        layout of the layer that produced it."""
+        b, sq = batch_spec(mesh.axes, strategies[vstages[k - 1 if kind == pipeline.FWD else k][-1]])
+        return torch.empty((mb_rows >> len(b), seq_len >> len(sq), cfg.hidden_size),
+                           dtype=cfg.dtype, device=device)
+
+    def peer(d):
+        return rank + (d - stage) * mesh.per_stage
 
     def _batch(batch) -> torch.Tensor:
         if tuple(batch.shape) != (global_batch_size, seq_len + 1):
@@ -454,17 +542,18 @@ def build_runtime(
         return torch.as_tensor(batch).to(device=device, dtype=torch.long)
 
     def token_count(batch) -> torch.Tensor:
-        """Loss tokens of the whole batch: this rank's rows of each
-        micro-batch, summed over the head's DP group."""
-        mbs = batch.reshape(chunks, mb_rows, -1)
-        rows = mesh.batch_rows(rank, es, mb_rows)
-        labels = modeling.split_batch(mbs[:, rows].reshape(-1, mbs.shape[-1]), cfg)[1]
-        n = (labels != -100).sum()
-        return comm.all_reduce(n, embed_dp)
+        """Loss tokens of the whole batch (every rank holds all of it)."""
+        return (modeling.split_batch(batch, cfg)[1] != -100).sum()
+
+    def global_loss(tot_s, denom) -> torch.Tensor:
+        """The last stage's loss sum over its head DP group, on every rank
+        (rank 0 writes the records)."""
+        loss = comm.all_reduce(tot_s, embed_dp) / denom if last else torch.zeros_like(tot_s)
+        return comm.all_reduce(loss, groups.get((mesh.axes.pp,))) if pp > 1 else loss
 
     def grad_norm(grads) -> torch.Tensor:
         sq = sum(torch.sum(torch.square(g.float())) for g, lp in zip(grads, leaf_plans)
-                 if lp.counts_in_norm())
+                 if lp.counts_in_norm() and lp is not tied_copy)
         if not torch.is_tensor(sq):
             sq = torch.zeros((), dtype=torch.float32, device=device)
         return torch.sqrt(comm.all_reduce(sq, world_group))
@@ -476,14 +565,32 @@ def build_runtime(
             p.grad = None
         batch = _batch(batch)
         denom = torch.clamp_min(token_count(batch), 1).float()
+        mbs = batch.reshape(chunks, mb_rows, batch.shape[1])
         # sum-form accumulation: gradients of the nll sums accumulate in
         # fp32, then one division, so the result is the global token mean
         # however the ignored tokens fall across chunks and ranks
         tot_s = torch.zeros((), dtype=torch.float32, device=device)
-        for mb in batch.reshape(chunks, mb_rows, batch.shape[1]):
-            s, _ = loss_sum(params, mb)
-            (s / denom if chunks == 1 else s).backward()
-            tot_s += s.detach()
+        live: Dict[tuple, tuple] = {}  # (virtual stage, micro-batch) → (input, output)
+
+        def forward(k, m, x):
+            if x is not None:
+                x.requires_grad_(True)
+            y = stage_forward(params, k, mbs[m], x)
+            if k == last_vstage:
+                y = y[0]
+                tot_s.add_(y.detach())
+            live[(k, m)] = (x, y)
+            return None if k == last_vstage else y
+
+        def backward(k, m, g):
+            x, y = live.pop((k, m))
+            if k == last_vstage:
+                (y / denom if chunks == 1 else y).backward()
+            else:
+                torch.autograd.backward(y, g)
+            return None if k == 0 else x.grad
+
+        in_flight = pipeline.execute(sched, stage, peer, forward, backward, buffer)
         grads = []
         for p, lp in zip(leaves, leaf_plans):
             g = p.grad
@@ -492,6 +599,8 @@ def build_runtime(
             g = _reduce_dp(g, lp)
             if lp.tp_sum:
                 g = comm.all_reduce(g, lp.tp_group)
+            if lp is tied_leaf:
+                g = _sum_tied(g, groups.named("tied"))
             grads.append(g)
         views = [_opt_view(p, lp) for p, lp in zip(leaves, leaf_plans)]
         gn = grad_norm(grads) if adam.grad_clip is not None else None
@@ -503,22 +612,31 @@ def build_runtime(
         for p in leaves:
             p.grad = None
         state["step"] += 1
-        loss = comm.all_reduce(tot_s, embed_dp) / denom
-        return state, loss.detach()
+        stats["in_flight"] = in_flight
+        return state, global_loss(tot_s, denom).detach()
 
     @torch.no_grad()
     def eval_loss(state, batch):
         batch = _batch(batch)
         denom = torch.clamp_min(token_count(batch), 1).float()
+        mbs = batch.reshape(chunks, mb_rows, batch.shape[1])
         tot_s = torch.zeros((), dtype=torch.float32, device=device)
-        for mb in batch.reshape(chunks, mb_rows, batch.shape[1]):
-            tot_s += loss_sum(state["params"], mb)[0]
-        return comm.all_reduce(tot_s, embed_dp) / denom
+
+        def forward(k, m, x):
+            y = stage_forward(state["params"], k, mbs[m], x)
+            if k != last_vstage:
+                return y
+            tot_s.add_(y[0])
+            return None
+
+        pipeline.execute(eval_sched, stage, peer, forward, None, buffer)
+        return global_loss(tot_s, denom)
 
     def state_from(params):
         """A fresh train state over this rank's parameter pieces (fp32
         master tensors on the runtime's device; at world size 1, the whole
-        tree)."""
+        tree; under a pipeline, the part its stage holds:
+        ``pipeline.held_tree``)."""
         def check(t, lp, name):
             want = local_shape(lp.shape, lp.layout)
             if t.device != device or t.dtype != cfg.param_dtype or tuple(t.shape) != want:
@@ -540,9 +658,13 @@ def build_runtime(
                 return t
             return shard(t, lp.layout, mesh, rank, lp.pairs).clone(
                 memory_format=torch.contiguous_format)
-        return state_from(zip_map(piece, modeling.init_model_params(cfg, seed, device), plans))
+        full = modeling.init_model_params(cfg, seed, device)
+        held = pipeline.held_tree(full, layer_ids, first, last, tied)
+        del full
+        return state_from(zip_map(piece, held, plans))
 
     uniform = ckpts[0] if len(set(ckpts)) == 1 else "per-layer"
     return Runtime(cfg=cfg, device=device, chunks=chunks, ckpt=uniform,
                    train_step=train_step, eval_loss=eval_loss, init_state=init_state,
-                   state_from=state_from, world=world, rank=rank, ckpts=ckpts)
+                   state_from=state_from, world=world, rank=rank, ckpts=ckpts, pp=pp,
+                   stage=stage, stage_layers=layer_ids, stats=stats)

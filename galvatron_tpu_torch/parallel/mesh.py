@@ -1,10 +1,12 @@
 """Ranks on binary mesh axes, and the process groups of a plan (the port's
 counterpart of ``galvatron_tpu/parallel/mesh.py``).
 
-The JAX package factors its world W (at pp=1) into ``m = log2(W)`` binary
-axes ``x0..x{m-1}``, major to minor, over ``jax.devices()`` in order. Here
-rank r stands where device r stands there: its coordinate on axis ``x_i`` is
-bit ``m-1-i`` of r. A layer strategy picks axes the same way
+The JAX package's ``build_mesh(pp)`` shapes its world W as ``(pp, 2, ..., 2)``
+over ``jax.devices()`` in order: ``pp`` is the major axis and each stage's
+W/pp devices sit on ``m = log2(W/pp)`` binary axes ``x0..x{m-1}``, major to
+minor. Here rank r stands where device r stands there: it belongs to stage
+``r // (W/pp)``, and its coordinate on axis ``x_i`` is bit ``m-1-i`` of its
+in-stage index ``r % (W/pp)``. A layer strategy picks axes the same way
 (:class:`MeshAxes`): TP of degree ``2^k`` takes the minor k axes when
 consecutive, the major k when strided, and DP is the complement. A tensor
 dimension split over an axis tuple is split major to minor, so a rank's
@@ -68,7 +70,8 @@ class MeshAxes:
 
 
 def build_axes(world: int, axis_prefix: str = "x") -> MeshAxes:
-    """The axes of a pp=1 world of ``world`` ranks (a power of two)."""
+    """The binary axes of ``world`` ranks (a power of two): a pp=1 world, or
+    one pipeline stage."""
     m = _log2(world)
     return MeshAxes(pp="pp", data_axes=tuple(f"{axis_prefix}{i}" for i in range(m)))
 
@@ -87,39 +90,52 @@ def batch_spec(axes: MeshAxes, s: LayerStrategy) -> Tuple[Axes, Axes]:
 
 
 class RankMesh:
-    """The ranks of a pp=1 world on its binary axes."""
+    """The ranks of a world on the ``pp`` axis and each stage's binary axes.
+    Ranks are global; an axis tuple may hold ``"pp"`` (coordinate: the
+    stage) besides the binary axes (coordinates within the stage)."""
 
-    def __init__(self, world: int):
-        self.world = world
-        self.axes = build_axes(world)
+    def __init__(self, world: int, pp: int = 1):
+        if pp < 1 or world % pp:
+            raise ValueError(f"pp={pp} must divide world size {world}")
+        self.world, self.pp = world, pp
+        self.per_stage = world // pp
+        self.axes = build_axes(self.per_stage)
         self._pos = {a: i for i, a in enumerate(self.axes.data_axes)}
 
+    @property
+    def world_axes(self) -> Axes:
+        """Axes spanning every rank of the world."""
+        return ((self.axes.pp,) if self.pp > 1 else ()) + self.axes.data_axes
+
+    def stage(self, rank: int) -> int:
+        return rank // self.per_stage
+
+    def stage_ranks(self, stage: int) -> List[int]:
+        return list(range(stage * self.per_stage, (stage + 1) * self.per_stage))
+
+    def _size(self, axis: str) -> int:
+        return self.pp if axis == self.axes.pp else 2
+
     def coord(self, rank: int, axis: str) -> int:
+        if axis == self.axes.pp:
+            return self.stage(rank)
         m = len(self.axes.data_axes)
-        return (rank >> (m - 1 - self._pos[axis])) & 1
+        return (rank % self.per_stage >> (m - 1 - self._pos[axis])) & 1
 
     def index(self, rank: int, axes: Axes) -> int:
         """Shard index of ``rank`` along a dimension split over ``axes``."""
         i = 0
         for a in axes:
-            i = 2 * i + self.coord(rank, a)
+            i = self._size(a) * i + self.coord(rank, a)
         return i
 
     def group(self, rank: int, axes: Axes) -> List[int]:
         """The ranks that differ from ``rank`` only on ``axes``, in shard
         index order."""
-        m = len(self.axes.data_axes)
-        base = rank
-        for a in axes:
-            base &= ~(1 << (m - 1 - self._pos[a]))
-        out = []
-        for i in range(2 ** len(axes)):
-            r = base
-            for j, a in enumerate(axes):
-                if (i >> (len(axes) - 1 - j)) & 1:
-                    r |= 1 << (m - 1 - self._pos[a])
-            out.append(r)
-        return out
+        rest = [a for a in self.world_axes if a not in axes]
+        key = [self.coord(rank, a) for a in rest]
+        out = [q for q in range(self.world) if [self.coord(q, a) for a in rest] == key]
+        return sorted(out, key=lambda q: self.index(q, axes))
 
     def partition(self, axes: Axes) -> List[List[int]]:
         """Every group over ``axes``, ordered by its first rank."""
@@ -177,16 +193,20 @@ class Group:
 class ProcessGroups:
     """Process groups of a plan, made once and in the same order on every
     rank: for each axis tuple in ``axes_list`` (sorted), every group of that
-    partition in order of its first rank. At world size 1 nothing is
+    partition in order of its first rank; then each named partition of
+    ``extra`` (name order), group by group. At world size 1 nothing is
     created."""
 
-    def __init__(self, mesh: RankMesh, rank: int, axes_list: Iterable[Axes]):
+    def __init__(self, mesh: RankMesh, rank: int, axes_list: Iterable[Axes],
+                 extra: Optional[Dict[str, List[List[int]]]] = None):
         self.mesh, self.rank = mesh, rank
-        self._groups: Dict[Axes, Group] = {}
+        self._groups: Dict[object, Group] = {}
         wanted = sorted({tuple(a) for a in axes_list}, key=lambda a: (len(a), a))
-        for axes in wanted:
+        parts = [(axes, mesh.partition(axes)) for axes in wanted]
+        parts += sorted((extra or {}).items())
+        for key, partition in parts:
             mine = None
-            for ranks in mesh.partition(axes):
+            for ranks in partition:
                 pg = None
                 if len(ranks) > 1:
                     import torch.distributed as dist
@@ -194,10 +214,15 @@ class ProcessGroups:
                     pg = dist.new_group(ranks)  # the default group's backend
                 if rank in ranks:
                     mine = Group(tuple(ranks), ranks.index(rank), pg, _backend_of(pg))
-            self._groups[axes] = mine
+            self._groups[key] = mine
 
     def get(self, axes: Sequence[str]) -> Group:
         return self._groups[tuple(axes)]
+
+    def named(self, name: str) -> Optional[Group]:
+        """This rank's group of the named partition ``name`` (None when it
+        is in none of them)."""
+        return self._groups[name]
 
 
 def _backend_of(pg) -> Optional[str]:

@@ -362,19 +362,23 @@ def _tcfg(**kw):
     return ModelConfig(dtype=torch.float32, **dict(SHAPE, **kw))
 
 
-@pytest.mark.parametrize("what,change,item", [
-    ("pp", dict(pp=2), "§1.7"), ("vpp", dict(vpp=2), "§1.7"),
-    ("cp", dict(cp=2), "§1.9"), ("ep", dict(ep=2), "§1.9"),
-    ("tp_overlap", dict(tp_overlap=True), "§1.6"), ("grad_overlap", dict(grad_overlap=True), "§1.6"),
-    ("fp16", dict(mixed_precision="fp16"), "§1.1"),
-])
-def test_unported_plan_features_raise_naming_their_item(what, change, item):
+UNPORTED = [("cp", dict(cp=2), "§1.9"), ("ep", dict(ep=2), "§1.9"),
+            ("tp_overlap", dict(tp_overlap=True), "§1.6"),
+            ("grad_overlap", dict(grad_overlap=True), "§1.6"),
+            ("fp16", dict(mixed_precision="fp16"), "§1.1")]
+
+
+@pytest.mark.parametrize("pp", [1, 2])
+@pytest.mark.parametrize("what,change,item", UNPORTED)
+def test_unported_plan_features_raise_naming_their_item(what, change, item, pp):
+    """Refused at pp = 1 and under a pipeline alike (pipelines themselves
+    run: ``tests/test_torch_pipeline.py``)."""
     from galvatron_tpu_torch.parallel import hybrid
 
     ts = _ts()
     layer = {k: v for k, v in change.items() if k in ("cp", "ep", "tp_overlap")}
     hp = ts.HybridParallelConfig(
-        layer_strategies=[ts.LayerStrategy(**layer)] * 4,
+        pp=pp, chunks=2, layer_strategies=[ts.LayerStrategy(**layer)] * 4,
         **{k: v for k, v in change.items() if k not in layer})
     with pytest.raises(NotImplementedError, match=item):
         hybrid.build_runtime(_tcfg(), hp, global_batch_size=BATCH, seq_len=SEQ, device="cpu")

@@ -39,10 +39,15 @@ def test_importing_every_module_loads_no_jax():
 
 
 #: the hybrid-parallel runtime's modules (strategy codec, ranks and groups,
-#: sharding rules, collectives, the local launcher)
+#: sharding rules, collectives, the local launcher, the pipeline schedules
+#: and executor, the stage division)
 PARALLEL_MODULES = ("galvatron_tpu_torch.core.strategy", "galvatron_tpu_torch.parallel.mesh",
                     "galvatron_tpu_torch.parallel.sharding", "galvatron_tpu_torch.parallel.comm",
-                    "galvatron_tpu_torch.parallel.hybrid", "galvatron_tpu_torch.parallel.launch")
+                    "galvatron_tpu_torch.parallel.hybrid", "galvatron_tpu_torch.parallel.launch",
+                    "galvatron_tpu_torch.parallel.pipeline",
+                    "galvatron_tpu_torch.parallel.pipeline_1f1b",
+                    "galvatron_tpu_torch.parallel.pipeline_interleaved",
+                    "galvatron_tpu_torch.search.pp_division")
 SCANNED = sorted([str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
                  + ["chip_smoke.py", "experiments/torch_decode_profile.py"])
 

@@ -23,6 +23,7 @@ from galvatron_tpu.obs import stepstats as jstats
 from galvatron_tpu.parallel import hybrid as jhybrid
 from galvatron_tpu.parallel.mesh import build_mesh
 from galvatron_tpu_torch import bridge, cli
+from galvatron_tpu_torch.core import arguments as cli_args
 from galvatron_tpu_torch.core import dataloader as tdl
 from galvatron_tpu_torch.core import optim as topt
 from galvatron_tpu_torch.core import schedules as tsched
@@ -270,13 +271,19 @@ def test_cli_train_on_the_cpu_writes_train_iter_records(tmp_path, capsys):
 
 
 def test_cli_train_refuses_unported_flags():
-    # flags of features not ported yet are argparse errors; --pp_deg (a
-    # GLOBAL flag since the hybrid runtime) parses and raises naming its item
+    # flags of features not ported yet are argparse errors; the pipeline
+    # flags parse, and --pp_deg 2 in a world of one rank raises the
+    # world-size error instead of running pp=1
     for flag in (["--save", "d"], ["--data_path", "c"], ["--context_parallel_deg", "2"],
-                 ["--vpp_deg", "2"], ["--global_tp_overlap", "1"], ["--grad_overlap", "1"]):
+                 ["--global_tp_overlap", "1"], ["--grad_overlap", "1"],
+                 ["--pipeline_type", "zero_bubble"], ["--pp_division", "2,x"]):
         with pytest.raises(SystemExit):
             cli.main(["train", "--device", "cpu", *flag])
-    with pytest.raises(NotImplementedError, match="§1.7"):
+    ns = cli_args.initialize_galvatron("train", ["--pp_deg", "2", "--vpp_deg", "2", "--pp_division",
+                                        "2,2", "--pipeline_type", "pipedream_flush"])
+    assert (ns.pp_deg, ns.vpp_deg, ns.pp_division, ns.pipeline_type) == (
+        2, 2, [2, 2], "pipedream_flush")
+    with pytest.raises(ValueError, match="pp=2 must divide the device count 1"):
         cli.main(["train", "--device", "cpu", "--pp_deg", "2"])
 
 
