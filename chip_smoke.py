@@ -147,6 +147,29 @@ its result line:
    13b (phase name ``nccl``): (b) over NCCL on cards 0 and 1 where the
    machine has two, beside phases 11 and 12b; otherwise reported absent.
 
+14. profiling and search (phase name ``search``), each step a ``cli`` mode
+   in this process: (a) ``cli profile --model_size llama-7b`` at full width
+   (batch 8 x 2048, bf16) with the adaptive layer counts (an attempt that
+   runs out of memory halves them and says so); the
+   flash kernels on the TMA route; the cost model's world-1 step at 4
+   layers from this profile within 0.67-1.5 x phase 7's iter_ms of this
+   run; (b) ``cli profile-hardware`` at world 1 writes the reference's
+   degenerate JSON; (c) ``cli search --num_layers 4 --num_devices 1
+   --settle_bsz 8 --validate_top_k 2`` at 40, 28 and 22 GB on that
+   profile, each plan through ``cli check-plan --strict 1`` and ``cli
+   train`` for 10 iterations: finite losses, each flash kernel launched
+   (layers + recomputed layers) x chunks x iterations (the backward layers
+   x chunks x iterations) on the TMA route; iter_ms beside search_cost_ms
+   and the peak memory beside the plan's memory_mb and the budget
+   (recorded, not gated); (d) ``cli search --num_devices 2`` on
+   ``configs/hardware/reference_2x8_ib.json`` at phase 12 (a)'s shape, the
+   plan trained by two ranks sharing the card over gloo: fp32 losses
+   within 1e-3 of world size 1; (e) the full-depth search (8 devices, 32
+   GB) on the 14 (a) profile beside ``configs/strategies/llama-7b_8dev_32gb.json``,
+   through ``check-plan``, on the native DP route. 14b (phase name
+   ``nccl``): ``cli profile-hardware`` over NCCL on cards 0 and 1 where the
+   machine has two; otherwise reported absent.
+
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
 measured to PATH as JSON.
@@ -163,6 +186,7 @@ import re
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -2100,6 +2124,334 @@ def _gpt_reference_losses(torch, tmpdir, train_res):
     return losses
 
 
+# ---------------------------------------------------------------------------
+# phase 14: profiling and search (cli profile → profile-hardware → search →
+# check-plan → train)
+# ---------------------------------------------------------------------------
+
+SEARCH_PROFILE_BSZ = 8
+SEARCH_TRAIN_LAYERS = 4  # phase 7's depth
+# roomy; below phase 7's measured unrecomputed peak (~33 GB); below the cost
+# model's own unrecomputed prediction (~26 GB), so the plan recomputes or
+# splits the batch
+SEARCH_BUDGETS_GB = (40.0, 28.0, 22.0)
+SEARCH_FIDELITY_BAND = (0.67, 1.5)  # predicted / measured step, phase 7 beside it
+SEARCH_ITERS = 10
+SEARCH_FULL_DEPTH = ["--num_devices", "8", "--memory_constraint_gb", "32", "--settle_bsz", "16"]
+REFERENCE_HW = "configs/hardware/reference_2x8_ib.json"
+
+
+class _Tee:
+    """Writes to stdout and keeps a copy (the cli modes report by printing)."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, text):
+        self.parts.append(text)
+        return sys.__stdout__.write(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def _cli(argv):
+    """``cli.main(argv)`` in this process; returns (rc, what it printed)."""
+    from galvatron_tpu_torch import cli
+
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee):
+        rc = cli.main(list(argv))
+    return rc, tee.text()
+
+
+def _routes_since(before):
+    return {k: {r: n - before[k][r] for r, n in v.items()} for k, v in route_counts().items()}
+
+
+def _all_tma(launches, routes):
+    return all(r["tma"] == launches[k] and r["cuda_core"] == 0 for k, r in routes.items())
+
+
+def phase_search_profile(torch, smi, tmpdir, phase7_iter_ms):
+    """14 (a): ``cli profile`` of llama-7b at full width with the adaptive
+    layer counts, then the cost model's world-1 step at 4 layers from it
+    against phase 7's measured iter_ms."""
+    from galvatron_tpu_torch.core.strategy import LayerStrategy
+    from galvatron_tpu_torch.search.cost_model import ProfiledHardware
+    from galvatron_tpu_torch.search.search_engine import SearchEngine, SearchSpace
+    from galvatron_tpu_torch.utils.config_utils import load_profiled_model
+
+    prefix = os.path.join(tmpdir, "profile_llama-7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()  # the main path's counts start here
+    before = route_counts()
+    t0 = time.perf_counter()
+    rc, out = _cli(["profile", "--model_size", "llama-7b", "--profile_batch_size",
+                    str(SEARCH_PROFILE_BSZ), "--output_prefix", prefix])
+    launches = kernel_counts()  # read right after the main path
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(rc == 0, f"phase 14 (a): cli profile returned {rc}")
+    counts = [tuple(map(int, m)) for m in re.findall(r"layer counts \((\d+), (\d+)\) on", out)]
+    check(counts, "phase 14 (a): the profile printed no layer counts")
+    l1, l2 = counts[-1]
+    dropped = re.findall(r"out of memory at layer counts \((\d+), (\d+)\)", out)
+    routes = _routes_since(before)
+    # every completed layer count ran 2 warm-up + 4 timed steps and one
+    # forward for the activation bytes; an attempt that ran out of memory
+    # adds the launches it made before it failed
+    done = l1 + l2
+    check(launches["flash_fwd"] >= 7 * done and launches["flash_bwd"] >= 6 * done,
+          f"phase 14 (a): launches {launches} below the completed runs' {7 * done} / {6 * done}")
+    check(all(launches[k] == 0 for k in launches if k not in ("flash_fwd", "flash_bwd")),
+          f"phase 14 (a): kernels of another path launched: {launches}")
+    check(_all_tma(launches, routes), f"phase 14 (a): routes {routes}")
+    costs = load_profiled_model(prefix + "_computation.json", prefix + "_memory.json")
+    lt = costs.layer_types[0]
+    check(lt.fwd_ms_per_sample > 0 and lt.activation_mb_per_sample[1] > 0,
+          f"phase 14 (a): profile {lt}")
+    # the cost model's world-1 step at phase 7's depth: the DP over the one
+    # strategy phase 7 runs (tp 1, dp 1, pp 1, no recompute, chunks 1)
+    hw = ProfiledHardware(allreduce_bw={}, p2p_bw={}, overlap_coe=1.1)
+    space = SearchSpace(world_size=1, pp_choices=[1], allow_sp=False, allow_ckpt=False,
+                        allow_zero2=False, allow_zero3=False, allow_strided=False)
+    eng = SearchEngine(costs, hw, num_layers=SEARCH_TRAIN_LAYERS, space=space,
+                       memory_budget_mb=80 * 1024.0, mixed_precision="bf16")
+    table = eng.check_cost_model(SEARCH_PROFILE_BSZ, strategies=[LayerStrategy()])
+    log(table)
+    r = eng.evaluate(1, SEARCH_PROFILE_BSZ, 1, "gpipe")
+    check(r is not None, "phase 14 (a): the cost model found no world-1 step")
+    ratio = r.cost_ms / phase7_iter_ms
+    lo, hi = SEARCH_FIDELITY_BAND
+    res = {"card": smi, "layer_counts": [l1, l2], "dropped": [list(map(int, d)) for d in dropped],
+           "fwd_ms_per_sample": lt.fwd_ms_per_sample,
+           "activation_mb_per_sample_1": lt.activation_mb_per_sample[1],
+           "other_fwd_ms_per_sample": costs.other_fwd_ms_per_sample,
+           "vocab_slope_ms": costs.measured_vocab_slope_ms,
+           "vocab_const_ms": costs.measured_vocab_const_ms, "launches": launches,
+           "tma_routes": {k: v["tma"] for k, v in routes.items()},
+           "predicted_step_ms_4_layers": r.cost_ms, "predicted_memory_mb_4_layers": r.memory_mb,
+           "phase7_iter_ms": phase7_iter_ms, "predicted_over_measured": ratio,
+           "band": list(SEARCH_FIDELITY_BAND), "max_memory_allocated_gb": peak_gb,
+           "seconds": seconds}
+    log("phase 14 (a) profile:", json.dumps(res))
+    RESULTS["search_profile"] = res
+    check(lo <= ratio <= hi, f"phase 14 (a): predicted {r.cost_ms:.1f} ms over phase 7's "
+          f"{phase7_iter_ms:.1f} ms = {ratio:.3f}, outside {SEARCH_FIDELITY_BAND}")
+    return prefix
+
+
+def phase_search_hardware(tmpdir):
+    """14 (b): ``cli profile-hardware`` on the one card: world 1 measures
+    nothing and writes the reference's degenerate values."""
+    path = os.path.join(tmpdir, "hardware_world1.json")
+    rc, _ = _cli(["profile-hardware", "--hardware_output_path", path])
+    check(rc == 0, f"phase 14 (b): cli profile-hardware returned {rc}")
+    with open(path) as f:
+        hw = json.load(f)
+    want = {"allreduce": {}, "p2p": {}, "overlap_coe": 1.1, "dcn_keys": []}
+    check(hw == want, f"phase 14 (b): world-1 hardware {hw}, expected {want}")
+    log("phase 14 (b) profile-hardware, world 1:", json.dumps(hw))
+    RESULTS["search_hardware_world1"] = hw
+    return path
+
+
+def phase_search_plans(torch, smi, tmpdir, prefix, hw_path):
+    """14 (c): ``cli search`` at 4 layers on one device under each budget
+    with ``--validate_top_k 2``, then ``cli check-plan --strict 1`` and
+    ``cli train`` of the emitted plan."""
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    _, layers, bsz, seq = TRAIN_PATHS["llama"]
+    out = []
+    for budget in SEARCH_BUDGETS_GB:
+        tag = f"{budget:g}gb"
+        plan = os.path.join(tmpdir, f"plan_llama-7b_1dev_{tag}.json")
+        gc.collect()
+        torch.cuda.empty_cache()
+        rc, text = _cli(["search", "--model_size", "llama-7b", "--num_layers", str(layers),
+                         "--num_devices", "1", "--settle_bsz", str(bsz),
+                         "--memory_constraint_gb", str(budget),
+                         "--time_profile_path", prefix + "_computation.json",
+                         "--memory_profile_path", prefix + "_memory.json",
+                         "--hardware_profile_path", hw_path, "--validate_top_k", "2",
+                         "--output_config_path", plan])
+        check(rc == 0, f"phase 14 (c) {tag}: cli search returned {rc}")
+        validated = [{"predicted_ms": float(a), "measured_ms": float(b)} for a, b in
+                     re.findall(r"predicted ([\d.]+) ms, measured ([\d.]+) ms", text)]
+        agree = re.findall(r"rank agreement: (\d+)/(\d+) positions \(best candidate ([^)]*)\)",
+                           text)
+        rc, text = _cli(["check-plan", plan, "--strict", "1"])
+        check(rc == 0, f"phase 14 (c) {tag}: check-plan --strict 1 returned {rc}")
+        with open(plan) as f:
+            d = json.load(f)
+        hp = HybridParallelConfig.load(plan)
+        path = os.path.join(tmpdir, f"train_metrics_search_{tag}.jsonl")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()  # the main path's counts start here
+        before = route_counts()
+        rc, _ = _cli(["train", "--model_size", "llama-7b", "--num_layers", str(layers),
+                      "--global_train_batch_size", str(bsz), "--train_iters", str(SEARCH_ITERS),
+                      "--galvatron_config_path", plan, "--metrics_path", path])
+        launches = kernel_counts()  # read right after the main path
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        check(rc == 0, f"phase 14 (c) {tag}: cli train returned {rc}")
+        recs = [x for x in read_metrics(path) if x["event"] == "train_iter"]
+        losses = [x["loss"] for x in recs]
+        check(len(recs) == SEARCH_ITERS and all(
+            isinstance(x, float) and x == x and abs(x) != float("inf") for x in losses),
+            f"phase 14 (c) {tag}: losses {losses}")
+        # each micro-batch runs every layer's kernels: a forward per layer
+        # and one more per recomputed layer, a backward per layer
+        want = dict(path_counts("llama", layers, SEARCH_ITERS, False),
+                    **_flash_want(hp, SEARCH_ITERS * hp.chunks))
+        check(launches == want, f"phase 14 (c) {tag}: launches {launches}, expected {want}")
+        routes = _routes_since(before)
+        check(_all_tma(launches, routes), f"phase 14 (c) {tag}: routes {routes}")
+        steady = [x["iter_ms"] for x in recs[1:]]
+        iter_ms = sum(steady) / len(steady)
+        res = {"card": smi, "budget_gb": budget, "plan": {
+                   k: d[k] for k in ("pp_deg", "tp_sizes_enc", "dp_types_enc", "checkpoint",
+                                     "chunks", "vocab_tp", "embed_sdp") if k in d},
+               "recomputed_layers": [i for i, s in enumerate(hp.layer_strategies) if s.ckpt],
+               "search_cost_ms": d["search_cost_ms"], "iter_ms_mean_from_2": iter_ms,
+               "predicted_over_measured_ms": d["search_cost_ms"] / iter_ms,
+               "memory_mb_plan": d["memory_mb"], "max_memory_allocated_mb": peak_mb,
+               "budget_mb": budget * 1024.0, "peak_within_budget": peak_mb <= budget * 1024.0,
+               "validate_top_k": validated,
+               "rank_agreement": [list(a) for a in agree], "losses": losses,
+               "launches": {k: launches[k] for k in ("flash_fwd", "flash_bwd")}}
+        log(f"phase 14 (c) search + train, {tag}:", json.dumps(res))
+        out.append(res)
+    RESULTS["search_plans"] = out
+    return out
+
+
+def phase_search_two_ranks(torch, smi, tmpdir):
+    """14 (d): ``cli search`` for two devices at phase 12 (a)'s shape on
+    the reference hardware file, the plan trained by two ranks sharing card
+    0 over gloo against world size 1 in fp32."""
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig, LayerStrategy
+
+    layers, bsz, seq = HYBRID_FP32_LAYERS, 2, 512
+    plan2 = os.path.join(tmpdir, "plan_search_w2_fp32.json")
+    rc, _ = _cli(["search", "--model_size", "llama-7b", "--num_layers", str(layers),
+                  "--seq_length", str(seq), "--num_devices", "2", "--settle_bsz", str(bsz),
+                  "--memory_constraint_gb", "40", "--mixed_precision", "fp32",
+                  "--analytic_costs", "1", "--hardware_profile_path", REFERENCE_HW,
+                  "--output_config_path", plan2])
+    check(rc == 0, f"phase 14 (d): cli search returned {rc}")
+    rc, _ = _cli(["check-plan", plan2, "--strict", "1"])
+    check(rc == 0, f"phase 14 (d): check-plan --strict 1 returned {rc}")
+    hp2 = HybridParallelConfig.load(plan2)
+    check(hp2.mixed_precision == "fp32", f"phase 14 (d): plan precision {hp2.mixed_precision}")
+    plan1 = os.path.join(tmpdir, "plan_search_w1_fp32.json")
+    HybridParallelConfig(layer_strategies=[LayerStrategy()] * layers,
+                         mixed_precision="fp32").save(plan1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = trainer.train(initialize_galvatron("train", _hybrid_argv(plan1, layers, bsz, seq,
+                                                                   HYBRID_STEPS)))
+    ref_losses = ref["losses"]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    outdir = os.path.join(tmpdir, "ranks_search_w2")
+    os.makedirs(outdir)
+    ranks = _launch_ranks(_hybrid_argv(plan2, layers, bsz, seq, HYBRID_STEPS), outdir, "gloo",
+                          (0, 0))
+    diff = max(abs(a - b) for a, b in zip(ranks[0]["losses"], ref_losses))
+    res = {"card": smi, "plan": hp2.to_json_dict(), "losses": [r["losses"] for r in ranks],
+           "world1_losses": ref_losses, "max_abs_loss_diff": diff,
+           "tolerance": HYBRID_FP32_LOSS_TOL}
+    log("phase 14 (d) searched plan on two ranks:", json.dumps(res))
+    RESULTS["search_two_ranks"] = res
+    check(all(r["losses"] == ranks[0]["losses"] for r in ranks), "phase 14 (d): ranks differ")
+    check(diff <= HYBRID_FP32_LOSS_TOL, f"phase 14 (d): losses {ranks[0]['losses']} vs "
+          f"world size 1 {ref_losses}")
+
+
+def phase_search_full_depth(smi, tmpdir, prefix):
+    """14 (e): the full-depth llama-7b search for 8 devices on the 14 (a)
+    profile and the reference hardware file, beside the analytic plan in
+    configs/strategies; no device."""
+    from galvatron_tpu_torch.search import native
+
+    plan = os.path.join(tmpdir, "plan_llama-7b_8dev_32gb_profiled.json")
+    rc, text = _cli(["search", "--model_size", "llama-7b", *SEARCH_FULL_DEPTH,
+                     "--time_profile_path", prefix + "_computation.json",
+                     "--memory_profile_path", prefix + "_memory.json",
+                     "--hardware_profile_path", REFERENCE_HW, "--output_config_path", plan])
+    check(rc == 0, f"phase 14 (e): cli search returned {rc}")
+    rc, _ = _cli(["check-plan", plan, "--strict", "1"])
+    check(rc == 0, f"phase 14 (e): check-plan --strict 1 returned {rc}")
+    check(native.ROUTE == "native" and "dp route: native" in text,
+          f"phase 14 (e): the DP ran on the {native.ROUTE} route ({native.BUILD_ERROR})")
+    keys = ("pp_deg", "tp_sizes_enc", "tp_consecutive_flags", "dp_types_enc", "checkpoint",
+            "sp_flags", "chunks", "pipeline_type", "vocab_tp", "embed_sdp", "global_bsz",
+            "search_cost_ms", "memory_mb")
+    with open(plan) as f:
+        d = json.load(f)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "strategies",
+                           "llama-7b_8dev_32gb.json")) as f:
+        analytic = json.load(f)
+    res = {"card": smi, "dp_route": native.ROUTE,
+           "profiled": {k: d.get(k) for k in keys},
+           "analytic_checked_in": {k: analytic.get(k) for k in keys}}
+    log("phase 14 (e) full-depth search beside the analytic plan:", json.dumps(res))
+    RESULTS["search_full_depth"] = res
+
+
+def phase_search_nccl(smi, tmpdir):
+    """14b: ``cli profile-hardware`` over NCCL on cards 0 and 1."""
+    from galvatron_tpu_torch.parallel.launch import launch_local
+
+    path = os.path.join(tmpdir, "hardware_nccl_2.json")
+    ranks = launch_local([sys.executable, "-m", "galvatron_tpu_torch.cli", "profile-hardware",
+                          "--hardware_output_path", path, "--dist_backend", "nccl"], 2,
+                         timeout_s=HYBRID_RANK_TIMEOUT_S, local_ranks=(0, 1),
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    for r in ranks:
+        log(f"  rank {r.rank}: rc={r.returncode}\n" + "\n".join(r.output.splitlines()[-6:]))
+    check(all(r.returncode == 0 and not r.killed for r in ranks),
+          "phase 14b: a profile-hardware rank failed")
+    with open(path) as f:
+        hw = json.load(f)
+    res = {"card": smi, "allreduce_2_1_GBps": hw["allreduce"].get("2_1"),
+           "p2p_pp2_GBps": hw["p2p"].get("2"), "overlap_coe": hw["overlap_coe"], "json": hw}
+    log("phase 14b profile-hardware, NCCL on two cards:", json.dumps(res))
+    check(res["allreduce_2_1_GBps"] and res["p2p_pp2_GBps"] and hw["overlap_coe"] >= 1.0,
+          f"phase 14b: {hw}")
+    RESULTS["search_hardware_nccl"] = res
+
+
+def phase_search(torch, smi, train_res):
+    """Phase 14 (a)-(e); phase 7's iter_ms from this run, or from a run of
+    phase 7 here when ``train`` is not among the phases."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_search_") as tmpdir:
+        if "llama" not in train_res:
+            _, train_res["llama"] = phase_train(torch, smi, tmpdir, "llama")
+        prefix = phase_search_profile(torch, smi, tmpdir,
+                                      train_res["llama"]["iter_ms_mean_from_2"])
+        hw_path = phase_search_hardware(tmpdir)
+        phase_search_plans(torch, smi, tmpdir, prefix, hw_path)
+        phase_search_two_ranks(torch, smi, tmpdir)
+        phase_search_full_depth(smi, tmpdir, prefix)
+    log(f"phase 14 search: {time.perf_counter() - t0:.1f} s")
+
+
 def rank_worker(outdir, argv, ref_params=None) -> int:
     """One rank of phases 12-13: ``cli train``'s own call (``trainer.train``
     of the parsed flags), with the flash wrappers' launches also counted by
@@ -2155,7 +2507,7 @@ def rank_worker(outdir, argv, ref_params=None) -> int:
 
 #: the phases by name, for ``--phases``; a full run takes them all
 PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train", "hybrid",
-          "pipeline", "nccl")
+          "pipeline", "nccl", "search")
 
 
 def main() -> int:
@@ -2180,8 +2532,6 @@ def main() -> int:
     import torch
 
     import galvatron_tpu_torch  # noqa: F401 — fails fast outside a checkout
-
-    import tempfile
 
     smi = phase_card(torch)
     phase_build()
@@ -2257,6 +2607,17 @@ def main() -> int:
                 log(f"phases 12b and 13b, nccl on two cards: absent "
                     f"({torch.cuda.device_count()} card)")
                 RESULTS["hybrid_ranks_nccl"] = RESULTS["pipeline_bf16_nccl"] = "absent: one card"
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "search" in phases:
+        phase_search(torch, smi, train_res)
+    if "nccl" in phases and torch.cuda.device_count() >= 2:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmpdir:
+            phase_search_nccl(smi, tmpdir)
+    elif "nccl" in phases:
+        log(f"phase 14b, profile-hardware over nccl on two cards: absent "
+            f"({torch.cuda.device_count()} card)")
+        RESULTS["search_hardware_nccl"] = "absent: one card"
     if set(phases) != set(PHASES):
         if args.out:
             _write_out(args.out, RESULTS)

@@ -1,24 +1,41 @@
 """CLI of the port: python -m galvatron_tpu_torch.cli <mode> [flags]
 
-  train   train a LLaMA- or GPT/OPT-family decoder on one device: synthetic
-          tokens from --seed, fp32 master weights, AdamW, the flash kernels
-          on the card (--attn_impl auto: blocked-causal with RoPE, grid
-          otherwise); a line and a train_iter JSONL record (--metrics_path)
-          per iteration
-  serve   REST generation server over the continuous-batching engine on the
-          paged KV backend (--kv_num_blocks -1), weights initialised from a
-          seed; LLaMA family only (GPT serving: ROADMAP.md §1.10)
+  train             train a LLaMA- or GPT/OPT-family decoder under a
+                    per-layer hybrid-parallel plan (--galvatron_config_path,
+                    or the GLOBAL flags) on one or more ranks: synthetic
+                    tokens from --seed, fp32 master weights, AdamW, the flash
+                    kernels on the card (--attn_impl auto); a line and a
+                    train_iter JSONL record (--metrics_path) per iteration
+  serve             REST generation server over the continuous-batching
+                    engine on the paged KV backend (--kv_num_blocks -1),
+                    weights initialised from a seed; LLaMA family only (GPT
+                    serving: ROADMAP.md §1.10)
+  profile           per-layer time and activation memory of the model
+                    (layer-difference method on the real train step) → the
+                    reference-schema computation / memory JSONs
+  profile-hardware  all-reduce and p2p bandwidth and the overlap coefficient
+                    of this world (NCCL on the card, gloo on the CPU) → JSON
+  search            the parallelism plan search (profiled, or analytic with
+                    --analytic_costs 1) → a galvatron_config JSON that
+                    `train --galvatron_config_path` runs
+  check-plan        static plan validation (GTA… diagnostics, no device)
 
-Both run on the card (--device cuda, the default) or, when asked, on the
-CPU (--device cpu). The reference's other modes (search, profile, generate,
-warmup, ...) are not ported yet (ROADMAP.md §1).
+train, serve, profile and profile-hardware run on the card (--device cuda,
+the default) or, when asked, on the CPU (--device cpu). search with profile
+paths or --analytic_costs 1 and check-plan touch no device. The reference's
+other modes (generate, warmup, run-elastic, audit-comm, ...) are not ported
+yet (ROADMAP.md §1).
 """
 
 from __future__ import annotations
 
+import json
 import sys
 import threading
 from typing import List, Optional
+
+
+_MODES = ("train", "serve", "profile", "profile-hardware", "search", "check-plan")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -27,8 +44,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(__doc__)
         return 0
     mode, rest = argv[0], argv[1:]
-    if mode not in ("serve", "train"):
-        print(f"mode {mode!r} is not ported yet; expected: train or serve", file=sys.stderr)
+    if mode not in _MODES:
+        print(f"mode {mode!r} is not ported yet; expected one of: {', '.join(_MODES)}",
+              file=sys.stderr)
         return 2
 
     from galvatron_tpu_torch.core.arguments import initialize_galvatron, model_config_from_args
@@ -38,6 +56,14 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         train(initialize_galvatron(mode, rest))
         return 0
+    if mode == "search":
+        return _search_mode(initialize_galvatron("search", rest))
+    if mode == "profile":
+        return _profile_mode(initialize_galvatron("profile", rest))
+    if mode == "profile-hardware":
+        return _profile_hardware_mode(initialize_galvatron("profile_hardware", rest))
+    if mode == "check-plan":
+        return _check_plan_mode(initialize_galvatron("check_plan", rest))
     from galvatron_tpu_torch.device import resolve_device
     from galvatron_tpu_torch.models import modeling
     from galvatron_tpu_torch.models.tokenizer import build_tokenizer
@@ -92,6 +118,292 @@ def _serve_warmup(engine, service, listening) -> None:
     finally:
         service.starting = False
         print("serving ready: /readyz now 200", flush=True)
+
+
+def _search_mode(ns) -> int:
+    from galvatron_tpu_torch.core.arguments import model_config_from_args, resolve_execution_config
+    from galvatron_tpu_torch.search import native
+    from galvatron_tpu_torch.search.cost_model import ProfiledHardware
+    from galvatron_tpu_torch.search.search_engine import (
+        SearchEngine,
+        SearchSpace,
+        apply_search_space,
+    )
+    from galvatron_tpu_torch.utils.config_utils import load_profiled_hardware, load_profiled_model
+
+    # the costs describe the program the training run will execute (kernel
+    # and dtype); the device named by --device is only where it would run
+    cfg = resolve_execution_config(model_config_from_args(ns), ns, ns.device)
+    if bool(ns.time_profile_path) != bool(ns.memory_profile_path):
+        print("error: --time_profile_path and --memory_profile_path must be "
+              "given together (got only one; refusing to silently re-profile)")
+        return 2
+    if ns.time_profile_path and ns.memory_profile_path:
+        costs = load_profiled_model(ns.time_profile_path, ns.memory_profile_path)
+    elif ns.analytic_costs or ns.check_cost_model:
+        from galvatron_tpu_torch.search.theoretical import analytic_model_costs
+
+        print("using analytic (unprofiled) model costs")
+        costs = analytic_model_costs(cfg)
+    else:
+        from galvatron_tpu_torch.profiling.model import profile_model
+
+        print(f"no profiled model data given; profiling in-process on {ns.device}")
+        costs = profile_model(cfg, bsz=ns.min_bsz, device=ns.device)
+    hw = (load_profiled_hardware(ns.hardware_profile_path) if ns.hardware_profile_path
+          else ProfiledHardware())
+    sspace = SearchSpace(
+        world_size=ns.num_devices,
+        max_tp=ns.max_tp_deg,
+        allow_sp=not ns.disable_sp,
+        allow_ckpt=not ns.disable_ckpt,
+        allow_zero2=not ns.disable_sdp,
+        allow_zero3=not ns.disable_sdp,
+        allow_strided=not ns.disable_tp_consec,
+        allow_cp=bool(ns.enable_cp),
+        allow_ep=bool(ns.enable_ep),
+        allow_tp_overlap=bool(ns.enable_tp_overlap),
+        max_ep=ns.max_ep_deg,
+        moe_experts=cfg.moe_experts,
+        max_vpp=ns.max_vpp_deg,
+    )
+    apply_search_space(sspace, ns.search_space)
+    eng = SearchEngine(
+        costs, hw, num_layers=cfg.total_layers, space=sspace,
+        memory_budget_mb=ns.memory_constraint_gb * 1024.0,
+        mixed_precision=ns.mixed_precision,
+        section_pipeline=bool(cfg.swin_depths),
+        model_config=cfg, model_name=ns.model_size,
+    )
+    if ns.check_cost_model:
+        from galvatron_tpu_torch.core.strategy import LayerStrategy
+        from galvatron_tpu_torch.search.theoretical import report as theo_report
+
+        bsz = ns.settle_bsz if ns.settle_bsz > 0 else ns.min_bsz
+        print(eng.check_cost_model(bsz, chunks=1, pp=1))
+        print(theo_report(cfg, LayerStrategy(), ns.num_devices).lines())
+        return 0
+    if ns.settle_bsz > 0:
+        bszs = [ns.settle_bsz]
+    else:
+        if ns.bsz_scale < 2:
+            print(f"error: --bsz_scale must be >= 2, got {ns.bsz_scale}")
+            return 2
+        rec = 0
+        if ns.recommend_min_bsz:
+            # prune the grid below the recommendation (shifting its anchor
+            # would skip points above it too)
+            rec = min(eng.recommend_min_bsz(), ns.max_bsz)
+            if rec > ns.min_bsz:
+                print(f"recommend_min_bsz: pruning sweep below {rec}")
+        bszs, b = [], ns.min_bsz
+        while b <= ns.max_bsz:
+            if b >= rec:
+                bszs.append(b)
+            b *= ns.bsz_scale
+        if not bszs:
+            bszs = [ns.max_bsz]  # rec sat between the last grid point and the cap
+    if ns.validate_top_k > 0:
+        cands = eng.search_topk(bszs, k=ns.validate_top_k, max_chunks=ns.max_chunks,
+                                verbose=True)
+        res = cands[0] if cands else None
+    else:
+        cands = None
+        res = eng.search(bszs, max_chunks=ns.max_chunks, verbose=True)
+    print(f"dp route: {native.ROUTE}"
+          + (f" ({native.BUILD_ERROR})" if native.BUILD_ERROR else ""))
+    if res is None:
+        print("no feasible strategy under the memory budget")
+        return 1
+    if cands:
+        print(f"Max throughput = {res.throughput_samples_per_s:.2f} samples/s "
+              f"(bsz {res.global_bsz})")
+        _validate_search(cands, cfg, ns)
+    if ns.report_homogeneity_gap and res.config.pp > 1 and res.config.vpp == 1:
+        g = eng.homogeneity_gap(res.config.pp, res.global_bsz, res.config.chunks,
+                                res.config.pipeline_type)
+        if g is None:
+            print("homogeneity gap: n/a (not defined for this shape/schedule, or the "
+                  "per-stage DP is infeasible)")
+        else:
+            print(f"homogeneity gap: restricted {g['restricted_ms']:.1f} ms vs "
+                  f"unrestricted per-stage {g['unrestricted_ms']:.1f} ms "
+                  f"(delta {g['delta_pct']:+.3f}%)")
+            res.details["homogeneity_gap_pct"] = g["delta_pct"]
+    elif ns.report_homogeneity_gap and res.config.vpp > 1:
+        print("homogeneity gap: n/a for interleaved (vpp>1) schedules")
+    out = ns.output_config_path or f"galvatron_config_{ns.model_size}_{ns.num_devices}dev.json"
+    eng.save_result(res, out)
+    print(f"saved searched strategy → {out}")
+    return 0
+
+
+def _validate_search(cands, cfg, ns) -> None:
+    """Train the top-k searched candidates a few steps each through the
+    runtime's own train step and report predicted against measured
+    iteration time, and whether the predicted ranking (by throughput, the
+    criterion the search maximizes) holds. Failures surface."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from galvatron_tpu_torch.profiling.model import measure_strategy_ms
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != ns.num_devices:
+        print(f"--validate_top_k skipped: search was for {ns.num_devices} devices "
+              f"but this world has {world}")
+        return
+    rows = []
+    for r in cands:
+        ms = measure_strategy_ms(cfg, r.config, r.global_bsz, device=ns.device)
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        rows.append((r, r.global_bsz / (ms / 1000.0)))
+        print(f"  pp={r.config.pp} chunks={r.config.chunks} {r.config.pipeline_type} "
+              f"vpp={r.config.vpp} bsz={r.global_bsz}: predicted {r.cost_ms:.1f} ms, "
+              f"measured {ms:.1f} ms (fidelity {r.cost_ms / ms:.3f})")
+    if len(rows) >= 2:
+        pred_order = [id(r) for r, _ in sorted(rows, key=lambda x: -x[0].throughput_samples_per_s)]
+        meas_order = [id(r) for r, _ in sorted(rows, key=lambda x: -x[1])]
+        agree = sum(a == b for a, b in zip(pred_order, meas_order))
+        best = "confirmed" if pred_order[0] == meas_order[0] else "NOT fastest measured"
+        print(f"predicted-vs-measured rank agreement: {agree}/{len(rows)} positions "
+              f"(best candidate {best})")
+
+
+def _profile_mode(ns) -> int:
+    from galvatron_tpu_torch.core.arguments import model_config_from_args, resolve_execution_config
+    from galvatron_tpu_torch.device import resolve_device
+    from galvatron_tpu_torch.profiling.model import profile_model
+    from galvatron_tpu_torch.utils.config_utils import save_profiled_model
+
+    device = resolve_device(ns.device)  # raises without a card unless --device cpu
+    # the attention kernel and dtype the training run will use
+    cfg = resolve_execution_config(model_config_from_args(ns), ns, device)
+    if bool(ns.layernum_min) != bool(ns.layernum_max):
+        print("error: --layernum_min and --layernum_max must be given together "
+              "(0,0 = adaptive basis)")
+        return 2
+    costs = profile_model(
+        cfg, bsz=ns.profile_batch_size,
+        layernums=(ns.layernum_min, ns.layernum_max) if ns.layernum_max else None,
+        measure_time=ns.profile_type in ("computation", "both"), device=device,
+    )
+    lt = costs.layer_types[0]
+    print(f"fwd_ms_per_sample {lt.fwd_ms_per_sample:.6g} | activation_mb_per_sample[1] "
+          f"{lt.activation_mb_per_sample[1]:.6g} | other_fwd_ms_per_sample "
+          f"{costs.other_fwd_ms_per_sample:.6g} | vocab fit slope "
+          f"{costs.measured_vocab_slope_ms} const {costs.measured_vocab_const_ms} "
+          f"({costs.measured_vocab_mp or 'none'})")
+    prefix = ns.output_prefix or f"profile_{ns.model_size}"
+    comp = f"{prefix}_computation.json" if ns.profile_type in ("computation", "both") else None
+    mem = f"{prefix}_memory.json" if ns.profile_type in ("memory", "both") else None
+    save_profiled_model(costs, comp, mem)
+    print(f"saved → {', '.join(p for p in (comp, mem) if p)}")
+    return 0
+
+
+def _profile_hardware_mode(ns) -> int:
+    import torch.distributed as dist
+
+    from galvatron_tpu_torch.core.trainer import init_distributed
+    from galvatron_tpu_torch.device import rank_device
+    from galvatron_tpu_torch.profiling.hardware import profile_hardware
+
+    device = rank_device(ns.device)  # raises without a card unless --device cpu
+    created = init_distributed(device, ns.dist_backend, ns.dist_timeout_s)
+    try:
+        hw = profile_hardware(msg_mb=ns.profile_size_mb, out_path=ns.hardware_output_path,
+                              device=device)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            print(f"allreduce: {hw.allreduce_bw}")
+            print(f"p2p: {hw.p2p_bw}")
+            print(f"overlap_coe: {hw.overlap_coe}")
+            print(f"saved → {ns.hardware_output_path}")
+    finally:
+        if created and dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+def _check_plan_mode(ns) -> int:
+    """Validate strategy JSONs statically; exit 1 on any error diagnostic
+    (warnings too under --strict). Model, world, batch and budget default
+    to the JSON's own provenance keys (search-emitted plans describe
+    themselves)."""
+    from galvatron_tpu_torch.analysis import plan_check
+    from galvatron_tpu_torch.analysis.diagnostics import errors, format_report, warnings
+    from galvatron_tpu_torch.core.arguments import model_config_from_args
+    from galvatron_tpu_torch.models.modeling import PRESETS, ModelConfig
+
+    paths = list(ns.config_paths or []) + list(ns.galvatron_config_path or [])
+    if not paths:
+        print("error: check-plan needs at least one strategy JSON path")
+        return 2
+    rc = 0
+    cli_model_size = ns.model_size  # a file's JSON defaults must not leak to the next
+    for path in paths:
+        try:
+            with open(path) as f:
+                d = json.load(f)
+            if not isinstance(d, dict):
+                d = {}
+        except (OSError, ValueError):
+            d = {}  # check_plan reports the parse failure as GTA002
+        model_size = cli_model_size or d.get("model_size")
+        shape = d.get("model_config")
+        shape = shape if isinstance(shape, dict) else None
+        cfg = base = None
+        if model_size:
+            base = PRESETS.get(model_size)
+            if base is None and cli_model_size:
+                print(f"error: unknown --model_size {cli_model_size!r}")
+                return 2
+            if base is None and shape is None:
+                print(f"{path}: unknown model_size {model_size!r} and no embedded "
+                      "model_config; running structural checks only")
+        if cli_model_size:
+            # an explicit --model_size asks whether the plan fits THAT model
+            if shape is not None:
+                print(f"{path}: validating against --model_size {cli_model_size} "
+                      "(plan's embedded model_config shape ignored)")
+        elif shape is not None:
+            base = plan_check.apply_model_shape(base if base is not None else ModelConfig(),
+                                                shape)
+        if base is not None:
+            cfg = model_config_from_args(ns, base=base)
+
+        def _num(v):
+            try:
+                return float(v)
+            except (TypeError, ValueError):
+                return 0.0
+
+        world = int(ns.num_devices or _num(d.get("num_devices")))
+        budget_gb = ns.memory_constraint_gb or _num(d.get("memory_constraint_gb"))
+        diags = plan_check.check_plan(
+            d if d else path,
+            source=path,
+            model_config=cfg,
+            world_size=world or None,
+            global_bsz=ns.global_bsz or None,
+            memory_budget_mb=budget_gb * 1024.0 or None,
+            abstract_pass=not ns.no_abstract_pass,
+        )
+        scope = []
+        if cfg is None:
+            scope.append("no model config: structural checks only")
+        if not world:
+            scope.append("no num_devices: topology checks skipped")
+        tag = f"  ({'; '.join(scope)})" if scope else ""
+        print(f"== {path}{tag}")
+        print(format_report(diags))
+        if errors(diags) or (ns.strict and warnings(diags)):
+            rc = 1
+    return rc
 
 
 if __name__ == "__main__":

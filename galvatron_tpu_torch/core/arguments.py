@@ -1,14 +1,16 @@
 """Flags of the ported modes: the model group, the ``serve`` group, the
-step-program group, the training group and the hybrid-parallel GLOBAL flags
-of ``galvatron_tpu/core/arguments.py`` (pipelines: ``--pp_deg``,
-``--pp_division``, ``--vpp_deg``, ``--pipeline_type``; TP with its layout,
-SP, DDP / ZeRO-2 / ZeRO-3, recompute, vocab TP / SP, chunks, and
-``--galvatron_config_path``), limited to what the port runs, plus
-``--device`` and ``--dist_backend``. Flags of unported features
-(``--context_parallel_deg``, ``--global_tp_overlap``, ``--grad_overlap``,
-checkpoints, corpora, ...) are absent, so passing one is an argparse error
-rather than a silently ignored option; ``--mixed_precision fp16`` parses and
-raises naming its ROADMAP item."""
+step-program group, the training group, the hybrid-parallel GLOBAL flags
+(pipelines: ``--pp_deg``, ``--pp_division``, ``--vpp_deg``,
+``--pipeline_type``; TP with its layout, SP, DDP / ZeRO-2 / ZeRO-3,
+recompute, vocab TP / SP, chunks, and ``--galvatron_config_path``), and the
+``search``, ``profile``, ``profile_hardware`` and ``check_plan`` groups of
+``galvatron_tpu/core/arguments.py`` with the reference's names and defaults,
+plus ``--device`` (where a mode touches a device) and ``--dist_backend``.
+Flags of unported features (``--context_parallel_deg``,
+``--global_tp_overlap``, ``--grad_overlap``, checkpoints, corpora,
+multi-slice ``--num_slices``, ...) are absent, so passing one is an argparse
+error rather than a silently ignored option; ``--mixed_precision fp16``
+parses and raises naming its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -39,6 +41,21 @@ def _add_model_args(p: argparse.ArgumentParser):
     g.add_argument("--num_kv_heads", type=int, default=None)
     g.add_argument("--ffn_dim", type=int, default=None)
     g.add_argument("--seq_length", type=int, default=None)
+    # the other families' shape flags: the search and the plan checker read
+    # them; training a non-default value raises (ROADMAP.md §1.10)
+    g.add_argument("--enc_layers", type=int, default=None,
+                   help="encoder layers (enc-dec families; 0 = decoder-only)")
+    g.add_argument("--enc_seq", type=int, default=None)
+    g.add_argument("--image_size", type=int, default=None,
+                   help="vision families: input image side (pixels)")
+    g.add_argument("--patch_size", type=int, default=None)
+    g.add_argument("--num_classes", type=int, default=None)
+    g.add_argument("--swin_window", type=int, default=None)
+    g.add_argument("--swin_depths", type=str, default=None,
+                   help="comma list, e.g. 2,2,18,2 (must sum to --num_layers)")
+    g.add_argument("--moe_experts", type=int, default=None,
+                   help="switch-MoE expert count (0/None = dense MLP)")
+    g.add_argument("--moe_capacity_factor", type=float, default=None)
 
 
 def _add_serve_args(p: argparse.ArgumentParser):
@@ -159,15 +176,130 @@ def _add_parallel_args(p: argparse.ArgumentParser):
                    help="per-layer strategy JSON (the reference's searched-config schema)")
 
 
+def _add_search_args(p: argparse.ArgumentParser):
+    """(reference: galvatron_search_args, core/arguments.py:226-313)"""
+    g = p.add_argument_group("search")
+    g.add_argument("--num_devices", type=int, default=8)
+    g.add_argument("--memory_constraint_gb", type=float, default=16.0)
+    g.add_argument("--min_bsz", type=int, default=8)
+    g.add_argument("--max_bsz", type=int, default=64)
+    g.add_argument("--bsz_scale", type=int, default=2)
+    g.add_argument("--settle_bsz", type=int, default=-1, help="search exactly this bsz")
+    g.add_argument("--recommend_min_bsz", type=int, default=0,
+                   help="1 = raise the sweep's min bsz to 65%% of the pure-strategy "
+                   "baselines' max feasible batch (search-time saving only)")
+    g.add_argument("--max_chunks", type=int, default=64)
+    g.add_argument("--search_space", type=str, default="full",
+                   choices=["full", "dp+tp", "dp+pp", "3d", "dp", "tp", "pp", "sdp"])
+    g.add_argument("--disable_sdp", type=int, default=0)
+    g.add_argument("--disable_ckpt", type=int, default=0)
+    g.add_argument("--disable_sp", type=int, default=0)
+    g.add_argument("--disable_tp_consec", type=int, default=0)
+    g.add_argument("--enable_cp", type=int, default=0)
+    g.add_argument("--enable_ep", type=int, default=0,
+                   help="search expert parallelism (MoE models)")
+    g.add_argument("--enable_tp_overlap", type=int, default=0,
+                   help="enumerate the collective-matmul tp_overlap variant on tp>1 "
+                   "layers (the port's runtime does not run it yet: ROADMAP.md §1.6)")
+    g.add_argument("--max_ep_deg", type=int, default=8)
+    g.add_argument("--max_tp_deg", type=int, default=8)
+    g.add_argument("--max_vpp_deg", type=int, default=1,
+                   help="search interleaved virtual-stage degrees up to this "
+                   "(powers of two; 1 = plain schedules only)")
+    g.add_argument("--analytic_costs", type=int, default=0,
+                   help="1 = search on analytic (unprofiled) model costs")
+    g.add_argument("--check_cost_model", type=int, default=0,
+                   help="print the predicted per-strategy memory/time table instead "
+                   "of searching")
+    g.add_argument("--time_profile_path", type=str, default=None)
+    g.add_argument("--memory_profile_path", type=str, default=None)
+    g.add_argument("--hardware_profile_path", type=str, default=None)
+    g.add_argument("--output_config_path", type=str, default=None)
+    # the execution config the costs describe: the training run's
+    g.add_argument("--mixed_precision", type=str, default="bf16",
+                   choices=["fp32", "fp16", "bf16"])
+    g.add_argument("--attn_impl", type=str, default="auto", choices=["auto", "flash", "xla"],
+                   help="auto = flash for --device cuda, the model's own otherwise")
+    g.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                   help="where an in-process profile and --validate_top_k run (profile "
+                   "paths or --analytic_costs 1 touch no device)")
+    g.add_argument("--validate_top_k", type=int, default=0,
+                   help="after searching, TRAIN the top-k candidates a few steps each "
+                   "and report measured vs predicted iteration time and whether the "
+                   "predicted ranking holds (needs --num_devices == this world's size)")
+    g.add_argument("--report_homogeneity_gap", type=int, default=0,
+                   help="after searching a pp>1 config, run per-stage DPs with "
+                   "stage-specific memory and report the predicted cost of the "
+                   "cross-stage position sharing")
+
+
+def _add_profile_args(p: argparse.ArgumentParser):
+    """(reference: galvatron_profile_args, core/arguments.py:139-184)"""
+    g = p.add_argument_group("profile")
+    g.add_argument("--profile_type", type=str, default="both",
+                   choices=["computation", "memory", "both"])
+    g.add_argument("--profile_batch_size", type=int, default=8)
+    g.add_argument("--layernum_min", type=int, default=0,
+                   help="0 = adaptive (scales with the model's layer count)")
+    g.add_argument("--layernum_max", type=int, default=0)
+    g.add_argument("--output_prefix", type=str, default=None)
+
+
+def _add_hardware_args(p: argparse.ArgumentParser):
+    """(reference: galvatron_profile_hardware_args, core/arguments.py:186-223)"""
+    g = p.add_argument_group("profile-hardware")
+    g.add_argument("--profile_size_mb", type=float, default=64.0)
+    g.add_argument("--hardware_output_path", type=str, default="hardware_config.json")
+    g.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                   help="cuda:LOCAL_RANK over NCCL, or the CPU over gloo")
+    g.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"])
+    g.add_argument("--dist_timeout_s", type=float, default=600.0)
+
+
+def _add_check_plan_args(p: argparse.ArgumentParser):
+    """Static plan validation (analysis/plan_check.py; no device)."""
+    g = p.add_argument_group("check-plan")
+    g.add_argument("config_paths", nargs="*",
+                   help="strategy JSON files to validate (galvatron_config schema)")
+    g.add_argument("--galvatron_config_path", type=str, action="append",
+                   default=None, help="additional strategy JSON (repeatable)")
+    g.add_argument("--num_devices", type=int, default=0,
+                   help="world size to validate against; 0 = the JSON's own "
+                   "num_devices key (emitted by the search engine)")
+    g.add_argument("--global_bsz", type=int, default=0,
+                   help="global batch for the divisibility checks; 0 = the "
+                   "JSON's own global_bsz key")
+    g.add_argument("--memory_constraint_gb", type=float, default=0.0,
+                   help="per-device budget for the feasibility check; 0 = "
+                   "the JSON's own memory_constraint_gb key (else skipped)")
+    g.add_argument("--strict", type=int, default=0,
+                   help="1 = warnings (unknown keys, silent replication) "
+                   "also fail the check")
+    g.add_argument("--no_abstract_pass", type=int, default=0,
+                   help="1 = skip the meta-device sharding pass")
+
+
 def build_parser(mode: str) -> argparse.ArgumentParser:
-    if mode not in ("serve", "train"):
-        raise ValueError(f"mode {mode!r} is not ported yet (ROADMAP.md §1)")
     p = argparse.ArgumentParser(f"galvatron_tpu_torch {mode}")
     _add_model_args(p)
     if mode == "serve":
         _add_serve_args(p)
-    else:
+    elif mode == "train":
         _add_train_args(p)
+    elif mode == "search":
+        _add_search_args(p)
+    elif mode == "profile":
+        _add_profile_args(p)
+        _add_train_args(p)
+    elif mode == "profile_hardware":
+        _add_hardware_args(p)
+    elif mode == "check_plan":
+        _add_check_plan_args(p)
+        # None, not the preset default, so that the JSON's own model_size
+        # key wins when no flag is given
+        p.set_defaults(model_size=None)
+    else:
+        raise ValueError(f"mode {mode!r} is not ported yet (ROADMAP.md §1)")
     return p
 
 
@@ -175,25 +307,46 @@ def initialize_galvatron(mode: str, args: Optional[Sequence[str]] = None) -> arg
     return build_parser(mode).parse_args(args)
 
 
-def model_config_from_args(ns: argparse.Namespace) -> ModelConfig:
-    """Preset lookup; explicitly passed shape flags override it."""
-    cfg = PRESETS[ns.model_size]
+def model_config_from_args(ns: argparse.Namespace, base: Optional[ModelConfig] = None
+                           ) -> ModelConfig:
+    """Preset lookup (or ``base``: check-plan's plan-embedded shape);
+    explicitly passed shape flags override it."""
+    cfg = base if base is not None else PRESETS[ns.model_size]
     overrides = {}
     for field, attr in [
         ("vocab_size", "vocab_size"), ("hidden_size", "hidden_size"),
         ("num_layers", "num_layers"), ("num_heads", "num_heads"),
         ("num_kv_heads", "num_kv_heads"), ("ffn_dim", "ffn_dim"),
         ("max_seq_len", "seq_length"),
+        ("enc_layers", "enc_layers"), ("enc_seq", "enc_seq"),
+        ("image_size", "image_size"), ("patch_size", "patch_size"),
+        ("num_classes", "num_classes"), ("swin_window", "swin_window"),
+        ("moe_experts", "moe_experts"), ("moe_capacity_factor", "moe_capacity_factor"),
     ]:
         v = getattr(ns, attr, None)
         if v is not None:
             overrides[field] = v
+    if getattr(ns, "swin_depths", None):
+        overrides["swin_depths"] = tuple(int(d) for d in str(ns.swin_depths).split(",") if d)
     if getattr(ns, "set_model_config_manually", 0):
         missing = [f for f in ("vocab_size", "hidden_size", "num_layers", "num_heads")
                    if f not in overrides]
         if missing:
             raise ValueError(f"--set_model_config_manually 1 requires {missing} to be passed")
     return dataclasses.replace(cfg, **overrides)
+
+
+def resolve_execution_config(cfg: ModelConfig, ns: argparse.Namespace, device) -> ModelConfig:
+    """Attention implementation and compute dtype from the flags: the rule
+    the trainer, the profiler and the search share, so that the profiled
+    (or priced) program is the one training runs. ``device`` is where the
+    training runs; nothing is allocated there."""
+    cfg = resolve_attn_impl(cfg, ns, device)
+    mp = getattr(ns, "mixed_precision", None)
+    if mp:
+        cfg = cfg.replace(dtype={"bf16": torch.bfloat16, "fp16": torch.float16,
+                                 "fp32": torch.float32}[mp])
+    return cfg
 
 
 def resolve_attn_impl(cfg: ModelConfig, ns: argparse.Namespace, device) -> ModelConfig:

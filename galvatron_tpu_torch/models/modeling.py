@@ -54,7 +54,21 @@ class ModelConfig:
     norm_eps: float = 1e-5
     causal: bool = True
     moe_experts: int = 0
+    moe_capacity_factor: float = 1.25
     objective: str = "clm"
+    # the shape fields of the reference's other families, with its
+    # decoder-only defaults: the search, the cost model and the plan checker
+    # read them (``analysis/plan_check.MODEL_SHAPE_FIELDS``). Training runs
+    # none of those families: a non-default value raises in
+    # :func:`check_supported` (ROADMAP.md §1.10).
+    enc_layers: int = 0  # encoder layers of an encoder-decoder model
+    enc_seq: int = 0
+    image_size: int = 0  # vision families: input image side (pixels)
+    patch_size: int = 16
+    num_channels: int = 3
+    num_classes: int = 1000
+    swin_depths: Tuple[int, ...] = ()
+    swin_window: int = 7
     attn_impl: str = "xla"  # 'xla' | 'flash'
     # activation recompute over the MLP/norm/loss regions (the reference's
     # --mlp_recompute): 'policy' saves the (biased) gate projection output
@@ -75,6 +89,27 @@ class ModelConfig:
     @property
     def kv_heads(self) -> int:
         return self.num_kv_heads or self.num_heads
+
+    @property
+    def total_layers(self) -> int:
+        """Layers carrying a per-layer strategy: encoder + decoder."""
+        return self.enc_layers + self.num_layers
+
+    @property
+    def grid(self) -> int:
+        """Vision: patches per image side at stage 0."""
+        return self.image_size // self.patch_size
+
+    @property
+    def n_patches(self) -> int:
+        return self.grid * self.grid
+
+    @property
+    def sample_len(self) -> int:
+        """Token length of one training sample (before the +1 label shift)."""
+        if self.image_size:
+            return self.image_size * self.image_size * self.num_channels
+        return self.enc_seq + self.max_seq_len if self.enc_layers else self.max_seq_len
 
     @property
     def head_dim(self) -> int:
@@ -108,6 +143,15 @@ _TRAIN_PORTED = (
     ("moe_experts", (0,), "mixture-of-experts MLPs"),
     ("causal", (True,), "bidirectional encoders"),
     ("objective", ("clm",), "masked-LM / classification objectives"),
+    ("enc_layers", (0,), "encoder-decoder models"),
+    ("enc_seq", (0,), "encoder-decoder models"),
+    ("image_size", (0,), "vision models"),
+    ("patch_size", (16,), "vision models"),
+    ("num_channels", (3,), "vision models"),
+    ("num_classes", (1000,), "vision models"),
+    ("swin_depths", ((),), "Swin models"),
+    ("swin_window", (7,), "Swin models"),
+    ("moe_capacity_factor", (1.25,), "mixture-of-experts MLPs"),
 )
 #: what serving runs on top of that: the LLaMA family, since
 #: ``generation.forward_with_cache_paged`` knows no learned positions

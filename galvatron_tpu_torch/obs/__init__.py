@@ -1,1 +1,1 @@
-"""Step accounting of the port (``stepstats``)."""
+"""Step accounting of the port (``stepstats``) and the span tracer's interface (``tracing``)."""

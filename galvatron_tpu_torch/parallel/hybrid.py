@@ -518,7 +518,9 @@ def build_runtime(
             for i in vstages[k]:
                 x = hook(i, x, params["layers"][local[i]])
             if head:
-                x = comm.redistribute(x, mesh, rank, stage_group, layouts[-1], embed_layout)
+                # a zero-layer model (the profiler's vocab fit) has no layer layout
+                x = comm.redistribute(x, mesh, rank, stage_group,
+                                      layouts[-1] if layouts else embed_layout, embed_layout)
                 x = modeling.cross_entropy_sum(modeling.head(x, top, cfg, vocab), labels,
                                                remat=modeling.ce_remat(cfg), vocab=vocab)
         if rg is not None:

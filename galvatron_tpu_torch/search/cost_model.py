@@ -1,0 +1,827 @@
+"""Memory and time cost models driving the strategy search (the port's copy
+of ``galvatron_tpu/search/cost_model.py``: the same terms and constants, so
+the same profile gives the same plan in both packages).
+
+The fitted constants and the runtime semantics the comments describe are
+the JAX package's: they were fitted to XLA's buffer assignment and step
+times on a TPU and are kept unchanged here, so none of them is a
+measurement of the port. The card's own readings of how well they predict
+the port are ``chip_smoke.py`` phase 14's (PERF.md).
+
+Counterparts of the reference's MemoryCostModel / TimeCostModel /
+pipeline_costmodel (reference: galvatron/core/cost_model.py:4-122,125-349,
+372-427), re-derived for this runtime's actual semantics:
+
+- model states are exact analytic fractions (fp32 master + fp32 Adam moments;
+  ZeRO-2 shards moments, ZeRO-3 shards everything) instead of the reference's
+  empirically-fit CUDA-allocator ratio curves (cost_model.py:56-60);
+- activation terms follow the JAX runtime: GPipe stashes stage inputs per
+  micro-batch, 1F1B holds at most 2(pp-1-s)+1 in-flight micro-batches,
+  remat keeps only layer-boundary activations;
+- communication terms use the profiled bandwidth per (group size, axis
+  layout) — consec = minor (adjacent) mesh axes — with allreduce volume
+  2(n-1)/n·msg, all-gather/reduce-scatter (n-1)/n·msg, and the measured
+  compute/comm overlap slowdown coefficient (reference overlap model:
+  cost_model.py:230-246).
+
+All sizes in MB, times in ms, bandwidths in GB/s.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+from galvatron_tpu_torch.core.strategy import LayerStrategy
+
+
+# ---------------------------------------------------------------------------
+# Profiled inputs
+# ---------------------------------------------------------------------------
+
+
+# --- FITTED sharded-activation coefficients --------------------------------
+# Fitted by the JAX package to its compiler's activation classes.
+# ACT_TP_UNSHARDED: replicated share of saved activations that does not
+# shrink with tp. ACT_SP_SHARDED: fraction of the table-derived REPLICATED
+# share that sp shards over the tp group.
+ACT_TP_UNSHARDED = 0.42
+ACT_SP_SHARDED = 1.0
+
+
+@dataclass
+class ProfiledLayerType:
+    """Per-layer profiled data (one transformer layer type).
+
+    fwd_ms_per_sample: forward time, tp=1, one device, per sample
+      (reference schema key layertype_i, computation_profiling_*.json).
+    parameter_mb: fp32 parameter size in MB (4 bytes/param).
+    activation_mb_per_sample: {tp: MB} measured activation per sample
+      (memory_profiling_*.json tp_activation_per_bsz_dict equivalent).
+    boundary_activation_mb_per_sample: one (S, H) boundary tensor — the remat
+      floor and the p2p message size.
+    """
+
+    fwd_ms_per_sample: float
+    parameter_mb: float
+    activation_mb_per_sample: Dict[int, float]
+    boundary_activation_mb_per_sample: float
+    # MoE (switch) layers: fraction of parameter_mb (and, as a proxy, of
+    # compute) that lives in the expert stack — shardable by the ep strategy
+    # dim — and the token dispatch+combine all-to-all volume per sample.
+    # 0 → dense layer; ep has no effect. The reference carries SwitchMLP but
+    # never searches EP (SURVEY §2.3 ⚠) — this closes that gap.
+    moe_expert_param_fraction: float = 0.0
+    moe_a2a_mb_per_sample: float = 0.0
+    # MEASURED share of the switch layer's fwd time that scales with ep
+    # (the expert GEMMs; routing/sinkhorn/dispatch einsums do NOT shard by
+    # ep). None → fall back to the param-fraction proxy (the port's profiler
+    # does not fit it yet: ROADMAP.md §1.9).
+    moe_expert_time_fraction: Optional[float] = None
+
+    def __post_init__(self):
+        if not (0.0 <= self.moe_expert_param_fraction < 1.0):
+            raise ValueError(
+                "moe_expert_param_fraction must be in [0, 1) — it is the "
+                "expert-stack share of parameter_mb (a value >= 1 means the "
+                "per-layer param count ignored the expert stack, which would "
+                f"drive dense memory negative); got {self.moe_expert_param_fraction}"
+            )
+
+    def _replicated_mb(self) -> float:
+        """Per-sample MB of the tp-REPLICATED activation share, derived from
+        the table itself: with act(k) = repl + shard/k, two profiled degrees
+        k1 < k2 solve repl = (k2·act(k2) − k1·act(k1)) / (k2 − k1). One
+        profiled degree falls back to the fitted ACT_TP_UNSHARDED fraction.
+        Clamped to [0, min(act)] against noisy profiles."""
+        tab = self.activation_mb_per_sample
+        if len(tab) >= 2:
+            ks = sorted(tab)[:2]
+            k1, k2 = ks
+            repl = (k2 * tab[k2] - k1 * tab[k1]) / (k2 - k1)
+        else:
+            (k1,) = tab
+            repl = ACT_TP_UNSHARDED * tab[k1] * (
+                1.0 / (ACT_TP_UNSHARDED + (1.0 - ACT_TP_UNSHARDED) / k1)
+            )
+        return min(max(repl, 0.0), min(tab.values()))
+
+    def act_mb(self, tp: int, sp: bool, cp: int = 1) -> float:
+        """Per-sample activation MB at (tp, sp, cp).
+
+        tp degrees missing from the profiled table extrapolate through
+        ``act(tp) = act(1) * (u + (1-u)/tp)`` — a tp-replicated share ``u``
+        (the residual/norm stream GSPMD keeps replicated without sp) does
+        not shrink with tp, so a pure-1/tp extrapolation under-predicts
+        tp>1 cells. sp shards the REPLICATED share only — derived from the
+        table (_replicated_mb). Coefficients: the JAX package's fit."""
+        base = self.activation_mb_per_sample.get(tp)
+        if base is None:
+            k = min(self.activation_mb_per_sample, key=lambda t: abs(t - tp))
+            scale = lambda t: ACT_TP_UNSHARDED + (1.0 - ACT_TP_UNSHARDED) / t
+            base = self.activation_mb_per_sample[k] * scale(tp) / scale(k)
+        if sp and tp > 1:
+            base = base - ACT_SP_SHARDED * self._replicated_mb() * (1.0 - 1.0 / tp)
+            base = max(base, 0.0)
+        return base / cp
+
+
+@dataclass
+class ProfiledModelCosts:
+    layer_types: Dict[int, ProfiledLayerType]
+    # embedding + head ("other") memory, fp32 param MB
+    other_param_mb: float = 0.0
+    # per-sample activation of embed+head+loss (logits dominate)
+    other_act_mb_per_sample: float = 0.0
+    other_fwd_ms_per_sample: float = 0.0
+    # model hidden size — lets other_time_cost derive the vocab-parallel
+    # cross-entropy scalar volume from first principles instead of a constant
+    hidden_size: int = 0
+    # MEASURED embed+head+loss cost per vocab_tp as a two-point linear fit
+    # over samples-per-device: slope (ms per sample) captures the batch-
+    # linear compute + vocab-parallel collectives, const (ms per iteration)
+    # the batch-independent share (the Adam update on the V·h params
+    # dominates a zero-layer step at small batch). Measured on vocab_tp
+    # devices at dp=1 (profiling/model.py::profile_vocab_costs);
+    # other_time_cost consumes the fit only when the search precision
+    # matches measured_vocab_mp.
+    measured_vocab_slope_ms: Dict[int, float] = field(default_factory=dict)
+    measured_vocab_const_ms: Dict[int, float] = field(default_factory=dict)
+    measured_vocab_mp: str = ""
+
+    def vocab_measurement_for(self, vocab_tp: int, mixed_precision: str):
+        """(slope_ms_per_sample, const_ms) when a matching-precision
+        measurement exists for this vocab_tp, else None."""
+        if (
+            vocab_tp in self.measured_vocab_slope_ms
+            and self.measured_vocab_mp == mixed_precision
+        ):
+            return (
+                self.measured_vocab_slope_ms[vocab_tp],
+                self.measured_vocab_const_ms.get(vocab_tp, 0.0),
+            )
+        return None
+
+
+@dataclass
+class ProfiledHardware:
+    """Collective bandwidths per (group size, consec layout) — the
+    nccl-tests equivalent (reference: profile_hardware/hardware_configs/*.json)."""
+
+    allreduce_bw: Dict[str, float] = field(default_factory=dict)  # "size_consec" → GB/s
+    p2p_bw: Dict[int, float] = field(default_factory=dict)  # pp degree → GB/s
+    overlap_coe: float = 1.1
+    # which allreduce keys (and, with num_slices>1, every p2p degree) were
+    # measured ACROSS the slice/DCN boundary — informational provenance:
+    # entries already carry the boundary in their measured values because the
+    # profiler builds the same slice-major mesh the runtime uses
+    dcn_keys: list = field(default_factory=list)
+
+    def fallback_sources(self, pp: int = 1) -> list:
+        """Which bandwidth terms would come from built-in defaults rather than
+        measurement — single-chip hosts cannot profile collectives/p2p
+        (profiling/hardware.py degenerates there), so predictions priced from
+        the defaults should be labeled (VERDICT: searched pp>1 configs were
+        silently priced from the 50 GB/s fallback)."""
+        out = []
+        if not self.allreduce_bw:
+            out.append("allreduce_bw")
+        if pp > 1 and not self.p2p_bw:
+            out.append("p2p_bw")
+        return out
+
+    def bw(self, size: int, consec: bool = True) -> float:
+        if size <= 1:
+            return float("inf")
+        key = f"{size}_{int(consec)}"
+        if key in self.allreduce_bw:
+            return self.allreduce_bw[key]
+        alt = f"{size}_{int(not consec)}"
+        if alt in self.allreduce_bw:
+            return self.allreduce_bw[alt]
+        if self.allreduce_bw:
+            return min(self.allreduce_bw.values())
+        return 100.0  # the JAX package's default
+
+    def p2p(self, pp: int) -> float:
+        if pp <= 1:
+            return float("inf")
+        if pp in self.p2p_bw:
+            return self.p2p_bw[pp]
+        if self.p2p_bw:
+            return min(self.p2p_bw.values())
+        return 50.0
+
+
+# memory bandwidth assumed when splitting a measured constant into its
+# memory-traffic share (the JAX package's default; used only for the zero3
+# Adam-update correction in other_time_cost)
+_HBM_GBPS = 800.0
+
+
+def _allreduce_wire_mb(msg_mb: float, size: int) -> float:
+    """On-wire MB per participant for a ring all-reduce of a ``msg_mb``
+    message over ``size`` devices (reduce-scatter + all-gather halves)."""
+    if size <= 1 or msg_mb == 0:
+        return 0.0
+    return 2.0 * (size - 1) / size * msg_mb
+
+
+def _allgather_wire_mb(msg_mb: float, size: int) -> float:
+    """On-wire MB per participant for an all-gather whose FULL (gathered)
+    message is ``msg_mb`` — each device receives the other size-1 shards."""
+    if size <= 1 or msg_mb == 0:
+        return 0.0
+    return (size - 1) / size * msg_mb
+
+
+def _allreduce_ms(msg_mb: float, size: int, bw_gbps: float) -> float:
+    return _allreduce_wire_mb(msg_mb, size) / bw_gbps  # MB / (GB/s) = ms
+
+
+def _allgather_ms(msg_mb: float, size: int, bw_gbps: float) -> float:
+    return _allgather_wire_mb(msg_mb, size) / bw_gbps
+
+
+# ---------------------------------------------------------------------------
+# Memory cost
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class MemoryCost:
+    states_mb: float
+    activation_mb: float
+    total_mb: float
+
+
+def layer_memory_cost(
+    lt: ProfiledLayerType,
+    s: LayerStrategy,
+    world: int,
+    pp: int,
+    global_bsz: int,
+    chunks: int = 1,
+    stage_idx: int = 0,
+    pipeline_type: str = "gpipe",
+    mixed_precision: str = "bf16",
+    vpp: int = 1,
+    stash_boundary_bound: Optional[int] = None,
+) -> MemoryCost:
+    """Per-chip memory for one layer under strategy ``s``
+    (reference: MemoryCostModel, galvatron/core/cost_model.py:4-122).
+
+    ``stash_boundary_bound``: the coupled enc-dec 1F1B
+    (parallel/pipeline_encdec.py) stashes only section INPUTS in a ring of
+    that many micro-batch slots and recomputes the section in its backward
+    tick, so its activation term is boundary-sized per stashed chunk plus
+    ONE live micro-batch of full activations — not act x in-flight like the
+    single-stack 1F1B whose in-flight bound this branch bypasses."""
+    dp = world // (pp * s.tp * s.cp)
+    # fp32 MB after TP sharding; the expert fraction additionally shards by
+    # ep, and its ZeRO sharding spreads only over the dp/ep extent left (the
+    # runtime strips the ep axes from the fsdp axes — parallel/sharding.py)
+    frac = lt.moe_expert_param_fraction
+    ep = max(1, s.ep)
+    dense_mb = lt.parameter_mb * (1.0 - frac) / s.tp
+    exp_mb = lt.parameter_mb * frac / (s.tp * ep)
+    dp_exp = max(1, dp // ep)
+    p_mb = dense_mb + exp_mb
+    sharded_mb = dense_mb / dp + exp_mb / dp_exp
+    # Persistent states = fp32 master + two Adam moments = 3x. In the JAX
+    # package's runtime the 4th "gradient" copy does NOT persist (its donated
+    # fused step consumes grads layer by layer) EXCEPT when the step
+    # accumulates (pp engines, pp=1 micro-batch accumulation), which adds one
+    # fp32 grad at the parameter's own sharding; the bf16 working cast is
+    # charged once per device in transient_overhead_mb. (The port's
+    # runtime keeps every gradient until the update: phase 14 of
+    # chip_smoke.py records the difference.)
+    if s.dp_type == "zero3":
+        states = 3.0 * sharded_mb
+        grad_acc = sharded_mb
+    elif s.dp_type == "zero2":
+        states = p_mb + 2.0 * sharded_mb
+        grad_acc = sharded_mb
+    else:
+        states = 3.0 * p_mb
+        grad_acc = p_mb
+    if pp > 1 or chunks > 1:
+        states += grad_acc
+    local_bsz = global_bsz / dp / max(1, s.cp)
+    mb_bsz = local_bsz / chunks
+    # 'full' remat stores only the layer-boundary activation; 'selective'
+    # (attention-core-only recompute) stores the same per-layer activations as
+    # no-remat on the flash path — scores are never materialized there — so it
+    # is modeled as act_mb (conservative for the xla-attention path).
+    act_per_mb = (
+        lt.boundary_activation_mb_per_sample if s.ckpt == "full" else lt.act_mb(s.tp, s.sp, s.cp)
+    ) * mb_bsz
+    if pp == 1:
+        act = act_per_mb  # accumulation scan keeps one micro-batch live
+    elif stash_boundary_bound is not None:
+        act = (
+            lt.boundary_activation_mb_per_sample
+            * mb_bsz
+            * min(chunks, stash_boundary_bound)
+            + act_per_mb
+        )
+    elif pipeline_type == "gpipe":
+        # the clocked scan's autodiff saves the stage residuals EVERY tick —
+        # bubble ticks included (invalid ticks compute on garbage but their
+        # residuals are stacked all the same) — so the charge is per tick
+        # (chunks + pp - 1), not per micro-batch. Under bf16/fp16 compute
+        # the JAX package charges 2x the compute-dtype estimate a tick (its
+        # fit); fp32 compute is already wide.
+        widen = 2.0 if mixed_precision in ("bf16", "fp16") else 1.0
+        act = act_per_mb * (chunks + pp - 1) * widen
+    else:
+        # 1F1B engines (single-stack pipeline_1f1b and interleaved
+        # pipeline_interleaved 1F1B) stash only (virtual-)stage INPUT
+        # boundaries in a ring and recompute the stage forward in the
+        # backward tick — the per-layer share is ONE live micro-batch of
+        # residuals; the boundary stash rings + fp32 cotangent ring are
+        # per-stage constants charged at the engine level
+        # (search_engine pf_overhead), exactly like the coupled engines'.
+        act = act_per_mb
+    return MemoryCost(states, act, states + act)
+
+
+def transient_overhead_mb(
+    costs: ProfiledModelCosts,
+    min_tp: int = 1,
+    mixed_precision: str = "bf16",
+) -> float:
+    """Per-device transient working set charged ONCE (not per layer): the
+    bf16 weight cast (0.5x the layer's params) plus one in-flight fp32
+    gradient of the largest layer — the donated fused step keeps at most
+    ~one layer's cast+grad live at a time (the JAX package's fit).
+    ``min_tp``: the smallest tp
+    any layer may choose (the worst per-device share)."""
+    if not costs.layer_types:
+        return 0.0
+    p_l = max(lt.parameter_mb for lt in costs.layer_types.values()) / max(1, min_tp)
+    cast = 0.5 * p_l if mixed_precision in ("bf16", "fp16") else 0.0
+    return cast + p_l
+
+
+def stash_ring_mb(
+    lt: ProfiledLayerType,
+    s: LayerStrategy,
+    slots: int,
+    world: int,
+    pp: int,
+    global_bsz: int,
+    chunks: int,
+    mixed_precision: str = "bf16",
+    stage_idx: int = 0,
+    vpp: int = 1,
+) -> float:
+    """Per-device MB of ONE coupled/single-stack 1F1B input-stash ring of
+    ``slots`` boundary micro-batch slots at strategy ``s``, isolated as the
+    difference of layer_memory_cost at bounds (slots, 0) so the formula
+    stays the cost model's (states cancel exactly). The runtime allocates
+    one sacrificial slot beyond the useful min(chunks, slots)."""
+    if not slots:
+        return 0.0
+    kw = dict(
+        stage_idx=stage_idx, pipeline_type="pipedream_flush",
+        mixed_precision=mixed_precision, vpp=vpp,
+    )
+    hi = layer_memory_cost(
+        lt, s, world, pp, global_bsz, chunks, stash_boundary_bound=slots, **kw
+    ).total_mb
+    lo = layer_memory_cost(
+        lt, s, world, pp, global_bsz, chunks, stash_boundary_bound=0, **kw
+    ).total_mb
+    useful = min(chunks, slots)
+    return (hi - lo) * (useful + 1) / useful
+
+
+# FITTED 1F1B buffer-reuse credit (the JAX package's): at small scales its
+# compiler colocates the engines' per-stage fp32 dw accumulator and the
+# transient cast/grad working set with the recompute workspace and the ring
+# slots, so the independent sums never materialize together. The credit is
+# the smaller of the two pools, capped: colocation is a small-buffer
+# phenomenon.
+PF_REUSE_CAP_MB = 64.0
+
+
+def pipedream_reuse_credit_mb(
+    accum_mb: float, transient_mb: float, workspace_mb: float
+) -> float:
+    return min(accum_mb + transient_mb, workspace_mb, PF_REUSE_CAP_MB)
+
+
+def grad_accum_mb(lt: ProfiledLayerType, s: LayerStrategy, world: int, pp: int) -> float:
+    """One layer's fp32 gradient accumulator at its own sharding — the
+    grad_acc term layer_memory_cost folds into states when accumulating."""
+    dp = world // (pp * s.tp * s.cp)
+    frac = lt.moe_expert_param_fraction
+    ep = max(1, s.ep)
+    dense_mb = lt.parameter_mb * (1.0 - frac) / s.tp
+    exp_mb = lt.parameter_mb * frac / (s.tp * ep)
+    dp_exp = max(1, dp // ep)
+    if s.dp_type in ("zero2", "zero3"):
+        return dense_mb / dp + exp_mb / dp_exp
+    return dense_mb + exp_mb
+
+
+def single_1f1b_rings_mb(
+    lt: ProfiledLayerType,
+    s: LayerStrategy,
+    world: int,
+    pp: int,
+    global_bsz: int,
+    chunks: int,
+    mixed_precision: str = "bf16",
+    vpp: int = 1,
+    layers_per_device: int = 1,
+) -> float:
+    """Per-device constants of the single-stack/interleaved 1F1B engines
+    (pipeline_1f1b.py / pipeline_interleaved.py carries), priced at the
+    stage's own strategy sharding: the (virtual-)stage input stash ring —
+    (min(chunks, n_stash)+1) boundary micro-batch slots, vpp rings when
+    interleaved — plus the fp32 dx_embed input-cotangent buffer of chunks+1
+    slots (allocated on every stage: the SPMD carry is uniform), MINUS the
+    fitted buffer-reuse credit (pipedream_reuse_credit_mb — see the
+    PF_REUSE_CAP_MB provenance block). ``layers_per_device``: layers on one
+    device, sizing the accumulator/workspace pools the credit compares.
+    The ONE pricing shared by the search (SearchEngine._1f1b_rings_mb) and
+    the fidelity harness (memory_fidelity.predicted_train_mb)."""
+    n_stash = (2 * pp - 1) if vpp == 1 else (3 * pp + 1)
+    stash = stash_ring_mb(
+        lt, s, n_stash, world, pp, global_bsz, chunks, mixed_precision, vpp=vpp
+    ) * max(1, vpp)
+    fp32x = 2.0 if mixed_precision in ("bf16", "fp16") else 1.0
+    dx = stash_ring_mb(
+        lt, s, chunks, world, pp, global_bsz, chunks, mixed_precision, vpp=vpp
+    )
+    rings = stash + dx * fp32x
+    n_dev = max(1, layers_per_device)
+    dp = world // (pp * s.tp * s.cp)
+    mb_bsz = global_bsz / dp / max(1, s.cp) / chunks
+    act_stage = lt.act_mb(s.tp, s.sp, s.cp) * mb_bsz * n_dev
+    accum = grad_accum_mb(lt, s, world, pp) * n_dev
+    # transient pool shape matches transient_overhead_mb's cast + one grad
+    trans = (0.5 if mixed_precision in ("bf16", "fp16") else 0.0) + 1.0
+    trans = trans * lt.parameter_mb / s.tp
+    return rings - pipedream_reuse_credit_mb(accum, trans, act_stage + rings)
+
+
+def other_memory_cost(
+    costs: ProfiledModelCosts,
+    world: int,
+    pp: int,
+    vocab_tp: int,
+    embed_dp_type: str,
+    global_bsz: int,
+    chunks: int,
+    mixed_precision: str = "bf16",
+) -> float:
+    """Embedding/head/loss memory on the first/last stage (reference 'other'
+    memory, cost_model.py:78-106). In this runtime embed/head are replicated
+    over pp and sharded by vocab_tp (+ZeRO over the data axes)."""
+    dp = world // (pp * vocab_tp)
+    p_mb = costs.other_param_mb / vocab_tp
+    cast = 0.5 * p_mb if mixed_precision in ("bf16", "fp16") else 0.0
+    if embed_dp_type == "zero3":
+        states = 4.0 * p_mb / dp + cast
+    else:
+        states = 4.0 * p_mb + cast
+    act = costs.other_act_mb_per_sample * (global_bsz / dp / chunks) / vocab_tp
+    return states + act
+
+
+def other_time_cost(
+    costs: ProfiledModelCosts,
+    hw: ProfiledHardware,
+    world: int,
+    pp: int,
+    vocab_tp: int,
+    embed_dp_type: str,
+    global_bsz: int,
+    mixed_precision: str = "bf16",
+    use_measured: bool = True,
+) -> float:
+    """Embedding/head/loss time (ms) per iteration under the vocab strategy
+    (the whole-model extension the reference prices via hp_config_whole_model,
+    galvatron/core/hybrid_parallel_config.py:141-179).
+
+    When the profile carries a MEASURED per-vocab_tp fit (slope + const from
+    profile_vocab_costs, matching precision), the compute + vocab-parallel-
+    collective part comes from measurement: const + slope · samples-per-
+    device. The runtime computes embed/head OUTSIDE the pipelined section
+    with the batch sharded over the pp axes too (full_spec), so samples per
+    device = global_bsz·vocab_tp/world = global_bsz/(dp·pp). Only the
+    dp-extent comm (grad reduction, ZeRO gathers) stays analytic.
+
+    Analytic fallback: compute spread over the full mesh regardless of the
+    (dp, pp, vocab_tp) split is EXACT for the head GEMM / embedding /
+    elementwise loss under that same full-mesh batch sharding; the strategy
+    moves only the comm terms."""
+    dp = world // (pp * vocab_tp)
+    comm_bytes = 0.5 if mixed_precision in ("bf16", "fp16") else 1.0
+    p_mb = costs.other_param_mb / vocab_tp
+    dp_consec = not (vocab_tp > 1)
+    dp_bw = hw.bw(dp, dp_consec)
+    # grad allreduce (ddp) / reduce-scatter+gathers (zero3 ≈ allreduce + 2
+    # param all-gathers), same shape as the layer cost model
+    comm = _allreduce_ms(p_mb * comm_bytes * GRAD_REDUCE_FP32_FACTOR, dp, dp_bw)
+    if embed_dp_type == "zero3":
+        comm += ZERO3_GATHER_PASSES * _allgather_ms(p_mb * comm_bytes, dp, dp_bw)
+    fit = costs.vocab_measurement_for(vocab_tp, mixed_precision) if use_measured else None
+    if fit is not None:
+        slope, const = fit
+        # under embed zero3 each device updates only its 1/dp param shard —
+        # but ONLY the Adam-update share of the measured const shrinks; the
+        # rest (dispatch and per-step fixed overheads, which dominate the
+        # zero-layer measurement on this environment) does not. The update
+        # share is estimated from its memory traffic: ~28 B/param (read
+        # p/g/m/v fp32, write p/m/v) = 7x the fp32 param MB at HBM rate
+        # (dividing the WHOLE const by dp systematically underpriced zero3
+        # at large dp and biased the vocab-strategy choice toward it).
+        if embed_dp_type == "zero3":
+            adam_ms = min(const, 7.0 * p_mb / _HBM_GBPS)
+            const = const - adam_ms + adam_ms / dp
+        return const + slope * (global_bsz / (dp * pp)) + comm
+    compute = costs.other_fwd_ms_per_sample * global_bsz / world * 3.0
+    if vocab_tp > 1 and costs.layer_types:
+        lt0 = next(iter(costs.layer_types.values()))
+        # vocab-parallel embedding: each device holds a vocab shard, so the
+        # (B, S, h) embedding output is a psum over the vocab_tp group, fwd
+        # and mirrored bwd (Megatron VocabParallelEmbedding semantics)
+        act_msg = (
+            lt0.boundary_activation_mb_per_sample * (global_bsz / dp) * comm_bytes
+        )
+        comm += 2.0 * _allreduce_ms(act_msg, vocab_tp, hw.bw(vocab_tp, True))
+        # vocab-parallel cross entropy allreduces per-token fp32 scalars
+        # (max, sum-exp, picked logit + the mirrored backward share ≈ 4):
+        # volume = S·4·4B per sample = boundary·(8/h) — derived, replacing
+        # the old hand-waved 0.002 constant (which equals h=4096 exactly)
+        h = costs.hidden_size or 4096
+        scalar_msg = (
+            lt0.boundary_activation_mb_per_sample * (global_bsz / dp) * (8.0 / h)
+        )
+        comm += _allreduce_ms(scalar_msg, vocab_tp, hw.bw(vocab_tp, True))
+    return compute + comm
+
+
+# ---------------------------------------------------------------------------
+# Time cost
+# ---------------------------------------------------------------------------
+
+# fwd+2bwd = 3.0; the remat replay factors are the JAX package's fit (its
+# replayed forward has no loss/collective tail, so it is priced below the
+# naive 4.0 / 3.33). The coupled enc-dec 1F1B pricing (search_engine) reuses
+# the full-replay factor.
+REMAT_FULL_FACTOR = 3.85
+REMAT_SELECTIVE_FACTOR = 3.25
+# Residual fraction of the blocking TP-collective time that survives when the
+# layer runs the decomposed collective-matmul (s.tp_overlap — ops/
+# collective_matmul.py): the ring hides T-1 of T hops behind the GEMM chunks,
+# leaving the first hop, the per-chunk launch overhead, and (non-sp) the
+# output-gather half exposed; the JAX package's conservative prior (the
+# port does not run tp_overlap yet: ROADMAP.md §1.6).
+TP_OVERLAP_RESIDUAL = 0.4
+# Comm-volume conventions the analytic terms below price (the JAX package's
+# collective auditor replays them; kept named for parity).
+TP_BOUNDARY_COLLECTIVES = 4.0  # Megatron f/g: 2 fwd + 2 bwd boundary allreduces
+REMAT_TP_REPLAY = 1.5  # full-remat forward replay repeats the 2 fwd collectives
+ZERO3_GATHER_PASSES = 2.0  # fwd + bwd param all-gathers per iteration
+GRAD_REDUCE_FP32_FACTOR = 2.0  # grads reduce at fp32 = 2x the bf16 wire bytes
+
+
+def layer_time_cost(
+    lt: ProfiledLayerType,
+    s: LayerStrategy,
+    hw: ProfiledHardware,
+    world: int,
+    pp: int,
+    global_bsz: int,
+    mixed_precision: str = "bf16",
+    recompute_factor: Optional[float] = None,
+) -> float:
+    """Per-iteration per-layer time (ms) under strategy ``s`` (reference:
+    TimeCostModel, galvatron/core/cost_model.py:125-349): compute (bwd=2×fwd,
+    remat adds one fwd), TP collectives on the critical path, DP grad
+    reduction + ZeRO gathers overlapped under the measured slowdown
+    coefficient.
+
+    ``recompute_factor``: schedules that replay the layer's forward
+    regardless of its own ckpt setting (the coupled enc-dec 1F1B recomputes
+    each section from its stashed input) price compute at
+    max(strategy factor, recompute_factor) and the TP collectives at the
+    full-remat replay convention — per term, so the once-per-iteration DP
+    grad reduction is NOT inflated."""
+    dp = world // (pp * s.tp * s.cp)
+    local_bsz = global_bsz / dp / max(1, s.cp)
+    # expert compute divides by ep on top of tp; the dense remainder divides
+    # by tp only. The ep-shardable share is the MEASURED expert-time
+    # fraction when the profile carries one (routing/dispatch overhead does
+    # not shard by ep — the param-fraction proxy overstates the ep win);
+    # param fraction otherwise.
+    frac = lt.moe_expert_param_fraction
+    tfrac = (
+        lt.moe_expert_time_fraction
+        if lt.moe_expert_time_fraction is not None
+        else frac
+    )
+    per_sample = lt.fwd_ms_per_sample * (
+        (1.0 - tfrac) / s.tp + tfrac / (s.tp * max(1, s.ep))
+    )
+    fwd = per_sample * local_bsz
+    factor = (
+        REMAT_FULL_FACTOR if s.ckpt == "full"
+        else REMAT_SELECTIVE_FACTOR if s.ckpt == "selective"
+        else 3.0
+    )
+    if recompute_factor is not None:
+        factor = max(factor, recompute_factor)
+    compute = fwd * factor
+
+    comm_bytes_factor = 0.5 if mixed_precision in ("bf16", "fp16") else 1.0
+    # TP: 2 allreduces fwd + 2 bwd of one (b, s, h) activation (Megatron f/g;
+    # with SP the all-gather+reduce-scatter pair moves the same volume)
+    act_msg = lt.boundary_activation_mb_per_sample * local_bsz * comm_bytes_factor
+    tp_bw = hw.bw(s.tp, s.tp_consec)
+    tp_ms = TP_BOUNDARY_COLLECTIVES * _allreduce_ms(act_msg, s.tp, tp_bw)
+    if s.ckpt == "full" or recompute_factor is not None:
+        tp_ms *= REMAT_TP_REPLAY  # forward-replay schedules replay the fwd collectives
+    if s.tp_overlap and s.tp > 1:
+        # decomposed collective-matmul pipelines the projection collectives
+        # behind the GEMM chunks — only the residual exposure is priced
+        tp_ms *= TP_OVERLAP_RESIDUAL
+    # (selective recompute replays no TP collectives: the attention core sits
+    # between the column- and row-parallel linears)
+    # CP: the ring rotates K/V cp-1 hops per pass (the diagonal hop is
+    # local — parallel/ring.py computes it before the scan); fwd rotates
+    # K+V, bwd rotates K+V and the homing dk/dv — ≈ 2 ring passes of
+    # 2·(seq-sharded kv) volume. _allgather_ms already carries the
+    # (cp-1)/cp hop factor, so ×cp yields 2 × (cp-1) hops × per-hop bytes.
+    cp_ms = 0.0
+    if s.cp > 1:
+        cp_bw = hw.bw(s.cp, True)
+        cp_ms = 2.0 * _allgather_ms(act_msg / s.cp * 2.0, s.cp, cp_bw) * s.cp
+
+    # EP: moe_a2a_mb_per_sample already covers dispatch + combine; the
+    # backward replays both, so total = 2× that volume in all-to-alls
+    # (an all-to-all moves (ep-1)/ep of the routed volume)
+    ep_ms = 0.0
+    if s.ep > 1 and lt.moe_a2a_mb_per_sample > 0:
+        a2a_msg = lt.moe_a2a_mb_per_sample * local_bsz * comm_bytes_factor
+        ep_ms = 2.0 * _allgather_ms(a2a_msg, s.ep, hw.bw(s.ep, True))
+
+    # DP: grad allreduce (once per iteration); ZeRO-3 adds fwd+bwd param
+    # all-gathers; ZeRO-2 reduce-scatter+all-gather ≈ allreduce volume.
+    # Expert grads reduce only over the dp/ep extent that replicates them.
+    dense_mb = lt.parameter_mb * (1.0 - frac) / s.tp
+    exp_mb = lt.parameter_mb * frac / (s.tp * max(1, s.ep))
+    dp_exp = max(1, dp // max(1, s.ep))
+    dp_consec = not s.tp_consec if s.tp > 1 else True
+    dp_bw = hw.bw(dp, dp_consec)
+    dp_ms = _allreduce_ms(dense_mb * comm_bytes_factor * GRAD_REDUCE_FP32_FACTOR, dp, dp_bw)
+    dp_ms += _allreduce_ms(exp_mb * comm_bytes_factor * GRAD_REDUCE_FP32_FACTOR, dp_exp, dp_bw)
+    if s.dp_type == "zero3":
+        dp_ms += ZERO3_GATHER_PASSES * _allgather_ms(dense_mb * comm_bytes_factor, dp, dp_bw)
+        dp_ms += ZERO3_GATHER_PASSES * _allgather_ms(exp_mb * comm_bytes_factor, dp_exp, dp_bw)
+
+    # overlap model: DP traffic overlaps compute at a slowdown coefficient
+    # (reference bct_dp_overlap, cost_model.py:230-246)
+    if dp_ms == 0:
+        overlapped = compute
+    elif dp_ms <= compute:
+        overlapped = hw.overlap_coe * compute
+    else:
+        overlapped = hw.overlap_coe * compute + (dp_ms - compute)
+    return overlapped + tp_ms + cp_ms + ep_ms
+
+
+def pipeline_time_cost(
+    stage_ms: list,
+    boundary_msg_mb: float,
+    pp: int,
+    chunks: int,
+    hw: ProfiledHardware,
+    vpp: int = 1,
+    pipeline_type: str = "gpipe",
+) -> float:
+    """Iteration time of the clocked pipeline (reference: pipeline_costmodel,
+    galvatron/core/cost_model.py:372-427): fill + steady-state bottleneck.
+    stage_ms: per-stage per-micro-batch compute+TP time (callers price
+    pipedream_flush's per-tick forward recompute into stage_ms via
+    REMAT_FULL_FACTOR — the hand-written 1F1B engines replay the stage
+    forward from the input stash in every backward tick).
+
+    vpp>1 (interleaved schedule): ticks are one virtual stage (1/vpp of a
+    physical stage) long, so the pp-1-tick fill bubble shrinks by vpp, while
+    every micro-batch crosses vpp× more ring boundaries (p2p volume ×vpp).
+    The vpp=1 case reduces to the plain formula.
+
+    pipedream_flush tick counts come from the engines: single-stack
+    T = chunks + 2(pp-1) (pipeline_1f1b.py) vs gpipe's chunks + pp - 1;
+    interleaved 1F1B T = vpp*chunks + vpp*pp + pp - 1
+    (pipeline_interleaved.py:276) — its drain scales with vpp too."""
+    if pp == 1:
+        return sum(stage_ms)
+    p2p_ms = boundary_msg_mb / hw.p2p(pp) if boundary_msg_mb else 0.0
+    per_tick = [c / vpp + p2p_ms for c in stage_ms]
+    bottleneck = max(per_tick)
+    extra = 0
+    if pipeline_type == "pipedream_flush":
+        extra = (pp - 1) if vpp == 1 else vpp * pp
+    return sum(per_tick) + bottleneck * (vpp * chunks - 1 + extra)
+
+
+# ---------------------------------------------------------------------------
+# Comm-volume replay (the predicted side of the GTC fidelity gate)
+# ---------------------------------------------------------------------------
+
+
+def comm_volume_breakdown(
+    costs: ProfiledModelCosts,
+    hp,
+    world: int,
+    global_bsz: int,
+    mixed_precision: str = "bf16",
+) -> Dict[str, float]:
+    """Per-term analytic comm VOLUME (on-wire MB per device per iteration,
+    every term — ``pp_p2p`` sums all of an iteration's boundary crossings)
+    for one plan — the exact message sizes and multiplicities
+    ``layer_time_cost`` / ``other_time_cost`` / ``pipeline_time_cost``
+    price, with the bandwidth divided back out.
+
+    This is the *predicted* side of ``analysis/comm_audit.py``'s
+    ``predicted_over_lowered`` gate: the audited (lowered) side re-derives
+    the same volumes from the program's actual abstract shapes and lowered
+    collectives with its own first-principles constants, so a drift in any
+    constant above (TP_BOUNDARY_COLLECTIVES, ZERO3_GATHER_PASSES, …) or in a
+    message-size formula here moves only this side and trips GTC001.
+
+    Terms absent from the plan (degree 1) are omitted.  Multi-layer-type
+    models (vision towers, MoE stacks) price every layer with its own
+    strategy but layer type 0's sizes — the fidelity gate tolerance absorbs
+    the approximation, and the audit report marks the basis.
+    """
+    f = 0.5 if mixed_precision in ("bf16", "fp16") else 1.0
+    lt = costs.layer_types[min(costs.layer_types)] if costs.layer_types else None
+    out: Dict[str, float] = {}
+
+    def add(term: str, mb: float) -> None:
+        if mb > 0.0:
+            out[term] = out.get(term, 0.0) + mb
+
+    pp = hp.pp
+    for s in hp.layer_strategies:
+        if lt is None:
+            break
+        dp = max(1, world // (pp * s.tp * max(1, s.cp)))
+        local_bsz = global_bsz / dp / max(1, s.cp)
+        act_msg = lt.boundary_activation_mb_per_sample * local_bsz * f
+        if s.tp > 1:
+            tp_mb = TP_BOUNDARY_COLLECTIVES * _allreduce_wire_mb(act_msg, s.tp)
+            if s.ckpt == "full":
+                tp_mb *= REMAT_TP_REPLAY
+            add("tp_boundary", tp_mb)
+        if s.cp > 1:
+            add("cp_ring", 2.0 * _allgather_wire_mb(act_msg / s.cp * 2.0, s.cp) * s.cp)
+        frac = lt.moe_expert_param_fraction
+        ep = max(1, s.ep)
+        if s.ep > 1 and lt.moe_a2a_mb_per_sample > 0:
+            a2a_msg = lt.moe_a2a_mb_per_sample * local_bsz * f
+            add("ep_a2a", 2.0 * _allgather_wire_mb(a2a_msg, s.ep))
+        dense_mb = lt.parameter_mb * (1.0 - frac) / s.tp
+        exp_mb = lt.parameter_mb * frac / (s.tp * ep)
+        dp_exp = max(1, dp // ep)
+        add("dp_grad", _allreduce_wire_mb(dense_mb * f * GRAD_REDUCE_FP32_FACTOR, dp))
+        add("dp_grad", _allreduce_wire_mb(exp_mb * f * GRAD_REDUCE_FP32_FACTOR, dp_exp))
+        if s.dp_type == "zero3":
+            add("zero3_gather", ZERO3_GATHER_PASSES * _allgather_wire_mb(dense_mb * f, dp))
+            add("zero3_gather", ZERO3_GATHER_PASSES * _allgather_wire_mb(exp_mb * f, dp_exp))
+
+    # embedding / head / loss under the vocab strategy (other_time_cost's
+    # analytic comm block, volumes only)
+    vocab_tp = max(1, hp.vocab_tp)
+    dp_o = max(1, world // (pp * vocab_tp))
+    p_mb = costs.other_param_mb / vocab_tp
+    add("embed_dp", _allreduce_wire_mb(p_mb * f * GRAD_REDUCE_FP32_FACTOR, dp_o))
+    if hp.embed_dp_type == "zero3":
+        add("embed_dp", ZERO3_GATHER_PASSES * _allgather_wire_mb(p_mb * f, dp_o))
+    if vocab_tp > 1 and lt is not None:
+        act_msg_v = lt.boundary_activation_mb_per_sample * (global_bsz / dp_o) * f
+        add("vocab_embed", 2.0 * _allreduce_wire_mb(act_msg_v, vocab_tp))
+        h = costs.hidden_size or 4096
+        add("vocab_embed", _allreduce_wire_mb(
+            lt.boundary_activation_mb_per_sample * (global_bsz / dp_o) * (8.0 / h),
+            vocab_tp,
+        ))
+
+    if pp > 1 and lt is not None:
+        # per-iteration per-device boundary p2p: every micro-batch crosses
+        # each boundary fwd (activation out) and bwd (grad in), so chunks ×
+        # the per-tick message pipeline_time_cost prices = the full local
+        # batch, twice
+        s0 = hp.layer_strategies[0]
+        dp0 = max(1, world // (pp * s0.tp * max(1, s0.cp)))
+        add("pp_p2p",
+            2.0 * lt.boundary_activation_mb_per_sample * (global_bsz / dp0) * f)
+    return out

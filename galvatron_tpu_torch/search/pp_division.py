@@ -78,3 +78,16 @@ def pp_division_memory_balanced(
             division[i - 1] -= 1
     assert sum(division) == L and all(n >= 1 for n in division), division
     return division
+
+
+def spread_pairs(pairs: int, pp: int) -> List[int]:
+    """Pairs over stages, zeros allowed, the remainder placed in
+    ``balanced_division``'s stage order (the JAX package's
+    ``parallel/pipeline_swin._spread_pairs``, which its search uses to lay
+    out Swin sections; the port runs no Swin pipeline, ROADMAP.md §1.10)."""
+    base, rem = divmod(pairs, pp)
+    div = [base] * pp
+    order = sorted(range(pp), key=lambda s: (abs(s - (pp - 1) / 2), -s))
+    for i in range(rem):
+        div[order[i]] += 1
+    return div

@@ -1,0 +1,1233 @@
+"""The automatic-parallelism search engine (the port's copy of
+``galvatron_tpu/search/search_engine.py``: the same sweep, cost terms, DP,
+restrictions and emitted JSON, so the same profile gives the same plan in
+both packages).
+
+Counterpart of the reference's GalvatronSearchEngine (reference:
+galvatron/core/search_engine.py:17-715): enumerate the hybrid-strategy space
+over powers of two — {pp} × {tp, layout} × {zero2/zero3 vs ddp} × {sp} ×
+{ckpt} (+ optional cp rings for long context) — evaluate micro-batch counts,
+run the per-layer dynamic program under the per-chip HBM budget for every
+(pp, bsz, chunks), refine with the pipeline cost model, and emit the winning
+strategy as a runtime-loadable HybridParallelConfig JSON
+(search flow: search_engine.py:168-324; config save :326-367).
+
+Output throughput metric matches the reference's
+``Max throughput = bsz / min_cost`` (search_engine.py:318-321).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import json
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from galvatron_tpu_torch.core.strategy import HybridParallelConfig, LayerStrategy, form_strategy
+from galvatron_tpu_torch.obs.tracing import tracer as _obs_tracer
+from galvatron_tpu_torch.search.cost_model import (
+    REMAT_FULL_FACTOR,
+    single_1f1b_rings_mb,
+    stash_ring_mb,
+    transient_overhead_mb,
+    ProfiledHardware,
+    ProfiledLayerType,
+    ProfiledModelCosts,
+    layer_memory_cost,
+    layer_time_cost,
+    other_memory_cost,
+    other_time_cost,
+    pipeline_time_cost,
+)
+from galvatron_tpu_torch.search.dynamic_programming import run_dp, transition_cost_ms
+from galvatron_tpu_torch.search.pp_division import pp_division_memory_balanced, spread_pairs
+
+
+@dataclass
+class SearchSpace:
+    world_size: int
+    max_tp: Optional[int] = None
+    allow_sp: bool = True
+    allow_ckpt: bool = True
+    allow_zero2: bool = True
+    allow_zero3: bool = True
+    allow_strided: bool = True
+    allow_cp: bool = False
+    # decomposed collective-matmul on the TP projection seams as a searched
+    # dimension (LayerStrategy.tp_overlap; cost_model.TP_OVERLAP_RESIDUAL
+    # prices the hidden collective). Opt-in: it doubles the tp>1 candidate
+    # count and only helps where the projection collectives are exposed.
+    allow_tp_overlap: bool = False
+    # expert parallelism as a searched dimension (MoE models; the reference
+    # carries SwitchMLP but never searches EP — SURVEY §2.3 ⚠). ep candidates
+    # ∈ powers of two up to the dp extent (and max_ep) that divide
+    # moe_experts — the runtime cannot shard E experts over a larger or
+    # non-dividing ep and would silently replicate them instead.
+    allow_ep: bool = False
+    max_ep: Optional[int] = None
+    moe_experts: int = 0  # the model's expert count (0 = dense → no ep)
+    pp_choices: Optional[List[int]] = None
+    pipeline_types: Tuple[str, ...] = ("gpipe", "pipedream_flush")
+    # interleaved virtual stages: search vpp ∈ powers of two up to max_vpp
+    # (gpipe schedule only; 1 = off)
+    max_vpp: int = 1
+    # model divisibility constraints (0 = unconstrained). tp candidates must
+    # divide num_heads (head-sharded attention cannot split 25 GPT-2-XL
+    # heads over tp=2) and vocab_tp candidates must divide vocab_size
+    # (50257 is odd — any vocab_tp>1 would silently replicate the embedding
+    # instead of sharding it, falsifying the memory model). Found by the
+    # emit-path self-check (analysis/plan_check GTA007/GTA008); SearchEngine
+    # fills these from model_config when given.
+    num_heads: int = 0
+    vocab_size: int = 0
+
+
+def apply_search_space(space: SearchSpace, name: str) -> SearchSpace:
+    """Restrict ``space`` in place per the ``--search_space`` presets
+    (reference: the check_cost_model search-space modes). One rule shared by
+    the CLI and the elastic re-plan entry point, so a supervised restart
+    searches exactly the subspace the operator originally asked for."""
+    if name == "dp":
+        space.max_tp, space.pp_choices = 1, [1]
+    elif name == "tp":
+        space.pp_choices = [1]
+    elif name == "pp":
+        space.max_tp = 1
+    elif name == "dp+tp":
+        space.pp_choices = [1]
+    elif name == "dp+pp":
+        space.max_tp = 1
+    elif name == "sdp":
+        space.max_tp, space.pp_choices = 1, [1]
+    elif name == "3d":
+        # pure pp x tp x dp grid: no ZeRO/ckpt/layout/SP variants
+        space.allow_zero2 = space.allow_zero3 = False
+        space.allow_ckpt = space.allow_sp = space.allow_strided = False
+    elif name != "full":
+        raise ValueError(f"unknown search_space preset {name!r}")
+    return space
+
+
+def _pow2s(n: int) -> List[int]:
+    out, v = [], 1
+    while v <= n:
+        out.append(v)
+        v *= 2
+    return out
+
+
+def _vocab_strategy_pairs(world: int, pp: int, vocab_size: int = 0):
+    """Searched (vocab_tp, embed_dp_type) candidates — one rule shared by
+    evaluate() and check_cost_model(). vocab_tp must divide the vocab
+    (vocab_size=0 = unconstrained): a non-dividing degree cannot shard the
+    embedding table, so the runtime would silently replicate it."""
+    for vt in _pow2s(world // pp):
+        if vocab_size and vocab_size % vt:
+            continue
+        for et in ["ddp", "zero3"] if world // (pp * vt) > 1 else ["ddp"]:
+            yield vt, et
+
+
+def generate_layer_strategies(space: SearchSpace, pp: int) -> List[LayerStrategy]:
+    """Per-layer strategy candidates for a given pp (reference:
+    generate_strategies, search_engine.py:424-537)."""
+    per_stage = space.world_size // pp
+    tps = [
+        t for t in _pow2s(per_stage)
+        if (space.max_tp is None or t <= space.max_tp)
+        and (space.num_heads == 0 or space.num_heads % t == 0)
+    ]
+    out: List[LayerStrategy] = []
+    for tp in tps:
+        dp = per_stage // tp
+        consec_opts = [True, False] if (space.allow_strided and 1 < tp < per_stage) else [True]
+        sp_opts = [False, True] if (space.allow_sp and tp > 1) else [False]
+        dp_types = ["ddp"]
+        if dp > 1 and space.allow_zero2:
+            dp_types.append("zero2")
+        if dp > 1 and space.allow_zero3:
+            dp_types.append("zero3")
+        cp_opts = [1]
+        if space.allow_cp and dp > 1:
+            cp_opts += [c for c in _pow2s(dp) if c > 1]
+        ep_opts = [1]
+        if space.allow_ep and dp > 1 and space.moe_experts > 0:
+            ep_opts += [
+                e for e in _pow2s(dp)
+                if e > 1
+                and (space.max_ep is None or e <= space.max_ep)
+                and space.moe_experts % e == 0
+            ]
+        tov_opts = [False, True] if (space.allow_tp_overlap and tp > 1) else [False]
+        for consec, sp, dpt, cp, ep, tov in itertools.product(
+            consec_opts, sp_opts, dp_types, cp_opts, ep_opts, tov_opts
+        ):
+            if cp > 1 and sp:
+                continue
+            if cp > 1 and ep > 1:  # they share mesh axes (strategy.validate)
+                continue
+            if cp > 1 and tov:  # cp layers own their projection seams
+                continue
+            for ckpt in [False, True] if space.allow_ckpt else [False]:
+                out.append(
+                    LayerStrategy(
+                        tp=tp, tp_consec=consec, dp_type=dpt, ckpt=ckpt, sp=sp,
+                        cp=cp, ep=ep, tp_overlap=tov,
+                    )
+                )
+    return out
+
+
+@dataclass
+class SearchResult:
+    config: HybridParallelConfig
+    cost_ms: float
+    throughput_samples_per_s: float
+    global_bsz: int
+    memory_mb: float
+    details: Dict = field(default_factory=dict)
+
+
+class SearchEngine:
+    """Ties profiled model + hardware data to the DP (reference:
+    GalvatronSearchEngine.initialize_search_engine / parallelism_optimization,
+    search_engine.py:85-90,168-228)."""
+
+    def __init__(
+        self,
+        model_costs: ProfiledModelCosts,
+        hardware: ProfiledHardware,
+        num_layers: int,
+        space: SearchSpace,
+        memory_budget_mb: float,
+        mixed_precision: str = "bf16",
+        mem_unit_mb: float = 8.0,
+        section_pipeline: bool = False,
+        model_config=None,
+        model_name: str = "",
+    ):
+        self.costs = model_costs
+        self.hw = hardware
+        self.L = num_layers
+        self.space = space
+        self.budget_mb = memory_budget_mb
+        self.mp = mixed_precision
+        self.unit = mem_unit_mb
+        # provenance for save_result's emitted JSON (self-describing configs)
+        # and the emit-path self-check (analysis.plan_check): when set, every
+        # emitted plan is validated against the model before it is written
+        self.model_config = model_config
+        self.model_name = model_name
+        if model_config is not None:
+            # model divisibility constraints on the candidate space: a tp
+            # that cannot split the heads or a vocab_tp that cannot shard
+            # the vocab would emit a plan the plan checker (and the runtime)
+            # rejects — the self-check in save_result pins this. Copy, never
+            # mutate: a caller reusing one SearchSpace across engines for
+            # different models must not inherit the first model's limits.
+            self.space = space = dataclasses.replace(
+                space,
+                num_heads=space.num_heads
+                or int(getattr(model_config, "num_heads", 0) or 0),
+                vocab_size=space.vocab_size
+                or int(getattr(model_config, "vocab_size", 0) or 0),
+            )
+        # structural bail-outs that fired during the last sweep (multi-type
+        # schedule/shape classes the engines cannot realize) — written into
+        # the emitted config as `search_restrictions` the way
+        # fallback_bandwidths already labels unmeasured bandwidths. Every
+        # remaining tag is a standing exclusion (interleaved vpp for
+        # multi-type, odd section pair counts), so a fired tag is always
+        # reported. (The former chunks-divisibility tag — the one case a
+        # later grid point could "clear" — is gone: the coupled engines run
+        # any chunk count.)
+        self._restrictions: set = set()
+        # True = multi-type groups are a vision pyramid (pipeline_swin's
+        # K-section pair-stacked engine) even at K=2 — a 2-stage Swin profile
+        # is otherwise indistinguishable from an enc-dec one (the CLI sets
+        # this from cfg.swin_depths)
+        self.section_pipeline = section_pipeline
+
+    def _ring_mb(
+        self, lt: ProfiledLayerType, s: LayerStrategy, slots: int,
+        world: int, pp: int, global_bsz: int, chunks: int,
+        stage_idx: int = 0, vpp: int = 1,
+    ) -> float:
+        """Per-device MB of ONE coupled-1F1B input-stash ring of ``slots``
+        boundary micro-batch slots, priced at strategy ``s`` (which
+        approximates the section input's sharding). Isolated as the
+        difference of layer_memory_cost at bounds (slots, 0) so the formula
+        stays the cost model's — the states terms cancel exactly. The
+        runtime allocates one extra sacrificial slot per ring beyond the
+        useful ones (pipeline_swin.py `(n_s[k] + 1,) + shp[k]`, same in
+        pipeline_encdec), so the charge is min(chunks, slots) useful slots
+        plus one unconditional."""
+        return stash_ring_mb(
+            lt, s, slots, world, pp, global_bsz, chunks, self.mp,
+            stage_idx=stage_idx, vpp=vpp,
+        )
+
+    def _1f1b_rings_mb(
+        self, lt: ProfiledLayerType, s: LayerStrategy, world: int, pp: int,
+        global_bsz: int, chunks: int, vpp: int = 1, layers_per_device: int = 1,
+    ) -> float:
+        """See cost_model.single_1f1b_rings_mb (the one shared pricing)."""
+        return single_1f1b_rings_mb(
+            lt, s, world, pp, global_bsz, chunks, self.mp, vpp=vpp,
+            layers_per_device=layers_per_device,
+        )
+
+    def _layer_type(self, i: int) -> ProfiledLayerType:
+        lts = self.costs.layer_types
+        return lts.get(i, lts[0]) if len(lts) > 1 else lts[0]
+
+    def _vocab_use_measured(self) -> bool:
+        """Consistent vocab pricing across the ENTIRE search: consume the
+        measured fit only when every vocab_tp degree any pp in the sweep can
+        select (powers of two up to world // min(pp)) is covered — a mixed
+        sweep, whether within one pp or across pps, would bias toward
+        unmeasured degrees (the measured fit carries the batch-independent
+        optimizer const the analytic terms price at zero)."""
+        min_pp = min(self.space.pp_choices) if self.space.pp_choices else 1
+        return all(
+            self.costs.vocab_measurement_for(vt, self.mp) is not None
+            for vt in _pow2s(self.space.world_size // min_pp)
+            if not (self.space.vocab_size and self.space.vocab_size % vt)
+        )
+
+    def _feasible_strategies(self, pp: int, global_bsz: int, chunks: int):
+        """Strategy space under the strict chunk filter: the micro-batch
+        (global_bsz / chunks) must split over each strategy's dp axes.
+        Shared by evaluate() and homogeneity_gap() so the two cost models
+        cannot diverge."""
+        world = self.space.world_size
+
+        def feasible(s: LayerStrategy) -> bool:
+            dp = world // (pp * s.tp * s.cp)
+            return (global_bsz % (dp * chunks * max(1, s.cp))) == 0
+
+        return [s for s in generate_layer_strategies(self.space, pp) if feasible(s)]
+
+    def _boundary_msg_mb(self, lt, global_bsz: int, chunks: int) -> float:
+        """Per-micro-batch p2p boundary volume (comm-dtype bytes)."""
+        return (
+            lt.boundary_activation_mb_per_sample
+            * (global_bsz / chunks)
+            * (0.5 if self.mp in ("bf16", "fp16") else 1.0)
+        )
+
+    @staticmethod
+    def _stage_tick_ms(intra, inter, res, chunks: int, vpp: int = 1) -> float:
+        """Per-tick stage time for a chosen per-position assignment: layer
+        compute plus the inter-position resharding every micro-batch pays on
+        its stage pass (transition tables price the full global batch, so
+        /chunks yields the per-micro-batch share)."""
+        n_pos = len(res)
+        inter_sum = sum(inter[res[j], res[j + 1]] for j in range(n_pos - 1))
+        return (sum(intra[j, res[j]] for j in range(n_pos)) + inter_sum) * vpp / chunks
+
+    def _type_groups(self):
+        """Contiguous (start, count, layer_type) runs over layer indices.
+        Grouped by VALUE equality — JSON-loaded profiles materialize a fresh
+        ProfiledLayerType per index, so identity would split every layer."""
+        groups = []
+        for i in range(self.L):
+            lt = self._layer_type(i)
+            if groups and groups[-1][2] == lt:
+                groups[-1][1] += 1
+            else:
+                groups.append([i, 1, lt])
+        return groups
+
+    def _coupled_total_ms(
+        self, tick_ms: float, pp: int, chunks: int, pipeline_type: str,
+        global_bsz: int, multi_type, swin_groups,
+    ) -> float:
+        """Iteration time of the coupled tick-synchronous pipelines from one
+        bottleneck tick — the ONE pricing both evaluate() and
+        homogeneity_gap() use (a divergence here would make the gap measure
+        formula skew instead of the homogeneity restriction).
+
+        enc-dec (pipeline_encdec.py): every tick runs one enc + one dec
+        virtual stage; T = chunks + 2pp - 1 (gpipe autodiff) or
+        chunks + 4pp - 2 (coupled 1F1B; its per-tick section recompute is
+        priced in the intra table); three ppermutes per tick — enc out and
+        ctx at the encoder boundary size, dec y at the decoder's.
+        Swin (pipeline_swin.py): every tick runs one virtual stage of EVERY
+        section; T = chunks + K*pp - 1 (gpipe autodiff, K ring ppermutes) or
+        chunks + 2K*pp - 2 (coupled 1F1B: per-tick section recompute priced
+        in the intra table, 3K-1 ring sends — K section outputs + K-1 merged
+        outputs + K backward cotangents)."""
+        bf = 0.5 if self.mp in ("bf16", "fp16") else 1.0
+        if multi_type is not None:
+            enc_b = self._layer_type(0).boundary_activation_mb_per_sample
+            dec_b = self._layer_type(multi_type[0]).boundary_activation_mb_per_sample
+            p2p_mb = (2.0 * enc_b + dec_b) * (global_bsz / chunks) * bf
+            T = (
+                chunks + 4 * pp - 2
+                if pipeline_type == "pipedream_flush"
+                else chunks + 2 * pp - 1
+            )
+        else:
+            bs = [lt.boundary_activation_mb_per_sample for _, lt in swin_groups]
+            Ks = len(swin_groups)
+            if pipeline_type == "pipedream_flush":
+                # per tick: K section-output sends + K-1 merged sends (next
+                # section's size) + K backward dx sends (pipeline_swin.py)
+                p2p_mb = (2.0 * sum(bs) + sum(bs[1:])) * (global_bsz / chunks) * bf
+                T = chunks + 2 * Ks * pp - 2
+            else:
+                p2p_mb = sum(bs) * (global_bsz / chunks) * bf
+                T = chunks + Ks * pp - 1
+        return T * (tick_ms + p2p_mb / self.hw.p2p(pp))
+
+    # -- single (pp, bsz, chunks, pipeline_type) evaluation ------------------
+
+    def evaluate(
+        self, pp: int, global_bsz: int, chunks: int, pipeline_type: str, vpp: int = 1
+    ) -> Optional[SearchResult]:
+        # one span per DP phase: the search timeline shows where the sweep's
+        # time goes (per-candidate per-layer DP), not just its total
+        with _obs_tracer.span(
+            "search_dp", bsz=global_bsz, pp=pp, chunks=chunks,
+            schedule=pipeline_type, vpp=vpp,
+        ):
+            return self._evaluate(pp, global_bsz, chunks, pipeline_type, vpp)
+
+    def _evaluate(
+        self, pp: int, global_bsz: int, chunks: int, pipeline_type: str, vpp: int = 1
+    ) -> Optional[SearchResult]:
+        space = self.space
+        world = space.world_size
+        if world % pp or self.L < pp:
+            return None
+        multi_type = None  # (n_first, n_second) for a 2-group pp>1 pipeline
+        swin_groups = None  # [(count, layer_type)] for a K>2-section pipeline
+        if pp > 1 and len(self.costs.layer_types) > 1:
+            # heterogeneous layer types (the reference's multi-layer-type DP,
+            # dynamic_programming.py:304-455): TWO contiguous groups ride the
+            # enc-dec coupled sub-pipelines (parallel/pipeline_encdec.py,
+            # ragged counts via per-sub-stack padded divisions); K>2 groups
+            # with even counts ride the K-section pair-stacked pipeline
+            # (parallel/pipeline_swin.py); any chunk count (ring alignment
+            # is per-chunk — measured parity at chunks % pp != 0).
+            groups = self._type_groups()
+            if vpp > 1:
+                self._restrictions.add("multi_type_pp_no_interleaved_vpp")
+                return None
+            if len(groups) == 2 and not self.section_pipeline:
+                # sub-stacks smaller than pp are fine: balanced_division
+                # yields zero-layer (fully-masked identity) stages, so e.g. a
+                # 2-encoder-layer T5 pipelines at pp=4 (reference analogue:
+                # arbitrary per-stage layer ranges, core/pipeline/pipeline.py:75-77)
+                multi_type = (groups[0][1], groups[1][1])
+                # both coupled schedules exist for 2-group models: gpipe
+                # (T = chunks + 2pp - 1, autodiff backward, act x chunks)
+                # and the hand-written coupled 1F1B (pipeline_encdec.py:
+                # T = chunks + 4pp - 2, input-stash ring + section
+                # recompute, bounded memory)
+            elif all(cnt % 2 == 0 for _, cnt, _ in groups):
+                # both coupled schedules exist for K-section models too:
+                # gpipe (T = chunks + K*pp - 1, autodiff backward) and the
+                # coupled 1F1B (pipeline_swin.py: T = chunks + 2K*pp - 2,
+                # per-section input-stash rings min(chunks, 2(K-k)pp - 1),
+                # per-tick section recompute)
+                swin_groups = [(cnt, lt) for _, cnt, lt in groups]
+            else:
+                self._restrictions.add("section_pipeline_odd_pair_count_pp1_only")
+                return None
+        if global_bsz % chunks:
+            return None
+        if vpp > 1:
+            # interleaved-schedule constraints (strategy.py validate);
+            # both schedules compose with vpp (gpipe = autodiff backward,
+            # pipedream_flush = interleaved 1F1B, bounded activations)
+            if pp == 1:
+                return None
+            if self.L % (pp * vpp) or chunks % pp:
+                return None
+        # stage division: uniform when possible; memory-balanced (reference
+        # pp_division_memory_balanced) for ragged layer counts — the runtime
+        # realizes it with padded stage stacking (pipeline.stage_layout)
+        lps = -(-self.L // pp)  # positions per stage = max(division)
+        division: Optional[List[int]] = None
+        if pp > 1 and self.L % pp and multi_type is None and swin_groups is None:
+            # single layer type here (multi-type paths carry their own
+            # per-section divisions), and the balanced division is
+            # scale-invariant over uniform memories — unit weights give the
+            # same split as any baseline cost
+            division = pp_division_memory_balanced([1.0] * self.L, pp)
+            lps = max(division)
+        cands = self._feasible_strategies(pp, global_bsz, chunks)
+        if not cands:
+            return None
+        S = len(cands)
+
+        # positions: pp=1 → every layer; pp>1 → one per stage position (the
+        # stage-stacking constraint makes positions the DP unit; vpp>1 tightens
+        # the period to layers-per-virtual-stage); memory is identical across
+        # stages, stage 0 carries the 1F1B worst case. Multi-type (enc-dec)
+        # pp>1: a device holds one virtual stage of EACH type, so positions =
+        # lpe enc positions followed by lpd dec positions.
+        pos_layers = 1  # layers per searched position (2 for swin pairs)
+        if multi_type is not None:
+            # padded sub-stacks: positions per stack = ceil(count / pp); both
+            # stacks place remainders by the same stage order
+            # (balanced_division), so one stage holds the position maximum of
+            # BOTH stacks — the DP's worst case is a real stage
+            lpe, lpd = -(-multi_type[0] // pp), -(-multi_type[1] // pp)
+            n_pos = lpe + lpd
+            pos_lt = lambda j: (
+                self._layer_type(0) if j < lpe else self._layer_type(multi_type[0])
+            )
+        elif swin_groups is not None:
+            # pair-stacked sections (pipeline_swin.SwinLayout): positions per
+            # section = max of the pair spread; the same _spread_pairs the
+            # runtime uses, so emitted strategies land on the right layers
+            pos_layers = 2
+            sec_div = [spread_pairs(cnt // 2, pp) for cnt, _ in swin_groups]
+            sec_lp = [max(dv) for dv in sec_div]
+            n_pos = sum(sec_lp)
+            pos_sec = [k for k, lp in enumerate(sec_lp) for _ in range(lp)]
+            pos_lt = lambda j: swin_groups[pos_sec[j]][1]
+        else:
+            n_pos = self.L if pp == 1 else lps // vpp
+            pos_lt = self._layer_type
+        mem = np.zeros((n_pos, S), np.int32)
+        intra = np.zeros((n_pos, S), np.float64)
+        for j in range(n_pos):
+            lt = pos_lt(j)
+            # coupled 1F1B input-stash rings (pipeline_encdec.py: enc
+            # min(chunks, 4pp-1), dec/ctx 2pp-1; pipeline_swin.py: section
+            # k min(chunks, 2(K-k)pp - 1)) are PER SECTION, not per
+            # position: the ring charges only the group's FIRST position
+            # (whose strategy approximates the section input's sharding);
+            # later positions keep one live micro-batch
+            # (stash_boundary_bound=0 bypasses the single-stack in-flight
+            # bound without adding ring slots)
+            stash_bound, ring, single_ring = None, 0, False
+            if multi_type is not None and pipeline_type == "pipedream_flush":
+                stash_bound = 0
+                if j in (0, lpe):
+                    ring = (4 * pp - 1) if j < lpe else (2 * pp - 1)
+            elif swin_groups is not None and pipeline_type == "pipedream_flush":
+                stash_bound = 0
+                if j == 0 or pos_sec[j] != pos_sec[j - 1]:
+                    ring = 2 * (len(swin_groups) - pos_sec[j]) * pp - 1
+            elif pp > 1 and pipeline_type == "pipedream_flush":
+                # single-stack/interleaved 1F1B: input stash ring + fp32
+                # dx_embed ring, charged once at the first position at the
+                # strategy's own sharding (_1f1b_rings_mb)
+                single_ring = j == 0
+            # EVERY pipedream_flush engine (single-stack pipeline_1f1b,
+            # interleaved, coupled enc-dec, Swin sections) recomputes its
+            # (virtual) stage forward from the stashed input in the backward
+            # tick, regardless of the layer's own ckpt setting —
+            # layer_time_cost prices compute at max(strategy factor,
+            # full-replay factor) and the TP replay, without inflating the
+            # once-per-iteration DP reduction
+            recompute = (
+                REMAT_FULL_FACTOR
+                if pp > 1 and pipeline_type == "pipedream_flush"
+                else None
+            )
+            for k, s in enumerate(cands):
+                mc = layer_memory_cost(
+                    lt, s, world, pp, global_bsz, chunks, stage_idx=0,
+                    pipeline_type=pipeline_type, mixed_precision=self.mp,
+                    vpp=vpp, stash_boundary_bound=stash_bound,
+                )
+                # a device holds vpp layers per searched position
+                # (interleaved) or 2 (swin pairs); the ring term is
+                # per-section and does NOT scale with the position's layer
+                # multiplicity
+                total_mb = pos_layers * vpp * mc.total_mb + self._ring_mb(
+                    lt, s, ring, world, pp, global_bsz, chunks, vpp=vpp
+                )
+                if single_ring:
+                    total_mb += self._1f1b_rings_mb(
+                        lt, s, world, pp, global_bsz, chunks, vpp=vpp,
+                        layers_per_device=lps,
+                    )
+                mem[j, k] = max(1, int(np.ceil(total_mb / self.unit)))
+                intra[j, k] = pos_layers * layer_time_cost(
+                    lt, s, self.hw, world, pp, global_bsz, mixed_precision=self.mp,
+                    recompute_factor=recompute,
+                )
+        lt0 = self._layer_type(0)
+        inter = np.zeros((S, S), np.float64)
+        for a in range(S):
+            for b in range(S):
+                inter[a, b] = transition_cost_ms(
+                    cands[a], cands[b], lt0, self.hw, world, pp, global_bsz, self.mp
+                )
+
+        # The JAX package's exclusion of the cell its XLA partitioner
+        # crashes on: pp>1 × pipedream_flush × tp>1 × sp=False × vocab_tp>1.
+        # The torch runtime runs that cell; the exclusion is kept so that
+        # both packages emit the same plans (ROADMAP.md §3 "Kept
+        # differences"). vocab_tp>1 pairs only ever run the DP over the
+        # sp-safe candidate subset (tp=1 or sp=True).
+        crash_guard = pp > 1 and pipeline_type == "pipedream_flush"
+        safe_idx = (
+            np.asarray(
+                [k for k, s in enumerate(cands) if s.tp == 1 or s.sp],
+                np.int64,
+            )
+            if crash_guard
+            else np.arange(S)
+        )
+        # vocab/embedding strategy is a searched dimension (reference:
+        # --vocab_tp / --embed_sdp, hybrid_parallel_config.py:141-179,
+        # arguments.py:128-130): sweep (vocab_tp, embed_dp_type), re-running
+        # the layer DP only when the remaining budget actually changes
+        dp_cache: Dict[tuple, tuple] = {}
+        best = None  # (total_ms, res, mem_used, vt, et, other_mb)
+        pairs = list(_vocab_strategy_pairs(world, pp, self.space.vocab_size))
+        use_measured = self._vocab_use_measured()
+        pf_overhead = 0.0
+        if multi_type is not None and pipeline_type == "pipedream_flush":
+            # per-DEVICE constants the coupled 1F1B carries beyond the
+            # per-position stash rings (pipeline_encdec.py carry): the
+            # dxe/dxd fp32 input-cotangent buffers hold (chunks+1)
+            # micro-batches ≈ the full per-device batch boundary (fp32), and
+            # the ctx stash holds (min(chunks, 2pp-1)+1) enc-boundary
+            # micro-batch slots. Sized at the candidate worst case
+            # (largest per-device batch = smallest dp = largest tp).
+            enc_b = self._layer_type(0).boundary_activation_mb_per_sample
+            dec_b = self._layer_type(multi_type[0]).boundary_activation_mb_per_sample
+            fp32x = 2.0 if self.mp in ("bf16", "fp16") else 1.0
+            rows = global_bsz / max(1, world // (pp * max(s.tp for s in cands)))
+            pf_overhead = (enc_b + dec_b) * rows * ((chunks + 1) / chunks) * fp32x
+            pf_overhead += enc_b * (rows / chunks) * (min(chunks, 2 * pp - 1) + 1)
+        elif swin_groups is not None and pipeline_type == "pipedream_flush":
+            # the coupled K-section 1F1B's per-device constant beyond the
+            # per-position stash rings: the dxe fp32 input-cotangent buffer
+            # holds chunks+1 section-0 micro-batch boundaries
+            sec0_b = self._layer_type(0).boundary_activation_mb_per_sample
+            fp32x = 2.0 if self.mp in ("bf16", "fp16") else 1.0
+            rows = global_bsz / max(1, world // (pp * max(s.tp for s in cands)))
+            pf_overhead = sec0_b * rows * ((chunks + 1) / chunks) * fp32x
+        # (single-stack/interleaved 1F1B rings are charged per strategy in
+        # the mem table — _1f1b_rings_mb at the first position)
+        # one-off transient working set (bf16 cast + in-flight grad of the
+        # largest layer at the candidate worst-case tp)
+        trans_mb = transient_overhead_mb(
+            self.costs, min(s.tp for s in cands), self.mp
+        )
+        for vt, et in pairs:
+            guarded = crash_guard and vt > 1 and len(safe_idx) < S
+            if guarded:
+                self._restrictions.add("spmd_crash_pp_1f1b_tp_no_sp_vocab_tp")
+                if len(safe_idx) == 0:
+                    continue  # e.g. --disable_sp with only tp>1 candidates
+            other_mb = other_memory_cost(
+                self.costs, world, pp, vocab_tp=vt, embed_dp_type=et,
+                global_bsz=global_bsz, chunks=chunks, mixed_precision=self.mp,
+            ) + pf_overhead + trans_mb
+            budget = self.budget_mb - other_mb
+            if budget <= 0:
+                continue
+            V = int(budget / self.unit)
+            key = (V, guarded)
+            if key not in dp_cache:
+                if guarded:
+                    c_, r_, m_ = run_dp(
+                        mem[:, safe_idx], intra[:, safe_idx],
+                        inter[np.ix_(safe_idx, safe_idx)], V,
+                    )
+                    # map subset choices back to full candidate indices
+                    r_ = np.where(r_ >= 0, safe_idx[np.clip(r_, 0, None)], -1)
+                    dp_cache[key] = (c_, r_, m_)
+                else:
+                    dp_cache[key] = run_dp(mem, intra, inter, V)
+            cost, res, mem_used = dp_cache[key]
+            if not np.isfinite(cost) or (res < 0).any():
+                continue
+            if pp > 1:
+                # per-tick stage time: layer compute plus the inter-
+                # position resharding every micro-batch pays on its stage
+                # pass (the transition tables price the full global batch,
+                # so /chunks yields the per-micro-batch share; riding the
+                # tick time lets pipeline_time_cost amplify it by the
+                # fill/steady factor instead of counting it flat)
+                per_stage_ms = self._stage_tick_ms(intra, inter, res, chunks, vpp)
+                if multi_type is not None or swin_groups is not None:
+                    total_ms = self._coupled_total_ms(
+                        per_stage_ms, pp, chunks, pipeline_type, global_bsz,
+                        multi_type, swin_groups,
+                    )
+                else:
+                    total_ms = pipeline_time_cost(
+                        [per_stage_ms] * pp,
+                        self._boundary_msg_mb(lt0, global_bsz, chunks),
+                        pp, chunks, self.hw, vpp=vpp,
+                        pipeline_type=pipeline_type,
+                    )
+            else:
+                total_ms = cost
+            total_ms += other_time_cost(
+                self.costs, self.hw, world, pp, vt, et, global_bsz, self.mp,
+                use_measured=use_measured,
+            )
+            if best is None or total_ms < best[0]:
+                best = (total_ms, res, mem_used, vt, et, other_mb)
+        if best is None:
+            return None
+        total_ms, res, mem_used, vocab_tp, embed_dp_type, other_mb = best
+
+        chosen = [cands[k] for k in res]
+        if pp > 1:
+            # same per-position pattern in every (virtual) stage; uneven
+            # divisions truncate the pattern on light stages
+            if multi_type is not None:
+                from galvatron_tpu_torch.core.strategy import balanced_division
+
+                div_e = balanced_division(multi_type[0], pp)
+                div_d = balanced_division(multi_type[1], pp)
+                lpe = max(div_e)
+                enc_chosen, dec_chosen = chosen[:lpe], chosen[lpe:]
+                layer_strategies = [
+                    enc_chosen[q] for s in range(pp) for q in range(div_e[s])
+                ] + [dec_chosen[q] for s in range(pp) for q in range(div_d[s])]
+                division = div_e + div_d  # the 2*pp enc-dec layout
+            elif swin_groups is not None:
+                # per-layer strategies in the runtime's pair layout: section-
+                # major, stage-major within a section, two layers per pair
+                layer_strategies = []
+                base = 0
+                for k in range(len(swin_groups)):
+                    sec_chosen = chosen[base:base + sec_lp[k]]
+                    for s in range(pp):
+                        for q in range(sec_div[k][s]):
+                            layer_strategies += [sec_chosen[q], sec_chosen[q]]
+                    base += sec_lp[k]
+            elif division is not None:
+                layer_strategies = [
+                    chosen[j] for s in range(pp) for j in range(division[s])
+                ]
+            else:
+                layer_strategies = chosen * (pp * vpp)
+        else:
+            layer_strategies = chosen
+
+        hp = HybridParallelConfig(
+            pp=pp,
+            vpp=vpp,
+            layer_strategies=layer_strategies,
+            pp_division=division,
+            chunks=chunks,
+            pipeline_type=pipeline_type,
+            vocab_tp=vocab_tp,
+            embed_dp_type=embed_dp_type,
+            mixed_precision=self.mp,
+            default_dp_type="ddp",
+        )
+        return SearchResult(
+            config=hp,
+            cost_ms=float(total_ms),
+            throughput_samples_per_s=global_bsz / (total_ms / 1000.0),
+            global_bsz=global_bsz,
+            memory_mb=float(mem_used * self.unit + other_mb),
+            details={
+                "pp": pp, "vpp": vpp, "chunks": chunks,
+                "pipeline_type": pipeline_type,
+                "vocab_tp": vocab_tp, "embed_dp_type": embed_dp_type,
+                # includes coupled_1f1b_overhead_mb when that schedule is priced
+                "other_memory_mb": float(other_mb),
+                **(
+                    {"coupled_1f1b_overhead_mb": float(pf_overhead)}
+                    if pf_overhead else {}
+                ),
+                # non-empty => comm terms priced from built-in defaults, not
+                # measured bandwidths (e.g. search ran on a single-chip host)
+                "fallback_bandwidths": self.hw.fallback_sources(pp),
+            },
+        )
+
+    # -- full optimization loop ---------------------------------------------
+
+    def _iter_results(self, global_bsz_list, max_chunks, verbose=False):
+        """Yield every feasible SearchResult in the (bsz, pp, chunks,
+        schedule, vpp) sweep."""
+        self._restrictions.clear()
+        pps = self.space.pp_choices or [
+            p for p in _pow2s(self.space.world_size) if p <= self.L
+        ]
+        for bsz in global_bsz_list:
+            for pp in pps:
+                chunk_opts = [c for c in _pow2s(min(max_chunks, bsz)) if bsz % c == 0]
+                for chunks in chunk_opts:
+                    for ptype in self.space.pipeline_types if pp > 1 else ("gpipe",):
+                        vpps = [1]
+                        if pp > 1:
+                            # the L % (pp*vpp) constraint is interleaving's
+                            # (strategy.validate) — vpp=1 must stay in the
+                            # sweep for ANY L: evaluate() handles uneven
+                            # divisions via pp_division_memory_balanced
+                            vpps = [1] + [
+                                v for v in _pow2s(self.space.max_vpp)
+                                if v > 1 and self.L % (pp * v) == 0
+                            ]
+                        for vpp in vpps:
+                            r = self.evaluate(pp, bsz, chunks, ptype, vpp=vpp)
+                            if r is None:
+                                continue
+                            if verbose:
+                                vtag = f" vpp={vpp}" if vpp > 1 else ""
+                                print(
+                                    f"bsz={bsz} pp={pp} chunks={chunks} {ptype}{vtag}: "
+                                    f"{r.cost_ms:.1f} ms, "
+                                    f"{r.throughput_samples_per_s:.2f} samples/s, "
+                                    f"mem {r.memory_mb:.0f} MB"
+                                )
+                            yield r
+
+    def _active_restrictions(self) -> List[str]:
+        return sorted(self._restrictions)
+
+    def search_topk(
+        self, global_bsz_list: Sequence[int], k: int, max_chunks: int = 64,
+        verbose: bool = False,
+    ) -> List[SearchResult]:
+        """The k highest-predicted-throughput results (distinct (pp, chunks,
+        schedule, vpp, per-layer strategy) combinations) — the candidate set
+        for measured validation (CLI --validate_top_k)."""
+        seen = set()
+        out: List[SearchResult] = []
+        with _obs_tracer.span("search_sweep", phase="topk", k=k):
+            for r in self._iter_results(global_bsz_list, max_chunks, verbose=verbose):
+                key = (
+                    r.global_bsz, r.config.pp, r.config.chunks, r.config.pipeline_type,
+                    r.config.vpp, tuple(map(str, r.config.layer_strategies)),
+                )
+                if key in seen:
+                    continue
+                seen.add(key)
+                out.append(r)
+        out.sort(key=lambda r: -r.throughput_samples_per_s)
+        rs = self._active_restrictions()
+        if rs:
+            for r in out:
+                r.details["search_restrictions"] = rs
+        return out[:k]
+
+    def search(
+        self,
+        global_bsz_list: Sequence[int],
+        max_chunks: int = 64,
+        verbose: bool = False,
+    ) -> Optional[SearchResult]:
+        """Sweep (bsz, pp, chunks, schedule); maximize throughput (reference:
+        parallelism_optimization, search_engine.py:168-324)."""
+        best: Optional[SearchResult] = None
+        with _obs_tracer.span("search_sweep", phase="best"):
+            for r in self._iter_results(global_bsz_list, max_chunks, verbose=verbose):
+                if best is None or (
+                    r.throughput_samples_per_s > best.throughput_samples_per_s
+                ):
+                    best = r
+        if best is not None:
+            rs = self._active_restrictions()
+            if rs:
+                best.details["search_restrictions"] = rs
+        if best is not None and verbose:
+            s0 = best.config.layer_strategies[0]
+            dp = self.space.world_size // (best.config.pp * s0.tp * s0.cp)
+            print(
+                f"Max throughput = {best.throughput_samples_per_s:.2f} samples/s "
+                f"(bsz {best.global_bsz}, {form_strategy(s0, best.config.pp, dp)})"
+            )
+        return best
+
+    def recommend_min_bsz(self, scale: int = 8) -> int:
+        """Prune sweep batch sizes that are search-time waste (reference:
+        recommend_min_bsz, search_engine.py:257-276): pure-strategy baselines
+        (dp / ZeRO-3 / full-tp at pp=1) each have a maximum feasible global
+        batch under the memory budget; throughput rises with bsz until
+        memory binds, so the sweep starts 65% of the way from the smallest
+        to the largest baseline maximum. Returns a lower bound for the
+        caller's min_bsz (``scale`` when nothing is feasible — the sweep
+        itself then reports infeasibility)."""
+        world = self.space.world_size
+        baselines = [LayerStrategy(), LayerStrategy(dp_type="zero3")]
+        tp = min(world, self.space.max_tp or world)
+        if tp > 1:
+            baselines.append(LayerStrategy(tp=tp))
+
+        groups = self._type_groups()  # type-aware: price every layer type
+
+        def feasible(s: LayerStrategy, bsz: int) -> bool:
+            mem = sum(
+                cnt
+                * layer_memory_cost(
+                    lt, s, world, 1, bsz, 1, mixed_precision=self.mp
+                ).total_mb
+                for _, cnt, lt in groups
+            )
+            other = other_memory_cost(
+                self.costs, world, 1, vocab_tp=1, embed_dp_type="ddp",
+                global_bsz=bsz, chunks=1, mixed_precision=self.mp,
+            )
+            return mem + other <= self.budget_mb
+
+        def max_feasible(s: LayerStrategy) -> int:
+            # memory is monotone in bsz: geometric probe for an infeasible
+            # upper bound, then bisect to `scale` granularity (~40 cost-model
+            # evaluations instead of a linear scan)
+            if not feasible(s, scale):
+                return 0
+            lo, hi = scale, 2 * scale
+            while hi <= (1 << 20) and feasible(s, hi):
+                lo, hi = hi, 2 * hi
+            while hi - lo > scale:
+                mid = (lo + hi) // 2 // scale * scale
+                if mid in (lo, hi):
+                    break
+                lo, hi = (mid, hi) if feasible(s, mid) else (lo, mid)
+            return lo
+
+        vals = [max_feasible(s) for s in baselines]
+        if not any(vals):
+            return scale
+        lo, hi = min(vals), max(vals)
+        start = int((lo * 0.35 + hi * 0.65) // scale * scale)
+        return max(start, scale)
+
+    def homogeneity_gap(
+        self, pp: int, global_bsz: int, chunks: int,
+        pipeline_type: str = "pipedream_flush",
+    ) -> Optional[Dict]:
+        """Quantify the cross-stage homogeneity restriction (the reference
+        places any strategy on any layer of any stage,
+        hybrid_parallel_model.py:81-153; this runtime's padded SPMD stacking
+        shares one strategy per stack position across stages).
+
+        For homogeneous layers under a uniform budget, per-stage DPs are
+        IDENTICAL subproblems, so the restriction costs nothing under gpipe.
+        The gap comes from 1F1B's stage-varying activation bound
+        (2(pp-1-s)+1 in-flight micro-batches): later stages have memory
+        headroom the position-restricted DP — which prices stage 0's worst
+        case everywhere — cannot exploit. This runs the layer DP once per
+        stage with stage-specific memory (the reference's formulation) and
+        reports the predicted iteration-time delta.
+
+        Multi-type models are covered too: enc-dec stages run their own DPs
+        over their REAL per-stage layer counts (ragged/sub-pp divisions give
+        light stages headroom the shared-position search cannot use), with
+        the coupled-1F1B stash memory and recompute pricing; Swin sections
+        use their per-stage pair spreads.
+
+        Returns {restricted_ms, unrestricted_ms, delta_pct, per_stage}.
+        None = not defined for this shape/schedule (pp=1, vpp>1, odd swin
+        sections, >2 non-section groups) or the restricted search itself
+        finds nothing feasible."""
+        r = self.evaluate(pp, global_bsz, chunks, pipeline_type)
+        if r is None or pp == 1:
+            return None
+        world = self.space.world_size
+        cands = self._feasible_strategies(pp, global_bsz, chunks)
+        S = len(cands)
+        lt0 = self._layer_type(0)
+        vt = r.config.vocab_tp
+        et = r.config.embed_dp_type
+        other_mb = other_memory_cost(
+            self.costs, world, pp, vocab_tp=vt, embed_dp_type=et,
+            global_bsz=global_bsz, chunks=chunks, mixed_precision=self.mp,
+        ) + r.details.get("coupled_1f1b_overhead_mb", 0.0) + transient_overhead_mb(
+            self.costs, min(s.tp for s in cands), self.mp
+        )
+        budget = self.budget_mb - other_mb
+        if budget <= 0:
+            return None
+        V = int(budget / self.unit)
+        inter = np.zeros((S, S), np.float64)
+        for a in range(S):
+            for b in range(S):
+                inter[a, b] = transition_cost_ms(
+                    cands[a], cands[b], lt0, self.hw, world, pp, global_bsz, self.mp
+                )
+
+        # per-stage position descriptors: (layer_type, stash_bound, layers)
+        groups = self._type_groups()
+        recompute = None
+        # position entries are (layer_type, stash_flag, n_layers, rings);
+        # rings = ((ring_layer_type, slots), ...) charged at that position.
+        # Under the coupled 1F1B the SPMD scan carry allocates EVERY
+        # section's ring on EVERY device — including stages holding zero
+        # layers of that section — so each stage charges every group's
+        # ring: at the group's first position on that stage when it has
+        # one, else at the stage's first position (a fully idle stage runs
+        # only padding and is not priced — it chooses no strategy).
+        def attach_rings(poss, gids, ring_list):
+            out = [[lt_, stash_, n_, []] for (lt_, stash_, n_) in poss]
+            if out and ring_list:
+                first = {}
+                for j, g in enumerate(gids):
+                    first.setdefault(g, j)
+                for g, ring in enumerate(ring_list):
+                    out[first.get(g, 0)][3].append(ring)
+            return [(a, b, c, tuple(r)) for a, b, c, r in out]
+
+        single_pf = False
+        if len(groups) == 1:
+            mode = "single"
+            if pipeline_type == "pipedream_flush":
+                recompute = REMAT_FULL_FACTOR  # same per-tick stage replay
+                single_pf = True
+            lps = -(-self.L // pp)
+            stage_positions = [[(lt0, None, 1, ())] * lps for _ in range(pp)]
+        elif len(groups) == 2 and not self.section_pipeline:
+            if pipeline_type not in ("gpipe", "pipedream_flush"):
+                return None
+            from galvatron_tpu_torch.core.strategy import balanced_division
+
+            mode = "encdec"
+            E, D = groups[0][1], groups[1][1]
+            div_e, div_d = balanced_division(E, pp), balanced_division(D, pp)
+            lte, ltd = self._layer_type(0), self._layer_type(E)
+            pf = pipeline_type == "pipedream_flush"
+            if pf:
+                recompute = REMAT_FULL_FACTOR
+            stash = 0 if pf else None
+            ring_list = [(lte, 4 * pp - 1), (ltd, 2 * pp - 1)] if pf else []
+            stage_positions = [
+                attach_rings(
+                    [(lte, stash, 1)] * div_e[st] + [(ltd, stash, 1)] * div_d[st],
+                    [0] * div_e[st] + [1] * div_d[st],
+                    ring_list,
+                )
+                for st in range(pp)
+            ]
+        elif all(cnt % 2 == 0 for _, cnt, _ in groups):
+            if pipeline_type not in ("gpipe", "pipedream_flush"):
+                return None
+            mode = "swin"
+            Kg = len(groups)
+            pf = pipeline_type == "pipedream_flush"
+            if pf:
+                recompute = REMAT_FULL_FACTOR
+            sec_div = [spread_pairs(cnt // 2, pp) for _, cnt, _ in groups]
+            stash = 0 if pf else None
+            ring_list = (
+                [(groups[k][2], 2 * (Kg - k) * pp - 1) for k in range(Kg)]
+                if pf else []
+            )
+            stage_positions = [
+                attach_rings(
+                    [
+                        (groups[k][2], stash, 2)
+                        for k in range(Kg)
+                        for _ in range(sec_div[k][st])
+                    ],
+                    [k for k in range(Kg) for _ in range(sec_div[k][st])],
+                    ring_list,
+                )
+                for st in range(pp)
+            ]
+        else:
+            return None
+
+        intra_rows: Dict[int, np.ndarray] = {}
+
+        def intra_row(lt) -> np.ndarray:
+            key = id(lt)
+            if key not in intra_rows:
+                intra_rows[key] = np.array([
+                    layer_time_cost(
+                        lt, s, self.hw, world, pp, global_bsz,
+                        mixed_precision=self.mp, recompute_factor=recompute,
+                    )
+                    for s in cands
+                ])
+            return intra_rows[key]
+
+        mem_rows: Dict[tuple, np.ndarray] = {}
+
+        def mem_row(lt, stash, n_lay, st, rings, first=False) -> np.ndarray:
+            key = (id(lt), stash, n_lay, st, tuple((id(r), n) for r, n in rings), first)
+            if key not in mem_rows:
+                def total(s):
+                    mc = layer_memory_cost(
+                        lt, s, world, pp, global_bsz, chunks, stage_idx=st,
+                        pipeline_type=pipeline_type, mixed_precision=self.mp,
+                        stash_boundary_bound=stash,
+                    ).total_mb
+                    # rings are per-section, charged once (evaluate() rule)
+                    out = n_lay * mc + sum(
+                        self._ring_mb(
+                            rlt, s, slots, world, pp, global_bsz, chunks,
+                            stage_idx=st,
+                        )
+                        for rlt, slots in rings
+                    )
+                    if first:  # single-stack 1F1B stash + dx_embed rings
+                        out += self._1f1b_rings_mb(
+                            lt, s, world, pp, global_bsz, chunks
+                        )
+                    return out
+
+                mem_rows[key] = np.array([
+                    max(1, int(np.ceil(total(s) / self.unit))) for s in cands
+                ], np.int32)
+            return mem_rows[key]
+
+        stage_ms, per_stage = [], []
+        for st in range(pp):
+            poss = stage_positions[st]
+            if not poss:  # a stage holding only masked padding
+                stage_ms.append(0.0)
+                per_stage.append([])
+                continue
+            n_pos = len(poss)
+            mem = np.zeros((n_pos, S), np.int32)
+            intra = np.zeros((n_pos, S), np.float64)
+            for j, (lt, stash, n_lay, rings) in enumerate(poss):
+                intra[j] = intra_row(lt) * n_lay
+                mem[j] = mem_row(lt, stash, n_lay, st, rings, first=single_pf and j == 0)
+            cost, res, _ = run_dp(mem, intra, inter, V)
+            if not np.isfinite(cost) or (res < 0).any():
+                return None
+            stage_ms.append(self._stage_tick_ms(intra, inter, res, chunks))
+            per_stage.append([form_strategy(cands[k], pp, world // (pp * cands[k].tp * cands[k].cp)) for k in res])
+        if mode == "single":
+            unrestricted = pipeline_time_cost(
+                stage_ms, self._boundary_msg_mb(lt0, global_bsz, chunks),
+                pp, chunks, self.hw, pipeline_type=pipeline_type,
+            )
+        else:
+            unrestricted = self._coupled_total_ms(
+                max(stage_ms), pp, chunks, pipeline_type, global_bsz,
+                (groups[0][1], groups[1][1]) if mode == "encdec" else None,
+                [(cnt, lt) for _, cnt, lt in groups] if mode == "swin" else None,
+            )
+        unrestricted += other_time_cost(
+            self.costs, self.hw, world, pp, vt, et, global_bsz, self.mp,
+            use_measured=self._vocab_use_measured(),
+        )
+        return {
+            "restricted_ms": float(r.cost_ms),
+            "unrestricted_ms": float(unrestricted),
+            "delta_pct": float(100.0 * (r.cost_ms - unrestricted) / r.cost_ms),
+            "per_stage": per_stage,
+        }
+
+    def check_cost_model(
+        self, global_bsz: int, chunks: int = 1, pp: int = 1,
+        pipeline_type: str = "gpipe", strategies: Optional[Sequence[LayerStrategy]] = None,
+    ) -> str:
+        """Developer harness: per-strategy predicted memory/time table for
+        manual comparison against profiled reality (reference:
+        GalvatronSearchEngine.check_cost_model, search_engine.py:369-421).
+        Returns the formatted table (also useful in tests)."""
+        world = self.space.world_size
+        cands = list(strategies) if strategies else generate_layer_strategies(self.space, pp)
+        lines = [
+            f"check_cost_model: bsz={global_bsz} chunks={chunks} pp={pp} "
+            f"{pipeline_type} world={world}",
+        ]
+        # one per-strategy table per layer type (enc-dec models carry two)
+        groups = self._type_groups()
+        for gi, (start, cnt, lt) in enumerate(groups):
+            if len(groups) > 1:
+                lines.append(f"layer type {gi} (layers {start}..{start + cnt - 1}):")
+            lines.append(
+                f"{'strategy':>16} | {'states MB':>9} | {'act MB':>8} | "
+                f"{'total MB':>8} | {'time ms':>8}"
+            )
+            # same stash-ring pricing evaluate() applies to the coupled
+            # 1F1B schedules: enc-dec groups stash 4pp-1 / 2pp-1 slots,
+            # K-section (swin) groups 2(K-gi)pp - 1
+            stash_bound = None
+            if pp > 1 and pipeline_type == "pipedream_flush" and len(groups) > 1:
+                if len(groups) == 2 and not self.section_pipeline:
+                    stash_bound = (4 * pp - 1) if gi == 0 else (2 * pp - 1)
+                else:
+                    stash_bound = 2 * (len(groups) - gi) * pp - 1
+            for s in cands:
+                dp = world // (pp * s.tp * s.cp)
+                mc = layer_memory_cost(
+                    lt, s, world, pp, global_bsz, chunks, stage_idx=0,
+                    pipeline_type=pipeline_type, mixed_precision=self.mp,
+                    stash_boundary_bound=stash_bound,
+                )
+                t = layer_time_cost(
+                    lt, s, self.hw, world, pp, global_bsz, mixed_precision=self.mp
+                )
+                lines.append(
+                    f"{form_strategy(s, pp, dp):>16} | {mc.states_mb:9.1f} | "
+                    f"{mc.activation_mb:8.1f} | {mc.total_mb:8.1f} | {t:8.2f}"
+                )
+        # vocab/embedding strategy tradeoff (searched dimension); 'src' shows
+        # whether the base term is measured (profile_vocab_costs table) or
+        # analytic — with the same whole-sweep consistency gate evaluate()
+        # applies (a mixed sweep would bias toward unmeasured degrees)
+        pairs = list(_vocab_strategy_pairs(world, pp, self.space.vocab_size))
+        use_measured = self._vocab_use_measured()
+        lines.append(
+            f"{'vocab strategy':>16} | {'other MB':>9} | {'other ms':>8} | {'src':>8}"
+        )
+        for vt, et in pairs:
+                omb = other_memory_cost(
+                    self.costs, world, pp, vocab_tp=vt, embed_dp_type=et,
+                    global_bsz=global_bsz, chunks=chunks, mixed_precision=self.mp,
+                )
+                oms = other_time_cost(
+                    self.costs, self.hw, world, pp, vt, et, global_bsz, self.mp,
+                    use_measured=use_measured,
+                )
+                src = "measured" if use_measured else "analytic"
+                tag = f"vtp{vt}-{et}"
+                lines.append(f"{tag:>16} | {omb:9.1f} | {oms:8.2f} | {src:>8}")
+        return "\n".join(lines)
+
+    def save_result(self, result: SearchResult, path: str) -> None:
+        d = result.config.to_json_dict()
+        d["search_cost_ms"] = result.cost_ms
+        d["search_throughput_samples_per_s"] = result.throughput_samples_per_s
+        d["global_bsz"] = result.global_bsz
+        d["memory_mb"] = result.memory_mb
+        fb = result.details.get("fallback_bandwidths")
+        if fb:
+            d["fallback_bandwidths"] = fb  # priced from defaults, not measured
+        rs = result.details.get("search_restrictions")
+        if rs:
+            # structural bail-outs that really excluded a schedule/shape
+            # class from the sweep that produced this result
+            d["search_restrictions"] = rs
+        if "homogeneity_gap_pct" in result.details:
+            d["homogeneity_gap_pct"] = result.details["homogeneity_gap_pct"]
+        # self-describing provenance: check-plan (CLI/CI) reads these back
+        # as defaults, so a checked-in config validates without extra flags
+        d["num_devices"] = self.space.world_size
+        # the budget this plan was searched under: check-plan's GTA015
+        # feasibility gate reads it back, so a regenerated config keeps the
+        # CI memory check without hand-editing
+        d["memory_constraint_gb"] = self.budget_mb / 1024.0
+        if self.model_name:
+            d["model_size"] = self.model_name
+        if self.model_config is not None:
+            # effective shape, so check-plan needs no repeated CLI overrides
+            # (a --num_layers 4 search against a 24-layer preset would
+            # otherwise read back as a spurious layer-count mismatch)
+            from galvatron_tpu_torch.analysis.plan_check import model_shape_dict
+
+            d["model_config"] = model_shape_dict(self.model_config)
+        # emit-path self-check: the runtime materializes emitted plans
+        # blindly, so an invalid one here is a SEARCH bug — refuse to write
+        # it rather than hand the trainer a plan its own startup check (or
+        # worse, the compiler) rejects minutes later
+        from galvatron_tpu_torch.analysis import plan_check
+
+        plan_check.ensure_valid(
+            d, model_config=self.model_config,
+            world_size=self.space.world_size,
+            memory_budget_mb=self.budget_mb,
+            context=f"search emitted an invalid plan (search bug) for {path}",
+            verbose=False,
+        )
+        with open(path, "w") as f:
+            json.dump(d, f, indent=2)

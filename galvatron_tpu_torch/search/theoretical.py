@@ -1,0 +1,292 @@
+"""Analytic (no-profiling) parameter/memory estimates from a model config
+(the port's copy of ``galvatron_tpu/search/theoretical.py`` on the port's
+``ModelConfig``; the decoder and encoder-decoder arithmetic is the JAX
+package's, so ``--analytic_costs 1`` searches give the same plans).
+
+- exact parameter counts from ModelConfig (GQA, SwiGLU/GeLU, tied
+  embeddings), equal to the element count of ``modeling.init_model_params``;
+- model-state memory per device under a LayerStrategy (fp32 master + 2 Adam
+  moments + optional bf16 working cast; ZeRO-2 shards moments, ZeRO-3 all);
+- activation estimates per layer per sample for the attention paths (flash
+  never materializes the (S, S) score matrix; the einsum path does).
+
+Vision models (ViT, Swin) raise: their geometry is not ported (ROADMAP.md
+§1.10).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from galvatron_tpu_torch.core.strategy import LayerStrategy
+from galvatron_tpu_torch.models.modeling import ModelConfig
+
+_BYTES = {"fp32": 4, "bf16": 2, "fp16": 2}
+
+
+def moe_expert_params(cfg: ModelConfig) -> int:
+    """Parameters in the expert stack (shardable by ep): E MLPs, w1/w2
+    (+ w3 for swiglu) — matches moe.init_moe_params."""
+    mats = 3 if cfg.act_fn == "swiglu" else 2
+    return cfg.moe_experts * mats * cfg.hidden_size * cfg.ffn
+
+
+def layer_param_count(cfg: ModelConfig, cross: bool = False) -> int:
+    """Exact per-layer parameter count (matches init_layer_params).
+    ``cross``: enc-dec decoder layers carry a cross-attention block
+    (wq + wkv + wo + cross_norm)."""
+    h, hd = cfg.hidden_size, cfg.head_dim
+    q_out, kv_out = cfg.num_heads * hd, cfg.kv_heads * hd
+    attn = h * q_out + 2 * h * kv_out + q_out * h
+    if cross:
+        attn += h * q_out + 2 * h * kv_out + q_out * h
+        attn += h if cfg.norm_type == "rms" else 2 * h  # cross_norm
+    if cfg.moe_experts > 0:
+        # router + per-expert MLPs
+        mlp = h * cfg.moe_experts + moe_expert_params(cfg)
+    elif cfg.act_fn == "swiglu":
+        mlp = 3 * h * cfg.ffn
+    else:
+        mlp = 2 * h * cfg.ffn
+    norms = 2 * h if cfg.norm_type == "rms" else 4 * h
+    bias = 0
+    if cfg.use_bias:  # qkv slots + wo (+ dense-MLP biases; MoE MLPs carry none)
+        bias = 3 * q_out + h
+        if cfg.moe_experts == 0:
+            bias += (2 * cfg.ffn if cfg.act_fn == "swiglu" else cfg.ffn) + h
+    return attn + mlp + norms + bias
+
+
+def other_param_count(cfg: ModelConfig) -> int:
+    """Embedding + final norm + output head (+ Swin patch merges)."""
+    if cfg.image_size:
+        _refuse_vision()
+    n = cfg.vocab_size * cfg.hidden_size  # token embedding
+    if cfg.pos_embed == "learned":
+        n += cfg.max_seq_len * cfg.hidden_size
+    n += cfg.hidden_size if cfg.norm_type == "rms" else 2 * cfg.hidden_size
+    if not cfg.tie_word_embeddings:
+        n += cfg.hidden_size * cfg.vocab_size
+    return n
+
+
+def total_param_count(cfg: ModelConfig) -> int:
+    if cfg.swin_depths:
+        _refuse_vision()
+    return cfg.num_layers * layer_param_count(cfg) + other_param_count(cfg)
+
+
+def layer_states_mb(
+    cfg: ModelConfig, s: LayerStrategy, world: int, pp: int = 1,
+    mixed_precision: str = "bf16",
+) -> float:
+    """Per-chip model-state MB for one layer under strategy ``s`` — the
+    analytic form of layer_memory_cost's states term."""
+    dp = world // (pp * s.tp * s.cp)
+    p_mb = layer_param_count(cfg) * 4 / 1e6 / s.tp  # fp32 MB after TP
+    cast = 0.5 * p_mb if mixed_precision in ("bf16", "fp16") else 0.0
+    if s.dp_type == "zero3":
+        return 4.0 * p_mb / dp + cast
+    if s.dp_type == "zero2":
+        return 2.0 * p_mb + 2.0 * p_mb / dp + cast
+    return 4.0 * p_mb + cast
+
+
+def layer_activation_mb_per_sample(
+    cfg: ModelConfig, s: LayerStrategy, seq_len: int = 0,
+    mixed_precision: str = "bf16",
+) -> float:
+    """Analytic activation MB per layer per sample, no remat.
+
+    Derivation (per token, compute dtype bytes b): residual h, two norm
+    outputs 2h, qkv (1 + 2·kv/n)·h·(n·hd/h), attention context h, mlp inputs
+    h + {3 ffn (swiglu: w1 out, w3 out, product) | 2 ffn (gelu)}. The xla
+    attention path additionally saves the (n_heads, S, S) probs in fp32;
+    flash saves only the (S, 1) LSE. TP divides the sharded intermediates;
+    SP additionally shards the replicated residual/norm tensors.
+
+    Under ``cfg.mlp_recompute`` ('gate'/'policy', the default) the MLP
+    saves ONLY the gate/up projection output — the activation product is
+    recomputed in the backward (modeling.mlp_residual) — so the mlp term
+    drops by one ffn-wide save (swiglu 3→2, gelu/relu 2→1 ffn).
+    """
+    S = seq_len or cfg.max_seq_len
+    h, n, kvn, hd = cfg.hidden_size, cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    b = _BYTES[mixed_precision]
+    tp = s.tp
+    # replicated (residual stream + norm inputs): sharded only under SP
+    repl = 3 * h * b / (tp if s.sp else 1)
+    # TP-sharded intermediates
+    qkv = (n + 2 * kvn) * hd * b / tp
+    ctx = n * hd * b / tp
+    recompute = getattr(cfg, "mlp_recompute", "policy") in ("gate", "policy")
+    if cfg.moe_experts > 0:
+        mlp = 3 * cfg.ffn * b / tp  # per routed token (capacity ~1); the
+        # recompute policy excludes MoE layers (modeling.mlp_residual)
+    elif cfg.act_fn == "swiglu":
+        mlp = (2 if recompute else 3) * cfg.ffn * b / tp
+    else:
+        mlp = (1 if recompute else 2) * cfg.ffn * b / tp
+    per_token = repl + qkv + ctx + mlp
+    total = per_token * S
+    if cfg.attn_impl == "xla":
+        total += 4.0 * (n / tp) * S * S  # fp32 probs
+    else:
+        total += 4.0 * (n / tp) * S  # flash LSE
+    return total / 1e6 / max(1, s.cp)
+
+
+def analytic_model_costs(
+    cfg: ModelConfig, seq_len: int = 0, peak_tflops: float = 100.0, mfu: float = 0.4,
+    mixed_precision: str = "bf16",
+):
+    """ProfiledModelCosts from pure analysis — lets the search run before any
+    profiling exists (the reference cannot: it always requires profiled JSON,
+    search_engine.py:92-121). fwd time from the 2·P·T FLOP estimate at an
+    assumed MFU; activation table from layer_activation_mb_per_sample."""
+    from galvatron_tpu_torch.search.cost_model import ProfiledLayerType, ProfiledModelCosts
+
+    if cfg.image_size:
+        _refuse_vision()
+    if cfg.enc_layers > 0:
+        return _analytic_encdec_costs(cfg, peak_tflops, mfu, mixed_precision)
+    S = seq_len or cfg.max_seq_len
+    b = _BYTES[mixed_precision]
+    p_layer = layer_param_count(cfg)
+    flops = 2.0 * p_layer * S  # fwd multiply-accumulate per sample
+    if cfg.attn_impl == "xla" or cfg.attn_impl == "flash":
+        flops += 2.0 * 2.0 * cfg.num_heads * cfg.head_dim * S * S  # qk^T + pv
+    fwd_ms = flops / (peak_tflops * 1e12 * mfu) * 1e3
+    act = {
+        tp: layer_activation_mb_per_sample(
+            cfg, LayerStrategy(tp=tp), S, mixed_precision
+        )
+        for tp in (1, 2, 4, 8)
+        if cfg.hidden_size % tp == 0
+    }
+    other_p = other_param_count(cfg)
+    # logits dominate "other" activation
+    other_act = S * cfg.vocab_size * b / 1e6
+    other_flops = 2.0 * cfg.hidden_size * cfg.vocab_size * S
+    # MoE: expert-stack fraction of the layer (shardable by ep) and the token
+    # dispatch+combine all-to-all volume — one (S, h) activation each way
+    frac = 0.0
+    a2a = 0.0
+    if cfg.moe_experts > 0:
+        frac = moe_expert_params(cfg) / p_layer
+        a2a = 2.0 * S * cfg.hidden_size * b / 1e6
+    return ProfiledModelCosts(
+        layer_types={
+            0: ProfiledLayerType(
+                fwd_ms_per_sample=fwd_ms,
+                parameter_mb=p_layer * 4 / 1e6,
+                activation_mb_per_sample=act,
+                boundary_activation_mb_per_sample=S * cfg.hidden_size * b / 1e6,
+                moe_expert_param_fraction=frac,
+                moe_a2a_mb_per_sample=a2a,
+            )
+        },
+        other_param_mb=other_p * 4 / 1e6,
+        other_act_mb_per_sample=other_act,
+        other_fwd_ms_per_sample=other_flops / (peak_tflops * 1e12 * mfu) * 1e3,
+    )
+
+
+def _analytic_encdec_costs(
+    cfg: ModelConfig, peak_tflops: float, mfu: float, mixed_precision: str
+):
+    """Enc-dec variant: TWO layer types (encoder at enc_seq; decoder with
+    cross-attention at max_seq_len) so the multi-layer-type search — incl.
+    the pp>1 enc-dec pipeline path — gets per-type costs."""
+    from galvatron_tpu_torch.search.cost_model import ProfiledLayerType, ProfiledModelCosts
+
+    b = _BYTES[mixed_precision]
+    S_e, S_d = cfg.enc_seq, cfg.max_seq_len
+    rate = peak_tflops * 1e12 * mfu
+
+    def make_lt(S, cross):
+        p = layer_param_count(cfg, cross=cross)
+        flops = 2.0 * p * S
+        flops += 4.0 * cfg.num_heads * cfg.head_dim * S * S  # self attn
+        if cross:
+            flops += 4.0 * cfg.num_heads * cfg.head_dim * S * S_e  # cross attn
+            # the cross K/V projection runs over the ENCODER tokens (S_e),
+            # not the decoder length the 2pS term assumed
+            cross_kv = 2 * cfg.hidden_size * cfg.kv_heads * cfg.head_dim
+            flops += 2.0 * cross_kv * (S_e - S)
+        act = {
+            tp: layer_activation_mb_per_sample(
+                cfg, LayerStrategy(tp=tp), S, mixed_precision
+            )
+            # cross-attention roughly replays the attention activations
+            * (1.5 if cross else 1.0)
+            for tp in (1, 2, 4, 8)
+            if cfg.hidden_size % tp == 0
+        }
+        frac = moe_expert_params(cfg) / p if cfg.moe_experts > 0 else 0.0
+        a2a = 2.0 * S * cfg.hidden_size * b / 1e6 if cfg.moe_experts > 0 else 0.0
+        return ProfiledLayerType(
+            fwd_ms_per_sample=flops / rate * 1e3,
+            parameter_mb=p * 4 / 1e6,
+            activation_mb_per_sample=act,
+            boundary_activation_mb_per_sample=S * cfg.hidden_size * b / 1e6,
+            moe_expert_param_fraction=frac,
+            moe_a2a_mb_per_sample=a2a,
+        )
+
+    enc_lt = make_lt(S_e, cross=False)
+    dec_lt = make_lt(S_d, cross=True)
+    layer_types = {i: enc_lt for i in range(cfg.enc_layers)}
+    layer_types.update(
+        {cfg.enc_layers + i: dec_lt for i in range(cfg.num_layers)}
+    )
+    other_p = other_param_count(cfg)
+    other_flops = 2.0 * cfg.hidden_size * cfg.vocab_size * S_d
+    return ProfiledModelCosts(
+        layer_types=layer_types,
+        other_param_mb=other_p * 4 / 1e6,
+        other_act_mb_per_sample=S_d * cfg.vocab_size * b / 1e6,
+        other_fwd_ms_per_sample=other_flops / rate * 1e3,
+    )
+
+
+def _refuse_vision():
+    raise NotImplementedError(
+        "analytic costs of vision models (ViT/Swin geometry) are not ported yet: "
+        "ROADMAP.md §1.10 'Other model families'")
+
+
+@dataclass
+class TheoreticalReport:
+    total_params: int
+    per_layer_params: int
+    other_params: int
+    layer_states_mb: float
+    layer_act_mb_per_sample: float
+    model_states_total_mb: float
+
+    def lines(self) -> str:
+        return (
+            f"params: total {self.total_params/1e9:.3f}B "
+            f"(layer {self.per_layer_params/1e6:.1f}M x N + other {self.other_params/1e6:.1f}M)\n"
+            f"per-chip layer states: {self.layer_states_mb:.1f} MB | "
+            f"layer activation/sample: {self.layer_act_mb_per_sample:.2f} MB | "
+            f"all-layer states: {self.model_states_total_mb:.0f} MB"
+        )
+
+
+def report(
+    cfg: ModelConfig, s: LayerStrategy, world: int, pp: int = 1,
+    seq_len: int = 0, mixed_precision: str = "bf16",
+) -> TheoreticalReport:
+    lsm = layer_states_mb(cfg, s, world, pp, mixed_precision)
+    return TheoreticalReport(
+        total_params=total_param_count(cfg),
+        per_layer_params=layer_param_count(cfg),
+        other_params=other_param_count(cfg),
+        layer_states_mb=lsm,
+        layer_act_mb_per_sample=layer_activation_mb_per_sample(
+            cfg, s, seq_len, mixed_precision
+        ),
+        model_states_total_mb=lsm * (cfg.num_layers // pp),
+    )

@@ -1,0 +1,162 @@
+"""JSON interchange for profiled data (the port's copy of
+``galvatron_tpu/utils/config_utils.py``, same schema: a file written by
+either package loads in the other; reference: galvatron/utils/
+config_utils.py:34-116 — the bandwidth/time/memory config readers/writers).
+
+Schemas:
+
+computation profiling (reference computation_profiling_*.json equivalent):
+  {"layertype_0": <fwd ms per layer per sample>, ...,
+   "other": <embed/cls fwd ms per sample>}
+
+memory profiling (reference memory_profiling_*.json equivalent):
+  {"layertype_0": {"parameter_mb": ..., "activation_mb_per_sample": {"1": ...},
+                   "boundary_activation_mb_per_sample": ...},
+   "other": {"param_mb": ..., "act_mb_per_sample": ...}}
+
+(all time quantities live in the computation JSON so a memory-only profile
+run never persists placeholder timings; older files carrying
+other.fwd_ms_per_sample in the memory JSON still load)
+
+hardware (reference allreduce_bandwidth_*/p2p_bandwidth_*/overlap_coefficient
+.json equivalents; the port measures them over NCCL, profiling/hardware.py):
+  {"allreduce": {"<size>_<consec01>": GBps}, "p2p": {"<pp>": GBps},
+   "overlap_coe": float}
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict
+
+from galvatron_tpu_torch.search.cost_model import (
+    ProfiledHardware,
+    ProfiledLayerType,
+    ProfiledModelCosts,
+)
+
+
+def read_json_config(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        return json.load(f)
+
+
+def write_json_config(obj: Dict[str, Any], path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2)
+
+
+def save_profiled_model(costs: ProfiledModelCosts, time_path=None, mem_path=None) -> None:
+    """Write either or both profiled-model JSONs (None skips that file)."""
+    if time_path:
+        times: Dict[str, Any] = {
+            f"layertype_{i}": lt.fwd_ms_per_sample for i, lt in costs.layer_types.items()
+        }
+        times["other"] = costs.other_fwd_ms_per_sample
+        write_json_config(times, time_path)
+    if mem_path:
+        mem: Dict[str, Any] = {}
+        for i, lt in costs.layer_types.items():
+            mem[f"layertype_{i}"] = {
+                "parameter_mb": lt.parameter_mb,
+                "activation_mb_per_sample": {
+                    str(k): v for k, v in lt.activation_mb_per_sample.items()
+                },
+                "boundary_activation_mb_per_sample": lt.boundary_activation_mb_per_sample,
+                "moe_expert_param_fraction": lt.moe_expert_param_fraction,
+                "moe_a2a_mb_per_sample": lt.moe_a2a_mb_per_sample,
+                "moe_expert_time_fraction": lt.moe_expert_time_fraction,
+            }
+        mem["other"] = {
+            "param_mb": costs.other_param_mb,
+            "act_mb_per_sample": costs.other_act_mb_per_sample,
+            "hidden_size": costs.hidden_size,
+            "measured_vocab_slope_ms": {
+                str(k): v for k, v in costs.measured_vocab_slope_ms.items()
+            },
+            "measured_vocab_const_ms": {
+                str(k): v for k, v in costs.measured_vocab_const_ms.items()
+            },
+            "measured_vocab_mp": costs.measured_vocab_mp,
+        }
+        write_json_config(mem, mem_path)
+
+
+def load_profiled_model(time_path: str, mem_path: str) -> ProfiledModelCosts:
+    times = read_json_config(time_path)
+    mem = read_json_config(mem_path)
+    layer_types: Dict[int, ProfiledLayerType] = {}
+    for key, t in times.items():
+        if not key.startswith("layertype_"):
+            continue
+        i = int(key.split("_")[1])
+        m = mem[key]
+        try:
+            layer_types[i] = _load_layer_type(t, m)
+        except ValueError as e:
+            raise ValueError(
+                f"profile {mem_path!r} ({key}) carries invalid data — likely "
+                "written by an older profiler revision (a pre-fix MoE profile "
+                "has moe_expert_param_fraction > 1): re-run `profile` to "
+                f"regenerate it. Original error: {e}"
+            ) from e
+    other = mem.get("other", {})
+    other_ms = times.get("other", other.get("fwd_ms_per_sample", 0.0))
+    return ProfiledModelCosts(
+        layer_types=layer_types,
+        other_param_mb=float(other.get("param_mb", 0.0)),
+        other_act_mb_per_sample=float(other.get("act_mb_per_sample", 0.0)),
+        other_fwd_ms_per_sample=float(other_ms),
+        hidden_size=int(other.get("hidden_size", 0)),
+        measured_vocab_slope_ms={
+            int(k): float(v)
+            for k, v in other.get("measured_vocab_slope_ms", {}).items()
+        },
+        measured_vocab_const_ms={
+            int(k): float(v)
+            for k, v in other.get("measured_vocab_const_ms", {}).items()
+        },
+        measured_vocab_mp=str(other.get("measured_vocab_mp", "")),
+    )
+
+
+def _load_layer_type(t, m) -> ProfiledLayerType:
+    return ProfiledLayerType(
+        fwd_ms_per_sample=float(t),
+        parameter_mb=float(m["parameter_mb"]),
+        activation_mb_per_sample={
+            int(k): float(v) for k, v in m["activation_mb_per_sample"].items()
+        },
+        boundary_activation_mb_per_sample=float(m["boundary_activation_mb_per_sample"]),
+        moe_expert_param_fraction=float(m.get("moe_expert_param_fraction", 0.0)),
+        moe_a2a_mb_per_sample=float(m.get("moe_a2a_mb_per_sample", 0.0)),
+        moe_expert_time_fraction=(
+            None
+            if m.get("moe_expert_time_fraction") is None
+            else float(m["moe_expert_time_fraction"])
+        ),
+    )
+
+
+def save_profiled_hardware(hw: ProfiledHardware, path: str) -> None:
+    write_json_config(
+        {
+            "allreduce": hw.allreduce_bw,
+            "p2p": {str(k): v for k, v in hw.p2p_bw.items()},
+            "overlap_coe": hw.overlap_coe,
+            "dcn_keys": list(hw.dcn_keys),
+        },
+        path,
+    )
+
+
+def load_profiled_hardware(path: str) -> ProfiledHardware:
+    d = read_json_config(path)
+    return ProfiledHardware(
+        allreduce_bw={str(k): float(v) for k, v in d.get("allreduce", {}).items()},
+        p2p_bw={int(k): float(v) for k, v in d.get("p2p", {}).items()},
+        overlap_coe=float(d.get("overlap_coe", 1.1)),
+        dcn_keys=list(d.get("dcn_keys", [])),
+    )

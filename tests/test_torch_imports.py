@@ -48,16 +48,30 @@ PARALLEL_MODULES = ("galvatron_tpu_torch.core.strategy", "galvatron_tpu_torch.pa
                     "galvatron_tpu_torch.parallel.pipeline_1f1b",
                     "galvatron_tpu_torch.parallel.pipeline_interleaved",
                     "galvatron_tpu_torch.search.pp_division")
+#: the profiling and search slice's modules
+SEARCH_MODULES = ("galvatron_tpu_torch.search.cost_model",
+                  "galvatron_tpu_torch.search.dynamic_programming",
+                  "galvatron_tpu_torch.search.native",
+                  "galvatron_tpu_torch.search.search_engine",
+                  "galvatron_tpu_torch.search.theoretical",
+                  "galvatron_tpu_torch.search.memory_fidelity",
+                  "galvatron_tpu_torch.profiling.model",
+                  "galvatron_tpu_torch.profiling.hardware",
+                  "galvatron_tpu_torch.profiling.runtime",
+                  "galvatron_tpu_torch.analysis.diagnostics",
+                  "galvatron_tpu_torch.analysis.plan_check",
+                  "galvatron_tpu_torch.utils.config_utils",
+                  "galvatron_tpu_torch.obs.tracing")
 SCANNED = sorted([str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
                  + ["chip_smoke.py", "experiments/torch_decode_profile.py"])
 
 
 def test_the_scan_covers_the_parallel_modules():
-    for m in PARALLEL_MODULES:
+    for m in PARALLEL_MODULES + SEARCH_MODULES:
         assert m.replace(".", "/") + ".py" in SCANNED
 
 
-@pytest.mark.parametrize("module", PARALLEL_MODULES)
+@pytest.mark.parametrize("module", PARALLEL_MODULES + SEARCH_MODULES)
 def test_parallel_module_alone_loads_no_jax(module):
     """Each module of the hybrid runtime, imported first and alone in a
     fresh interpreter, pulls in neither JAX nor the JAX package."""
@@ -154,3 +168,44 @@ def test_a_rank_without_a_visible_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         rank_device(None)
+
+
+def test_cli_profile_raises_without_a_card(no_card, tmp_path):
+    from galvatron_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["profile", "--num_layers", "2", "--hidden_size", "32", "--num_heads", "2",
+                  "--output_prefix", str(tmp_path / "p")])
+    assert not list(tmp_path.iterdir())
+
+
+def test_cli_profile_hardware_raises_without_a_card(no_card, tmp_path):
+    from galvatron_tpu_torch import cli
+
+    out = tmp_path / "hw.json"
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["profile-hardware", "--hardware_output_path", str(out)])
+    assert not out.exists()
+
+
+def test_cli_search_on_analytic_costs_needs_no_device(no_card, tmp_path):
+    """A search on analytic costs (or profile files) touches no device: it
+    runs without a card under the default --device cuda."""
+    from galvatron_tpu_torch import cli
+
+    out = tmp_path / "plan.json"
+    assert cli.main(["search", "--num_layers", "4", "--hidden_size", "64", "--num_heads",
+                     "4", "--ffn_dim", "128", "--vocab_size", "128", "--seq_length", "32",
+                     "--num_devices", "8", "--analytic_costs", "1", "--settle_bsz", "8",
+                     "--memory_constraint_gb", "1", "--output_config_path", str(out)]) == 0
+    assert out.exists()
+    assert cli.main(["check-plan", str(out), "--strict", "1"]) == 0
+
+
+def test_cli_search_profiling_in_process_raises_without_a_card(no_card, tmp_path):
+    from galvatron_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["search", "--num_layers", "2", "--hidden_size", "32", "--num_heads", "2",
+                  "--num_devices", "1", "--settle_bsz", "8",
+                  "--output_config_path", str(tmp_path / "plan.json")])
