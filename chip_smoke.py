@@ -21,9 +21,11 @@ its result line:
 3. the flash forward and backward kernels against their plain versions on
    the same CUDA tensors: the training path's shape (b=8, h=32, s=2048,
    d=128, bf16, the stacked qkv projection view), ragged s=100 at d=64, GQA
-   with kv_rep 4, and fp32. fp32 within 1e-5 (out, lse) and 1e-4
+   with kv_rep 4, fp32, and the training shape at fp16 (the fp16 training
+   path's CUDA-core route). fp32 within 1e-5 (out, lse) and 1e-4
    (gradients); bf16 per element within one output ulp plus a share of
-   the row's rms (``bf16_parity_excess`` within ``BF16_PARITY_TOL``). A
+   the row's rms (``bf16_parity_excess`` within ``BF16_PARITY_TOL``), fp16
+   the same with fp16's ulp (``fp16_parity_excess``, ``FP16_PARITY_TOL``). A
    control, the plain versions with one key tile dropped, must fail the
    same checks. One JSON line per case with the errors, the control's,
    kernel, plain, library (SDPA with is_causal over pre-roped q/k, and its
@@ -31,7 +33,7 @@ its result line:
    forward's two launches (k pre-pass, main kernel) and the backward's three
    (pre-pass, dk/dv, dq) from a profiler window. Each wrapper's route counts
    must show the TMA route for bf16 at head_dim 64 / 128 (the CUDA-core one
-   for fp32), and a second backward call on the same inputs must give the
+   for fp32 and fp16), and a second backward call on the same inputs must give the
    same bits of dq, dk and dv.
    Then the grid kernels (forward, dk/dv, dq) against their plain versions
    the same way: the GPT-2 XL training shape (b=8, h=25, s=1024, d=64,
@@ -170,6 +172,27 @@ its result line:
    ``nccl``): ``cli profile-hardware`` over NCCL on cards 0 and 1 where the
    machine has two; otherwise reported absent.
 
+15. the training services (phase name ``services``), llama-7b width:
+   (a) two corpora written with ``write_indexed_dataset`` from seeded
+   documents of 500-4000 tokens, 2 layers, batch 8 x 2048, bf16, a 0.7 / 0.3
+   ``--data_mixture`` with ``--prefetch_depth 2``: run A trains 6 steps in
+   this process; run B trains 3 with ``--save`` (an interval save at 3), then
+   a second process ``--load``s, verifies the data cursor and trains to 6:
+   its losses within 1e-6 relative of A's (bitwise expected), save and
+   restore seconds and GB/s; one byte of the newest step flipped, a third
+   process must log ``ckpt_fallback`` and resume from step 3; (b) that step
+   restored under ``--pp_deg 2`` by two ranks sharing the card over gloo,
+   one step: within 1e-4 relative of A's step 3; (c) ``cli serve --load``
+   on the paged backend answers 4 greedy requests, the first token of the
+   prompt with the widest top-2 margin equal to the restored model's
+   training-forward argmax, ``paged_decode`` launched layers x decode steps;
+   (d) phase 7's configuration under ``--mixed_precision fp16``, 10
+   iterations: finite losses, the blocked flash kernels 40 / 40 on the fp16
+   CUDA-core route, step 0 within 1e-2 relative of phase 7's bf16 step 0,
+   the loss-scale trajectory, skipped steps and iter_ms beside phase 7's;
+   (e) ``--rampup_batch_size 4 4 32`` to 16 at 2 layers, 6 steps: the batch
+   sizes ``BatchSizeRampup`` gives.
+
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
 measured to PATH as JSON.
@@ -193,7 +216,8 @@ import urllib.error
 import urllib.request
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}  # dense; fp32 off tensor cores
+PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float16": 989e12,  # dense tensor cores
+              "torch.float32": 67e12}  # fp32 off the tensor cores
 SERVE_LAYERS = 32
 TRAIN_ITERS = 10
 # the training paths' models: (preset, layers driven, batch, seq)
@@ -440,6 +464,8 @@ FLASH_CASES = [
     ("flash ragged s100 d64", "bfloat16", 8, 32, 32, 100, 64, False),
     ("flash gqa kv_rep 4", "bfloat16", 8, 32, 8, 2048, 128, False),
     ("flash fp32", "float32", 2, 32, 32, 2048, 128, True),
+    # the fp16 training path's shape (--mixed_precision fp16): the CUDA-core route
+    ("flash main fp16", "float16", 8, 32, 32, 2048, 128, True),
 ]
 
 
@@ -482,9 +508,12 @@ def _dropped_tile_keep(torch):
 def _flash_err(torch, fa, got, ref, which):
     """(error, limit) of a flash kernel result against its plain version:
     fp32 the max abs error against 1e-5 (forward) or 1e-4 (backward); bf16
-    ``fa.bf16_parity_excess`` against ``fa.BF16_PARITY_TOL``."""
+    ``fa.bf16_parity_excess`` against ``fa.BF16_PARITY_TOL``; fp16
+    ``fa.fp16_parity_excess`` against ``fa.FP16_PARITY_TOL``."""
     if got.dtype == torch.float32:
         return (got - ref).abs().max().item(), {"fwd": 1e-5, "bwd": 1e-4}[which]
+    if got.dtype == torch.float16:
+        return fa.fp16_parity_excess(got, ref), fa.FP16_PARITY_TOL[which]
     return fa.bf16_parity_excess(got, ref), fa.BF16_PARITY_TOL[which]
 
 
@@ -515,7 +544,7 @@ def flash_bounds(dtype, b, h, kvh, s, d):
     causal pairs' products (2 in the forward, 5 in the backward, 2·d
     operations each per (query, key) pair at or below the diagonal) over the
     input type's peak, whichever is larger."""
-    esz = 2 if dtype == "bfloat16" else 4
+    esz = 2 if dtype in ("bfloat16", "float16") else 4
     pairs = b * h * s * (s + 1) / 2
     qo = b * h * s * d * esz          # one (b, h, s, d) operand
     kv = b * kvh * s * d * esz        # k or v
@@ -582,7 +611,8 @@ def phase_flash(torch):
         if dtype == torch.float32:
             tol = "fp32: max abs err, out/lse 1e-5, gradients 1e-4"
         else:
-            tol = ("bf16: |err| - 1 ulp over the row's rms (bf16_parity_excess), "
+            kind = "bf16" if dtype == torch.bfloat16 else "fp16"
+            tol = (f"{kind}: |err| - 1 ulp over the row's rms ({kind}_parity_excess), "
                    f"out {fwd_lim}, gradients {bwd_lim}; lse 1e-4")
         finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
         del ctl_out, ctl_grads
@@ -642,7 +672,7 @@ def phase_flash(torch):
         del lib_out
         torch.cuda.empty_cache()
     RESULTS["flash"] = lines
-    return lines["flash main"]
+    return lines
 
 
 GRID_CASES = [
@@ -2452,6 +2482,394 @@ def phase_search(torch, smi, train_res):
     log(f"phase 14 search: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the training services (corpus, checkpoints, resume, serve --load,
+# fp16, ramp-up)
+# ---------------------------------------------------------------------------
+
+SERVICES_LAYERS = 2
+SERVICES_STEPS = 6
+SERVICES_PROCESS_TIMEOUT_S = 420
+# (b): the pp = 2 restore's first loss against the uninterrupted run's; (d):
+# fp16 step 0 against bf16 step 0 (same weights and batch)
+SERVICES_LAYOUT_RTOL = 1e-4
+SERVICES_FP16_RTOL = 1e-2
+# (a): a resumed loss against the uninterrupted run's (the TMA backward
+# repeats bitwise, so equality is expected)
+SERVICES_RESUME_RTOL = 1e-6
+
+
+def _services_corpora(tmpdir, vocab):
+    """Two corpora written with the port's ``write_indexed_dataset`` from
+    seeded random documents of 500-4000 tokens, each with enough windows for
+    6 batches of 8 x 2048 from that source alone, and the 0.7 / 0.3 mixture
+    JSON over them."""
+    import numpy as np
+
+    from galvatron_tpu_torch.core.data import write_indexed_dataset
+
+    need = SERVICES_STEPS * 8 * 2048 + 1
+    sources = []
+    for i, (name, weight) in enumerate((("web", 0.7), ("books", 0.3))):
+        rng = np.random.RandomState(100 + i)
+        docs, total = [], 0
+        while total < need:
+            docs.append(rng.randint(0, vocab, rng.randint(500, 4001)))
+            total += len(docs[-1])
+        prefix = os.path.join(tmpdir, name)
+        write_indexed_dataset(prefix, docs, vocab)
+        sources.append({"name": name, "prefix": prefix, "weight": weight, "tokens": total,
+                        "docs": len(docs)})
+    mix = os.path.join(tmpdir, "mixture.json")
+    with open(mix, "w") as f:
+        json.dump({"sources": [{k: s_[k] for k in ("name", "prefix", "weight")}
+                               for s_ in sources]}, f)
+    return mix, sources
+
+
+def _services_argv(mix, iters, *extra):
+    return ["--model_size", "llama-7b", "--num_layers", str(SERVICES_LAYERS),
+            "--train_iters", str(iters), "--data_mixture", mix, "--prefetch_depth", "2",
+            *extra]
+
+
+def _train_process(argv, what):
+    """``cli train`` in a process of its own (the card is shared with this
+    one); its stdout, or a failed check with its tail."""
+    cmd = [sys.executable, "-m", "galvatron_tpu_torch.cli", "train", *argv]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=SERVICES_PROCESS_TIMEOUT_S)
+    tail = "\n".join((r.stdout + r.stderr).splitlines()[-15:])
+    log(f"  {what}: rc={r.returncode} in {time.perf_counter() - t0:.1f} s\n{tail}")
+    check(r.returncode == 0, f"{what}: cli train returned {r.returncode}")
+    return r.stdout
+
+
+def _train_losses(path, first_step=0):
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    recs = [r for r in read_metrics(path) if r["event"] == "train_iter"]
+    check([r["step"] for r in recs] == list(range(first_step, first_step + len(recs))),
+          f"{path}: train_iter steps {[r['step'] for r in recs]}")
+    return [r["loss"] for r in recs], recs
+
+
+def _step_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_services_resume(torch, smi, tmpdir, mix):
+    """15 (a): run A (6 steps, no save) in this process; run B: 3 steps
+    with ``--save`` here, then a second process ``--load``s and trains to
+    step 6; then one byte of the newest step is flipped and a third process
+    must fall back to the older step."""
+    from galvatron_tpu_torch.core import checkpoint as ckpt
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    d = os.path.join(tmpdir, "ckpt")
+    path_a = os.path.join(tmpdir, "a.jsonl")
+    reset_kernel_counts()  # the main path's counts start here
+    routes_before = route_counts()
+    out_a = trainer.train(initialize_galvatron("train", _services_argv(
+        mix, SERVICES_STEPS, "--metrics_path", path_a)))
+    launches = kernel_counts()  # read right after the main path
+    routes = {k: {r: n - routes_before[k][r] for r, n in v.items()}
+              for k, v in route_counts().items()}
+    want = path_counts("llama", SERVICES_LAYERS, SERVICES_STEPS, False)
+    check(launches == want, f"15 (a): launches {launches}, expected {want}")
+    check(all(r["tma"] == launches[k] for k, r in routes.items()), f"15 (a): routes {routes}")
+    losses_a, _ = _train_losses(path_a)
+    check(all(x == x and abs(x) != float("inf") for x in losses_a), f"15 (a): losses {losses_a}")
+    pipe = [r for r in read_metrics(path_a) if r["event"] == "data_pipeline"]
+    check(pipe and pipe[0]["samples_consumed"] == SERVICES_STEPS * 8, f"15 (a): {pipe}")
+    del out_a
+    gc.collect()
+    torch.cuda.empty_cache()
+    # B, first half: 3 steps and the interval save, in this process
+    out_b1 = trainer.train(initialize_galvatron("train", _services_argv(
+        mix, 3, "--save", d, "--save_interval", "3", "--keep_last_n", "1")))
+    check(ckpt.committed_steps(d) == [3], f"15 (a): committed {ckpt.committed_steps(d)}")
+    step_gb = _step_bytes(ckpt.step_path(d, 3)) / 1e9
+    save_s = out_b1["save_s"][0]
+    del out_b1
+    gc.collect()
+    torch.cuda.empty_cache()
+    # B, second half: another process resumes, verifies the data cursor and
+    # trains to step 6, saving it (two steps kept for the corruption case)
+    path_b = os.path.join(tmpdir, "b.jsonl")
+    out = _train_process(_services_argv(mix, SERVICES_STEPS, "--load", d, "--save", d,
+                                        "--save_interval", "3", "--keep_last_n", "2",
+                                        "--metrics_path", path_b), "15 (a) resume")
+    restore_s = float(re.search(r"resumed from .* at step 3 \(([\d.]+) s\)", out).group(1))
+    losses_b, _ = _train_losses(path_b, first_step=3)
+    check(ckpt.committed_steps(d) == [3, 6], f"15 (a): committed {ckpt.committed_steps(d)}")
+    meta = ckpt.read_manifest(ckpt.step_path(d, 6))["meta"]
+    check(meta["data_state"]["position"] == SERVICES_STEPS * 8, f"15 (a): {meta['data_state']}")
+    resume_abs = max(abs(a - b) for a, b in zip(losses_b, losses_a[3:]))
+    resume_rel = max(_rel(a, b) for a, b in zip(losses_b, losses_a[3:]))
+    # a flipped byte in one leaf of the newest step: the next --load falls back
+    leaf = os.path.join(ckpt.step_path(d, 6), "params.layers.0.attn.wqkv.npy")
+    with open(leaf, "r+b") as f:
+        f.seek(os.path.getsize(leaf) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0x10]))
+    path_c = os.path.join(tmpdir, "c.jsonl")
+    _train_process(_services_argv(mix, 4, "--load", d, "--metrics_path", path_c),
+                   "15 (a) corrupt newest step")
+    fallback = [r for r in read_metrics(path_c) if r["event"] == "ckpt_fallback"]
+    losses_c, _ = _train_losses(path_c, first_step=3)
+    check([r["step"] for r in fallback] == [6], f"15 (a): ckpt_fallback events {fallback}")
+    check(ckpt.committed_steps(d) == [3], f"15 (a): committed {ckpt.committed_steps(d)}")
+    check(_rel(losses_c[0], losses_a[3]) <= SERVICES_RESUME_RTOL,
+          f"15 (a): the fallback's loss {losses_c[0]} against {losses_a[3]}")
+    res = {"card": smi, "model": "llama-7b", "layers": SERVICES_LAYERS, "batch": 8, "seq": 2048,
+           "losses_a": losses_a, "losses_resumed": losses_b, "resume_max_abs_diff": resume_abs,
+           "resume_max_rel_diff": resume_rel, "resume_bitwise": resume_abs == 0.0,
+           "step_gb": step_gb, "save_s": save_s, "save_gb_per_s": step_gb / save_s,
+           "restore_s": restore_s, "restore_gb_per_s": step_gb / restore_s,
+           "fallback_events": len(fallback), "fallback_loss": losses_c[0],
+           "launches": launches}
+    log("phase 15 (a) corpus, checkpoint, resume:", json.dumps(res))
+    check(resume_rel <= SERVICES_RESUME_RTOL,
+          f"15 (a): resumed losses {losses_b} against {losses_a[3:]}")
+    RESULTS["services_resume"] = res
+    return d, losses_a
+
+
+def phase_services_layout(torch, smi, tmpdir, mix, d, losses_a):
+    """15 (b): (a)'s step-3 checkpoint restored under pp = 2 by two ranks
+    sharing the card over gloo, one step each: its loss against run A's
+    step 3."""
+    outdir = os.path.join(tmpdir, "layout")
+    os.makedirs(outdir)
+    t0 = time.perf_counter()
+    ranks = _launch_ranks(_services_argv(mix, 4, "--load", d, "--pp_deg", "2"), outdir,
+                          "gloo", (0, 0))
+    res = {"card": smi, "pp": 2, "world": 2, "losses": [r["losses"] for r in ranks],
+           "want": losses_a[3], "seconds": time.perf_counter() - t0,
+           "rel_diff": max(_rel(r["losses"][0], losses_a[3]) for r in ranks),
+           "launches": [r["launches"] for r in ranks]}
+    log("phase 15 (b) restore at pp = 2:", json.dumps(res))
+    check(all(len(r["losses"]) == 1 for r in ranks), "15 (b): one step a rank")
+    check(res["rel_diff"] <= SERVICES_LAYOUT_RTOL,
+          f"15 (b): loss {res['losses']} against run A's step 3 {losses_a[3]}")
+    RESULTS["services_layout"] = res
+
+
+def phase_services_serve(torch, smi, d):
+    """15 (c): ``cli serve --load`` of (a)'s checkpoint on the paged backend
+    answers 4 greedy requests; the first generated token of the prompt whose
+    two best logits lie furthest apart equals the argmax of the restored
+    model's training forward at its last position."""
+    import numpy as np
+
+    from galvatron_tpu_torch import cli
+    from galvatron_tpu_torch.core import checkpoint as ckpt
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
+    from galvatron_tpu_torch.ops import flash_attention as fa
+
+    tok = ByteTokenizer()
+    rng = np.random.RandomState(5)
+    # 127 bytes + BOS: a tileable length for the training forward's kernels
+    prompts = [_text(rng, 127) for _ in range(4)]
+    cfg = modeling.PRESETS["llama-7b"].replace(num_layers=SERVICES_LAYERS, attn_impl="flash")
+    raw, step = ckpt.restore_raw_checkpoint(d, prefix=ckpt.keystr(("params",)))
+    params = modeling.cast_params(_to(raw["params"], torch.device("cuda")), cfg)
+    with torch.no_grad():
+        ids = torch.tensor([tok.encode(p) for p in prompts], device="cuda")
+        logits = modeling.forward(params, ids, cfg)[:, -1].float()
+    top2 = logits.topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    pick = int(np.argmax(margins))
+    want = int(logits[pick].argmax())
+    del params, raw, logits
+    torch.cuda.empty_cache()
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    argv = ["serve", "--model_size", "llama-7b", "--num_layers", str(SERVICES_LAYERS),
+            "--load", d, "--kv_num_blocks", "-1", "--num_slots", "4", "--port", str(port),
+            "--request_ttl_s", "600"]
+    rc, err = [], []
+
+    def serve():
+        try:
+            rc.append(cli.main(argv))
+        except BaseException as e:  # noqa: BLE001 — reported by the main thread
+            err.append(e)
+            raise
+
+    fa.paged_decode_attention.launches = 0  # the main path's count starts here
+    server = threading.Thread(target=serve, name="cli-serve-load", daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.time() + 600
+    while True:
+        check(not err, f"15 (c): cli serve died: {err[:1]}")
+        try:
+            if _http(base + "/readyz", timeout=10)[0] == 200:
+                break
+        except OSError:
+            pass
+        check(time.time() < deadline, "15 (c): cli serve never became ready")
+        time.sleep(0.2)
+    results = [None] * len(prompts)
+
+    def post(i):
+        results[i] = _http(base + "/api", {"prompts": [prompts[i]], "tokens_to_generate": 8,
+                                           "temperature": 0.0})
+
+    posters = [threading.Thread(target=post, args=(i,)) for i in range(len(prompts))]
+    for p in posters:
+        p.start()
+    for p in posters:
+        p.join(600)
+    code, health = _http(base + "/healthz")
+    decode_steps = health["serving"]["decode_steps"] if code == 200 else None
+    code, drained = _http(base + "/drain", {})
+    server.join(120)
+    launches = fa.paged_decode_attention.launches  # read right after the main path
+    for i, r in enumerate(results):
+        check(r is not None and r[0] == 200, f"15 (c): request {i}: {r}")
+    # the engine returns the prompt and what it generated; an EOS ends a
+    # request without being appended
+    generated = results[pick][1]["tokens"][0][len(tok.encode(prompts[pick])):]
+    got = generated[0] if generated else tok.eos_id
+    res = {"card": smi, "step": step, "requests": len(prompts), "margins": margins,
+           "prompt": pick, "first_token": got, "forward_argmax": want,
+           "decode_steps": decode_steps, "paged_decode_launches": launches,
+           "leaked": drained.get("leaked")}
+    log("phase 15 (c) serve --load:", json.dumps(res))
+    check(not server.is_alive() and rc == [0], f"15 (c): cli serve did not exit cleanly: {rc}")
+    check(drained.get("leaked") is False, f"15 (c): /drain {drained}")
+    check(got == want, f"15 (c): greedy first token {got}, training forward's argmax {want}")
+    check(launches == SERVICES_LAYERS * decode_steps,
+          f"15 (c): {launches} paged_decode launches, expected {SERVICES_LAYERS} x {decode_steps}")
+    RESULTS["services_serve"] = res
+
+
+def phase_services_fp16(torch, smi, bf16_res):
+    """15 (d): phase 7's configuration under ``--mixed_precision fp16``, 10
+    iterations: every loss finite, the blocked flash kernels 40 / 40 on the
+    fp16 CUDA-core route, step 0 against phase 7's bf16 step 0."""
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.ops import flash_attention as fa
+
+    _, layers, bsz, seq = TRAIN_PATHS["llama"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fp16_") as tmpdir:
+        path = os.path.join(tmpdir, "m.jsonl")
+        argv = _train_argv(modeling, "llama") + ["--mixed_precision", "fp16",
+                                                  "--metrics_path", path]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()  # the main path's counts start here
+        routes_before = route_counts()
+        dtypes_before = (dict(fa.flash_fwd.dtypes), dict(fa.flash_bwd.dtypes))
+        out = trainer.train(initialize_galvatron("train", argv))
+        launches = kernel_counts()  # read right after the main path
+        routes = {k: {r: n - routes_before[k][r] for r, n in v.items()}
+                  for k, v in route_counts().items()}
+        fp16_calls = [w.dtypes["torch.float16"] - b["torch.float16"]
+                      for w, b in zip((fa.flash_fwd, fa.flash_bwd), dtypes_before)]
+        losses, recs = _train_losses(path)
+    steady = recs[1:]
+    res = {"card": smi, "model": "llama-7b", "layers": layers, "batch": bsz, "seq": seq,
+           "dtype": "float16", "iters": TRAIN_ITERS, "losses": losses,
+           "loss_scale": [r["loss_scale"] for r in recs], "skipped_steps": out["skipped_steps"],
+           "iter_ms_mean_from_2": sum(r["iter_ms"] for r in steady) / len(steady),
+           "iter_ms": [r["iter_ms"] for r in recs], "launches": launches,
+           "routes": {k: routes[k] for k in ("flash_fwd", "flash_bwd")},
+           "fp16_calls": fp16_calls,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if bf16_res:
+        res["bf16_step0_loss"] = bf16_res["losses"][0]
+        res["step0_rel_diff"] = _rel(losses[0], bf16_res["losses"][0])
+        res["bf16_iter_ms_mean_from_2"] = bf16_res["iter_ms_mean_from_2"]
+    log("phase 15 (d) fp16 training:", json.dumps(res))
+    del out
+    check(len(losses) == TRAIN_ITERS and all(x == x and abs(x) != float("inf") for x in losses),
+          f"15 (d): losses {losses}")
+    want = path_counts("llama", layers, TRAIN_ITERS, False)
+    check(launches == want, f"15 (d): launches {launches}, expected {want}")
+    check(fp16_calls == [want["flash_fwd"], want["flash_bwd"]], f"15 (d): fp16 calls {fp16_calls}")
+    check(all(routes[k]["cuda_core"] == launches[k] for k in ("flash_fwd", "flash_bwd")),
+          f"15 (d): routes {routes}")
+    if bf16_res:
+        check(res["step0_rel_diff"] <= SERVICES_FP16_RTOL,
+              f"15 (d): step 0 loss {losses[0]} against bf16 {bf16_res['losses'][0]}")
+    RESULTS["services_fp16"] = res
+    return launches
+
+
+def phase_services_rampup(torch, smi):
+    """15 (e): ``--rampup_batch_size 4 4 32`` to a global batch of 16 at 2
+    layers, 6 steps: the batch sizes ``BatchSizeRampup`` gives."""
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron
+    from galvatron_tpu_torch.core.schedules import BatchSizeRampup
+
+    ramp = BatchSizeRampup(start=4, increment=4, rampup_samples=32, target=16)
+    want, consumed = [], 0
+    for _ in range(SERVICES_STEPS):
+        want.append(ramp(consumed))
+        consumed += want[-1]
+    reset_kernel_counts()  # the main path's counts start here
+    out = trainer.train(initialize_galvatron("train", [
+        "--model_size", "llama-7b", "--num_layers", str(SERVICES_LAYERS), "--train_iters",
+        str(SERVICES_STEPS), "--global_train_batch_size", "16", "--rampup_batch_size", "4",
+        "4", "32"]))
+    launches = kernel_counts()  # read right after the main path
+    res = {"card": smi, "batch_sizes": out["batch_sizes"], "want": want,
+           "consumed_samples": out["consumed_samples"], "losses": out["losses"],
+           "iter_ms": out["iter_times"], "launches": launches}
+    del out
+    log("phase 15 (e) ramp-up:", json.dumps(res))
+    check(res["batch_sizes"] == want and res["consumed_samples"] == consumed,
+          f"15 (e): batch sizes {res['batch_sizes']}, expected {want}")
+    check(all(x == x and abs(x) != float("inf") for x in res["losses"]), "15 (e): losses")
+    check(launches == path_counts("llama", SERVICES_LAYERS, SERVICES_STEPS, False),
+          f"15 (e): launches {launches}")
+    RESULTS["services_rampup"] = res
+
+
+def phase_services(torch, smi, train_res):
+    """Phase 15 (a)-(e); returns the fp16 path's launch counts."""
+    from galvatron_tpu_torch.models import modeling
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_services_") as tmpdir:
+        mix, sources = _services_corpora(tmpdir, modeling.PRESETS["llama-7b"].vocab_size)
+        log("phase 15 corpora:", json.dumps(sources))
+        d, losses_a = phase_services_resume(torch, smi, tmpdir, mix)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_services_layout(torch, smi, tmpdir, mix, d, losses_a)
+        phase_services_serve(torch, smi, d)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = phase_services_fp16(torch, smi, train_res.get("llama"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_services_rampup(torch, smi)
+    RESULTS["services_seconds"] = time.perf_counter() - t0
+    log(f"phase 15 took {RESULTS['services_seconds']:.1f} s")
+    return launches
+
+
 def rank_worker(outdir, argv, ref_params=None) -> int:
     """One rank of phases 12-13: ``cli train``'s own call (``trainer.train``
     of the parsed flags), with the flash wrappers' launches also counted by
@@ -2476,7 +2894,7 @@ def rank_worker(outdir, argv, ref_params=None) -> int:
             return _orig(q, *a, **kw)
 
         # the wrapper's body counts into the module-level name: carry its counters
-        counted.launches, counted.routes = orig.launches, orig.routes
+        counted.launches, counted.routes, counted.dtypes = orig.launches, orig.routes, orig.dtypes
         setattr(fa, name, counted)
     reset_kernel_counts()
     before = route_counts()
@@ -2507,7 +2925,7 @@ def rank_worker(outdir, argv, ref_params=None) -> int:
 
 #: the phases by name, for ``--phases``; a full run takes them all
 PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train", "hybrid",
-          "pipeline", "nccl", "search")
+          "pipeline", "nccl", "search", "services")
 
 
 def main() -> int:
@@ -2533,22 +2951,37 @@ def main() -> int:
 
     import galvatron_tpu_torch  # noqa: F401 — fails fast outside a checkout
 
+    clock = {"start": time.perf_counter(), "last": time.perf_counter()}
+    seconds = RESULTS.setdefault("phase_seconds", {})
+
+    def mark(name):
+        """The seconds since the last mark, under ``name``."""
+        now = time.perf_counter()
+        seconds[name] = now - clock["last"]
+        clock["last"] = now
+
     smi = phase_card(torch)
     phase_build()
+    mark("0-1 card, build")
     lines, launches, train_res = {}, {}, {}
     if "kernels" in phases:
         lines["paged"] = phase_kernels(torch)
+        mark("2 paged decode")
     if "flash" in phases:
         lines["flash"] = phase_flash(torch)
+        mark("3 flash")
     if "grid" in phases:
         lines["grid"] = phase_grid(torch)
+        mark("3 grid")
     if "norm" in phases:
         lines["norm"] = phase_norm(torch)
+        mark("3 norm")
     _DAM.clear()  # the timer's tensors are no part of a later phase's peak memory
     torch.cuda.empty_cache()
     if "forward" in phases:
         phase_forward(torch)
         phase_forward(torch, fused=True)
+        mark("4 forward")
     if "parity" in phases:
         for model, fused in (("llama", False), ("gpt", False), ("llama", True), ("opt", True)):
             phase_train_parity(torch, model, fused)
@@ -2556,8 +2989,10 @@ def main() -> int:
         # opt's ReLU sets the step above a looser limit: its gelu twin at the
         # same width is held to the others'
         phase_train_bf16(torch, "opt", True, act="gelu")
+        mark("5 parity")
     if "serve" in phases:
         launches["paged"] = phase_serve(torch, smi)
+        mark("6 serve")
     if "train" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
             for run in TRAIN_RUNS:
@@ -2574,6 +3009,7 @@ def main() -> int:
                 ("iter_ms_mean_from_2", "tokens_per_s", "mfu", "max_memory_allocated_gb")}}
             log("fused_norm beside plain:", json.dumps(cmp_))
             RESULTS.setdefault("fused_beside_plain", []).append(cmp_)
+        mark("7-10 train")
     if {"hybrid", "pipeline", "nccl"} & set(phases):  # 12b, 13 and 13b stand against phase 11
         with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as tmpdir:
             world1 = phase_hybrid_world1(torch, smi, tmpdir)
@@ -2607,10 +3043,12 @@ def main() -> int:
                 log(f"phases 12b and 13b, nccl on two cards: absent "
                     f"({torch.cuda.device_count()} card)")
                 RESULTS["hybrid_ranks_nccl"] = RESULTS["pipeline_bf16_nccl"] = "absent: one card"
+        mark("11-13 hybrid, pipelines")
     gc.collect()
     torch.cuda.empty_cache()
     if "search" in phases:
         phase_search(torch, smi, train_res)
+        mark("14 search")
     if "nccl" in phases and torch.cuda.device_count() >= 2:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmpdir:
             phase_search_nccl(smi, tmpdir)
@@ -2618,13 +3056,18 @@ def main() -> int:
         log(f"phase 14b, profile-hardware over nccl on two cards: absent "
             f"({torch.cuda.device_count()} card)")
         RESULTS["search_hardware_nccl"] = "absent: one card"
+    if "services" in phases:
+        launches["services_fp16"] = phase_services(torch, smi, train_res)
+        mark("15 services")
+    RESULTS["total_seconds"] = time.perf_counter() - clock["start"]
+    log("phase seconds:", json.dumps(seconds), f"total {RESULTS['total_seconds']:.1f} s")
     if set(phases) != set(PHASES):
         if args.out:
             _write_out(args.out, RESULTS)
         log(f"partial run ({','.join(phases)}): no kernels line, no result line")
         return 0
-    paged_line, flash_line, grid_line, norm_lines = (
-        lines["paged"], lines["flash"], lines["grid"], lines["norm"])
+    paged_line, grid_line, norm_lines = lines["paged"], lines["grid"], lines["norm"]
+    flash_line, fp16_line = lines["flash"]["flash main"], lines["flash"]["flash main fp16"]
     src = "galvatron_tpu_torch/ops/csrc/"
     replaces = "galvatron_tpu/ops/flash_attention.py:"
 
@@ -2667,6 +3110,18 @@ def main() -> int:
          "ms": flash_line["bwd_ms"], "plain_ms": flash_line["bwd_plain_ms"],
          "bound_ms": flash_line["bwd_bound_ms"], "bound_by": flash_line["bwd_bound_by"],
          "library_ms": flash_line["bwd_library_ms"]},
+        # the fp16 instances of the blocked kernels (the CUDA-core route), with
+        # their launches on phase 15 (d)'s fp16 training path
+        {"name": "flash_fwd_fp16", "route": "cuda", "source": src + "flash_fwd.cu",
+         "replaces": replaces + "272", "launches": launches["services_fp16"]["flash_fwd"],
+         "max_abs_err": fp16_line["fwd_max_abs_err"], "ms": fp16_line["fwd_ms"],
+         "plain_ms": fp16_line["fwd_plain_ms"], "bound_ms": fp16_line["fwd_bound_ms"],
+         "bound_by": fp16_line["fwd_bound_by"], "library_ms": fp16_line["fwd_library_ms"]},
+        {"name": "flash_bwd_fp16", "route": "cuda", "source": src + "flash_bwd.cu",
+         "replaces": replaces + "514", "launches": launches["services_fp16"]["flash_bwd"],
+         "max_abs_err": fp16_line["bwd_max_abs_err"], "ms": fp16_line["bwd_ms"],
+         "plain_ms": fp16_line["bwd_plain_ms"], "bound_ms": fp16_line["bwd_bound_ms"],
+         "bound_by": fp16_line["bwd_bound_by"], "library_ms": fp16_line["bwd_library_ms"]},
         # the plain and library times of the two backward kernels are those
         # of the whole backward (the plain version and SDPA compute dq, dk
         # and dv in one call); each kernel's own time and bound are its own

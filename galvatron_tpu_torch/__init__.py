@@ -13,8 +13,12 @@ so each counterpart is easy to find:
   Hopper kernels), ``_build`` (nvcc build + ctypes loading at first use).
 - ``serving/``: the continuous-batching engine on the paged KV backend, its
   scheduler, request lifecycle and block allocator.
-- ``server`` (HTTP front end) and ``cli`` (``serve`` mode).
-- ``bridge``: weights from the JAX package's numpy trees and back.
+- ``core/``: the trainer and its services (``checkpoint``, ``data``,
+  ``dataloader``, ``optim``, ``schedules``); ``data/``: sharded corpora,
+  mixtures, prefetch; ``parallel/``: the hybrid-parallel runtime.
+- ``server`` (HTTP front end) and ``cli`` (``train``, ``serve`` and more).
+- ``bridge``: weights and train states from the JAX package's numpy trees
+  and back.
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``
 (``--device cpu``); without a card and without that request they raise.

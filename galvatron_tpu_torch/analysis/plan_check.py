@@ -26,8 +26,8 @@ The checks, in order:
     the runtime's own placement rules (GTA016: pieces that do not tile a
     parameter, or a ``tp`` / ``fsdp`` dim left whole). No memory, no device.
 
-The JAX package's resume-path check (GTA017, ``check_topology_fingerprint``)
-comes with checkpoints (ROADMAP.md §1.1).
+Separately, :func:`check_topology_fingerprint` (GTA017) compares a
+checkpoint's recorded topology with the live world on resume.
 """
 
 from __future__ import annotations
@@ -293,6 +293,49 @@ def ensure_valid(
     if verbose and diags:
         print(format_report(diags))
     return diags
+
+
+def check_topology_fingerprint(
+    fingerprint: Dict[str, Any],
+    world_size: Optional[int],
+    source: Optional[str] = None,
+) -> List[Diagnostic]:
+    """GTA017: a checkpoint's recorded topology vs the live mesh.
+
+    ``fingerprint`` is the manifest-meta record the trainer writes with
+    every save (``world_size``, ``mesh_shape``, ``plan_hash``,
+    ``global_bsz``). A mismatching world size — the preemption/slice-shrink
+    signature — is an ERROR here, as in the JAX package: the plan the
+    checkpoint was training under was searched for another world. The
+    port's trainer, which takes its plan from the flags of the resumed run,
+    logs a ``topology_resume`` event for it and restores the portable
+    checkpoint into the new layout. A changed *plan hash*
+    or mesh axis layout on the SAME device count is deliberately not
+    flagged: portable checkpoints reshard across plans by design
+    (``mesh_shape`` rides the fingerprint for forensics, not as a gate).
+    """
+    out: List[Diagnostic] = []
+    if not isinstance(fingerprint, dict):
+        return out
+    try:
+        rec_world = int(fingerprint.get("world_size") or 0)
+    except (TypeError, ValueError):
+        rec_world = 0
+    if rec_world and world_size and rec_world != world_size:
+        out.append(
+            Diagnostic(
+                "GTA017",
+                f"checkpoint was written on {rec_world} devices but the live "
+                f"topology has {world_size}",
+                hint="re-search a plan for this mesh and resume the portable "
+                "checkpoint under it — `cli run-elastic` does this "
+                "automatically (plan cache: <ckpt>/replans/, "
+                "configs/strategies/)",
+                field="fingerprint.world_size",
+                source=source,
+            )
+        )
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -15,12 +15,19 @@ hybrid plan, pipelines included (the layout ``parallel/hybrid.py``
 trains), and ``gather_params`` puts every rank's pieces back into one tree,
 to compare a multi-rank run with the JAX parameters.
 
+``state_from_jax`` and ``state_to_jax`` carry the whole train state (params,
+Adam ``mu`` / ``nu`` / ``count``, ``step`` and the fp16 scaler) between the
+JAX package's ``portable_flat_state`` leaves, flattened by
+``jax.tree_util.keystr`` (numpy), and the port's portable flat leaves
+(``core/checkpoint.py``): the same names, shapes and dtypes, so the
+conversion is name for name.
+
 This module takes numpy and imports no JAX, so the port stays free of it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -106,3 +113,34 @@ def gather_params(rank_trees: Sequence[Params], cfg: ModelConfig, hp, world: int
         for key in part:
             full.setdefault(key, part[key])
     return full
+
+
+def flat_state_from_jax(leaves: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX package's flat state leaves (``{keystr: numpy}``) as the
+    port's portable flat leaves: CPU tensors of their own memory, names,
+    shapes and dtypes unchanged."""
+    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in leaves.items()}
+
+
+def flat_state_to_numpy(flat: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's portable flat leaves as the JAX package's (numpy; bf16
+    upcast to fp32, which numpy has no type for)."""
+    return {k: (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy()
+            for k, t in flat.items()}
+
+
+def state_from_jax(leaves: Dict[str, np.ndarray], runtime) -> Dict[str, Any]:
+    """A train state of ``runtime`` (this rank's pieces under its plan)
+    from the JAX package's ``portable_flat_state`` leaves."""
+    from galvatron_tpu_torch.core.checkpoint import restore_from_flat_leaves
+
+    return restore_from_flat_leaves(runtime, flat_state_from_jax(leaves))
+
+
+def state_to_jax(state: Dict[str, Any], runtime) -> Optional[Dict[str, np.ndarray]]:
+    """``state``'s portable flat leaves as the JAX package names them
+    (numpy); collective over the world, rank 0 gets them, the others None."""
+    from galvatron_tpu_torch.core.checkpoint import portable_flat_state
+
+    flat = portable_flat_state(state, runtime)
+    return None if flat is None else flat_state_to_numpy(flat)

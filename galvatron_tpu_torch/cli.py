@@ -3,13 +3,18 @@
   train             train a LLaMA- or GPT/OPT-family decoder under a
                     per-layer hybrid-parallel plan (--galvatron_config_path,
                     or the GLOBAL flags) on one or more ranks: synthetic
-                    tokens from --seed, fp32 master weights, AdamW, the flash
-                    kernels on the card (--attn_impl auto); a line and a
-                    train_iter JSONL record (--metrics_path) per iteration
+                    tokens from --seed or a corpus (--data_path,
+                    --data_mixture), fp32 master weights, AdamW (bf16, fp32,
+                    or fp16 under a dynamic loss scale), the flash kernels on
+                    the card (--attn_impl auto), committed checkpoints
+                    (--save, --load); a line and a train_iter JSONL record
+                    (--metrics_path) per iteration
   serve             REST generation server over the continuous-batching
                     engine on the paged KV backend (--kv_num_blocks -1),
-                    weights initialised from a seed; LLaMA family only (GPT
-                    serving: ROADMAP.md §1.10)
+                    weights from a trainer checkpoint (--load: the newest
+                    committed step, verified, an older one when it is
+                    corrupt) or initialised from a seed; LLaMA family only
+                    (GPT serving: ROADMAP.md §1.10)
   profile           per-layer time and activation memory of the model
                     (layer-difference method on the real train step) → the
                     reference-schema computation / memory JSONs
@@ -77,8 +82,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     tok = build_tokenizer(ns.tokenizer)
     if tok.vocab_size > cfg.vocab_size:
         cfg = cfg.replace(vocab_size=tok.vocab_size)
-    # random weights from seed 0, as the reference's cli does without --load
-    params = modeling.cast_params(modeling.init_model_params(cfg, 0, device), cfg)
+    params = modeling.cast_params(_load_or_init_params(ns, cfg, device), cfg)
     engine = Engine(
         params, cfg, device=device,
         num_slots=ns.num_slots,
@@ -105,6 +109,38 @@ def main(argv: Optional[List[str]] = None) -> int:
     run_server(service, port=ns.port, host=ns.host, ready_event=listening,
                drain_timeout_s=ns.drain_timeout_s)
     return 0
+
+
+def _load_or_init_params(ns, cfg, device):
+    """Params from a trainer checkpoint (``--load``; verified, newest
+    committed step first) checked against the model config, or random
+    weights from seed 0 as the reference's cli draws without ``--load``."""
+    from galvatron_tpu_torch.models import modeling
+
+    if not getattr(ns, "load", None):
+        return modeling.init_model_params(cfg, 0, device)
+    from galvatron_tpu_torch.core.checkpoint import flatten, keystr, restore_raw_checkpoint
+    from galvatron_tpu_torch.parallel.hybrid import param_shapes
+
+    raw, step = restore_raw_checkpoint(ns.load, prefix=keystr(("params",)))
+    params = raw["params"]
+    got = {k: tuple(v.shape) for k, v in flatten(params).items()}
+    want = flatten(param_shapes(cfg))
+    if got != want:
+        diff = {k: (got.get(k), want.get(k)) for k in sorted(set(got) | set(want))
+                if got.get(k) != want.get(k)}
+        raise ValueError(f"checkpoint under {ns.load} does not match the model config (e.g. "
+                         f"--vocab_size/--tokenizer mismatch); got vs want: {diff}")
+    print(f"serving step {step} of {ns.load}", flush=True)
+    return _to_device(params, device)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
 
 
 def _serve_warmup(engine, service, listening) -> None:

@@ -6,11 +6,15 @@ recompute, vocab TP / SP, chunks, and ``--galvatron_config_path``), and the
 ``search``, ``profile``, ``profile_hardware`` and ``check_plan`` groups of
 ``galvatron_tpu/core/arguments.py`` with the reference's names and defaults,
 plus ``--device`` (where a mode touches a device) and ``--dist_backend``.
-Flags of unported features (``--context_parallel_deg``,
-``--global_tp_overlap``, ``--grad_overlap``, checkpoints, corpora,
-multi-slice ``--num_slices``, ...) are absent, so passing one is an argparse
-error rather than a silently ignored option; ``--mixed_precision fp16``
-parses and raises naming its ROADMAP item."""
+The training services' flags (``--data_path``, ``--data_mixture``,
+``--prefetch_depth``, ``--pack_sequences``, ``--save``, ``--load``,
+``--save_interval``, ``--keep_last_n``, ``--rampup_batch_size``,
+``--mixed_precision fp16``) and ``serve --load`` keep the reference's names
+and defaults; ``--pack_sequences 1`` parses and raises naming its ROADMAP
+item. Flags of unported features (``--context_parallel_deg``,
+``--global_tp_overlap``, ``--grad_overlap``, multi-slice ``--num_slices``,
+...) are absent, so passing one is an argparse error rather than a silently
+ignored option."""
 
 from __future__ import annotations
 
@@ -67,6 +71,9 @@ def _add_serve_args(p: argparse.ArgumentParser):
     g.add_argument("--max_new_tokens", type=int, default=64,
                    help="default tokens_to_generate of a request")
     g.add_argument("--seed", type=int, default=1234, help="per-request sampling seed base")
+    g.add_argument("--load", type=str, default=None,
+                   help="checkpoint directory (trainer state): serve its newest committed "
+                   "step's params; default = random weights from a seed")
     g.add_argument("--port", type=int, default=5000)
     g.add_argument("--host", type=str, default="127.0.0.1")
     g.add_argument("--num_slots", type=int, default=4,
@@ -108,8 +115,9 @@ def _add_step_program_args(p: argparse.ArgumentParser):
     g.add_argument("--grad_clip", type=float, default=1.0)
     g.add_argument("--mixed_precision", type=str, default="bf16",
                    choices=["fp32", "bf16", "fp16"],
-                   help="compute dtype over fp32 master weights; fp16 (loss "
-                   "scaling) is not ported yet and raises")
+                   help="compute dtype over fp32 master weights; fp16 adds dynamic "
+                   "loss scaling (the LLaMA family without fused_norm: the blocked "
+                   "flash kernels run fp16, the others raise)")
     g.add_argument("--attn_impl", type=str, default="auto", choices=["auto", "flash", "xla"],
                    help="auto = the flash kernels on the card, the einsum path on the CPU")
     g.add_argument("--mlp_recompute", type=str, default="policy",
@@ -127,7 +135,14 @@ def _add_train_args(p: argparse.ArgumentParser):
                    help="where training runs; 'cuda' without a card is an error")
     g.add_argument("--global_train_batch_size", type=int, default=8)
     g.add_argument("--train_iters", type=int, default=10)
+    g.add_argument(
+        "--rampup_batch_size", type=int, nargs=3, default=None,
+        metavar=("START", "INCREMENT", "SAMPLES"),
+        help="global-batch-size ramp-up (reference: megatron microbatches.py); pp=1 only",
+    )
     g.add_argument("--seed", type=int, default=1234)
+    g.add_argument("--pack_sequences", type=int, default=0,
+                   help="1 = sequence packing: not ported yet (ROADMAP.md 'packed sequences')")
     g.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
                    help="process-group backend when WORLD_SIZE > 1: nccl on cuda, gloo on "
                    "cpu by default; gloo with --device cuda stages every collective "
@@ -135,8 +150,26 @@ def _add_train_args(p: argparse.ArgumentParser):
     g.add_argument("--dist_timeout_s", type=float, default=600.0,
                    help="bound on the rendezvous and on every collective")
     _add_parallel_args(p)
+    g.add_argument("--data_path", type=str, default=None,
+                   help="corpus prefix: a sharded manifest (<prefix>.shards.json, "
+                   "galvatron_tpu_torch.data) or a single-file <prefix>.bin/.idx.json "
+                   "pair; default = synthetic tokens")
+    g.add_argument("--data_mixture", type=str, default=None,
+                   help="deterministic weighted multi-corpus mixture: a JSON file "
+                   "({'sources': [{'name','prefix','weight'}, ...]}, see configs/data/) "
+                   "or inline 'prefix=weight,prefix=weight'")
+    g.add_argument("--prefetch_depth", type=int, default=0,
+                   help="async input prefetch: a background host thread assembles batch "
+                   "k+1 and moves it to the device while step k runs (this many in "
+                   "flight; 0 = synchronous). Needs --data_path or --data_mixture")
     g.add_argument("--metrics_path", type=str, default=None,
                    help="JSONL metrics sink (one train_iter record per iteration)")
+    g.add_argument("--save", type=str, default=None, help="checkpoint directory")
+    g.add_argument("--keep_last_n", type=int, default=0,
+                   help="checkpoint retention: after each committed save, prune all but "
+                   "the newest N committed steps (0 = keep all)")
+    g.add_argument("--load", type=str, default=None, help="resume directory")
+    g.add_argument("--save_interval", type=int, default=0)
     g.add_argument("--check_loss", type=int, default=0,
                    help="1 = fail the run on a non-finite loss")
 

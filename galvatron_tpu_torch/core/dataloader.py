@@ -4,7 +4,8 @@
 Yields global (B, S+1) int32 numpy batches, bit-identical to the
 reference's for the same seed: the epoch order is a splitmix64 permutation
 seeded from the mixed (seed, epoch) pair and each row's tokens are keyed by
-its sample index. The indexed-corpus path (``data_path``) is not ported.
+its sample index. With ``data_path`` the batches come from an indexed token
+corpus (``core/data.py``), GPT-window style, as the reference's do.
 """
 
 from __future__ import annotations
@@ -65,13 +66,20 @@ class RandomTokenDataset:
 def build_dataloader(cfg, global_batch_size: int, seq_len: Optional[int] = None,
                      size: int = 1024, seed: int = 1234, start_batch: int = 0,
                      data_path: Optional[str] = None):
-    """The synthetic random-token stream. ``data_path`` (an indexed token
-    corpus) raises: not ported yet."""
-    if data_path:
-        raise NotImplementedError(
-            "indexed-corpus data (--data_path) is not ported yet (ROADMAP.md §1); "
-            "the port trains on the synthetic random-token stream"
-        )
+    """``data_path`` selects the real-corpus path: a ``write_indexed_dataset``
+    prefix is loaded memory-mapped and sampled GPT-window style
+    (``core/data.py``); otherwise the synthetic random-token stream."""
     seq_len = seq_len or cfg.max_seq_len
+    if data_path:
+        from galvatron_tpu_torch.core.data import GPTWindowDataset, IndexedTokenDataset
+
+        indexed = IndexedTokenDataset(data_path)
+        if indexed.meta["vocab_size"] > cfg.vocab_size:
+            raise ValueError(
+                f"corpus vocab {indexed.meta['vocab_size']} exceeds the model "
+                f"vocab {cfg.vocab_size}"
+            )
+        ds = GPTWindowDataset(indexed, seq_len, seed)
+        return ds.batch_iterator(global_batch_size, start_batch=start_batch)
     ds = RandomTokenDataset(cfg.vocab_size, seq_len, size, seed)
     return ds.batch_iterator(global_batch_size, start_batch=start_batch)

@@ -6,8 +6,9 @@ parameter tree and a host step count. The update is the reference's, term
 for term and in the same order (global-norm clip, bias correction,
 decoupled weight decay, optional ``LRSchedule``), but applied IN PLACE to
 the parameter and moment tensors: one update of a 1 B-parameter model then
-allocates per-tensor temporaries instead of two more full copies. The fp16
-dynamic-loss-scaler path (``apply_update_with_scaler``) is not ported.
+allocates per-tensor temporaries instead of two more full copies. Under
+fp16, :func:`apply_update_with_scaler` skips the whole update on overflow
+and advances the dynamic loss scale.
 """
 
 from __future__ import annotations
@@ -94,3 +95,27 @@ def adamw_update(params, grads, opt_state, cfg: AdamConfig,
         p.copy_(p.float() - step)
     opt_state["count"] = count
     return params, opt_state
+
+
+def apply_update_with_scaler(state, loss, grads, adam: AdamConfig, scaler_cfg,
+                             finite: Optional[bool] = None, params=None,
+                             grad_norm: Optional[torch.Tensor] = None) -> bool:
+    """The fp16 train-state transition, in place (the reference's
+    ``apply_update_with_scaler``): the AdamW update runs only when the
+    step's gradients (and loss) are finite, so on overflow ``params``,
+    ``mu``, ``nu`` and ``count`` all stay as they were; ``state["scaler"]``
+    advances either way (``core/schedules.scaler_update``). ``grads`` must
+    be unscaled already. ``finite`` is the verdict when the caller decided
+    it over every rank (the hybrid runtime's one all-reduce); by default it
+    is taken from ``grads`` and ``loss``. ``params`` (default
+    ``state["params"]``) and ``grad_norm`` go to :func:`adamw_update`. The
+    caller advances ``state["step"]``. Returns the verdict."""
+    from galvatron_tpu_torch.core.schedules import all_finite, scaler_update
+
+    if finite is None:
+        finite = bool(all_finite(tree_leaves(grads))) and bool(torch.isfinite(loss).all())
+    if finite:
+        adamw_update(state["params"] if params is None else params, grads, state["opt"], adam,
+                     grad_norm=grad_norm)
+    state["scaler"] = scaler_update(state["scaler"], finite, scaler_cfg)
+    return finite

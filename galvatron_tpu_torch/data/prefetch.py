@@ -1,0 +1,118 @@
+"""Async double-buffered host→device prefetch.
+
+The trainer's input path was fully synchronous: assemble batch k on the host,
+``device_put``, dispatch step k — data time adds to step time. The prefetcher
+moves assembly + transfer to a background thread: while step k runs on the
+device, the thread builds batch k+1 and calls ``put_fn`` (the runtime's
+``put_batch`` — the batch as a tensor on the rank's device),
+so the trainer's ``data`` span collapses to a bounded-queue dequeue.
+
+Correctness rules:
+
+- **Fresh buffer per batch** (a buffer written after it was handed to an
+  asynchronous copy corrupts the copy): every batch the producer hands to ``put_fn`` is a
+  newly allocated array that is never written again — the assembly fn
+  allocates per call, and the producer drops its reference after enqueue.
+- **Clean shutdown on every exit path**: ``close()`` is idempotent, drains
+  the queue so a producer blocked on ``put`` can observe the stop flag, and
+  joins the thread. The trainer calls it in its exit ``finally`` (after the
+  watchdog stands down, before the exit checkpoint — a blocked producer must
+  not hold batches hostage while the save runs).
+- **Exceptions propagate**: a producer failure (corrupt shard, OOM) is
+  re-raised in the consumer at the ``next()`` that would have returned the
+  failed batch, with the prefetcher closed.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Callable, Optional, Tuple
+
+_STOP = object()
+
+
+class AsyncPrefetcher:
+    """Iterator over ``(device_batch, meta)`` pairs produced ahead of time.
+
+    ``make_item()`` returns ``(host_batch, meta)`` (meta: the per-batch stats
+    dict the trainer logs); ``put_fn`` maps the host batch onto devices.
+    ``depth`` bounds in-flight batches (2 = classic double buffering: one in
+    the queue while the next is being assembled/transferred)."""
+
+    def __init__(
+        self,
+        make_item: Callable[[], Tuple[Any, dict]],
+        put_fn: Callable[[Any], Any],
+        depth: int = 2,
+    ):
+        if depth < 1:
+            raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        self._make_item = make_item
+        self._put_fn = put_fn
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._exc: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._run, name="galvatron-data-prefetch", daemon=True
+        )
+        self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            while not self._stop.is_set():
+                host_batch, meta = self._make_item()
+                item = (self._put_fn(host_batch), meta)
+                # the host buffer reference is dropped here — nothing can
+                # mutate it behind the in-flight device_put
+                del host_batch
+                while not self._stop.is_set():
+                    try:
+                        self._q.put(item, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+        except BaseException as e:  # noqa: BLE001 — re-raised in the consumer
+            self._exc = e
+            try:
+                self._q.put(_STOP, timeout=0.1)
+            except queue.Full:
+                pass
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        while True:
+            if self._exc is not None and self._q.empty():
+                self.close()
+                raise self._exc
+            try:
+                item = self._q.get(timeout=0.5)
+            except queue.Empty:
+                if not self._thread.is_alive() and self._exc is None:
+                    raise StopIteration
+                continue
+            if item is _STOP:
+                self.close()
+                if self._exc is not None:
+                    raise self._exc
+                raise StopIteration
+            return item
+
+    def close(self) -> None:
+        """Idempotent; callable from any trainer exit path. Drains the queue
+        so a producer blocked on ``put`` sees the stop flag, then joins."""
+        self._stop.set()
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join(timeout=5.0)
+
+    def __del__(self):  # safety net; the trainer's finally is the contract
+        try:
+            self._stop.set()
+        except Exception:
+            pass

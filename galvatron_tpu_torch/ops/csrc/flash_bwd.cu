@@ -380,7 +380,7 @@ template <typename T>
 cudaError_t dispatch(const BwdArgs& a, int batch, void* qs, void* ks, cudaStream_t stream,
                      int* route) {
   *route = flash::kRouteCudaCore;
-  if (sizeof(T) == 2 && can_tma(a, qs, ks)) {
+  if (std::is_same<T, __nv_bfloat16>::value && can_tma(a, qs, ks)) {
     CUtensorMap m[8];
     if (a.d == 128 ? encode_maps<128>(a, batch, qs, ks, m) : encode_maps<64>(a, batch, qs, ks, m)) {
       *route = flash::kRouteTma;
@@ -401,7 +401,8 @@ extern "C" {
 // values. delta: an fp32 (b, h, s) scratch buffer. q_scratch / k_scratch:
 // bf16 contiguous (b, h, s, d) and (b, h / kv_rep, s, d) for the pre-pass's
 // roped rows on the bf16 path at head_dim 64 / 128 (null elsewhere). dtype:
-// 0 = float32, 1 = bfloat16. route: set to the route taken (flash::Route).
+// 0 = float32, 1 = bfloat16, 2 = float16 (the CUDA-core kernels). route: set to
+// the route taken (flash::Route).
 // Returns cudaGetLastError() after the last launch.
 int galvatron_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                         const void* out, const void* lse, const void* cos, const void* sin,
@@ -439,6 +440,7 @@ int galvatron_flash_bwd(const void* q, const void* k, const void* v, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch<float>(a, batch, nullptr, nullptr, st, route);
   if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, batch, q_scratch, k_scratch, st, route);
+  if (dtype == 2) return (int)dispatch<__half>(a, batch, nullptr, nullptr, st, route);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -191,7 +191,7 @@ template <typename T>
 cudaError_t dispatch(const FwdArgs& a, void* kscratch, cudaStream_t stream, int* route) {
   namespace fw = flash::fwd;
   *route = flash::kRouteCudaCore;
-  if (sizeof(T) == 2 && fw::can_tma(a, kscratch)) {
+  if (std::is_same<T, __nv_bfloat16>::value && fw::can_tma(a, kscratch)) {
     CUtensorMap tq, tk, tv;
     if (a.d == 128 ? fw::encode_maps<128>(a, kscratch, &tq, &tk, &tv)
                    : fw::encode_maps<64>(a, kscratch, &tq, &tk, &tv)) {
@@ -215,7 +215,7 @@ extern "C" {
 // the bf16 path at head_dim 64 / 128 (null elsewhere: the CUDA-core kernel).
 // work: two int32, zero, the persistent kernel's item counter on that path
 // (the kernel leaves them zero again; null elsewhere).
-// dtype: 0 = float32, 1 = bfloat16. route: set to the route taken
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (the CUDA-core kernel). route: set to the route taken
 // (flash::Route: 1 the TMA + wgmma kernel with its pre-pass, 0 the
 // CUDA-core kernel). Returns cudaGetLastError() after the launches.
 int galvatron_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
@@ -250,6 +250,7 @@ int galvatron_flash_fwd(const void* q, const void* k, const void* v, void* out, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch<float>(a, nullptr, st, route);
   if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, k_scratch, st, route);
+  if (dtype == 2) return (int)dispatch<__half>(a, nullptr, st, route);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -81,7 +81,13 @@ from galvatron_tpu_torch.ops import _build
 
 #: shared memory one thread block may use on Hopper (227 KB)
 _MAX_SMEM_BYTES = 232448
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the dtypes each kernel family takes: fp16 only the blocked kernels (on
+#: their CUDA-core route); the grid kernels and paged_decode refuse it
+_BLOCKED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_GRID_DTYPES = (torch.float32, torch.bfloat16)
+FP16_REMAINDER = ("fp16 for the grid flash kernels, the fused norms and paged_decode is "
+                  "ROADMAP.md §1.1's remainder")
 #: The routes a C entry reports, by index (``flash::Route`` in
 #: ``csrc/flash_common.cuh``): the CUDA-core kernels (fp32, other head dims,
 #: operands a tensor map cannot take) or the TMA + wgmma kernels. Each
@@ -500,11 +506,30 @@ def flash_grid_bwd_parts_plain(q, k, v, do, lse, delta, rope, sm_scale, causal,
 BF16_PARITY_TOL = {"fwd": 2 ** -5, "bwd": 2 ** -4}
 
 
+#: fp16 results are held to the same bands, the excess measured past one fp16
+#: ulp: what the bands bound is how far the two fp32 computations differ
+#: before the rounding (summation order, rows that cancel), which a finer
+#: storage type does not shrink. On an H100 the training shape's fp16 dq
+#: read 0.0136 (bf16: 0.0336), forward 0.0013; the dropped-tile control > 1.
+FP16_PARITY_TOL = dict(BF16_PARITY_TOL)
+
+
 def bf16_parity_excess(got, ref):
-    """How far a bf16 kernel result ``got`` lies from its plain version's
-    ``ref`` beyond the rounding both do: the largest (|got − ref| −
-    ulp(ref)) over the rms of ref's row (the last dim), 0 when every
-    element is within one bf16 ulp.
+    """:func:`parity_excess` of a bf16 result (7 explicit mantissa bits)."""
+    return parity_excess(got, ref, 7)
+
+
+def fp16_parity_excess(got, ref):
+    """:func:`parity_excess` of an fp16 result (10 explicit mantissa bits)."""
+    return parity_excess(got, ref, 10)
+
+
+def parity_excess(got, ref, mantissa_bits: int):
+    """How far a bf16 (or fp16) kernel result ``got`` lies from its plain
+    version's ``ref`` beyond the rounding both do: the largest (|got − ref|
+    − ulp(ref)) over the rms of ref's row (the last dim), 0 when every
+    element is within one ulp of the type (``mantissa_bits`` explicit bits).
+    What follows is said of bf16; fp16's roundings are 2^-3 of its.
 
     Both round an fp32 value to bf16, which alone leaves them up to one ulp
     apart. What the excess measures is how far the two fp32 values differ,
@@ -520,7 +545,7 @@ def bf16_parity_excess(got, ref):
     itself, so ds = 0) keeps only fp32 noise; its scale is floored at 2^-10
     of the whole tensor's rms."""
     r = ref.float()
-    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - mantissa_bits)
     floor = r.square().mean().sqrt().clamp_min(1e-30) * 2 ** -10
     rms = torch.maximum(r.square().mean(dim=-1, keepdim=True).sqrt(), floor)
     return max(0.0, (((got.float() - r).abs() - ulp) / rms).max().item())
@@ -531,15 +556,17 @@ def bf16_parity_excess(got, ref):
 # ---------------------------------------------------------------------------
 
 
-def _check_flash_operands(name, tensors, cos, sin, d):
-    """The kernels' contract, on every device: one dtype (bf16 or fp32),
+def _check_flash_operands(name, tensors, cos, sin, d, dtypes=_GRID_DTYPES):
+    """The kernels' contract, on every device: one dtype (of ``dtypes``),
     head_dim % 8 == 0 and <= 256, one device, unit-stride head dims, and
     contiguous fp32 (s, d/2) rope tables unless ``cos`` is None (no RoPE)."""
     dev, dt = tensors[0].device, tensors[0].dtype
-    if dt not in _DTYPE_CODE or any(t.dtype != dt for t in tensors):
+    if dt not in dtypes or any(t.dtype != dt for t in tensors):
+        names = "bf16, fp16 or fp32" if torch.float16 in dtypes else "bf16 or fp32"
         raise TypeError(
-            f"the {name} kernel takes bf16 or fp32 operands of one dtype, got "
+            f"the {name} kernel takes {names} operands of one dtype, got "
             f"{sorted({str(t.dtype) for t in tensors})}"
+            + (f" ({FP16_REMAINDER})" if dt == torch.float16 else "")
         )
     if d % 8 or d > 256:
         raise ValueError(f"the {name} kernel takes head_dim % 8 == 0 and <= 256, got {d}")
@@ -583,7 +610,7 @@ def flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
     route the call took is counted in ``flash_fwd.routes``."""
     b, h, s, d = q.shape
     _check_kv(q, k, v, kv_rep)
-    _check_flash_operands("flash_fwd", (q, k, v), cos, sin, d)
+    _check_flash_operands("flash_fwd", (q, k, v), cos, sin, d, _BLOCKED_DTYPES)
     if q.device.type == "cpu":
         return flash_fwd_blocked_plain(q, k, v, cos, sin, sm_scale, kv_rep)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -604,11 +631,14 @@ def flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     flash_fwd.launches += 1
     flash_fwd.routes[ROUTES[route.value]] += 1
+    flash_fwd.dtypes[str(q.dtype)] += 1
     return out, lse
 
 
 flash_fwd.launches = 0
 flash_fwd.routes = dict.fromkeys(ROUTES, 0)
+#: launches by operand dtype (``str(torch.dtype)``)
+flash_fwd.dtypes = dict.fromkeys(map(str, _BLOCKED_DTYPES), 0)
 
 
 def flash_bwd(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1,
@@ -621,7 +651,7 @@ def flash_bwd(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1,
     ``flash_bwd.launches``, the route in ``flash_bwd.routes``); two calls on
     the same inputs give the same bits."""
     b, h, s, d = q.shape
-    _check_flash_operands("flash_bwd", (q, k, v, do, out), cos, sin, d)
+    _check_flash_operands("flash_bwd", (q, k, v, do, out), cos, sin, d, _BLOCKED_DTYPES)
     _check_row_stats("flash_bwd", b, h, s, lse=lse)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep, grads)
@@ -644,11 +674,13 @@ def flash_bwd(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1,
         raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
     flash_bwd.launches += 1
     flash_bwd.routes[ROUTES[route.value]] += 1
+    flash_bwd.dtypes[str(q.dtype)] += 1
     return dq, dk, dv
 
 
 flash_bwd.launches = 0
 flash_bwd.routes = dict.fromkeys(ROUTES, 0)
+flash_bwd.dtypes = dict.fromkeys(map(str, _BLOCKED_DTYPES), 0)
 
 
 def _tma_shape(q):
@@ -1086,10 +1118,11 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, q_offset,
     tensors = (q, k_pages, v_pages, block_tables, q_offset)
     if any(t.device != q.device for t in tensors):
         raise ValueError("q, k_pages, v_pages, block_tables and q_offset must share one device")
-    if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+    if q.dtype not in _GRID_DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError(
             f"the paged_decode kernel takes bf16 or fp32 q/k/v of one dtype, got "
             f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}"
+            + (f" ({FP16_REMAINDER})" if q.dtype == torch.float16 else "")
         )
     if block_tables.dtype != torch.int32 or q_offset.dtype != torch.int32:
         raise TypeError("block_tables and q_offset must be int32")

@@ -122,7 +122,9 @@ def _check(name, x2d, vectors=(), stats=(), like=()):
         raise ValueError(f"{name}: x must be (n, H) with n >= 1, got {tuple(x2d.shape)}")
     n, h = x2d.shape
     if x2d.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the {name} kernel takes bf16 or fp32 rows, got {x2d.dtype}")
+        raise TypeError(f"the {name} kernel takes bf16 or fp32 rows, got {x2d.dtype}"
+                        + (" (fp16 for the fused norms is ROADMAP.md §1.1's remainder)"
+                           if x2d.dtype == torch.float16 else ""))
     if not _tiles(h) or h > MAX_HIDDEN:
         raise ValueError(f"the {name} kernel takes H % 128 == 0 and H <= {MAX_HIDDEN}, got {h}")
     for t in like:

@@ -42,6 +42,18 @@ gradient norm counts it once, and the loss reaches every rank.
 rank (each rank keeps its rows) and updates this rank's state IN PLACE:
 ``{"params", "opt", "step"}`` hold its shards. At world size 1 no process
 group exists and no collective runs: this is the single-device runtime.
+At pp = 1 the batch may have another size than ``global_batch_size`` (the
+trainer's batch-size ramp-up), as long as the plan divides it.
+
+fp16 (``mixed_precision='fp16'``, the reference's loss-scaling path): fp16
+compute over the fp32 masters, a dynamic loss scale in ``state["scaler"]``
+(replicated). Each micro-batch's backward is seeded on the mean-equivalent
+loss ``loss_sum * scale / n_static`` (``n_static`` the micro-batch's static
+token count), so the first step at 2^16 does not overflow; the reduced
+gradients are unscaled in fp32, finiteness is decided once over the whole
+world (one all-reduce of one flag over every rank and stage), and on
+overflow the update is skipped atomically (``core/optim.
+apply_update_with_scaler``). The step counter advances either way.
 """
 
 from __future__ import annotations
@@ -55,7 +67,13 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from galvatron_tpu_torch.core.optim import AdamConfig, adamw_update, tree_leaves
+from galvatron_tpu_torch.core.optim import (
+    AdamConfig,
+    adamw_update,
+    apply_update_with_scaler,
+    tree_leaves,
+)
+from galvatron_tpu_torch.core.schedules import LossScalerConfig, all_finite, init_scaler_state
 from galvatron_tpu_torch.core.strategy import HybridParallelConfig, LayerStrategy
 from galvatron_tpu_torch.device import resolve_device
 from galvatron_tpu_torch.models import modeling
@@ -72,7 +90,10 @@ from galvatron_tpu_torch.parallel.sharding import Layout, local_shape, param_lay
 
 #: --global_checkpoint values → per-layer recompute mode
 CKPT_MODES = {0: "none", 1: "full", 2: "selective"}
-_PRECISION = {"fp32": torch.float32, "bf16": torch.bfloat16}
+_PRECISION = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
+#: what fp16 does not run yet, for its errors
+FP16_REMAINDER = ("ROADMAP.md §1.1's remainder: fp16 for the grid flash kernels, the fused "
+                  "norms and paged_decode")
 
 
 def embed_strategy(hp: HybridParallelConfig) -> LayerStrategy:
@@ -84,10 +105,6 @@ def embed_strategy(hp: HybridParallelConfig) -> LayerStrategy:
 def refuse_unported(hp: HybridParallelConfig) -> None:
     """Raise ``NotImplementedError`` for every plan feature the port does
     not run yet (at any pp), naming its ROADMAP item."""
-    if hp.mixed_precision == "fp16":
-        raise NotImplementedError(
-            "--mixed_precision fp16 (dynamic loss scaling) is not ported yet (ROADMAP.md §1.1 "
-            "'fp16 and ramp-up'); use bf16 or fp32")
     if hp.grad_overlap:
         raise NotImplementedError(
             "grad_overlap (per-layer ZeRO gradient buckets) is not ported yet: the rest of "
@@ -226,6 +243,13 @@ class Runtime:
     world: int = 1
     rank: int = 0
     ckpts: List[str] = field(default_factory=list)  # per layer of the whole model
+    #: the fp16 dynamic loss scaler's config (None unless mixed_precision is fp16)
+    scaler_cfg: Optional[LossScalerConfig] = None
+    #: full parameter shapes and per-leaf placements (``model_leaf_plans``):
+    #: what the portable checkpoint gathers and cuts (``core/checkpoint.py``)
+    leaf_plans: Any = None
+    mesh: Optional[RankMesh] = None
+    groups: Any = None
     pp: int = 1
     stage: int = 0  # this rank's pipeline stage
     stage_layers: List[int] = field(default_factory=list)  # the layers this rank runs
@@ -273,6 +297,18 @@ def _make_layer_hook(cfg: ModelConfig, ckpt: Union[str, List[str]], layer_fn=Non
         return run(x)
 
     return hook
+
+
+def check_fp16(cfg: ModelConfig) -> None:
+    """fp16 runs the blocked flash kernels only (the LLaMA family without
+    ``fused_norm``): the other kernels take bf16 or fp32, and a dtype a
+    kernel does not take raises, never a quiet plain version."""
+    if cfg.pos_embed != "rope":
+        raise NotImplementedError(
+            "--mixed_precision fp16 with the GPT/OPT family: its attention runs the grid flash "
+            f"kernels, which take bf16 or fp32 ({FP16_REMAINDER})")
+    if cfg.fused_norm:
+        raise NotImplementedError(f"--mixed_precision fp16 with fused_norm ({FP16_REMAINDER})")
 
 
 def _trainable(tree):
@@ -360,7 +396,7 @@ def build_runtime(
     (global_batch_size, seq_len + 1) token batches. Without ``hp`` the plan
     is uniform at tp=1 with ``chunks``, ``ckpt`` ('none' | 'full' |
     'selective', or the --global_checkpoint integer) and
-    ``mixed_precision`` ('fp32' | 'bf16'); with ``hp`` those come from the
+    ``mixed_precision`` ('fp32' | 'bf16' | 'fp16'); with ``hp`` those come from the
     plan and must not be passed. The world is the default process group's
     (one rank when there is none); a plan with pp > 1 runs this rank's
     pipeline stage under the plan's schedule. ``device`` defaults to
@@ -372,7 +408,7 @@ def build_runtime(
         ckpt = CKPT_MODES.get(ckpt, ckpt) if ckpt is not None else "none"
         if ckpt not in ("none", "full", "selective"):
             raise ValueError(f"unknown ckpt mode {ckpt!r}")
-        if mixed_precision not in ("fp16",) + tuple(_PRECISION):
+        if mixed_precision not in _PRECISION:
             raise ValueError(f"unknown mixed_precision {mixed_precision!r}")
         hp = HybridParallelConfig.uniform(
             cfg.num_layers, ckpt=ckpt, chunks=max(1, int(chunks or 1)),
@@ -380,6 +416,8 @@ def build_runtime(
     elif chunks is not None or ckpt is not None or mixed_precision is not None:
         raise ValueError("with a plan (hp), chunks / ckpt / mixed_precision come from the plan")
     refuse_unported(hp)
+    if hp.mixed_precision == "fp16":
+        check_fp16(cfg)
     if hp.mixed_precision not in _PRECISION:
         raise ValueError(f"unknown mixed_precision {hp.mixed_precision!r}")
     if hp.num_layers != cfg.num_layers:
@@ -400,6 +438,8 @@ def build_runtime(
         pipeline.validate_pipeline_strategies(cfg.num_layers, hp)
     vstages = pipeline.virtual_stages(cfg.num_layers, hp)
     cfg = cfg.replace(dtype=_PRECISION[hp.mixed_precision], mlp_recompute=hp.mlp_recompute)
+    fp16 = hp.mixed_precision == "fp16"
+    scaler_cfg = LossScalerConfig() if fp16 else None
     chunks = max(1, hp.chunks)
     if global_batch_size % chunks:
         raise ValueError(f"global batch {global_batch_size} not divisible by chunks {chunks}")
@@ -538,7 +578,10 @@ def build_runtime(
         return rank + (d - stage) * mesh.per_stage
 
     def _batch(batch) -> torch.Tensor:
-        if tuple(batch.shape) != (global_batch_size, seq_len + 1):
+        # pp = 1 takes other batch sizes (the ramp-up); a pipeline's buffers
+        # are shaped for global_batch_size
+        rows_ok = batch.shape[0] == global_batch_size or (pp == 1 and batch.shape[0] % chunks == 0)
+        if batch.ndim != 2 or batch.shape[1] != seq_len + 1 or not rows_ok:
             raise ValueError(f"batch must be ({global_batch_size}, {seq_len + 1}) tokens, "
                              f"got {tuple(batch.shape)}")
         return torch.as_tensor(batch).to(device=device, dtype=torch.long)
@@ -567,11 +610,16 @@ def build_runtime(
             p.grad = None
         batch = _batch(batch)
         denom = torch.clamp_min(token_count(batch), 1).float()
-        mbs = batch.reshape(chunks, mb_rows, batch.shape[1])
+        mbs = batch.reshape(chunks, batch.shape[0] // chunks, batch.shape[1])
         # sum-form accumulation: gradients of the nll sums accumulate in
         # fp32, then one division, so the result is the global token mean
         # however the ignored tokens fall across chunks and ranks
         tot_s = torch.zeros((), dtype=torch.float32, device=device)
+        if fp16:
+            # the seed of the scaled backward, and the gradients' divisor
+            scale = state["scaler"]["scale"]
+            seed = scale / (mbs.shape[1] * seq_len)
+            gdenom = denom * seed
         live: Dict[tuple, tuple] = {}  # (virtual stage, micro-batch) → (input, output)
 
         def forward(k, m, x):
@@ -587,7 +635,10 @@ def build_runtime(
         def backward(k, m, g):
             x, y = live.pop((k, m))
             if k == last_vstage:
-                (y / denom if chunks == 1 else y).backward()
+                if fp16:
+                    (y * seed).backward()
+                else:
+                    (y / denom if chunks == 1 else y).backward()
             else:
                 torch.autograd.backward(y, g)
             return None if k == 0 else x.grad
@@ -596,7 +647,9 @@ def build_runtime(
         grads = []
         for p, lp in zip(leaves, leaf_plans):
             g = p.grad
-            if chunks > 1:
+            if fp16:
+                g.div_(gdenom)
+            elif chunks > 1:
                 g.div_(denom)
             g = _reduce_dp(g, lp)
             if lp.tp_sum:
@@ -605,17 +658,29 @@ def build_runtime(
                 g = _sum_tied(g, groups.named("tied"))
             grads.append(g)
         views = [_opt_view(p, lp) for p, lp in zip(leaves, leaf_plans)]
-        gn = grad_norm(grads) if adam.grad_clip is not None else None
-        adamw_update(views, grads, state["opt"], adam, grad_norm=gn)
+        loss = global_loss(tot_s, denom).detach()
+        updated = True
+        if fp16:
+            # one verdict for the whole world: a non-finite gradient or loss
+            # on any rank or stage skips every rank's update
+            bad = (~all_finite(grads + [loss])).float()
+            finite = comm.all_reduce(bad, world_group).item() == 0
+            gn = grad_norm(grads) if adam.grad_clip is not None and finite else None
+            updated = apply_update_with_scaler(state, loss, grads, adam, scaler_cfg,
+                                               finite=finite, params=views, grad_norm=gn)
+        else:
+            gn = grad_norm(grads) if adam.grad_clip is not None else None
+            adamw_update(views, grads, state["opt"], adam, grad_norm=gn)
         with torch.no_grad():
             for p, v, lp in zip(leaves, views, leaf_plans):
-                if v is not p:  # zero2: every rank's updated part back into the parameter
+                if v is not p and updated:  # zero2: every rank's updated part back
                     p.copy_(comm.all_gather(v, lp.dp_group, lp.opt_dim))
         for p in leaves:
             p.grad = None
         state["step"] += 1
         stats["in_flight"] = in_flight
-        return state, global_loss(tot_s, denom).detach()
+        stats["updated"] = updated
+        return state, loss
 
     @torch.no_grad()
     def eval_loss(state, batch):
@@ -649,8 +714,11 @@ def build_runtime(
                                device=device)
         mu = zip_map(check, params, plans)
         nu = zip_map(lambda t, n: torch.zeros_like(t), mu)
-        return {"params": _trainable(params), "opt": {"mu": mu, "nu": nu, "count": 0},
-                "step": 0}
+        state = {"params": _trainable(params), "opt": {"mu": mu, "nu": nu, "count": 0},
+                 "step": 0}
+        if fp16:
+            state["scaler"] = init_scaler_state(scaler_cfg, device)
+        return state
 
     def init_state(seed: int):
         """Every rank draws the whole model from ``seed`` and keeps its
@@ -669,4 +737,5 @@ def build_runtime(
     return Runtime(cfg=cfg, device=device, chunks=chunks, ckpt=uniform,
                    train_step=train_step, eval_loss=eval_loss, init_state=init_state,
                    state_from=state_from, world=world, rank=rank, ckpts=ckpts, pp=pp,
-                   stage=stage, stage_layers=layer_ids, stats=stats)
+                   stage=stage, stage_layers=layer_ids, stats=stats,
+                   scaler_cfg=scaler_cfg, leaf_plans=all_plans, mesh=mesh, groups=groups)

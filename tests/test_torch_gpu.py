@@ -153,6 +153,9 @@ FLASH_CASES = {
     # the TMA backward at head_dim 64 (128-row walked tiles)
     "d64_stacked_s1024": (torch.bfloat16, 2, 8, 8, 1024, 64, True),
     "gqa_rep4_d64": (torch.bfloat16, 2, 16, 4, 512, 64, False),
+    # fp16 (the fp16 training path): the CUDA-core kernels' __half instances
+    "main_fp16_stacked": (torch.float16, 2, 32, 32, 2048, 128, True),
+    "fp16_gqa_ragged_s1000_d64": (torch.float16, 1, 8, 2, 1000, 64, False),
 }
 
 
@@ -176,9 +179,12 @@ def _flash_inputs(dtype, b, h, kvh, s, d, stacked, seed=0):
 def _close(got, ref, which):
     """fp32: max abs error within 1e-5 (forward) or 1e-4 (backward). bf16:
     ``fa.bf16_parity_excess`` (the error beyond one output ulp, over the
-    row's rms) within ``fa.BF16_PARITY_TOL``."""
+    row's rms) within ``fa.BF16_PARITY_TOL``; fp16 the same with its ulp,
+    ``fa.fp16_parity_excess`` within ``fa.FP16_PARITY_TOL``."""
     if got.dtype == torch.float32:
         return (got - ref).abs().max().item() <= {"fwd": 1e-5, "bwd": 1e-4}[which]
+    if got.dtype == torch.float16:
+        return fa.fp16_parity_excess(got, ref) <= fa.FP16_PARITY_TOL[which]
     return fa.bf16_parity_excess(got, ref) <= fa.BF16_PARITY_TOL[which]
 
 
@@ -220,6 +226,24 @@ def test_flash_kernels_match_plain(cuda, case, monkeypatch):
     ctl = fa.flash_bwd_blocked_plain(q, kf, vf, do, out, lse, cos, sin, sm)
     for name, c, r in zip("qkv", ctl, ref_grads):
         assert not _close(c, r, "bwd"), name
+
+
+def test_fp16_takes_the_cuda_core_route_and_the_other_kernels_refuse_it(cuda):
+    """fp16 runs the blocked kernels' CUDA-core instances (the TMA route is
+    bf16's); the grid kernels and paged_decode refuse fp16 on the card, naming
+    ROADMAP §1.1's remainder, never a quiet plain version."""
+    q, k, v, do, cos, sin = _flash_inputs(torch.float16, 1, 4, 4, 256, 128, True)
+    routes = (dict(fa.flash_fwd.routes), dict(fa.flash_bwd.routes))
+    out, lse = fa.flash_fwd(q, k, v, cos, sin, 0.1)
+    fa.flash_bwd(q, k, v, do, out, lse, cos, sin, 0.1)
+    torch.cuda.synchronize()
+    for w, before in zip((fa.flash_fwd, fa.flash_bwd), routes):
+        assert w.routes["cuda_core"] == before["cuda_core"] + 1
+        assert w.routes["tma"] == before["tma"]
+    with pytest.raises(TypeError, match="§1.1"):
+        fa.flash_grid_fwd(q, k, v, None, 0.1, True)
+    with pytest.raises(TypeError, match="§1.1"):
+        fa.flash_grid_bwd_parts(q, k, v, do, lse, lse, None, 0.1, True)
 
 
 GRID_CASES = {

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the
-JAX package, no source imports either, and its entry points refuse to run
+JAX package (nor Orbax or TensorStore, which the JAX package's checkpoints
+need), no source imports any of them, and its entry points refuse to run
 without a card unless the caller asks for the CPU."""
 
 import ast
@@ -15,9 +16,15 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "galvatron_tpu_torch"
 
 
+#: top-level packages the port must never load
+FORBIDDEN = ("jax", "galvatron_tpu", "orbax", "tensorstore")
+#: the same rule inside a subprocess: ``bad`` lists the loaded modules it refuses
+_BAD_MODULES = ("bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+                f"{FORBIDDEN!r})\n")
+
+
 def _forbidden(module: str) -> bool:
-    return (module == "jax" or module.startswith("jax.")
-            or module == "galvatron_tpu" or module.startswith("galvatron_tpu."))
+    return module.split(".")[0] in FORBIDDEN
 
 
 def test_importing_every_module_loads_no_jax():
@@ -26,8 +33,7 @@ def test_importing_every_module_loads_no_jax():
         "import galvatron_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'galvatron_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'galvatron_tpu' or m.startswith('galvatron_tpu.'))\n"
+        + _BAD_MODULES +
         "print(len([m for m in sys.modules if m.startswith('galvatron_tpu_torch')]))\n"
         "assert not bad, bad\n"
     )
@@ -62,24 +68,33 @@ SEARCH_MODULES = ("galvatron_tpu_torch.search.cost_model",
                   "galvatron_tpu_torch.analysis.plan_check",
                   "galvatron_tpu_torch.utils.config_utils",
                   "galvatron_tpu_torch.obs.tracing")
+#: the training services' modules (checkpoints, corpora, the data pipeline,
+#: schedules and the loss scaler)
+SERVICES_MODULES = ("galvatron_tpu_torch.core.retry", "galvatron_tpu_torch.core.checkpoint",
+                    "galvatron_tpu_torch.core.data", "galvatron_tpu_torch.core.schedules",
+                    "galvatron_tpu_torch.core.optim", "galvatron_tpu_torch.core.trainer",
+                    "galvatron_tpu_torch.data.shards", "galvatron_tpu_torch.data.mixture",
+                    "galvatron_tpu_torch.data.prefetch", "galvatron_tpu_torch.data.pipeline",
+                    "galvatron_tpu_torch.bridge")
 SCANNED = sorted([str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
                  + ["chip_smoke.py", "experiments/torch_decode_profile.py"])
 
 
 def test_the_scan_covers_the_parallel_modules():
-    for m in PARALLEL_MODULES + SEARCH_MODULES:
-        assert m.replace(".", "/") + ".py" in SCANNED
+    for m in PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES + ("galvatron_tpu_torch.data",):
+        assert m.replace(".", "/") + ".py" in SCANNED or \
+            m.replace(".", "/") + "/__init__.py" in SCANNED
 
 
-@pytest.mark.parametrize("module", PARALLEL_MODULES + SEARCH_MODULES)
+@pytest.mark.parametrize("module", PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES)
 def test_parallel_module_alone_loads_no_jax(module):
-    """Each module of the hybrid runtime, imported first and alone in a
-    fresh interpreter, pulls in neither JAX nor the JAX package."""
+    """Each module of the hybrid runtime, the search and the training
+    services, imported first and alone in a fresh interpreter, pulls in
+    neither JAX, the JAX package, Orbax nor TensorStore."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'galvatron_tpu' or m.startswith('galvatron_tpu.'))\n"
+        + _BAD_MODULES +
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -286,3 +286,43 @@ def test_emitted_plan_describes_itself(tmp_path):
         assert set(saved) <= PORT.pc.KNOWN_KEYS
         assert PORT.pc.check_plan(str(out)) == []
         assert PORT.cli.main(["check-plan", str(out), "--strict", "1"]) == 0
+
+
+TRAIN_TINY = ["--model_size", "llama-0.3b", "--num_layers", "4", "--hidden_size", "64",
+              "--num_heads", "4", "--ffn_dim", "128", "--vocab_size", "128", "--seq_length",
+              "32", "--global_train_batch_size", "8", "--mixed_precision", "fp32",
+              "--attn_impl", "xla", "--train_iters", "1"]
+
+
+@pytest.mark.parametrize("how", ["strategy file", "global flags"])
+def test_both_trainers_refuse_an_invalid_plan_before_building_a_model(how, tmp_path,
+                                                                      monkeypatch):
+    """The plan check at start-up (the JAX trainer's two call sites): a
+    strategy file with 2 layers for a 4-layer model (GTA006), and GLOBAL
+    flags whose chunks do not divide the batch (GTA009). Both trainers
+    raise ``PlanError`` with the same codes, and neither builds a runtime."""
+    from galvatron_tpu.core import arguments as jargs
+    from galvatron_tpu.core import trainer as jtrainer
+    from galvatron_tpu_torch.core import arguments as targs
+    from galvatron_tpu_torch.core import trainer as ttrainer
+
+    def built(*a, **k):
+        raise AssertionError("a runtime was built before the plan check")
+
+    monkeypatch.setattr(jtrainer, "build_runtime", built)
+    monkeypatch.setattr(ttrainer, "build_runtime", built)
+    if how == "strategy file":
+        plan = tmp_path / "plan.json"
+        plan.write_text(json.dumps(PORT.st.HybridParallelConfig.uniform(2).to_json_dict()))
+        extra = ["--galvatron_config_path", str(plan)]
+        want = "GTA006"
+    else:
+        extra, want = ["--chunks", "3"], "GTA009"
+    with pytest.raises(JAX.pc.PlanError) as je:
+        jtrainer.train(jargs.initialize_galvatron("train", TRAIN_TINY + extra), verbose=False)
+    with pytest.raises(PORT.pc.PlanError) as te:
+        ttrainer.train(targs.initialize_galvatron("train", TRAIN_TINY + extra + ["--device",
+                                                                                 "cpu"]))
+    assert want in codes(je.value.diagnostics)
+    assert codes(te.value.diagnostics) == codes(je.value.diagnostics)
+    assert str(te.value).startswith("refusing to start")

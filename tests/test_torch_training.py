@@ -175,9 +175,18 @@ def test_dataloader_batches_are_bit_identical(seed, bsz, start):
         np.testing.assert_array_equal(a, b)
 
 
-def test_dataloader_corpus_path_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdl.build_dataloader(_cfgs()[1], 4, data_path="corpus")
+def test_dataloader_corpus_path_is_not_ported(tmp_path):
+    """The corpus path is ported now (tests/test_torch_data.py holds its
+    batches to the JAX package's): a missing corpus is the reference's
+    FileNotFoundError, a corpus whose vocab exceeds the model's its
+    ValueError."""
+    from galvatron_tpu_torch.core.data import write_indexed_dataset
+
+    with pytest.raises(FileNotFoundError, match="idx.json"):
+        tdl.build_dataloader(_cfgs()[1], 4, data_path=str(tmp_path / "corpus"))
+    write_indexed_dataset(str(tmp_path / "big"), [[1, 2, 3] * 40], vocab_size=1000)
+    with pytest.raises(ValueError, match="exceeds the model vocab"):
+        tdl.build_dataloader(_cfgs()[1], 4, 16, data_path=str(tmp_path / "big"))
 
 
 @pytest.mark.parametrize("ckpt", ["none", "full", "selective"])
@@ -238,8 +247,14 @@ def test_five_step_trajectory_matches_jax_build_runtime(chunks, attn):
 
 def test_runtime_refuses_fp16_bad_chunks_and_misshapen_batches():
     _, tcfg = _cfgs()
+    # fp16 runs the blocked flash kernels only: the GPT family (grid kernels)
+    # and fused_norm are ROADMAP §1.1's remainder
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thybrid.build_runtime(tcfg, mixed_precision="fp16", device="cpu")
+        thybrid.build_runtime(tcfg.replace(pos_embed="learned", norm_type="layernorm"),
+                              mixed_precision="fp16", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        thybrid.build_runtime(tcfg.replace(fused_norm=True), mixed_precision="fp16",
+                              device="cpu")
     with pytest.raises(ValueError, match="chunks"):
         thybrid.build_runtime(tcfg, global_batch_size=6, chunks=4, device="cpu")
     rt = thybrid.build_runtime(tcfg, global_batch_size=2, seq_len=16, device="cpu")
@@ -274,11 +289,15 @@ def test_cli_train_refuses_unported_flags():
     # flags of features not ported yet are argparse errors; the pipeline
     # flags parse, and --pp_deg 2 in a world of one rank raises the
     # world-size error instead of running pp=1
-    for flag in (["--save", "d"], ["--data_path", "c"], ["--context_parallel_deg", "2"],
+    # (--save / --data_path are ported: tests/test_torch_checkpoint.py and
+    # tests/test_torch_data.py); --pack_sequences 1 parses and raises
+    for flag in (["--num_slices", "2"], ["--load_hf", "d"], ["--context_parallel_deg", "2"],
                  ["--global_tp_overlap", "1"], ["--grad_overlap", "1"],
                  ["--pipeline_type", "zero_bubble"], ["--pp_division", "2,x"]):
         with pytest.raises(SystemExit):
             cli.main(["train", "--device", "cpu", *flag])
+    with pytest.raises(NotImplementedError, match="packed sequences"):
+        cli.main(["train", "--device", "cpu", "--pack_sequences", "1"])
     ns = cli_args.initialize_galvatron("train", ["--pp_deg", "2", "--vpp_deg", "2", "--pp_division",
                                         "2,2", "--pipeline_type", "pipedream_flush"])
     assert (ns.pp_deg, ns.vpp_deg, ns.pp_division, ns.pipeline_type) == (
