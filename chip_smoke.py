@@ -12,7 +12,9 @@ its result line:
 2. the paged decode kernel against its plain PyTorch version on the same
    CUDA tensors, at the serving path's shapes (llama-7b decode: 4 rows, 32
    heads, head_dim 128, 16-token blocks, 128 blocks per row, bf16), a GQA
-   shape, fp32, one row of 16384 positions and 7-token blocks; bf16 must be
+   shape, fp32, one row of 16384 positions, 7-token blocks, and gpt-1.5b's
+   decode (4 rows, 25 heads of 64, one per kv head, 16-token blocks, 64
+   blocks per row, bf16: the kernel's head_dim-64 instance); bf16 must be
    within one output ulp of the plain version computed in fp32, fp32 within
    1e-5. One JSON line per shape with the split plan, the kernel's, the
    plain version's and the library call's (SDPA over gathered K/V, timed
@@ -192,6 +194,24 @@ its result line:
    the loss-scale trajectory, skipped steps and iter_ms beside phase 7's;
    (e) ``--rampup_batch_size 4 4 32`` to 16 at 2 layers, 6 steps: the batch
    sizes ``BatchSizeRampup`` gives.
+
+16. the slot backend, GPT serving, ``cli generate`` and the serialized path
+   (phase name ``slots``), in this process: (a) ``cli serve --model_size
+   llama-7b`` at its default backend (the contiguous slot cache; 32 layers,
+   bf16, ``--num_slots 4 --prefill_chunk 32``) driven as phase 6 (its
+   prompts, 32 greedy tokens each, the repeated prompt repeats, /healthz
+   ``kv_backend: slot``, a clean drain, ``paged_decode`` launched 0 times),
+   its tokens held to phase 6's by the margin rule (``MARGIN_TOL``: equal up
+   to the first difference, and there the two tokens' logits from a forward
+   of the common prefix within 2^-4 of the logits' rms); (b) ``cli serve
+   --model_size gpt-1.5b`` (all 48 layers) with ``--kv_num_blocks -1``,
+   ``paged_decode`` launched 48 x decode steps, then at the slot backend,
+   held to the paged run by the margin rule; (c) ``cli generate
+   --model_size llama-7b --max_new_tokens 32`` of phase 6's first two
+   prompts: JSON lines whose completions are ``generate_np``'s tokens,
+   held to (a)'s by the margin rule; (d) ``cli serve --num_slots 0`` at 2
+   layers: one request whose tokens equal ``generate_np``'s. TTFT p50/p95,
+   decode step ms, tokens/s and peak memory of (a) and (b) beside phase 6's.
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
@@ -392,6 +412,10 @@ def phase_kernels(torch):
         ("paged_decode long row", bf16, dict(main_shape, b=1, mb=1024), [16383]),
         # --kv_block_size 7: pages that straddle every warp tile
         ("paged_decode bs7", bf16, dict(main_shape, bs=7, mb=293), rand_offsets),
+        # gpt-1.5b's decode (phase 16 (b)): 25 heads of 64, one per kv head
+        # (the kernel's NE = 2 instance), 64 blocks a row (max_seq_len 1024)
+        ("paged_decode gpt", bf16, dict(b=4, n=25, kv=25, d=64, bs=16, mb=64),
+         [rnd.randrange(0, 1024) for _ in range(4)]),
     ]
     lines = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -451,7 +475,7 @@ def phase_kernels(torch):
         del case, kg, vg, out, ref32
     torch.cuda.empty_cache()
     RESULTS["paged"] = lines  # "kernels" is the ten-kernel line's key
-    return lines["paged_decode main"]
+    return lines
 
 
 # ---------------------------------------------------------------------------
@@ -1447,19 +1471,13 @@ def _text(rng, n):
     return "".join(letters[i] for i in rng.randint(0, len(letters), n))
 
 
-def phase_serve(torch, smi):
-    import numpy as np
-
+def _start_cli_serve(argv, what):
+    """``cli.main(argv)`` (a ``serve`` command, ``--port`` included) in a
+    thread of this process; returns (base URL, thread, return codes, errors)
+    once /readyz is 200."""
     from galvatron_tpu_torch import cli
-    from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
-    from galvatron_tpu_torch.ops import flash_attention as fa
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    argv = ["serve", "--model_size", "llama-7b", "--kv_num_blocks", "-1",
-            "--num_slots", "4", "--prefill_chunk", "32", "--port", str(port),
-            "--request_ttl_s", "600"]
+    port = argv[argv.index("--port") + 1]
     rc, err = [], []
 
     def serve():
@@ -1469,25 +1487,68 @@ def phase_serve(torch, smi):
             err.append(e)
             raise
 
-    fa.paged_decode_attention.launches = 0  # the main path's count starts here
-    t0 = time.perf_counter()
     server = threading.Thread(target=serve, name="cli-serve", daemon=True)
     server.start()
     base = f"http://127.0.0.1:{port}"
     deadline = time.time() + 600
     while True:
-        check(not err, f"cli serve died: {err[:1]}")
+        check(not err, f"{what}: cli serve died: {err[:1]}")
         try:
             if _http(base + "/readyz", timeout=10)[0] == 200:
                 break
         except OSError:
             pass
-        check(time.time() < deadline, "cli serve never became ready")
+        check(time.time() < deadline, f"{what}: cli serve never became ready")
         time.sleep(0.2)
-    ready_s = time.perf_counter() - t0
+    return base, server, rc, err
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return str(s.getsockname()[1])
+
+
+def _serve_prompts():
+    """Phase 6's prompts: ~50 / 300 / 700 bytes and one sharing the 700's
+    first 640 bytes."""
+    import numpy as np
+
     rng = np.random.RandomState(0)
     p50, p300, p700 = _text(rng, 50), _text(rng, 300), _text(rng, 700)
-    prompts = [p50, p300, p700, p700[:640] + _text(rng, 20)]
+    return [p50, p300, p700, p700[:640] + _text(rng, 20)]
+
+
+def _drive_serve(torch, smi, argv, what, layers, backend):
+    """The serving path's drive (phases 6 and 16): ``cli serve`` with
+    ``argv`` in a thread; 4 concurrent greedy POST /api requests of phase
+    6's prompts, 32 tokens each, then the 300-byte prompt again, which must
+    repeat; /healthz must name ``backend``; POST /drain must report no leak.
+    The paged kernel's count is set to 0 just before and read just after.
+    Returns (result line, {prompt: tokens}, (params, cfg) of the engine)."""
+    from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
+    from galvatron_tpu_torch.ops import flash_attention as fa
+    from galvatron_tpu_torch.serving import engine as engine_mod
+
+    engines = []
+
+    class _Seen(engine_mod.Engine):  # keeps the served params for the margin rule
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append((self.params, self.cfg))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    real, engine_mod.Engine = engine_mod.Engine, _Seen
+    try:
+        fa.paged_decode_attention.launches = 0  # the main path's count starts here
+        t0 = time.perf_counter()
+        base, server, rc, err = _start_cli_serve(argv, what)
+    finally:
+        engine_mod.Engine = real
+    ready_s = time.perf_counter() - t0
+    prompts = _serve_prompts()
     results = [None] * len(prompts)
 
     def post(i):
@@ -1503,38 +1564,234 @@ def phase_serve(torch, smi):
     burst_s = time.perf_counter() - t1
     tok = ByteTokenizer()
     for i, r in enumerate(results):
-        check(r is not None and r[0] == 200, f"request {i}: {r}")
+        check(r is not None and r[0] == 200, f"{what}: request {i}: {r}")
         n = len(r[1]["tokens"][0]) - len(tok.encode(prompts[i]))
-        check(n == 32, f"request {i}: {n} generated tokens, expected 32")
-    code, again = _http(base + "/api", {"prompts": [p300], "tokens_to_generate": 32})
+        check(n == 32, f"{what}: request {i}: {n} generated tokens, expected 32")
+    code, again = _http(base + "/api", {"prompts": [prompts[1]], "tokens_to_generate": 32})
     check(code == 200 and again["tokens"] == results[1][1]["tokens"],
-          "the repeated prompt gave another completion")
+          f"{what}: the repeated prompt gave another completion")
     code, health = _http(base + "/healthz")
-    check(code == 200, f"/healthz {code}")
+    check(code == 200, f"{what}: /healthz {code}")
     st = health["serving"]
+    check(st["kv_backend"] == backend, f"{what}: /healthz kv_backend {st['kv_backend']}")
     code, drained = _http(base + "/drain", {})
-    check(code == 200 and drained.get("leaked") is False, f"/drain: {drained}")
+    check(code == 200 and drained.get("leaked") is False, f"{what}: /drain: {drained}")
     server.join(120)
-    check(not server.is_alive() and rc == [0], f"cli serve did not exit cleanly: {rc} {err}")
+    check(not server.is_alive() and rc == [0], f"{what}: cli serve did not exit cleanly: "
+          f"{rc} {err}")
     launches = fa.paged_decode_attention.launches  # read right after the main path
-    check(launches == SERVE_LAYERS * st["decode_steps"],
-          f"{launches} kernel launches, expected {SERVE_LAYERS} x {st['decode_steps']} decode steps")
+    want = layers * st["decode_steps"] if backend == "paged" else 0
+    check(launches == want, f"{what}: {launches} paged_decode launches, expected {want} "
+          f"({backend} backend, {layers} layers x {st['decode_steps']} decode steps)")
     dh = st["decode_step_hist"]
     res = {
-        "card": smi, "model": "llama-7b", "layers": health["model"]["num_layers"],
+        "card": smi, "backend": backend, "layers": health["model"]["num_layers"],
         "hidden": health["model"]["hidden_size"], "requests": len(prompts) + 1,
         "prompt_bytes": [len(p) for p in prompts],
         "ready_s": ready_s, "burst_s": burst_s,
         "ttft_p50_s": st["ttft_p50_s"], "ttft_p95_s": st["ttft_p95_s"],
         "decode_step_ms_mean": 1e3 * dh["sum"] / max(1, dh["count"]),
         "decode_steps": st["decode_steps"], "tokens_generated": st["tokens_generated"],
-        "tokens_per_s": st["tokens_per_s"], "prefix_cache_hits": st["prefix_cache_hits"],
+        "tokens_per_s": st["tokens_per_s"], "prefix_cache_hits": st.get("prefix_cache_hits"),
         "kernel_launches": launches, "leaked": drained["leaked"],
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        # decode is host-bound: threads an earlier phase left running would
+        # move its times
+        "host_threads": threading.active_count(),
     }
+    tokens = {p: r[1]["tokens"][0] for p, r in zip(prompts, results)}
+    return res, tokens, engines[0]
+
+
+#: phase 6's greedy tokens per prompt, for phase 16's margin rule
+SERVE_TOKENS: dict = {}
+
+
+def phase_serve(torch, smi):
+    argv = ["serve", "--model_size", "llama-7b", "--kv_num_blocks", "-1",
+            "--num_slots", "4", "--prefill_chunk", "32", "--port", _free_port(),
+            "--request_ttl_s", "600"]
+    res, tokens, _ = _drive_serve(torch, smi, argv, "phase 6", SERVE_LAYERS, "paged")
+    res = {"card": smi, "model": "llama-7b", **{k: v for k, v in res.items() if k != "card"}}
+    SERVE_TOKENS["llama-7b"] = tokens
     log("phase 6 serve:", json.dumps(res))
     RESULTS["serve"] = res
-    return launches
+    return res["kernel_launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the slot backend, GPT serving, cli generate, the serialized path
+# ---------------------------------------------------------------------------
+
+#: two greedy runs of one model in bf16 through other code (the slot
+#: backend's ``decode_attention`` against the paged kernel, other batch
+#: shapes for cuBLAS) may part where two logits lie within a rounding of
+#: each other: tokens must agree up to the first difference, and there the
+#: two runs' tokens' logits (from a forward of the common prefix) must lie
+#: within this share of the logits' rms
+MARGIN_TOL = 2 ** -4
+SLOT_GEN_PROMPTS = 2  # 16 (c): phase 6's first two prompts
+SERIAL_LAYERS = 2  # 16 (d)
+
+
+def _margin_rule(torch, params, cfg, prompt_ids, a, b, what):
+    """Hold two greedy token lists (prompt + completion) of one model to
+    each other by the margin rule; returns what was read."""
+    from galvatron_tpu_torch.models import modeling
+
+    check(a[:len(prompt_ids)] == b[:len(prompt_ids)] == prompt_ids, f"{what}: prompts differ")
+    n = min(len(a), len(b))
+    j = next((i for i in range(len(prompt_ids), n) if a[i] != b[i]), None)
+    if j is None:
+        check(len(a) == len(b), f"{what}: {len(a)} against {len(b)} tokens")
+        return {"equal": True, "first_difference": None}
+    with torch.inference_mode():
+        ids = torch.tensor([a[:j]], device=params["embed"]["tok"].device)
+        logits = modeling.forward(params, ids, cfg)[0, -1]
+    logits = logits.float()
+    rms = float(logits.pow(2).mean().sqrt())
+    gap = abs(float(logits[a[j]] - logits[b[j]]))
+    top2 = logits.topk(2).values
+    out = {"equal": False, "first_difference": j - len(prompt_ids), "gap": gap,
+           "top2_margin": float(top2[0] - top2[1]), "logit_rms": rms,
+           "tolerance": MARGIN_TOL * rms}
+    check(gap <= MARGIN_TOL * rms, f"{what}: tokens part at generated position "
+          f"{j - len(prompt_ids)} with a logit gap {gap} > {MARGIN_TOL} x rms {rms}")
+    return out
+
+
+def _margins(torch, params, cfg, runs_a, runs_b, what):
+    from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    return {f"{len(p)} bytes": _margin_rule(torch, params, cfg, tok.encode(p), runs_a[p],
+                                            runs_b[p], f"{what}, {len(p)}-byte prompt")
+            for p in runs_a}
+
+
+def phase_slots(torch, smi):
+    """16 (a)-(d): the default ``cli serve`` (slot backend) at llama-7b, 32
+    layers; gpt-1.5b (48 layers) on the paged then the slot backend; ``cli
+    generate`` at llama-7b; the serialized path at 2 layers."""
+    import io
+
+    from galvatron_tpu_torch import cli, server
+    from galvatron_tpu_torch.models import generation, modeling
+    from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
+    from galvatron_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    # (a) the default backend: cli serve with no --kv_num_blocks
+    argv = ["serve", "--model_size", "llama-7b", "--num_slots", "4", "--prefill_chunk", "32",
+            "--port", _free_port(), "--request_ttl_s", "600"]
+    res_a, tok_a, (params, cfg) = _drive_serve(torch, smi, argv, "16 (a)", SERVE_LAYERS, "slot")
+    if "llama-7b" in SERVE_TOKENS:
+        res_a["against_phase6_paged"] = _margins(torch, params, cfg, SERVE_TOKENS["llama-7b"],
+                                                 tok_a, "16 (a) slot against phase 6 paged")
+    del params, cfg
+    out["a_llama7b_slot"] = res_a
+    log("phase 16 (a) serve llama-7b, slot backend:", json.dumps(res_a))
+    # (b) gpt-1.5b, all 48 layers: paged, then slot
+    gpt_layers = modeling.PRESETS["gpt-1.5b"].num_layers
+    runs, toks = {}, {}
+    for backend, extra in (("paged", ["--kv_num_blocks", "-1"]), ("slot", [])):
+        argv = ["serve", "--model_size", "gpt-1.5b", "--num_slots", "4", "--prefill_chunk",
+                "32", "--port", _free_port(), "--request_ttl_s", "600", *extra]
+        # the slot run's weights stay for the margin rule; the paged run's go
+        # before the slot run, so they are no part of its peak memory
+        params = cfg = None
+        runs[backend], toks[backend], (params, cfg) = _drive_serve(
+            torch, smi, argv, f"16 (b) {backend}", gpt_layers, backend)
+    out["b_gpt_paged_launches"] = runs["paged"]["kernel_launches"]
+    res_b = {**runs, "slot_against_paged": _margins(torch, params, cfg, toks["paged"],
+                                                    toks["slot"], "16 (b) slot against paged")}
+    del params, cfg, runs
+    out["b_gpt15b"] = res_b
+    log("phase 16 (b) serve gpt-1.5b, paged and slot:", json.dumps(res_b))
+    # (c) cli generate at llama-7b: greedy, two of phase 6's prompts, on
+    # the weights (a) served (the cli draws seed 0 on the card either way)
+    prompts = _serve_prompts()[:SLOT_GEN_PROMPTS]
+    got = []
+    real_np = generation.generate_np
+
+    def spy(params, cfg, *a, **kw):
+        got.append((params, cfg, real_np(params, cfg, *a, **kw)))
+        return got[-1][2]
+
+    fa.paged_decode_attention.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    generation.generate_np = spy
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["generate", "--model_size", "llama-7b", "--max_new_tokens", "32",
+                           *sum((["--prompt", p] for p in prompts), [])])
+    finally:
+        generation.generate_np = real_np
+    gen_s = time.perf_counter() - t0
+    check(rc == 0, f"16 (c): cli generate returned {rc}")
+    check(fa.paged_decode_attention.launches == 0, "16 (c): generate launched paged_decode")
+    params, cfg, outs = got[0]
+    lines = [json.loads(ln) for ln in buf.getvalue().strip().splitlines()]
+    tok = ByteTokenizer()
+    toks_c = dict(zip(prompts, outs))
+    check([ln["prompt"] for ln in lines] == prompts, f"16 (c): JSON lines {lines}")
+    check(all(ln["completion"] == tok.decode(toks_c[p][len(tok.encode(p)):])
+              for ln, p in zip(lines, prompts)), "16 (c): completions are not generate_np's")
+    check(all(len(toks_c[p]) - len(tok.encode(p)) == 32 for p in prompts),
+          "16 (c): not 32 tokens a prompt")
+    res_c = {"card": smi, "prompts": len(prompts), "seconds": gen_s,
+             "against_16a_slot": _margins(torch, params, cfg, {p: tok_a[p] for p in prompts},
+                                          toks_c, "16 (c) generate against 16 (a)")}
+    del params, cfg, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["c_llama7b_generate"] = res_c
+    log("phase 16 (c) cli generate llama-7b:", json.dumps(res_c))
+    # (d) the serialized path (--num_slots 0) at 2 layers
+    services = []
+
+    class _Seen(server.GenerationService):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            services.append(self)
+
+    real_gs, server.GenerationService = server.GenerationService, _Seen
+    try:
+        argv = ["serve", "--model_size", "llama-7b", "--num_layers", str(SERIAL_LAYERS),
+                "--num_slots", "0", "--port", _free_port()]
+        base, srv, rc, err = _start_cli_serve(argv, "16 (d)")
+    finally:
+        server.GenerationService = real_gs
+    prompt = _serve_prompts()[1]
+    code, resp = _http(base + "/api", {"prompts": [prompt], "tokens_to_generate": 16})
+    check(code == 200, f"16 (d): {code} {resp}")
+    code, health = _http(base + "/healthz")
+    check(code == 200 and "serving" not in health and health["gate"]["in_use"] == 0,
+          f"16 (d): /healthz {health}")
+    svc = services[0]
+    want = generation.generate_np(svc.params, svc.cfg, [tok.encode(prompt)], max_new_tokens=16,
+                                  eos_id=tok.eos_id, pad_id=tok.pad_id)
+    code, drained = _http(base + "/drain", {})
+    srv.join(120)
+    check(not srv.is_alive() and rc == [0] and drained.get("leaked") is False,
+          f"16 (d): cli serve did not drain cleanly: {rc} {err} {drained}")
+    check(resp["tokens"] == want, "16 (d): the serialized path's tokens are not generate_np's")
+    res_d = {"card": smi, "layers": SERIAL_LAYERS,
+             "generated_tokens": len(want[0]) - len(tok.encode(prompt)),
+             "equal_to_generate_np": True, "gate": health["gate"]}
+    del svc, services
+    out["d_serialized"] = res_d
+    log("phase 16 (d) serve --num_slots 0:", json.dumps(res_d))
+    beside = {k: {"phase6_paged_llama7b": RESULTS.get("serve", {}).get(k),
+                  "16a_slot_llama7b": res_a[k], "16b_paged_gpt15b": res_b["paged"][k],
+                  "16b_slot_gpt15b": res_b["slot"][k]}
+              for k in ("ttft_p50_s", "ttft_p95_s", "decode_step_ms_mean", "tokens_per_s",
+                        "max_memory_allocated_gb")}
+    log("phase 16 beside phase 6:", json.dumps(beside))
+    out["beside_phase6"] = beside
+    RESULTS["slots"] = out
+    return out["b_gpt_paged_launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -2925,7 +3182,7 @@ def rank_worker(outdir, argv, ref_params=None) -> int:
 
 #: the phases by name, for ``--phases``; a full run takes them all
 PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train", "hybrid",
-          "pipeline", "nccl", "search", "services")
+          "pipeline", "nccl", "search", "services", "slots")
 
 
 def main() -> int:
@@ -3059,6 +3316,11 @@ def main() -> int:
     if "services" in phases:
         launches["services_fp16"] = phase_services(torch, smi, train_res)
         mark("15 services")
+    if "slots" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["paged_gpt"] = phase_slots(torch, smi)
+        mark("16 slots")
     RESULTS["total_seconds"] = time.perf_counter() - clock["start"]
     log("phase seconds:", json.dumps(seconds), f"total {RESULTS['total_seconds']:.1f} s")
     if set(phases) != set(PHASES):
@@ -3066,7 +3328,9 @@ def main() -> int:
             _write_out(args.out, RESULTS)
         log(f"partial run ({','.join(phases)}): no kernels line, no result line")
         return 0
-    paged_line, grid_line, norm_lines = lines["paged"], lines["grid"], lines["norm"]
+    paged_line = lines["paged"]["paged_decode main"]
+    gpt_paged_line = lines["paged"]["paged_decode gpt"]
+    grid_line, norm_lines = lines["grid"], lines["norm"]
     flash_line, fp16_line = lines["flash"]["flash main"], lines["flash"]["flash main fp16"]
     src = "galvatron_tpu_torch/ops/csrc/"
     replaces = "galvatron_tpu/ops/flash_attention.py:"
@@ -3098,6 +3362,14 @@ def main() -> int:
          "ms": paged_line["kernel_ms"], "plain_ms": paged_line["plain_ms"],
          "bound_ms": paged_line["bound_ms"], "bound_by": paged_line["bound_by"],
          "library_ms": paged_line["library_ms"]},
+        # the same kernel's head_dim-64 instance at gpt-1.5b's decode shape,
+        # with its launches on phase 16 (b)'s paged serving path
+        {"name": "paged_decode_d64", "route": "cuda", "source": src + "paged_decode.cu",
+         "replaces": replaces + "1152",
+         "launches": launches["paged_gpt"], "max_abs_err": gpt_paged_line["max_abs_err"],
+         "ms": gpt_paged_line["kernel_ms"], "plain_ms": gpt_paged_line["plain_ms"],
+         "bound_ms": gpt_paged_line["bound_ms"], "bound_by": gpt_paged_line["bound_by"],
+         "library_ms": gpt_paged_line["library_ms"]},
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
          "replaces": replaces + "272",
          "launches": launches["llama"]["flash_fwd"], "max_abs_err": flash_line["fwd_max_abs_err"],

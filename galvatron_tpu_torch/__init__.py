@@ -6,17 +6,19 @@ module here is held against; this package imports ``torch`` and never
 so each counterpart is easy to find:
 
 - ``models/``: ``modeling`` (decoder-LM config, RMSNorm, RoPE, SwiGLU,
-  fused QKV, einsum attention, init), ``generation`` (paged KV-cache
-  forward, host sampling distribution), ``tokenizer`` (byte tokenizer).
+  fused QKV, einsum attention, init), ``generation`` (contiguous, slot-wise
+  and paged KV-cache forwards, sampling, the generation loop),
+  ``tokenizer`` (byte tokenizer).
 - ``ops/``: ``flash_attention`` (paged decode attention: plain PyTorch
   version, CUDA kernel wrapper, launch counter), ``csrc/*.cu`` (hand-written
   Hopper kernels), ``_build`` (nvcc build + ctypes loading at first use).
-- ``serving/``: the continuous-batching engine on the paged KV backend, its
-  scheduler, request lifecycle and block allocator.
+- ``serving/``: the continuous-batching engine on the slot or the paged KV
+  backend, its scheduler, request lifecycle, slot and block allocators.
 - ``core/``: the trainer and its services (``checkpoint``, ``data``,
   ``dataloader``, ``optim``, ``schedules``); ``data/``: sharded corpora,
   mixtures, prefetch; ``parallel/``: the hybrid-parallel runtime.
-- ``server`` (HTTP front end) and ``cli`` (``train``, ``serve`` and more).
+- ``server`` (HTTP front end) and ``cli`` (``train``, ``generate``, ``serve``
+  and more).
 - ``bridge``: weights and train states from the JAX package's numpy trees
   and back.
 

@@ -9,12 +9,14 @@
                     the card (--attn_impl auto), committed checkpoints
                     (--save, --load); a line and a train_iter JSONL record
                     (--metrics_path) per iteration
+  generate          greedy or sampled completions of --prompt (repeatable)
+                    through the KV-cache generation loop; one JSON line
+                    {"prompt", "completion"} per prompt
   serve             REST generation server over the continuous-batching
-                    engine on the paged KV backend (--kv_num_blocks -1),
-                    weights from a trainer checkpoint (--load: the newest
-                    committed step, verified, an older one when it is
-                    corrupt) or initialised from a seed; LLaMA family only
-                    (GPT serving: ROADMAP.md §1.10)
+                    engine on the contiguous slot KV cache (the default,
+                    --kv_num_blocks 0) or the paged one (--kv_num_blocks
+                    -1), or the serialized single-shot path (--num_slots
+                    0); LLaMA and GPT/OPT families
   profile           per-layer time and activation memory of the model
                     (layer-difference method on the real train step) → the
                     reference-schema computation / memory JSONs
@@ -25,11 +27,14 @@
                     `train --galvatron_config_path` runs
   check-plan        static plan validation (GTA… diagnostics, no device)
 
-train, serve, profile and profile-hardware run on the card (--device cuda,
-the default) or, when asked, on the CPU (--device cpu). search with profile
-paths or --analytic_costs 1 and check-plan touch no device. The reference's
-other modes (generate, warmup, run-elastic, audit-comm, ...) are not ported
-yet (ROADMAP.md §1).
+generate and serve take weights from a trainer checkpoint (--load: the newest
+committed step, verified, an older one when it is corrupt) or initialise them
+from seed 0. train, generate, serve, profile and profile-hardware run on the
+card (--device cuda, the default) or, when asked, on the CPU (--device cpu).
+search with profile paths or --analytic_costs 1 and check-plan touch no
+device. The reference's
+other modes (warmup, run-elastic, audit-comm, ...) are not ported yet
+(ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import threading
 from typing import List, Optional
 
 
-_MODES = ("train", "serve", "profile", "profile-hardware", "search", "check-plan")
+_MODES = ("train", "generate", "serve", "profile", "profile-hardware", "search", "check-plan")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -72,17 +77,53 @@ def main(argv: Optional[List[str]] = None) -> int:
     from galvatron_tpu_torch.device import resolve_device
     from galvatron_tpu_torch.models import modeling
     from galvatron_tpu_torch.models.tokenizer import build_tokenizer
-    from galvatron_tpu_torch.server import GenerationService, run_server
-    from galvatron_tpu_torch.serving.engine import Engine
 
     ns = initialize_galvatron(mode, rest)
+    if ns.load_hf:
+        raise NotImplementedError(
+            "--load_hf (HuggingFace weights) is not ported yet: ROADMAP.md §1.11 "
+            "'HF import/export'; use --load with a trainer checkpoint"
+        )
     cfg = model_config_from_args(ns)
-    modeling.check_serving_supported(cfg)  # before any weight is allocated
+    modeling.check_supported(cfg)  # before any weight is allocated
     device = resolve_device(ns.device)
     tok = build_tokenizer(ns.tokenizer)
     if tok.vocab_size > cfg.vocab_size:
         cfg = cfg.replace(vocab_size=tok.vocab_size)
     params = modeling.cast_params(_load_or_init_params(ns, cfg, device), cfg)
+    if ns.attn_impl != "auto":
+        cfg = cfg.replace(attn_impl=ns.attn_impl)
+    if mode == "generate":
+        return _generate_mode(ns, cfg, tok, params)
+    return _serve_mode(ns, cfg, tok, params, device)
+
+
+def _generate_mode(ns, cfg, tok, params) -> int:
+    from galvatron_tpu_torch.models import generation
+
+    prompts = ns.prompt or ["Hello"]
+    encoded = [tok.encode(p) for p in prompts]
+    outs = generation.generate_np(
+        params, cfg, encoded, seed=ns.seed,
+        max_new_tokens=ns.max_new_tokens, temperature=ns.temperature,
+        top_k=ns.top_k, top_p=ns.top_p, eos_id=tok.eos_id, pad_id=tok.pad_id,
+    )
+    for p, e, o in zip(prompts, encoded, outs):
+        print(json.dumps({"prompt": p, "completion": tok.decode(o[len(e):])}), flush=True)
+    return 0
+
+
+def _serve_mode(ns, cfg, tok, params, device) -> int:
+    from galvatron_tpu_torch.server import GenerationService, run_server
+    from galvatron_tpu_torch.serving.engine import Engine
+
+    if ns.num_slots <= 0:
+        # the serialized single-shot path: generate_np under one lock
+        service = GenerationService(cfg, tok, None, ns.max_new_tokens, device=device,
+                                    params=params, seed=ns.seed)
+        run_server(service, port=ns.port, host=ns.host, max_pending=ns.max_pending,
+                   drain_timeout_s=ns.drain_timeout_s)
+        return 0
     engine = Engine(
         params, cfg, device=device,
         num_slots=ns.num_slots,

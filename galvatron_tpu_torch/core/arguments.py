@@ -1,5 +1,6 @@
-"""Flags of the ported modes: the model group, the ``serve`` group, the
-step-program group, the training group, the hybrid-parallel GLOBAL flags
+"""Flags of the ported modes: the model group, the ``generate`` group (modes
+``generate`` and ``serve``), the step-program group, the training group, the
+hybrid-parallel GLOBAL flags
 (pipelines: ``--pp_deg``, ``--pp_division``, ``--vpp_deg``,
 ``--pipeline_type``; TP with its layout, SP, DDP / ZeRO-2 / ZeRO-3,
 recompute, vocab TP / SP, chunks, and ``--galvatron_config_path``), and the
@@ -62,28 +63,45 @@ def _add_model_args(p: argparse.ArgumentParser):
     g.add_argument("--moe_capacity_factor", type=float, default=None)
 
 
-def _add_serve_args(p: argparse.ArgumentParser):
-    g = p.add_argument_group("serve")
+def _add_generate_args(p: argparse.ArgumentParser):
+    """``generate`` and ``serve`` share one group, as in the reference."""
+    g = p.add_argument_group("generate")
     g.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="where the model runs; 'cuda' without a card is an error")
+    g.add_argument("--load", type=str, default=None,
+                   help="checkpoint directory (trainer state): its newest committed "
+                   "step's params; default = random weights from seed 0")
+    g.add_argument("--load_hf", type=str, default=None,
+                   help="a local HuggingFace checkpoint: not ported yet (ROADMAP.md "
+                   "§1.11 'HF import/export'), raises")
     g.add_argument("--tokenizer", type=str, default="byte",
                    help="'byte' (the only tokenizer ported so far)")
+    g.add_argument("--prompt", type=str, action="append", default=None,
+                   help="generate: a prompt (repeatable; default 'Hello')")
     g.add_argument("--max_new_tokens", type=int, default=64,
-                   help="default tokens_to_generate of a request")
-    g.add_argument("--seed", type=int, default=1234, help="per-request sampling seed base")
-    g.add_argument("--load", type=str, default=None,
-                   help="checkpoint directory (trainer state): serve its newest committed "
-                   "step's params; default = random weights from a seed")
+                   help="generate: tokens per prompt; serve: a request's default "
+                   "tokens_to_generate")
+    g.add_argument("--temperature", type=float, default=0.0)
+    g.add_argument("--top_k", type=int, default=0)
+    g.add_argument("--top_p", type=float, default=0.0)
+    g.add_argument("--seed", type=int, default=1234,
+                   help="generate: the sampling generator's seed; serve: the "
+                   "per-request sampling seed base")
+    g.add_argument("--attn_impl", type=str, default="auto", choices=["auto", "flash", "xla"],
+                   help="attention override for the model config; 'auto' keeps the "
+                   "model's own (the cache forwards attend with the einsum path and "
+                   "the paged-decode kernel whatever it says)")
     g.add_argument("--port", type=int, default=5000)
     g.add_argument("--host", type=str, default="127.0.0.1")
     g.add_argument("--num_slots", type=int, default=4,
-                   help="KV slots = max concurrently decoding requests")
+                   help="KV slots = max concurrently decoding requests (0 disables "
+                   "the engine: the serialized single-shot path)")
     g.add_argument("--prefill_chunk", type=int, default=32,
                    help="prompt tokens prefilled per forward when a request joins")
     g.add_argument("--kv_num_blocks", type=int, default=0,
                    help="paged KV backend: block-pool size including the null "
                    "block; -1 = auto-size to num_slots x max_blocks; 0 = the "
-                   "contiguous slot cache, not ported yet")
+                   "contiguous slot cache")
     g.add_argument("--kv_block_size", type=int, default=16, help="tokens per KV block")
     g.add_argument("--prefix_cache", type=str, default="on", choices=["on", "off"],
                    help="keep refcount-0 prompt blocks registered for "
@@ -96,6 +114,9 @@ def _add_serve_args(p: argparse.ArgumentParser):
                    "text so far marked truncated=deadline; 'fail' 503s them")
     g.add_argument("--max_queue", type=int, default=64,
                    help="admission queue depth; beyond it requests 503")
+    g.add_argument("--max_pending", type=int, default=8,
+                   help="serialized path (--num_slots 0): queued /api requests "
+                   "beyond which requests 503")
     g.add_argument("--drain_timeout_s", type=float, default=30.0,
                    help="graceful drain bound (SIGTERM or POST /drain)")
     g.add_argument("--max_engine_restarts", type=int, default=3,
@@ -315,8 +336,8 @@ def _add_check_plan_args(p: argparse.ArgumentParser):
 def build_parser(mode: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(f"galvatron_tpu_torch {mode}")
     _add_model_args(p)
-    if mode == "serve":
-        _add_serve_args(p)
+    if mode in ("generate", "serve"):
+        _add_generate_args(p)
     elif mode == "train":
         _add_train_args(p)
     elif mode == "search":

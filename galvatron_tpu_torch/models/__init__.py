@@ -1,1 +1,1 @@
-"""Model definition, paged KV-cache forward and tokenizer of the port."""
+"""Model definition, KV-cache forwards and generation, and tokenizer of the port."""

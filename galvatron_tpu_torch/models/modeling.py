@@ -134,9 +134,10 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-#: what training runs: (config field, the values the port runs, what the
-#: other values select); anything else raises naming ROADMAP §1.10
-_TRAIN_PORTED = (
+#: what the port runs, in training, serving and generation: (config field,
+#: the values the port runs, what the other values select); anything else
+#: raises naming ROADMAP §1.10
+_PORTED = (
     ("pos_embed", ("rope", "learned"), "ALiBi positions"),
     ("norm_type", ("rms", "layernorm"), "other norms"),
     ("act_fn", ("swiglu", "gelu", "relu"), "other MLP activations"),
@@ -153,41 +154,22 @@ _TRAIN_PORTED = (
     ("swin_window", (7,), "Swin models"),
     ("moe_capacity_factor", (1.25,), "mixture-of-experts MLPs"),
 )
-#: what serving runs on top of that: the LLaMA family, since
-#: ``generation.forward_with_cache_paged`` knows no learned positions
-_SERVE_PORTED = (
-    ("pos_embed", ("rope",), "learned positions"),
-    ("norm_type", ("rms",), "layernorm"),
-    ("act_fn", ("swiglu",), "gelu/relu MLPs"),
-    ("use_bias", (False,), "projection biases"),
-    ("tie_word_embeddings", (False,), "tied embeddings"),
-)
-
-
-def _check(cfg: ModelConfig, table, what_runs: str) -> None:
-    for field, ported, what in table:
-        if getattr(cfg, field) not in ported:
-            raise NotImplementedError(
-                f"{field}={getattr(cfg, field)!r} ({what}) is not ported yet: "
-                f"ROADMAP.md §1.10 'Other model families'; {what_runs}"
-            )
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not train
-    yet (ROADMAP.md §1.10): training runs the LLaMA and GPT/OPT decoders."""
-    _check(cfg, _TRAIN_PORTED, "the port trains causal LLaMA and GPT/OPT decoders")
+    """Raise ``NotImplementedError`` for a family the port does not run yet
+    (ROADMAP.md §1.10): training, serving and generation run the causal
+    LLaMA and GPT/OPT decoders (rope or learned positions, rms or layernorm,
+    swiglu / gelu / relu, biases, tied heads)."""
+    for field, ported, what in _PORTED:
+        if getattr(cfg, field) not in ported:
+            raise NotImplementedError(
+                f"{field}={getattr(cfg, field)!r} ({what}) is not ported yet: "
+                "ROADMAP.md §1.10 'Other model families'; the port runs causal LLaMA "
+                "and GPT/OPT decoders"
+            )
     if cfg.use_bias and not cfg.qkv_blocked:
         raise ValueError("use_bias needs the blocked qkv layout (no GQA)")
-
-
-def check_serving_supported(cfg: ModelConfig) -> None:
-    """:func:`check_supported`, and serving's narrower set: the LLaMA
-    family (rope, rms, swiglu, no biases, untied head); GPT serving is
-    queued under ROADMAP.md §1.10."""
-    check_supported(cfg)
-    _check(cfg, _SERVE_PORTED, "the port serves the LLaMA family (rope, rms, swiglu, no "
-           "biases, untied head)")
 
 
 # ---------------------------------------------------------------------------
@@ -624,14 +606,15 @@ def mlp_residual(x, p, cfg: ModelConfig):
     return x + mlp_block(norm(x, p["mlp_norm"], cfg), p["mlp"], cfg)
 
 
-def embed(tokens, params, cfg: Optional[ModelConfig] = None, vocab=None):
+def embed(tokens, params, cfg: Optional[ModelConfig] = None, vocab=None, positions=None):
     """Token embedding: the table cast to the compute dtype, then gathered
     (the reference's order, so the backward scatter-adds in that dtype);
     learned positions add the cast table's first s rows, broadcast over
-    the batch. With ``vocab`` (a ``TPRegion``) the table is this rank's
-    vocabulary shard: tokens outside it embed to zero and ``vocab.exit``
-    sums the shards (into this rank's sequence shard under SP), then the
-    positions of those rows are added."""
+    the batch, or with ``positions`` ((B or 1, s) absolute positions, the
+    KV-cache forwards') those rows of the table. With ``vocab`` (a
+    ``TPRegion``) the table is this rank's vocabulary shard: tokens outside
+    it embed to zero and ``vocab.exit`` sums the shards (into this rank's
+    sequence shard under SP), then the positions of those rows are added."""
     tok = params["embed"]["tok"]
     if cfg is None:
         return tok[tokens]
@@ -646,7 +629,8 @@ def embed(tokens, params, cfg: Optional[ModelConfig] = None, vocab=None):
     else:
         x = tok.to(cfg.dtype)[tokens]
     if cfg.pos_embed == "learned":
-        x = x + params["embed"]["pos"].to(cfg.dtype)[seq][None]
+        table = params["embed"]["pos"].to(cfg.dtype)
+        x = x + (table[seq][None] if positions is None else table[positions])
     return x
 
 

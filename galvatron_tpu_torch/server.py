@@ -1,12 +1,14 @@
-"""Minimal REST text-generation server over the continuous-batching engine.
+"""Minimal REST text-generation server: the continuous-batching engine, or
+the serialized single-shot path.
 
-The port's counterpart of ``galvatron_tpu/server.py`` (engine path):
+The port's counterpart of ``galvatron_tpu/server.py``:
 
   POST or PUT /api   {"prompts": ["..."], "tokens_to_generate": 32,
                       "temperature": 0.0, "top_k": 0, "top_p": 0.0}
                      → {"text": [...completions...], "tokens": [[...ids...]]}
   GET /healthz       → status, uptime, request counters, model summary and
-                       the engine's ``stats()`` under "serving"
+                       the engine's ``stats()`` under "serving" (the
+                       serialized path: the pending-work gate under "gate")
   GET /readyz        → 200 {"ready": true} while accepting traffic, 503
                        while starting, draining, or after the engine died
   POST /drain        → graceful drain: admission closes, queued requests
@@ -14,10 +16,12 @@ The port's counterpart of ``galvatron_tpu/server.py`` (engine path):
                        ``drain_timeout_s``; replies with the engine's
                        post-drain audit (``leaked``), then the server stops
 
-Unlike the reference, ``/drain`` replies after the drain, with the audit,
-so a caller reads ``leaked`` from the reply. The serialized legacy path
-(``engine=None``), ``/metrics``, ``/profile``, SLOs, trace ids and fault
-injection are not ported yet (ROADMAP.md §1, "Serving extras").
+With ``engine=None`` (``cli serve --num_slots 0``) each request runs
+``generation.generate_np`` under one global lock, its pending work bounded
+by ``max_pending`` (excess → 503). Unlike the reference, ``/drain`` replies
+after the drain, with the audit, so a caller reads ``leaked`` from the
+reply. ``/metrics``, ``/profile``, SLOs, trace ids and fault injection are
+not ported yet (ROADMAP.md §1.4, "Serving extras").
 """
 
 from __future__ import annotations
@@ -34,10 +38,47 @@ from concurrent.futures import wait as futures_wait
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
 
+import torch
+
 from galvatron_tpu_torch.device import resolve_device
 from galvatron_tpu_torch.serving import resilience as rz
 from galvatron_tpu_torch.serving.scheduler import QueueFull, RequestExpired
 from galvatron_tpu_torch.utils.metrics import Counters
+
+
+class _Gate:
+    """Bounded pending-work gate for the serialized path, with visible
+    saturation (capacity / in_use / rejected land in /healthz)."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self._sem = threading.BoundedSemaphore(capacity)
+        self._lock = threading.Lock()
+        self.in_use = 0  # guarded-by: self._lock
+        self.rejected = 0  # guarded-by: self._lock
+
+    def acquire(self) -> bool:
+        ok = self._sem.acquire(blocking=False)
+        with self._lock:
+            if ok:
+                self.in_use += 1
+            else:
+                self.rejected += 1
+        return ok
+
+    def release(self) -> None:
+        with self._lock:
+            self.in_use -= 1
+        self._sem.release()
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "capacity": self.capacity,
+                "in_use": self.in_use,
+                "saturated": self.in_use >= self.capacity,
+                "rejected": self.rejected,
+            }
 
 
 class ServiceBusy(RuntimeError):
@@ -58,21 +99,25 @@ class ClientDisconnected(RuntimeError):
 
 class GenerationService:
     """HTTP-facing service over one :class:`~galvatron_tpu_torch.serving.
-    engine.Engine`. ``device`` defaults to the engine's; without a card and
-    without an explicit CPU request, construction raises."""
+    engine.Engine`, or with ``engine=None`` the serialized path over
+    ``params`` (draws from a generator seeded with ``seed``). ``device``
+    defaults to the engine's; without a card and without an explicit CPU
+    request, construction raises."""
 
     def __init__(self, cfg, tokenizer, engine, max_new_default: int = 64,
-                 device=None):
+                 device=None, params=None, seed: int = 0):
         self.device = resolve_device(device if device is not None
                                      else getattr(engine, "device", None))
-        if engine is None:
-            raise NotImplementedError(
-                "the serialized legacy path (engine=None) is not ported yet "
-                "(ROADMAP.md §1, 'Serving extras'): pass an Engine"
-            )
+        if engine is None and params is None:
+            raise ValueError("the serialized path (engine=None) needs params")
         self.cfg = cfg
         self.tok = tokenizer
         self.engine = engine
+        self.params = params
+        self.generator = (torch.Generator(device=self.device).manual_seed(seed)
+                          if engine is None else None)
+        self.lock = threading.Lock()  # one serialized generation at a time
+        self.gate: Optional[_Gate] = None  # set by run_server (serialized path)
         self.max_new_default = max_new_default
         self.started_at = time.time()
         self.counters = Counters("succeeded", "failed", "rejected", "cancelled")
@@ -88,7 +133,9 @@ class GenerationService:
 
     @property
     def ready(self) -> bool:
-        return not (self.starting or self.draining) and self.engine.alive
+        if self.starting or self.draining:
+            return False
+        return self.engine is None or self.engine.alive
 
     def begin_drain(self) -> dict:
         """Graceful drain, blocking until drained or the deadline; returns
@@ -99,15 +146,26 @@ class GenerationService:
         if not first:
             self._drained.wait(timeout=self.drain_timeout_s + 10.0)
             return self.drain_audit
-        self.engine.begin_drain()
-        self.drain_audit = self.engine.drain(self.drain_timeout_s)
+        if self.engine is not None:
+            self.engine.begin_drain()
+            self.drain_audit = self.engine.drain(self.drain_timeout_s)
+        else:
+            # serialized path: handlers stop admitting (``draining``); wait
+            # for the in-flight generations to release the gate
+            deadline = time.monotonic() + self.drain_timeout_s
+            while time.monotonic() < deadline:
+                if self.gate is None or self.gate.snapshot()["in_use"] == 0:
+                    break
+                time.sleep(0.02)
+            g = self.gate.snapshot() if self.gate is not None else {}
+            self.drain_audit = {"leaked": bool(g.get("in_use")), **g}
         self._drained.set()
         return self.drain_audit
 
     def health(self) -> dict:
         c = self.cfg
         req = self.counters.snapshot()
-        return {
+        out = {
             "status": "draining" if self.draining else "starting" if self.starting else "ok",
             "ready": self.ready,
             "uptime_s": round(time.time() - self.started_at, 3),
@@ -121,8 +179,12 @@ class GenerationService:
                 "num_kv_heads": c.kv_heads,
                 "max_seq_len": c.max_seq_len,
             },
-            "serving": self.engine.stats(),
         }
+        if self.gate is not None:
+            out["gate"] = self.gate.snapshot()
+        if self.engine is not None:
+            out["serving"] = self.engine.stats()
+        return out
 
     def _validate(self, body: dict):
         if not isinstance(body, dict):
@@ -141,7 +203,11 @@ class GenerationService:
                  disconnect_check: Optional[Callable[[], bool]] = None) -> dict:
         prompts, n_new = self._validate(body)
         tok_prompts = [self.tok.encode(p) for p in prompts]
-        outs, truncated = self._generate_engine(body, tok_prompts, n_new, disconnect_check)
+        if self.engine is not None:
+            outs, truncated = self._generate_engine(body, tok_prompts, n_new, disconnect_check)
+        else:
+            outs = self._generate_serialized(body, tok_prompts, n_new)
+            truncated = [None] * len(outs)
         texts = [self.tok.decode(o[len(tp):]) for o, tp in zip(outs, tok_prompts)]
         resp = {"text": texts, "tokens": outs}
         if any(truncated):
@@ -209,6 +275,22 @@ class GenerationService:
                 r.future.cancel()
 
 
+    def _generate_serialized(self, body: dict, tok_prompts, n_new: int):
+        """Single-shot path: a full prefill + decode per request under the
+        global lock."""
+        from galvatron_tpu_torch.models import generation
+
+        with self.lock:
+            return generation.generate_np(
+                self.params, self.cfg, tok_prompts, generator=self.generator,
+                max_new_tokens=n_new,
+                temperature=float(body.get("temperature", 0.0)),
+                top_k=int(body.get("top_k", 0)),
+                top_p=float(body.get("top_p", 0.0)),
+                eos_id=self.tok.eos_id, pad_id=self.tok.pad_id,
+            )
+
+
 def _make_handler(service: GenerationService, request_timeout_s: float):
     class Handler(BaseHTTPRequestHandler):
         timeout = request_timeout_s
@@ -256,6 +338,13 @@ def _make_handler(service: GenerationService, request_timeout_s: float):
                     503, {"error": "server draining", "detail": "draining"},
                     headers={"Retry-After": str(max(1, int(service.drain_timeout_s)))},
                 )
+            # bounded pending work on the serialized path (a thread parked on
+            # the generation lock is not covered by the socket timeout); the
+            # engine's bounded queue is its admission control instead
+            gate = service.gate
+            if gate is not None and not gate.acquire():
+                service.counters.inc("rejected")
+                return self._reply(503, {"error": "server busy: too many pending requests"})
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(length) or b"{}")
@@ -282,6 +371,9 @@ def _make_handler(service: GenerationService, request_timeout_s: float):
             except Exception as e:  # noqa: BLE001 — surface to the client
                 service.counters.inc("failed")
                 return self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+            finally:
+                if gate is not None:
+                    gate.release()
 
         do_POST = _handle
         do_PUT = _handle
@@ -316,10 +408,14 @@ def drain_and_stop(service: GenerationService) -> dict:
 
 def run_server(service: GenerationService, port: int = 5000, host: str = "127.0.0.1",
                ready_event: Optional[threading.Event] = None,
-               request_timeout_s: float = 120.0, drain_timeout_s: float = 30.0) -> None:
+               request_timeout_s: float = 120.0, max_pending: int = 8,
+               drain_timeout_s: float = 30.0) -> None:
     """Serve until drained. ``port=0`` binds an ephemeral port (read it from
     ``service.httpd.server_address``). SIGTERM drains when this runs on the
-    main thread."""
+    main thread. On the serialized path ``max_pending`` bounds the queued
+    /api work (excess → 503)."""
+    if service.engine is None:
+        service.gate = _Gate(max_pending)
     service.drain_timeout_s = float(drain_timeout_s)
     httpd = ThreadingHTTPServer((host, port), _make_handler(service, request_timeout_s))
     httpd.daemon_threads = True

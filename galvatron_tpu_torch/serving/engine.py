@@ -1,22 +1,29 @@
-"""Continuous-batching generation engine on the paged KV backend.
+"""Continuous-batching generation engine on the slot or the paged KV
+backend.
 
 The port's counterpart of ``galvatron_tpu/serving/engine.py``. One loop
-thread owns the device pool and runs, per iteration: admission of queued
-requests into free slots (chunked prefill through each request's block
-table, after attaching any cached prefix), host-side sampling from every
-active slot's last logits, retirement on eos / budget / deadline / cancel,
-and ONE decode forward over all slots, whose attention is the hand-written
-paged-decode kernel on the card (``ops.flash_attention``).
+thread owns the device cache and runs, per iteration: admission of queued
+requests into free slots (chunked prefill into the request's slot, or
+through its block table after attaching any cached prefix), host-side
+sampling from every active slot's last logits, retirement on eos / budget /
+deadline / cancel, and ONE decode forward over all slots.
+
+``kv_num_blocks=0`` (the default) keeps the contiguous slot cache
+([[kv_slots]]): prefill through ``generation.forward_with_cache`` into one
+slot's rows, decode through ``forward_with_cache_slots``, whose one-query
+attention is plain PyTorch (``decode_attention``), as in the reference.
+``kv_num_blocks != 0`` selects the paged backend ([[paged_kv]]): block
+tables, copy-on-write prefix sharing, block-headroom admission, and decode
+attention through the hand-written paged-decode kernel on the card
+(``ops.flash_attention``).
 
 PyTorch runs eagerly, so there is no jit program set to pin; the loop runs
 under ``torch.inference_mode()``. Sampling stays on the host with each
 request's own temperature/top_k/top_p; greedy host sampling is an argmax,
 so the engine's greedy output is the reference's token for token.
 
-Only the paged backend (``kv_num_blocks != 0``) is ported; the contiguous
-slot cache (``kv_num_blocks=0``), ``serve_quant``, speculative decoding,
-AOT warm start, tracing and fault injection wait for later slices
-(ROADMAP.md §1).
+``serve_quant``, speculative decoding, AOT warm start, tracing and fault
+injection are not ported yet (ROADMAP.md §1.4 'Serving extras').
 """
 
 from __future__ import annotations
@@ -32,8 +39,10 @@ import torch
 from galvatron_tpu_torch.device import resolve_device
 from galvatron_tpu_torch.models import generation, modeling
 from galvatron_tpu_torch.models.modeling import ModelConfig
+from galvatron_tpu_torch.models.generation import KVCache
 from galvatron_tpu_torch.ops import flash_attention
 from galvatron_tpu_torch.serving import resilience as rz
+from galvatron_tpu_torch.serving.kv_slots import SlotKVCache
 from galvatron_tpu_torch.serving.paged_kv import PagedKVCache
 from galvatron_tpu_torch.serving.scheduler import Request, Scheduler
 from galvatron_tpu_torch.utils.metrics import Counters, Histogram, QuantileWindow
@@ -58,7 +67,7 @@ def _sample_host(rng: np.random.Generator, logits: np.ndarray,
 class Engine:
     """Continuous-batching engine: ``submit()`` → Future, the loop thread
     does the rest. Handler threads call ``submit``/``stats``; ONE loop
-    thread owns the device pool, the slot table and every forward.
+    thread owns the device cache, the slot table and every forward.
 
     ``device``: ``None`` means ``cuda`` and raises without a card; tests
     pass ``device="cpu"``. ``params`` must already live on that device, in
@@ -78,19 +87,13 @@ class Engine:
                  kv_num_blocks: int = 0,
                  prefix_cache: bool = True):
         self.device = resolve_device(device)
-        if int(kv_num_blocks) == 0:
-            raise NotImplementedError(
-                "kv_num_blocks=0 selects the contiguous slot KV backend, which "
-                "is not ported yet (ROADMAP.md §1, 'Slot KV backend'); pass "
-                "kv_num_blocks=-1 (--kv_num_blocks -1) for the paged backend"
-            )
         if deadline_policy not in ("partial", "fail"):
             raise ValueError(
                 f"deadline_policy must be 'partial' or 'fail', got {deadline_policy!r}"
             )
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
-        modeling.check_serving_supported(cfg)
+        modeling.check_supported(cfg)
         if params["embed"]["tok"].device != self.device:
             raise ValueError(
                 f"params live on {params['embed']['tok'].device}, engine device is {self.device}"
@@ -101,12 +104,19 @@ class Engine:
         self.pad_id = int(pad_id)
         self.seed = int(seed)
         self.result_timeout_s = float(result_timeout_s)
-        self.slots = PagedKVCache(
-            cfg, num_slots, self.device, block_size=kv_block_size,
-            num_blocks=kv_num_blocks, max_seq_len=max_seq_len,
-            prefix_cache=prefix_cache,
-        )
-        # a chunk longer than the slot would slice past the table's end
+        # kv_num_blocks != 0 selects the paged backend (-1 sizes the pool to
+        # the slot cache's bytes); 0 keeps the contiguous slot cache. Both
+        # expose the same allocator surface to the engine
+        self.paged = int(kv_num_blocks) != 0
+        if self.paged:
+            self.slots = PagedKVCache(
+                cfg, num_slots, self.device, block_size=kv_block_size,
+                num_blocks=kv_num_blocks, max_seq_len=max_seq_len,
+                prefix_cache=prefix_cache,
+            )
+        else:
+            self.slots = SlotKVCache(cfg, num_slots, self.device, max_seq_len)
+        # a chunk longer than the slot would slice past the cache end
         self.prefill_chunk = min(int(prefill_chunk), self.slots.max_seq_len)
         self.scheduler = Scheduler(max_queue=max_queue, default_ttl_s=request_ttl_s)
         self.deadline_policy = deadline_policy
@@ -212,15 +222,18 @@ class Engine:
         tokens = ec["tokens_generated"]
         busy = self._busy_s
         steps = ec["steps"]
-        return {
-            "kv_backend": "paged",
-            "device": str(self.device),
-            "max_seq_len_effective": self.slots.max_seq_len,
-            **self.slots.block_stats(),
-            "blocks_held": {
+        extra = {}
+        if self.paged:
+            extra = self.slots.block_stats()
+            extra["blocks_held"] = {
                 str(req.rid): self.slots.blocks_held(slot)
                 for slot, req in list(self._by_slot.items())
-            },
+            }
+        return {
+            "kv_backend": "paged" if self.paged else "slot",
+            "device": str(self.device),
+            "max_seq_len_effective": self.slots.max_seq_len,
+            **extra,
             "queue_depth": self.scheduler.depth,
             "queue_capacity": self.scheduler.max_queue,
             "queue_saturated": self.scheduler.saturated,
@@ -230,8 +243,8 @@ class Engine:
             "steps": steps,
             "decode_steps": ec["decode_steps"],
             # process-wide count of the paged-decode kernel's launches: on
-            # the card it equals num_layers x decode_steps of this engine
-            # when no other caller launches the kernel
+            # the card it equals num_layers x decode_steps of a paged engine
+            # (0 for a slot engine) when no other caller launches the kernel
             "paged_decode_launches": flash_attention.paged_decode_attention.launches,
             "prefill_chunks": ec["prefill_chunks"],
             "prefill_tokens": ec["prefill_tokens"],
@@ -310,25 +323,26 @@ class Engine:
 
     def audit(self) -> dict:
         """Post-drain invariant check: every slot back on the free list, no
-        request bookkeeping left, every block FREE or CACHED."""
+        request bookkeeping left, and on the paged backend every block FREE
+        or CACHED."""
         a = self.slots.audit()
         leaked = (not a["ok"] or a["active"] != 0 or a["free"] != a["num_slots"]
-                  or bool(self._by_slot) or not a["blocks_ok"] or a["blocks_active"] != 0)
-        return {
+                  or bool(self._by_slot))
+        out = {
             "slots_ok": a["ok"],
             "active_slots": a["active"],
             "free_slots": a["free"],
             "num_slots": a["num_slots"],
             "tracked_requests": len(self._by_slot),
             "queue_depth": self.scheduler.depth,
-            "blocks_ok": a["blocks_ok"],
-            "blocks_total": a["blocks_total"],
-            "blocks_free": a["blocks_free"],
-            "blocks_cached": a["blocks_cached"],
-            "blocks_active": a["blocks_active"],
-            "leaked": bool(leaked),
-            "engine_restarts": self.counters.get("engine_restarts"),
         }
+        if self.paged:
+            out.update({k: a[k] for k in ("blocks_ok", "blocks_total", "blocks_free",
+                                          "blocks_cached", "blocks_active")})
+            leaked = leaked or not a["blocks_ok"] or a["blocks_active"] != 0
+        out["leaked"] = bool(leaked)
+        out["engine_restarts"] = self.counters.get("engine_restarts")
+        return out
 
     def close(self, join_timeout_s: float = 30.0) -> None:
         self._closed = True
@@ -345,7 +359,7 @@ class Engine:
     def __exit__(self, *exc):
         self.close()
 
-    # -- engine loop (one thread owns the pool, the slots and the forwards) ---
+    # -- engine loop (one thread owns the cache, the slots and the forwards) --
 
     def _loop(self) -> None:
         with torch.inference_mode():
@@ -367,7 +381,7 @@ class Engine:
                         self._working = False
                 except Exception as e:  # noqa: BLE001 — the engine must not die silently
                     # fail the in-flight work, keep queued requests with TTL
-                    # budget, reset the pool and keep looping; give-up closes
+                    # budget, reset the cache and keep looping; give-up closes
                     try:
                         recovered = self.supervisor.on_crash(self, e)
                     except Exception as e2:  # noqa: BLE001 — recovery failed
@@ -383,17 +397,18 @@ class Engine:
                         break
 
     def _admit(self) -> None:
-        """Admit queued requests into free slots (chunked prefill), gated on
-        BLOCK headroom: the head request stays queued until free + evictable
-        blocks cover its worst-case footprint, so decode never allocates."""
+        """Admit queued requests into free slots (chunked prefill). On the
+        paged backend admission also gates on BLOCK headroom: the head
+        request stays queued until free + evictable blocks cover its
+        worst-case footprint, so decode never allocates."""
         self.scheduler.expire()
         while self.slots.free_slots > 0:
             head = self.scheduler.peek()
             if head is None:
                 return
-            if not (head.cancel_requested or head.future.cancelled()) and not \
-                    self.slots.can_admit(head.tokens, head.max_new_tokens,
-                                         chunk=self.prefill_chunk):
+            if self.paged and not (head.cancel_requested or head.future.cancelled()) \
+                    and not self.slots.can_admit(head.tokens, head.max_new_tokens,
+                                                 chunk=self.prefill_chunk):
                 return
             req = self.scheduler.pop()
             if req is None:
@@ -424,26 +439,40 @@ class Engine:
                     req.future.set_exception(e)
 
     def _prefill_chunk(self, buf: np.ndarray, slot: int, start: int) -> torch.Tensor:
-        """One (1, C) chunk through the slot's table row at position
-        ``start``; returns the (C, V) logits."""
+        """One (1, C) chunk at position ``start``: into the slot's rows of
+        the contiguous cache, or through its table row in the pool. Tail
+        padding writes garbage past the prompt that causal masking hides
+        until a decode step overwrites it. Returns the (C, V) logits."""
         tokens = torch.from_numpy(buf.astype(np.int64)).to(self.device)
-        table = torch.from_numpy(self.slots.tables[slot:slot + 1].copy()).to(self.device)
-        offset = torch.tensor([start], dtype=torch.int32, device=self.device)
-        logits, _ = generation.forward_with_cache_paged(
-            self.params, tokens, self.cfg, self.slots.pool, table, offset
-        )
+        if self.paged:
+            table = torch.from_numpy(self.slots.tables[slot:slot + 1].copy()).to(self.device)
+            offset = torch.tensor([start], dtype=torch.int32, device=self.device)
+            logits, _ = generation.forward_with_cache_paged(
+                self.params, tokens, self.cfg, self.slots.pool, table, offset
+            )
+        else:
+            cache = self.slots.cache
+            row = KVCache(cache.k[:, slot:slot + 1], cache.v[:, slot:slot + 1])
+            logits, _ = generation.forward_with_cache(self.params, tokens, self.cfg, row, start)
         return logits[0]
 
     def _decode_step(self, tokens: np.ndarray, offsets: np.ndarray) -> np.ndarray:
-        """One decode forward over ALL slots through the full table; inactive
-        rows carry (0, 0) and an all-null table row, so their write lands in
-        the null block. Returns the (B, V) next-position logits on the host."""
+        """One decode forward over ALL slots; inactive rows carry (0, 0), so
+        their write lands at position 0 of their own free slot (overwritten
+        by the next prefill before any query reads it) or, paged, in the
+        null block through an all-null table row. Returns the (B, V)
+        next-position logits on the host."""
         tok = torch.from_numpy(tokens.astype(np.int64)).to(self.device)[:, None]
-        tables = torch.from_numpy(self.slots.tables.copy()).to(self.device)
         offs = torch.from_numpy(offsets.copy()).to(self.device)
-        logits, _ = generation.forward_with_cache_paged(
-            self.params, tok, self.cfg, self.slots.pool, tables, offs
-        )
+        if self.paged:
+            tables = torch.from_numpy(self.slots.tables.copy()).to(self.device)
+            logits, _ = generation.forward_with_cache_paged(
+                self.params, tok, self.cfg, self.slots.pool, tables, offs
+            )
+        else:
+            logits, _ = generation.forward_with_cache_slots(
+                self.params, tok, self.cfg, self.slots.cache, offs
+            )
         self.counters.inc("decode_steps")
         return logits[:, 0].float().cpu().numpy()
 
@@ -457,10 +486,12 @@ class Engine:
         toks = np.asarray(req.tokens, np.int32)
         c = self.prefill_chunk
         smax = self.slots.max_seq_len
-        # attach the longest cached prefix read-only and reserve the
-        # request's worst-case block footprint up front
-        matched = self.slots.attach_prefix(slot, req.tokens)
-        self.slots.reserve(slot, len(toks) + req.max_new_tokens)
+        matched = 0
+        if self.paged:
+            # attach the longest cached prefix read-only and reserve the
+            # request's worst-case block footprint up front
+            matched = self.slots.attach_prefix(slot, req.tokens)
+            self.slots.reserve(slot, len(toks) + req.max_new_tokens)
         starts = list(range(matched, len(toks), c))
         if starts and starts[-1] + c > smax:
             # the fixed-size window must not cross the slot end: slide the
@@ -478,17 +509,19 @@ class Engine:
             n = len(chunk)
             buf = np.full((1, c), self.pad_id, np.int32)
             buf[0, :n] = chunk
-            # the slid-left window may dip below the attached prefix: COW any
-            # shared/registered block the write covers
-            self.slots.ensure_writable(slot, start, min(start + c, smax))
+            if self.paged:
+                # the slid-left window may dip below the attached prefix:
+                # COW any shared/registered block the write covers
+                self.slots.ensure_writable(slot, start, min(start + c, smax))
             last_row = (self._prefill_chunk(buf, slot, start), n - 1)
             self.counters.inc("prefill_chunks")
             self.counters.inc("prefill_tokens", n)
         logits, idx = last_row
         self._last_logits[slot] = logits[idx].float().cpu().numpy()
         self.slots.lengths[slot] = len(toks)
-        # publish the prompt's full blocks while the request decodes
-        self.slots.register_prefix(slot, req.tokens)
+        if self.paged:
+            # publish the prompt's full blocks while the request decodes
+            self.slots.register_prefix(slot, req.tokens)
         self._by_slot[slot] = req
         self._rng[slot] = np.random.default_rng((self.seed, req.rid))
         rz.advance(req, rz.DECODING, slot=slot)
@@ -543,11 +576,12 @@ class Engine:
             self._retire_deadline(slot)
         still = self.slots.active_slots()
         if still:
-            for slot in still:
-                # a no-op today (decode writes past every shared block), kept
-                # as the cheap COW invariant the reference keeps
-                off = int(offsets[slot])
-                self.slots.ensure_writable(slot, off, off + 1)
+            if self.paged:
+                for slot in still:
+                    # a no-op today (decode writes past every shared block),
+                    # kept as the cheap COW invariant the reference keeps
+                    off = int(offsets[slot])
+                    self.slots.ensure_writable(slot, off, off + 1)
             logits = self._decode_step(tokens, offsets)
             for slot in still:
                 self._last_logits[slot] = logits[slot]
@@ -610,7 +644,7 @@ class Engine:
     def _crash_cleanup(self, exc: BaseException,
                        retry_after_s: Optional[float] = None) -> None:
         """Crash recovery (called by the supervisor): fail the in-flight
-        requests fast, reset the pool, keep queued requests that still have
+        requests fast, reset the cache, keep queued requests that still have
         TTL budget."""
         wrapped = rz.EngineRestarted(
             f"engine restarted mid-request ({type(exc).__name__}: {exc}); "

@@ -3,10 +3,11 @@ ReLU, projection biases, tied embeddings) against the JAX package on the
 CPU in fp32: init, the weight bridge, the loss and every gradient on the
 einsum and flash paths (the JAX grid kernels in interpret mode), the three
 recompute modes, a 5-step trajectory of the whole train step, the FLOP
-accounting at gpt-1.5b, ``cli train`` of a GPT preset, and serving's
-refusal of the family. Weights come from the JAX init, with biases and
-norm parameters drawn from a numpy seed (the init's zeros and ones would
-leave their paths untested), and go to both sides as the same arrays."""
+accounting at gpt-1.5b, ``cli train`` of a GPT preset, and serving: the
+paged cache forward, the engine on both KV backends and ``cli serve``.
+Weights come from the JAX init, with biases and norm parameters drawn from
+a numpy seed (the init's zeros and ones would leave their paths untested),
+and go to both sides as the same arrays."""
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,7 @@ from galvatron_tpu_torch.models import modeling as tm
 from galvatron_tpu_torch.obs import stepstats as tstats
 from galvatron_tpu_torch.parallel import hybrid as thybrid
 from galvatron_tpu_torch.utils.metrics import read_metrics
+from tests.test_torch_serving import _http, _start_cli_serve
 
 # the tolerances of test_torch_training.py (fp32 on both sides, sums in
 # other orders): loss per token 1e-5, each gradient leaf within 1e-6 + 5e-6
@@ -251,16 +253,84 @@ def test_cli_train_runs_a_gpt_preset_on_the_cpu(tmp_path, capsys):
 
 
 def test_serving_refuses_a_gpt_preset_naming_the_roadmap():
-    """``generation.forward_with_cache_paged`` knows no learned positions:
-    the engine and ``cli serve`` refuse the GPT family, before any weight
-    is allocated, naming ROADMAP §1.10."""
+    """Serving takes the GPT family as training does: ``cli serve`` of a
+    GPT preset (learned positions, LayerNorm, gelu, biases, tied head) on
+    the default slot backend answers /api with ``generate_np``'s greedy
+    tokens on the same weights; an ALiBi variant of the preset is still
+    refused, naming ROADMAP §1.10."""
+    from galvatron_tpu_torch.models import generation as tgen
+    from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
+
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
+        tm.check_supported(tm.PRESETS["gpt-1.5b"].replace(pos_embed="alibi"))
+    flags = ["--device", "cpu", "--model_size", "gpt-0.3b", "--num_layers", "1",
+             "--hidden_size", "64", "--num_heads", "4", "--seq_length", "64",
+             "--prefill_chunk", "8", "--num_slots", "2"]
+    base, th, rc = _start_cli_serve(flags)
+    tok = ByteTokenizer()
+    cfg = tm.PRESETS["gpt-0.3b"].replace(num_layers=1, hidden_size=64, num_heads=4,
+                                         max_seq_len=64)
+    params = tm.cast_params(tm.init_model_params(cfg, 0, "cpu"), cfg)
+    prompts = ["gpt serves", "and so does its tied head"]
+    code, resp = _http(base + "/api", {"prompts": prompts, "tokens_to_generate": 5})
+    assert code == 200, resp
+    assert resp["tokens"] == tgen.generate_np(params, cfg, [tok.encode(p) for p in prompts],
+                                              max_new_tokens=5, eos_id=tok.eos_id,
+                                              pad_id=tok.pad_id)
+    code, drained = _http(base + "/drain", {})
+    assert code == 200 and drained["leaked"] is False
+    th.join(15)
+    assert rc == [0]
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_forward_with_cache_paged_matches_jax(act):
+    """GPT / OPT over the paged pool: a 12-token prefill chunk on two rows at
+    ragged offsets, then a decode step, through scrambled block tables;
+    logits and the written pool within 1e-5 of JAX's."""
+    from galvatron_tpu.models import generation as jgen
+    from galvatron_tpu_torch.models import generation as tgen
+
+    jcfg, tcfg = _cfgs(act)
+    ref = _jax_params(jcfg)
+    tparams = bridge.params_from_jax(ref, tcfg, "cpu")
+    bs, mb = 8, 8
+    nblocks = 1 + 2 * mb
+    rng = np.random.RandomState(1)
+    tables = (rng.permutation(nblocks - 1)[: 2 * mb] + 1).reshape(2, mb).astype(np.int32)
+    tables[1, 4:] = 0  # null-block tail
+    jpool = jgen.init_kv_cache(jcfg, nblocks, bs)
+    tpool = tgen.init_kv_cache(tcfg, nblocks, bs, "cpu")
+    for tokens, offsets in ((rng.randint(1, 97, (2, 12)), [0, 5]),
+                            (rng.randint(1, 97, (2, 1)), [12, 17])):
+        offs = np.asarray(offsets, np.int32)
+        jlog, jpool = jgen.forward_with_cache_paged(
+            ref, jnp.asarray(tokens, jnp.int32), jcfg, jpool, jnp.asarray(tables),
+            jnp.asarray(offs))
+        tlog, tpool = tgen.forward_with_cache_paged(
+            tparams, torch.from_numpy(tokens), tcfg, tpool, torch.from_numpy(tables),
+            torch.from_numpy(offs))
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(tpool.k.numpy(), np.asarray(jpool.k), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(tpool.v.numpy(), np.asarray(jpool.v), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_engine_serves_gpt_on_both_backends(act):
+    """GPT / OPT through the engine, slot and paged (two requests sharing a
+    16-token prefix, so the paged engine attaches cached blocks): greedy
+    tokens equal JAX ``generate_np`` on both backends."""
+    from galvatron_tpu.models import generation as jgen
     from galvatron_tpu_torch.serving.engine import Engine
 
-    cfg = tm.PRESETS["gpt-0.3b"].replace(num_layers=1, hidden_size=64, num_heads=4,
-                                         vocab_size=97, max_seq_len=32)
-    params = tm.init_model_params(cfg, 0, "cpu")  # training accepts the family
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
-        Engine(params, cfg, device="cpu", kv_num_blocks=-1, start_loop=False)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
-        cli.main(["serve", "--device", "cpu", "--model_size", "gpt-1.5b", "--kv_num_blocks",
-                  "-1"])
+    jcfg, tcfg = _cfgs(act)
+    ref_params = _jax_params(jcfg)
+    tparams = bridge.params_from_jax(ref_params, tcfg, "cpu")
+    rng = np.random.RandomState(4)
+    base = rng.randint(1, 97, (16,)).tolist()
+    prompts = [rng.randint(1, 97, (5,)).tolist(), base + [3], base + [8, 9], [7] * 30]
+    ref = jgen.generate_np(ref_params, jcfg, prompts, max_new_tokens=6)
+    for kw in (dict(), dict(kv_num_blocks=-1, kv_block_size=8)):
+        with Engine(tparams, tcfg, device="cpu", num_slots=2, prefill_chunk=8, **kw) as eng:
+            assert eng.generate(prompts, max_new_tokens=6) == ref, kw
+            assert not eng.audit()["leaked"]

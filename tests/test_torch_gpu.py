@@ -42,7 +42,8 @@ def _bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
 
 
-@pytest.mark.parametrize("n,kv,d", [(32, 32, 128), (32, 8, 128), (8, 2, 64), (4, 4, 256)])
+@pytest.mark.parametrize("n,kv,d", [(32, 32, 128), (32, 8, 128), (8, 2, 64), (25, 25, 64),
+                                    (4, 4, 256)])
 def test_kernel_matches_plain_bf16(cuda, n, kv, d):
     """bf16: the kernel's output is within one output ulp of the plain
     version computed in fp32 on the same inputs, plus the fp32 tolerance
@@ -131,6 +132,38 @@ def test_engine_on_card_matches_cpu(cuda):
     assert outs[0] == outs[1]
     assert st["decode_steps"] > 0
     assert math.isfinite(st["tokens_per_s"])
+
+
+@pytest.mark.parametrize("family,backend", [("llama", "slot"), ("gpt", "paged"),
+                                            ("gpt", "slot")])
+def test_slot_and_gpt_engines_on_card_match_cpu(cuda, family, backend):
+    """fp32 greedy output of the slot engine (plain decode attention) and of
+    GPT (learned positions, LayerNorm, biases, tied head; head_dim 64) on the
+    card equals the same engine on the CPU; the paged GPT engine launches
+    the kernel once a layer a decode step, the slot engine never."""
+    from galvatron_tpu_torch.serving import Engine
+
+    kw = dict(vocab_size=384, hidden_size=256, num_layers=2, num_heads=4, ffn_dim=512,
+              max_seq_len=128, dtype=torch.float32)
+    if family == "gpt":
+        kw.update(pos_embed="learned", norm_type="layernorm", act_fn="gelu", use_bias=True,
+                  tie_word_embeddings=True)
+    else:
+        kw.update(num_kv_heads=2)
+    cfg = modeling.ModelConfig(**kw)
+    cpu_params = modeling.init_model_params(cfg, 0, "cpu")
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, 384, (n,)).tolist() for n in (40, 7, 23)]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        before = fa.paged_decode_attention.launches
+        with Engine(_to(cpu_params, dev), cfg, device=dev, num_slots=2, prefill_chunk=16,
+                    kv_num_blocks=-1 if backend == "paged" else 0) as eng:
+            outs.append(eng.generate(prompts, max_new_tokens=8))
+            st = eng.stats()
+        launches = fa.paged_decode_attention.launches - before
+    assert outs[0] == outs[1]
+    assert launches == (2 * st["decode_steps"] if backend == "paged" else 0)
 
 
 FLASH_CASES = {

@@ -76,21 +76,29 @@ SERVICES_MODULES = ("galvatron_tpu_torch.core.retry", "galvatron_tpu_torch.core.
                     "galvatron_tpu_torch.data.shards", "galvatron_tpu_torch.data.mixture",
                     "galvatron_tpu_torch.data.prefetch", "galvatron_tpu_torch.data.pipeline",
                     "galvatron_tpu_torch.bridge")
+#: the generation and serving modules (the cache forwards, sampling and the
+#: generation loop, both KV backends, the engine, the server, the cli)
+SERVING_MODULES = ("galvatron_tpu_torch.models.generation", "galvatron_tpu_torch.serving.kv_slots",
+                   "galvatron_tpu_torch.serving.paged_kv", "galvatron_tpu_torch.serving.engine",
+                   "galvatron_tpu_torch.server", "galvatron_tpu_torch.cli")
 SCANNED = sorted([str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
                  + ["chip_smoke.py", "experiments/torch_decode_profile.py"])
 
 
 def test_the_scan_covers_the_parallel_modules():
-    for m in PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES + ("galvatron_tpu_torch.data",):
+    for m in PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES + SERVING_MODULES + (
+            "galvatron_tpu_torch.data",):
         assert m.replace(".", "/") + ".py" in SCANNED or \
             m.replace(".", "/") + "/__init__.py" in SCANNED
 
 
-@pytest.mark.parametrize("module", PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES)
+@pytest.mark.parametrize("module", PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES
+                         + SERVING_MODULES)
 def test_parallel_module_alone_loads_no_jax(module):
-    """Each module of the hybrid runtime, the search and the training
-    services, imported first and alone in a fresh interpreter, pulls in
-    neither JAX, the JAX package, Orbax nor TensorStore."""
+    """Each module of the hybrid runtime, the search, the training services
+    and generation / serving, imported first and alone in a fresh
+    interpreter, pulls in neither JAX, the JAX package, Orbax nor
+    TensorStore."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -148,6 +156,13 @@ def test_cli_serve_raises_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["serve", "--num_layers", "1", "--hidden_size", "32", "--num_heads", "2",
                   "--kv_num_blocks", "-1"])
+
+
+def test_cli_generate_raises_without_a_card(no_card):
+    from galvatron_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["generate", "--num_layers", "1", "--hidden_size", "32", "--num_heads", "2"])
 
 
 def test_cli_train_raises_without_a_card(no_card):

@@ -94,19 +94,22 @@ def test_init_matches_jax_shapes_and_distributions(layout):
     ("pos_embed", "alibi"), ("causal", False), ("objective", "mlm"), ("objective", "cls"),
 ])
 def test_unported_families_raise_naming_the_roadmap(field, value):
-    """What the port does not run raises naming ROADMAP §1.10: training
-    refuses ALiBi, MoE, encoders and non-clm objectives; the GPT/OPT pieces
-    it trains (learned positions, layernorm, gelu, biases, tied head) are
-    still refused by serving's check."""
+    """What the port does not run raises naming ROADMAP §1.10: training and
+    serving refuse ALiBi, MoE, encoders and non-clm objectives; the GPT/OPT
+    pieces training runs (learned positions, layernorm, gelu, biases, tied
+    head) the serving engine takes too."""
+    from galvatron_tpu_torch.serving import Engine
+
     _, tcfg = _cfgs(None)
     cfg = tcfg.replace(**{field: value})
     if field in ("moe_experts", "causal", "objective") or value == "alibi":
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
             tm.init_model_params(cfg, 0, "cpu")
-    else:
-        tm.check_supported(cfg)
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
-            tm.check_serving_supported(cfg)
+            Engine({"embed": {"tok": torch.zeros(1)}}, cfg, device="cpu", start_loop=False)
+    else:
+        params = tm.cast_params(tm.init_model_params(cfg, 0, "cpu"), cfg)
+        Engine(params, cfg, device="cpu", start_loop=False).close()
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)

@@ -1,8 +1,10 @@
 """The PyTorch port's serving stack on the CPU against the JAX package:
-greedy engine output equals JAX ``generate_np`` token for token at fp32
-(prefix sharing and the slide-left copy-on-write window included), the
-block allocator replays the reference's decisions op for op, drains leak
-nothing, and the HTTP server and ``cli serve`` answer end to end."""
+greedy engine output equals JAX ``generate_np`` token for token at fp32 on
+the paged backend (prefix sharing and the slide-left copy-on-write window
+included) and the default slot backend, the block allocator replays the
+reference's decisions op for op, drains leak nothing, and the HTTP server
+and ``cli serve`` (slot, paged and the serialized ``--num_slots 0`` path)
+answer end to end."""
 
 import json
 import socket
@@ -95,8 +97,16 @@ def test_drain_leaves_no_block_behind(jparams):
 
 
 def test_slot_backend_is_not_ported(jparams):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(jparams, kv_num_blocks=0)
+    """``kv_num_blocks=0``, the default, is the contiguous slot backend:
+    greedy output equal to JAX ``generate_np`` and no paged-decode launch
+    (its one-query attention is plain PyTorch on every device)."""
+    prompts = [[5, 6, 7], list(range(1, 20)), [9] * 11]
+    ref = jgen.generate_np(jparams, JCFG, prompts, max_new_tokens=5)
+    params = bridge.params_from_jax(jparams, TCFG, "cpu")
+    with Engine(params, TCFG, device="cpu", num_slots=2, prefill_chunk=8) as eng:
+        assert eng.generate(prompts, max_new_tokens=5) == ref
+        st = eng.stats()
+    assert st["kv_backend"] == "slot" and st["paged_decode_launches"] == 0
 
 
 def test_block_allocator_replays_the_reference(jparams):
@@ -206,16 +216,12 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def test_cli_serve_on_cpu_end_to_end():
-    """``cli serve --device cpu`` at a tiny bf16 size: /readyz turns 200
-    after the warm-up, concurrent requests get their full token budgets,
-    /drain exits cleanly and main returns 0."""
+def _start_cli_serve(flags):
+    """``cli serve`` on a free port in a thread; returns (base URL, thread,
+    the list its return code lands in) once /readyz is 200."""
     port = _free_port()
     rc = []
-    argv = ["serve", "--device", "cpu", "--num_layers", "1", "--hidden_size", "32",
-            "--num_heads", "2", "--ffn_dim", "64", "--seq_length", "64",
-            "--kv_num_blocks", "-1", "--kv_block_size", "8", "--prefill_chunk", "8",
-            "--num_slots", "2", "--port", str(port)]
+    argv = ["serve", *flags, "--port", str(port)]
     th = threading.Thread(target=lambda: rc.append(cli.main(argv)), daemon=True)
     th.start()
     base = f"http://127.0.0.1:{port}"
@@ -228,6 +234,84 @@ def test_cli_serve_on_cpu_end_to_end():
             pass
         assert time.time() < deadline, "server never became ready"
         time.sleep(0.1)
+    return base, th, rc
+
+
+TINY_FLAGS = ["--device", "cpu", "--num_layers", "1", "--hidden_size", "32", "--num_heads", "2",
+              "--ffn_dim", "64", "--seq_length", "64"]
+
+
+def _tiny_seed0_params():
+    """The weights ``cli serve`` draws without ``--load`` at TINY_FLAGS
+    (seed 0, the preset's bf16 and vocabulary)."""
+    tok = ByteTokenizer()
+    cfg = tm.PRESETS["llama-0.3b"].replace(num_layers=1, hidden_size=32, num_heads=2,
+                                           ffn_dim=64, max_seq_len=64)
+    return tok, cfg, tm.cast_params(tm.init_model_params(cfg, 0, "cpu"), cfg)
+
+
+@pytest.mark.parametrize("backend", [[], ["--num_slots", "0"]], ids=["slot", "serialized"])
+def test_cli_serve_default_and_serialized_match_generate_np(backend):
+    """``cli serve --device cpu`` at the default ``--kv_num_blocks 0`` (the
+    slot engine) and at ``--num_slots 0`` (``generate_np`` under the global
+    lock, no engine): /api returns the greedy tokens of ``generate_np`` on
+    the same weights; /healthz shows the slot engine or the pending-work
+    gate; /drain reports no leak and main returns 0."""
+    from galvatron_tpu_torch.models import generation as tgen
+
+    base, th, rc = _start_cli_serve(TINY_FLAGS + ["--prefill_chunk", "8", *backend])
+    tok, cfg, params = _tiny_seed0_params()
+    prompts = ["hello slots", "a second, longer prompt"]
+    code, resp = _http(base + "/api", {"prompts": prompts, "tokens_to_generate": 6})
+    assert code == 200, resp
+    assert resp["tokens"] == tgen.generate_np(params, cfg, [tok.encode(p) for p in prompts],
+                                              max_new_tokens=6, eos_id=tok.eos_id,
+                                              pad_id=tok.pad_id)
+    code, health = _http(base + "/healthz")
+    if backend:
+        assert "serving" not in health and health["gate"]["in_use"] == 0, health
+    else:
+        assert health["serving"]["kv_backend"] == "slot", health
+    code, drained = _http(base + "/drain", {})
+    assert code == 200 and drained["leaked"] is False, drained
+    th.join(15)
+    assert rc == [0]
+
+
+def test_serialized_path_gates_pending_work():
+    """``engine=None``: with one pending request allowed, a second request
+    arriving while the first waits on the generation lock gets 503."""
+    tok, cfg, params = _tiny_seed0_params()
+    service = GenerationService(cfg, tok, None, device="cpu", params=params)
+    ready = threading.Event()
+    th = threading.Thread(target=run_server, args=(service,),
+                          kwargs=dict(port=0, ready_event=ready, max_pending=1), daemon=True)
+    th.start()
+    assert ready.wait(10)
+    base = f"http://127.0.0.1:{service.httpd.server_address[1]}"
+    body = {"prompts": ["x"], "tokens_to_generate": 2}
+    first = []
+    with service.lock:  # the first request parks on the generation lock
+        t = threading.Thread(target=lambda: first.append(_http(base + "/api", body)))
+        t.start()
+        while service.gate.snapshot()["in_use"] == 0:
+            time.sleep(0.01)
+        code, resp = _http(base + "/api", body)
+        assert code == 503 and "too many pending" in resp["error"], resp
+    t.join(30)
+    assert first[0][0] == 200 and service.gate.snapshot()["rejected"] == 1
+    code, drained = _http(base + "/drain", {})
+    assert code == 200 and drained["leaked"] is False
+    th.join(10)
+
+
+def test_cli_serve_on_cpu_end_to_end():
+    """``cli serve --device cpu`` at a tiny bf16 size: /readyz turns 200
+    after the warm-up, concurrent requests get their full token budgets,
+    /drain exits cleanly and main returns 0."""
+    base, th, rc = _start_cli_serve(TINY_FLAGS + [
+        "--kv_num_blocks", "-1", "--kv_block_size", "8", "--prefill_chunk", "8",
+        "--num_slots", "2"])
     outs = [None] * 3
 
     def post(i):
