@@ -45,7 +45,15 @@ its result line:
    the dk/dv and the dq kernels' own device times (and the pre-passes' with
    RoPE) come from profiler windows, with the same route checks on all
    three (TMA for bf16, the CUDA-core kernels for fp32) and the repeat
-   check on the backward.
+   check on the backward. Then the ring-hop mode of the three (context
+   parallelism, phase 17): the forward unmasked with fp32 output on a past
+   K/V block at (2, 32, 8192, 128) bf16 (phase 17 (b)'s local batch), and
+   the backward on that block
+   given the lse / delta of a two-block fold (a causal diagonal block, then
+   the past one), which is not the block's own forward; held to the plain
+   versions (computed 8 heads at a time) by the grid bands with the
+   dropped-tile control, timed beside the plain versions, SDPA non-causal
+   forward and backward and the bounds.
    Then the four fused norm kernels (RMSNorm and LayerNorm, forward and
    backward) against their plain versions: the training shapes (16384 rows
    x 4096 RMSNorm, 16384 x 2048 LayerNorm) in bf16 and fp32, and edge
@@ -212,6 +220,32 @@ its result line:
    held to (a)'s by the margin rule; (d) ``cli serve --num_slots 0`` at 2
    layers: one request whose tokens equal ``generate_np``'s. TTFT p50/p95,
    decode step ms, tokens/s and peak memory of (a) and (b) beside phase 6's.
+
+17. context parallelism (phase name ``cp``), ``cli train``'s own call
+   (``--rank-worker``) on two ranks sharing card 0 over gloo: (a) fp32,
+   llama-7b width at 2 layers, batch 2 x 1024, layer 0 cp 2 ring and layer 1
+   cp 2 a2a, 3 steps: losses within 1e-5 of the same layers at world size 1
+   in this process and every rank's pieces within 1e-4 (one AdamW step) of
+   its parameters; the same run without the CP gradient sum, beside it on
+   the card, must leave both; (b) bf16, llama-7b width at 4 layers, batch 2 x 16384
+   (``--seq_length 16384``), vocab_tp 2, the plan cp 2 ring ddp / cp 2 ring
+   zero3 with full recompute / cp 2 a2a zero2 / tp 2 with SP, 3 steps:
+   losses within 2e-2 relative of the same 4 layers at world size 1 on the
+   same weights and batches; each rank's grid flash launches by (batch,
+   heads, sequence, mask), as the wrappers count them, equal to what the
+   plan implies (a ring layer one causal and ring-position unmasked
+   forwards at (2, 32, 8192), twice under full recompute, as many dk/dv and
+   dq launches; the a2a core and the tp layer one causal each at (2, 16,
+   16384)), all on
+   the TMA route and no blocked launch; iter_ms (host-staged transport),
+   peak memory per rank and host-staged collectives beside world size 1's;
+   (c) ``ring_attention`` and ``ulysses_attention`` (flash core) on the two
+   ranks at (2, 32, 4096, 128) bf16, forward and backward, held to the grid
+   plain versions over the whole sequence on one device by
+   ``bf16_parity_excess`` (2^-5 the output, 2^-4 the gradients), and to the
+   fp32 attention within the plain versions' own reading against it plus
+   that band; a ring without its past hop must read out of both. 17b (phase name ``nccl``): (b) over NCCL on cards 0 and 1 where
+   the machine has two; otherwise reported absent.
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
@@ -918,6 +952,130 @@ def phase_grid(torch):
     return lines["grid gpt"]
 
 
+# the ring-hop mode of the grid kernels (context parallelism, phase 17): a
+# past block of 8192 keys against 8192 queries, 32 heads of 128, bf16 in and
+# fp32 out, at llama-7b width with 16384-token sequences split over cp = 2;
+# two sequences, 17 (b)'s local batch (its cp layers have dp = 1)
+RING_HOP = dict(b=2, h=32, s=8192, d=128)
+RING_HOP_PLAIN_HEADS = 8  # the plain versions' (s x s) fp32 scores, 8 heads at a time
+
+
+def _by_heads(torch, fn, *tensors, heads=RING_HOP_PLAIN_HEADS):
+    """``fn`` over slices of ``heads`` heads of each (b, h, s, ...) tensor,
+    its outputs (a tensor or a tuple of them) concatenated along the heads."""
+    outs = [fn(*(t[:, i:i + heads] for t in tensors))
+            for i in range(0, tensors[0].shape[1], heads)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+    return torch.cat(outs, dim=1)
+
+
+def phase_ring_hop(torch):
+    """Phase 3's ring-hop cases: (i) the grid forward unmasked with fp32
+    output on a past K/V block, (ii) the grid backward on that block given
+    the lse / delta of a two-block fold (the diagonal block causal, the past
+    one unmasked), which is not the block's own forward. Each against its
+    plain version (computed 8 heads at a time), with the dropped-tile
+    control, and timed beside the plain version, SDPA (non-causal) and the
+    bound."""
+    import math
+
+    import torch.nn.functional as F
+
+    from galvatron_tpu_torch.ops import flash_attention as fa
+    from galvatron_tpu_torch.parallel import ring
+
+    b, h, s, d = (RING_HOP[k] for k in "bhsd")
+    sm = 1.0 / math.sqrt(d)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    q, kb, vb, do, _, _ = flash_case(torch, torch.bfloat16, b, h, h, s, d, False, seed=60)
+    _, ka, va, _, _, _ = flash_case(torch, torch.bfloat16, b, h, h, s, d, False, seed=61)
+    routes = (fa.flash_grid_fwd.routes, fa.flash_grid_bwd_parts.dkv_routes,
+              fa.flash_grid_bwd_parts.dq_routes)
+    before = [dict(r) for r in routes]
+    # (i) the past hop's forward
+    out, lse = fa.flash_grid_fwd(q, kb, vb, None, sm, False, 1, torch.float32)
+    # the fold: the diagonal block, then the past one
+    o0, lse0 = fa.flash_grid_fwd(q, ka, va, None, sm, True, 1, torch.float32)
+    m, l, acc = ring._lse_combine(lse0, torch.ones_like(lse0), o0, out, lse)
+    l = l.clamp_min(1e-30)
+    out_g, lse_g = (acc / l).to(torch.bfloat16), (m + torch.log(l)).contiguous()
+    delta = (do.float() * out_g.float()).sum(-1, keepdim=True).contiguous()
+    del o0, acc, m, l
+    # (ii) the past hop's backward on the global statistics
+    grads = fa.flash_grid_bwd_parts(q, kb, vb, do, lse_g, delta, None, sm, False)
+    torch.cuda.synchronize()
+    after = [dict(r) for r in routes]
+    taken = {name: {r: after[i][r] - before[i][r] for r in fa.ROUTES}
+             for i, name in enumerate(("fwd", "dkv", "dq"))}
+    check(taken == {"fwd": {"tma": 2, "cuda_core": 0}, "dkv": {"tma": 1, "cuda_core": 0},
+                    "dq": {"tma": 1, "cuda_core": 0}}, f"ring hop: routes {taken}")
+
+    def plain_fwd(q_, k_, v_):
+        return fa.flash_fwd_grid_plain(q_, k_, v_, None, sm, False, 1, torch.float32)
+
+    def plain_bwd(q_, k_, v_, do_, lse_, delta_):
+        return fa.flash_bwd_grid_plain(q_, k_, v_, do_, lse_, delta_, None, sm, False)
+
+    ref_out, ref_lse = _by_heads(torch, plain_fwd, q, kb, vb)
+    ref_grads = _by_heads(torch, plain_bwd, q, kb, vb, do, lse_g, delta)
+    with _patched(fa, _grid_keep=_dropped_grid_keep(torch)):
+        ctl_out, _ = _by_heads(torch, plain_fwd, q, kb, vb)
+        ctl_grads = _by_heads(torch, plain_bwd, q, kb, vb, do, lse_g, delta)
+    fwd_err = fa.bf16_parity_excess(out, ref_out)
+    ctl_fwd = fa.bf16_parity_excess(ctl_out, ref_out)
+    bwd_err = [fa.bf16_parity_excess(g, r) for g, r in zip(grads, ref_grads)]
+    ctl_bwd = [fa.bf16_parity_excess(c, r) for c, r in zip(ctl_grads, ref_grads)]
+    lse_err = (lse - ref_lse).abs().max().item()
+    fwd_abs = (out - ref_out).abs().max().item()
+    abs_err = [(g.float() - r.float()).abs().max().item() for g, r in zip(grads, ref_grads)]
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+    del ctl_out, ctl_grads, ref_out, ref_grads
+    torch.cuda.empty_cache()
+    # yardstick: SDPA unmasked on the same block, and its autograd backward
+    qr, kr, vr = (t.detach().contiguous().requires_grad_(True) for t in (q, kb, vb))
+    lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=False)
+    fwd_ms = time_ms(torch, lambda: fa.flash_grid_fwd(q, kb, vb, None, sm, False, 1,
+                                                      torch.float32), flush)
+    bwd_ms = time_ms(torch, lambda: fa.flash_grid_bwd_parts(q, kb, vb, do, lse_g, delta, None,
+                                                            sm, False), flush)
+    split = device_ms_by_name(torch, lambda: (flush.zero_(), fa.flash_grid_bwd_parts(
+        q, kb, vb, do, lse_g, delta, None, sm, False)), ["bwd::dkdv_kernel", "bwd::dq_kernel"])
+    plain_fwd_ms = time_ms(torch, lambda: _by_heads(torch, plain_fwd, q, kb, vb), flush, iters=3)
+    plain_bwd_ms = time_ms(torch, lambda: _by_heads(torch, plain_bwd, q, kb, vb, do, lse_g,
+                                                    delta), flush, iters=3)
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(qr, kr, vr), flush)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(lib_out, (qr, kr, vr), do,
+                                                         retain_graph=True), flush)
+    bounds = grid_bounds("bfloat16", b, h, h, s, d, False, False, 4)
+    lim_f, lim_b = fa.BF16_PARITY_TOL["fwd"], fa.BF16_PARITY_TOL["bwd"]
+    line = {"case": "ring hop", "dtype": "bfloat16", "b": b, "h": h, "s": s, "d": d,
+            "causal": False, "rope": False, "out_dtype": "float32",
+            "stats": "the lse / delta of a two-block fold (diagonal causal + this block)",
+            "plain_heads_at_a_time": RING_HOP_PLAIN_HEADS,
+            "tolerance": f"bf16_parity_excess: out {lim_f}, gradients {lim_b}; lse 1e-4",
+            "fwd_err": fwd_err, "bwd_err_dq_dk_dv": bwd_err, "control_fwd_err": ctl_fwd,
+            "control_bwd_err_dq_dk_dv": ctl_bwd, "fwd_max_abs_err": fwd_abs,
+            "lse_max_abs_err": lse_err, "bwd_max_abs_err_dq_dk_dv": abs_err, "routes": taken,
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "dkdv_ms": split["bwd::dkdv_kernel"],
+            "dq_ms": split["bwd::dq_kernel"], "fwd_plain_ms": plain_fwd_ms,
+            "bwd_plain_ms": plain_bwd_ms, "fwd_library_ms": lib_fwd, "bwd_library_ms": lib_bwd,
+            **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+            **{f"{k}_bound_by": v[1] for k, v in bounds.items()}}
+    log(json.dumps(line))
+    check(finite, "ring hop: non-finite kernel output")
+    check(fwd_err <= lim_f, f"ring hop: forward err {fwd_err} > {lim_f}")
+    check(lse_err <= 1e-4, f"ring hop: lse err {lse_err} > 1e-4")
+    check(ctl_fwd > lim_f, "ring hop: the dropped-tile control passes the forward check")
+    for name, e, c in zip("qkv", bwd_err, ctl_bwd):
+        check(e <= lim_b, f"ring hop: d{name} err {e} > {lim_b}")
+        check(c > lim_b, f"ring hop: the dropped-tile control passes for d{name} ({c})")
+    del q, ka, va, kb, vb, do, out, lse, grads, qr, kr, vr, lib_out, flush
+    torch.cuda.empty_cache()
+    RESULTS["ring_hop"] = line
+    return line
+
+
 # ---------------------------------------------------------------------------
 # phase 3, continued: the fused norm kernels, parity and timing
 # ---------------------------------------------------------------------------
@@ -1274,6 +1432,9 @@ def reset_kernel_counts():
 
     fa.flash_fwd.launches = fa.flash_bwd.launches = fa.flash_grid_fwd.launches = 0
     fa.flash_grid_bwd_parts.dkv_launches = fa.flash_grid_bwd_parts.dq_launches = 0
+    for modes in (fa.flash_grid_fwd.modes, fa.flash_grid_bwd_parts.dkv_modes,
+                  fa.flash_grid_bwd_parts.dq_modes):
+        modes.clear()
     fn.reset_launch_counts()
 
 
@@ -3127,12 +3288,401 @@ def phase_services(torch, smi, train_res):
     return launches
 
 
-def rank_worker(outdir, argv, ref_params=None) -> int:
-    """One rank of phases 12-13: ``cli train``'s own call (``trainer.train``
-    of the parsed flags), with the flash wrappers' launches also counted by
-    the head count they ran at; writes ``rank<r>.json`` (and, with
-    ``ref_params``, the largest difference of this rank's pieces from the
-    world-size-1 parameters)."""
+# ---------------------------------------------------------------------------
+# phase 17: context parallelism (cli train with cp plans; ring and Ulysses)
+# ---------------------------------------------------------------------------
+
+CP_STEPS = 3
+# (a) fp32 parity: llama-7b width, layer 0 cp 2 ring, layer 1 cp 2 a2a
+CP_FP32 = dict(layers=2, batch=2, seq=1024)
+# (b) bf16 long context: llama-7b width, 4 layers, 16384-token sequences; two
+# of them, since a micro-batch must split over dp x cp (the plan checker's
+# GTA009, the JAX package's rule)
+CP_LONG = dict(layers=4, batch=2, seq=16384)
+# (b)'s plan on two ranks: (cp, cp_impl, tp, sp, dp_type, ckpt) per layer; vocab_tp 2
+CP_PLAN = ((2, "ring", 1, False, "ddp", "none"), (2, "ring", 1, False, "zero3", "full"),
+           (2, "a2a", 1, False, "zero2", "none"), (1, "ring", 2, True, "ddp", "none"))
+CP_VOCAB_TP = 2
+# (c) the functions alone, on the two ranks, at (b)'s local batch
+CP_FN_SHAPE = dict(b=2, h=32, s=4096, d=128)
+# (a)'s limits, set between the sound run's readings and its control's (PERF.md,
+# PR 14): a parameter band of one AdamW step at cli train's lr (1e-4), and a
+# loss limit of ten fp32 ulps at 10.5; a run without the CP gradient sum
+# crosses both (its steps go other ways from step 1)
+CP_FP32_PARAM_BAND = 1e-4
+CP_FP32_LOSS_TOL = 1e-5
+#: the context-parallel controls: the CP gradient sum left out (17 (a)), and
+#: the ring hop from ring position 0 left out (17 (c))
+CP_CONTROLS = ("no_cp_reduce", "drop_past_hop")
+
+
+def _cp_control(name):
+    """A with block under which the runtime is ``name``'s control (None:
+    the runtime as it is)."""
+    from galvatron_tpu_torch.parallel import hybrid, ring
+
+    if name == "no_cp_reduce":
+        return _patched(hybrid, _reduce_cp=lambda g, lp: g)
+    if name == "drop_past_hop":
+        return _patched(ring, _past=lambda owner, idx: 0 < owner < idx)
+    if name is None:
+        return contextlib.nullcontext()
+    raise ValueError(f"unknown control {name!r}")
+
+
+def _cp_plan(path, rows, precision, vocab_tp=1):
+    """A strategy JSON from (cp, cp_impl, tp, sp, dp_type, ckpt) rows."""
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig, LayerStrategy
+
+    hp = HybridParallelConfig(
+        layer_strategies=[LayerStrategy(cp=c, cp_impl=i, tp=t, sp=sp, dp_type=d, ckpt=k)
+                          for c, i, t, sp, d, k in rows],
+        vocab_tp=vocab_tp, mixed_precision=precision)
+    hp.save(path)
+    return hp
+
+
+def _cp_argv(plan, layers, batch, seq):
+    return ["--model_size", "llama-7b", "--num_layers", str(layers), "--seq_length", str(seq),
+            "--global_train_batch_size", str(batch), "--train_iters", str(CP_STEPS),
+            "--galvatron_config_path", plan]
+
+
+def _cp_grid_want(hp, idx, world, batch, seq, steps, heads=32):
+    """Grid flash launches of ``steps`` steps of a plan at ring position
+    ``idx`` in a world of ``world`` ranks, keyed as the wrappers' ``modes``
+    ("b,h,s,causal" or "b,h,s,unmasked", b the batch over the layer's dp): a
+    ring layer launches its own block causal and each of its ``idx`` past
+    blocks unmasked, at (heads / tp, seq / cp), forwards twice under full
+    recompute, and as many dk/dv and dq; an a2a layer's core one of each,
+    causal, at (heads / (tp cp), seq); a tp layer one of each, causal, at
+    (heads / tp, seq) when the blocked route does not take its shape.
+    Returns ({kernel: {key: n}}, blocked launches)."""
+    from galvatron_tpu_torch.ops import flash_attention as fa
+
+    want = {"flash_grid_fwd": {}, "flash_grid_dkdv": {}, "flash_grid_dq": {}}
+    blocked = 0
+    for s in hp.layer_strategies:
+        redo = 2 if s.ckpt == "full" else 1
+        b = batch // (world // (s.tp * s.cp))
+        if s.cp > 1 and s.cp_impl == "ring":
+            at = f"{b},{heads // s.tp},{seq // s.cp}"
+            keys = {f"{at},causal": 1, f"{at},unmasked": idx}
+        elif s.cp > 1:
+            keys = {f"{b},{heads // (s.tp * s.cp)},{seq},causal": 1}
+        elif fa.flash_qkv_supported(seq, 128, True, True):
+            blocked += 1
+            continue
+        else:
+            keys = {f"{b},{heads // s.tp},{seq},causal": 1}
+        for key, n in keys.items():
+            for k, m in (("flash_grid_fwd", redo * n), ("flash_grid_dkdv", n),
+                         ("flash_grid_dq", n)):
+                if m:
+                    want[k][key] = want[k].get(key, 0) + m * steps
+    return want, blocked
+
+
+def phase_cp_fp32(torch, smi, tmpdir):
+    """17 (a): the two-layer cp plan on two ranks sharing the card over
+    gloo, fp32, against the same layers at world size 1 in this process:
+    losses within ``CP_FP32_LOSS_TOL`` (and phase 12's
+    ``HYBRID_FP32_LOSS_TOL``), every rank's parameters within
+    ``CP_FP32_PARAM_BAND``. The same run without the CP gradient sum, run
+    beside it on the card, must fall out of both."""
+    from concurrent.futures import ThreadPoolExecutor
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron
+
+    a = CP_FP32
+    plan1 = os.path.join(tmpdir, "cp_fp32_w1.json")
+    _cp_plan(plan1, [(1, "ring", 1, False, "ddp", "none")] * a["layers"], "fp32")
+    plan2 = os.path.join(tmpdir, "cp_fp32_w2.json")
+    _cp_plan(plan2, [(2, "ring", 1, False, "ddp", "none"), (2, "a2a", 1, False, "ddp", "none")],
+             "fp32")
+    t0 = time.perf_counter()
+    ref = trainer.train(initialize_galvatron("train", _cp_argv(plan1, a["layers"], a["batch"],
+                                                                 a["seq"])))
+    ref_path = os.path.join(tmpdir, "cp_ref_params.pt")
+    torch.save(_to(ref["state"]["params"], "cpu"), ref_path)
+    ref_losses = ref["losses"]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def run(control):
+        """Two ranks of the plan (under ``control``) on card 0."""
+        outdir = os.path.join(tmpdir, f"cp_ranks_fp32_{control}")
+        os.makedirs(outdir)
+        extra = ("--ref-params", ref_path) + (("--control", control) if control else ())
+        return _launch_ranks(_cp_argv(plan2, a["layers"], a["batch"], a["seq"]), outdir, "gloo",
+                             (0, 0), extra)
+
+    def readings(rs):
+        return (max(abs(x - y) for x, y in zip(rs[0]["losses"], ref_losses)),
+                max(r["param_max_abs_diff"] for r in rs))
+
+    # the sound run and its control, two worlds at once
+    with ThreadPoolExecutor(2) as pool:
+        ranks, crs = pool.map(run, (None, "no_cp_reduce"))
+    os.remove(ref_path)
+    diff, pdiff = readings(ranks)
+    cdiff, cpdiff = readings(crs)
+    control = {"losses": crs[0]["losses"], "max_abs_loss_diff": cdiff,
+               "param_max_abs_diff": cpdiff}
+    check(all(r["losses"] == ranks[0]["losses"] for r in ranks), "17 (a): ranks differ")
+    check(diff <= min(CP_FP32_LOSS_TOL, HYBRID_FP32_LOSS_TOL),
+          f"17 (a): losses {ranks[0]['losses']} vs world size 1 {ref_losses}")
+    check(pdiff <= CP_FP32_PARAM_BAND,
+          f"17 (a): parameters {pdiff} from world size 1 (band {CP_FP32_PARAM_BAND})")
+    check(cpdiff > CP_FP32_PARAM_BAND and cdiff > CP_FP32_LOSS_TOL,
+          f"17 (a): the control without the CP gradient sum passes a limit ({control})")
+    res = {"card": smi, **a, "steps": CP_STEPS, "plan": "cp 2 ring, cp 2 a2a", "dtype": "float32",
+           "losses": ranks[0]["losses"], "world1_losses": ref_losses, "max_abs_loss_diff": diff,
+           "tolerance": CP_FP32_LOSS_TOL, "param_max_abs_diff": pdiff,
+           "param_band": CP_FP32_PARAM_BAND, "control_no_cp_reduce": control,
+           "host_staged": [r["host_staged"] for r in ranks], "p2p": [r["p2p"] for r in ranks],
+           "seconds": time.perf_counter() - t0}
+    log("phase 17 (a) cp fp32:", json.dumps(res))
+    RESULTS["cp_fp32"] = res
+
+
+def phase_cp_world1(torch, smi, tmpdir):
+    """(b)'s reference: the same 4 layers at world size 1, in this process."""
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron
+
+    b = CP_LONG
+    plan = os.path.join(tmpdir, "cp_long_w1.json")
+    _cp_plan(plan, [(1, "ring", 1, False, "ddp", "none")] * b["layers"], "bf16")
+    torch.cuda.reset_peak_memory_stats()
+    out = trainer.train(initialize_galvatron("train", _cp_argv(plan, b["layers"], b["batch"],
+                                                                 b["seq"])))
+    it = out["iter_times"]
+    res = {"losses": out["losses"], "iter_ms_mean_from_2": sum(it[1:]) / (len(it) - 1),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 17 (b) world size 1:", json.dumps(res))
+    RESULTS["cp_long_world1"] = res
+    return res
+
+
+def phase_cp_long(torch, smi, tmpdir, backend, local_ranks, world1):
+    """17 (b) (two ranks sharing card 0 over gloo) or 17b (two cards over
+    NCCL): the bf16 plan at llama-7b width on 16384-token sequences,
+    against world size 1 on the same weights and batches; each rank's grid
+    launches by shape, on the TMA route."""
+    import numpy as np
+
+    tag = "17 (b)" if backend == "gloo" else "17b"
+    b = CP_LONG
+    plan = os.path.join(tmpdir, f"cp_long_{backend}.json")
+    hp = _cp_plan(plan, CP_PLAN, "bf16", CP_VOCAB_TP)
+    outdir = os.path.join(tmpdir, f"cp_ranks_long_{backend}")
+    os.makedirs(outdir)
+    t0 = time.perf_counter()
+    ranks = _launch_ranks(_cp_argv(plan, b["layers"], b["batch"], b["seq"]), outdir, backend,
+                          local_ranks)
+    w1 = world1["losses"]
+    losses = ranks[0]["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(losses, w1))
+    check(all(np.isfinite(losses)), f"{tag}: non-finite losses {losses}")
+    check(all(r["losses"] == losses for r in ranks), f"{tag}: ranks report other losses")
+    check(rel <= HYBRID_BF16_LOSS_RTOL, f"{tag}: losses {losses} vs world size 1 {w1}")
+    for r in ranks:
+        want, blocked = _cp_grid_want(hp, r["rank"], len(ranks), b["batch"], b["seq"], CP_STEPS)
+        totals = {k: sum(v.values()) for k, v in want.items()}
+        got = {k: r["launches"][k] for k in totals}
+        check(got == totals and r["launches"]["flash_fwd"] == blocked * CP_STEPS
+              and r["launches"]["flash_bwd"] == blocked * CP_STEPS,
+              f"{tag} rank {r['rank']}: launches {r['launches']}, expected {totals}")
+        check(all(r["routes"][k]["tma"] == totals[k] and r["routes"][k]["cuda_core"] == 0
+                  for k in totals), f"{tag} rank {r['rank']}: routes {r['routes']}")
+        check(r["shapes"] == want, f"{tag} rank {r['rank']}: launches by shape {r['shapes']}, "
+              f"expected {want}")
+        check((r["host_staged"] > 0) == (backend == "gloo"),
+              f"{tag} rank {r['rank']}: {r['host_staged']} host-staged collectives")
+    steady = lambda r: sum(r["iter_times"][1:]) / (len(r["iter_times"]) - 1)  # noqa: E731
+    res = {"card": smi, "backend": backend, "local_ranks": list(local_ranks), **b,
+           "steps": CP_STEPS, "plan": [list(x) for x in CP_PLAN], "vocab_tp": CP_VOCAB_TP,
+           "losses": losses, "world1_losses": w1, "max_rel_loss_diff": rel,
+           "tolerance": HYBRID_BF16_LOSS_RTOL,
+           "launches": [{k: r["launches"][k] for k in ("flash_grid_fwd", "flash_grid_dkdv",
+                                                       "flash_grid_dq", "flash_fwd")}
+                        for r in ranks],
+           "launches_by_shape": [r["shapes"] for r in ranks],
+           "host_staged": [r["host_staged"] for r in ranks], "p2p": [r["p2p"] for r in ranks],
+           "iter_ms_mean_from_2": [steady(r) for r in ranks],
+           "world1_iter_ms_mean_from_2": world1["iter_ms_mean_from_2"],
+           "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in ranks],
+           "world1_max_memory_allocated_gb": world1["max_memory_allocated_gb"],
+           "iter_ms_is": ("host-staged over gloo: a transport figure, not a parallelism result"
+                          if backend == "gloo" else "NCCL on two cards"),
+           "seconds": time.perf_counter() - t0}
+    log(f"phase {tag} cp long context:", json.dumps(res))
+    RESULTS[f"cp_long_{backend}"] = res
+    return res
+
+
+def _causal_fp32(torch, q, k, v):
+    """Causal softmax attention over the whole sequence in fp32: (B, S, n,
+    d) in and out."""
+    sc = torch.einsum("bqnd,bknd->bnqk", q, k) / (q.shape[-1] ** 0.5)
+    s = q.shape[1]
+    keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(sc.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.einsum("bnqk,bknd->bqnd", p, v)
+
+
+def _cp_fn_inputs(torch):
+    b, h, s, d = (CP_FN_SHAPE[k] for k in "bhsd")
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    return [torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(4)]
+
+
+def cp_worker(outdir) -> int:
+    """One rank of 17 (c): its block of seeded q/k/v through
+    ``ring_attention`` (and with one past hop left out, the control) and
+    ``ulysses_attention`` (flash core), forward and backward; writes each
+    output and gradient block."""
+    import torch
+    import torch.distributed as dist
+
+    from galvatron_tpu_torch.core.trainer import init_distributed
+    from galvatron_tpu_torch.models.modeling import ModelConfig
+    from galvatron_tpu_torch.parallel import ring, ulysses
+    from galvatron_tpu_torch.parallel.mesh import ProcessGroups, RankMesh
+
+    dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    torch.cuda.set_device(dev)
+    init_distributed(dev, "gloo", timeout_s=300)
+    rank = dist.get_rank()
+    axes = ("x0",)
+    group = ProcessGroups(RankMesh(dist.get_world_size()), rank, [axes]).get(axes)
+    q, k, v, do = _cp_fn_inputs(torch)
+    n = q.shape[1] // group.size
+    blk = slice(group.index * n, (group.index + 1) * n)
+    cfg = ModelConfig(num_heads=q.shape[2], hidden_size=q.shape[2] * q.shape[3],
+                      attn_impl="flash")
+    runs = {"ring": (lambda *t: ring.ring_attention(*t, group), None),
+            "ring_control": (lambda *t: ring.ring_attention(*t, group), "drop_past_hop"),
+            "ulysses": (lambda *t: ulysses.ulysses_attention(*t, cfg, group), None)}
+    for name, (fn, control) in runs.items():
+        qb, kb, vb = (t[:, blk].detach().clone().requires_grad_(True) for t in (q, k, v))
+        with _cp_control(control):
+            out = fn(qb, kb, vb)
+            out.backward(do[:, blk])
+        torch.cuda.synchronize()
+        torch.save({"out": out.detach().cpu(), "grads": [t.grad.cpu() for t in (qb, kb, vb)],
+                    "index": group.index}, os.path.join(outdir, f"{name}.{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_cp_functions(torch, smi, tmpdir):
+    """17 (c): ``ring_attention`` and ``ulysses_attention`` on the two
+    ranks, forward and backward at (2, 32, 4096, 128) bf16, held to the grid
+    plain versions over the whole sequence on one device (causal, the
+    kernels' bf16 rounding points: what world size 1 computes) by
+    ``bf16_parity_excess`` (2^-5 the output, 2^-4 the gradients); the ring
+    without a past hop must read out of band. Each is also held to the fp32
+    attention over the whole sequence: within the plain versions' own
+    reading against it on the same inputs plus the band (a kernel within
+    the band of the plain versions can be no farther from fp32). dq reads
+    far past 2^-4 there for the plain versions too: in the first rows of the
+    sequence, ds = p (dp - delta) cancels to nearly zero in fp32 but keeps
+    the rounding of the bf16 output that delta is taken from."""
+    from galvatron_tpu_torch.ops import flash_attention as fa
+    from galvatron_tpu_torch.parallel.launch import launch_local
+
+    outdir = os.path.join(tmpdir, "cp_functions")
+    os.makedirs(outdir)
+    t0 = time.perf_counter()
+    ranks = launch_local([sys.executable, os.path.abspath(__file__), "--cp-worker", outdir], 2,
+                         timeout_s=HYBRID_RANK_TIMEOUT_S, local_ranks=(0, 0),
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    for r in ranks:
+        log(f"  rank {r.rank}: rc={r.returncode} killed={r.killed}\n" +
+            "\n".join(r.output.splitlines()[-8:]))
+    check(all(r.returncode == 0 and not r.killed for r in ranks), "17 (c): a rank failed")
+    q, k, v, do = _cp_fn_inputs(torch)
+    # the reference: the grid plain versions over the whole sequence, head-major
+    hq, hk, hv, hdo = (t.transpose(1, 2) for t in (q, k, v, do))
+    sm = 1.0 / q.shape[-1] ** 0.5
+    ref_out, lse = fa.flash_fwd_grid_plain(hq, hk, hv, None, sm, True)
+    delta = (hdo.float() * ref_out.float()).sum(-1, keepdim=True)
+    ref = [t.transpose(1, 2) for t in (ref_out, *fa.flash_bwd_grid_plain(
+        hq, hk, hv, hdo, lse, delta, None, sm, True))]
+    del ref_out, lse, delta
+    # the fp32 attention, and the plain versions' own reading against it
+    f32_in = [t.float().requires_grad_(True) for t in (q, k, v)]
+    f32_out = _causal_fp32(torch, *f32_in)
+    f32 = [f32_out.detach(), *torch.autograd.grad(f32_out, f32_in, do.float())]
+    del f32_in, f32_out
+    lim_f, lim_b = fa.BF16_PARITY_TOL["fwd"], fa.BF16_PARITY_TOL["bwd"]
+    lims = (lim_f, lim_b, lim_b, lim_b)
+    plain_f32 = [fa.bf16_parity_excess(r, f) for r, f in zip(ref, f32)]
+    res = {"card": smi, "shape": CP_FN_SHAPE, "dtype": "bfloat16", "cp": 2,
+           "reference": "the grid plain versions over the whole sequence (causal, bf16)",
+           "tolerance": f"bf16_parity_excess: out {lim_f}, gradients {lim_b}; against fp32, "
+                        "the plain versions' own reading plus that band",
+           "plain_fp32_out_dq_dk_dv_err": plain_f32}
+    for name in ("ring", "ring_control", "ulysses"):
+        parts = sorted((torch.load(os.path.join(outdir, f"{name}.{r}.pt")) for r in range(2)),
+                       key=lambda p: p["index"])
+        got = [torch.cat([p["out"] for p in parts], dim=1).cuda()] + [
+            torch.cat([p["grads"][i] for p in parts], dim=1).cuda() for i in range(3)]
+        errs = [fa.bf16_parity_excess(g, r) for g, r in zip(got, ref)]
+        errs32 = [fa.bf16_parity_excess(g, f) for g, f in zip(got, f32)]
+        res[name] = {"out_err": errs[0], "dq_dk_dv_err": errs[1:],
+                     "fp32_reference_out_dq_dk_dv_err": errs32}
+        inside = all(e <= lim for e, lim in zip(errs, lims))
+        inside32 = all(e <= p + lim for e, p, lim in zip(errs32, plain_f32, lims))
+        if name == "ring_control":
+            check(not inside and not inside32,
+                  f"17 (c): the ring without a past hop passes ({errs}, fp32 {errs32})")
+        else:
+            check(inside, f"17 (c): {name} out / dq / dk / dv err {errs}")
+            check(inside32, f"17 (c): {name} against fp32 {errs32}, the plain versions "
+                  f"{plain_f32}")
+    res["seconds"] = time.perf_counter() - t0
+    log("phase 17 (c) cp functions:", json.dumps(res))
+    RESULTS["cp_functions"] = res
+
+
+def phase_cp(torch, smi, run_gloo=True, run_nccl=False):
+    """Phase 17 (gloo on card 0: (a), (b), (c)) and 17b (NCCL on cards 0
+    and 1 where there are two). Returns (b)'s result."""
+    res = None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cp_") as tmpdir:
+        gc.collect()
+        torch.cuda.empty_cache()
+        world1 = phase_cp_world1(torch, smi, tmpdir)
+        if run_gloo:
+            phase_cp_fp32(torch, smi, tmpdir)
+            gc.collect()
+            torch.cuda.empty_cache()
+            res = phase_cp_long(torch, smi, tmpdir, "gloo", (0, 0), world1)
+            phase_cp_functions(torch, smi, tmpdir)
+        if run_nccl and torch.cuda.device_count() >= 2:
+            phase_cp_long(torch, smi, tmpdir, "nccl", (0, 1), world1)
+        elif run_nccl:
+            log(f"phase 17b, cp over nccl on two cards: absent ({torch.cuda.device_count()} card)")
+            RESULTS["cp_long_nccl"] = "absent: one card"
+    return res
+
+
+def rank_worker(outdir, argv, ref_params=None, control=None) -> int:
+    """One rank of phases 12-13 and 17: ``cli train``'s own call
+    (``trainer.train`` of the parsed flags), with the blocked flash
+    wrappers' calls also counted by the head count they ran at, and the grid
+    wrappers' launches by shape and mask (their ``modes``); writes
+    ``rank<r>.json`` (and, with ``ref_params``, the largest difference of
+    this rank's pieces from the world-size-1 parameters). ``control`` names
+    one of ``CP_CONTROLS`` to train under."""
     import torch
 
     from galvatron_tpu_torch import bridge
@@ -3151,17 +3701,21 @@ def rank_worker(outdir, argv, ref_params=None) -> int:
             return _orig(q, *a, **kw)
 
         # the wrapper's body counts into the module-level name: carry its counters
-        counted.launches, counted.routes, counted.dtypes = orig.launches, orig.routes, orig.dtypes
+        counted.__dict__.update(orig.__dict__)
         setattr(fa, name, counted)
     reset_kernel_counts()
     before = route_counts()
     ns = initialize_galvatron("train", argv)
-    out = trainer.train(ns)
+    with _cp_control(control):
+        out = trainer.train(ns)
     rec = {"rank": out["rank"], "world": out["world"], "losses": out["losses"],
            "iter_times": out["iter_times"], "launches": kernel_counts(),
            "routes": {k: {r: n - before[k][r] for r, n in v.items()}
                       for k, v in route_counts().items()},
            "heads": heads, "host_staged": out["host_staged"], "p2p": out["p2p"],
+           "shapes": {"flash_grid_fwd": dict(fa.flash_grid_fwd.modes),
+                      "flash_grid_dkdv": dict(fa.flash_grid_bwd_parts.dkv_modes),
+                      "flash_grid_dq": dict(fa.flash_grid_bwd_parts.dq_modes)},
            "stage": out["stage"], "stage_layers": out["stage_layers"],
            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
                                        if torch.cuda.is_available() else None)}
@@ -3182,7 +3736,7 @@ def rank_worker(outdir, argv, ref_params=None) -> int:
 
 #: the phases by name, for ``--phases``; a full run takes them all
 PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train", "hybrid",
-          "pipeline", "nccl", "search", "services", "slots")
+          "pipeline", "nccl", "search", "services", "slots", "cp")
 
 
 def main() -> int:
@@ -3195,11 +3749,16 @@ def main() -> int:
     ap.add_argument("--rank-worker", default=None, metavar="OUTDIR",
                     help="(phases 12-13) run as one rank: the flags after -- are cli train's")
     ap.add_argument("--ref-params", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--control", default=None, choices=CP_CONTROLS[:1], help=argparse.SUPPRESS)
+    ap.add_argument("--cp-worker", default=None, metavar="OUTDIR",
+                    help="(phase 17 (c)) run as one rank of the ring / Ulysses functions")
     ap.add_argument("train_argv", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank_worker:
         argv = args.train_argv[1:] if args.train_argv[:1] == ["--"] else args.train_argv
-        return rank_worker(args.rank_worker, argv, args.ref_params)
+        return rank_worker(args.rank_worker, argv, args.ref_params, args.control)
+    if args.cp_worker:
+        return cp_worker(args.cp_worker)
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
@@ -3229,6 +3788,7 @@ def main() -> int:
         mark("3 flash")
     if "grid" in phases:
         lines["grid"] = phase_grid(torch)
+        lines["ring_hop"] = phase_ring_hop(torch)
         mark("3 grid")
     if "norm" in phases:
         lines["norm"] = phase_norm(torch)
@@ -3321,6 +3881,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches["paged_gpt"] = phase_slots(torch, smi)
         mark("16 slots")
+    if {"cp", "nccl"} & set(phases):
+        cp_long = phase_cp(torch, smi, run_gloo="cp" in phases, run_nccl="nccl" in phases)
+        mark("17 cp")
     RESULTS["total_seconds"] = time.perf_counter() - clock["start"]
     log("phase seconds:", json.dumps(seconds), f"total {RESULTS['total_seconds']:.1f} s")
     if set(phases) != set(PHASES):
@@ -3355,6 +3918,22 @@ def main() -> int:
                 "library_ms": line[which + "_library_ms"]}
 
     dq_err, dk_err, dv_err = grid_line["bwd_max_abs_err_dq_dk_dv"]
+    ring_line = lines["ring_hop"]
+    # the ring hops' launches on 17 (b)'s path, both ranks: the past hops
+    # (unmasked), whose shape phase 3's ring-hop case times
+    hop = f"{RING_HOP['b']},{RING_HOP['h']},{RING_HOP['s']},unmasked"
+    ring_launches = {k: sum(r[k].get(hop, 0) for r in cp_long["launches_by_shape"])
+                     for k in ("flash_grid_fwd", "flash_grid_dkdv", "flash_grid_dq")}
+    check(all(ring_launches.values()), f"no past-hop launch at {hop} in 17 (b): {ring_launches}")
+    rq_err, rk_err, rv_err = ring_line["bwd_max_abs_err_dq_dk_dv"]
+
+    def ring_entry(name, source, line_no, count, err, ms, plain, bound, library):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces + line_no, "launches": ring_launches[count],
+                "max_abs_err": err, "ms": ring_line[ms], "plain_ms": ring_line[plain],
+                "bound_ms": ring_line[bound + "_bound_ms"],
+                "bound_by": ring_line[bound + "_bound_by"], "library_ms": ring_line[library]}
+
     kernels = {"kernels": [
         {"name": "paged_decode", "route": "cuda", "source": src + "paged_decode.cu",
          "replaces": replaces + "1152",
@@ -3403,6 +3982,16 @@ def main() -> int:
         grid_entry("flash_grid_dkdv", "flash_grid_bwd.cu", "724", "flash_grid_dkdv",
                    max(dk_err, dv_err), "dkdv_ms", "bwd_plain_ms", "dkdv", "bwd_library_ms"),
         grid_entry("flash_grid_dq", "flash_grid_bwd.cu", "792", "flash_grid_dq", dq_err,
+                   "dq_ms", "bwd_plain_ms", "dq", "bwd_library_ms"),
+        # the same three kernels in the ring-hop mode (phase 3's ring-hop
+        # case: unmasked, fp32 out; the backward on a fold's global lse /
+        # delta), with their launches on phase 17 (b)'s context-parallel path
+        ring_entry("flash_grid_fwd_ring_hop", "flash_grid_fwd.cu", "123", "flash_grid_fwd",
+                   ring_line["fwd_max_abs_err"], "fwd_ms", "fwd_plain_ms", "fwd",
+                   "fwd_library_ms"),
+        ring_entry("flash_grid_dkdv_ring_hop", "flash_grid_bwd.cu", "724", "flash_grid_dkdv",
+                   max(rk_err, rv_err), "dkdv_ms", "bwd_plain_ms", "dkdv", "bwd_library_ms"),
+        ring_entry("flash_grid_dq_ring_hop", "flash_grid_bwd.cu", "792", "flash_grid_dq", rq_err,
                    "dq_ms", "bwd_plain_ms", "dq", "bwd_library_ms"),
         norm_entry("rms_fwd", "64", "rms main", "llama_fused", "fwd"),
         norm_entry("rms_bwd", "72", "rms main", "llama_fused", "bwd"),

@@ -2,8 +2,9 @@
 ``generate`` and ``serve``), the step-program group, the training group, the
 hybrid-parallel GLOBAL flags
 (pipelines: ``--pp_deg``, ``--pp_division``, ``--vpp_deg``,
-``--pipeline_type``; TP with its layout, SP, DDP / ZeRO-2 / ZeRO-3,
-recompute, vocab TP / SP, chunks, and ``--galvatron_config_path``), and the
+``--pipeline_type``; TP with its layout, SP, context parallelism
+(``--context_parallel_deg``, ``--context_parallel_impl``), DDP / ZeRO-2 /
+ZeRO-3, recompute, vocab TP / SP, chunks, and ``--galvatron_config_path``), and the
 ``search``, ``profile``, ``profile_hardware`` and ``check_plan`` groups of
 ``galvatron_tpu/core/arguments.py`` with the reference's names and defaults,
 plus ``--device`` (where a mode touches a device) and ``--dist_backend``.
@@ -12,8 +13,8 @@ The training services' flags (``--data_path``, ``--data_mixture``,
 ``--save_interval``, ``--keep_last_n``, ``--rampup_batch_size``,
 ``--mixed_precision fp16``) and ``serve --load`` keep the reference's names
 and defaults; ``--pack_sequences 1`` parses and raises naming its ROADMAP
-item. Flags of unported features (``--context_parallel_deg``,
-``--global_tp_overlap``, ``--grad_overlap``, multi-slice ``--num_slices``,
+item. Flags of unported features (``--global_tp_overlap``,
+``--grad_overlap``, multi-slice ``--num_slices``,
 ...) are absent, so passing one is an argparse error rather than a silently
 ignored option."""
 
@@ -219,6 +220,11 @@ def _add_parallel_args(p: argparse.ArgumentParser):
                    help="0 = off, 1 = full-layer recompute, 2 = selective "
                    "(attention-core-only recompute)")
     g.add_argument("--sequence_parallel", type=int, default=0)
+    g.add_argument("--context_parallel_deg", type=int, default=1)
+    g.add_argument("--context_parallel_impl", type=str, default="ring",
+                   choices=["ring", "a2a"],
+                   help="ring = K/V rotation; a2a = Ulysses sequence/head "
+                   "all-to-all (needs num_heads divisible by the CP degree)")
     g.add_argument("--chunks", type=int, default=-1,
                    help="micro-batches accumulated per step; -1 = heuristic (1 at pp=1)")
     g.add_argument("--vocab_tp", type=int, default=1,
@@ -448,6 +454,8 @@ def hybrid_config_from_args(ns: argparse.Namespace, num_layers: int,
         dp_type="zero3" if ns.sdp else ns.default_dp_type,
         ckpt=ns.global_checkpoint,
         sp=bool(ns.sequence_parallel),
+        cp=ns.context_parallel_deg,
+        cp_impl=ns.context_parallel_impl,
         chunks=chunks,
         pipeline_type=ns.pipeline_type,
         vocab_tp=ns.vocab_tp,

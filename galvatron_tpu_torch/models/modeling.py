@@ -750,13 +750,45 @@ def _decoder_layer_tp(x, p, cfg: ModelConfig, cos_sin, remat_attn: bool, tp):
     the single-device layer recomputes the norm from the layer input, and
     here a collective stands between the two."""
     local = tp_local_config(cfg, tp.size)
-    pa, pm = p["attn"], p["mlp"]
+    pa = p["attn"]
     h = tp.enter(norm(x, p["attn_norm"], cfg))
     y = attn_block(h, _without(pa, "wo_b"), local, cos_sin, remat_attn=remat_attn)
     x = x + _add_bias(tp.exit(y), pa, "wo_b")
+    return _mlp_residual_tp(x, p, cfg, tp)
+
+
+def _mlp_residual_tp(x, p, cfg: ModelConfig, tp):
+    """The MLP half of :func:`_decoder_layer_tp`."""
+    pm = p["mlp"]
     h = tp.enter(norm(x, p["mlp_norm"], cfg))
-    y = mlp_block(h, _without(pm, "w2_b"), local, product_remat=cfg.mlp_recompute != "off")
+    y = mlp_block(h, _without(pm, "w2_b"), tp_local_config(cfg, tp.size),
+                  product_remat=cfg.mlp_recompute != "off")
     return x + _add_bias(tp.exit(y), pm, "w2_b")
+
+
+def core_decoder_layer(x, p, cfg: ModelConfig, core, cos_sin=None, tp=None):
+    """One layer whose attention core is ``core(q, k, v)``: q (B, s, n, hd)
+    and k/v (B, s, kv, hd), RoPE applied, in; the (B, s, n, hd) context out.
+    The context-parallel layers run this (``parallel/ring.py``,
+    ``parallel/ulysses.py``; the reference's ``ring_decoder_layer`` and
+    ``ulysses_decoder_layer``): the projections, RoPE through the caller's
+    tables (the rows of this rank's positions), the core, the output
+    projection and the MLP as in :func:`decoder_layer`. With ``tp`` (a
+    ``TPRegion`` without SP) the projections are this rank's heads and
+    columns, as in :func:`_decoder_layer_tp`."""
+    tp = tp if tp is not None and tp.size > 1 else None
+    local = tp_local_config(cfg, tp.size) if tp is not None else cfg
+    pa = p["attn"]
+    h = norm(x, p["attn_norm"], cfg)
+    if tp is not None:
+        h = tp.enter(h)
+    q, k, v = project_qkv_heads(h, pa, local)
+    if cfg.pos_embed == "rope":
+        q, k = apply_rope(q, *cos_sin), apply_rope(k, *cos_sin)
+    y = attn_output(core(q, k, v), _without(pa, "wo_b"), local)
+    if tp is None:
+        return mlp_residual(x + _add_bias(y, pa, "wo_b"), p, cfg)
+    return _mlp_residual_tp(x + _add_bias(tp.exit(y), pa, "wo_b"), p, cfg, tp)
 
 
 def forward(params, tokens, cfg: ModelConfig, layer_hook=None):

@@ -29,7 +29,10 @@ Each kernel has three pieces, side by side:
   ``flash_bwd.routes``, ``flash_grid_fwd.routes``,
   ``flash_grid_bwd_parts.dkv_routes`` / ``.dq_routes``: ``tma`` or
   ``cuda_core``, as the C entry reports it), so the fast route cannot
-  vanish unnoticed.
+  vanish unnoticed; the grid kernels also count their launches by shape and
+  mask (``flash_grid_fwd.modes``, ``flash_grid_bwd_parts.dkv_modes`` /
+  ``.dq_modes``, keyed ``"b,h,s,causal"`` or ``"b,h,s,unmasked"``), so a
+  ring's past hops count apart from its diagonal ones.
 
 The bf16 forwards at head_dim 64 / 128 (``flash_fwd`` and
 ``flash_grid_fwd``) run one shared Hopper mainloop
@@ -772,6 +775,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _count_mode(modes: dict, q, causal: bool):
+    """One launch at q's (b, h, s) in its mask mode, into ``modes``."""
+    b, h, s, _ = q.shape
+    key = f"{b},{h},{s},{'causal' if causal else 'unmasked'}"
+    modes[key] = modes.get(key, 0) + 1
+
+
 def flash_grid_fwd(q, k, v, rope, sm_scale, causal: bool, kv_rep: int = 1, out_dtype=None):
     """Grid forward (``_flash_fwd``): (out (b, h, s, d), fp32 lse
     (b, h, s, 1)). q (b, h, s, d), k/v (b, h / kv_rep, s, d), any strides
@@ -810,11 +820,13 @@ def flash_grid_fwd(q, k, v, rope, sm_scale, causal: bool, kv_rep: int = 1, out_d
         raise RuntimeError(f"flash_grid_fwd kernel launch failed: CUDA error {err}")
     flash_grid_fwd.launches += 1
     flash_grid_fwd.routes[ROUTES[route.value]] += 1
+    _count_mode(flash_grid_fwd.modes, q, causal)
     return out, lse
 
 
 flash_grid_fwd.launches = 0
 flash_grid_fwd.routes = dict.fromkeys(ROUTES, 0)
+flash_grid_fwd.modes = {}
 
 
 def flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm_scale, causal: bool,
@@ -856,6 +868,7 @@ def flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm_scale, causal: bool,
             raise RuntimeError(f"flash_grid_bwd dkv kernel launch failed: CUDA error {err}")
         flash_grid_bwd_parts.dkv_launches += 1
         flash_grid_bwd_parts.dkv_routes[ROUTES[dkv_route.value]] += 1
+        _count_mode(flash_grid_bwd_parts.dkv_modes, q, causal)
         if ROUTES[dkv_route.value] != "tma":  # no pre-pass ran: nothing to read
             q_roped = k_roped = None
         err = dqk(*ptrs, _ptr(q_roped), _ptr(k_roped), *rest, stream, ctypes.byref(dq_route))
@@ -863,6 +876,7 @@ def flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm_scale, causal: bool,
             raise RuntimeError(f"flash_grid_bwd dq kernel launch failed: CUDA error {err}")
         flash_grid_bwd_parts.dq_launches += 1
         flash_grid_bwd_parts.dq_routes[ROUTES[dq_route.value]] += 1
+        _count_mode(flash_grid_bwd_parts.dq_modes, q, causal)
     return dq, dk, dv
 
 
@@ -870,6 +884,8 @@ flash_grid_bwd_parts.dkv_launches = 0
 flash_grid_bwd_parts.dq_launches = 0
 flash_grid_bwd_parts.dkv_routes = dict.fromkeys(ROUTES, 0)
 flash_grid_bwd_parts.dq_routes = dict.fromkeys(ROUTES, 0)
+flash_grid_bwd_parts.dkv_modes = {}
+flash_grid_bwd_parts.dq_modes = {}
 
 
 # ---------------------------------------------------------------------------

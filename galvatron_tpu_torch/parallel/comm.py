@@ -3,9 +3,9 @@
 
 The JAX package needs none of this: GSPMD inserts its collectives and a
 pipeline moves activations with ``lax.ppermute``. Here they are explicit:
-three collectives (``all_reduce``, ``all_gather_into_tensor`` and
-``reduce_scatter_tensor``) and batches of ``isend`` / ``irecv``
-(:func:`exchange`, on ``batch_isend_irecv``).
+four collectives (``all_reduce``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor`` and ``all_to_all_single``) and batches of ``isend``
+/ ``irecv`` (:func:`exchange`, on ``batch_isend_irecv``).
 
 - Megatron's tensor-parallel region pairs as autograd Functions over a
   group (:class:`TPRegion`): copy (identity forward, all-reduce backward)
@@ -19,6 +19,11 @@ three collectives (``all_reduce``, ``all_gather_into_tensor`` and
 - The redistribution of an activation between two layers' (batch rows,
   sequence slice) layouts over the ranks of one stage (:func:`redistribute`).
 - A pipeline tick's sends and receives between stages (:func:`exchange`).
+- Context parallelism's two moves over a group: the ring shift, each
+  member's tensors to its successor in the group's order (:func:`ring_shift`,
+  one :func:`exchange`), and the all-to-all that re-shards an activation from
+  one dimension to another (:func:`all_to_all`, ``lax.all_to_all(...,
+  tiled=True)``; its backward is the move back).
 
 Convention: a tensor replicated over a group holds the same value on every
 member, and so does its gradient (Megatron's), so a redistribution's
@@ -114,6 +119,41 @@ def reduce_scatter(t: torch.Tensor, group: Optional[Group], dim: int = 0) -> tor
                       device=x.device)
     _run(lambda o, i, pg: dist.reduce_scatter_tensor(o, i, group=pg), out, x, group)
     return out.movedim(0, dim)
+
+
+def _all_to_all(t: torch.Tensor, group: Group, split_dim: int, cat_dim: int) -> torch.Tensor:
+    n = group.size
+    if t.shape[split_dim] % n:
+        raise ValueError(f"all-to-all of {t.shape[split_dim]} along dim {split_dim} over {n}")
+    dist = _dist()
+    # piece j of the split goes to member j; piece j of the result came from it
+    x = t.unflatten(split_dim, (n, t.shape[split_dim] // n)).movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(x)
+    _run(lambda o, i, pg: dist.all_to_all_single(o, i, group=pg), out, x, group)
+    return out.movedim(0, cat_dim).flatten(cat_dim, cat_dim + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, cat_dim):
+        ctx.args = (group, split_dim, cat_dim)
+        return _all_to_all(x, group, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, cat_dim = ctx.args
+        return _all_to_all(g, group, cat_dim, split_dim), None, None, None
+
+
+def all_to_all(t: torch.Tensor, group: Optional[Group], split_dim: int,
+               cat_dim: int) -> torch.Tensor:
+    """``t`` split along ``split_dim`` into one piece per member, piece j
+    sent to member j, and the pieces that arrive concatenated along
+    ``cat_dim`` in group order (``lax.all_to_all(t, axes, split_dim,
+    cat_dim, tiled=True)``). Differentiable: the backward is the move back."""
+    if group is None or group.size == 1:
+        return t
+    return _AllToAll.apply(t, group, split_dim, cat_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -402,6 +442,35 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
         if h is not buf:
             buf.copy_(h)
     return [(w, keep) for w in pending]
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], group: Group, step: int = 1) -> List[torch.Tensor]:
+    """Each tensor sent to the member ``step`` places on in ``group``'s order
+    (the next one by default, cyclically), and what the member ``step``
+    places back sent here: new tensors, in one :func:`exchange`. Every
+    member must call it with tensors of the same shapes."""
+    succ = group.ranks[(group.index + step) % group.size]
+    pred = group.ranks[(group.index - step) % group.size]
+    bufs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in tensors]
+    wait_all(exchange([(t, succ) for t in tensors], [(b, pred) for b in bufs]))
+    return bufs
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        return tuple(ring_shift(tensors, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *ring_shift([g.contiguous() for g in grads], ctx.group, -1))
+
+
+def ring_shift_grad(tensors: Sequence[torch.Tensor], group: Group) -> List[torch.Tensor]:
+    """:func:`ring_shift` under autograd: the gradients travel back the
+    other way (``lax.ppermute``'s transpose)."""
+    return list(_RingShift.apply(group, *tensors))
 
 
 def wait_all(works) -> None:

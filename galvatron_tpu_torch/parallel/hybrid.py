@@ -24,6 +24,14 @@ insert the collectives, this runtime issues them (``parallel/comm.py``):
   rank's sequence shard (norm scales and row-parallel biases under SP) are
   summed over that group; without SP every TP rank computes the whole
   gradient of a replicated parameter;
+- a context-parallel layer (``cp > 1``) holds one contiguous block of the
+  sequence per rank of its CP group and runs its attention core as a ring
+  (``parallel/ring.py``) or by all-to-all (``parallel/ulysses.py``); its
+  parameters are replicated over the CP axes, ZeRO still shards over the DP
+  axes only, and its gradients are summed over the DP and the CP axes. Under
+  SP as well the layer gathers its CP block over the TP group at entry and
+  runs its TP region without SP (GSPMD picks that collective in the
+  reference);
 - micro-batches (``chunks``) accumulate in sum form: the global token mean
   divides by the token count of the whole batch.
 
@@ -78,7 +86,7 @@ from galvatron_tpu_torch.core.strategy import HybridParallelConfig, LayerStrateg
 from galvatron_tpu_torch.device import resolve_device
 from galvatron_tpu_torch.models import modeling
 from galvatron_tpu_torch.models.modeling import ModelConfig
-from galvatron_tpu_torch.parallel import comm, pipeline
+from galvatron_tpu_torch.parallel import comm, pipeline, ring, ulysses
 from galvatron_tpu_torch.parallel.mesh import Group, ProcessGroups, RankMesh, batch_spec
 from galvatron_tpu_torch.parallel.pipeline_1f1b import pipedream_schedule
 from galvatron_tpu_torch.parallel.pipeline_interleaved import (
@@ -110,9 +118,6 @@ def refuse_unported(hp: HybridParallelConfig) -> None:
             "grad_overlap (per-layer ZeRO gradient buckets) is not ported yet: the rest of "
             "ROADMAP.md §1.6")
     for i, s in enumerate(hp.layer_strategies):
-        if s.cp > 1:
-            raise NotImplementedError(
-                f"layer {i}: context parallelism (cp={s.cp}) is not ported yet: ROADMAP.md §1.9")
         if s.ep > 1:
             raise NotImplementedError(
                 f"layer {i}: expert parallelism (ep={s.ep}) is not ported yet: ROADMAP.md §1.9")
@@ -120,6 +125,34 @@ def refuse_unported(hp: HybridParallelConfig) -> None:
             raise NotImplementedError(
                 f"layer {i}: tp_overlap (collective matmul) is not ported yet: the rest of "
                 "ROADMAP.md §1.6")
+
+
+def check_cp(cfg: ModelConfig, hp: HybridParallelConfig, seq_len: int) -> None:
+    """The reference's refusals of context parallelism (``build_runtime``'s
+    checks and the Ulysses head rule), from the shapes alone: causal
+    decoder-only models, the tp-local head count split over an a2a layer's
+    cp, and a sequence that splits over each cp layer's (SP and) CP ranks.
+    ``cli train --pack_sequences 1`` is refused before any plan is built."""
+    cps = [(i, s) for i, s in enumerate(hp.layer_strategies) if s.cp > 1]
+    if not cps:
+        return
+    if not cfg.causal:
+        raise ValueError(
+            "context parallelism (cp>1) is causal-only (ring/Ulysses kernels "
+            "assume a causal mask); encoder models must use tp/sp instead"
+        )
+    if cfg.enc_layers > 0:
+        raise ValueError("context parallelism is not supported for enc-dec models")
+    for i, s in cps:
+        if s.cp_impl == "a2a":
+            try:
+                ulysses.check_heads(cfg.num_heads, s.tp, s.cp)
+            except ValueError as e:
+                raise ValueError(f"layer {i}: {e}") from None
+        parts = s.cp * (s.tp if s.sp else 1)
+        if seq_len % parts:
+            raise ValueError(f"layer {i}: the sequence {seq_len} does not split over cp={s.cp}"
+                             + (f" x tp={s.tp} (SP)" if s.sp else "") + " ranks")
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +165,7 @@ class LeafPlan:
     """Where one parameter lives: its full shape and annotation, the
     layouts of the parameter and of its optimizer state, the stacked
     projections on its TP dim, the dtype a zero3 gather produces, and (once
-    groups exist) its TP and DP groups."""
+    groups exist) its TP, DP and CP groups."""
 
     shape: tuple
     annot: tuple
@@ -143,6 +176,7 @@ class LeafPlan:
     gather_dtype: torch.dtype
     tp_group: Optional[Group] = None
     dp_group: Optional[Group] = None
+    cp_group: Optional[Group] = None
 
     @property
     def tp_dim(self) -> Optional[int]:
@@ -164,15 +198,17 @@ class LeafPlan:
     @property
     def tp_sum(self) -> bool:
         """Its gradient is summed over the TP group: replicated there, and
-        computed on a sequence shard."""
+        computed on a sequence shard (a CP layer runs its TP region without
+        SP)."""
         s = self.strategy
-        return s.sp and s.tp > 1 and self.tp_dim is None
+        return s.sp and s.tp > 1 and s.cp == 1 and self.tp_dim is None
 
     def counts_in_norm(self) -> bool:
         """This rank holds the lowest replica of the (reduced) gradient."""
         tp_ok = self.tp_dim is not None or self.tp_group is None or self.tp_group.index == 0
         dp_ok = self.opt_dim is not None or self.dp_group is None or self.dp_group.index == 0
-        return tp_ok and dp_ok
+        cp_ok = self.cp_group is None or self.cp_group.index == 0
+        return tp_ok and dp_ok and cp_ok
 
 
 def _leaf_plan(shape, annot, s: LayerStrategy, name: str, cfg: ModelConfig, mesh: RankMesh):
@@ -350,6 +386,13 @@ def _reduce_dp(g: torch.Tensor, lp: LeafPlan) -> torch.Tensor:
     return comm.all_reduce(g, lp.dp_group)
 
 
+def _reduce_cp(g: torch.Tensor, lp: LeafPlan) -> torch.Tensor:
+    """A context-parallel layer's gradient summed over its CP group: each
+    member computed it on its own block of the sequence, against the same
+    (replicated) parameter. Nothing for a layer without CP."""
+    return comm.all_reduce(g, lp.cp_group)
+
+
 def _opt_view(p: torch.Tensor, lp: LeafPlan) -> torch.Tensor:
     """The part of a zero2 parameter this rank updates (the whole local
     tensor otherwise)."""
@@ -402,6 +445,8 @@ def build_runtime(
     pipeline stage under the plan's schedule. ``device`` defaults to
     ``cuda`` and raises without a card unless 'cpu' is asked for."""
     device = resolve_device(device)
+    if hp is not None:
+        check_cp(cfg, hp, seq_len)
     modeling.check_supported(cfg)
     if hp is None:
         mixed_precision = mixed_precision or "bf16"
@@ -463,15 +508,15 @@ def build_runtime(
 
     axes_list = [mesh.axes.data_axes]
     for s in strategies + [es]:
-        axes_list += [mesh.tp_axes(s), mesh.dp_axes(s)]
+        axes_list += [mesh.tp_axes(s), mesh.dp_axes(s), mesh.cp_axes(s)]
     if pp > 1:
         axes_list += [(mesh.axes.pp,), mesh.world_axes]
     # the tied table's two copies: one group per in-stage index, made once
     extra = {"tied": [[r, r + (pp - 1) * mesh.per_stage] for r in range(mesh.per_stage)]
              } if tied else None
     groups = ProcessGroups(mesh, rank, axes_list, extra)
-    if pp > 1:
-        comm.open_p2p(device)
+    if pp > 1 or any(s.cp > 1 and s.cp_impl == "ring" for s in strategies):
+        comm.open_p2p(device)  # the ring shifts K/V with exchange too
     stage_group = groups.get(mesh.axes.data_axes)
     world_group = groups.get(mesh.world_axes)
     all_plans = model_leaf_plans(cfg, hp, mesh, param_shapes(cfg))
@@ -479,6 +524,7 @@ def build_runtime(
     for lp in tree_leaves(plans):
         lp.tp_group = groups.get(mesh.tp_axes(lp.strategy))
         lp.dp_group = groups.get(mesh.dp_axes(lp.strategy))
+        lp.cp_group = groups.get(mesh.cp_axes(lp.strategy))
     leaf_plans = tree_leaves(plans)
     # a tied table's two copies (stage 0's and the last stage's) are summed;
     # the grad norm counts stage 0's
@@ -491,8 +537,15 @@ def build_runtime(
 
     layouts = [act_layout(s) for s in strategies]
     embed_layout = act_layout(es)
-    tp_regions = [comm.TPRegion(groups.get(mesh.tp_axes(s)), s.sp) if s.tp > 1 else None
-                  for s in strategies]
+    # a CP layer runs its TP region without SP, on its CP block (``inner``)
+    tp_regions = [comm.TPRegion(groups.get(mesh.tp_axes(s)), s.sp and s.cp == 1)
+                  if s.tp > 1 else None for s in strategies]
+    inner = [(layouts[i][0], mesh.cp_axes(s)) if s.cp > 1 else layouts[i]
+             for i, s in enumerate(strategies)]
+    cp_layers = [functools.partial(ring.ring_decoder_layer if s.cp_impl == "ring"
+                                   else ulysses.ulysses_decoder_layer,
+                                   group=groups.get(mesh.cp_axes(s)))
+                 if s.cp > 1 else None for s in strategies]
     vocab = comm.TPRegion(groups.get(mesh.tp_axes(es)), es.sp) if es.tp > 1 else None
     embed_dp = groups.get(mesh.dp_axes(es))
 
@@ -518,17 +571,23 @@ def build_runtime(
         lplans = all_plans["layers"][i]
 
         def run(x_, regather=None):
-            return modeling.decoder_layer(x_, materialize(lp, lplans, regather), layer_cfg,
-                                          cos_sin, remat_attn=mode == "selective",
-                                          tp=tp_regions[i])
+            p = materialize(lp, lplans, regather)
+            if cp_layers[i] is not None:
+                return cp_layers[i](x_, p, layer_cfg, cos_sin=cos_sin, tp=tp_regions[i])
+            return modeling.decoder_layer(x_, p, layer_cfg, cos_sin,
+                                          remat_attn=mode == "selective", tp=tp_regions[i])
 
+        # SP with CP: the CP block, gathered over the TP group, and back
+        x = comm.redistribute(x, mesh, rank, stage_group, layouts[i], inner[i])
         grad = torch.is_grad_enabled()
         if mode == "full" and grad:
             # the recompute gathers the zero3 parameters again
-            return checkpoint(run, x, use_reentrant=False)
-        if has_zero3[i] and grad:
-            return _regathering(run, x)
-        return run(x)
+            y = checkpoint(run, x, use_reentrant=False)
+        elif has_zero3[i] and grad:
+            y = _regathering(run, x)
+        else:
+            y = run(x)
+        return comm.redistribute(y, mesh, rank, stage_group, inner[i], layouts[i])
 
     def _regathering(run, x):
         rg = comm.Regather()
@@ -651,7 +710,7 @@ def build_runtime(
                 g.div_(gdenom)
             elif chunks > 1:
                 g.div_(denom)
-            g = _reduce_dp(g, lp)
+            g = _reduce_cp(_reduce_dp(g, lp), lp)
             if lp.tp_sum:
                 g = comm.all_reduce(g, lp.tp_group)
             if lp is tied_leaf:

@@ -83,10 +83,11 @@ def data_parallel_degree(axes: MeshAxes, s: LayerStrategy) -> int:
 def batch_spec(axes: MeshAxes, s: LayerStrategy) -> Tuple[Axes, Axes]:
     """(batch axes, sequence axes) of a (batch, seq, ...) activation entering
     a layer: the batch over the DP axes, the sequence over the TP axes under
-    Megatron-SP (the reference's ``batch_spec``; cp is not ported)."""
+    Megatron-SP and then over the CP axes under context parallelism (the
+    reference's ``batch_spec``, in its order)."""
     dp = axes.dp_axes(s.tp, s.tp_consec, s.cp)
     seq = axes.tp_axes(s.tp, s.tp_consec) if s.sp else ()
-    return dp, seq
+    return dp, seq + axes.cp_axes(s.tp, s.tp_consec, s.cp)
 
 
 class RankMesh:
@@ -153,6 +154,9 @@ class RankMesh:
     def dp_axes(self, s: LayerStrategy) -> Axes:
         return self.axes.dp_axes(s.tp, s.tp_consec, s.cp)
 
+    def cp_axes(self, s: LayerStrategy) -> Axes:
+        return self.axes.cp_axes(s.tp, s.tp_consec, s.cp)
+
     def batch_rows(self, rank: int, s: LayerStrategy, rows: int) -> slice:
         """The rows of a ``rows``-row batch that ``rank`` holds under ``s``:
         the batch split over the DP axes. Uneven splits (which GSPMD pads)
@@ -161,8 +165,9 @@ class RankMesh:
         return _part(rows, self.index(rank, dp_axes), 2 ** len(dp_axes), "batch rows")
 
     def seq_slice(self, rank: int, s: LayerStrategy, seq: int) -> slice:
-        """The sequence positions ``rank`` holds under ``s``: all of them, or
-        its TP shard under sequence parallelism."""
+        """The sequence positions ``rank`` holds under ``s``: all of them, its
+        TP shard under sequence parallelism, its CP block under context
+        parallelism (the TP shard's CP block under both)."""
         _, seq_axes = batch_spec(self.axes, s)
         return _part(seq, self.index(rank, seq_axes), 2 ** len(seq_axes), "sequence")
 

@@ -741,15 +741,19 @@ def test_flash_c_entries_match_their_ctypes_argtypes(name):
 
 def test_grid_route_counters_exist_and_count_nothing_on_cpu():
     """``flash_grid_fwd.routes`` and ``flash_grid_bwd_parts.dq_routes`` (beside
-    ``dkv_routes``) count the routes the C entries report; CPU tensors run
-    the plain versions and count no route and no launch."""
+    ``dkv_routes``) count the routes the C entries report, and ``.modes`` /
+    ``.dkv_modes`` / ``.dq_modes`` the launches by shape and mask; CPU
+    tensors run the plain versions and count no route, no launch and no
+    mode."""
     for routes in (tfa.flash_grid_fwd.routes, tfa.flash_grid_bwd_parts.dkv_routes,
                    tfa.flash_grid_bwd_parts.dq_routes):
         assert set(routes) == set(tfa.ROUTES)
     counters = lambda: (dict(tfa.flash_grid_fwd.routes),  # noqa: E731
                         dict(tfa.flash_grid_bwd_parts.dkv_routes),
                         dict(tfa.flash_grid_bwd_parts.dq_routes), tfa.flash_grid_fwd.launches,
-                        tfa.flash_grid_bwd_parts.dkv_launches, tfa.flash_grid_bwd_parts.dq_launches)
+                        tfa.flash_grid_bwd_parts.dkv_launches, tfa.flash_grid_bwd_parts.dq_launches,
+                        dict(tfa.flash_grid_fwd.modes), dict(tfa.flash_grid_bwd_parts.dkv_modes),
+                        dict(tfa.flash_grid_bwd_parts.dq_modes))
     before = counters()
     b, h, s, d = 1, 2, 64, 64
     q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
@@ -759,3 +763,15 @@ def test_grid_route_counters_exist_and_count_nothing_on_cpu():
     delta = (do.float() * out.float()).sum(-1, keepdim=True)
     tfa.flash_grid_bwd_parts(q, k, v, do, lse, delta, (cos, sin), 0.125, True)
     assert counters() == before
+
+
+def test_grid_launch_modes_key_by_shape_and_mask():
+    """``_count_mode``, which the grid wrappers call where they launch, keys
+    a launch by q's (b, h, s) and its mask, so a ring's past hops (unmasked)
+    count apart from its diagonal blocks (causal) at the same shape."""
+    modes = {}
+    q = torch.empty(2, 32, 8192, 128, device="meta")
+    for causal in (True, False, False):
+        tfa._count_mode(modes, q, causal)
+    tfa._count_mode(modes, q[:, :16], True)
+    assert modes == {"2,32,8192,causal": 1, "2,32,8192,unmasked": 2, "2,16,8192,causal": 1}

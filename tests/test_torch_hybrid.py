@@ -364,7 +364,7 @@ def _tcfg(**kw):
 
 #: fp16 itself runs (tests/test_torch_fp16.py); with fused_norm it is
 #: ROADMAP §1.1's remainder
-UNPORTED = [("cp", dict(cp=2), "§1.9"), ("ep", dict(ep=2), "§1.9"),
+UNPORTED = [("ep", dict(ep=2), "§1.9"),
             ("tp_overlap", dict(tp_overlap=True), "§1.6"),
             ("grad_overlap", dict(grad_overlap=True), "§1.6"),
             ("fp16", dict(mixed_precision="fp16"), "§1.1")]
@@ -378,13 +378,34 @@ def test_unported_plan_features_raise_naming_their_item(what, change, item, pp):
     from galvatron_tpu_torch.parallel import hybrid
 
     ts = _ts()
-    layer = {k: v for k, v in change.items() if k in ("cp", "ep", "tp_overlap")}
+    layer = {k: v for k, v in change.items() if k in ("ep", "tp_overlap")}
     hp = ts.HybridParallelConfig(
         pp=pp, chunks=2, layer_strategies=[ts.LayerStrategy(**layer)] * 4,
         **{k: v for k, v in change.items() if k not in layer})
     cfg = _tcfg(fused_norm=True) if what == "fp16" else _tcfg()
     with pytest.raises(NotImplementedError, match=item):
         hybrid.build_runtime(cfg, hp, global_batch_size=BATCH, seq_len=SEQ, device="cpu")
+
+
+@pytest.mark.parametrize("pp", [1, 2])
+@pytest.mark.parametrize("what", ["heads", "sequence"])
+def test_cp_refusals(what, pp):
+    """The plans the reference refuses, refused at build time from the
+    shapes alone (before the world size is known): a tp-local head count
+    that an a2a layer's cp does not divide, and a sequence that cp does not
+    divide."""
+    from galvatron_tpu_torch.parallel import hybrid
+
+    ts = _ts()
+    if what == "heads":  # 4 heads over tp 2: 2 per rank, split over cp 4
+        layer, seq, match = ts.LayerStrategy(tp=2, cp=4, cp_impl="a2a"), SEQ, \
+            r"tp-local head count 4/tp=2 divisible by cp=4"
+    else:
+        layer, seq, match = ts.LayerStrategy(cp=4), 30, "sequence 30 does not split over cp=4"
+    hp = ts.HybridParallelConfig(pp=pp, chunks=2, layer_strategies=[layer] * 4)
+    with pytest.raises(ValueError, match=match):
+        hybrid.build_runtime(_tcfg(max_seq_len=seq), hp, global_batch_size=BATCH, seq_len=seq,
+                             device="cpu")
 
 
 def test_shapes_a_tp_degree_cannot_split_are_refused():

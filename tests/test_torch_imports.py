@@ -46,14 +46,16 @@ def test_importing_every_module_loads_no_jax():
 
 #: the hybrid-parallel runtime's modules (strategy codec, ranks and groups,
 #: sharding rules, collectives, the local launcher, the pipeline schedules
-#: and executor, the stage division)
+#: and executor, the stage division, context parallelism's ring and
+#: all-to-all)
 PARALLEL_MODULES = ("galvatron_tpu_torch.core.strategy", "galvatron_tpu_torch.parallel.mesh",
                     "galvatron_tpu_torch.parallel.sharding", "galvatron_tpu_torch.parallel.comm",
                     "galvatron_tpu_torch.parallel.hybrid", "galvatron_tpu_torch.parallel.launch",
                     "galvatron_tpu_torch.parallel.pipeline",
                     "galvatron_tpu_torch.parallel.pipeline_1f1b",
                     "galvatron_tpu_torch.parallel.pipeline_interleaved",
-                    "galvatron_tpu_torch.search.pp_division")
+                    "galvatron_tpu_torch.search.pp_division",
+                    "galvatron_tpu_torch.parallel.ring", "galvatron_tpu_torch.parallel.ulysses")
 #: the profiling and search slice's modules
 SEARCH_MODULES = ("galvatron_tpu_torch.search.cost_model",
                   "galvatron_tpu_torch.search.dynamic_programming",

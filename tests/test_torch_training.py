@@ -290,8 +290,9 @@ def test_cli_train_refuses_unported_flags():
     # flags parse, and --pp_deg 2 in a world of one rank raises the
     # world-size error instead of running pp=1
     # (--save / --data_path are ported: tests/test_torch_checkpoint.py and
-    # tests/test_torch_data.py); --pack_sequences 1 parses and raises
-    for flag in (["--num_slices", "2"], ["--load_hf", "d"], ["--context_parallel_deg", "2"],
+    # tests/test_torch_data.py); --pack_sequences 1 parses and raises; the
+    # context-parallel flags are ported (tests/test_torch_context_parallel.py)
+    for flag in (["--num_slices", "2"], ["--load_hf", "d"],
                  ["--global_tp_overlap", "1"], ["--grad_overlap", "1"],
                  ["--pipeline_type", "zero_bubble"], ["--pp_division", "2,x"]):
         with pytest.raises(SystemExit):
@@ -302,6 +303,9 @@ def test_cli_train_refuses_unported_flags():
                                         "2,2", "--pipeline_type", "pipedream_flush"])
     assert (ns.pp_deg, ns.vpp_deg, ns.pp_division, ns.pipeline_type) == (
         2, 2, [2, 2], "pipedream_flush")
+    ns = cli_args.initialize_galvatron("train", ["--context_parallel_deg", "2",
+                                                 "--context_parallel_impl", "a2a"])
+    assert (ns.context_parallel_deg, ns.context_parallel_impl) == (2, "a2a")
     with pytest.raises(ValueError, match="pp=2 must divide the device count 1"):
         cli.main(["train", "--device", "cpu", "--pp_deg", "2"])
 
