@@ -71,7 +71,7 @@ its result line:
    then the same at 4 rows with ``fused_norm=True``: every norm of every
    call through the RMSNorm forward kernel;
 5. llama-7b width, gpt-1.5b width and, with ``fused_norm=True``, llama-7b
-   and opt-1.3b width, each at 2 layers in fp32, batch 1,
+   and opt-1.3b width, each at ``PARITY_LAYERS`` (1) layer in fp32, batch 1,
    s=512: three ``train_step``s on the card (flash kernels: blocked for
    llama, grid for GPT) and on the CPU (plain versions) from the same
    weights and batches; losses within 1e-3 and each kernel of the model's
@@ -133,9 +133,9 @@ its result line:
    llama-7b width, batch 2 x 512, 3 steps: losses within 1e-3 of the same
    layers' world-size-1 plan in this process, and every rank's parameter
    pieces within 2 x 3 x lr of that run's (AdamW's band); (b) bf16, the
-   whole plan at 4 layers, batch 8 x 2048, 3 steps: losses within 2e-2
+   whole plan at 4 layers, batch 8 x 2048, 2 steps: losses within 2e-2
    relative of phase 11's (same weights and batches), each rank's flash
-   forward / backward launched 18 / 12 times on the TMA route at 16 heads
+   forward / backward launched 12 / 8 times on the TMA route at 16 heads
    for the tp=2 layers and 32 for the tp=1 layers; host-staged collectives
    and iter_ms (a gloo-loopback transport figure, not a parallelism
    result). 12b (phase name ``nccl``): the same over NCCL on cards 0 and
@@ -147,7 +147,8 @@ its result line:
    in this process and every rank's pieces within AdamW's band of its
    parameters; (b) two ranks share the card, pp=2, bf16, llama-7b width at
    phase 7's 4 layers (batch 8 x 2048), chunks 8, under GPipe, 1F1B and
-   interleaved 1F1B (vpp=2), 3 steps each: losses within 2e-2 relative of
+   interleaved 1F1B (vpp=2), 3 steps each, one after another in one pair of
+   rank processes (``--then`` between their flags): losses within 2e-2 relative of
    phase 11's, each rank's blocked flash forward and backward launched
    (its stage's layers x 8 x 3) times on the TMA route, and 1F1B's stage-0
    peak memory below GPipe's; (c) gpt-1.5b at all 48 layers, 1F1B over
@@ -229,7 +230,7 @@ its result line:
    its parameters; the same run without the CP gradient sum, beside it on
    the card, must leave both; (b) bf16, llama-7b width at 4 layers, batch 2 x 16384
    (``--seq_length 16384``), vocab_tp 2, the plan cp 2 ring ddp / cp 2 ring
-   zero3 with full recompute / cp 2 a2a zero2 / tp 2 with SP, 3 steps:
+   zero3 with full recompute / cp 2 a2a zero2 / tp 2 with SP, 2 steps:
    losses within 2e-2 relative of the same 4 layers at world size 1 on the
    same weights and batches; each rank's grid flash launches by (batch,
    heads, sequence, mask), as the wrappers count them, equal to what the
@@ -246,6 +247,26 @@ its result line:
    fp32 attention within the plain versions' own reading against it plus
    that band; a ring without its past hop must read out of both. 17b (phase name ``nccl``): (b) over NCCL on cards 0 and 1 where
    the machine has two; otherwise reported absent.
+18. mixture-of-experts and expert parallelism (phase name ``moe``), 8
+   experts: (d) ``cli profile`` of an h 1024 model (8 heads of 128, ffn
+   2816, 2 layers, batch 4 x 512), ``cli search --enable_ep 1`` for two
+   devices on it and ``check-plan``: the plan must carry ep > 1; (a) that
+   plan in fp32 on two ranks sharing card 0 over gloo against world size 1:
+   losses within 1e-5, parameters within 1e-4, beside a control run (ep 1,
+   each rank routing its own tokens) that must leave both; each rank's MoE
+   moves (logits gathers, dispatch and combine all-to-alls) as the plan
+   implies;
+   (b) ``cli train`` at llama-7b width, 2 layers, batch 8 x 2048, bf16, 10
+   iterations at world size 1 (iter_ms, tokens/s, peak memory; blocked flash
+   launches = layers x iterations, all TMA), a profile window splitting the
+   step into routing, dispatch, expert GEMMs and combine, then ep 2 with DDP
+   on two ranks over gloo, 3 steps (rank 0 profiled): losses within 2e-2
+   relative of world size 1's, each rank's peak below world size 1's, its
+   launches and MoE moves as the plan implies; (c) ``cli serve`` of the MoE
+   model at 4 layers on the paged backend driven as phase 6 (paged_decode
+   launches = layers x decode steps), then with the kernel's plain version
+   in its place, phase 6's prompts sent one at a time to both and held by
+   the MoE margin rule (``MARGIN_TOL``, routing near-ties included).
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
@@ -1401,6 +1422,10 @@ def phase_forward(torch, fused=False):
 # phase 5: full-width train steps, card vs CPU
 # ---------------------------------------------------------------------------
 
+# the fp32 card-vs-CPU steps' depth: the CPU side sets the phase's time, and
+# one layer runs every kernel and module a deeper model runs
+PARITY_LAYERS = 1
+
 
 def kernel_counts():
     """Every training kernel's launch count: the flash kernels and the
@@ -1465,8 +1490,8 @@ def phase_train_parity(torch, model, fused=False):
     from galvatron_tpu_torch.parallel.hybrid import build_runtime
 
     preset = TRAIN_PATHS[model][0]
-    cfg = modeling.PRESETS[preset].replace(num_layers=2, max_seq_len=512, attn_impl="flash",
-                                           fused_norm=fused)
+    cfg = modeling.PRESETS[preset].replace(num_layers=PARITY_LAYERS, max_seq_len=512,
+                                           attn_impl="flash", fused_norm=fused)
     steps, t0 = 3, time.perf_counter()
     adam = AdamConfig(lr=1e-4, weight_decay=0.01, grad_clip=1.0)
     cpu_params = modeling.init_model_params(cfg, 0, "cpu")
@@ -1680,13 +1705,16 @@ def _serve_prompts():
     return [p50, p300, p700, p700[:640] + _text(rng, 20)]
 
 
-def _drive_serve(torch, smi, argv, what, layers, backend):
-    """The serving path's drive (phases 6 and 16): ``cli serve`` with
+def _drive_serve(torch, smi, argv, what, layers, backend, plain=False, before=None):
+    """The serving path's drive (phases 6, 16 and 18): ``cli serve`` with
     ``argv`` in a thread; 4 concurrent greedy POST /api requests of phase
     6's prompts, 32 tokens each, then the 300-byte prompt again, which must
     repeat; /healthz must name ``backend``; POST /drain must report no leak.
-    The paged kernel's count is set to 0 just before and read just after.
-    Returns (result line, {prompt: tokens}, (params, cfg) of the engine)."""
+    The paged kernel's count is set to 0 just before and read just after
+    (and must stay 0 with ``plain``: the caller put the plain version in the
+    kernel's place). ``before(base URL)`` runs once the server is ready,
+    before the burst. Returns (result line, {prompt: tokens}, (params, cfg)
+    of the engine)."""
     from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
     from galvatron_tpu_torch.ops import flash_attention as fa
     from galvatron_tpu_torch.serving import engine as engine_mod
@@ -1709,6 +1737,8 @@ def _drive_serve(torch, smi, argv, what, layers, backend):
     finally:
         engine_mod.Engine = real
     ready_s = time.perf_counter() - t0
+    if before is not None:
+        before(base)
     prompts = _serve_prompts()
     results = [None] * len(prompts)
 
@@ -1741,7 +1771,7 @@ def _drive_serve(torch, smi, argv, what, layers, backend):
     check(not server.is_alive() and rc == [0], f"{what}: cli serve did not exit cleanly: "
           f"{rc} {err}")
     launches = fa.paged_decode_attention.launches  # read right after the main path
-    want = layers * st["decode_steps"] if backend == "paged" else 0
+    want = layers * st["decode_steps"] if backend == "paged" and not plain else 0
     check(launches == want, f"{what}: {launches} paged_decode launches, expected {want} "
           f"({backend} backend, {layers} layers x {st['decode_steps']} decode steps)")
     dh = st["decode_step_hist"]
@@ -2151,7 +2181,10 @@ def phase_train_profile(torch, run, hp=None):
 # ---------------------------------------------------------------------------
 
 HYBRID_ITERS = 10  # phase 11
-HYBRID_STEPS = 3  # phase 12
+HYBRID_STEPS = 3  # phase 12 (a)
+# phase 12 (b): its gloo steps are host-staged transport (~14 s each), so it
+# runs two, which still compare an updated step with world size 1's
+HYBRID_BF16_STEPS = 2
 # phase 11's plan at world size 1: a recompute mode per layer
 HYBRID_W1_CKPT = ("none", "full", "selective", "none")
 # phase 12's plan on two ranks: every boundary changes the DP degree
@@ -2280,6 +2313,28 @@ def _launch_ranks(argv, outdir, backend, local_ranks, extra=()):
     return _rank_results(outdir, len(local_ranks))
 
 
+def _launch_rank_runs(argvs, outdir, backend, local_ranks):
+    """Several ``cli train`` runs one after another in ONE set of rank
+    processes (each process and its CUDA context start once; the runs share
+    the default process group): run j's records land in ``outdir/run<j>``.
+    Returns each run's rank records."""
+    from galvatron_tpu_torch.parallel.launch import launch_local
+
+    cmd = [sys.executable, os.path.abspath(__file__), "--rank-worker", outdir, "--"]
+    for j, argv in enumerate(argvs):
+        cmd += (["--then"] if j else []) + [*argv, "--dist_backend", backend]
+        os.makedirs(os.path.join(outdir, f"run{j}"))
+    ranks = launch_local(cmd, len(local_ranks), timeout_s=HYBRID_RANK_TIMEOUT_S,
+                         local_ranks=local_ranks, cwd=os.path.dirname(os.path.abspath(__file__)))
+    for r in ranks:
+        tail = "\n".join(r.output.splitlines()[-12:])
+        log(f"  rank {r.rank}: rc={r.returncode} killed={r.killed}\n{tail}")
+    check(all(r.returncode == 0 and not r.killed for r in ranks),
+          f"a rank failed or hit its {HYBRID_RANK_TIMEOUT_S} s limit")
+    return [_rank_results(os.path.join(outdir, f"run{j}"), len(local_ranks))
+            for j in range(len(argvs))]
+
+
 def phase_hybrid_ranks(torch, smi, tmpdir, backend, local_ranks, world1):
     """Phase 12 (two ranks sharing card 0 over gloo) or 12b (two cards over
     NCCL): (a) fp32 parity of the plan's first two layers against the same
@@ -2333,15 +2388,15 @@ def phase_hybrid_ranks(torch, smi, tmpdir, backend, local_ranks, world1):
     hp = _hybrid_plan(plan, layers, "bf16", world)
     outdir = os.path.join(tmpdir, f"ranks_bf16_{tag}")
     os.makedirs(outdir)
-    ranks = _launch_ranks(_hybrid_argv(plan, layers, bsz, seq, HYBRID_STEPS), outdir, backend,
-                          local_ranks)
-    w1 = world1["losses"][:HYBRID_STEPS]
+    ranks = _launch_ranks(_hybrid_argv(plan, layers, bsz, seq, HYBRID_BF16_STEPS), outdir,
+                          backend, local_ranks)
+    w1 = world1["losses"][:HYBRID_BF16_STEPS]
     losses = ranks[0]["losses"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, w1))
     check(all(np.isfinite(losses)), f"phase {tag} (b): non-finite losses {losses}")
     check(rel <= HYBRID_BF16_LOSS_RTOL, f"phase {tag} (b): losses {losses} vs phase 11 {w1}")
-    want = _flash_want(hp, HYBRID_STEPS)
-    heads = _flash_heads_want(hp, HYBRID_STEPS)
+    want = _flash_want(hp, HYBRID_BF16_STEPS)
+    heads = _flash_heads_want(hp, HYBRID_BF16_STEPS)
     for r in ranks:
         # gloo stages every collective of a card tensor through the host; NCCL never
         check((r["host_staged"] > 0) == (backend == "gloo"),
@@ -2354,7 +2409,7 @@ def phase_hybrid_ranks(torch, smi, tmpdir, backend, local_ranks, world1):
         check(got_heads == heads,
               f"phase {tag} (b) rank {r['rank']}: launches by heads {got_heads}, expected {heads}")
     steady = lambda r: sum(r["iter_times"][1:]) / (len(r["iter_times"]) - 1)  # noqa: E731
-    res["bf16"] = {"layers": layers, "batch": bsz, "seq": seq, "steps": HYBRID_STEPS,
+    res["bf16"] = {"layers": layers, "batch": bsz, "seq": seq, "steps": HYBRID_BF16_STEPS,
                    "plan": [list(x) for x in HYBRID_W2], "vocab_tp": HYBRID_W2_VOCAB_TP,
                    "losses": losses, "phase11_losses": w1, "max_rel_loss_diff": rel,
                    "tolerance": HYBRID_BF16_LOSS_RTOL,
@@ -2476,15 +2531,15 @@ def phase_pipeline_bf16(torch, smi, tmpdir, backend, local_ranks, world1):
            "batch": bsz, "seq": seq, "chunks": PIPE_BF16_CHUNKS, "steps": PIPE_STEPS,
            "phase11_losses": w1, "tolerance": HYBRID_BF16_LOSS_RTOL, "runs": {}}
     t0 = time.perf_counter()
+    argvs = []
     for ptype, vpp in PIPE_SCHEDULES:
-        name = _schedule_name(ptype, vpp)
-        slug = f"{ptype}_vpp{vpp}_{backend}"
-        plan = os.path.join(tmpdir, f"pipe_bf16_{slug}.json")
+        plan = os.path.join(tmpdir, f"pipe_bf16_{ptype}_vpp{vpp}_{backend}.json")
         _pipe_plan(plan, layers, "bf16", chunks=PIPE_BF16_CHUNKS, ptype=ptype, vpp=vpp)
-        outdir = os.path.join(tmpdir, f"pipe_bf16_{slug}")
-        os.makedirs(outdir)
-        ranks = _launch_ranks(_hybrid_argv(plan, layers, bsz, seq, PIPE_STEPS), outdir, backend,
-                              local_ranks)
+        argvs.append(_hybrid_argv(plan, layers, bsz, seq, PIPE_STEPS))
+    runs = _launch_rank_runs(argvs, os.path.join(tmpdir, f"pipe_bf16_{backend}"), backend,
+                             local_ranks)
+    for (ptype, vpp), ranks in zip(PIPE_SCHEDULES, runs):
+        name = _schedule_name(ptype, vpp)
         losses = ranks[0]["losses"]
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, w1))
         check(all(np.isfinite(losses)), f"phase {tag} {name}: non-finite losses {losses}")
@@ -3293,6 +3348,9 @@ def phase_services(torch, smi, train_res):
 # ---------------------------------------------------------------------------
 
 CP_STEPS = 3
+# (b)'s steps: its gloo steps are host-staged transport (~21 s each), so it
+# runs two, which still compare an updated step with world size 1's
+CP_LONG_STEPS = 2
 # (a) fp32 parity: llama-7b width, layer 0 cp 2 ring, layer 1 cp 2 a2a
 CP_FP32 = dict(layers=2, batch=2, seq=1024)
 # (b) bf16 long context: llama-7b width, 4 layers, 16384-token sequences; two
@@ -3311,9 +3369,10 @@ CP_FN_SHAPE = dict(b=2, h=32, s=4096, d=128)
 # crosses both (its steps go other ways from step 1)
 CP_FP32_PARAM_BAND = 1e-4
 CP_FP32_LOSS_TOL = 1e-5
-#: the context-parallel controls: the CP gradient sum left out (17 (a)), and
-#: the ring hop from ring position 0 left out (17 (c))
-CP_CONTROLS = ("no_cp_reduce", "drop_past_hop")
+#: the controls: the CP gradient sum left out (17 (a)), the ring hop from ring
+#: position 0 left out (17 (c)), and MoE routing over each rank's own tokens
+#: (18 (a))
+CP_CONTROLS = ("no_cp_reduce", "drop_past_hop", "local_routing")
 
 
 def _cp_control(name):
@@ -3325,6 +3384,8 @@ def _cp_control(name):
         return _patched(hybrid, _reduce_cp=lambda g, lp: g)
     if name == "drop_past_hop":
         return _patched(ring, _past=lambda owner, idx: 0 < owner < idx)
+    if name == "local_routing":  # 18 (a): no MoE context, each rank routes its own tokens
+        return _patched(hybrid, MoEContext=lambda *a, **k: None)
     if name is None:
         return contextlib.nullcontext()
     raise ValueError(f"unknown control {name!r}")
@@ -3342,9 +3403,9 @@ def _cp_plan(path, rows, precision, vocab_tp=1):
     return hp
 
 
-def _cp_argv(plan, layers, batch, seq):
+def _cp_argv(plan, layers, batch, seq, steps=CP_STEPS):
     return ["--model_size", "llama-7b", "--num_layers", str(layers), "--seq_length", str(seq),
-            "--global_train_batch_size", str(batch), "--train_iters", str(CP_STEPS),
+            "--global_train_batch_size", str(batch), "--train_iters", str(steps),
             "--galvatron_config_path", plan]
 
 
@@ -3457,7 +3518,7 @@ def phase_cp_world1(torch, smi, tmpdir):
     _cp_plan(plan, [(1, "ring", 1, False, "ddp", "none")] * b["layers"], "bf16")
     torch.cuda.reset_peak_memory_stats()
     out = trainer.train(initialize_galvatron("train", _cp_argv(plan, b["layers"], b["batch"],
-                                                                 b["seq"])))
+                                                                 b["seq"], CP_LONG_STEPS)))
     it = out["iter_times"]
     res = {"losses": out["losses"], "iter_ms_mean_from_2": sum(it[1:]) / (len(it) - 1),
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -3483,8 +3544,8 @@ def phase_cp_long(torch, smi, tmpdir, backend, local_ranks, world1):
     outdir = os.path.join(tmpdir, f"cp_ranks_long_{backend}")
     os.makedirs(outdir)
     t0 = time.perf_counter()
-    ranks = _launch_ranks(_cp_argv(plan, b["layers"], b["batch"], b["seq"]), outdir, backend,
-                          local_ranks)
+    ranks = _launch_ranks(_cp_argv(plan, b["layers"], b["batch"], b["seq"], CP_LONG_STEPS),
+                          outdir, backend, local_ranks)
     w1 = world1["losses"]
     losses = ranks[0]["losses"]
     rel = max(abs(x - y) / abs(y) for x, y in zip(losses, w1))
@@ -3492,11 +3553,12 @@ def phase_cp_long(torch, smi, tmpdir, backend, local_ranks, world1):
     check(all(r["losses"] == losses for r in ranks), f"{tag}: ranks report other losses")
     check(rel <= HYBRID_BF16_LOSS_RTOL, f"{tag}: losses {losses} vs world size 1 {w1}")
     for r in ranks:
-        want, blocked = _cp_grid_want(hp, r["rank"], len(ranks), b["batch"], b["seq"], CP_STEPS)
+        want, blocked = _cp_grid_want(hp, r["rank"], len(ranks), b["batch"], b["seq"],
+                                      CP_LONG_STEPS)
         totals = {k: sum(v.values()) for k, v in want.items()}
         got = {k: r["launches"][k] for k in totals}
-        check(got == totals and r["launches"]["flash_fwd"] == blocked * CP_STEPS
-              and r["launches"]["flash_bwd"] == blocked * CP_STEPS,
+        check(got == totals and r["launches"]["flash_fwd"] == blocked * CP_LONG_STEPS
+              and r["launches"]["flash_bwd"] == blocked * CP_LONG_STEPS,
               f"{tag} rank {r['rank']}: launches {r['launches']}, expected {totals}")
         check(all(r["routes"][k]["tma"] == totals[k] and r["routes"][k]["cuda_core"] == 0
                   for k in totals), f"{tag} rank {r['rank']}: routes {r['routes']}")
@@ -3506,7 +3568,7 @@ def phase_cp_long(torch, smi, tmpdir, backend, local_ranks, world1):
               f"{tag} rank {r['rank']}: {r['host_staged']} host-staged collectives")
     steady = lambda r: sum(r["iter_times"][1:]) / (len(r["iter_times"]) - 1)  # noqa: E731
     res = {"card": smi, "backend": backend, "local_ranks": list(local_ranks), **b,
-           "steps": CP_STEPS, "plan": [list(x) for x in CP_PLAN], "vocab_tp": CP_VOCAB_TP,
+           "steps": CP_LONG_STEPS, "plan": [list(x) for x in CP_PLAN], "vocab_tp": CP_VOCAB_TP,
            "losses": losses, "world1_losses": w1, "max_rel_loss_diff": rel,
            "tolerance": HYBRID_BF16_LOSS_RTOL,
            "launches": [{k: r["launches"][k] for k in ("flash_grid_fwd", "flash_grid_dkdv",
@@ -3675,20 +3737,456 @@ def phase_cp(torch, smi, run_gloo=True, run_nccl=False):
     return res
 
 
-def rank_worker(outdir, argv, ref_params=None, control=None) -> int:
-    """One rank of phases 12-13 and 17: ``cli train``'s own call
+# ---------------------------------------------------------------------------
+# phase 18: mixture-of-experts and expert parallelism (cli train, serve,
+# profile, search of a switch-MoE model)
+# ---------------------------------------------------------------------------
+
+MOE_EXPERTS = 8
+# (b): llama-7b width, 8 experts, depth cut to 2 layers, batch 8 x 2048
+MOE_LAYERS, MOE_ITERS, MOE_EP_STEPS = 2, 10, 3
+MOE_BATCH, MOE_SEQ = 8, 2048
+# (b)'s plan on two ranks: ep 2 over the two (DDP on the dense leaves)
+MOE_EP = 2
+MOE_SERVE_LAYERS = 4  # (c)
+# (a) and (d): a narrower model of the same family (h 1024, 8 heads of 128)
+MOE_SMALL = ("--hidden_size", "1024", "--num_heads", "8", "--ffn_dim", "2816")
+MOE_FP32 = dict(layers=2, batch=4, seq=512)
+# (a)'s limits: 17 (a)'s (ten fp32 ulps of a loss near 10.4; one AdamW step at
+# cli train's lr); a run that routes each rank's own tokens crosses both
+MOE_FP32_LOSS_TOL = 1e-5
+MOE_FP32_PARAM_BAND = 1e-4
+#: the profiler ranges of ``models/moe.py`` and the autograd nodes of the
+#: MoE block's backward, by part of the step
+MOE_PARTS = {"routing": ("moe.routing",), "dispatch": ("moe.dispatch", "_DispatchBackward"),
+             "experts": ("moe.experts", "BmmBackward0", "SiluBackward0"),
+             "combine": ("moe.combine", "_CollectBackward"),
+             "all_to_all": ("moe.all_to_all", "_MoEMoveBackward")}
+
+
+def _moe_model(seq, small=False, layers=MOE_LAYERS):
+    """The MoE model's shape flags: llama-7b width (or ``MOE_SMALL``)."""
+    return (["--model_size", "llama-7b", "--num_layers", str(layers), "--moe_experts",
+             str(MOE_EXPERTS), "--seq_length", str(seq)] + (list(MOE_SMALL) if small else []))
+
+
+def _moe_argv(plan, batch, seq, iters, small=False, layers=MOE_LAYERS):
+    argv = _moe_model(seq, small, layers) + ["--global_train_batch_size", str(batch),
+                                             "--train_iters", str(iters)]
+    if plan:
+        argv += ["--galvatron_config_path", plan]
+    return argv
+
+
+def _moe_plan(path, ep, precision, dp_type="ddp", layers=MOE_LAYERS):
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig, LayerStrategy
+
+    hp = HybridParallelConfig(layer_strategies=[LayerStrategy(ep=ep, dp_type=dp_type)] * layers,
+                              mixed_precision=precision)
+    hp.save(path)
+    return hp
+
+
+def moe_time_split(prof, steps):
+    """Per step, each MoE part's device ms (kernels under its forward range
+    or its backward autograd nodes) and host ms (the ranges' and nodes' CPU
+    time: a host-staged all-to-all shows there)."""
+    out = {part: {"device_ms": 0.0, "host_ms": 0.0} for part in MOE_PARTS}
+    for e in prof.events():
+        name = e.name
+        node = name.split("evaluate_function: ")[-1] if "evaluate_function: " in name else None
+        for part, names in MOE_PARTS.items():
+            if name in names[:1] or (node is not None and node in names[1:]):
+                dev = getattr(e, "device_time_total", None)
+                dev = e.cuda_time_total if dev is None else dev
+                out[part]["device_ms"] += dev / 1e3 / steps
+                out[part]["host_ms"] += e.cpu_time_total / 1e3 / steps
+    return out
+
+
+def phase_moe_fp32(torch, smi, tmpdir, plan2):
+    """18 (a): the plan 18 (d) searched (ep 2) on two ranks sharing the card
+    over gloo, fp32, against world size 1 in this process: losses within
+    ``MOE_FP32_LOSS_TOL``, every rank's parameters within
+    ``MOE_FP32_PARAM_BAND``. Beside it on the card, the control: the two
+    ranks at ep 1 (data parallel), each routing its own tokens, must fall out
+    of both (EP needs every rank's routing, so the control drops EP)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+
+    a = MOE_FP32
+    plan1 = os.path.join(tmpdir, "moe_fp32_w1.json")
+    _moe_plan(plan1, 1, "fp32", layers=a["layers"])
+    plan_dp = os.path.join(tmpdir, "moe_fp32_w2_dp.json")
+    _moe_plan(plan_dp, 1, "fp32", layers=a["layers"])
+    hp = HybridParallelConfig.load(plan2)
+    t0 = time.perf_counter()
+    ref = trainer.train(initialize_galvatron("train", _moe_argv(
+        plan1, a["batch"], a["seq"], MOE_EP_STEPS, small=True, layers=a["layers"])))
+    ref_path = os.path.join(tmpdir, "moe_ref_params.pt")
+    torch.save(_to(ref["state"]["params"], "cpu"), ref_path)
+    ref_losses = ref["losses"]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def run(control):
+        outdir = os.path.join(tmpdir, f"moe_ranks_fp32_{control}")
+        os.makedirs(outdir)
+        extra = ("--ref-params", ref_path) + (("--control", control) if control else ())
+        return _launch_ranks(_moe_argv(plan_dp if control else plan2, a["batch"], a["seq"],
+                                       MOE_EP_STEPS, small=True, layers=a["layers"]),
+                             outdir, "gloo", (0, 0), extra)
+
+    def readings(rs):
+        return (max(abs(x - y) for x, y in zip(rs[0]["losses"], ref_losses)),
+                max(r["param_max_abs_diff"] for r in rs))
+
+    with ThreadPoolExecutor(2) as pool:
+        ranks, crs = pool.map(run, (None, "local_routing"))
+    os.remove(ref_path)
+    diff, pdiff = readings(ranks)
+    cdiff, cpdiff = readings(crs)
+    control = {"losses": crs[0]["losses"], "max_abs_loss_diff": cdiff,
+               "param_max_abs_diff": cpdiff}
+    res = {"card": smi, **a, "hidden": 1024, "experts": MOE_EXPERTS, "steps": MOE_EP_STEPS,
+           "plan": hp.to_json_dict(), "dtype": "float32", "losses": ranks[0]["losses"],
+           "world1_losses": ref_losses, "max_abs_loss_diff": diff,
+           "tolerance": MOE_FP32_LOSS_TOL, "param_max_abs_diff": pdiff,
+           "param_band": MOE_FP32_PARAM_BAND, "control_local_routing_ep1": control,
+           "moe_moves": [r["moe_moves"] for r in ranks],
+           "host_staged": [r["host_staged"] for r in ranks], "seconds": time.perf_counter() - t0}
+    log("phase 18 (a) moe fp32, the searched plan:", json.dumps(res))
+    RESULTS["moe_fp32"] = res
+    check(all(r["losses"] == ranks[0]["losses"] for r in ranks), "18 (a): ranks differ")
+    check(diff <= MOE_FP32_LOSS_TOL,
+          f"18 (a): losses {ranks[0]['losses']} vs world size 1 {ref_losses}")
+    check(pdiff <= MOE_FP32_PARAM_BAND,
+          f"18 (a): parameters {pdiff} from world size 1 (band {MOE_FP32_PARAM_BAND})")
+    check(cdiff > MOE_FP32_LOSS_TOL and cpdiff > MOE_FP32_PARAM_BAND,
+          f"18 (a): the per-rank routing control passes a limit ({control})")
+    ep = max(s_.ep for s_ in hp.layer_strategies)
+    want = _moe_moves_want(a["layers"], MOE_EP_STEPS, ep)
+    check(all(r["moe_moves"] == want for r in ranks),
+          f"18 (a): moves {[r['moe_moves'] for r in ranks]}, expected {want}")
+
+
+def _moe_moves_want(layers, steps, ep, recomputed=0):
+    """``comm.moe_moves`` of ``steps`` steps of a plan with ``layers`` MoE
+    layers at ``ep`` (DP 2, no chunks): a logits gather a layer forward
+    (``recomputed`` more), and at ep > 1 a dispatch and a combine each way."""
+    fwd = (layers + recomputed) * steps
+    moves = 0 if ep == 1 else fwd + layers * steps
+    return {"logits": fwd, "dispatch": moves, "combine": moves}
+
+
+def phase_moe_train(torch, smi, tmpdir):
+    """18 (b): ``cli train`` of the llama-7b-width MoE at world size 1 (10
+    iterations; a profile window splits its step), then the ep 2 plan on two
+    ranks sharing the card over gloo (3 steps, its rank 0 profiled)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from galvatron_tpu_torch import cli
+    from galvatron_tpu_torch.core.dataloader import build_dataloader
+    from galvatron_tpu_torch.core.optim import AdamConfig
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.parallel import comm
+    from galvatron_tpu_torch.parallel.hybrid import build_runtime
+
+    path = os.path.join(tmpdir, "moe_train.jsonl")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    comm.reset_counts()
+    t0 = time.perf_counter()
+    reset_kernel_counts()  # the main path's counts start here
+    before = route_counts()
+    rc = cli.main(["train", *_moe_argv(None, MOE_BATCH, MOE_SEQ, MOE_ITERS),
+                   "--metrics_path", path])
+    launches = kernel_counts()  # read right after the main path
+    routes = _routes_since(before)
+    check(rc == 0, f"18 (b): cli train returned {rc}")
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, recs = _train_losses(path)
+    check(len(losses) == MOE_ITERS and all(x == x and abs(x) != float("inf") for x in losses),
+          f"18 (b): losses {losses}")
+    want = path_counts("llama", MOE_LAYERS, MOE_ITERS, False)
+    check(launches == want, f"18 (b): launches {launches}, expected {want}")
+    check(_all_tma(launches, routes), f"18 (b): routes {routes}")
+    check(comm.issued == 0 and not any(comm.moe_moves.values()),
+          f"18 (b): world size 1 moved {comm.moe_moves}")
+    steady = recs[1:]
+    mean = lambda key: sum(r[key] for r in steady) / len(steady)  # noqa: E731
+    w1 = {"layers": MOE_LAYERS, "experts": MOE_EXPERTS, "batch": MOE_BATCH, "seq": MOE_SEQ,
+          "dtype": "bfloat16", "iters": MOE_ITERS, "losses": losses,
+          "iter_ms_mean_from_2": mean("iter_ms"), "tokens_per_s": mean("tokens_per_s"),
+          "mfu": mean("mfu"), "max_memory_allocated_gb": peak_gb, "launches": launches,
+          "tma_routes": {k: v["tma"] for k, v in routes.items()}, "seconds": seconds}
+    log("phase 18 (b) moe train world size 1:", json.dumps(w1))
+    # the profile window: 2 steady steps of the same configuration
+    cfg = modeling.PRESETS["llama-7b"].replace(num_layers=MOE_LAYERS, moe_experts=MOE_EXPERTS,
+                                               attn_impl="flash")
+    rt = build_runtime(cfg, adam=AdamConfig(lr=1e-4, weight_decay=0.01, grad_clip=1.0),
+                       global_batch_size=MOE_BATCH, seq_len=MOE_SEQ, mixed_precision="bf16",
+                       device="cuda")
+    state = rt.init_state(1234)
+    loader = build_dataloader(rt.cfg, MOE_BATCH, MOE_SEQ, seed=1234)
+    for _ in range(2):
+        state, loss = rt.train_step(state, torch.from_numpy(next(loader)))
+        float(loss)
+    batches = [torch.from_numpy(next(loader)) for _ in range(2)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for batch in batches:
+            state, loss = rt.train_step(state, batch)
+            float(loss)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3 / 2
+    kernels = _kernel_intervals(prof)
+    check(kernels, "18 (b): the profiler recorded no device kernel")
+    busy_ms = _union_us(kernels) / 1e3 / 2
+    by_cat = {}
+    for name, s, e in kernels:
+        c = _category(name)
+        by_cat[c] = by_cat.get(c, 0.0) + (e - s) / 1e3 / 2
+    w1["profile"] = {"wall_ms_per_step_profiled": wall_ms, "device_busy_ms_per_step": busy_ms,
+                     "device_idle_share": 1.0 - busy_ms / wall_ms,
+                     "kernel_launches_per_step": len(kernels) / 2,
+                     "device_ms_by_category": by_cat, "moe_parts": moe_time_split(prof, 2)}
+    log("phase 18 (b) moe step profile:", json.dumps(w1["profile"]))
+    del state, rt, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ep 2 on two ranks
+    plan2 = os.path.join(tmpdir, "moe_ep2.json")
+    _moe_plan(plan2, MOE_EP, "bf16")
+    outdir = os.path.join(tmpdir, "moe_ranks_ep2")
+    os.makedirs(outdir)
+    t2 = time.perf_counter()
+    ranks = _launch_ranks(_moe_argv(plan2, MOE_BATCH, MOE_SEQ, MOE_EP_STEPS), outdir, "gloo",
+                          (0, 0), ("--profile-moe",))
+    rel = max(_rel(x, y) for x, y in zip(ranks[0]["losses"], losses))
+    ep2 = {"plan": f"ep {MOE_EP}, ddp", "steps": MOE_EP_STEPS, "losses": ranks[0]["losses"],
+           "max_rel_loss_diff_vs_world1": rel, "tolerance": HYBRID_BF16_LOSS_RTOL,
+           "iter_ms_mean_from_2": [sum(r["iter_times"][1:]) / (len(r["iter_times"]) - 1)
+                                   for r in ranks],
+           "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in ranks],
+           "launches": [r["launches"] for r in ranks], "moe_moves": [r["moe_moves"] for r in ranks],
+           "collectives": [r["collectives"] for r in ranks],
+           "host_staged": [r["host_staged"] for r in ranks],
+           "rank0_moe_parts": ranks[0].get("moe_parts"), "seconds": time.perf_counter() - t2}
+    res = {"card": smi, "world1": w1, "ep2_gloo": ep2}
+    log("phase 18 (b) moe train ep 2, two ranks over gloo:", json.dumps(ep2))
+    RESULTS["moe_train"] = res
+    check(all(r["losses"] == ranks[0]["losses"] for r in ranks), "18 (b): ranks differ")
+    check(rel <= HYBRID_BF16_LOSS_RTOL, f"18 (b): ep 2 losses {ranks[0]['losses']} vs world "
+          f"size 1 {losses[:MOE_EP_STEPS]}")
+    check(all(g < peak_gb for g in ep2["max_memory_allocated_gb"]),
+          f"18 (b): per-rank peak {ep2['max_memory_allocated_gb']} not below world size 1's "
+          f"{peak_gb}")
+    rank_want = path_counts("llama", MOE_LAYERS, MOE_EP_STEPS, False)
+    check(all(r["launches"] == rank_want for r in ranks),
+          f"18 (b): rank launches {ep2['launches']}, expected {rank_want}")
+    want = _moe_moves_want(MOE_LAYERS, MOE_EP_STEPS, MOE_EP)
+    check(all(r["moe_moves"] == want for r in ranks),
+          f"18 (b): moves {ep2['moe_moves']}, expected {want}")
+    return launches, res
+
+
+@contextlib.contextmanager
+def _moe_decode_records(records):
+    """For the length of a with block, every decode forward of the engine
+    appends to ``records`` the one active row's router logits and choice
+    at each layer and its next-token logits (requests sent one at a time:
+    the row whose offset is not 0)."""
+    import numpy as np
+
+    from galvatron_tpu_torch.models import moe
+    from galvatron_tpu_torch.serving import engine as engine_mod
+
+    real_route, real_step = moe.route_top1, engine_mod.Engine._decode_step
+    calls = []  # the router's calls of the decode forward being recorded
+
+    def route(logits, capacity, **kw):
+        r = real_route(logits, capacity, **kw)
+        calls.append((logits.detach().float().cpu(), r.expert.cpu()))
+        return r
+
+    def step(self, tokens, offsets):
+        calls.clear()
+        out = real_step(self, tokens, offsets)
+        row = int(np.nonzero(offsets)[0][0])
+        records.append({"routes": [(lg[row], int(ex[row])) for lg, ex in calls],
+                        "logits": out[row].copy()})
+        return out
+
+    with _patched(moe, route_top1=route), _patched(engine_mod.Engine, _decode_step=step):
+        yield
+
+
+def _moe_sequential(base, what):
+    """Phase 6's prompts sent one at a time (so the engine's batches, and
+    with them the MoE capacity drops, do not depend on timing), each with
+    the records of its decode forwards; {prompt: (tokens, records)}."""
+    out, records = {}, []
+    with _moe_decode_records(records):
+        for p in _serve_prompts():
+            records.clear()
+            code, r = _http(base + "/api", {"prompts": [p], "tokens_to_generate": 32,
+                                            "temperature": 0.0})
+            check(code == 200, f"{what}: {code} {r}")
+            out[p] = (r["tokens"][0], list(records))
+    return out
+
+
+def _moe_margin_rule(n_prompt, a, b, what):
+    """The margin rule for a switch-MoE model, whose hard routing turns a
+    rounding difference into a different expert: two greedy runs of one
+    prompt are equal up to their first difference, and the first
+    discontinuity between the two, walking the decode forwards up to it,
+    is a near-tie in the first run, within ``MARGIN_TOL`` of the rms of the
+    logits it chose among: a router choice that differs (the two experts'
+    router logits), or else the parted token (the two tokens' logits)."""
+    (ta, ra), (tb, rb) = a, b
+    check(ta[:n_prompt] == tb[:n_prompt], f"{what}: prompts differ")
+    n = min(len(ta), len(tb))
+    j = next((i for i in range(n_prompt, n) if ta[i] != tb[i]), None)
+    if j is None:
+        check(len(ta) == len(tb), f"{what}: {len(ta)} against {len(tb)} tokens")
+        return {"equal": True, "first_difference": None}
+    k = j - n_prompt  # generated token k comes from decode forward k - 1
+    check(k >= 1, f"{what}: parted at the first generated token, which prefill gives")
+
+    def near(logits, x, y, cause, **where):
+        rms = float((logits.double() ** 2).mean() ** 0.5)
+        gap = abs(float(logits[x]) - float(logits[y]))
+        out = {"equal": False, "first_difference": k, "cause": cause, **where, "gap": gap,
+               "rms": rms, "tolerance": MARGIN_TOL * rms}
+        check(gap <= MARGIN_TOL * rms, f"{what}: parted at generated position {k} by a "
+              f"{cause} gap of {gap} > {MARGIN_TOL} x rms {rms} ({where})")
+        return out
+
+    for step in range(k):
+        for layer, ((la, ea), (_, eb)) in enumerate(zip(ra[step]["routes"],
+                                                         rb[step]["routes"])):
+            if ea != eb:
+                return near(la, ea, eb, "router", decode_forward=step, layer=layer)
+    import torch
+
+    return near(torch.from_numpy(ra[k - 1]["logits"]), ta[j], tb[j], "token")
+
+
+def phase_moe_serve(torch, smi):
+    """18 (c): ``cli serve`` of the MoE model (llama-7b width, 8 experts, 4
+    layers) on the paged backend: phase 6's prompts one at a time, then its
+    concurrent drive; then a server with the paged kernel's plain version
+    in its place, the same prompts one at a time, held to the kernel's by
+    the MoE margin rule (:func:`_moe_margin_rule`)."""
+    from galvatron_tpu_torch.models import generation
+    from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
+    from galvatron_tpu_torch.ops import flash_attention as fa
+
+    def argv():
+        return ["serve", "--model_size", "llama-7b", "--num_layers", str(MOE_SERVE_LAYERS),
+                "--moe_experts", str(MOE_EXPERTS), "--kv_num_blocks", "-1", "--num_slots", "4",
+                "--prefill_chunk", "32", "--port", _free_port(), "--request_ttl_s", "600"]
+
+    t0 = time.perf_counter()
+    seq = {}
+    res, _, _ = _drive_serve(torch, smi, argv(), "18 (c)", MOE_SERVE_LAYERS, "paged",
+                             before=lambda base: seq.update(kernel=_moe_sequential(
+                                 base, "18 (c)")))
+    with _patched(generation, paged_decode_attention=fa.paged_decode_attention_plain):
+        plain, _, _ = _drive_serve(torch, smi, argv(), "18 (c) plain", MOE_SERVE_LAYERS,
+                                   "paged", plain=True,
+                                   before=lambda base: seq.update(plain=_moe_sequential(
+                                       base, "18 (c) plain")))
+    tok = ByteTokenizer()
+    against = {f"{len(p)} bytes": _moe_margin_rule(len(tok.encode(p)), seq["kernel"][p],
+                                                   seq["plain"][p], f"18 (c) {len(p)} bytes")
+               for p in seq["kernel"]}
+    res = {"card": smi, "model": "llama-7b width, 8 experts", **{
+        k: v for k, v in res.items() if k != "card"},
+        "plain": {k: plain[k] for k in ("decode_step_ms_mean", "tokens_per_s", "ttft_p50_s")},
+        "against_plain": against, "seconds": time.perf_counter() - t0}
+    log("phase 18 (c) moe serve:", json.dumps(res))
+    RESULTS["moe_serve"] = res
+    return res["kernel_launches"]
+
+
+def phase_moe_search(torch, smi, tmpdir):
+    """18 (d): ``cli profile`` of (a)'s model, ``cli search --enable_ep 1``
+    for two devices on that profile, and ``check-plan``; the plan must split
+    the experts (ep > 1). Returns its path: (a) trains it."""
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.utils.config_utils import load_profiled_model
+
+    a = MOE_FP32
+    model = _moe_model(a["seq"], small=True, layers=a["layers"])
+    t0 = time.perf_counter()
+    prefix = os.path.join(tmpdir, "profile_moe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rc, _ = _cli(["profile", *model, "--profile_batch_size", str(a["batch"]),
+                  "--output_prefix", prefix])
+    check(rc == 0, f"18 (d): cli profile returned {rc}")
+    lt = load_profiled_model(prefix + "_computation.json",
+                             prefix + "_memory.json").layer_types[0]
+    check(0.0 < lt.moe_expert_param_fraction < 1.0 and lt.moe_a2a_mb_per_sample > 0,
+          f"18 (d): profile {lt}")
+    plan = os.path.join(tmpdir, "moe_searched.json")
+    rc, _ = _cli(["search", *model, "--num_devices", "2", "--settle_bsz", str(a["batch"]),
+                  "--memory_constraint_gb", "40", "--mixed_precision", "fp32", "--enable_ep",
+                  "1", "--time_profile_path", prefix + "_computation.json",
+                  "--memory_profile_path", prefix + "_memory.json",
+                  "--hardware_profile_path", REFERENCE_HW, "--output_config_path", plan])
+    check(rc == 0, f"18 (d): cli search returned {rc}")
+    rc, _ = _cli(["check-plan", plan])
+    check(rc == 0, f"18 (d): check-plan returned {rc}")
+    hp = HybridParallelConfig.load(plan)
+    res = {"card": smi, "profile": {"fwd_ms_per_sample": lt.fwd_ms_per_sample,
+                                    "moe_expert_param_fraction": lt.moe_expert_param_fraction,
+                                    "moe_expert_time_fraction": lt.moe_expert_time_fraction,
+                                    "moe_a2a_mb_per_sample": lt.moe_a2a_mb_per_sample},
+           "plan": hp.to_json_dict(), "seconds": time.perf_counter() - t0}
+    log("phase 18 (d) moe profile, search:", json.dumps(res))
+    RESULTS["moe_search"] = res
+    check(any(s_.ep > 1 for s_ in hp.layer_strategies), f"18 (d): no ep in {hp.to_json_dict()}")
+    return plan
+
+
+def phase_moe(torch, smi):
+    """Phase 18: (d), whose plan (a) trains, then (b) and (c); returns (b)'s
+    world-1 launches and (c)'s paged launches."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmpdir:
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_moe_fp32(torch, smi, tmpdir, phase_moe_search(torch, smi, tmpdir))
+        train_launches, _ = phase_moe_train(torch, smi, tmpdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_launches = phase_moe_serve(torch, smi)
+    return train_launches, serve_launches
+
+
+def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) -> int:
+    """One rank of phases 12-13, 17 and 18: ``cli train``'s own call
     (``trainer.train`` of the parsed flags), with the blocked flash
     wrappers' calls also counted by the head count they ran at, and the grid
     wrappers' launches by shape and mask (their ``modes``); writes
     ``rank<r>.json`` (and, with ``ref_params``, the largest difference of
     this rank's pieces from the world-size-1 parameters). ``control`` names
-    one of ``CP_CONTROLS`` to train under."""
-    import torch
-
-    from galvatron_tpu_torch import bridge
+    one of ``CP_CONTROLS`` to train under; ``profile_moe`` profiles rank 0's
+    run and splits its MoE time (:func:`moe_time_split`). Flags with
+    ``--then`` between them are several runs, one after another in this
+    process (:func:`_launch_rank_runs`)."""
     from galvatron_tpu_torch.core import trainer
-    from galvatron_tpu_torch.core.arguments import initialize_galvatron, model_config_from_args
-    from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron
     from galvatron_tpu_torch.ops import flash_attention as fa
 
     heads = {"flash_fwd": {}, "flash_bwd": {}}
@@ -3703,12 +4201,62 @@ def rank_worker(outdir, argv, ref_params=None, control=None) -> int:
         # the wrapper's body counts into the module-level name: carry its counters
         counted.__dict__.update(orig.__dict__)
         setattr(fa, name, counted)
+    runs = [[]]  # the flags of each run, split at "--then"
+    for a in argv:
+        if a == "--then":
+            runs.append([])
+        else:
+            runs[-1].append(a)
+    if len(runs) > 1:
+        # one default process group for every run: trainer.train then
+        # neither creates nor destroys it
+        ns = initialize_galvatron("train", runs[0])
+        created = trainer.init_distributed(trainer.rank_device(ns.device), ns.dist_backend,
+                                           ns.dist_timeout_s)
+        try:
+            for j, run in enumerate(runs):
+                _rank_run(os.path.join(outdir, f"run{j}"), run, heads, ref_params, control,
+                          profile_moe)
+        finally:
+            if created:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
+        return 0
+    _rank_run(outdir, argv, heads, ref_params, control, profile_moe)
+    return 0
+
+
+def _rank_run(outdir, argv, heads, ref_params=None, control=None, profile_moe=False):
+    """One ``cli train`` run of :func:`rank_worker`; writes ``rank<r>.json``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from galvatron_tpu_torch import bridge
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron, model_config_from_args
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.ops import flash_attention as fa
+    from galvatron_tpu_torch.parallel import comm
+
+    for counts in heads.values():
+        counts.clear()
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
+    comm.reset_counts()
     before = route_counts()
     ns = initialize_galvatron("train", argv)
-    with _cp_control(control):
+    prof = None
+    if profile_moe and int(os.environ.get("RANK", "0")) == 0:
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with _cp_control(control), (prof if prof is not None else contextlib.nullcontext()):
         out = trainer.train(ns)
     rec = {"rank": out["rank"], "world": out["world"], "losses": out["losses"],
+           "moe_moves": dict(comm.moe_moves), "collectives": comm.issued,
+           "moe_parts": moe_time_split(prof, ns.train_iters) if prof is not None else None,
            "iter_times": out["iter_times"], "launches": kernel_counts(),
            "routes": {k: {r: n - before[k][r] for r, n in v.items()}
                       for k, v in route_counts().items()},
@@ -3731,12 +4279,11 @@ def rank_worker(outdir, argv, ref_params=None, control=None) -> int:
                                         for a, b in zip(tree_leaves(mine), tree_leaves(want)))
     with open(os.path.join(outdir, f"rank{out['rank']}.json"), "w") as f:
         json.dump(rec, f)
-    return 0
 
 
 #: the phases by name, for ``--phases``; a full run takes them all
 PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train", "hybrid",
-          "pipeline", "nccl", "search", "services", "slots", "cp")
+          "pipeline", "nccl", "search", "services", "slots", "cp", "moe")
 
 
 def main() -> int:
@@ -3749,14 +4296,17 @@ def main() -> int:
     ap.add_argument("--rank-worker", default=None, metavar="OUTDIR",
                     help="(phases 12-13) run as one rank: the flags after -- are cli train's")
     ap.add_argument("--ref-params", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--control", default=None, choices=CP_CONTROLS[:1], help=argparse.SUPPRESS)
+    ap.add_argument("--control", default=None, choices=(CP_CONTROLS[0], CP_CONTROLS[2]),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--profile-moe", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--cp-worker", default=None, metavar="OUTDIR",
                     help="(phase 17 (c)) run as one rank of the ring / Ulysses functions")
     ap.add_argument("train_argv", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank_worker:
         argv = args.train_argv[1:] if args.train_argv[:1] == ["--"] else args.train_argv
-        return rank_worker(args.rank_worker, argv, args.ref_params, args.control)
+        return rank_worker(args.rank_worker, argv, args.ref_params, args.control,
+                           args.profile_moe)
     if args.cp_worker:
         return cp_worker(args.cp_worker)
     phases = [p for p in args.phases.split(",") if p]
@@ -3884,6 +4434,13 @@ def main() -> int:
     if {"cp", "nccl"} & set(phases):
         cp_long = phase_cp(torch, smi, run_gloo="cp" in phases, run_nccl="nccl" in phases)
         mark("17 cp")
+    if "moe" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["moe_train"], launches["moe_paged"] = phase_moe(torch, smi)
+        RESULTS["moe_launches"] = {"train_world1": launches["moe_train"],
+                                   "serve_paged_decode": launches["moe_paged"]}
+        mark("18 moe")
     RESULTS["total_seconds"] = time.perf_counter() - clock["start"]
     log("phase seconds:", json.dumps(seconds), f"total {RESULTS['total_seconds']:.1f} s")
     if set(phases) != set(PHASES):

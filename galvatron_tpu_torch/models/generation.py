@@ -92,9 +92,12 @@ def _qkv(x, p, cfg: ModelConfig, cos_sin):
 
 
 def _finish_layer(x, o, p, cfg: ModelConfig):
-    """Output projection (+ bias) and the MLP block, both residual."""
+    """Output projection (+ bias) and the MLP block, both residual. An MoE
+    block routes by the raw argmax (``train=False``), with its capacity over
+    the rows of this forward, as in the reference."""
     x = x + modeling.attn_output(o, p["attn"], cfg)
-    return x + modeling.mlp_block(modeling.norm(x, p["mlp_norm"], cfg), p["mlp"], cfg)
+    return x + modeling.mlp_block(modeling.norm(x, p["mlp_norm"], cfg), p["mlp"], cfg,
+                                  train=False)
 
 
 def _logits(x, params, cfg: ModelConfig):

@@ -3,12 +3,13 @@
 Counterpart of ``galvatron_tpu/models/modeling.py``, limited to the
 decoder families the port runs: LLaMA (RoPE, RMSNorm, SwiGLU) and GPT/OPT
 (learned positions, LayerNorm, tanh-GELU or ReLU, projection biases, tied
-embeddings). The fused QKV projection in both stored layouts (blocked
-``(h, 3, n·hd)`` for MHA, kv-group-interleaved ``(h, kv·(npg+2)·hd)`` for
-GQA), attention on the einsum path (``attn_impl='xla'``) or the flash
-kernels (``'flash'``: the head-major dataflow of ``_attn_block_headmajor``;
-blocked-causal with RoPE, grid otherwise), the ``mlp_recompute`` policies,
-embedding, LM head and the sum-form token loss.
+embeddings), each with dense or switch-MoE MLPs (``models/moe.py``). The
+fused QKV projection in both stored layouts (blocked ``(h, 3, n·hd)`` for
+MHA, kv-group-interleaved ``(h, kv·(npg+2)·hd)`` for GQA), attention on the
+einsum path (``attn_impl='xla'``) or the flash kernels (``'flash'``: the
+head-major dataflow of ``_attn_block_headmajor``; blocked-causal with RoPE,
+grid otherwise), the ``mlp_recompute`` policies, embedding, LM head and the
+sum-form token loss.
 
 Parameters are a nested dict of tensors with the JAX package's names and
 layouts (``x @ W`` everywhere), so the weight bridge (``bridge.py``) is a
@@ -23,13 +24,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from galvatron_tpu_torch.models import moe
 
 Params = Dict[str, Any]
 
@@ -53,8 +56,12 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     causal: bool = True
-    moe_experts: int = 0
+    moe_experts: int = 0  # switch-MoE MLPs with this many experts (models/moe.py)
     moe_capacity_factor: float = 1.25
+    moe_sinkhorn_iters: int = 8
+    # the multi-rank MoE layer's groups (``moe.MoEContext``), set per layer
+    # by the hybrid runtime; not part of the configuration's identity
+    moe_ctx: Optional[Any] = field(default=None, compare=False, hash=False, repr=False)
     objective: str = "clm"
     # the shape fields of the reference's other families, with its
     # decoder-only defaults: the search, the cost model and the plan checker
@@ -141,7 +148,6 @@ _PORTED = (
     ("pos_embed", ("rope", "learned"), "ALiBi positions"),
     ("norm_type", ("rms", "layernorm"), "other norms"),
     ("act_fn", ("swiglu", "gelu", "relu"), "other MLP activations"),
-    ("moe_experts", (0,), "mixture-of-experts MLPs"),
     ("causal", (True,), "bidirectional encoders"),
     ("objective", ("clm",), "masked-LM / classification objectives"),
     ("enc_layers", (0,), "encoder-decoder models"),
@@ -152,7 +158,6 @@ _PORTED = (
     ("num_classes", (1000,), "vision models"),
     ("swin_depths", ((),), "Swin models"),
     ("swin_window", (7,), "Swin models"),
-    ("moe_capacity_factor", (1.25,), "mixture-of-experts MLPs"),
 )
 
 
@@ -160,7 +165,7 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run yet
     (ROADMAP.md §1.10): training, serving and generation run the causal
     LLaMA and GPT/OPT decoders (rope or learned positions, rms or layernorm,
-    swiglu / gelu / relu, biases, tied heads)."""
+    swiglu / gelu / relu, biases, tied heads, switch-MoE MLPs)."""
     for field, ported, what in _PORTED:
         if getattr(cfg, field) not in ported:
             raise NotImplementedError(
@@ -198,10 +203,13 @@ def init_model_params(cfg: ModelConfig, seed: int, device) -> Params:
     gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(int(seed))
     h, hd, pd = cfg.hidden_size, cfg.head_dim, cfg.param_dtype
 
-    def dense(fan_in, fan_out):
+    def uniform(shape, fan_in):
         scale = 1.0 / math.sqrt(fan_in)
-        w = torch.empty((fan_in, fan_out), dtype=pd, device=device)
+        w = torch.empty(shape, dtype=pd, device=device)
         return w.uniform_(-scale, scale, generator=gen)
+
+    def dense(fan_in, fan_out):
+        return uniform((fan_in, fan_out), fan_in)
 
     def normal(*shape):
         return torch.randn(shape, dtype=pd, device=device, generator=gen).mul_(0.02)
@@ -225,13 +233,17 @@ def init_model_params(cfg: ModelConfig, seed: int, device) -> Params:
         if cfg.qkv_blocked:
             wqkv = wqkv.reshape(h, 3, cfg.num_heads * hd)
         attn = {"wqkv": wqkv, "wo": dense(cfg.num_heads * hd, h)}
-        width = 2 * cfg.ffn if cfg.act_fn == "swiglu" else cfg.ffn
-        mlp = {up: dense(h, width), "w2": dense(cfg.ffn, h)}
         if cfg.use_bias:
             attn["wqkv_b"] = zeros(3, cfg.num_heads * hd)
             attn["wo_b"] = zeros(h)
-            mlp[up + "_b"] = zeros(width)
-            mlp["w2_b"] = zeros(h)
+        if cfg.moe_experts > 0:
+            mlp = moe.init_moe_params(cfg, uniform, normal)
+        else:
+            width = 2 * cfg.ffn if cfg.act_fn == "swiglu" else cfg.ffn
+            mlp = {up: dense(h, width), "w2": dense(cfg.ffn, h)}
+            if cfg.use_bias:
+                mlp[up + "_b"] = zeros(width)
+                mlp["w2_b"] = zeros(h)
         params["layers"].append({"attn_norm": norm_params(), "attn": attn,
                                  "mlp_norm": norm_params(), "mlp": mlp})
     params["final_norm"] = norm_params()
@@ -242,13 +254,15 @@ def init_model_params(cfg: ModelConfig, seed: int, device) -> Params:
 
 def cast_params(params: Params, cfg: ModelConfig) -> Params:
     """Matmul weights, their biases and the embeddings to ``cfg.dtype``,
-    once, IN PLACE in the dict tree; norm scales and biases stay as they
-    are (fp32). Casting
+    once, IN PLACE in the dict tree; norm scales and biases, and the MoE
+    router (whose logits are fp32), stay as they are (fp32). Casting
     ``param_dtype`` weights once gives the same values as the reference's
     per-use ``astype(x.dtype)``. Each cast replaces its source entry as it
     goes, so a full-size model never holds two full copies. Returns
     ``params``."""
     for key, val in params.items():
+        if key == "router":
+            continue  # the MoE router computes its logits in fp32
         if isinstance(val, dict):
             cast_params(val, cfg)
         elif isinstance(val, list):
@@ -262,7 +276,8 @@ def cast_params(params: Params, cfg: ModelConfig) -> Params:
 def layer_annotations(cfg: ModelConfig) -> Params:
     """Logical axes per layer parameter (the reference's): 'tp' = the
     Megatron-sharded dim (column-parallel output / row-parallel input),
-    'fsdp' = the dim ZeRO shards (``parallel/sharding.py``)."""
+    'fsdp' = the dim ZeRO shards, 'ep' = an MoE layer's expert dim
+    (``parallel/sharding.py``)."""
     a: Params = {
         "attn_norm": {"scale": ("fsdp",)},
         "attn": {
@@ -278,10 +293,13 @@ def layer_annotations(cfg: ModelConfig) -> Params:
         a["attn"]["wqkv_b"] = (None, "tp")
         a["attn"]["wo_b"] = ("fsdp",)
     up = _up_name(cfg)
-    a["mlp"] = {up: ("fsdp", "tp"), "w2": ("tp", "fsdp")}
-    if cfg.use_bias:
-        a["mlp"][up + "_b"] = ("tp",)
-        a["mlp"]["w2_b"] = ("fsdp",)
+    if cfg.moe_experts > 0:
+        a["mlp"] = moe.moe_annotations(cfg)
+    else:
+        a["mlp"] = {up: ("fsdp", "tp"), "w2": ("tp", "fsdp")}
+        if cfg.use_bias:
+            a["mlp"][up + "_b"] = ("tp",)
+            a["mlp"]["w2_b"] = ("fsdp",)
     if cfg.norm_type == "layernorm":
         a["attn_norm"]["bias"] = ("fsdp",)
         a["mlp_norm"]["bias"] = ("fsdp",)
@@ -567,15 +585,21 @@ class _MLPBranch(torch.autograd.Function):
                 dw2, _bias_grad(dy, ctx.biased[1]), None)
 
 
-def mlp_block(x, p, cfg: ModelConfig, product_remat: Optional[bool] = None):
+def mlp_block(x, p, cfg: ModelConfig, product_remat: Optional[bool] = None,
+              train: bool = True):
     """``act(x @ w_up + b_up) @ w2 + b2`` (SwiGLU over the fused [w1 | w3],
-    tanh-GELU or ReLU over w1; biases when present); under 'gate' with
+    tanh-GELU or ReLU over w1; biases when present), or the switch-MoE block
+    when ``cfg.moe_experts`` > 0 (``train`` picks its routing: sinkhorn-
+    balanced, or the raw argmax at inference; no recompute policy applies
+    to it, as in the reference); under 'gate' with
     autograd on (or with ``product_remat``), the product is recomputed in
     the backward. 'policy' is :func:`mlp_residual`'s region, except with
     ``fused_norm``: the branch
     then leaves that region (the fused kernels carry their own residuals)
     and the one-gate-save guarantee falls back to the product-only
     recompute here, as in the reference."""
+    if cfg.moe_experts > 0:
+        return moe.moe_block(x, p, cfg, train=train, ctx=cfg.moe_ctx)
     up = _up_name(cfg)
     g = _add_bias(x @ p[up].to(x.dtype), p, up + "_b")
     w2 = p["w2"].to(x.dtype)
@@ -594,8 +618,9 @@ def mlp_residual(x, p, cfg: ModelConfig):
     is one region that saves only x and the gate output
     (:class:`_MLPBranch`). ``fused_norm`` layers keep the plain branch: the
     region recomputes the plain norm, and the fused kernels save residuals
-    it cannot reach."""
-    if cfg.mlp_recompute == "policy" and not cfg.fused_norm and torch.is_grad_enabled():
+    it cannot reach; nor do MoE layers (the reference's)."""
+    if (cfg.mlp_recompute == "policy" and not cfg.fused_norm and cfg.moe_experts == 0
+            and torch.is_grad_enabled()):
         pm, pn, up = p["mlp"], p["mlp_norm"], _up_name(cfg)
 
         def cast(name):
@@ -758,9 +783,12 @@ def _decoder_layer_tp(x, p, cfg: ModelConfig, cos_sin, remat_attn: bool, tp):
 
 
 def _mlp_residual_tp(x, p, cfg: ModelConfig, tp):
-    """The MLP half of :func:`_decoder_layer_tp`."""
+    """The MLP half of :func:`_decoder_layer_tp`. An MoE layer's experts
+    hold their ffn/tp columns and rows; it has no ``w2_b``."""
     pm = p["mlp"]
     h = tp.enter(norm(x, p["mlp_norm"], cfg))
+    if cfg.moe_experts > 0:
+        return x + tp.exit(moe.moe_block(h, pm, cfg, ctx=cfg.moe_ctx))
     y = mlp_block(h, _without(pm, "w2_b"), tp_local_config(cfg, tp.size),
                   product_remat=cfg.mlp_recompute != "off")
     return x + _add_bias(tp.exit(y), pm, "w2_b")

@@ -24,6 +24,10 @@ four collectives (``all_reduce``, ``all_gather_into_tensor``,
   one :func:`exchange`), and the all-to-all that re-shards an activation from
   one dimension to another (:func:`all_to_all`, ``lax.all_to_all(...,
   tiled=True)``; its backward is the move back).
+- An MoE layer's moves (``models/moe.py``): the no-grad gather of the router
+  logits over the token group (:func:`gather_logits`) and the dispatch and
+  combine all-to-alls over the EP group (:func:`moe_dispatch`,
+  :func:`moe_combine`), which GSPMD inserts at the reference's einsums.
 
 Convention: a tensor replicated over a group holds the same value on every
 member, and so does its gradient (Megatron's), so a redistribution's
@@ -53,6 +57,9 @@ issued = 0
 regathered = 0
 #: point-to-point messages posted (sends and receives, :func:`exchange`)
 p2p = 0
+#: MoE moves issued, by kind: "logits" gathers, "dispatch" / "combine"
+#: all-to-alls (forward and backward each count one)
+moe_moves = {"logits": 0, "dispatch": 0, "combine": 0}
 
 # torch 2.13 renames the two tensor-list-free collectives (*_single) and warns
 # on the old names, which older releases have alone
@@ -63,6 +70,8 @@ warnings.filterwarnings("ignore", message=r".*(all_gather_into_tensor|reduce_sca
 def reset_counts() -> None:
     global host_staged, issued, regathered, p2p
     host_staged = issued = regathered = p2p = 0
+    for k in moe_moves:
+        moe_moves[k] = 0
 
 
 def _run(fn, out: torch.Tensor, inp: torch.Tensor, group: Group) -> torch.Tensor:
@@ -154,6 +163,52 @@ def all_to_all(t: torch.Tensor, group: Optional[Group], split_dim: int,
     if group is None or group.size == 1:
         return t
     return _AllToAll.apply(t, group, split_dim, cat_dim)
+
+
+class _MoEMove(torch.autograd.Function):
+    """Chunk j of the rows to EP member j and back: its own transpose, so
+    the backward is the same move on the gradient (counted under the same
+    kind)."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.args = (group, kind)
+        moe_moves[kind] += 1
+        return _all_to_all(x, group, 0, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, kind = ctx.args
+        moe_moves[kind] += 1
+        return _all_to_all(g.contiguous(), group, 0, 0), None, None
+
+
+def moe_dispatch(rows: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """An MoE layer's tokens to the EP members holding their experts: the
+    (ep·T, h) rows, chunk j sent to member j; chunk q of the result came
+    from member q. Differentiable."""
+    if group is None or group.size == 1:
+        return rows
+    return _MoEMove.apply(rows, group, "dispatch")
+
+
+def moe_combine(rows: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """The experts' outputs back to the ranks their tokens came from (the
+    reverse of :func:`moe_dispatch`). Differentiable."""
+    if group is None or group.size == 1:
+        return rows
+    return _MoEMove.apply(rows, group, "combine")
+
+
+def gather_logits(logits: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """The router logits of every member of an MoE layer's token group,
+    concatenated in group order; no gradient (the routing choice has none,
+    and each rank's gate uses its own logits)."""
+    if group is None or group.size == 1:
+        return logits.detach()
+    moe_moves["logits"] += 1
+    with torch.no_grad():
+        return all_gather(logits.detach().contiguous(), group, 0)
 
 
 # ---------------------------------------------------------------------------

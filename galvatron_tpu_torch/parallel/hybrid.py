@@ -32,6 +32,13 @@ insert the collectives, this runtime issues them (``parallel/comm.py``):
   SP as well the layer gathers its CP block over the TP group at entry and
   runs its TP region without SP (GSPMD picks that collective in the
   reference);
+- an MoE layer (``models/moe.py``) routes over its whole micro-batch: the
+  router logits are gathered over its token group (its DP and CP axes), and
+  under ``ep > 1`` its experts are split over the EP axes and its tokens
+  moved to them and back by all-to-all. An expert leaf is replicated over
+  the DP axes outside the EP axes (its replica group), where ZeRO shards it
+  and its gradient is summed; the router's gradient, partial in each TP
+  rank's share of the experts' columns, is summed over the TP group;
 - micro-batches (``chunks``) accumulate in sum form: the global token mean
   divides by the token count of the whole batch.
 
@@ -72,6 +79,7 @@ import os
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -86,6 +94,7 @@ from galvatron_tpu_torch.core.strategy import HybridParallelConfig, LayerStrateg
 from galvatron_tpu_torch.device import resolve_device
 from galvatron_tpu_torch.models import modeling
 from galvatron_tpu_torch.models.modeling import ModelConfig
+from galvatron_tpu_torch.models.moe import MoEContext
 from galvatron_tpu_torch.parallel import comm, pipeline, ring, ulysses
 from galvatron_tpu_torch.parallel.mesh import Group, ProcessGroups, RankMesh, batch_spec
 from galvatron_tpu_torch.parallel.pipeline_1f1b import pipedream_schedule
@@ -118,13 +127,19 @@ def refuse_unported(hp: HybridParallelConfig) -> None:
             "grad_overlap (per-layer ZeRO gradient buckets) is not ported yet: the rest of "
             "ROADMAP.md §1.6")
     for i, s in enumerate(hp.layer_strategies):
-        if s.ep > 1:
-            raise NotImplementedError(
-                f"layer {i}: expert parallelism (ep={s.ep}) is not ported yet: ROADMAP.md §1.9")
         if s.tp_overlap:
             raise NotImplementedError(
                 f"layer {i}: tp_overlap (collective matmul) is not ported yet: the rest of "
                 "ROADMAP.md §1.6")
+
+
+def check_ep(cfg: ModelConfig, hp: HybridParallelConfig) -> None:
+    """An ep > 1 layer needs an MoE model whose experts split over ep (the
+    plan checker's GTA014, raised here for a plan built in code)."""
+    for i, s in enumerate(hp.layer_strategies):
+        if s.ep > 1 and (cfg.moe_experts == 0 or cfg.moe_experts % s.ep):
+            raise ValueError(f"layer {i}: ep={s.ep} but the model has {cfg.moe_experts} experts"
+                             + ("" if cfg.moe_experts else " (dense MLP)"))
 
 
 def check_cp(cfg: ModelConfig, hp: HybridParallelConfig, seq_len: int) -> None:
@@ -165,7 +180,10 @@ class LeafPlan:
     """Where one parameter lives: its full shape and annotation, the
     layouts of the parameter and of its optimizer state, the stacked
     projections on its TP dim, the dtype a zero3 gather produces, and (once
-    groups exist) its TP, DP and CP groups."""
+    groups exist) its TP, DP and CP groups. An expert leaf's DP group is
+    its replica group (the DP axes outside the EP axes); ``partial_tp``
+    marks a replicated leaf whose gradient each TP rank computes only in
+    part (the MoE router)."""
 
     shape: tuple
     annot: tuple
@@ -174,6 +192,7 @@ class LeafPlan:
     opt_layout: Layout
     pairs: tuple
     gather_dtype: torch.dtype
+    partial_tp: bool = False
     tp_group: Optional[Group] = None
     dp_group: Optional[Group] = None
     cp_group: Optional[Group] = None
@@ -199,8 +218,10 @@ class LeafPlan:
     def tp_sum(self) -> bool:
         """Its gradient is summed over the TP group: replicated there, and
         computed on a sequence shard (a CP layer runs its TP region without
-        SP)."""
+        SP), or in part on every rank (``partial_tp``)."""
         s = self.strategy
+        if s.tp > 1 and self.partial_tp:
+            return True
         return s.sp and s.tp > 1 and s.cp == 1 and self.tp_dim is None
 
     def counts_in_norm(self) -> bool:
@@ -245,6 +266,9 @@ def model_leaf_plans(cfg: ModelConfig, hp: HybridParallelConfig, mesh: RankMesh,
                 zip_map(lambda sh, a, n, s=hp.layer_strategies[i]: _leaf_plan(sh, a, s, n, cfg, mesh),
                          shapes[key][i], annots[key][i])
                 for i in range(len(shapes[key]))]
+            if cfg.moe_experts > 0:
+                for lp in out[key]:
+                    lp["mlp"]["router"]["w"].partial_tp = True
         else:
             out[key] = zip_map(lambda sh, a, n: _leaf_plan(sh, a, es, n, cfg, mesh),
                                 shapes[key], annots[key])
@@ -447,6 +471,7 @@ def build_runtime(
     device = resolve_device(device)
     if hp is not None:
         check_cp(cfg, hp, seq_len)
+        check_ep(cfg, hp)
     modeling.check_supported(cfg)
     if hp is None:
         mixed_precision = mixed_precision or "bf16"
@@ -509,6 +534,9 @@ def build_runtime(
     axes_list = [mesh.axes.data_axes]
     for s in strategies + [es]:
         axes_list += [mesh.tp_axes(s), mesh.dp_axes(s), mesh.cp_axes(s)]
+    if cfg.moe_experts > 0:
+        for s in strategies:
+            axes_list += [mesh.ep_axes(s), mesh.replica_axes(s), mesh.token_axes(s)]
     if pp > 1:
         axes_list += [(mesh.axes.pp,), mesh.world_axes]
     # the tied table's two copies: one group per in-stage index, made once
@@ -523,7 +551,8 @@ def build_runtime(
     plans = pipeline.held_tree(all_plans, layer_ids, first, last, tied)
     for lp in tree_leaves(plans):
         lp.tp_group = groups.get(mesh.tp_axes(lp.strategy))
-        lp.dp_group = groups.get(mesh.dp_axes(lp.strategy))
+        lp.dp_group = groups.get(mesh.replica_axes(lp.strategy) if "ep" in lp.annot
+                                 else mesh.dp_axes(lp.strategy))
         lp.cp_group = groups.get(mesh.cp_axes(lp.strategy))
     leaf_plans = tree_leaves(plans)
     # a tied table's two copies (stage 0's and the last stage's) are summed;
@@ -549,6 +578,20 @@ def build_runtime(
     vocab = comm.TPRegion(groups.get(mesh.tp_axes(es)), es.sp) if es.tp > 1 else None
     embed_dp = groups.get(mesh.dp_axes(es))
 
+    @functools.lru_cache(maxsize=None)
+    def moe_ctx(i: int, rows: int):
+        """Layer i's MoE groups on a micro-batch of ``rows`` global rows
+        (None when its tokens are all on this rank and it has no EP)."""
+        s = strategies[i]
+        tokens = groups.get(mesh.token_axes(s))
+        if cfg.moe_experts == 0 or (tokens.size == 1 and s.ep == 1):
+            return None
+        order = lambda ranks: torch.from_numpy(np.stack(  # noqa: E731
+            [mesh.token_order(q, s, rows, seq_len) for q in ranks])).to(device)
+        ep = groups.get(mesh.ep_axes(s)) if s.ep > 1 else None
+        return MoEContext(tokens, order(tokens.ranks), ep,
+                          order(ep.ranks) if ep is not None else None)
+
     def materialize(tree, tree_plans, regather=None):
         """zero3 leaves gathered (in the dtype they are used in), the rest
         as they are."""
@@ -569,6 +612,9 @@ def build_runtime(
         x = comm.redistribute(x, mesh, rank, stage_group,
                               layouts[i - 1] if i else embed_layout, layouts[i])
         lplans = all_plans["layers"][i]
+        if cfg.moe_experts > 0:
+            ctx = moe_ctx(i, x.shape[0] << len(layouts[i][0]))
+            layer_cfg = layer_cfg.replace(moe_ctx=ctx) if ctx is not None else layer_cfg
 
         def run(x_, regather=None):
             p = materialize(lp, lplans, regather)

@@ -68,6 +68,12 @@ class MeshAxes:
             raise ValueError(f"cp={cp} exceeds remaining mesh extent")
         return tuple(rest[-k:])
 
+    def ep_axes(self, tp: int, consec: bool = True, ep: int = 1) -> Axes:
+        """Expert-parallel axes of an MoE layer: the minor axes of the
+        non-TP block, as for CP (EP subdivides data parallelism; a strategy
+        never uses both)."""
+        return self.cp_axes(tp, consec, ep)
+
 
 def build_axes(world: int, axis_prefix: str = "x") -> MeshAxes:
     """The binary axes of ``world`` ranks (a power of two): a pp=1 world, or
@@ -88,6 +94,15 @@ def batch_spec(axes: MeshAxes, s: LayerStrategy) -> Tuple[Axes, Axes]:
     dp = axes.dp_axes(s.tp, s.tp_consec, s.cp)
     seq = axes.tp_axes(s.tp, s.tp_consec) if s.sp else ()
     return dp, seq + axes.cp_axes(s.tp, s.tp_consec, s.cp)
+
+
+def moe_token_axes(axes: MeshAxes, s: LayerStrategy) -> Axes:
+    """Axes sharding the flattened (B·S) token dim of an MoE layer's input:
+    the batch axes, then the sequence axes (the reference's). Inside a TP
+    region the sequence is whole again: there the tokens differ over the DP
+    and CP axes only (:meth:`RankMesh.token_axes`)."""
+    dp, seq = batch_spec(axes, s)
+    return dp + seq
 
 
 class RankMesh:
@@ -156,6 +171,32 @@ class RankMesh:
 
     def cp_axes(self, s: LayerStrategy) -> Axes:
         return self.axes.cp_axes(s.tp, s.tp_consec, s.cp)
+
+    def ep_axes(self, s: LayerStrategy) -> Axes:
+        return self.axes.ep_axes(s.tp, s.tp_consec, s.ep)
+
+    def replica_axes(self, s: LayerStrategy) -> Axes:
+        """The DP axes outside the EP axes: ranks holding the same experts."""
+        ep = set(self.ep_axes(s))
+        return tuple(a for a in self.dp_axes(s) if a not in ep)
+
+    def token_axes(self, s: LayerStrategy) -> Axes:
+        """The axes over which an MoE layer's tokens differ inside its TP
+        region: :func:`moe_token_axes` without the SP axes (the sequence is
+        gathered there), i.e. its DP axes, then its CP axes."""
+        tp = set(self.tp_axes(s))
+        return tuple(a for a in moe_token_axes(self.axes, s) if a not in tp)
+
+    def token_order(self, rank: int, s: LayerStrategy, rows: int, seq: int):
+        """The global token indices (row-major over a ``rows`` x ``seq``
+        micro-batch) that ``rank`` holds inside the TP region of a layer
+        under ``s``, in its local (row, position) order."""
+        import numpy as np
+
+        r = self.batch_rows(rank, s, rows)
+        cp = self.cp_axes(s)
+        q = _part(seq, self.index(rank, cp), 2 ** len(cp), "sequence")
+        return (np.arange(rows)[r][:, None] * seq + np.arange(seq)[q][None]).reshape(-1)
 
     def batch_rows(self, rank: int, s: LayerStrategy, rows: int) -> slice:
         """The rows of a ``rows``-row batch that ``rank`` holds under ``s``:

@@ -2,13 +2,16 @@
 port's counterpart of ``param_spec`` in ``galvatron_tpu/parallel/sharding.py``).
 
 Parameters carry a logical-axes annotation per dimension, drawn from
-{"tp", "fsdp", None} (``modeling.model_annotations``). Under a layer
+{"tp", "fsdp", "ep", None} (``modeling.model_annotations``). Under a layer
 strategy:
 
 - a ``"tp"`` dimension is split over the layer's TP axes (Megatron
   column-parallel output / row-parallel input);
+- an ``"ep"`` dimension (an MoE layer's experts) is split over its EP axes;
 - the first ``"fsdp"`` dimension that divides is split over the layer's DP
-  axes, for zero3 parameters and for zero2 / zero3 optimizer state;
+  axes, for zero3 parameters and for zero2 / zero3 optimizer state; for a
+  leaf with an ``"ep"`` dimension, over the DP axes outside the EP axes
+  (each EP group holds its own experts);
 - a dimension that does not divide stays replicated, as in the reference.
 
 :func:`param_layout` gives the axes of each dimension (the entries of the
@@ -37,17 +40,21 @@ Layout = Tuple[Optional[Axes], ...]
 def param_layout(shape: Sequence[int], annot: Annotation, axes: MeshAxes, s: LayerStrategy,
                  *, for_opt_state: bool = False) -> Layout:
     """Per dimension, the axes it is split over (None: replicated): the
-    reference's ``param_spec`` rules at pp=1 without expert parallelism."""
+    reference's ``param_spec`` rules (within one pipeline stage)."""
     if len(shape) != len(annot):
         raise ValueError(f"shape {tuple(shape)} vs annotation {annot} rank mismatch")
     tp_ax = axes.tp_axes(s.tp, s.tp_consec)
+    ep_ax = axes.ep_axes(s.tp, s.tp_consec, s.ep) if "ep" in annot else ()
     zero = s.dp_type == "zero3" or (for_opt_state and s.dp_type == "zero2")
     dp_ax = axes.dp_axes(s.tp, s.tp_consec, s.cp) if zero else ()
+    dp_ax = tuple(a for a in dp_ax if a not in set(ep_ax))
     entries: List[Optional[Axes]] = []
     fsdp_used = False
     for dim, tag in zip(shape, annot):
         if tag == "tp" and tp_ax and dim % (2 ** len(tp_ax)) == 0:
             entries.append(tp_ax)
+        elif tag == "ep" and ep_ax and dim % (2 ** len(ep_ax)) == 0:
+            entries.append(ep_ax)
         elif tag == "fsdp" and dp_ax and not fsdp_used and dim % (2 ** len(dp_ax)) == 0:
             entries.append(dp_ax)
             fsdp_used = True

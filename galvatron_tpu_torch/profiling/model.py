@@ -22,7 +22,7 @@ package, and the JSONs have its schema.
 The profile runs in one process on one device: the per-tp activation curve
 is the analytic 1/tp of the JAX package on a one-device host, and the
 vocab-parallel fit covers vocab_tp = 1. Encoder-decoder and Swin profiles
-(ROADMAP.md §1.10) and the MoE expert-time fit (§1.9) are not ported.
+(ROADMAP.md §1.10) are not ported.
 """
 
 from __future__ import annotations
@@ -39,7 +39,11 @@ from galvatron_tpu_torch.device import resolve_device
 from galvatron_tpu_torch.models import modeling
 from galvatron_tpu_torch.models.modeling import ModelConfig
 from galvatron_tpu_torch.search.cost_model import ProfiledLayerType, ProfiledModelCosts
-from galvatron_tpu_torch.search.theoretical import layer_param_count, other_param_count
+from galvatron_tpu_torch.search.theoretical import (
+    layer_param_count,
+    moe_expert_params,
+    other_param_count,
+)
 
 
 def _world() -> int:
@@ -207,6 +211,30 @@ def _free(device: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
+def _expert_time_fraction(cfg: ModelConfig, bsz: int, seq: int, l1: int, l2: int,
+                          fwd_ms: float, device: torch.device) -> Optional[float]:
+    """The MEASURED share of an MoE layer's time that expert parallelism
+    splits: a two-point fit of the marginal layer time over the expert FFN
+    width, t(f) = a + b·f, share b·f / t (the intercept a is the routing,
+    sinkhorn and dispatch, which do not split by ep). A degenerate fit (no
+    positive slope) or a failed run leaves None: the search then prices EP
+    by the parameter fraction (the reference's fallback)."""
+    try:
+        f1 = cfg.ffn
+        f2 = max(256, (f1 // 4 + 255) // 256 * 256)
+        if f2 >= f1:
+            return None
+        small = cfg.replace(ffn_dim=f2)
+        ts1 = _iter_time_ms(small.replace(num_layers=l1), bsz, seq, device)
+        ts2 = _iter_time_ms(small.replace(num_layers=l2), bsz, seq, device)
+        _free(device)
+        fwd_small = max(1e-4, (ts2 - ts1) / (l2 - l1) / bsz / 3.0)
+        slope = (fwd_ms - fwd_small) / (f1 - f2)
+        return float(min(slope * f1 / fwd_ms, 0.99)) if slope > 0 else None
+    except Exception:  # noqa: BLE001 — the reference's fallback to the proxy
+        return None
+
+
 def profile_model(
     cfg: ModelConfig,
     bsz: int = 8,
@@ -221,10 +249,9 @@ def profile_model(
     ``out_prefix``. ``layernums=None`` picks (L//2, L) capped at
     ``_PROFILE_MAX_LAYERS``; a CUDA out-of-memory error at the adaptive
     counts halves them (printed) — the only error caught. Explicit
-    ``layernums`` are never changed."""
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "MoE profiles (the expert-time fit) are not ported yet: ROADMAP.md §1.9")
+    ``layernums`` are never changed. An MoE model also gets its expert-time
+    fraction (:func:`_expert_time_fraction`) and the expert-parameter
+    fraction and all-to-all volume the search prices EP with."""
     if cfg.enc_layers > 0 or cfg.swin_depths or cfg.image_size:
         raise NotImplementedError(
             "encoder-decoder and vision profiles are not ported yet: ROADMAP.md §1.10")
@@ -276,6 +303,8 @@ def profile_model(
         other_ms = max(0.0, (t1 - fwd_ms * 3.0 * bsz * l1) / bsz / 3.0)
     else:
         fwd_ms, other_ms = 1.0, 0.1
+    moe_tfrac = (_expert_time_fraction(cfg, bsz, seq, l1, l2, fwd_ms, device)
+                 if measure_time and cfg.moe_experts > 0 else None)
     b1, b2 = b_cache[l1], b_cache[l2]
     act_mb = (b2 - b1) / (l2 - l1) / bsz / 1e6 if b2 > b1 else _act_fallback_mb(cfg, seq)
     act_curve = {1: float(act_mb)}
@@ -283,14 +312,24 @@ def profile_model(
         act_curve[t] = float(act_mb / t)
     print(f"profile: layer counts ({l1}, {l2}) on {device}; activation measure: "
           f"{act_measure(device)}", flush=True)
+    p_layer = layer_param_count(cfg)
+    # MoE: the expert-stack parameter fraction and the dispatch + combine
+    # volume (bf16, each way): structural facts the measurement cannot see
+    moe_frac, moe_a2a = 0.0, 0.0
+    if cfg.moe_experts > 0:
+        moe_frac = moe_expert_params(cfg) / p_layer
+        moe_a2a = 2.0 * seq * cfg.hidden_size * 2 / 1e6
 
     costs = ProfiledModelCosts(
         layer_types={
             0: ProfiledLayerType(
                 fwd_ms_per_sample=float(fwd_ms),
-                parameter_mb=float(layer_param_count(cfg) * 4 / 1e6),
+                parameter_mb=float(p_layer * 4 / 1e6),
                 activation_mb_per_sample=act_curve,
                 boundary_activation_mb_per_sample=float(seq * cfg.hidden_size * 2 / 1e6),
+                moe_expert_param_fraction=float(moe_frac),
+                moe_a2a_mb_per_sample=float(moe_a2a),
+                moe_expert_time_fraction=moe_tfrac,
             )
         },
         other_param_mb=float(other_param_count(cfg) * 4 / 1e6),

@@ -75,8 +75,7 @@ class ProfiledLayerType:
     moe_a2a_mb_per_sample: float = 0.0
     # MEASURED share of the switch layer's fwd time that scales with ep
     # (the expert GEMMs; routing/sinkhorn/dispatch einsums do NOT shard by
-    # ep). None → fall back to the param-fraction proxy (the port's profiler
-    # does not fit it yet: ROADMAP.md §1.9).
+    # ep). None → fall back to the param-fraction proxy.
     moe_expert_time_fraction: Optional[float] = None
 
     def __post_init__(self):

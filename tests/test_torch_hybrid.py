@@ -363,7 +363,9 @@ def _tcfg(**kw):
 
 
 #: fp16 itself runs (tests/test_torch_fp16.py); with fused_norm it is
-#: ROADMAP §1.1's remainder
+#: ROADMAP §1.1's remainder. Expert parallelism (§1.9) runs on MoE models
+#: (tests/test_torch_moe.py); its case holds the reference's refusal of ep on
+#: a dense model.
 UNPORTED = [("ep", dict(ep=2), "§1.9"),
             ("tp_overlap", dict(tp_overlap=True), "§1.6"),
             ("grad_overlap", dict(grad_overlap=True), "§1.6"),
@@ -383,6 +385,10 @@ def test_unported_plan_features_raise_naming_their_item(what, change, item, pp):
         pp=pp, chunks=2, layer_strategies=[ts.LayerStrategy(**layer)] * 4,
         **{k: v for k, v in change.items() if k not in layer})
     cfg = _tcfg(fused_norm=True) if what == "fp16" else _tcfg()
+    if what == "ep":
+        with pytest.raises(ValueError, match=r"ep=2 but the model has 0 experts \(dense MLP\)"):
+            hybrid.build_runtime(cfg, hp, global_batch_size=BATCH, seq_len=SEQ, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=item):
         hybrid.build_runtime(cfg, hp, global_batch_size=BATCH, seq_len=SEQ, device="cpu")
 

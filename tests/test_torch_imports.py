@@ -83,19 +83,21 @@ SERVICES_MODULES = ("galvatron_tpu_torch.core.retry", "galvatron_tpu_torch.core.
 SERVING_MODULES = ("galvatron_tpu_torch.models.generation", "galvatron_tpu_torch.serving.kv_slots",
                    "galvatron_tpu_torch.serving.paged_kv", "galvatron_tpu_torch.serving.engine",
                    "galvatron_tpu_torch.server", "galvatron_tpu_torch.cli")
+#: the mixture-of-experts slice's module (the rest of it is in the runtime's)
+MOE_MODULES = ("galvatron_tpu_torch.models.moe",)
 SCANNED = sorted([str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
                  + ["chip_smoke.py", "experiments/torch_decode_profile.py"])
 
 
 def test_the_scan_covers_the_parallel_modules():
     for m in PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES + SERVING_MODULES + (
-            "galvatron_tpu_torch.data",):
+            MOE_MODULES + ("galvatron_tpu_torch.data",)):
         assert m.replace(".", "/") + ".py" in SCANNED or \
             m.replace(".", "/") + "/__init__.py" in SCANNED
 
 
 @pytest.mark.parametrize("module", PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES
-                         + SERVING_MODULES)
+                         + SERVING_MODULES + MOE_MODULES)
 def test_parallel_module_alone_loads_no_jax(module):
     """Each module of the hybrid runtime, the search, the training services
     and generation / serving, imported first and alone in a fresh

@@ -95,14 +95,14 @@ def test_init_matches_jax_shapes_and_distributions(layout):
 ])
 def test_unported_families_raise_naming_the_roadmap(field, value):
     """What the port does not run raises naming ROADMAP §1.10: training and
-    serving refuse ALiBi, MoE, encoders and non-clm objectives; the GPT/OPT
+    serving refuse ALiBi, encoders and non-clm objectives; the GPT/OPT
     pieces training runs (learned positions, layernorm, gelu, biases, tied
-    head) the serving engine takes too."""
+    head) and switch-MoE MLPs the serving engine takes too."""
     from galvatron_tpu_torch.serving import Engine
 
     _, tcfg = _cfgs(None)
     cfg = tcfg.replace(**{field: value})
-    if field in ("moe_experts", "causal", "objective") or value == "alibi":
+    if field in ("causal", "objective") or value == "alibi":
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
             tm.init_model_params(cfg, 0, "cpu")
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
