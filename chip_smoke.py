@@ -268,6 +268,34 @@ its result line:
    in its place, phase 6's prompts sent one at a time to both and held by
    the MoE margin rule (``MARGIN_TOL``, routing near-ties included).
 
+19. packed sequences (phase name ``packed``), llama-7b width at 2 layers, bf16,
+   ``fused_norm=True``, the einsum attention (the flash kernels carry no
+   segment mask): (a) one step of trivially packed rows (8 x 2048, one
+   full-row document a row) against one step of the same tokens unpacked,
+   from the same weights: loss and updated parameters equal to the last bit
+   (a launch that parts them is named, and the step held to 1e-6 relative
+   instead), the RMSNorm kernels (2 x 2 + 1) each and no flash launch; one
+   profiled packed step gives the attention's share of the device time;
+   (b) ``cli train --pack_sequences 1`` (``trainer.train`` for the field)
+   on a seeded corpus of documents of 100-1100 tokens packed into 2048-token
+   rows, batch 8, 6 steps: the loss falls, iter_ms, non-pad and raw
+   tokens/s, packing efficiency, peak memory and the norm launches; the same
+   first step with the segment mask dropped must give another loss.
+20. the overlap plan fields (phase name ``overlap``): ``cli search
+   --enable_tp_overlap 1`` for two devices at llama-7b width, 2 layers,
+   batch 4 x 2048 (analytic costs), which must emit a tp 2 + SP + tp_overlap
+   layer; then two ranks sharing card 0 over gloo, one pair of processes
+   running one after another: (a) fp32 at h 1024, 2 layers, batch 4 x 512,
+   2 steps, tp 2 + SP with ``--global_tp_overlap`` on and off (losses
+   within 1e-6 relative, ring hops only when on) and dp 2 zero2 with
+   ``--grad_overlap`` on and off (losses equal to the last bit, both layers'
+   buckets issued by the backward); (b) / (c) the searched plan in bf16, 2
+   steps, and the same plan with tp_overlap off: losses within 1e-4
+   relative, each rank's blocked flash kernels 2 x 2 at 16 heads on the TMA
+   route; iter_ms on and off (a gloo transport figure). 20b (phase name
+   ``nccl``): the searched plan over NCCL on cards 0 and 1, on / off / on, 6
+   steps each, where the machine has two; otherwise reported absent.
+
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
 measured to PATH as JSON.
@@ -4174,6 +4202,350 @@ def phase_moe(torch, smi):
     return train_launches, serve_launches
 
 
+# ---------------------------------------------------------------------------
+# 19: packed sequences; 20: the TP / gradient overlap plan fields
+# ---------------------------------------------------------------------------
+
+PACKED = dict(layers=2, batch=8, seq=2048)  # llama-7b width
+PACKED_STEPS = 6
+# (b)'s corpus: document lengths uniform on [100, 1100] (mean 600), token ids
+# Zipf-distributed over the first PACKED_DRAW ids, so the loss can fall in 6 steps
+PACKED_DOC_LENGTHS = (100, 1101)
+PACKED_DRAW = 4096
+PACKED_DOCS = 240
+# (a): the packed step against the unpacked one, same weights and batch:
+# equal to the last bit expected; a launch that parts them is named and the
+# step held to this relative difference instead
+PACKED_RTOL = 1e-6
+# the einsum attention's backward autograd nodes (its forward runs under the
+# "packed.attention" profiler range)
+PACKED_ATTN_NODES = ("BmmBackward0", "SoftmaxBackward0", "MaskedFillBackward0")
+OVERLAP_STEPS = 2
+# (a): fp32 at h 1024 (llama-0.3b width), 2 layers, batch 4 x 512
+OVERLAP_FP32 = ("--model_size", "llama-0.3b", "--num_layers", "2", "--global_train_batch_size",
+                "4", "--seq_length", "512", "--mixed_precision", "fp32")
+OVERLAP_FP32_RTOL = 1e-6
+# (b) / (c): bf16 at llama-7b width, 2 layers, batch 4 x 2048 (the model's
+# flags, which search takes too, and the batch)
+OVERLAP_BF16 = ("--model_size", "llama-7b", "--num_layers", "2", "--seq_length", "2048")
+OVERLAP_BF16_BATCH = 4
+OVERLAP_BF16_RTOL = 1e-4
+# 20b: the searched plan over NCCL on two cards, on / off / on, this many steps each
+OVERLAP_NCCL_STEPS = 6
+
+
+def _packed_corpus(tmpdir, vocab):
+    """(b)'s seeded corpus, written with the port's ``write_indexed_dataset``."""
+    import numpy as np
+
+    from galvatron_tpu_torch.core.data import write_indexed_dataset
+
+    rng = np.random.RandomState(19)
+    docs = [np.minimum(rng.zipf(1.2, rng.randint(*PACKED_DOC_LENGTHS)), PACKED_DRAW) - 1
+            for _ in range(PACKED_DOCS)]
+    prefix = os.path.join(tmpdir, "packed_corpus")
+    write_indexed_dataset(prefix, docs, vocab)
+    return prefix, [len(d) for d in docs]
+
+
+def phase_packed_parity(torch, smi):
+    """19 (a): one step of the packed runtime on trivially packed rows (one
+    full-row document a row) against one step of the unpacked runtime on the
+    same tokens, from the same weights: loss and updated parameters equal
+    (or, where a launch parts them, named and within ``PACKED_RTOL``); then
+    one profiled packed step: how much of it the einsum attention takes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from galvatron_tpu_torch.core.optim import tree_leaves
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.parallel.hybrid import build_runtime
+
+    a = PACKED
+    cfg = modeling.PRESETS["llama-7b"].replace(num_layers=a["layers"], fused_norm=True,
+                                               attn_impl="xla")
+    g = torch.Generator(device="cuda").manual_seed(19)
+    tokens = torch.randint(0, cfg.vocab_size, (a["batch"], a["seq"] + 1), generator=g,
+                           device="cuda")
+    packed = torch.cat([tokens, torch.ones_like(tokens)], dim=1)
+    t0 = time.perf_counter()
+    runs = {}
+    for name, c, batch in (("unpacked", cfg, tokens),
+                           ("packed", cfg.replace(pack_sequences=True), packed)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rt = build_runtime(c, global_batch_size=a["batch"], seq_len=a["seq"],
+                           mixed_precision="bf16", device="cuda")
+        state = rt.init_state(1234)
+        reset_kernel_counts()
+        state, loss = rt.train_step(state, batch)
+        torch.cuda.synchronize()
+        runs[name] = {"loss": float(loss), "launches": kernel_counts(),
+                      "params": [p.detach().clone() for p in tree_leaves(state["params"])],
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if name == "packed":
+            real = modeling.attention
+
+            def ranged(*args, **kw):
+                with torch.profiler.record_function("packed.attention"):
+                    return real(*args, **kw)
+
+            state, _ = rt.train_step(state, batch)  # one more warm step
+            torch.cuda.synchronize()
+            modeling.attention = ranged
+            try:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    state, _ = rt.train_step(state, batch)
+                    torch.cuda.synchronize()
+            finally:
+                modeling.attention = real
+            attn_us = 0.0
+            for e in prof.events():
+                node = e.name.split("evaluate_function: ")[-1]
+                if e.name == "packed.attention" or (
+                        "evaluate_function: " in e.name and node in PACKED_ATTN_NODES):
+                    dev = getattr(e, "device_time_total", None)
+                    attn_us += e.cuda_time_total if dev is None else dev
+            busy_us = _union_us(_kernel_intervals(prof))
+            runs[name]["profile"] = {"device_busy_ms": busy_us / 1e3,
+                                     "attention_ms": attn_us / 1e3,
+                                     "attention_share": attn_us / busy_us if busy_us else None}
+        del state, rt
+    u, p = runs["unpacked"], runs["packed"]
+    parted = [i for i, (x, y) in enumerate(zip(u["params"], p["params"])) if not torch.equal(x, y)]
+    worst = max((float(((x - y).abs().max() / y.abs().max().clamp_min(1e-30)))
+                 for x, y in zip(u["params"], p["params"])), default=0.0)
+    res = {"card": smi, **a, "dtype": "bfloat16", "fused_norm": True, "attn_impl": "xla",
+           "loss_unpacked": u["loss"], "loss_packed": p["loss"],
+           "bit_equal": u["loss"] == p["loss"] and not parted, "parted_leaves": parted,
+           "param_max_rel_diff": worst, "launches": p["launches"],
+           "launches_unpacked": u["launches"], "peak_gb": p["peak_gb"],
+           "profile": p["profile"], "seconds": time.perf_counter() - t0}
+    for r in runs.values():
+        r.pop("params")
+    log("phase 19 (a) packed against unpacked:", json.dumps(res))
+    RESULTS["packed_parity"] = res
+    want = path_counts("llama", a["layers"], 1, True)
+    want.update(flash_fwd=0, flash_bwd=0)  # the einsum attention: no flash launch
+    check(p["launches"] == want and u["launches"] == want,
+          f"19 (a): launches {p['launches']} / {u['launches']}, expected {want}")
+    if not res["bit_equal"]:
+        # not equal to the last bit: the leaves that parted are named above
+        check(_rel(p["loss"], u["loss"]) <= PACKED_RTOL and worst <= PACKED_RTOL,
+              f"19 (a): packed {p['loss']} vs unpacked {u['loss']}, parameters {worst} "
+              f"(leaves {parted})")
+
+
+def phase_packed_train(torch, smi, tmpdir):
+    """19 (b): ``cli train --pack_sequences 1`` on a seeded corpus (through
+    ``trainer.train`` for ``fused_norm=True``), 6 steps: the loss falls;
+    then the same first step with the segment mask dropped must give another
+    loss. Returns the run's launches."""
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron, model_config_from_args
+    from galvatron_tpu_torch.models import modeling
+
+    a = PACKED
+    prefix, lengths = _packed_corpus(tmpdir, modeling.PRESETS["llama-7b"].vocab_size)
+    path = os.path.join(tmpdir, "packed_metrics.jsonl")
+    argv = ["--model_size", "llama-7b", "--num_layers", str(a["layers"]), "--train_iters",
+            str(PACKED_STEPS), "--data_path", prefix, "--pack_sequences", "1",
+            "--global_train_batch_size", str(a["batch"]), "--metrics_path", path]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ns = initialize_galvatron("train", argv)
+    reset_kernel_counts()  # the main path's counts start here
+    out = trainer.train(ns, cfg=model_config_from_args(ns).replace(fused_norm=True))
+    launches = kernel_counts()  # read right after the main path
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del out
+    losses, recs = _train_losses(path)
+    # the control: the same first step with the segment mask dropped
+    real = modeling.attention_xla
+
+    def unmasked(q, k, v, cfg, q_offset, seg_ids=None):
+        return real(q, k, v, cfg, q_offset)
+
+    modeling.attention_xla = unmasked
+    try:
+        cpath = os.path.join(tmpdir, "packed_control.jsonl")
+        cns = initialize_galvatron("train", [*argv[:4], "--train_iters", "1", *argv[6:-1],
+                                             cpath])
+        trainer.train(cns, cfg=model_config_from_args(cns).replace(fused_norm=True))
+    finally:
+        modeling.attention_xla = real
+    control = _train_losses(cpath)[0]
+    steady = recs[1:]
+    mean = lambda key: sum(r[key] for r in steady) / len(steady)  # noqa: E731
+    res = {"card": smi, **a, "steps": PACKED_STEPS, "docs": len(lengths),
+           "doc_tokens_mean": sum(lengths) / len(lengths), "losses": losses,
+           "control_first_loss": control[0], "iter_ms_mean_from_2": mean("iter_ms"),
+           "iter_ms": [r["iter_ms"] for r in recs], "tokens_per_s": mean("tokens_per_s"),
+           "tokens_per_s_raw": mean("tokens_per_s_raw"),
+           "packing_efficiency": [r["packing_efficiency"] for r in recs],
+           "mfu": mean("mfu"), "max_memory_allocated_gb": peak_gb, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    log("phase 19 (b) cli train --pack_sequences 1:", json.dumps(res))
+    RESULTS["packed_train"] = res
+    want = path_counts("llama", a["layers"], PACKED_STEPS, True)
+    want.update(flash_fwd=0, flash_bwd=0)
+    check(launches == want, f"19 (b): launches {launches}, expected {want}")
+    check(all(0.0 < e < 1.0 for e in res["packing_efficiency"]),
+          f"19 (b): packing efficiency {res['packing_efficiency']}")
+    check(losses[-1] < losses[0], f"19 (b): the loss did not fall: {losses}")
+    check(control[0] != losses[0],
+          f"19 (b): dropping the segment mask left the first loss at {losses[0]}")
+    return launches
+
+
+def phase_packed(torch, smi):
+    """Phase 19: (a), then (b); returns (b)'s launches."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_packed_") as tmpdir:
+        phase_packed_parity(torch, smi)
+        return phase_packed_train(torch, smi, tmpdir)
+
+
+def _overlap_off(src, dst):
+    """The plan ``src`` with every layer's tp_overlap off, at ``dst``."""
+    with open(src) as f:
+        plan = json.load(f)
+    plan["tp_overlap_flags"] = ",".join("0" for _ in plan["tp_overlap_flags"].split(","))
+    with open(dst, "w") as f:
+        json.dump(plan, f)
+
+
+def _overlap_plans(tmpdir):
+    """20 (c)'s search: ``cli search --enable_tp_overlap 1`` for two devices
+    at (b)'s shape (analytic costs) and ``check-plan``; the plan must run a
+    tp 2 + SP overlap layer. Returns (the plan, its overlap-off twin, the
+    plan's config)."""
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+
+    plan = os.path.join(tmpdir, "overlap_searched.json")
+    rc, _ = _cli(["search", *OVERLAP_BF16, "--num_devices", "2", "--settle_bsz",
+                  str(OVERLAP_BF16_BATCH), "--memory_constraint_gb", "40", "--enable_tp_overlap",
+                  "1", "--analytic_costs", "1", "--output_config_path", plan])
+    check(rc == 0, f"20 (c): cli search returned {rc}")
+    rc, _ = _cli(["check-plan", plan])
+    check(rc == 0, f"20 (c): check-plan returned {rc}")
+    hp = HybridParallelConfig.load(plan)
+    check(any(s_.tp_overlap and s_.tp == 2 and s_.sp for s_ in hp.layer_strategies),
+          f"20 (c): the searched plan runs no tp 2 + SP overlap layer: {hp.to_json_dict()}")
+    plan_off = os.path.join(tmpdir, "overlap_searched_off.json")
+    _overlap_off(plan, plan_off)
+    return plan, plan_off, hp
+
+
+def phase_overlap_nccl(torch, smi, tmpdir, plan, plan_off):
+    """20b: the searched plan over NCCL on cards 0 and 1, on, off, on
+    (``OVERLAP_NCCL_STEPS`` steps each, one pair of rank processes): losses
+    within ``OVERLAP_BF16_RTOL`` of off, ring hops only when on; iter_ms of
+    each (the overlap's worth: the hops run beside the GEMMs there)."""
+    t0 = time.perf_counter()
+    bf16 = [*OVERLAP_BF16, "--global_train_batch_size", str(OVERLAP_BF16_BATCH),
+            "--train_iters", str(OVERLAP_NCCL_STEPS)]
+    names = ("on", "off", "on_again")
+    argvs = [[*bf16, "--galvatron_config_path", plan_off if n == "off" else plan]
+             for n in names]
+    outdir = os.path.join(tmpdir, "overlap_nccl_ranks")
+    runs = dict(zip(names, _launch_rank_runs(argvs, outdir, "nccl", (0, 1))))
+    steady = lambda r: sum(r["iter_times"][1:]) / len(r["iter_times"][1:])  # noqa: E731
+    res = {"card": smi, "steps": OVERLAP_NCCL_STEPS, "cards": 2,
+           "losses": {n: rs[0]["losses"] for n, rs in runs.items()},
+           "iter_ms_from_2": {n: [steady(r) for r in rs] for n, rs in runs.items()},
+           "hops": {n: [r["hops"] for r in rs] for n, rs in runs.items()},
+           "peak_gb": {n: [r["max_memory_allocated_gb"] for r in rs] for n, rs in runs.items()},
+           "seconds": time.perf_counter() - t0}
+    log("phase 20b overlap over nccl on two cards:", json.dumps(res))
+    RESULTS["overlap_nccl"] = res
+    losses = res["losses"]
+    check(max(_rel(x, y) for x, y in zip(losses["on"], losses["off"])) <= OVERLAP_BF16_RTOL,
+          f"20b: tp_overlap {losses['on']} vs off {losses['off']}")
+    check(all((h > 0) == (n != "off") for n in names for h in res["hops"][n]),
+          f"20b: ring hops {res['hops']}")
+
+
+def phase_overlap(torch, smi, run_gloo=True, run_nccl=False):
+    """Phase 20 (gloo on card 0) and 20b (NCCL on cards 0 and 1): the
+    search of :func:`_overlap_plans`, then one pair of rank processes
+    sharing card 0 over gloo runs, one after another: (a) fp32 tp 2 + SP
+    with ``--global_tp_overlap`` on and off (losses within
+    ``OVERLAP_FP32_RTOL``), dp 2 zero2 with ``--grad_overlap`` on and off
+    (losses equal to the last bit, every bucket issued by the backward);
+    (b) / (c) the searched plan (tp 2 + SP + tp_overlap, bf16) and the same
+    plan with tp_overlap off (losses within ``OVERLAP_BF16_RTOL``, each
+    rank's blocked flash launches at 16 heads on the TMA route). Returns the
+    searched plan's rank-0 launches (None without the gloo runs)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_overlap_") as tmpdir:
+        t0 = time.perf_counter()
+        plan, plan_off, hp = _overlap_plans(tmpdir)
+        if run_nccl and torch.cuda.device_count() >= 2:
+            phase_overlap_nccl(torch, smi, tmpdir, plan, plan_off)
+        elif run_nccl:
+            log(f"phase 20b, overlap over nccl on two cards: absent "
+                f"({torch.cuda.device_count()} card)")
+            RESULTS["overlap_nccl"] = "absent: one card"
+        if not run_gloo:
+            return None
+        steps = ["--train_iters", str(OVERLAP_STEPS)]
+        tp = ["--global_tp_deg", "2", "--sequence_parallel", "1"]
+        z2 = ["--default_dp_type", "zero2"]
+        bf16 = [*OVERLAP_BF16, "--global_train_batch_size", str(OVERLAP_BF16_BATCH), *steps]
+        argvs = {"fp32_tp_overlap": [*OVERLAP_FP32, *steps, *tp, "--global_tp_overlap", "1"],
+                 "fp32_tp": [*OVERLAP_FP32, *steps, *tp],
+                 "fp32_zero2_grad_overlap": [*OVERLAP_FP32, *steps, *z2, "--grad_overlap", "1"],
+                 "fp32_zero2": [*OVERLAP_FP32, *steps, *z2],
+                 "bf16_searched": [*bf16, "--galvatron_config_path", plan],
+                 "bf16_searched_off": [*bf16, "--galvatron_config_path", plan_off]}
+        outdir = os.path.join(tmpdir, "overlap_ranks")
+        runs = dict(zip(argvs, _launch_rank_runs(list(argvs.values()), outdir, "gloo", (0, 0))))
+    losses = {n: rs[0]["losses"] for n, rs in runs.items()}
+    worst = lambda a_, b_: max(_rel(x, y) for x, y in zip(losses[a_], losses[b_]))  # noqa: E731
+    flash = {n: [r["launches"]["flash_fwd"] for r in rs] + [r["launches"]["flash_bwd"]
+                                                            for r in rs]
+             for n, rs in runs.items()}
+    steady = lambda r: sum(r["iter_times"][1:]) / len(r["iter_times"][1:])  # noqa: E731
+    res = {"card": smi, "steps": OVERLAP_STEPS, "plan": hp.to_json_dict(), "losses": losses,
+           "fp32_tp_rel_diff": worst("fp32_tp_overlap", "fp32_tp"),
+           "bf16_rel_diff": worst("bf16_searched", "bf16_searched_off"),
+           "hops": {n: [r["hops"] for r in rs] for n, rs in runs.items()},
+           "buckets": [r["stats"].get("buckets") for r in runs["fp32_zero2_grad_overlap"]],
+           "iter_ms_from_2": {n: [steady(r) for r in rs] for n, rs in runs.items()},
+           "flash_launches": flash, "heads": {n: rs[0]["heads"] for n, rs in runs.items()},
+           "host_staged": {n: [r["host_staged"] for r in rs] for n, rs in runs.items()},
+           "peak_gb": {n: [r["max_memory_allocated_gb"] for r in rs] for n, rs in runs.items()},
+           "seconds": time.perf_counter() - t0}
+    log("phase 20 overlap:", json.dumps(res))
+    RESULTS["overlap"] = res
+    for n, rs in runs.items():
+        check(all(r["losses"] == rs[0]["losses"] for r in rs), f"20: {n}: the ranks differ")
+    check(res["fp32_tp_rel_diff"] <= OVERLAP_FP32_RTOL,
+          f"20 (a): tp_overlap {losses['fp32_tp_overlap']} vs off {losses['fp32_tp']}")
+    check(losses["fp32_zero2_grad_overlap"] == losses["fp32_zero2"],
+          f"20 (a): grad_overlap {losses['fp32_zero2_grad_overlap']} vs off "
+          f"{losses['fp32_zero2']}")
+    check(all(b_ == {"backward": 2, "after": 0} for b_ in res["buckets"]),
+          f"20 (a): buckets {res['buckets']} (2 layers, each issued by the backward)")
+    check(res["bf16_rel_diff"] <= OVERLAP_BF16_RTOL,
+          f"20 (b): tp_overlap {losses['bf16_searched']} vs off {losses['bf16_searched_off']}")
+    for n in argvs:
+        on = n in ("fp32_tp_overlap", "bf16_searched")  # the runs with ring seams
+        check(all((h > 0) == on for h in res["hops"][n]), f"20: {n}: ring hops {res['hops'][n]}")
+    layers = int(OVERLAP_BF16[3])
+    for n in ("bf16_searched", "bf16_searched_off"):
+        for r in runs[n]:
+            want = layers * OVERLAP_STEPS
+            check(r["launches"]["flash_fwd"] == want and r["launches"]["flash_bwd"] == want
+                  and r["heads"]["flash_fwd"] == {"16": want}
+                  and r["routes"]["flash_fwd"]["tma"] == want
+                  and r["routes"]["flash_bwd"]["tma"] == want,
+                  f"20 (b): {n}: launches {r['launches']}, heads {r['heads']}, "
+                  f"routes {r['routes']}")
+    return runs["bf16_searched"][0]["launches"]
+
+
 def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) -> int:
     """One rank of phases 12-13, 17 and 18: ``cli train``'s own call
     (``trainer.train`` of the parsed flags), with the blocked flash
@@ -4236,11 +4608,13 @@ def _rank_run(outdir, argv, heads, ref_params=None, control=None, profile_moe=Fa
     from galvatron_tpu_torch.core import trainer
     from galvatron_tpu_torch.core.arguments import initialize_galvatron, model_config_from_args
     from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.ops import collective_matmul as cm
     from galvatron_tpu_torch.ops import flash_attention as fa
     from galvatron_tpu_torch.parallel import comm
 
     for counts in heads.values():
         counts.clear()
+    cm.hops = 0
     gc.collect()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
@@ -4265,6 +4639,8 @@ def _rank_run(outdir, argv, heads, ref_params=None, control=None, profile_moe=Fa
                       "flash_grid_dkdv": dict(fa.flash_grid_bwd_parts.dkv_modes),
                       "flash_grid_dq": dict(fa.flash_grid_bwd_parts.dq_modes)},
            "stage": out["stage"], "stage_layers": out["stage_layers"],
+           "hops": cm.hops, "stats": {k: v for k, v in out["stats"].items()
+                                      if k in ("in_flight", "buckets")},
            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() / 1e9
                                        if torch.cuda.is_available() else None)}
     if ref_params:
@@ -4283,7 +4659,7 @@ def _rank_run(outdir, argv, heads, ref_params=None, control=None, profile_moe=Fa
 
 #: the phases by name, for ``--phases``; a full run takes them all
 PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train", "hybrid",
-          "pipeline", "nccl", "search", "services", "slots", "cp", "moe")
+          "pipeline", "nccl", "search", "services", "slots", "cp", "moe", "packed", "overlap")
 
 
 def main() -> int:
@@ -4441,6 +4817,22 @@ def main() -> int:
         RESULTS["moe_launches"] = {"train_world1": launches["moe_train"],
                                    "serve_paged_decode": launches["moe_paged"]}
         mark("18 moe")
+    if "packed" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["packed"] = phase_packed(torch, smi)
+        mark("19 packed")
+    if {"overlap", "nccl"} & set(phases):
+        gc.collect()
+        torch.cuda.empty_cache()
+        overlap = phase_overlap(torch, smi, run_gloo="overlap" in phases,
+                                run_nccl="nccl" in phases)
+        if overlap is not None:
+            launches["overlap"] = overlap
+        mark("20 overlap")
+    if {"packed", "overlap"} & set(phases):
+        RESULTS["packed_overlap_launches"] = {k: launches[k] for k in ("packed", "overlap")
+                                              if k in launches}
     RESULTS["total_seconds"] = time.perf_counter() - clock["start"]
     log("phase seconds:", json.dumps(seconds), f"total {RESULTS['total_seconds']:.1f} s")
     if set(phases) != set(PHASES):

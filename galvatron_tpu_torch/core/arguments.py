@@ -11,11 +11,10 @@ plus ``--device`` (where a mode touches a device) and ``--dist_backend``.
 The training services' flags (``--data_path``, ``--data_mixture``,
 ``--prefetch_depth``, ``--pack_sequences``, ``--save``, ``--load``,
 ``--save_interval``, ``--keep_last_n``, ``--rampup_batch_size``,
-``--mixed_precision fp16``) and ``serve --load`` keep the reference's names
-and defaults; ``--pack_sequences 1`` parses and raises naming its ROADMAP
-item. Flags of unported features (``--global_tp_overlap``,
-``--grad_overlap``, multi-slice ``--num_slices``,
-...) are absent, so passing one is an argparse error rather than a silently
+``--mixed_precision fp16``), the overlap plan flags (``--global_tp_overlap``,
+``--grad_overlap``) and ``serve --load`` keep the reference's names and
+defaults. Flags of unported features (multi-slice ``--num_slices``, ...)
+are absent, so passing one is an argparse error rather than a silently
 ignored option."""
 
 from __future__ import annotations
@@ -164,7 +163,11 @@ def _add_train_args(p: argparse.ArgumentParser):
     )
     g.add_argument("--seed", type=int, default=1234)
     g.add_argument("--pack_sequences", type=int, default=0,
-                   help="1 = sequence packing: not ported yet (ROADMAP.md 'packed sequences')")
+                   help="1 = greedy first-fit sequence packing (data/packing.py): "
+                   "documents bin-packed into seq_length rows with segment ids; "
+                   "attention is masked per segment, positions restart per segment "
+                   "and labels are masked at boundaries. Needs --data_path or "
+                   "--data_mixture and the einsum attention ('auto' picks it)")
     g.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
                    help="process-group backend when WORLD_SIZE > 1: nccl on cuda, gloo on "
                    "cpu by default; gloo with --device cuda stages every collective "
@@ -220,6 +223,15 @@ def _add_parallel_args(p: argparse.ArgumentParser):
                    help="0 = off, 1 = full-layer recompute, 2 = selective "
                    "(attention-core-only recompute)")
     g.add_argument("--sequence_parallel", type=int, default=0)
+    g.add_argument("--global_tp_overlap", type=int, default=0,
+                   help="1 = decomposed collective matmul on the TP projection seams "
+                   "of every tp>1 layer (ops/collective_matmul.py): the qkv/MLP-up "
+                   "sequence all-gather and the output-projection reduction run as "
+                   "rings of asynchronous sends behind the GEMM chunks")
+    g.add_argument("--grad_overlap", type=int, default=0,
+                   help="1 = ZeRO gradient overlap: each zero2/zero3 layer's gradient "
+                   "bucket is reduce-scattered asynchronously as soon as that layer's "
+                   "last micro-batch backward is done (pp=1; accepted and inert at pp>1)")
     g.add_argument("--context_parallel_deg", type=int, default=1)
     g.add_argument("--context_parallel_impl", type=str, default="ring",
                    choices=["ring", "a2a"],
@@ -260,7 +272,7 @@ def _add_search_args(p: argparse.ArgumentParser):
                    help="search expert parallelism (MoE models)")
     g.add_argument("--enable_tp_overlap", type=int, default=0,
                    help="enumerate the collective-matmul tp_overlap variant on tp>1 "
-                   "layers (the port's runtime does not run it yet: ROADMAP.md §1.6)")
+                   "layers (ops/collective_matmul.py)")
     g.add_argument("--max_ep_deg", type=int, default=8)
     g.add_argument("--max_tp_deg", type=int, default=8)
     g.add_argument("--max_vpp_deg", type=int, default=1,
@@ -412,10 +424,14 @@ def resolve_execution_config(cfg: ModelConfig, ns: argparse.Namespace, device) -
 def resolve_attn_impl(cfg: ModelConfig, ns: argparse.Namespace, device) -> ModelConfig:
     """Apply --attn_impl: 'auto' means the flash kernels on the card and the
     config's own default on the CPU (the reference's rule: flash on an
-    accelerator)."""
+    accelerator), and the einsum path for packed sequences on either."""
     impl = getattr(ns, "attn_impl", "auto")
     if impl != "auto":
         return cfg.replace(attn_impl=impl)
+    if cfg.pack_sequences:
+        # packed sequences need the segment-masked einsum path; 'auto' must
+        # not pick the flash kernels (build_runtime would refuse them loudly)
+        return cfg.replace(attn_impl="xla")
     if torch.device(device).type == "cuda":
         return cfg.replace(attn_impl="flash")
     return cfg
@@ -456,6 +472,8 @@ def hybrid_config_from_args(ns: argparse.Namespace, num_layers: int,
         sp=bool(ns.sequence_parallel),
         cp=ns.context_parallel_deg,
         cp_impl=ns.context_parallel_impl,
+        tp_overlap=bool(getattr(ns, "global_tp_overlap", 0)),
+        grad_overlap=bool(getattr(ns, "grad_overlap", 0)),
         chunks=chunks,
         pipeline_type=ns.pipeline_type,
         vocab_tp=ns.vocab_tp,

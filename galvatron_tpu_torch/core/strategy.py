@@ -12,7 +12,7 @@ A strategy is a small frozen dataclass per transformer layer, a model-wide
 ``HybridParallelConfig``, and loss-free codecs to/from the reference-compatible
 JSON schema, so a plan searched or saved by the JAX package loads here to the
 same objects. Which of its fields the port runs is decided by
-``parallel/hybrid.py`` (tp_overlap and grad_overlap raise there).
+``parallel/hybrid.py``.
 """
 
 from __future__ import annotations

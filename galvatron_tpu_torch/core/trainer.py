@@ -19,11 +19,13 @@ on the card) and the host-clock ``iter_ms`` around all of it. Rank 0 alone
 prints the loss (under a pipeline the last stage's, which reaches every
 rank) and, with ``--metrics_path``, writes a ``train_iter`` JSONL record
 (step, loss, batch_size, iter_ms and the per-device rates: tokens_per_s,
-tflops_per_device, mfu, hfu; None on the CPU; ``loss_scale`` under fp16).
+tflops_per_device, mfu, hfu; None on the CPU; ``loss_scale`` under fp16;
+with ``--pack_sequences`` the rates count non-pad tokens and the record adds
+``tokens_per_s_raw`` and ``packing_efficiency``).
 
 The training services, as the reference wires them: batches from the
 synthetic stream, an indexed corpus (``--data_path``) or the data pipeline
-(``--data_mixture`` / ``--prefetch_depth``, ``data/``); committed portable
+(``--data_mixture`` / ``--prefetch_depth`` / ``--pack_sequences``, ``data/``); committed portable
 checkpoints (``core/checkpoint.py``) every ``--save_interval`` batches and
 at the end of a run that completes (``--save``, ``--keep_last_n``); resume
 (``--load``: the newest committed step, an older one when it is corrupt
@@ -95,8 +97,9 @@ def _pipeline_desc(hp) -> str:
 def train(ns: argparse.Namespace, cfg: Optional[ModelConfig] = None) -> dict:
     """Train up to ``ns.train_iters`` batches (counted from the start of the
     stream, so a resumed run trains the rest); returns the losses, the mean
-    iter_ms, this rank's final state, its pipeline stage and layers, its
-    host-staged and point-to-point message counts, every training kernel's
+    iter_ms, this rank's final state, its pipeline stage and layers, the
+    last step's runtime stats (``Runtime.stats``), its host-staged and
+    point-to-point message counts, every training kernel's
     launch count as it stands at the end of the run, the samples consumed,
     the batch sizes, the fp16 steps skipped on overflow, the final loss
     scale (None without fp16), the step it started from and the seconds of
@@ -221,19 +224,22 @@ def _train(ns: argparse.Namespace, cfg: Optional[ModelConfig], device: torch.dev
     lead = not dist.is_initialized() or dist.get_rank() == 0
     if cfg is None:
         cfg = model_config_from_args(ns)
+    # packing rides the model config (split_batch, the attention mask and
+    # the position reset key off it), set BEFORE the attention is resolved
+    # so that 'auto' lands on the segment-maskable einsum path
     if getattr(ns, "pack_sequences", 0):
-        from galvatron_tpu_torch.data.pipeline import PACKING_UNPORTED
-
-        raise NotImplementedError(PACKING_UNPORTED)
-    use_data_pipe = bool(getattr(ns, "data_mixture", None) or getattr(ns, "prefetch_depth", 0))
+        cfg = cfg.replace(pack_sequences=True)
+    use_data_pipe = bool(getattr(ns, "data_mixture", None) or cfg.pack_sequences
+                         or getattr(ns, "prefetch_depth", 0))
     if use_data_pipe:
         if not (ns.data_mixture or ns.data_path):
-            raise ValueError("--prefetch_depth/--data_mixture need a real corpus: pass "
-                             "--data_path or --data_mixture")
+            raise ValueError("--pack_sequences/--prefetch_depth/--data_mixture need a real "
+                             "corpus: pass --data_path or --data_mixture")
         if getattr(ns, "rampup_batch_size", None):
             raise ValueError(
-                "--rampup_batch_size is incompatible with the data pipeline (mixture/prefetch): "
-                "the sample-domain cursor is defined at one global batch size")
+                "--rampup_batch_size is incompatible with the data pipeline "
+                "(mixture/packing/prefetch): the sample-domain cursor is defined at one "
+                "global batch size")
     cfg = resolve_attn_impl(cfg, ns, device).replace(mlp_recompute=ns.mlp_recompute)
     hp = _check_plan(ns, cfg, world, lead)
     rampup = _rampup(ns, hp, world)
@@ -249,6 +255,7 @@ def _train(ns: argparse.Namespace, cfg: Optional[ModelConfig], device: torch.dev
               f"heads={c.num_heads} seq={seq} batch={bsz} chunks={rt.chunks} "
               f"dtype={str(c.dtype).replace('torch.', '')} attn={c.attn_impl} "
               f"ckpt={rt.ckpt} mlp_recompute={c.mlp_recompute} fused_norm={c.fused_norm} "
+              f"packed={c.pack_sequences} "
               f"world={rt.world} strategies={','.join(strategies)} vocab_tp={hp.vocab_tp} "
               f"{_pipeline_desc(hp)}on {device}", flush=True)
     fingerprint = {"world_size": world, "pp": rt.pp, "plan_hash": plan_hash(hp),
@@ -265,8 +272,8 @@ def _train(ns: argparse.Namespace, cfg: Optional[ModelConfig], device: torch.dev
             raise ValueError(
                 f"--load {ns.load}: the checkpoint records a data-pipeline cursor (sources "
                 f"{sorted(saved_data_state.get('per_source_consumed', {}))}) but this run "
-                "passes neither --data_mixture nor --prefetch_depth. Resume with the original "
-                "data flags, or point --load elsewhere.")
+                "passes none of --data_mixture/--pack_sequences/--prefetch_depth. Resume with "
+                "the original data flags, or point --load elsewhere.")
         data_pipe = None
         if use_data_pipe:
             from galvatron_tpu_torch.data import build_data_pipeline
@@ -274,7 +281,8 @@ def _train(ns: argparse.Namespace, cfg: Optional[ModelConfig], device: torch.dev
             # the prefetch thread moves each batch to the rank's device
             data_pipe = build_data_pipeline(
                 cfg, bsz, seq, seed=ns.seed, start_batch=batch_offset, data_path=ns.data_path,
-                mixture=ns.data_mixture, prefetch_depth=ns.prefetch_depth,
+                mixture=ns.data_mixture, pack=cfg.pack_sequences,
+                prefetch_depth=ns.prefetch_depth,
                 put_fn=lambda b: torch.from_numpy(b).to(device), resume_state=saved_data_state)
             loader = iter(data_pipe)
         else:
@@ -366,7 +374,11 @@ def _loop(ns, rt, state, loader, data_pipe, metrics, rampup, start_step, batch_o
                 if cur_bs not in stats:
                     stats[cur_bs] = StepStats(rt.cfg, cur_bs, seq, device=device, ckpt=rt.ckpts,
                                               world=rt.world)
-                rates = stats[cur_bs].per_iter(iter_ms)
+                nonpad = data_pipe.last_meta.get("nonpad_tokens") if data_pipe else None
+                rates = stats[cur_bs].per_iter(iter_ms, nonpad_tokens=nonpad)
+                packed = {} if nonpad is None else {
+                    "nonpad_tokens": nonpad, "tokens_per_s_raw": rates["tokens_per_s_raw"],
+                    "packing_efficiency": rates["packing_efficiency"]}
                 metrics.log(
                     "train_iter", schema=SCHEMA_VERSION, step=it,
                     # bare NaN/Infinity is not valid JSON
@@ -374,7 +386,8 @@ def _loop(ns, rt, state, loader, data_pipe, metrics, rampup, start_step, batch_o
                     batch_size=cur_bs, iter_ms=iter_ms,
                     tokens_per_s=rates["tokens_per_s"],
                     tflops_per_device=rates["tflops_per_device"], mfu=rates["mfu"],
-                    hfu=rates["hfu"], **({} if scale is None else {"loss_scale": scale}),
+                    hfu=rates["hfu"], **packed,
+                    **({} if scale is None else {"loss_scale": scale}),
                 )
             if next_save_at is not None and it + 1 >= next_save_at:
                 save(it + 1 - prior_skips)
@@ -414,6 +427,7 @@ def _loop(ns, rt, state, loader, data_pipe, metrics, rampup, start_step, batch_o
         "stage_layers": rt.stage_layers,
         "host_staged": comm.host_staged,
         "p2p": comm.p2p,
+        "stats": dict(rt.stats),
         "launches": {"flash_fwd": flash_attention.flash_fwd.launches,
                      "flash_bwd": flash_attention.flash_bwd.launches,
                      "flash_grid_fwd": flash_attention.flash_grid_fwd.launches,

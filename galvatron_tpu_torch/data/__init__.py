@@ -7,12 +7,10 @@ sharded corpora, deterministic mixtures and async device prefetch.
 - ``mixture``  — deterministic weighted mixture over N corpora, seeded and
                  position-addressable, so the sample-domain resume cursor
                  converts exactly across batch-size changes;
+- ``packing``  — greedy first-fit sequence packing with segment ids;
 - ``prefetch`` — a background host thread assembling batch k+1 and moving
                  it to the rank's device while step k runs;
 - ``pipeline`` — the facade the trainer drives: ``build_data_pipeline``.
-
-Sequence packing (``galvatron_tpu/data/packing.py``) is not ported:
-``--pack_sequences 1`` raises (ROADMAP.md "packed sequences").
 """
 
 from galvatron_tpu_torch.data.mixture import (
@@ -22,7 +20,8 @@ from galvatron_tpu_torch.data.mixture import (
     SingleSourceDataset,
     parse_mixture,
 )
-from galvatron_tpu_torch.data.pipeline import DataPipeline, WindowedDataset, build_data_pipeline
+from galvatron_tpu_torch.data.packing import PackedDataset, WindowedDataset, pack_documents
+from galvatron_tpu_torch.data.pipeline import DataPipeline, build_data_pipeline
 from galvatron_tpu_torch.data.prefetch import AsyncPrefetcher
 from galvatron_tpu_torch.data.shards import (
     ShardedTokenDataset,
@@ -37,10 +36,12 @@ __all__ = [
     "MixtureDataset",
     "MixtureSchedule",
     "MixtureSource",
+    "PackedDataset",
     "ShardedTokenDataset",
     "SingleSourceDataset",
     "WindowedDataset",
     "build_data_pipeline",
+    "pack_documents",
     "open_token_dataset",
     "parse_mixture",
     "tokenize_text_files",

@@ -1,11 +1,10 @@
-"""DataPipeline: the trainer-facing facade over shards/mixture/prefetch (the
-port's copy of ``galvatron_tpu/data/pipeline.py``; sequence packing,
-``--pack_sequences``, is not ported: ROADMAP.md "packed sequences").
+"""DataPipeline: the trainer-facing facade over shards/mixture/packing/
+prefetch (the port's copy of ``galvatron_tpu/data/pipeline.py``).
 
 One object that (a) yields device-ready batches (``put_fn`` applied — on the
 prefetch thread when ``prefetch_depth > 0``, inline otherwise, so the trainer
-has exactly one fetch call either way), (b) reports per-batch stats
-(``last_meta``: the sample position), (c) snapshots the sample-domain cursor +
+has exactly one fetch call either way), (b) reports per-batch packing stats
+(``last_meta``) for true-token MFU, (c) snapshots the sample-domain cursor +
 per-source consumption for checkpoint meta (``state``), and (d) verifies a
 restored cursor against a recount on resume (``verify_resume`` — the
 replays-zero/skips-zero contract), and (e) shuts its prefetch thread down
@@ -30,50 +29,9 @@ from galvatron_tpu_torch.data.mixture import (
     SingleSourceDataset,
     parse_mixture,
 )
+from galvatron_tpu_torch.data.packing import PackedDataset, WindowedDataset, packed_batch_meta
 from galvatron_tpu_torch.data.prefetch import AsyncPrefetcher
 from galvatron_tpu_torch.data.shards import open_token_dataset
-
-
-#: the error of ``--pack_sequences 1``
-PACKING_UNPORTED = (
-    "--pack_sequences 1 is not ported yet (ROADMAP.md \"packed sequences\": data/packing.py, "
-    "segment masks and per-segment positions in models/modeling.py); train on unpacked "
-    "windows (--pack_sequences 0)")
-
-
-class WindowedDataset:
-    """Unpacked fixed windows over the concatenated document stream — the
-    GPT-style sampling of ``core/data.GPTWindowDataset`` behind the
-    position-addressable ``num_samples``/``sample(i)`` interface (mixture
-    sources without ``--pack_sequences``). Windows may cross shard boundaries;
-    the stitch copies one row, not the corpus."""
-
-    def __init__(self, dataset, seq_len: int):
-        self.dataset = dataset
-        self.seq_len = seq_len
-        self.num_samples = max(0, dataset.num_tokens - 1) // seq_len
-        if self.num_samples <= 0:
-            raise ValueError(
-                f"corpus has {dataset.num_tokens} tokens — fewer than one "
-                f"(seq_len+1)={seq_len + 1} window"
-            )
-        self._doc_lengths = np.asarray(dataset.doc_lengths, np.int64)
-        self._doc_starts = np.concatenate([[0], np.cumsum(self._doc_lengths)])
-
-    def sample(self, i: int) -> np.ndarray:
-        start, stop = i * self.seq_len, i * self.seq_len + self.seq_len + 1
-        out = np.empty(stop - start, np.int32)
-        filled = 0
-        # first doc overlapping `start`, then walk forward
-        d = int(np.searchsorted(self._doc_starts, start, side="right")) - 1
-        while filled < len(out):
-            doc = self.dataset.doc(d)
-            lo = start + filled - int(self._doc_starts[d])
-            take = min(len(doc) - lo, len(out) - filled)
-            out[filled : filled + take] = doc[lo : lo + take]
-            filled += take
-            d += 1
-        return out
 
 
 class DataPipeline:
@@ -114,7 +72,8 @@ class DataPipeline:
         batch = np.stack(
             [self.dataset.sample(k0 + r) for r in range(self.global_batch_size)]
         ).astype(np.int32, copy=False)
-        meta = {"position": k0}
+        meta = packed_batch_meta(batch) if self.packed else {}
+        meta["position"] = k0
         return batch, meta
 
     def __iter__(self):
@@ -188,7 +147,7 @@ class DataPipeline:
 
     def summary(self, samples_consumed: Optional[int] = None) -> dict:
         """End-of-run record for the metrics JSONL: realized per-source
-        consumption. Flat scalars —
+        consumption + the dataset-level packing efficiency. Flat scalars —
         the JSONL sink rejects nested values by contract. Pass the trainer's
         ``samples_done``: the producer's own position runs ahead of training
         by the prefetch depth."""
@@ -198,6 +157,13 @@ class DataPipeline:
             for name, count in self.dataset.counts_at(pos).items()
         }
         out["samples_consumed"] = pos
+        effs = [
+            ds.packing_efficiency
+            for ds in self.dataset.datasets
+            if hasattr(ds, "packing_efficiency")
+        ]
+        if effs:
+            out["dataset_packing_efficiency"] = float(np.mean(effs))
         return out
 
     def close(self) -> None:
@@ -219,17 +185,21 @@ def build_data_pipeline(
     prefetch_depth: int = 0,
     put_fn=None,
     resume_state: Optional[dict] = None,
+    max_open_bins: int = 64,
 ) -> DataPipeline:
-    """Resolve (--data_path | --data_mixture) × --prefetch_depth into a
-    DataPipeline (``pack`` raises: not ported). ``resume_state`` (the checkpoint's
+    """Resolve (--data_path | --data_mixture) × --pack_sequences ×
+    --prefetch_depth into a DataPipeline. ``resume_state`` (the checkpoint's
     ``data_state`` meta) is verified against the rebuilt cursor."""
     if getattr(cfg, "image_size", 0):
         raise ValueError(
             "the data pipeline (mixture/packing/prefetch) serves token "
             "corpora; vision models use the synthetic loader"
         )
-    if pack:
-        raise NotImplementedError(PACKING_UNPORTED)
+    if pack and (cfg.objective != "clm" or getattr(cfg, "enc_layers", 0)):
+        raise ValueError(
+            "--pack_sequences requires a decoder-only CLM model (segment "
+            "masking and per-segment positions are defined for causal LM rows)"
+        )
     if not data_path and not mixture:
         raise ValueError(
             "the data pipeline needs --data_path or --data_mixture (synthetic "
@@ -255,6 +225,8 @@ def build_data_pipeline(
                 f"corpus {prefix} vocab {ds.meta.get('vocab_size')} exceeds "
                 f"the model vocab {cfg.vocab_size}"
             )
+        if pack:
+            return PackedDataset(ds, seq_len, max_open_bins=max_open_bins)
         return WindowedDataset(ds, seq_len)
 
     datasets = [rows_for(p) for p in prefixes]

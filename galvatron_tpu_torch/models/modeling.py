@@ -9,7 +9,12 @@ MHA, kv-group-interleaved ``(h, kv·(npg+2)·hd)`` for GQA), attention on the
 einsum path (``attn_impl='xla'``) or the flash kernels (``'flash'``: the
 head-major dataflow of ``_attn_block_headmajor``; blocked-causal with RoPE,
 grid otherwise), the ``mlp_recompute`` policies, embedding, LM head and the
-sum-form token loss.
+sum-form token loss. Packed sequences (``pack_sequences``): rows of tokens ‖
+segment ids, attention masked within each segment on the einsum path,
+positions restarting per segment and labels masked at segment boundaries.
+A tensor-parallel layer's projection seams (:func:`_up`, :func:`_down`) run
+the plain GEMMs and the region's collectives, or the decomposed collective
+matmul of ``ops/collective_matmul.py`` under the plan's ``tp_overlap``.
 
 Parameters are a nested dict of tensors with the JAX package's names and
 layouts (``x @ W`` everywhere), so the weight bridge (``bridge.py``) is a
@@ -90,6 +95,14 @@ class ModelConfig:
     # leaves the one-region recompute and only the activation product is
     # recomputed.
     fused_norm: bool = False
+    # packed-sequence input rows (--pack_sequences; data/packing.py): a
+    # sample row is [tokens (S+1) ‖ segment ids (S+1)], documents bin-packed
+    # into one row. The model then (a) masks attention across segment
+    # boundaries (intra-segment causal), (b) restarts rope / learned
+    # positions per segment (positions_from_segments), and (c) masks the
+    # loss at segment boundaries and on padding (split_batch). Decoder-only
+    # 'clm'; the einsum attention only (the flash kernels carry no segment mask).
+    pack_sequences: bool = False
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32
 
@@ -354,14 +367,15 @@ def check_tp_shapes(cfg: ModelConfig, tp: int, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def qkv_project(x, w, cfg: ModelConfig):
+def qkv_project(x, w, cfg: ModelConfig, tp=None):
     """Fused QKV GEMM: blocked weights (h, 3, n·hd) give (…, 3, n·hd),
-    interleaved weights (h, kv·group) give (…, kv·group)."""
+    interleaved weights (h, kv·group) give (…, kv·group). With ``tp`` the
+    column-parallel seam (:func:`_up`)."""
     w = w.to(x.dtype)
     if cfg.qkv_blocked:
-        y = x @ w.reshape(w.shape[0], -1)
-        return y.reshape(*x.shape[:-1], 3, w.shape[-1])
-    return x @ w
+        y = _up(x, w.reshape(w.shape[0], -1), tp)
+        return y.reshape(*y.shape[:-1], 3, w.shape[-1])
+    return _up(x, w, tp)
 
 
 def split_qkv(qkv, cfg: ModelConfig):
@@ -376,20 +390,49 @@ def split_qkv(qkv, cfg: ModelConfig):
     return q, r[..., npg, :], r[..., npg + 1, :]
 
 
-def project_qkv_heads(x, p_attn, cfg: ModelConfig):
+def project_qkv_heads(x, p_attn, cfg: ModelConfig, tp=None):
     """Fused projection (+ the optional bias on the blocked (3, n·hd)
     slots, added after the GEMM) straight to per-head q/k/v."""
-    y = qkv_project(x, p_attn["wqkv"], cfg)
+    y = qkv_project(x, p_attn["wqkv"], cfg, tp)
     if "wqkv_b" in p_attn:
         y = y + p_attn["wqkv_b"].to(y.dtype)
     return split_qkv(y, cfg)
 
 
-def attn_output(o, p_attn, cfg: ModelConfig):
-    """(B, S, n, hd) attention context → (B, S, h), + the optional bias."""
+def attn_output(o, p_attn, cfg: ModelConfig, tp=None):
+    """(B, S, n, hd) attention context → (B, S, h), + the optional bias
+    (with ``tp``: through the row-parallel seam, the bias after it)."""
     b, s = o.shape[:2]
-    y = o.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p_attn["wo"].to(o.dtype)
+    y = _down(o.reshape(b, s, cfg.num_heads * cfg.head_dim), p_attn["wo"].to(o.dtype), tp)
     return _add_bias(y, p_attn, "wo_b")
+
+
+def _up(x, w, tp=None):
+    """The column-parallel GEMM seam (the reference's ``_proj_up``): ``x @
+    w``, or under the collective matmul with SP (``tp.ring``) the sequence
+    all-gather pipelined behind the GEMM chunks, on the sequence shard that
+    ``tp.enter`` then left as it was."""
+    if tp is not None and tp.ring:
+        from galvatron_tpu_torch.ops import collective_matmul
+
+        return collective_matmul.allgather_matmul(x, w, tp.group)
+    return x @ w
+
+
+def _down(x, w, tp=None, act: Optional[str] = None):
+    """The row-parallel GEMM seam (the reference's ``_proj_down``):
+    ``act(x) @ w`` (``act`` is recomputed in the backward: :class:`_ActDown`)
+    then ``tp.exit``; under the plan's ``tp_overlap`` the reduction as the
+    collective matmul's accumulator ring (the sequence-sharded output under
+    SP, gathered back without it). A sequence the ring does not split keeps
+    the plain seam (the reference's fallback)."""
+    if tp is not None and tp.overlap and tp.size > 1 and x.shape[1] % tp.size == 0:
+        from galvatron_tpu_torch.ops import collective_matmul
+
+        return collective_matmul.matmul_reducescatter(
+            x, w, tp.group, scatter=tp.sp, act=None if act is None else _ACTS[act])
+    y = x @ w if act is None else _ActDown.apply(x, w, act)
+    return y if tp is None else tp.exit(y)
 
 
 def _add_bias(y, p, name):
@@ -468,6 +511,37 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
 
 
+def positions_from_segments(seg):
+    """Per-segment position ids from a ``(B, S)`` packed segment-id array:
+    position i's index within its own segment. Relies on the packer's layout
+    contract — segment ids never decrease along the row (documents are laid
+    out contiguously), so a segment's start is the last index where the id
+    changed."""
+    idx = torch.arange(seg.shape[1], device=seg.device)
+    is_start = torch.cat([torch.ones_like(seg[:, :1], dtype=torch.bool),
+                          seg[:, 1:] != seg[:, :-1]], dim=1)
+    seg_start = torch.cummax(torch.where(is_start, idx[None], 0), dim=1).values
+    return idx[None] - seg_start
+
+
+def split_packed_inputs(inputs):
+    """Packed model-input rows ``(B, 2·S)`` = tokens ‖ segment ids →
+    (tokens (B, S), segment ids (B, S), per-segment position ids (B, S))."""
+    s = inputs.shape[1] // 2
+    seg = inputs[:, s:]
+    return inputs[:, :s], seg, positions_from_segments(seg)
+
+
+def packed_rope_tables(cfg: ModelConfig, pos_ids, tables=None):
+    """Per-row rope tables for packed sequences: the shared ``(S, hd/2)``
+    tables (``tables``, or :func:`rope_tables`) gathered by per-segment
+    positions → ``(B, S, hd/2)``. For a row that is one whole segment this
+    gathers ``arange(S)``: bit-identical values to the shared tables."""
+    cos, sin = tables if tables is not None else rope_tables(cfg, pos_ids.shape[1],
+                                                             pos_ids.device)
+    return cos[pos_ids], sin[pos_ids]
+
+
 def _repeat_kv(x, n_rep: int):
     """(b, s, kv, hd) → (b, s, kv·n_rep, hd), kv-major like the reference."""
     if n_rep == 1:
@@ -476,16 +550,22 @@ def _repeat_kv(x, n_rep: int):
     return x[:, :, :, None, :].expand(b, s, kvh, n_rep, hd).reshape(b, s, kvh * n_rep, hd)
 
 
-def attention_xla(q, k, v, cfg: ModelConfig, q_offset):
+def attention_xla(q, k, v, cfg: ModelConfig, q_offset, seg_ids=None):
     """Causal einsum attention (the reference's ``attention_xla``): k/v may
     be longer than q; query i of row b sits at absolute position
     ``q_offset[b] + i`` and sees keys at positions <= its own. Scores and
     softmax in fp32 with the -1e30 mask, probabilities cast to the compute
     dtype before the PV product. One-query calls go to the GQA-native
-    ``decode_attention`` as in the reference."""
+    ``decode_attention`` as in the reference.
+
+    ``seg_ids`` ((B, S), packed sequences): the causal predicate tightens to
+    intra-segment — query i attends to key j only when ``seg[i] == seg[j]``.
+    The combine is a logical AND on the same -1e30 fill the causal mask
+    uses, so a row holding one segment gets a bit-identical mask (the
+    packed-vs-padded parity)."""
     b, s, nh, hd = q.shape
     offsets = torch.as_tensor(q_offset, device=q.device).reshape(-1)
-    if s == 1:
+    if s == 1 and seg_ids is None:
         from galvatron_tpu_torch.ops.flash_attention import decode_attention
 
         return decode_attention(q, k, v, q_offset=offsets)
@@ -495,6 +575,8 @@ def attention_xla(q, k, v, cfg: ModelConfig, q_offset):
     q_pos = offsets[:, None] + torch.arange(s, device=q.device)[None]
     k_pos = torch.arange(k.shape[1], device=q.device)
     allowed = k_pos[None, None, :] <= q_pos[:, :, None]
+    if seg_ids is not None:
+        allowed = allowed & (seg_ids[:, :, None] == seg_ids[:, None, :])
     scores = scores.masked_fill(~allowed[:, None], -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bnqk,bknh->bqnh", probs, v)
@@ -586,7 +668,7 @@ class _MLPBranch(torch.autograd.Function):
 
 
 def mlp_block(x, p, cfg: ModelConfig, product_remat: Optional[bool] = None,
-              train: bool = True):
+              train: bool = True, tp=None):
     """``act(x @ w_up + b_up) @ w2 + b2`` (SwiGLU over the fused [w1 | w3],
     tanh-GELU or ReLU over w1; biases when present), or the switch-MoE block
     when ``cfg.moe_experts`` > 0 (``train`` picks its routing: sinkhorn-
@@ -597,19 +679,21 @@ def mlp_block(x, p, cfg: ModelConfig, product_remat: Optional[bool] = None,
     ``fused_norm``: the branch
     then leaves that region (the fused kernels carry their own residuals)
     and the one-gate-save guarantee falls back to the product-only
-    recompute here, as in the reference."""
+    recompute here, as in the reference. With ``tp`` the GEMMs are the
+    layer's TP seams (:func:`_up`, :func:`_down`; ``w2_b`` after the
+    reduction)."""
     if cfg.moe_experts > 0:
         return moe.moe_block(x, p, cfg, train=train, ctx=cfg.moe_ctx)
     up = _up_name(cfg)
-    g = _add_bias(x @ p[up].to(x.dtype), p, up + "_b")
+    g = _add_bias(_up(x, p[up].to(x.dtype), tp), p, up + "_b")
     w2 = p["w2"].to(x.dtype)
     if product_remat is None:
         product_remat = cfg.mlp_recompute == "gate" or (
             cfg.mlp_recompute == "policy" and cfg.fused_norm)
     if product_remat and torch.is_grad_enabled():
-        y = _ActDown.apply(g, w2, cfg.act_fn)
+        y = _down(g, w2, tp, act=cfg.act_fn)
     else:
-        y = _ACTS[cfg.act_fn](g) @ w2
+        y = _down(_ACTS[cfg.act_fn](g), w2, tp)
     return _add_bias(y, p, "w2_b")
 
 
@@ -631,12 +715,18 @@ def mlp_residual(x, p, cfg: ModelConfig):
     return x + mlp_block(norm(x, p["mlp_norm"], cfg), p["mlp"], cfg)
 
 
-def embed(tokens, params, cfg: Optional[ModelConfig] = None, vocab=None, positions=None):
+def embed(tokens, params, cfg: Optional[ModelConfig] = None, vocab=None, positions=None,
+          pos_ids=None):
     """Token embedding: the table cast to the compute dtype, then gathered
     (the reference's order, so the backward scatter-adds in that dtype);
     learned positions add the cast table's first s rows, broadcast over
     the batch, or with ``positions`` ((B or 1, s) absolute positions, the
-    KV-cache forwards') those rows of the table. With ``vocab`` (a
+    KV-cache forwards') those rows of the table, or with ``pos_ids`` ((B, s)
+    per-segment positions of packed rows) the first s rows broadcast over
+    the batch and then gathered per row (the reference's order: the
+    backward is a per-row placement, then the same sum over the batch as
+    the unpacked broadcast, so a row of one whole segment gets bit-identical
+    position-table gradients). With ``vocab`` (a
     ``TPRegion``) the table is this rank's vocabulary shard: tokens outside
     it embed to zero and ``vocab.exit`` sums the shards (into this rank's
     sequence shard under SP), then the positions of those rows are added."""
@@ -655,7 +745,13 @@ def embed(tokens, params, cfg: Optional[ModelConfig] = None, vocab=None, positio
         x = tok.to(cfg.dtype)[tokens]
     if cfg.pos_embed == "learned":
         table = params["embed"]["pos"].to(cfg.dtype)
-        x = x + (table[seq][None] if positions is None else table[positions])
+        if pos_ids is not None:
+            s, b = tokens.shape[1], pos_ids.shape[0]
+            tbl = table[:s][None].expand(b, s, table.shape[1])
+            idx = pos_ids[:, seq]
+            x = x + torch.gather(tbl, 1, idx[:, :, None].expand(*idx.shape, table.shape[1]))
+        else:
+            x = x + (table[seq][None] if positions is None else table[positions])
     return x
 
 
@@ -679,84 +775,99 @@ def _maybe_checkpoint(fn, remat: bool, *args):
     return fn(*args)
 
 
-def attention(q, k, v, cfg: ModelConfig, rope=None):
+def attention(q, k, v, cfg: ModelConfig, rope=None, seg_ids=None):
     """(B, S, n, hd) attention on the einsum path, RoPE applied first (the
-    reference's xla branch). The flash path never comes here: ``attn_block``
-    sends a tileable sequence to ``_attn_block_headmajor``, and an
-    untileable one takes this fallback, as in the reference."""
+    reference's xla branch), masked per segment with ``seg_ids``. The flash
+    path never comes here: ``attn_block`` sends a tileable sequence to
+    ``_attn_block_headmajor``, and an untileable one takes this fallback, as
+    in the reference."""
     if rope is not None:
         q = apply_rope(q, *rope)
         k = apply_rope(k, *rope)
-    return attention_xla(q, k, v, cfg, 0)
+    return attention_xla(q, k, v, cfg, 0, seg_ids=seg_ids)
 
 
-def _attn_block_headmajor(x, p, cfg: ModelConfig, rope, remat_attn: bool):
+def _attn_block_headmajor(x, p, cfg: ModelConfig, rope, remat_attn: bool, tp=None):
     """Flash-path attention with head-major dataflow: the fused projection
     (+ its bias, added after the GEMM) is viewed as (b, 3, n, s, hd) (MHA)
     and fed to ``flash_attention_qkv`` with no copy when the blocked RoPE
     kernels apply, else as q/k/v views to ``flash_attention_hm`` (the grid
     kernels without RoPE); the GQA layout is split into q at n heads and
     k/v at kv heads. The context then goes through the output projection
-    ('bnsd,nde->bse') and its bias."""
+    ('bnsd,nde->bse') and its bias. With ``tp`` both GEMMs are the layer's
+    TP seams: under the collective matmul with SP the projection gathers
+    the sequence itself, so the kernels see the same full-sequence qkv."""
     from galvatron_tpu_torch.ops.flash_attention import (
         flash_attention_hm,
         flash_attention_qkv,
         flash_qkv_supported,
     )
 
-    b, s, h = x.shape
+    b, h = x.shape[0], x.shape[2]
     hd, n = cfg.head_dim, cfg.num_heads
     w = p["wqkv"].to(x.dtype)
     if cfg.qkv_blocked:
-        qkv = (x @ w.reshape(h, 3 * n * hd)).view(b, s, 3, n, hd)
+        qkv = _up(x, w.reshape(h, 3 * n * hd), tp)
+        s = qkv.shape[1]
+        qkv = qkv.view(b, s, 3, n, hd)
         if "wqkv_b" in p:
             qkv = qkv + p["wqkv_b"].to(x.dtype).view(3, n, hd)
         qkv = qkv.permute(0, 2, 3, 1, 4)
         if flash_qkv_supported(s, hd, cfg.causal, rope):
             o = _maybe_checkpoint(lambda t: flash_attention_qkv(t, rope=rope), remat_attn, qkv)
-            return _headmajor_out(o, p, x.dtype)
+            return _headmajor_out(o, p, x.dtype, tp)
         q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
     else:
         kv, group = qkv_dims(cfg)
         npg = group // hd - 2  # query heads per kv group, per the stored layout
-        r = (x @ w).view(b, s, kv, npg + 2, hd).permute(0, 2, 3, 1, 4)
+        r = _up(x, w, tp)
+        s = r.shape[1]
+        r = r.view(b, s, kv, npg + 2, hd).permute(0, 2, 3, 1, 4)
         q = r[:, :, :npg].reshape(b, n, s, hd)
         k, v = r[:, :, npg], r[:, :, npg + 1]
     o = _maybe_checkpoint(
         lambda q_, k_, v_: flash_attention_hm(q_, k_, v_, causal=cfg.causal, rope=rope),
         remat_attn, q, k, v)
-    return _headmajor_out(o, p, x.dtype)
+    return _headmajor_out(o, p, x.dtype, tp)
 
 
-def _headmajor_out(o, p, dtype):
+def _headmajor_out(o, p, dtype, tp=None):
     b, n, s, hd = o.shape
-    y = o.transpose(1, 2).reshape(b, s, n * hd) @ p["wo"].to(dtype)
+    y = _down(o.transpose(1, 2).reshape(b, s, n * hd), p["wo"].to(dtype), tp)
     return _add_bias(y, p, "wo_b")
 
 
-def attn_block(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False):
+def attn_block(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False, seg_ids=None,
+               tp=None):
     """``remat_attn`` recomputes only the attention core in the backward
     (the reference's "selective" checkpointing). RoPE tables apply only to
-    ``pos_embed='rope'`` models."""
+    ``pos_embed='rope'`` models. ``seg_ids`` (packed sequences) takes the
+    einsum path with the intra-segment mask, never the flash kernels (they
+    carry no segment mask). With ``tp`` the projections are the layer's TP
+    seams and the output is reduced (:func:`_up`, :func:`_down`)."""
     from galvatron_tpu_torch.ops.flash_attention import flash_tileable
 
     rope = cos_sin if cfg.pos_embed == "rope" else None
-    if cfg.attn_impl == "flash" and flash_tileable(x.shape[1]):
-        return _attn_block_headmajor(x, p, cfg, rope, remat_attn)
-    q, k, v = project_qkv_heads(x, p, cfg)
-    o = _maybe_checkpoint(lambda q_, k_, v_: attention(q_, k_, v_, cfg, rope=rope),
+    seq = x.shape[1] * (tp.size if tp is not None and tp.ring else 1)
+    if cfg.attn_impl == "flash" and seg_ids is None and flash_tileable(seq):
+        return _attn_block_headmajor(x, p, cfg, rope, remat_attn, tp)
+    q, k, v = project_qkv_heads(x, p, cfg, tp)
+    o = _maybe_checkpoint(lambda q_, k_, v_: attention(q_, k_, v_, cfg, rope=rope,
+                                                       seg_ids=seg_ids),
                           remat_attn, q, k, v)
-    return attn_output(o, p, cfg)
+    return attn_output(o, p, cfg, tp)
 
 
-def decoder_layer(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False, tp=None):
+def decoder_layer(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False, tp=None,
+                  seg_ids=None):
     """One layer. ``tp`` (a ``parallel.comm.TPRegion`` of more than one
     rank) runs it tensor-parallel on this rank's shards: see
-    :func:`_decoder_layer_tp`."""
+    :func:`_decoder_layer_tp`. ``seg_ids`` ((B, S) over the whole sequence:
+    packed rows) masks the attention per segment."""
     if tp is not None and tp.size > 1:
-        return _decoder_layer_tp(x, p, cfg, cos_sin, remat_attn, tp)
+        return _decoder_layer_tp(x, p, cfg, cos_sin, remat_attn, tp, seg_ids)
     x = x + attn_block(norm(x, p["attn_norm"], cfg), p["attn"], cfg, cos_sin,
-                       remat_attn=remat_attn)
+                       remat_attn=remat_attn, seg_ids=seg_ids)
     return mlp_residual(x, p, cfg)
 
 
@@ -764,34 +875,43 @@ def _without(p, name):
     return {k: v for k, v in p.items() if k != name}
 
 
-def _decoder_layer_tp(x, p, cfg: ModelConfig, cos_sin, remat_attn: bool, tp):
+def _decoder_layer_tp(x, p, cfg: ModelConfig, cos_sin, remat_attn: bool, tp, seg_ids=None):
     """Megatron's layer on one of ``tp.size`` ranks: the norm on this rank's
     activation (its sequence shard under SP), ``tp.enter`` (copy, or the
     sequence all-gather) before the column-parallel qkv / MLP-up GEMMs over
     the local n/tp heads and ffn/tp columns, ``tp.exit`` (all-reduce, or the
     reduce-scatter) after the row-parallel wo / w2, then their biases, added
-    once. Under 'gate' and 'policy' the MLP saves the gate output and
-    recomputes the activation product: the one-region 'policy' branch of
-    the single-device layer recomputes the norm from the layer input, and
-    here a collective stands between the two."""
+    once. Under the plan's ``tp_overlap`` those seams are the collective
+    matmul's rings (:func:`_up`, :func:`_down`; with SP ``tp.enter`` then
+    leaves the shard to the qkv / MLP-up GEMM); an MoE layer's MLP keeps
+    the plain seams, as in the reference. Under 'gate' and 'policy' the MLP
+    saves the gate output and recomputes the activation product: the
+    one-region 'policy' branch of the single-device layer recomputes the
+    norm from the layer input, and here a collective stands between the
+    two."""
     local = tp_local_config(cfg, tp.size)
-    pa = p["attn"]
-    h = tp.enter(norm(x, p["attn_norm"], cfg))
-    y = attn_block(h, _without(pa, "wo_b"), local, cos_sin, remat_attn=remat_attn)
-    x = x + _add_bias(tp.exit(y), pa, "wo_b")
+    h = _enter(norm(x, p["attn_norm"], cfg), tp)
+    x = x + attn_block(h, p["attn"], local, cos_sin, remat_attn=remat_attn, seg_ids=seg_ids,
+                       tp=tp)
     return _mlp_residual_tp(x, p, cfg, tp)
+
+
+def _enter(x, tp):
+    """``tp.enter`` before a column-parallel seam; the collective matmul's
+    ring gathers the sequence itself."""
+    return x if tp.ring else tp.enter(x)
 
 
 def _mlp_residual_tp(x, p, cfg: ModelConfig, tp):
     """The MLP half of :func:`_decoder_layer_tp`. An MoE layer's experts
     hold their ffn/tp columns and rows; it has no ``w2_b``."""
     pm = p["mlp"]
-    h = tp.enter(norm(x, p["mlp_norm"], cfg))
     if cfg.moe_experts > 0:
+        h = tp.enter(norm(x, p["mlp_norm"], cfg))
         return x + tp.exit(moe.moe_block(h, pm, cfg, ctx=cfg.moe_ctx))
-    y = mlp_block(h, _without(pm, "w2_b"), tp_local_config(cfg, tp.size),
-                  product_remat=cfg.mlp_recompute != "off")
-    return x + _add_bias(tp.exit(y), pm, "w2_b")
+    h = _enter(norm(x, p["mlp_norm"], cfg), tp)
+    return x + mlp_block(h, pm, tp_local_config(cfg, tp.size),
+                         product_remat=cfg.mlp_recompute != "off", tp=tp)
 
 
 def core_decoder_layer(x, p, cfg: ModelConfig, core, cos_sin=None, tp=None):
@@ -822,16 +942,26 @@ def core_decoder_layer(x, p, cfg: ModelConfig, core, cos_sin=None, tp=None):
 def forward(params, tokens, cfg: ModelConfig, layer_hook=None):
     """Full forward → logits. ``layer_hook(i, x, layer_params)`` lets a
     caller insert per-layer recompute (the hybrid runtime composes
-    :func:`embed`, its layers and :func:`head` itself)."""
+    :func:`embed`, its layers and :func:`head` itself).
+
+    Packed sequences (``cfg.pack_sequences``): ``tokens`` is the (B, 2·S)
+    packed input row (tokens ‖ segment ids, from :func:`split_batch`); the
+    segment ids drive the intra-segment mask and the per-segment positions,
+    and reach the hook as the keyword ``seg_ids`` (only in packed mode)."""
+    seg = pos_ids = None
+    if cfg.pack_sequences:
+        tokens, seg, pos_ids = split_packed_inputs(tokens)
     cos_sin = None
     if cfg.pos_embed == "rope":
-        cos_sin = rope_tables(cfg, tokens.shape[1], tokens.device)
-    x = embed(tokens, params, cfg)
+        cos_sin = (packed_rope_tables(cfg, pos_ids) if pos_ids is not None
+                   else rope_tables(cfg, tokens.shape[1], tokens.device))
+    hook_kw = {"seg_ids": seg} if seg is not None else {}
+    x = embed(tokens, params, cfg, pos_ids=pos_ids)
     for i, lp in enumerate(params["layers"]):
         if layer_hook is not None:
-            x = layer_hook(i, x, lp)
+            x = layer_hook(i, x, lp, **hook_kw)
         else:
-            x = decoder_layer(x, lp, cfg, cos_sin)
+            x = decoder_layer(x, lp, cfg, cos_sin, seg_ids=seg)
     return head(x, params, cfg)
 
 
@@ -897,19 +1027,36 @@ def ce_remat(cfg: ModelConfig) -> bool:
     return cfg.mlp_recompute == "policy"
 
 
+def batch_row_width(cfg: ModelConfig, seq: int) -> int:
+    """Width of one loader batch row, the shape side of :func:`split_batch`:
+    packed rows are tokens ‖ segment ids, 2·(S+1) (``data/packing.py``);
+    plain windows are S+1."""
+    return 2 * (seq + 1) if cfg.pack_sequences else seq + 1
+
+
 def split_batch(batch, cfg: ModelConfig):
     """(B, S+1) token rows → (inputs, next-token labels), the 'clm'
-    objective; the reference's other objectives raise."""
+    objective; the reference's other objectives raise. A packed row (B,
+    2·(S+1)) = tokens ‖ segment ids keeps both halves in the inputs (every
+    layer needs the segment ids); its labels are next-token WITHIN a segment
+    only: a position whose successor belongs to another segment (a document
+    boundary) or to padding (segment 0) carries no loss."""
     if cfg.objective != "clm":
         raise NotImplementedError(
             f"objective {cfg.objective!r} is not ported yet (ROADMAP.md §1 "
             "'Other model families'); the port trains the 'clm' objective"
         )
+    if cfg.pack_sequences:
+        s1 = batch.shape[1] // 2
+        tokens, seg = batch[:, :s1], batch[:, s1:]
+        inputs = torch.cat([tokens[:, :-1], seg[:, :-1]], dim=1)
+        same = (seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] > 0)
+        return inputs, torch.where(same, tokens[:, 1:], torch.full_like(tokens[:, 1:], -100))
     return batch[:, :-1], batch[:, 1:]
 
 
 def lm_loss_sum(params, batch, cfg: ModelConfig, layer_hook=None):
-    """(nll_sum, token_count) on a (B, S+1) token batch."""
+    """(nll_sum, token_count) on a (B, S+1) token batch (packed: (B, 2·(S+1)))."""
     tokens, labels = split_batch(batch, cfg)
     logits = forward(params, tokens, cfg, layer_hook=layer_hook)
     return cross_entropy_sum(logits, labels, remat=ce_remat(cfg))

@@ -116,20 +116,36 @@ class StepStats:
         self.on_device = torch.device(self.device).type == "cuda"
         self._peak = peak_flops_per_device(self.device)
 
-    def per_iter(self, iter_ms: Optional[float]) -> Dict[str, Optional[float]]:
+    def per_iter(self, iter_ms: Optional[float],
+                 nonpad_tokens: Optional[float] = None) -> Dict[str, Optional[float]]:
         """tokens/s (global), achieved model TFLOP/s, MFU and HFU per card
         of one measured iteration; all None off the card (and MFU/HFU for a
-        card of unknown peak)."""
+        card of unknown peak).
+
+        ``nonpad_tokens`` (packed sequences): the batch's real-token count.
+        ``tokens_per_s`` and MFU/HFU then count non-pad tokens only (padded
+        positions burn FLOPs but are not useful work); the pad-inclusive
+        rate is ``tokens_per_s_raw`` and the ratio ``packing_efficiency``
+        (the reference's fields; the ratio is reported on the CPU too)."""
         out: Dict[str, Optional[float]] = {
             "tokens_per_s": None, "tflops_per_device": None, "mfu": None, "hfu": None,
         }
+        raw = self.tokens_per_step
+        useful = 1.0
+        if nonpad_tokens is not None:
+            # a property of the batch, not a device rate: on the CPU too
+            useful = min(1.0, float(nonpad_tokens) / raw) if raw > 0 else 1.0
+            out["tokens_per_s_raw"] = None
+            out["packing_efficiency"] = useful
         if not self.on_device or not iter_ms or iter_ms <= 0:
             return out
         s = iter_ms / 1000.0
-        rate = self.model_flops_per_step / s / self.world
-        out["tokens_per_s"] = self.tokens_per_step / s
+        rate = useful * self.model_flops_per_step / s / self.world
+        out["tokens_per_s"] = useful * raw / s
         out["tflops_per_device"] = rate / 1e12
+        if nonpad_tokens is not None:
+            out["tokens_per_s_raw"] = raw / s
         if self._peak:
             out["mfu"] = rate / self._peak
-            out["hfu"] = self.hardware_flops_per_step / s / self.world / self._peak
+            out["hfu"] = useful * self.hardware_flops_per_step / s / self.world / self._peak
         return out

@@ -19,6 +19,10 @@ four collectives (``all_reduce``, ``all_gather_into_tensor``,
 - The redistribution of an activation between two layers' (batch rows,
   sequence slice) layouts over the ranks of one stage (:func:`redistribute`).
 - A pipeline tick's sends and receives between stages (:func:`exchange`).
+- The collective matmul's ring (``ops/collective_matmul.py``): the same
+  shift left in flight (:func:`ring_post`), so that a GEMM queued meanwhile
+  overlaps the transfer; and the gradient buckets' asynchronous
+  reduce-scatter (:func:`reduce_scatter_async`).
 - Context parallelism's two moves over a group: the ring shift, each
   member's tensors to its successor in the group's order (:func:`ring_shift`,
   one :func:`exchange`), and the all-to-all that re-shards an activation from
@@ -128,6 +132,47 @@ def reduce_scatter(t: torch.Tensor, group: Optional[Group], dim: int = 0) -> tor
                       device=x.device)
     _run(lambda o, i, pg: dist.reduce_scatter_tensor(o, i, group=pg), out, x, group)
     return out.movedim(0, dim)
+
+
+class Pending:
+    """An asynchronous collective (:func:`reduce_scatter_async`): :meth:`wait`
+    returns its result."""
+
+    def __init__(self, work, out: torch.Tensor, staged=None, dim: int = 0, keep=None):
+        self.work, self.out, self.staged, self.dim = work, out, staged, dim
+        self.keep = keep  # the input stays alive until the collective is done
+
+    def wait(self) -> torch.Tensor:
+        if self.work is not None:
+            self.work.wait()
+            if self.staged is not None:
+                self.out.copy_(self.staged)
+            self.work = self.keep = None
+        return self.out.movedim(0, self.dim)
+
+
+def reduce_scatter_async(t: torch.Tensor, group: Optional[Group], dim: int = 0) -> Pending:
+    """:func:`reduce_scatter` issued asynchronously (``async_op=True``): the
+    same collective on the same values, so its result is the same; under
+    gloo a card tensor is staged through a host copy, as in :func:`_run`."""
+    global host_staged, issued
+    if group is None or group.size == 1:
+        return Pending(None, t.movedim(dim, 0), dim=dim)
+    dist = _dist()
+    x = t.movedim(dim, 0).contiguous()
+    if x.shape[0] % group.size:
+        raise ValueError(f"reduce-scatter of {x.shape[0]} along dim {dim} over {group.size}")
+    out = torch.empty((x.shape[0] // group.size,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    issued += 1
+    staged = None
+    if group.backend == "gloo" and x.is_cuda:
+        host_staged += 1
+        staged, x = out.cpu(), x.cpu()
+        work = dist.reduce_scatter_tensor(staged, x, group=group.pg, async_op=True)
+    else:
+        work = dist.reduce_scatter_tensor(out, x, group=group.pg, async_op=True)
+    return Pending(work, out, staged, dim, keep=x)
 
 
 def _all_to_all(t: torch.Tensor, group: Group, split_dim: int, cat_dim: int) -> torch.Tensor:
@@ -263,10 +308,19 @@ class TPRegion:
     """The tensor-parallel region of a layer (or of the embedding and head)
     over ``group``: ``enter`` before a column-parallel GEMM, ``exit`` after
     a row-parallel one. With ``sp`` the activations between regions are
-    sequence-sharded (dim 1)."""
+    sequence-sharded (dim 1). With ``overlap`` (the plan's ``tp_overlap``)
+    the projection seams of ``models/modeling.py`` run the decomposed
+    collective matmul (``ops/collective_matmul.py``): under SP the
+    column-parallel GEMM gathers the sequence itself (``ring``), and the
+    row-parallel GEMM reduces as an accumulator ring."""
 
-    def __init__(self, group: Group, sp: bool):
-        self.group, self.sp = group, sp
+    def __init__(self, group: Group, sp: bool, overlap: bool = False):
+        self.group, self.sp, self.overlap = group, sp, overlap
+
+    @property
+    def ring(self) -> bool:
+        """The sequence all-gather runs inside the column-parallel GEMM."""
+        return self.overlap and self.sp and self.size > 1
 
     @property
     def size(self) -> int:
@@ -453,6 +507,29 @@ def open_p2p(device: torch.device) -> None:
     dist.all_reduce(torch.zeros(1, device="cpu" if gloo else device))
 
 
+class Posted:
+    """Sends and receives in flight (:func:`post`): :meth:`wait` waits for
+    the receives, copies staged ones onto the card, and returns the pending
+    send handles."""
+
+    def __init__(self, works=(), n_ops=0, n_send=0, landed=(), keep=()):
+        self.works, self.n_ops, self.n_send = works, n_ops, n_send
+        self.landed, self.keep = landed, keep
+
+    def wait(self) -> List:
+        works = self.works
+        if len(works) == self.n_ops:  # one handle an op (gloo); NCCL coalesces them into one
+            wait_all(works[self.n_send:])
+            pending = works[:self.n_send]
+        else:
+            wait_all(works)
+            pending = []
+        for buf, h in self.landed:
+            if h is not buf:
+                buf.copy_(h)
+        return [(w, self.keep) for w in pending]
+
+
 def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
              recvs: Sequence[Tuple[torch.Tensor, int]]) -> List:
     """Post one batch of ``(tensor, dst rank)`` sends and ``(buffer, src
@@ -464,9 +541,17 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
     is bounded by the world's timeout (``--dist_timeout_s``): gloo raises
     at it, NCCL's watchdog ends the process. Under gloo a card tensor is
     staged through a host copy, as the collectives are."""
+    return post(sends, recvs).wait()
+
+
+def post(sends: Sequence[Tuple[torch.Tensor, int]],
+         recvs: Sequence[Tuple[torch.Tensor, int]]) -> Posted:
+    """:func:`exchange` without the wait: the messages are in flight when
+    it returns, and the receive buffers hold their data after
+    :meth:`Posted.wait`."""
     global p2p, host_staged
     if not sends and not recvs:
-        return []
+        return Posted()
     dist = _dist()
     staged = str(dist.get_backend()) == "gloo"
     ops, landed, keep = [], [], []
@@ -486,17 +571,7 @@ def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
         landed.append((buf, h))
         ops.append(dist.P2POp(dist.irecv, h, src))
     p2p += len(ops)
-    works = dist.batch_isend_irecv(ops)
-    if len(works) == len(ops):  # one handle an op (gloo); NCCL coalesces them into one
-        wait_all(works[n_send:])
-        pending = works[:n_send]
-    else:
-        wait_all(works)
-        pending = []
-    for buf, h in landed:
-        if h is not buf:
-            buf.copy_(h)
-    return [(w, keep) for w in pending]
+    return Posted(dist.batch_isend_irecv(ops), len(ops), n_send, landed, keep)
 
 
 def ring_shift(tensors: Sequence[torch.Tensor], group: Group, step: int = 1) -> List[torch.Tensor]:
@@ -504,11 +579,21 @@ def ring_shift(tensors: Sequence[torch.Tensor], group: Group, step: int = 1) -> 
     (the next one by default, cyclically), and what the member ``step``
     places back sent here: new tensors, in one :func:`exchange`. Every
     member must call it with tensors of the same shapes."""
+    bufs, posted = ring_post(tensors, group, step)
+    wait_all(posted.wait())
+    return bufs
+
+
+def ring_post(tensors: Sequence[torch.Tensor], group: Group,
+              step: int = 1) -> Tuple[List[torch.Tensor], Posted]:
+    """:func:`ring_shift` left in flight: (the receive buffers, the
+    :class:`Posted` messages). The buffers hold the predecessor's tensors
+    once ``wait_all(posted.wait())`` returns; work queued meanwhile
+    overlaps the transfer."""
     succ = group.ranks[(group.index + step) % group.size]
     pred = group.ranks[(group.index - step) % group.size]
     bufs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in tensors]
-    wait_all(exchange([(t, succ) for t in tensors], [(b, pred) for b in bufs]))
-    return bufs
+    return bufs, post([(t, succ) for t in tensors], [(b, pred) for b in bufs])
 
 
 class _RingShift(torch.autograd.Function):

@@ -39,8 +39,26 @@ insert the collectives, this runtime issues them (``parallel/comm.py``):
   the DP axes outside the EP axes (its replica group), where ZeRO shards it
   and its gradient is summed; the router's gradient, partial in each TP
   rank's share of the experts' columns, is summed over the TP group;
+- a layer whose plan sets ``tp_overlap`` (tp > 1, more than one rank, no
+  CP) runs its TP seams as the decomposed collective matmul
+  (``ops/collective_matmul.py``): the sequence all-gather and the
+  reduction travel the TP ring behind the GEMM chunks;
 - micro-batches (``chunks``) accumulate in sum form: the global token mean
-  divides by the token count of the whole batch.
+  divides by the token count of the whole batch. Under the plan's
+  ``grad_overlap`` (pp = 1) each zero2 / zero3 layer's gradient bucket (its
+  leaves that reduce-scatter onto an optimizer shard) is divided and issued
+  as an asynchronous reduce-scatter as soon as the layer's last micro-batch
+  backward has accumulated it; the step waits for every bucket before the
+  update. At pp > 1 the flag is accepted and changes nothing, as in the
+  reference.
+
+Packed sequences (``cfg.pack_sequences``): the batch rows are tokens ‖
+segment ids (``data/packing.py``); every stage derives the segment ids of
+the micro-batch it runs from the rows it is given (every rank holds the
+whole batch), and each layer takes its rows' ids over the whole sequence,
+masks its attention per segment and gathers per-row RoPE tables from them
+(also under SP, where its input is a sequence shard). The reference's
+refusals hold: 'clm' only, ``attn_impl='xla'`` only, no CP, no vpp > 1.
 
 Pipelines (pp > 1): the world is ``pp`` stages of W/pp ranks
 (``mesh.RankMesh``); each stage holds and runs only its layers
@@ -53,8 +71,8 @@ tied token table is held by the first and the last stage; the two copies'
 gradients are summed over the pair of ranks of one in-stage index, the
 gradient norm counts it once, and the loss reaches every rank.
 
-``train_step(state, batch)`` takes the GLOBAL (B, S+1) token batch on every
-rank (each rank keeps its rows) and updates this rank's state IN PLACE:
+``train_step(state, batch)`` takes the GLOBAL (B, S+1) token batch (packed:
+(B, 2·(S+1))) on every rank (each rank keeps its rows) and updates this rank's state IN PLACE:
 ``{"params", "opt", "step"}`` hold its shards. At world size 1 no process
 group exists and no collective runs: this is the single-device runtime.
 At pp = 1 the batch may have another size than ``global_batch_size`` (the
@@ -119,18 +137,35 @@ def embed_strategy(hp: HybridParallelConfig) -> LayerStrategy:
                          sp=hp.vocab_sp)
 
 
-def refuse_unported(hp: HybridParallelConfig) -> None:
-    """Raise ``NotImplementedError`` for every plan feature the port does
-    not run yet (at any pp), naming its ROADMAP item."""
-    if hp.grad_overlap:
-        raise NotImplementedError(
-            "grad_overlap (per-layer ZeRO gradient buckets) is not ported yet: the rest of "
-            "ROADMAP.md §1.6")
-    for i, s in enumerate(hp.layer_strategies):
-        if s.tp_overlap:
-            raise NotImplementedError(
-                f"layer {i}: tp_overlap (collective matmul) is not ported yet: the rest of "
-                "ROADMAP.md §1.6")
+def check_packed(cfg: ModelConfig, hp: Optional[HybridParallelConfig]) -> None:
+    """The reference's refusals of packed sequences (``build_runtime``),
+    with its messages: everything the segment mask cannot reach is refused
+    loudly rather than silently attending across documents."""
+    if not cfg.pack_sequences:
+        return
+    if cfg.objective != "clm" or cfg.enc_layers or cfg.image_size:
+        raise ValueError(
+            "pack_sequences requires a decoder-only CLM model "
+            "(enc-dec / vision / mlm rows carry no segment layout)"
+        )
+    if cfg.attn_impl != "xla":
+        raise ValueError(
+            "pack_sequences requires attn_impl='xla': the flash/ring "
+            "Pallas kernels carry no segment mask, and running them would "
+            "silently attend across packed documents"
+        )
+    if hp is None:
+        return
+    if any(s.cp > 1 for s in hp.layer_strategies):
+        raise ValueError(
+            "pack_sequences is incompatible with context parallelism "
+            "(ring/Ulysses assume a plain causal mask)"
+        )
+    if hp.pp > 1 and hp.vpp > 1:
+        raise ValueError(
+            "pack_sequences is not threaded through the interleaved "
+            "(vpp>1) schedule; use vpp=1 pipelines"
+        )
 
 
 def check_ep(cfg: ModelConfig, hp: HybridParallelConfig) -> None:
@@ -146,8 +181,7 @@ def check_cp(cfg: ModelConfig, hp: HybridParallelConfig, seq_len: int) -> None:
     """The reference's refusals of context parallelism (``build_runtime``'s
     checks and the Ulysses head rule), from the shapes alone: causal
     decoder-only models, the tp-local head count split over an a2a layer's
-    cp, and a sequence that splits over each cp layer's (SP and) CP ranks.
-    ``cli train --pack_sequences 1`` is refused before any plan is built."""
+    cp, and a sequence that splits over each cp layer's (SP and) CP ranks."""
     cps = [(i, s) for i, s in enumerate(hp.layer_strategies) if s.cp > 1]
     if not cps:
         return
@@ -313,8 +347,10 @@ class Runtime:
     pp: int = 1
     stage: int = 0  # this rank's pipeline stage
     stage_layers: List[int] = field(default_factory=list)  # the layers this rank runs
-    #: the last train step's "in_flight": the most micro-batches it held at once
-    stats: Dict[str, int] = field(default_factory=dict)
+    #: the last train step's "in_flight": the most micro-batches it held at once,
+    #: "updated", and under grad_overlap "buckets": {"backward": issued by the
+    #: backward's hooks, "after": issued after it}
+    stats: Dict[str, Any] = field(default_factory=dict)
 
 
 @functools.lru_cache(maxsize=8)
@@ -334,29 +370,40 @@ def _make_layer_hook(cfg: ModelConfig, ckpt: Union[str, List[str]], layer_fn=Non
     backward (saving only its input; the nested MLP policy is switched off
     there, as the reference does), 'selective' only the attention core.
     ``ckpt`` is one mode for every layer or a list of per-layer modes;
-    ``layer_fn(i, x, lp, layer_cfg, cos_sin, ckpt)`` replaces the plain
-    ``decoder_layer`` call (the hybrid runtime's redistribution, ZeRO-3
-    gathers and TP region), whose input may be a sequence shard: the RoPE
-    tables then cover ``seq_len`` positions."""
+    ``layer_fn(i, x, lp, layer_cfg, cos_sin, ckpt, seg_ids)`` replaces the
+    plain ``decoder_layer`` call (the hybrid runtime's redistribution,
+    ZeRO-3 gathers and TP region), whose input may be a sequence shard: the
+    RoPE tables then cover ``seq_len`` positions. ``seg_ids`` (packed rows,
+    (B, S) over the whole sequence) mask the attention per segment; the
+    RoPE tables are then gathered per row by the per-segment positions."""
 
-    def hook(i: int, x, lp):
+    def hook(i: int, x, lp, seg_ids=None):
         mode = ckpt if isinstance(ckpt, str) else ckpt[i]
         layer_cfg = _layer_cfg(cfg, mode)
         cos_sin = None
         if layer_cfg.pos_embed == "rope":
             cos_sin = _rope_tables(layer_cfg, seq_len or x.shape[1], x.device)
         if layer_fn is not None:
-            return layer_fn(i, x, lp, layer_cfg, cos_sin, mode)
+            return layer_fn(i, x, lp, layer_cfg, cos_sin, mode, seg_ids)
+        cos_sin = _packed_tables(layer_cfg, cos_sin, seg_ids)
 
         def run(x_):
             return modeling.decoder_layer(x_, lp, layer_cfg, cos_sin,
-                                          remat_attn=mode == "selective")
+                                          remat_attn=mode == "selective", seg_ids=seg_ids)
 
         if mode == "full" and torch.is_grad_enabled():
             return checkpoint(run, x, use_reentrant=False)
         return run(x)
 
     return hook
+
+
+def _packed_tables(cfg: ModelConfig, cos_sin, seg_ids):
+    """The shared RoPE tables gathered per row by the per-segment positions
+    of ``seg_ids`` (packed rows), or as they are."""
+    if seg_ids is None or cos_sin is None:
+        return cos_sin
+    return modeling.packed_rope_tables(cfg, modeling.positions_from_segments(seg_ids), cos_sin)
 
 
 def check_fp16(cfg: ModelConfig) -> None:
@@ -432,6 +479,56 @@ def _sum_tied(g: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     return comm.all_reduce(g, group)
 
 
+class _Buckets:
+    """The per-layer gradient buckets of one train step under
+    ``grad_overlap``: a hook on each bucketed leaf counts the leaves of its
+    layer whose gradient the last micro-batch's backward has accumulated
+    (``armed``); with the layer's last one, every leaf of its bucket is
+    divided (``divide``) and reduce-scattered asynchronously over its DP
+    group. A bucket the backward never completed is issued at
+    :meth:`result`."""
+
+    def __init__(self, leaves, leaf_plans, bucket_of: Dict[int, int], divide):
+        self.leaves, self.plans, self.divide = leaves, leaf_plans, divide
+        self.members: Dict[int, List[int]] = {}
+        for j, layer in bucket_of.items():
+            self.members.setdefault(layer, []).append(j)
+        self.bucket_of = bucket_of
+        self.left = {layer: len(js) for layer, js in self.members.items()}
+        self.pending: Dict[int, comm.Pending] = {}
+        self.armed = False
+        self.issued = {"backward": 0, "after": 0}  # buckets issued by the hooks / at result
+        self.handles = [leaves[j].register_post_accumulate_grad_hook(self._hook(j))
+                        for j in bucket_of]
+
+    def _hook(self, j: int):
+        def on_grad(p):
+            if not self.armed:
+                return
+            layer = self.bucket_of[j]
+            self.left[layer] -= 1
+            if self.left[layer] == 0:
+                self._issue(layer)
+                self.issued["backward"] += 1
+        return on_grad
+
+    def _issue(self, layer: int) -> None:
+        for j in self.members[layer]:
+            lp = self.plans[j]
+            self.pending[j] = comm.reduce_scatter_async(self.divide(self.leaves[j].grad),
+                                                        lp.dp_group, lp.opt_dim)
+
+    def result(self, j: int) -> torch.Tensor:
+        if j not in self.pending:
+            self._issue(self.bucket_of[j])
+            self.issued["after"] += 1
+        return self.pending.pop(j).wait()
+
+    def remove(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+
 def _schedules(hp: HybridParallelConfig, chunks: int):
     """(train schedule, eval schedule) of the plan: at pp = 1 the forward
     and backward of each micro-batch in turn (plain accumulation)."""
@@ -460,7 +557,8 @@ def build_runtime(
     device=None,
 ) -> Runtime:
     """The train/eval step of ``cfg`` under the plan ``hp`` on
-    (global_batch_size, seq_len + 1) token batches. Without ``hp`` the plan
+    (global_batch_size, seq_len + 1) token batches (packed:
+    ``modeling.batch_row_width``). Without ``hp`` the plan
     is uniform at tp=1 with ``chunks``, ``ckpt`` ('none' | 'full' |
     'selective', or the --global_checkpoint integer) and
     ``mixed_precision`` ('fp32' | 'bf16' | 'fp16'); with ``hp`` those come from the
@@ -469,6 +567,7 @@ def build_runtime(
     pipeline stage under the plan's schedule. ``device`` defaults to
     ``cuda`` and raises without a card unless 'cpu' is asked for."""
     device = resolve_device(device)
+    check_packed(cfg, hp)
     if hp is not None:
         check_cp(cfg, hp, seq_len)
         check_ep(cfg, hp)
@@ -485,7 +584,6 @@ def build_runtime(
             mixed_precision=mixed_precision, mlp_recompute=cfg.mlp_recompute)
     elif chunks is not None or ckpt is not None or mixed_precision is not None:
         raise ValueError("with a plan (hp), chunks / ckpt / mixed_precision come from the plan")
-    refuse_unported(hp)
     if hp.mixed_precision == "fp16":
         check_fp16(cfg)
     if hp.mixed_precision not in _PRECISION:
@@ -543,8 +641,10 @@ def build_runtime(
     extra = {"tied": [[r, r + (pp - 1) * mesh.per_stage] for r in range(mesh.per_stage)]
              } if tied else None
     groups = ProcessGroups(mesh, rank, axes_list, extra)
-    if pp > 1 or any(s.cp > 1 and s.cp_impl == "ring" for s in strategies):
-        comm.open_p2p(device)  # the ring shifts K/V with exchange too
+    # the reference's condition for the collective matmul (``with_tp_overlap_ctx``)
+    overlap = [s.tp_overlap and s.tp > 1 and world > 1 and s.cp == 1 for s in strategies]
+    if pp > 1 or any(s.cp > 1 and s.cp_impl == "ring" for s in strategies) or any(overlap):
+        comm.open_p2p(device)  # the CP ring and the collective matmul shift with exchange too
     stage_group = groups.get(mesh.axes.data_axes)
     world_group = groups.get(mesh.world_axes)
     all_plans = model_leaf_plans(cfg, hp, mesh, param_shapes(cfg))
@@ -567,8 +667,8 @@ def build_runtime(
     layouts = [act_layout(s) for s in strategies]
     embed_layout = act_layout(es)
     # a CP layer runs its TP region without SP, on its CP block (``inner``)
-    tp_regions = [comm.TPRegion(groups.get(mesh.tp_axes(s)), s.sp and s.cp == 1)
-                  if s.tp > 1 else None for s in strategies]
+    tp_regions = [comm.TPRegion(groups.get(mesh.tp_axes(s)), s.sp and s.cp == 1, overlap[i])
+                  if s.tp > 1 else None for i, s in enumerate(strategies)]
     inner = [(layouts[i][0], mesh.cp_axes(s)) if s.cp > 1 else layouts[i]
              for i, s in enumerate(strategies)]
     cp_layers = [functools.partial(ring.ring_decoder_layer if s.cp_impl == "ring"
@@ -606,12 +706,17 @@ def build_runtime(
     has_zero3 = [any(lp.zero3_dim is not None for lp in tree_leaves(all_plans["layers"][i]))
                  for i in range(len(strategies))]
 
-    def layer_fn(i, x, lp, layer_cfg, cos_sin, mode):
+    def layer_fn(i, x, lp, layer_cfg, cos_sin, mode, seg_ids=None):
         # the input arrives in the previous layer's layout, also across a
         # stage boundary: the receiving stage moves it
         x = comm.redistribute(x, mesh, rank, stage_group,
                               layouts[i - 1] if i else embed_layout, layouts[i])
         lplans = all_plans["layers"][i]
+        if seg_ids is not None:
+            # this layer's rows, over the whole sequence: the attention sees
+            # all of it (no CP under packing; SP gathers it in the TP region)
+            seg_ids = seg_ids[mesh.batch_rows(rank, strategies[i], seg_ids.shape[0])]
+            cos_sin = _packed_tables(layer_cfg, cos_sin, seg_ids)
         if cfg.moe_experts > 0:
             ctx = moe_ctx(i, x.shape[0] << len(layouts[i][0]))
             layer_cfg = layer_cfg.replace(moe_ctx=ctx) if ctx is not None else layer_cfg
@@ -621,7 +726,8 @@ def build_runtime(
             if cp_layers[i] is not None:
                 return cp_layers[i](x_, p, layer_cfg, cos_sin=cos_sin, tp=tp_regions[i])
             return modeling.decoder_layer(x_, p, layer_cfg, cos_sin,
-                                          remat_attn=mode == "selective", tp=tp_regions[i])
+                                          remat_attn=mode == "selective", tp=tp_regions[i],
+                                          seg_ids=seg_ids)
 
         # SP with CP: the CP block, gathered over the TP group, and back
         x = comm.redistribute(x, mesh, rank, stage_group, layouts[i], inner[i])
@@ -655,13 +761,19 @@ def build_runtime(
         ends = k == 0 or head
         rg = comm.Regather() if ends and top_zero3 and torch.is_grad_enabled() else None
         top = {key: materialize(params[key], plans[key], rg) for key in top_keys} if ends else {}
+        hook_kw, pos_ids = {}, None
+        if cfg.pack_sequences:
+            # the segment ids of every row of the micro-batch (each layer takes its own)
+            hook_kw["seg_ids"] = modeling.split_packed_inputs(modeling.split_batch(mb, cfg)[0])[1]
         if ends:
             tokens, labels = modeling.split_batch(mb[mesh.batch_rows(rank, es, mb.shape[0])], cfg)
+            if cfg.pack_sequences:
+                tokens, _, pos_ids = modeling.split_packed_inputs(tokens)
         with rg.saving() if rg is not None else contextlib.nullcontext():
             if k == 0:
-                x = modeling.embed(tokens, top, cfg, vocab)
+                x = modeling.embed(tokens, top, cfg, vocab, pos_ids=pos_ids)
             for i in vstages[k]:
-                x = hook(i, x, params["layers"][local[i]])
+                x = hook(i, x, params["layers"][local[i]], **hook_kw)
             if head:
                 # a zero-layer model (the profiler's vocab fit) has no layer layout
                 x = comm.redistribute(x, mesh, rank, stage_group,
@@ -682,13 +794,16 @@ def build_runtime(
     def peer(d):
         return rank + (d - stage) * mesh.per_stage
 
+    width = modeling.batch_row_width(cfg, seq_len)
+
     def _batch(batch) -> torch.Tensor:
         # pp = 1 takes other batch sizes (the ramp-up); a pipeline's buffers
         # are shaped for global_batch_size
         rows_ok = batch.shape[0] == global_batch_size or (pp == 1 and batch.shape[0] % chunks == 0)
-        if batch.ndim != 2 or batch.shape[1] != seq_len + 1 or not rows_ok:
-            raise ValueError(f"batch must be ({global_batch_size}, {seq_len + 1}) tokens, "
-                             f"got {tuple(batch.shape)}")
+        if batch.ndim != 2 or batch.shape[1] != width or not rows_ok:
+            raise ValueError(f"batch must be ({global_batch_size}, {width}) tokens"
+                             + (" ‖ segment ids" if cfg.pack_sequences else "")
+                             + f", got {tuple(batch.shape)}")
         return torch.as_tensor(batch).to(device=device, dtype=torch.long)
 
     def token_count(batch) -> torch.Tensor:
@@ -707,6 +822,17 @@ def build_runtime(
         if not torch.is_tensor(sq):
             sq = torch.zeros((), dtype=torch.float32, device=device)
         return torch.sqrt(comm.all_reduce(sq, world_group))
+
+    # grad_overlap (pp = 1): each zero2 / zero3 layer's leaves that reduce-
+    # scatter onto an optimizer shard (the reference pins exactly those)
+    bucket_of: Dict[int, int] = {}
+    if hp.grad_overlap and pp == 1:
+        index = {id(lp): j for j, lp in enumerate(leaf_plans)}
+        for i, s in enumerate(strategies):
+            if s.dp_type in ("zero2", "zero3"):
+                for lp in tree_leaves(plans["layers"][local[i]]):
+                    if lp.zero3_dim is None and lp.opt_dim is not None:
+                        bucket_of[index[id(lp)]] = i
 
     def train_step(state: Dict[str, Any], batch):
         params = state["params"]
@@ -737,8 +863,20 @@ def build_runtime(
             live[(k, m)] = (x, y)
             return None if k == last_vstage else y
 
+        def divide(g):
+            # before the reduction, as the post-backward loop does
+            if fp16:
+                g.div_(gdenom)
+            elif chunks > 1:
+                g.div_(denom)
+            return g
+
+        buckets = _Buckets(leaves, leaf_plans, bucket_of, divide) if bucket_of else None
+
         def backward(k, m, g):
             x, y = live.pop((k, m))
+            if buckets is not None:
+                buckets.armed = m == chunks - 1  # pp = 1: the last micro-batch's backward
             if k == last_vstage:
                 if fp16:
                     (y * seed).backward()
@@ -748,15 +886,18 @@ def build_runtime(
                 torch.autograd.backward(y, g)
             return None if k == 0 else x.grad
 
-        in_flight = pipeline.execute(sched, stage, peer, forward, backward, buffer)
+        try:
+            in_flight = pipeline.execute(sched, stage, peer, forward, backward, buffer)
+        finally:
+            if buckets is not None:
+                buckets.remove()
         grads = []
-        for p, lp in zip(leaves, leaf_plans):
-            g = p.grad
-            if fp16:
-                g.div_(gdenom)
-            elif chunks > 1:
-                g.div_(denom)
-            g = _reduce_cp(_reduce_dp(g, lp), lp)
+        for j, (p, lp) in enumerate(zip(leaves, leaf_plans)):
+            if buckets is not None and j in bucket_of:
+                g = buckets.result(j)  # the step waits for every bucket
+            else:
+                g = _reduce_dp(divide(p.grad), lp)
+            g = _reduce_cp(g, lp)
             if lp.tp_sum:
                 g = comm.all_reduce(g, lp.tp_group)
             if lp is tied_leaf:
@@ -785,6 +926,8 @@ def build_runtime(
         state["step"] += 1
         stats["in_flight"] = in_flight
         stats["updated"] = updated
+        if buckets is not None:
+            stats["buckets"] = dict(buckets.issued)
         return state, loss
 
     @torch.no_grad()

@@ -579,8 +579,8 @@ REMAT_SELECTIVE_FACTOR = 3.25
 # layer runs the decomposed collective-matmul (s.tp_overlap — ops/
 # collective_matmul.py): the ring hides T-1 of T hops behind the GEMM chunks,
 # leaving the first hop, the per-chunk launch overhead, and (non-sp) the
-# output-gather half exposed; the JAX package's conservative prior (the
-# port does not run tp_overlap yet: ROADMAP.md §1.6).
+# output-gather half exposed; the JAX package's conservative prior, not yet
+# refit to the port's ring (comm.ring_post over NCCL) on the card.
 TP_OVERLAP_RESIDUAL = 0.4
 # Comm-volume conventions the analytic terms below price (the JAX package's
 # collective auditor replays them; kept named for parity).

@@ -123,7 +123,10 @@ def measured_train_mb(
     torch.cuda.synchronize(device)
     state_b = torch.cuda.memory_allocated(device) - base
     torch.cuda.reset_peak_memory_stats(device)
-    batch = torch.zeros((global_bsz, seq + 1), dtype=torch.long)
+    from galvatron_tpu_torch.models.modeling import batch_row_width
+
+    # the row width of the loader's batches (packed rows carry segment ids)
+    batch = torch.zeros((global_bsz, batch_row_width(cfg, seq)), dtype=torch.long)
     state, loss = rt.train_step(state, batch)
     float(loss)
     total_b = torch.cuda.max_memory_allocated(device) - base

@@ -249,14 +249,20 @@ def test_pipeline_batches_cursor_and_resume_verdicts_are_equal(tmp_path):
 
 
 def test_single_source_pipeline_matches_and_packing_raises(tmp_path):
+    # (packing is ported: the packed pipeline equals the JAX package's here,
+    # and tests/test_torch_packing.py holds its mixtures, resume and prefetch)
     pa, _ = _corpora(tmp_path)
     jp = jpipe.build_data_pipeline(_PipeCfg, 4, 32, seed=5, data_path=pa, start_batch=3)
     tp = tpipe.build_data_pipeline(_PipeCfg, 4, 32, seed=5, data_path=pa, start_batch=3)
     for _ in range(4):
         np.testing.assert_array_equal(next(jp), next(tp))
     assert tp.last_meta == {"position": 24}
-    with pytest.raises(NotImplementedError, match="packed sequences"):
-        tpipe.build_data_pipeline(_PipeCfg, 4, 32, data_path=pa, pack=True)
+    jp = jpipe.build_data_pipeline(_PipeCfg, 4, 32, seed=5, data_path=pa, pack=True)
+    tp = tpipe.build_data_pipeline(_PipeCfg, 4, 32, seed=5, data_path=pa, pack=True)
+    for _ in range(4):
+        np.testing.assert_array_equal(next(jp), next(tp))
+        assert tp.last_meta == jp.last_meta
+    assert tp.summary(16) == jp.summary(16)
     with pytest.raises(ValueError, match="--data_path or --data_mixture"):
         tpipe.build_data_pipeline(_PipeCfg, 4, 32)
 

@@ -365,7 +365,9 @@ def _tcfg(**kw):
 #: fp16 itself runs (tests/test_torch_fp16.py); with fused_norm it is
 #: ROADMAP §1.1's remainder. Expert parallelism (§1.9) runs on MoE models
 #: (tests/test_torch_moe.py); its case holds the reference's refusal of ep on
-#: a dense model.
+#: a dense model. tp_overlap and grad_overlap (§1.6) run
+#: (tests/test_torch_collective_matmul.py): their cases build and equal their
+#: overlap-off runs.
 UNPORTED = [("ep", dict(ep=2), "§1.9"),
             ("tp_overlap", dict(tp_overlap=True), "§1.6"),
             ("grad_overlap", dict(grad_overlap=True), "§1.6"),
@@ -388,6 +390,34 @@ def test_unported_plan_features_raise_naming_their_item(what, change, item, pp):
     if what == "ep":
         with pytest.raises(ValueError, match=r"ep=2 but the model has 0 experts \(dense MLP\)"):
             hybrid.build_runtime(cfg, hp, global_batch_size=BATCH, seq_len=SEQ, device="cpu")
+        return
+    if what in ("tp_overlap", "grad_overlap"):
+        from galvatron_tpu_torch.core.optim import tree_leaves
+
+        # at world size 1 both fields are inert: the plan trains as its
+        # overlap-off twin does, and a pipeline is refused alike (one rank)
+        off = ts.HybridParallelConfig(pp=pp, chunks=2, layer_strategies=[ts.LayerStrategy()] * 4)
+        runs = []
+        for plan in (hp, off):
+            plan.mixed_precision = "fp32"
+            if pp > 1:
+                with pytest.raises(ValueError) as e:
+                    hybrid.build_runtime(cfg, plan, global_batch_size=BATCH, seq_len=SEQ,
+                                         device="cpu")
+                runs.append(str(e.value))
+                continue
+            rt = hybrid.build_runtime(cfg, plan, global_batch_size=BATCH, seq_len=SEQ,
+                                      device="cpu")
+            state = rt.init_state(0)
+            batch = torch.from_numpy(_batches(BATCH, seed=5)[0])
+            losses = [float(rt.train_step(state, batch)[1]) for _ in range(2)]
+            runs.append((losses, [p.clone() for p in tree_leaves(state["params"])]))
+        if pp > 1:
+            assert runs[0] == runs[1] and "pp=2" in runs[0]
+            return
+        assert runs[0][0] == runs[1][0]
+        for a, b in zip(runs[0][1], runs[1][1]):
+            assert torch.equal(a, b)
         return
     with pytest.raises(NotImplementedError, match=item):
         hybrid.build_runtime(cfg, hp, global_batch_size=BATCH, seq_len=SEQ, device="cpu")

@@ -85,23 +85,26 @@ SERVING_MODULES = ("galvatron_tpu_torch.models.generation", "galvatron_tpu_torch
                    "galvatron_tpu_torch.server", "galvatron_tpu_torch.cli")
 #: the mixture-of-experts slice's module (the rest of it is in the runtime's)
 MOE_MODULES = ("galvatron_tpu_torch.models.moe",)
+#: the packed-sequence and overlap slice's modules
+PACKED_OVERLAP_MODULES = ("galvatron_tpu_torch.data.packing",
+                          "galvatron_tpu_torch.ops.collective_matmul")
 SCANNED = sorted([str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
                  + ["chip_smoke.py", "experiments/torch_decode_profile.py"])
 
 
 def test_the_scan_covers_the_parallel_modules():
     for m in PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES + SERVING_MODULES + (
-            MOE_MODULES + ("galvatron_tpu_torch.data",)):
+            MOE_MODULES + PACKED_OVERLAP_MODULES + ("galvatron_tpu_torch.data",)):
         assert m.replace(".", "/") + ".py" in SCANNED or \
             m.replace(".", "/") + "/__init__.py" in SCANNED
 
 
 @pytest.mark.parametrize("module", PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES
-                         + SERVING_MODULES + MOE_MODULES)
+                         + SERVING_MODULES + MOE_MODULES + PACKED_OVERLAP_MODULES)
 def test_parallel_module_alone_loads_no_jax(module):
     """Each module of the hybrid runtime, the search, the training services
     and generation / serving, imported first and alone in a fresh
-    interpreter, pulls in neither JAX, the JAX package, Orbax nor
+    interpreter (packing and the collective matmul too), pulls in neither JAX, the JAX package, Orbax nor
     TensorStore."""
     code = (
         "import importlib, sys\n"

@@ -290,15 +290,26 @@ def test_cli_train_refuses_unported_flags():
     # flags parse, and --pp_deg 2 in a world of one rank raises the
     # world-size error instead of running pp=1
     # (--save / --data_path are ported: tests/test_torch_checkpoint.py and
-    # tests/test_torch_data.py); --pack_sequences 1 parses and raises; the
-    # context-parallel flags are ported (tests/test_torch_context_parallel.py)
+    # tests/test_torch_data.py); the context-parallel flags are ported
+    # (tests/test_torch_context_parallel.py), and so are the overlap flags
+    # (tests/test_torch_collective_matmul.py) and --pack_sequences
+    # (tests/test_torch_packing.py), which needs a corpus as the reference's does
+    from galvatron_tpu.core.arguments import initialize_galvatron as j_init
+    from galvatron_tpu.core.trainer import train as j_train
+
     for flag in (["--num_slices", "2"], ["--load_hf", "d"],
-                 ["--global_tp_overlap", "1"], ["--grad_overlap", "1"],
                  ["--pipeline_type", "zero_bubble"], ["--pp_division", "2,x"]):
         with pytest.raises(SystemExit):
             cli.main(["train", "--device", "cpu", *flag])
-    with pytest.raises(NotImplementedError, match="packed sequences"):
+    ns = cli_args.initialize_galvatron("train", ["--global_tp_overlap", "1", "--grad_overlap",
+                                                 "1", "--global_tp_deg", "2"])
+    hp = cli_args.hybrid_config_from_args(ns, 2, 2)
+    assert hp.grad_overlap and all(s.tp_overlap and s.tp == 2 for s in hp.layer_strategies)
+    with pytest.raises(ValueError) as je:
+        j_train(j_init("train", ["--pack_sequences", "1"]))
+    with pytest.raises(ValueError) as te:
         cli.main(["train", "--device", "cpu", "--pack_sequences", "1"])
+    assert str(te.value) == str(je.value) and "need a real corpus" in str(te.value)
     ns = cli_args.initialize_galvatron("train", ["--pp_deg", "2", "--vpp_deg", "2", "--pp_division",
                                         "2,2", "--pipeline_type", "pipedream_flush"])
     assert (ns.pp_deg, ns.vpp_deg, ns.pp_division, ns.pipeline_type) == (
