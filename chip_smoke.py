@@ -72,7 +72,7 @@ its result line:
    call through the RMSNorm forward kernel;
 5. llama-7b width, gpt-1.5b width and, with ``fused_norm=True``, llama-7b
    and opt-1.3b width, each at ``PARITY_LAYERS`` (1) layer in fp32, batch 1,
-   s=512: three ``train_step``s on the card (flash kernels: blocked for
+   s=512: two ``train_step``s on the card (flash kernels: blocked for
    llama, grid for GPT) and on the CPU (plain versions) from the same
    weights and batches; losses within 1e-3 and each kernel of the model's
    path launched layers x steps times, the other family's none. Then bf16
@@ -130,9 +130,9 @@ its result line:
    that changes the DP degree at every boundary (tp=2 + SP ddp; tp=1 zero3
    with full recompute; tp=2 selective; tp=1 zero2; vocab_tp 2), each rank
    under a wall-clock limit: (a) fp32, the plan's first two layers at
-   llama-7b width, batch 2 x 512, 3 steps: losses within 1e-3 of the same
+   llama-7b width, batch 2 x 512, 2 steps: losses within 1e-3 of the same
    layers' world-size-1 plan in this process, and every rank's parameter
-   pieces within 2 x 3 x lr of that run's (AdamW's band); (b) bf16, the
+   pieces within 2 x 2 x lr of that run's (AdamW's band); (b) bf16, the
    whole plan at 4 layers, batch 8 x 2048, 2 steps: losses within 2e-2
    relative of phase 11's (same weights and batches), each rank's flash
    forward / backward launched 12 / 8 times on the TMA route at 16 heads
@@ -143,19 +143,19 @@ its result line:
 13. pipelines through the same ``--rank-worker`` launcher and strategy
    JSONs (phase name ``pipeline``): (a) four ranks share card 0 over gloo,
    pp=2 x tp=2 (SP), 1F1B, fp32, llama-7b width at 2 layers, batch 4 x 512,
-   chunks 2, 3 steps: losses within 1e-3 of the same layers at world size 1
+   chunks 2, 2 steps: losses within 1e-3 of the same layers at world size 1
    in this process and every rank's pieces within AdamW's band of its
    parameters; (b) two ranks share the card, pp=2, bf16, llama-7b width at
    phase 7's 4 layers (batch 8 x 2048), chunks 8, under GPipe, 1F1B and
-   interleaved 1F1B (vpp=2), 3 steps each, one after another in one pair of
+   interleaved 1F1B (vpp=2), 2 steps each, one after another in one pair of
    rank processes (``--then`` between their flags): losses within 2e-2 relative of
    phase 11's, each rank's blocked flash forward and backward launched
-   (its stage's layers x 8 x 3) times on the TMA route, and 1F1B's stage-0
+   (its stage's layers x 8 x 2) times on the TMA route, and 1F1B's stage-0
    peak memory below GPipe's; (c) gpt-1.5b at all 48 layers, 1F1B over
    the division 25 / 23, two ranks on the card, batch 8 x 1024, chunks 4,
-   3 steps: the grid kernels and the tied table across stages, losses
+   2 steps: the grid kernels and the tied table across stages, losses
    within 2e-2 relative of phase 8's, each rank's grid kernels (its
-   stage's layers x 4 x 3) on the TMA route. Host-staged messages, p2p
+   stage's layers x 4 x 2) on the TMA route. Host-staged messages, p2p
    counts, iter_ms (a gloo transport figure) and peak memory per rank.
    13b (phase name ``nccl``): (b) over NCCL on cards 0 and 1 where the
    machine has two, beside phases 11 and 12b; otherwise reported absent.
@@ -225,7 +225,7 @@ its result line:
 17. context parallelism (phase name ``cp``), ``cli train``'s own call
    (``--rank-worker``) on two ranks sharing card 0 over gloo: (a) fp32,
    llama-7b width at 2 layers, batch 2 x 1024, layer 0 cp 2 ring and layer 1
-   cp 2 a2a, 3 steps: losses within 1e-5 of the same layers at world size 1
+   cp 2 a2a, 2 steps: losses within 1e-5 of the same layers at world size 1
    in this process and every rank's pieces within 1e-4 (one AdamW step) of
    its parameters; the same run without the CP gradient sum, beside it on
    the card, must leave both; (b) bf16, llama-7b width at 4 layers, batch 2 x 16384
@@ -249,18 +249,19 @@ its result line:
    the machine has two; otherwise reported absent.
 18. mixture-of-experts and expert parallelism (phase name ``moe``), 8
    experts: (d) ``cli profile`` of an h 1024 model (8 heads of 128, ffn
-   2816, 2 layers, batch 4 x 512), ``cli search --enable_ep 1`` for two
-   devices on it and ``check-plan``: the plan must carry ep > 1; (a) that
-   plan in fp32 on two ranks sharing card 0 over gloo against world size 1:
-   losses within 1e-5, parameters within 1e-4, beside a control run (ep 1,
-   each rank routing its own tokens) that must leave both; each rank's MoE
+   2816, 2 layers, 512 tokens a row, profiled at ``MOE_PROFILE_BATCH`` 16),
+   ``cli search --enable_ep 1`` at batch 4 for two devices on it and
+   ``check-plan``: the plan must carry ep > 1; (a) that plan in fp32 on
+   two ranks sharing card 0 over gloo against world size 1: losses within
+   1e-5, parameters within 1e-4, beside a control run (ep 1, each rank
+   routing its own tokens) that must leave both; each rank's MoE
    moves (logits gathers, dispatch and combine all-to-alls) as the plan
    implies;
    (b) ``cli train`` at llama-7b width, 2 layers, batch 8 x 2048, bf16, 10
    iterations at world size 1 (iter_ms, tokens/s, peak memory; blocked flash
    launches = layers x iterations, all TMA), a profile window splitting the
    step into routing, dispatch, expert GEMMs and combine, then ep 2 with DDP
-   on two ranks over gloo, 3 steps (rank 0 profiled): losses within 2e-2
+   on two ranks over gloo, 2 steps (rank 0 profiled): losses within 2e-2
    relative of world size 1's, each rank's peak below world size 1's, its
    launches and MoE moves as the plan implies; (c) ``cli serve`` of the MoE
    model at 4 layers on the paged backend driven as phase 6 (paged_decode
@@ -295,6 +296,33 @@ its result line:
    route; iter_ms on and off (a gloo transport figure). 20b (phase name
    ``nccl``): the searched plan over NCCL on cards 0 and 1, on / off / on, 6
    steps each, where the machine has two; otherwise reported absent.
+21. HF import / export and ALiBi (phase name ``hf``): (a) ``cli export-hf``
+   of seed-0 weights at llama-7b width, 2 layers (drawn on the card), the
+   directory's safetensors headers read back by this script (F32, offsets
+   tiling the data, ``format: pt``), ``load_hf_checkpoint`` bitwise equal to
+   the exported weights; ``cli train --load_hf`` 2 bf16 steps at 4 x 2048
+   (the blocked flash kernels 2 x 2 each, TMA); ``cli serve --load_hf`` on
+   the paged backend driven as phase 6 (``paged_decode`` launched layers x
+   decode steps), every prompt's tokens held to ``generate_np`` on the
+   served weights by the margin rule; (b) the same round trip at gpt-1.5b
+   width, 2 layers, and 2 train steps at 4 x 1024 on the grid kernels; (c) a
+   Baichuan-1 directory written by this script at baichuan-13b width (5120,
+   40 heads, ffn 13696, vocab 64000), 2 layers: ``config.json`` with
+   ``model_max_length`` 4096, fused ``W_pack``, two bf16 ``.bin`` shards and
+   their index; ``load_hf_checkpoint`` gives ``pos_embed='alibi'`` and the
+   bf16 weights widened bitwise (host RSS sampled during the import); fp32
+   logits of a 2 x 128 batch on the card against the CPU within
+   ``BAICHUAN_LOGIT_TOL`` (loss within ``BAICHUAN_LOSS_RTOL`` relative), no
+   kernel launched under ``attn_impl='flash'``; ``cli train --load_hf`` 2 bf16
+   steps at 4 x 2048 (iter_ms, peak memory, no flash launch); tp 2 on two
+   gloo ranks sharing the card (vocab tp 2), fp32, 1 x 2048, 2 steps: losses within
+   ``BAICHUAN_TP_RTOL`` relative of world size 1 in this process, and the
+   control (every rank the first n/tp slopes), run beside it, must miss;
+   (d) ``cli serve --model_size baichuan-13b`` at 20 of its 40 layers,
+   bf16, on the slot then the paged backend, driven as phase 6: tokens held across the
+   backends (equal, or the margin rule), every paged decode step on the
+   einsum route (``generation.decode_routes``) and no ``paged_decode``
+   launch; decode ms a step.
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
@@ -309,6 +337,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -1453,6 +1482,9 @@ def phase_forward(torch, fused=False):
 # the fp32 card-vs-CPU steps' depth: the CPU side sets the phase's time, and
 # one layer runs every kernel and module a deeper model runs
 PARITY_LAYERS = 1
+# and its steps: two, which compare an updated step, keep the script inside
+# its time limit
+PARITY_STEPS = 2
 
 
 def kernel_counts():
@@ -1520,7 +1552,7 @@ def phase_train_parity(torch, model, fused=False):
     preset = TRAIN_PATHS[model][0]
     cfg = modeling.PRESETS[preset].replace(num_layers=PARITY_LAYERS, max_seq_len=512,
                                            attn_impl="flash", fused_norm=fused)
-    steps, t0 = 3, time.perf_counter()
+    steps, t0 = PARITY_STEPS, time.perf_counter()
     adam = AdamConfig(lr=1e-4, weight_decay=0.01, grad_clip=1.0)
     cpu_params = modeling.init_model_params(cfg, 0, "cpu")
     runs = {}
@@ -2209,7 +2241,7 @@ def phase_train_profile(torch, run, hp=None):
 # ---------------------------------------------------------------------------
 
 HYBRID_ITERS = 10  # phase 11
-HYBRID_STEPS = 3  # phase 12 (a)
+HYBRID_STEPS = 2  # phase 12 (a); two keep the script inside its time limit
 # phase 12 (b): its gloo steps are host-staged transport (~14 s each), so it
 # runs two, which still compare an updated step with world size 1's
 HYBRID_BF16_STEPS = 2
@@ -2458,7 +2490,7 @@ def phase_hybrid_ranks(torch, smi, tmpdir, backend, local_ranks, world1):
 # phase 13: pipelines (cli train --pp_deg through a strategy JSON)
 # ---------------------------------------------------------------------------
 
-PIPE_STEPS = 3
+PIPE_STEPS = 2  # two keep the script inside its time limit
 # (a) fp32 parity: pp=2 x tp=2 (SP), 1F1B, llama-7b width at 2 layers
 PIPE_FP32 = dict(layers=2, batch=4, seq=512, chunks=2)
 # (b) bf16 at phase 7's shape: chunks 8 under each schedule (pipeline_type, vpp)
@@ -3375,7 +3407,7 @@ def phase_services(torch, smi, train_res):
 # phase 17: context parallelism (cli train with cp plans; ring and Ulysses)
 # ---------------------------------------------------------------------------
 
-CP_STEPS = 3
+CP_STEPS = 2  # 17 (a); two keep the script inside its time limit
 # (b)'s steps: its gloo steps are host-staged transport (~21 s each), so it
 # runs two, which still compare an updated step with world size 1's
 CP_LONG_STEPS = 2
@@ -3398,9 +3430,9 @@ CP_FN_SHAPE = dict(b=2, h=32, s=4096, d=128)
 CP_FP32_PARAM_BAND = 1e-4
 CP_FP32_LOSS_TOL = 1e-5
 #: the controls: the CP gradient sum left out (17 (a)), the ring hop from ring
-#: position 0 left out (17 (c)), and MoE routing over each rank's own tokens
-#: (18 (a))
-CP_CONTROLS = ("no_cp_reduce", "drop_past_hop", "local_routing")
+#: position 0 left out (17 (c)), MoE routing over each rank's own tokens
+#: (18 (a)), and every TP rank given the first n/tp ALiBi slopes (21 (c))
+CP_CONTROLS = ("no_cp_reduce", "drop_past_hop", "local_routing", "first_slopes")
 
 
 def _cp_control(name):
@@ -3414,6 +3446,10 @@ def _cp_control(name):
         return _patched(ring, _past=lambda owner, idx: 0 < owner < idx)
     if name == "local_routing":  # 18 (a): no MoE context, each rank routes its own tokens
         return _patched(hybrid, MoEContext=lambda *a, **k: None)
+    if name == "first_slopes":  # 21 (c): every TP rank the slopes of heads 0..n/tp-1
+        from galvatron_tpu_torch.models import modeling
+
+        return _patched(modeling, alibi_local=lambda slopes, tp: slopes[:len(slopes) // tp.size])
     if name is None:
         return contextlib.nullcontext()
     raise ValueError(f"unknown control {name!r}")
@@ -3772,7 +3808,7 @@ def phase_cp(torch, smi, run_gloo=True, run_nccl=False):
 
 MOE_EXPERTS = 8
 # (b): llama-7b width, 8 experts, depth cut to 2 layers, batch 8 x 2048
-MOE_LAYERS, MOE_ITERS, MOE_EP_STEPS = 2, 10, 3
+MOE_LAYERS, MOE_ITERS, MOE_EP_STEPS = 2, 10, 2  # two ep steps: the script's time limit
 MOE_BATCH, MOE_SEQ = 8, 2048
 # (b)'s plan on two ranks: ep 2 over the two (DDP on the dense leaves)
 MOE_EP = 2
@@ -3784,6 +3820,12 @@ MOE_FP32 = dict(layers=2, batch=4, seq=512)
 # cli train's lr); a run that routes each rank's own tokens crosses both
 MOE_FP32_LOSS_TOL = 1e-5
 MOE_FP32_PARAM_BAND = 1e-4
+# (d)'s profile batch: at (a)'s batch 4 the step is launch-bound (the layer's
+# step time barely moves with 4x the tokens), so no timing resolves the expert
+# work and the fit straddles the search's threshold (ROADMAP §3);
+# experiments/torch_moe_fit_spread.py on one H100: threshold 0.153 at batch
+# 16, where 12 of 12 fits (the port's and the reference's) read 0.328-0.804
+MOE_PROFILE_BATCH = 16
 #: the profiler ranges of ``models/moe.py`` and the autograd nodes of the
 #: MoE block's backward, by part of the step
 MOE_PARTS = {"routing": ("moe.routing",), "dispatch": ("moe.dispatch", "_DispatchBackward"),
@@ -3914,7 +3956,7 @@ def _moe_moves_want(layers, steps, ep, recomputed=0):
 def phase_moe_train(torch, smi, tmpdir):
     """18 (b): ``cli train`` of the llama-7b-width MoE at world size 1 (10
     iterations; a profile window splits its step), then the ep 2 plan on two
-    ranks sharing the card over gloo (3 steps, its rank 0 profiled)."""
+    ranks sharing the card over gloo (2 steps, its rank 0 profiled)."""
     from torch.profiler import ProfilerActivity, profile
 
     from galvatron_tpu_torch import cli
@@ -4160,7 +4202,7 @@ def phase_moe_search(torch, smi, tmpdir):
     prefix = os.path.join(tmpdir, "profile_moe")
     gc.collect()
     torch.cuda.empty_cache()
-    rc, _ = _cli(["profile", *model, "--profile_batch_size", str(a["batch"]),
+    rc, _ = _cli(["profile", *model, "--profile_batch_size", str(MOE_PROFILE_BATCH),
                   "--output_prefix", prefix])
     check(rc == 0, f"18 (d): cli profile returned {rc}")
     lt = load_profiled_model(prefix + "_computation.json",
@@ -4365,8 +4407,8 @@ def phase_packed_train(torch, smi, tmpdir):
     # the control: the same first step with the segment mask dropped
     real = modeling.attention_xla
 
-    def unmasked(q, k, v, cfg, q_offset, seg_ids=None):
-        return real(q, k, v, cfg, q_offset)
+    def unmasked(q, k, v, cfg, q_offset, seg_ids=None, bias=None):
+        return real(q, k, v, cfg, q_offset, bias=bias)
 
     modeling.attention_xla = unmasked
     try:
@@ -4546,6 +4588,469 @@ def phase_overlap(torch, smi, run_gloo=True, run_nccl=False):
     return runs["bf16_searched"][0]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 21: HF import / export and ALiBi (Baichuan)
+# ---------------------------------------------------------------------------
+
+#: (a) / (b): (preset, layers, batch, seq, train steps) of the round trips
+HF_LLAMA = ("llama-7b", 2, 4, 2048, 2)
+HF_GPT = ("gpt-1.5b", 2, 4, 1024, 2)
+#: (c): baichuan-13b at full width, cut to 2 layers; its bf16 train steps
+#: (batch x seq), the card-against-CPU batch, and the tp 2 run's batch and steps
+BAICHUAN_LAYERS = 2
+BAICHUAN_TRAIN = (4, 2048, 2)
+BAICHUAN_CPU_BATCH = (2, 128)
+BAICHUAN_TP = (1, 2048, 2)
+#: fp32 logits of the same weights on the card and on the CPU (summation
+#: order only: phase 4 holds 1e-3 at llama-7b width), and the loss
+BAICHUAN_LOGIT_TOL = 1e-3
+BAICHUAN_LOSS_RTOL = 1e-5
+#: tp 2 over two gloo ranks against world size 1 (fp32), relative on the losses
+BAICHUAN_TP_RTOL = 1e-5
+#: .bin shards of the Baichuan directory (the published checkpoint is sharded)
+BAICHUAN_SHARDS = 2
+#: (d)'s depth: half of baichuan-13b's 40 layers, to keep the script inside its
+#: time limit (the 40-layer serve read 56.0 / 63.7 ms a decode step)
+BAICHUAN_SERVE_LAYERS = 20
+
+
+def _rss_sampler():
+    """(stop(), samples): this process's resident set size, sampled every
+    10 ms on a thread from ``/proc/self/statm``, until ``stop()``."""
+    page = os.sysconf("SC_PAGE_SIZE")
+    samples, done = [], threading.Event()
+
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+
+    def run():
+        while not done.is_set():
+            samples.append(rss())
+            done.wait(0.01)
+
+    samples.append(rss())
+    t = threading.Thread(target=run, name="rss-sampler", daemon=True)
+    t.start()
+
+    def stop():
+        done.set()
+        t.join()
+        samples.append(rss())
+        return samples
+
+    return stop, samples
+
+
+def _safetensors_headers(d):
+    """The phase's own read of an exported directory's safetensors headers
+    (8-byte little-endian length, JSON): every tensor F32, the data
+    offsets contiguous from 0 to the end of the file, the metadata
+    ``format: pt``. Returns {name: (shape, bytes)} and the files' bytes."""
+    import struct
+
+    names = sorted(f for f in os.listdir(d) if f.endswith(".safetensors"))
+    check(names, f"no safetensors file under {d}")
+    tensors, total = {}, 0
+    for fn in names:
+        path = os.path.join(d, fn)
+        with open(path, "rb") as f:
+            (n,) = struct.unpack("<Q", f.read(8))
+            header = json.loads(f.read(n))
+        size = os.path.getsize(path)
+        total += size
+        check(header.pop("__metadata__", {}).get("format") == "pt", f"{fn}: metadata")
+        spans = sorted(tuple(v["data_offsets"]) for v in header.values())
+        check(spans[0][0] == 0 and spans[-1][1] == size - 8 - n
+              and all(a[1] == b[0] for a, b in zip(spans, spans[1:])),
+              f"{fn}: data offsets do not tile the data section")
+        for k, v in header.items():
+            nbytes = v["data_offsets"][1] - v["data_offsets"][0]
+            check(v["dtype"] == "F32" and nbytes == 4 * _prod(v["shape"]),
+                  f"{fn}: {k}: {v}")
+            tensors[k] = (tuple(v["shape"]), nbytes)
+    return tensors, total
+
+
+def _prod(shape):
+    out = 1
+    for d in shape:
+        out *= d
+    return out
+
+
+#: the fields an imported config must carry over from the exported one
+_SHAPE_FIELDS = ("vocab_size", "hidden_size", "num_layers", "num_heads", "kv_heads", "ffn",
+                 "max_seq_len", "pos_embed", "norm_type", "act_fn", "tie_word_embeddings",
+                 "use_bias", "norm_eps", "rope_theta")
+
+
+def _same_shape(a, b, what):
+    diff = {f: (getattr(a, f), getattr(b, f)) for f in _SHAPE_FIELDS
+            if getattr(a, f) != getattr(b, f)}
+    check(not diff, f"{what}: configs differ (got, want): {diff}")
+
+
+def _bitwise(torch, a, b, what):
+    """Two parameter trees equal to the last bit (CPU copies compared)."""
+    from galvatron_tpu_torch.core.checkpoint import flatten
+
+    fa_, fb = flatten(a), flatten(b)
+    check(sorted(fa_) == sorted(fb), f"{what}: leaves differ: {sorted(set(fa_) ^ set(fb))}")
+    bad = [k for k in fa_ if not torch.equal(fa_[k].detach().cpu(), fb[k].detach().cpu())]
+    check(not bad, f"{what}: {len(bad)} leaves differ, e.g. {bad[:3]}")
+    return len(fa_)
+
+
+def _hf_round_trip(torch, smi, tmpdir, preset, layers, tag):
+    """``cli export-hf`` of seed-0 weights (drawn on the card, as every cli
+    mode draws them) at ``layers`` layers, the headers read back, then
+    ``load_hf_checkpoint``: bitwise the exported parameters. Returns the
+    directory and what was read."""
+    from galvatron_tpu_torch import cli
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.models.convert import load_hf_checkpoint
+
+    d = os.path.join(tmpdir, f"hf_{tag}")
+    cfg = modeling.PRESETS[preset].replace(num_layers=layers)
+    t0 = time.perf_counter()
+    rc = cli.main(["export-hf", "--model_size", preset, "--num_layers", str(layers),
+                   "--output_dir", d])
+    export_s = time.perf_counter() - t0
+    check(rc == 0, f"21 ({tag}): cli export-hf returned {rc}")
+    tensors, nbytes = _safetensors_headers(d)
+    with open(os.path.join(d, "config.json")) as f:
+        hf_cfg = json.load(f)
+    t0 = time.perf_counter()
+    params, got_cfg = load_hf_checkpoint(d)
+    import_s = time.perf_counter() - t0
+    want = modeling.init_model_params(cfg, 0, "cuda")
+    n = _bitwise(torch, params, want, f"21 ({tag}) export → import")
+    _same_shape(got_cfg, cfg, f"21 ({tag}) export → import")
+    del params, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return d, {"model": preset, "layers": layers, "model_type": hf_cfg["model_type"],
+               "files": sorted(os.listdir(d)), "tensors": len(tensors), "bytes": nbytes,
+               "export_s": export_s, "export_gb_per_s": nbytes / export_s / 1e9,
+               "import_s": import_s, "import_gb_per_s": nbytes / import_s / 1e9,
+               "bitwise_leaves": n}
+
+
+def _train_hf(torch, tmpdir, d, batch, seq, steps, tag, precision="bf16"):
+    """``cli train --load_hf d`` in this process; (records, launches, peak GB)."""
+    from galvatron_tpu_torch import cli
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    path = os.path.join(tmpdir, f"train_{tag}.jsonl")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()  # the main path's counts start here
+    routes_before = route_counts()
+    rc = cli.main(["train", "--load_hf", d, "--seq_length", str(seq), "--global_train_batch_size",
+                   str(batch), "--train_iters", str(steps), "--mixed_precision", precision,
+                   "--metrics_path", path])
+    launches = kernel_counts()  # read right after the main path
+    check(rc == 0, f"21 ({tag}): cli train --load_hf returned {rc}")
+    routes = {k: {r: n - routes_before[k][r] for r, n in v.items()}
+              for k, v in route_counts().items()}
+    recs = [r for r in read_metrics(path) if r["event"] == "train_iter"]
+    check(len(recs) == steps and all(r["loss"] == r["loss"] and abs(r["loss"]) < 1e9
+                                     for r in recs), f"21 ({tag}): records {recs}")
+    return recs, launches, routes, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _hf_serve_against_generate_np(torch, smi, d, layers):
+    """21 (a): ``cli serve --load_hf d`` on the paged backend driven as phase
+    6; every prompt's greedy tokens held to ``generate_np`` on the served
+    weights (equal, or by the margin rule where bf16 runs through other
+    code part)."""
+    from galvatron_tpu_torch.models import generation
+    from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
+
+    argv = ["serve", "--load_hf", d, "--kv_num_blocks", "-1", "--num_slots", "4",
+            "--prefill_chunk", "32", "--port", _free_port(), "--request_ttl_s", "600"]
+    res, tokens, (params, cfg) = _drive_serve(torch, smi, argv, "21 (a) serve", layers, "paged")
+    tok = ByteTokenizer()
+    want = {p: generation.generate_np(params, cfg, [tok.encode(p)], max_new_tokens=32,
+                                      eos_id=tok.eos_id, pad_id=tok.pad_id)[0] for p in tokens}
+    res["against_generate_np"] = _margins(torch, params, cfg, want, tokens,
+                                          "21 (a) serve against generate_np")
+    res["tokens_equal_generate_np"] = all(want[p] == tokens[p] for p in tokens)
+    del params, cfg
+    return res
+
+
+def _baichuan_dir(torch, d, cfg, seed):
+    """A Baichuan-1 (13B-style) checkpoint directory written as the
+    published one is laid out: ``config.json`` with ``model_type``
+    'baichuan' and ``model_max_length`` (ALiBi), the fused ``W_pack``
+    [Q; K; V] rows, bf16 torch ``.bin`` shards and their index. The weights
+    are ``init_model_params(cfg, seed)`` drawn on the card; returns their
+    bf16 rounding as the tree the import must give, and the bytes written."""
+    from galvatron_tpu_torch.models import modeling
+
+    os.makedirs(d)
+    p = modeling.init_model_params(cfg, seed, "cuda")
+    h, nd, f = cfg.hidden_size, cfg.num_heads * cfg.head_dim, cfg.ffn
+
+    def bf(t):
+        return t.detach().to(torch.bfloat16).cpu().contiguous()
+
+    sd = {"model.embed_tokens.weight": bf(p["embed"]["tok"]),
+          "model.norm.weight": bf(p["final_norm"]["scale"]),
+          "lm_head.weight": bf(p["head"]["w"].t())}
+    for i, lp in enumerate(p["layers"]):
+        pre = f"model.layers.{i}."
+        w13 = lp["mlp"]["w13"]
+        sd.update({pre + "self_attn.W_pack.weight": bf(lp["attn"]["wqkv"].reshape(h, 3 * nd).t()),
+                   pre + "self_attn.o_proj.weight": bf(lp["attn"]["wo"].t()),
+                   pre + "mlp.gate_proj.weight": bf(w13[:, :f].t()),
+                   pre + "mlp.up_proj.weight": bf(w13[:, f:].t()),
+                   pre + "mlp.down_proj.weight": bf(lp["mlp"]["w2"].t()),
+                   pre + "input_layernorm.weight": bf(lp["attn_norm"]["scale"]),
+                   pre + "post_attention_layernorm.weight": bf(lp["mlp_norm"]["scale"])})
+    want = {"embed": {"tok": p["embed"]["tok"]}, "layers": p["layers"],
+            "final_norm": p["final_norm"], "head": p["head"]}
+    want = _bf16_tree(torch, want)
+    del p
+    names = sorted(sd)
+    weight_map, nbytes = {}, 0
+    for j in range(BAICHUAN_SHARDS):
+        fn = f"pytorch_model-{j + 1:05d}-of-{BAICHUAN_SHARDS:05d}.bin"
+        part = {k: sd[k] for k in names[j::BAICHUAN_SHARDS]}
+        torch.save(part, os.path.join(d, fn))
+        weight_map.update({k: fn for k in part})
+        nbytes += os.path.getsize(os.path.join(d, fn))
+    with open(os.path.join(d, "pytorch_model.bin.index.json"), "w") as fh:
+        json.dump({"metadata": {"total_size": sum(t.numel() * 2 for t in sd.values())},
+                   "weight_map": weight_map}, fh)
+    with open(os.path.join(d, "config.json"), "w") as fh:
+        json.dump({"model_type": "baichuan", "architectures": ["BaichuanForCausalLM"],
+                   "vocab_size": cfg.vocab_size, "hidden_size": h,
+                   "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+                   "intermediate_size": f, "model_max_length": cfg.max_seq_len,
+                   "rms_norm_eps": cfg.norm_eps, "tie_word_embeddings": False,
+                   "hidden_act": "silu", "torch_dtype": "bfloat16"}, fh)
+    return want, nbytes
+
+
+def _bf16_tree(torch, tree):
+    """Every leaf rounded to bf16 and widened back to fp32, on the CPU."""
+    if isinstance(tree, dict):
+        return {k: _bf16_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_bf16_tree(torch, v) for v in tree]
+    return tree.detach().to(torch.bfloat16).float().cpu()
+
+
+def phase_hf_baichuan(torch, smi, tmpdir):
+    """21 (c): the Baichuan-13B import at full width (2 layers), the card
+    against the CPU, bf16 training, and tp 2 over two gloo ranks against
+    world size 1 with its control."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.models.convert import load_hf_checkpoint
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    out = {}
+    cfg = modeling.PRESETS["baichuan-13b"].replace(num_layers=BAICHUAN_LAYERS)
+    d = os.path.join(tmpdir, "baichuan13b")
+    t0 = time.perf_counter()
+    want, nbytes = _baichuan_dir(torch, d, cfg, seed=13)
+    write_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    stop, _ = _rss_sampler()
+    t0 = time.perf_counter()
+    params, got_cfg = load_hf_checkpoint(d)
+    import_s = time.perf_counter() - t0
+    rss = stop()
+    _same_shape(got_cfg, cfg, "21 (c) import")
+    check(got_cfg.pos_embed == "alibi", f"21 (c): imported pos_embed {got_cfg.pos_embed}")
+    n = _bitwise(torch, params, want, "21 (c) the .bin shards' bf16 weights, widened")
+    del want
+    out["import"] = {"layers": BAICHUAN_LAYERS, "files": sorted(os.listdir(d)),
+                     "bin_bytes": nbytes, "write_s": write_s, "import_s": import_s,
+                     "import_gb_per_s": nbytes / import_s / 1e9, "bitwise_leaves": n,
+                     "host_rss_before_gb": rss[0] / 1e9, "host_rss_peak_gb": max(rss) / 1e9,
+                     "host_rss_after_gb": rss[-1] / 1e9, "pos_embed": got_cfg.pos_embed}
+    # fp32 logits of the same weights on the card and on the CPU
+    b, s = BAICHUAN_CPU_BATCH
+    f32 = got_cfg.replace(dtype=torch.float32, attn_impl="flash")  # ALiBi keeps the einsum
+    batch = torch.from_numpy(np.random.RandomState(13).randint(
+        0, cfg.vocab_size, (b, s + 1))).long()
+    def loss(logits):
+        nll, count = modeling.cross_entropy_sum(logits, batch[:, 1:])
+        return float(nll / count)
+
+    with torch.inference_mode():
+        cpu_logits = modeling.forward(params, batch[:, :-1], f32)
+        dev = _to(params, "cuda")
+        reset_kernel_counts()
+        card_logits = modeling.forward(dev, batch[:, :-1].cuda(), f32).cpu()
+        check(not any(kernel_counts().values()),
+              f"21 (c): attn_impl flash with ALiBi launched {kernel_counts()}")
+        cpu_loss, card_loss = loss(cpu_logits), loss(card_logits)
+    del dev, params
+    err = float((card_logits - cpu_logits).abs().max())
+    rms = float(cpu_logits.pow(2).mean().sqrt())
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    check(err <= BAICHUAN_LOGIT_TOL and loss_rel <= BAICHUAN_LOSS_RTOL,
+          f"21 (c): card against CPU: logits {err}, loss {card_loss} vs {cpu_loss}")
+    out["card_against_cpu"] = {"batch": [b, s], "dtype": "float32", "logits_max_abs_err": err,
+                               "logits_rms": rms, "tolerance": BAICHUAN_LOGIT_TOL,
+                               "loss_card": card_loss, "loss_cpu": cpu_loss,
+                               "loss_rel_err": loss_rel, "loss_rtol": BAICHUAN_LOSS_RTOL}
+    del cpu_logits, card_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    # bf16 training from the directory
+    tb, ts, steps = BAICHUAN_TRAIN
+    recs, launches, routes, peak = _train_hf(torch, tmpdir, d, tb, ts, steps, "c")
+    check(not any(launches.values()), f"21 (c): ALiBi launched flash kernels {launches}")
+    out["train_bf16"] = {"batch": tb, "seq": ts, "steps": steps,
+                         "losses": [r["loss"] for r in recs],
+                         "iter_ms": [r["iter_ms"] for r in recs],
+                         "iter_ms_mean_from_2": sum(r["iter_ms"] for r in recs[1:]) / (steps - 1),
+                         "tokens_per_s": recs[-1]["tokens_per_s"], "max_memory_allocated_gb": peak,
+                         "launches": launches}
+    # tp 2 over two gloo ranks on the card against world size 1, fp32
+    b2, s2, steps2 = BAICHUAN_TP
+    argv = ["--load_hf", d, "--seq_length", str(s2), "--global_train_batch_size", str(b2),
+            "--train_iters", str(steps2), "--mixed_precision", "fp32"]
+    path = os.path.join(tmpdir, "train_c_world1.jsonl")
+    from galvatron_tpu_torch import cli
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(cli.main(["train", *argv, "--metrics_path", path]) == 0, "21 (c): world 1 run")
+    ref = [r["loss"] for r in read_metrics(path) if r["event"] == "train_iter"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def run(control):
+        outdir = os.path.join(tmpdir, f"baichuan_tp2_{control}")
+        os.makedirs(outdir)
+        extra = ("--control", control) if control else ()
+        return _launch_ranks(argv + ["--global_tp_deg", "2", "--vocab_tp", "2"], outdir, "gloo",
+                             (0, 0), extra)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:  # the sound run and its control, two worlds at once
+        ranks, crs = pool.map(run, (None, "first_slopes"))
+    tp_s = time.perf_counter() - t0
+    rel = max(abs(x - y) / abs(y) for x, y in zip(ranks[0]["losses"], ref))
+    crel = max(abs(x - y) / abs(y) for x, y in zip(crs[0]["losses"], ref))
+    check(all(r["losses"] == ranks[0]["losses"] for r in ranks), "21 (c): tp ranks differ")
+    check(rel <= BAICHUAN_TP_RTOL, f"21 (c): tp 2 losses {ranks[0]['losses']} vs world 1 {ref}")
+    check(crel > BAICHUAN_TP_RTOL,
+          f"21 (c): the control (every rank the first n/tp slopes) passes: {crs[0]['losses']}")
+    out["tp2_gloo"] = {"batch": b2, "seq": s2, "steps": steps2, "dtype": "float32",
+                       "losses": ranks[0]["losses"], "world1_losses": ref,
+                       "max_rel_loss_diff": rel, "rtol": BAICHUAN_TP_RTOL,
+                       "control_first_slopes": {"losses": crs[0]["losses"],
+                                                "max_rel_loss_diff": crel},
+                       "host_staged": [r["host_staged"] for r in ranks],
+                       "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in ranks],
+                       "seconds_both_worlds": tp_s}
+    log("phase 21 (c) baichuan-13b import, 2 layers:", json.dumps({"card": smi, **out}))
+    return out
+
+
+def phase_hf_serve_13b(torch, smi):
+    """21 (d): ``cli serve --model_size baichuan-13b`` (``BAICHUAN_SERVE_LAYERS``
+    layers, bf16) on the slot backend, then the paged one: greedy tokens held across the
+    backends (equal, or the margin rule), every paged decode step on the
+    einsum route and no ``paged_decode`` launch."""
+    from galvatron_tpu_torch.models import generation
+
+    layers = BAICHUAN_SERVE_LAYERS
+    runs, toks = {}, {}
+    params = cfg = None
+    for backend, extra in (("slot", []), ("paged", ["--kv_num_blocks", "-1"])):
+        argv = ["serve", "--model_size", "baichuan-13b", "--num_layers", str(layers),
+                "--num_slots", "4", "--prefill_chunk", "32", "--port", _free_port(),
+                "--request_ttl_s", "600", *extra]
+        params = cfg = None  # the slot run's weights go before the paged run loads its own
+        gc.collect()
+        generation.reset_decode_routes()
+        # plain=True: ALiBi's decode never reaches the kernel (want 0 launches)
+        runs[backend], toks[backend], (params, cfg) = _drive_serve(
+            torch, smi, argv, f"21 (d) {backend}", layers, backend, plain=True)
+        routes = dict(generation.decode_routes)  # read right after the main path
+        runs[backend]["decode_routes"] = routes
+        if backend == "paged":
+            check(routes["paged_decode"] == 0
+                  and routes["einsum"] == runs[backend]["decode_steps"] > 0,
+                  f"21 (d): paged decode routes {routes}, "
+                  f"{runs[backend]['decode_steps']} decode steps")
+    res = {**runs, "tokens_equal": toks["slot"] == toks["paged"],
+           "paged_against_slot": _margins(torch, params, cfg, toks["slot"], toks["paged"],
+                                          "21 (d) paged against slot")}
+    del params, cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 21 (d) serve baichuan-13b, {layers} layers:", json.dumps(res))
+    return res
+
+
+def phase_hf(torch, smi):
+    """Phase 21 (a)-(d); returns the launches of its main paths."""
+    from galvatron_tpu_torch.ops import flash_attention as fa
+
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hf_") as tmpdir:
+        # (a) LLaMA round trip at llama-7b width, train, serve
+        preset, layers, batch, seq, steps = HF_LLAMA
+        t0 = time.perf_counter()
+        d, rt = _hf_round_trip(torch, smi, tmpdir, preset, layers, "a")
+        recs, tl, routes, peak = _train_hf(torch, tmpdir, d, batch, seq, steps, "a")
+        want = path_counts("llama", layers, steps, False)
+        check(tl == want and routes["flash_fwd"]["tma"] == want["flash_fwd"],
+              f"21 (a): launches {tl}, expected {want}; routes {routes}")
+        serve = _hf_serve_against_generate_np(torch, smi, d, layers)
+        launches["a_train"], launches["a_paged_decode"] = tl, serve["kernel_launches"]
+        check(serve["kernel_launches"] > 0, "21 (a): no paged_decode launch")
+        out["a_llama"] = {"card": smi, "round_trip": rt, "train": {
+            "batch": batch, "seq": seq, "losses": [r["loss"] for r in recs],
+            "iter_ms": [r["iter_ms"] for r in recs], "max_memory_allocated_gb": peak,
+            "launches": tl}, "serve": serve, "seconds": time.perf_counter() - t0}
+        log("phase 21 (a) llama round trip:", json.dumps(out["a_llama"]))
+        shutil.rmtree(d, ignore_errors=True)
+        # (b) GPT-2 round trip at gpt-1.5b width, train on the grid kernels
+        preset, layers, batch, seq, steps = HF_GPT
+        t0 = time.perf_counter()
+        d, rt = _hf_round_trip(torch, smi, tmpdir, preset, layers, "b")
+        recs, tl, routes, peak = _train_hf(torch, tmpdir, d, batch, seq, steps, "b")
+        want = path_counts("gpt", layers, steps, False)
+        check(tl == want, f"21 (b): launches {tl}, expected {want}")
+        launches["b_train"] = tl
+        out["b_gpt"] = {"card": smi, "round_trip": rt, "train": {
+            "batch": batch, "seq": seq, "losses": [r["loss"] for r in recs],
+            "iter_ms": [r["iter_ms"] for r in recs], "max_memory_allocated_gb": peak,
+            "launches": tl}, "seconds": time.perf_counter() - t0}
+        log("phase 21 (b) gpt round trip:", json.dumps(out["b_gpt"]))
+        shutil.rmtree(d, ignore_errors=True)
+        # (c) Baichuan-13B import at full width
+        t0 = time.perf_counter()
+        out["c_baichuan13b"] = phase_hf_baichuan(torch, smi, tmpdir)
+        out["c_baichuan13b"]["seconds"] = time.perf_counter() - t0
+    # (d) baichuan-13b served at full depth on both backends
+    t0 = time.perf_counter()
+    fa.paged_decode_attention.launches = 0
+    out["d_baichuan13b_serve"] = phase_hf_serve_13b(torch, smi)
+    out["d_baichuan13b_serve"]["seconds"] = time.perf_counter() - t0
+    launches["d_paged_decode"] = out["d_baichuan13b_serve"]["paged"]["kernel_launches"]
+    RESULTS["hf"] = out
+    RESULTS["hf_launches"] = launches
+    return launches
+
+
 def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) -> int:
     """One rank of phases 12-13, 17 and 18: ``cli train``'s own call
     (``trainer.train`` of the parsed flags), with the blocked flash
@@ -4659,7 +5164,8 @@ def _rank_run(outdir, argv, heads, ref_params=None, control=None, profile_moe=Fa
 
 #: the phases by name, for ``--phases``; a full run takes them all
 PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train", "hybrid",
-          "pipeline", "nccl", "search", "services", "slots", "cp", "moe", "packed", "overlap")
+          "pipeline", "nccl", "search", "services", "slots", "cp", "moe", "packed", "overlap",
+          "hf")
 
 
 def main() -> int:
@@ -4672,7 +5178,8 @@ def main() -> int:
     ap.add_argument("--rank-worker", default=None, metavar="OUTDIR",
                     help="(phases 12-13) run as one rank: the flags after -- are cli train's")
     ap.add_argument("--ref-params", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--control", default=None, choices=(CP_CONTROLS[0], CP_CONTROLS[2]),
+    ap.add_argument("--control", default=None,
+                    choices=(CP_CONTROLS[0], CP_CONTROLS[2], CP_CONTROLS[3]),
                     help=argparse.SUPPRESS)
     ap.add_argument("--profile-moe", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--cp-worker", default=None, metavar="OUTDIR",
@@ -4697,10 +5204,14 @@ def main() -> int:
     seconds = RESULTS.setdefault("phase_seconds", {})
 
     def mark(name):
-        """The seconds since the last mark, under ``name``."""
+        """The seconds since the last mark, under ``name``; with ``--out``
+        everything measured so far is written after each phase, so a run
+        that fails later keeps it."""
         now = time.perf_counter()
         seconds[name] = now - clock["last"]
         clock["last"] = now
+        if args.out:
+            _write_out(args.out, RESULTS)
 
     smi = phase_card(torch)
     phase_build()
@@ -4830,6 +5341,11 @@ def main() -> int:
         if overlap is not None:
             launches["overlap"] = overlap
         mark("20 overlap")
+    if "hf" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["hf"] = phase_hf(torch, smi)
+        mark("21 hf")
     if {"packed", "overlap"} & set(phases):
         RESULTS["packed_overlap_launches"] = {k: launches[k] for k in ("packed", "overlap")
                                               if k in launches}

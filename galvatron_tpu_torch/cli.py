@@ -26,15 +26,23 @@
                     --analytic_costs 1) → a galvatron_config JSON that
                     `train --galvatron_config_path` runs
   check-plan        static plan validation (GTA… diagnostics, no device)
+  export-hf         trainer checkpoint (--load) or seed weights → a
+                    HuggingFace-format directory (--output_dir: config.json
+                    and safetensors, sharded above 5 GB) that transformers'
+                    from_pretrained loads: LlamaForCausalLM, or
+                    GPT2LMHeadModel for the GPT-2-shaped configs
 
 generate and serve take weights from a trainer checkpoint (--load: the newest
-committed step, verified, an older one when it is corrupt) or initialise them
-from seed 0. train, generate, serve, profile and profile-hardware run on the
-card (--device cuda, the default) or, when asked, on the CPU (--device cpu).
-search with profile paths or --analytic_costs 1 and check-plan touch no
-device. The reference's
-other modes (warmup, run-elastic, audit-comm, ...) are not ported yet
-(ROADMAP.md §1).
+committed step, verified, an older one when it is corrupt), from a local
+HuggingFace checkpoint (--load_hf: LLaMA, Baichuan-1, GPT-2 or OPT; the model
+shape comes from its config.json), or initialise them from seed 0; train
+takes --load_hf too. train, generate, serve, export-hf, profile and
+profile-hardware run on the card (--device cuda, the default) or, when asked,
+on the CPU (--device cpu). search with profile paths or --analytic_costs 1
+and check-plan touch no device. The per-family entry packages
+(python -m galvatron_tpu_torch.models.<family>) run these modes with their
+family's default --model_size. The reference's other modes (warmup,
+run-elastic, audit-comm, ...) are not ported yet (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -45,10 +53,13 @@ import threading
 from typing import List, Optional
 
 
-_MODES = ("train", "generate", "serve", "profile", "profile-hardware", "search", "check-plan")
+_MODES = ("train", "generate", "serve", "profile", "profile-hardware", "search", "check-plan",
+          "export-hf")
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def main(argv: Optional[List[str]] = None, model_default: Optional[str] = None) -> int:
+    """Run one mode; ``model_default`` (a per-family entry package's)
+    replaces the ``--model_size`` default."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
@@ -64,33 +75,51 @@ def main(argv: Optional[List[str]] = None) -> int:
     if mode == "train":
         from galvatron_tpu_torch.core.trainer import train
 
-        train(initialize_galvatron(mode, rest))
+        train(initialize_galvatron(mode, rest, model_default))
         return 0
     if mode == "search":
-        return _search_mode(initialize_galvatron("search", rest))
+        return _search_mode(initialize_galvatron("search", rest, model_default))
     if mode == "profile":
-        return _profile_mode(initialize_galvatron("profile", rest))
+        return _profile_mode(initialize_galvatron("profile", rest, model_default))
     if mode == "profile-hardware":
-        return _profile_hardware_mode(initialize_galvatron("profile_hardware", rest))
+        return _profile_hardware_mode(initialize_galvatron("profile_hardware", rest,
+                                                           model_default))
     if mode == "check-plan":
-        return _check_plan_mode(initialize_galvatron("check_plan", rest))
+        return _check_plan_mode(initialize_galvatron("check_plan", rest, model_default))
+    if mode == "export-hf":
+        return _export_hf_mode(initialize_galvatron("export_hf", rest, model_default))
     from galvatron_tpu_torch.device import resolve_device
     from galvatron_tpu_torch.models import modeling
     from galvatron_tpu_torch.models.tokenizer import build_tokenizer
 
-    ns = initialize_galvatron(mode, rest)
-    if ns.load_hf:
-        raise NotImplementedError(
-            "--load_hf (HuggingFace weights) is not ported yet: ROADMAP.md §1.11 "
-            "'HF import/export'; use --load with a trainer checkpoint"
-        )
-    cfg = model_config_from_args(ns)
-    modeling.check_supported(cfg)  # before any weight is allocated
+    ns = initialize_galvatron(mode, rest, model_default)
     device = resolve_device(ns.device)
     tok = build_tokenizer(ns.tokenizer)
-    if tok.vocab_size > cfg.vocab_size:
-        cfg = cfg.replace(vocab_size=tok.vocab_size)
-    params = modeling.cast_params(_load_or_init_params(ns, cfg, device), cfg)
+    if ns.load_hf:
+        if ns.load:
+            raise ValueError(
+                "--load and --load_hf are mutually exclusive here: pick "
+                "the fine-tuned trainer checkpoint (--load) or the raw "
+                "pretrained HF weights (--load_hf)"
+            )
+        from galvatron_tpu_torch.models.convert import load_hf_checkpoint
+
+        params, cfg = load_hf_checkpoint(ns.load_hf)
+        modeling.check_supported(cfg)
+        if tok.vocab_size > cfg.vocab_size:
+            raise ValueError(
+                f"tokenizer vocab {tok.vocab_size} exceeds the pretrained "
+                f"embedding {cfg.vocab_size} — ids past the table would "
+                "silently clamp; use the checkpoint's own tokenizer"
+            )
+        print(f"serving HF checkpoint {ns.load_hf}", flush=True)
+        params = modeling.cast_params(_to_device(params, device), cfg)
+    else:
+        cfg = model_config_from_args(ns)
+        modeling.check_supported(cfg)  # before any weight is allocated
+        if tok.vocab_size > cfg.vocab_size:
+            cfg = cfg.replace(vocab_size=tok.vocab_size)
+        params = modeling.cast_params(_load_or_init_params(ns, cfg, device), cfg)
     if ns.attn_impl != "auto":
         cfg = cfg.replace(attn_impl=ns.attn_impl)
     if mode == "generate":
@@ -149,6 +178,52 @@ def _serve_mode(ns, cfg, tok, params, device) -> int:
                      name="serve-warmup", daemon=True).start()
     run_server(service, port=ns.port, host=ns.host, ready_event=listening,
                drain_timeout_s=ns.drain_timeout_s)
+    return 0
+
+
+def _export_hf_mode(ns) -> int:
+    """``export-hf`` (the reference's, ``galvatron_tpu/cli.py``): the model
+    of the flags, from ``--load`` or seed 0, as a HuggingFace directory. It
+    writes ``config.json`` and safetensors itself (``models/hf_io.py``);
+    the reference's ``.npz`` fallback for a machine without
+    ``transformers`` has no counterpart, since nothing here needs it."""
+    import time
+
+    from galvatron_tpu_torch.core.arguments import model_config_from_args
+    from galvatron_tpu_torch.device import resolve_device
+    from galvatron_tpu_torch.models import convert, hf_io
+
+    if not ns.output_dir:
+        print("error: export-hf needs --output_dir")
+        return 2
+    cfg = model_config_from_args(ns)
+    if cfg.act_fn == "relu":
+        print(
+            "error: export-hf does not support the OPT family — the +2 "
+            "position offset dropped at import cannot be reconstructed "
+            "for HF's padded-position rows"
+        )
+        return 2
+    if not cfg.causal or cfg.objective != "clm" or cfg.image_size:
+        print(
+            "error: export-hf exports causal LM decoders only "
+            "(encoder/vision families have no HF causal-LM counterpart)"
+        )
+        return 2
+    # architecture by config shape: GPT-2-style (learned positions + biases
+    # + gelu) exports as GPT2LMHeadModel, else LlamaForCausalLM
+    gpt2_style = cfg.pos_embed == "learned" and cfg.use_bias and cfg.act_fn == "gelu"
+    if not gpt2_style:
+        convert.check_hf_llama_positions(cfg)
+    params = _load_or_init_params(ns, cfg, resolve_device(ns.device))  # checked vs the config
+    t0 = time.perf_counter()
+    sd = convert.export_state_dict(params, cfg, gpt2_style)
+    del params
+    files = hf_io.write_hf_dir(ns.output_dir, convert.hf_export_config(cfg, gpt2_style), sd)
+    nbytes = sum(a.nbytes for a in sd.values())
+    secs = time.perf_counter() - t0
+    print(f"exported HF checkpoint → {ns.output_dir} ({', '.join(files)}; "
+          f"{nbytes / 1e9:.3f} GB in {secs:.3f} s)", flush=True)
     return 0
 
 

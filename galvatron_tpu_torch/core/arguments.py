@@ -12,7 +12,8 @@ The training services' flags (``--data_path``, ``--data_mixture``,
 ``--prefetch_depth``, ``--pack_sequences``, ``--save``, ``--load``,
 ``--save_interval``, ``--keep_last_n``, ``--rampup_batch_size``,
 ``--mixed_precision fp16``), the overlap plan flags (``--global_tp_overlap``,
-``--grad_overlap``) and ``serve --load`` keep the reference's names and
+``--grad_overlap``), ``serve --load``, ``--load_hf`` (train, generate,
+serve) and ``export-hf``'s ``--output_dir`` keep the reference's names and
 defaults. Flags of unported features (multi-slice ``--num_slices``, ...)
 are absent, so passing one is an argparse error rather than a silently
 ignored option."""
@@ -72,10 +73,12 @@ def _add_generate_args(p: argparse.ArgumentParser):
                    help="checkpoint directory (trainer state): its newest committed "
                    "step's params; default = random weights from seed 0")
     g.add_argument("--load_hf", type=str, default=None,
-                   help="a local HuggingFace checkpoint: not ported yet (ROADMAP.md "
-                   "§1.11 'HF import/export'), raises")
+                   help="local HuggingFace checkpoint directory (LLaMA, Baichuan-1, "
+                   "GPT-2, OPT; models/convert.py): the model shape comes from its "
+                   "config.json; exclusive with --load")
     g.add_argument("--tokenizer", type=str, default="byte",
-                   help="'byte' (the only tokenizer ported so far)")
+                   help="'byte' (the only tokenizer ported so far; the HF tokenizer is "
+                   "ROADMAP.md §1.11's remainder)")
     g.add_argument("--prompt", type=str, action="append", default=None,
                    help="generate: a prompt (repeatable; default 'Hello')")
     g.add_argument("--max_new_tokens", type=int, default=64,
@@ -122,6 +125,8 @@ def _add_generate_args(p: argparse.ArgumentParser):
     g.add_argument("--max_engine_restarts", type=int, default=3,
                    help="consecutive no-progress in-process engine restarts "
                    "before the engine gives up")
+    g.add_argument("--output_dir", type=str, default=None,
+                   help="export-hf: directory for the HF-format checkpoint")
 
 
 def _add_step_program_args(p: argparse.ArgumentParser):
@@ -194,6 +199,10 @@ def _add_train_args(p: argparse.ArgumentParser):
                    help="checkpoint retention: after each committed save, prune all but "
                    "the newest N committed steps (0 = keep all)")
     g.add_argument("--load", type=str, default=None, help="resume directory")
+    g.add_argument("--load_hf", type=str, default=None,
+                   help="initialize weights from a local HuggingFace checkpoint directory "
+                   "(LLaMA, Baichuan-1, GPT-2, OPT; models/convert.py; overrides the model "
+                   "shape from the HF config, --seq_length still applies)")
     g.add_argument("--save_interval", type=int, default=0)
     g.add_argument("--check_loss", type=int, default=0,
                    help="1 = fail the run on a non-finite loss")
@@ -351,10 +360,15 @@ def _add_check_plan_args(p: argparse.ArgumentParser):
                    help="1 = skip the meta-device sharding pass")
 
 
-def build_parser(mode: str) -> argparse.ArgumentParser:
+def build_parser(mode: str, model_default: Optional[str] = None) -> argparse.ArgumentParser:
+    """The parser of ``mode``; ``model_default`` (a per-family entry
+    package's) replaces the ``--model_size`` default, also where the mode
+    would otherwise default it to the plan's own."""
     p = argparse.ArgumentParser(f"galvatron_tpu_torch {mode}")
     _add_model_args(p)
-    if mode in ("generate", "serve"):
+    if model_default:
+        p.set_defaults(model_size=model_default)
+    if mode in ("generate", "serve", "export_hf"):
         _add_generate_args(p)
     elif mode == "train":
         _add_train_args(p)
@@ -368,15 +382,17 @@ def build_parser(mode: str) -> argparse.ArgumentParser:
     elif mode == "check_plan":
         _add_check_plan_args(p)
         # None, not the preset default, so that the JSON's own model_size
-        # key wins when no flag is given
-        p.set_defaults(model_size=None)
+        # key wins when no flag is given (unless a family entry pinned it)
+        if not model_default:
+            p.set_defaults(model_size=None)
     else:
         raise ValueError(f"mode {mode!r} is not ported yet (ROADMAP.md §1)")
     return p
 
 
-def initialize_galvatron(mode: str, args: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    return build_parser(mode).parse_args(args)
+def initialize_galvatron(mode: str, args: Optional[Sequence[str]] = None,
+                         model_default: Optional[str] = None) -> argparse.Namespace:
+    return build_parser(mode, model_default).parse_args(args)
 
 
 def model_config_from_args(ns: argparse.Namespace, base: Optional[ModelConfig] = None

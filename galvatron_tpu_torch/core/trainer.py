@@ -46,6 +46,7 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from galvatron_tpu_torch.core.arguments import (
@@ -217,11 +218,48 @@ def _resume(ns, rt, world, fingerprint, metrics, lead):
     return state, start_step, batch_offset, meta, restore_s
 
 
+def _load_hf(ns):
+    """(params, cfg) of ``--load_hf``: the model shape comes from the HF
+    config (the reference builds its model from the HF checkpoint the same
+    way); ``--seq_length`` still sets the training length, and a learned
+    position table is cut to it (a longer one than the table is refused)."""
+    from galvatron_tpu_torch.models.convert import load_hf_checkpoint
+
+    params, cfg = load_hf_checkpoint(ns.load_hf)
+    seq = getattr(ns, "seq_length", None)
+    if seq and seq != cfg.max_seq_len:
+        if "pos" in params.get("embed", {}):
+            if seq > cfg.max_seq_len:
+                raise ValueError(f"--seq_length {seq} exceeds the checkpoint's "
+                                 f"learned-position table ({cfg.max_seq_len})")
+            params["embed"]["pos"] = params["embed"]["pos"][:seq].clone()
+        cfg = cfg.replace(max_seq_len=seq)
+    return params, cfg
+
+
+def _state_from_hf(rt, hp, params, world: int, device: torch.device):
+    """A train state from the imported full tree (CPU fp32): this rank's
+    pieces under the plan (``bridge.shard_params``), moved to ``device``."""
+    from galvatron_tpu_torch import bridge
+    from galvatron_tpu_torch.parallel.hybrid import zip_map
+
+    if world > 1 or hp.pp > 1:
+        params = zip_map(lambda t, n: torch.from_numpy(np.ascontiguousarray(t)),
+                         bridge.shard_params(zip_map(lambda t, n: t.numpy(), params),
+                                             rt.cfg, hp, rt.rank, world))
+    return rt.state_from(zip_map(lambda t, n: t.to(device=device, dtype=rt.cfg.param_dtype),
+                                 params))
+
+
 def _train(ns: argparse.Namespace, cfg: Optional[ModelConfig], device: torch.device) -> dict:
     import torch.distributed as dist
 
     world = dist.get_world_size() if dist.is_initialized() else 1
     lead = not dist.is_initialized() or dist.get_rank() == 0
+    hf_params = None
+    if getattr(ns, "load_hf", None):
+        hf_params, hf_cfg = _load_hf(ns)
+        cfg = hf_cfg if cfg is None else cfg
     if cfg is None:
         cfg = model_config_from_args(ns)
     # packing rides the model config (split_batch, the attention mask and
@@ -251,7 +289,8 @@ def _train(ns: argparse.Namespace, cfg: Optional[ModelConfig], device: torch.dev
     if lead:
         strategies = sorted({form_strategy(s, rt.pp, rt.world // (rt.pp * s.tp))
                              for s in hp.layer_strategies})
-        print(f"train: {ns.model_size} layers={c.num_layers} hidden={c.hidden_size} "
+        name = f"hf:{ns.load_hf}" if getattr(ns, "load_hf", None) else ns.model_size
+        print(f"train: {name} layers={c.num_layers} hidden={c.hidden_size} "
               f"heads={c.num_heads} seq={seq} batch={bsz} chunks={rt.chunks} "
               f"dtype={str(c.dtype).replace('torch.', '')} attn={c.attn_impl} "
               f"ckpt={rt.ckpt} mlp_recompute={c.mlp_recompute} fused_norm={c.fused_norm} "
@@ -262,7 +301,13 @@ def _train(ns: argparse.Namespace, cfg: Optional[ModelConfig], device: torch.dev
                    "global_bsz": int(bsz)}
     with MetricsLogger(getattr(ns, "metrics_path", None) if lead else None) as metrics:
         resumed = _resume(ns, rt, world, fingerprint, metrics, lead)
-        if resumed is None:
+        if resumed is None and hf_params is not None:
+            state, start_step, batch_offset, meta, restore_s = (
+                _state_from_hf(rt, hp, hf_params, world, device), 0, 0, {}, None)
+            del hf_params
+            if lead:
+                print(f"initialized from HF checkpoint {ns.load_hf}", flush=True)
+        elif resumed is None:
             state, start_step, batch_offset, meta, restore_s = rt.init_state(ns.seed), 0, 0, {}, None
         else:
             state, start_step, batch_offset, meta, restore_s = resumed

@@ -16,9 +16,14 @@ Counterpart of ``galvatron_tpu/models/generation.py``:
   sampled ones until each row's own length) and ``generate_np`` (lists of
   token ids in and out, with the reference's length bucketing).
 
-Every family training runs is served: rope or learned positions (per-row
-absolute positions ``offsets[:, None] + arange(s)``), rms or layernorm,
-swiglu / gelu / relu, biases and a tied head.
+Every family training runs is served: rope, learned or ALiBi positions
+(per-row absolute positions ``offsets[:, None] + arange(s)``), rms or
+layernorm, swiglu / gelu / relu, biases and a tied head. ALiBi adds
+``slope · (k − q)`` at those positions to every cache forward's einsum
+attention; its paged decode steps take the gathered einsum attention, not
+the ``paged_decode`` kernel (the reference's routing: the kernel only
+without a bias). :data:`decode_routes` counts which route each paged decode
+step took.
 
 JAX threads caches through its jitted steps functionally; here they are
 updated IN PLACE (indexed assignment into the layer's slice of the
@@ -45,6 +50,16 @@ from galvatron_tpu_torch.ops.flash_attention import paged_decode_attention
 #: the full-length rope tables of one (config, length, device), computed on
 #: the host once instead of on every decode step
 _rope_tables = functools.lru_cache(maxsize=8)(modeling.rope_tables)
+
+#: paged decode steps (one-token forwards of ``forward_with_cache_paged``) by
+#: the attention route they took: the ``paged_decode`` kernel, or the
+#: gathered einsum attention (ALiBi)
+decode_routes = {"paged_decode": 0, "einsum": 0}
+
+
+def reset_decode_routes() -> None:
+    for k in decode_routes:
+        decode_routes[k] = 0
 
 
 class KVCache(NamedTuple):
@@ -91,6 +106,13 @@ def _qkv(x, p, cfg: ModelConfig, cos_sin):
     return q, k, v
 
 
+def _alibi_bias(cfg: ModelConfig, pos, k_len: int, device):
+    """The ALiBi bias (B or 1, n, s, k_len) at the absolute query positions
+    ``pos`` (None without ALiBi)."""
+    slopes = modeling.alibi_tensor(cfg, device)
+    return None if slopes is None else modeling.alibi_bias(slopes, pos, k_len)
+
+
 def _finish_layer(x, o, p, cfg: ModelConfig):
     """Output projection (+ bias) and the MLP block, both residual. An MoE
     block routes by the raw argmax (``train=False``), with its capacity over
@@ -119,12 +141,13 @@ def forward_with_cache(params: Params, tokens, cfg: ModelConfig, cache: KVCache,
     offset = int(offset)
     pos = _positions(offset, s, tokens.device)
     x, cos_sin = _embed_and_rope(params, tokens, cfg, pos, cache.k.shape[2])
+    bias = _alibi_bias(cfg, pos, cache.k.shape[2], tokens.device)
     for i, lp in enumerate(params["layers"]):
         q, k, v = _qkv(x, lp, cfg, cos_sin)
         kc, vc = cache.k[i], cache.v[i]
         kc[:, offset:offset + s] = k.to(kc.dtype)
         vc[:, offset:offset + s] = v.to(vc.dtype)
-        o = modeling.attention_xla(q, kc, vc, cfg, q_offset=offset)
+        o = modeling.attention_xla(q, kc, vc, cfg, q_offset=offset, bias=bias)
         x = _finish_layer(x, o, lp, cfg)
     return _logits(x, params, cfg), cache
 
@@ -147,13 +170,14 @@ def forward_with_cache_slots(params: Params, tokens, cfg: ModelConfig, cache: KV
     b, s = tokens.shape
     pos = _positions(offsets, s, tokens.device)
     x, cos_sin = _embed_and_rope(params, tokens, cfg, pos, cache.k.shape[2])
+    bias = _alibi_bias(cfg, pos, cache.k.shape[2], tokens.device)
     rows = torch.arange(b, device=tokens.device)[:, None]
     for i, lp in enumerate(params["layers"]):
         q, k, v = _qkv(x, lp, cfg, cos_sin)
         kc, vc = cache.k[i], cache.v[i]
         kc[rows, pos] = k.to(kc.dtype)
         vc[rows, pos] = v.to(vc.dtype)
-        o = modeling.attention_xla(q, kc, vc, cfg, q_offset=offsets)
+        o = modeling.attention_xla(q, kc, vc, cfg, q_offset=offsets, bias=bias)
         x = _finish_layer(x, o, lp, cfg)
     return _logits(x, params, cfg), cache
 
@@ -164,11 +188,13 @@ def forward_with_cache_slots(params: Params, tokens, cfg: ModelConfig, cache: KV
 
 
 def _layer_with_cache_paged(x, p, cfg: ModelConfig, pool_k, pool_v, tables, offsets, pos,
-                            cos_sin):
+                            cos_sin, bias=None):
     """One decoder layer over the paged pool: ``pool_k``/``pool_v`` are this
     layer's (num_blocks, block_size, kvh, hd) views, ``tables`` is (B,
     max_blocks) int32 and row b's position p lives at
-    ``(tables[b, p // bs], p % bs)``. Writes the new k/v into the pool."""
+    ``(tables[b, p // bs], p % bs)``. Writes the new k/v into the pool. With
+    an ALiBi ``bias`` every step, decode included, attends through the
+    gathered context (the reference's routing)."""
     b, s, _ = x.shape
     bs = pool_k.shape[1]
     smax = tables.shape[1] * bs
@@ -179,17 +205,18 @@ def _layer_with_cache_paged(x, p, cfg: ModelConfig, pool_k, pool_v, tables, offs
     sub = pos % bs
     pool_k[blk, sub] = k.to(pool_k.dtype)
     pool_v[blk, sub] = v.to(pool_v.dtype)
-    if s == 1:
+    if s == 1 and bias is None:
         # decode step: the kernel reads pages through the table (q is a
         # strided view of the blocked GPT projection; the kernel takes it
         # contiguous)
         o = paged_decode_attention(q.contiguous(), pool_k, pool_v, tables, offsets)
     else:
-        # prefill chunk: materialise the row's context, einsum attention
+        # prefill chunk (or ALiBi): materialise the row's context, einsum
+        # attention
         idx = tables.long()
         k_ctx = pool_k[idx].reshape(b, smax, *pool_k.shape[2:])
         v_ctx = pool_v[idx].reshape(b, smax, *pool_v.shape[2:])
-        o = modeling.attention_xla(q, k_ctx, v_ctx, cfg, q_offset=offsets)
+        o = modeling.attention_xla(q, k_ctx, v_ctx, cfg, q_offset=offsets, bias=bias)
     return _finish_layer(x, o, p, cfg)
 
 
@@ -203,9 +230,12 @@ def forward_with_cache_paged(params: Params, tokens, cfg: ModelConfig,
     smax = tables.shape[1] * pool.k.shape[2]
     pos = _positions(offsets, s, tokens.device)
     x, cos_sin = _embed_and_rope(params, tokens, cfg, pos, smax)
+    bias = _alibi_bias(cfg, pos, smax, tokens.device)
+    if s == 1:
+        decode_routes["paged_decode" if bias is None else "einsum"] += 1
     for i, lp in enumerate(params["layers"]):
         x = _layer_with_cache_paged(x, lp, cfg, pool.k[i], pool.v[i], tables, offsets, pos,
-                                    cos_sin)
+                                    cos_sin, bias)
     return _logits(x, params, cfg), pool
 
 

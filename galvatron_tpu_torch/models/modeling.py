@@ -1,9 +1,12 @@
 """Decoder-only Transformers in plain PyTorch tensor functions.
 
 Counterpart of ``galvatron_tpu/models/modeling.py``, limited to the
-decoder families the port runs: LLaMA (RoPE, RMSNorm, SwiGLU) and GPT/OPT
-(learned positions, LayerNorm, tanh-GELU or ReLU, projection biases, tied
-embeddings), each with dense or switch-MoE MLPs (``models/moe.py``). The
+decoder families the port runs: LLaMA (RoPE, RMSNorm, SwiGLU), Baichuan
+(LLaMA's layer with RoPE or ALiBi positions) and GPT/OPT (learned
+positions, LayerNorm, tanh-GELU or ReLU, projection biases, tied
+embeddings), each with dense or switch-MoE MLPs (``models/moe.py``). ALiBi
+adds ``slope · (k − q)`` per head to the scores and always takes the einsum
+attention, as in the reference (its flash kernels carry no bias). The
 fused QKV projection in both stored layouts (blocked ``(h, 3, n·hd)`` for
 MHA, kv-group-interleaved ``(h, kv·(npg+2)·hd)`` for GQA), attention on the
 einsum path (``attn_impl='xla'``) or the flash kernels (``'flash'``: the
@@ -28,6 +31,7 @@ Norm scales and biases stay fp32, as ``_norm_impl`` reads them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
@@ -51,7 +55,7 @@ class ModelConfig:
     num_kv_heads: Optional[int] = None  # None → MHA; < num_heads → GQA
     ffn_dim: Optional[int] = None  # None → 4h (gelu/relu) or llama 8h/3 rounding
     max_seq_len: int = 2048
-    pos_embed: str = "rope"  # 'rope' | 'learned' ('alibi' is not ported)
+    pos_embed: str = "rope"  # 'rope' | 'learned' | 'alibi'
     norm_type: str = "rms"  # 'rms' | 'layernorm'
     act_fn: str = "swiglu"  # 'swiglu' | 'gelu' (tanh approximation) | 'relu'
     tie_word_embeddings: bool = False
@@ -158,7 +162,7 @@ class ModelConfig:
 #: the values the port runs, what the other values select); anything else
 #: raises naming ROADMAP §1.10
 _PORTED = (
-    ("pos_embed", ("rope", "learned"), "ALiBi positions"),
+    ("pos_embed", ("rope", "learned", "alibi"), "other position schemes"),
     ("norm_type", ("rms", "layernorm"), "other norms"),
     ("act_fn", ("swiglu", "gelu", "relu"), "other MLP activations"),
     ("causal", (True,), "bidirectional encoders"),
@@ -177,14 +181,15 @@ _PORTED = (
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run yet
     (ROADMAP.md §1.10): training, serving and generation run the causal
-    LLaMA and GPT/OPT decoders (rope or learned positions, rms or layernorm,
-    swiglu / gelu / relu, biases, tied heads, switch-MoE MLPs)."""
+    LLaMA, Baichuan and GPT/OPT decoders (rope, learned or ALiBi positions,
+    rms or layernorm, swiglu / gelu / relu, biases, tied heads, switch-MoE
+    MLPs)."""
     for field, ported, what in _PORTED:
         if getattr(cfg, field) not in ported:
             raise NotImplementedError(
                 f"{field}={getattr(cfg, field)!r} ({what}) is not ported yet: "
-                "ROADMAP.md §1.10 'Other model families'; the port runs causal LLaMA "
-                "and GPT/OPT decoders"
+                "ROADMAP.md §1.10 'Other model families'; the port runs causal LLaMA, "
+                "Baichuan and GPT/OPT decoders"
             )
     if cfg.use_bias and not cfg.qkv_blocked:
         raise ValueError("use_bias needs the blocked qkv layout (no GQA)")
@@ -550,7 +555,54 @@ def _repeat_kv(x, n_rep: int):
     return x[:, :, :, None, :].expand(b, s, kvh, n_rep, hd).reshape(b, s, kvh * n_rep, hd)
 
 
-def attention_xla(q, k, v, cfg: ModelConfig, q_offset, seg_ids=None):
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """The standard ALiBi slope schedule (Press et al.), the reference's:
+    a geometric sequence for a power-of-two head count; otherwise the
+    sequence of the next lower power of two, then every other slope of the
+    one above it (baichuan-13b's 40 heads take that branch)."""
+    def pow2slopes(n):
+        start = 2 ** (-(2 ** -(np.log2(n) - 3)))
+        return start * (start ** np.arange(n))
+
+    if np.log2(n_heads).is_integer():
+        return pow2slopes(n_heads)
+    k = 2 ** int(np.floor(np.log2(n_heads)))
+    return np.concatenate([pow2slopes(k), pow2slopes(2 * k)[0::2][: n_heads - k]])
+
+
+@functools.lru_cache(maxsize=8)
+def alibi_tensor(cfg: ModelConfig, device) -> Optional[torch.Tensor]:
+    """(n,) fp32 slopes on ``device`` for an ALiBi model (the reference's
+    ``jnp.asarray(alibi_slopes(n))``: float64 rounded to fp32), else None.
+    Made once per (config, device); outside inference mode, since a cached
+    tensor may meet autograd later."""
+    if cfg.pos_embed != "alibi":
+        return None
+    with torch.inference_mode(False):
+        return torch.from_numpy(alibi_slopes(cfg.num_heads).astype(np.float32)).to(device)
+
+
+def alibi_local(slopes: torch.Tensor, tp) -> torch.Tensor:
+    """The slopes of the heads one TP rank computes: ``bridge.shard_params``
+    gives TP index t the wqkv columns of heads [t·n/tp, (t+1)·n/tp) in
+    both qkv layouts (whole kv groups in head order under GQA), so its
+    slopes are that slice (GSPMD shards the reference's (1, n, q, k) bias
+    with the heads the same way)."""
+    n = slopes.shape[0] // tp.size
+    return slopes[tp.index * n:(tp.index + 1) * n]
+
+
+def alibi_bias(slopes: torch.Tensor, q_pos, k_len: int) -> torch.Tensor:
+    """The ALiBi bias ``slope · (k − q)`` as fp32 (B or 1, n, s, k_len):
+    ``q_pos`` (B or 1, s) absolute query positions, keys at 0..k_len-1.
+    One fp32 product of the slope and the exact integer distance, as the
+    reference computes it."""
+    k_pos = torch.arange(k_len, device=slopes.device)
+    rel = (k_pos[None, None, :] - q_pos[:, :, None]).float()  # (B, s, k)
+    return slopes[None, :, None, None] * rel[:, None]
+
+
+def attention_xla(q, k, v, cfg: ModelConfig, q_offset, seg_ids=None, bias=None):
     """Causal einsum attention (the reference's ``attention_xla``): k/v may
     be longer than q; query i of row b sits at absolute position
     ``q_offset[b] + i`` and sees keys at positions <= its own. Scores and
@@ -562,16 +614,22 @@ def attention_xla(q, k, v, cfg: ModelConfig, q_offset, seg_ids=None):
     intra-segment — query i attends to key j only when ``seg[i] == seg[j]``.
     The combine is a logical AND on the same -1e30 fill the causal mask
     uses, so a row holding one segment gets a bit-identical mask (the
-    packed-vs-padded parity)."""
+    packed-vs-padded parity).
+
+    ``bias`` (fp32, broadcastable to (B, n, s, k): ALiBi) is added to the
+    scaled scores before the mask; a one-query call with a bias stays on
+    this path, as in the reference."""
     b, s, nh, hd = q.shape
     offsets = torch.as_tensor(q_offset, device=q.device).reshape(-1)
-    if s == 1 and seg_ids is None:
+    if s == 1 and seg_ids is None and bias is None:
         from galvatron_tpu_torch.ops.flash_attention import decode_attention
 
         return decode_attention(q, k, v, q_offset=offsets)
     k = _repeat_kv(k, nh // k.shape[2])
     v = _repeat_kv(v, nh // v.shape[2])
     scores = torch.einsum("bqnh,bknh->bnqk", q, k).float() / math.sqrt(hd)
+    if bias is not None:
+        scores = scores + bias
     q_pos = offsets[:, None] + torch.arange(s, device=q.device)[None]
     k_pos = torch.arange(k.shape[1], device=q.device)
     allowed = k_pos[None, None, :] <= q_pos[:, :, None]
@@ -775,16 +833,21 @@ def _maybe_checkpoint(fn, remat: bool, *args):
     return fn(*args)
 
 
-def attention(q, k, v, cfg: ModelConfig, rope=None, seg_ids=None):
+def attention(q, k, v, cfg: ModelConfig, rope=None, seg_ids=None, alibi=None):
     """(B, S, n, hd) attention on the einsum path, RoPE applied first (the
-    reference's xla branch), masked per segment with ``seg_ids``. The flash
-    path never comes here: ``attn_block`` sends a tileable sequence to
-    ``_attn_block_headmajor``, and an untileable one takes this fallback, as
-    in the reference."""
+    reference's xla branch), masked per segment with ``seg_ids``, with the
+    ALiBi bias of the (n,) ``alibi`` slopes over the whole sequence. The
+    flash path never comes here: ``attn_block`` sends a tileable sequence
+    to ``_attn_block_headmajor``, and an untileable one takes this
+    fallback, as in the reference."""
     if rope is not None:
         q = apply_rope(q, *rope)
         k = apply_rope(k, *rope)
-    return attention_xla(q, k, v, cfg, 0, seg_ids=seg_ids)
+    bias = None
+    if alibi is not None:
+        s = q.shape[1]
+        bias = alibi_bias(alibi, torch.arange(s, device=q.device)[None], s)
+    return attention_xla(q, k, v, cfg, 0, seg_ids=seg_ids, bias=bias)
 
 
 def _attn_block_headmajor(x, p, cfg: ModelConfig, rope, remat_attn: bool, tp=None):
@@ -838,36 +901,41 @@ def _headmajor_out(o, p, dtype, tp=None):
 
 
 def attn_block(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False, seg_ids=None,
-               tp=None):
+               tp=None, alibi=None):
     """``remat_attn`` recomputes only the attention core in the backward
     (the reference's "selective" checkpointing). RoPE tables apply only to
-    ``pos_embed='rope'`` models. ``seg_ids`` (packed sequences) takes the
-    einsum path with the intra-segment mask, never the flash kernels (they
-    carry no segment mask). With ``tp`` the projections are the layer's TP
-    seams and the output is reduced (:func:`_up`, :func:`_down`)."""
+    ``pos_embed='rope'`` models, the ``alibi`` slopes (of this block's heads)
+    only to ``pos_embed='alibi'`` ones. ``seg_ids`` (packed sequences) and
+    ALiBi take the einsum path (the segment mask and the bias there), never
+    the flash kernels, whatever ``attn_impl`` says (the reference's rule:
+    its kernels carry neither). With ``tp`` the projections are the layer's
+    TP seams and the output is reduced (:func:`_up`, :func:`_down`)."""
     from galvatron_tpu_torch.ops.flash_attention import flash_tileable
 
     rope = cos_sin if cfg.pos_embed == "rope" else None
+    alibi = alibi if cfg.pos_embed == "alibi" else None
     seq = x.shape[1] * (tp.size if tp is not None and tp.ring else 1)
-    if cfg.attn_impl == "flash" and seg_ids is None and flash_tileable(seq):
+    if (cfg.attn_impl == "flash" and cfg.pos_embed != "alibi" and seg_ids is None
+            and flash_tileable(seq)):
         return _attn_block_headmajor(x, p, cfg, rope, remat_attn, tp)
     q, k, v = project_qkv_heads(x, p, cfg, tp)
     o = _maybe_checkpoint(lambda q_, k_, v_: attention(q_, k_, v_, cfg, rope=rope,
-                                                       seg_ids=seg_ids),
+                                                       seg_ids=seg_ids, alibi=alibi),
                           remat_attn, q, k, v)
     return attn_output(o, p, cfg, tp)
 
 
 def decoder_layer(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False, tp=None,
-                  seg_ids=None):
+                  seg_ids=None, alibi=None):
     """One layer. ``tp`` (a ``parallel.comm.TPRegion`` of more than one
     rank) runs it tensor-parallel on this rank's shards: see
     :func:`_decoder_layer_tp`. ``seg_ids`` ((B, S) over the whole sequence:
-    packed rows) masks the attention per segment."""
+    packed rows) masks the attention per segment. ``alibi``: the (n,) fp32
+    slopes of every head (:func:`alibi_tensor`) of an ALiBi model."""
     if tp is not None and tp.size > 1:
-        return _decoder_layer_tp(x, p, cfg, cos_sin, remat_attn, tp, seg_ids)
+        return _decoder_layer_tp(x, p, cfg, cos_sin, remat_attn, tp, seg_ids, alibi)
     x = x + attn_block(norm(x, p["attn_norm"], cfg), p["attn"], cfg, cos_sin,
-                       remat_attn=remat_attn, seg_ids=seg_ids)
+                       remat_attn=remat_attn, seg_ids=seg_ids, alibi=alibi)
     return mlp_residual(x, p, cfg)
 
 
@@ -875,7 +943,8 @@ def _without(p, name):
     return {k: v for k, v in p.items() if k != name}
 
 
-def _decoder_layer_tp(x, p, cfg: ModelConfig, cos_sin, remat_attn: bool, tp, seg_ids=None):
+def _decoder_layer_tp(x, p, cfg: ModelConfig, cos_sin, remat_attn: bool, tp, seg_ids=None,
+                      alibi=None):
     """Megatron's layer on one of ``tp.size`` ranks: the norm on this rank's
     activation (its sequence shard under SP), ``tp.enter`` (copy, or the
     sequence all-gather) before the column-parallel qkv / MLP-up GEMMs over
@@ -888,11 +957,13 @@ def _decoder_layer_tp(x, p, cfg: ModelConfig, cos_sin, remat_attn: bool, tp, seg
     saves the gate output and recomputes the activation product: the
     one-region 'policy' branch of the single-device layer recomputes the
     norm from the layer input, and here a collective stands between the
-    two."""
+    two. An ALiBi layer's bias takes the slopes of this rank's heads
+    (:func:`alibi_local`), over the whole sequence the TP region sees (under
+    SP ``tp.enter`` has gathered it)."""
     local = tp_local_config(cfg, tp.size)
     h = _enter(norm(x, p["attn_norm"], cfg), tp)
     x = x + attn_block(h, p["attn"], local, cos_sin, remat_attn=remat_attn, seg_ids=seg_ids,
-                       tp=tp)
+                       tp=tp, alibi=None if alibi is None else alibi_local(alibi, tp))
     return _mlp_residual_tp(x, p, cfg, tp)
 
 
@@ -947,7 +1018,10 @@ def forward(params, tokens, cfg: ModelConfig, layer_hook=None):
     Packed sequences (``cfg.pack_sequences``): ``tokens`` is the (B, 2·S)
     packed input row (tokens ‖ segment ids, from :func:`split_batch`); the
     segment ids drive the intra-segment mask and the per-segment positions,
-    and reach the hook as the keyword ``seg_ids`` (only in packed mode)."""
+    and reach the hook as the keyword ``seg_ids`` (only in packed mode).
+    ALiBi models add the bias of :func:`alibi_tensor`'s slopes in every
+    layer; a packed row needs no per-segment positions for it, since the
+    bias depends only on k − q and the segment mask cuts across segments."""
     seg = pos_ids = None
     if cfg.pack_sequences:
         tokens, seg, pos_ids = split_packed_inputs(tokens)
@@ -956,12 +1030,13 @@ def forward(params, tokens, cfg: ModelConfig, layer_hook=None):
         cos_sin = (packed_rope_tables(cfg, pos_ids) if pos_ids is not None
                    else rope_tables(cfg, tokens.shape[1], tokens.device))
     hook_kw = {"seg_ids": seg} if seg is not None else {}
+    alibi = alibi_tensor(cfg, tokens.device)
     x = embed(tokens, params, cfg, pos_ids=pos_ids)
     for i, lp in enumerate(params["layers"]):
         if layer_hook is not None:
             x = layer_hook(i, x, lp, **hook_kw)
         else:
-            x = decoder_layer(x, lp, cfg, cos_sin, seg_ids=seg)
+            x = decoder_layer(x, lp, cfg, cos_sin, seg_ids=seg, alibi=alibi)
     return head(x, params, cfg)
 
 
@@ -1105,4 +1180,13 @@ PRESETS: Dict[str, ModelConfig] = {
     "opt-6.7b": _gpt(50272, 4096, 32, 32, 2048, "relu"),
     "opt-13b": _gpt(50272, 5120, 40, 40, 2048, "relu"),
     "opt-30b": _gpt(50272, 7168, 48, 56, 2048, "relu"),
+    # Baichuan-1: LLaMA's layer; 7B with rotary positions, 13B with ALiBi
+    "baichuan-7b": ModelConfig(
+        vocab_size=64000, hidden_size=4096, num_layers=32, num_heads=32,
+        ffn_dim=11008, max_seq_len=4096,
+    ),
+    "baichuan-13b": ModelConfig(
+        vocab_size=64000, hidden_size=5120, num_layers=40, num_heads=40,
+        ffn_dim=13696, max_seq_len=4096, pos_embed="alibi",
+    ),
 }

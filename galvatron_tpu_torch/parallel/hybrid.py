@@ -181,10 +181,18 @@ def check_cp(cfg: ModelConfig, hp: HybridParallelConfig, seq_len: int) -> None:
     """The reference's refusals of context parallelism (``build_runtime``'s
     checks and the Ulysses head rule), from the shapes alone: causal
     decoder-only models, the tp-local head count split over an a2a layer's
-    cp, and a sequence that splits over each cp layer's (SP and) CP ranks."""
+    cp, and a sequence that splits over each cp layer's (SP and) CP ranks.
+    An ALiBi model is refused too: the reference's ring and Ulysses layers
+    take no bias and would drop it (ROADMAP.md §3, kept differences)."""
     cps = [(i, s) for i, s in enumerate(hp.layer_strategies) if s.cp > 1]
     if not cps:
         return
+    if cfg.pos_embed == "alibi":
+        raise NotImplementedError(
+            f"layer {cps[0][0]}: context parallelism (cp={cps[0][1].cp}) with ALiBi positions: "
+            "the reference's ring and Ulysses layers carry no ALiBi bias (its CP layers would "
+            "silently drop it), so the port refuses the combination; use tp/sp for these "
+            "layers")
     if not cfg.causal:
         raise ValueError(
             "context parallelism (cp>1) is causal-only (ring/Ulysses kernels "
@@ -370,12 +378,14 @@ def _make_layer_hook(cfg: ModelConfig, ckpt: Union[str, List[str]], layer_fn=Non
     backward (saving only its input; the nested MLP policy is switched off
     there, as the reference does), 'selective' only the attention core.
     ``ckpt`` is one mode for every layer or a list of per-layer modes;
-    ``layer_fn(i, x, lp, layer_cfg, cos_sin, ckpt, seg_ids)`` replaces the
-    plain ``decoder_layer`` call (the hybrid runtime's redistribution,
-    ZeRO-3 gathers and TP region), whose input may be a sequence shard: the
-    RoPE tables then cover ``seq_len`` positions. ``seg_ids`` (packed rows,
-    (B, S) over the whole sequence) mask the attention per segment; the
-    RoPE tables are then gathered per row by the per-segment positions."""
+    ``layer_fn(i, x, lp, layer_cfg, cos_sin, ckpt, seg_ids, alibi)``
+    replaces the plain ``decoder_layer`` call (the hybrid runtime's
+    redistribution, ZeRO-3 gathers and TP region), whose input may be a
+    sequence shard: the RoPE tables then cover ``seq_len`` positions.
+    ``seg_ids`` (packed rows, (B, S) over the whole sequence) mask the
+    attention per segment; the RoPE tables are then gathered per row by the
+    per-segment positions. ``alibi`` is the model's (n,) slopes (ALiBi
+    models; ``decoder_layer`` takes a TP rank's own heads' part)."""
 
     def hook(i: int, x, lp, seg_ids=None):
         mode = ckpt if isinstance(ckpt, str) else ckpt[i]
@@ -383,13 +393,15 @@ def _make_layer_hook(cfg: ModelConfig, ckpt: Union[str, List[str]], layer_fn=Non
         cos_sin = None
         if layer_cfg.pos_embed == "rope":
             cos_sin = _rope_tables(layer_cfg, seq_len or x.shape[1], x.device)
+        alibi = modeling.alibi_tensor(layer_cfg, x.device)
         if layer_fn is not None:
-            return layer_fn(i, x, lp, layer_cfg, cos_sin, mode, seg_ids)
+            return layer_fn(i, x, lp, layer_cfg, cos_sin, mode, seg_ids, alibi)
         cos_sin = _packed_tables(layer_cfg, cos_sin, seg_ids)
 
         def run(x_):
             return modeling.decoder_layer(x_, lp, layer_cfg, cos_sin,
-                                          remat_attn=mode == "selective", seg_ids=seg_ids)
+                                          remat_attn=mode == "selective", seg_ids=seg_ids,
+                                          alibi=alibi)
 
         if mode == "full" and torch.is_grad_enabled():
             return checkpoint(run, x, use_reentrant=False)
@@ -706,7 +718,7 @@ def build_runtime(
     has_zero3 = [any(lp.zero3_dim is not None for lp in tree_leaves(all_plans["layers"][i]))
                  for i in range(len(strategies))]
 
-    def layer_fn(i, x, lp, layer_cfg, cos_sin, mode, seg_ids=None):
+    def layer_fn(i, x, lp, layer_cfg, cos_sin, mode, seg_ids=None, alibi=None):
         # the input arrives in the previous layer's layout, also across a
         # stage boundary: the receiving stage moves it
         x = comm.redistribute(x, mesh, rank, stage_group,
@@ -727,7 +739,7 @@ def build_runtime(
                 return cp_layers[i](x_, p, layer_cfg, cos_sin=cos_sin, tp=tp_regions[i])
             return modeling.decoder_layer(x_, p, layer_cfg, cos_sin,
                                           remat_attn=mode == "selective", tp=tp_regions[i],
-                                          seg_ids=seg_ids)
+                                          seg_ids=seg_ids, alibi=alibi)
 
         # SP with CP: the CP block, gathered over the TP group, and back
         x = comm.redistribute(x, mesh, rank, stage_group, layouts[i], inner[i])

@@ -28,6 +28,7 @@ vocab-parallel fit covers vocab_tp = 1. Encoder-decoder and Swin profiles
 from __future__ import annotations
 
 import gc
+import statistics
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -64,12 +65,15 @@ def measure_strategy_ms(
     seq: Optional[int] = None,
     iters: int = 4,
     device=None,
+    windows: int = 1,
 ) -> float:
     """Milliseconds per training iteration of ``hp`` through the runtime's
     own ``train_step`` (this process's world): two warm-up steps first (the
     first pays the kernels' build and cuBLAS's heuristics), then ``iters``
     steps timed as one window — CUDA events on the card, the host clock
-    around a read-back loss on the CPU — synchronised once at its end."""
+    around a read-back loss on the CPU — synchronised once at its end. With
+    ``windows`` > 1 the median of that many such windows, one after the
+    other on the same runtime."""
     from galvatron_tpu_torch.parallel.hybrid import build_runtime
 
     device = resolve_device(device)
@@ -82,19 +86,23 @@ def measure_strategy_ms(
         state, loss = rt.train_step(state, batch)
     float(loss)
     _sync(device)
-    if device.type == "cuda":
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            state, loss = rt.train_step(state, batch)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        state, loss = rt.train_step(state, batch)
-    float(loss)
-    return (time.perf_counter() - t0) / iters * 1000.0
+    times = []
+    for _ in range(windows):
+        if device.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                state, loss = rt.train_step(state, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / iters)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                state, loss = rt.train_step(state, batch)
+            float(loss)
+            times.append((time.perf_counter() - t0) / iters * 1000.0)
+    return float(statistics.median(times))
 
 
 def _mp_of(cfg: ModelConfig) -> str:
@@ -108,10 +116,12 @@ def _trivial_plan(cfg: ModelConfig, vocab_tp: int = 1) -> HybridParallelConfig:
     )
 
 
-def _iter_time_ms(cfg: ModelConfig, bsz: int, seq: int, device, iters: int = 4) -> float:
+def _iter_time_ms(cfg: ModelConfig, bsz: int, seq: int, device, iters: int = 4,
+                  windows: int = 1) -> float:
     """One-device trivial-strategy iteration time: the per-layer basis
     (tp=1, ddp, chunks=1)."""
-    return measure_strategy_ms(cfg, _trivial_plan(cfg), bsz, seq, iters, device=device)
+    return measure_strategy_ms(cfg, _trivial_plan(cfg), bsz, seq, iters, device=device,
+                               windows=windows)
 
 
 def profile_vocab_costs(
@@ -211,25 +221,37 @@ def _free(device: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
-def _expert_time_fraction(cfg: ModelConfig, bsz: int, seq: int, l1: int, l2: int,
-                          fwd_ms: float, device: torch.device) -> Optional[float]:
+#: timing windows of each point of the expert-time fit (their median): one
+#: window of a small MoE model is launch-bound and host-noise prone
+_FIT_WINDOWS = 5
+
+
+def _expert_time_fraction(cfg: ModelConfig, bsz: int, seq: int, depth: int, fwd_ms: float,
+                          device: torch.device) -> Optional[float]:
     """The MEASURED share of an MoE layer's time that expert parallelism
-    splits: a two-point fit of the marginal layer time over the expert FFN
-    width, t(f) = a + b·f, share b·f / t (the intercept a is the routing,
-    sinkhorn and dispatch, which do not split by ep). A degenerate fit (no
-    positive slope) or a failed run leaves None: the search then prices EP
-    by the parameter fraction (the reference's fallback)."""
+    splits: a two-point fit of the layer time over the expert FFN width,
+    t(f) = a + b·f, share b·f / t (the intercept a is the routing,
+    sinkhorn and dispatch, which do not split by ep). Both points are timed
+    at the same ``depth``, the full width and a quarter of it, so all that
+    lies outside the layers cancels in their difference:
+    b = Δt / (depth · 3·bsz · Δf); each point is the median of
+    ``_FIT_WINDOWS`` windows. (The reference fits b from the per-layer
+    differences at two depths, four single windows: on the card that
+    difference of differences is noise-bound, PERF.md.) A degenerate fit
+    (no positive slope) or a failed run leaves None: the search then prices
+    EP by the parameter fraction (the reference's fallback)."""
     try:
         f1 = cfg.ffn
         f2 = max(256, (f1 // 4 + 255) // 256 * 256)
         if f2 >= f1:
             return None
-        small = cfg.replace(ffn_dim=f2)
-        ts1 = _iter_time_ms(small.replace(num_layers=l1), bsz, seq, device)
-        ts2 = _iter_time_ms(small.replace(num_layers=l2), bsz, seq, device)
+        t_full = _iter_time_ms(cfg.replace(num_layers=depth), bsz, seq, device,
+                               windows=_FIT_WINDOWS)
         _free(device)
-        fwd_small = max(1e-4, (ts2 - ts1) / (l2 - l1) / bsz / 3.0)
-        slope = (fwd_ms - fwd_small) / (f1 - f2)
+        t_small = _iter_time_ms(cfg.replace(num_layers=depth, ffn_dim=f2), bsz, seq, device,
+                                windows=_FIT_WINDOWS)
+        _free(device)
+        slope = (t_full - t_small) / depth / bsz / 3.0 / (f1 - f2)
         return float(min(slope * f1 / fwd_ms, 0.99)) if slope > 0 else None
     except Exception:  # noqa: BLE001 — the reference's fallback to the proxy
         return None
@@ -303,7 +325,7 @@ def profile_model(
         other_ms = max(0.0, (t1 - fwd_ms * 3.0 * bsz * l1) / bsz / 3.0)
     else:
         fwd_ms, other_ms = 1.0, 0.1
-    moe_tfrac = (_expert_time_fraction(cfg, bsz, seq, l1, l2, fwd_ms, device)
+    moe_tfrac = (_expert_time_fraction(cfg, bsz, seq, l2, fwd_ms, device)
                  if measure_time and cfg.moe_experts > 0 else None)
     b1, b2 = b_cache[l1], b_cache[l2]
     act_mb = (b2 - b1) / (l2 - l1) / bsz / 1e6 if b2 > b1 else _act_fallback_mb(cfg, seq)

@@ -269,11 +269,12 @@ def test_sampled_generate_is_reproducible_from_its_seed():
 # ---------------------------------------------------------------------------
 
 
-def test_cli_generate_prints_generate_np_json_lines(capsys):
+def test_cli_generate_prints_generate_np_json_lines(capsys, tmp_path):
     """``cli generate --device cpu`` (seed-0 weights, byte tokenizer, the
     preset's bf16) prints one JSON line per prompt: the completion that
-    ``generate_np`` gives on the same weights; ``--load_hf`` raises naming
-    its ROADMAP item."""
+    ``generate_np`` gives on the same weights; with ``--load_hf`` (a
+    directory ``cli export-hf`` wrote from the same flags) the completions
+    of the imported weights, which ``--load`` beside it refuses."""
     from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
 
     tok = ByteTokenizer()
@@ -290,5 +291,23 @@ def test_cli_generate_prints_generate_np_json_lines(capsys):
                             pad_id=tok.pad_id, seed=1234)
     assert lines == [{"prompt": p, "completion": tok.decode(o[len(e):])}
                      for p, e, o in zip(prompts, enc, outs)]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.11"):
-        cli.main(["generate", *flags, "--load_hf", "some/dir"])
+    from galvatron_tpu_torch.models.convert import load_hf_checkpoint
+
+    hf = str(tmp_path / "hf")
+    assert cli.main(["export-hf", *flags, "--output_dir", hf]) == 0
+    capsys.readouterr()
+    assert cli.main(["generate", "--device", "cpu", "--max_new_tokens", "6", "--load_hf", hf,
+                     "--prompt", prompts[0], "--prompt", prompts[1]]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0] == f"serving HF checkpoint {hf}"
+    hf_params, hf_cfg = load_hf_checkpoint(hf)
+    for a, b in zip(tm.init_model_params(cfg, 0, "cpu")["layers"][0]["attn"].values(),
+                    hf_params["layers"][0]["attn"].values()):
+        assert torch.equal(a, b)  # the export of the seed-0 weights, read back bitwise
+    outs = tgen.generate_np(tm.cast_params(hf_params, hf_cfg), hf_cfg, enc, max_new_tokens=6,
+                            eos_id=tok.eos_id, pad_id=tok.pad_id, seed=1234)
+    assert [json.loads(ln) for ln in out[1:]] == [
+        {"prompt": p, "completion": tok.decode(o[len(e):])}
+        for p, e, o in zip(prompts, enc, outs)]
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        cli.main(["generate", "--device", "cpu", "--load_hf", hf, "--load", hf])

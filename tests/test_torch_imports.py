@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the
 JAX package (nor Orbax or TensorStore, which the JAX package's checkpoints
-need), no source imports any of them, and its entry points refuse to run
-without a card unless the caller asks for the CPU."""
+need, nor ``transformers`` or ``safetensors``, which the JAX package's HF
+import and export lean on), no source imports any of them, and its entry
+points refuse to run without a card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -17,7 +18,7 @@ PKG = ROOT / "galvatron_tpu_torch"
 
 
 #: top-level packages the port must never load
-FORBIDDEN = ("jax", "galvatron_tpu", "orbax", "tensorstore")
+FORBIDDEN = ("jax", "galvatron_tpu", "orbax", "tensorstore", "transformers", "safetensors")
 #: the same rule inside a subprocess: ``bad`` lists the loaded modules it refuses
 _BAD_MODULES = ("bad = sorted(m for m in sys.modules if m.split('.')[0] in "
                 f"{FORBIDDEN!r})\n")
@@ -88,24 +89,30 @@ MOE_MODULES = ("galvatron_tpu_torch.models.moe",)
 #: the packed-sequence and overlap slice's modules
 PACKED_OVERLAP_MODULES = ("galvatron_tpu_torch.data.packing",
                           "galvatron_tpu_torch.ops.collective_matmul")
+#: the HF import / export slice's modules and the per-family entry packages
+HF_MODULES = ("galvatron_tpu_torch.models.hf_io", "galvatron_tpu_torch.models.convert",
+              "galvatron_tpu_torch.models.llama", "galvatron_tpu_torch.models.llama_fa",
+              "galvatron_tpu_torch.models.gpt", "galvatron_tpu_torch.models.gpt_fa",
+              "galvatron_tpu_torch.models.opt", "galvatron_tpu_torch.models.baichuan")
 SCANNED = sorted([str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
                  + ["chip_smoke.py", "experiments/torch_decode_profile.py"])
 
 
 def test_the_scan_covers_the_parallel_modules():
     for m in PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES + SERVING_MODULES + (
-            MOE_MODULES + PACKED_OVERLAP_MODULES + ("galvatron_tpu_torch.data",)):
+            MOE_MODULES + PACKED_OVERLAP_MODULES + HF_MODULES + ("galvatron_tpu_torch.data",)):
         assert m.replace(".", "/") + ".py" in SCANNED or \
             m.replace(".", "/") + "/__init__.py" in SCANNED
 
 
 @pytest.mark.parametrize("module", PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES
-                         + SERVING_MODULES + MOE_MODULES + PACKED_OVERLAP_MODULES)
+                         + SERVING_MODULES + MOE_MODULES + PACKED_OVERLAP_MODULES + HF_MODULES)
 def test_parallel_module_alone_loads_no_jax(module):
     """Each module of the hybrid runtime, the search, the training services
     and generation / serving, imported first and alone in a fresh
-    interpreter (packing and the collective matmul too), pulls in neither JAX, the JAX package, Orbax nor
-    TensorStore."""
+    interpreter (packing, the collective matmul, the HF import / export and
+    the family entry packages too), pulls in neither JAX, the JAX package,
+    Orbax, TensorStore, transformers nor safetensors."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -205,6 +212,15 @@ def test_a_rank_without_a_visible_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         rank_device(None)
+
+
+def test_cli_export_hf_raises_without_a_card(no_card, tmp_path):
+    from galvatron_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["export-hf", "--num_layers", "1", "--hidden_size", "32", "--num_heads", "2",
+                  "--output_dir", str(tmp_path / "hf")])
+    assert not (tmp_path / "hf").exists()
 
 
 def test_cli_profile_raises_without_a_card(no_card, tmp_path):

@@ -95,19 +95,32 @@ def test_init_matches_jax_shapes_and_distributions(layout):
 ])
 def test_unported_families_raise_naming_the_roadmap(field, value):
     """What the port does not run raises naming ROADMAP §1.10: training and
-    serving refuse ALiBi, encoders and non-clm objectives; the GPT/OPT
-    pieces training runs (learned positions, layernorm, gelu, biases, tied
-    head) and switch-MoE MLPs the serving engine takes too."""
+    serving refuse encoders and non-clm objectives; the GPT/OPT pieces
+    training runs (learned positions, layernorm, gelu, biases, tied head),
+    switch-MoE MLPs and ALiBi positions (Baichuan-13B) the serving engine
+    takes too. An ALiBi model also trains: one step's loss is finite and
+    its gradients reach every layer (its parity with the JAX package is
+    ``tests/test_torch_alibi.py``)."""
     from galvatron_tpu_torch.serving import Engine
 
     _, tcfg = _cfgs(None)
     cfg = tcfg.replace(**{field: value})
-    if field in ("causal", "objective") or value == "alibi":
+    if field in ("causal", "objective"):
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
             tm.init_model_params(cfg, 0, "cpu")
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
             Engine({"embed": {"tok": torch.zeros(1)}}, cfg, device="cpu", start_loop=False)
     else:
+        if value == "alibi":
+            params = tm.init_model_params(cfg, 0, "cpu")
+            for leaf in (params["layers"][0]["attn"]["wqkv"], params["embed"]["tok"]):
+                leaf.requires_grad_(True)
+            batch = torch.from_numpy(np.random.RandomState(0).randint(
+                0, cfg.vocab_size, (2, 17))).long()
+            loss = tm.lm_loss(params, batch, cfg)
+            loss.backward()
+            assert torch.isfinite(loss)
+            assert params["layers"][0]["attn"]["wqkv"].grad.abs().sum() > 0
         params = tm.cast_params(tm.init_model_params(cfg, 0, "cpu"), cfg)
         Engine(params, cfg, device="cpu", start_loop=False).close()
 

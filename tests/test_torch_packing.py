@@ -163,8 +163,8 @@ def _worker(case_path: str, out_dir: str) -> None:
         cases = pickle.load(f)
     real = modeling.attention_xla
 
-    def unmasked(q, k, v, cfg, q_offset, seg_ids=None):
-        return real(q, k, v, cfg, q_offset)
+    def unmasked(q, k, v, cfg, q_offset, seg_ids=None, bias=None):
+        return real(q, k, v, cfg, q_offset, bias=bias)
 
     try:
         for case in cases:

@@ -293,11 +293,12 @@ def test_cli_train_refuses_unported_flags():
     # tests/test_torch_data.py); the context-parallel flags are ported
     # (tests/test_torch_context_parallel.py), and so are the overlap flags
     # (tests/test_torch_collective_matmul.py) and --pack_sequences
-    # (tests/test_torch_packing.py), which needs a corpus as the reference's does
+    # (tests/test_torch_packing.py), which needs a corpus as the reference's does;
+    # --load_hf is ported (tests/test_torch_convert.py) and parses
     from galvatron_tpu.core.arguments import initialize_galvatron as j_init
     from galvatron_tpu.core.trainer import train as j_train
 
-    for flag in (["--num_slices", "2"], ["--load_hf", "d"],
+    for flag in (["--num_slices", "2"],
                  ["--pipeline_type", "zero_bubble"], ["--pp_division", "2,x"]):
         with pytest.raises(SystemExit):
             cli.main(["train", "--device", "cpu", *flag])
@@ -310,6 +311,7 @@ def test_cli_train_refuses_unported_flags():
     with pytest.raises(ValueError) as te:
         cli.main(["train", "--device", "cpu", "--pack_sequences", "1"])
     assert str(te.value) == str(je.value) and "need a real corpus" in str(te.value)
+    assert cli_args.initialize_galvatron("train", ["--load_hf", "d"]).load_hf == "d"
     ns = cli_args.initialize_galvatron("train", ["--pp_deg", "2", "--vpp_deg", "2", "--pp_division",
                                         "2,2", "--pipeline_type", "pipedream_flush"])
     assert (ns.pp_deg, ns.vpp_deg, ns.pp_division, ns.pipeline_type) == (
