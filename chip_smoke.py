@@ -40,8 +40,12 @@ its result line:
    Then the grid kernels (forward, dk/dv, dq) against their plain versions
    the same way: the GPT-2 XL training shape (b=8, h=25, s=1024, d=64,
    causal, no RoPE, the stacked projection view), non-causal (b=8, h=16,
-   s=512), RoPE past the blocked envelope (b=1, h=4, s=16384, d=128), GQA
-   with kv_rep 4, fp32, and a bf16 call writing fp32 output; the forward's,
+   s=512: bert-large's attention at batch 8), RoPE past the blocked envelope
+   (b=1, h=4, s=16384, d=128), GQA with kv_rep 4, fp32, a bf16 call writing
+   fp32 output, and the encoders' shapes unmasked in the stacked view at
+   the batches phase 22 runs them (bert-large's b=32, h=16, s=512, d=64;
+   vit-large's 196 patches at b=64, h=16, d=64; vit-huge's h=16, s=256,
+   d=80 on the CUDA-core kernels at b=2 and b=16); the forward's,
    the dk/dv and the dq kernels' own device times (and the pre-passes' with
    RoPE) come from profiler windows, with the same route checks on all
    three (TMA for bf16, the CUDA-core kernels for fp32) and the repeat
@@ -138,8 +142,9 @@ its result line:
    forward / backward launched 12 / 8 times on the TMA route at 16 heads
    for the tp=2 layers and 32 for the tp=1 layers; host-staged collectives
    and iter_ms (a gloo-loopback transport figure, not a parallelism
-   result). 12b (phase name ``nccl``): the same over NCCL on cards 0 and
-   1 where the machine has two; otherwise reported absent.
+   result). (a) and then (b) run in one pair of rank processes
+   (``--then``). 12b (phase name ``nccl``): the same over NCCL on cards 0
+   and 1 where the machine has two; otherwise reported absent.
 13. pipelines through the same ``--rank-worker`` launcher and strategy
    JSONs (phase name ``pipeline``): (a) four ranks share card 0 over gloo,
    pp=2 x tp=2 (SP), 1F1B, fp32, llama-7b width at 2 layers, batch 4 x 512,
@@ -157,6 +162,9 @@ its result line:
    within 2e-2 relative of phase 8's, each rank's grid kernels (its
    stage's layers x 4 x 2) on the TMA route. Host-staged messages, p2p
    counts, iter_ms (a gloo transport figure) and peak memory per rank.
+   (a)'s four ranks run at the same time as (b) and (c)'s two, two worlds
+   on card 0 at once: (b)'s and (c)'s iter_ms and every ``seconds`` say so,
+   and the card's used memory is sampled while both run.
    13b (phase name ``nccl``): (b) over NCCL on cards 0 and 1 where the
    machine has two, beside phases 11 and 12b; otherwise reported absent.
 
@@ -323,6 +331,25 @@ its result line:
    backends (equal, or the margin rule), every paged decode step on the
    einsum route (``generation.decode_routes``) and no ``paged_decode``
    launch; decode ms a step.
+22. the encoders (phase name ``encoder``), in this process: (a) ``cli train
+   --model_size bert-large`` (all 24 layers, h 1024, 16 heads, s 512), bf16,
+   batch 32 x 512, 3 steps, the masked-LM objective: each grid kernel
+   launched 24 x 3 times, unmasked at (32, 16, 512), on the TMA route, no
+   other kernel; loss, iter_ms, tokens/s and peak memory; then bert-large at
+   2 layers in fp32, one forward of 2 x 512 on the card (the grid forward on
+   the CUDA-core route) against the CPU: logits within
+   ``ENCODER_LOGIT_TOL``, loss within ``ENCODER_LOSS_RTOL`` relative; (b)
+   vit-large (all 24 layers, 196 patches) with ``fused_norm=True``, bf16, 64
+   images, 3 steps: the grid kernels 24 x 3 each at (64, 16, 196) on the TMA
+   route and the LayerNorm kernels (2 x 24 + 1) x 3 each at H 1024; (c)
+   vit-huge at full width, 2 layers (head_dim 80): fp32 forward and backward
+   of 2 images on the card against the CPU (logits, loss, every gradient
+   within ``ENCODER_GRAD_RTOL`` of its largest value), then a bf16 step of 16
+   images, every grid launch on the CUDA-core route; (d) ``cli profile`` of
+   bert-large at 4 layers, ``cli search`` for one device on it, ``cli
+   check-plan --strict 1`` of the plan and ``cli train`` of it for 2 steps
+   (grid launches as the plan's recompute implies, TMA); (e) ``cli serve``
+   and ``cli generate`` of bert-base refused with the reference's messages.
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
@@ -385,6 +412,29 @@ def check(cond, msg):
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def card_used_peak(torch, every_s=0.05):
+    """The most memory in use on card 0, by every process on it, while the
+    block runs (``torch.cuda.mem_get_info`` read every ``every_s``
+    seconds): ``{"gb": ...}``, filled when the block ends."""
+    out, done = {"gb": 0.0}, threading.Event()
+
+    def sample():
+        while True:
+            free, total = torch.cuda.mem_get_info(0)
+            out["gb"] = max(out["gb"], (total - free) / 1e9)
+            if done.wait(every_s):
+                return
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield out
+    finally:
+        done.set()
+        t.join()
 
 
 # ---------------------------------------------------------------------------
@@ -819,6 +869,16 @@ GRID_CASES = [
     ("grid gqa kv_rep 4", "bfloat16", 8, 32, 8, 1024, 64, True, False, False, False),
     ("grid fp32", "float32", 2, 25, 25, 1024, 64, True, False, True, False),
     ("grid out fp32", "bfloat16", 8, 25, 25, 1024, 64, True, False, True, True),
+    # the encoders' shapes, unmasked, in the layer's stacked projection view
+    # (phase 22): bert-large's 512 tokens at 22 (a)'s batch 32, vit-large's
+    # 196 patches at 64 images (rows and keys past s in the last tile),
+    # vit-huge's head_dim 80 at 256 patches (the CUDA-core kernels) at 2 and
+    # at 22 (c)'s 16 images; "grid non-causal" is bert-large's shape at
+    # batch 8, unstacked, kept as earlier readings took it
+    ("grid encoder s512 d64", "bfloat16", 32, 16, 16, 512, 64, False, False, True, False),
+    ("grid encoder s196 d64", "bfloat16", 64, 16, 16, 196, 64, False, False, True, False),
+    ("grid encoder s256 d80", "bfloat16", 2, 16, 16, 256, 80, False, False, True, False),
+    ("grid encoder s256 d80 b16", "bfloat16", 16, 16, 16, 256, 80, False, False, True, False),
 ]
 
 
@@ -1027,7 +1087,7 @@ def phase_grid(torch):
         del qr, kr, vr, lib_out
         torch.cuda.empty_cache()
     RESULTS["grid"] = lines
-    return lines["grid gpt"]
+    return lines
 
 
 # the ring-hop mode of the grid kernels (context parallelism, phase 17): a
@@ -2373,14 +2433,15 @@ def _launch_ranks(argv, outdir, backend, local_ranks, extra=()):
     return _rank_results(outdir, len(local_ranks))
 
 
-def _launch_rank_runs(argvs, outdir, backend, local_ranks):
+def _launch_rank_runs(argvs, outdir, backend, local_ranks, extra=()):
     """Several ``cli train`` runs one after another in ONE set of rank
     processes (each process and its CUDA context start once; the runs share
-    the default process group): run j's records land in ``outdir/run<j>``.
-    Returns each run's rank records."""
+    the default process group): run j's records land in ``outdir/run<j>``
+    (``--ref-params`` in ``extra`` holds the first run to it). Returns each
+    run's rank records."""
     from galvatron_tpu_torch.parallel.launch import launch_local
 
-    cmd = [sys.executable, os.path.abspath(__file__), "--rank-worker", outdir, "--"]
+    cmd = [sys.executable, os.path.abspath(__file__), "--rank-worker", outdir, *extra, "--"]
     for j, argv in enumerate(argvs):
         cmd += (["--then"] if j else []) + [*argv, "--dist_backend", backend]
         os.makedirs(os.path.join(outdir, f"run{j}"))
@@ -2399,7 +2460,8 @@ def phase_hybrid_ranks(torch, smi, tmpdir, backend, local_ranks, world1):
     """Phase 12 (two ranks sharing card 0 over gloo) or 12b (two cards over
     NCCL): (a) fp32 parity of the plan's first two layers against the same
     layers' world-size-1 plan, (b) the whole bf16 plan at full width against
-    phase 11's losses on the same weights and batches."""
+    phase 11's losses on the same weights and batches. (a) and then (b) run
+    in ONE set of rank processes (``--then``)."""
     import numpy as np
 
     from galvatron_tpu_torch.core import trainer
@@ -2425,9 +2487,11 @@ def phase_hybrid_ranks(torch, smi, tmpdir, backend, local_ranks, world1):
     del ref
     gc.collect()
     torch.cuda.empty_cache()
-    outdir = os.path.join(tmpdir, f"ranks_fp32_{tag}")
-    os.makedirs(outdir)
-    ranks = _launch_ranks(argv, outdir, backend, local_ranks, ("--ref-params", ref_path))
+    plan = os.path.join(tmpdir, f"plan_bf16_w2_{tag}.json")
+    hp = _hybrid_plan(plan, layers, "bf16", world)
+    ranks, ranks_b = _launch_rank_runs(
+        [argv, _hybrid_argv(plan, layers, bsz, seq, HYBRID_BF16_STEPS)],
+        os.path.join(tmpdir, f"ranks_{tag}"), backend, local_ranks, ("--ref-params", ref_path))
     os.remove(ref_path)
     lr = 1e-4  # cli train's default
     band = 2 * HYBRID_STEPS * lr  # AdamW moves an element at most ~lr a step on each side
@@ -2444,12 +2508,7 @@ def phase_hybrid_ranks(torch, smi, tmpdir, backend, local_ranks, world1):
                    "param_band": band, "host_staged": [r["host_staged"] for r in ranks]}
     log(f"phase {tag} (a) hybrid fp32:", json.dumps(res["fp32"]))
     # (b) bf16 at full width, the whole plan
-    plan = os.path.join(tmpdir, f"plan_bf16_w2_{tag}.json")
-    hp = _hybrid_plan(plan, layers, "bf16", world)
-    outdir = os.path.join(tmpdir, f"ranks_bf16_{tag}")
-    os.makedirs(outdir)
-    ranks = _launch_ranks(_hybrid_argv(plan, layers, bsz, seq, HYBRID_BF16_STEPS), outdir,
-                          backend, local_ranks)
+    ranks = ranks_b
     w1 = world1["losses"][:HYBRID_BF16_STEPS]
     losses = ranks[0]["losses"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, w1))
@@ -2482,6 +2541,7 @@ def phase_hybrid_ranks(torch, smi, tmpdir, backend, local_ranks, world1):
                                   if backend == "gloo" else "NCCL on two cards")}
     log(f"phase {tag} (b) hybrid bf16:", json.dumps(res["bf16"]))
     res["seconds"] = time.perf_counter() - t0
+    res["seconds_are"] = "(a) and (b) in one set of rank processes, (a)'s world size 1 first"
     RESULTS[f"hybrid_ranks_{backend}"] = res
     return res
 
@@ -2499,6 +2559,11 @@ PIPE_SCHEDULES = (("gpipe", 1), ("pipedream_flush", 1), ("pipedream_flush", 2))
 # (c) GPT-2 XL at all 48 layers, 1F1B, an uneven division
 PIPE_GPT_DIVISION = (25, 23)
 PIPE_GPT_CHUNKS = 4
+# 13 (a)'s four ranks run at the same time as 13 (b) and (c)'s two: what
+# each phase's times were read beside
+PIPE_BESIDE = {"13 (a)": "read beside 13 (b) and (c)'s two-rank world on the same card",
+               "13 (b)": "read beside 13 (a)'s four-rank world on the same card",
+               "13 (c)": "read beside 13 (a)'s four-rank world on the same card"}
 
 
 def _pipe_plan(path, layers, precision, pp=2, tp=1, chunks=1, ptype="pipedream_flush", vpp=1,
@@ -2534,18 +2599,15 @@ def _check_stage_launches(tag, ranks, model, chunks, steps):
               f"phase {tag} rank {r['rank']}: routes {r['routes']}")
 
 
-def phase_pipeline_fp32(torch, smi, tmpdir):
-    """Phase 13 (a): four ranks share card 0 over gloo, pp=2 x tp=2 (SP),
-    1F1B, in fp32, against the same layers at world size 1 in this process."""
+def _pipe_fp32_reference(torch, tmpdir):
+    """Phase 13 (a)'s world-size-1 run in this process: its losses, and its
+    parameters saved for the ranks to compare (the file's path)."""
     from galvatron_tpu_torch.core import trainer
     from galvatron_tpu_torch.core.arguments import initialize_galvatron
 
     c = PIPE_FP32
     plan1 = os.path.join(tmpdir, "pipe_fp32_w1.json")
     _pipe_plan(plan1, c["layers"], "fp32", pp=1, chunks=c["chunks"])
-    plan4 = os.path.join(tmpdir, "pipe_fp32_w4.json")
-    _pipe_plan(plan4, c["layers"], "fp32", pp=2, tp=2, chunks=c["chunks"])
-    t0 = time.perf_counter()
     ref = trainer.train(initialize_galvatron("train", _hybrid_argv(
         plan1, c["layers"], c["batch"], c["seq"], PIPE_STEPS)))
     ref_path = os.path.join(tmpdir, "pipe_ref_params.pt")
@@ -2554,6 +2616,18 @@ def phase_pipeline_fp32(torch, smi, tmpdir):
     del ref
     gc.collect()
     torch.cuda.empty_cache()
+    return ref_losses, ref_path
+
+
+def phase_pipeline_fp32(smi, tmpdir, ref_losses, ref_path):
+    """Phase 13 (a): four ranks share card 0 over gloo, pp=2 x tp=2 (SP),
+    1F1B, in fp32, against the same layers at world size 1
+    (:func:`_pipe_fp32_reference`). ``main`` runs it in a thread beside 13
+    (b) and (c): two worlds on the card at once."""
+    c = PIPE_FP32
+    plan4 = os.path.join(tmpdir, "pipe_fp32_w4.json")
+    _pipe_plan(plan4, c["layers"], "fp32", pp=2, tp=2, chunks=c["chunks"])
+    t0 = time.perf_counter()
     outdir = os.path.join(tmpdir, "pipe_fp32")
     os.makedirs(outdir)
     ranks = _launch_ranks(_hybrid_argv(plan4, c["layers"], c["batch"], c["seq"], PIPE_STEPS),
@@ -2571,17 +2645,20 @@ def phase_pipeline_fp32(torch, smi, tmpdir):
            "chunks": c["chunks"], "steps": PIPE_STEPS, "plan": "pp=2 x tp=2 (SP), 1F1B, fp32",
            "losses": ranks[0]["losses"], "world1_losses": ref_losses, "max_abs_loss_diff": diff,
            "tolerance": HYBRID_FP32_LOSS_TOL, "param_max_abs_diff": pdiff, "param_band": band,
-           "p2p": [r["p2p"] for r in ranks], "seconds": time.perf_counter() - t0}
+           "p2p": [r["p2p"] for r in ranks],
+           "seconds": time.perf_counter() - t0, "seconds_are": PIPE_BESIDE["13 (a)"]}
     log("phase 13 (a) pipeline fp32:", json.dumps(res))
     RESULTS["pipeline_fp32"] = res
     return res
 
 
-def phase_pipeline_bf16(torch, smi, tmpdir, backend, local_ranks, world1):
+def phase_pipeline_bf16(torch, smi, tmpdir, backend, local_ranks, world1, gpt_losses=None):
     """Phase 13 (b) (two ranks sharing card 0 over gloo) or 13b (two cards
     over NCCL): llama-7b width at phase 7's 4 layers and shape, pp=2, chunks
     8, under GPipe, 1F1B and interleaved 1F1B (vpp=2), against phase 11's
-    losses; 1F1B's stage 0 must peak below GPipe's."""
+    losses; 1F1B's stage 0 must peak below GPipe's. With ``gpt_losses``
+    (phase 8's), 13 (c) runs in the same rank processes after them. Over
+    gloo it runs beside 13 (a) (``main``); its times say so."""
     import numpy as np
 
     tag = "13 (b)" if backend == "gloo" else "13b"
@@ -2596,8 +2673,12 @@ def phase_pipeline_bf16(torch, smi, tmpdir, backend, local_ranks, world1):
         plan = os.path.join(tmpdir, f"pipe_bf16_{ptype}_vpp{vpp}_{backend}.json")
         _pipe_plan(plan, layers, "bf16", chunks=PIPE_BF16_CHUNKS, ptype=ptype, vpp=vpp)
         argvs.append(_hybrid_argv(plan, layers, bsz, seq, PIPE_STEPS))
+    if gpt_losses is not None:
+        argvs.append(_pipe_gpt_argv(tmpdir))
     runs = _launch_rank_runs(argvs, os.path.join(tmpdir, f"pipe_bf16_{backend}"), backend,
                              local_ranks)
+    if gpt_losses is not None:
+        _check_pipeline_gpt(smi, runs.pop(), gpt_losses)
     for (ptype, vpp), ranks in zip(PIPE_SCHEDULES, runs):
         name = _schedule_name(ptype, vpp)
         losses = ranks[0]["losses"]
@@ -2622,28 +2703,33 @@ def phase_pipeline_bf16(torch, smi, tmpdir, backend, local_ranks, world1):
     check(mem["1F1B"] < mem["GPipe"], f"phase {tag}: 1F1B's stage-0 peak {mem['1F1B']} GB is "
           f"not below GPipe's {mem['GPipe']} GB")
     out["stage0_peak_gb"] = mem
-    out["iter_ms_is"] = ("a gloo-loopback transport figure, not a parallelism result"
-                         if backend == "gloo" else "NCCL on two cards")
+    out["iter_ms_is"] = ("a gloo-loopback transport figure, not a parallelism result, "
+                         + PIPE_BESIDE["13 (b)"] if backend == "gloo" else "NCCL on two cards")
     out["seconds"] = time.perf_counter() - t0
+    if backend == "gloo":
+        out["seconds_are"] = (("with 13 (c) in the same rank processes, " if gpt_losses
+                               is not None else "") + PIPE_BESIDE["13 (b)"])
     RESULTS[f"pipeline_bf16_{backend}"] = out
     return out
 
 
-def phase_pipeline_gpt(torch, smi, tmpdir, gpt_losses):
+def _pipe_gpt_argv(tmpdir):
+    """Phase 13 (c)'s flags: gpt-1.5b at all 48 layers, 1F1B over the
+    division 25 / 23."""
+    preset, layers, bsz, _ = TRAIN_PATHS["gpt"]
+    plan = os.path.join(tmpdir, "pipe_gpt.json")
+    _pipe_plan(plan, layers, "bf16", chunks=PIPE_GPT_CHUNKS, division=PIPE_GPT_DIVISION)
+    return ["--model_size", preset, "--global_train_batch_size", str(bsz),
+            "--train_iters", str(PIPE_STEPS), "--galvatron_config_path", plan]
+
+
+def _check_pipeline_gpt(smi, ranks, gpt_losses):
     """Phase 13 (c): gpt-1.5b at all 48 layers, 1F1B over the division
     25 / 23, two ranks sharing card 0 over gloo: the grid kernels and the
     tied table across stages, against phase 8's losses."""
     import numpy as np
 
     preset, layers, bsz, seq = TRAIN_PATHS["gpt"]
-    plan = os.path.join(tmpdir, "pipe_gpt.json")
-    _pipe_plan(plan, layers, "bf16", chunks=PIPE_GPT_CHUNKS, division=PIPE_GPT_DIVISION)
-    outdir = os.path.join(tmpdir, "pipe_gpt")
-    os.makedirs(outdir)
-    t0 = time.perf_counter()
-    argv = ["--model_size", preset, "--global_train_batch_size", str(bsz),
-            "--train_iters", str(PIPE_STEPS), "--galvatron_config_path", plan]
-    ranks = _launch_ranks(argv, outdir, "gloo", (0, 0))
     ref = gpt_losses[:PIPE_STEPS]
     losses = ranks[0]["losses"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
@@ -2661,8 +2747,8 @@ def phase_pipeline_gpt(torch, smi, tmpdir, gpt_losses):
            "p2p": [r["p2p"] for r in by_stage],
            "iter_ms_mean_from_2": [_steady(r) for r in by_stage],
            "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in by_stage],
-           "iter_ms_is": "a gloo-loopback transport figure, not a parallelism result",
-           "seconds": time.perf_counter() - t0}
+           "iter_ms_is": "a gloo-loopback transport figure, not a parallelism result, "
+           + PIPE_BESIDE["13 (c)"]}
     log("phase 13 (c) pipeline gpt-1.5b:", json.dumps(res))
     RESULTS["pipeline_gpt"] = res
     return res
@@ -5051,6 +5137,278 @@ def phase_hf(torch, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the encoders (BERT masked-LM, ViT classification)
+# ---------------------------------------------------------------------------
+
+ENCODER_STEPS = 3
+# (a) bert-large at full width and depth: (preset, batch, seq)
+ENCODER_BERT = ("bert-large", 32, 512)
+# (b) vit-large at full width and depth, fused norms: (preset, images)
+ENCODER_VIT = ("vit-large", 64)
+# (c) vit-huge at full width, 2 layers: head_dim 80, off the TMA route
+ENCODER_HUGE = ("vit-huge", 2, 16)  # (preset, layers, bf16 images)
+# card against CPU at fp32 ((a)'s 2-layer forward, (c)): the logits and
+# the loss by phase 21 (c)'s bounds, each gradient tensor's largest
+# difference over its largest CPU value
+ENCODER_FP32 = dict(layers=2, batch=2)
+ENCODER_LOGIT_TOL = 1e-3
+ENCODER_LOSS_RTOL = 1e-5
+ENCODER_GRAD_RTOL = 1e-3
+# (d) the searched plan: bert-large at 4 layers, profiled at batch 8
+ENCODER_SEARCH = dict(layers=4, batch=8, steps=2, budget_gb=40)
+#: the reference's refusals of an encoder in serving and generation
+ENCODER_REFUSALS = {
+    "serve": "serving engine requires a decoder-only causal LM (same constraint as "
+             "generation.generate)",
+    "generate": "generation requires a decoder-only causal LM (encoder families train "
+                "with objective='mlm'; enc-dec decode is not implemented)",
+}
+_GRID_KERNELS = ("flash_grid_fwd", "flash_grid_dkdv", "flash_grid_dq")
+
+
+def _grid_modes():
+    """The grid wrappers' launches by (batch, heads, sequence, mask)."""
+    from galvatron_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_grid_fwd": dict(fa.flash_grid_fwd.modes),
+            "flash_grid_dkdv": dict(fa.flash_grid_bwd_parts.dkv_modes),
+            "flash_grid_dq": dict(fa.flash_grid_bwd_parts.dq_modes)}
+
+
+def _encoder_train(torch, smi, tmpdir, tag, argv, fused, layers, mode, norms):
+    """One main-path encoder run of ``ENCODER_STEPS`` steps: ``cli train``,
+    or with the fused norms ``trainer.train`` with ``fused_norm=True`` (the
+    field has no flag). Every grid kernel launched layers x steps times, all
+    unmasked at ``mode`` ("b,h,s,unmasked") on the TMA route, the norm
+    kernels ``norms`` (2 x layers + 1) x steps times, nothing else."""
+    from galvatron_tpu_torch import cli
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron, model_config_from_args
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    path = os.path.join(tmpdir, f"train_metrics_{tag}.jsonl")
+    argv = [*argv, "--train_iters", str(ENCODER_STEPS), "--metrics_path", path]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_kernel_counts()  # the main path's counts start here
+    routes_before = route_counts()
+    if fused:
+        ns = initialize_galvatron("train", argv)
+        del trainer.train(ns, cfg=model_config_from_args(ns).replace(fused_norm=True))["state"]
+    else:
+        check(cli.main(["train", *argv]) == 0, f"22 {tag}: cli train failed")
+    launches, modes = kernel_counts(), _grid_modes()  # read right after the main path
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    recs = [r for r in read_metrics(path) if r["event"] == "train_iter"]
+    losses = [r["loss"] for r in recs]
+    check(len(recs) == ENCODER_STEPS and all(
+        isinstance(x, float) and x == x and abs(x) != float("inf") for x in losses),
+        f"22 {tag}: losses {losses}")
+    n = layers * ENCODER_STEPS
+    want = {k: n if k in _GRID_KERNELS else (2 * layers + 1) * ENCODER_STEPS if k in norms
+            else 0 for k in launches}
+    check(launches == want, f"22 {tag}: launches {launches}, expected {want}")
+    check(all(m == {mode: n} for m in modes.values()),
+          f"22 {tag}: grid launches by shape {modes}, expected {mode}: {n}")
+    routes = _routes_since(routes_before)
+    check(_all_tma(launches, routes), f"22 {tag}: routes {routes}")
+    steady = recs[1:]
+    mean = lambda key: sum(r[key] for r in steady) / len(steady)  # noqa: E731
+    res = {"card": smi, "argv": argv[:-2], "fused_norm": fused, "steps": ENCODER_STEPS,
+           "losses": losses, "iter_ms_mean_from_2": mean("iter_ms"),
+           "iter_ms": [r["iter_ms"] for r in recs], "tokens_per_s": mean("tokens_per_s"),
+           "mfu": mean("mfu"), "max_memory_allocated_gb": peak_gb,
+           "launches": {k: v for k, v in launches.items() if v},
+           "routes": {k: routes[k] for k in _GRID_KERNELS}, "grid_modes": modes,
+           "seconds": seconds}
+    log(f"phase 22 {tag}:", json.dumps(res))
+    return launches, res
+
+
+def _card_against_cpu(torch, cfg, batch, what, backward):
+    """The fp32 loss (and logits; with ``backward`` every gradient) of
+    ``cfg`` on the card, its grid kernels on the CUDA-core route, against
+    the CPU (their plain versions) from the same seed-0 weights."""
+    from galvatron_tpu_torch.core.optim import tree_leaves
+    from galvatron_tpu_torch.models import modeling
+
+    def run(dev):
+        params = modeling.init_model_params(cfg, 0, "cpu")
+        if dev != "cpu":
+            params = _to(params, dev)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(backward)
+        inputs, labels = modeling.split_batch(batch.to(dev), cfg)
+        with torch.set_grad_enabled(backward):
+            logits = (modeling.forward_vision if cfg.image_size else modeling.forward)(
+                params, inputs, cfg)
+            s, n = modeling.cross_entropy_sum(logits, labels)
+            loss = s / n
+            if backward:
+                loss.backward()
+        grads = [p.grad.cpu() for p in leaves] if backward else []
+        return logits.detach().cpu(), loss.item(), grads
+
+    before, routes_before = kernel_counts(), route_counts()
+    card = run("cuda")
+    launches = _delta(kernel_counts(), before)
+    routes = _routes_since(routes_before)
+    cpu = run("cpu")
+    logit_err = (card[0] - cpu[0]).abs().max().item()
+    loss_rel = abs(card[1] - cpu[1]) / abs(cpu[1])
+    grad_rel = max(((g - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
+                   for g, c in zip(card[2], cpu[2])) if backward else None
+    res = {"what": what, "layers": cfg.num_layers, "batch": int(batch.shape[0]),
+           "loss_card": card[1], "loss_cpu": cpu[1], "loss_rel_err": loss_rel,
+           "logits_max_abs_err": logit_err, "grad_max_rel_err": grad_rel,
+           "bounds": {"logits_abs": ENCODER_LOGIT_TOL, "loss_rel": ENCODER_LOSS_RTOL,
+                      "grad_rel": ENCODER_GRAD_RTOL if backward else None},
+           "launches": {k: v for k, v in launches.items() if v},
+           "routes": {k: routes[k] for k in _GRID_KERNELS}}
+    log(f"phase 22 {what}, card against CPU (fp32):", json.dumps(res))
+    check(logit_err <= ENCODER_LOGIT_TOL, f"22 {what}: logits {logit_err} from the CPU's")
+    check(loss_rel <= ENCODER_LOSS_RTOL, f"22 {what}: loss {card[1]} vs CPU {cpu[1]}")
+    if backward:
+        check(grad_rel <= ENCODER_GRAD_RTOL, f"22 {what}: gradients {grad_rel} from the CPU's")
+    want = {"flash_grid_fwd": cfg.num_layers}
+    if backward:
+        want.update(flash_grid_dkdv=cfg.num_layers, flash_grid_dq=cfg.num_layers)
+    check(res["launches"] == want, f"22 {what}: launches {res['launches']}, expected {want}")
+    check(all(routes[k]["cuda_core"] == want.get(k, 0) and routes[k]["tma"] == 0
+              for k in _GRID_KERNELS), f"22 {what}: routes {routes} (fp32: CUDA cores)")
+    return res
+
+
+def phase_encoder(torch, smi):
+    """Phase 22: BERT and ViT through the grid kernels unmasked (module
+    docstring)."""
+    import numpy as np
+
+    from galvatron_tpu_torch.core.optim import tree_leaves
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    out = {}
+    rng = np.random.RandomState(22)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_encoder_") as tmpdir:
+        # (a) bert-large, 24 layers, 32 x 512, bf16
+        preset, bsz, seq = ENCODER_BERT
+        layers = modeling.PRESETS[preset].num_layers
+        heads = modeling.PRESETS[preset].num_heads
+        launches, out["a_bert_large"] = _encoder_train(
+            torch, smi, tmpdir, "(a) bert-large", ["--model_size", preset,
+                                                   "--global_train_batch_size", str(bsz)],
+            False, layers, f"{bsz},{heads},{seq},unmasked", ())
+        cfg = modeling.PRESETS[preset].replace(num_layers=ENCODER_FP32["layers"],
+                                               dtype=torch.float32, attn_impl="flash")
+        batch = torch.from_numpy(rng.randint(0, cfg.vocab_size - 1,
+                                             (ENCODER_FP32["batch"], seq + 1)))
+        out["a_bert_large_fp32"] = _card_against_cpu(torch, cfg, batch, "(a) bert-large",
+                                                     backward=False)
+        # (b) vit-large, 24 layers, 64 images, bf16, fused norms
+        preset, images = ENCODER_VIT
+        vit = modeling.PRESETS[preset]
+        _, out["b_vit_large"] = _encoder_train(
+            torch, smi, tmpdir, "(b) vit-large", ["--model_size", preset,
+                                                  "--global_train_batch_size", str(images)],
+            True, vit.num_layers, f"{images},{vit.num_heads},{vit.n_patches},unmasked",
+            ("ln_fwd", "ln_bwd"))
+        # (c) vit-huge at 2 layers: fp32 card against CPU, then bf16 on the card
+        preset, hl, images = ENCODER_HUGE
+        cfg = modeling.PRESETS[preset].replace(num_layers=hl, dtype=torch.float32,
+                                               attn_impl="flash")
+        check(cfg.head_dim == 80, f"{preset}: head_dim {cfg.head_dim}")
+
+        def pixels(n):
+            return torch.from_numpy(np.concatenate(
+                [rng.randint(0, 256, (n, cfg.sample_len)),
+                 rng.randint(0, cfg.num_classes, (n, 1))], 1))
+
+        out["c_vit_huge_fp32"] = _card_against_cpu(torch, cfg, pixels(ENCODER_FP32["batch"]),
+                                                    "(c) vit-huge", backward=True)
+        bcfg = cfg.replace(dtype=torch.bfloat16)
+        params = modeling.init_model_params(bcfg, 0, "cuda")
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        before, routes_before = kernel_counts(), route_counts()
+        loss = modeling.lm_loss(params, pixels(images).cuda(), bcfg)
+        loss.backward()
+        routes = _routes_since(routes_before)
+        got = _delta(kernel_counts(), before)
+        out["c_vit_huge_bf16"] = {"images": images, "loss": float(loss), "routes": {
+            k: routes[k] for k in _GRID_KERNELS}}
+        log("phase 22 (c) vit-huge bf16 step:", json.dumps(out["c_vit_huge_bf16"]))
+        check(np.isfinite(float(loss)), "22 (c): bf16 loss")
+        check(all(got[k] == hl and routes[k] == {"cuda_core": hl, "tma": 0}
+                  for k in _GRID_KERNELS), f"22 (c) bf16 at head_dim 80: {got}, {routes}")
+        del params, loss
+        # (d) bert-large at 4 layers: profiled, searched, checked and trained
+        s = ENCODER_SEARCH
+        prefix = os.path.join(tmpdir, "profile_bert-large")
+        shape = ["--model_size", "bert-large", "--num_layers", str(s["layers"])]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rc, text = _cli(["profile", *shape, "--profile_batch_size", str(s["batch"]),
+                         "--output_prefix", prefix])
+        check(rc == 0, f"22 (d): cli profile returned {rc}")
+        plan = os.path.join(tmpdir, "plan_bert-large.json")
+        rc, _ = _cli(["search", *shape, "--num_devices", "1", "--settle_bsz", str(s["batch"]),
+                      "--memory_constraint_gb", str(s["budget_gb"]),
+                      "--time_profile_path", prefix + "_computation.json",
+                      "--memory_profile_path", prefix + "_memory.json",
+                      "--output_config_path", plan])
+        check(rc == 0, f"22 (d): cli search returned {rc}")
+        rc, _ = _cli(["check-plan", plan, "--strict", "1"])
+        check(rc == 0, f"22 (d): check-plan --strict 1 returned {rc}")
+        hp = HybridParallelConfig.load(plan)
+        path = os.path.join(tmpdir, "train_metrics_encoder_search.jsonl")
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_kernel_counts()  # the main path's counts start here
+        before = route_counts()
+        rc, _ = _cli(["train", *shape, "--global_train_batch_size", str(s["batch"]),
+                      "--train_iters", str(s["steps"]), "--galvatron_config_path", plan,
+                      "--metrics_path", path])
+        got = kernel_counts()
+        check(rc == 0, f"22 (d): cli train of the searched plan returned {rc}")
+        losses = [x["loss"] for x in read_metrics(path) if x["event"] == "train_iter"]
+        check(len(losses) == s["steps"] and all(np.isfinite(losses)), f"22 (d): {losses}")
+        extra = sum(1 for x in hp.layer_strategies if x.ckpt in ("full", "selective"))
+        n = s["steps"] * hp.chunks
+        want = {"flash_grid_fwd": (hp.num_layers + extra) * n,
+                "flash_grid_dkdv": hp.num_layers * n, "flash_grid_dq": hp.num_layers * n}
+        check({k: got[k] for k in want} == want, f"22 (d): launches {got}, expected {want}")
+        check(_all_tma({k: got[k] for k in want}, {k: _routes_since(before)[k] for k in want}),
+              f"22 (d): routes {_routes_since(before)}")
+        with open(plan) as f:
+            d = json.load(f)
+        out["d_search"] = {"card": smi, "plan": {k: d[k] for k in (
+            "pp_deg", "tp_sizes_enc", "dp_types_enc", "checkpoint", "chunks", "vocab_tp")
+            if k in d}, "search_cost_ms": d.get("search_cost_ms"), "losses": losses,
+            "launches": want, "seconds": time.perf_counter() - t0}
+        log("phase 22 (d) bert-large profiled, searched, checked, trained:",
+            json.dumps(out["d_search"]))
+    # (e) the reference's refusals of an encoder in serving and generation
+    for mode, msg in ENCODER_REFUSALS.items():
+        try:
+            rc = _cli([mode, "--model_size", "bert-base"])[0]
+            said = None
+        except ValueError as e:
+            rc, said = None, str(e)
+        check(said == msg, f"22 (e): cli {mode} of bert-base returned {rc}, said {said!r}")
+    out["e_refusals"] = ENCODER_REFUSALS
+    log("phase 22 (e) cli serve / generate of bert-base refused:", json.dumps(ENCODER_REFUSALS))
+    RESULTS["encoder"] = out
+    return launches
+
+
 def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) -> int:
     """One rank of phases 12-13, 17 and 18: ``cli train``'s own call
     (``trainer.train`` of the parsed flags), with the blocked flash
@@ -5061,7 +5419,7 @@ def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) 
     one of ``CP_CONTROLS`` to train under; ``profile_moe`` profiles rank 0's
     run and splits its MoE time (:func:`moe_time_split`). Flags with
     ``--then`` between them are several runs, one after another in this
-    process (:func:`_launch_rank_runs`)."""
+    process (:func:`_launch_rank_runs`); ``ref_params`` holds the first."""
     from galvatron_tpu_torch.core import trainer
     from galvatron_tpu_torch.core.arguments import initialize_galvatron
     from galvatron_tpu_torch.ops import flash_attention as fa
@@ -5092,8 +5450,8 @@ def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) 
                                            ns.dist_timeout_s)
         try:
             for j, run in enumerate(runs):
-                _rank_run(os.path.join(outdir, f"run{j}"), run, heads, ref_params, control,
-                          profile_moe)
+                _rank_run(os.path.join(outdir, f"run{j}"), run, heads,
+                          ref_params if j == 0 else None, control, profile_moe)
         finally:
             if created:
                 import torch.distributed as dist
@@ -5165,7 +5523,7 @@ def _rank_run(outdir, argv, heads, ref_params=None, control=None, profile_moe=Fa
 #: the phases by name, for ``--phases``; a full run takes them all
 PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train", "hybrid",
           "pipeline", "nccl", "search", "services", "slots", "cp", "moe", "packed", "overlap",
-          "hf")
+          "hf", "encoder")
 
 
 def main() -> int:
@@ -5265,6 +5623,8 @@ def main() -> int:
             RESULTS.setdefault("fused_beside_plain", []).append(cmp_)
         mark("7-10 train")
     if {"hybrid", "pipeline", "nccl"} & set(phases):  # 12b, 13 and 13b stand against phase 11
+        from concurrent.futures import ThreadPoolExecutor
+
         with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as tmpdir:
             world1 = phase_hybrid_world1(torch, smi, tmpdir)
             if "llama" in train_res:
@@ -5279,10 +5639,18 @@ def main() -> int:
             if "hybrid" in phases:
                 phase_hybrid_ranks(torch, smi, tmpdir, "gloo", (0, 0), world1)
             if "pipeline" in phases:
-                phase_pipeline_fp32(torch, smi, tmpdir)
-                phase_pipeline_bf16(torch, smi, tmpdir, "gloo", (0, 0), world1)
-                phase_pipeline_gpt(torch, smi, tmpdir,
-                                   _gpt_reference_losses(torch, tmpdir, train_res))
+                gpt_losses = _gpt_reference_losses(torch, tmpdir, train_res)
+                ref_losses, ref_path = _pipe_fp32_reference(torch, tmpdir)
+                # 13 (a)'s four ranks in a thread, 13 (b) and (c)'s two here:
+                # two worlds on the card at once, its used memory sampled
+                with ThreadPoolExecutor(1) as pool, card_used_peak(torch) as peak:
+                    fp32 = pool.submit(phase_pipeline_fp32, smi, tmpdir, ref_losses, ref_path)
+                    phase_pipeline_bf16(torch, smi, tmpdir, "gloo", (0, 0), world1,
+                                        gpt_losses=gpt_losses)
+                    fp32.result()
+                RESULTS["pipeline_worlds_card_used_peak_gb"] = peak["gb"]
+                log("phase 13 (a) beside (b) and (c): the card's used memory peaked at "
+                    f"{peak['gb']:.2f} GB")
             if "nccl" in phases and torch.cuda.device_count() >= 2:
                 nccl12 = phase_hybrid_ranks(torch, smi, tmpdir, "nccl", (0, 1), world1)
                 log("phase 12b nccl on two cards: run")
@@ -5346,6 +5714,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches["hf"] = phase_hf(torch, smi)
         mark("21 hf")
+    if "encoder" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["encoder"] = phase_encoder(torch, smi)
+        mark("22 encoder")
     if {"packed", "overlap"} & set(phases):
         RESULTS["packed_overlap_launches"] = {k: launches[k] for k in ("packed", "overlap")
                                               if k in launches}
@@ -5358,7 +5731,8 @@ def main() -> int:
         return 0
     paged_line = lines["paged"]["paged_decode main"]
     gpt_paged_line = lines["paged"]["paged_decode gpt"]
-    grid_line, norm_lines = lines["grid"], lines["norm"]
+    grid_line, norm_lines = lines["grid"]["grid gpt"], lines["norm"]
+    enc_line = lines["grid"]["grid encoder s512 d64"]
     flash_line, fp16_line = lines["flash"]["flash main"], lines["flash"]["flash main fp16"]
     src = "galvatron_tpu_torch/ops/csrc/"
     replaces = "galvatron_tpu/ops/flash_attention.py:"
@@ -5458,6 +5832,23 @@ def main() -> int:
                    max(rk_err, rv_err), "dkdv_ms", "bwd_plain_ms", "dkdv", "bwd_library_ms"),
         ring_entry("flash_grid_dq_ring_hop", "flash_grid_bwd.cu", "792", "flash_grid_dq", rq_err,
                    "dq_ms", "bwd_plain_ms", "dq", "bwd_library_ms"),
+        # the same three kernels unmasked with bf16 output, an encoder's
+        # attention (phase 3's "grid encoder s512 d64" case: 22 (a)'s
+        # bert-large shape, batch and stacked view), with their launches on
+        # phase 22 (a)'s bert-large path
+        *[{"name": name, "route": "cuda", "source": src + source, "replaces": replaces + line_no,
+           "launches": launches["encoder"][count], "max_abs_err": err, "ms": enc_line[ms],
+           "plain_ms": enc_line[plain], "bound_ms": enc_line[bound + "_bound_ms"],
+           "bound_by": enc_line[bound + "_bound_by"], "library_ms": enc_line[library]}
+          for name, source, line_no, count, err, ms, plain, bound, library in (
+              ("flash_grid_fwd_encoder", "flash_grid_fwd.cu", "123", "flash_grid_fwd",
+               enc_line["fwd_max_abs_err"], "fwd_ms", "fwd_plain_ms", "fwd", "fwd_library_ms"),
+              ("flash_grid_dkdv_encoder", "flash_grid_bwd.cu", "724", "flash_grid_dkdv",
+               max(enc_line["bwd_max_abs_err_dq_dk_dv"][1:]), "dkdv_ms", "bwd_plain_ms",
+               "dkdv", "bwd_library_ms"),
+              ("flash_grid_dq_encoder", "flash_grid_bwd.cu", "792", "flash_grid_dq",
+               enc_line["bwd_max_abs_err_dq_dk_dv"][0], "dq_ms", "bwd_plain_ms", "dq",
+               "bwd_library_ms"))],
         norm_entry("rms_fwd", "64", "rms main", "llama_fused", "fwd"),
         norm_entry("rms_bwd", "72", "rms main", "llama_fused", "bwd"),
         norm_entry("ln_fwd", "190", "ln main", "opt_fused", "fwd"),

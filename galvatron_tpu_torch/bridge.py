@@ -4,10 +4,13 @@
 (``jax.tree.map(np.asarray, params)``, or a checkpoint's leaves) and returns
 the port's tree of tensors on ``device``, with the same names and layouts:
 ``x @ W`` everywhere, the blocked ``(h, 3, n·hd)`` or interleaved
-``(h, kv·group)`` fused QKV, so nothing is transposed. Matmul weights and
-the embeddings (and, for GPT/OPT trees, the projection biases) are cast to
-the compute dtype once (``modeling.cast_params``); norm scales and biases
-stay fp32. ``params_from_jax`` accepts what training accepts
+``(h, kv·group)`` fused QKV, so nothing is transposed. A BERT tree is the
+GPT one (its token table tied to the head); a ViT tree has the patch
+projection and its positions (``embed.proj``, ``embed.pos``), the final norm
+and the class head (``head.w``) in place of the token table. Matmul weights,
+the embeddings and the projection biases are cast to the compute dtype once
+(``modeling.cast_params``); norm scales and biases stay fp32.
+``params_from_jax`` accepts what training accepts
 (``modeling.check_supported``). ``params_to_numpy`` is the way back.
 
 ``shard_params`` cuts a full tree (numpy) into one rank's pieces under a

@@ -89,7 +89,7 @@ def main(argv: Optional[List[str]] = None, model_default: Optional[str] = None) 
     if mode == "export-hf":
         return _export_hf_mode(initialize_galvatron("export_hf", rest, model_default))
     from galvatron_tpu_torch.device import resolve_device
-    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.models import generation, modeling
     from galvatron_tpu_torch.models.tokenizer import build_tokenizer
 
     ns = initialize_galvatron(mode, rest, model_default)
@@ -106,6 +106,7 @@ def main(argv: Optional[List[str]] = None, model_default: Optional[str] = None) 
 
         params, cfg = load_hf_checkpoint(ns.load_hf)
         modeling.check_supported(cfg)
+        generation.check_generative(cfg, "generation" if mode == "generate" else "serving")
         if tok.vocab_size > cfg.vocab_size:
             raise ValueError(
                 f"tokenizer vocab {tok.vocab_size} exceeds the pretrained "
@@ -117,6 +118,7 @@ def main(argv: Optional[List[str]] = None, model_default: Optional[str] = None) 
     else:
         cfg = model_config_from_args(ns)
         modeling.check_supported(cfg)  # before any weight is allocated
+        generation.check_generative(cfg, "generation" if mode == "generate" else "serving")
         if tok.vocab_size > cfg.vocab_size:
             cfg = cfg.replace(vocab_size=tok.vocab_size)
         params = modeling.cast_params(_load_or_init_params(ns, cfg, device), cfg)

@@ -48,7 +48,8 @@ def _add_model_args(p: argparse.ArgumentParser):
     g.add_argument("--ffn_dim", type=int, default=None)
     g.add_argument("--seq_length", type=int, default=None)
     # the other families' shape flags: the search and the plan checker read
-    # them; training a non-default value raises (ROADMAP.md §1.10)
+    # them all; the vision ones train ViT, while encoder-decoder and Swin
+    # values raise in training (ROADMAP.md §1.10)
     g.add_argument("--enc_layers", type=int, default=None,
                    help="encoder layers (enc-dec families; 0 = decoder-only)")
     g.add_argument("--enc_seq", type=int, default=None)

@@ -61,7 +61,7 @@ from galvatron_tpu_torch.core.schedules import BatchSizeRampup
 from galvatron_tpu_torch.core.strategy import form_strategy, plan_hash
 from galvatron_tpu_torch.device import rank_device
 from galvatron_tpu_torch.obs.stepstats import StepStats
-from galvatron_tpu_torch.models.modeling import ModelConfig
+from galvatron_tpu_torch.models.modeling import ModelConfig, layer_seq
 from galvatron_tpu_torch.ops import flash_attention, fused_norm
 from galvatron_tpu_torch.parallel import comm
 from galvatron_tpu_torch.parallel.hybrid import build_runtime
@@ -281,7 +281,7 @@ def _train(ns: argparse.Namespace, cfg: Optional[ModelConfig], device: torch.dev
     cfg = resolve_attn_impl(cfg, ns, device).replace(mlp_recompute=ns.mlp_recompute)
     hp = _check_plan(ns, cfg, world, lead)
     rampup = _rampup(ns, hp, world)
-    seq = cfg.max_seq_len
+    seq = layer_seq(cfg)
     bsz = ns.global_train_batch_size
     rt = build_runtime(cfg, hp, adam_config_from_args(ns), global_batch_size=bsz, seq_len=seq,
                        device=device)
@@ -342,7 +342,7 @@ def _train(ns: argparse.Namespace, cfg: Optional[ModelConfig], device: torch.dev
 def _loop(ns, rt, state, loader, data_pipe, metrics, rampup, start_step, batch_offset,
           fingerprint, device, lead) -> dict:
     bsz = ns.global_train_batch_size
-    seq = rt.cfg.max_seq_len
+    seq = layer_seq(rt.cfg)
     stats: dict = {}
     on_card = device.type == "cuda"
     losses, iter_times, batch_sizes = [], [], []

@@ -307,6 +307,23 @@ def host_probs(logits, temperature: float, top_k: int, top_p: float):
 # ---------------------------------------------------------------------------
 
 
+#: the reference's refusals of an encoder (or encoder-decoder) model, by
+#: what refuses it: its ``generation.generate`` and its serving ``Engine``
+NOT_GENERATIVE = {
+    "generation": "generation requires a decoder-only causal LM (encoder families "
+                  "train with objective='mlm'; enc-dec decode is not implemented)",
+    "serving": "serving engine requires a decoder-only causal LM (same "
+               "constraint as generation.generate)",
+}
+
+
+def check_generative(cfg: ModelConfig, what: str = "generation") -> None:
+    """Raise the reference's ``ValueError`` unless ``cfg`` is a decoder-only
+    causal LM: BERT and ViT train, they neither generate nor serve."""
+    if not cfg.causal or cfg.objective != "clm" or cfg.enc_layers > 0:
+        raise ValueError(NOT_GENERATIVE[what])
+
+
 @torch.inference_mode()
 def generate(params: Params, prompt, prompt_lengths, cfg: ModelConfig,
              generator: Optional[torch.Generator] = None, max_new_tokens: int = 32,
@@ -317,11 +334,7 @@ def generate(params: Params, prompt, prompt_lengths, cfg: ModelConfig,
     override sampled ones until each row's own prompt is exhausted). Returns
     (B, P + max_new_tokens) int64 on the params' device; positions past a
     row's eos are ``pad_id``."""
-    if not cfg.causal or cfg.objective != "clm" or cfg.enc_layers > 0:
-        raise ValueError(
-            "generation requires a decoder-only causal LM (encoder families "
-            "train with objective='mlm'; enc-dec decode is not implemented)"
-        )
+    check_generative(cfg)
     device = params["embed"]["tok"].device
     prompt = torch.as_tensor(prompt, device=device).long()
     lengths = torch.as_tensor(prompt_lengths, device=device).long()

@@ -1,17 +1,22 @@
-"""Decoder-only Transformers in plain PyTorch tensor functions.
+"""Transformers in plain PyTorch tensor functions.
 
 Counterpart of ``galvatron_tpu/models/modeling.py``, limited to the
-decoder families the port runs: LLaMA (RoPE, RMSNorm, SwiGLU), Baichuan
-(LLaMA's layer with RoPE or ALiBi positions) and GPT/OPT (learned
+families the port runs: the decoders LLaMA (RoPE, RMSNorm, SwiGLU),
+Baichuan (LLaMA's layer with RoPE or ALiBi positions) and GPT/OPT (learned
 positions, LayerNorm, tanh-GELU or ReLU, projection biases, tied
-embeddings), each with dense or switch-MoE MLPs (``models/moe.py``). ALiBi
+embeddings), each with dense or switch-MoE MLPs (``models/moe.py``), and the
+bidirectional encoders BERT (the GPT layer with ``causal=False`` and the
+masked-LM objective 'mlm': deterministic hash masking, :func:`mlm_positions`)
+and ViT (the same layer over patch embeddings, a mean-pooled class head and
+the 'cls' objective on pixel ‖ label rows). ALiBi
 adds ``slope · (k − q)`` per head to the scores and always takes the einsum
 attention, as in the reference (its flash kernels carry no bias). The
 fused QKV projection in both stored layouts (blocked ``(h, 3, n·hd)`` for
 MHA, kv-group-interleaved ``(h, kv·(npg+2)·hd)`` for GQA), attention on the
 einsum path (``attn_impl='xla'``) or the flash kernels (``'flash'``: the
 head-major dataflow of ``_attn_block_headmajor``; blocked-causal with RoPE,
-grid otherwise), the ``mlp_recompute`` policies, embedding, LM head and the
+grid otherwise, which an encoder's unmasked attention takes), the
+``mlp_recompute`` policies, embedding, LM head and the
 sum-form token loss. Packed sequences (``pack_sequences``): rows of tokens ‖
 segment ids, attention masked within each segment on the einsum path,
 positions restarting per segment and labels masked at segment boundaries.
@@ -71,15 +76,22 @@ class ModelConfig:
     # the multi-rank MoE layer's groups (``moe.MoEContext``), set per layer
     # by the hybrid runtime; not part of the configuration's identity
     moe_ctx: Optional[Any] = field(default=None, compare=False, hash=False, repr=False)
+    # 'clm' next-token LM; 'mlm' masked-LM (BERT: the positions of
+    # mlm_positions' hash take the [MASK] id, vocab_size - 1, and carry the
+    # loss); 'cls' image classification (ViT: rows of pixels ‖ label)
     objective: str = "clm"
+    mlm_mask_rate: float = 0.15
     # the shape fields of the reference's other families, with its
     # decoder-only defaults: the search, the cost model and the plan checker
-    # read them (``analysis/plan_check.MODEL_SHAPE_FIELDS``). Training runs
-    # none of those families: a non-default value raises in
+    # read them (``analysis/plan_check.MODEL_SHAPE_FIELDS``). Encoder-decoder
+    # models and Swin's stages do not run: a non-default value raises in
     # :func:`check_supported` (ROADMAP.md §1.10).
     enc_layers: int = 0  # encoder layers of an encoder-decoder model
     enc_seq: int = 0
-    image_size: int = 0  # vision families: input image side (pixels)
+    # vision (ViT): image_size > 0 makes a sample a row of image_size² ·
+    # num_channels pixel values (0..255, int) ‖ one class label, embedded by
+    # patch_size² · num_channels patches through one projection
+    image_size: int = 0
     patch_size: int = 16
     num_channels: int = 3
     num_classes: int = 1000
@@ -165,14 +177,9 @@ _PORTED = (
     ("pos_embed", ("rope", "learned", "alibi"), "other position schemes"),
     ("norm_type", ("rms", "layernorm"), "other norms"),
     ("act_fn", ("swiglu", "gelu", "relu"), "other MLP activations"),
-    ("causal", (True,), "bidirectional encoders"),
-    ("objective", ("clm",), "masked-LM / classification objectives"),
-    ("enc_layers", (0,), "encoder-decoder models"),
-    ("enc_seq", (0,), "encoder-decoder models"),
-    ("image_size", (0,), "vision models"),
-    ("patch_size", (16,), "vision models"),
-    ("num_channels", (3,), "vision models"),
-    ("num_classes", (1000,), "vision models"),
+    ("objective", ("clm", "mlm", "cls"), "other objectives"),
+    ("enc_layers", (0,), "encoder-decoder models (T5)"),
+    ("enc_seq", (0,), "encoder-decoder models (T5)"),
     ("swin_depths", ((),), "Swin models"),
     ("swin_window", (7,), "Swin models"),
 )
@@ -180,19 +187,24 @@ _PORTED = (
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run yet
-    (ROADMAP.md §1.10): training, serving and generation run the causal
-    LLaMA, Baichuan and GPT/OPT decoders (rope, learned or ALiBi positions,
-    rms or layernorm, swiglu / gelu / relu, biases, tied heads, switch-MoE
-    MLPs)."""
+    (ROADMAP.md §1.10): training runs the LLaMA, Baichuan and GPT/OPT
+    decoders (rope, learned or ALiBi positions, rms or layernorm, swiglu /
+    gelu / relu, biases, tied heads, switch-MoE MLPs) and the BERT and ViT
+    encoders ('mlm', 'cls'); serving and generation refuse the encoders
+    themselves (``generation.check_generative``)."""
     for field, ported, what in _PORTED:
         if getattr(cfg, field) not in ported:
             raise NotImplementedError(
                 f"{field}={getattr(cfg, field)!r} ({what}) is not ported yet: "
-                "ROADMAP.md §1.10 'Other model families'; the port runs causal LLaMA, "
-                "Baichuan and GPT/OPT decoders"
+                "ROADMAP.md §1.10 'Other model families'; the port runs LLaMA, "
+                "Baichuan and GPT/OPT decoders and BERT and ViT encoders"
             )
     if cfg.use_bias and not cfg.qkv_blocked:
         raise ValueError("use_bias needs the blocked qkv layout (no GQA)")
+    if cfg.image_size and cfg.image_size % cfg.patch_size:
+        raise ValueError(
+            f"patch_size {cfg.patch_size} must divide image_size {cfg.image_size}"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -241,9 +253,17 @@ def init_model_params(cfg: ModelConfig, seed: int, device) -> Params:
             p["bias"] = zeros(h)
         return p
 
-    params: Params = {"embed": {"tok": normal(cfg.vocab_size, h)}, "layers": []}
-    if cfg.pos_embed == "learned":
-        params["embed"]["pos"] = normal(cfg.max_seq_len, h)
+    if cfg.image_size:
+        # ViT: the patch projection and its learned positions for the
+        # embedding, the pooled class head (the reference's
+        # ``init_vision_base_params``)
+        patch_dim = cfg.patch_size * cfg.patch_size * cfg.num_channels
+        params: Params = {"embed": {"proj": dense(patch_dim, h),
+                                    "pos": normal(cfg.n_patches, h)}, "layers": []}
+    else:
+        params = {"embed": {"tok": normal(cfg.vocab_size, h)}, "layers": []}
+        if cfg.pos_embed == "learned":
+            params["embed"]["pos"] = normal(cfg.max_seq_len, h)
     kv, group = qkv_dims(cfg)
     up = _up_name(cfg)
     for _ in range(cfg.num_layers):
@@ -265,7 +285,9 @@ def init_model_params(cfg: ModelConfig, seed: int, device) -> Params:
         params["layers"].append({"attn_norm": norm_params(), "attn": attn,
                                  "mlp_norm": norm_params(), "mlp": mlp})
     params["final_norm"] = norm_params()
-    if not cfg.tie_word_embeddings:
+    if cfg.image_size:
+        params["head"] = {"w": dense(h, cfg.num_classes)}
+    elif not cfg.tie_word_embeddings:
         params["head"] = {"w": dense(h, cfg.vocab_size)}
     return params
 
@@ -326,17 +348,23 @@ def layer_annotations(cfg: ModelConfig) -> Params:
 
 def model_annotations(cfg: ModelConfig) -> Params:
     """The whole tree's annotations: the embedding (and an untied head) is
-    vocab-parallel over its TP axes."""
+    vocab-parallel over its TP axes; a ViT's patch projection and class
+    head are column-parallel over them (the reference's
+    ``vision_base_annotations``)."""
+    if cfg.image_size:
+        embed = {"proj": ("fsdp", "tp"), "pos": ("fsdp", None)}
+    else:
+        embed = {"tok": ("tp", "fsdp")}
+        if cfg.pos_embed == "learned":
+            embed["pos"] = ("fsdp", None)
     a: Params = {
-        "embed": {"tok": ("tp", "fsdp")},
+        "embed": embed,
         "layers": [layer_annotations(cfg) for _ in range(cfg.num_layers)],
         "final_norm": {"scale": ("fsdp",)},
     }
-    if cfg.pos_embed == "learned":
-        a["embed"]["pos"] = ("fsdp", None)
     if cfg.norm_type == "layernorm":
         a["final_norm"]["bias"] = ("fsdp",)
-    if not cfg.tie_word_embeddings:
+    if cfg.image_size or not cfg.tie_word_embeddings:
         a["head"] = {"w": ("fsdp", "tp")}
     return a
 
@@ -603,12 +631,13 @@ def alibi_bias(slopes: torch.Tensor, q_pos, k_len: int) -> torch.Tensor:
 
 
 def attention_xla(q, k, v, cfg: ModelConfig, q_offset, seg_ids=None, bias=None):
-    """Causal einsum attention (the reference's ``attention_xla``): k/v may
-    be longer than q; query i of row b sits at absolute position
-    ``q_offset[b] + i`` and sees keys at positions <= its own. Scores and
+    """Einsum attention (the reference's ``attention_xla``): k/v may be
+    longer than q; with ``cfg.causal`` query i of row b sits at absolute
+    position ``q_offset[b] + i`` and sees keys at positions <= its own, and
+    an encoder (``causal=False``) sees every key, unmasked. Scores and
     softmax in fp32 with the -1e30 mask, probabilities cast to the compute
-    dtype before the PV product. One-query calls go to the GQA-native
-    ``decode_attention`` as in the reference.
+    dtype before the PV product. Causal one-query calls go to the
+    GQA-native ``decode_attention`` as in the reference.
 
     ``seg_ids`` ((B, S), packed sequences): the causal predicate tightens to
     intra-segment — query i attends to key j only when ``seg[i] == seg[j]``.
@@ -621,7 +650,7 @@ def attention_xla(q, k, v, cfg: ModelConfig, q_offset, seg_ids=None, bias=None):
     this path, as in the reference."""
     b, s, nh, hd = q.shape
     offsets = torch.as_tensor(q_offset, device=q.device).reshape(-1)
-    if s == 1 and seg_ids is None and bias is None:
+    if s == 1 and seg_ids is None and bias is None and cfg.causal:
         from galvatron_tpu_torch.ops.flash_attention import decode_attention
 
         return decode_attention(q, k, v, q_offset=offsets)
@@ -630,12 +659,13 @@ def attention_xla(q, k, v, cfg: ModelConfig, q_offset, seg_ids=None, bias=None):
     scores = torch.einsum("bqnh,bknh->bnqk", q, k).float() / math.sqrt(hd)
     if bias is not None:
         scores = scores + bias
-    q_pos = offsets[:, None] + torch.arange(s, device=q.device)[None]
-    k_pos = torch.arange(k.shape[1], device=q.device)
-    allowed = k_pos[None, None, :] <= q_pos[:, :, None]
-    if seg_ids is not None:
-        allowed = allowed & (seg_ids[:, :, None] == seg_ids[:, None, :])
-    scores = scores.masked_fill(~allowed[:, None], -1e30)
+    if cfg.causal:
+        q_pos = offsets[:, None] + torch.arange(s, device=q.device)[None]
+        k_pos = torch.arange(k.shape[1], device=q.device)
+        allowed = k_pos[None, None, :] <= q_pos[:, :, None]
+        if seg_ids is not None:
+            allowed = allowed & (seg_ids[:, :, None] == seg_ids[:, None, :])
+        scores = scores.masked_fill(~allowed[:, None], -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bnqk,bknh->bqnh", probs, v)
 
@@ -1041,12 +1071,69 @@ def forward(params, tokens, cfg: ModelConfig, layer_hook=None):
 
 
 def head(x, params, cfg: ModelConfig, vocab=None):
-    """The final norm and the head → logits (this rank's vocabulary shard
-    with ``vocab``)."""
+    """The final norm and the head → logits (this rank's vocabulary or
+    class shard with ``vocab``): the LM head, or for 'cls' the mean-pooled
+    class head (under SP ``vocab.enter`` gathers the whole sequence first)."""
     x = norm(x, params["final_norm"], cfg)
     if vocab is not None:
         x = vocab.enter(x)
+    if cfg.objective == "cls":
+        return cls_head(x, params, cfg)
     return lm_head(x, params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Vision (ViT)
+# ---------------------------------------------------------------------------
+
+
+def vision_embed(pixels, params, cfg: ModelConfig, vocab=None):
+    """(B, H·W·C) integer pixel rows → (B, n_patches, hidden): cast to the
+    compute dtype, normalised to [-1, 1] in it (``/ 127.5 - 1``, the
+    reference's order, so bf16 rounds where it rounds), cut into patches
+    by reshape and transpose, one projection, plus the learned positions.
+
+    With ``vocab`` (a ``TPRegion`` of more than one rank: the embedding's
+    TP group) the projection is this rank's column shard: its output columns
+    sit in a zero row of the full width and ``vocab.exit`` sums the shards
+    (into this rank's sequence shard under SP), as the token embedding sums
+    its vocabulary shards; then the positions of those rows are added."""
+    b = pixels.shape[0]
+    p_, g, c = cfg.patch_size, cfg.grid, cfg.num_channels
+    x = pixels.to(cfg.dtype).reshape(b, g, p_, g, p_, c) / 127.5 - 1.0
+    x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, g * g, p_ * p_ * c)
+    y = x @ params["embed"]["proj"].to(cfg.dtype)
+    seq = slice(0, g * g)
+    if vocab is not None and vocab.size > 1:
+        n = y.shape[-1]
+        full = y.new_zeros(*y.shape[:-1], n * vocab.size)
+        y = vocab.exit(full.index_copy(-1, torch.arange(vocab.index * n, (vocab.index + 1) * n,
+                                                         device=y.device), y))
+        seq = vocab.seq_slice(g * g)
+    return y + params["embed"]["pos"].to(cfg.dtype)[seq][None]
+
+
+def cls_head(y, params, cfg: ModelConfig):
+    """Mean-pooled classification head: (B, L, C) → (B, num_classes)."""
+    return y.mean(dim=1) @ params["head"]["w"].to(y.dtype)
+
+
+def forward_vision(params, pixels, cfg: ModelConfig, layer_hook=None):
+    """ViT forward → class logits: the patch embedding, the bidirectional
+    layers (``decoder_layer`` under ``causal=False``), the final norm and
+    the pooled head. ``layer_hook(i, x, lp)`` as in :func:`forward`."""
+    x = vision_embed(pixels, params, cfg)
+    for i, lp in enumerate(params["layers"]):
+        x = layer_hook(i, x, lp) if layer_hook is not None else decoder_layer(x, lp, cfg)
+    return head(x, params, cfg)
+
+
+def embed_any(inputs, params, cfg: ModelConfig, vocab=None, pos_ids=None):
+    """The input embedding of either modality: the token table (and its
+    positions) or the patch projection."""
+    if cfg.image_size:
+        return vision_embed(inputs, params, cfg, vocab)
+    return embed(inputs, params, cfg, vocab, pos_ids=pos_ids)
 
 
 # ---------------------------------------------------------------------------
@@ -1104,23 +1191,62 @@ def ce_remat(cfg: ModelConfig) -> bool:
 
 def batch_row_width(cfg: ModelConfig, seq: int) -> int:
     """Width of one loader batch row, the shape side of :func:`split_batch`:
-    packed rows are tokens ‖ segment ids, 2·(S+1) (``data/packing.py``);
-    plain windows are S+1."""
+    vision rows are sample_len pixels ‖ label; packed rows are tokens ‖
+    segment ids, 2·(S+1) (``data/packing.py``); plain windows are S+1."""
+    if cfg.image_size:
+        return cfg.sample_len + 1
     return 2 * (seq + 1) if cfg.pack_sequences else seq + 1
 
 
+def layer_seq(cfg: ModelConfig, seq: Optional[int] = None) -> int:
+    """The sequence a step's layers run over: a ViT's patches, whatever
+    ``seq`` says; else ``seq`` (the training length when None)."""
+    if cfg.image_size:
+        return cfg.n_patches
+    return seq or cfg.max_seq_len
+
+
+def _mul32(h, c: int):
+    """``h · c mod 2^32`` for int64 ``h`` in [0, 2^32) and a constant c <
+    2^32, in two 16-bit halves of c so that no product leaves int64: uint32
+    arithmetic with wraparound, bit for bit."""
+    lo = h * (c & 0xFFFF)
+    hi = (h * (c >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & 0xFFFFFFFF
+
+
+def mlm_positions(tokens, cfg: ModelConfig):
+    """Deterministic masked-LM positions (the reference's): the uint32 hash
+    ``(t·2654435761 + pos·40503)``, then ``(h ^ h >> 16)·2246822519``, its
+    low 16 bits over 65536 below ``mlm_mask_rate``. The hash runs on int64
+    masked to 32 bits, so the masks are the reference's bit for bit; the
+    loss stays a function of (params, batch) alone."""
+    mask32 = 0xFFFFFFFF
+    t = tokens.long() & mask32
+    pos = torch.arange(tokens.shape[-1], device=tokens.device, dtype=torch.long)
+    h = (_mul32(t, 2654435761) + _mul32(pos, 40503)) & mask32
+    h = _mul32(h ^ (h >> 16), 2246822519)
+    frac = (h & 0xFFFF).float() / 65536.0
+    return frac < cfg.mlm_mask_rate
+
+
 def split_batch(batch, cfg: ModelConfig):
-    """(B, S+1) token rows → (inputs, next-token labels), the 'clm'
-    objective; the reference's other objectives raise. A packed row (B,
-    2·(S+1)) = tokens ‖ segment ids keeps both halves in the inputs (every
-    layer needs the segment ids); its labels are next-token WITHIN a segment
-    only: a position whose successor belongs to another segment (a document
-    boundary) or to padding (segment 0) carries no loss."""
-    if cfg.objective != "clm":
-        raise NotImplementedError(
-            f"objective {cfg.objective!r} is not ported yet (ROADMAP.md §1 "
-            "'Other model families'); the port trains the 'clm' objective"
-        )
+    """One (B, row width) batch → (model inputs, loss labels) per objective
+    (the reference's ``split_batch``): 'cls' pixels ‖ label; 'mlm' the
+    tokens with :func:`mlm_positions` set to the [MASK] id (vocab_size - 1)
+    and labels only there (-100 elsewhere); 'clm' the next-token shift. A
+    packed row (B, 2·(S+1)) = tokens ‖ segment ids keeps both halves in the
+    inputs (every layer needs the segment ids); its labels are next-token
+    WITHIN a segment only: a position whose successor belongs to another
+    segment (a document boundary) or to padding (segment 0) carries no
+    loss."""
+    if cfg.objective == "cls":
+        return batch[:, :-1], batch[:, -1]
+    if cfg.objective == "mlm":
+        tokens = batch[:, :-1]
+        mask = mlm_positions(tokens, cfg)
+        return (torch.where(mask, torch.full_like(tokens, cfg.vocab_size - 1), tokens),
+                torch.where(mask, tokens, torch.full_like(tokens, -100)))
     if cfg.pack_sequences:
         s1 = batch.shape[1] // 2
         tokens, seg = batch[:, :s1], batch[:, s1:]
@@ -1130,10 +1256,26 @@ def split_batch(batch, cfg: ModelConfig):
     return batch[:, :-1], batch[:, 1:]
 
 
+def loss_tokens_per_sample(cfg: ModelConfig, seq_len: int) -> int:
+    """Static count of loss-carrying positions a sample (the fp16 seed's
+    and the token counts' divisor): one for 'cls', the expected masked
+    share for 'mlm', the sequence for 'clm'."""
+    if cfg.objective == "cls":
+        return 1
+    if cfg.objective == "mlm":
+        return max(1, int(seq_len * cfg.mlm_mask_rate))
+    return seq_len
+
+
 def lm_loss_sum(params, batch, cfg: ModelConfig, layer_hook=None):
-    """(nll_sum, token_count) on a (B, S+1) token batch (packed: (B, 2·(S+1)))."""
-    tokens, labels = split_batch(batch, cfg)
-    logits = forward(params, tokens, cfg, layer_hook=layer_hook)
+    """(nll_sum, token_count) on a batch of :func:`batch_row_width` rows,
+    per objective: 'clm' next-token (packed: (B, 2·(S+1))), 'mlm' the masked
+    positions, 'cls' one class a row (the count is then the rows)."""
+    inputs, labels = split_batch(batch, cfg)
+    if cfg.objective == "cls":
+        logits = forward_vision(params, inputs, cfg, layer_hook=layer_hook)
+    else:
+        logits = forward(params, inputs, cfg, layer_hook=layer_hook)
     return cross_entropy_sum(logits, labels, remat=ce_remat(cfg))
 
 
@@ -1151,7 +1293,16 @@ def _gpt(vocab_size, hidden_size, num_layers, num_heads, max_seq_len, act_fn="ge
                        tie_word_embeddings=True)
 
 
-# Preset configs of the decoder families the port runs (the reference's
+def _vit(hidden_size, num_layers, num_heads, patch_size):
+    """A ViT preset: GPT's layer (learned positions, LayerNorm, biases,
+    gelu, ffn 4h), bidirectional, 224-pixel images, 1000 classes."""
+    return ModelConfig(use_bias=True, vocab_size=1, hidden_size=hidden_size,
+                       num_layers=num_layers, num_heads=num_heads, max_seq_len=0,
+                       pos_embed="learned", norm_type="layernorm", act_fn="gelu",
+                       causal=False, objective="cls", image_size=224, patch_size=patch_size)
+
+
+# Preset configs of the families the port runs (the reference's
 # PRESETS, same sizes)
 PRESETS: Dict[str, ModelConfig] = {
     "llama-0.3b": ModelConfig(
@@ -1189,4 +1340,11 @@ PRESETS: Dict[str, ModelConfig] = {
         vocab_size=64000, hidden_size=5120, num_layers=40, num_heads=40,
         ffn_dim=13696, max_seq_len=4096, pos_embed="alibi",
     ),
+    # encoders: BERT (the GPT layer, bidirectional, masked-LM) and ViT (the
+    # same layer over 196 or 256 patches of a 224-pixel image)
+    "bert-base": _gpt(30528, 768, 12, 12, 512).replace(causal=False, objective="mlm"),
+    "bert-large": _gpt(30528, 1024, 24, 16, 512).replace(causal=False, objective="mlm"),
+    "vit-base": _vit(768, 12, 12, 16),
+    "vit-large": _vit(1024, 24, 16, 16),
+    "vit-huge": _vit(1280, 32, 16, 14),
 }

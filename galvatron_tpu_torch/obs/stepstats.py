@@ -3,7 +3,14 @@
 
 Model FLOPs (feeds MFU) are fwd + 2x fwd backward with no recompute;
 hardware FLOPs add what recompute replays. Attention-core FLOPs use the
-full s x s product pair (no causal discount), Megatron's convention. The
+full s x s product pair (no causal discount), Megatron's convention, so an
+encoder's unmasked attention counts what a decoder's does. The head counts
+the loss-carrying positions (``modeling.loss_tokens_per_sample``: the
+masked ones for 'mlm', one a sample for 'cls'). A ViT's sequence is its
+patches and its head has ``num_classes`` columns (the JAX package counts
+the pixels as the sequence and ``vocab_size`` as the head: ROADMAP.md §3,
+"Kept differences"); its patch projection is not counted, as the
+reference does not count the embedding. The
 peak is the card's published dense bf16 rate, looked up by device name.
 The rate fields are device metrics: on the CPU they are None, never a CPU
 number under a device metric's name.
@@ -16,7 +23,7 @@ from typing import Dict, Optional, Sequence, Union
 
 import torch
 
-from galvatron_tpu_torch.models.modeling import ModelConfig
+from galvatron_tpu_torch.models.modeling import ModelConfig, loss_tokens_per_sample
 
 # per-card peak dense bf16 TFLOP/s (NVIDIA data sheets, SXM parts at the
 # full power limit), keyed by the whole torch.cuda.get_device_name(): the
@@ -64,7 +71,7 @@ def layer_fwd_flops_per_token(cfg: ModelConfig, seq_len: int) -> float:
 
 
 def head_flops_per_loss_token(cfg: ModelConfig) -> float:
-    return 2.0 * cfg.hidden_size * cfg.vocab_size
+    return 2.0 * cfg.hidden_size * (cfg.num_classes if cfg.image_size else cfg.vocab_size)
 
 
 def _remat_fwd_flops_per_token(cfg: ModelConfig, seq_len: int,
@@ -94,7 +101,8 @@ class StepStats:
     ``ckpt`` is one recompute mode or a list of every layer's modes; a step
     of ``world`` ranks shares the whole model's FLOPs among them (the
     per-device rate, the reference's: under a pipeline each stage runs only
-    its layers, and the world's devices together run them all)."""
+    its layers, and the world's devices together run them all).
+    ``seq_len`` is the sequence the layers run over (a ViT's patches)."""
 
     cfg: ModelConfig
     global_bsz: int
@@ -106,8 +114,9 @@ class StepStats:
     def __post_init__(self):
         cfg, seq = self.cfg, self.seq_len
         tokens = float(self.global_bsz) * seq
-        fwd = tokens * (cfg.num_layers * layer_fwd_flops_per_token(cfg, seq)
-                        + head_flops_per_loss_token(cfg))
+        loss_tokens = float(self.global_bsz) * loss_tokens_per_sample(cfg, seq)
+        fwd = (tokens * cfg.num_layers * layer_fwd_flops_per_token(cfg, seq)
+               + loss_tokens * head_flops_per_loss_token(cfg))
         self.model_flops_per_step = 3.0 * fwd
         self.hardware_flops_per_step = self.model_flops_per_step + (
             tokens * _remat_fwd_flops_per_token(cfg, seq, self.ckpt)

@@ -52,6 +52,14 @@ insert the collectives, this runtime issues them (``parallel/comm.py``):
   update. At pp > 1 the flag is accepted and changes nothing, as in the
   reference.
 
+Encoders (``causal=False``): BERT's masked-LM rows ('mlm': the loss
+divides by the masked positions of the whole batch) and ViT's pixel ‖
+label rows ('cls'), whose layers run over the image's patches (``seq_len``
+is then ``n_patches``); the patch projection and the pooled class head are
+column-parallel over the embedding's TP group as the token table is
+vocab-parallel (``modeling.vision_embed``, ``modeling.head``), and the
+class cross entropy runs vocab-parallel over that shard of the classes.
+
 Packed sequences (``cfg.pack_sequences``): the batch rows are tokens ‖
 segment ids (``data/packing.py``); every stage derives the segment ids of
 the micro-batch it runs from the rows it is given (every rank holds the
@@ -569,8 +577,9 @@ def build_runtime(
     device=None,
 ) -> Runtime:
     """The train/eval step of ``cfg`` under the plan ``hp`` on
-    (global_batch_size, seq_len + 1) token batches (packed:
-    ``modeling.batch_row_width``). Without ``hp`` the plan
+    (global_batch_size, seq_len + 1) token batches (packed or vision:
+    ``modeling.batch_row_width``; a vision model's layers run over its
+    ``n_patches``, whatever ``seq_len`` says). Without ``hp`` the plan
     is uniform at tp=1 with ``chunks``, ``ckpt`` ('none' | 'full' |
     'selective', or the --global_checkpoint integer) and
     ``mixed_precision`` ('fp32' | 'bf16' | 'fp16'); with ``hp`` those come from the
@@ -579,6 +588,7 @@ def build_runtime(
     pipeline stage under the plan's schedule. ``device`` defaults to
     ``cuda`` and raises without a card unless 'cpu' is asked for."""
     device = resolve_device(device)
+    seq_len = modeling.layer_seq(cfg, seq_len)
     check_packed(cfg, hp)
     if hp is not None:
         check_cp(cfg, hp, seq_len)
@@ -607,7 +617,11 @@ def build_runtime(
     es = embed_strategy(hp)
     for i, s in enumerate(strategies):
         modeling.check_tp_shapes(cfg, s.tp, f"layer {i}")
-    if cfg.vocab_size % es.tp:
+    if cfg.image_size:
+        for what, n in (("classes", cfg.num_classes), ("hidden", cfg.hidden_size)):
+            if n % es.tp:
+                raise ValueError(f"{what} {n} does not split over vocab_tp={es.tp}")
+    elif cfg.vocab_size % es.tp:
         raise ValueError(f"vocab {cfg.vocab_size} does not split over vocab_tp={es.tp}")
     world, rank = _world()
     hp.validate(world)
@@ -783,7 +797,7 @@ def build_runtime(
                 tokens, _, pos_ids = modeling.split_packed_inputs(tokens)
         with rg.saving() if rg is not None else contextlib.nullcontext():
             if k == 0:
-                x = modeling.embed(tokens, top, cfg, vocab, pos_ids=pos_ids)
+                x = modeling.embed_any(tokens, top, cfg, vocab, pos_ids=pos_ids)
             for i in vstages[k]:
                 x = hook(i, x, params["layers"][local[i]], **hook_kw)
             if head:
@@ -859,9 +873,10 @@ def build_runtime(
         # however the ignored tokens fall across chunks and ranks
         tot_s = torch.zeros((), dtype=torch.float32, device=device)
         if fp16:
-            # the seed of the scaled backward, and the gradients' divisor
+            # the seed of the scaled backward (the reference's static loss
+            # positions of a micro-batch), and the gradients' divisor
             scale = state["scaler"]["scale"]
-            seed = scale / (mbs.shape[1] * seq_len)
+            seed = scale / (mbs.shape[1] * modeling.loss_tokens_per_sample(cfg, seq_len))
             gdenom = denom * seed
         live: Dict[tuple, tuple] = {}  # (virtual stage, micro-batch) → (input, output)
 

@@ -21,8 +21,11 @@ package, and the JSONs have its schema.
 
 The profile runs in one process on one device: the per-tp activation curve
 is the analytic 1/tp of the JAX package on a one-device host, and the
-vocab-parallel fit covers vocab_tp = 1. Encoder-decoder and Swin profiles
-(ROADMAP.md §1.10) are not ported.
+vocab-parallel fit covers vocab_tp = 1. A ViT ('cls') is profiled on its
+pixel ‖ label rows (``modeling.batch_row_width``) and its layers' sequence
+is its patches; its 'other' terms stay analytic (no vocabulary fit), as in
+the JAX package. Encoder-decoder and Swin profiles (ROADMAP.md §1.10) are
+not ported.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ def measure_strategy_ms(
     seq = seq or cfg.max_seq_len
     rt = build_runtime(cfg, hp, adam=AdamConfig(lr=1e-4), global_batch_size=bsz,
                        seq_len=seq, device=device)
-    batch = torch.zeros((bsz, seq + 1), dtype=torch.long)
+    batch = torch.zeros((bsz, modeling.batch_row_width(cfg, seq)), dtype=torch.long)
     state = rt.init_state(0)
     for _ in range(2):
         state, loss = rt.train_step(state, batch)
@@ -179,7 +182,8 @@ def _act_bytes(cfg: ModelConfig, bsz: int, seq: int, device: torch.device) -> in
     params = modeling.init_model_params(cfg, 0, device)
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    batch = torch.zeros((bsz, seq + 1), dtype=torch.long, device=device)
+    batch = torch.zeros((bsz, modeling.batch_row_width(cfg, seq)), dtype=torch.long,
+                        device=device)
     if device.type == "cuda":
         _sync(device)
         before = torch.cuda.memory_allocated(device)
@@ -274,15 +278,15 @@ def profile_model(
     ``layernums`` are never changed. An MoE model also gets its expert-time
     fraction (:func:`_expert_time_fraction`) and the expert-parameter
     fraction and all-to-all volume the search prices EP with."""
-    if cfg.enc_layers > 0 or cfg.swin_depths or cfg.image_size:
+    if cfg.enc_layers > 0 or cfg.swin_depths:
         raise NotImplementedError(
-            "encoder-decoder and vision profiles are not ported yet: ROADMAP.md §1.10")
+            "encoder-decoder and Swin profiles are not ported yet: ROADMAP.md §1.10")
     if _world() != 1:
         raise ValueError("profile_model runs in one process on one device "
                          f"(this world has {_world()} ranks)")
     device = resolve_device(device)
     modeling.check_supported(cfg)
-    seq = seq or cfg.max_seq_len
+    seq = modeling.layer_seq(cfg, seq)
     adaptive = layernums is None
     l1, l2 = layernums or _default_layernums(cfg.total_layers)
     if not 1 <= l1 < l2:
@@ -355,13 +359,17 @@ def profile_model(
             )
         },
         other_param_mb=float(other_param_count(cfg) * 4 / 1e6),
-        other_act_mb_per_sample=float(seq * cfg.vocab_size * 4 / 1e6),  # fp32 logits
+        # fp32 logits; a ViT's patch embedding (its class logits are tiny),
+        # the term the JAX package's Swin profile and analytic costs use
+        other_act_mb_per_sample=float(seq * cfg.hidden_size * 2 / 1e6 if cfg.image_size
+                                      else seq * cfg.vocab_size * 4 / 1e6),
         other_fwd_ms_per_sample=float(other_ms),
         hidden_size=cfg.hidden_size,
     )
     # the vocab fit costs two zero-layer runs; measured on the card, as the
-    # JAX package measures it on an accelerator and not on its CPU simulation
-    if measure_time and device.type == "cuda":
+    # JAX package measures it on an accelerator and not on its CPU
+    # simulation; a 'cls' model keeps the analytic terms, as there
+    if measure_time and device.type == "cuda" and cfg.objective != "cls":
         vslope, vconst, vmp = profile_vocab_costs(cfg, bsz, seq=seq, device=device)
         costs.measured_vocab_slope_ms = vslope
         costs.measured_vocab_const_ms = vconst

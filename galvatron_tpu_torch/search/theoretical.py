@@ -10,8 +10,9 @@ package's, so ``--analytic_costs 1`` searches give the same plans).
 - activation estimates per layer per sample for the attention paths (flash
   never materializes the (S, S) score matrix; the einsum path does).
 
-Vision models (ViT, Swin) raise: their geometry is not ported (ROADMAP.md
-§1.10).
+ViT takes the reference's vision branch (one layer type at seq =
+n_patches, the patch projection and class head as "other"); Swin raises:
+its stage geometry is not ported (ROADMAP.md §1.10).
 """
 
 from __future__ import annotations
@@ -58,9 +59,16 @@ def layer_param_count(cfg: ModelConfig, cross: bool = False) -> int:
 
 
 def other_param_count(cfg: ModelConfig) -> int:
-    """Embedding + final norm + output head (+ Swin patch merges)."""
+    """Embedding + final norm + output head (a ViT's patch projection,
+    positions and class head)."""
     if cfg.image_size:
-        _refuse_vision()
+        if cfg.swin_depths:
+            _refuse_vision()
+        patch_dim = cfg.patch_size * cfg.patch_size * cfg.num_channels
+        n = patch_dim * cfg.hidden_size + cfg.n_patches * cfg.hidden_size
+        n += cfg.hidden_size * cfg.num_classes
+        n += cfg.hidden_size if cfg.norm_type == "rms" else 2 * cfg.hidden_size
+        return n
     n = cfg.vocab_size * cfg.hidden_size  # token embedding
     if cfg.pos_embed == "learned":
         n += cfg.max_seq_len * cfg.hidden_size
@@ -147,7 +155,7 @@ def analytic_model_costs(
     from galvatron_tpu_torch.search.cost_model import ProfiledLayerType, ProfiledModelCosts
 
     if cfg.image_size:
-        _refuse_vision()
+        return _analytic_vision_costs(cfg, peak_tflops, mfu, mixed_precision)
     if cfg.enc_layers > 0:
         return _analytic_encdec_costs(cfg, peak_tflops, mfu, mixed_precision)
     S = seq_len or cfg.max_seq_len
@@ -250,9 +258,50 @@ def _analytic_encdec_costs(
     )
 
 
+def _analytic_vision_costs(cfg: ModelConfig, peak_tflops: float, mfu: float,
+                           mixed_precision: str):
+    """The ViT branch of the reference's ``_analytic_vision_costs``: one
+    uniform layer type at seq = n_patches, every patch attending every
+    other (the flash activation terms with the LSE replaced by fp32
+    probabilities), the patch projection and class head as "other". Swin
+    raises (ROADMAP.md §1.10)."""
+    from galvatron_tpu_torch.search.cost_model import ProfiledLayerType, ProfiledModelCosts
+
+    if cfg.swin_depths:
+        _refuse_vision()
+    b = _BYTES[mixed_precision]
+    S = ctx = cfg.n_patches
+    heads = cfg.num_heads
+    p_layer = layer_param_count(cfg)
+    flops = 2.0 * p_layer * S + 2.0 * 2.0 * heads * cfg.head_dim * S * ctx
+    act = {}
+    for tp in (1, 2, 4, 8):
+        if cfg.hidden_size % tp:
+            continue
+        base = layer_activation_mb_per_sample(
+            cfg.replace(attn_impl="flash"), LayerStrategy(tp=tp), S, mixed_precision)
+        act[tp] = base + 4.0 * (heads / tp) * S * (ctx - 1) / 1e6
+    lt = ProfiledLayerType(
+        fwd_ms_per_sample=flops / (peak_tflops * 1e12 * mfu) * 1e3,
+        parameter_mb=p_layer * 4 / 1e6,
+        activation_mb_per_sample=act,
+        boundary_activation_mb_per_sample=S * cfg.hidden_size * b / 1e6,
+    )
+    patch_dim = cfg.patch_size * cfg.patch_size * cfg.num_channels
+    other_flops = 2.0 * patch_dim * cfg.hidden_size * cfg.n_patches
+    other_flops += 2.0 * cfg.hidden_size * cfg.num_classes
+    return ProfiledModelCosts(
+        layer_types={0: lt},
+        other_param_mb=other_param_count(cfg) * 4 / 1e6,
+        # the patch embedding's output dominates "other" activation
+        other_act_mb_per_sample=cfg.n_patches * cfg.hidden_size * b / 1e6,
+        other_fwd_ms_per_sample=other_flops / (peak_tflops * 1e12 * mfu) * 1e3,
+    )
+
+
 def _refuse_vision():
     raise NotImplementedError(
-        "analytic costs of vision models (ViT/Swin geometry) are not ported yet: "
+        "analytic costs of Swin models (their stage geometry) are not ported yet: "
         "ROADMAP.md §1.10 'Other model families'")
 
 

@@ -94,6 +94,7 @@ class Engine:
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         modeling.check_supported(cfg)
+        generation.check_generative(cfg, "serving")
         if params["embed"]["tok"].device != self.device:
             raise ValueError(
                 f"params live on {params['embed']['tok'].device}, engine device is {self.device}"

@@ -257,14 +257,19 @@ def test_serving_refuses_a_gpt_preset_naming_the_roadmap():
     GPT preset (learned positions, LayerNorm, gelu, biases, tied head) on
     the default slot backend answers /api with ``generate_np``'s greedy
     tokens on the same weights; an ALiBi variant of the preset is accepted
-    (ALiBi positions are ported: ``tests/test_torch_alibi.py``), while a
-    bidirectional one is still refused, naming ROADMAP §1.10."""
+    (ALiBi positions are ported: ``tests/test_torch_alibi.py``), and so is a
+    bidirectional one in training (BERT: ``tests/test_torch_encoder.py``),
+    which serving refuses with the reference's message; an encoder-decoder
+    (T5) variant is still refused, naming ROADMAP §1.10."""
     from galvatron_tpu_torch.models import generation as tgen
     from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
 
     tm.check_supported(tm.PRESETS["gpt-1.5b"].replace(pos_embed="alibi"))
+    tm.check_supported(tm.PRESETS["gpt-1.5b"].replace(causal=False))
+    with pytest.raises(ValueError, match="serving engine requires a decoder-only causal LM"):
+        tgen.check_generative(tm.PRESETS["gpt-1.5b"].replace(causal=False), "serving")
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
-        tm.check_supported(tm.PRESETS["gpt-1.5b"].replace(causal=False))
+        tm.check_supported(tm.PRESETS["gpt-1.5b"].replace(enc_layers=2, enc_seq=64))
     flags = ["--device", "cpu", "--model_size", "gpt-0.3b", "--num_layers", "1",
              "--hidden_size", "64", "--num_heads", "4", "--seq_length", "64",
              "--prefill_chunk", "8", "--num_slots", "2"]

@@ -298,6 +298,18 @@ GRID_CASES = {
     "noncausal_rope_d128_stacked": (torch.bfloat16, 1, 4, 4, 384, 128, False, True, True, False),
     "causal_d128_gqa_ragged_s1000": (torch.bfloat16, 2, 8, 2, 1000, 128, True, False, False,
                                      False),
+    # the encoders' attention: unmasked, no RoPE, the stacked projection
+    # view; ViT's 196 (and 197) rows are ragged against the 64 / 128-row
+    # tiles, so the keys past s must take no weight and the rows past s add
+    # nothing to dk / dv; head_dim 80 (vit-huge) takes the CUDA-core kernels
+    "encoder_vit_s196_d64": (torch.bfloat16, 4, 16, 16, 196, 64, False, False, True, False),
+    "encoder_s197_d64": (torch.bfloat16, 2, 16, 16, 197, 64, False, False, True, False),
+    "encoder_bert_s512_d64": (torch.bfloat16, 4, 16, 16, 512, 64, False, False, True, False),
+    "encoder_vit_huge_s256_d80": (torch.bfloat16, 2, 16, 16, 256, 80, False, False, True,
+                                  False),
+    "encoder_s196_d80": (torch.bfloat16, 2, 16, 16, 196, 80, False, False, True, False),
+    "encoder_s197_d80": (torch.bfloat16, 1, 4, 4, 197, 80, False, False, True, False),
+    "encoder_fp32_s196_d80": (torch.float32, 1, 4, 4, 196, 80, False, False, True, False),
 }
 
 

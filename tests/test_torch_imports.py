@@ -94,19 +94,24 @@ HF_MODULES = ("galvatron_tpu_torch.models.hf_io", "galvatron_tpu_torch.models.co
               "galvatron_tpu_torch.models.llama", "galvatron_tpu_torch.models.llama_fa",
               "galvatron_tpu_torch.models.gpt", "galvatron_tpu_torch.models.gpt_fa",
               "galvatron_tpu_torch.models.opt", "galvatron_tpu_torch.models.baichuan")
+#: the encoder slice's entry packages and the image stream's loader
+ENCODER_MODULES = ("galvatron_tpu_torch.models.bert", "galvatron_tpu_torch.models.vit",
+                   "galvatron_tpu_torch.core.dataloader")
 SCANNED = sorted([str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
                  + ["chip_smoke.py", "experiments/torch_decode_profile.py"])
 
 
 def test_the_scan_covers_the_parallel_modules():
     for m in PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES + SERVING_MODULES + (
-            MOE_MODULES + PACKED_OVERLAP_MODULES + HF_MODULES + ("galvatron_tpu_torch.data",)):
+            MOE_MODULES + PACKED_OVERLAP_MODULES + HF_MODULES + ENCODER_MODULES
+            + ("galvatron_tpu_torch.data",)):
         assert m.replace(".", "/") + ".py" in SCANNED or \
             m.replace(".", "/") + "/__init__.py" in SCANNED
 
 
 @pytest.mark.parametrize("module", PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES
-                         + SERVING_MODULES + MOE_MODULES + PACKED_OVERLAP_MODULES + HF_MODULES)
+                         + SERVING_MODULES + MOE_MODULES + PACKED_OVERLAP_MODULES + HF_MODULES
+                         + ENCODER_MODULES)
 def test_parallel_module_alone_loads_no_jax(module):
     """Each module of the hybrid runtime, the search, the training services
     and generation / serving, imported first and alone in a fresh

@@ -95,21 +95,38 @@ def test_init_matches_jax_shapes_and_distributions(layout):
 ])
 def test_unported_families_raise_naming_the_roadmap(field, value):
     """What the port does not run raises naming ROADMAP §1.10: training and
-    serving refuse encoders and non-clm objectives; the GPT/OPT pieces
-    training runs (learned positions, layernorm, gelu, biases, tied head),
-    switch-MoE MLPs and ALiBi positions (Baichuan-13B) the serving engine
-    takes too. An ALiBi model also trains: one step's loss is finite and
-    its gradients reach every layer (its parity with the JAX package is
-    ``tests/test_torch_alibi.py``)."""
+    serving refuse Swin's stages and encoder-decoder (T5) models. The GPT/OPT
+    pieces training runs (learned positions, layernorm, gelu, biases, tied
+    head), switch-MoE MLPs and ALiBi positions (Baichuan-13B) the serving
+    engine takes too. An ALiBi model also trains: one step's loss is finite
+    and its gradients reach every layer (its parity with the JAX package is
+    ``tests/test_torch_alibi.py``). The encoders (bidirectional, 'mlm',
+    'cls': ``tests/test_torch_encoder.py``, ``tests/test_torch_vision.py``)
+    train, and the engine refuses them with the reference's message; their
+    Swin (``swin_depths``) or T5 (``enc_layers``) variant raises naming
+    §1.10."""
     from galvatron_tpu_torch.serving import Engine
 
     _, tcfg = _cfgs(None)
     cfg = tcfg.replace(**{field: value})
     if field in ("causal", "objective"):
+        if value == "cls":
+            cfg = cfg.replace(causal=False, image_size=16, patch_size=4, num_classes=8)
+        params = tm.init_model_params(cfg, 0, "cpu")
+        batch = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 97, (2, tm.batch_row_width(cfg, 16)))).long()
+        if value == "cls":
+            batch[:, -1] %= 8
+        assert torch.isfinite(tm.lm_loss(params, batch, cfg))
+        with pytest.raises(ValueError, match="requires a decoder-only causal LM"):
+            Engine(params, cfg, device="cpu", start_loop=False)
+        unported = (cfg.replace(swin_depths=(1, 1)) if value == "cls"
+                    else cfg.replace(enc_layers=2, enc_seq=16))
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
-            tm.init_model_params(cfg, 0, "cpu")
+            tm.init_model_params(unported, 0, "cpu")
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
-            Engine({"embed": {"tok": torch.zeros(1)}}, cfg, device="cpu", start_loop=False)
+            Engine({"embed": {"tok": torch.zeros(1)}}, unported, device="cpu",
+                   start_loop=False)
     else:
         if value == "alibi":
             params = tm.init_model_params(cfg, 0, "cpu")

@@ -169,10 +169,15 @@ def test_adaptive_layer_counts_halve_on_out_of_memory(monkeypatch, capsys):
                                      (dict(enc_layers=2, enc_seq=32), "§1.10"),
                                      (dict(image_size=32, patch_size=8), "§1.10")])
 def test_unported_profiles_raise_naming_their_item(kw, item):
-    """Encoder-decoder and vision profiles raise naming §1.10; an MoE profile
-    (§1.9, ported) runs and carries the expert fields the EP search reads
-    (their values against the JAX package: tests/test_torch_moe.py)."""
+    """Encoder-decoder and Swin profiles raise naming §1.10 (a ViT profile
+    runs: ``tests/test_torch_vision.py``; its Swin variant, the case with
+    ``image_size``, raises); an MoE profile (§1.9, ported) runs and carries
+    the expert fields the EP search reads (their values against the JAX
+    package: tests/test_torch_moe.py)."""
     from galvatron_tpu_torch.profiling.model import profile_model
+
+    if "image_size" in kw:
+        kw = dict(kw, causal=False, objective="cls", swin_depths=(1, 1), num_layers=2)
 
     if item == "§1.9":
         lt = profile_model(_tcfg(**kw), bsz=BSZ, measure_time=False, device="cpu").layer_types[0]

@@ -510,11 +510,15 @@ def test_analytic_costs_drive_search(impl):
 
 
 def test_vision_analytic_costs_raise_naming_the_item():
+    """Swin's analytic costs raise naming §1.10; a ViT's are the JAX
+    package's (``tests/test_torch_vision.py``)."""
     from galvatron_tpu_torch.models.modeling import ModelConfig
     from galvatron_tpu_torch.search import theoretical
 
     with pytest.raises(NotImplementedError, match="§1.10"):
-        theoretical.analytic_model_costs(ModelConfig(image_size=224, num_layers=2))
+        theoretical.analytic_model_costs(ModelConfig(image_size=224, num_layers=2,
+                                                     swin_depths=(1, 1), patch_size=4))
+    assert theoretical.analytic_model_costs(ModelConfig(image_size=224, num_layers=2))
 
 
 # ---------------------------------------------------------------------------
