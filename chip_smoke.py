@@ -45,7 +45,9 @@ its result line:
    fp32 output, and the encoders' shapes unmasked in the stacked view at
    the batches phase 22 runs them (bert-large's b=32, h=16, s=512, d=64;
    vit-large's 196 patches at b=64, h=16, d=64; vit-huge's h=16, s=256,
-   d=80 on the CUDA-core kernels at b=2 and b=16); the forward's,
+   d=80 on the CUDA-core kernels at b=2 and b=16) and T5's at the batches
+   phase 23 runs them (t5-large's b=16, h=16, s=512, d=64 unmasked and
+   causal; t5-3b's 32 heads of d=32 at b=4, on the CUDA-core kernels); the forward's,
    the dk/dv and the dq kernels' own device times (and the pre-passes' with
    RoPE) come from profiler windows, with the same route checks on all
    three (TMA for bf16, the CUDA-core kernels for fp32) and the repeat
@@ -350,6 +352,27 @@ its result line:
    check-plan --strict 1`` of the plan and ``cli train`` of it for 2 steps
    (grid launches as the plan's recompute implies, TMA); (e) ``cli serve``
    and ``cli generate`` of bert-base refused with the reference's messages.
+23. the T5 encoder-decoder (phase name ``encdec``), in this process but for
+   (d): (a) ``cli train --model_size t5-large`` (all 24 + 24 layers, h 1024,
+   16 heads, 512 + 512 tokens), bf16, batch 16, 3 steps: finite, falling
+   losses; the grid kernels 24 x 3 each unmasked at (16, 16, 512) (the
+   encoder) and 24 x 3 each causal (the decoder's self-attention), all on
+   the TMA route, and nothing else (no blocked kernel, no other shape:
+   cross-attention is einsum, no ``paged_decode``); iter_ms, decoder
+   tokens/s, MFU and peak memory; (b) t5-large width at 2 + 2 layers, fp32,
+   2 rows, forward and backward on the card (the grid kernels on the
+   CUDA-core route) against the CPU: logits, loss and every gradient within
+   ``ENCDEC_TOLS``; (c) the same at t5-3b width (32 heads of 32, ffn
+   16384), then a bf16 step of 4 rows, every grid launch on the CUDA-core
+   route; (d) pp = 2 on two gloo ranks sharing the card, t5-large width at 4
+   + 4 layers, fp32, GPipe then 1F1B in one pair of rank processes
+   (``--then``): losses within ``ENCDEC_PIPE_RTOL`` relative of world size 1
+   run here, the first run's parameters within AdamW's band; (e) ``cli
+   profile`` (two layer types), ``cli search`` for one device under a
+   budget, ``cli check-plan --strict 1`` and ``cli train`` of the plan for 2
+   steps at t5-large width, 4 + 4 layers; (f) ``cli serve`` and ``cli
+   generate`` of t5-base refused with the reference's messages, and a cp = 2
+   plan refused by ``build_runtime`` with the reference's.
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
@@ -879,6 +902,12 @@ GRID_CASES = [
     ("grid encoder s196 d64", "bfloat16", 64, 16, 16, 196, 64, False, False, True, False),
     ("grid encoder s256 d80", "bfloat16", 2, 16, 16, 256, 80, False, False, True, False),
     ("grid encoder s256 d80 b16", "bfloat16", 16, 16, 16, 256, 80, False, False, True, False),
+    # T5 (phase 23): t5-large's (16, 16, 512, 64) at 23 (a)'s batch, the
+    # encoder unmasked and the decoder causal, and t5-3b's 32 heads of 32 at
+    # 23 (c)'s batch (the CUDA-core kernels), in the stacked view
+    ("grid t5 s512 d64", "bfloat16", 16, 16, 16, 512, 64, False, False, True, False),
+    ("grid t5 causal s512 d64", "bfloat16", 16, 16, 16, 512, 64, True, False, True, False),
+    ("grid t5-3b s512 d32", "bfloat16", 4, 32, 32, 512, 32, False, False, True, False),
 ]
 
 
@@ -5229,10 +5258,13 @@ def _encoder_train(torch, smi, tmpdir, tag, argv, fused, layers, mode, norms):
     return launches, res
 
 
-def _card_against_cpu(torch, cfg, batch, what, backward):
+def _card_against_cpu(torch, cfg, batch, what, backward, phase="22",
+                      tols=(ENCODER_LOGIT_TOL, ENCODER_LOSS_RTOL, ENCODER_GRAD_RTOL)):
     """The fp32 loss (and logits; with ``backward`` every gradient) of
     ``cfg`` on the card, its grid kernels on the CUDA-core route, against
-    the CPU (their plain versions) from the same seed-0 weights."""
+    the CPU (their plain versions) from the same seed-0 weights; ``tols``
+    the logits' (absolute), the loss's and the gradients' (relative)
+    bounds."""
     from galvatron_tpu_torch.core.optim import tree_leaves
     from galvatron_tpu_torch.models import modeling
 
@@ -5245,8 +5277,12 @@ def _card_against_cpu(torch, cfg, batch, what, backward):
             p.requires_grad_(backward)
         inputs, labels = modeling.split_batch(batch.to(dev), cfg)
         with torch.set_grad_enabled(backward):
-            logits = (modeling.forward_vision if cfg.image_size else modeling.forward)(
-                params, inputs, cfg)
+            if cfg.enc_layers:
+                e = cfg.enc_seq
+                logits = modeling.forward_encdec(params, inputs[:, :e], inputs[:, e:], cfg)
+            else:
+                logits = (modeling.forward_vision if cfg.image_size else modeling.forward)(
+                    params, inputs, cfg)
             s, n = modeling.cross_entropy_sum(logits, labels)
             loss = s / n
             if backward:
@@ -5263,24 +5299,26 @@ def _card_against_cpu(torch, cfg, batch, what, backward):
     loss_rel = abs(card[1] - cpu[1]) / abs(cpu[1])
     grad_rel = max(((g - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
                    for g, c in zip(card[2], cpu[2])) if backward else None
-    res = {"what": what, "layers": cfg.num_layers, "batch": int(batch.shape[0]),
+    logit_tol, loss_tol, grad_tol = tols
+    res = {"what": what, "layers": cfg.total_layers, "batch": int(batch.shape[0]),
            "loss_card": card[1], "loss_cpu": cpu[1], "loss_rel_err": loss_rel,
            "logits_max_abs_err": logit_err, "grad_max_rel_err": grad_rel,
-           "bounds": {"logits_abs": ENCODER_LOGIT_TOL, "loss_rel": ENCODER_LOSS_RTOL,
-                      "grad_rel": ENCODER_GRAD_RTOL if backward else None},
+           "bounds": {"logits_abs": logit_tol, "loss_rel": loss_tol,
+                      "grad_rel": grad_tol if backward else None},
            "launches": {k: v for k, v in launches.items() if v},
            "routes": {k: routes[k] for k in _GRID_KERNELS}}
-    log(f"phase 22 {what}, card against CPU (fp32):", json.dumps(res))
-    check(logit_err <= ENCODER_LOGIT_TOL, f"22 {what}: logits {logit_err} from the CPU's")
-    check(loss_rel <= ENCODER_LOSS_RTOL, f"22 {what}: loss {card[1]} vs CPU {cpu[1]}")
+    log(f"phase {phase} {what}, card against CPU (fp32):", json.dumps(res))
+    check(logit_err <= logit_tol, f"{phase} {what}: logits {logit_err} from the CPU's")
+    check(loss_rel <= loss_tol, f"{phase} {what}: loss {card[1]} vs CPU {cpu[1]}")
     if backward:
-        check(grad_rel <= ENCODER_GRAD_RTOL, f"22 {what}: gradients {grad_rel} from the CPU's")
-    want = {"flash_grid_fwd": cfg.num_layers}
+        check(grad_rel <= grad_tol, f"{phase} {what}: gradients {grad_rel} from the CPU's")
+    # every layer's self-attention; an encoder-decoder's cross-attention is einsum
+    want = {"flash_grid_fwd": cfg.total_layers}
     if backward:
-        want.update(flash_grid_dkdv=cfg.num_layers, flash_grid_dq=cfg.num_layers)
-    check(res["launches"] == want, f"22 {what}: launches {res['launches']}, expected {want}")
+        want.update(flash_grid_dkdv=cfg.total_layers, flash_grid_dq=cfg.total_layers)
+    check(res["launches"] == want, f"{phase} {what}: launches {res['launches']}, expected {want}")
     check(all(routes[k]["cuda_core"] == want.get(k, 0) and routes[k]["tma"] == 0
-              for k in _GRID_KERNELS), f"22 {what}: routes {routes} (fp32: CUDA cores)")
+              for k in _GRID_KERNELS), f"{phase} {what}: routes {routes} (fp32: CUDA cores)")
     return res
 
 
@@ -5409,6 +5447,278 @@ def phase_encoder(torch, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the T5 encoder-decoder
+# ---------------------------------------------------------------------------
+
+ENCDEC_STEPS = 3
+# (a) t5-large at full width and depth (24 + 24 layers, 512 + 512 tokens)
+ENCDEC_LARGE = ("t5-large", 16)  # (preset, batch)
+# (b) / (c) card against CPU at fp32, 2 + 2 layers, 2 rows: logits (absolute),
+# loss (relative) and each gradient tensor's largest difference over its
+# largest CPU value
+ENCDEC_FP32 = dict(layers=2, batch=2)
+ENCDEC_TOLS = (1e-4, 1e-5, 1e-5)
+# (c) t5-3b at 2 + 2 layers: 32 heads of 32 (off the TMA route), bf16 rows
+ENCDEC_3B = ("t5-3b", 4)  # (preset, bf16 batch)
+# (d) the coupled pipeline: t5-large width at 4 + 4 layers, fp32, two gloo
+# ranks sharing the card, GPipe then 1F1B, against world size 1 here
+ENCDEC_PIPE = dict(layers=4, batch=4, chunks=2, steps=2)
+ENCDEC_PIPE_RTOL = 1e-5
+# (e) profiled, searched, checked and trained: t5-large width at 4 + 4 layers
+ENCDEC_SEARCH = dict(layers=4, batch=8, steps=2, budget_gb=40)
+ENCDEC_CP_REFUSAL = "context parallelism is not supported for enc-dec models"
+
+
+def _t5_shape(preset, layers):
+    return ["--model_size", preset, "--num_layers", str(layers), "--enc_layers", str(layers)]
+
+
+def phase_encdec(torch, smi):
+    """Phase 23: T5 through the grid kernels, unmasked in the encoder and
+    causal in the decoder (module docstring). Returns (a)'s grid launches
+    by mask: {"unmasked": {kernel: n}, "causal": {kernel: n}}."""
+    import numpy as np
+
+    from galvatron_tpu_torch.core.optim import AdamConfig, tree_leaves
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.ops import flash_attention as fa
+    from galvatron_tpu_torch.parallel.hybrid import build_runtime
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    out = {}
+    rng = np.random.RandomState(23)
+
+    def rows(cfg, n):
+        return torch.from_numpy(rng.randint(0, cfg.vocab_size, (n, cfg.sample_len + 1)))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_encdec_") as tmpdir:
+        # (a) t5-large, 24 + 24 layers, 16 x (512 + 512), bf16, cli train
+        preset, bsz = ENCDEC_LARGE
+        t5 = modeling.PRESETS[preset]
+        E, D, h, s = t5.enc_layers, t5.num_layers, t5.num_heads, t5.max_seq_len
+        path = os.path.join(tmpdir, "train_metrics_t5.jsonl")
+        argv = ["--model_size", preset, "--global_train_batch_size", str(bsz),
+                "--train_iters", str(ENCDEC_STEPS), "--metrics_path", path]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reset_kernel_counts()  # the main path's counts start here
+        routes_before, paged_before = route_counts(), fa.paged_decode_attention.launches
+        check(_cli(["train", *argv])[0] == 0, "23 (a): cli train failed")
+        launches, modes = kernel_counts(), _grid_modes()  # read right after the main path
+        paged = fa.paged_decode_attention.launches - paged_before
+        seconds = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        recs = [r for r in read_metrics(path) if r["event"] == "train_iter"]
+        losses = [r["loss"] for r in recs]
+        check(len(recs) == ENCDEC_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"23 (a): losses {losses}")
+        n = ENCDEC_STEPS
+        by_mask = {m: {k: modes[k].get(f"{bsz},{h},{s},{m}", 0) for k in _GRID_KERNELS}
+                   for m in ("unmasked", "causal")}
+        want = {"unmasked": {k: E * n for k in _GRID_KERNELS},
+                "causal": {k: D * n for k in _GRID_KERNELS}}
+        check(by_mask == want, f"23 (a): grid launches by mask {by_mask}, expected {want}")
+        # nothing else: no blocked kernel, no other shape (cross-attention is
+        # einsum), no norm kernel, no paged decode
+        check(launches == {k: (E + D) * n if k in _GRID_KERNELS else 0 for k in launches}
+              and all(sum(m.values()) == (E + D) * n for m in modes.values()) and paged == 0,
+              f"23 (a): launches {launches}, shapes {modes}, paged_decode {paged}")
+        routes = _routes_since(routes_before)
+        check(_all_tma(launches, routes), f"23 (a): routes {routes}")
+        steady = recs[1:]
+        iter_ms = sum(r["iter_ms"] for r in steady) / len(steady)
+        out["a_t5_large"] = {
+            "card": smi, "argv": argv[:-2], "steps": n, "losses": losses,
+            "iter_ms_mean_from_2": iter_ms, "iter_ms": [r["iter_ms"] for r in recs],
+            "decoder_tokens_per_s": bsz * s / (iter_ms / 1e3),
+            "tokens_per_s_enc_plus_dec": sum(r["tokens_per_s"] for r in steady) / len(steady),
+            "mfu": sum(r["mfu"] for r in steady) / len(steady),
+            "max_memory_allocated_gb": peak_gb, "grid_launches_by_mask": by_mask,
+            "routes": {k: routes[k] for k in _GRID_KERNELS}, "paged_decode": paged,
+            "seconds": seconds}
+        log("phase 23 (a) t5-large:", json.dumps(out["a_t5_large"]))
+        # (b) t5-large width, 2 + 2 layers, fp32: card against CPU
+        fp = ENCDEC_FP32
+        cfg = t5.replace(num_layers=fp["layers"], enc_layers=fp["layers"], dtype=torch.float32,
+                         attn_impl="flash")
+        out["b_t5_large_fp32"] = _card_against_cpu(torch, cfg, rows(cfg, fp["batch"]),
+                                                    "(b) t5-large", True, "23", ENCDEC_TOLS)
+        # (c) t5-3b, 2 + 2 layers: head_dim 32 on the CUDA-core kernels
+        preset3, b3 = ENCDEC_3B
+        cfg = modeling.PRESETS[preset3].replace(num_layers=fp["layers"], enc_layers=fp["layers"],
+                                                dtype=torch.float32, attn_impl="flash")
+        check(cfg.head_dim == 32, f"{preset3}: head_dim {cfg.head_dim}")
+        out["c_t5_3b_fp32"] = _card_against_cpu(torch, cfg, rows(cfg, fp["batch"]),
+                                                 "(c) t5-3b", True, "23", ENCDEC_TOLS)
+        bcfg = cfg.replace(dtype=torch.bfloat16)
+        params = modeling.init_model_params(bcfg, 0, "cuda")
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        before, routes_before = kernel_counts(), route_counts()
+        loss = modeling.lm_loss(params, rows(bcfg, b3).cuda(), bcfg)
+        loss.backward()
+        got, routes = _delta(kernel_counts(), before), _routes_since(routes_before)
+        layers3 = bcfg.total_layers
+        out["c_t5_3b_bf16"] = {"batch": b3, "loss": float(loss), "launches": {
+            k: got[k] for k in _GRID_KERNELS}, "routes": {k: routes[k] for k in _GRID_KERNELS}}
+        log("phase 23 (c) t5-3b bf16 step:", json.dumps(out["c_t5_3b_bf16"]))
+        check(np.isfinite(float(loss)), "23 (c): bf16 loss")
+        check(all(got[k] == layers3 and routes[k] == {"cuda_core": layers3, "tma": 0}
+                  for k in _GRID_KERNELS), f"23 (c) bf16 at head_dim 32: {got}, {routes}")
+        del params, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["d_pipeline"] = _encdec_pipeline(torch, smi, tmpdir)
+        out["e_search"] = _encdec_search(torch, smi, tmpdir)
+    # (f) the reference's refusals: serving, generation, context parallelism
+    for mode, msg in ENCODER_REFUSALS.items():
+        try:
+            rc = _cli([mode, "--model_size", "t5-base"])[0]
+            said = None
+        except ValueError as e:
+            rc, said = None, str(e)
+        check(said == msg, f"23 (f): cli {mode} of t5-base returned {rc}, said {said!r}")
+    try:
+        build_runtime(modeling.PRESETS["t5-base"], HybridParallelConfig.uniform(
+            24, cp=2, mixed_precision="bf16"), AdamConfig(), global_batch_size=8, seq_len=512)
+        said = None
+    except ValueError as e:
+        said = str(e)
+    check(said == ENCDEC_CP_REFUSAL, f"23 (f): cp = 2 on t5-base said {said!r}")
+    out["f_refusals"] = dict(ENCODER_REFUSALS, cp=ENCDEC_CP_REFUSAL)
+    log("phase 23 (f) serve / generate / cp = 2 of t5-base refused:",
+        json.dumps(out["f_refusals"]))
+    RESULTS["encdec"] = out
+    return by_mask
+
+
+def _encdec_pipeline(torch, smi, tmpdir):
+    """23 (d): t5-large width at 4 + 4 layers, fp32, pp = 2 on two gloo
+    ranks sharing the card, GPipe then 1F1B in ONE pair of rank processes,
+    each against world size 1 in this process (losses within
+    ``ENCDEC_PIPE_RTOL`` relative; the first run's parameters within
+    AdamW's band)."""
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+
+    c = ENCDEC_PIPE
+    total = 2 * c["layers"]
+
+    def argv(plan):
+        return [*_t5_shape("t5-large", c["layers"]), "--global_train_batch_size",
+                str(c["batch"]), "--train_iters", str(c["steps"]),
+                "--galvatron_config_path", plan]
+
+    plan1 = os.path.join(tmpdir, "encdec_w1.json")
+    HybridParallelConfig.uniform(total, chunks=c["chunks"], mixed_precision="fp32").save(plan1)
+    t0 = time.perf_counter()
+    ref = trainer.train(initialize_galvatron("train", argv(plan1)))
+    ref_path = os.path.join(tmpdir, "encdec_ref_params.pt")
+    torch.save(_to(ref["state"]["params"], "cpu"), ref_path)
+    ref_losses = ref["losses"]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    plans = []
+    for ptype in ("gpipe", "pipedream_flush"):
+        plans.append(os.path.join(tmpdir, f"encdec_pp2_{ptype}.json"))
+        HybridParallelConfig.uniform(total, pp=2, chunks=c["chunks"], pipeline_type=ptype,
+                                     mixed_precision="fp32").save(plans[-1])
+    outdir = os.path.join(tmpdir, "encdec_pipe")
+    runs = _launch_rank_runs([argv(p) for p in plans], outdir, "gloo", (0, 0),
+                             ("--ref-params", ref_path))
+    os.remove(ref_path)
+    res = {"card": smi, "layers": f"{c['layers']} + {c['layers']}", "batch": c["batch"],
+           "chunks": c["chunks"], "steps": c["steps"], "world1_losses": ref_losses,
+           "rtol": ENCDEC_PIPE_RTOL, "runs": {}}
+    band = 2 * c["steps"] * 1e-4  # AdamW's band at cli train's lr, as phase 13 (a)
+    for ptype, ranks in zip(("GPipe", "1F1B"), runs):
+        losses = ranks[0]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        check(all(r["losses"] == losses for r in ranks), f"23 (d) {ptype}: ranks disagree")
+        check(rel <= ENCDEC_PIPE_RTOL, f"23 (d) {ptype}: losses {losses} vs world size 1 "
+              f"{ref_losses}")
+        check(sorted(r["stage"] for r in ranks) == [0, 1], f"23 (d) {ptype}: stages")
+        entry = {"losses": losses, "max_rel_loss_diff": rel,
+                 "in_flight": [r["stats"].get("in_flight") for r in ranks],
+                 "stage_layers": [r["stage_layers"] for r in ranks],
+                 "iter_times": ranks[0]["iter_times"]}
+        if "param_max_abs_diff" in ranks[0]:
+            entry["param_max_abs_diff"] = max(r["param_max_abs_diff"] for r in ranks)
+            check(entry["param_max_abs_diff"] <= band,
+                  f"23 (d) {ptype}: parameters {entry['param_max_abs_diff']} from world size 1")
+        res["runs"][ptype] = entry
+    res["seconds"] = time.perf_counter() - t0
+    log("phase 23 (d) t5-large width pp = 2:", json.dumps(res))
+    return res
+
+
+def _encdec_search(torch, smi, tmpdir):
+    """23 (e): ``cli profile`` (two layer types), ``cli search`` for one
+    device under a budget, ``cli check-plan --strict 1`` and ``cli train``
+    of the plan, t5-large width at 4 + 4 layers."""
+    import numpy as np
+
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    s = ENCDEC_SEARCH
+    prefix = os.path.join(tmpdir, "profile_t5-large")
+    shape = _t5_shape("t5-large", s["layers"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc, _ = _cli(["profile", *shape, "--profile_batch_size", str(s["batch"]),
+                  "--output_prefix", prefix])
+    check(rc == 0, f"23 (e): cli profile returned {rc}")
+    with open(prefix + "_computation.json") as f:
+        comp = json.load(f)
+    plan = os.path.join(tmpdir, "plan_t5-large.json")
+    rc, _ = _cli(["search", *shape, "--num_devices", "1", "--settle_bsz", str(s["batch"]),
+                  "--memory_constraint_gb", str(s["budget_gb"]),
+                  "--time_profile_path", prefix + "_computation.json",
+                  "--memory_profile_path", prefix + "_memory.json",
+                  "--output_config_path", plan])
+    check(rc == 0, f"23 (e): cli search returned {rc}")
+    rc, _ = _cli(["check-plan", plan, "--strict", "1"])
+    check(rc == 0, f"23 (e): check-plan --strict 1 returned {rc}")
+    hp = HybridParallelConfig.load(plan)
+    path = os.path.join(tmpdir, "train_metrics_encdec_search.jsonl")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_kernel_counts()  # the main path's counts start here
+    before = route_counts()
+    rc, _ = _cli(["train", *shape, "--global_train_batch_size", str(s["batch"]),
+                  "--train_iters", str(s["steps"]), "--galvatron_config_path", plan,
+                  "--metrics_path", path])
+    got = kernel_counts()
+    check(rc == 0, f"23 (e): cli train of the searched plan returned {rc}")
+    losses = [x["loss"] for x in read_metrics(path) if x["event"] == "train_iter"]
+    check(len(losses) == s["steps"] and all(np.isfinite(losses)), f"23 (e): {losses}")
+    extra = sum(1 for x in hp.layer_strategies if x.ckpt in ("full", "selective"))
+    n = s["steps"] * hp.chunks
+    want = {"flash_grid_fwd": (hp.num_layers + extra) * n,
+            "flash_grid_dkdv": hp.num_layers * n, "flash_grid_dq": hp.num_layers * n}
+    check({k: got[k] for k in want} == want, f"23 (e): launches {got}, expected {want}")
+    check(_all_tma({k: got[k] for k in want}, {k: _routes_since(before)[k] for k in want}),
+          f"23 (e): routes {_routes_since(before)}")
+    with open(plan) as f:
+        d = json.load(f)
+    types = {"encoder": comp["layertype_0"], "decoder": comp[f"layertype_{s['layers']}"]}
+    check(types["encoder"] != types["decoder"], f"23 (e): one layer type {types}")
+    res = {"card": smi, "profile_fwd_ms_per_sample": types, "plan": {k: d[k] for k in (
+            "pp_deg", "tp_sizes_enc", "dp_types_enc", "checkpoint", "chunks", "vocab_tp")
+            if k in d}, "search_cost_ms": d.get("search_cost_ms"), "losses": losses,
+        "launches": want, "seconds": time.perf_counter() - t0}
+    log("phase 23 (e) t5-large width profiled, searched, checked, trained:", json.dumps(res))
+    return res
+
+
 def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) -> int:
     """One rank of phases 12-13, 17 and 18: ``cli train``'s own call
     (``trainer.train`` of the parsed flags), with the blocked flash
@@ -5523,7 +5833,7 @@ def _rank_run(outdir, argv, heads, ref_params=None, control=None, profile_moe=Fa
 #: the phases by name, for ``--phases``; a full run takes them all
 PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train", "hybrid",
           "pipeline", "nccl", "search", "services", "slots", "cp", "moe", "packed", "overlap",
-          "hf", "encoder")
+          "hf", "encoder", "encdec")
 
 
 def main() -> int:
@@ -5719,6 +6029,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches["encoder"] = phase_encoder(torch, smi)
         mark("22 encoder")
+    if "encdec" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["encdec"] = phase_encdec(torch, smi)
+        mark("23 encdec")
     if {"packed", "overlap"} & set(phases):
         RESULTS["packed_overlap_launches"] = {k: launches[k] for k in ("packed", "overlap")
                                               if k in launches}
@@ -5733,6 +6048,8 @@ def main() -> int:
     gpt_paged_line = lines["paged"]["paged_decode gpt"]
     grid_line, norm_lines = lines["grid"]["grid gpt"], lines["norm"]
     enc_line = lines["grid"]["grid encoder s512 d64"]
+    t5_lines = {"unmasked": lines["grid"]["grid t5 s512 d64"],
+                "causal": lines["grid"]["grid t5 causal s512 d64"]}
     flash_line, fp16_line = lines["flash"]["flash main"], lines["flash"]["flash main fp16"]
     src = "galvatron_tpu_torch/ops/csrc/"
     replaces = "galvatron_tpu/ops/flash_attention.py:"
@@ -5848,6 +6165,26 @@ def main() -> int:
                "dkdv", "bwd_library_ms"),
               ("flash_grid_dq_encoder", "flash_grid_bwd.cu", "792", "flash_grid_dq",
                enc_line["bwd_max_abs_err_dq_dk_dv"][0], "dq_ms", "bwd_plain_ms", "dq",
+               "bwd_library_ms"))],
+        # the same three kernels on T5's path (phase 3's "grid t5" cases:
+        # 23 (a)'s t5-large shape and batch in the stacked view), the
+        # encoder's unmasked and the decoder's causal, with their launches
+        # by mask on phase 23 (a)'s path
+        *[{"name": name + suffix, "route": "cuda", "source": src + source,
+           "replaces": replaces + line_no, "launches": launches["encdec"][mask][name],
+           "max_abs_err": err(t5_lines[mask]), "ms": t5_lines[mask][ms],
+           "plain_ms": t5_lines[mask][plain], "bound_ms": t5_lines[mask][bound + "_bound_ms"],
+           "bound_by": t5_lines[mask][bound + "_bound_by"],
+           "library_ms": t5_lines[mask][library]}
+          for mask, suffix in (("unmasked", "_encdec"), ("causal", "_encdec_causal"))
+          for name, source, line_no, err, ms, plain, bound, library in (
+              ("flash_grid_fwd", "flash_grid_fwd.cu", "123", lambda x: x["fwd_max_abs_err"],
+               "fwd_ms", "fwd_plain_ms", "fwd", "fwd_library_ms"),
+              ("flash_grid_dkdv", "flash_grid_bwd.cu", "724",
+               lambda x: max(x["bwd_max_abs_err_dq_dk_dv"][1:]), "dkdv_ms", "bwd_plain_ms",
+               "dkdv", "bwd_library_ms"),
+              ("flash_grid_dq", "flash_grid_bwd.cu", "792",
+               lambda x: x["bwd_max_abs_err_dq_dk_dv"][0], "dq_ms", "bwd_plain_ms", "dq",
                "bwd_library_ms"))],
         norm_entry("rms_fwd", "64", "rms main", "llama_fused", "fwd"),
         norm_entry("rms_bwd", "72", "rms main", "llama_fused", "bwd"),

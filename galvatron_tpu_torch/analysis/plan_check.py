@@ -973,7 +973,7 @@ def _abstract_sharding_pass(
     import torch
 
     from galvatron_tpu_torch.models import modeling
-    from galvatron_tpu_torch.parallel import hybrid
+    from galvatron_tpu_torch.parallel import hybrid, pipeline
     from galvatron_tpu_torch.parallel.mesh import RankMesh
     from galvatron_tpu_torch.parallel.sharding import local_shape, shard
 
@@ -1026,14 +1026,19 @@ def _abstract_sharding_pass(
                             WARN,
                         )
 
+    enc = cfg.enc_layers
     seen_strategies = set()
     for i, s in enumerate(hp.layer_strategies):
-        if s in seen_strategies:  # one pass per distinct strategy (equal shapes)
+        # one pass per distinct (strategy, layer kind): an encoder-decoder's
+        # decoder layers carry cross-attention
+        key = (s, enc and i < enc)
+        if key in seen_strategies:
             continue
-        seen_strategies.add(s)
-        check_tree(plans["layers"][i], s, f"layers[{i}]")
+        seen_strategies.add(key)
+        label = f"enc_layers[{i}]" if i < enc else f"layers[{i - enc}]"
+        check_tree(pipeline.layer_of(plans, i), s, label)
     vocab_s = hybrid.embed_strategy(hp)
-    for top in ("embed", "head", "final_norm"):
+    for top in ("embed", "head", "final_norm", "enc_final_norm"):
         if top in plans:
             check_tree(plans[top], vocab_s, f"{top}/")
 

@@ -16,7 +16,12 @@ the embeddings and the projection biases are cast to the compute dtype once
 ``shard_params`` cuts a full tree (numpy) into one rank's pieces under a
 hybrid plan, pipelines included (the layout ``parallel/hybrid.py``
 trains), and ``gather_params`` puts every rank's pieces back into one tree,
-to compare a multi-rank run with the JAX parameters.
+to compare a multi-rank run with the JAX parameters. A T5 tree has the
+encoder's layers and final norm (``enc_layers``, ``enc_final_norm``) and
+each decoder layer's cross-attention (``cross_norm``, ``cross.{wq, wkv,
+wo}``); a TP rank's piece of the fused ``wkv`` is its own heads' k columns
+followed by their v columns (``modeling.tp_pairs``), not one contiguous
+column block, and ``gather_params`` undoes that cut.
 
 ``state_from_jax`` and ``state_to_jax`` carry the whole train state (params,
 Adam ``mu`` / ``nu`` / ``count``, ``step`` and the fp16 scaler) between the
@@ -75,7 +80,7 @@ def _held(tree, cfg: ModelConfig, hp, stage: int):
     """The part of a full tree that a pipeline stage holds."""
     from galvatron_tpu_torch.parallel import pipeline
 
-    return pipeline.held_tree(tree, pipeline.device_layers(cfg.num_layers, hp, stage),
+    return pipeline.held_tree(tree, pipeline.device_layers(cfg, hp, stage),
                               stage == 0, stage == hp.pp - 1,
                               cfg.tie_word_embeddings and hp.pp > 1)
 
@@ -107,12 +112,15 @@ def gather_params(rank_trees: Sequence[Params], cfg: ModelConfig, hp, world: int
         raise ValueError(f"{len(rank_trees)} rank trees for a world of {world}")
     stage_mesh = RankMesh(mesh.per_stage)
     full: dict = {"layers": [None] * cfg.num_layers}
+    if cfg.enc_layers > 0:
+        full["enc_layers"] = [None] * cfg.enc_layers
     for stage in range(hp.pp):
         part = hybrid.zip_map(
             lambda lp, *pieces: unshard(pieces[:-1], lp.layout, lp.shape, stage_mesh, lp.pairs),
             _held(plans, cfg, hp, stage), *[rank_trees[r] for r in mesh.stage_ranks(stage)])
-        for n, i in enumerate(pipeline.device_layers(cfg.num_layers, hp, stage)):
-            full["layers"][i] = part["layers"][n]
+        ids = pipeline.device_layers(cfg, hp, stage)
+        for i, (key, n) in pipeline.local_index(ids, cfg.enc_layers).items():
+            full[key][i - (cfg.enc_layers if key == "layers" else 0)] = part[key][n]
         for key in part:
             full.setdefault(key, part[key])
     return full

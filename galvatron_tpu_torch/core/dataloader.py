@@ -97,13 +97,16 @@ def build_dataloader(cfg, global_batch_size: int, seq_len: Optional[int] = None,
     """``data_path`` selects the real-corpus path: a ``write_indexed_dataset``
     prefix is loaded memory-mapped and sampled GPT-window style
     (``core/data.py``); otherwise the synthetic random-token stream, or for
-    a vision model (``image_size``) the synthetic image stream."""
+    a vision model (``image_size``) the synthetic image stream. An
+    encoder-decoder's rows are its encoder tokens ‖ the decoder's
+    ``seq_len`` + 1 (the reference's ``sample_len`` + 1)."""
     if getattr(cfg, "image_size", 0):
         if data_path:
             raise ValueError("indexed token corpora do not apply to vision models")
         ds = RandomImageDataset(cfg.sample_len, cfg.num_classes, size, seed)
         return ds.batch_iterator(global_batch_size, start_batch=start_batch)
-    seq_len = seq_len or cfg.max_seq_len
+    seq_len = (seq_len or cfg.max_seq_len) + (cfg.enc_seq if getattr(cfg, "enc_layers", 0)
+                                               else 0)
     if data_path:
         from galvatron_tpu_torch.core.data import GPTWindowDataset, IndexedTokenDataset
 

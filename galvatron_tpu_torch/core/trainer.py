@@ -131,7 +131,7 @@ def _check_plan(ns: argparse.Namespace, cfg: ModelConfig, world: int, verbose: b
             ns.galvatron_config_path, model_config=cfg, world_size=world,
             global_bsz=ns.global_train_batch_size,
             context=f"refusing to start: {ns.galvatron_config_path}", verbose=verbose)
-    hp = hybrid_config_from_args(ns, cfg.num_layers, world)
+    hp = hybrid_config_from_args(ns, cfg.total_layers, world)
     if not ns.galvatron_config_path:
         plan_check.ensure_valid(
             hp, model_config=cfg, world_size=world, global_bsz=ns.global_train_batch_size,
@@ -290,8 +290,10 @@ def _train(ns: argparse.Namespace, cfg: Optional[ModelConfig], device: torch.dev
         strategies = sorted({form_strategy(s, rt.pp, rt.world // (rt.pp * s.tp))
                              for s in hp.layer_strategies})
         name = f"hf:{ns.load_hf}" if getattr(ns, "load_hf", None) else ns.model_size
-        print(f"train: {name} layers={c.num_layers} hidden={c.hidden_size} "
-              f"heads={c.num_heads} seq={seq} batch={bsz} chunks={rt.chunks} "
+        # an encoder-decoder: encoder + decoder layers, over enc_seq + seq
+        enc = (lambda n: f"{n}+") if c.enc_layers else (lambda n: "")
+        print(f"train: {name} layers={enc(c.enc_layers)}{c.num_layers} hidden={c.hidden_size} "
+              f"heads={c.num_heads} seq={enc(c.enc_seq)}{seq} batch={bsz} chunks={rt.chunks} "
               f"dtype={str(c.dtype).replace('torch.', '')} attn={c.attn_impl} "
               f"ckpt={rt.ckpt} mlp_recompute={c.mlp_recompute} fused_norm={c.fused_norm} "
               f"packed={c.pack_sequences} "

@@ -200,6 +200,9 @@ def build_data_pipeline(
             "--pack_sequences requires a decoder-only CLM model (segment "
             "masking and per-segment positions are defined for causal LM rows)"
         )
+    if getattr(cfg, "enc_layers", 0):
+        # an encoder-decoder's windows: encoder tokens ‖ decoder stream
+        seq_len = cfg.enc_seq + seq_len
     if not data_path and not mixture:
         raise ValueError(
             "the data pipeline needs --data_path or --data_mixture (synthetic "

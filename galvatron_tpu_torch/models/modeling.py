@@ -8,7 +8,10 @@ embeddings), each with dense or switch-MoE MLPs (``models/moe.py``), and the
 bidirectional encoders BERT (the GPT layer with ``causal=False`` and the
 masked-LM objective 'mlm': deterministic hash masking, :func:`mlm_positions`)
 and ViT (the same layer over patch embeddings, a mean-pooled class head and
-the 'cls' objective on pixel ‖ label rows). ALiBi
+the 'cls' objective on pixel ‖ label rows), and the T5-class
+encoder-decoder (``enc_layers`` > 0: a bidirectional encoder stack, its
+final norm, then decoder layers with cross-attention over that output;
+rows of encoder tokens ‖ decoder stream, :func:`forward_encdec`). ALiBi
 adds ``slope · (k − q)`` per head to the scores and always takes the einsum
 attention, as in the reference (its flash kernels carry no bias). The
 fused QKV projection in both stored layouts (blocked ``(h, 3, n·hd)`` for
@@ -83,10 +86,13 @@ class ModelConfig:
     mlm_mask_rate: float = 0.15
     # the shape fields of the reference's other families, with its
     # decoder-only defaults: the search, the cost model and the plan checker
-    # read them (``analysis/plan_check.MODEL_SHAPE_FIELDS``). Encoder-decoder
-    # models and Swin's stages do not run: a non-default value raises in
-    # :func:`check_supported` (ROADMAP.md §1.10).
-    enc_layers: int = 0  # encoder layers of an encoder-decoder model
+    # read them (``analysis/plan_check.MODEL_SHAPE_FIELDS``). Swin's stages
+    # do not run: a non-default value raises in :func:`check_supported`
+    # (ROADMAP.md §1.10).
+    # encoder-decoder (T5): enc_layers > 0 encoder layers over enc_seq
+    # tokens; a sample row is [encoder tokens (enc_seq) ‖ decoder stream
+    # (max_seq_len + 1)], the loss next-token over the decoder stream
+    enc_layers: int = 0
     enc_seq: int = 0
     # vision (ViT): image_size > 0 makes a sample a row of image_size² ·
     # num_channels pixel values (0..255, int) ‖ one class label, embedded by
@@ -178,8 +184,6 @@ _PORTED = (
     ("norm_type", ("rms", "layernorm"), "other norms"),
     ("act_fn", ("swiglu", "gelu", "relu"), "other MLP activations"),
     ("objective", ("clm", "mlm", "cls"), "other objectives"),
-    ("enc_layers", (0,), "encoder-decoder models (T5)"),
-    ("enc_seq", (0,), "encoder-decoder models (T5)"),
     ("swin_depths", ((),), "Swin models"),
     ("swin_window", (7,), "Swin models"),
 )
@@ -189,15 +193,17 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a family the port does not run yet
     (ROADMAP.md §1.10): training runs the LLaMA, Baichuan and GPT/OPT
     decoders (rope, learned or ALiBi positions, rms or layernorm, swiglu /
-    gelu / relu, biases, tied heads, switch-MoE MLPs) and the BERT and ViT
-    encoders ('mlm', 'cls'); serving and generation refuse the encoders
-    themselves (``generation.check_generative``)."""
+    gelu / relu, biases, tied heads, switch-MoE MLPs), the BERT and ViT
+    encoders ('mlm', 'cls') and the T5 encoder-decoder; serving and
+    generation refuse the encoders and T5 themselves
+    (``generation.check_generative``)."""
     for field, ported, what in _PORTED:
         if getattr(cfg, field) not in ported:
             raise NotImplementedError(
                 f"{field}={getattr(cfg, field)!r} ({what}) is not ported yet: "
                 "ROADMAP.md §1.10 'Other model families'; the port runs LLaMA, "
-                "Baichuan and GPT/OPT decoders and BERT and ViT encoders"
+                "Baichuan and GPT/OPT decoders, BERT and ViT encoders and the T5 "
+                "encoder-decoder"
             )
     if cfg.use_bias and not cfg.qkv_blocked:
         raise ValueError("use_bias needs the blocked qkv layout (no GQA)")
@@ -263,10 +269,12 @@ def init_model_params(cfg: ModelConfig, seed: int, device) -> Params:
     else:
         params = {"embed": {"tok": normal(cfg.vocab_size, h)}, "layers": []}
         if cfg.pos_embed == "learned":
-            params["embed"]["pos"] = normal(cfg.max_seq_len, h)
+            # one table for both streams of an encoder-decoder
+            params["embed"]["pos"] = normal(max(cfg.max_seq_len, cfg.enc_seq), h)
     kv, group = qkv_dims(cfg)
     up = _up_name(cfg)
-    for _ in range(cfg.num_layers):
+
+    def layer(cross: bool):
         wqkv = dense(h, kv * group)
         if cfg.qkv_blocked:
             wqkv = wqkv.reshape(h, 3, cfg.num_heads * hd)
@@ -282,8 +290,18 @@ def init_model_params(cfg: ModelConfig, seed: int, device) -> Params:
             if cfg.use_bias:
                 mlp[up + "_b"] = zeros(width)
                 mlp["w2_b"] = zeros(h)
-        params["layers"].append({"attn_norm": norm_params(), "attn": attn,
-                                 "mlp_norm": norm_params(), "mlp": mlp})
+        p = {"attn_norm": norm_params(), "attn": attn, "mlp_norm": norm_params(), "mlp": mlp}
+        if cross:  # a decoder layer of an encoder-decoder: [k | v] fused
+            p["cross_norm"] = norm_params()
+            p["cross"] = {"wq": dense(h, cfg.num_heads * hd),
+                          "wkv": dense(h, 2 * cfg.kv_heads * hd),
+                          "wo": dense(cfg.num_heads * hd, h)}
+        return p
+
+    if cfg.enc_layers > 0:
+        params["enc_layers"] = [layer(False) for _ in range(cfg.enc_layers)]
+        params["enc_final_norm"] = norm_params()
+    params["layers"] = [layer(cfg.enc_layers > 0) for _ in range(cfg.num_layers)]
     params["final_norm"] = norm_params()
     if cfg.image_size:
         params["head"] = {"w": dense(h, cfg.num_classes)}
@@ -313,11 +331,14 @@ def cast_params(params: Params, cfg: ModelConfig) -> Params:
     return params
 
 
-def layer_annotations(cfg: ModelConfig) -> Params:
+def layer_annotations(cfg: ModelConfig, cross: bool = False) -> Params:
     """Logical axes per layer parameter (the reference's): 'tp' = the
     Megatron-sharded dim (column-parallel output / row-parallel input),
     'fsdp' = the dim ZeRO shards, 'ep' = an MoE layer's expert dim
-    (``parallel/sharding.py``)."""
+    (``parallel/sharding.py``). ``cross``: an encoder-decoder's decoder
+    layer, whose cross-attention ``wq`` / ``wkv`` are column-parallel and
+    ``wo`` row-parallel (``wkv``'s TP shard holds its heads' k AND v
+    columns: :func:`tp_pairs`)."""
     a: Params = {
         "attn_norm": {"scale": ("fsdp",)},
         "attn": {
@@ -340,9 +361,12 @@ def layer_annotations(cfg: ModelConfig) -> Params:
         if cfg.use_bias:
             a["mlp"][up + "_b"] = ("tp",)
             a["mlp"]["w2_b"] = ("fsdp",)
+    if cross:
+        a["cross_norm"] = {"scale": ("fsdp",)}
+        a["cross"] = {"wq": ("fsdp", "tp"), "wkv": ("fsdp", "tp"), "wo": ("tp", "fsdp")}
     if cfg.norm_type == "layernorm":
-        a["attn_norm"]["bias"] = ("fsdp",)
-        a["mlp_norm"]["bias"] = ("fsdp",)
+        for name in ("attn_norm", "mlp_norm") + (("cross_norm",) if cross else ()):
+            a[name]["bias"] = ("fsdp",)
     return a
 
 
@@ -357,13 +381,18 @@ def model_annotations(cfg: ModelConfig) -> Params:
         embed = {"tok": ("tp", "fsdp")}
         if cfg.pos_embed == "learned":
             embed["pos"] = ("fsdp", None)
+    cross = cfg.enc_layers > 0
     a: Params = {
         "embed": embed,
-        "layers": [layer_annotations(cfg) for _ in range(cfg.num_layers)],
+        "layers": [layer_annotations(cfg, cross) for _ in range(cfg.num_layers)],
         "final_norm": {"scale": ("fsdp",)},
     }
-    if cfg.norm_type == "layernorm":
-        a["final_norm"]["bias"] = ("fsdp",)
+    if cross:
+        a["enc_layers"] = [layer_annotations(cfg) for _ in range(cfg.enc_layers)]
+        a["enc_final_norm"] = {"scale": ("fsdp",)}
+    for name in ("final_norm", "enc_final_norm"):
+        if cfg.norm_type == "layernorm" and name in a:
+            a[name]["bias"] = ("fsdp",)
     if cfg.image_size or not cfg.tie_word_embeddings:
         a["head"] = {"w": ("fsdp", "tp")}
     return a
@@ -371,8 +400,11 @@ def model_annotations(cfg: ModelConfig) -> Params:
 
 def tp_pairs(name: str, cfg: ModelConfig) -> int:
     """Stacked projections on a parameter's 'tp' dim: 2 for SwiGLU's fused
-    ``[w1 | w3]`` (and its bias), whose TP shards hold matching columns of
-    both, else 1."""
+    ``[w1 | w3]`` (and its bias) and for cross-attention's fused ``[k | v]``
+    (``wkv``), whose TP shards hold matching columns of both (a rank's own
+    heads' k and v), else 1."""
+    if name == "wkv":
+        return 2
     return 2 if cfg.act_fn == "swiglu" and name in ("w13", "w13_b") else 1
 
 
@@ -956,17 +988,55 @@ def attn_block(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False, s
 
 
 def decoder_layer(x, p, cfg: ModelConfig, cos_sin=None, remat_attn: bool = False, tp=None,
-                  seg_ids=None, alibi=None):
+                  seg_ids=None, alibi=None, enc_out=None):
     """One layer. ``tp`` (a ``parallel.comm.TPRegion`` of more than one
     rank) runs it tensor-parallel on this rank's shards: see
     :func:`_decoder_layer_tp`. ``seg_ids`` ((B, S) over the whole sequence:
     packed rows) masks the attention per segment. ``alibi``: the (n,) fp32
-    slopes of every head (:func:`alibi_tensor`) of an ALiBi model."""
+    slopes of every head (:func:`alibi_tensor`) of an ALiBi model.
+    ``enc_out`` (an encoder-decoder's decoder layer, which holds ``cross``):
+    the normed encoder output its cross-attention reads, after the
+    self-attention and before the MLP (the reference's order)."""
     if tp is not None and tp.size > 1:
-        return _decoder_layer_tp(x, p, cfg, cos_sin, remat_attn, tp, seg_ids, alibi)
+        return _decoder_layer_tp(x, p, cfg, cos_sin, remat_attn, tp, seg_ids, alibi, enc_out)
     x = x + attn_block(norm(x, p["attn_norm"], cfg), p["attn"], cfg, cos_sin,
                        remat_attn=remat_attn, seg_ids=seg_ids, alibi=alibi)
+    if enc_out is not None and "cross" in p:
+        x = x + cross_attn_block(norm(x, p["cross_norm"], cfg), enc_out, p["cross"], cfg)
     return mlp_residual(x, p, cfg)
+
+
+def encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """An encoder-decoder's encoder layers: the same layer, bidirectional
+    (the reference's ``encoder_layer``)."""
+    return cfg.replace(causal=False) if cfg.causal else cfg
+
+
+def cross_attn_block(x, enc_out, p, cfg: ModelConfig, tp=None):
+    """Cross-attention (the reference's ``cross_attn_block``): queries from
+    the decoder stream x (B, s, h), keys and values from the encoder output
+    (B, se, h) through the fused ``[k | v]`` GEMM, unmasked over every
+    encoder position, no rotary; always the einsum attention, as in the
+    reference. With ``tp`` (more than one rank) this rank's heads: x and
+    enc_out enter the region (the whole sequences: under SP both arrive as
+    sequence shards and are gathered), ``wq`` / ``wkv`` are this rank's
+    column shards (``wkv`` its heads' k columns, then their v columns) and
+    ``wo``'s row shard is reduced on the way out. enc_out's gradient from
+    every TP rank is then summed by the region's backward."""
+    if tp is not None and tp.size > 1:
+        cfg = tp_local_config(cfg, tp.size)
+        x, enc_out = tp.enter(x), tp.enter(enc_out)
+    b, s = x.shape[:2]
+    hd = cfg.head_dim
+    kv_out = cfg.kv_heads * hd
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.num_heads, hd)
+    kvp = enc_out.to(x.dtype) @ p["wkv"].to(x.dtype)
+    se = kvp.shape[1]
+    k = kvp[..., :kv_out].reshape(b, se, cfg.kv_heads, hd)
+    v = kvp[..., kv_out:].reshape(b, se, cfg.kv_heads, hd)
+    o = attention_xla(q, k, v, encoder_cfg(cfg), 0)
+    y = o.reshape(b, s, cfg.num_heads * hd) @ p["wo"].to(x.dtype)
+    return y if tp is None or tp.size == 1 else tp.exit(y)
 
 
 def _without(p, name):
@@ -974,7 +1044,7 @@ def _without(p, name):
 
 
 def _decoder_layer_tp(x, p, cfg: ModelConfig, cos_sin, remat_attn: bool, tp, seg_ids=None,
-                      alibi=None):
+                      alibi=None, enc_out=None):
     """Megatron's layer on one of ``tp.size`` ranks: the norm on this rank's
     activation (its sequence shard under SP), ``tp.enter`` (copy, or the
     sequence all-gather) before the column-parallel qkv / MLP-up GEMMs over
@@ -989,11 +1059,16 @@ def _decoder_layer_tp(x, p, cfg: ModelConfig, cos_sin, remat_attn: bool, tp, seg
     norm from the layer input, and here a collective stands between the
     two. An ALiBi layer's bias takes the slopes of this rank's heads
     (:func:`alibi_local`), over the whole sequence the TP region sees (under
-    SP ``tp.enter`` has gathered it)."""
+    SP ``tp.enter`` has gathered it). A decoder layer of an
+    encoder-decoder then runs its cross-attention on the plain seams
+    (:func:`cross_attn_block`; the reference's block has no collective
+    matmul either)."""
     local = tp_local_config(cfg, tp.size)
     h = _enter(norm(x, p["attn_norm"], cfg), tp)
     x = x + attn_block(h, p["attn"], local, cos_sin, remat_attn=remat_attn, seg_ids=seg_ids,
                        tp=tp, alibi=None if alibi is None else alibi_local(alibi, tp))
+    if enc_out is not None and "cross" in p:
+        x = x + cross_attn_block(norm(x, p["cross_norm"], cfg), enc_out, p["cross"], cfg, tp)
     return _mlp_residual_tp(x, p, cfg, tp)
 
 
@@ -1068,6 +1143,34 @@ def forward(params, tokens, cfg: ModelConfig, layer_hook=None):
         else:
             x = decoder_layer(x, lp, cfg, cos_sin, seg_ids=seg, alibi=alibi)
     return head(x, params, cfg)
+
+
+def forward_encdec(params, enc_tokens, dec_tokens, cfg: ModelConfig, layer_hook=None):
+    """Encoder-decoder forward → decoder logits (the reference's
+    ``forward_encdec``): the encoder tokens through the embedding and the
+    bidirectional encoder layers, ``enc_final_norm``, then the decoder
+    tokens through the embedding and the decoder layers, each
+    cross-attending to that normed output, the final norm and the head.
+    ``layer_hook(i, x, lp, enc_out=None)`` takes the encoder layers as
+    0..enc_layers-1 and the decoder layers as enc_layers.. (decoder hooks
+    get ``enc_out``)."""
+    e = enc_tokens.shape[1]
+    ecfg = encoder_cfg(cfg)
+    rope_e = rope_tables(cfg, e, enc_tokens.device) if cfg.pos_embed == "rope" else None
+    rope_d = (rope_tables(cfg, dec_tokens.shape[1], dec_tokens.device)
+              if cfg.pos_embed == "rope" else None)
+    x = embed(enc_tokens, params, cfg)
+    for i, lp in enumerate(params["enc_layers"]):
+        x = layer_hook(i, x, lp) if layer_hook is not None else decoder_layer(x, lp, ecfg,
+                                                                              rope_e)
+    enc_out = norm(x, params["enc_final_norm"], cfg)
+    y = embed(dec_tokens, params, cfg)
+    for j, lp in enumerate(params["layers"]):
+        if layer_hook is not None:
+            y = layer_hook(cfg.enc_layers + j, y, lp, enc_out=enc_out)
+        else:
+            y = decoder_layer(y, lp, cfg, rope_d, enc_out=enc_out)
+    return head(y, params, cfg)
 
 
 def head(x, params, cfg: ModelConfig, vocab=None):
@@ -1195,14 +1298,20 @@ def batch_row_width(cfg: ModelConfig, seq: int) -> int:
     segment ids, 2·(S+1) (``data/packing.py``); plain windows are S+1."""
     if cfg.image_size:
         return cfg.sample_len + 1
+    if cfg.enc_layers > 0:
+        return cfg.enc_seq + seq + 1
     return 2 * (seq + 1) if cfg.pack_sequences else seq + 1
 
 
-def layer_seq(cfg: ModelConfig, seq: Optional[int] = None) -> int:
+def layer_seq(cfg: ModelConfig, seq: Optional[int] = None, layer: Optional[int] = None) -> int:
     """The sequence a step's layers run over: a ViT's patches, whatever
-    ``seq`` says; else ``seq`` (the training length when None)."""
+    ``seq`` says; an encoder-decoder's encoder layers (``layer`` <
+    ``enc_layers``) its ``enc_seq``; else ``seq`` (the training length when
+    None: for an encoder-decoder, the decoder's)."""
     if cfg.image_size:
         return cfg.n_patches
+    if layer is not None and layer < cfg.enc_layers:
+        return cfg.enc_seq
     return seq or cfg.max_seq_len
 
 
@@ -1242,6 +1351,10 @@ def split_batch(batch, cfg: ModelConfig):
     loss."""
     if cfg.objective == "cls":
         return batch[:, :-1], batch[:, -1]
+    if cfg.enc_layers > 0:
+        # encoder tokens ‖ decoder stream: the inputs are the encoder tokens
+        # ‖ the decoder's inputs, the labels the decoder's next tokens
+        return batch[:, :-1], batch[:, cfg.enc_seq + 1:]
     if cfg.objective == "mlm":
         tokens = batch[:, :-1]
         mask = mlm_positions(tokens, cfg)
@@ -1259,7 +1372,9 @@ def split_batch(batch, cfg: ModelConfig):
 def loss_tokens_per_sample(cfg: ModelConfig, seq_len: int) -> int:
     """Static count of loss-carrying positions a sample (the fp16 seed's
     and the token counts' divisor): one for 'cls', the expected masked
-    share for 'mlm', the sequence for 'clm'."""
+    share for 'mlm', the sequence for 'clm' (an encoder-decoder's decoder
+    positions: ``seq_len`` is the decoder's here, where the reference
+    passes the whole row and subtracts ``enc_seq``)."""
     if cfg.objective == "cls":
         return 1
     if cfg.objective == "mlm":
@@ -1270,10 +1385,14 @@ def loss_tokens_per_sample(cfg: ModelConfig, seq_len: int) -> int:
 def lm_loss_sum(params, batch, cfg: ModelConfig, layer_hook=None):
     """(nll_sum, token_count) on a batch of :func:`batch_row_width` rows,
     per objective: 'clm' next-token (packed: (B, 2·(S+1))), 'mlm' the masked
-    positions, 'cls' one class a row (the count is then the rows)."""
+    positions, 'cls' one class a row (the count is then the rows); an
+    encoder-decoder next-token over the decoder stream of its rows."""
     inputs, labels = split_batch(batch, cfg)
     if cfg.objective == "cls":
         logits = forward_vision(params, inputs, cfg, layer_hook=layer_hook)
+    elif cfg.enc_layers > 0:
+        logits = forward_encdec(params, inputs[:, :cfg.enc_seq], inputs[:, cfg.enc_seq:], cfg,
+                                layer_hook=layer_hook)
     else:
         logits = forward(params, inputs, cfg, layer_hook=layer_hook)
     return cross_entropy_sum(logits, labels, remat=ce_remat(cfg))
@@ -1300,6 +1419,16 @@ def _vit(hidden_size, num_layers, num_heads, patch_size):
                        num_layers=num_layers, num_heads=num_heads, max_seq_len=0,
                        pos_embed="learned", norm_type="layernorm", act_fn="gelu",
                        causal=False, objective="cls", image_size=224, patch_size=patch_size)
+
+
+def _t5(hidden_size, layers, num_heads, ffn_dim):
+    """A T5 preset: ``layers`` encoder and ``layers`` decoder layers over
+    512 + 512 tokens, learned positions, RMSNorm, tanh-GELU, tied
+    embeddings, T5's 32128-token vocabulary."""
+    return ModelConfig(vocab_size=32128, hidden_size=hidden_size, num_layers=layers,
+                       num_heads=num_heads, ffn_dim=ffn_dim, max_seq_len=512,
+                       enc_layers=layers, enc_seq=512, pos_embed="learned", norm_type="rms",
+                       act_fn="gelu", tie_word_embeddings=True)
 
 
 # Preset configs of the families the port runs (the reference's
@@ -1344,6 +1473,11 @@ PRESETS: Dict[str, ModelConfig] = {
     # same layer over 196 or 256 patches of a 224-pixel image)
     "bert-base": _gpt(30528, 768, 12, 12, 512).replace(causal=False, objective="mlm"),
     "bert-large": _gpt(30528, 1024, 24, 16, 512).replace(causal=False, objective="mlm"),
+    # encoder-decoder (the reference's legacy t5 model_type with learned
+    # positions, not T5's relative bias: its documented deviation)
+    "t5-base": _t5(768, 12, 12, 3072),
+    "t5-large": _t5(1024, 24, 16, 4096),
+    "t5-3b": _t5(1024, 24, 32, 16384),
     "vit-base": _vit(768, 12, 12, 16),
     "vit-large": _vit(1024, 24, 16, 16),
     "vit-huge": _vit(1280, 32, 16, 14),

@@ -10,7 +10,10 @@ masked ones for 'mlm', one a sample for 'cls'). A ViT's sequence is its
 patches and its head has ``num_classes`` columns (the JAX package counts
 the pixels as the sequence and ``vocab_size`` as the head: ROADMAP.md §3,
 "Kept differences"); its patch projection is not counted, as the
-reference does not count the embedding. The
+reference does not count the embedding. An encoder-decoder counts what the
+reference counts: all ``total_layers`` layers as uniform layers over the
+whole row (``enc_seq`` + the decoder's sequence), tokens of the whole row,
+no cross-attention, and the decoder's positions at the head. The
 peak is the card's published dense bf16 rate, looked up by device name.
 The rate fields are device metrics: on the CPU they are None, never a CPU
 number under a device metric's name.
@@ -78,10 +81,10 @@ def _remat_fwd_flops_per_token(cfg: ModelConfig, seq_len: int,
                                ckpt: Union[str, Sequence[str]]) -> float:
     """Forward compute replayed in the backward, per token over all layers;
     ``ckpt`` is one mode for every layer or a list of per-layer modes."""
-    modes = [ckpt] * cfg.num_layers if isinstance(ckpt, str) else list(ckpt)
-    if len(modes) != cfg.num_layers:
+    modes = [ckpt] * cfg.total_layers if isinstance(ckpt, str) else list(ckpt)
+    if len(modes) != cfg.total_layers:
         # a pipeline stage's own list would count only its layers
-        raise ValueError(f"{len(modes)} recompute modes for {cfg.num_layers} layers: pass "
+        raise ValueError(f"{len(modes)} recompute modes for {cfg.total_layers} layers: pass "
                          "every layer's (Runtime.ckpts), not one stage's")
     total = 0.0
     for mode in modes:
@@ -102,7 +105,8 @@ class StepStats:
     of ``world`` ranks shares the whole model's FLOPs among them (the
     per-device rate, the reference's: under a pipeline each stage runs only
     its layers, and the world's devices together run them all).
-    ``seq_len`` is the sequence the layers run over (a ViT's patches)."""
+    ``seq_len`` is the sequence the layers run over (a ViT's patches; an
+    encoder-decoder's decoder, to which its ``enc_seq`` is added)."""
 
     cfg: ModelConfig
     global_bsz: int
@@ -112,10 +116,11 @@ class StepStats:
     world: int = 1
 
     def __post_init__(self):
-        cfg, seq = self.cfg, self.seq_len
+        cfg = self.cfg
+        loss_tokens = float(self.global_bsz) * loss_tokens_per_sample(cfg, self.seq_len)
+        seq = self.seq_len + cfg.enc_seq if cfg.enc_layers else self.seq_len
         tokens = float(self.global_bsz) * seq
-        loss_tokens = float(self.global_bsz) * loss_tokens_per_sample(cfg, seq)
-        fwd = (tokens * cfg.num_layers * layer_fwd_flops_per_token(cfg, seq)
+        fwd = (tokens * cfg.total_layers * layer_fwd_flops_per_token(cfg, seq)
                + loss_tokens * head_flops_per_loss_token(cfg))
         self.model_flops_per_step = 3.0 * fwd
         self.hardware_flops_per_step = self.model_flops_per_step + (

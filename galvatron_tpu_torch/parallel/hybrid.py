@@ -121,7 +121,7 @@ from galvatron_tpu_torch.device import resolve_device
 from galvatron_tpu_torch.models import modeling
 from galvatron_tpu_torch.models.modeling import ModelConfig
 from galvatron_tpu_torch.models.moe import MoEContext
-from galvatron_tpu_torch.parallel import comm, pipeline, ring, ulysses
+from galvatron_tpu_torch.parallel import comm, pipeline, pipeline_encdec, ring, ulysses
 from galvatron_tpu_torch.parallel.mesh import Group, ProcessGroups, RankMesh, batch_spec
 from galvatron_tpu_torch.parallel.pipeline_1f1b import pipedream_schedule
 from galvatron_tpu_torch.parallel.pipeline_interleaved import (
@@ -305,16 +305,19 @@ def zip_map(fn, tree, *others, name=None):
 def model_leaf_plans(cfg: ModelConfig, hp: HybridParallelConfig, mesh: RankMesh,
                      shapes: Any) -> Dict[str, Any]:
     """A :class:`LeafPlan` per parameter of ``shapes`` (a tree of full
-    shapes): per-layer strategies for the decoder layers, the embedding
-    strategy for everything else (the reference's ``model_param_specs``)."""
+    shapes): per-layer strategies for the layers (an encoder-decoder's
+    encoder layers take the plan's first ``enc_layers`` entries), the
+    embedding strategy for everything else, an encoder's final norm
+    included (the reference's ``model_param_specs``)."""
     annots = modeling.model_annotations(cfg)
     es = embed_strategy(hp)
     out: Dict[str, Any] = {}
     for key in shapes:
-        if key == "layers":
+        if key in ("layers", "enc_layers"):
+            first = cfg.enc_layers if key == "layers" else 0  # strategy index of layer 0
             out[key] = [
-                zip_map(lambda sh, a, n, s=hp.layer_strategies[i]: _leaf_plan(sh, a, s, n, cfg, mesh),
-                         shapes[key][i], annots[key][i])
+                zip_map(lambda sh, a, n, s=hp.layer_strategies[first + i]:
+                        _leaf_plan(sh, a, s, n, cfg, mesh), shapes[key][i], annots[key][i])
                 for i in range(len(shapes[key]))]
             if cfg.moe_experts > 0:
                 for lp in out[key]:
@@ -393,23 +396,29 @@ def _make_layer_hook(cfg: ModelConfig, ckpt: Union[str, List[str]], layer_fn=Non
     ``seg_ids`` (packed rows, (B, S) over the whole sequence) mask the
     attention per segment; the RoPE tables are then gathered per row by the
     per-segment positions. ``alibi`` is the model's (n,) slopes (ALiBi
-    models; ``decoder_layer`` takes a TP rank's own heads' part)."""
+    models; ``decoder_layer`` takes a TP rank's own heads' part). An
+    encoder-decoder's encoder layers (i < ``enc_layers``) run
+    bidirectionally over ``enc_seq`` positions; its decoder layers get
+    ``enc_out`` (``layer_fn``'s last argument)."""
 
-    def hook(i: int, x, lp, seg_ids=None):
+    def hook(i: int, x, lp, seg_ids=None, enc_out=None):
         mode = ckpt if isinstance(ckpt, str) else ckpt[i]
         layer_cfg = _layer_cfg(cfg, mode)
+        if i < cfg.enc_layers:
+            layer_cfg = modeling.encoder_cfg(layer_cfg)
         cos_sin = None
         if layer_cfg.pos_embed == "rope":
-            cos_sin = _rope_tables(layer_cfg, seq_len or x.shape[1], x.device)
+            seq = modeling.layer_seq(cfg, seq_len, i) if seq_len else x.shape[1]
+            cos_sin = _rope_tables(layer_cfg, seq, x.device)
         alibi = modeling.alibi_tensor(layer_cfg, x.device)
         if layer_fn is not None:
-            return layer_fn(i, x, lp, layer_cfg, cos_sin, mode, seg_ids, alibi)
+            return layer_fn(i, x, lp, layer_cfg, cos_sin, mode, seg_ids, alibi, enc_out)
         cos_sin = _packed_tables(layer_cfg, cos_sin, seg_ids)
 
         def run(x_):
             return modeling.decoder_layer(x_, lp, layer_cfg, cos_sin,
                                           remat_attn=mode == "selective", seg_ids=seg_ids,
-                                          alibi=alibi)
+                                          alibi=alibi, enc_out=enc_out)
 
         if mode == "full" and torch.is_grad_enabled():
             return checkpoint(run, x, use_reentrant=False)
@@ -432,8 +441,9 @@ def check_fp16(cfg: ModelConfig) -> None:
     kernel does not take raises, never a quiet plain version."""
     if cfg.pos_embed != "rope":
         raise NotImplementedError(
-            "--mixed_precision fp16 with the GPT/OPT family: its attention runs the grid flash "
-            f"kernels, which take bf16 or fp32 ({FP16_REMAINDER})")
+            "--mixed_precision fp16 runs rotary-position models only (the blocked flash "
+            "kernels' fp16 instances); without rotary positions (GPT/OPT, the encoders, T5) "
+            f"attention takes the grid flash kernels, which take bf16 or fp32 ({FP16_REMAINDER})")
     if cfg.fused_norm:
         raise NotImplementedError(f"--mixed_precision fp16 with fused_norm ({FP16_REMAINDER})")
 
@@ -549,12 +559,18 @@ class _Buckets:
             h.remove()
 
 
-def _schedules(hp: HybridParallelConfig, chunks: int):
+def _schedules(cfg: ModelConfig, hp: HybridParallelConfig, chunks: int):
     """(train schedule, eval schedule) of the plan: at pp = 1 the forward
-    and backward of each micro-batch in turn (plain accumulation)."""
+    and backward of each micro-batch in turn (plain accumulation); an
+    encoder-decoder's coupled clocks at pp > 1."""
     pp, vpp = hp.pp, hp.vpp
     if pp == 1:
         return pipedream_schedule(1, chunks), pipeline.gpipe_schedule(1, chunks, train=False)
+    if cfg.enc_layers > 0:
+        train = (pipeline_encdec.pipedream_schedule(pp, chunks)
+                 if hp.pipeline_type == "pipedream_flush"
+                 else pipeline_encdec.gpipe_schedule(pp, chunks))
+        return train, pipeline_encdec.gpipe_schedule(pp, chunks, train=False)
     if vpp > 1:
         train = (interleaved_1f1b_schedule(pp, vpp, chunks)
                  if hp.pipeline_type == "pipedream_flush"
@@ -602,7 +618,7 @@ def build_runtime(
         if mixed_precision not in _PRECISION:
             raise ValueError(f"unknown mixed_precision {mixed_precision!r}")
         hp = HybridParallelConfig.uniform(
-            cfg.num_layers, ckpt=ckpt, chunks=max(1, int(chunks or 1)),
+            cfg.total_layers, ckpt=ckpt, chunks=max(1, int(chunks or 1)),
             mixed_precision=mixed_precision, mlp_recompute=cfg.mlp_recompute)
     elif chunks is not None or ckpt is not None or mixed_precision is not None:
         raise ValueError("with a plan (hp), chunks / ckpt / mixed_precision come from the plan")
@@ -610,9 +626,11 @@ def build_runtime(
         check_fp16(cfg)
     if hp.mixed_precision not in _PRECISION:
         raise ValueError(f"unknown mixed_precision {hp.mixed_precision!r}")
-    if hp.num_layers != cfg.num_layers:
+    encdec = cfg.enc_layers > 0
+    if hp.num_layers != cfg.total_layers:
         raise ValueError(f"strategy has {hp.num_layers} layer entries but the model has "
-                         f"{cfg.num_layers} layers")
+                         f"{cfg.total_layers}" + (" (encoder + decoder)" if encdec else "")
+                         + " layers")
     strategies = list(hp.layer_strategies)
     es = embed_strategy(hp)
     for i, s in enumerate(strategies):
@@ -626,11 +644,13 @@ def build_runtime(
     world, rank = _world()
     hp.validate(world)
     pp = hp.pp
-    if hp.vpp > 1:
+    if encdec and pp > 1:
+        pipeline_encdec.validate_encdec_pipeline(cfg, hp)
+    elif hp.vpp > 1:
         validate_interleaved_strategies(cfg.num_layers, hp)
     elif pp > 1:
         pipeline.validate_pipeline_strategies(cfg.num_layers, hp)
-    vstages = pipeline.virtual_stages(cfg.num_layers, hp)
+    vstages = pipeline.virtual_stages(cfg, hp)
     cfg = cfg.replace(dtype=_PRECISION[hp.mixed_precision], mlp_recompute=hp.mlp_recompute)
     fp16 = hp.mixed_precision == "fp16"
     scaler_cfg = LossScalerConfig() if fp16 else None
@@ -639,21 +659,33 @@ def build_runtime(
         raise ValueError(f"global batch {global_batch_size} not divisible by chunks {chunks}")
     mesh = RankMesh(world, pp)
     mb_rows = global_batch_size // chunks
+    E = cfg.enc_layers
+    seqs = [modeling.layer_seq(cfg, seq_len, i) for i in range(len(strategies))]
     for i, s in enumerate(strategies + [es]):
         what = f"layer {i}" if i < len(strategies) else "embedding/head"
+        # the sequences its layout carries: the layer's own; an
+        # encoder-decoder's decoder layers and embedding, the encoder's too
+        carried = {seqs[i] if i < len(strategies) else seq_len}
+        if encdec and i >= E:
+            carried.add(cfg.enc_seq)
         try:
             mesh.batch_rows(rank, s, mb_rows)
-            mesh.seq_slice(rank, s, seq_len)
+            for sq in carried:
+                mesh.seq_slice(rank, s, sq)
         except ValueError as e:
             raise ValueError(f"{what} ({s}): {e}") from None
     ckpts = [s.ckpt or "none" for s in strategies]  # LayerStrategy.ckpt: False | 'full' | 'selective'
-    sched, eval_sched = _schedules(hp, chunks)
+    sched, eval_sched = _schedules(cfg, hp, chunks)
     stage = mesh.stage(rank)
     last_vstage = len(vstages) - 1
     first, last = stage == 0, stage == pp - 1
-    layer_ids = pipeline.device_layers(cfg.num_layers, hp, stage)
-    local = {i: n for n, i in enumerate(layer_ids)}
+    layer_ids = pipeline.device_layers(cfg, hp, stage)
+    local = pipeline.local_index(layer_ids, E)
     tied = cfg.tie_word_embeddings and pp > 1
+    # an encoder-decoder turns from its encoder to its decoder at the start
+    # of the decoder's first virtual stage (device 0), or before layer E of
+    # the one virtual stage at pp = 1: (virtual stage, position in it)
+    turn = ((pp, 0) if pp > 1 else (0, E)) if encdec else None
 
     axes_list = [mesh.axes.data_axes]
     for s in strategies + [es]:
@@ -713,7 +745,7 @@ def build_runtime(
         if cfg.moe_experts == 0 or (tokens.size == 1 and s.ep == 1):
             return None
         order = lambda ranks: torch.from_numpy(np.stack(  # noqa: E731
-            [mesh.token_order(q, s, rows, seq_len) for q in ranks])).to(device)
+            [mesh.token_order(q, s, rows, seqs[i]) for q in ranks])).to(device)
         ep = groups.get(mesh.ep_axes(s)) if s.ep > 1 else None
         return MoEContext(tokens, order(tokens.ranks), ep,
                           order(ep.ranks) if ep is not None else None)
@@ -729,15 +761,22 @@ def build_runtime(
             return comm.gather_param(p, lp.zero3_dim, lp.dp_group, lp.gather_dtype)
         return zip_map(leaf, tree, tree_plans)
 
-    has_zero3 = [any(lp.zero3_dim is not None for lp in tree_leaves(all_plans["layers"][i]))
+    has_zero3 = [any(lp.zero3_dim is not None
+                     for lp in tree_leaves(pipeline.layer_of(all_plans, i)))
                  for i in range(len(strategies))]
 
-    def layer_fn(i, x, lp, layer_cfg, cos_sin, mode, seg_ids=None, alibi=None):
+    def layer_fn(i, x, lp, layer_cfg, cos_sin, mode, seg_ids=None, alibi=None, enc_out=None):
         # the input arrives in the previous layer's layout, also across a
-        # stage boundary: the receiving stage moves it
+        # stage boundary: the receiving stage moves it (a stack's first
+        # layer takes the embedding's)
         x = comm.redistribute(x, mesh, rank, stage_group,
-                              layouts[i - 1] if i else embed_layout, layouts[i])
-        lplans = all_plans["layers"][i]
+                              layouts[i - 1] if i not in (0, E) else embed_layout, layouts[i])
+        if enc_out is not None:
+            # the encoder output (embedding layout) into this decoder
+            # layer's; autograd sums its gradients over the decoder layers
+            enc_out = comm.redistribute(enc_out, mesh, rank, stage_group, embed_layout,
+                                        layouts[i])
+        lplans = pipeline.layer_of(all_plans, i)
         if seg_ids is not None:
             # this layer's rows, over the whole sequence: the attention sees
             # all of it (no CP under packing; SP gathers it in the TP region)
@@ -753,7 +792,7 @@ def build_runtime(
                 return cp_layers[i](x_, p, layer_cfg, cos_sin=cos_sin, tp=tp_regions[i])
             return modeling.decoder_layer(x_, p, layer_cfg, cos_sin,
                                           remat_attn=mode == "selective", tp=tp_regions[i],
-                                          seg_ids=seg_ids, alibi=alibi)
+                                          seg_ids=seg_ids, alibi=alibi, enc_out=enc_out)
 
         # SP with CP: the CP block, gathered over the TP group, and back
         x = comm.redistribute(x, mesh, rank, stage_group, layouts[i], inner[i])
@@ -775,16 +814,25 @@ def build_runtime(
         return y
 
     hook = _make_layer_hook(cfg, ckpts, layer_fn, seq_len)
-    top_keys = [k for k in plans if k != "layers"]
+    top_keys = [k for k in plans if k not in ("layers", "enc_layers")]
     top_zero3 = any(lp.zero3_dim is not None for k in top_keys for lp in tree_leaves(plans[k]))
+
+    def to_decoder(x, top, tokens):
+        """An encoder-decoder's turn: the encoder output into the embedding
+        layout, ``enc_final_norm`` → ctx, and the decoder tokens embedded."""
+        x = comm.redistribute(x, mesh, rank, stage_group, layouts[E - 1], embed_layout)
+        ctx = modeling.norm(x, top["enc_final_norm"], cfg)
+        return modeling.embed(tokens[:, cfg.enc_seq:], top, cfg, vocab), ctx
 
     def stage_forward(params, k, mb, x):
         """Virtual stage k on a micro-batch ``mb`` of token rows: embed this
         rank's rows first (k = 0; otherwise ``x`` is the received
         activation), its layers, then the final norm, head and loss sum
-        (the last virtual stage: returns (nll_sum, count))."""
+        (the last virtual stage: returns (nll_sum, count)). An
+        encoder-decoder turns to its decoder at ``turn``; from there its
+        activation is the pair (decoder stream, normed encoder output)."""
         head = k == last_vstage
-        ends = k == 0 or head
+        ends = k == 0 or head or (turn is not None and k == turn[0])
         rg = comm.Regather() if ends and top_zero3 and torch.is_grad_enabled() else None
         top = {key: materialize(params[key], plans[key], rg) for key in top_keys} if ends else {}
         hook_kw, pos_ids = {}, None
@@ -795,11 +843,20 @@ def build_runtime(
             tokens, labels = modeling.split_batch(mb[mesh.batch_rows(rank, es, mb.shape[0])], cfg)
             if cfg.pack_sequences:
                 tokens, _, pos_ids = modeling.split_packed_inputs(tokens)
+        ctx = None
+        if isinstance(x, tuple):
+            x, ctx = x
         with rg.saving() if rg is not None else contextlib.nullcontext():
             if k == 0:
-                x = modeling.embed_any(tokens, top, cfg, vocab, pos_ids=pos_ids)
-            for i in vstages[k]:
-                x = hook(i, x, params["layers"][local[i]], **hook_kw)
+                x = modeling.embed_any(tokens[:, :cfg.enc_seq] if encdec else tokens, top, cfg,
+                                       vocab, pos_ids=pos_ids)
+            ids = vstages[k]
+            for j in range(len(ids) + 1):
+                if turn == (k, j):
+                    x, ctx = to_decoder(x, top, tokens)
+                if j < len(ids):
+                    x = hook(ids[j], x, pipeline.layer_of(params, ids[j], local), enc_out=ctx,
+                             **hook_kw)
             if head:
                 # a zero-layer model (the profiler's vocab fit) has no layer layout
                 x = comm.redistribute(x, mesh, rank, stage_group,
@@ -808,14 +865,31 @@ def build_runtime(
                                                remat=modeling.ce_remat(cfg), vocab=vocab)
         if rg is not None:
             rg.release()
-        return x
+        return x if ctx is None or head else (x, ctx)
+
+    # the activation's layout after each virtual stage: that of the last
+    # layer its stream has run by then (an encoder-decoder's decoder stream
+    # starts in the embedding's; a stage may hold no layers)
+    out_layouts, ran = [], []
+    for k, ids in enumerate(vstages):
+        ran += ids
+        stream = [i for i in ran if i >= E] if turn is not None and k >= turn[0] else ran
+        out_layouts.append(layouts[stream[-1]] if stream else embed_layout)
+
+    def empty(layout, seq):
+        b, sq = layout
+        return torch.empty((mb_rows >> len(b), seq >> len(sq), cfg.hidden_size),
+                           dtype=cfg.dtype, device=device)
 
     def buffer(kind, k):
         """An empty activation (or gradient) entering virtual stage k: the
-        layout of the layer that produced it."""
-        b, sq = batch_spec(mesh.axes, strategies[vstages[k - 1 if kind == pipeline.FWD else k][-1]])
-        return torch.empty((mb_rows >> len(b), seq_len >> len(sq), cfg.hidden_size),
-                           dtype=cfg.dtype, device=device)
+        layout its stream has after the virtual stage that produced it; an
+        encoder-decoder's decoder stream comes with the encoder output, in
+        the embedding's layout."""
+        v = k - 1 if kind == pipeline.FWD else k
+        if turn is None or v < turn[0]:
+            return empty(out_layouts[v], cfg.enc_seq if encdec else seq_len)
+        return empty(out_layouts[v], seq_len), empty(embed_layout, cfg.enc_seq)
 
     def peer(d):
         return rank + (d - stage) * mesh.per_stage
@@ -856,7 +930,7 @@ def build_runtime(
         index = {id(lp): j for j, lp in enumerate(leaf_plans)}
         for i, s in enumerate(strategies):
             if s.dp_type in ("zero2", "zero3"):
-                for lp in tree_leaves(plans["layers"][local[i]]):
+                for lp in tree_leaves(pipeline.layer_of(plans, i, local)):
                     if lp.zero3_dim is None and lp.opt_dim is not None:
                         bucket_of[index[id(lp)]] = i
 
@@ -881,8 +955,8 @@ def build_runtime(
         live: Dict[tuple, tuple] = {}  # (virtual stage, micro-batch) → (input, output)
 
         def forward(k, m, x):
-            if x is not None:
-                x.requires_grad_(True)
+            for t in () if x is None else pipeline.message_parts(x):
+                t.requires_grad_(True)
             y = stage_forward(params, k, mbs[m], x)
             if k == last_vstage:
                 y = y[0]
@@ -910,8 +984,14 @@ def build_runtime(
                 else:
                     (y / denom if chunks == 1 else y).backward()
             else:
-                torch.autograd.backward(y, g)
-            return None if k == 0 else x.grad
+                # an encoder-decoder's (y, ctx): a stage passes ctx on, and
+                # its gradient gathers each stage's cross-attention share
+                torch.autograd.backward(pipeline.message_parts(y), pipeline.message_parts(g))
+            if k == 0:
+                return None
+            grads = tuple(t.grad if t.grad is not None else torch.zeros_like(t)
+                          for t in pipeline.message_parts(x))
+            return grads if isinstance(x, tuple) else grads[0]
 
         try:
             in_flight = pipeline.execute(sched, stage, peer, forward, backward, buffer)

@@ -9,7 +9,8 @@ layers, and a schedule is that same clock written out: for each device
 (pipeline stage) the list of ``(tick, fwd | bwd, virtual stage, micro-batch)``
 actions the JAX clock formulas give (:func:`gpipe_schedule` here,
 ``pipedream_schedule`` in ``pipeline_1f1b.py``, the interleaved ones in
-``pipeline_interleaved.py``). :func:`execute` walks a device's list tick by
+``pipeline_interleaved.py``, an encoder-decoder's coupled ones in
+``pipeline_encdec.py``). :func:`execute` walks a device's list tick by
 tick: at each tick it posts, in one ``comm.exchange``, the messages the
 previous tick produced and the receives this tick needs, waits for the
 receives, then runs the tick's actions (a forward before a backward). Every
@@ -88,10 +89,18 @@ def validate_pipeline_strategies(num_layers: int, hp: HybridParallelConfig) -> N
     stage_layout(num_layers, hp)
 
 
-def virtual_stages(num_layers: int, hp: HybridParallelConfig) -> List[List[int]]:
-    """The layers of each virtual stage, in order: with vpp = 1 stage s is
-    its ``pp_division`` range; with vpp > 1 virtual stage k is layers
-    ``[k·lpvs, (k+1)·lpvs)`` and lives on device ``k % pp``."""
+def virtual_stages(cfg, hp: HybridParallelConfig) -> List[List[int]]:
+    """The layers of each virtual stage of the model ``cfg`` (layers by
+    strategy index: an encoder-decoder's encoder first), in order: with
+    vpp = 1 stage s is its ``pp_division`` range; with vpp > 1 virtual
+    stage k is layers ``[k·lpvs, (k+1)·lpvs)`` and lives on device
+    ``k % pp``; an encoder-decoder at pp > 1 has 2·pp, the encoder's then
+    the decoder's (``pipeline_encdec.py``)."""
+    num_layers = cfg.total_layers
+    if cfg.enc_layers > 0 and hp.pp > 1:
+        from galvatron_tpu_torch.parallel import pipeline_encdec
+
+        return pipeline_encdec.virtual_stages(cfg, hp)
     if hp.vpp > 1:
         lpvs = num_layers // (hp.pp * hp.vpp)
         return [list(range(k * lpvs, (k + 1) * lpvs)) for k in range(hp.pp * hp.vpp)]
@@ -101,29 +110,58 @@ def virtual_stages(num_layers: int, hp: HybridParallelConfig) -> List[List[int]]
     return [list(range(o, o + n)) for o, n in zip(offsets, div)]
 
 
-def device_layers(num_layers: int, hp: HybridParallelConfig, device: int) -> List[int]:
+def device_layers(cfg, hp: HybridParallelConfig, device: int) -> List[int]:
     """Every layer device ``device`` holds, in the order of its virtual
     stages (``{device, device + pp, ...}``)."""
-    return [i for k, ids in enumerate(virtual_stages(num_layers, hp)) if k % hp.pp == device
+    return [i for k, ids in enumerate(virtual_stages(cfg, hp)) if k % hp.pp == device
             for i in ids]
+
+
+#: held by the first stage besides the embedding: an encoder-decoder's
+#: encoder final norm (its decoder's first stage, on device 0, applies it)
+_FIRST_KEYS = ("embed", "enc_final_norm")
 
 
 def held_tree(tree, layer_ids: Sequence[int], first: bool, last: bool, tied: bool):
     """The part of a model tree (parameters, shapes or plans) a device
-    holds: its layers (in ``layer_ids`` order), the embedding on the first
-    stage, the final norm and head on the last; with tied embeddings the
-    last stage holds the token table too (its own copy)."""
-    out = {"layers": [tree["layers"][i] for i in layer_ids]}
+    holds: its layers (``layer_ids`` are strategy indices, an
+    encoder-decoder's encoder layers first: those go to ``enc_layers``, in
+    ``layer_ids`` order), the embedding (and an encoder's final norm) on
+    the first stage, the final norm and head on the last; with tied
+    embeddings the last stage holds the token table too (its own copy)."""
+    e = len(tree.get("enc_layers", ()))
+    out = {"layers": [tree["layers"][i - e] for i in layer_ids if i >= e]}
+    if "enc_layers" in tree:
+        out["enc_layers"] = [tree["enc_layers"][i] for i in layer_ids if i < e]
     for key in tree:
-        if key == "layers":
+        if key in ("layers", "enc_layers"):
             continue
-        if key == "embed" and first:
+        if key in _FIRST_KEYS and first:
             out[key] = tree[key]
         elif key == "embed" and last and tied:
             out[key] = {"tok": tree[key]["tok"]}
-        elif key != "embed" and last:
+        elif key not in _FIRST_KEYS and last:
             out[key] = tree[key]
     return out
+
+
+def layer_of(tree, i: int, local: Optional[Dict[int, int]] = None):
+    """Layer ``i``'s subtree (a strategy index: an encoder-decoder's
+    encoder layers first) of a whole tree, or of a held one with ``local``
+    (:func:`local_index`)."""
+    if local is not None:
+        key, n = local[i]
+        return tree[key][n]
+    e = len(tree.get("enc_layers", ()))
+    return tree["enc_layers"][i] if i < e else tree["layers"][i - e]
+
+
+def local_index(layer_ids: Sequence[int], enc_layers: int) -> Dict[int, Tuple[str, int]]:
+    """Strategy index → (list, position) in a :func:`held_tree`."""
+    enc = [i for i in layer_ids if i < enc_layers]
+    dec = [i for i in layer_ids if i >= enc_layers]
+    return {**{i: ("enc_layers", n) for n, i in enumerate(enc)},
+            **{i: ("layers", n) for n, i in enumerate(dec)}}
 
 
 # ---------------------------------------------------------------------------
@@ -190,11 +228,14 @@ class Schedule:
                         raise ValueError(f"schedule: backward of ({v}, {m}) before its forward")
         return self
 
-    def in_flight(self, device: int) -> int:
+    def in_flight(self, device: int, vstages: Optional[Sequence[int]] = None) -> int:
         """The most micro-batches (each a virtual stage's forward whose
-        backward has not run) device ``device`` holds at once."""
+        backward has not run) device ``device`` holds at once; with
+        ``vstages``, counting only those virtual stages' micro-batches."""
         live, peak = 0, 0
         for a in self.actions[device]:
+            if vstages is not None and a.vstage not in vstages:
+                continue
             live += 1 if a.kind == FWD else -1
             peak = max(peak, live)
         return peak
@@ -235,6 +276,11 @@ def gpipe_schedule(pp: int, chunks: int, train: bool = True) -> Schedule:
 # ---------------------------------------------------------------------------
 
 
+def message_parts(msg) -> tuple:
+    """The tensors of one message, in order."""
+    return msg if isinstance(msg, tuple) else (msg,)
+
+
 def execute(sched: Schedule, device: int, peer: Callable[[int], int],
             forward: Callable, backward: Optional[Callable],
             buffer: Callable[[str, int], object]) -> int:
@@ -248,9 +294,17 @@ def execute(sched: Schedule, device: int, peer: Callable[[int], int],
       gradient, None for the last virtual stage) and returns the input
       gradient to send back (None for k = 0);
     - ``buffer(kind, k)`` is an empty tensor for the message entering
-      virtual stage k's forward (``FWD``) or its backward (``BWD``);
+      virtual stage k's forward (``FWD``) or its backward (``BWD``), or a
+      tuple of them for a message of several tensors (an encoder-decoder's
+      decoder stream and encoder output), which ``forward`` / ``backward``
+      then take and return as tuples of the same shapes;
     - ``peer(d)`` is the rank of this rank's counterpart on device d (the
       same in-stage index).
+
+    Messages between two ranks match in the order they are posted: the
+    sender's in its action order of one tick, the receiver's in its action
+    order of the next. A schedule whose actions within a tick run forwards
+    first, each kind in virtual-stage order, keeps the two orders equal.
     """
     last = sched.stages - 1
     by_tick: Dict[int, List[Action]] = {}
@@ -272,7 +326,7 @@ def execute(sched: Schedule, device: int, peer: Callable[[int], int],
             else:
                 buf = None
             inputs.append(buf)
-        pending += comm.exchange(out, recvs)
+        pending += comm.exchange(out, [(t, src) for buf, src in recvs for t in message_parts(buf)])
         out = []
         for a, x in zip(acts, inputs):
             if a.kind == FWD:
@@ -280,12 +334,12 @@ def execute(sched: Schedule, device: int, peer: Callable[[int], int],
                 live += 1
                 peak = max(peak, live)
                 if a.vstage < last:
-                    out.append((y, peer(sched.device(a.vstage + 1))))
+                    out += [(t, peer(sched.device(a.vstage + 1))) for t in message_parts(y)]
             else:
                 dx = backward(a.vstage, a.mb, x)
                 live -= 1
                 if a.vstage > 0:
-                    out.append((dx, peer(sched.device(a.vstage - 1))))
+                    out += [(t, peer(sched.device(a.vstage - 1))) for t in message_parts(dx)]
     if out:
         raise RuntimeError(f"schedule ended with {len(out)} unsent messages")
     comm.wait_all(pending)

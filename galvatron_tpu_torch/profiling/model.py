@@ -24,7 +24,8 @@ is the analytic 1/tp of the JAX package on a one-device host, and the
 vocab-parallel fit covers vocab_tp = 1. A ViT ('cls') is profiled on its
 pixel ‖ label rows (``modeling.batch_row_width``) and its layers' sequence
 is its patches; its 'other' terms stay analytic (no vocabulary fit), as in
-the JAX package. Encoder-decoder and Swin profiles (ROADMAP.md §1.10) are
+the JAX package. An encoder-decoder gets two layer types from a three-point
+sweep (:func:`_profile_encdec_model`). Swin profiles (ROADMAP.md §1.10) are
 not ported.
 """
 
@@ -261,6 +262,77 @@ def _expert_time_fraction(cfg: ModelConfig, bsz: int, seq: int, depth: int, fwd_
         return None
 
 
+def _save(costs: ProfiledModelCosts, out_prefix: Optional[str]) -> None:
+    if out_prefix:
+        from galvatron_tpu_torch.utils.config_utils import save_profiled_model
+
+        save_profiled_model(costs, f"{out_prefix}_computation.json",
+                            f"{out_prefix}_memory.json")
+
+
+def _profile_encdec_model(cfg: ModelConfig, bsz: int, layernums: Tuple[int, int],
+                          measure_time: bool, out_prefix: Optional[str],
+                          device: torch.device) -> ProfiledModelCosts:
+    """An encoder-decoder's profile (the JAX package's
+    ``_profile_encdec_model``): TWO layer types from a three-point sweep,
+    (E, D) = (l1, l1), (l1, l2), (l2, l1) — the decoder count varied at a
+    fixed encoder count, then the encoder count at a fixed decoder count
+    (the reference's multi-layer-type layer-number lists). The decoder
+    type carries the cross-attention's parameters; without timing the
+    reference's fixed (1.0, 1.5, 0.1) ms stand in."""
+    l1, l2 = layernums
+    if not 1 <= l1 < l2:
+        raise ValueError(f"layernums must satisfy 1 <= min < max, got ({l1}, {l2})")
+    S_e, S_d = cfg.enc_seq, cfg.max_seq_len
+    points = {"11": cfg.replace(num_layers=l1, enc_layers=l1),
+              "12": cfg.replace(num_layers=l2, enc_layers=l1),
+              "21": cfg.replace(num_layers=l1, enc_layers=l2)}
+    if measure_time:
+        t = {}
+        for name, c in points.items():
+            t[name] = _iter_time_ms(c, bsz, S_d, device)
+            _free(device)
+        dec_ms = max(1e-4, (t["12"] - t["11"]) / (l2 - l1) / bsz / 3.0)
+        enc_ms = max(1e-4, (t["21"] - t["11"]) / (l2 - l1) / bsz / 3.0)
+        other_ms = max(0.0, (t["11"] - (enc_ms + dec_ms) * 3.0 * bsz * l1) / bsz / 3.0)
+    else:
+        enc_ms, dec_ms, other_ms = 1.0, 1.5, 0.1
+    b = {}
+    for name, c in points.items():
+        b[name] = _act_bytes(c, bsz, S_d, device)
+        _free(device)
+
+    def act_of(b_hi, b_lo, S_type):
+        if b_hi > b_lo:
+            return (b_hi - b_lo) / (l2 - l1) / bsz / 1e6
+        return _act_fallback_mb(cfg, S_type)
+
+    def layer_type(fwd, act_mb, S_type, cross):
+        return ProfiledLayerType(
+            fwd_ms_per_sample=float(fwd),
+            parameter_mb=float(layer_param_count(cfg, cross=cross) * 4 / 1e6),
+            activation_mb_per_sample={t: float(act_mb / t) for t in (1, 2, 4, 8)
+                                      if cfg.hidden_size % t == 0},
+            boundary_activation_mb_per_sample=float(S_type * cfg.hidden_size * 2 / 1e6),
+        )
+
+    enc_lt = layer_type(enc_ms, act_of(b["21"], b["11"], S_e), S_e, cross=False)
+    dec_lt = layer_type(dec_ms, act_of(b["12"], b["11"], S_d), S_d, cross=True)
+    layer_types = {i: enc_lt for i in range(cfg.enc_layers)}
+    layer_types.update({cfg.enc_layers + i: dec_lt for i in range(cfg.num_layers)})
+    print(f"profile: enc-dec layer counts ({l1}, {l2}) on {device}; activation measure: "
+          f"{act_measure(device)}", flush=True)
+    costs = ProfiledModelCosts(
+        layer_types=layer_types,
+        other_param_mb=float(other_param_count(cfg) * 4 / 1e6),
+        other_act_mb_per_sample=float(S_d * cfg.vocab_size * 4 / 1e6),
+        other_fwd_ms_per_sample=float(other_ms),
+        hidden_size=cfg.hidden_size,
+    )
+    _save(costs, out_prefix)
+    return costs
+
+
 def profile_model(
     cfg: ModelConfig,
     bsz: int = 8,
@@ -278,14 +350,21 @@ def profile_model(
     ``layernums`` are never changed. An MoE model also gets its expert-time
     fraction (:func:`_expert_time_fraction`) and the expert-parameter
     fraction and all-to-all volume the search prices EP with."""
-    if cfg.enc_layers > 0 or cfg.swin_depths:
-        raise NotImplementedError(
-            "encoder-decoder and Swin profiles are not ported yet: ROADMAP.md §1.10")
+    if cfg.swin_depths:
+        raise NotImplementedError("Swin profiles are not ported yet: ROADMAP.md §1.10")
     if _world() != 1:
         raise ValueError("profile_model runs in one process on one device "
                          f"(this world has {_world()} ranks)")
     device = resolve_device(device)
     modeling.check_supported(cfg)
+    if cfg.enc_layers > 0:
+        if seq is not None:
+            raise ValueError(
+                "seq does not apply to enc-dec profiles (two sequence "
+                "lengths); set cfg.enc_seq / cfg.max_seq_len instead"
+            )
+        return _profile_encdec_model(cfg, bsz, layernums or (2, 4), measure_time, out_prefix,
+                                     device)
     seq = modeling.layer_seq(cfg, seq)
     adaptive = layernums is None
     l1, l2 = layernums or _default_layernums(cfg.total_layers)
@@ -375,9 +454,5 @@ def profile_model(
         costs.measured_vocab_const_ms = vconst
         costs.measured_vocab_mp = vmp
         _free(device)
-    if out_prefix:
-        from galvatron_tpu_torch.utils.config_utils import save_profiled_model
-
-        save_profiled_model(costs, f"{out_prefix}_computation.json",
-                            f"{out_prefix}_memory.json")
+    _save(costs, out_prefix)
     return costs

@@ -333,100 +333,6 @@ def _dropped_grid_keep(s, causal, device):
     return mask
 
 
-@pytest.mark.parametrize("case", sorted(GRID_CASES))
-def test_grid_forward_plain_matches_jax_kernel(case, monkeypatch):
-    """``flash_fwd_grid_plain`` against ``_flash_fwd`` (interpret mode,
-    64-row blocks): out (in ``out_dtype``) and the natural-log lse. In
-    bf16 the JAX kernel rounds p against a running max, as the CUDA kernel
-    does, and passes the card's rule; the plain version with a key tile
-    dropped fails it."""
-    g = _grid_inputs(case, seed=len(case) + 30)
-    q, k, v, _ = g["arrays"]
-    rope = g["tables"]
-    jout, jlse = jfa._flash_fwd(*(jnp.asarray(a, g["jdt"]) for a in (q, k, v)), rope, g["sm"],
-                                g["causal"], GRID_BLOCK, GRID_BLOCK, True,
-                                out_dtype=g["out_dtype"][0], kv_rep=g["rep"])
-    trope = None if rope is None else tuple(torch.from_numpy(t) for t in rope)
-    tout, tlse = tfa.flash_fwd_grid_plain(*(_t(a, g["tdt"]).detach() for a in (q, k, v)), trope,
-                                          g["sm"], g["causal"], g["rep"], g["out_dtype"][1])
-    assert tout.dtype == (g["out_dtype"][1] or g["tdt"])
-    _grid_close(tout, jout.astype(jnp.float32), "fwd", GRID_CASES[case][7])
-    np.testing.assert_allclose(_np(tlse), np.asarray(jlse), atol=FWD_GRID_ATOL, rtol=0)
-    if GRID_CASES[case][7] == "bf16":
-        monkeypatch.setattr(tfa, "_grid_keep", _dropped_grid_keep)
-        ctl, _ = tfa.flash_fwd_grid_plain(*(_t(a, g["tdt"]).detach() for a in (q, k, v)), trope,
-                                          g["sm"], g["causal"], g["rep"], g["out_dtype"][1])
-        ref = torch.from_numpy(np.array(jout.astype(jnp.float32)))
-        assert tfa.bf16_parity_excess(ctl, ref) > tfa.BF16_PARITY_TOL["fwd"]
-
-
-@pytest.mark.parametrize("case", sorted(GRID_CASES))
-def test_grid_backward_plain_matches_jax_kernels(case):
-    """``flash_bwd_grid_plain`` against ``_flash_bwd_parts`` (interpret
-    mode, 64-row blocks) on caller-given row statistics: lse shifted off the
-    forward's and a random delta, as ring attention's global statistics
-    are not the local ones; k/v broadcast to h heads by the caller."""
-    g = _grid_inputs(case, seed=len(case) + 40)
-    q, k, v, do = g["arrays"]
-    b, h, _, s, d = GRID_CASES[case][:5]
-    rng = np.random.RandomState(5)
-    lse = (rng.standard_normal((b, h, s, 1)) * 0.1 + np.log(s)).astype(np.float32)
-    delta = rng.standard_normal((b, h, s, 1)).astype(np.float32)
-    kf, vf = (np.repeat(a, g["rep"], axis=1) for a in (k, v))
-    rope = g["tables"]
-    jgrads = jfa._flash_bwd_parts(*(jnp.asarray(a, g["jdt"]) for a in (q, kf, vf, do)), lse,
-                                  delta, rope, g["sm"], g["causal"], GRID_BLOCK, GRID_BLOCK, True)
-    trope = None if rope is None else tuple(torch.from_numpy(t) for t in rope)
-    tgrads = tfa.flash_bwd_grid_plain(*(_t(a, g["tdt"]).detach() for a in (q, kf, vf, do)),
-                                      torch.from_numpy(lse), torch.from_numpy(delta), trope,
-                                      g["sm"], g["causal"])
-    for got, ref in zip(tgrads, jgrads):
-        assert got.dtype == g["tdt"]
-        _grid_close(got, ref.astype(jnp.float32), "bwd", GRID_CASES[case][7])
-
-
-def test_grid_bwd_parts_broadcasts_kv_and_writes_into_given_grads():
-    """The wrapper's CPU route: GQA k/v broadcast to h heads before the
-    plain version, results copied into given outputs."""
-    b, h, s, d = 1, 4, 64, 16
-    q, k, v, do = (torch.from_numpy(a) for a in _arrays([(b, h, s, d), (b, 2, s, d),
-                                                        (b, 2, s, d), (b, h, s, d)], seed=9))
-    out, lse = tfa.flash_grid_fwd(q, k, v, None, 0.25, True, 2)
-    delta = (do * out).sum(-1, keepdim=True)
-    ref = tfa.flash_bwd_grid_plain(q, k.repeat_interleave(2, 1), v.repeat_interleave(2, 1), do,
-                                   lse, delta, None, 0.25, True)
-    grads = tuple(torch.empty_like(q) for _ in range(3))
-    assert tfa.flash_grid_bwd_parts(q, k, v, do, lse, delta, None, 0.25, True, 2, grads) is grads
-    for into, want in zip(grads, ref):
-        assert torch.equal(into, want)
-
-
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("rope", [False, True])
-def test_hm_grid_path_matches_jax(causal, rope):
-    """``flash_attention_hm`` outside the blocked envelope (no RoPE, or
-    non-causal) with four 32-row blocks: forward and gradients through the
-    port's grid route against JAX's grid kernels in interpret mode."""
-    s, d = 128, 32
-    q, k, v, w = _arrays([(1, 4, s, d), (1, 2, s, d), (1, 2, s, d), (1, 4, s, d)],
-                         seed=50 + 2 * causal + rope)
-    _assert_attention_matches_jax("flash_attention_hm", (q, k, v), w,
-                                  _tables(s, d) if rope else None, causal=causal, block_q=32,
-                                  block_k=32)
-
-
-@pytest.mark.parametrize("s,causal,rope", [(1, True, True), (100, True, False),
-                                           (96, False, True), (64, True, False)])
-def test_bsnd_flash_attention_matches_jax(s, causal, rope):
-    """``flash_attention`` over (B, S, n, d): one query row (decode path),
-    an untileable s (the einsum fallback, block 64), and the kernel route."""
-    d = 32
-    q, k, v, w = _arrays([(2, s, 2, d)] * 4, seed=60 + s)
-    _assert_attention_matches_jax("flash_attention", (q, k, v), w,
-                                  _tables(s, d) if rope else None, causal=causal, block_q=64,
-                                  block_k=64)
-
-
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     cos, sin = torch.zeros(64, 6), torch.zeros(64, 6)
     q = torch.zeros(1, 2, 64, 12)
@@ -537,175 +443,6 @@ def _tiles_close(got, ref, dtype):
         np.testing.assert_allclose(_np(got), ref.numpy(), atol=GRAD_ATOL, rtol=0)
     else:
         assert tfa.bf16_parity_excess(got, ref) <= tfa.BF16_PARITY_TOL["bwd"]
-
-
-@pytest.mark.parametrize("d,dtype", TILE_CASES)
-def test_bwd_tiles_plain_matches_jax_blocked_kernel(d, dtype):
-    """The blocked kernels' decomposition (the pre-pass's q', k' and delta,
-    dk/dv summed per 128-key block over walked query tiles from the
-    diagonal, dq per 128-query block over walked key tiles) against
-    ``_flash_bwd_blocked`` in interpret mode (512-key blocks cut to 128, q
-    sub-blocks of 64) at s = 384: three owned blocks, diagonal tiles of
-    both walk sizes."""
-    b, h, s = 1, 2, 384
-    sm = 1 / np.sqrt(d)
-    q, k, v, do = _arrays([(b, h, s, d)] * 4, seed=70 + d)
-    cos, sin = _tables(s, d)
-    jdt, tdt = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
-    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
-    out, lse = jfa._flash_fwd_blocked(jq, jk, jv, (cos, sin), sm, 128, True)
-    jgrads = jfa._flash_bwd_blocked(jq, jk, jv, jdo, out, lse, (cos, sin), sm, 128, 64, True)
-    tq, tk, tv, tdo = (_t(a, tdt).detach() for a in (q, k, v, do))
-    tout = torch.from_numpy(np.array(out.astype(jnp.float32))).to(tdt)
-    tcos, tsin = torch.from_numpy(cos), torch.from_numpy(sin)
-    qr, kr, delta = tfa.flash_bwd_prepass_plain(tq, tk, tdo, tout, tcos, tsin, sm)
-    tgrads = tfa.flash_bwd_tiles_plain(qr, kr, tv, tdo, torch.from_numpy(np.array(lse)), delta,
-                                       sm, rope=(tcos, tsin))
-    for got, ref in zip(tgrads, jgrads):
-        assert got.dtype == tdt
-        _tiles_close(got, ref.astype(jnp.float32), dtype)
-
-
-@pytest.mark.parametrize("d,dtype", TILE_CASES)
-@pytest.mark.parametrize("causal,rope", [(True, False), (False, False), (True, True),
-                                         (False, True)])
-def test_bwd_tiles_plain_matches_jax_grid_kernels(d, dtype, causal, rope):
-    """The grid dk/dv decomposition (scale after the product, dk scaled by
-    sm_scale, counter-rotated only with RoPE; q, k roped through the
-    unscaled tables by the pre-pass, or raw) against ``_flash_bwd_parts`` in
-    interpret mode (64-row blocks) on caller-given row statistics, causal or
-    not, with and without RoPE, at s = 256."""
-    b, h, s = 1, 2, 256
-    sm = 1 / np.sqrt(d)
-    q, k, v, do = _arrays([(b, h, s, d)] * 4, seed=80 + d + 2 * causal + rope)
-    rng = np.random.RandomState(5)
-    lse = (rng.standard_normal((b, h, s, 1)) * 0.1 + np.log(s)).astype(np.float32)
-    delta = rng.standard_normal((b, h, s, 1)).astype(np.float32)
-    tables = _tables(s, d) if rope else None
-    jdt, tdt = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
-    jgrads = jfa._flash_bwd_parts(*(jnp.asarray(a, jdt) for a in (q, k, v, do)), lse, delta,
-                                  tables, sm, causal, 64, 64, True)
-    tq, tk, tv, tdo = (_t(a, tdt).detach() for a in (q, k, v, do))
-    trope = None if tables is None else tuple(torch.from_numpy(t) for t in tables)
-    if trope is not None:  # the pre-pass with the unscaled tables on both
-        tq, tk = tfa.rope_k_plain(tq, *trope), tfa.rope_k_plain(tk, *trope)
-    tgrads = tfa.flash_bwd_tiles_plain(tq, tk, tv, tdo, torch.from_numpy(lse),
-                                       torch.from_numpy(delta), sm, causal=causal, grid=True,
-                                       rope=trope)
-    for got, ref in zip(tgrads, jgrads):
-        _tiles_close(got, ref.astype(jnp.float32), dtype)
-
-
-@pytest.mark.parametrize("s", [100, 200, 300])
-@pytest.mark.parametrize("walk", [64, 128])
-def test_bwd_tiles_plain_matches_the_whole_row_plain_at_ragged_s(s, walk):
-    """At an s no tile divides, the decomposition (the last owned block and
-    walked tile partly past s, masked) equals the whole-row plain versions
-    in fp32 within the summation-order tolerance: blocked, and grid causal
-    and not, at both walked-tile sizes."""
-    b, h, d = 1, 2, 32
-    sm = 0.2
-    q, k, v, do = (torch.from_numpy(a) for a in _arrays([(b, h, s, d)] * 4, seed=s + walk))
-    cos, sin = (torch.from_numpy(t) for t in _tables(s, d))
-    out, lse = tfa.flash_fwd_blocked_plain(q, k, v, cos, sin, sm)
-    qr, kr, delta = tfa.flash_bwd_prepass_plain(q, k, do, out, cos, sin, sm)
-    got = tfa.flash_bwd_tiles_plain(qr, kr, v, do, lse, delta, sm, rope=(cos, sin), walk=walk)
-    ref = tfa.flash_bwd_blocked_plain(q, k, v, do, out, lse, cos, sin, sm)
-    for g, r in zip(got, ref):
-        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-5, rtol=0)
-    for causal in (True, False):
-        out, lse = tfa.flash_fwd_grid_plain(q, k, v, None, sm, causal)
-        delta = (do * out).sum(-1, keepdim=True)
-        got = tfa.flash_bwd_tiles_plain(q, k, v, do, lse, delta, sm, causal=causal, grid=True,
-                                        walk=walk)
-        ref = tfa.flash_bwd_grid_plain(q, k, v, do, lse, delta, None, sm, causal)
-        for g, r in zip(got, ref):
-            np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-5, rtol=0)
-
-
-# ---------------------------------------------------------------------------
-# The bf16 grid forward's TMA kernel (csrc/flash_fwd_common.cuh, GRID true):
-# the plain twin of its walk held to the reference's `_fwd_kernel`.
-# ---------------------------------------------------------------------------
-
-FWD_TILE_CASES = [
-    # (head_dim, dtype, causal, rope, out fp32, s, kv_rep); s = 384 is three
-    # 128-row blocks, s = 200 leaves the last block and key tile ragged
-    *[(d, "bf16", causal, rope, False, 384, 1) for d in (64, 128) for causal in (True, False)
-      for rope in (False, True)],
-    (64, "bf16", True, False, True, 384, 1),
-    (128, "bf16", False, True, True, 384, 1),
-    (64, "bf16", True, True, False, 200, 1),
-    (128, "bf16", False, False, False, 200, 1),
-    (64, "bf16", True, False, False, 384, 2),
-    (64, "fp32", True, True, False, 384, 1),
-    (128, "fp32", False, False, False, 200, 1),
-]
-
-
-@pytest.mark.parametrize("d,dtype,causal,rope,out_fp32,s,rep", FWD_TILE_CASES)
-def test_fwd_tiles_plain_matches_jax_grid_kernel(d, dtype, causal, rope, out_fp32, s, rep):
-    """``flash_fwd_tiles_plain`` (128-query blocks, 128-key tiles, the
-    online softmax in the kernel's order) against ``_flash_fwd`` in
-    interpret mode (blocks of 64, or 40 at s = 200): out in ``out_dtype``
-    within 2^-5 by ``bf16_parity_excess`` (fp32 1e-5), lse within 1e-4 (fp32
-    1e-5); causal or not, with and without RoPE, GQA, ragged s."""
-    b, h = 1, 2 * rep
-    sm = 1 / np.sqrt(d)
-    block = 64 if s % 64 == 0 else 40
-    q, k, v = _arrays([(b, h, s, d), (b, h // rep, s, d), (b, h // rep, s, d)],
-                      seed=90 + d + s + 2 * causal + rope)
-    tables = _tables(s, d) if rope else None
-    jdt, tdt = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
-    jout, jlse = jfa._flash_fwd(*(jnp.asarray(a, jdt) for a in (q, k, v)), tables, sm, causal,
-                                block, block, True, out_dtype=jnp.float32 if out_fp32 else None,
-                                kv_rep=rep)
-    trope = None if tables is None else tuple(torch.from_numpy(t) for t in tables)
-    tout, tlse = tfa.flash_fwd_tiles_plain(*(_t(a, tdt).detach() for a in (q, k, v)), trope, sm,
-                                           causal, rep, torch.float32 if out_fp32 else None)
-    assert tout.dtype == (torch.float32 if out_fp32 else tdt) and tlse.shape == (b, h, s, 1)
-    ref = torch.from_numpy(np.array(jout.astype(jnp.float32)))
-    if dtype == "fp32":
-        np.testing.assert_allclose(_np(tout), ref.numpy(), atol=FWD_GRID_ATOL, rtol=0)
-    else:
-        assert tfa.bf16_parity_excess(tout, ref) <= tfa.BF16_PARITY_TOL["fwd"]
-    np.testing.assert_allclose(_np(tlse), np.asarray(jlse),
-                               atol=FWD_GRID_ATOL if dtype == "fp32" else 1e-4, rtol=0)
-
-
-@pytest.mark.parametrize("d,causal,rope,s,rep", [(64, True, False, 384, 2),
-                                                 (128, False, True, 384, 2),
-                                                 (64, True, True, 200, 1),
-                                                 (128, False, False, 200, 1)])
-def test_bwd_tiles_plain_dq_walk_matches_jax_grid_kernels(d, causal, rope, s, rep):
-    """The walk the grid dq kernel now takes (128-query blocks over W-key
-    tiles, q' and k' from the dk/dv call's pre-pass with RoPE) where the
-    cases above leave it open: GQA (k/v broadcast by the caller, as
-    ``flash_grid_bwd_parts`` reads kv head h / kv_rep) and a ragged s whose
-    last query block and key tile are partly past s, in bf16 against
-    ``_flash_bwd_parts`` in interpret mode (blocks of 64, or 40 at
-    s = 200)."""
-    b, h = 1, 2 * rep
-    sm = 1 / np.sqrt(d)
-    block = 64 if s % 64 == 0 else 40
-    q, k, v, do = _arrays([(b, h, s, d), (b, h // rep, s, d), (b, h // rep, s, d), (b, h, s, d)],
-                          seed=110 + d + s + rope)
-    kf, vf = (np.repeat(a, rep, axis=1) for a in (k, v))
-    rng = np.random.RandomState(6)
-    lse = (rng.standard_normal((b, h, s, 1)) * 0.1 + np.log(s)).astype(np.float32)
-    delta = rng.standard_normal((b, h, s, 1)).astype(np.float32)
-    tables = _tables(s, d) if rope else None
-    jgrads = jfa._flash_bwd_parts(*(jnp.asarray(a, jnp.bfloat16) for a in (q, kf, vf, do)), lse,
-                                  delta, tables, sm, causal, block, block, True)
-    tq, tk, tv, tdo = (_t(a, torch.bfloat16).detach() for a in (q, kf, vf, do))
-    trope = None if tables is None else tuple(torch.from_numpy(t) for t in tables)
-    if trope is not None:
-        tq, tk = tfa.rope_k_plain(tq, *trope), tfa.rope_k_plain(tk, *trope)
-    tgrads = tfa.flash_bwd_tiles_plain(tq, tk, tv, tdo, torch.from_numpy(lse),
-                                       torch.from_numpy(delta), sm, causal=causal, grid=True,
-                                       rope=trope)
-    for got, ref in zip(tgrads, jgrads):
-        _tiles_close(got, ref.astype(jnp.float32), "bf16")
 
 
 # ---------------------------------------------------------------------------

@@ -413,28 +413,6 @@ def _assert_leaves_close(torch_leaves, jax_tree, atol, what, scale_tol=0.0):
                                    err_msg=f"{what} leaf {i}")
 
 
-@pytest.mark.parametrize("recompute", ["off", "gate", "policy"])
-@pytest.mark.parametrize("attn", ["xla", "flash"])
-@pytest.mark.parametrize("family", ["llama", "opt"])
-def test_fused_norm_loss_and_grads_match_jax(family, attn, recompute):
-    """The summed token loss and every gradient with ``fused_norm=True`` on
-    both sides: loss within 1e-5 a token, each gradient leaf within 1e-6 +
-    5e-6 of its largest magnitude (fp32 sums in other orders)."""
-    jcfg, tcfg = _cfgs(family, attn, recompute)
-    ref = _jax_params(jcfg)
-    batch = _batch(2, 64)
-    (js, jn), jg = jax.value_and_grad(lambda p: jm.lm_loss_sum(p, jnp.asarray(batch), jcfg),
-                                      has_aux=True)(jax.tree.map(jnp.asarray, ref))
-    params = _torch_params(ref, tcfg)
-    ts, tn = tm.lm_loss_sum(params, torch.from_numpy(batch).long(), tcfg)
-    ts.backward()
-    assert int(tn) == int(jn)
-    np.testing.assert_allclose(float(ts.detach()), float(js), atol=LOSS_ATOL * batch.size,
-                               rtol=1e-6)
-    _assert_leaves_close([p.grad for p in tree_leaves(params)], jg, GRAD_ATOL, "grad",
-                         scale_tol=GRAD_SCALE_TOL)
-
-
 @pytest.mark.parametrize("family", ["llama", "opt"])
 def test_fused_norm_equals_the_plain_norm_in_the_port(family):
     """``fused_norm`` changes which code computes the norms and what is
@@ -513,11 +491,15 @@ def test_build_runtime_carries_fused_norm_under_every_ckpt_mode(monkeypatch, ckp
                      "rms_bwd": (2 * layers + 1) * chunks, "ln_fwd": 0, "ln_bwd": 0}
 
 
-@pytest.mark.parametrize("family,chunks,ckpt", [("llama", 1, "none"), ("llama", 2, "none"),
-                                                ("llama", 1, "full"), ("gpt", 1, "none"),
-                                                ("gpt", 2, "none"), ("opt", 1, "none"),
-                                                ("opt", 2, "none")])
-def test_five_step_trajectory_with_fused_norm_matches_jax_build_runtime(family, chunks, ckpt):
+#: (family, chunks, ckpt) of the 5-step trajectories, one file a family
+#: (``tests/test_torch_fused_norm_{llama,gpt,opt}.py``) so that the suite's
+#: workers share them
+TRAJECTORY_CASES = [("llama", 1, "none"), ("llama", 2, "none"), ("llama", 1, "full"),
+                    ("gpt", 1, "none"), ("gpt", 2, "none"), ("opt", 1, "none"),
+                    ("opt", 2, "none")]
+
+
+def five_step_trajectory(family, chunks, ckpt):
     """The whole fp32 train step with ``fused_norm=True`` on the flash path
     against the JAX runtime on a one-device mesh: the loss of each of 5
     AdamW steps and the parameters after them within 1e-4.

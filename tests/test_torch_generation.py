@@ -149,20 +149,6 @@ def test_generate_greedy_matches_jax_and_uncached(family):
     np.testing.assert_array_equal(got.numpy(), _greedy_uncached(tp, tcfg, prompt, 6))
 
 
-def test_ragged_prompts_teacher_forced(family):
-    """Ragged prompts in one lockstep batch: equal to JAX's ``generate_np``
-    and to each row generated alone (rows joining mid-prompt are
-    teacher-forced through their own prompt)."""
-    _, jcfg, tcfg, jp, tp = family
-    rng = np.random.RandomState(1)
-    prompts = [rng.randint(1, 97, (9,)).tolist(), rng.randint(1, 97, (4,)).tolist()]
-    got = tgen.generate_np(tp, tcfg, prompts, max_new_tokens=5)
-    assert got == jgen.generate_np(jp, jcfg, prompts, max_new_tokens=5)
-    for p, row in zip(prompts, got):
-        assert row == tgen.generate_np(tp, tcfg, [p], max_new_tokens=5)[0]
-        assert row[: len(p)] == p
-
-
 def test_generate_np_length_buckets_match_jax():
     """A bucket of 4 over prompts of 3, 6 and 10 tokens: the padded length
     rounds up, the prefill length rounds down, and the tokens equal JAX's;

@@ -310,6 +310,13 @@ GRID_CASES = {
     "encoder_s196_d80": (torch.bfloat16, 2, 16, 16, 196, 80, False, False, True, False),
     "encoder_s197_d80": (torch.bfloat16, 1, 4, 4, 197, 80, False, False, True, False),
     "encoder_fp32_s196_d80": (torch.float32, 1, 4, 4, 196, 80, False, False, True, False),
+    # T5: t5-large's encoder (unmasked) and decoder self-attention (causal)
+    # at (b, 16, 512, 64) in the stacked view, and t5-3b's 32 heads of
+    # head_dim 32 (the CUDA-core kernels) both ways
+    "t5_large_s512_d64": (torch.bfloat16, 4, 16, 16, 512, 64, False, False, True, False),
+    "t5_large_causal_s512_d64": (torch.bfloat16, 4, 16, 16, 512, 64, True, False, True, False),
+    "t5_3b_s512_d32": (torch.bfloat16, 2, 32, 32, 512, 32, False, False, True, False),
+    "t5_3b_causal_s512_d32": (torch.bfloat16, 2, 32, 32, 512, 32, True, False, True, False),
 }
 
 

@@ -96,7 +96,8 @@ HF_MODULES = ("galvatron_tpu_torch.models.hf_io", "galvatron_tpu_torch.models.co
               "galvatron_tpu_torch.models.opt", "galvatron_tpu_torch.models.baichuan")
 #: the encoder slice's entry packages and the image stream's loader
 ENCODER_MODULES = ("galvatron_tpu_torch.models.bert", "galvatron_tpu_torch.models.vit",
-                   "galvatron_tpu_torch.core.dataloader")
+                   "galvatron_tpu_torch.core.dataloader", "galvatron_tpu_torch.models.t5",
+                   "galvatron_tpu_torch.parallel.pipeline_encdec")
 SCANNED = sorted([str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
                  + ["chip_smoke.py", "experiments/torch_decode_profile.py"])
 
@@ -109,25 +110,60 @@ def test_the_scan_covers_the_parallel_modules():
             m.replace(".", "/") + "/__init__.py" in SCANNED
 
 
-@pytest.mark.parametrize("module", PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES
-                         + SERVING_MODULES + MOE_MODULES + PACKED_OVERLAP_MODULES + HF_MODULES
-                         + ENCODER_MODULES)
-def test_parallel_module_alone_loads_no_jax(module):
-    """Each module of the hybrid runtime, the search, the training services
-    and generation / serving, imported first and alone in a fresh
-    interpreter (packing, the collective matmul, the HF import / export and
-    the family entry packages too), pulls in neither JAX, the JAX package,
-    Orbax, TensorStore, transformers nor safetensors."""
-    code = (
-        "import importlib, sys\n"
-        f"importlib.import_module({module!r})\n"
-        + _BAD_MODULES +
-        "assert not bad, bad\n"
-    )
+ALONE_MODULES = (PARALLEL_MODULES + SEARCH_MODULES + SERVICES_MODULES + SERVING_MODULES
+                 + MOE_MODULES + PACKED_OVERLAP_MODULES + HF_MODULES + ENCODER_MODULES)
+#: one fresh interpreter loads torch and numpy (neither is forbidden) and then
+#: forks one child per module: the child imports that module first and alone
+#: and reports the forbidden modules it then holds (one JSON line a module)
+_ALONE = (
+    "import importlib, json, os, sys\n"
+    "import numpy, torch\n"
+    "for module in sys.argv[1:]:\n"
+    "    r, w = os.pipe()\n"
+    "    pid = os.fork()\n"
+    "    if pid == 0:\n"
+    "        os.close(r)\n"
+    "        try:\n"
+    "            importlib.import_module(module)\n"
+    "            " + _BAD_MODULES.replace("\n", "\n            ").rstrip(" ") +
+    "            out = {'bad': bad}\n"
+    "        except BaseException as e:\n"
+    "            out = {'error': repr(e)}\n"
+    "        os.write(w, json.dumps(out).encode())\n"
+    "        os._exit(0)\n"
+    "    os.close(w)\n"
+    "    data = b''\n"
+    "    while chunk := os.read(r, 65536):\n"
+    "        data += chunk\n"
+    "    os.close(r)\n"
+    "    os.waitpid(pid, 0)\n"
+    "    print(json.dumps(dict(json.loads(data), module=module)), flush=True)\n"
+)
+
+
+@pytest.fixture(scope="module")
+def alone_imports():
+    """{module: what its child reported}, from one fresh interpreter."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=120)
+    r = subprocess.run([sys.executable, "-c", _ALONE, *ALONE_MODULES], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
+    import json
+
+    return {d["module"]: d for d in map(json.loads, r.stdout.splitlines())}
+
+
+@pytest.mark.parametrize("module", ALONE_MODULES)
+def test_parallel_module_alone_loads_no_jax(module, alone_imports):
+    """Each module of the hybrid runtime, the search, the training services
+    and generation / serving, imported first and alone in a child of a
+    fresh interpreter that holds only torch and numpy (packing, the
+    collective matmul, the HF import / export and the family entry packages
+    too), imports cleanly and pulls in neither JAX, the JAX package, Orbax,
+    TensorStore, transformers nor safetensors."""
+    got = alone_imports[module]
+    assert "error" not in got, got["error"]
+    assert not got["bad"], got["bad"]
 
 
 @pytest.mark.parametrize("path", SCANNED)

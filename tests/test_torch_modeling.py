@@ -102,9 +102,10 @@ def test_unported_families_raise_naming_the_roadmap(field, value):
     and its gradients reach every layer (its parity with the JAX package is
     ``tests/test_torch_alibi.py``). The encoders (bidirectional, 'mlm',
     'cls': ``tests/test_torch_encoder.py``, ``tests/test_torch_vision.py``)
-    train, and the engine refuses them with the reference's message; their
-    Swin (``swin_depths``) or T5 (``enc_layers``) variant raises naming
-    §1.10."""
+    train, and the engine refuses them with the reference's message, as it
+    refuses the encoder-decoder (T5: ``enc_layers``), which trains too
+    (``tests/test_torch_encdec.py``); their Swin (``swin_depths``) variant
+    raises naming §1.10."""
     from galvatron_tpu_torch.serving import Engine
 
     _, tcfg = _cfgs(None)
@@ -120,8 +121,13 @@ def test_unported_families_raise_naming_the_roadmap(field, value):
         assert torch.isfinite(tm.lm_loss(params, batch, cfg))
         with pytest.raises(ValueError, match="requires a decoder-only causal LM"):
             Engine(params, cfg, device="cpu", start_loop=False)
-        unported = (cfg.replace(swin_depths=(1, 1)) if value == "cls"
-                    else cfg.replace(enc_layers=2, enc_seq=16))
+        t5 = tcfg.replace(enc_layers=2, enc_seq=16)
+        t5_batch = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 97, (2, tm.batch_row_width(t5, 16)))).long()
+        assert torch.isfinite(tm.lm_loss(tm.init_model_params(t5, 0, "cpu"), t5_batch, t5))
+        with pytest.raises(ValueError, match="requires a decoder-only causal LM"):
+            Engine(params, t5, device="cpu", start_loop=False)
+        unported = cfg.replace(swin_depths=(1, 1))
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
             tm.init_model_params(unported, 0, "cpu")
         with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):

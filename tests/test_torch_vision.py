@@ -113,8 +113,8 @@ def test_loss_and_gradients_match_jax_at_196_patches(attn_impl):
     tcfg = tcfg.replace(attn_impl=attn_impl)
     ref = _params(jcfg)
     b = _batch(RAGGED, seed=2)
-    jloss, jgrads = jax.value_and_grad(lambda p: jm.lm_loss(p, jnp.asarray(b, jnp.int32), jcfg))(
-        jax.tree.map(jnp.asarray, ref))
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jm.lm_loss(p, jnp.asarray(b, jnp.int32), jcfg)))(jax.tree.map(jnp.asarray, ref))
     params = bridge.params_from_jax(ref, tcfg, "cpu")
     leaves = tree_leaves(params)
     for p in leaves:
