@@ -61,16 +61,17 @@ its result line:
    dropped-tile control, timed beside the plain versions, SDPA non-causal
    forward and backward and the bounds.
    Then the four fused norm kernels (RMSNorm and LayerNorm, forward and
-   backward) against their plain versions: the training shapes (16384 rows
-   x 4096 RMSNorm, 16384 x 2048 LayerNorm) in bf16 and fp32, and edge
-   shapes (1, 4 and 1000 rows; H = 128 and 5120; ``fused_add_rmsnorm``; a
-   stride-0 incoming gradient). fp32 within 1e-5 (y, statistics) and 1e-4
-   (dx); bf16 y and dx by ``bf16_parity_excess`` within 2^-10; dscale and
-   dbias within 1e-4 of the vector's rms. Two controls must fail the same
-   checks: a row normalised with the wrong H, and column sums with a strip
-   of rows left out. Kernel, plain, library (``F.rms_norm`` /
-   ``F.layer_norm`` and their autograd backward; timed only) and bound
-   times;
+   backward) against their plain versions: the training shapes (16384 rows x
+   4096 RMSNorm, 16384 x 2048 LayerNorm) in bf16 and fp32, and edge shapes (1,
+   4 and 1000 rows; H = 128 and 5120; ``fused_add_rmsnorm``; a stride-0
+   incoming gradient), and LayerNorm at Swin's widths and rows (phase 24 (a)'s
+   stage-0 128 x 3136 rows of 128 and last merge's 128 x 49 rows of 2048 timed;
+   256, 512, 1024 and swin-large's 384 and 3072). fp32 within 1e-5 (y,
+   statistics) and 1e-4 (dx); bf16 y and dx by ``bf16_parity_excess`` within
+   2^-10; dscale and dbias within 1e-4 of the vector's rms. Two controls must
+   fail the same checks: a row normalised with the wrong H, and column sums
+   with a strip of rows left out. Kernel, plain, library (``F.rms_norm`` /
+   ``F.layer_norm`` and their autograd backward; timed only) and bound times;
 4. llama-7b width at 2 layers in fp32: prefill + 8 decode steps through
    ``forward_with_cache_paged`` on the card (kernel) and on the CPU (plain
    version); logits within 1e-3, kernel launches == layers x decode steps;
@@ -352,27 +353,50 @@ its result line:
    check-plan --strict 1`` of the plan and ``cli train`` of it for 2 steps
    (grid launches as the plan's recompute implies, TMA); (e) ``cli serve``
    and ``cli generate`` of bert-base refused with the reference's messages.
-23. the T5 encoder-decoder (phase name ``encdec``), in this process but for
-   (d): (a) ``cli train --model_size t5-large`` (all 24 + 24 layers, h 1024,
-   16 heads, 512 + 512 tokens), bf16, batch 16, 3 steps: finite, falling
-   losses; the grid kernels 24 x 3 each unmasked at (16, 16, 512) (the
-   encoder) and 24 x 3 each causal (the decoder's self-attention), all on
-   the TMA route, and nothing else (no blocked kernel, no other shape:
-   cross-attention is einsum, no ``paged_decode``); iter_ms, decoder
-   tokens/s, MFU and peak memory; (b) t5-large width at 2 + 2 layers, fp32,
-   2 rows, forward and backward on the card (the grid kernels on the
-   CUDA-core route) against the CPU: logits, loss and every gradient within
-   ``ENCDEC_TOLS``; (c) the same at t5-3b width (32 heads of 32, ffn
-   16384), then a bf16 step of 4 rows, every grid launch on the CUDA-core
-   route; (d) pp = 2 on two gloo ranks sharing the card, t5-large width at 4
-   + 4 layers, fp32, GPipe then 1F1B in one pair of rank processes
-   (``--then``): losses within ``ENCDEC_PIPE_RTOL`` relative of world size 1
-   run here, the first run's parameters within AdamW's band; (e) ``cli
-   profile`` (two layer types), ``cli search`` for one device under a
-   budget, ``cli check-plan --strict 1`` and ``cli train`` of the plan for 2
-   steps at t5-large width, 4 + 4 layers; (f) ``cli serve`` and ``cli
-   generate`` of t5-base refused with the reference's messages, and a cp = 2
-   plan refused by ``build_runtime`` with the reference's.
+23. the T5 encoder-decoder (phase name ``encdec``), in this process but for (d)
+   (run after phase 24, its rank processes shared with 24 (c)): (a) ``cli train
+   --model_size t5-large`` (all 24 + 24 layers, h 1024, 16 heads, 512 + 512
+   tokens), bf16, batch 16, 3 steps: finite, falling losses; the grid kernels
+   24 x 3 each unmasked at (16, 16, 512) (the encoder) and 24 x 3 each causal
+   (the decoder's self-attention), all on the TMA route, and nothing else (no
+   blocked kernel, no other shape: cross-attention is einsum, no
+   ``paged_decode``); iter_ms, decoder tokens/s, MFU and peak memory; (b)
+   t5-large width at 2 + 2 layers, fp32, 2 rows, forward and backward on the
+   card (the grid kernels on the CUDA-core route) against the CPU: logits, loss
+   and every gradient within ``ENCDEC_TOLS``; (c) the same at t5-3b width (32
+   heads of 32, ffn 16384), then a bf16 step of 4 rows, every grid launch on
+   the CUDA-core route; (d) pp = 2 on two gloo ranks sharing the card, t5-large
+   width at 4 + 4 layers, fp32, GPipe then 1F1B in one pair of rank processes
+   (``--then``; with 24 (c)'s runs when both phases run): losses within
+   ``ENCDEC_PIPE_RTOL`` relative of world size 1 run here, the first run's
+   parameters within AdamW's band; (e) ``cli profile`` (two layer types), ``cli
+   search`` for one device under a budget, ``cli check-plan --strict 1`` and
+   ``cli train`` of the plan for 2 steps at t5-large width, 4 + 4 layers; (f)
+   ``cli serve`` and ``cli generate`` of t5-base refused with the reference's
+   messages, and a cp = 2 plan refused by ``build_runtime`` with the
+   reference's.
+24. the Swin pyramid (phase name ``swin``), in this process but for (c) (run
+   after (e), in 23 (d)'s pair of rank processes when both phases run): (a)
+   ``trainer.train`` of ``--model_size swin-base`` (all 24 layers in stages of
+   2, 2, 18 and 2; 224-pixel images, 56 x 56 patches, windows of 7) with
+   ``fused_norm=True``, bf16, 128 images (the Swin paper's per-GPU batch), 3
+   steps: finite losses; the LayerNorm kernels (2 x 24 + 3 + 1) x 3 times each,
+   by width 128 / 256 / 512 / 1024 (the layers), 512 / 1024 / 2048 (the patch
+   merges) and 1024 (the final norm), and nothing else (the window attention is
+   einsum: no flash kernel, no ``paged_decode``); iter_ms, images/s, MFU by the
+   Swin count and peak memory; (b) swin-base and swin-large widths at depths
+   (2, 2, 2, 2), fp32, 2 images, forward and backward on the card against the
+   CPU: logits, loss and every gradient within ``ENCDEC_TOLS``; then a bf16
+   swin-large step with the fused norms: its stage-0 width 192 takes the plain
+   version by the shared ``H % 128`` gate, 384 and wider the kernels; (c) pp =
+   2 on two gloo ranks sharing the card, swin-base width at depths (2, 2, 2,
+   2), fp32, GPipe then 1F1B in one pair of rank processes: losses within
+   ``SWIN_PIPE_RTOL`` relative of world size 1 run here, the first run's
+   parameters within AdamW's band; (d) ``cli profile`` (one layer type a
+   stage), ``cli search`` for one device under a budget, ``cli check-plan
+   --strict 1`` and ``cli train`` of the plan for 2 steps at the same depths;
+   (e) ``cli serve`` and ``cli generate`` of swin-base refused with the
+   reference's messages.
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
@@ -1262,6 +1286,16 @@ NORM_CASES = [
     ("rms h5120", "rms", "bfloat16", 1000, 5120, False),
     ("ln h5120", "ln", "bfloat16", 1000, 5120, False),
     ("rms h7168 fp32", "rms", "float32", 1000, 7168, False),
+    # Swin's widths (phase 24): (a)'s largest rows timed, stage 0's 128 x
+    # 3136 x 128 and the last merge's 128 x 49 x 2048; the layers' and
+    # merges' other widths, and swin-large's, at their rows for parity
+    ("ln swin h128", "ln", "bfloat16", 128 * 3136, 128, True),
+    ("ln swin h2048", "ln", "bfloat16", 128 * 49, 2048, True),
+    ("ln swin h256", "ln", "bfloat16", 128 * 784, 256, False),
+    ("ln swin h512", "ln", "bfloat16", 128 * 784, 512, False),
+    ("ln swin h1024", "ln", "bfloat16", 128 * 196, 1024, False),
+    ("ln swin h384", "ln", "bfloat16", 16 * 784, 384, False),
+    ("ln swin h3072", "ln", "bfloat16", 16 * 49, 3072, False),
 ]
 # bf16 y and dx against the plain version, by fa.bf16_parity_excess: both
 # round one fp32 value whose two computations differ only in the order of
@@ -2466,8 +2500,8 @@ def _launch_rank_runs(argvs, outdir, backend, local_ranks, extra=()):
     """Several ``cli train`` runs one after another in ONE set of rank
     processes (each process and its CUDA context start once; the runs share
     the default process group): run j's records land in ``outdir/run<j>``
-    (``--ref-params`` in ``extra`` holds the first run to it). Returns each
-    run's rank records."""
+    (``--ref-params`` in ``extra`` holds the runs to world-size-1
+    parameters, in run order). Returns each run's rank records."""
     from galvatron_tpu_torch.parallel.launch import launch_local
 
     cmd = [sys.executable, os.path.abspath(__file__), "--rank-worker", outdir, *extra, "--"]
@@ -5287,7 +5321,9 @@ def _card_against_cpu(torch, cfg, batch, what, backward, phase="22",
             loss = s / n
             if backward:
                 loss.backward()
-        grads = [p.grad.cpu() for p in leaves] if backward else []
+        # a leaf the loss does not reach (Swin's wo_b) has a zero gradient
+        grads = [torch.zeros(p.shape) if p.grad is None else p.grad.cpu()
+                 for p in leaves] if backward else []
         return logits.detach().cpu(), loss.item(), grads
 
     before, routes_before = kernel_counts(), route_counts()
@@ -5312,9 +5348,10 @@ def _card_against_cpu(torch, cfg, batch, what, backward, phase="22",
     check(loss_rel <= loss_tol, f"{phase} {what}: loss {card[1]} vs CPU {cpu[1]}")
     if backward:
         check(grad_rel <= grad_tol, f"{phase} {what}: gradients {grad_rel} from the CPU's")
-    # every layer's self-attention; an encoder-decoder's cross-attention is einsum
-    want = {"flash_grid_fwd": cfg.total_layers}
-    if backward:
+    # every layer's self-attention; an encoder-decoder's cross-attention and
+    # Swin's window attention are einsum
+    want = {} if cfg.swin_depths else {"flash_grid_fwd": cfg.total_layers}
+    if backward and not cfg.swin_depths:
         want.update(flash_grid_dkdv=cfg.total_layers, flash_grid_dq=cfg.total_layers)
     check(res["launches"] == want, f"{phase} {what}: launches {res['launches']}, expected {want}")
     check(all(routes[k]["cuda_core"] == want.get(k, 0) and routes[k]["tma"] == 0
@@ -5572,7 +5609,6 @@ def phase_encdec(torch, smi):
         del params, loss
         gc.collect()
         torch.cuda.empty_cache()
-        out["d_pipeline"] = _encdec_pipeline(torch, smi, tmpdir)
         out["e_search"] = _encdec_search(torch, smi, tmpdir)
     # (f) the reference's refusals: serving, generation, context parallelism
     for mode, msg in ENCODER_REFUSALS.items():
@@ -5596,66 +5632,79 @@ def phase_encdec(torch, smi):
     return by_mask
 
 
-def _encdec_pipeline(torch, smi, tmpdir):
-    """23 (d): t5-large width at 4 + 4 layers, fp32, pp = 2 on two gloo
-    ranks sharing the card, GPipe then 1F1B in ONE pair of rank processes,
-    each against world size 1 in this process (losses within
-    ``ENCDEC_PIPE_RTOL`` relative; the first run's parameters within
-    AdamW's band)."""
+def _coupled_pipelines(torch, smi, phases):
+    """The coupled-sections pipelines, 23 (d) (T5: t5-large width at 4 + 4
+    layers) and 24 (c) (Swin: swin-base width at depths 2, 2, 2, 2), those
+    of ``phases``: each model in fp32 at pp = 2 on two gloo ranks sharing
+    the card, GPipe then 1F1B, every run in ONE pair of rank processes;
+    each against world size 1 in this process (losses within its ``rtol``
+    relative; the GPipe run's parameters within AdamW's band). Returns
+    {phase: result}."""
     from galvatron_tpu_torch.core import trainer
     from galvatron_tpu_torch.core.arguments import initialize_galvatron
     from galvatron_tpu_torch.core.strategy import HybridParallelConfig
 
-    c = ENCDEC_PIPE
-    total = 2 * c["layers"]
+    e, w = ENCDEC_PIPE, SWIN_FP32["depths"]
+    specs = [spec for spec in (
+        ("encdec", "23 (d)", "t5-large width", _t5_shape("t5-large", e["layers"]),
+         2 * e["layers"], e, ENCDEC_PIPE_RTOL, f"{e['layers']} + {e['layers']}"),
+        ("swin", "24 (c)", "swin-base width", _swin_shape("swin-base", w), sum(w), SWIN_PIPE,
+         SWIN_PIPE_RTOL, "+".join(map(str, w)))) if spec[0] in phases]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_coupled_") as tmpdir:
+        t0 = time.perf_counter()
+        argvs, refs, ref_losses = [], [], {}
+        for phase, tag, _, shape, total, c, _, _ in specs:
 
-    def argv(plan):
-        return [*_t5_shape("t5-large", c["layers"]), "--global_train_batch_size",
-                str(c["batch"]), "--train_iters", str(c["steps"]),
-                "--galvatron_config_path", plan]
+            def argv(plan, shape=shape, c=c):
+                return [*shape, "--global_train_batch_size", str(c["batch"]), "--train_iters",
+                        str(c["steps"]), "--galvatron_config_path", plan]
 
-    plan1 = os.path.join(tmpdir, "encdec_w1.json")
-    HybridParallelConfig.uniform(total, chunks=c["chunks"], mixed_precision="fp32").save(plan1)
-    t0 = time.perf_counter()
-    ref = trainer.train(initialize_galvatron("train", argv(plan1)))
-    ref_path = os.path.join(tmpdir, "encdec_ref_params.pt")
-    torch.save(_to(ref["state"]["params"], "cpu"), ref_path)
-    ref_losses = ref["losses"]
-    del ref
-    gc.collect()
-    torch.cuda.empty_cache()
-    plans = []
-    for ptype in ("gpipe", "pipedream_flush"):
-        plans.append(os.path.join(tmpdir, f"encdec_pp2_{ptype}.json"))
-        HybridParallelConfig.uniform(total, pp=2, chunks=c["chunks"], pipeline_type=ptype,
-                                     mixed_precision="fp32").save(plans[-1])
-    outdir = os.path.join(tmpdir, "encdec_pipe")
-    runs = _launch_rank_runs([argv(p) for p in plans], outdir, "gloo", (0, 0),
-                             ("--ref-params", ref_path))
-    os.remove(ref_path)
-    res = {"card": smi, "layers": f"{c['layers']} + {c['layers']}", "batch": c["batch"],
-           "chunks": c["chunks"], "steps": c["steps"], "world1_losses": ref_losses,
-           "rtol": ENCDEC_PIPE_RTOL, "runs": {}}
-    band = 2 * c["steps"] * 1e-4  # AdamW's band at cli train's lr, as phase 13 (a)
-    for ptype, ranks in zip(("GPipe", "1F1B"), runs):
-        losses = ranks[0]["losses"]
-        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
-        check(all(r["losses"] == losses for r in ranks), f"23 (d) {ptype}: ranks disagree")
-        check(rel <= ENCDEC_PIPE_RTOL, f"23 (d) {ptype}: losses {losses} vs world size 1 "
-              f"{ref_losses}")
-        check(sorted(r["stage"] for r in ranks) == [0, 1], f"23 (d) {ptype}: stages")
-        entry = {"losses": losses, "max_rel_loss_diff": rel,
-                 "in_flight": [r["stats"].get("in_flight") for r in ranks],
-                 "stage_layers": [r["stage_layers"] for r in ranks],
-                 "iter_times": ranks[0]["iter_times"]}
-        if "param_max_abs_diff" in ranks[0]:
-            entry["param_max_abs_diff"] = max(r["param_max_abs_diff"] for r in ranks)
-            check(entry["param_max_abs_diff"] <= band,
-                  f"23 (d) {ptype}: parameters {entry['param_max_abs_diff']} from world size 1")
-        res["runs"][ptype] = entry
-    res["seconds"] = time.perf_counter() - t0
-    log("phase 23 (d) t5-large width pp = 2:", json.dumps(res))
-    return res
+            plan1 = os.path.join(tmpdir, f"{phase}_w1.json")
+            HybridParallelConfig.uniform(total, chunks=c["chunks"],
+                                         mixed_precision="fp32").save(plan1)
+            ref = trainer.train(initialize_galvatron("train", argv(plan1)))
+            refs.append(os.path.join(tmpdir, f"{phase}_ref_params.pt"))
+            torch.save(_to(ref["state"]["params"], "cpu"), refs[-1])
+            ref_losses[phase] = ref["losses"]
+            del ref
+            gc.collect()
+            torch.cuda.empty_cache()
+            for ptype in ("gpipe", "pipedream_flush"):
+                plan = os.path.join(tmpdir, f"{phase}_pp2_{ptype}.json")
+                HybridParallelConfig.uniform(total, pp=2, chunks=c["chunks"], pipeline_type=ptype,
+                                             mixed_precision="fp32").save(plan)
+                argvs.append(argv(plan))
+            refs.append("")  # the 1F1B run is held to the losses only
+        runs = _launch_rank_runs(argvs, os.path.join(tmpdir, "ranks"), "gloo", (0, 0),
+                                 ("--ref-params", ",".join(refs)))
+        seconds = time.perf_counter() - t0
+    for i, (phase, tag, what, _, _, c, rtol, layers) in enumerate(specs):
+        res = {"card": smi, "layers": layers, "batch": c["batch"], "chunks": c["chunks"],
+               "steps": c["steps"], "world1_losses": ref_losses[phase], "rtol": rtol,
+               "runs": {}, "rank_processes_shared_by": [s[0] for s in specs],
+               "seconds": seconds}
+        band = 2 * c["steps"] * 1e-4  # AdamW's band at cli train's lr, as phase 13 (a)
+        for ptype, ranks in zip(("GPipe", "1F1B"), runs[2 * i:2 * i + 2]):
+            losses = ranks[0]["losses"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses[phase]))
+            check(all(r["losses"] == losses for r in ranks), f"{tag} {ptype}: ranks disagree")
+            check(rel <= rtol, f"{tag} {ptype}: losses {losses} vs world size 1 "
+                  f"{ref_losses[phase]}")
+            check(sorted(r["stage"] for r in ranks) == [0, 1], f"{tag} {ptype}: stages")
+            entry = {"losses": losses, "max_rel_loss_diff": rel,
+                     "in_flight": [r["stats"].get("in_flight") for r in ranks],
+                     "stage_layers": [r["stage_layers"] for r in ranks],
+                     "iter_times": ranks[0]["iter_times"]}
+            if "param_max_abs_diff" in ranks[0]:
+                entry["param_max_abs_diff"] = max(r["param_max_abs_diff"] for r in ranks)
+                check(entry["param_max_abs_diff"] <= band, f"{tag} {ptype}: parameters "
+                      f"{entry['param_max_abs_diff']} from world size 1")
+            res["runs"][ptype] = entry
+        check("param_max_abs_diff" in res["runs"]["GPipe"], f"{tag}: no parameter check")
+        log(f"phase {tag} {what} pp = 2:", json.dumps(res))
+        out[phase] = res
+    return out
 
 
 def _encdec_search(torch, smi, tmpdir):
@@ -5719,6 +5768,225 @@ def _encdec_search(torch, smi, tmpdir):
     return res
 
 
+SWIN_STEPS = 3
+# (a) swin-base at full width and depth (2, 2, 18, 2 layers over 56 x 56
+# patches), 224-pixel images, the Swin paper's per-GPU batch (1024 over 8)
+SWIN_BASE = ("swin-base", 128)  # (preset, images)
+# (b) card against CPU at fp32: swin-base and swin-large widths at depths
+# (2, 2, 2, 2), 2 images, 23 (b)'s bounds; then one bf16 swin-large step
+SWIN_FP32 = dict(depths=(2, 2, 2, 2), batch=2)
+SWIN_LARGE_BF16 = 16  # images
+# (c) the K-section pipeline: swin-base width at depths (2, 2, 2, 2), fp32
+SWIN_PIPE = dict(batch=4, chunks=2, steps=2)
+SWIN_PIPE_RTOL = 1e-5
+# (d) profiled, searched, checked and trained at depths (2, 2, 2, 2)
+SWIN_SEARCH = dict(batch=8, steps=2, budget_gb=40)
+
+
+def _swin_shape(preset, depths):
+    return ["--model_size", preset, "--num_layers", str(sum(depths)),
+            "--swin_depths", ",".join(map(str, depths))]
+
+
+def _swin_ln_widths(cfg):
+    """The LayerNorm rows of one Swin forward by width, {H: norms}: two
+    norms a layer at its stage's width, each patch merge's at 4C, the final
+    norm at the last stage's width; the widths the kernels tile (H % 128 ==
+    0, ``fused_norm._tiles``) and the ones that take the plain version."""
+    from galvatron_tpu_torch.models import modeling
+
+    widths = {}
+    for i in range(cfg.num_layers):
+        h = modeling.vision_layer_cfg(cfg, i).hidden_size
+        widths[h] = widths.get(h, 0) + 2
+    for k in range(len(cfg.swin_depths) - 1):
+        h = 4 * modeling.swin_geometry(cfg, k)[2]
+        widths[h] = widths.get(h, 0) + 1
+    last = modeling.swin_geometry(cfg, len(cfg.swin_depths) - 1)[2]
+    widths[last] = widths.get(last, 0) + 1
+    return ({h: n for h, n in widths.items() if h % 128 == 0},
+            {h: n for h, n in widths.items() if h % 128})
+
+
+def phase_swin(torch, smi):
+    """Phase 24: the Swin pyramid (module docstring). Returns (a)'s
+    LayerNorm launches {"ln_fwd": n, "ln_bwd": n}."""
+    import numpy as np
+
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron, model_config_from_args
+    from galvatron_tpu_torch.core.optim import tree_leaves
+    from galvatron_tpu_torch.models import modeling
+    from galvatron_tpu_torch.ops import flash_attention as fa
+    from galvatron_tpu_torch.ops import fused_norm as fn
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    out = {}
+    rng = np.random.RandomState(24)
+
+    def rows(cfg, n):
+        return torch.from_numpy(np.concatenate(
+            [rng.randint(0, 256, (n, cfg.sample_len)), rng.randint(0, cfg.num_classes, (n, 1))],
+            1))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_swin_") as tmpdir:
+        # (a) swin-base, all 24 layers, 128 images of 224², bf16, fused norms
+        preset, bsz = SWIN_BASE
+        path = os.path.join(tmpdir, "train_metrics_swin.jsonl")
+        argv = ["--model_size", preset, "--global_train_batch_size", str(bsz),
+                "--train_iters", str(SWIN_STEPS), "--metrics_path", path]
+        ns = initialize_galvatron("train", argv)
+        cfg = model_config_from_args(ns).replace(fused_norm=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reset_kernel_counts()  # the main path's counts start here
+        paged_before = fa.paged_decode_attention.launches
+        del trainer.train(ns, cfg=cfg)["state"]
+        launches, widths = kernel_counts(), fn.width_counts()  # right after the main path
+        paged = fa.paged_decode_attention.launches - paged_before
+        seconds = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        recs = [r for r in read_metrics(path) if r["event"] == "train_iter"]
+        losses = [r["loss"] for r in recs]
+        check(len(recs) == SWIN_STEPS and all(np.isfinite(losses)), f"24 (a): losses {losses}")
+        tiled, plain = _swin_ln_widths(cfg)
+        check(not plain, f"24 (a): swin-base widths off the kernels' tiles {plain}")
+        n = SWIN_STEPS
+        want_w = {h: k * n for h, k in tiled.items()}
+        per_step = sum(tiled.values())
+        # nothing else: no flash kernel (window attention is einsum), no RMSNorm
+        want = {k: per_step * n if k in ("ln_fwd", "ln_bwd") else 0 for k in launches}
+        check(launches == want and paged == 0,
+              f"24 (a): launches {launches}, expected {want}; paged_decode {paged}")
+        check(widths["ln_fwd"] == want_w and widths["ln_bwd"] == want_w,
+              f"24 (a): LayerNorm launches by H {widths}, expected {want_w} each")
+        steady = recs[1:]
+        iter_ms = sum(r["iter_ms"] for r in steady) / len(steady)
+        out["a_swin_base"] = {
+            "card": smi, "argv": argv[:-2], "fused_norm": True, "steps": n, "losses": losses,
+            "iter_ms_mean_from_2": iter_ms, "iter_ms": [r["iter_ms"] for r in recs],
+            "images_per_s": bsz / (iter_ms / 1e3),
+            "mfu": sum(r["mfu"] for r in steady) / len(steady),
+            "max_memory_allocated_gb": peak_gb, "ln_launches_per_step": per_step,
+            "ln_launches_by_h": {k: {str(h): c for h, c in sorted(v.items())}
+                                 for k, v in widths.items() if v},
+            "other_launches": {k: v for k, v in launches.items()
+                               if k not in ("ln_fwd", "ln_bwd")},
+            "paged_decode": paged, "seconds": seconds}
+        log("phase 24 (a) swin-base:", json.dumps(out["a_swin_base"]))
+        # (b) swin-base and swin-large widths at depths (2, 2, 2, 2), fp32
+        fp = SWIN_FP32
+        for name in ("swin-base", "swin-large"):
+            c = modeling.PRESETS[name].replace(num_layers=sum(fp["depths"]),
+                                               swin_depths=fp["depths"], dtype=torch.float32)
+            out[f"b_{name}_fp32"] = _card_against_cpu(torch, c, rows(c, fp["batch"]),
+                                                       f"(b) {name}", True, "24", ENCDEC_TOLS)
+        # one bf16 swin-large step, fused norms: H = 192 takes the plain
+        # version by the shared gate, 384 and wider the kernels
+        lcfg = modeling.PRESETS["swin-large"].replace(
+            num_layers=sum(fp["depths"]), swin_depths=fp["depths"], fused_norm=True)
+        params = modeling.init_model_params(lcfg, 0, "cuda")
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        reset_kernel_counts()
+        loss = modeling.lm_loss(params, rows(lcfg, SWIN_LARGE_BF16).cuda(), lcfg)
+        loss.backward()
+        got, gw = kernel_counts(), fn.width_counts()
+        tiled, plain = _swin_ln_widths(lcfg)
+        out["b_swin_large_bf16"] = {"images": SWIN_LARGE_BF16, "loss": loss.item(),
+                                    "ln_launches_by_h": {k: {str(h): c for h, c in
+                                                             sorted(v.items())}
+                                                         for k, v in gw.items() if v},
+                                    "plain_widths": {str(h): c for h, c in plain.items()}}
+        log("phase 24 (b) swin-large bf16 step:", json.dumps(out["b_swin_large_bf16"]))
+        check(np.isfinite(loss.item()), "24 (b): swin-large bf16 loss")
+        check(list(plain) == [192] and gw["ln_fwd"] == tiled and gw["ln_bwd"] == tiled
+              and got["ln_fwd"] == got["ln_bwd"] == sum(tiled.values()),
+              f"24 (b): swin-large LayerNorm launches by H {gw}, expected {tiled} "
+              f"(192 plain: {plain})")
+        del params, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c), the K-section pipeline, runs with 23 (d) (:func:`_coupled_pipelines`)
+        out["d_search"] = _swin_search(torch, smi, tmpdir)
+    # (e) the reference's refusals: serving, generation
+    for mode, msg in ENCODER_REFUSALS.items():
+        try:
+            rc = _cli([mode, "--model_size", "swin-base"])[0]
+            said = None
+        except ValueError as e:
+            rc, said = None, str(e)
+        check(said == msg, f"24 (e): cli {mode} of swin-base returned {rc}, said {said!r}")
+    out["e_refusals"] = ENCODER_REFUSALS
+    log("phase 24 (e) serve / generate of swin-base refused:", json.dumps(out["e_refusals"]))
+    RESULTS["swin"] = out
+    return {k: launches[k] for k in ("ln_fwd", "ln_bwd")}
+
+
+def _swin_search(torch, smi, tmpdir):
+    """24 (d): ``cli profile`` (one layer type a stage), ``cli search`` for
+    one device under a budget, ``cli check-plan --strict 1`` and ``cli
+    train`` of the plan, swin-base width at depths (2, 2, 2, 2)."""
+    import numpy as np
+
+    from galvatron_tpu_torch.core.strategy import HybridParallelConfig
+    from galvatron_tpu_torch.utils.metrics import read_metrics
+
+    s = SWIN_SEARCH
+    prefix = os.path.join(tmpdir, "profile_swin-base")
+    shape = _swin_shape("swin-base", SWIN_FP32["depths"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc, _ = _cli(["profile", *shape, "--profile_batch_size", str(s["batch"]),
+                  "--output_prefix", prefix])
+    check(rc == 0, f"24 (d): cli profile returned {rc}")
+    with open(prefix + "_computation.json") as f:
+        comp = json.load(f)
+    with open(prefix + "_memory.json") as f:
+        mem = json.load(f)
+    plan = os.path.join(tmpdir, "plan_swin-base.json")
+    rc, _ = _cli(["search", *shape, "--num_devices", "1", "--settle_bsz", str(s["batch"]),
+                  "--memory_constraint_gb", str(s["budget_gb"]),
+                  "--time_profile_path", prefix + "_computation.json",
+                  "--memory_profile_path", prefix + "_memory.json",
+                  "--output_config_path", plan])
+    check(rc == 0, f"24 (d): cli search returned {rc}")
+    rc, _ = _cli(["check-plan", plan, *shape, "--strict", "1"])
+    check(rc == 0, f"24 (d): check-plan --strict 1 returned {rc}")
+    hp = HybridParallelConfig.load(plan)
+    path = os.path.join(tmpdir, "train_metrics_swin_search.jsonl")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_kernel_counts()
+    rc, _ = _cli(["train", *shape, "--global_train_batch_size", str(s["batch"]),
+                  "--train_iters", str(s["steps"]), "--galvatron_config_path", plan,
+                  "--metrics_path", path])
+    got = kernel_counts()
+    check(rc == 0, f"24 (d): cli train of the searched plan returned {rc}")
+    losses = [x["loss"] for x in read_metrics(path) if x["event"] == "train_iter"]
+    check(len(losses) == s["steps"] and all(np.isfinite(losses)), f"24 (d): {losses}")
+    check(not any(got.values()), f"24 (d): a kernel launched without fused_norm: {got}")
+    # one type a stage: a pair of layers each, their parameters at the stage's
+    # width (the times are differences of noisy steps and may clamp alike)
+    types = [comp[f"layertype_{i}"] for i in (0, 2, 4, 6)]
+    params = [mem[f"layertype_{i}"]["parameter_mb"] for i in range(8)]
+    check(params[0::2] == params[1::2] and len(set(params)) == 4
+          and all(comp[f"layertype_{i}"] == comp[f"layertype_{i + 1}"] for i in (0, 2, 4, 6)),
+          f"24 (d): not one layer type a stage: times {comp}, parameters {params}")
+    with open(plan) as f:
+        d = json.load(f)
+    res = {"card": smi, "profile_fwd_ms_per_sample": types, "profile_parameter_mb": params[0::2],
+           "plan": {k: d[k] for k in (
+            "pp_deg", "tp_sizes_enc", "dp_types_enc", "checkpoint", "chunks", "vocab_tp")
+            if k in d}, "search_cost_ms": d.get("search_cost_ms"), "chunks": hp.chunks,
+           "losses": losses, "seconds": time.perf_counter() - t0}
+    log("phase 24 (d) swin-base width profiled, searched, checked, trained:", json.dumps(res))
+    return res
+
+
 def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) -> int:
     """One rank of phases 12-13, 17 and 18: ``cli train``'s own call
     (``trainer.train`` of the parsed flags), with the blocked flash
@@ -5729,7 +5997,8 @@ def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) 
     one of ``CP_CONTROLS`` to train under; ``profile_moe`` profiles rank 0's
     run and splits its MoE time (:func:`moe_time_split`). Flags with
     ``--then`` between them are several runs, one after another in this
-    process (:func:`_launch_rank_runs`); ``ref_params`` holds the first."""
+    process (:func:`_launch_rank_runs`); ``ref_params`` holds them in order
+    (comma-separated: run j to the j-th, an empty entry to none)."""
     from galvatron_tpu_torch.core import trainer
     from galvatron_tpu_torch.core.arguments import initialize_galvatron
     from galvatron_tpu_torch.ops import flash_attention as fa
@@ -5746,6 +6015,9 @@ def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) 
         # the wrapper's body counts into the module-level name: carry its counters
         counted.__dict__.update(orig.__dict__)
         setattr(fa, name, counted)
+    # the world-size-1 parameters run j is held to (comma-separated, in run
+    # order; empty for a run held to none)
+    refs = ref_params.split(",") if ref_params else []
     runs = [[]]  # the flags of each run, split at "--then"
     for a in argv:
         if a == "--then":
@@ -5761,14 +6033,14 @@ def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) 
         try:
             for j, run in enumerate(runs):
                 _rank_run(os.path.join(outdir, f"run{j}"), run, heads,
-                          ref_params if j == 0 else None, control, profile_moe)
+                          refs[j] if j < len(refs) and refs[j] else None, control, profile_moe)
         finally:
             if created:
                 import torch.distributed as dist
 
                 dist.destroy_process_group()
         return 0
-    _rank_run(outdir, argv, heads, ref_params, control, profile_moe)
+    _rank_run(outdir, argv, heads, refs[0] if refs else None, control, profile_moe)
     return 0
 
 
@@ -5833,7 +6105,7 @@ def _rank_run(outdir, argv, heads, ref_params=None, control=None, profile_moe=Fa
 #: the phases by name, for ``--phases``; a full run takes them all
 PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train", "hybrid",
           "pipeline", "nccl", "search", "services", "slots", "cp", "moe", "packed", "overlap",
-          "hf", "encoder", "encdec")
+          "hf", "encoder", "encdec", "swin")
 
 
 def main() -> int:
@@ -6034,6 +6306,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches["encdec"] = phase_encdec(torch, smi)
         mark("23 encdec")
+    if "swin" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["swin"] = phase_swin(torch, smi)
+        mark("24 swin")
+    if {"encdec", "swin"} & set(phases):
+        gc.collect()
+        torch.cuda.empty_cache()
+        for phase, res in _coupled_pipelines(torch, smi, phases).items():
+            RESULTS[phase]["d_pipeline" if phase == "encdec" else "c_pipeline"] = res
+        mark("23 (d), 24 (c) coupled pipelines")
     if {"packed", "overlap"} & set(phases):
         RESULTS["packed_overlap_launches"] = {k: launches[k] for k in ("packed", "overlap")
                                               if k in launches}
@@ -6061,14 +6344,16 @@ def main() -> int:
                 "bound_ms": grid_line[bound + "_bound_ms"],
                 "bound_by": grid_line[bound + "_bound_by"], "library_ms": grid_line[library]}
 
-    def norm_entry(name, line_no, case, run, which):
-        """A norm kernel at its main shape (bf16): ``which`` is fwd or bwd;
-        the backward's time is its two launches (row pass and column sums)."""
+    def norm_entry(name, line_no, case, run, which, count=None):
+        """A norm kernel at a timed shape (bf16): ``which`` is fwd or bwd;
+        the backward's time is its two launches (row pass and column sums);
+        ``count`` the kernel's name in ``launches[run]`` when it is not
+        ``name``."""
         line = norm_lines[case]
         err = line["y_max_abs_err"] if which == "fwd" else line["dx_max_abs_err"]
         return {"name": name, "route": "cuda", "source": src + "fused_norm.cu",
                 "replaces": "galvatron_tpu/ops/fused_norm.py:" + line_no,
-                "launches": launches[run][name], "max_abs_err": err,
+                "launches": launches[run][count or name], "max_abs_err": err,
                 "ms": line[which + "_ms"], "plain_ms": line[which + "_plain_ms"],
                 "bound_ms": line[which + "_bound_ms"], "bound_by": line[which + "_bound_by"],
                 "library_ms": line[which + "_library_ms"]}
@@ -6190,6 +6475,11 @@ def main() -> int:
         norm_entry("rms_bwd", "72", "rms main", "llama_fused", "bwd"),
         norm_entry("ln_fwd", "190", "ln main", "opt_fused", "fwd"),
         norm_entry("ln_bwd", "202", "ln main", "opt_fused", "bwd"),
+        # the LayerNorm kernels at Swin's widest rows (phase 3's "ln swin
+        # h128" case: 24 (a)'s stage-0 rows), with their launches at every
+        # width on phase 24 (a)'s path
+        norm_entry("ln_fwd_swin", "190", "ln swin h128", "swin", "fwd", "ln_fwd"),
+        norm_entry("ln_bwd_swin", "202", "ln swin h128", "swin", "bwd", "ln_bwd"),
     ]}
     if args.out:
         _write_out(args.out, dict(RESULTS, **kernels))

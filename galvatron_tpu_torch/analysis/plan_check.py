@@ -1030,15 +1030,15 @@ def _abstract_sharding_pass(
     seen_strategies = set()
     for i, s in enumerate(hp.layer_strategies):
         # one pass per distinct (strategy, layer kind): an encoder-decoder's
-        # decoder layers carry cross-attention
-        key = (s, enc and i < enc)
+        # decoder layers carry cross-attention, a Swin stage's layers its width
+        key = (s, enc and i < enc, modeling.swin_stage_of(cfg, i)[0] if cfg.swin_depths else 0)
         if key in seen_strategies:
             continue
         seen_strategies.add(key)
         label = f"enc_layers[{i}]" if i < enc else f"layers[{i - enc}]"
         check_tree(pipeline.layer_of(plans, i), s, label)
     vocab_s = hybrid.embed_strategy(hp)
-    for top in ("embed", "head", "final_norm", "enc_final_norm"):
+    for top in ("embed", "head", "final_norm", "enc_final_norm", "merges"):
         if top in plans:
             check_tree(plans[top], vocab_s, f"{top}/")
 

@@ -61,7 +61,7 @@ from galvatron_tpu_torch.core.schedules import BatchSizeRampup
 from galvatron_tpu_torch.core.strategy import form_strategy, plan_hash
 from galvatron_tpu_torch.device import rank_device
 from galvatron_tpu_torch.obs.stepstats import StepStats
-from galvatron_tpu_torch.models.modeling import ModelConfig, layer_seq
+from galvatron_tpu_torch.models.modeling import ModelConfig, layer_seq, swin_geometry
 from galvatron_tpu_torch.ops import flash_attention, fused_norm
 from galvatron_tpu_torch.parallel import comm
 from galvatron_tpu_torch.parallel.hybrid import build_runtime
@@ -290,10 +290,18 @@ def _train(ns: argparse.Namespace, cfg: Optional[ModelConfig], device: torch.dev
         strategies = sorted({form_strategy(s, rt.pp, rt.world // (rt.pp * s.tp))
                              for s in hp.layer_strategies})
         name = f"hf:{ns.load_hf}" if getattr(ns, "load_hf", None) else ns.model_size
-        # an encoder-decoder: encoder + decoder layers, over enc_seq + seq
+        # an encoder-decoder: encoder + decoder layers, over enc_seq + seq;
+        # Swin: each stage's layers, width, heads and tokens
         enc = (lambda n: f"{n}+") if c.enc_layers else (lambda n: "")
-        print(f"train: {name} layers={enc(c.enc_layers)}{c.num_layers} hidden={c.hidden_size} "
-              f"heads={c.num_heads} seq={enc(c.enc_seq)}{seq} batch={bsz} chunks={rt.chunks} "
+        shapes = (f"layers={enc(c.enc_layers)}{c.num_layers} hidden={c.hidden_size} "
+                  f"heads={c.num_heads} seq={enc(c.enc_seq)}{seq}")
+        if c.swin_depths:
+            geo = [swin_geometry(c, k) for k in range(len(c.swin_depths))]
+            shapes = (f"layers={'+'.join(map(str, c.swin_depths))} "
+                      f"hidden={'/'.join(str(g[2]) for g in geo)} "
+                      f"heads={'/'.join(str(g[3]) for g in geo)} "
+                      f"seq={'/'.join(str(g[0] * g[1]) for g in geo)}")
+        print(f"train: {name} {shapes} batch={bsz} chunks={rt.chunks} "
               f"dtype={str(c.dtype).replace('torch.', '')} attn={c.attn_impl} "
               f"ckpt={rt.ckpt} mlp_recompute={c.mlp_recompute} fused_norm={c.fused_norm} "
               f"packed={c.pack_sequences} "

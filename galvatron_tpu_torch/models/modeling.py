@@ -11,7 +11,12 @@ and ViT (the same layer over patch embeddings, a mean-pooled class head and
 the 'cls' objective on pixel ‖ label rows), and the T5-class
 encoder-decoder (``enc_layers`` > 0: a bidirectional encoder stack, its
 final norm, then decoder layers with cross-attention over that output;
-rows of encoder tokens ‖ decoder stream, :func:`forward_encdec`). ALiBi
+rows of encoder tokens ‖ decoder stream, :func:`forward_encdec`), and the
+Swin pyramid (``swin_depths``: stages of shifted-window layers over the
+patch grid, each stage at twice the width and a quarter of the tokens of the
+one before, joined by patch merges, :func:`swin_layer`,
+:func:`patch_merge`; the window attention is plain einsums, as in the
+reference, whose windows of w² = 49 tokens make that the right kernel). ALiBi
 adds ``slope · (k − q)`` per head to the scores and always takes the einsum
 attention, as in the reference (its flash kernels carry no bias). The
 fused QKV projection in both stored layouts (blocked ``(h, 3, n·hd)`` for
@@ -86,9 +91,7 @@ class ModelConfig:
     mlm_mask_rate: float = 0.15
     # the shape fields of the reference's other families, with its
     # decoder-only defaults: the search, the cost model and the plan checker
-    # read them (``analysis/plan_check.MODEL_SHAPE_FIELDS``). Swin's stages
-    # do not run: a non-default value raises in :func:`check_supported`
-    # (ROADMAP.md §1.10).
+    # read them (``analysis/plan_check.MODEL_SHAPE_FIELDS``).
     # encoder-decoder (T5): enc_layers > 0 encoder layers over enc_seq
     # tokens; a sample row is [encoder tokens (enc_seq) ‖ decoder stream
     # (max_seq_len + 1)], the loss next-token over the decoder stream
@@ -101,6 +104,9 @@ class ModelConfig:
     patch_size: int = 16
     num_channels: int = 3
     num_classes: int = 1000
+    # Swin: layers per stage (summing to num_layers) and the attention
+    # window's side; stage s runs at hidden_size·2^s with num_heads·2^s heads
+    # over (grid / 2^s)² tokens (:func:`swin_geometry`)
     swin_depths: Tuple[int, ...] = ()
     swin_window: int = 7
     attn_impl: str = "xla"  # 'xla' | 'flash'
@@ -184,8 +190,6 @@ _PORTED = (
     ("norm_type", ("rms", "layernorm"), "other norms"),
     ("act_fn", ("swiglu", "gelu", "relu"), "other MLP activations"),
     ("objective", ("clm", "mlm", "cls"), "other objectives"),
-    ("swin_depths", ((),), "Swin models"),
-    ("swin_window", (7,), "Swin models"),
 )
 
 
@@ -194,15 +198,15 @@ def check_supported(cfg: ModelConfig) -> None:
     (ROADMAP.md §1.10): training runs the LLaMA, Baichuan and GPT/OPT
     decoders (rope, learned or ALiBi positions, rms or layernorm, swiglu /
     gelu / relu, biases, tied heads, switch-MoE MLPs), the BERT and ViT
-    encoders ('mlm', 'cls') and the T5 encoder-decoder; serving and
-    generation refuse the encoders and T5 themselves
+    encoders ('mlm', 'cls'), the Swin pyramid and the T5 encoder-decoder;
+    serving and generation refuse the encoders, Swin and T5 themselves
     (``generation.check_generative``)."""
     for field, ported, what in _PORTED:
         if getattr(cfg, field) not in ported:
             raise NotImplementedError(
                 f"{field}={getattr(cfg, field)!r} ({what}) is not ported yet: "
                 "ROADMAP.md §1.10 'Other model families'; the port runs LLaMA, "
-                "Baichuan and GPT/OPT decoders, BERT and ViT encoders and the T5 "
+                "Baichuan and GPT/OPT decoders, BERT, ViT and Swin encoders and the T5 "
                 "encoder-decoder"
             )
     if cfg.use_bias and not cfg.qkv_blocked:
@@ -211,6 +215,63 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(
             f"patch_size {cfg.patch_size} must divide image_size {cfg.image_size}"
         )
+    if cfg.swin_depths and not cfg.image_size:
+        raise ValueError("swin_depths needs an image model (image_size > 0): a Swin "
+                         "pyramid's stages run over image patches")
+    if cfg.swin_depths and sum(cfg.swin_depths) != cfg.num_layers:
+        raise ValueError(
+            f"swin_depths {cfg.swin_depths} sum to {sum(cfg.swin_depths)} but "
+            f"num_layers is {cfg.num_layers} (per-layer strategies index the "
+            "flattened stage layers; keep them equal)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Swin geometry (static, from the config)
+# ---------------------------------------------------------------------------
+
+
+def swin_stage_of(cfg: ModelConfig, i: int) -> Tuple[int, int]:
+    """Layer index → (stage, index within the stage)."""
+    for s, d in enumerate(cfg.swin_depths):
+        if i < d:
+            return s, i
+        i -= d
+    raise IndexError(f"layer {i} beyond swin_depths {cfg.swin_depths}")
+
+
+def swin_geometry(cfg: ModelConfig, stage: int) -> Tuple[int, int, int, int]:
+    """Stage → (H, W, C, heads): the side halves and the width and heads
+    double a stage (the head dim stays)."""
+    side = cfg.grid >> stage
+    return side, side, cfg.hidden_size << stage, cfg.num_heads << stage
+
+
+def swin_window_for(cfg: ModelConfig, stage: int) -> int:
+    """The stage's window side: ``swin_window`` shrunk to the largest value
+    that divides the stage's side (windows tile the feature map; the
+    224-pixel, patch-4 presets keep 7 at every stage)."""
+    side = cfg.grid >> stage
+    w = min(cfg.swin_window, side)
+    while side % w:
+        w -= 1
+    return w
+
+
+def swin_stage_starts(cfg: ModelConfig) -> Tuple[int, ...]:
+    """The first layer of each stage."""
+    return tuple(int(sum(cfg.swin_depths[:s])) for s in range(len(cfg.swin_depths)))
+
+
+def vision_layer_cfg(cfg: ModelConfig, i: int) -> ModelConfig:
+    """Layer i's shapes: the config itself for ViT, for Swin its stage's
+    width and heads (C·2^s, heads·2^s), so the layer code serves every
+    stage."""
+    if not cfg.swin_depths:
+        return cfg
+    s, _ = swin_stage_of(cfg, i)
+    _, _, c, heads = swin_geometry(cfg, s)
+    return cfg.replace(hidden_size=c, num_heads=heads, num_kv_heads=None)
 
 
 # ---------------------------------------------------------------------------
@@ -253,14 +314,14 @@ def init_model_params(cfg: ModelConfig, seed: int, device) -> Params:
     def zeros(*shape):
         return torch.zeros(shape, dtype=pd, device=device)
 
-    def norm_params():
-        p = {"scale": torch.ones((h,), dtype=pd, device=device)}
+    def norm_params(width=h):
+        p = {"scale": torch.ones((width,), dtype=pd, device=device)}
         if cfg.norm_type == "layernorm":
-            p["bias"] = zeros(h)
+            p["bias"] = zeros(width)
         return p
 
     if cfg.image_size:
-        # ViT: the patch projection and its learned positions for the
+        # ViT / Swin: the patch projection and its learned positions for the
         # embedding, the pooled class head (the reference's
         # ``init_vision_base_params``)
         patch_dim = cfg.patch_size * cfg.patch_size * cfg.num_channels
@@ -271,40 +332,49 @@ def init_model_params(cfg: ModelConfig, seed: int, device) -> Params:
         if cfg.pos_embed == "learned":
             # one table for both streams of an encoder-decoder
             params["embed"]["pos"] = normal(max(cfg.max_seq_len, cfg.enc_seq), h)
-    kv, group = qkv_dims(cfg)
-    up = _up_name(cfg)
 
-    def layer(cross: bool):
+    def layer(lc: ModelConfig, cross: bool):
+        """One layer at ``lc``'s shapes (a Swin stage's width and heads)."""
+        h, hd = lc.hidden_size, lc.head_dim
+        kv, group = qkv_dims(lc)
+        up = _up_name(lc)
         wqkv = dense(h, kv * group)
-        if cfg.qkv_blocked:
-            wqkv = wqkv.reshape(h, 3, cfg.num_heads * hd)
-        attn = {"wqkv": wqkv, "wo": dense(cfg.num_heads * hd, h)}
-        if cfg.use_bias:
-            attn["wqkv_b"] = zeros(3, cfg.num_heads * hd)
+        if lc.qkv_blocked:
+            wqkv = wqkv.reshape(h, 3, lc.num_heads * hd)
+        attn = {"wqkv": wqkv, "wo": dense(lc.num_heads * hd, h)}
+        if lc.use_bias:
+            attn["wqkv_b"] = zeros(3, lc.num_heads * hd)
             attn["wo_b"] = zeros(h)
-        if cfg.moe_experts > 0:
-            mlp = moe.init_moe_params(cfg, uniform, normal)
+        if lc.moe_experts > 0:
+            mlp = moe.init_moe_params(lc, uniform, normal)
         else:
-            width = 2 * cfg.ffn if cfg.act_fn == "swiglu" else cfg.ffn
-            mlp = {up: dense(h, width), "w2": dense(cfg.ffn, h)}
-            if cfg.use_bias:
+            width = 2 * lc.ffn if lc.act_fn == "swiglu" else lc.ffn
+            mlp = {up: dense(h, width), "w2": dense(lc.ffn, h)}
+            if lc.use_bias:
                 mlp[up + "_b"] = zeros(width)
                 mlp["w2_b"] = zeros(h)
-        p = {"attn_norm": norm_params(), "attn": attn, "mlp_norm": norm_params(), "mlp": mlp}
+        p = {"attn_norm": norm_params(h), "attn": attn, "mlp_norm": norm_params(h), "mlp": mlp}
         if cross:  # a decoder layer of an encoder-decoder: [k | v] fused
             p["cross_norm"] = norm_params()
-            p["cross"] = {"wq": dense(h, cfg.num_heads * hd),
-                          "wkv": dense(h, 2 * cfg.kv_heads * hd),
-                          "wo": dense(cfg.num_heads * hd, h)}
+            p["cross"] = {"wq": dense(h, lc.num_heads * hd),
+                          "wkv": dense(h, 2 * lc.kv_heads * hd),
+                          "wo": dense(lc.num_heads * hd, h)}
         return p
 
     if cfg.enc_layers > 0:
-        params["enc_layers"] = [layer(False) for _ in range(cfg.enc_layers)]
+        params["enc_layers"] = [layer(cfg, False) for _ in range(cfg.enc_layers)]
         params["enc_final_norm"] = norm_params()
-    params["layers"] = [layer(cfg.enc_layers > 0) for _ in range(cfg.num_layers)]
-    params["final_norm"] = norm_params()
+    params["layers"] = [layer(vision_layer_cfg(cfg, i), cfg.enc_layers > 0)
+                        for i in range(cfg.num_layers)]
+    # Swin: a patch merge between stages (the 2x2 neighbourhood's 4C → 2C),
+    # and the final norm and head at the last stage's width
+    c_last = h << max(0, len(cfg.swin_depths) - 1)
+    if cfg.swin_depths:
+        params["merges"] = [{"w": dense(4 * c, 2 * c), "norm": norm_params(4 * c)}
+                            for c in (h << s for s in range(len(cfg.swin_depths) - 1))]
+    params["final_norm"] = norm_params(c_last)
     if cfg.image_size:
-        params["head"] = {"w": dense(h, cfg.num_classes)}
+        params["head"] = {"w": dense(c_last, cfg.num_classes)}
     elif not cfg.tie_word_embeddings:
         params["head"] = {"w": dense(h, cfg.vocab_size)}
     return params
@@ -374,7 +444,8 @@ def model_annotations(cfg: ModelConfig) -> Params:
     """The whole tree's annotations: the embedding (and an untied head) is
     vocab-parallel over its TP axes; a ViT's patch projection and class
     head are column-parallel over them (the reference's
-    ``vision_base_annotations``)."""
+    ``vision_base_annotations``); Swin's patch merges are ZeRO-sharded at
+    most (the reference's ``vision_annotations``)."""
     if cfg.image_size:
         embed = {"proj": ("fsdp", "tp"), "pos": ("fsdp", None)}
     else:
@@ -384,7 +455,8 @@ def model_annotations(cfg: ModelConfig) -> Params:
     cross = cfg.enc_layers > 0
     a: Params = {
         "embed": embed,
-        "layers": [layer_annotations(cfg, cross) for _ in range(cfg.num_layers)],
+        "layers": [layer_annotations(vision_layer_cfg(cfg, i), cross)
+                   for i in range(cfg.num_layers)],
         "final_norm": {"scale": ("fsdp",)},
     }
     if cross:
@@ -393,6 +465,13 @@ def model_annotations(cfg: ModelConfig) -> Params:
     for name in ("final_norm", "enc_final_norm"):
         if cfg.norm_type == "layernorm" and name in a:
             a[name]["bias"] = ("fsdp",)
+    if cfg.swin_depths:
+        # model-level, under the embedding strategy: replicated or ZeRO, never TP
+        merge = {"w": ("fsdp", None), "norm": {"scale": ("fsdp",)}}
+        if cfg.norm_type == "layernorm":
+            merge["norm"]["bias"] = ("fsdp",)
+        a["merges"] = [dict(merge, norm=dict(merge["norm"]))
+                       for _ in range(len(cfg.swin_depths) - 1)]
     if cfg.image_size or not cfg.tie_word_embeddings:
         a["head"] = {"w": ("fsdp", "tp")}
     return a
@@ -1221,13 +1300,138 @@ def cls_head(y, params, cfg: ModelConfig):
     return y.mean(dim=1) @ params["head"]["w"].to(y.dtype)
 
 
+@functools.lru_cache(maxsize=32)
+def swin_attn_mask(h: int, w: int, window: int, shift: int) -> np.ndarray:
+    """Static (windows, w², w²) may-attend mask of the shifted windows (the
+    reference's ``_swin_attn_mask``): after the cyclic roll, positions that
+    wrapped across the image edge share a window but not a region, and do
+    not attend to each other."""
+    img = np.zeros((h, w), np.int32)
+    cnt = 0
+    for hs in (slice(0, h - window), slice(h - window, h - shift), slice(h - shift, None)):
+        for ws in (slice(0, w - window), slice(w - window, w - shift), slice(w - shift, None)):
+            img[hs, ws] = cnt
+            cnt += 1
+    wins = (img.reshape(h // window, window, w // window, window)
+            .transpose(0, 2, 1, 3).reshape(-1, window * window))
+    return wins[:, :, None] == wins[:, None, :]
+
+
+def _to_windows(t, h: int, w: int, window: int, shift: int):
+    """(B, h·w, ...) tokens in raster order → (B·windows, w², ...): the
+    cyclic roll by -shift on both axes, then the window partition."""
+    b, rest = t.shape[0], t.shape[2:]
+    t = t.reshape(b, h, w, *rest)
+    if shift:
+        t = torch.roll(t, (-shift, -shift), (1, 2))
+    nh, nw = h // window, w // window
+    t = t.reshape(b, nh, window, nw, window, *rest).transpose(2, 3)
+    return t.reshape(b * nh * nw, window * window, *rest)
+
+
+def _from_windows(t, b: int, h: int, w: int, window: int, shift: int):
+    """The inverse of :func:`_to_windows`."""
+    rest = t.shape[2:]
+    nh, nw = h // window, w // window
+    t = t.reshape(b, nh, nw, window, window, *rest).transpose(2, 3).reshape(b, h, w, *rest)
+    if shift:
+        t = torch.roll(t, (shift, shift), (1, 2))
+    return t.reshape(b, h * w, *rest)
+
+
+def swin_attention(x, p, lcfg: ModelConfig, h: int, w: int, window: int, shift: int,
+                   remat_attn: bool = False, tp=None):
+    """Windowed multi-head self-attention over a normed (B, h·w, C) feature
+    map (the reference's ``swin_attention``): the fused qkv projection (and
+    its bias), the cyclic shift and the window partition, per-window fp32
+    scores (-1e30 on the shift mask's wrapped pairs) and softmax, the PV
+    product, the reverse, and ``wo``, without ``wo_b``: the reference's
+    window attention never adds it (its gradient is zero). The projections
+    are token-local, so the permutation runs on their outputs: under ``tp``
+    (more than one rank) ``tp.enter`` gathers the whole map first (SP) and
+    ``wo``'s seam reduces (scatters) it on the way out. ``remat_attn``
+    recomputes the window attention core in the backward."""
+    if tp is not None and tp.size > 1:
+        lcfg = tp_local_config(lcfg, tp.size)
+        x = _enter(x, tp)
+    else:
+        tp = None
+    b = x.shape[0]
+    heads, hd = lcfg.num_heads, lcfg.head_dim
+    ws2 = window * window
+    y = qkv_project(x, p["wqkv"], lcfg, tp)
+    if "wqkv_b" in p:
+        y = y + p["wqkv_b"].to(y.dtype)
+
+    def core(y_):
+        q, k, v = split_qkv(_to_windows(y_, h, w, window, shift), lcfg)
+        scores = torch.einsum("bqnd,bknd->bnqk", q, k).float() / math.sqrt(hd)
+        if shift:
+            mask = torch.from_numpy(swin_attn_mask(h, w, window, shift)).to(scores.device)
+            scores = scores.reshape(b, -1, heads, ws2, ws2).masked_fill(
+                ~mask[None, :, None], -1e30).reshape(-1, heads, ws2, ws2)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        o = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(-1, ws2, heads * hd)
+        return _from_windows(o, b, h, w, window, shift)
+
+    o = _maybe_checkpoint(core, remat_attn, y)
+    return _down(o, p["wo"].to(o.dtype), tp)
+
+
+def swin_layer(x, p, cfg: ModelConfig, i: int, remat_attn: bool = False, tp=None):
+    """Swin block i (the reference's ``swin_layer``): its stage's geometry
+    and width; odd blocks of a stage take the shifted window, by half a
+    window, only while the window is smaller than the map (swin-base's 7 x 7
+    last stage never shifts). The residuals, norms and MLP are the
+    transformer's at the stage's width (with ``tp``: Megatron's seams,
+    :func:`_mlp_residual_tp`)."""
+    stage, j = swin_stage_of(cfg, i)
+    h, w, _, _ = swin_geometry(cfg, stage)
+    lcfg = vision_layer_cfg(cfg, i)
+    window = swin_window_for(cfg, stage)
+    shift = window // 2 if (j % 2 == 1 and window < h) else 0
+    x = x + swin_attention(norm(x, p["attn_norm"], lcfg), p["attn"], lcfg, h, w, window, shift,
+                           remat_attn, tp)
+    if tp is not None and tp.size > 1:
+        return _mlp_residual_tp(x, p, lcfg, tp)
+    return mlp_residual(x, p, lcfg)
+
+
+def patch_merge(x, p, cfg: ModelConfig, stage: int, tokens: Optional[slice] = None):
+    """Swin's downsampling between stages (the reference's
+    ``patch_merge``): each 2 x 2 neighbourhood of stage ``stage``'s (B,
+    H·W, C) map concatenated (row, then column offset, the reference's
+    order) into one 4C token, the norm at 4C, the 4C → 2C projection.
+    ``tokens`` keeps only those output tokens (a rank's sequence shard)
+    before the norm."""
+    h, w, c, _ = swin_geometry(cfg, stage)
+    b = x.shape[0]
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(b, (h // 2) * (w // 2), 4 * c)
+    if tokens is not None:
+        x = x[:, tokens]
+    x = norm(x, p["norm"], cfg)
+    return x @ p["w"].to(x.dtype)
+
+
 def forward_vision(params, pixels, cfg: ModelConfig, layer_hook=None):
-    """ViT forward → class logits: the patch embedding, the bidirectional
-    layers (``decoder_layer`` under ``causal=False``), the final norm and
-    the pooled head. ``layer_hook(i, x, lp)`` as in :func:`forward`."""
+    """ViT / Swin forward → class logits: the patch embedding, the
+    bidirectional layers (ViT: ``decoder_layer`` under ``causal=False``;
+    Swin: :func:`swin_layer`, with a :func:`patch_merge` after every stage
+    but the last), the final norm and the pooled head. ``layer_hook(i, x,
+    lp)`` as in :func:`forward`."""
     x = vision_embed(pixels, params, cfg)
+    starts = swin_stage_starts(cfg)
     for i, lp in enumerate(params["layers"]):
-        x = layer_hook(i, x, lp) if layer_hook is not None else decoder_layer(x, lp, cfg)
+        if i in starts[1:]:
+            s = starts.index(i) - 1
+            x = patch_merge(x, params["merges"][s], cfg, s)
+        if layer_hook is not None:
+            x = layer_hook(i, x, lp)
+        elif cfg.swin_depths:
+            x = swin_layer(x, lp, cfg, i)
+        else:
+            x = decoder_layer(x, lp, cfg)
     return head(x, params, cfg)
 
 
@@ -1305,9 +1509,13 @@ def batch_row_width(cfg: ModelConfig, seq: int) -> int:
 
 def layer_seq(cfg: ModelConfig, seq: Optional[int] = None, layer: Optional[int] = None) -> int:
     """The sequence a step's layers run over: a ViT's patches, whatever
-    ``seq`` says; an encoder-decoder's encoder layers (``layer`` <
+    ``seq`` says (a Swin layer's: its stage's tokens; the embedding's the
+    patches); an encoder-decoder's encoder layers (``layer`` <
     ``enc_layers``) its ``enc_seq``; else ``seq`` (the training length when
     None: for an encoder-decoder, the decoder's)."""
+    if cfg.swin_depths and layer is not None:
+        h, w, _, _ = swin_geometry(cfg, swin_stage_of(cfg, layer)[0])
+        return h * w
     if cfg.image_size:
         return cfg.n_patches
     if layer is not None and layer < cfg.enc_layers:
@@ -1481,4 +1689,8 @@ PRESETS: Dict[str, ModelConfig] = {
     "vit-base": _vit(768, 12, 12, 16),
     "vit-large": _vit(1024, 24, 16, 16),
     "vit-huge": _vit(1280, 32, 16, 14),
+    # Swin: four stages of 2, 2, 18 and 2 layers over 56 x 56 patches of 4 x 4
+    # pixels, windows of 7 x 7
+    "swin-base": _vit(128, 24, 4, 4).replace(swin_depths=(2, 2, 18, 2), swin_window=7),
+    "swin-large": _vit(192, 24, 6, 4).replace(swin_depths=(2, 2, 18, 2), swin_window=7),
 }

@@ -13,7 +13,13 @@ the pixels as the sequence and ``vocab_size`` as the head: ROADMAP.md §3,
 reference does not count the embedding. An encoder-decoder counts what the
 reference counts: all ``total_layers`` layers as uniform layers over the
 whole row (``enc_seq`` + the decoder's sequence), tokens of the whole row,
-no cross-attention, and the decoder's positions at the head. The
+no cross-attention, and the decoder's positions at the head. A Swin
+pyramid counts each layer at its stage's width over its stage's tokens
+(a quarter a stage), its attention core over the w² keys of a window, each
+patch merge's 4C → 2C projection over its output tokens, and the head at
+the last stage's width; its tokens are the stage-0 patches (the JAX package
+has no Swin count and would charge every layer stage 0's width and
+attention over all patches: ROADMAP.md §3, "Kept differences"). The
 peak is the card's published dense bf16 rate, looked up by device name.
 The rate fields are device metrics: on the CPU they are None, never a CPU
 number under a device metric's name.
@@ -26,7 +32,14 @@ from typing import Dict, Optional, Sequence, Union
 
 import torch
 
-from galvatron_tpu_torch.models.modeling import ModelConfig, loss_tokens_per_sample
+from galvatron_tpu_torch.models.modeling import (
+    ModelConfig,
+    loss_tokens_per_sample,
+    swin_geometry,
+    swin_stage_of,
+    swin_window_for,
+    vision_layer_cfg,
+)
 
 # per-card peak dense bf16 TFLOP/s (NVIDIA data sheets, SXM parts at the
 # full power limit), keyed by the whole torch.cuda.get_device_name(): the
@@ -77,24 +90,49 @@ def head_flops_per_loss_token(cfg: ModelConfig) -> float:
     return 2.0 * cfg.hidden_size * (cfg.num_classes if cfg.image_size else cfg.vocab_size)
 
 
-def _remat_fwd_flops_per_token(cfg: ModelConfig, seq_len: int,
-                               ckpt: Union[str, Sequence[str]]) -> float:
-    """Forward compute replayed in the backward, per token over all layers;
-    ``ckpt`` is one mode for every layer or a list of per-layer modes."""
+def _modes(cfg: ModelConfig, ckpt: Union[str, Sequence[str]]) -> list:
+    """Every layer's recompute mode; ``ckpt`` is one mode for every layer
+    or a list of per-layer modes."""
     modes = [ckpt] * cfg.total_layers if isinstance(ckpt, str) else list(ckpt)
     if len(modes) != cfg.total_layers:
         # a pipeline stage's own list would count only its layers
         raise ValueError(f"{len(modes)} recompute modes for {cfg.total_layers} layers: pass "
                          "every layer's (Runtime.ckpts), not one stage's")
-    total = 0.0
-    for mode in modes:
-        if mode == "full":
-            total += layer_fwd_flops_per_token(cfg, seq_len)
-        elif mode == "selective":
-            total += attn_core_flops_per_token(cfg, seq_len)
-        elif cfg.mlp_recompute != "off":
-            total += mlp_flops_per_token(cfg)
-    return total
+    return modes
+
+
+def _remat_layer_flops_per_token(cfg: ModelConfig, seq_len: int, mode: str) -> float:
+    """Forward compute one layer replays in the backward, per token."""
+    if mode == "full":
+        return layer_fwd_flops_per_token(cfg, seq_len)
+    if mode == "selective":
+        return attn_core_flops_per_token(cfg, seq_len)
+    return mlp_flops_per_token(cfg) if cfg.mlp_recompute != "off" else 0.0
+
+
+def _remat_fwd_flops_per_token(cfg: ModelConfig, seq_len: int,
+                               ckpt: Union[str, Sequence[str]]) -> float:
+    """Forward compute replayed in the backward, per token over all layers."""
+    return sum(_remat_layer_flops_per_token(cfg, seq_len, m) for m in _modes(cfg, ckpt))
+
+
+def swin_fwd_flops_per_sample(cfg: ModelConfig, ckpt: Union[str, Sequence[str]] = "none"):
+    """(forward FLOPs, forward FLOPs recompute replays) of one Swin sample:
+    each layer at its stage's width over its stage's tokens, attention over
+    a window's w² keys, and the patch merges' projections; the head is not
+    included."""
+    fwd = remat = 0.0
+    for i, mode in enumerate(_modes(cfg, ckpt)):
+        stage = swin_stage_of(cfg, i)[0]
+        h, w, _, _ = swin_geometry(cfg, stage)
+        keys = swin_window_for(cfg, stage) ** 2
+        lc = vision_layer_cfg(cfg, i)
+        fwd += h * w * layer_fwd_flops_per_token(lc, keys)
+        remat += h * w * _remat_layer_flops_per_token(lc, keys, mode)
+    for stage in range(len(cfg.swin_depths) - 1):
+        h, w, c, _ = swin_geometry(cfg, stage)
+        fwd += (h // 2) * (w // 2) * 2.0 * (4 * c) * (2 * c)
+    return fwd, remat
 
 
 @dataclass
@@ -120,12 +158,18 @@ class StepStats:
         loss_tokens = float(self.global_bsz) * loss_tokens_per_sample(cfg, self.seq_len)
         seq = self.seq_len + cfg.enc_seq if cfg.enc_layers else self.seq_len
         tokens = float(self.global_bsz) * seq
-        fwd = (tokens * cfg.total_layers * layer_fwd_flops_per_token(cfg, seq)
-               + loss_tokens * head_flops_per_loss_token(cfg))
+        if cfg.swin_depths:
+            layers, remat = swin_fwd_flops_per_sample(cfg, self.ckpt)
+            last = vision_layer_cfg(cfg, cfg.num_layers - 1)
+            fwd = (self.global_bsz * layers
+                   + loss_tokens * head_flops_per_loss_token(last))
+            remat *= self.global_bsz
+        else:
+            fwd = (tokens * cfg.total_layers * layer_fwd_flops_per_token(cfg, seq)
+                   + loss_tokens * head_flops_per_loss_token(cfg))
+            remat = tokens * _remat_fwd_flops_per_token(cfg, seq, self.ckpt)
         self.model_flops_per_step = 3.0 * fwd
-        self.hardware_flops_per_step = self.model_flops_per_step + (
-            tokens * _remat_fwd_flops_per_token(cfg, seq, self.ckpt)
-        )
+        self.hardware_flops_per_step = self.model_flops_per_step + remat
         self.tokens_per_step = tokens
         self.on_device = torch.device(self.device).type == "cuda"
         self._peak = peak_flops_per_device(self.device)

@@ -20,7 +20,8 @@ Each of the four kernel functions (``_rms_fwd``, ``_rms_bwd``, ``_ln_fwd``,
   launches the hand-written Hopper kernel of ``csrc/fused_norm.cu`` or
   raises. There is no fall back from the card to the plain version;
 - a launch counter on the wrapper (``rms_fwd.launches``, ...), a plain
-  integer incremented where the kernel is launched and nowhere else.
+  integer incremented where the kernel is launched and nowhere else, and
+  the same count by row width (``ln_fwd.widths``: {H: launches}).
 
 :class:`FusedRMSNorm` and :class:`FusedLayerNorm` are the
 ``torch.autograd.Function``s over ``(n, H)`` rows (the reference's
@@ -191,11 +192,12 @@ def rms_fwd(x2d, scale, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     rstd = torch.empty((n, 1), dtype=torch.float32, device=x2d.device)
     _launch("rms_fwd", x2d, _fn("galvatron_rms_fwd", 4, 3, 1), x2d.data_ptr(), scale.data_ptr(),
             y.data_ptr(), rstd.data_ptr(), _DTYPE_CODE[x2d.dtype], n, h, float(eps))
-    _WRAPPERS["rms_fwd"].launches += 1
+    _count("rms_fwd", h)
     return y, rstd
 
 
 rms_fwd.launches = 0
+rms_fwd.widths = {}
 
 
 def rms_bwd(x2d, scale, rstd, dy) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -214,11 +216,12 @@ def rms_bwd(x2d, scale, rstd, dy) -> Tuple[torch.Tensor, torch.Tensor]:
     _launch("rms_bwd", x2d, _fn("galvatron_rms_bwd", 7, 4), x2d.data_ptr(), scale.data_ptr(),
             rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(), ws.data_ptr(),
             blocks, _DTYPE_CODE[x2d.dtype], n, h)
-    _WRAPPERS["rms_bwd"].launches += 1
+    _count("rms_bwd", h)
     return dx, dscale
 
 
 rms_bwd.launches = 0
+rms_bwd.widths = {}
 
 
 def ln_fwd(x2d, scale, bias, eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -235,11 +238,12 @@ def ln_fwd(x2d, scale, bias, eps: float) -> Tuple[torch.Tensor, torch.Tensor, to
     _launch("ln_fwd", x2d, _fn("galvatron_ln_fwd", 6, 3, 1), x2d.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), y.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
             _DTYPE_CODE[x2d.dtype], n, h, float(eps))
-    _WRAPPERS["ln_fwd"].launches += 1
+    _count("ln_fwd", h)
     return y, mu, rstd
 
 
 ln_fwd.launches = 0
+ln_fwd.widths = {}
 
 
 def ln_bwd(x2d, scale, mu, rstd, dy) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -259,11 +263,12 @@ def ln_bwd(x2d, scale, mu, rstd, dy) -> Tuple[torch.Tensor, torch.Tensor, torch.
     _launch("ln_bwd", x2d, _fn("galvatron_ln_bwd", 9, 4), x2d.data_ptr(), scale.data_ptr(),
             mu.data_ptr(), rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
             dbias.data_ptr(), ws.data_ptr(), blocks, _DTYPE_CODE[x2d.dtype], n, h)
-    _WRAPPERS["ln_bwd"].launches += 1
+    _count("ln_bwd", h)
     return dx, dscale, dbias
 
 
 ln_bwd.launches = 0
+ln_bwd.widths = {}
 
 
 #: the wrappers by name, whatever a caller has swapped in on the module for
@@ -271,14 +276,27 @@ ln_bwd.launches = 0
 _WRAPPERS = {"rms_fwd": rms_fwd, "rms_bwd": rms_bwd, "ln_fwd": ln_fwd, "ln_bwd": ln_bwd}
 
 
+def _count(name: str, h: int) -> None:
+    """One launch of kernel ``name`` over rows of width ``h``."""
+    fn = _WRAPPERS[name]
+    fn.launches += 1
+    fn.widths[h] = fn.widths.get(h, 0) + 1
+
+
 def launch_counts() -> dict:
     """The four kernels' launch counts as they stand."""
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
+def width_counts() -> dict:
+    """The four kernels' launch counts by row width: {name: {H: launches}}."""
+    return {name: dict(fn.widths) for name, fn in _WRAPPERS.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+        fn.widths.clear()
 
 
 # ---------------------------------------------------------------------------

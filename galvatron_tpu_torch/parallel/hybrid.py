@@ -60,6 +60,17 @@ column-parallel over the embedding's TP group as the token table is
 vocab-parallel (``modeling.vision_embed``, ``modeling.head``), and the
 class cross entropy runs vocab-parallel over that shard of the classes.
 
+Swin (``swin_depths``): each layer runs at its stage's width, heads and
+tokens (``modeling.swin_layer``; a TP layer gathers the whole feature map
+under SP before its window partition and scatters after ``wo``), and the
+patch merge between stages is a model-level parameter under the embedding
+strategy (replicated or ZeRO): the stream enters it in the embedding's
+layout, gathered over the embedding's TP group under its SP, and each rank
+merges its own sequence shard of the output tokens. A stage whose tokens
+(under SP) or heads do not split over a layer's TP degree is refused naming
+the layer: the port does not pad, where GSPMD would. At pp > 1 the stages
+are K coupled sections of layer pairs (``parallel/pipeline_swin.py``).
+
 Packed sequences (``cfg.pack_sequences``): the batch rows are tokens ‖
 segment ids (``data/packing.py``); every stage derives the segment ids of
 the micro-batch it runs from the rows it is given (every rank holds the
@@ -121,7 +132,14 @@ from galvatron_tpu_torch.device import resolve_device
 from galvatron_tpu_torch.models import modeling
 from galvatron_tpu_torch.models.modeling import ModelConfig
 from galvatron_tpu_torch.models.moe import MoEContext
-from galvatron_tpu_torch.parallel import comm, pipeline, pipeline_encdec, ring, ulysses
+from galvatron_tpu_torch.parallel import (
+    comm,
+    pipeline,
+    pipeline_encdec,
+    pipeline_swin,
+    ring,
+    ulysses,
+)
 from galvatron_tpu_torch.parallel.mesh import Group, ProcessGroups, RankMesh, batch_spec
 from galvatron_tpu_torch.parallel.pipeline_1f1b import pipedream_schedule
 from galvatron_tpu_torch.parallel.pipeline_interleaved import (
@@ -399,7 +417,8 @@ def _make_layer_hook(cfg: ModelConfig, ckpt: Union[str, List[str]], layer_fn=Non
     models; ``decoder_layer`` takes a TP rank's own heads' part). An
     encoder-decoder's encoder layers (i < ``enc_layers``) run
     bidirectionally over ``enc_seq`` positions; its decoder layers get
-    ``enc_out`` (``layer_fn``'s last argument)."""
+    ``enc_out`` (``layer_fn``'s last argument). A Swin layer is
+    ``modeling.swin_layer`` at its stage's shapes."""
 
     def hook(i: int, x, lp, seg_ids=None, enc_out=None):
         mode = ckpt if isinstance(ckpt, str) else ckpt[i]
@@ -416,6 +435,8 @@ def _make_layer_hook(cfg: ModelConfig, ckpt: Union[str, List[str]], layer_fn=Non
         cos_sin = _packed_tables(layer_cfg, cos_sin, seg_ids)
 
         def run(x_):
+            if cfg.swin_depths:
+                return modeling.swin_layer(x_, lp, layer_cfg, i, remat_attn=mode == "selective")
             return modeling.decoder_layer(x_, lp, layer_cfg, cos_sin,
                                           remat_attn=mode == "selective", seg_ids=seg_ids,
                                           alibi=alibi, enc_out=enc_out)
@@ -437,9 +458,10 @@ def _packed_tables(cfg: ModelConfig, cos_sin, seg_ids):
 
 def check_fp16(cfg: ModelConfig) -> None:
     """fp16 runs the blocked flash kernels only (the LLaMA family without
-    ``fused_norm``): the other kernels take bf16 or fp32, and a dtype a
-    kernel does not take raises, never a quiet plain version."""
-    if cfg.pos_embed != "rope":
+    ``fused_norm``), or no kernel at all (Swin without ``fused_norm``: its
+    window attention is einsums): the other kernels take bf16 or fp32, and
+    a dtype a kernel does not take raises, never a quiet plain version."""
+    if cfg.pos_embed != "rope" and not cfg.swin_depths:
         raise NotImplementedError(
             "--mixed_precision fp16 runs rotary-position models only (the blocked flash "
             "kernels' fp16 instances); without rotary positions (GPT/OPT, the encoders, T5) "
@@ -562,15 +584,17 @@ class _Buckets:
 def _schedules(cfg: ModelConfig, hp: HybridParallelConfig, chunks: int):
     """(train schedule, eval schedule) of the plan: at pp = 1 the forward
     and backward of each micro-batch in turn (plain accumulation); an
-    encoder-decoder's coupled clocks at pp > 1."""
+    encoder-decoder's and a Swin pyramid's coupled clocks at pp > 1."""
     pp, vpp = hp.pp, hp.vpp
     if pp == 1:
         return pipedream_schedule(1, chunks), pipeline.gpipe_schedule(1, chunks, train=False)
-    if cfg.enc_layers > 0:
-        train = (pipeline_encdec.pipedream_schedule(pp, chunks)
+    if cfg.enc_layers > 0 or cfg.swin_depths:
+        # the coupled sections: an encoder-decoder's two, Swin's K stages
+        k = 2 if cfg.enc_layers > 0 else len(cfg.swin_depths)
+        train = (pipeline.sections_1f1b_schedule(pp, k, chunks)
                  if hp.pipeline_type == "pipedream_flush"
-                 else pipeline_encdec.gpipe_schedule(pp, chunks))
-        return train, pipeline_encdec.gpipe_schedule(pp, chunks, train=False)
+                 else pipeline.sections_gpipe_schedule(pp, k, chunks))
+        return train, pipeline.sections_gpipe_schedule(pp, k, chunks, train=False)
     if vpp > 1:
         train = (interleaved_1f1b_schedule(pp, vpp, chunks)
                  if hp.pipeline_type == "pipedream_flush"
@@ -627,6 +651,7 @@ def build_runtime(
     if hp.mixed_precision not in _PRECISION:
         raise ValueError(f"unknown mixed_precision {hp.mixed_precision!r}")
     encdec = cfg.enc_layers > 0
+    swin = bool(cfg.swin_depths)
     if hp.num_layers != cfg.total_layers:
         raise ValueError(f"strategy has {hp.num_layers} layer entries but the model has "
                          f"{cfg.total_layers}" + (" (encoder + decoder)" if encdec else "")
@@ -634,7 +659,11 @@ def build_runtime(
     strategies = list(hp.layer_strategies)
     es = embed_strategy(hp)
     for i, s in enumerate(strategies):
-        modeling.check_tp_shapes(cfg, s.tp, f"layer {i}")
+        modeling.check_tp_shapes(modeling.vision_layer_cfg(cfg, i), s.tp, f"layer {i}")
+        tokens = modeling.layer_seq(cfg, seq_len, i)
+        if swin and s.sp and tokens % s.tp:
+            raise ValueError(f"layer {i}: its stage's {tokens} tokens do not split over "
+                             f"tp={s.tp} under SP (the port does not pad them)")
     if cfg.image_size:
         for what, n in (("classes", cfg.num_classes), ("hidden", cfg.hidden_size)):
             if n % es.tp:
@@ -646,6 +675,8 @@ def build_runtime(
     pp = hp.pp
     if encdec and pp > 1:
         pipeline_encdec.validate_encdec_pipeline(cfg, hp)
+    elif swin and pp > 1:
+        pipeline_swin.SwinLayout(cfg, hp)
     elif hp.vpp > 1:
         validate_interleaved_strategies(cfg.num_layers, hp)
     elif pp > 1:
@@ -661,13 +692,18 @@ def build_runtime(
     mb_rows = global_batch_size // chunks
     E = cfg.enc_layers
     seqs = [modeling.layer_seq(cfg, seq_len, i) for i in range(len(strategies))]
+    # Swin: each stage's first layer, where the merged stream starts
+    starts = modeling.swin_stage_starts(cfg)
     for i, s in enumerate(strategies + [es]):
         what = f"layer {i}" if i < len(strategies) else "embedding/head"
         # the sequences its layout carries: the layer's own; an
-        # encoder-decoder's decoder layers and embedding, the encoder's too
+        # encoder-decoder's decoder layers and embedding, the encoder's too;
+        # Swin's embedding, the tokens of every merge's output
         carried = {seqs[i] if i < len(strategies) else seq_len}
         if encdec and i >= E:
             carried.add(cfg.enc_seq)
+        if i == len(strategies):
+            carried.update(seqs[j] for j in starts)
         try:
             mesh.batch_rows(rank, s, mb_rows)
             for sq in carried:
@@ -682,10 +718,18 @@ def build_runtime(
     layer_ids = pipeline.device_layers(cfg, hp, stage)
     local = pipeline.local_index(layer_ids, E)
     tied = cfg.tie_word_embeddings and pp > 1
-    # an encoder-decoder turns from its encoder to its decoder at the start
-    # of the decoder's first virtual stage (device 0), or before layer E of
-    # the one virtual stage at pp = 1: (virtual stage, position in it)
-    turn = ((pp, 0) if pp > 1 else (0, E)) if encdec else None
+    # where a stream turns, (virtual stage, position in it) → the layer that
+    # starts the new stream: an encoder-decoder turns from its encoder to its
+    # decoder at the start of the decoder's first virtual stage (device 0),
+    # or before layer E of the one virtual stage at pp = 1; Swin merges into
+    # stage k at the start of section k's first virtual stage (device 0), or
+    # before the stage's first layer at pp = 1
+    turns: Dict[tuple, int] = {}
+    if encdec:
+        turns[(pp, 0) if pp > 1 else (0, E)] = E
+    for k in range(1, len(starts)):
+        turns[(k * pp, 0) if pp > 1 else (0, starts[k])] = starts[k]
+    stream_starts = {0, *turns.values()}
 
     axes_list = [mesh.axes.data_axes]
     for s in strategies + [es]:
@@ -770,7 +814,8 @@ def build_runtime(
         # stage boundary: the receiving stage moves it (a stack's first
         # layer takes the embedding's)
         x = comm.redistribute(x, mesh, rank, stage_group,
-                              layouts[i - 1] if i not in (0, E) else embed_layout, layouts[i])
+                              layouts[i - 1] if i not in stream_starts else embed_layout,
+                              layouts[i])
         if enc_out is not None:
             # the encoder output (embedding layout) into this decoder
             # layer's; autograd sums its gradients over the decoder layers
@@ -788,6 +833,9 @@ def build_runtime(
 
         def run(x_, regather=None):
             p = materialize(lp, lplans, regather)
+            if swin:
+                return modeling.swin_layer(x_, p, layer_cfg, i, remat_attn=mode == "selective",
+                                           tp=tp_regions[i])
             if cp_layers[i] is not None:
                 return cp_layers[i](x_, p, layer_cfg, cos_sin=cos_sin, tp=tp_regions[i])
             return modeling.decoder_layer(x_, p, layer_cfg, cos_sin,
@@ -824,15 +872,29 @@ def build_runtime(
         ctx = modeling.norm(x, top["enc_final_norm"], cfg)
         return modeling.embed(tokens[:, cfg.enc_seq:], top, cfg, vocab), ctx
 
+    def merge(x, top, stage):
+        """Swin's patch merge after stage ``stage``: the stream into the
+        embedding's layout, over the embedding's TP group under its SP the
+        whole map gathered and this rank's shard of the merged tokens kept."""
+        x = comm.redistribute(x, mesh, rank, stage_group, layouts[starts[stage + 1] - 1],
+                              embed_layout)
+        tokens = None
+        if vocab is not None and vocab.sp:
+            x = vocab.enter(x)
+            tokens = vocab.seq_slice(seqs[starts[stage + 1]])
+        return modeling.patch_merge(x, top["merges"][stage], cfg, stage, tokens)
+
     def stage_forward(params, k, mb, x):
         """Virtual stage k on a micro-batch ``mb`` of token rows: embed this
         rank's rows first (k = 0; otherwise ``x`` is the received
         activation), its layers, then the final norm, head and loss sum
         (the last virtual stage: returns (nll_sum, count)). An
-        encoder-decoder turns to its decoder at ``turn``; from there its
-        activation is the pair (decoder stream, normed encoder output)."""
+        encoder-decoder turns to its decoder at its one of ``turns``; from
+        there its activation is the pair (decoder stream, normed encoder
+        output). Swin merges its stream into the next stage at each of
+        ``turns``."""
         head = k == last_vstage
-        ends = k == 0 or head or (turn is not None and k == turn[0])
+        ends = k == 0 or head or any(v == k for v, _ in turns)
         rg = comm.Regather() if ends and top_zero3 and torch.is_grad_enabled() else None
         top = {key: materialize(params[key], plans[key], rg) for key in top_keys} if ends else {}
         hook_kw, pos_ids = {}, None
@@ -852,8 +914,11 @@ def build_runtime(
                                        vocab, pos_ids=pos_ids)
             ids = vstages[k]
             for j in range(len(ids) + 1):
-                if turn == (k, j):
-                    x, ctx = to_decoder(x, top, tokens)
+                if (k, j) in turns:
+                    if encdec:
+                        x, ctx = to_decoder(x, top, tokens)
+                    else:
+                        x = merge(x, top, starts.index(turns[(k, j)]) - 1)
                 if j < len(ids):
                     x = hook(ids[j], x, pipeline.layer_of(params, ids[j], local), enc_out=ctx,
                              **hook_kw)
@@ -869,25 +934,31 @@ def build_runtime(
 
     # the activation's layout after each virtual stage: that of the last
     # layer its stream has run by then (an encoder-decoder's decoder stream
-    # starts in the embedding's; a stage may hold no layers)
+    # and a Swin stage's merged stream start in the embedding's; a stage may
+    # hold no layers)
     out_layouts, ran = [], []
     for k, ids in enumerate(vstages):
         ran += ids
-        stream = [i for i in ran if i >= E] if turn is not None and k >= turn[0] else ran
+        begin = max([i for (v, _), i in turns.items() if v <= k], default=0)
+        stream = [i for i in ran if i >= begin]
         out_layouts.append(layouts[stream[-1]] if stream else embed_layout)
 
-    def empty(layout, seq):
+    def empty(layout, seq, width=cfg.hidden_size):
         b, sq = layout
-        return torch.empty((mb_rows >> len(b), seq >> len(sq), cfg.hidden_size),
+        return torch.empty((mb_rows >> len(b), seq >> len(sq), width),
                            dtype=cfg.dtype, device=device)
 
     def buffer(kind, k):
         """An empty activation (or gradient) entering virtual stage k: the
         layout its stream has after the virtual stage that produced it; an
         encoder-decoder's decoder stream comes with the encoder output, in
-        the embedding's layout."""
+        the embedding's layout; a Swin section's map has its stage's tokens
+        and width."""
         v = k - 1 if kind == pipeline.FWD else k
-        if turn is None or v < turn[0]:
+        if swin:
+            h, w, c, _ = modeling.swin_geometry(cfg, v // pp)
+            return empty(out_layouts[v], h * w, c)
+        if not encdec or v < pp:
             return empty(out_layouts[v], cfg.enc_seq if encdec else seq_len)
         return empty(out_layouts[v], seq_len), empty(embed_layout, cfg.enc_seq)
 
@@ -999,6 +1070,9 @@ def build_runtime(
             if buckets is not None:
                 buckets.remove()
         grads = []
+        for p in leaves:
+            if p.grad is None:  # a leaf the loss does not reach (Swin's wo_b)
+                p.grad = torch.zeros_like(p)
         for j, (p, lp) in enumerate(zip(leaves, leaf_plans)):
             if buckets is not None and j in bucket_of:
                 g = buckets.result(j)  # the step waits for every bucket

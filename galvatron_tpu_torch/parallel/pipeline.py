@@ -9,8 +9,9 @@ layers, and a schedule is that same clock written out: for each device
 (pipeline stage) the list of ``(tick, fwd | bwd, virtual stage, micro-batch)``
 actions the JAX clock formulas give (:func:`gpipe_schedule` here,
 ``pipedream_schedule`` in ``pipeline_1f1b.py``, the interleaved ones in
-``pipeline_interleaved.py``, an encoder-decoder's coupled ones in
-``pipeline_encdec.py``). :func:`execute` walks a device's list tick by
+``pipeline_interleaved.py``, the coupled sections of an encoder-decoder
+and of a Swin pyramid, :func:`sections_gpipe_schedule` and
+:func:`sections_1f1b_schedule`). :func:`execute` walks a device's list tick by
 tick: at each tick it posts, in one ``comm.exchange``, the messages the
 previous tick produced and the receives this tick needs, waits for the
 receives, then runs the tick's actions (a forward before a backward). Every
@@ -95,12 +96,17 @@ def virtual_stages(cfg, hp: HybridParallelConfig) -> List[List[int]]:
     vpp = 1 stage s is its ``pp_division`` range; with vpp > 1 virtual
     stage k is layers ``[k·lpvs, (k+1)·lpvs)`` and lives on device
     ``k % pp``; an encoder-decoder at pp > 1 has 2·pp, the encoder's then
-    the decoder's (``pipeline_encdec.py``)."""
+    the decoder's (``pipeline_encdec.py``), a Swin pyramid of K stages K·pp,
+    one section of layer pairs a stage (``pipeline_swin.py``)."""
     num_layers = cfg.total_layers
     if cfg.enc_layers > 0 and hp.pp > 1:
         from galvatron_tpu_torch.parallel import pipeline_encdec
 
         return pipeline_encdec.virtual_stages(cfg, hp)
+    if cfg.swin_depths and hp.pp > 1:
+        from galvatron_tpu_torch.parallel import pipeline_swin
+
+        return pipeline_swin.virtual_stages(cfg, hp)
     if hp.vpp > 1:
         lpvs = num_layers // (hp.pp * hp.vpp)
         return [list(range(k * lpvs, (k + 1) * lpvs)) for k in range(hp.pp * hp.vpp)]
@@ -119,7 +125,8 @@ def device_layers(cfg, hp: HybridParallelConfig, device: int) -> List[int]:
 
 #: held by the first stage besides the embedding: an encoder-decoder's
 #: encoder final norm (its decoder's first stage, on device 0, applies it)
-_FIRST_KEYS = ("embed", "enc_final_norm")
+#: and Swin's patch merges (each section's first stage, on device 0, merges)
+_FIRST_KEYS = ("embed", "enc_final_norm", "merges")
 
 
 def held_tree(tree, layer_ids: Sequence[int], first: bool, last: bool, tied: bool):
@@ -269,6 +276,46 @@ def gpipe_schedule(pp: int, chunks: int, train: bool = True) -> Schedule:
     JAX package's ``gpipe_schedule_ticks``)."""
     return mirrored(pp, 1, chunks, [(s, m + s, s, m) for s in range(pp) for m in range(chunks)],
                     train)
+
+
+def _section_cells(pp: int, sections: int, chunks: int, kind: str, tick) -> list:
+    """``(device, tick, kind, vstage, mb)`` of every virtual stage of a
+    chain of ``sections`` sections over the pp ring (virtual stage v =
+    section v // pp on device v % pp) and micro-batch, in virtual-stage
+    order (the executor's message order)."""
+    return [(v % pp, tick(v, m), kind, v, m) for v in range(sections * pp)
+            for m in range(chunks)]
+
+
+def sections_gpipe_schedule(pp: int, sections: int, chunks: int,
+                            train: bool = True) -> Schedule:
+    """The coupled-sections GPipe clock (the JAX package's encoder-decoder
+    and Swin engines): section k's forward of micro-batch m on device s at
+    tick ``m + k·pp + s`` (virtual stage v = k·pp + s at ``m + v``),
+    ``chunks + sections·pp - 1`` forward ticks, the backward their mirror
+    image."""
+    fwd = [(d, t, v, m) for d, t, _, v, m in
+           _section_cells(pp, sections, chunks, FWD, lambda v, m: m + v)]
+    return mirrored(pp, sections, chunks, fwd, train)
+
+
+def sections_1f1b_schedule(pp: int, sections: int, chunks: int) -> Schedule:
+    """The coupled-sections 1F1B clock (the JAX package's formulas, K =
+    ``sections``): section k's forward ``m = t - k·pp - s``, its backward
+    ``m = t - ((2K - k)·pp - 2) + s``, ``chunks + 2K·pp - 2`` ticks: the
+    last section's backward starts on the last device in the tick of its
+    forward and each wave wraps from device 0 into the section before.
+    Section k holds at most ``min(chunks, 2(K - k)·pp - 1)`` micro-batches
+    in flight."""
+    K = sections
+
+    def bwd_tick(v, m):
+        k, s = divmod(v, pp)
+        return m + (2 * K - k) * pp - 2 - s
+
+    cells = (_section_cells(pp, K, chunks, FWD, lambda v, m: m + v)
+             + _section_cells(pp, K, chunks, BWD, bwd_tick))
+    return from_ticks(pp, K, chunks, chunks + 2 * K * pp - 2, cells).check(True)
 
 
 # ---------------------------------------------------------------------------

@@ -45,12 +45,10 @@ from typing import List
 
 from galvatron_tpu_torch.core.strategy import HybridParallelConfig, balanced_division
 from galvatron_tpu_torch.parallel.pipeline import (
-    BWD,
-    FWD,
     Schedule,
-    from_ticks,
-    mirrored,
     position_strategies,
+    sections_1f1b_schedule,
+    sections_gpipe_schedule,
 )
 
 
@@ -120,28 +118,15 @@ def virtual_stages(cfg, hp: HybridParallelConfig) -> List[List[int]]:
             + [list(range(E + o, E + o + n)) for o, n in zip(lay.off_d, lay.div_d)])
 
 
-def _cells(pp: int, chunks: int, kind: str, tick) -> list:
-    """``(device, tick, kind, vstage, mb)`` of every virtual stage and
-    micro-batch, in virtual-stage order (the executor's message order)."""
-    return [(v % pp, tick(v, m), kind, v, m) for v in range(2 * pp) for m in range(chunks)]
-
-
 def gpipe_schedule(pp: int, chunks: int, train: bool = True) -> Schedule:
     """The coupled GPipe clock: every forward first (virtual stage v, which
     is encoder stage v or decoder stage v - pp, micro-batch m at tick
     ``m + v``), the backward its mirror image."""
-    fwd = [(d, t, v, m) for d, t, _, v, m in _cells(pp, chunks, FWD, lambda v, m: m + v)]
-    return mirrored(pp, 2, chunks, fwd, train)
+    return sections_gpipe_schedule(pp, 2, chunks, train)
 
 
 def pipedream_schedule(pp: int, chunks: int) -> Schedule:
     """The coupled 1F1B clock (the JAX package's formulas): a decoder
     micro-batch's backward starts on the last device in the tick of its
     last forward, runs down the decoder and wraps into the encoder."""
-    def bwd_tick(v, m):
-        s = v % pp
-        return m + (3 * pp - 2 - s if v >= pp else 4 * pp - 2 - s)
-
-    cells = (_cells(pp, chunks, FWD, lambda v, m: m + v)
-             + _cells(pp, chunks, BWD, bwd_tick))
-    return from_ticks(pp, 2, chunks, chunks + 4 * pp - 2, cells).check(True)
+    return sections_1f1b_schedule(pp, 2, chunks)

@@ -25,8 +25,8 @@ vocab-parallel fit covers vocab_tp = 1. A ViT ('cls') is profiled on its
 pixel ‖ label rows (``modeling.batch_row_width``) and its layers' sequence
 is its patches; its 'other' terms stay analytic (no vocabulary fit), as in
 the JAX package. An encoder-decoder gets two layer types from a three-point
-sweep (:func:`_profile_encdec_model`). Swin profiles (ROADMAP.md §1.10) are
-not ported.
+sweep (:func:`_profile_encdec_model`), a Swin pyramid one type per stage
+from a (K + 1)-point sweep of layer pairs (:func:`_profile_swin_model`).
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from galvatron_tpu_torch.device import resolve_device
 from galvatron_tpu_torch.models import modeling
 from galvatron_tpu_torch.models.modeling import ModelConfig
 from galvatron_tpu_torch.search.cost_model import ProfiledLayerType, ProfiledModelCosts
+from galvatron_tpu_torch.models.modeling import swin_geometry, vision_layer_cfg
 from galvatron_tpu_torch.search.theoretical import (
     layer_param_count,
     moe_expert_params,
@@ -333,6 +334,66 @@ def _profile_encdec_model(cfg: ModelConfig, bsz: int, layernums: Tuple[int, int]
     return costs
 
 
+def _profile_swin_model(cfg: ModelConfig, bsz: int, measure_time: bool,
+                        out_prefix: Optional[str], device: torch.device) -> ProfiledModelCosts:
+    """A Swin pyramid's profile (the JAX package's ``_profile_swin_model``):
+    one layer type per stage from a (K + 1)-point sweep, a base pyramid of
+    one layer PAIR a stage, then one more pair in stage k with the others
+    fixed (pairs, since Swin alternates plain and shifted windows); without
+    timing the reference's fixed (1.0, 0.1) ms stand in."""
+    K = len(cfg.swin_depths)
+
+    def with_depths(d):
+        return cfg.replace(num_layers=sum(d), swin_depths=tuple(d))
+
+    cfg_base = with_depths((2,) * K)
+    var_cfgs = [with_depths(tuple(4 if j == k else 2 for j in range(K))) for k in range(K)]
+    if measure_time:
+        t_base = _iter_time_ms(cfg_base, bsz, None, device)
+        _free(device)
+        t_var = []
+        for c in var_cfgs:
+            t_var.append(_iter_time_ms(c, bsz, None, device))
+            _free(device)
+        sec_ms = [max(1e-4, (t - t_base) / 2.0 / bsz / 3.0) for t in t_var]
+        other_ms = max(0.0, (t_base - sum(sec_ms) * 2.0 * 3.0 * bsz) / bsz / 3.0)
+    else:
+        sec_ms, other_ms = [1.0] * K, 0.1
+    b_base = _act_bytes(cfg_base, bsz, 0, device)
+    _free(device)
+    b_var = []
+    for c in var_cfgs:
+        b_var.append(_act_bytes(c, bsz, 0, device))
+        _free(device)
+    starts = modeling.swin_stage_starts(cfg)
+    sec_lts = []
+    for k in range(K):
+        h, w, c_k, _ = swin_geometry(cfg, k)
+        lcfg = vision_layer_cfg(cfg, starts[k])
+        act_mb = ((b_var[k] - b_base) / 2.0 / bsz / 1e6 if b_var[k] > b_base
+                  else _act_fallback_mb(lcfg, h * w))
+        sec_lts.append(ProfiledLayerType(
+            fwd_ms_per_sample=float(sec_ms[k]),
+            parameter_mb=float(layer_param_count(lcfg) * 4 / 1e6),
+            activation_mb_per_sample={t: float(act_mb / t) for t in (1, 2, 4, 8)
+                                      if c_k % t == 0},
+            boundary_activation_mb_per_sample=float(h * w * c_k * 2 / 1e6),
+        ))
+    print(f"profile: Swin pair sweep over {K} stages on {device}; activation measure: "
+          f"{act_measure(device)}", flush=True)
+    costs = ProfiledModelCosts(
+        layer_types={i: sec_lts[modeling.swin_stage_of(cfg, i)[0]]
+                     for i in range(cfg.num_layers)},
+        other_param_mb=float(other_param_count(cfg) * 4 / 1e6),
+        # the patch embedding's output dominates "other" activations
+        other_act_mb_per_sample=float(cfg.n_patches * cfg.hidden_size * 2 / 1e6),
+        other_fwd_ms_per_sample=float(other_ms),
+        hidden_size=cfg.hidden_size,
+    )
+    _save(costs, out_prefix)
+    return costs
+
+
 def profile_model(
     cfg: ModelConfig,
     bsz: int = 8,
@@ -350,8 +411,6 @@ def profile_model(
     ``layernums`` are never changed. An MoE model also gets its expert-time
     fraction (:func:`_expert_time_fraction`) and the expert-parameter
     fraction and all-to-all volume the search prices EP with."""
-    if cfg.swin_depths:
-        raise NotImplementedError("Swin profiles are not ported yet: ROADMAP.md §1.10")
     if _world() != 1:
         raise ValueError("profile_model runs in one process on one device "
                          f"(this world has {_world()} ranks)")
@@ -365,6 +424,14 @@ def profile_model(
             )
         return _profile_encdec_model(cfg, bsz, layernums or (2, 4), measure_time, out_prefix,
                                      device)
+    if cfg.swin_depths:
+        if seq is not None or layernums is not None:
+            raise ValueError(
+                "seq/layernums do not apply to swin profiles (the pyramid "
+                "fixes per-section resolutions; the sweep varies section "
+                "depths)"
+            )
+        return _profile_swin_model(cfg, bsz, measure_time, out_prefix, device)
     seq = modeling.layer_seq(cfg, seq)
     adaptive = layernums is None
     l1, l2 = layernums or _default_layernums(cfg.total_layers)

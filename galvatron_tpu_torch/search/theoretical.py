@@ -10,9 +10,10 @@ package's, so ``--analytic_costs 1`` searches give the same plans).
 - activation estimates per layer per sample for the attention paths (flash
   never materializes the (S, S) score matrix; the einsum path does).
 
-ViT takes the reference's vision branch (one layer type at seq =
-n_patches, the patch projection and class head as "other"); Swin raises:
-its stage geometry is not ported (ROADMAP.md §1.10).
+ViT and Swin take the reference's vision branch: ViT one layer type at seq
+= n_patches; Swin one type per layer at its stage's width and tokens, each
+token attending its window; the patch projection, class head (and Swin's
+patch merges) as "other".
 """
 
 from __future__ import annotations
@@ -20,7 +21,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from galvatron_tpu_torch.core.strategy import LayerStrategy
-from galvatron_tpu_torch.models.modeling import ModelConfig
+from galvatron_tpu_torch.models.modeling import (
+    ModelConfig,
+    swin_geometry,
+    swin_stage_of,
+    swin_window_for,
+    vision_layer_cfg,
+)
 
 _BYTES = {"fp32": 4, "bf16": 2, "fp16": 2}
 
@@ -60,14 +67,16 @@ def layer_param_count(cfg: ModelConfig, cross: bool = False) -> int:
 
 def other_param_count(cfg: ModelConfig) -> int:
     """Embedding + final norm + output head (a ViT's patch projection,
-    positions and class head)."""
+    positions and class head; + Swin's patch merges)."""
     if cfg.image_size:
-        if cfg.swin_depths:
-            _refuse_vision()
         patch_dim = cfg.patch_size * cfg.patch_size * cfg.num_channels
         n = patch_dim * cfg.hidden_size + cfg.n_patches * cfg.hidden_size
-        n += cfg.hidden_size * cfg.num_classes
-        n += cfg.hidden_size if cfg.norm_type == "rms" else 2 * cfg.hidden_size
+        c_last = cfg.hidden_size << max(0, len(cfg.swin_depths) - 1)
+        n += c_last * cfg.num_classes
+        n += c_last if cfg.norm_type == "rms" else 2 * c_last
+        for s in range(len(cfg.swin_depths) - 1):
+            _, _, c, _ = swin_geometry(cfg, s)
+            n += 4 * c * 2 * c + (4 * c if cfg.norm_type == "rms" else 8 * c)
         return n
     n = cfg.vocab_size * cfg.hidden_size  # token embedding
     if cfg.pos_embed == "learned":
@@ -80,7 +89,8 @@ def other_param_count(cfg: ModelConfig) -> int:
 
 def total_param_count(cfg: ModelConfig) -> int:
     if cfg.swin_depths:
-        _refuse_vision()
+        layers = sum(layer_param_count(vision_layer_cfg(cfg, i)) for i in range(cfg.num_layers))
+        return layers + other_param_count(cfg)
     return cfg.num_layers * layer_param_count(cfg) + other_param_count(cfg)
 
 
@@ -260,49 +270,59 @@ def _analytic_encdec_costs(
 
 def _analytic_vision_costs(cfg: ModelConfig, peak_tflops: float, mfu: float,
                            mixed_precision: str):
-    """The ViT branch of the reference's ``_analytic_vision_costs``: one
-    uniform layer type at seq = n_patches, every patch attending every
-    other (the flash activation terms with the LSE replaced by fp32
-    probabilities), the patch projection and class head as "other". Swin
-    raises (ROADMAP.md §1.10)."""
+    """The reference's ``_analytic_vision_costs``: ViT one uniform layer type
+    at seq = n_patches, every patch attending every other; Swin one layer
+    type per layer (the stage pyramid makes widths and tokens
+    layer-dependent: the multi-layer-type search), each token attending its
+    w² window; the flash activation terms with the LSE replaced by the fp32
+    probabilities; the patch projection and class head (and the merges'
+    parameters) as "other"."""
     from galvatron_tpu_torch.search.cost_model import ProfiledLayerType, ProfiledModelCosts
 
-    if cfg.swin_depths:
-        _refuse_vision()
     b = _BYTES[mixed_precision]
-    S = ctx = cfg.n_patches
-    heads = cfg.num_heads
-    p_layer = layer_param_count(cfg)
-    flops = 2.0 * p_layer * S + 2.0 * 2.0 * heads * cfg.head_dim * S * ctx
-    act = {}
-    for tp in (1, 2, 4, 8):
-        if cfg.hidden_size % tp:
-            continue
-        base = layer_activation_mb_per_sample(
-            cfg.replace(attn_impl="flash"), LayerStrategy(tp=tp), S, mixed_precision)
-        act[tp] = base + 4.0 * (heads / tp) * S * (ctx - 1) / 1e6
-    lt = ProfiledLayerType(
-        fwd_ms_per_sample=flops / (peak_tflops * 1e12 * mfu) * 1e3,
-        parameter_mb=p_layer * 4 / 1e6,
-        activation_mb_per_sample=act,
-        boundary_activation_mb_per_sample=S * cfg.hidden_size * b / 1e6,
-    )
+
+    def layer_type_for(i: int) -> ProfiledLayerType:
+        lcfg = vision_layer_cfg(cfg, i)
+        if cfg.swin_depths:
+            stage, _ = swin_stage_of(cfg, i)
+            h_side, w_side, _, heads = swin_geometry(cfg, stage)
+            S = h_side * w_side
+            win = swin_window_for(cfg, stage)
+            ctx = win * win  # each token attends its window
+        else:
+            S = cfg.n_patches
+            heads, ctx = cfg.num_heads, cfg.n_patches
+        p_layer = layer_param_count(lcfg)
+        flops = 2.0 * p_layer * S + 2.0 * 2.0 * heads * lcfg.head_dim * S * ctx
+        act = {}
+        for tp in (1, 2, 4, 8):
+            if lcfg.hidden_size % tp:
+                continue
+            base = layer_activation_mb_per_sample(
+                lcfg.replace(attn_impl="flash"), LayerStrategy(tp=tp), S, mixed_precision)
+            act[tp] = base + 4.0 * (heads / tp) * S * (ctx - 1) / 1e6
+        return ProfiledLayerType(
+            fwd_ms_per_sample=flops / (peak_tflops * 1e12 * mfu) * 1e3,
+            parameter_mb=p_layer * 4 / 1e6,
+            activation_mb_per_sample=act,
+            boundary_activation_mb_per_sample=S * lcfg.hidden_size * b / 1e6,
+        )
+
+    if cfg.swin_depths:
+        layer_types = {i: layer_type_for(i) for i in range(cfg.num_layers)}
+    else:
+        layer_types = {0: layer_type_for(0)}
     patch_dim = cfg.patch_size * cfg.patch_size * cfg.num_channels
     other_flops = 2.0 * patch_dim * cfg.hidden_size * cfg.n_patches
-    other_flops += 2.0 * cfg.hidden_size * cfg.num_classes
+    c_last = cfg.hidden_size << max(0, len(cfg.swin_depths) - 1)
+    other_flops += 2.0 * c_last * cfg.num_classes
     return ProfiledModelCosts(
-        layer_types={0: lt},
+        layer_types=layer_types,
         other_param_mb=other_param_count(cfg) * 4 / 1e6,
         # the patch embedding's output dominates "other" activation
         other_act_mb_per_sample=cfg.n_patches * cfg.hidden_size * b / 1e6,
         other_fwd_ms_per_sample=other_flops / (peak_tflops * 1e12 * mfu) * 1e3,
     )
-
-
-def _refuse_vision():
-    raise NotImplementedError(
-        "analytic costs of Swin models (their stage geometry) are not ported yet: "
-        "ROADMAP.md §1.10 'Other model families'")
 
 
 @dataclass

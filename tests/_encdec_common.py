@@ -1,8 +1,9 @@
-"""The shared half of the encoder-decoder world tests
-(``tests/test_torch_encdec_world.py``, ``tests/test_torch_encdec_search.py``):
-the tiny T5 of ``tests/test_encdec.py``, its plans, the JAX package's
-single-device AdamW trajectory, and the rank worker of an 8-rank gloo world
-that trains the port under each plan.
+"""The shared half of the encoder-decoder and Swin world tests
+(``tests/test_torch_encdec_world.py``, ``tests/test_torch_encdec_search.py``,
+``tests/test_torch_swin_world.py``): the tiny T5 of ``tests/test_encdec.py``,
+its plans, the JAX package's single-device AdamW trajectory, and the rank
+worker of an 8-rank gloo world that trains the port under each plan (a
+model shape of either family: image rows for a vision shape).
 
 Run as a script (``python tests/_encdec_common.py worker CASES OUT``) this
 file is one rank of the world; that path imports no JAX.
@@ -175,8 +176,15 @@ def jax_params(shape, seed=0):
 
 
 def make_batches(shape, rows, seed, steps=STEPS):
-    width = shape["enc_seq"] + shape["max_seq_len"] + 1
+    """Token rows of a T5 shape, or pixels ‖ label rows of a vision shape
+    (``tests/_vision_common.make_vision_batches``' draws)."""
     rng = np.random.RandomState(seed)
+    if shape.get("image_size"):
+        n = shape["image_size"] ** 2 * 3
+        return [np.concatenate([rng.randint(0, 256, (rows, n)),
+                                rng.randint(0, shape["num_classes"], (rows, 1))],
+                               1).astype(np.int64) for _ in range(steps)]
+    width = shape["enc_seq"] + shape["max_seq_len"] + 1
     return [rng.randint(0, 128, (rows, width)).astype(np.int64) for _ in range(steps)]
 
 
@@ -220,6 +228,8 @@ def worker(case_path: str, out_dir: str) -> None:
                 losses.append(float(loss))
             out["losses"] = losses
             out["params"] = bridge.params_to_numpy(state["params"])
+            if "scaler" in state:
+                out["scale"] = float(state["scaler"]["scale"])
             out["stage_layers"] = list(rt.stage_layers)
             if case.get("save"):
                 out["eval_after"] = float(rt.eval_loss(state, batches[0]))
@@ -266,7 +276,8 @@ def pp1_checkpoint(shape, params, ckpt_dir):
     from galvatron_tpu_torch.parallel import hybrid
 
     cfg = ModelConfig(dtype=torch.float32, **shape)
-    rt = hybrid.build_runtime(cfg, HybridParallelConfig.uniform(4, mixed_precision="fp32"),
+    rt = hybrid.build_runtime(cfg, HybridParallelConfig.uniform(cfg.total_layers,
+                                                                mixed_precision="fp32"),
                               AdamConfig(lr=LR, grad_clip=1.0), global_batch_size=8,
                               seq_len=cfg.max_seq_len, device="cpu")
     state = rt.state_from(hybrid.zip_map(

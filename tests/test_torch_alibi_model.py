@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from test_torch_alibi import ATOL, _cfgs, _loss_and_grads_case, _params
+import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("attn_impl", ["xla", "flash"])

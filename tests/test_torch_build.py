@@ -11,6 +11,7 @@ import textwrap
 import pytest
 
 from galvatron_tpu_torch.ops import _build
+import _torch_threads  # noqa: F401
 
 FAKE_NVCC = textwrap.dedent("""\
     #!{python}

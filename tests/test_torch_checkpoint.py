@@ -29,6 +29,7 @@ from galvatron_tpu_torch.core import optim as topt
 from galvatron_tpu_torch.models import modeling as tm
 from galvatron_tpu_torch.parallel import hybrid as thybrid
 from galvatron_tpu_torch.utils.metrics import MetricsLogger, read_metrics
+import _torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SHAPE = dict(vocab_size=128, hidden_size=64, num_layers=4, num_heads=4, ffn_dim=128,

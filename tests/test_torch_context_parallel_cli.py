@@ -8,6 +8,7 @@ import json
 import numpy as np
 
 from test_torch_context_parallel import LOSS_TOL, STEPS, TINY, _cli_losses
+import _torch_threads  # noqa: F401
 
 
 def test_cli_train_context_parallel_flags(tmp_path):

@@ -30,6 +30,7 @@ from galvatron_tpu_torch.data import prefetch as tprefetch
 from galvatron_tpu_torch.data import shards as tshards
 from galvatron_tpu_torch.models import modeling as tm
 from galvatron_tpu_torch.models.tokenizer import ByteTokenizer as TByteTokenizer
+import _torch_threads  # noqa: F401
 
 LOSS_TOL = 1e-4
 

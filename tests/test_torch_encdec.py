@@ -36,6 +36,7 @@ import json
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 
 ATOL = 1e-5  # fp32 on both sides, matmuls summed in other orders
 # tests/test_encdec.py's T5

@@ -17,6 +17,7 @@ within 5e-5 and the gathered parameters within 1e-4 of the JAX package's.
 import pytest
 
 import _encdec_common as C
+import _torch_threads  # noqa: F401
 
 SEARCH_NAMES = ("search_pp1", "search_pp2", "search_pp2_ragged", "search_pp4", "search_1f1b")
 

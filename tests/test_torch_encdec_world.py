@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import _encdec_common as C
+import _torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

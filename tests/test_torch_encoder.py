@@ -29,6 +29,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ATOL = 1e-5  # fp32 on both sides, matmuls summed in other orders

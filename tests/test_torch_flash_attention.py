@@ -14,6 +14,7 @@ import torch
 from galvatron_tpu.models import modeling as jm
 from galvatron_tpu.ops import flash_attention as jfa
 from galvatron_tpu_torch.ops import flash_attention as tfa
+import _torch_threads  # noqa: F401
 
 # fp32: the two sides sum the products in other orders, and the Pallas
 # kernels walk the softmax in blocks while the plain version takes the

@@ -15,6 +15,7 @@ from galvatron_tpu_torch.ops import flash_attention as tfa
 from test_torch_flash_attention import (FWD_GRID_ATOL, GRID_BLOCK, GRID_CASES, _arrays,
                                         _assert_attention_matches_jax, _dropped_grid_keep,
                                         _grid_close, _grid_inputs, _np, _t, _tables)
+import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("case", sorted(GRID_CASES))

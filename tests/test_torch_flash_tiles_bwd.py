@@ -12,6 +12,7 @@ import torch
 from galvatron_tpu.ops import flash_attention as jfa
 from galvatron_tpu_torch.ops import flash_attention as tfa
 from test_torch_flash_attention import TILE_CASES, _arrays, _t, _tables, _tiles_close
+import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("d,dtype", TILE_CASES)

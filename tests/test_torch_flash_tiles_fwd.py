@@ -12,6 +12,7 @@ import torch
 from galvatron_tpu.ops import flash_attention as jfa
 from galvatron_tpu_torch.ops import flash_attention as tfa
 from test_torch_flash_attention import FWD_GRID_ATOL, _arrays, _np, _t, _tables, _tiles_close
+import _torch_threads  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from galvatron_tpu_torch.core.optim import tree_leaves
 from galvatron_tpu_torch.models import modeling as tm
 from galvatron_tpu_torch.ops import flash_attention as tfa
 from galvatron_tpu_torch.parallel import hybrid as thybrid
+import _torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SHAPE = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4, ffn_dim=128,

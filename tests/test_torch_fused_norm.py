@@ -35,6 +35,7 @@ from galvatron_tpu_torch.models import generation
 from galvatron_tpu_torch.models import modeling as tm
 from galvatron_tpu_torch.ops import fused_norm as fn
 from galvatron_tpu_torch.parallel import hybrid as thybrid
+import _torch_threads  # noqa: F401
 
 H = 256  # tiles the 128-wide gate
 N = 1030  # rows: not a power of two, two Pallas row blocks of 515

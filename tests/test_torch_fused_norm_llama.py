@@ -6,6 +6,7 @@ the trajectories."""
 import pytest
 
 from test_torch_fused_norm import TRAJECTORY_CASES, five_step_trajectory
+import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("family,chunks,ckpt", [c for c in TRAJECTORY_CASES if c[0] == "llama"])

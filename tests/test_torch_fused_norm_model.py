@@ -14,6 +14,7 @@ from galvatron_tpu_torch.core.optim import tree_leaves
 from galvatron_tpu_torch.models import modeling as tm
 from test_torch_fused_norm import (GRAD_ATOL, GRAD_SCALE_TOL, LOSS_ATOL, _assert_leaves_close,
                                    _batch, _cfgs, _jax_params, _torch_params)
+import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("recompute", ["off", "gate", "policy"])

@@ -19,6 +19,7 @@ from galvatron_tpu.models import modeling as jm
 from galvatron_tpu_torch import bridge, cli
 from galvatron_tpu_torch.models import generation as tgen
 from galvatron_tpu_torch.models import modeling as tm
+import _torch_threads  # noqa: F401
 
 # fp32 on both sides, matmuls summed in other orders: logits and cache
 # entries within 1e-5

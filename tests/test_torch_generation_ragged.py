@@ -8,6 +8,7 @@ import numpy as np
 from galvatron_tpu.models import generation as jgen
 from galvatron_tpu_torch.models import generation as tgen
 from test_torch_generation import family  # noqa: F401 — the fixture, per family
+import _torch_threads  # noqa: F401
 
 
 def test_ragged_prompts_teacher_forced(family):

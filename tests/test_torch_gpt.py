@@ -25,6 +25,7 @@ from galvatron_tpu_torch.obs import stepstats as tstats
 from galvatron_tpu_torch.parallel import hybrid as thybrid
 from galvatron_tpu_torch.utils.metrics import read_metrics
 from tests.test_torch_serving import _http, _start_cli_serve
+import _torch_threads  # noqa: F401
 
 # the tolerances of test_torch_training.py (fp32 on both sides, sums in
 # other orders): loss per token 1e-5, each gradient leaf within 1e-6 + 5e-6
@@ -218,8 +219,8 @@ def test_serving_refuses_a_gpt_preset_naming_the_roadmap():
     (ALiBi positions are ported: ``tests/test_torch_alibi.py``), and so is a
     bidirectional one in training (BERT: ``tests/test_torch_encoder.py``),
     which serving refuses with the reference's message, as it refuses an
-    encoder-decoder (T5) variant, which trains; a Swin variant is still
-    refused, naming ROADMAP §1.10."""
+    encoder-decoder (T5) variant, which trains, and a Swin variant, which
+    trains too."""
     from galvatron_tpu_torch.models import generation as tgen
     from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
 
@@ -231,8 +232,10 @@ def test_serving_refuses_a_gpt_preset_naming_the_roadmap():
     tm.check_supported(t5)
     with pytest.raises(ValueError, match="serving engine requires a decoder-only causal LM"):
         tgen.check_generative(t5, "serving")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
-        tm.check_supported(tm.PRESETS["gpt-1.5b"].replace(swin_depths=(1, 1)))
+    swin = tm.PRESETS["swin-base"]
+    tm.check_supported(swin)
+    with pytest.raises(ValueError, match="serving engine requires a decoder-only causal LM"):
+        tgen.check_generative(swin, "serving")
     flags = ["--device", "cpu", "--model_size", "gpt-0.3b", "--num_layers", "1",
              "--hidden_size", "64", "--num_heads", "4", "--seq_length", "64",
              "--prefill_chunk", "8", "--num_slots", "2"]

@@ -18,6 +18,7 @@ from galvatron_tpu_torch.core import optim as topt
 from galvatron_tpu_torch.core.optim import tree_leaves
 from galvatron_tpu_torch.parallel import hybrid as thybrid
 from test_torch_gpt import TRAJ_ATOL, _assert_leaves_close, _cfgs, _jax_params
+import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("chunks", [1, 2])

@@ -10,6 +10,7 @@ in the backward."""
 import pytest
 
 from test_torch_hybrid import PLANS, _check, _world_failure, run_world
+import _torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "galvatron_tpu_torch"
@@ -94,10 +95,11 @@ HF_MODULES = ("galvatron_tpu_torch.models.hf_io", "galvatron_tpu_torch.models.co
               "galvatron_tpu_torch.models.llama", "galvatron_tpu_torch.models.llama_fa",
               "galvatron_tpu_torch.models.gpt", "galvatron_tpu_torch.models.gpt_fa",
               "galvatron_tpu_torch.models.opt", "galvatron_tpu_torch.models.baichuan")
-#: the encoder slice's entry packages and the image stream's loader
+#: the encoder, T5 and Swin slices' entry packages, pipelines and the image loader
 ENCODER_MODULES = ("galvatron_tpu_torch.models.bert", "galvatron_tpu_torch.models.vit",
                    "galvatron_tpu_torch.core.dataloader", "galvatron_tpu_torch.models.t5",
-                   "galvatron_tpu_torch.parallel.pipeline_encdec")
+                   "galvatron_tpu_torch.parallel.pipeline_encdec",
+                   "galvatron_tpu_torch.models.swin", "galvatron_tpu_torch.parallel.pipeline_swin")
 SCANNED = sorted([str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
                  + ["chip_smoke.py", "experiments/torch_decode_profile.py"])
 

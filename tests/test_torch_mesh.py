@@ -26,6 +26,7 @@ from galvatron_tpu_torch.models import modeling as tm
 from galvatron_tpu_torch.parallel import hybrid as thybrid
 from galvatron_tpu_torch.parallel.mesh import RankMesh, build_axes, data_parallel_degree
 from galvatron_tpu_torch.parallel.sharding import param_layout, shard, unshard
+import _torch_threads  # noqa: F401
 
 WORLD = 8
 SHAPE = dict(vocab_size=128, hidden_size=64, num_layers=4, num_heads=4, ffn_dim=128,

@@ -13,6 +13,7 @@ from galvatron_tpu.models import modeling as jm
 from galvatron_tpu_torch import bridge
 from galvatron_tpu_torch.models import generation as tgen
 from galvatron_tpu_torch.models import modeling as tm
+import _torch_threads  # noqa: F401
 
 # fp32 end to end; the two frameworks sum matmuls in different orders
 ATOL = 1e-4
@@ -94,8 +95,7 @@ def test_init_matches_jax_shapes_and_distributions(layout):
     ("pos_embed", "alibi"), ("causal", False), ("objective", "mlm"), ("objective", "cls"),
 ])
 def test_unported_families_raise_naming_the_roadmap(field, value):
-    """What the port does not run raises naming ROADMAP §1.10: training and
-    serving refuse Swin's stages and encoder-decoder (T5) models. The GPT/OPT
+    """What the port runs and where it refuses: the GPT/OPT
     pieces training runs (learned positions, layernorm, gelu, biases, tied
     head), switch-MoE MLPs and ALiBi positions (Baichuan-13B) the serving
     engine takes too. An ALiBi model also trains: one step's loss is finite
@@ -104,8 +104,8 @@ def test_unported_families_raise_naming_the_roadmap(field, value):
     'cls': ``tests/test_torch_encoder.py``, ``tests/test_torch_vision.py``)
     train, and the engine refuses them with the reference's message, as it
     refuses the encoder-decoder (T5: ``enc_layers``), which trains too
-    (``tests/test_torch_encdec.py``); their Swin (``swin_depths``) variant
-    raises naming §1.10."""
+    (``tests/test_torch_encdec.py``), and their Swin (``swin_depths``)
+    variant, which trains too (``tests/test_torch_swin.py``)."""
     from galvatron_tpu_torch.serving import Engine
 
     _, tcfg = _cfgs(None)
@@ -127,12 +127,14 @@ def test_unported_families_raise_naming_the_roadmap(field, value):
         assert torch.isfinite(tm.lm_loss(tm.init_model_params(t5, 0, "cpu"), t5_batch, t5))
         with pytest.raises(ValueError, match="requires a decoder-only causal LM"):
             Engine(params, t5, device="cpu", start_loop=False)
-        unported = cfg.replace(swin_depths=(1, 1))
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
-            tm.init_model_params(unported, 0, "cpu")
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.10"):
-            Engine({"embed": {"tok": torch.zeros(1)}}, unported, device="cpu",
-                   start_loop=False)
+        swin = cfg.replace(causal=False, objective="cls", image_size=16, patch_size=2,
+                           num_classes=8, num_layers=4, swin_depths=(2, 2), swin_window=4)
+        swin_params = tm.init_model_params(swin, 0, "cpu")
+        swin_batch = torch.from_numpy(np.random.RandomState(0).randint(
+            0, 8, (2, tm.batch_row_width(swin, 16)))).long()
+        assert torch.isfinite(tm.lm_loss(swin_params, swin_batch, swin))
+        with pytest.raises(ValueError, match="requires a decoder-only causal LM"):
+            Engine(swin_params, swin, device="cpu", start_loop=False)
     else:
         if value == "alibi":
             params = tm.init_model_params(cfg, 0, "cpu")

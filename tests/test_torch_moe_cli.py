@@ -18,6 +18,7 @@ import torch
 
 from test_torch_moe import (GPT, GRAD_TOL, LOSS_TOL, ROOT, SHAPE, STEPS, _jmods,
                             _no_jax_temp_bytes, _small_cfgs, _world_failure)
+import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("act", ["swiglu", "gelu", "relu"])

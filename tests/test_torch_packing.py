@@ -44,6 +44,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4

@@ -12,6 +12,7 @@ import torch
 
 from galvatron_tpu.ops import flash_attention as jfa
 from galvatron_tpu_torch.ops import flash_attention as tfa
+import _torch_threads  # noqa: F401
 
 # fp32: the three implementations sum in different orders; 2e-5 is the
 # tolerance the JAX package holds its own pallas-vs-xla check to

@@ -11,6 +11,7 @@ import time
 import numpy as np
 
 from test_torch_pipeline import CLI, LOSS_TOL, LOST, ROOT, _cli_world, _ts, _world_failure
+import _torch_threads  # noqa: F401
 
 
 def test_cli_train_pp2_matches_pp1_with_rank0_records_only(tmp_path):

@@ -22,6 +22,7 @@ import types
 from pathlib import Path
 
 import pytest
+import _torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 STRATEGIES = sorted((ROOT / "configs" / "strategies").glob("*.json"))

@@ -9,6 +9,7 @@ import json
 import pytest
 
 from test_torch_plan_check import JAX, PORT, ROOT
+import _torch_threads  # noqa: F401
 
 
 README_COMMANDS = {

@@ -23,6 +23,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import _torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SHAPE = dict(vocab_size=128, hidden_size=64, num_layers=4, num_heads=4, ffn_dim=128,
@@ -169,12 +170,14 @@ def test_adaptive_layer_counts_halve_on_out_of_memory(monkeypatch, capsys):
                                      (dict(enc_layers=2, enc_seq=32), "§1.10"),
                                      (dict(image_size=32, patch_size=8), "§1.10")])
 def test_unported_profiles_raise_naming_their_item(kw, item):
-    """Swin profiles raise naming §1.10 (a ViT profile runs:
-    ``tests/test_torch_vision.py``; its Swin variant, the case with
-    ``image_size``, raises); an encoder-decoder profile (ported) runs and
-    gives its two layer types, and its Swin variant raises; an MoE profile
-    (§1.9, ported) runs and carries the expert fields the EP search reads
-    (their values against the JAX package: tests/test_torch_moe.py)."""
+    """Every family profiles: a ViT's Swin variant (the case with
+    ``image_size``) gives one layer type a stage (a ViT profile:
+    ``tests/test_torch_vision.py``; the Swin values against the JAX
+    package: ``tests/test_torch_swin.py``); an encoder-decoder profile gives
+    its two layer types, and its Swin variant is refused (a pyramid of
+    image patches: ``swin_depths`` needs ``image_size``); an MoE
+    profile (§1.9) carries the expert fields the EP search reads (their
+    values against the JAX package: tests/test_torch_moe.py)."""
     from galvatron_tpu_torch.profiling.model import profile_model
 
     if "image_size" in kw:
@@ -189,8 +192,13 @@ def test_unported_profiles_raise_naming_their_item(kw, item):
         lt = profile_model(_tcfg(**kw), bsz=BSZ, measure_time=False, device="cpu").layer_types[0]
         assert 0.0 < lt.moe_expert_param_fraction < 1.0 and lt.moe_a2a_mb_per_sample > 0
         return
-    with pytest.raises(NotImplementedError, match=item):
-        profile_model(_tcfg(**kw), bsz=BSZ, device="cpu")
+    if "enc_layers" in kw:
+        with pytest.raises(ValueError, match="image_size"):
+            profile_model(_tcfg(**kw), bsz=BSZ, device="cpu")
+        return
+    types = profile_model(_tcfg(**kw), bsz=BSZ, measure_time=False, device="cpu").layer_types
+    assert set(types) == {0, 1} and types[0] is not types[1]
+    assert types[1].parameter_mb > types[0].parameter_mb
 
 
 def test_vocab_fit_on_a_zero_layer_model():

@@ -11,6 +11,7 @@ import torch
 
 from galvatron_tpu.core import schedules as js
 from galvatron_tpu_torch.core import schedules as ts
+import _torch_threads  # noqa: F401
 
 RAMPS = [(8, 8, 64, 32), (4, 4, 32, 16), (2, 2, 0, 8), (16, 8, 100, 16), (1, 3, 10, 10)]
 

@@ -29,6 +29,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import _torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 REL = 1e-9
@@ -510,14 +511,16 @@ def test_analytic_costs_drive_search(impl):
 
 
 def test_vision_analytic_costs_raise_naming_the_item():
-    """Swin's analytic costs raise naming §1.10; a ViT's are the JAX
-    package's (``tests/test_torch_vision.py``)."""
+    """Swin's analytic costs price one layer type a layer (their values
+    against the JAX package: ``tests/test_torch_swin.py``), as a ViT's
+    (``tests/test_torch_vision.py``) price one."""
     from galvatron_tpu_torch.models.modeling import ModelConfig
     from galvatron_tpu_torch.search import theoretical
 
-    with pytest.raises(NotImplementedError, match="§1.10"):
-        theoretical.analytic_model_costs(ModelConfig(image_size=224, num_layers=2,
-                                                     swin_depths=(1, 1), patch_size=4))
+    swin = theoretical.analytic_model_costs(ModelConfig(image_size=224, num_layers=2,
+                                                        swin_depths=(1, 1), patch_size=4))
+    assert set(swin.layer_types) == {0, 1}
+    assert swin.layer_types[1].parameter_mb > swin.layer_types[0].parameter_mb
     assert theoretical.analytic_model_costs(ModelConfig(image_size=224, num_layers=2))
 
 

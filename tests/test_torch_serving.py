@@ -28,6 +28,7 @@ from galvatron_tpu_torch.models.tokenizer import ByteTokenizer
 from galvatron_tpu_torch.server import GenerationService, run_server
 from galvatron_tpu_torch.serving import Engine
 from galvatron_tpu_torch.serving.paged_kv import PagedKVCache
+import _torch_threads  # noqa: F401
 
 SHAPE = dict(vocab_size=97, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
              ffn_dim=128, max_seq_len=64)

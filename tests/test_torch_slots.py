@@ -19,6 +19,7 @@ from galvatron_tpu.serving.kv_slots import SlotKVCache as JaxSlotKVCache
 from galvatron_tpu_torch import bridge
 from galvatron_tpu_torch.models import modeling as tm
 from galvatron_tpu_torch.serving import Engine, SlotKVCache
+import _torch_threads  # noqa: F401
 
 SHAPE = dict(vocab_size=97, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
              ffn_dim=128, max_seq_len=64)

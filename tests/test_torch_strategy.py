@@ -13,6 +13,7 @@ import pytest
 
 from galvatron_tpu.core import strategy as js
 from galvatron_tpu_torch.core import strategy as ts
+import _torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PLANS = sorted((ROOT / "configs" / "strategies").glob("*.json"))

@@ -30,6 +30,7 @@ from galvatron_tpu_torch.models import modeling as tm
 from galvatron_tpu_torch.obs import stepstats as tstats
 from galvatron_tpu_torch.parallel import hybrid as thybrid
 from galvatron_tpu_torch.utils.metrics import read_metrics
+import _torch_threads  # noqa: F401
 
 # fp32 on both sides; matmuls and softmax sums add in other orders, and the
 # Pallas kernels walk the softmax in blocks: differences stay near fp32

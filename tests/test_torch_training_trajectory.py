@@ -19,6 +19,7 @@ from galvatron_tpu_torch.core.optim import tree_leaves
 from galvatron_tpu_torch.parallel import hybrid as thybrid
 from test_torch_training import (TRAJ_LOSS_ATOL, TRAJ_PARAM_ATOL, _assert_tree_close, _cfgs,
                                  _jax_params)
+import _torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("chunks,attn", [(1, "flash"), (2, "flash"), (2, "xla")])
