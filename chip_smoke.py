@@ -47,10 +47,15 @@ its result line:
    vit-large's 196 patches at b=64, h=16, d=64; vit-huge's h=16, s=256,
    d=80 on the CUDA-core kernels at b=2 and b=16) and T5's at the batches
    phase 23 runs them (t5-large's b=16, h=16, s=512, d=64 unmasked and
-   causal; t5-3b's 32 heads of d=32 at b=4, on the CUDA-core kernels); the forward's,
+   causal; t5-3b's 32 heads of d=32 at b=4, on the CUDA-core kernels), and
+   the fp16 instances (the CUDA-core kernels, held by ``fp16_parity_excess``
+   within ``FP16_PARITY_TOL``) at the GPT-2 XL shape, phase 25 (a)'s
+   opt-1.3b shape (b=8, h=32, s=2048, d=64, causal, stacked), non-causal,
+   fp32 output, RoPE at (1, 4, 2048, 128), GQA kv_rep 4 and vit-huge's d=80;
+   the forward's,
    the dk/dv and the dq kernels' own device times (and the pre-passes' with
    RoPE) come from profiler windows, with the same route checks on all
-   three (TMA for bf16, the CUDA-core kernels for fp32) and the repeat
+   three (TMA for bf16, the CUDA-core kernels for fp32 and fp16) and the repeat
    check on the backward. Then the ring-hop mode of the three (context
    parallelism, phase 17): the forward unmasked with fp32 output on a past
    K/V block at (2, 32, 8192, 128) bf16 (phase 17 (b)'s local batch), and
@@ -66,17 +71,22 @@ its result line:
    4 and 1000 rows; H = 128 and 5120; ``fused_add_rmsnorm``; a stride-0
    incoming gradient), and LayerNorm at Swin's widths and rows (phase 24 (a)'s
    stage-0 128 x 3136 rows of 128 and last merge's 128 x 49 rows of 2048 timed;
-   256, 512, 1024 and swin-large's 384 and 3072). fp32 within 1e-5 (y,
-   statistics) and 1e-4 (dx); bf16 y and dx by ``bf16_parity_excess`` within
-   2^-10; dscale and dbias within 1e-4 of the vector's rms. Two controls must
-   fail the same checks: a row normalised with the wrong H, and column sums
+   256, 512, 1024 and swin-large's 384 and 3072), and the fp16 instances at
+   the two training shapes and Swin's stage-0 rows, timed. fp32 within 1e-5
+   (y, statistics) and 1e-4 (dx); bf16 y and dx by ``bf16_parity_excess``
+   within 2^-10, fp16 by ``fp16_parity_excess`` within 2^-13; dscale and
+   dbias within 1e-4 of the vector's rms. Two controls must fail the same
+   checks: a row normalised with the wrong H, and column sums
    with a strip of rows left out. Kernel, plain, library (``F.rms_norm`` /
    ``F.layer_norm`` and their autograd backward; timed only) and bound times;
 4. llama-7b width at 2 layers in fp32: prefill + 8 decode steps through
    ``forward_with_cache_paged`` on the card (kernel) and on the CPU (plain
    version); logits within 1e-3, kernel launches == layers x decode steps;
    then the same at 4 rows with ``fused_norm=True``: every norm of every
-   call through the RMSNorm forward kernel;
+   call through the RMSNorm forward kernel; (c) beside the first, the same
+   weights cast to fp16 run the same tokens on the card (the paged kernel's
+   fp16 instance, layers x decode steps launches): finite logits within
+   ``FORWARD_FP16_TOL`` of the fp32 card logits' rms;
 5. llama-7b width, gpt-1.5b width and, with ``fused_norm=True``, llama-7b
    and opt-1.3b width, each at ``PARITY_LAYERS`` (1) layer in fp32, batch 1,
    s=512: two ``train_step``s on the card (flash kernels: blocked for
@@ -208,10 +218,11 @@ its result line:
    on the paged backend answers 4 greedy requests, the first token of the
    prompt with the widest top-2 margin equal to the restored model's
    training-forward argmax, ``paged_decode`` launched layers x decode steps;
-   (d) phase 7's configuration under ``--mixed_precision fp16``, 10
-   iterations: finite losses, the blocked flash kernels 40 / 40 on the fp16
-   CUDA-core route, step 0 within 1e-2 relative of phase 7's bf16 step 0,
-   the loss-scale trajectory, skipped steps and iter_ms beside phase 7's;
+   (d) phase 9's configuration (phase 7's with ``fused_norm=True``) under
+   ``--mixed_precision fp16``, 10 iterations: finite losses, the blocked
+   flash kernels 40 / 40 on the fp16 CUDA-core route, the RMSNorm kernels
+   90 / 90 at fp16, step 0 within 1e-2 relative of phase 9's bf16 step 0,
+   the loss-scale trajectory, skipped steps and iter_ms beside phase 9's;
    (e) ``--rampup_batch_size 4 4 32`` to 16 at 2 layers, 6 steps: the batch
    sizes ``BatchSizeRampup`` gives.
 
@@ -397,6 +408,17 @@ its result line:
    --strict 1`` and ``cli train`` of the plan for 2 steps at the same depths;
    (e) ``cli serve`` and ``cli generate`` of swin-base refused with the
    reference's messages.
+25. fp16 on the grid and LayerNorm kernels' paths (phase name ``fp16``):
+   (a) opt-1.3b at full width (h 2048, 32 heads of 64, ffn 8192), 4 of its
+   24 layers, ``fused_norm=True``, ``--mixed_precision fp16``, batch 8 x
+   2048, 6 iterations, then one bf16 step of the same model and batch:
+   finite losses, step 0 within 1e-2 relative of the bf16 step 0, the
+   loss-scale trajectory, iter_ms and peak memory; the grid kernels 4 x 6
+   each at fp16 on the CUDA-core route (no TMA launch), the LayerNorm
+   kernels (2 x 4 + 1) x 6 each at fp16, nothing else; (b) bert-large at
+   full width, 2 layers, fp16, batch 32 x 512, 3 iterations (and the bf16
+   step): the grid kernels unmasked at (32, 16, 512) 2 x 3 each at fp16 on
+   the CUDA-core route.
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes everything
@@ -606,7 +628,7 @@ def phase_kernels(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    bf16, fp32 = torch.bfloat16, torch.float32
+    bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
     main_shape = dict(b=4, n=32, kv=32, d=128, bs=16, mb=128)
     import random
 
@@ -617,6 +639,8 @@ def phase_kernels(torch):
         ("paged_decode main", bf16, dict(main_shape), rand_offsets),
         ("paged_decode gqa", bf16, dict(main_shape, kv=8), rand_offsets),
         ("paged_decode fp32", fp32, dict(main_shape), rand_offsets),
+        # the fp16 instance at the main shape (phase 4 (c)'s decode path)
+        ("paged_decode main fp16", fp16, dict(main_shape), rand_offsets),
         # one row of 16384 positions: the split plan's other end
         ("paged_decode long row", bf16, dict(main_shape, b=1, mb=1024), [16383]),
         # --kv_block_size 7: pages that straddle every warp tile
@@ -629,25 +653,30 @@ def phase_kernels(torch):
     lines = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for i, (label, dtype, shape, offsets) in enumerate(cases):
+        t0 = time.perf_counter()
         case = paged_case(torch, dtype, shape["b"], shape["n"], shape["kv"], shape["d"],
                           shape["bs"], shape["mb"], offsets, seed=i)
         splits = fa._paged_splits(shape["b"], shape["kv"], shape["mb"] * shape["bs"], sms)
         before = fa.paged_decode_attention.launches
+        dtype_before = fa.paged_decode_attention.dtypes[str(dtype)]
         out = fa.paged_decode_attention(*case)
         torch.cuda.synchronize()
         check(fa.paged_decode_attention.launches == before + 1, f"{label}: kernel did not launch")
+        check(fa.paged_decode_attention.dtypes[str(dtype)] == dtype_before + 1,
+              f"{label}: the launch was not counted as {dtype}")
         ref32 = fa.paged_decode_attention_plain(
             *[t.float() if t.is_floating_point() else t for t in case])
         err = (out.float() - ref32).abs()
         max_err = err.max().item()
-        if dtype == bf16:
-            # one bf16 ulp of the fp32 plain result, plus the fp32 tolerance
-            # (the two sum in different orders; it matters only where the
-            # result cancels to near zero, below ~1e-3)
-            ulp = torch.exp2(torch.floor(torch.log2(ref32.abs().clamp_min(1e-30))) - 7)
+        if dtype != fp32:
+            # one bf16 (fp16) ulp of the fp32 plain result, plus the fp32
+            # tolerance (the two sum in different orders; it matters only
+            # where the result cancels to near zero, below ~1e-3)
+            kind, bits = ("bf16", 7) if dtype == bf16 else ("fp16", 10)
+            ulp = torch.exp2(torch.floor(torch.log2(ref32.abs().clamp_min(1e-30))) - bits)
             check(bool(torch.all(err <= ulp + 1e-5)),
-                  f"{label}: beyond one bf16 ulp + 1e-5 (max err {max_err})")
-            tol = "1 bf16 ulp of the fp32 plain result + 1e-5"
+                  f"{label}: beyond one {kind} ulp + 1e-5 (max err {max_err})")
+            tol = f"1 {kind} ulp of the fp32 plain result + 1e-5"
         else:
             check(max_err <= 1e-5, f"{label}: max abs err {max_err} > 1e-5")
             tol = "1e-5"
@@ -678,7 +707,8 @@ def phase_kernels(torch):
                 "combine_ms": parts["paged_decode_combine"], "plain_ms": plain_ms,
                 "library_ms": library_ms, "library_max_abs_err": lib_err,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "launches": fa.paged_decode_attention.launches - before}
+                "launches": fa.paged_decode_attention.launches - before,
+                "seconds": time.perf_counter() - t0}
         log(json.dumps(line))
         lines[label] = line
         del case, kg, vg, out, ref32
@@ -738,14 +768,22 @@ def _dropped_tile_keep(torch):
     return keep
 
 
-def _flash_err(torch, fa, got, ref, which):
-    """(error, limit) of a flash kernel result against its plain version:
-    fp32 the max abs error against 1e-5 (forward) or 1e-4 (backward); bf16
-    ``fa.bf16_parity_excess`` against ``fa.BF16_PARITY_TOL``; fp16
-    ``fa.fp16_parity_excess`` against ``fa.FP16_PARITY_TOL``."""
-    if got.dtype == torch.float32:
-        return (got - ref).abs().max().item(), {"fwd": 1e-5, "bwd": 1e-4}[which]
-    if got.dtype == torch.float16:
+def _kind(dtype) -> str:
+    """bf16 or fp16: the name of a 16-bit dtype in tolerances and keys."""
+    return "fp16" if str(dtype) == "torch.float16" else "bf16"
+
+
+def _flash_err(torch, fa, got, ref, which, dtype=None):
+    """(error, limit) of a flash kernel result against its plain version, by
+    the input ``dtype`` (``got``'s unless given: a 16-bit call writing fp32
+    output still rounds p and ds to its type): fp32 the max abs error
+    against 1e-5 (forward) or 1e-4 (backward); bf16 ``fa.bf16_parity_excess``
+    against ``fa.BF16_PARITY_TOL``; fp16 ``fa.fp16_parity_excess`` against
+    ``fa.FP16_PARITY_TOL``."""
+    dtype = dtype or got.dtype
+    if dtype == torch.float32:
+        return (got.float() - ref.float()).abs().max().item(), {"fwd": 1e-5, "bwd": 1e-4}[which]
+    if dtype == torch.float16:
         return fa.fp16_parity_excess(got, ref), fa.FP16_PARITY_TOL[which]
     return fa.bf16_parity_excess(got, ref), fa.BF16_PARITY_TOL[which]
 
@@ -932,6 +970,18 @@ GRID_CASES = [
     ("grid t5 s512 d64", "bfloat16", 16, 16, 16, 512, 64, False, False, True, False),
     ("grid t5 causal s512 d64", "bfloat16", 16, 16, 16, 512, 64, True, False, True, False),
     ("grid t5-3b s512 d32", "bfloat16", 4, 32, 32, 512, 32, False, False, True, False),
+    # the fp16 instances (the CUDA-core kernels; phase 25's paths): the GPT-2
+    # XL shape, opt-1.3b's, bert-large's unmasked at batch 8, the ring hop's fp32
+    # output, RoPE (the kernel rotates q and k itself: no pre-pass), GQA, and
+    # vit-huge's head_dim 80
+    ("grid gpt fp16", "float16", 8, 25, 25, 1024, 64, True, False, True, False),
+    # phase 25 (a)'s opt-1.3b shape and batch, the kernels line's fp16 case
+    ("grid opt fp16", "float16", 8, 32, 32, 2048, 64, True, False, True, False),
+    ("grid non-causal fp16", "float16", 8, 16, 16, 512, 64, False, False, False, False),
+    ("grid out fp32 fp16", "float16", 8, 25, 25, 1024, 64, True, False, True, True),
+    ("grid rope s2048 fp16", "float16", 1, 4, 4, 2048, 128, True, True, False, False),
+    ("grid gqa kv_rep 4 fp16", "float16", 8, 32, 8, 1024, 64, True, False, False, False),
+    ("grid encoder s256 d80 fp16", "float16", 2, 16, 16, 256, 80, False, False, True, False),
 ]
 
 
@@ -956,7 +1006,7 @@ def grid_bounds(dtype, b, h, kvh, s, d, causal, rope, out_esz):
     not masked (2·d operations each; 2 products in the forward, 5 in the
     backward, 4 in the dk/dv kernel: s, dp, dv, dk; 3 in the dq kernel: s,
     dp, dq) over the input type's peak, whichever is larger."""
-    esz = 2 if dtype == "bfloat16" else 4
+    esz = 2 if dtype in ("bfloat16", "float16") else 4
     pairs = b * h * (s * (s + 1) / 2 if causal else s * s)
     qo = b * h * s * d * esz
     kv = b * kvh * s * d * esz
@@ -1020,6 +1070,7 @@ def phase_grid(torch):
     lines = {}
     for i, (label, dname, b, h, kvh, s, d, causal, rope, stacked, out_fp32) in enumerate(
             GRID_CASES):
+        t0 = time.perf_counter()
         dtype = getattr(torch, dname)
         q, k, v, do, cos, sin = flash_case(torch, dtype, b, h, kvh, s, d, stacked, seed=30 + i)
         tables = (cos, sin) if rope else None
@@ -1030,6 +1081,9 @@ def phase_grid(torch):
         route_counts = (fa.flash_grid_fwd.routes, fa.flash_grid_bwd_parts.dkv_routes,
                         fa.flash_grid_bwd_parts.dq_routes)
         routes_before = [dict(r) for r in route_counts]
+        dtype_counts = (fa.flash_grid_fwd.dtypes, fa.flash_grid_bwd_parts.dkv_dtypes,
+                        fa.flash_grid_bwd_parts.dq_dtypes)
+        dtypes_before = [c[str(dtype)] for c in dtype_counts]
         out, lse = fa.flash_grid_fwd(q, k, v, tables, sm, causal, rep, out_dtype)
         delta = (do.float() * out.float()).sum(-1, keepdim=True).contiguous()
         grads = fa.flash_grid_bwd_parts(q, k, v, do, lse, delta, tables, sm, causal, rep)
@@ -1041,6 +1095,8 @@ def phase_grid(torch):
                  fa.flash_grid_bwd_parts.dq_launches)
         check(after == (before[0] + 1, before[1] + 2, before[2] + 2),
               f"{label}: a kernel did not launch")
+        check([c[str(dtype)] - n for c, n in zip(dtype_counts, dtypes_before)] == [1, 2, 2],
+              f"{label}: the launches were not counted as {dtype}")
         repeat_bitwise = all(torch.equal(g, a) for g, a in zip(grads, again))
         del again
         tma = dtype == torch.bfloat16 and d in (64, 128)
@@ -1054,11 +1110,8 @@ def phase_grid(torch):
         with _patched(fa, _grid_keep=_dropped_grid_keep(torch)):
             ctl_out, _ = fa.flash_fwd_grid_plain(q, k, v, tables, sm, causal, rep, out_dtype)
             ctl_grads = fa.flash_bwd_grid_plain(q, kf, vf, do, lse, delta, tables, sm, causal)
-        # the rule follows the input dtype: a bf16 call writing fp32 output
-        # still rounds p and ds to bf16
-        rule = (lambda g, r, w: _flash_err(torch, fa, g.float(), r.float(), w)) \
-            if dtype == torch.float32 else \
-            (lambda g, r, w: (fa.bf16_parity_excess(g, r), fa.BF16_PARITY_TOL[w]))
+        def rule(g, r, w):  # by the input dtype, whatever the output's
+            return _flash_err(torch, fa, g, r, w, dtype)
         fwd_err, fwd_lim = rule(out, ref_out, "fwd")
         bwd = [rule(g, r, "bwd") for g, r in zip(grads, ref_grads)]
         bwd_err, bwd_lim = [e for e, _ in bwd], bwd[0][1]
@@ -1105,14 +1158,15 @@ def phase_grid(torch):
         lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
             lib_out, (qr, kr, vr), do, retain_graph=True), flush)
         bounds = grid_bounds(dname, b, h, kvh, s, d, causal, rope, 4 if out_fp32 else
-                             (2 if dtype == torch.bfloat16 else 4))
+                             q.element_size())
         line = {"case": label, "dtype": dname, "b": b, "h": h, "kv_heads": kvh, "s": s, "d": d,
                 "causal": causal, "rope": rope, "stacked": stacked,
                 "out_dtype": str(out.dtype).replace("torch.", ""),
                 "tolerance": ("fp32: max abs err, out/lse 1e-5, gradients 1e-4"
                               if dtype == torch.float32 else
-                              "bf16: |err| - 1 ulp over the row's rms (bf16_parity_excess), "
-                              f"out {fwd_lim}, gradients {bwd_lim}; lse 1e-4"),
+                              f"{_kind(dtype)}: |err| - 1 ulp over the row's rms "
+                              f"({_kind(dtype)}_parity_excess), out {fwd_lim}, gradients "
+                              f"{bwd_lim}; lse 1e-4"),
                 "fwd_err": fwd_err, "bwd_err_dq_dk_dv": bwd_err,
                 "control_fwd_err": ctl_fwd, "control_bwd_err_dq_dk_dv": ctl_bwd,
                 "fwd_max_abs_err": fwd_abs, "lse_max_abs_err": lse_err,
@@ -1126,7 +1180,8 @@ def phase_grid(torch):
                 "dq_ms": split[dq_name], "fwd_plain_ms": plain_fwd, "bwd_plain_ms": plain_bwd,
                 "fwd_library_ms": lib_fwd, "bwd_library_ms": lib_bwd,
                 **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
-                **{f"{k}_bound_by": v[1] for k, v in bounds.items()}}
+                **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
+                "seconds": time.perf_counter() - t0}
         log(json.dumps(line))
         lines[label] = line
         check(finite, f"{label}: non-finite kernel output")
@@ -1296,12 +1351,19 @@ NORM_CASES = [
     ("ln swin h1024", "ln", "bfloat16", 128 * 196, 1024, False),
     ("ln swin h384", "ln", "bfloat16", 16 * 784, 384, False),
     ("ln swin h3072", "ln", "bfloat16", 16 * 49, 3072, False),
+    # the fp16 instances at the training shapes (phase 15 (d)'s RMSNorm,
+    # phase 25 (a)'s LayerNorm) and at Swin's stage-0 rows
+    ("rms main fp16", "rms", "float16", 16384, 4096, True),
+    ("ln main fp16", "ln", "float16", 16384, 2048, True),
+    ("ln swin h128 fp16", "ln", "float16", 128 * 3136, 128, True),
 ]
 # bf16 y and dx against the plain version, by fa.bf16_parity_excess: both
 # round one fp32 value whose two computations differ only in the order of
 # the row sum (~1e-7 relative), so they lie within one ulp and the excess is
 # 0 but for fp32 noise; a row normalised with H + 128 reads 0.01 and more
 NORM_BF16_TOL = 2 ** -10
+# fp16 the same bound scaled to fp16's ulp (2^-3 of bf16's)
+NORM_FP16_TOL = 2 ** -13
 # dscale / dbias: the largest error over the rms of the vector (fp32 column
 # sums over up to 16384 rows in another order); a strip of n/256 rows left
 # out reads 0.05 and more
@@ -1328,7 +1390,7 @@ def norm_bounds(norm, dtype, n, h):
     dbias]), or the fp32 operations of the formulas (per element: forward 4
     RMSNorm / 7 LayerNorm, backward 10 / 13) over the 67 TFLOP/s of the CUDA
     cores, whichever is larger."""
-    esz = 2 if dtype == "bfloat16" else 4
+    esz = 2 if dtype in ("bfloat16", "float16") else 4
     k = 2 if norm == "ln" else 1  # statistics per row, parameters per column
     nbytes = {"fwd": 2 * n * h * esz + k * h * 4 + k * n * 4,
               "bwd": 3 * n * h * esz + k * n * 4 + h * 4 + k * h * 4}
@@ -1397,21 +1459,29 @@ def phase_norm(torch):
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     lines = {}
     for i, (label, norm, dname, n, h, timed) in enumerate(NORM_CASES):
+        t0 = time.perf_counter()
         dtype = getattr(torch, dname)
         x, dy, scale, bias = norm_inputs(torch, dtype, n, h, seed=50 + i)
         fwd, bwd, plain_fwd, plain_bwd = _norm_fns(fn, norm, scale, bias)
         before = _norm_counts(fn, norm)
+        dtypes_before = fn.dtype_counts()
         y, *stats = fwd(x)
         dx, *dvecs = bwd(x, stats, dy)
         torch.cuda.synchronize()
         check(_norm_counts(fn, norm) == (before[0] + 1, before[1] + 1),
               f"{label}: a kernel did not launch")
+        counted = {k: v[str(dtype)] - dtypes_before[k][str(dtype)]
+                   for k, v in fn.dtype_counts().items()}
+        check(counted == {k: int(k.startswith(norm)) for k in counted},
+              f"{label}: launches counted as {dtype}: {counted}")
         ref_y, *ref_stats = plain_fwd(x)
         # the backward is held on the kernel's own statistics, as the path runs it
         ref_dx, *ref_dvecs = plain_bwd(x, stats, dy)
         fp32 = dtype == torch.float32
+        excess, band = ((fa.bf16_parity_excess, NORM_BF16_TOL) if dtype == torch.bfloat16
+                        else (fa.fp16_parity_excess, NORM_FP16_TOL))
         row_err = (lambda g, r, tol: ((g - r).abs().max().item(), tol)) if fp32 else (
-            lambda g, r, tol: (fa.bf16_parity_excess(g, r), NORM_BF16_TOL))
+            lambda g, r, tol: (excess(g, r), band))
         y_err, y_lim = row_err(y, ref_y, 1e-5)
         dx_err, dx_lim = row_err(dx, ref_dx, 1e-4)
         stat_err = max((a - b).abs().max().item() for a, b in zip(stats, ref_stats))
@@ -1429,8 +1499,8 @@ def phase_norm(torch):
         finite = all(bool(torch.isfinite(t).all()) for t in (y, dx, *stats, *dvecs))
         line = {"case": label, "norm": norm, "dtype": dname, "rows": n, "hidden": h,
                 "tolerance": ("fp32: max abs err, y/statistics 1e-5, dx 1e-4" if fp32 else
-                              "bf16: |err| - 1 ulp over the row's rms (bf16_parity_excess) "
-                              f"{NORM_BF16_TOL}, statistics 1e-5") +
+                              f"{_kind(dtype)}: |err| - 1 ulp over the row's rms "
+                              f"({_kind(dtype)}_parity_excess) {y_lim}, statistics 1e-5") +
                              f"; dscale/dbias {NORM_COLSUM_TOL} of the vector's rms",
                 "y_err": y_err, "dx_err": dx_err, "stat_max_abs_err": stat_err,
                 "dscale_dbias_err": vec_err, "control_y_err": ctl_y_err,
@@ -1462,6 +1532,7 @@ def phase_norm(torch):
                 **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
                 **{f"{k}_bound_by": v[1] for k, v in bounds.items()}})
             del xl, wl, bl, lib_out
+        line["seconds"] = time.perf_counter() - t0
         log(json.dumps(line))
         lines[label] = line
         check(finite, f"{label}: non-finite kernel output")
@@ -1542,10 +1613,20 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+# 4 (c): the fp16 forward's logits against the fp32 card run's, the largest
+# difference over the fp32 logits' rms (every activation and weight rounded
+# to 11 bits through two llama-7b layers; the paged kernel itself is held to
+# one fp16 ulp in phase 2). An H100 read 0.0061.
+FORWARD_FP16_TOL = 2 ** -6
+
+
 def phase_forward(torch, fused=False):
     """Prefill + decode steps through ``forward_with_cache_paged``, card
     against CPU; ``fused``: 4 rows with ``fused_norm=True``, every norm of
-    every call through the RMSNorm forward kernel."""
+    every call through the RMSNorm forward kernel. Without ``fused`` the
+    same weights cast to fp16 run the same tokens on the card beside them
+    (4 (c), the paged kernel's fp16 instance): finite logits within
+    ``FORWARD_FP16_TOL`` of the fp32 card logits' rms."""
     import numpy as np
 
     from galvatron_tpu_torch.models import generation, modeling
@@ -1554,36 +1635,52 @@ def phase_forward(torch, fused=False):
 
     cfg = modeling.PRESETS["llama-7b"].replace(num_layers=2, dtype=torch.float32,
                                                fused_norm=fused)
+    cfgs = {"cuda": cfg, "cpu": cfg}
     t0 = time.perf_counter()
     cpu_params = modeling.init_model_params(cfg, 0, "cpu")
     gpu_params = _to(cpu_params, "cuda")
+    params = {"cpu": cpu_params, "cuda": gpu_params}
+    if not fused:
+        cfgs["cuda_fp16"] = cfg.replace(dtype=torch.float16)
+        params["cuda_fp16"] = modeling.cast_params(_to(gpu_params, "cuda"), cfgs["cuda_fp16"])
     bs, mb, b, steps = 16, 8, (4 if fused else 2), (4 if fused else 8)
     nblocks = 1 + b * mb
     rng = np.random.RandomState(0)
     tables = (rng.permutation(nblocks - 1) + 1).reshape(b, mb).astype(np.int32)
-    pools = {dev: generation.init_kv_cache(cfg, nblocks, bs, dev) for dev in ("cpu", "cuda")}
-    params = {"cpu": cpu_params, "cuda": gpu_params}
+    pools = {dev: generation.init_kv_cache(cfgs[dev], nblocks, bs, dev.split("_")[0])
+             for dev in cfgs}
     tokens = rng.randint(0, cfg.vocab_size, (b, 24)).astype(np.int64)
     offsets = np.asarray([0, 5, 0, 11][:b], np.int32)
     before, norm_before = fa.paged_decode_attention.launches, fn.launch_counts()
-    max_diff = 0.0
+    dtypes_before = dict(fa.paged_decode_attention.dtypes)
+    max_diff, fp16_diff, fp16_s = 0.0, 0.0, 0.0
     with torch.inference_mode():
         for step in range(steps + 1):
             logits = {}
-            for dev in ("cuda", "cpu"):
+            for dev in cfgs:
+                t1 = time.perf_counter()
                 out, _ = generation.forward_with_cache_paged(
-                    params[dev], torch.from_numpy(tokens).to(dev), cfg, pools[dev],
-                    torch.from_numpy(tables).to(dev), torch.from_numpy(offsets).to(dev))
+                    params[dev], torch.from_numpy(tokens).to(dev.split("_")[0]), cfgs[dev],
+                    pools[dev], torch.from_numpy(tables).to(dev.split("_")[0]),
+                    torch.from_numpy(offsets).to(dev.split("_")[0]))
                 logits[dev] = out.float().cpu()
-            check(bool(torch.isfinite(logits["cuda"]).all()), f"step {step}: non-finite logits")
+                fp16_s += (time.perf_counter() - t1) * (dev == "cuda_fp16")
+                check(bool(torch.isfinite(logits[dev]).all()),
+                      f"step {step}: non-finite logits on {dev}")
             diff = (logits["cuda"] - logits["cpu"]).abs().max().item()
             max_diff = max(max_diff, diff)
             check(diff <= 1e-3, f"forward step {step}: card vs CPU logits differ by {diff}")
+            if not fused:
+                rms = logits["cuda"].square().mean().sqrt().item()
+                fp16_diff = max(fp16_diff,
+                                (logits["cuda_fp16"] - logits["cuda"]).abs().max().item() / rms)
             offsets = offsets + tokens.shape[1]
             tokens = logits["cuda"][:, -1].argmax(-1, keepdim=True).numpy().astype(np.int64)
     launches = fa.paged_decode_attention.launches - before
-    check(launches == cfg.num_layers * steps,
-          f"forward: {launches} kernel launches, expected {cfg.num_layers} x {steps}")
+    by_dtype = {k: v - dtypes_before[k] for k, v in fa.paged_decode_attention.dtypes.items()}
+    want = {k: cfg.num_layers * steps if k == "torch.float32" or (
+        k == "torch.float16" and not fused) else 0 for k in by_dtype}
+    check(by_dtype == want, f"forward: kernel launches by dtype {by_dtype}, expected {want}")
     norm_launches = _delta(fn.launch_counts(), norm_before)
     norm_calls = (2 * cfg.num_layers + 1) * (steps + 1) if fused else 0
     want = {k: (norm_calls if k == "rms_fwd" else 0) for k in norm_launches}
@@ -1591,11 +1688,18 @@ def phase_forward(torch, fused=False):
     res = {"layers": cfg.num_layers, "hidden": cfg.hidden_size, "rows": b,
            "fused_norm": fused, "decode_steps": steps,
            "max_abs_logit_diff": max_diff, "tolerance": 1e-3, "launches": launches,
-           "norm_launches": norm_launches, "seconds": time.perf_counter() - t0}
+           "launches_by_dtype": by_dtype, "norm_launches": norm_launches,
+           "seconds": time.perf_counter() - t0}
+    if not fused:
+        res.update({"fp16_logit_diff_over_rms": fp16_diff, "fp16_tolerance": FORWARD_FP16_TOL,
+                    "fp16_seconds": fp16_s})
     log("phase 4 forward:", json.dumps(res))
     RESULTS["forward_fused" if fused else "forward"] = res
+    check(fused or fp16_diff <= FORWARD_FP16_TOL,
+          f"forward: fp16 logits {fp16_diff} of the rms from fp32's > {FORWARD_FP16_TOL}")
     del cpu_params, gpu_params, params, pools
     torch.cuda.empty_cache()
+    return by_dtype["torch.float16"]
 
 
 # ---------------------------------------------------------------------------
@@ -3440,40 +3544,45 @@ def phase_services_serve(torch, smi, d):
 
 
 def phase_services_fp16(torch, smi, bf16_res):
-    """15 (d): phase 7's configuration under ``--mixed_precision fp16``, 10
-    iterations: every loss finite, the blocked flash kernels 40 / 40 on the
-    fp16 CUDA-core route, step 0 against phase 7's bf16 step 0."""
+    """15 (d): phase 9's configuration (phase 7's with ``fused_norm=True``)
+    under ``--mixed_precision fp16``, 10 iterations: every loss finite, the
+    blocked flash kernels 40 / 40 on the fp16 CUDA-core route, the RMSNorm
+    kernels 90 / 90 at fp16, step 0 against phase 9's bf16 step 0."""
     from galvatron_tpu_torch.core import trainer
-    from galvatron_tpu_torch.core.arguments import initialize_galvatron
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron, model_config_from_args
     from galvatron_tpu_torch.models import modeling
     from galvatron_tpu_torch.ops import flash_attention as fa
+    from galvatron_tpu_torch.ops import fused_norm as fn
 
     _, layers, bsz, seq = TRAIN_PATHS["llama"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fp16_") as tmpdir:
         path = os.path.join(tmpdir, "m.jsonl")
-        argv = _train_argv(modeling, "llama") + ["--mixed_precision", "fp16",
-                                                  "--metrics_path", path]
+        argv = _train_argv(modeling, "llama_fused") + ["--mixed_precision", "fp16",
+                                                        "--metrics_path", path]
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_kernel_counts()  # the main path's counts start here
         routes_before = route_counts()
         dtypes_before = (dict(fa.flash_fwd.dtypes), dict(fa.flash_bwd.dtypes))
-        out = trainer.train(initialize_galvatron("train", argv))
+        ns = initialize_galvatron("train", argv)
+        out = trainer.train(ns, cfg=model_config_from_args(ns).replace(fused_norm=True))
         launches = kernel_counts()  # read right after the main path
+        norm_dtypes = fn.dtype_counts()
         routes = {k: {r: n - routes_before[k][r] for r, n in v.items()}
                   for k, v in route_counts().items()}
         fp16_calls = [w.dtypes["torch.float16"] - b["torch.float16"]
                       for w, b in zip((fa.flash_fwd, fa.flash_bwd), dtypes_before)]
+        fp16_calls += [norm_dtypes[k]["torch.float16"] for k in ("rms_fwd", "rms_bwd")]
         losses, recs = _train_losses(path)
     steady = recs[1:]
     res = {"card": smi, "model": "llama-7b", "layers": layers, "batch": bsz, "seq": seq,
-           "dtype": "float16", "iters": TRAIN_ITERS, "losses": losses,
+           "dtype": "float16", "fused_norm": True, "iters": TRAIN_ITERS, "losses": losses,
            "loss_scale": [r["loss_scale"] for r in recs], "skipped_steps": out["skipped_steps"],
            "iter_ms_mean_from_2": sum(r["iter_ms"] for r in steady) / len(steady),
            "iter_ms": [r["iter_ms"] for r in recs], "launches": launches,
            "routes": {k: routes[k] for k in ("flash_fwd", "flash_bwd")},
-           "fp16_calls": fp16_calls,
+           "fp16_calls_flash_fwd_bwd_rms_fwd_bwd": fp16_calls,
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
     if bf16_res:
         res["bf16_step0_loss"] = bf16_res["losses"][0]
@@ -3483,9 +3592,10 @@ def phase_services_fp16(torch, smi, bf16_res):
     del out
     check(len(losses) == TRAIN_ITERS and all(x == x and abs(x) != float("inf") for x in losses),
           f"15 (d): losses {losses}")
-    want = path_counts("llama", layers, TRAIN_ITERS, False)
+    want = path_counts("llama", layers, TRAIN_ITERS, True)
     check(launches == want, f"15 (d): launches {launches}, expected {want}")
-    check(fp16_calls == [want["flash_fwd"], want["flash_bwd"]], f"15 (d): fp16 calls {fp16_calls}")
+    check(fp16_calls == [want[k] for k in ("flash_fwd", "flash_bwd", "rms_fwd", "rms_bwd")],
+          f"15 (d): fp16 calls {fp16_calls}")
     check(all(routes[k]["cuda_core"] == launches[k] for k in ("flash_fwd", "flash_bwd")),
           f"15 (d): routes {routes}")
     if bf16_res:
@@ -3543,7 +3653,7 @@ def phase_services(torch, smi, train_res):
         phase_services_serve(torch, smi, d)
     gc.collect()
     torch.cuda.empty_cache()
-    launches = phase_services_fp16(torch, smi, train_res.get("llama"))
+    launches = phase_services_fp16(torch, smi, train_res.get("llama_fused"))
     gc.collect()
     torch.cuda.empty_cache()
     phase_services_rampup(torch, smi)
@@ -5987,6 +6097,118 @@ def _swin_search(torch, smi, tmpdir):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 25: fp16 on the grid kernels' and the LayerNorm kernels' paths
+# ---------------------------------------------------------------------------
+
+# (a) opt-1.3b at full width, 4 of its 24 layers, fused norms: (preset,
+# layers, iterations); the batch and sequence are the preset's (8 x 2048)
+FP16_OPT = ("opt-1.3b", 4, 6)
+# (b) bert-large at full width, 2 of its 24 layers: (preset, layers, batch,
+# iterations); the sequence is the preset's 512
+FP16_BERT = ("bert-large", 2, 32, 3)
+# fp16 step 0 against the bf16 step 0 of the same weights and batch
+# (phase 15 (d)'s bound)
+FP16_STEP0_RTOL = 1e-2
+
+
+def _fp16_train(torch, smi, tmpdir, tag, argv, fused, iters):
+    """One fp16 run of ``argv`` (``cli train``, or ``trainer.train`` with
+    ``fused_norm=True``), then one bf16 step of the same flags; returns
+    (launches, launches by dtype and route, the record)."""
+    from galvatron_tpu_torch import cli
+    from galvatron_tpu_torch.core import trainer
+    from galvatron_tpu_torch.core.arguments import initialize_galvatron, model_config_from_args
+    from galvatron_tpu_torch.ops import flash_attention as fa
+    from galvatron_tpu_torch.ops import fused_norm as fn
+
+    def run(precision, n, path):
+        flags = [*argv, "--train_iters", str(n), "--mixed_precision", precision,
+                 "--metrics_path", path]
+        if fused:
+            ns = initialize_galvatron("train", flags)
+            del trainer.train(ns, cfg=model_config_from_args(ns).replace(fused_norm=True))["state"]
+        else:
+            check(cli.main(["train", *flags]) == 0, f"25 {tag}: cli train failed")
+
+    path = os.path.join(tmpdir, f"fp16_{tag}.jsonl")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_kernel_counts()  # the main path's counts start here
+    routes_before = route_counts()
+    grid_dtypes = (fa.flash_grid_fwd.dtypes, fa.flash_grid_bwd_parts.dkv_dtypes,
+                   fa.flash_grid_bwd_parts.dq_dtypes)
+    before = [d["torch.float16"] for d in grid_dtypes]
+    run("fp16", iters, path)
+    launches, modes = kernel_counts(), _grid_modes()  # read right after the main path
+    fp16 = dict(zip(_GRID_KERNELS, (d["torch.float16"] - b for d, b in zip(grid_dtypes, before))))
+    fp16.update({k: v["torch.float16"] for k, v in fn.dtype_counts().items()})
+    routes = _routes_since(routes_before)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    seconds = time.perf_counter() - t0
+    losses, recs = _train_losses(path)
+    bf16_path = os.path.join(tmpdir, f"bf16_{tag}.jsonl")
+    run("bf16", 1, bf16_path)
+    bf16_loss = _train_losses(bf16_path)[0][0]
+    steady = recs[1:]
+    res = {"card": smi, "argv": argv, "fused_norm": fused, "dtype": "float16", "iters": iters,
+           "losses": losses, "loss_scale": [r["loss_scale"] for r in recs],
+           "iter_ms_mean_from_2": sum(r["iter_ms"] for r in steady) / len(steady),
+           "iter_ms": [r["iter_ms"] for r in recs], "max_memory_allocated_gb": peak_gb,
+           "bf16_step0_loss": bf16_loss, "step0_rel_diff": _rel(losses[0], bf16_loss),
+           "launches": {k: v for k, v in launches.items() if v}, "fp16_launches": fp16,
+           "routes": {k: routes[k] for k in _GRID_KERNELS}, "grid_modes": modes,
+           "seconds_fp16_run": seconds}
+    log(f"phase 25 {tag}:", json.dumps(res))
+    check(len(losses) == iters and all(x == x and abs(x) != float("inf") for x in losses),
+          f"25 {tag}: losses {losses}")
+    check(res["step0_rel_diff"] <= FP16_STEP0_RTOL,
+          f"25 {tag}: fp16 step 0 loss {losses[0]} against bf16 {bf16_loss}")
+    check(all(routes[k] == {"cuda_core": launches[k], "tma": 0} for k in _GRID_KERNELS),
+          f"25 {tag}: routes {routes}")
+    return launches, fp16, modes, res
+
+
+def phase_fp16(torch, smi):
+    """Phase 25: (a) opt-1.3b at full width, 4 layers, ``fused_norm=True``,
+    fp16 at 8 x 2048 for ``FP16_OPT``'s iterations, then a bf16 step of the
+    same model and batch: finite losses, step 0 within 1e-2 relative of the
+    bf16 step 0, each grid kernel launched layers x iterations at fp16 on
+    the CUDA-core route, the LayerNorm kernels (2 x layers + 1) x iterations
+    at fp16, nothing else; (b) bert-large at full width, 2 layers, fp16, 32 x
+    512 for 3 iterations: the grid kernels unmasked at fp16, layers x
+    iterations each. Returns (a)'s launches and (b)'s."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fp16p_") as tmpdir:
+        preset, layers, iters = FP16_OPT
+        launches_a, fp16, _, out["a_opt"] = _fp16_train(
+            torch, smi, tmpdir, "(a) opt", ["--model_size", preset, "--num_layers", str(layers)],
+            True, iters)
+        want = path_counts("opt", layers, iters, True)
+        check(launches_a == want, f"25 (a): launches {launches_a}, expected {want}")
+        check(fp16 == {k: want[k] for k in fp16}, f"25 (a): fp16 launches {fp16}, expected "
+              f"{want}")
+        preset, layers, bsz, iters = FP16_BERT
+        launches_b, fp16, modes, out["b_bert"] = _fp16_train(
+            torch, smi, tmpdir, "(b) bert", ["--model_size", preset, "--num_layers", str(layers),
+                                             "--global_train_batch_size", str(bsz)],
+            False, iters)
+        n = layers * iters
+        want = {k: n if k in _GRID_KERNELS else 0 for k in launches_b}
+        check(launches_b == want, f"25 (b): launches {launches_b}, expected {want}")
+        check(fp16 == {k: want[k] for k in fp16}, f"25 (b): fp16 launches {fp16}")
+        mode = f"{bsz},16,512,unmasked"
+        check(all(m == {mode: n} for m in modes.values()),
+              f"25 (b): grid launches by shape {modes}, expected {mode}: {n}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 25 took {out['seconds']:.1f} s")
+    RESULTS["fp16"] = out
+    return launches_a, launches_b
+
+
 def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) -> int:
     """One rank of phases 12-13, 17 and 18: ``cli train``'s own call
     (``trainer.train`` of the parsed flags), with the blocked flash
@@ -6105,7 +6327,7 @@ def _rank_run(outdir, argv, heads, ref_params=None, control=None, profile_moe=Fa
 #: the phases by name, for ``--phases``; a full run takes them all
 PHASES = ("kernels", "flash", "grid", "norm", "forward", "parity", "serve", "train", "hybrid",
           "pipeline", "nccl", "search", "services", "slots", "cp", "moe", "packed", "overlap",
-          "hf", "encoder", "encdec", "swin")
+          "hf", "encoder", "encdec", "swin", "fp16")
 
 
 def main() -> int:
@@ -6173,7 +6395,7 @@ def main() -> int:
     _DAM.clear()  # the timer's tensors are no part of a later phase's peak memory
     torch.cuda.empty_cache()
     if "forward" in phases:
-        phase_forward(torch)
+        launches["paged_fp16"] = phase_forward(torch)
         phase_forward(torch, fused=True)
         mark("4 forward")
     if "parity" in phases:
@@ -6317,6 +6539,18 @@ def main() -> int:
         for phase, res in _coupled_pipelines(torch, smi, phases).items():
             RESULTS[phase]["d_pipeline" if phase == "encdec" else "c_pipeline"] = res
         mark("23 (d), 24 (c) coupled pipelines")
+    if "fp16" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["fp16_opt"], launches["fp16_bert"] = phase_fp16(torch, smi)
+        mark("25 fp16")
+        fp16_seconds = {
+            **{k: v["seconds"] for part in ("paged", "grid", "norm") if part in lines
+               for k, v in lines[part].items() if "fp16" in k and "seconds" in v},
+            "4 (c) fp16 forward": RESULTS.get("forward", {}).get("fp16_seconds", 0.0),
+            "25 fp16": seconds["25 fp16"]}
+        RESULTS["fp16_seconds"] = dict(fp16_seconds, total=sum(fp16_seconds.values()))
+        log("fp16 cases and phase 25, seconds:", json.dumps(RESULTS["fp16_seconds"]))
     if {"packed", "overlap"} & set(phases):
         RESULTS["packed_overlap_launches"] = {k: launches[k] for k in ("packed", "overlap")
                                               if k in launches}
@@ -6328,6 +6562,8 @@ def main() -> int:
         log(f"partial run ({','.join(phases)}): no kernels line, no result line")
         return 0
     paged_line = lines["paged"]["paged_decode main"]
+    paged16 = lines["paged"]["paged_decode main fp16"]
+    opt16 = lines["grid"]["grid opt fp16"]
     gpt_paged_line = lines["paged"]["paged_decode gpt"]
     grid_line, norm_lines = lines["grid"]["grid gpt"], lines["norm"]
     enc_line = lines["grid"]["grid encoder s512 d64"]
@@ -6345,10 +6581,10 @@ def main() -> int:
                 "bound_by": grid_line[bound + "_bound_by"], "library_ms": grid_line[library]}
 
     def norm_entry(name, line_no, case, run, which, count=None):
-        """A norm kernel at a timed shape (bf16): ``which`` is fwd or bwd;
-        the backward's time is its two launches (row pass and column sums);
-        ``count`` the kernel's name in ``launches[run]`` when it is not
-        ``name``."""
+        """A norm kernel at a timed shape (bf16 or fp16): ``which`` is fwd
+        or bwd; the backward's time is its two launches (row pass and column
+        sums); ``count`` the kernel's name in ``launches[run]`` when it is
+        not ``name``."""
         line = norm_lines[case]
         err = line["y_max_abs_err"] if which == "fwd" else line["dx_max_abs_err"]
         return {"name": name, "route": "cuda", "source": src + "fused_norm.cu",
@@ -6471,6 +6707,35 @@ def main() -> int:
               ("flash_grid_dq", "flash_grid_bwd.cu", "792",
                lambda x: x["bwd_max_abs_err_dq_dk_dv"][0], "dq_ms", "bwd_plain_ms", "dq",
                "bwd_library_ms"))],
+        # the fp16 instances (the CUDA-core route): the grid kernels at phase
+        # 25 (a)'s opt-1.3b shape (phase 3's "grid opt fp16" case) with their
+        # launches on that path, ...
+        *[{"name": name + "_fp16", "route": "cuda", "source": src + source,
+           "replaces": replaces + line_no, "launches": launches["fp16_opt"][name],
+           "max_abs_err": err, "ms": opt16[ms], "plain_ms": opt16[plain],
+           "bound_ms": opt16[bound + "_bound_ms"], "bound_by": opt16[bound + "_bound_by"],
+           "library_ms": opt16[library]}
+          for name, source, line_no, err, ms, plain, bound, library in (
+              ("flash_grid_fwd", "flash_grid_fwd.cu", "123", opt16["fwd_max_abs_err"],
+               "fwd_ms", "fwd_plain_ms", "fwd", "fwd_library_ms"),
+              ("flash_grid_dkdv", "flash_grid_bwd.cu", "724",
+               max(opt16["bwd_max_abs_err_dq_dk_dv"][1:]), "dkdv_ms", "bwd_plain_ms", "dkdv",
+               "bwd_library_ms"),
+              ("flash_grid_dq", "flash_grid_bwd.cu", "792", opt16["bwd_max_abs_err_dq_dk_dv"][0],
+               "dq_ms", "bwd_plain_ms", "dq", "bwd_library_ms"))],
+        # ... the norm kernels at the training shapes with their launches on
+        # phase 15 (d)'s (RMSNorm) and phase 25 (a)'s (LayerNorm) paths, ...
+        norm_entry("rms_fwd_fp16", "64", "rms main fp16", "services_fp16", "fwd", "rms_fwd"),
+        norm_entry("rms_bwd_fp16", "72", "rms main fp16", "services_fp16", "bwd", "rms_bwd"),
+        norm_entry("ln_fwd_fp16", "190", "ln main fp16", "fp16_opt", "fwd", "ln_fwd"),
+        norm_entry("ln_bwd_fp16", "202", "ln main fp16", "fp16_opt", "bwd", "ln_bwd"),
+        # ... and paged_decode at the serving shape (phase 2's "paged_decode
+        # main fp16") with its launches on phase 4 (c)'s fp16 decode path
+        {"name": "paged_decode_fp16", "route": "cuda", "source": src + "paged_decode.cu",
+         "replaces": replaces + "1152", "launches": launches["paged_fp16"],
+         "max_abs_err": paged16["max_abs_err"], "ms": paged16["kernel_ms"],
+         "plain_ms": paged16["plain_ms"], "bound_ms": paged16["bound_ms"],
+         "bound_by": paged16["bound_by"], "library_ms": paged16["library_ms"]},
         norm_entry("rms_fwd", "64", "rms main", "llama_fused", "fwd"),
         norm_entry("rms_bwd", "72", "rms main", "llama_fused", "bwd"),
         norm_entry("ln_fwd", "190", "ln main", "opt_fused", "fwd"),

@@ -47,9 +47,8 @@ def _add_model_args(p: argparse.ArgumentParser):
     g.add_argument("--num_kv_heads", type=int, default=None)
     g.add_argument("--ffn_dim", type=int, default=None)
     g.add_argument("--seq_length", type=int, default=None)
-    # the other families' shape flags: the search and the plan checker read
-    # them all; the vision ones train ViT, while encoder-decoder and Swin
-    # values raise in training (ROADMAP.md §1.10)
+    # the other families' shape flags: the search, the plan checker and
+    # training read them all (ViT, Swin and the T5 encoder-decoder)
     g.add_argument("--enc_layers", type=int, default=None,
                    help="encoder layers (enc-dec families; 0 = decoder-only)")
     g.add_argument("--enc_seq", type=int, default=None)
@@ -143,8 +142,7 @@ def _add_step_program_args(p: argparse.ArgumentParser):
     g.add_argument("--mixed_precision", type=str, default="bf16",
                    choices=["fp32", "bf16", "fp16"],
                    help="compute dtype over fp32 master weights; fp16 adds dynamic "
-                   "loss scaling (the LLaMA family without fused_norm: the blocked "
-                   "flash kernels run fp16, the others raise)")
+                   "loss scaling (every family; the kernels run their fp16 instances)")
     g.add_argument("--attn_impl", type=str, default="auto", choices=["auto", "flash", "xla"],
                    help="auto = the flash kernels on the card, the einsum path on the CPU")
     g.add_argument("--mlp_recompute", type=str, default="policy",

@@ -182,32 +182,31 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-#: what the port runs, in training, serving and generation: (config field,
-#: the values the port runs, what the other values select); anything else
-#: raises naming ROADMAP §1.10
+#: the values each family field takes, in training, serving and generation:
+#: (config field, its known values, what the field selects); any other value
+#: is unknown and raises (the reference runs an unknown ``act_fn`` as
+#: tanh-GELU, a kept difference: ROADMAP.md §3)
 _PORTED = (
-    ("pos_embed", ("rope", "learned", "alibi"), "other position schemes"),
-    ("norm_type", ("rms", "layernorm"), "other norms"),
-    ("act_fn", ("swiglu", "gelu", "relu"), "other MLP activations"),
-    ("objective", ("clm", "mlm", "cls"), "other objectives"),
+    ("pos_embed", ("rope", "learned", "alibi"), "position scheme"),
+    ("norm_type", ("rms", "layernorm"), "norm"),
+    ("act_fn", ("swiglu", "gelu", "relu"), "MLP activation"),
+    ("objective", ("clm", "mlm", "cls"), "objective"),
 )
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run yet
-    (ROADMAP.md §1.10): training runs the LLaMA, Baichuan and GPT/OPT
+    """Raise ``NotImplementedError`` for an unknown value of a family field
+    (:data:`_PORTED`): training runs the LLaMA, Baichuan and GPT/OPT
     decoders (rope, learned or ALiBi positions, rms or layernorm, swiglu /
     gelu / relu, biases, tied heads, switch-MoE MLPs), the BERT and ViT
     encoders ('mlm', 'cls'), the Swin pyramid and the T5 encoder-decoder;
     serving and generation refuse the encoders, Swin and T5 themselves
     (``generation.check_generative``)."""
-    for field, ported, what in _PORTED:
-        if getattr(cfg, field) not in ported:
+    for field, known, what in _PORTED:
+        if getattr(cfg, field) not in known:
             raise NotImplementedError(
-                f"{field}={getattr(cfg, field)!r} ({what}) is not ported yet: "
-                "ROADMAP.md §1.10 'Other model families'; the port runs LLaMA, "
-                "Baichuan and GPT/OPT decoders, BERT, ViT and Swin encoders and the T5 "
-                "encoder-decoder"
+                f"{field}={getattr(cfg, field)!r} is an unknown {what}: the known values "
+                f"are {', '.join(known)}"
             )
     if cfg.use_bias and not cfg.qkv_blocked:
         raise ValueError("use_bias needs the blocked qkv layout (no GQA)")

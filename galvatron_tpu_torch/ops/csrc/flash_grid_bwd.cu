@@ -43,10 +43,13 @@
 // call first ropes q and k through the unscaled tables into scratches the
 // wrapper allocates, and the dq call reads the same scratches (each row
 // roped once per backward). The two kernels recompute the score and dp
-// products, so they issue 7 products, not 5. fp32, other head dims and
-// operands a tensor map cannot take run CUDA-core kernels with both flags at
-// run time; each entry encodes its tensor maps before any launch and
-// reports its route.
+// products, so they issue 7 products, not 5. fp32, fp16 (p and ds rounded
+// to fp16 where the bf16 route rounds them to bf16; with RoPE q and k
+// rotated in the kernel, as fp32 does), other head dims and operands a
+// tensor map cannot take run CUDA-core kernels with both flags at run time;
+// each entry encodes its tensor maps before any launch and reports its
+// route. The mainloops' tensor maps, wgmma and pre-pass are bf16, so the TMA
+// route is chosen on the type, not on its size.
 //
 // C interface (bound with ctypes): pointers and the stream as void*, strides
 // in a host array of long long, the route taken written through an int*;
@@ -79,8 +82,8 @@ struct GridBwdArgs {
 };
 
 // ---------------------------------------------------------------------------
-// CUDA cores (fp32, and bf16 off head_dim 64 / 128): a 16 x 16 grid of
-// threads, each with a RI x CJ register tile of scores and dp, TILE-row
+// CUDA cores (fp32, fp16, and bf16 off head_dim 64 / 128): a 16 x 16 grid
+// of threads, each with a RI x CJ register tile of scores and dp, TILE-row
 // tiles staged in shared memory as fp32.
 // ---------------------------------------------------------------------------
 
@@ -387,7 +390,7 @@ template <Pass P, typename T>
 cudaError_t dispatch(const GridBwdArgs& a, int batch, void* qs, void* ks, cudaStream_t stream,
                      int* route) {
   *route = flash::kRouteCudaCore;
-  if (sizeof(T) == 2 && can_tma(a, qs, ks)) {
+  if (std::is_same<T, __nv_bfloat16>::value && can_tma(a, qs, ks)) {
     CUtensorMap m[4];
     if (a.d == 128 ? encode_maps<P, 128>(a, batch, qs, ks, m)
                    : encode_maps<P, 64>(a, batch, qs, ks, m)) {
@@ -438,6 +441,7 @@ int run(const void* q, const void* k, const void* v, const void* dout, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch<P, float>(a, batch, qs, ks, st, route);
   if (dtype == 1) return (int)dispatch<P, __nv_bfloat16>(a, batch, qs, ks, st, route);
+  if (dtype == 2) return (int)dispatch<P, __half>(a, batch, nullptr, nullptr, st, route);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -447,9 +451,10 @@ extern "C" {
 
 // strides: q, k, v, do, dq, dk, dv as (b, h, s) element strides, 21 values.
 // lse, delta: contiguous fp32 (b, h, s). cos/sin: null without RoPE. dtype:
-// 0 = float32, 1 = bfloat16. q_scratch / k_scratch: bf16 contiguous
-// (b, h, s, d) and (b, h / kv_rep, s, d) for the RoPE pre-pass of the bf16
-// route at head_dim 64 / 128 (null elsewhere): the dk/dv entry writes them,
+// 0 = float32, 1 = bfloat16, 2 = float16 (the CUDA-core kernels). q_scratch /
+// k_scratch: bf16 contiguous (b, h, s, d) and (b, h / kv_rep, s, d) for the
+// RoPE pre-pass of the bf16 route at head_dim 64 / 128 (null elsewhere): the
+// dk/dv entry writes them,
 // the dq entry reads them, so the dq entry is given them only after a dk/dv
 // call on the same inputs took that route. The dk/dv entry writes dk and dv,
 // the dq entry dq; route is set to the route taken (flash::Route). Each

@@ -40,9 +40,11 @@
 // call; q by TMA too without RoPE), wgmma for S = q k^T and O += p v with p
 // rounded to bf16 in registers, the two consumer warpgroups taking turns at
 // S (pingpong); the scale is applied to S after the product, the mask is
-// causal or none, and out is written in bf16 or fp32 by strides. fp32, other head dims and
-// operands a tensor map cannot take run a CUDA-core kernel with both flags
-// at run time.
+// causal or none, and out is written in bf16 or fp32 by strides. fp32,
+// fp16 (the same rounding points at fp16; out in fp16 or fp32), other head
+// dims and operands a tensor map cannot take run a CUDA-core kernel with
+// both flags at run time. The mainloops' tensor maps and wgmma are bf16, so
+// the TMA route is chosen on the type, not on its size.
 //
 // C interface (bound with ctypes): pointers and the stream as void*, strides
 // in a host array of long long, the route taken written through an int*,
@@ -66,9 +68,9 @@ __device__ __forceinline__ int key_tiles(bool causal, int q0, int rows, int s, i
 }
 
 // ---------------------------------------------------------------------------
-// CUDA cores (fp32, and bf16 off head_dim 64 / 128): a 16 x 16 grid of
-// threads, each with a RI x CJ register tile of scores, TILE-row tiles staged
-// in shared memory as fp32.
+// CUDA cores (fp32, fp16, and bf16 off head_dim 64 / 128): a 16 x 16 grid
+// of threads, each with a RI x CJ register tile of scores, TILE-row tiles
+// staged in shared memory as fp32.
 // ---------------------------------------------------------------------------
 
 template <int TILE>
@@ -229,7 +231,7 @@ template <typename T>
 cudaError_t dispatch(const GridFwdArgs& a, void* kscratch, cudaStream_t stream, int* route) {
   namespace fw = flash::fwd;
   *route = flash::kRouteCudaCore;
-  if (sizeof(T) == 2 && fw::can_tma(a, kscratch)) {
+  if (std::is_same<T, __nv_bfloat16>::value && fw::can_tma(a, kscratch)) {
     CUtensorMap tq, tk, tv;
     if (a.d == 128 ? fw::encode_maps<128>(a, kscratch, &tq, &tk, &tv)
                    : fw::encode_maps<64>(a, kscratch, &tq, &tk, &tv)) {
@@ -251,9 +253,10 @@ extern "C" {
 // contiguous, for the k pre-pass of the bf16 route at head_dim 64 / 128 with
 // RoPE (null elsewhere). work: two int32, zero, the persistent kernel's item
 // counter on the bf16 route at head_dim 64 / 128 (the kernel leaves them
-// zero again; null elsewhere). dtype: 0 = float32, 1 = bfloat16; out_f32: 1 writes
-// out in fp32 whatever the input dtype. route: set to the route taken
-// (flash::Route). Returns cudaGetLastError() after the launches.
+// zero again; null elsewhere). dtype: 0 = float32, 1 = bfloat16, 2 = float16
+// (the CUDA-core kernel); out_f32: 1 writes out in fp32 whatever the input
+// dtype. route: set to the route taken (flash::Route). Returns
+// cudaGetLastError() after the launches.
 int galvatron_flash_grid_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              const void* cos, const void* sin, void* k_scratch, void* work,
                              const long long* strides, int dtype, int out_f32, int causal,
@@ -288,6 +291,7 @@ int galvatron_flash_grid_fwd(const void* q, const void* k, const void* v, void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch<float>(a, nullptr, st, route);
   if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, k_scratch, st, route);
+  if (dtype == 2) return (int)dispatch<__half>(a, nullptr, st, route);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,7 +4,7 @@
 // `_rms_fwd_kernel` / `_rms_fwd`, `_rms_bwd_kernel` / `_rms_bwd`,
 // `_ln_fwd_kernel` / `_ln_fwd` and `_ln_bwd_kernel` / `_ln_bwd`.
 //
-//   x, y, dy, dx  (n, H)   bf16 or fp32, contiguous rows, H % 128 == 0
+//   x, y, dy, dx  (n, H)   bf16, fp16 or fp32, contiguous rows, H % 128 == 0
 //   g, b, dg, db  (H,)     fp32 (the master scale and bias and their gradients)
 //   rstd, mu      (n, 1)   fp32 row statistics, written by the forward and
 //                          read by the backward
@@ -38,7 +38,8 @@
 //     resident at once (SMs x the kernel's occupancy), so all rows go through
 //     in one wave;
 //   - thread t owns the 16-byte vectors t, t + 256, ... of every row (8 bf16
-//     or 4 fp32 values each, neighbouring threads on neighbouring addresses).
+//     or fp16, or 4 fp32 values each, neighbouring threads on neighbouring
+//     addresses).
 //     The row stays in registers between the reduction and the write, so no
 //     byte is read twice; g (and b) for the thread's columns are loaded once
 //     per block;
@@ -61,6 +62,7 @@
 // void*, each launch function returns cudaGetLastError() after its launches.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,6 +113,30 @@ struct Pack<__nv_bfloat16> {
   static __device__ __forceinline__ uint4 pack(const float* in) {
     return make_uint4(f32_to_bf162(in[0], in[1]), f32_to_bf162(in[2], in[3]),
                       f32_to_bf162(in[4], in[5]), f32_to_bf162(in[6], in[7]));
+  }
+};
+
+__device__ __forceinline__ float2 half2_to_f32(uint32_t bits) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&bits));  // low half first
+}
+
+__device__ __forceinline__ uint32_t f32_to_half2(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <>
+struct Pack<__half> {
+  static constexpr int kElems = 8;
+  static __device__ __forceinline__ void unpack(const uint4& raw, float* out) {
+    const float2 a = half2_to_f32(raw.x), b = half2_to_f32(raw.y);
+    const float2 c = half2_to_f32(raw.z), d = half2_to_f32(raw.w);
+    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+    out[4] = c.x; out[5] = c.y; out[6] = d.x; out[7] = d.y;
+  }
+  static __device__ __forceinline__ uint4 pack(const float* in) {
+    return make_uint4(f32_to_half2(in[0], in[1]), f32_to_half2(in[2], in[3]),
+                      f32_to_half2(in[4], in[5]), f32_to_half2(in[6], in[7]));
   }
 };
 
@@ -465,8 +491,8 @@ int dispatch_resident(int hidden) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, y, dy, dx); g, b, dg, db, mu, rstd and
-// the workspace are float32. Every launch function returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, y, dy, dx); g, b, dg,
+// db, mu, rstd and the workspace are float32. Every launch function returns cudaGetLastError().
 
 // Blocks of the backward kernel the card holds resident at once for this
 // norm (0 RMSNorm, 1 LayerNorm), dtype and width: the caller launches
@@ -479,6 +505,9 @@ int galvatron_fused_norm_bwd_blocks(int layernorm, int dtype, int hidden) {
   if (dtype == 1)
     return layernorm ? dispatch_resident<__nv_bfloat16, true>(hidden)
                      : dispatch_resident<__nv_bfloat16, false>(hidden);
+  if (dtype == 2)
+    return layernorm ? dispatch_resident<__half, true>(hidden)
+                     : dispatch_resident<__half, false>(hidden);
   return 0;
 }
 
@@ -489,6 +518,8 @@ int galvatron_rms_fwd(const void* x, const void* g, void* y, void* rstd, int dty
     return dispatch_fwd<float, false>(x, g, nullptr, y, nullptr, rstd, n, hidden, eps, s);
   if (dtype == 1)
     return dispatch_fwd<__nv_bfloat16, false>(x, g, nullptr, y, nullptr, rstd, n, hidden, eps, s);
+  if (dtype == 2)
+    return dispatch_fwd<__half, false>(x, g, nullptr, y, nullptr, rstd, n, hidden, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -498,6 +529,7 @@ int galvatron_ln_fwd(const void* x, const void* g, const void* b, void* y, void*
   if (dtype == 0) return dispatch_fwd<float, true>(x, g, b, y, mu, rstd, n, hidden, eps, s);
   if (dtype == 1)
     return dispatch_fwd<__nv_bfloat16, true>(x, g, b, y, mu, rstd, n, hidden, eps, s);
+  if (dtype == 2) return dispatch_fwd<__half, true>(x, g, b, y, mu, rstd, n, hidden, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -512,6 +544,9 @@ int galvatron_rms_bwd(const void* x, const void* g, const void* rstd, const void
   if (dtype == 1)
     return dispatch_bwd<__nv_bfloat16, false>(x, g, nullptr, rstd, dy, dx, dg, nullptr, ws,
                                               blocks, n, hidden, s);
+  if (dtype == 2)
+    return dispatch_bwd<__half, false>(x, g, nullptr, rstd, dy, dx, dg, nullptr, ws, blocks, n,
+                                       hidden, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -525,6 +560,8 @@ int galvatron_ln_bwd(const void* x, const void* g, const void* mu, const void* r
   if (dtype == 1)
     return dispatch_bwd<__nv_bfloat16, true>(x, g, mu, rstd, dy, dx, dg, db, ws, blocks, n,
                                              hidden, s);
+  if (dtype == 2)
+    return dispatch_bwd<__half, true>(x, g, mu, rstd, dy, dx, dg, db, ws, blocks, n, hidden, s);
   return (int)cudaErrorInvalidValue;
 }
 

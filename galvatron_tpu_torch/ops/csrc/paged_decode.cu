@@ -19,7 +19,8 @@
 // Math: q.k in fp32 times sm_scale (kept in base-2 units, times log2 e, so
 // the softmax runs on exp2); fp32 running max, denominator and numerator; the
 // output is cast to the input dtype once at the end. Inputs are bf16 (the
-// serving path) or fp32 (card-side parity with the CPU).
+// serving path), fp16 (the reference's kernel takes any float dtype) or fp32
+// (card-side parity with the CPU).
 //
 // Bound: bytes. A decode step reads every K and V row at positions
 // [0, offset] once per (row, kv head), against 4 * g * d operations per
@@ -54,6 +55,7 @@
 // void*; the function returns cudaGetLastError() after the launches.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -74,6 +76,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -102,9 +108,10 @@ __device__ __forceinline__ void load_vec(const float* p, float (&x)[NE]) {
     }
   }
 }
+// NE consecutive 16-bit elements as packed pairs (NE / 2 words), by one
+// vector load
 template <int NE>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&x)[NE]) {
-  uint32_t w[NE / 2];
+__device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[NE / 2]) {
   if constexpr (NE == 2) {
     w[0] = *reinterpret_cast<const uint32_t*>(p);
   } else if constexpr (NE == 4) {
@@ -118,9 +125,25 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&x)[NE])
     w[2] = v.z;
     w[3] = v.w;
   }
+}
+template <int NE>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&x)[NE]) {
+  uint32_t w[NE / 2];
+  load_words<NE>(p, w);
 #pragma unroll
   for (int i = 0; i < NE / 2; ++i) {
     const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+template <int NE>
+__device__ __forceinline__ void load_vec(const __half* p, float (&x)[NE]) {
+  uint32_t w[NE / 2];
+  load_words<NE>(p, w);
+#pragma unroll
+  for (int i = 0; i < NE / 2; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
@@ -434,13 +457,14 @@ cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
 extern "C" {
 
 // Dynamic shared memory one split block needs, in bytes (the wrapper refuses
-// shapes above the 227 KB a block may use). dtype: 0 = float32, 1 = bfloat16.
+// shapes above the 227 KB a block may use). dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16.
 long long galvatron_paged_decode_smem_bytes(int dtype, int g, int d) {
   return (long long)smem_bytes(dtype == 0 ? 4 : 2, heads_per_block(g), d);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. `work` holds batch * kv * splits * g *
-// (d + 2) floats. Rows are split into `splits` ranges of `split_len`
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. `work` holds batch * kv *
+// splits * g * (d + 2) floats. Rows are split into `splits` ranges of `split_len`
 // positions. Returns cudaGetLastError() after the launches.
 int galvatron_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                            const void* tables, const void* offsets, void* work, void* out,
@@ -471,6 +495,7 @@ int galvatron_paged_decode(const void* q, const void* k_pages, const void* v_pag
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(a, batch, s);
   if (dtype == 1) return (int)launch<__nv_bfloat16>(a, batch, s);
+  if (dtype == 2) return (int)launch<__half>(a, batch, s);
   return (int)cudaErrorInvalidValue;
 }
 

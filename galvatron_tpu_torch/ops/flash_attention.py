@@ -32,7 +32,14 @@ Each kernel has three pieces, side by side:
   vanish unnoticed; the grid kernels also count their launches by shape and
   mask (``flash_grid_fwd.modes``, ``flash_grid_bwd_parts.dkv_modes`` /
   ``.dq_modes``, keyed ``"b,h,s,causal"`` or ``"b,h,s,unmasked"``), so a
-  ring's past hops count apart from its diagonal ones.
+  ring's past hops count apart from its diagonal ones; and every wrapper
+  counts its launches by operand dtype (``flash_fwd.dtypes``,
+  ``flash_grid_fwd.dtypes``, ``flash_grid_bwd_parts.dkv_dtypes`` /
+  ``.dq_dtypes``, ``paged_decode_attention.dtypes``: ``str(torch.dtype)``).
+
+Every kernel takes fp32, bf16 and fp16, as the reference's take any float
+dtype. fp16 runs the CUDA-core instances of each kernel (the TMA routes are
+bf16's), rounding where the bf16 instances round.
 
 The bf16 forwards at head_dim 64 / 128 (``flash_fwd`` and
 ``flash_grid_fwd``) run one shared Hopper mainloop
@@ -85,12 +92,9 @@ from galvatron_tpu_torch.ops import _build
 #: shared memory one thread block may use on Hopper (227 KB)
 _MAX_SMEM_BYTES = 232448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: the dtypes each kernel family takes: fp16 only the blocked kernels (on
-#: their CUDA-core route); the grid kernels and paged_decode refuse it
-_BLOCKED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-_GRID_DTYPES = (torch.float32, torch.bfloat16)
-FP16_REMAINDER = ("fp16 for the grid flash kernels, the fused norms and paged_decode is "
-                  "ROADMAP.md §1.1's remainder")
+#: the dtypes every kernel takes, as the reference's take any float dtype;
+#: fp16 runs the CUDA-core instances (the TMA routes are bf16 only)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: The routes a C entry reports, by index (``flash::Route`` in
 #: ``csrc/flash_common.cuh``): the CUDA-core kernels (fp32, other head dims,
 #: operands a tensor map cannot take) or the TMA + wgmma kernels. Each
@@ -559,17 +563,15 @@ def parity_excess(got, ref, mantissa_bits: int):
 # ---------------------------------------------------------------------------
 
 
-def _check_flash_operands(name, tensors, cos, sin, d, dtypes=_GRID_DTYPES):
-    """The kernels' contract, on every device: one dtype (of ``dtypes``),
+def _check_flash_operands(name, tensors, cos, sin, d):
+    """The kernels' contract, on every device: one dtype (bf16, fp16 or fp32),
     head_dim % 8 == 0 and <= 256, one device, unit-stride head dims, and
     contiguous fp32 (s, d/2) rope tables unless ``cos`` is None (no RoPE)."""
     dev, dt = tensors[0].device, tensors[0].dtype
-    if dt not in dtypes or any(t.dtype != dt for t in tensors):
-        names = "bf16, fp16 or fp32" if torch.float16 in dtypes else "bf16 or fp32"
+    if dt not in _DTYPES or any(t.dtype != dt for t in tensors):
         raise TypeError(
-            f"the {name} kernel takes {names} operands of one dtype, got "
+            f"the {name} kernel takes bf16, fp16 or fp32 operands of one dtype, got "
             f"{sorted({str(t.dtype) for t in tensors})}"
-            + (f" ({FP16_REMAINDER})" if dt == torch.float16 else "")
         )
     if d % 8 or d > 256:
         raise ValueError(f"the {name} kernel takes head_dim % 8 == 0 and <= 256, got {d}")
@@ -613,7 +615,7 @@ def flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
     route the call took is counted in ``flash_fwd.routes``."""
     b, h, s, d = q.shape
     _check_kv(q, k, v, kv_rep)
-    _check_flash_operands("flash_fwd", (q, k, v), cos, sin, d, _BLOCKED_DTYPES)
+    _check_flash_operands("flash_fwd", (q, k, v), cos, sin, d)
     if q.device.type == "cpu":
         return flash_fwd_blocked_plain(q, k, v, cos, sin, sm_scale, kv_rep)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -641,7 +643,7 @@ def flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
 flash_fwd.launches = 0
 flash_fwd.routes = dict.fromkeys(ROUTES, 0)
 #: launches by operand dtype (``str(torch.dtype)``)
-flash_fwd.dtypes = dict.fromkeys(map(str, _BLOCKED_DTYPES), 0)
+flash_fwd.dtypes = dict.fromkeys(map(str, _DTYPES), 0)
 
 
 def flash_bwd(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1,
@@ -654,7 +656,7 @@ def flash_bwd(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1,
     ``flash_bwd.launches``, the route in ``flash_bwd.routes``); two calls on
     the same inputs give the same bits."""
     b, h, s, d = q.shape
-    _check_flash_operands("flash_bwd", (q, k, v, do, out), cos, sin, d, _BLOCKED_DTYPES)
+    _check_flash_operands("flash_bwd", (q, k, v, do, out), cos, sin, d)
     _check_row_stats("flash_bwd", b, h, s, lse=lse)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep, grads)
@@ -683,7 +685,7 @@ def flash_bwd(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1,
 
 flash_bwd.launches = 0
 flash_bwd.routes = dict.fromkeys(ROUTES, 0)
-flash_bwd.dtypes = dict.fromkeys(map(str, _BLOCKED_DTYPES), 0)
+flash_bwd.dtypes = dict.fromkeys(map(str, _DTYPES), 0)
 
 
 def _tma_shape(q):
@@ -820,12 +822,14 @@ def flash_grid_fwd(q, k, v, rope, sm_scale, causal: bool, kv_rep: int = 1, out_d
         raise RuntimeError(f"flash_grid_fwd kernel launch failed: CUDA error {err}")
     flash_grid_fwd.launches += 1
     flash_grid_fwd.routes[ROUTES[route.value]] += 1
+    flash_grid_fwd.dtypes[str(q.dtype)] += 1
     _count_mode(flash_grid_fwd.modes, q, causal)
     return out, lse
 
 
 flash_grid_fwd.launches = 0
 flash_grid_fwd.routes = dict.fromkeys(ROUTES, 0)
+flash_grid_fwd.dtypes = dict.fromkeys(map(str, _DTYPES), 0)
 flash_grid_fwd.modes = {}
 
 
@@ -868,6 +872,7 @@ def flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm_scale, causal: bool,
             raise RuntimeError(f"flash_grid_bwd dkv kernel launch failed: CUDA error {err}")
         flash_grid_bwd_parts.dkv_launches += 1
         flash_grid_bwd_parts.dkv_routes[ROUTES[dkv_route.value]] += 1
+        flash_grid_bwd_parts.dkv_dtypes[str(q.dtype)] += 1
         _count_mode(flash_grid_bwd_parts.dkv_modes, q, causal)
         if ROUTES[dkv_route.value] != "tma":  # no pre-pass ran: nothing to read
             q_roped = k_roped = None
@@ -876,6 +881,7 @@ def flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm_scale, causal: bool,
             raise RuntimeError(f"flash_grid_bwd dq kernel launch failed: CUDA error {err}")
         flash_grid_bwd_parts.dq_launches += 1
         flash_grid_bwd_parts.dq_routes[ROUTES[dq_route.value]] += 1
+        flash_grid_bwd_parts.dq_dtypes[str(q.dtype)] += 1
         _count_mode(flash_grid_bwd_parts.dq_modes, q, causal)
     return dq, dk, dv
 
@@ -884,6 +890,8 @@ flash_grid_bwd_parts.dkv_launches = 0
 flash_grid_bwd_parts.dq_launches = 0
 flash_grid_bwd_parts.dkv_routes = dict.fromkeys(ROUTES, 0)
 flash_grid_bwd_parts.dq_routes = dict.fromkeys(ROUTES, 0)
+flash_grid_bwd_parts.dkv_dtypes = dict.fromkeys(map(str, _DTYPES), 0)
+flash_grid_bwd_parts.dq_dtypes = dict.fromkeys(map(str, _DTYPES), 0)
 flash_grid_bwd_parts.dkv_modes = {}
 flash_grid_bwd_parts.dq_modes = {}
 
@@ -1112,8 +1120,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, q_offset,
     row b's logical block j to a pool block; q_offset: (B,) int32 absolute
     query positions (>= 0). Returns (B, 1, n, d) in q's dtype.
 
-    The kernel's contract holds on every device: bf16 or fp32 q/k/v of one
-    dtype, int32 tables and offsets, contiguous tensors, d a multiple of 8
+    The kernel's contract holds on every device: bf16, fp16 or fp32 q/k/v of
+    one dtype, int32 tables and offsets, contiguous tensors, d a multiple of 8
     and at most 256; anything else raises. CPU tensors then run the plain
     version; CUDA tensors launch the kernel."""
     b, q_len, n, d = q.shape
@@ -1134,11 +1142,10 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, q_offset,
     tensors = (q, k_pages, v_pages, block_tables, q_offset)
     if any(t.device != q.device for t in tensors):
         raise ValueError("q, k_pages, v_pages, block_tables and q_offset must share one device")
-    if q.dtype not in _GRID_DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError(
-            f"the paged_decode kernel takes bf16 or fp32 q/k/v of one dtype, got "
+            f"the paged_decode kernel takes bf16, fp16 or fp32 q/k/v of one dtype, got "
             f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}"
-            + (f" ({FP16_REMAINDER})" if q.dtype == torch.float16 else "")
         )
     if block_tables.dtype != torch.int32 or q_offset.dtype != torch.int32:
         raise TypeError("block_tables and q_offset must be int32")
@@ -1178,10 +1185,12 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, q_offset,
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error {err}")
     paged_decode_attention.launches += 1
+    paged_decode_attention.dtypes[str(q.dtype)] += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.dtypes = dict.fromkeys(map(str, _DTYPES), 0)
 
 #: query heads one split block carries; a larger GQA group is cut in chunks
 _PAGED_MAX_HEADS = 8

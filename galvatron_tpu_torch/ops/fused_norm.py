@@ -21,7 +21,8 @@ Each of the four kernel functions (``_rms_fwd``, ``_rms_bwd``, ``_ln_fwd``,
   raises. There is no fall back from the card to the plain version;
 - a launch counter on the wrapper (``rms_fwd.launches``, ...), a plain
   integer incremented where the kernel is launched and nowhere else, and
-  the same count by row width (``ln_fwd.widths``: {H: launches}).
+  the same count by row width (``ln_fwd.widths``: {H: launches}) and by
+  row dtype (``ln_fwd.dtypes``: {"torch.float16": launches, ...}).
 
 :class:`FusedRMSNorm` and :class:`FusedLayerNorm` are the
 ``torch.autograd.Function``s over ``(n, H)`` rows (the reference's
@@ -40,7 +41,7 @@ import torch
 
 from galvatron_tpu_torch.ops import _build
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the widest row the kernels take (a thread owns at most 32 columns)
 MAX_HIDDEN = 8192
 
@@ -116,16 +117,14 @@ def ln_bwd_plain(x2d, scale, mu, rstd, dy):
 
 def _check(name, x2d, vectors=(), stats=(), like=()):
     """The kernels' contract, on every device: contiguous (n, H) rows in
-    bf16 or fp32 with n >= 1, H % 128 == 0 and H <= MAX_HIDDEN; contiguous
+    bf16, fp16 or fp32 with n >= 1, H % 128 == 0 and H <= MAX_HIDDEN; contiguous
     fp32 (H,) ``vectors`` (scale, bias) and (n, 1) ``stats`` (rstd, mu);
     ``like`` tensors of x's shape and dtype, contiguous; all on one device."""
     if x2d.dim() != 2 or x2d.shape[0] < 1:
         raise ValueError(f"{name}: x must be (n, H) with n >= 1, got {tuple(x2d.shape)}")
     n, h = x2d.shape
     if x2d.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the {name} kernel takes bf16 or fp32 rows, got {x2d.dtype}"
-                        + (" (fp16 for the fused norms is ROADMAP.md §1.1's remainder)"
-                           if x2d.dtype == torch.float16 else ""))
+        raise TypeError(f"the {name} kernel takes bf16, fp16 or fp32 rows, got {x2d.dtype}")
     if not _tiles(h) or h > MAX_HIDDEN:
         raise ValueError(f"the {name} kernel takes H % 128 == 0 and H <= {MAX_HIDDEN}, got {h}")
     for t in like:
@@ -192,12 +191,13 @@ def rms_fwd(x2d, scale, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     rstd = torch.empty((n, 1), dtype=torch.float32, device=x2d.device)
     _launch("rms_fwd", x2d, _fn("galvatron_rms_fwd", 4, 3, 1), x2d.data_ptr(), scale.data_ptr(),
             y.data_ptr(), rstd.data_ptr(), _DTYPE_CODE[x2d.dtype], n, h, float(eps))
-    _count("rms_fwd", h)
+    _count("rms_fwd", x2d)
     return y, rstd
 
 
 rms_fwd.launches = 0
 rms_fwd.widths = {}
+rms_fwd.dtypes = dict.fromkeys(map(str, _DTYPE_CODE), 0)
 
 
 def rms_bwd(x2d, scale, rstd, dy) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -216,12 +216,13 @@ def rms_bwd(x2d, scale, rstd, dy) -> Tuple[torch.Tensor, torch.Tensor]:
     _launch("rms_bwd", x2d, _fn("galvatron_rms_bwd", 7, 4), x2d.data_ptr(), scale.data_ptr(),
             rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(), ws.data_ptr(),
             blocks, _DTYPE_CODE[x2d.dtype], n, h)
-    _count("rms_bwd", h)
+    _count("rms_bwd", x2d)
     return dx, dscale
 
 
 rms_bwd.launches = 0
 rms_bwd.widths = {}
+rms_bwd.dtypes = dict.fromkeys(map(str, _DTYPE_CODE), 0)
 
 
 def ln_fwd(x2d, scale, bias, eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -238,12 +239,13 @@ def ln_fwd(x2d, scale, bias, eps: float) -> Tuple[torch.Tensor, torch.Tensor, to
     _launch("ln_fwd", x2d, _fn("galvatron_ln_fwd", 6, 3, 1), x2d.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), y.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
             _DTYPE_CODE[x2d.dtype], n, h, float(eps))
-    _count("ln_fwd", h)
+    _count("ln_fwd", x2d)
     return y, mu, rstd
 
 
 ln_fwd.launches = 0
 ln_fwd.widths = {}
+ln_fwd.dtypes = dict.fromkeys(map(str, _DTYPE_CODE), 0)
 
 
 def ln_bwd(x2d, scale, mu, rstd, dy) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -263,12 +265,13 @@ def ln_bwd(x2d, scale, mu, rstd, dy) -> Tuple[torch.Tensor, torch.Tensor, torch.
     _launch("ln_bwd", x2d, _fn("galvatron_ln_bwd", 9, 4), x2d.data_ptr(), scale.data_ptr(),
             mu.data_ptr(), rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
             dbias.data_ptr(), ws.data_ptr(), blocks, _DTYPE_CODE[x2d.dtype], n, h)
-    _count("ln_bwd", h)
+    _count("ln_bwd", x2d)
     return dx, dscale, dbias
 
 
 ln_bwd.launches = 0
 ln_bwd.widths = {}
+ln_bwd.dtypes = dict.fromkeys(map(str, _DTYPE_CODE), 0)
 
 
 #: the wrappers by name, whatever a caller has swapped in on the module for
@@ -276,11 +279,12 @@ ln_bwd.widths = {}
 _WRAPPERS = {"rms_fwd": rms_fwd, "rms_bwd": rms_bwd, "ln_fwd": ln_fwd, "ln_bwd": ln_bwd}
 
 
-def _count(name: str, h: int) -> None:
-    """One launch of kernel ``name`` over rows of width ``h``."""
+def _count(name: str, x2d) -> None:
+    """One launch of kernel ``name`` over the rows ``x2d``."""
     fn = _WRAPPERS[name]
     fn.launches += 1
-    fn.widths[h] = fn.widths.get(h, 0) + 1
+    fn.widths[x2d.shape[1]] = fn.widths.get(x2d.shape[1], 0) + 1
+    fn.dtypes[str(x2d.dtype)] += 1
 
 
 def launch_counts() -> dict:
@@ -293,10 +297,16 @@ def width_counts() -> dict:
     return {name: dict(fn.widths) for name, fn in _WRAPPERS.items()}
 
 
+def dtype_counts() -> dict:
+    """The four kernels' launch counts by row dtype: {name: {dtype: launches}}."""
+    return {name: dict(fn.dtypes) for name, fn in _WRAPPERS.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
         fn.widths.clear()
+        fn.dtypes.update(dict.fromkeys(fn.dtypes, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -353,7 +363,7 @@ class FusedLayerNorm(torch.autograd.Function):
 
 def _tiles(h: int) -> bool:
     """The reference's gate: the kernels run where H is a multiple of 128
-    (here: whole 16-byte vectors in both dtypes), else the plain reference."""
+    (here: whole 16-byte vectors in every dtype), else the plain reference."""
     return h % 128 == 0
 
 

@@ -97,8 +97,9 @@ group exists and no collective runs: this is the single-device runtime.
 At pp = 1 the batch may have another size than ``global_batch_size`` (the
 trainer's batch-size ramp-up), as long as the plan divides it.
 
-fp16 (``mixed_precision='fp16'``, the reference's loss-scaling path): fp16
-compute over the fp32 masters, a dynamic loss scale in ``state["scaler"]``
+fp16 (``mixed_precision='fp16'``, the reference's loss-scaling path), on
+every family and path: fp16 compute over the fp32 masters (the flash and
+fused norm kernels run their fp16 instances), a dynamic loss scale in ``state["scaler"]``
 (replicated). Each micro-batch's backward is seeded on the mean-equivalent
 loss ``loss_sum * scale / n_static`` (``n_static`` the micro-batch's static
 token count), so the first step at 2^16 does not overflow; the reduced
@@ -152,9 +153,6 @@ from galvatron_tpu_torch.parallel.sharding import Layout, local_shape, param_lay
 #: --global_checkpoint values → per-layer recompute mode
 CKPT_MODES = {0: "none", 1: "full", 2: "selective"}
 _PRECISION = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
-#: what fp16 does not run yet, for its errors
-FP16_REMAINDER = ("ROADMAP.md §1.1's remainder: fp16 for the grid flash kernels, the fused "
-                  "norms and paged_decode")
 
 
 def embed_strategy(hp: HybridParallelConfig) -> LayerStrategy:
@@ -456,20 +454,6 @@ def _packed_tables(cfg: ModelConfig, cos_sin, seg_ids):
     return modeling.packed_rope_tables(cfg, modeling.positions_from_segments(seg_ids), cos_sin)
 
 
-def check_fp16(cfg: ModelConfig) -> None:
-    """fp16 runs the blocked flash kernels only (the LLaMA family without
-    ``fused_norm``), or no kernel at all (Swin without ``fused_norm``: its
-    window attention is einsums): the other kernels take bf16 or fp32, and
-    a dtype a kernel does not take raises, never a quiet plain version."""
-    if cfg.pos_embed != "rope" and not cfg.swin_depths:
-        raise NotImplementedError(
-            "--mixed_precision fp16 runs rotary-position models only (the blocked flash "
-            "kernels' fp16 instances); without rotary positions (GPT/OPT, the encoders, T5) "
-            f"attention takes the grid flash kernels, which take bf16 or fp32 ({FP16_REMAINDER})")
-    if cfg.fused_norm:
-        raise NotImplementedError(f"--mixed_precision fp16 with fused_norm ({FP16_REMAINDER})")
-
-
 def _trainable(tree):
     """The tree's tensors as autograd leaves requiring grad. ``detach``
     shares storage, so the in-place updates still land in the caller's
@@ -646,8 +630,6 @@ def build_runtime(
             mixed_precision=mixed_precision, mlp_recompute=cfg.mlp_recompute)
     elif chunks is not None or ckpt is not None or mixed_precision is not None:
         raise ValueError("with a plan (hp), chunks / ckpt / mixed_precision come from the plan")
-    if hp.mixed_precision == "fp16":
-        check_fp16(cfg)
     if hp.mixed_precision not in _PRECISION:
         raise ValueError(f"unknown mixed_precision {hp.mixed_precision!r}")
     encdec = cfg.enc_layers > 0

@@ -84,7 +84,8 @@ def spread_pairs(pairs: int, pp: int) -> List[int]:
     """Pairs over stages, zeros allowed, the remainder placed in
     ``balanced_division``'s stage order (the JAX package's
     ``parallel/pipeline_swin._spread_pairs``, which its search uses to lay
-    out Swin sections; the port runs no Swin pipeline, ROADMAP.md §1.10)."""
+    out Swin sections, as the port's ``parallel/pipeline_swin`` lays out its
+    pipeline)."""
     base, rem = divmod(pairs, pp)
     div = [base] * pp
     order = sorted(range(pp), key=lambda s: (abs(s - (pp - 1) / 2), -s))

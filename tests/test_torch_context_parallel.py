@@ -21,6 +21,10 @@ hanging) runs every case while the parent computes the JAX references:
   first gradient is within fp32 rounding of zero moves up to ~lr under AdamW
   in either package: ``tests/test_torch_pipeline.py``'s rule holds it to
   steps x lr, in fewer than 0.1 % of a tensor);
+- **fp16**: GPT with one cp 2 ring layer at fp16 (the grid kernels' plain
+  versions on every hop), held to the JAX package's flat fp16 runtime on the
+  same weights and batches: losses within 5e-3 relative, the loss scale
+  bitwise;
 - **controls**: a ring that drops one past hop, and a runtime that leaves
   out the CP gradient reduction, must each fail their check.
 
@@ -76,6 +80,10 @@ FUNCTIONS = [
 ]
 # the control: the cp-4 ring with one past hop (position 0's block) left out
 DROPPED_HOP = ("ring_dropped_hop", "ring", ("x1", "x2"), 1, 64, 2, 32, True)
+#: the fp16 entry: one cp 2 ring layer of GPT (the grid kernels' plain
+#: versions on every hop) among plain layers, dp over the rest of the world
+FP16 = "fp16_gpt_cp2_ring"
+FP16_SHAPE = dict(SHAPES["gpt"], attn_impl="flash")
 
 
 def _runtime_cases(m):
@@ -175,7 +183,8 @@ def _runtime_case(case, rank, world):
     for b in case["batches"]:
         state, loss = rt.train_step(state, torch.from_numpy(b))
         losses.append(float(loss))
-    return {"losses": losses, "params": bridge.params_to_numpy(state["params"])}
+    return {"losses": losses, "params": bridge.params_to_numpy(state["params"]),
+            "scale": float(state["scaler"]["scale"]) if "scaler" in state else None}
 
 
 def _worker(case_path: str, out_dir: str) -> None:
@@ -305,6 +314,12 @@ def world(tmp_path_factory):
     control_of = "cp2_ring"
     cases.append(dict(next(c for c in cases if c["name"] == control_of),
                       name="control_no_cp_reduce", no_cp_reduce=True))
+    ts = _ts()
+    fp16_plan = ts.HybridParallelConfig(
+        pp=1, layer_strategies=[ts.LayerStrategy(cp=2)] + [ts.LayerStrategy()] * 3, vocab_tp=1,
+        mixed_precision="fp16")
+    cases.append(dict(name=FP16, kind="runtime", shape=FP16_SHAPE, plan=fp16_plan.to_json_dict(),
+                      batches=batches["gpt"], params=params["gpt"]))
     case_path = d / "cases.pkl"
     with open(case_path, "wb") as f:
         pickle.dump(cases, f)
@@ -323,6 +338,9 @@ def world(tmp_path_factory):
     for name, (kind, _) in runtime.items():
         refs[name] = traj[kind]
     refs["control_no_cp_reduce"] = refs[control_of]
+    from test_torch_fp16_families import jax_fp16_trajectory
+
+    refs[FP16] = jax_fp16_trajectory(FP16_SHAPE, batches["gpt"], params["gpt"])[1]
     run.join()
     ranks = out["ranks"]
     by_name = {c["name"]: c for c in cases}
@@ -396,6 +414,22 @@ def _check_runtime(name, cases, refs, results):
         np.testing.assert_allclose(t[~noise], j[~noise], atol=PARAM_ATOL, rtol=0, err_msg=key)
         np.testing.assert_allclose(t[noise], j[noise], atol=STEPS * LR, rtol=0, err_msg=key)
         assert np.mean(np.abs(t - j) > PARAM_ATOL) < NOISE_SHARE, key
+
+
+def test_fp16_ring_layer_follows_the_jax_fp16_trajectory(world):
+    """fp16 GPT with one cp 2 ring layer, from the JAX package's weights:
+    finite losses, the same on every rank, within 5e-3 relative of the JAX
+    package's flat fp16 runtime on the same weights and batches, the final
+    loss scale that runtime's."""
+    from test_torch_fp16_families import assert_follows_jax_fp16
+
+    cases, refs, results, ranks = world
+    assert FP16 in results, _world_failure(ranks)
+    got = results[FP16]
+    losses = got[0]["losses"]
+    assert np.isfinite(losses).all() and all(g["losses"] == losses for g in got)
+    for g in got:
+        assert_follows_jax_fp16(losses, g["scale"], refs[FP16])
 
 
 @pytest.mark.parametrize("name", [f[0] for f in FUNCTIONS])

@@ -19,7 +19,10 @@ JAX package's (its own tests' tolerances; 2e-4 for the chunk-count cases,
 as there), and the gathered parameters within 1e-4 (PR 9's; an element
 whose first gradient is within fp32 rounding of zero is held to steps x lr,
 as ``tests/test_torch_pipeline.py`` holds it). A pp 2 checkpoint restores
-at pp 1 bit for bit, and a pp 1 checkpoint at pp 2.
+at pp 1 bit for bit, and a pp 1 checkpoint at pp 2. One fp16 entry (pp 2,
+1F1B, the attention through the grid kernels' plain versions) is held to the
+JAX package's flat fp16 runtime: losses within 5e-3 relative, the loss scale
+bitwise.
 """
 
 import numpy as np
@@ -34,6 +37,8 @@ import _torch_threads  # noqa: F401
 def world(tmp_path_factory):
     from galvatron_tpu_torch.core import strategy as ts
 
+    from test_torch_fp16_families import jax_fp16_trajectory
+
     d = tmp_path_factory.mktemp("torch_encdec_world")
     table = C.hand_cases(ts)
     pp2 = ts.HybridParallelConfig.uniform(4, pp=2, chunks=2, mixed_precision="fp32").to_json_dict()
@@ -42,11 +47,26 @@ def world(tmp_path_factory):
     # checkpoint of the initial weights (written here) restores at pp 2
     extra = [dict(name="ckpt_pp2", shape=C.SHAPE, plan=pp2, ref=base, save=str(d / "pp2_ckpt")),
              dict(name="restore_pp2", shape=C.SHAPE, plan=pp2, ref=base,
-                  restore=str(d / "pp1_ckpt"))]
-    refs, results, ranks, cases = C.run_world(
-        d, table, extra, prepare=lambda inputs: C.pp1_checkpoint(C.SHAPE, inputs[base][1],
-                                                                  d / "pp1_ckpt"))
+                  restore=str(d / "pp1_ckpt")),
+             dict(name=FP16, shape=FP16_SHAPE, plan=ts.HybridParallelConfig.uniform(
+                 4, pp=2, chunks=2, pipeline_type="pipedream_flush",
+                 mixed_precision="fp16").to_json_dict(), ref=base)]
+    inputs = {}
+
+    def prepare(refs_in):
+        inputs.update(refs_in)
+        C.pp1_checkpoint(C.SHAPE, refs_in[base][1], d / "pp1_ckpt")
+
+    refs, results, ranks, cases = C.run_world(d, table, extra, prepare=prepare)
+    _, params, batches = inputs[base]
+    refs[FP16] = jax_fp16_trajectory(FP16_SHAPE, batches, params)[1]
     return table, refs, results, ranks, {c["name"]: c for c in cases}
+
+
+#: the fp16 entry (tests/test_encdec.py's pp 2 fp16 case, under 1F1B): the
+#: decoder's and encoder's attention through the grid kernels' plain versions
+FP16 = "fp16_1f1b"
+FP16_SHAPE = dict(C.SHAPE, attn_impl="flash")
 
 
 CASE_NAMES = ("tp2_hetero", "dec_layouts", "pp2_ddp", "pp2_tp2_zero3_ckpt", "ragged_pp2",
@@ -104,6 +124,23 @@ def test_pp2_checkpoint_restores_at_pp1_and_back(world):
     np.testing.assert_allclose(results["restore_pp2"][0]["losses"],
                                refs[C.ref_key(C.SHAPE, 8)][0], rtol=C.LOSS_TOL,
                                atol=C.LOSS_TOL)
+
+
+def test_fp16_1f1b_follows_the_jax_fp16_trajectory(world):
+    """fp16 at pp 2 under 1F1B, from the same weights and batches: finite
+    losses, the same on every rank, within 0.05 of the fp32 trajectory (the
+    JAX test's bound) and within 5e-3 relative of the JAX package's flat
+    fp16 runtime, the final loss scale that runtime's."""
+    from test_torch_fp16_families import assert_follows_jax_fp16
+
+    _, refs, results, ranks, _ = world
+    assert FP16 in results, C.world_failure(ranks)
+    got = results[FP16]
+    losses = got[0]["losses"][1:]  # the first is the eval loss
+    assert np.isfinite(losses).all() and all(g["losses"] == got[0]["losses"] for g in got)
+    np.testing.assert_allclose(losses, refs[C.ref_key(C.SHAPE, 8)][0][1:], atol=0.05, rtol=0)
+    for g in got:
+        assert_follows_jax_fp16(losses, g["scale"], refs[FP16])
 
 
 def test_every_rank_of_the_world_exited_cleanly(world):

@@ -342,10 +342,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     q = torch.zeros(1, 2, 64, 16, dtype=torch.float64)
     with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
         tfa.flash_fwd(q, q, q, torch.zeros(64, 8), torch.zeros(64, 8), 0.3)
-    # fp16 runs the blocked kernels only; the grid kernels refuse it, naming the item
+    # fp16 is taken by every kernel: the grid forward returns fp16
     q = torch.zeros(1, 2, 64, 16, dtype=torch.float16)
-    with pytest.raises(TypeError, match=r"bf16 or fp32.*§1\.1"):
-        tfa.flash_grid_fwd(q, q, q, None, 0.3, True)
+    out, lse = tfa.flash_grid_fwd(q, q, q, None, 0.3, True)
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    with pytest.raises(TypeError, match="bf16, fp16 or fp32"):
+        tfa.flash_grid_fwd(q, q.float(), q, None, 0.3, True)
 
 
 def test_cpu_tensors_run_the_plain_version_and_count_no_launch():

@@ -261,22 +261,40 @@ def test_flash_kernels_match_plain(cuda, case, monkeypatch):
         assert not _close(c, r, "bwd"), name
 
 
-def test_fp16_takes_the_cuda_core_route_and_the_other_kernels_refuse_it(cuda):
-    """fp16 runs the blocked kernels' CUDA-core instances (the TMA route is
-    bf16's); the grid kernels and paged_decode refuse fp16 on the card, naming
-    ROADMAP §1.1's remainder, never a quiet plain version."""
+def test_fp16_takes_the_cuda_core_route_on_every_kernel(cuda):
+    """fp16 runs every kernel's CUDA-core instance (the TMA routes are
+    bf16's): the blocked pair and the grid kernels at head_dim 128, with
+    operands a tensor map would take, report the CUDA-core route, and every
+    launch is counted as fp16, paged_decode's and the norms' too."""
     q, k, v, do, cos, sin = _flash_inputs(torch.float16, 1, 4, 4, 256, 128, True)
-    routes = (dict(fa.flash_fwd.routes), dict(fa.flash_bwd.routes))
+    blocked = (fa.flash_fwd, fa.flash_bwd)
+    grid = (fa.flash_grid_fwd.routes, fa.flash_grid_bwd_parts.dkv_routes,
+            fa.flash_grid_bwd_parts.dq_routes)
+    before = [dict(w.routes) for w in blocked] + [dict(r) for r in grid]
     out, lse = fa.flash_fwd(q, k, v, cos, sin, 0.1)
     fa.flash_bwd(q, k, v, do, out, lse, cos, sin, 0.1)
+    gout, glse = fa.flash_grid_fwd(q, k, v, None, 0.1, True)
+    delta = (do.float() * gout.float()).sum(-1, keepdim=True).contiguous()
+    grads = fa.flash_grid_bwd_parts(q, k, v, do, glse, delta, None, 0.1, True)
     torch.cuda.synchronize()
-    for w, before in zip((fa.flash_fwd, fa.flash_bwd), routes):
-        assert w.routes["cuda_core"] == before["cuda_core"] + 1
-        assert w.routes["tma"] == before["tma"]
-    with pytest.raises(TypeError, match="§1.1"):
-        fa.flash_grid_fwd(q, k, v, None, 0.1, True)
-    with pytest.raises(TypeError, match="§1.1"):
-        fa.flash_grid_bwd_parts(q, k, v, do, lse, lse, None, 0.1, True)
+    assert gout.dtype == torch.float16 and all(g.dtype == torch.float16 for g in grads)
+    for r, r0 in zip([w.routes for w in blocked] + list(grid), before):
+        assert r == {"cuda_core": r0["cuda_core"] + 1, "tma": r0["tma"]}
+    paged = fa.paged_decode_attention.dtypes["torch.float16"]
+    out = fa.paged_decode_attention(*_case(cuda, torch.float16, 2, 8, 2, 128, 16, 8, [0, 100]))
+    assert out.dtype == torch.float16
+    assert fa.paged_decode_attention.dtypes["torch.float16"] == paged + 1
+    norms = fn.dtype_counts()
+    x = torch.randn(4, 256, device="cuda").half()
+    g = torch.ones(256, device="cuda")
+    y, rstd = fn.rms_fwd(x, g, 1e-5)
+    fn.rms_bwd(x, g, rstd, x)
+    y2, mu, rstd2 = fn.ln_fwd(x, g, g, 1e-5)
+    fn.ln_bwd(x, g, mu, rstd2, x)
+    torch.cuda.synchronize()
+    assert y.dtype == y2.dtype == torch.float16
+    assert {k: v["torch.float16"] - norms[k]["torch.float16"]
+            for k, v in fn.dtype_counts().items()} == dict.fromkeys(norms, 1)
 
 
 GRID_CASES = {
@@ -317,6 +335,16 @@ GRID_CASES = {
     "t5_large_causal_s512_d64": (torch.bfloat16, 4, 16, 16, 512, 64, True, False, True, False),
     "t5_3b_s512_d32": (torch.bfloat16, 2, 32, 32, 512, 32, False, False, True, False),
     "t5_3b_causal_s512_d32": (torch.bfloat16, 2, 32, 32, 512, 32, True, False, True, False),
+    # fp16: the CUDA-core instances at every shape, the TMA route's head dims
+    # and aligned views included (the route is chosen on the type)
+    "gpt_fp16_stacked": (torch.float16, 2, 25, 25, 1024, 64, True, False, True, False),
+    "noncausal_fp16": (torch.float16, 2, 16, 16, 512, 64, False, False, False, False),
+    "rope_fp16_d128": (torch.float16, 1, 2, 2, 2048, 128, True, True, False, False),
+    "gqa_rep4_fp16": (torch.float16, 2, 16, 4, 512, 64, True, False, False, False),
+    "out_fp32_fp16": (torch.float16, 2, 8, 8, 512, 64, True, False, True, True),
+    "ragged_noncausal_rope_s100_fp16": (torch.float16, 1, 4, 4, 100, 64, False, True, False,
+                                        False),
+    "encoder_s256_d80_fp16": (torch.float16, 2, 16, 16, 256, 80, False, False, True, False),
 }
 
 
@@ -330,10 +358,13 @@ def _dropped_grid_keep(s, causal, device):
 
 
 def _grid_close(got, ref, which, dtype):
-    """As ``_close``, by the input dtype: a bf16 kernel writing fp32 output
-    still rounds p and ds to bf16, so it is held to the bf16 rule."""
+    """As ``_close``, by the input dtype: a bf16 (fp16) kernel writing fp32
+    output still rounds p and ds to bf16 (fp16), so it is held to that
+    type's rule."""
     if dtype == torch.float32:
         return (got - ref).abs().max().item() <= {"fwd": 1e-5, "bwd": 1e-4}[which]
+    if dtype == torch.float16:
+        return fa.fp16_parity_excess(got, ref) <= fa.FP16_PARITY_TOL[which]
     return fa.bf16_parity_excess(got, ref) <= fa.BF16_PARITY_TOL[which]
 
 
@@ -355,6 +386,9 @@ def test_grid_kernels_match_plain(cuda, case, monkeypatch):
     routes = (fa.flash_grid_fwd.routes, fa.flash_grid_bwd_parts.dkv_routes,
               fa.flash_grid_bwd_parts.dq_routes)
     routes_before = [dict(r) for r in routes]
+    dtypes = (fa.flash_grid_fwd.dtypes, fa.flash_grid_bwd_parts.dkv_dtypes,
+              fa.flash_grid_bwd_parts.dq_dtypes)
+    dtypes_before = [d[str(dtype)] for d in dtypes]
     out, lse = fa.flash_grid_fwd(q, k, v, rope, sm, causal, rep, out_dtype)
     delta = (do.float() * out.float()).sum(-1, keepdim=True).contiguous()
     grads = fa.flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm, causal, rep)
@@ -362,6 +396,7 @@ def test_grid_kernels_match_plain(cuda, case, monkeypatch):
     after = (fa.flash_grid_fwd.launches, fa.flash_grid_bwd_parts.dkv_launches,
              fa.flash_grid_bwd_parts.dq_launches)
     assert after == tuple(n + 1 for n in before)
+    assert [d[str(dtype)] for d in dtypes] == [n + 1 for n in dtypes_before]
     want = "tma" if dtype == torch.bfloat16 and d in (64, 128) else "cuda_core"
     for name, r, r0 in zip(("forward", "dk/dv", "dq"), routes, routes_before):
         assert r == {x: r0[x] + (x == want) for x in fa.ROUTES}, name
@@ -641,12 +676,16 @@ NORM_CASES = {
     "rms_h5120": ("rms", torch.bfloat16, 777, 5120),
     "ln_h7168_fp32": ("ln", torch.float32, 300, 7168),
     "ln_h8192": ("ln", torch.bfloat16, 300, 8192),
+    "rms_h4096_fp16": ("rms", torch.float16, 1000, 4096),
+    "ln_h2048_fp16": ("ln", torch.float16, 1000, 2048),
+    "ln_h128_fp16": ("ln", torch.float16, 3000, 128),
 }
 # bf16 y / dx by fa.bf16_parity_excess (both sides round one fp32 value,
 # computed with the row sum in another order: within one ulp); dscale / dbias
 # by the largest error over the vector's rms (fp32 column sums in another
 # order); the limits of chip_smoke.py's norm phase
 NORM_BF16_TOL = 2 ** -10
+NORM_FP16_TOL = 2 ** -13  # the same scaled to fp16's ulp
 NORM_COLSUM_TOL = 1e-4
 
 
@@ -658,7 +697,8 @@ def _vec_err(got, ref):
 def test_norm_kernels_match_plain(cuda, case):
     """rms_fwd / rms_bwd / ln_fwd / ln_bwd kernels against their plain
     versions on the same CUDA tensors: fp32 y and statistics within 1e-5, dx
-    within 1e-4; bf16 y and dx within ``NORM_BF16_TOL``; dscale and dbias
+    within 1e-4; bf16 (fp16) y and dx within ``NORM_BF16_TOL``
+    (``NORM_FP16_TOL``); dscale and dbias
     within ``NORM_COLSUM_TOL``; one launch each, and the same bits on a
     second launch (no atomics). The plain column sums with the first rows
     left out must fail the same check."""
@@ -693,6 +733,9 @@ def test_norm_kernels_match_plain(cuda, case):
     if dtype == torch.float32:
         assert (y - ref_y).abs().max().item() <= 1e-5
         assert (dx - ref_dx).abs().max().item() <= 1e-4
+    elif dtype == torch.float16:
+        assert fa.fp16_parity_excess(y, ref_y) <= NORM_FP16_TOL
+        assert fa.fp16_parity_excess(dx, ref_dx) <= NORM_FP16_TOL
     else:
         assert fa.bf16_parity_excess(y, ref_y) <= NORM_BF16_TOL
         assert fa.bf16_parity_excess(dx, ref_dx) <= NORM_BF16_TOL
@@ -706,12 +749,12 @@ def test_norm_kernels_match_plain(cuda, case):
 
 def test_norm_wrappers_raise_on_the_card_for_what_the_kernels_do_not_take(cuda):
     """No quiet other path on the card: a width past the kernels' reach, a
-    misaligned view and an fp16 row raise."""
+    misaligned view and an fp64 row raise."""
     g = torch.ones(8320, device="cuda")
     with pytest.raises(ValueError, match="8192"):
         fn.rms_fwd(torch.zeros(4, 8320, device="cuda"), g, 1e-5)
     with pytest.raises(TypeError):
-        fn.rms_fwd(torch.zeros(4, 128, device="cuda", dtype=torch.float16), g[:128], 1e-5)
+        fn.rms_fwd(torch.zeros(4, 128, device="cuda", dtype=torch.float64), g[:128], 1e-5)
     flat = torch.zeros(4 * 128 + 4, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="aligned"):
         fn.rms_fwd(flat[4:].view(4, 128), torch.ones(128, device="cuda"), 1e-5)

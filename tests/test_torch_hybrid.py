@@ -376,8 +376,8 @@ def _tcfg(**kw):
     return ModelConfig(dtype=torch.float32, **dict(SHAPE, **kw))
 
 
-#: fp16 itself runs (tests/test_torch_fp16.py); with fused_norm it is
-#: ROADMAP §1.1's remainder. Expert parallelism (§1.9) runs on MoE models
+#: fp16 runs on every family, with fused_norm too (tests/test_torch_fp16*.py):
+#: its case builds and takes a step. Expert parallelism (§1.9) runs on MoE models
 #: (tests/test_torch_moe.py); its case holds the reference's refusal of ep on
 #: a dense model. tp_overlap and grad_overlap (§1.6) run
 #: (tests/test_torch_collective_matmul.py): their cases build and equal their
@@ -404,6 +404,17 @@ def test_unported_plan_features_raise_naming_their_item(what, change, item, pp):
     if what == "ep":
         with pytest.raises(ValueError, match=r"ep=2 but the model has 0 experts \(dense MLP\)"):
             hybrid.build_runtime(cfg, hp, global_batch_size=BATCH, seq_len=SEQ, device="cpu")
+        return
+    if what == "fp16":
+        if pp > 1:  # one rank: a pipeline is refused as any other is
+            with pytest.raises(ValueError, match="pp=2"):
+                hybrid.build_runtime(cfg, hp, global_batch_size=BATCH, seq_len=SEQ,
+                                     device="cpu")
+            return
+        rt = hybrid.build_runtime(cfg, hp, global_batch_size=BATCH, seq_len=SEQ, device="cpu")
+        state, loss = rt.train_step(rt.init_state(0),
+                                    torch.from_numpy(_batches(BATCH, seed=5)[0]))
+        assert torch.isfinite(loss) and float(state["scaler"]["scale"]) == 65536.0
         return
     if what in ("tp_overlap", "grad_overlap"):
         from galvatron_tpu_torch.core.optim import tree_leaves

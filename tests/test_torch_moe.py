@@ -24,7 +24,9 @@ loss) and 2, 1F1B and interleaved 1F1B. Losses within 2e-4 of the JAX
 trajectory, parameters within 1e-4 (``tests/test_torch_context_parallel.py``'s
 rules), the first step's routing equal on every layer. A control that routes
 each rank's own tokens must miss the JAX losses; an ep = 2 checkpoint resumes
-at ep = 1 in the world and at world size 1 in the parent.
+at ep = 1 in the world and at world size 1 in the parent. An fp16 entry (ep 2)
+is held to the JAX package's flat fp16 runtime on the same weights and
+batches: losses within 5e-3 relative, the loss scale bitwise.
 
 Run as a script (``python tests/test_torch_moe.py worker CASES OUT``) this
 file is one rank of the world; that path imports no JAX.
@@ -91,6 +93,10 @@ def _runtime_cases(m):
 
 #: the cases whose first step's routing is recorded and held equal to JAX's
 ROUTED = ("ep1_dp8", "ep2", "tp2_sp_ep2_zero3")
+#: the fp16 entry: LLaMA's MoE layers at ep 2 (the blocked flash kernels'
+#: plain versions for attention)
+FP16 = "fp16_ep2"
+FP16_SHAPE = dict(SHAPE, attn_impl="flash")
 
 
 def _ts():
@@ -152,7 +158,8 @@ def _runtime_case(case, rank, world, out_dir):
             moe.route_top1 = real_route
         losses.append(float(loss))
     res.update(losses=losses, params=bridge.params_to_numpy(state["params"]), routes=routes,
-               moves=dict(comm.moe_moves), seconds=time.perf_counter() - t0)
+               moves=dict(comm.moe_moves), seconds=time.perf_counter() - t0,
+               scale=float(state["scaler"]["scale"]) if "scaler" in state else None)
     return res
 
 
@@ -284,6 +291,11 @@ def world(tmp_path_factory):
                       record=False))
     cases.append(dict(by_name["ep2"], name="ckpt_ep2_to_ep1", resume_at=2, record=False,
                       resume_plan=runtime["ep1_dp8"][1].to_json_dict()))
+    ts = _ts()
+    fp16_plan = ts.HybridParallelConfig(pp=1, layer_strategies=[ts.LayerStrategy(ep=2)] * 2,
+                                        vocab_tp=1, mixed_precision="fp16")
+    cases.append(dict(by_name["ep2"], name=FP16, shape=FP16_SHAPE,
+                      plan=fp16_plan.to_json_dict(), record=False))
     case_path = d / "cases.pkl"
     with open(case_path, "wb") as f:
         pickle.dump(cases, f)
@@ -298,6 +310,9 @@ def world(tmp_path_factory):
     refs = {name: jref[(kind, ch)] for name, (kind, _, ch) in runtime.items()}
     refs["control_local_routing"] = refs["ep1_dp8"]
     refs["ckpt_ep2_to_ep1"] = refs["ep2"]
+    from test_torch_fp16_families import jax_fp16_trajectory
+
+    refs[FP16] = jax_fp16_trajectory(FP16_SHAPE, batches["llama"], params["llama"])[1]
     run.join()
     results = {}
     for c in cases:
@@ -413,6 +428,22 @@ def test_ep2_checkpoint_resumes_at_ep1_and_at_world_size_1(world):
     _, loss = rt.train_step(state, torch.from_numpy(case["batches"][2]))
     np.testing.assert_allclose(float(loss), results[name][0]["losses"][2], rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(float(loss), refs[name]["losses"][2], rtol=LOSS_TOL, atol=LOSS_TOL)
+
+
+def test_fp16_moe_layers_follow_the_jax_fp16_trajectory(world):
+    """fp16 MoE layers at ep 2, from the JAX package's weights: finite
+    losses, the same on every rank, within 5e-3 relative of the JAX
+    package's flat fp16 runtime on the same weights and batches, the final
+    loss scale that runtime's."""
+    from test_torch_fp16_families import assert_follows_jax_fp16
+
+    _, refs, results, ranks, _ = world
+    assert FP16 in results, _world_failure(ranks)
+    got = results[FP16]
+    losses = got[0]["losses"]
+    assert np.isfinite(losses).all() and all(g["losses"] == losses for g in got)
+    for g in got:
+        assert_follows_jax_fp16(losses, g["scale"], refs[FP16])
 
 
 def test_every_rank_of_the_world_exited_cleanly(world):

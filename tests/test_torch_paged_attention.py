@@ -91,7 +91,7 @@ def _tensors(n_heads=4, kv_heads=2):
 
 
 @pytest.mark.parametrize("mutate,exc,match", [
-    (lambda a: a.__setitem__(0, a[0].half()), TypeError, "bf16 or fp32"),
+    (lambda a: a.__setitem__(0, a[0].double()), TypeError, "bf16, fp16 or fp32"),
     (lambda a: a.__setitem__(1, a[1].to(torch.bfloat16)), TypeError, "one dtype"),
     (lambda a: a.__setitem__(3, a[3].long()), TypeError, "int32"),
     (lambda a: a.__setitem__(4, a[4].long()), TypeError, "int32"),
@@ -102,7 +102,7 @@ def _tensors(n_heads=4, kv_heads=2):
     (lambda a: a.__setitem__(4, a[4][:2]), ValueError, "q_offset"),
     (lambda a: a.__setitem__(1, a[1].transpose(0, 1).contiguous().transpose(0, 1)),
      ValueError, "contiguous"),
-], ids=["fp16", "mixed", "tables-int64", "offsets-int64", "q-len", "head-dim",
+], ids=["fp64", "mixed", "tables-int64", "offsets-int64", "q-len", "head-dim",
         "heads", "tables-shape", "offsets-shape", "non-contiguous"])
 def test_paged_decode_wrapper_rejects(mutate, exc, match):
     args = _tensors()

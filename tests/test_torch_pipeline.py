@@ -26,6 +26,10 @@ table in the [3, 2] GPipe case: its first gradient reads 5e-8 or 1.2e-7 of
 the table's largest, as the JAX step is jitted or not). A control with the tied-table gradient
 sum taken out must fail the same check.
 
+One fp16 entry (GPT at pp 2 under GPipe, ZeRO-2 over each stage's data
+ranks) is held to the JAX package's flat fp16 runtime on the same weights
+and batches: losses within 5e-3 relative, the loss scale bitwise.
+
 The port refuses the uneven shards that GSPMD pads, so every batch is 16
 rows, which split over each case's data-parallel ranks (the JAX tests use 8).
 
@@ -123,6 +127,15 @@ def _cases(m):
 
 
 CONTROL = "control_1f1b_tied_gpt"  # the tied case with the tied gradient sum taken out
+#: the fp16 entry: GPT (the grid kernels' plain versions) at pp 2 under GPipe
+#: with ZeRO-2 over the four data ranks of each stage
+FP16 = "fp16_gpipe_pp2_zero2_gpt"
+FP16_SHAPE = dict(SHAPE, **GPT, attn_impl="flash")
+
+
+def _fp16_plan(m):
+    return m.HybridParallelConfig.uniform(4, pp=2, dp_type="zero2", chunks=2, vocab_tp=1,
+                                          mixed_precision="fp16", pipeline_type="gpipe")
 
 
 def _case_names():
@@ -170,6 +183,8 @@ def _worker(case_path: str, out_dir: str) -> None:
             with open(os.path.join(out_dir, f"{case['name']}.{rank}.pkl"), "wb") as f:
                 pickle.dump({"eval": eval_loss, "losses": losses, "stage": rt.stage,
                              "in_flight": in_flight, "p2p": comm.p2p,
+                             "scale": (float(state["scaler"]["scale"]) if "scaler" in state
+                                       else None),
                              "params": bridge.params_to_numpy(state["params"])}, f)
     finally:
         hybrid._sum_tied = real_sum
@@ -266,6 +281,9 @@ def world(tmp_path_factory):
                 control=True)
     cases.append(tied)
     table[CONTROL] = table["1f1b_tied_gpt"]
+    fp16_batches = _batches(seed=len(table))
+    cases.append(dict(name=FP16, shape=FP16_SHAPE, plan=_fp16_plan(_ts()).to_json_dict(),
+                      batches=fp16_batches, params=_jax_params(FP16_SHAPE), control=False))
     case_path = d / "cases.pkl"
     with open(case_path, "wb") as f:
         pickle.dump(cases, f)
@@ -277,9 +295,13 @@ def world(tmp_path_factory):
     run.start()  # the JAX references are computed while the world trains
     refs = {name: _jax_reference(shape, batches)
             for name, (shape, thp, batches) in table.items() if name != CONTROL}
+    from test_torch_fp16_families import jax_fp16_trajectory
+
+    fp16_ref = jax_fp16_trajectory(FP16_SHAPE, fp16_batches, _jax_params(FP16_SHAPE))[1]
     run.join()
     refs[CONTROL] = refs["1f1b_tied_gpt"]
     table = {name: row + (refs[name],) for name, row in table.items()}
+    table[FP16] = (FP16_SHAPE, _fp16_plan(_ts()), fp16_batches, fp16_ref)
     results = {}
     for c in cases:
         files = [d / f"{c['name']}.{r}.pkl" for r in range(WORLD)]
@@ -361,6 +383,22 @@ def test_stages_hold_the_schedules_in_flight_bound(world):
                     if thp.pipeline_type == "pipedream_flush" else thp.chunks)
             assert g["in_flight"] == [want] * STEPS, (name, s, g["in_flight"])
             assert g["p2p"] > 0
+
+
+def test_fp16_gpipe_zero2_gpt_follows_the_jax_fp16_trajectory(world):
+    """fp16 GPT at pp 2 under GPipe, ZeRO-2 over each stage's four data
+    ranks, from the JAX package's weights: finite losses, the same on every
+    rank, within 5e-3 relative of the JAX package's flat fp16 runtime on the
+    same weights and batches, the final loss scale that runtime's."""
+    from test_torch_fp16_families import assert_follows_jax_fp16
+
+    table, results, ranks = world
+    assert FP16 in results, _world_failure(ranks)
+    got = results[FP16]
+    losses = got[0]["losses"]
+    assert np.isfinite(losses).all() and all(g["losses"] == losses for g in got)
+    for g in got:
+        assert_follows_jax_fp16(losses, g["scale"], table[FP16][3])
 
 
 def test_every_rank_of_the_world_exited_cleanly(world):

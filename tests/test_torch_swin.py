@@ -212,10 +212,8 @@ def _port_run(tcfg, ref, batches, **plan):
 def test_runtime_trains_the_jax_trajectory_and_an_fp16_step():
     """World size 1: three steps under every recompute mode and two
     micro-batches within 2e-4 of the JAX trajectory; one fp16 step within
-    0.05 of the fp32 loss with the scale still 2^16; fp16 with
-    ``fused_norm`` is refused."""
-    from galvatron_tpu_torch.parallel import hybrid
-
+    0.05 of the fp32 loss with the scale still 2^16, with and without
+    ``fused_norm``."""
     jcfg, tcfg = _cfgs()
     ref = _params(jcfg)
     batches = [_batch(SHAPE, seed=7 + i) for i in range(3)]
@@ -223,11 +221,11 @@ def test_runtime_trains_the_jax_trajectory_and_an_fp16_step():
     for ckpt, chunks in ((False, 1), ("full", 2), ("selective", 1)):
         _, got = _port_run(tcfg, ref, batches, ckpt=ckpt, chunks=chunks, mixed_precision="fp32")
         np.testing.assert_allclose(got, want, atol=LOSS_TOL, rtol=LOSS_TOL, err_msg=str(ckpt))
-    state, got = _port_run(tcfg, ref, batches[:1], mixed_precision="fp16")
-    assert np.isfinite(got[0]) and abs(got[0] - want[0]) < 0.05
-    assert float(state["scaler"]["scale"]) == 65536.0
-    with pytest.raises(NotImplementedError, match="fp16 with fused_norm"):
-        hybrid.build_runtime(tcfg.replace(fused_norm=True), mixed_precision="fp16", device="cpu")
+    for fused in (False, True):  # the fused norms take their fp16 instances
+        state, got = _port_run(tcfg.replace(fused_norm=fused), ref, batches[:1],
+                               mixed_precision="fp16")
+        assert np.isfinite(got[0]) and abs(got[0] - want[0]) < 0.05, fused
+        assert float(state["scaler"]["scale"]) == 65536.0
 
 
 def test_tokens_or_heads_that_do_not_split_are_refused_naming_the_layer():

@@ -219,14 +219,16 @@ def test_peak_is_known_only_for_the_sxm_parts(monkeypatch, name, peak):
 
 def test_runtime_refuses_fp16_bad_chunks_and_misshapen_batches():
     _, tcfg = _cfgs()
-    # fp16 runs the blocked flash kernels only: the GPT family (grid kernels)
-    # and fused_norm are ROADMAP §1.1's remainder
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thybrid.build_runtime(tcfg.replace(pos_embed="learned", norm_type="layernorm"),
-                              mixed_precision="fp16", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thybrid.build_runtime(tcfg.replace(fused_norm=True), mixed_precision="fp16",
-                              device="cpu")
+    # fp16 runs every family and fused_norm (the kernels' fp16 instances):
+    # the GPT family (the grid kernels) and fused_norm build and take a step
+    for cfg in (tcfg.replace(pos_embed="learned", norm_type="layernorm", attn_impl="flash"),
+                tcfg.replace(fused_norm=True)):
+        rt = thybrid.build_runtime(cfg, global_batch_size=2, seq_len=16, mixed_precision="fp16",
+                                   device="cpu")
+        batch = torch.from_numpy(_batch(2, 16, SHAPE["vocab_size"]))
+        state, loss = rt.train_step(rt.init_state(0), batch)
+        assert rt.cfg.dtype == torch.float16 and torch.isfinite(loss)
+        assert float(state["scaler"]["scale"]) == 65536.0
     with pytest.raises(ValueError, match="chunks"):
         thybrid.build_runtime(tcfg, global_batch_size=6, chunks=4, device="cpu")
     rt = thybrid.build_runtime(tcfg, global_batch_size=2, seq_len=16, device="cpu")
