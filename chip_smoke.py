@@ -23,20 +23,22 @@ its result line:
 3. the flash forward and backward kernels against their plain versions on
    the same CUDA tensors: the training path's shape (b=8, h=32, s=2048,
    d=128, bf16, the stacked qkv projection view), ragged s=100 at d=64, GQA
-   with kv_rep 4, fp32, and the training shape at fp16 (the fp16 training
-   path's CUDA-core route). fp32 within 1e-5 (out, lse) and 1e-4
+   with kv_rep 4, fp32, the training shape, ragged s=100 and GQA at fp16
+   (the fp16 training path's TMA route) and fp16 at d=40 (the CUDA-core
+   kernels' fp16 instances). fp32 within 1e-5 (out, lse) and 1e-4
    (gradients); bf16 per element within one output ulp plus a share of
    the row's rms (``bf16_parity_excess`` within ``BF16_PARITY_TOL``), fp16
    the same with fp16's ulp (``fp16_parity_excess``, ``FP16_PARITY_TOL``). A
    control, the plain versions with one key tile dropped, must fail the
    same checks. One JSON line per case with the errors, the control's,
    kernel, plain, library (SDPA with is_causal over pre-roped q/k, and its
-   autograd backward; timed only) and bound times, and on the bf16 path the
+   autograd backward; timed only) and bound times, and on the TMA route the
    forward's two launches (k pre-pass, main kernel) and the backward's three
    (pre-pass, dk/dv, dq) from a profiler window. Each wrapper's route counts
-   must show the TMA route for bf16 at head_dim 64 / 128 (the CUDA-core one
-   for fp32 and fp16), and a second backward call on the same inputs must give the
-   same bits of dq, dk and dv.
+   must show the TMA route for bf16 and fp16 at head_dim 64 / 128 (the
+   CUDA-core one for fp32 and other head dims), a second backward call
+   on the same inputs must give the same bits of dq, dk and dv, and on the
+   TMA route query 0's dq (exactly 0: its one key is itself) must be 0.
    Then the grid kernels (forward, dk/dv, dq) against their plain versions
    the same way: the GPT-2 XL training shape (b=8, h=25, s=1024, d=64,
    causal, no RoPE, the stacked projection view), non-causal (b=8, h=16,
@@ -212,15 +214,16 @@ its result line:
    a second process ``--load``s, verifies the data cursor and trains to 6:
    its losses within 1e-6 relative of A's (bitwise expected), save and
    restore seconds and GB/s; one byte of the newest step flipped, a third
-   process must log ``ckpt_fallback`` and resume from step 3; (b) that step
-   restored under ``--pp_deg 2`` by two ranks sharing the card over gloo,
-   one step: within 1e-4 relative of A's step 3; (c) ``cli serve --load``
+   run (in this process) must log ``ckpt_fallback`` and resume from step 3;
+   (b) that step restored under ``--pp_deg 2`` by two ranks sharing the card
+   over gloo, one step, while (c) and (e) run in this process: within 1e-4
+   relative of A's step 3; (c) ``cli serve --load``
    on the paged backend answers 4 greedy requests, the first token of the
    prompt with the widest top-2 margin equal to the restored model's
    training-forward argmax, ``paged_decode`` launched layers x decode steps;
    (d) phase 9's configuration (phase 7's with ``fused_norm=True``) under
    ``--mixed_precision fp16``, 10 iterations: finite losses, the blocked
-   flash kernels 40 / 40 on the fp16 CUDA-core route, the RMSNorm kernels
+   flash kernels 40 / 40 on the TMA route at fp16, the RMSNorm kernels
    90 / 90 at fp16, step 0 within 1e-2 relative of phase 9's bf16 step 0,
    the loss-scale trajectory, skipped steps and iter_ms beside phase 9's;
    (e) ``--rampup_batch_size 4 4 32`` to 16 at 2 layers, 6 steps: the batch
@@ -262,8 +265,11 @@ its result line:
    16384)), all on
    the TMA route and no blocked launch; iter_ms (host-staged transport),
    peak memory per rank and host-staged collectives beside world size 1's;
-   (c) ``ring_attention`` and ``ulysses_attention`` (flash core) on the two
-   ranks at (2, 32, 4096, 128) bf16, forward and backward, held to the grid
+   (a) and (b) run one after another in one pair of rank processes
+   (``--then``), (a)'s control world beside (a);
+   (c) ``ring_attention`` and ``ulysses_attention`` (flash core) on two
+   ranks of their own, started beside (a)'s worlds,
+   at (2, 32, 4096, 128) bf16, forward and backward, held to the grid
    plain versions over the whole sequence on one device by
    ``bf16_parity_excess`` (2^-5 the output, 2^-4 the gradients), and to the
    fp32 attention within the plain versions' own reading against it plus
@@ -283,7 +289,8 @@ its result line:
    iterations at world size 1 (iter_ms, tokens/s, peak memory; blocked flash
    launches = layers x iterations, all TMA), a profile window splitting the
    step into routing, dispatch, expert GEMMs and combine, then ep 2 with DDP
-   on two ranks over gloo, 2 steps (rank 0 profiled): losses within 2e-2
+   on two ranks over gloo, 2 steps (rank 0 profiled; after (a) in (a)'s pair
+   of rank processes, (a) running once (b)'s world size 1 is done): losses within 2e-2
    relative of world size 1's, each rank's peak below world size 1's, its
    launches and MoE moves as the plan implies; (c) ``cli serve`` of the MoE
    model at 4 layers on the paged backend driven as phase 6 (paged_decode
@@ -479,8 +486,17 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print a line; a line that starts with "phase" is also kept, with the
+    seconds since the script started, in ``RESULTS["timeline"]`` (the
+    ``--out`` file), so a run shows where its time went."""
     print(*a, flush=True)
+    if a and isinstance(a[0], str) and a[0].startswith("phase"):
+        RESULTS.setdefault("timeline", []).append([round(time.perf_counter() - _T0, 1),
+                                                   a[0][:80]])
 
 
 @contextlib.contextmanager
@@ -727,9 +743,15 @@ FLASH_CASES = [
     ("flash ragged s100 d64", "bfloat16", 8, 32, 32, 100, 64, False),
     ("flash gqa kv_rep 4", "bfloat16", 8, 32, 8, 2048, 128, False),
     ("flash fp32", "float32", 2, 32, 32, 2048, 128, True),
-    # the fp16 training path's shape (--mixed_precision fp16): the CUDA-core route
+    # the fp16 training path's shape (--mixed_precision fp16) and the twins
+    # of the two bf16 cases above: the TMA route's fp16 instances
     ("flash main fp16", "float16", 8, 32, 32, 2048, 128, True),
+    ("flash ragged s100 d64 fp16", "float16", 8, 32, 32, 100, 64, False),
+    ("flash gqa kv_rep 4 fp16", "float16", 8, 32, 8, 2048, 128, False),
+    # fp16 off the tensor-core head dims: the CUDA-core kernels' __half instances
+    ("flash d40 fp16", "float16", 2, 8, 8, 512, 40, False),
 ]
+
 
 
 @contextlib.contextmanager
@@ -859,7 +881,8 @@ def phase_flash(torch):
               f"{label}: a kernel did not launch")
         repeat_bitwise = all(torch.equal(g, a) for g, a in zip(grads, again))
         del again
-        tma = dtype == torch.bfloat16 and d in (64, 128)
+        # aligned operands take the TMA route for bf16 and fp16 at head_dim 64 / 128
+        tma = dtype in (torch.bfloat16, torch.float16) and d in (64, 128)
         check((fwd_route, bwd_route) == (("tma",) * 2 if tma else ("cuda_core",) * 2),
               f"{label}: routes {fwd_route} / {bwd_route}")
         check(repeat_bitwise, f"{label}: two backward calls on the same inputs differ")
@@ -886,6 +909,9 @@ def phase_flash(torch):
             tol = (f"{kind}: |err| - 1 ulp over the row's rms ({kind}_parity_excess), "
                    f"out {fwd_lim}, gradients {bwd_lim}; lse 1e-4")
         finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+        # query 0's one key is itself, so its dq is 0 in exact arithmetic; the
+        # TMA dq kernel sums that dp as the pre-pass sums delta and gives 0
+        dq_row0_zero = bool((grads[0][:, :, 0] == 0).all())
         del ctl_out, ctl_grads
         # yardstick: SDPA (is_causal) over pre-roped q/k, and its autograd backward
         qr = fa._rope_f32(q, cos, sin).to(dtype).detach().requires_grad_(True)
@@ -904,7 +930,7 @@ def phase_flash(torch):
         lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
             lib_out, (qr, kr, vr), do, retain_graph=True), flush)
         bounds = flash_bounds(dname, b, h, kvh, s, d)
-        # the bf16 tensor-core path is two launches: the k pre-pass, the main kernel
+        # the tensor-core path is two launches: the k pre-pass, the main kernel
         fwd_names = ["fwd::rope_k_kernel", "fwd::main_kernel"]
         split = (device_ms_by_name(torch, lambda: (flush.zero_(), fa.flash_fwd(
             q, k, v, cos, sin, sm, rep)), fwd_names) if tma else dict.fromkeys(fwd_names))
@@ -923,7 +949,7 @@ def phase_flash(torch):
                 "fwd_rope_k_ms": split["fwd::rope_k_kernel"],
                 "fwd_main_ms": split["fwd::main_kernel"],
                 "fwd_route": fwd_route, "bwd_route": bwd_route,
-                "bwd_repeat_bitwise": repeat_bitwise,
+                "bwd_repeat_bitwise": repeat_bitwise, "dq_row0_zero": dq_row0_zero,
                 "bwd_prepass_ms": bwd_split["bwd::prepass_kernel"],
                 "bwd_dkdv_ms": bwd_split["bwd::dkdv_kernel"], "bwd_dq_ms": bwd_split["bwd::dq_kernel"],
                 "fwd_plain_ms": plain_fwd, "bwd_plain_ms": plain_bwd,
@@ -933,6 +959,7 @@ def phase_flash(torch):
         log(json.dumps(line))
         lines[label] = line
         check(finite, f"{label}: non-finite kernel output")
+        check(dq_row0_zero or not tma, f"{label}: query 0's dq is not 0 on the TMA route")
         check(fwd_err <= fwd_lim, f"{label}: forward err {fwd_err} > {fwd_lim}")
         check(lse_err <= lse_tol, f"{label}: lse err {lse_err} > {lse_tol}")
         for name, e, c in zip("qkv", bwd_err, ctl_bwd):
@@ -3352,8 +3379,9 @@ def _rel(a, b):
 def phase_services_resume(torch, smi, tmpdir, mix):
     """15 (a): run A (6 steps, no save) in this process; run B: 3 steps
     with ``--save`` here, then a second process ``--load``s and trains to
-    step 6; then one byte of the newest step is flipped and a third process
-    must fall back to the older step."""
+    step 6; then one byte of the newest step is flipped and the next
+    ``--load`` (a third run, in this process) must fall back to the older
+    step."""
     from galvatron_tpu_torch.core import checkpoint as ckpt
     from galvatron_tpu_torch.core import trainer
     from galvatron_tpu_torch.core.arguments import initialize_galvatron
@@ -3408,8 +3436,11 @@ def phase_services_resume(torch, smi, tmpdir, mix):
         f.seek(-1, 1)
         f.write(bytes([byte[0] ^ 0x10]))
     path_c = os.path.join(tmpdir, "c.jsonl")
-    _train_process(_services_argv(mix, 4, "--load", d, "--metrics_path", path_c),
-                   "15 (a) corrupt newest step")
+    out_c = trainer.train(initialize_galvatron("train", _services_argv(
+        mix, 4, "--load", d, "--metrics_path", path_c)))
+    del out_c
+    gc.collect()
+    torch.cuda.empty_cache()
     fallback = [r for r in read_metrics(path_c) if r["event"] == "ckpt_fallback"]
     losses_c, _ = _train_losses(path_c, first_step=3)
     check([r["step"] for r in fallback] == [6], f"15 (a): ckpt_fallback events {fallback}")
@@ -3441,6 +3472,7 @@ def phase_services_layout(torch, smi, tmpdir, mix, d, losses_a):
                           "gloo", (0, 0))
     res = {"card": smi, "pp": 2, "world": 2, "losses": [r["losses"] for r in ranks],
            "want": losses_a[3], "seconds": time.perf_counter() - t0,
+           "seconds_are": "beside 15 (c) and (e) in this process",
            "rel_diff": max(_rel(r["losses"][0], losses_a[3]) for r in ranks),
            "launches": [r["launches"] for r in ranks]}
     log("phase 15 (b) restore at pp = 2:", json.dumps(res))
@@ -3546,8 +3578,9 @@ def phase_services_serve(torch, smi, d):
 def phase_services_fp16(torch, smi, bf16_res):
     """15 (d): phase 9's configuration (phase 7's with ``fused_norm=True``)
     under ``--mixed_precision fp16``, 10 iterations: every loss finite, the
-    blocked flash kernels 40 / 40 on the fp16 CUDA-core route, the RMSNorm
-    kernels 90 / 90 at fp16, step 0 against phase 9's bf16 step 0."""
+    blocked flash kernels 40 / 40 on the TMA route (their fp16 mainloop
+    instances), the RMSNorm kernels 90 / 90 at fp16, step 0 against phase
+    9's bf16 step 0."""
     from galvatron_tpu_torch.core import trainer
     from galvatron_tpu_torch.core.arguments import initialize_galvatron, model_config_from_args
     from galvatron_tpu_torch.models import modeling
@@ -3596,7 +3629,7 @@ def phase_services_fp16(torch, smi, bf16_res):
     check(launches == want, f"15 (d): launches {launches}, expected {want}")
     check(fp16_calls == [want[k] for k in ("flash_fwd", "flash_bwd", "rms_fwd", "rms_bwd")],
           f"15 (d): fp16 calls {fp16_calls}")
-    check(all(routes[k]["cuda_core"] == launches[k] for k in ("flash_fwd", "flash_bwd")),
+    check(all(routes[k]["tma"] == launches[k] for k in ("flash_fwd", "flash_bwd")),
           f"15 (d): routes {routes}")
     if bf16_res:
         check(res["step0_rel_diff"] <= SERVICES_FP16_RTOL,
@@ -3625,7 +3658,9 @@ def phase_services_rampup(torch, smi):
     launches = kernel_counts()  # read right after the main path
     res = {"card": smi, "batch_sizes": out["batch_sizes"], "want": want,
            "consumed_samples": out["consumed_samples"], "losses": out["losses"],
-           "iter_ms": out["iter_times"], "launches": launches}
+           "iter_ms": out["iter_times"],
+           "iter_ms_is": "read while 15 (b)'s two rank processes may share the card",
+           "launches": launches}
     del out
     log("phase 15 (e) ramp-up:", json.dumps(res))
     check(res["batch_sizes"] == want and res["consumed_samples"] == consumed,
@@ -3640,6 +3675,8 @@ def phase_services(torch, smi, train_res):
     """Phase 15 (a)-(e); returns the fp16 path's launch counts."""
     from galvatron_tpu_torch.models import modeling
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3649,14 +3686,18 @@ def phase_services(torch, smi, train_res):
         d, losses_a = phase_services_resume(torch, smi, tmpdir, mix)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_services_layout(torch, smi, tmpdir, mix, d, losses_a)
-        phase_services_serve(torch, smi, d)
+        # (b)'s two ranks read the step-3 checkpoint beside (c) and (e) in
+        # this process (their launches are counted in their own processes)
+        with ThreadPoolExecutor(1) as pool:
+            layout = pool.submit(phase_services_layout, torch, smi, tmpdir, mix, d, losses_a)
+            phase_services_serve(torch, smi, d)
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_services_rampup(torch, smi)
+            layout.result()
     gc.collect()
     torch.cuda.empty_cache()
     launches = phase_services_fp16(torch, smi, train_res.get("llama_fused"))
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_services_rampup(torch, smi)
     RESULTS["services_seconds"] = time.perf_counter() - t0
     log(f"phase 15 took {RESULTS['services_seconds']:.1f} s")
     return launches
@@ -3767,13 +3808,16 @@ def _cp_grid_want(hp, idx, world, batch, seq, steps, heads=32):
     return want, blocked
 
 
-def phase_cp_fp32(torch, smi, tmpdir):
+def phase_cp_fp32(torch, smi, tmpdir, then_argv):
     """17 (a): the two-layer cp plan on two ranks sharing the card over
     gloo, fp32, against the same layers at world size 1 in this process:
     losses within ``CP_FP32_LOSS_TOL`` (and phase 12's
     ``HYBRID_FP32_LOSS_TOL``), every rank's parameters within
     ``CP_FP32_PARAM_BAND``. The same run without the CP gradient sum, run
-    beside it on the card, must fall out of both."""
+    beside it on the card, must fall out of both. ``then_argv``: the run
+    the sound world's rank processes make after (a)'s (``--then``: (b)'s,
+    so one pair of processes starts for both); its rank records are
+    returned."""
     from concurrent.futures import ThreadPoolExecutor
     from galvatron_tpu_torch.core import trainer
     from galvatron_tpu_torch.core.arguments import initialize_galvatron
@@ -3795,12 +3839,15 @@ def phase_cp_fp32(torch, smi, tmpdir):
     torch.cuda.empty_cache()
 
     def run(control):
-        """Two ranks of the plan (under ``control``) on card 0."""
+        """Two ranks of the plan (under ``control``) on card 0: (a)'s rank
+        records, and ``then_argv``'s after them in the sound world."""
         outdir = os.path.join(tmpdir, f"cp_ranks_fp32_{control}")
         os.makedirs(outdir)
         extra = ("--ref-params", ref_path) + (("--control", control) if control else ())
-        return _launch_ranks(_cp_argv(plan2, a["layers"], a["batch"], a["seq"]), outdir, "gloo",
-                             (0, 0), extra)
+        argv = _cp_argv(plan2, a["layers"], a["batch"], a["seq"])
+        if control:
+            return _launch_ranks(argv, outdir, "gloo", (0, 0), extra), None
+        return _launch_rank_runs([argv, then_argv], outdir, "gloo", (0, 0), extra)
 
     def readings(rs):
         return (max(abs(x - y) for x, y in zip(rs[0]["losses"], ref_losses)),
@@ -3808,7 +3855,7 @@ def phase_cp_fp32(torch, smi, tmpdir):
 
     # the sound run and its control, two worlds at once
     with ThreadPoolExecutor(2) as pool:
-        ranks, crs = pool.map(run, (None, "no_cp_reduce"))
+        (ranks, then_ranks), (crs, _) = pool.map(run, (None, "no_cp_reduce"))
     os.remove(ref_path)
     diff, pdiff = readings(ranks)
     cdiff, cpdiff = readings(crs)
@@ -3826,9 +3873,12 @@ def phase_cp_fp32(torch, smi, tmpdir):
            "tolerance": CP_FP32_LOSS_TOL, "param_max_abs_diff": pdiff,
            "param_band": CP_FP32_PARAM_BAND, "control_no_cp_reduce": control,
            "host_staged": [r["host_staged"] for r in ranks], "p2p": [r["p2p"] for r in ranks],
-           "seconds": time.perf_counter() - t0}
+           "seconds": time.perf_counter() - t0,
+           "seconds_are": ("(a)'s world size 1, then (a) and (b) in one pair of rank "
+                           "processes beside (a)'s control world and 17 (c)'s ranks")}
     log("phase 17 (a) cp fp32:", json.dumps(res))
     RESULTS["cp_fp32"] = res
+    return then_ranks
 
 
 def phase_cp_world1(torch, smi, tmpdir):
@@ -3853,22 +3903,31 @@ def phase_cp_world1(torch, smi, tmpdir):
     return res
 
 
-def phase_cp_long(torch, smi, tmpdir, backend, local_ranks, world1):
+def _cp_long_plan(tmpdir, backend):
+    """(b)'s plan (written to ``tmpdir``) and its ``cli train`` flags."""
+    b = CP_LONG
+    plan = os.path.join(tmpdir, f"cp_long_{backend}.json")
+    hp = _cp_plan(plan, CP_PLAN, "bf16", CP_VOCAB_TP)
+    return hp, _cp_argv(plan, b["layers"], b["batch"], b["seq"], CP_LONG_STEPS)
+
+
+def phase_cp_long(torch, smi, tmpdir, backend, local_ranks, world1, ranks=None):
     """17 (b) (two ranks sharing card 0 over gloo) or 17b (two cards over
     NCCL): the bf16 plan at llama-7b width on 16384-token sequences,
     against world size 1 on the same weights and batches; each rank's grid
-    launches by shape, on the TMA route."""
+    launches by shape, on the TMA route. ``ranks``: the rank records of a
+    run made already (17 (b) after 17 (a) in one pair of processes), else
+    its own two ranks are launched here."""
     import numpy as np
 
     tag = "17 (b)" if backend == "gloo" else "17b"
     b = CP_LONG
-    plan = os.path.join(tmpdir, f"cp_long_{backend}.json")
-    hp = _cp_plan(plan, CP_PLAN, "bf16", CP_VOCAB_TP)
-    outdir = os.path.join(tmpdir, f"cp_ranks_long_{backend}")
-    os.makedirs(outdir)
+    hp, argv = _cp_long_plan(tmpdir, backend)
     t0 = time.perf_counter()
-    ranks = _launch_ranks(_cp_argv(plan, b["layers"], b["batch"], b["seq"], CP_LONG_STEPS),
-                          outdir, backend, local_ranks)
+    if ranks is None:
+        outdir = os.path.join(tmpdir, f"cp_ranks_long_{backend}")
+        os.makedirs(outdir)
+        ranks = _launch_ranks(argv, outdir, backend, local_ranks)
     w1 = world1["losses"]
     losses = ranks[0]["losses"]
     rel = max(abs(x - y) / abs(y) for x, y in zip(losses, w1))
@@ -3903,9 +3962,13 @@ def phase_cp_long(torch, smi, tmpdir, backend, local_ranks, world1):
            "world1_iter_ms_mean_from_2": world1["iter_ms_mean_from_2"],
            "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in ranks],
            "world1_max_memory_allocated_gb": world1["max_memory_allocated_gb"],
-           "iter_ms_is": ("host-staged over gloo: a transport figure, not a parallelism result"
+           "iter_ms_is": ("host-staged over gloo: a transport figure, not a parallelism "
+                          "result, read after (a) in its rank processes while 17 (c)'s ranks "
+                          "and the end of (a)'s control world may share the card"
                           if backend == "gloo" else "NCCL on two cards"),
            "seconds": time.perf_counter() - t0}
+    if backend == "gloo":
+        res["seconds_are"] = "the checks only: the run is in 17 (a)'s seconds"
     log(f"phase {tag} cp long context:", json.dumps(res))
     RESULTS[f"cp_long_{backend}"] = res
     return res
@@ -3967,20 +4030,10 @@ def cp_worker(outdir) -> int:
     return 0
 
 
-def phase_cp_functions(torch, smi, tmpdir):
-    """17 (c): ``ring_attention`` and ``ulysses_attention`` on the two
-    ranks, forward and backward at (2, 32, 4096, 128) bf16, held to the grid
-    plain versions over the whole sequence on one device (causal, the
-    kernels' bf16 rounding points: what world size 1 computes) by
-    ``bf16_parity_excess`` (2^-5 the output, 2^-4 the gradients); the ring
-    without a past hop must read out of band. Each is also held to the fp32
-    attention over the whole sequence: within the plain versions' own
-    reading against it on the same inputs plus the band (a kernel within
-    the band of the plain versions can be no farther from fp32). dq reads
-    far past 2^-4 there for the plain versions too: in the first rows of the
-    sequence, ds = p (dp - delta) cancels to nearly zero in fp32 but keeps
-    the rounding of the bf16 output that delta is taken from."""
-    from galvatron_tpu_torch.ops import flash_attention as fa
+def _cp_function_ranks(tmpdir):
+    """17 (c)'s two rank processes (``--cp-worker``), which write their
+    blocks under ``tmpdir/cp_functions``; returns that directory and the
+    ranks' seconds."""
     from galvatron_tpu_torch.parallel.launch import launch_local
 
     outdir = os.path.join(tmpdir, "cp_functions")
@@ -3993,6 +4046,27 @@ def phase_cp_functions(torch, smi, tmpdir):
         log(f"  rank {r.rank}: rc={r.returncode} killed={r.killed}\n" +
             "\n".join(r.output.splitlines()[-8:]))
     check(all(r.returncode == 0 and not r.killed for r in ranks), "17 (c): a rank failed")
+    return outdir, time.perf_counter() - t0
+
+
+def phase_cp_functions(torch, smi, outdir, rank_seconds):
+    """17 (c): ``ring_attention`` and ``ulysses_attention`` on the two
+    ranks, forward and backward at (2, 32, 4096, 128) bf16, held to the grid
+    plain versions over the whole sequence on one device (causal, the
+    kernels' bf16 rounding points: what world size 1 computes) by
+    ``bf16_parity_excess`` (2^-5 the output, 2^-4 the gradients); the ring
+    without a past hop must read out of band. Each is also held to the fp32
+    attention over the whole sequence: within the plain versions' own
+    reading against it on the same inputs plus the band (a kernel within
+    the band of the plain versions can be no farther from fp32). dq reads
+    far past 2^-4 there for the plain versions too: in the first rows of the
+    sequence, ds = p (dp - delta) cancels to nearly zero in fp32 but keeps
+    the rounding of the bf16 output that delta is taken from. The ranks
+    (:func:`_cp_function_ranks`) ran beside 17 (a) and (b); the reference and
+    the checks run here, after them."""
+    from galvatron_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
     q, k, v, do = _cp_fn_inputs(torch)
     # the reference: the grid plain versions over the whole sequence, head-major
     hq, hk, hv, hdo = (t.transpose(1, 2) for t in (q, k, v, do))
@@ -4033,7 +4107,8 @@ def phase_cp_functions(torch, smi, tmpdir):
             check(inside, f"17 (c): {name} out / dq / dk / dv err {errs}")
             check(inside32, f"17 (c): {name} against fp32 {errs32}, the plain versions "
                   f"{plain_f32}")
-    res["seconds"] = time.perf_counter() - t0
+    res["seconds"] = time.perf_counter() - t0 + rank_seconds
+    res["seconds_are"] = "the ranks' (beside 17 (a) and (b)) and the checks'"
     log("phase 17 (c) cp functions:", json.dumps(res))
     RESULTS["cp_functions"] = res
 
@@ -4047,11 +4122,18 @@ def phase_cp(torch, smi, run_gloo=True, run_nccl=False):
         torch.cuda.empty_cache()
         world1 = phase_cp_world1(torch, smi, tmpdir)
         if run_gloo:
-            phase_cp_fp32(torch, smi, tmpdir)
+            from concurrent.futures import ThreadPoolExecutor
+
+            # (c)'s two small ranks start beside (a)'s worlds; (b) runs after
+            # (a) in the sound world's rank processes (one start for both)
+            with ThreadPoolExecutor(1) as pool:
+                fn_ranks = pool.submit(_cp_function_ranks, tmpdir)
+                long_ranks = phase_cp_fp32(torch, smi, tmpdir, _cp_long_plan(tmpdir, "gloo")[1])
+                fn_dir, fn_seconds = fn_ranks.result()
             gc.collect()
             torch.cuda.empty_cache()
-            res = phase_cp_long(torch, smi, tmpdir, "gloo", (0, 0), world1)
-            phase_cp_functions(torch, smi, tmpdir)
+            res = phase_cp_long(torch, smi, tmpdir, "gloo", (0, 0), world1, long_ranks)
+            phase_cp_functions(torch, smi, fn_dir, fn_seconds)
         if run_nccl and torch.cuda.device_count() >= 2:
             phase_cp_long(torch, smi, tmpdir, "nccl", (0, 1), world1)
         elif run_nccl:
@@ -4133,13 +4215,16 @@ def moe_time_split(prof, steps):
     return out
 
 
-def phase_moe_fp32(torch, smi, tmpdir, plan2):
+def phase_moe_fp32(torch, smi, tmpdir, plan2, then_argv):
     """18 (a): the plan 18 (d) searched (ep 2) on two ranks sharing the card
     over gloo, fp32, against world size 1 in this process: losses within
     ``MOE_FP32_LOSS_TOL``, every rank's parameters within
     ``MOE_FP32_PARAM_BAND``. Beside it on the card, the control: the two
     ranks at ep 1 (data parallel), each routing its own tokens, must fall out
-    of both (EP needs every rank's routing, so the control drops EP)."""
+    of both (EP needs every rank's routing, so the control drops EP).
+    ``then_argv``: the run the sound world's rank processes make after
+    (a)'s (``--then``: 18 (b)'s ep 2 run, so one pair of processes starts
+    for both); its rank records are returned."""
     from concurrent.futures import ThreadPoolExecutor
 
     from galvatron_tpu_torch.core import trainer
@@ -4163,19 +4248,23 @@ def phase_moe_fp32(torch, smi, tmpdir, plan2):
     torch.cuda.empty_cache()
 
     def run(control):
+        """(a)'s rank records (under ``control``), and ``then_argv``'s after
+        them in the sound world."""
         outdir = os.path.join(tmpdir, f"moe_ranks_fp32_{control}")
         os.makedirs(outdir)
         extra = ("--ref-params", ref_path) + (("--control", control) if control else ())
-        return _launch_ranks(_moe_argv(plan_dp if control else plan2, a["batch"], a["seq"],
-                                       MOE_EP_STEPS, small=True, layers=a["layers"]),
-                             outdir, "gloo", (0, 0), extra)
+        argv = _moe_argv(plan_dp if control else plan2, a["batch"], a["seq"], MOE_EP_STEPS,
+                         small=True, layers=a["layers"])
+        if control:
+            return _launch_ranks(argv, outdir, "gloo", (0, 0), extra), None
+        return _launch_rank_runs([argv, then_argv], outdir, "gloo", (0, 0), extra)
 
     def readings(rs):
         return (max(abs(x - y) for x, y in zip(rs[0]["losses"], ref_losses)),
                 max(r["param_max_abs_diff"] for r in rs))
 
     with ThreadPoolExecutor(2) as pool:
-        ranks, crs = pool.map(run, (None, "local_routing"))
+        (ranks, then_ranks), (crs, _) = pool.map(run, (None, "local_routing"))
     os.remove(ref_path)
     diff, pdiff = readings(ranks)
     cdiff, cpdiff = readings(crs)
@@ -4187,7 +4276,9 @@ def phase_moe_fp32(torch, smi, tmpdir, plan2):
            "tolerance": MOE_FP32_LOSS_TOL, "param_max_abs_diff": pdiff,
            "param_band": MOE_FP32_PARAM_BAND, "control_local_routing_ep1": control,
            "moe_moves": [r["moe_moves"] for r in ranks],
-           "host_staged": [r["host_staged"] for r in ranks], "seconds": time.perf_counter() - t0}
+           "host_staged": [r["host_staged"] for r in ranks], "seconds": time.perf_counter() - t0,
+           "seconds_are": ("(a)'s world size 1, then (a) and 18 (b)'s ep 2 run in one pair "
+                           "of rank processes beside (a)'s control world")}
     log("phase 18 (a) moe fp32, the searched plan:", json.dumps(res))
     RESULTS["moe_fp32"] = res
     check(all(r["losses"] == ranks[0]["losses"] for r in ranks), "18 (a): ranks differ")
@@ -4201,6 +4292,7 @@ def phase_moe_fp32(torch, smi, tmpdir, plan2):
     want = _moe_moves_want(a["layers"], MOE_EP_STEPS, ep)
     check(all(r["moe_moves"] == want for r in ranks),
           f"18 (a): moves {[r['moe_moves'] for r in ranks]}, expected {want}")
+    return then_ranks
 
 
 def _moe_moves_want(layers, steps, ep, recomputed=0):
@@ -4213,9 +4305,9 @@ def _moe_moves_want(layers, steps, ep, recomputed=0):
 
 
 def phase_moe_train(torch, smi, tmpdir):
-    """18 (b): ``cli train`` of the llama-7b-width MoE at world size 1 (10
-    iterations; a profile window splits its step), then the ep 2 plan on two
-    ranks sharing the card over gloo (2 steps, its rank 0 profiled)."""
+    """18 (b)'s first part: ``cli train`` of the llama-7b-width MoE at world
+    size 1 (10 iterations; a profile window splits its step). Returns its
+    record, which :func:`phase_moe_ep2` completes."""
     from torch.profiler import ProfilerActivity, profile
 
     from galvatron_tpu_torch import cli
@@ -4291,24 +4383,36 @@ def phase_moe_train(torch, smi, tmpdir):
     del state, rt, prof
     gc.collect()
     torch.cuda.empty_cache()
-    # ep 2 on two ranks
+    return w1
+
+
+def _moe_ep2_argv(tmpdir):
+    """18 (b)'s ep 2 run: the plan on two ranks, 2 steps, rank 0 profiled
+    (``PROFILE_MOE``, a flag of this run alone)."""
     plan2 = os.path.join(tmpdir, "moe_ep2.json")
     _moe_plan(plan2, MOE_EP, "bf16")
-    outdir = os.path.join(tmpdir, "moe_ranks_ep2")
-    os.makedirs(outdir)
-    t2 = time.perf_counter()
-    ranks = _launch_ranks(_moe_argv(plan2, MOE_BATCH, MOE_SEQ, MOE_EP_STEPS), outdir, "gloo",
-                          (0, 0), ("--profile-moe",))
+    return [PROFILE_MOE, *_moe_argv(plan2, MOE_BATCH, MOE_SEQ, MOE_EP_STEPS)]
+
+
+def phase_moe_ep2(torch, smi, w1, ranks):
+    """18 (b)'s second part: the ep 2 plan's rank records (two ranks sharing
+    the card over gloo, run in 18 (a)'s rank processes after (a)) against
+    the world-size-1 run ``w1``."""
+    t0 = time.perf_counter()
+    losses, peak_gb = w1["losses"], w1["max_memory_allocated_gb"]
     rel = max(_rel(x, y) for x, y in zip(ranks[0]["losses"], losses))
     ep2 = {"plan": f"ep {MOE_EP}, ddp", "steps": MOE_EP_STEPS, "losses": ranks[0]["losses"],
            "max_rel_loss_diff_vs_world1": rel, "tolerance": HYBRID_BF16_LOSS_RTOL,
            "iter_ms_mean_from_2": [sum(r["iter_times"][1:]) / (len(r["iter_times"]) - 1)
                                    for r in ranks],
+           "iter_ms_is": ("read after 18 (a) in its rank processes, while the end of (a)'s "
+                          "control world may share the card; rank 0 profiled"),
            "max_memory_allocated_gb": [r["max_memory_allocated_gb"] for r in ranks],
            "launches": [r["launches"] for r in ranks], "moe_moves": [r["moe_moves"] for r in ranks],
            "collectives": [r["collectives"] for r in ranks],
            "host_staged": [r["host_staged"] for r in ranks],
-           "rank0_moe_parts": ranks[0].get("moe_parts"), "seconds": time.perf_counter() - t2}
+           "rank0_moe_parts": ranks[0].get("moe_parts"), "seconds": time.perf_counter() - t0,
+           "seconds_are": "the checks only: the run is in 18 (a)'s seconds"}
     res = {"card": smi, "world1": w1, "ep2_gloo": ep2}
     log("phase 18 (b) moe train ep 2, two ranks over gloo:", json.dumps(ep2))
     RESULTS["moe_train"] = res
@@ -4318,13 +4422,14 @@ def phase_moe_train(torch, smi, tmpdir):
     check(all(g < peak_gb for g in ep2["max_memory_allocated_gb"]),
           f"18 (b): per-rank peak {ep2['max_memory_allocated_gb']} not below world size 1's "
           f"{peak_gb}")
+    check(ranks[0].get("moe_parts") is not None and ranks[1].get("moe_parts") is None,
+          "18 (b): the ep 2 run's rank 0, and only it, should be profiled")
     rank_want = path_counts("llama", MOE_LAYERS, MOE_EP_STEPS, False)
     check(all(r["launches"] == rank_want for r in ranks),
           f"18 (b): rank launches {ep2['launches']}, expected {rank_want}")
     want = _moe_moves_want(MOE_LAYERS, MOE_EP_STEPS, MOE_EP)
     check(all(r["moe_moves"] == want for r in ranks),
           f"18 (b): moves {ep2['moe_moves']}, expected {want}")
-    return launches, res
 
 
 @contextlib.contextmanager
@@ -4490,17 +4595,21 @@ def phase_moe_search(torch, smi, tmpdir):
 
 
 def phase_moe(torch, smi):
-    """Phase 18: (d), whose plan (a) trains, then (b) and (c); returns (b)'s
-    world-1 launches and (c)'s paged launches."""
+    """Phase 18: (d), whose plan (a) trains; (b)'s world size 1; (a), whose
+    pair of rank processes then makes (b)'s ep 2 run (one start for both);
+    (b)'s ep 2 checks; (c). Returns (b)'s world-1 launches and (c)'s paged
+    launches."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmpdir:
         gc.collect()
         torch.cuda.empty_cache()
-        phase_moe_fp32(torch, smi, tmpdir, phase_moe_search(torch, smi, tmpdir))
-        train_launches, _ = phase_moe_train(torch, smi, tmpdir)
+        plan2 = phase_moe_search(torch, smi, tmpdir)
+        w1 = phase_moe_train(torch, smi, tmpdir)
+        ranks = phase_moe_fp32(torch, smi, tmpdir, plan2, _moe_ep2_argv(tmpdir))
+        phase_moe_ep2(torch, smi, w1, ranks)
         gc.collect()
         torch.cuda.empty_cache()
         serve_launches = phase_moe_serve(torch, smi)
-    return train_launches, serve_launches
+    return w1["launches"], serve_launches
 
 
 # ---------------------------------------------------------------------------
@@ -6209,18 +6318,19 @@ def phase_fp16(torch, smi):
     return launches_a, launches_b
 
 
-def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) -> int:
+def rank_worker(outdir, argv, ref_params=None, control=None) -> int:
     """One rank of phases 12-13, 17 and 18: ``cli train``'s own call
     (``trainer.train`` of the parsed flags), with the blocked flash
     wrappers' calls also counted by the head count they ran at, and the grid
     wrappers' launches by shape and mask (their ``modes``); writes
     ``rank<r>.json`` (and, with ``ref_params``, the largest difference of
     this rank's pieces from the world-size-1 parameters). ``control`` names
-    one of ``CP_CONTROLS`` to train under; ``profile_moe`` profiles rank 0's
-    run and splits its MoE time (:func:`moe_time_split`). Flags with
-    ``--then`` between them are several runs, one after another in this
-    process (:func:`_launch_rank_runs`); ``ref_params`` holds them in order
-    (comma-separated: run j to the j-th, an empty entry to none)."""
+    one of ``CP_CONTROLS`` to train under; ``PROFILE_MOE`` among a run's
+    flags profiles rank 0's run and splits its MoE time
+    (:func:`moe_time_split`). Flags with ``--then`` between them are several
+    runs, one after another in this process (:func:`_launch_rank_runs`);
+    ``ref_params`` holds them in order (comma-separated: run j to the j-th,
+    an empty entry to none)."""
     from galvatron_tpu_torch.core import trainer
     from galvatron_tpu_torch.core.arguments import initialize_galvatron
     from galvatron_tpu_torch.ops import flash_attention as fa
@@ -6249,24 +6359,28 @@ def rank_worker(outdir, argv, ref_params=None, control=None, profile_moe=False) 
     if len(runs) > 1:
         # one default process group for every run: trainer.train then
         # neither creates nor destroys it
-        ns = initialize_galvatron("train", runs[0])
+        ns = initialize_galvatron("train", [a for a in runs[0] if a != PROFILE_MOE])
         created = trainer.init_distributed(trainer.rank_device(ns.device), ns.dist_backend,
                                            ns.dist_timeout_s)
         try:
             for j, run in enumerate(runs):
                 _rank_run(os.path.join(outdir, f"run{j}"), run, heads,
-                          refs[j] if j < len(refs) and refs[j] else None, control, profile_moe)
+                          refs[j] if j < len(refs) and refs[j] else None, control)
         finally:
             if created:
                 import torch.distributed as dist
 
                 dist.destroy_process_group()
         return 0
-    _rank_run(outdir, argv, heads, refs[0] if refs else None, control, profile_moe)
+    _rank_run(outdir, argv, heads, refs[0] if refs else None, control)
     return 0
 
 
-def _rank_run(outdir, argv, heads, ref_params=None, control=None, profile_moe=False):
+#: a flag of one rank run (not of ``cli train``): profile its rank 0
+PROFILE_MOE = "--profile-moe"
+
+
+def _rank_run(outdir, argv, heads, ref_params=None, control=None):
     """One ``cli train`` run of :func:`rank_worker`; writes ``rank<r>.json``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -6289,7 +6403,8 @@ def _rank_run(outdir, argv, heads, ref_params=None, control=None, profile_moe=Fa
     reset_kernel_counts()
     comm.reset_counts()
     before = route_counts()
-    ns = initialize_galvatron("train", argv)
+    profile_moe = PROFILE_MOE in argv
+    ns = initialize_galvatron("train", [a for a in argv if a != PROFILE_MOE])
     prof = None
     if profile_moe and int(os.environ.get("RANK", "0")) == 0:
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -6343,15 +6458,13 @@ def main() -> int:
     ap.add_argument("--control", default=None,
                     choices=(CP_CONTROLS[0], CP_CONTROLS[2], CP_CONTROLS[3]),
                     help=argparse.SUPPRESS)
-    ap.add_argument("--profile-moe", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--cp-worker", default=None, metavar="OUTDIR",
                     help="(phase 17 (c)) run as one rank of the ring / Ulysses functions")
     ap.add_argument("train_argv", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank_worker:
         argv = args.train_argv[1:] if args.train_argv[:1] == ["--"] else args.train_argv
-        return rank_worker(args.rank_worker, argv, args.ref_params, args.control,
-                           args.profile_moe)
+        return rank_worker(args.rank_worker, argv, args.ref_params, args.control)
     if args.cp_worker:
         return cp_worker(args.cp_worker)
     phases = [p for p in args.phases.split(",") if p]
@@ -6638,8 +6751,8 @@ def main() -> int:
          "ms": flash_line["bwd_ms"], "plain_ms": flash_line["bwd_plain_ms"],
          "bound_ms": flash_line["bwd_bound_ms"], "bound_by": flash_line["bwd_bound_by"],
          "library_ms": flash_line["bwd_library_ms"]},
-        # the fp16 instances of the blocked kernels (the CUDA-core route), with
-        # their launches on phase 15 (d)'s fp16 training path
+        # the fp16 instances of the blocked kernels (the TMA route), with their
+        # launches on phase 15 (d)'s fp16 training path
         {"name": "flash_fwd_fp16", "route": "cuda", "source": src + "flash_fwd.cu",
          "replaces": replaces + "272", "launches": launches["services_fp16"]["flash_fwd"],
          "max_abs_err": fp16_line["fwd_max_abs_err"], "ms": fp16_line["fwd_ms"],

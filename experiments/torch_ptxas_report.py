@@ -7,10 +7,15 @@ needs the CUDA toolkit.
 
     python experiments/torch_ptxas_report.py --source flash_grid_bwd \\
         --csrc old/galvatron_tpu_torch/ops/csrc --csrc galvatron_tpu_torch/ops/csrc \\
-        [--out report.json]
+        [--sass] [--out report.json]
 
 Prints one line per kernel and copy: the registers, spill stores / loads
-and static shared memory, keyed by the demangled kernel name.
+and static shared memory, keyed by the demangled kernel name. With
+``--sass`` (``cuobjdump`` from the same toolkit) it also compares the
+instructions: for each kernel of the first copy, the kernel of each other
+copy whose SASS is the same instruction for instruction (addresses,
+encodings and names left out, so a kernel that only gained a template
+argument still matches), or null.
 """
 
 from __future__ import annotations
@@ -55,11 +60,35 @@ def parse(log: str) -> dict:
     return out
 
 
+def sass(lib: Path) -> dict:
+    """{demangled kernel: tuple of its SASS instructions} of one library,
+    without addresses, encodings or the function's own name."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out, cur = {}, None
+    demangle = shutil.which("c++filt")
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            if demangle:
+                cur = subprocess.run([demangle, cur], capture_output=True, text=True).stdout.strip()
+            out[cur] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", ln)
+        if cur is not None and m:
+            out[cur].append(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", default="flash_grid_bwd")
     ap.add_argument("--csrc", action="append", required=True,
                     help="a csrc directory; repeat to compare copies")
+    ap.add_argument("--sass", action="store_true",
+                    help="also match each kernel's instructions across the copies")
     ap.add_argument("--out", default=None, help="also write the report here as JSON")
     args = ap.parse_args()
     nvcc = _build._nvcc()
@@ -80,6 +109,15 @@ def main() -> int:
     for d, kernels in report.items():
         for name, info in sorted(kernels.items()):
             print(json.dumps({"csrc": d, "kernel": name, **info}))
+    if args.sass:
+        codes = [sass(dest / f"lib{args.source}-{i}.so") for i in range(len(args.csrc))]
+        same = {}
+        for name, body in sorted(codes[0].items()):
+            same[name] = [next((n for n, b in other.items() if b == body), None)
+                          for other in codes[1:]]
+            print(json.dumps({"kernel": name, "instructions": len(body),
+                              "same_sass_in": dict(zip(args.csrc[1:], same[name]))}))
+        report["same_sass"] = same
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -25,11 +25,13 @@
 // same from call to call; the price is recomputing the two score products
 // in the dq pass (7 products per tile pair instead of 5).
 //
-// bf16 at head_dim 64 and 128 (the main path), three launches per call, all
-// on Hopper's TMA + wgmma (flash_bwd_common.cuh):
+// bf16 and fp16 at head_dim 64 and 128 (the main paths), three launches per
+// call, all on Hopper's TMA + wgmma (flash_bwd_common.cuh, instantiated for
+// each element type: .bf16 or .f16 operands, fp32 accumulation):
 //   1. the pre-pass: q' = rope(q, tables x sm_scale log2 e) and
-//      k' = rope(k), rounded to bf16 once into contiguous scratches the
-//      wrapper allocates, and delta per row into an fp32 (b, h, s) buffer;
+//      k' = rope(k), rounded to the input dtype once into contiguous
+//      scratches the wrapper allocates, and delta per row into an fp32
+//      (b, h, s) buffer;
 //   2. dk/dv: one block per (b, h, 128-key tile), dk/dv accumulated in
 //      registers over the query tiles at or below the diagonal, then dk
 //      scaled by ln 2 and counter-rotated;
@@ -287,11 +289,11 @@ cudaError_t launch(const BwdArgs& a, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The TMA route's eight tensor maps, encoded before any launch: k', v
-// (128-row boxes) and q', do (W-row boxes) for the dk/dv kernel, then q',
-// do (128) and k', v (W) for the dq kernel. The scratches are contiguous
-// (b, h | kv heads, s, D).
-template <int D>
+// The TMA route's eight tensor maps over rows of E, encoded before any
+// launch: k', v (128-row boxes) and q', do (W-row boxes) for the dk/dv
+// kernel, then q', do (128) and k', v (W) for the dq kernel. The scratches
+// are contiguous (b, h | kv heads, s, D).
+template <typename E, int D>
 bool encode_maps(const BwdArgs& a, int batch, const void* qs, const void* ks, CUtensorMap* m) {
   using flash::encode_bhsd;
   constexpr int W = flash::bwd::Cfg<D>::W, OWN = flash::bwd::kOwn;
@@ -302,24 +304,24 @@ bool encode_maps(const BwdArgs& a, int batch, const void* qs, const void* ks, CU
     const int kv_rows = pass == 0 ? OWN : W, q_rows = pass == 0 ? W : OWN;
     CUtensorMap* mk = m + (pass == 0 ? 0 : 6);
     CUtensorMap* mq = m + (pass == 0 ? 2 : 4);
-    ok = ok && encode_bhsd(mk, ks, batch, kvh, s, D, rh * kvh, rh, D, kv_rows) &&
-         encode_bhsd(mk + 1, a.v, batch, kvh, s, D, a.vv.b, a.vv.h, a.vv.s, kv_rows) &&
-         encode_bhsd(mq, qs, batch, a.heads, s, D, rh * a.heads, rh, D, q_rows) &&
-         encode_bhsd(mq + 1, a.dout, batch, a.heads, s, D, a.vdo.b, a.vdo.h, a.vdo.s, q_rows);
+    ok = ok && encode_bhsd<E>(mk, ks, batch, kvh, s, D, rh * kvh, rh, D, kv_rows) &&
+         encode_bhsd<E>(mk + 1, a.v, batch, kvh, s, D, a.vv.b, a.vv.h, a.vv.s, kv_rows) &&
+         encode_bhsd<E>(mq, qs, batch, a.heads, s, D, rh * a.heads, rh, D, q_rows) &&
+         encode_bhsd<E>(mq + 1, a.dout, batch, a.heads, s, D, a.vdo.b, a.vdo.h, a.vdo.s, q_rows);
   }
   return ok;
 }
 
-template <int D>
+// The three launches of the TMA route, operands of the element type E.
+template <typename E, int D>
 cudaError_t launch_tma(const BwdArgs& a, int batch, void* qs, void* ks, const CUtensorMap* m,
                        cudaStream_t stream) {
   namespace fb = flash::bwd;
-  using flash::bf16;
-  fb::PrepassArgs p{};
-  p.q = static_cast<const bf16*>(a.q);
-  p.k = static_cast<const bf16*>(a.k);
-  p.dout = static_cast<const bf16*>(a.dout);
-  p.out = static_cast<const bf16*>(a.out);
+  fb::PrepassArgs<E> p{};
+  p.q = static_cast<const E*>(a.q);
+  p.k = static_cast<const E*>(a.k);
+  p.dout = static_cast<const E*>(a.dout);
+  p.out = static_cast<const E*>(a.out);
   p.vq = a.vq;
   p.vk = a.vk;
   p.vdo = a.vdo;
@@ -327,8 +329,8 @@ cudaError_t launch_tma(const BwdArgs& a, int batch, void* qs, void* ks, const CU
   p.cos = a.cos;
   p.sin = a.sin;
   p.qscale = a.lam;
-  p.q_out = static_cast<bf16*>(qs);
-  p.k_out = static_cast<bf16*>(ks);
+  p.q_out = static_cast<E*>(qs);
+  p.k_out = static_cast<E*>(ks);
   p.delta = a.delta;
   p.heads = a.heads;
   p.kvheads = a.heads / a.kv_rep;
@@ -355,10 +357,10 @@ cudaError_t launch_tma(const BwdArgs& a, int batch, void* qs, void* ks, const CU
   g.dq_scale = a.sm_scale;
   const long long blocks = (long long)((a.s + fb::kOwn - 1) / fb::kOwn) * a.heads * batch;
   constexpr size_t smem = fb::Cfg<D>::SMEM;
-  err = fb::launch_main(fb::dkdv_kernel<D, false, true, true>, smem, blocks, m[0], m[1], m[2],
-                        m[3], g, stream);
+  err = fb::launch_main(fb::dkdv_kernel<D, false, true, true, E>, smem, blocks, m[0], m[1],
+                        m[2], m[3], g, stream);
   if (err != cudaSuccess) return err;
-  return fb::launch_main(fb::dq_kernel<D, false, true, true>, smem, blocks, m[4], m[5], m[6],
+  return fb::launch_main(fb::dq_kernel<D, false, true, true, E>, smem, blocks, m[4], m[5], m[6],
                          m[7], g, stream);
 }
 
@@ -376,16 +378,22 @@ bool can_tma(const BwdArgs& a, const void* qs, const void* ks) {
   return a.d == 64 || a.d == 128;
 }
 
+// The TMA route for T = bf16 or fp16 (the mainloops instantiated for T),
+// the CUDA-core kernels for fp32 and wherever can_tma or a tensor map says
+// no.
 template <typename T>
 cudaError_t dispatch(const BwdArgs& a, int batch, void* qs, void* ks, cudaStream_t stream,
                      int* route) {
   *route = flash::kRouteCudaCore;
-  if (std::is_same<T, __nv_bfloat16>::value && can_tma(a, qs, ks)) {
-    CUtensorMap m[8];
-    if (a.d == 128 ? encode_maps<128>(a, batch, qs, ks, m) : encode_maps<64>(a, batch, qs, ks, m)) {
-      *route = flash::kRouteTma;
-      return a.d == 128 ? launch_tma<128>(a, batch, qs, ks, m, stream)
-                        : launch_tma<64>(a, batch, qs, ks, m, stream);
+  if constexpr (!std::is_same<T, float>::value) {
+    if (can_tma(a, qs, ks)) {
+      CUtensorMap m[8];
+      if (a.d == 128 ? encode_maps<T, 128>(a, batch, qs, ks, m)
+                     : encode_maps<T, 64>(a, batch, qs, ks, m)) {
+        *route = flash::kRouteTma;
+        return a.d == 128 ? launch_tma<T, 128>(a, batch, qs, ks, m, stream)
+                          : launch_tma<T, 64>(a, batch, qs, ks, m, stream);
+      }
     }
   }
   if (a.d <= 64) return launch<T, 64, 4>(a, batch, stream);
@@ -399,10 +407,10 @@ extern "C" {
 
 // strides: q, k, v, do, out, dq, dk, dv as (b, h, s) element strides, 24
 // values. delta: an fp32 (b, h, s) scratch buffer. q_scratch / k_scratch:
-// bf16 contiguous (b, h, s, d) and (b, h / kv_rep, s, d) for the pre-pass's
-// roped rows on the bf16 path at head_dim 64 / 128 (null elsewhere). dtype:
-// 0 = float32, 1 = bfloat16, 2 = float16 (the CUDA-core kernels). route: set to
-// the route taken (flash::Route).
+// contiguous (b, h, s, d) and (b, h / kv_rep, s, d) in q's dtype for the
+// pre-pass's roped rows on the bf16 and fp16 paths at head_dim 64 / 128
+// (null elsewhere). dtype: 0 = float32, 1 = bfloat16, 2 = float16. route:
+// set to the route taken (flash::Route).
 // Returns cudaGetLastError() after the last launch.
 int galvatron_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                         const void* out, const void* lse, const void* cos, const void* sin,
@@ -440,7 +448,7 @@ int galvatron_flash_bwd(const void* q, const void* k, const void* v, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch<float>(a, batch, nullptr, nullptr, st, route);
   if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, batch, q_scratch, k_scratch, st, route);
-  if (dtype == 2) return (int)dispatch<__half>(a, batch, nullptr, nullptr, st, route);
+  if (dtype == 2) return (int)dispatch<__half>(a, batch, q_scratch, k_scratch, st, route);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,11 +1,13 @@
-// The flash backward's Hopper mainloops (bf16, head_dim 64 or 128), shared
-// by the blocked backward (flash_bwd.cu, replacing `_bwd_kernel_blocked`)
-// and the grid dk/dv and dq kernels (flash_grid_bwd.cu, replacing
-// `_bwd_dkv_kernel` and `_bwd_dq_kernel`):
+// The flash backward's Hopper mainloops (head_dim 64 or 128), shared by
+// the blocked backward (flash_bwd.cu, replacing `_bwd_kernel_blocked`: bf16
+// and fp16) and the grid dk/dv and dq kernels (flash_grid_bwd.cu, replacing
+// `_bwd_dkv_kernel` and `_bwd_dq_kernel`: bf16). The element type E (bf16
+// or fp16) is a template argument, as in the forward's mainloop: it picks
+// the conversions, the tensor maps' type and the wgmma type string.
 //
 //   prepass_kernel  q' = rope(q) through tables times `qscale` (blocked) or
 //                   the unscaled tables (grid) and k' = rope(k), each
-//                   rounded to bf16 once into a contiguous scratch, and
+//                   rounded to E once into a contiguous scratch, and
 //                   (blocked) delta = sum(do * out) per row in fp32. After
 //                   it no tile is roped twice; the grid's dk/dv and dq
 //                   kernels both read the one pre-pass's scratches.
@@ -23,7 +25,7 @@
 // unscaled tables (or raw q, k without ROPE), p = 2^(S sm_scale log2(e) -
 // lse log2 e) with the scale applied after the product; dk and dq scaled by
 // sm_scale, counter-rotated only with ROPE. In both, p and ds =
-// p (dp - delta) are rounded to bf16 before their products, as the
+// p (dp - delta) are rounded to E before their products, as the
 // reference rounds them; 2^x is the SFU's ex2.approx (the full-range exp2f
 // cost the dk/dv kernel about a third of its time at the main shape).
 //
@@ -41,7 +43,7 @@
 // maps; rows past s arrive as zeros and are masked. Every product is a
 // wgmma with fp32 accumulation in registers: the score-like products with
 // both operands K-major in shared memory, the gradient products with p / ds
-// rounded to bf16 straight into register A fragments and the walked tile
+// rounded to E straight into register A fragments and the walked tile
 // read MN-major (transposed) by its descriptor. A walked tile wholly above
 // a warpgroup's rows (causal) is skipped by that warpgroup, never computed;
 // tiles above the whole block's diagonal are never loaded. The sums stay in
@@ -197,7 +199,7 @@ __device__ __forceinline__ void prologue(const Smem<D>& sm, const Maps& m, int r
 // acc (64 x N) = A . B^T over the D columns of the head dim (issued, not
 // committed): A is this warpgroup's 64 rows of a resident tile (kOwn rows,
 // K-major), B a walked tile of N rows (K-major).
-template <int D, int N>
+template <typename E, int D, int N>
 __device__ __forceinline__ void issue_nt(float (&acc)[N / 2], const unsigned char* a_rows,
                                          const unsigned char* b_tile) {
 #pragma unroll
@@ -205,27 +207,27 @@ __device__ __forceinline__ void issue_nt(float (&acc)[N / 2], const unsigned cha
     const int unit = (kk % 4) * 32;  // 16 columns: 32 bytes into chunk kk / 4's rows
     const uint64_t da = wgmma_desc(a_rows + (kk / 4) * kOwn * 128 + unit, 16, 1024);
     const uint64_t db = wgmma_desc(b_tile + (kk / 4) * N * 128 + unit, 16, 1024);
-    wgmma_ss<N>(acc, da, db, kk > 0);
+    wgmma_ss<E, N>(acc, da, db, kk > 0);
   }
 }
 
 // acc (64 x D) += A . B (issued, not committed): A in registers over K
-// walked rows (p or ds rounded to bf16), B the walked tile of those K rows
+// walked rows (p or ds rounded to E), B the walked tile of those K rows
 // read MN-major (64-column chunks K * 128 bytes apart).
-template <int D, int K>
+template <typename E, int D, int K>
 __device__ __forceinline__ void issue_tn(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4],
                                          const unsigned char* b_tile) {
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
-    wgmma_rs<D>(acc, a[kk], wgmma_desc(b_tile + kk * 16 * 128, K * 128, 1024), 1);
+    wgmma_rs<E, D>(acc, a[kk], wgmma_desc(b_tile + kk * 16 * 128, K * 128, 1024), 1);
 }
 
 // One row (r = 0: the thread's first row, r = 1: eight below) of a 64 x D
 // accumulator scaled by `scale`, counter-rotated with ROPE (columns c and
 // c + D/2 sit in registers 4n + 2r + e and 4(n + D/16) + 2r + e) through the
-// unscaled tables at `row`, written as bf16 pairs.
-template <int D, bool ROPE>
-__device__ __forceinline__ void write_row(bf16* dst, const float (&acc)[D / 2], int r, int t,
+// unscaled tables at `row`, written as E pairs.
+template <int D, bool ROPE, typename E>
+__device__ __forceinline__ void write_row(E* dst, const float (&acc)[D / 2], int r, int t,
                                           int row, float scale, const float* cos,
                                           const float* sin) {
   constexpr int HALF = D / 2;
@@ -258,6 +260,44 @@ __device__ __forceinline__ float probability(float sc, bool keep, float lse2, fl
   return keep ? ex2((GRID ? __fmul_rn(sc, lam) : sc) - lse2) : 0.f;
 }
 
+// do_i . v_i summed as prepass_kernel sums delta_i = do_i . out_i: per
+// 8-column unit u of each half row an fmaf chain, then the partials in its
+// shuffle tree's order; rows ra / rb of 128B-swizzled tiles a (rows_a rows)
+// and b (rows_b rows). Where out_i is v_i itself (query 0, whose one key is
+// itself, and any row whose p rounds to one-hot), the blocked dq kernel's
+// dp_ii from here equals delta_i bit for bit, so ds_ii = p (dp_ii - delta_i)
+// is 0, as it is in exact arithmetic; from the tensor cores, dp_ii is
+// another fp32 sum and ds_ii keeps the difference of two summation orders,
+// which is the whole of such a row's dq.
+template <typename E, int D>
+__device__ __forceinline__ float prepass_dot(const unsigned char* a, int ra, int rows_a,
+                                             const unsigned char* b, int rb, int rows_b) {
+  constexpr int HALF = D / 2, U = HALF / 8;
+  float part[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    part[u] = 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float x[8], y[8];
+      const int c = half * HALF + 8 * u;
+      unpack8<E>(*reinterpret_cast<const uint4*>(a + sw128_offset(ra, c, rows_a)), x);
+      unpack8<E>(*reinterpret_cast<const uint4*>(b + sw128_offset(rb, c, rows_b)), y);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) part[u] = fmaf(x[e], y[e], part[u]);
+    }
+  }
+#pragma unroll
+  for (int o = U / 2; o > 0; o >>= 1) {  // lane u adds lane u ^ o's partial
+    float next[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) next[u] = part[u] + part[u ^ o];
+#pragma unroll
+    for (int u = 0; u < U; ++u) part[u] = next[u];
+  }
+  return part[0];
+}
+
 // A walked query tile's row statistics (rows q0 .. q0 + W - 1 of the
 // (b, h) slice) as 2 W values, lse log2 e of each row then delta; value j
 // of a warpgroup's thread wtid is entry wtid + 128 j; 0 past s.
@@ -279,7 +319,7 @@ __device__ __forceinline__ void row_stats(float (&v)[2 * W / 128], const float* 
 // key_a and key_a + 8, its score columns the queries q0 + 8j + 2t (+1).
 // Within a step, p is computed while dP^T is on the tensor cores; the
 // step's lse and delta are staged in shared memory by the warpgroup.
-template <int D, bool GRID, bool CAUSAL, bool ROPE>
+template <int D, bool GRID, bool CAUSAL, bool ROPE, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     dkdv_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                 const __grid_constant__ CUtensorMap tm_q,
@@ -337,9 +377,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       float* stats = sm.stats + (2 * wg + (it & 1)) * 2 * W;
       float sc[W / 2], dp[W / 2];
       wgmma_fence();
-      issue_nt<D, W>(sc, k_rows, q_tile);  // S^T = k' q'^T
+      issue_nt<E, D, W>(sc, k_rows, q_tile);  // S^T = k' q'^T
       wgmma_commit();
-      issue_nt<D, W>(dp, v_rows, do_tile);  // dP^T = v do^T
+      issue_nt<E, D, W>(dp, v_rows, do_tile);  // dP^T = v do^T
       wgmma_commit();
 #pragma unroll
       for (int j = 0; j < NS; ++j) stats[wtid + 128 * j] = stat[j];
@@ -366,12 +406,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int i = 8 * kk + e;
           dp[i] = __fmul_rn(sc[i], __fsub_rn(dp[i], stats[W + 8 * (i >> 2) + 2 * t + (i & 1)]));
         }
-        pack_a_block(sc, pa[kk], kk);
-        pack_a_block(dp, da[kk], kk);
+        pack_a_block<E>(sc, pa[kk], kk);
+        pack_a_block<E>(dp, da[kk], kk);
       }
       wgmma_fence();
-      issue_tn<D, W>(dv, pa, do_tile);  // dv += P^T do
-      issue_tn<D, W>(dk, da, q_tile);   // dk += dS^T q'
+      issue_tn<E, D, W>(dv, pa, do_tile);  // dv += P^T do
+      issue_tn<E, D, W>(dk, da, q_tile);   // dk += dS^T q'
       wgmma_commit();
       wgmma_wait<0>();
       wgmma_hold(dv);
@@ -382,8 +422,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(&sm.empty[st]);  // this warp is done with the stage
   }
 
-  bf16* dvg = static_cast<bf16*>(a.dv) + b * a.vdv.b + h * a.vdv.h;
-  bf16* dkg = static_cast<bf16*>(a.dk) + b * a.vdk.b + h * a.vdk.h;
+  E* dvg = static_cast<E*>(a.dv) + b * a.vdv.b + h * a.vdv.h;
+  E* dkg = static_cast<E*>(a.dk) + b * a.vdk.b + h * a.vdk.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = r == 0 ? key_a : key_b;
@@ -402,7 +442,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // the tensor cores. Both families take it: the blocked backward (GRID
 // false) and the grid dq entry (GRID true, causal or not, q' and k' from
 // the dk/dv call's pre-pass with RoPE, raw q and k without).
-template <int D, bool GRID, bool CAUSAL, bool ROPE>
+template <int D, bool GRID, bool CAUSAL, bool ROPE, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
               const __grid_constant__ CUtensorMap tm_k,
@@ -453,9 +493,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const unsigned char* v_tile = k_tile + C::WALK_BYTES;
       float sc[W / 2], dp[W / 2];
       wgmma_fence();
-      issue_nt<D, W>(sc, q_rows, k_tile);  // S = q' k'^T
+      issue_nt<E, D, W>(sc, q_rows, k_tile);  // S = q' k'^T
       wgmma_commit();
-      issue_nt<D, W>(dp, do_rows, v_tile);  // dP = do v^T
+      issue_nt<E, D, W>(dp, do_rows, v_tile);  // dP = do v^T
       wgmma_commit();
       wgmma_wait<1>();  // S; dP may still run while p is computed
       wgmma_hold(sc);
@@ -469,13 +509,31 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       wgmma_wait<0>();  // dP
       wgmma_hold(dp);
+      if constexpr (!GRID) {
+        // the blocked backward's delta is the pre-pass's: on a tile that holds
+        // this warpgroup's diagonal, dp_ii is summed as delta_i is
+        // (prepass_dot), by the one lane of each row's quad that holds it; the
+        // dk/dv kernel keeps the product's dp_ii (flash_bwd_tiles_plain does both)
+        if (k0 + W > r_lo) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = r ? row_b : row_a, off = row - k0;
+            if (row >= s || off < 0 || off >= W || ((off & 7) >> 1) != t) continue;
+            const float d = prepass_dot<E, D>(sm.res + C::RES_BYTES, row - q0, kOwn, v_tile,
+                                              off, W);
+#pragma unroll
+            for (int i = 0; i < W / 2; ++i)
+              if (((i >> 1) & 1) == r && 8 * (i >> 2) + (i & 1) == (off & ~6)) dp[i] = d;
+          }
+        }
+      }
 #pragma unroll
       for (int i = 0; i < W / 2; ++i)
         dp[i] = __fmul_rn(sc[i], __fsub_rn(dp[i], del[(i >> 1) & 1]));
       uint32_t da[W / 16][4];
-      pack_a<W>(dp, da);
+      pack_a<E, W>(dp, da);
       wgmma_fence();
-      issue_tn<D, W>(dq, da, k_tile);  // dq += dS k'
+      issue_tn<E, D, W>(dq, da, k_tile);  // dq += dS k'
       wgmma_commit();
       wgmma_wait<0>();
       wgmma_hold(dq);
@@ -484,7 +542,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(&sm.empty[st]);
   }
 
-  bf16* dqg = static_cast<bf16*>(a.dq) + b * a.vdq.b + h * a.vdq.h;
+  E* dqg = static_cast<E*>(a.dq) + b * a.vdq.b + h * a.vdq.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r == 0 ? row_a : row_b;
@@ -501,24 +559,25 @@ __global__ void __launch_bounds__(kThreads, 1)
 // unscaled tables for both, no delta (the caller gives it).
 // ---------------------------------------------------------------------------
 
+template <typename E>
 struct PrepassArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* dout;  // blocked: do and out for delta
-  const bf16* out;
+  const E* q;
+  const E* k;
+  const E* dout;  // blocked: do and out for delta
+  const E* out;
   View vq, vk, vdo, vout;
   const float* cos;  // (s, D/2) unscaled
   const float* sin;
   float qscale;  // blocked: the q tables' factor, sm_scale log2(e)
-  bf16* q_out;   // contiguous (b, h, s, D)
-  bf16* k_out;   // contiguous (b, kv heads, s, D)
+  E* q_out;      // contiguous (b, h, s, D)
+  E* k_out;      // contiguous (b, kv heads, s, D)
   float* delta;  // blocked: (b, h, s)
   int heads, kvheads, s;
   long long q_units, units;
 };
 
-template <int D, bool GRID>
-__global__ void __launch_bounds__(256) prepass_kernel(const PrepassArgs p) {
+template <int D, bool GRID, typename E>
+__global__ void __launch_bounds__(256) prepass_kernel(const PrepassArgs<E> p) {
   constexpr int HALF = D / 2, U = HALF / 8;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool is_q = idx < p.q_units;
@@ -532,11 +591,11 @@ __global__ void __launch_bounds__(256) prepass_kernel(const PrepassArgs p) {
     const int nh = is_q ? p.heads : p.kvheads;
     const int hh = (int)(bh % nh), b = (int)(bh / nh);
     const View vx = is_q ? p.vq : p.vk;
-    const bf16* src = (is_q ? p.q : p.k) + b * vx.b + hh * vx.h + row * vx.s + i0;
+    const E* src = (is_q ? p.q : p.k) + b * vx.b + hh * vx.h + row * vx.s + i0;
     const float scale = is_q && !GRID ? p.qscale : 1.f;
     float x1[8], x2[8], y1[8], y2[8];
-    unpack8(*reinterpret_cast<const uint4*>(src), x1);
-    unpack8(*reinterpret_cast<const uint4*>(src + HALF), x2);
+    unpack8<E>(*reinterpret_cast<const uint4*>(src), x1);
+    unpack8<E>(*reinterpret_cast<const uint4*>(src + HALF), x2);
     const float* cp = p.cos + (size_t)row * HALF + i0;
     const float* sp = p.sin + (size_t)row * HALF + i0;
     const float4 c0 = reinterpret_cast<const float4*>(cp)[0], c1 = reinterpret_cast<const float4*>(cp)[1];
@@ -546,17 +605,17 @@ __global__ void __launch_bounds__(256) prepass_kernel(const PrepassArgs p) {
 #pragma unroll
     for (int e = 0; e < 8; ++e)
       rope(x1[e], x2[e], __fmul_rn(c[e], scale), __fmul_rn(sn[e], scale), y1[e], y2[e]);
-    bf16* dst = (is_q ? p.q_out : p.k_out) + rowid * D + i0;
-    *reinterpret_cast<uint4*>(dst) = pack8(y1);
-    *reinterpret_cast<uint4*>(dst + HALF) = pack8(y2);
+    E* dst = (is_q ? p.q_out : p.k_out) + rowid * D + i0;
+    *reinterpret_cast<uint4*>(dst) = pack8<E>(y1);
+    *reinterpret_cast<uint4*>(dst + HALF) = pack8<E>(y2);
     if (!GRID && is_q) {
-      const bf16* dg = p.dout + b * p.vdo.b + hh * p.vdo.h + row * p.vdo.s + i0;
-      const bf16* og = p.out + b * p.vout.b + hh * p.vout.h + row * p.vout.s + i0;
+      const E* dg = p.dout + b * p.vdo.b + hh * p.vdo.h + row * p.vdo.s + i0;
+      const E* og = p.out + b * p.vout.b + hh * p.vout.h + row * p.vout.s + i0;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         float dv[8], ov[8];
-        unpack8(*reinterpret_cast<const uint4*>(dg + half * HALF), dv);
-        unpack8(*reinterpret_cast<const uint4*>(og + half * HALF), ov);
+        unpack8<E>(*reinterpret_cast<const uint4*>(dg + half * HALF), dv);
+        unpack8<E>(*reinterpret_cast<const uint4*>(og + half * HALF), ov);
 #pragma unroll
         for (int e = 0; e < 8; ++e) part = fmaf(dv[e], ov[e], part);
       }
@@ -570,11 +629,11 @@ __global__ void __launch_bounds__(256) prepass_kernel(const PrepassArgs p) {
 }
 
 // Launch the pre-pass over every q and k row.
-template <int D, bool GRID>
-cudaError_t launch_prepass(PrepassArgs p, int batch, cudaStream_t stream) {
+template <int D, bool GRID, typename E>
+cudaError_t launch_prepass(PrepassArgs<E> p, int batch, cudaStream_t stream) {
   p.q_units = (long long)batch * p.heads * p.s * (D / 16);
   p.units = p.q_units + (long long)batch * p.kvheads * p.s * (D / 16);
-  prepass_kernel<D, GRID><<<(unsigned)((p.units + 255) / 256), 256, 0, stream>>>(p);
+  prepass_kernel<D, GRID, E><<<(unsigned)((p.units + 255) / 256), 256, 0, stream>>>(p);
   return cudaGetLastError();
 }
 

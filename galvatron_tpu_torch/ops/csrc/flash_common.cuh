@@ -2,7 +2,7 @@
 // flash_bwd.cu) and grid (flash_grid_fwd.cu, flash_grid_bwd.cu): element
 // conversion, the rounding points of the Pallas kernels, 16-lane row
 // reductions, the strided (b, h, s, d) views, row staging, the CUDA-core
-// backward's products and row statistics, bf16 rows and fragments, Hopper's
+// backward's products and row statistics, 16-bit rows and fragments, Hopper's
 // asynchronous pieces (mbarriers, TMA tile loads, wgmma) and the host's
 // tensor-map encoding. The TMA + wgmma mainloops are in
 // flash_fwd_common.cuh (forward) and flash_bwd_common.cuh (backward).
@@ -238,19 +238,47 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 rows and register fragments. The wgmma accumulators and register A
-// operands (below) use the mma.sync m16n8k16 fragment layout: with g =
-// lane / 4 and t = lane % 4, a thread holds C (16 x 8, fp32) elements (g,
-// 2t) (g, 2t+1) (g+8, 2t) (g+8, 2t+1) and A (16 x 16) pairs (g, 2t..2t+1)
-// (g+8, 2t..) (g, 2t+8..) (g+8, 2t+8..), each pair of bf16 packed in one
-// 32-bit register, the lower index low.
+// 16-bit rows and register fragments, bf16 or fp16 (the element type E of
+// the TMA routes). The wgmma accumulators and register A operands (below)
+// use the mma.sync m16n8k16 fragment layout: with g = lane / 4 and t =
+// lane % 4, a thread holds C (16 x 8, fp32) elements (g, 2t) (g, 2t+1)
+// (g+8, 2t) (g+8, 2t+1) and A (16 x 16) pairs (g, 2t..2t+1) (g+8, 2t..)
+// (g, 2t+8..) (g+8, 2t+8..), each pair of E packed in one 32-bit register,
+// the lower index low.
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 
-// (lo, hi) rounded to bf16 and packed, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+// What differs between the two element types: the packed pair, its
+// round-to-nearest conversion from two floats (overflow goes to +-inf, as
+// astype does: never a saturating one, so that an fp16 gradient that
+// overflows reaches the loss scaler as an inf) and back, and the tensor
+// maps' data type. The wgmma products pick their type string by E too.
+template <typename E>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  using Pair = __nv_bfloat162;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ Pair rn2(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+  static __device__ __forceinline__ float2 to2(Pair p) { return __bfloat1622float2(p); }
+};
+template <>
+struct Elem<__half> {
+  using Pair = __half2;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ Pair rn2(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+  static __device__ __forceinline__ float2 to2(Pair p) { return __half22float2(p); }
+};
+
+// (lo, hi) rounded to E and packed, lo in the low half
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  typename Elem<E>::Pair v = Elem<E>::rn2(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -263,28 +291,34 @@ __device__ __host__ __forceinline__ bool rows16(const View& v) {
   return v.b % 8 == 0 && v.h % 8 == 0 && v.s % 8 == 0;
 }
 
+// eight E (16 bytes) to fp32, and back rounded to E
+template <typename E>
 __device__ __forceinline__ void unpack8(const uint4& v, float (&x)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+  const typename Elem<E>::Pair* p = reinterpret_cast<const typename Elem<E>::Pair*>(&v);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(p[k]);
+    const float2 f = Elem<E>::to2(p[k]);
     x[2 * k] = f.x;
     x[2 * k + 1] = f.y;
   }
 }
 
+template <typename E>
 __device__ __forceinline__ uint4 pack8(const float (&x)[8]) {
   uint4 v;
-  v.x = pack_bf16(x[0], x[1]);
-  v.y = pack_bf16(x[2], x[3]);
-  v.z = pack_bf16(x[4], x[5]);
-  v.w = pack_bf16(x[6], x[7]);
+  v.x = pack2<E>(x[0], x[1]);
+  v.y = pack2<E>(x[2], x[3]);
+  v.z = pack2<E>(x[4], x[5]);
+  v.w = pack2<E>(x[6], x[7]);
   return v;
 }
 
-// a row of C fragments written as bf16 pairs: out[row][8 n + 2t .. +1]
+// a row of C fragments written as E pairs: out[row][8 n + 2t .. +1]
 __device__ __forceinline__ void st_pair(bf16* p, float lo, float hi) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
+__device__ __forceinline__ void st_pair(__half* p, float lo, float hi) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(lo, hi);
 }
 // ... or as fp32 pairs (8-byte aligned: even columns of 16-byte aligned rows)
 __device__ __forceinline__ void st_pair(float* p, float lo, float hi) {
@@ -296,7 +330,7 @@ __device__ __forceinline__ void st_pair(float* p, float lo, float hi) {
 //
 // Tiles that wgmma reads from shared memory use the 128-byte swizzle that a
 // TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: a tile of R rows of 64
-// bf16 columns is R rows of 128 bytes, the 16-byte unit u of row r stored at
+// 16-bit columns is R rows of 128 bytes, the 16-byte unit u of row r stored at
 // unit u ^ (r % 8), in atoms of 8 rows (1024 bytes); a row of 128 columns is
 // two such column chunks, R * 128 bytes apart. Every tile starts 1024-byte
 // aligned.
@@ -398,131 +432,154 @@ __device__ __forceinline__ void wgmma_hold(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x N, fp32, registers) = A (64 x 16) * B (16 x N) + (scale_d ? D : 0).
-// _ss: A and B from shared memory, both K-major. _rs: A from registers (the
-// mma.sync A fragment of each warp's 16 rows), B from shared memory
-// MN-major (transposed). Accumulator register 4j + e of a thread holds row
-// 16 * (warp % 4) + lane / 4 (+ 8 for e >= 2), column 8j + 2 (lane % 4) +
-// (e & 1): the mma.sync C fragment of each n8 block, warp by warp.
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                  uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
+// D (64 x N, fp32, registers) = A (64 x 16) * B (16 x N) + (scale_d ? D : 0),
+// A and B of the 16-bit type TY ("bf16" or "f16"; the accumulation is fp32
+// either way). _SS: A and B from shared memory, both K-major. _RS: A from
+// registers (the mma.sync A fragment of each warp's 16 rows), B from shared
+// memory MN-major (transposed). Accumulator register 4j + e of a thread
+// holds row 16 * (warp % 4) + lane / 4 (+ 8 for e >= 2), column 8j +
+// 2 (lane % 4) + (e & 1): the mma.sync C fragment of each n8 block, warp by
+// warp. The asm strings are literals, so each product is a macro of its
+// type string, expanded once per element type below.
+#define FLASH_WGMMA_N64_RS(TY)                                                                     \
+  asm volatile(                                                                                    \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                 \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                                 \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                     \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"             \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"                                                \
+      "}\n"                                                                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),    \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),              \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d))
 
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
-                                                 uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
+#define FLASH_WGMMA_N64_SS(TY)                                                                     \
+  asm volatile(                                                                                    \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                 \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"                                 \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                     \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"             \
+      "}, %32, %33, p, 1, 1, 0, 0;\n"                                                              \
+      "}\n"                                                                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),    \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),              \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])               \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
 
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
-                                                  uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
+#define FLASH_WGMMA_N128_SS(TY)                                                                    \
+  asm volatile(                                                                                    \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                 \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                                \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                     \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "           \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "           \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"             \
+      "}, %64, %65, p, 1, 1, 0, 0;\n"                                                              \
+      "}\n"                                                                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),    \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),              \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),              \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),              \
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),              \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),              \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),              \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),              \
+        "+f"(d[62]), "+f"(d[63])                                                                   \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
 
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
-                                                  uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
+#define FLASH_WGMMA_N128_RS(TY)                                                                    \
+  asm volatile(                                                                                    \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                                 \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"                                \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                     \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "           \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "           \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"             \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"                                                \
+      "}\n"                                                                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),    \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),              \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),              \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),              \
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),              \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),              \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),              \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),              \
+        "+f"(d[62]), "+f"(d[63])                                                                   \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d))
+
+// whether E is fp16 (else bf16): the products' type string (a constant, not
+// a constexpr function, which device code may not call)
+template <typename E>
+constexpr bool kIsF16 = std::is_same<E, __half>::value;
+template <typename E>
+constexpr bool kIs16 = kIsF16<E> || std::is_same<E, __nv_bfloat16>::value;
 
 // the products above by width N (scores: 64 or 128 columns; O, dq, dk, dv:
-// head_dim 64 or 128)
-template <int N>
+// head_dim 64 or 128) and element type E
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
   static_assert(N == 64 || N == 128, "wgmma width");
-  if constexpr (N == 64)
-    wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
-  else
-    wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+  static_assert(kIs16<E>, "the TMA routes take bf16 or fp16");
+  if constexpr (N == 64) {
+    if constexpr (kIsF16<E>)
+      FLASH_WGMMA_N64_SS("f16");
+    else
+      FLASH_WGMMA_N64_SS("bf16");
+  } else {
+    if constexpr (kIsF16<E>)
+      FLASH_WGMMA_N128_SS("f16");
+    else
+      FLASH_WGMMA_N128_SS("bf16");
+  }
 }
-template <int N>
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
   static_assert(N == 64 || N == 128, "wgmma width");
-  if constexpr (N == 64)
-    wgmma_m64n64k16_rs(d, a, desc_b, scale_d);
-  else
-    wgmma_m64n128k16_rs(d, a, desc_b, scale_d);
+  static_assert(kIs16<E>, "the TMA routes take bf16 or fp16");
+  if constexpr (N == 64) {
+    if constexpr (kIsF16<E>)
+      FLASH_WGMMA_N64_RS("f16");
+    else
+      FLASH_WGMMA_N64_RS("bf16");
+  } else {
+    if constexpr (kIsF16<E>)
+      FLASH_WGMMA_N128_RS("f16");
+    else
+      FLASH_WGMMA_N128_RS("bf16");
+  }
 }
 
-// Columns 16 kk .. 16 kk + 15 of an accumulator of N columns rounded to
-// bf16 as the A fragment of a register-A product over them (the p / ds
-// register reuse); pack_a does every kk.
-template <int N>
+#undef FLASH_WGMMA_N64_RS
+#undef FLASH_WGMMA_N64_SS
+#undef FLASH_WGMMA_N128_SS
+#undef FLASH_WGMMA_N128_RS
+
+// Columns 16 kk .. 16 kk + 15 of an accumulator of N columns rounded to E
+// as the A fragment of a register-A product over them (the p / ds register
+// reuse); pack_a does every kk.
+template <typename E, int N>
 __device__ __forceinline__ void pack_a_block(const float (&c)[N], uint32_t (&a)[4], int kk) {
-  a[0] = pack_bf16(c[8 * kk], c[8 * kk + 1]);
-  a[1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
-  a[2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
-  a[3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+  a[0] = pack2<E>(c[8 * kk], c[8 * kk + 1]);
+  a[1] = pack2<E>(c[8 * kk + 2], c[8 * kk + 3]);
+  a[2] = pack2<E>(c[8 * kk + 4], c[8 * kk + 5]);
+  a[3] = pack2<E>(c[8 * kk + 6], c[8 * kk + 7]);
 }
-template <int N>
+template <typename E, int N>
 __device__ __forceinline__ void pack_a(const float (&c)[N / 2], uint32_t (&a)[N / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) pack_a_block(c, a[kk], kk);
+  for (int kk = 0; kk < N / 16; ++kk) pack_a_block<E>(c, a[kk], kk);
 }
 // keep A fragments a register-A wgmma reads live until its wait: the
 // product reads them asynchronously, so the registers must not be reused
@@ -563,10 +620,12 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A rank-4 map (d, s, heads, batch) over bf16 rows with element strides
-// (ss, sh, sb), boxes of 64 columns x `rows` rows, 128B swizzle, rows past s
-// read as zeros. A size-1 dim's stride is never read; it is given a valid
-// one. False where the driver lacks the entry point or refuses the map.
+// A rank-4 map (d, s, heads, batch) over rows of the 16-bit type E (bf16 or
+// fp16: two bytes an element either way) with element strides (ss, sh,
+// sb), boxes of 64 columns x `rows` rows, 128B swizzle, rows past s read as
+// zeros. A size-1 dim's stride is never read; it is given a valid one.
+// False where the driver lacks the entry point or refuses the map.
+template <typename E>
 inline bool encode_bhsd(CUtensorMap* map, const void* base, int batch, int heads, int s, int d,
                         long long sb, long long sh, long long ss, int rows) {
   EncodeTiled fn = encode_tiled();
@@ -578,7 +637,7 @@ inline bool encode_bhsd(CUtensorMap* map, const void* base, int batch, int heads
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+  return fn(map, Elem<E>::kMap, 4, const_cast<void*>(base), dims, strides, box,
             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

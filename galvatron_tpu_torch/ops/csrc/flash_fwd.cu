@@ -18,7 +18,7 @@
 //
 // Not block by block: the TPU kernel ran one pallas_call per 1024-row q
 // block with the k loop unrolled. Here one launch covers the whole call (two
-// on the bf16 path: the k pre-pass, then the main kernel), walking each
+// on the tensor-core path: the k pre-pass, then the main kernel), walking each
 // (b, h, q tile)'s key tiles up to the diagonal with an fp32 online softmax
 // kept in registers: a thread block per q tile on the CUDA cores, one
 // persistent block per SM taking q tiles in turn on the tensor cores. Only
@@ -28,13 +28,14 @@
 // Bound: operations. At the main shape (b=8, h=32, s=2048, d=128, bf16) the
 // two products take 4 * b * h * (s^2 / 2) * d = 2.75e11 operations against
 // ~0.54 GB of traffic: 0.278 ms at 989 TFLOP/s vs 0.161 ms at 3.35 TB/s.
-// So the products go to the tensor cores: for bf16 at head_dim 64 and 128
-// (the main path) a k pre-pass, then a TMA ring feeding wgmma,
+// So the products go to the tensor cores: for bf16 and fp16 at head_dim 64
+// and 128 (the main paths) a k pre-pass, then a TMA ring feeding wgmma,
 // warp-specialised: the mainloop shared with the grid forward
-// (flash_fwd_common.cuh, GRID false). Other
-// head dims, fp32 inputs and pointers or strides off 16 bytes take a
-// CUDA-core kernel (fp32 from shared memory, a 4 x 4 register tile of
-// scores per thread).
+// (flash_fwd_common.cuh, GRID false), instantiated for each of the two
+// element types (.bf16 or .f16 operands, fp32 accumulation; the fp16 rates
+// and bytes are bf16's). Other head dims, fp32 inputs and pointers or
+// strides off 16 bytes take a CUDA-core kernel (fp32 from shared memory, a
+// 4 x 4 register tile of scores per thread), in fp32, bf16 or fp16.
 //
 // C interface (bound with ctypes): pointers and the stream as void*, strides
 // in a host array of long long, the route taken written through an int*,
@@ -187,18 +188,22 @@ cudaError_t launch(const FwdArgs& a, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The tensor-core route for T = bf16 or fp16 (the mainloop instantiated
+// for T), the CUDA-core kernel for fp32 and wherever can_tma or a tensor
+// map says no.
 template <typename T>
 cudaError_t dispatch(const FwdArgs& a, void* kscratch, cudaStream_t stream, int* route) {
   namespace fw = flash::fwd;
   *route = flash::kRouteCudaCore;
-  if (std::is_same<T, __nv_bfloat16>::value && fw::can_tma(a, kscratch)) {
-    CUtensorMap tq, tk, tv;
-    if (a.d == 128 ? fw::encode_maps<128>(a, kscratch, &tq, &tk, &tv)
-                   : fw::encode_maps<64>(a, kscratch, &tq, &tk, &tv)) {
-      *route = flash::kRouteTma;
-      return a.d == 128
-                 ? fw::launch<128, false, true, flash::bf16>(a, kscratch, tq, tk, tv, stream)
-                 : fw::launch<64, false, true, flash::bf16>(a, kscratch, tq, tk, tv, stream);
+  if constexpr (!std::is_same<T, float>::value) {
+    if (fw::can_tma(a, kscratch)) {
+      CUtensorMap tq, tk, tv;
+      if (a.d == 128 ? fw::encode_maps<T, 128>(a, kscratch, &tq, &tk, &tv)
+                     : fw::encode_maps<T, 64>(a, kscratch, &tq, &tk, &tv)) {
+        *route = flash::kRouteTma;
+        return a.d == 128 ? fw::launch<128, false, true, T, T>(a, kscratch, tq, tk, tv, stream)
+                          : fw::launch<64, false, true, T, T>(a, kscratch, tq, tk, tv, stream);
+      }
     }
   }
   if (a.d <= 64) return launch<T, 64, 4>(a, a.batch, stream);
@@ -211,11 +216,11 @@ cudaError_t dispatch(const FwdArgs& a, void* kscratch, cudaStream_t stream, int*
 extern "C" {
 
 // strides: q, k, v, out as (b, h, s) element strides, 12 values.
-// k_scratch: bf16 (batch, heads / kv_rep, s, d), contiguous, for roped k on
-// the bf16 path at head_dim 64 / 128 (null elsewhere: the CUDA-core kernel).
-// work: two int32, zero, the persistent kernel's item counter on that path
-// (the kernel leaves them zero again; null elsewhere).
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (the CUDA-core kernel). route: set to the route taken
+// k_scratch: (batch, heads / kv_rep, s, d) in q's dtype, contiguous, for
+// roped k on the bf16 and fp16 paths at head_dim 64 / 128 (null elsewhere:
+// the CUDA-core kernel). work: two int32, zero, the persistent kernel's item
+// counter on those paths (the kernel leaves them zero again; null
+// elsewhere). dtype: 0 = float32, 1 = bfloat16, 2 = float16. route: set to the route taken
 // (flash::Route: 1 the TMA + wgmma kernel with its pre-pass, 0 the
 // CUDA-core kernel). Returns cudaGetLastError() after the launches.
 int galvatron_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
@@ -250,7 +255,7 @@ int galvatron_flash_fwd(const void* q, const void* k, const void* v, void* out, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch<float>(a, nullptr, st, route);
   if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a, k_scratch, st, route);
-  if (dtype == 2) return (int)dispatch<__half>(a, nullptr, st, route);
+  if (dtype == 2) return (int)dispatch<__half>(a, k_scratch, st, route);
   return (int)cudaErrorInvalidValue;
 }
 

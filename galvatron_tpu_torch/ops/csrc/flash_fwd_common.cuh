@@ -1,8 +1,12 @@
-// The flash forward's Hopper mainloop (bf16, head_dim 64 or 128), shared by
-// the blocked forward (flash_fwd.cu, replacing `_fwd_kernel_blocked`) and the
-// grid forward (flash_grid_fwd.cu, replacing `_fwd_kernel`):
+// The flash forward's Hopper mainloop (head_dim 64 or 128), shared by the
+// blocked forward (flash_fwd.cu, replacing `_fwd_kernel_blocked`: bf16 and
+// fp16) and the grid forward (flash_grid_fwd.cu, replacing `_fwd_kernel`:
+// bf16). The element type E (bf16 or fp16) is a template argument: it picks
+// the conversions, the tensor maps' type and the wgmma type string, and
+// everything else (bytes, swizzle, descriptors, fp32 accumulation) is the
+// same for both.
 //
-//   rope_k_kernel  k' = rope(k) through the unscaled tables, rounded to bf16
+//   rope_k_kernel  k' = rope(k) through the unscaled tables, rounded to E
 //                  once into a contiguous (b, kv heads, s, D) scratch: both
 //                  references round k so. (Roping key tiles on the way into
 //                  shared memory, each q tile that visits a key tile roped it
@@ -12,12 +16,12 @@
 //                  wgmma, an fp32 online softmax.
 //
 // Compile-time GRID picks the rounding points. Blocked (GRID false, always
-// causal, bf16 out): q roped through tables pre-scaled by sm_scale log2(e)
-// and rounded to bf16, so S is base-2 already. Grid (GRID true): q roped
+// causal, out in E): q roped through tables pre-scaled by sm_scale log2(e)
+// and rounded to E, so S is base-2 already. Grid (GRID true): q roped
 // through the unscaled tables and rounded with RoPE, raw q without; k' from
 // the pre-pass with RoPE, raw k from its view without; S multiplied by
 // sm_scale log2(e) AFTER the product; CAUSAL or not; out in bf16 or fp32
-// (OutT, ring attention's per-hop outputs). In both, p is rounded to bf16
+// (OutT, ring attention's per-hop outputs). In both, p is rounded to E
 // before O += p v, out = O / max(l, 1e-30) and lse = m ln 2 + log(max(l,
 // 1e-30)).
 //
@@ -32,7 +36,7 @@
 // gets its q rows (TMA, or roped and rounded by its own threads) into the
 // 128B-swizzled q tile, then, per key tile: S = q k^T by wgmma with both
 // operands in shared memory; the online softmax on the fp32 accumulator in
-// registers; p rounded to bf16 straight into the A registers of O += p v,
+// registers; p rounded to E straight into the A registers of O += p v,
 // with v's tile MN-major, read transposed by its descriptor; then an arrive
 // on the stage's empty barrier. The warpgroups take turns at the S product
 // (pingpong), so one's softmax runs while the other's product is on the
@@ -93,16 +97,16 @@ struct Cfg {
   static_assert(BN == kRows, "the diagonal tile must be the last for both warpgroups");
 };
 
-// k' = rope(k) rounded to bf16, contiguous (b, kv heads, s, D): one thread
+// k' = rope(k) rounded to E, contiguous (b, kv heads, s, D): one thread
 // per 8 rotated pairs (x[i .. i+8), x[i + D/2 .. i + D/2 + 8)) of a row.
 // GRID changes nothing in the work: it names the family a launch belongs to
 // in a profile, as the main kernels' GRID does.
-template <int D, bool GRID>
-__global__ void __launch_bounds__(256) rope_k_kernel(const bf16* __restrict__ k, View vk,
+template <int D, bool GRID, typename E>
+__global__ void __launch_bounds__(256) rope_k_kernel(const E* __restrict__ k, View vk,
                                                      int kvheads, int s,
                                                      const float* __restrict__ cos,
                                                      const float* __restrict__ sin,
-                                                     bf16* __restrict__ out, long long units) {
+                                                     E* __restrict__ out, long long units) {
   constexpr int HALF = D / 2, U = HALF / 8;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= units) return;
@@ -111,10 +115,10 @@ __global__ void __launch_bounds__(256) rope_k_kernel(const bf16* __restrict__ k,
   const int row = (int)(rowid % s);
   const long long bh = rowid / s;
   const int kh = (int)(bh % kvheads), b = (int)(bh / kvheads);
-  const bf16* src = k + b * vk.b + kh * vk.h + row * vk.s + i0;
+  const E* src = k + b * vk.b + kh * vk.h + row * vk.s + i0;
   float x1[8], x2[8], y1[8], y2[8];
-  unpack8(*reinterpret_cast<const uint4*>(src), x1);
-  unpack8(*reinterpret_cast<const uint4*>(src + HALF), x2);
+  unpack8<E>(*reinterpret_cast<const uint4*>(src), x1);
+  unpack8<E>(*reinterpret_cast<const uint4*>(src + HALF), x2);
   const float4* cp = reinterpret_cast<const float4*>(cos + (size_t)row * HALF + i0);
   const float4* sp = reinterpret_cast<const float4*>(sin + (size_t)row * HALF + i0);
   const float4 c0 = cp[0], c1 = cp[1], s0 = sp[0], s1 = sp[1];
@@ -122,9 +126,9 @@ __global__ void __launch_bounds__(256) rope_k_kernel(const bf16* __restrict__ k,
   const float sn[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
 #pragma unroll
   for (int e = 0; e < 8; ++e) rope(x1[e], x2[e], c[e], sn[e], y1[e], y2[e]);
-  bf16* dst = out + rowid * D + i0;
-  *reinterpret_cast<uint4*>(dst) = pack8(y1);
-  *reinterpret_cast<uint4*>(dst + HALF) = pack8(y2);
+  E* dst = out + rowid * D + i0;
+  *reinterpret_cast<uint4*>(dst) = pack8<E>(y1);
+  *reinterpret_cast<uint4*>(dst + HALF) = pack8<E>(y2);
 }
 
 // published items a block keeps: the producer runs at most STAGES key
@@ -141,7 +145,7 @@ __device__ __forceinline__ const unsigned char* stage_of(const unsigned char* ri
 
 // S = q k^T of one key tile into sc (issued and committed, not waited for):
 // q rows of this warpgroup and the k tile, both K-major in shared memory
-template <int D, int BN>
+template <typename E, int D, int BN>
 __device__ __forceinline__ void issue_s(float (&sc)[BN / 2], const unsigned char* qwg,
                                         const unsigned char* ks) {
 #pragma unroll
@@ -149,7 +153,7 @@ __device__ __forceinline__ void issue_s(float (&sc)[BN / 2], const unsigned char
     const int unit = (kk % 4) * 32;  // 16 columns: 32 bytes into chunk kk / 4's rows
     const uint64_t da = wgmma_desc(qwg + (kk / 4) * kRows * 128 + unit, 16, 1024);
     const uint64_t db = wgmma_desc(ks + (kk / 4) * BN * 128 + unit, 16, 1024);
-    wgmma_ss<BN>(sc, da, db, kk > 0);
+    wgmma_ss<E, BN>(sc, da, db, kk > 0);
   }
   wgmma_commit();
 }
@@ -157,13 +161,13 @@ __device__ __forceinline__ void issue_s(float (&sc)[BN / 2], const unsigned char
 // O += p v of one key tile (issued and committed, not waited for): p from
 // registers, v MN-major (keys are K, d is N; 64-column chunks BN * 128
 // bytes apart)
-template <int D, int BN>
+template <typename E, int D, int BN>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[BN / 16][4],
                                          const unsigned char* vs) {
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {  // 16 keys at a time
     const uint64_t dv = wgmma_desc(vs + kk * 16 * 128, BN * 128, 1024);
-    wgmma_rs<D>(o, pa[kk], dv, 1);
+    wgmma_rs<E, D>(o, pa[kk], dv, 1);
   }
   wgmma_commit();
 }
@@ -228,13 +232,13 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BN / 2], float (&m)[2
 }
 
 // Stage warpgroup wg's 64 q rows (q0 + 64 wg ..) into the swizzled q tile:
-// roped through the tables times qscale and rounded to bf16 with tables,
+// roped through the tables times qscale and rounded to E with tables,
 // copied without; rows past s are zeros.
-template <int D>
+template <typename E, int D>
 __device__ __forceinline__ void stage_q(unsigned char* qs, const Args& a, int b, int h, int q0,
                                         int wg, int wtid, float qscale) {
   constexpr int HALF = D / 2, U = HALF / 8;  // 8-element units in half a row
-  const bf16* qg = static_cast<const bf16*>(a.q) + b * a.vq.b + h * a.vq.h;
+  const E* qg = static_cast<const E*>(a.q) + b * a.vq.b + h * a.vq.h;
 #pragma unroll
   for (int it = 0; it < 64 * U / 128; ++it) {
     const int e = wtid + it * 128;
@@ -245,15 +249,15 @@ __device__ __forceinline__ void stage_q(unsigned char* qs, const Args& a, int b,
       const uint4 u2 = *reinterpret_cast<const uint4*>(qg + row * a.vq.s + i0 + HALF);
       if (a.cos != nullptr) {
         float x1[8], x2[8], f1[8], f2[8];
-        unpack8(u1, x1);
-        unpack8(u2, x2);
+        unpack8<E>(u1, x1);
+        unpack8<E>(u2, x2);
         const float* cp = a.cos + (size_t)row * HALF + i0;
         const float* sp = a.sin + (size_t)row * HALF + i0;
 #pragma unroll
         for (int k = 0; k < 8; ++k)
           rope(x1[k], x2[k], __fmul_rn(cp[k], qscale), __fmul_rn(sp[k], qscale), f1[k], f2[k]);
-        y1 = pack8(f1);
-        y2 = pack8(f2);
+        y1 = pack8<E>(f1);
+        y2 = pack8<E>(f2);
       } else {
         y1 = u1;
         y2 = u2;
@@ -290,11 +294,12 @@ struct Item {
 // consumers stop there. So the next item's loads overlap this item's last
 // tiles and epilogue, and no block pays a launch, a barrier set-up or a
 // cold pipeline per item.
-template <int D, bool GRID, bool CAUSAL, typename OutT>
+template <int D, bool GRID, bool CAUSAL, typename OutT, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     main_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const Args a) {
   static_assert(GRID || CAUSAL, "the blocked forward is causal");
+  static_assert(GRID || std::is_same<OutT, E>::value, "the blocked forward writes out in E");
   using C = Cfg<D>;
   constexpr int BN = C::BN, STAGES = C::STAGES, CH = D / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -380,7 +385,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const unsigned char* qwg = qs + wg * 64 * 128;  // this warpgroup's rows of chunk 0
   float o[D / 2];
   float sc[BN / 2];         // S, then p in fp32
-  uint32_t pa[BN / 16][4];  // p rounded to bf16: the A fragments of O += p v
+  uint32_t pa[BN / 16][4];  // p rounded to E: the A fragments of O += p v
 
   // Pingpong: the warpgroups take turns at S = q k^T (barriers kTurn + wg),
   // so one's softmax runs while the other's product is on the tensor cores.
@@ -399,7 +404,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (q_by_tma) {
       mbar_wait(&qfull[wg], n & 1);
     } else {
-      stage_q<D>(qs, a, it.b, it.h, it.q0, wg, wtid, GRID ? 1.f : a.lam);
+      stage_q<E, D>(qs, a, it.b, it.h, it.q0, wg, wtid, GRID ? 1.f : a.lam);
       fence_proxy_async();  // the q tile is read by wgmma (the async proxy)
       named_sync(1 + wg, 128);
     }
@@ -411,7 +416,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (kt > 0) mbar_wait(&full[g % STAGES], (g / STAGES) & 1);
       named_sync(kTurn + wg, 256);  // this warpgroup's turn
       wgmma_fence();
-      issue_s<D, BN>(sc, qwg, stage);
+      issue_s<E, D, BN>(sc, qwg, stage);
       wgmma_wait<0>();
       wgmma_hold(sc);
       named_arrive(kTurn + 1 - wg, 256);  // the other's turn
@@ -420,9 +425,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                                        a.lam);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-      pack_a<BN>(sc, pa);
+      pack_a<E, BN>(sc, pa);
       wgmma_fence();
-      issue_pv<D, BN>(o, pa, stage + C::TILE_BYTES);
+      issue_pv<E, D, BN>(o, pa, stage + C::TILE_BYTES);
       wgmma_wait<0>();
       wgmma_hold(o);
       if (lane == 0) mbar_arrive(&empty[g % STAGES]);  // this warp is done with the stage
@@ -462,8 +467,8 @@ inline bool can_tma(const Args& a, const void* kscratch) {
 // CUDA-core kernel with nothing run yet, and the route says so. With RoPE k
 // comes from the pre-pass scratch (contiguous) and q is staged by the
 // consumers (tq is unused); without, k from its view and q by TMA in
-// 64-row boxes, a warpgroup's rows.
-template <int D>
+// 64-row boxes, a warpgroup's rows. E is the operands' element type.
+template <typename E, int D>
 bool encode_maps(const Args& a, const void* kscratch, CUtensorMap* tq, CUtensorMap* tk,
                  CUtensorMap* tv) {
   constexpr int BN = Cfg<D>::BN;
@@ -471,10 +476,10 @@ bool encode_maps(const Args& a, const void* kscratch, CUtensorMap* tq, CUtensorM
   const long long kh = (long long)a.s * D;  // a scratch head
   const bool qk_ok =
       a.cos != nullptr
-          ? encode_bhsd(tk, kscratch, a.batch, kvheads, a.s, D, kh * kvheads, kh, D, BN)
-          : encode_bhsd(tk, a.k, a.batch, kvheads, a.s, D, a.vk.b, a.vk.h, a.vk.s, BN) &&
-                encode_bhsd(tq, a.q, a.batch, a.heads, a.s, D, a.vq.b, a.vq.h, a.vq.s, 64);
-  return qk_ok && encode_bhsd(tv, a.v, a.batch, kvheads, a.s, D, a.vv.b, a.vv.h, a.vv.s, BN);
+          ? encode_bhsd<E>(tk, kscratch, a.batch, kvheads, a.s, D, kh * kvheads, kh, D, BN)
+          : encode_bhsd<E>(tk, a.k, a.batch, kvheads, a.s, D, a.vk.b, a.vk.h, a.vk.s, BN) &&
+                encode_bhsd<E>(tq, a.q, a.batch, a.heads, a.s, D, a.vq.b, a.vq.h, a.vq.s, 64);
+  return qk_ok && encode_bhsd<E>(tv, a.v, a.batch, kvheads, a.s, D, a.vv.b, a.vv.h, a.vv.s, BN);
 }
 
 // streaming multiprocessors of the current device: the persistent grid
@@ -487,8 +492,8 @@ inline int num_sms() {
 }
 
 // With RoPE the k pre-pass into the scratch, then the main kernel on one
-// block per SM (at most one per item).
-template <int D, bool GRID, bool CAUSAL, typename OutT>
+// block per SM (at most one per item); operands of the element type E.
+template <int D, bool GRID, bool CAUSAL, typename OutT, typename E>
 cudaError_t launch(const Args& a, void* kscratch, const CUtensorMap& tq, const CUtensorMap& tk,
                    const CUtensorMap& tv, cudaStream_t stream) {
   using C = Cfg<D>;
@@ -496,12 +501,12 @@ cudaError_t launch(const Args& a, void* kscratch, const CUtensorMap& tq, const C
   if (a.cos != nullptr) {
     const int kvheads = a.heads / a.kv_rep;
     const long long units = (long long)a.batch * kvheads * a.s * (D / 16);
-    rope_k_kernel<D, GRID><<<(unsigned)((units + 255) / 256), 256, 0, stream>>>(
-        static_cast<const bf16*>(a.k), a.vk, kvheads, a.s, a.cos, a.sin,
-        static_cast<bf16*>(kscratch), units);
+    rope_k_kernel<D, GRID, E><<<(unsigned)((units + 255) / 256), 256, 0, stream>>>(
+        static_cast<const E*>(a.k), a.vk, kvheads, a.s, a.cos, a.sin, static_cast<E*>(kscratch),
+        units);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  auto kernel = main_kernel<D, GRID, CAUSAL, OutT>;
+  auto kernel = main_kernel<D, GRID, CAUSAL, OutT, E>;
   if ((err = allow_smem(kernel, C::SMEM)) != cudaSuccess) return err;
   const long long items = (long long)((a.s + kRows - 1) / kRows) * a.heads * a.batch;
   const int sms = num_sms();

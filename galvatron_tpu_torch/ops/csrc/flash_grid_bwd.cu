@@ -48,8 +48,10 @@
 // rotated in the kernel, as fp32 does), other head dims and operands a
 // tensor map cannot take run CUDA-core kernels with both flags at run time;
 // each entry encodes its tensor maps before any launch and reports its
-// route. The mainloops' tensor maps, wgmma and pre-pass are bf16, so the TMA
-// route is chosen on the type, not on its size.
+// route. The shared mainloops also have fp16 instances (the blocked
+// backward's), but these entries instantiate only the bf16 ones: the TMA
+// route is chosen on the type being bf16, not on its size, and the grid
+// kernels at fp16 keep the CUDA-core route.
 //
 // C interface (bound with ctypes): pointers and the stream as void*, strides
 // in a host array of long long, the route taken written through an int*;
@@ -278,6 +280,7 @@ enum class Pass { kDkDv, kDq };
 template <Pass P, int D>
 bool encode_maps(const GridBwdArgs& a, int batch, const void* qs, const void* ks,
                  CUtensorMap* m) {
+  using flash::bf16;
   using flash::encode_bhsd;
   constexpr int W = flash::bwd::Cfg<D>::W, OWN = flash::bwd::kOwn;
   constexpr bool DKV = P == Pass::kDkDv;
@@ -288,14 +291,15 @@ bool encode_maps(const GridBwdArgs& a, int batch, const void* qs, const void* ks
   const long long rh = (long long)s * D;  // a scratch head
   const bool roped = a.cos != nullptr;
   const bool k_ok =
-      roped ? encode_bhsd(mk, ks, batch, kvh, s, D, rh * kvh, rh, D, kv_rows)
-            : encode_bhsd(mk, a.k, batch, kvh, s, D, a.vk.b, a.vk.h, a.vk.s, kv_rows);
+      roped ? encode_bhsd<bf16>(mk, ks, batch, kvh, s, D, rh * kvh, rh, D, kv_rows)
+            : encode_bhsd<bf16>(mk, a.k, batch, kvh, s, D, a.vk.b, a.vk.h, a.vk.s, kv_rows);
   const bool q_ok =
-      roped ? encode_bhsd(mq, qs, batch, a.heads, s, D, rh * a.heads, rh, D, q_rows)
-            : encode_bhsd(mq, a.q, batch, a.heads, s, D, a.vq.b, a.vq.h, a.vq.s, q_rows);
+      roped ? encode_bhsd<bf16>(mq, qs, batch, a.heads, s, D, rh * a.heads, rh, D, q_rows)
+            : encode_bhsd<bf16>(mq, a.q, batch, a.heads, s, D, a.vq.b, a.vq.h, a.vq.s, q_rows);
   return k_ok && q_ok &&
-         encode_bhsd(mk + 1, a.v, batch, kvh, s, D, a.vv.b, a.vv.h, a.vv.s, kv_rows) &&
-         encode_bhsd(mq + 1, a.dout, batch, a.heads, s, D, a.vdo.b, a.vdo.h, a.vdo.s, q_rows);
+         encode_bhsd<bf16>(mk + 1, a.v, batch, kvh, s, D, a.vv.b, a.vv.h, a.vv.s, kv_rows) &&
+         encode_bhsd<bf16>(mq + 1, a.dout, batch, a.heads, s, D, a.vdo.b, a.vdo.h, a.vdo.s,
+                           q_rows);
 }
 
 // The TMA route of one entry: dk/dv with RoPE first ropes q and k through
@@ -308,7 +312,7 @@ cudaError_t launch_tma(const GridBwdArgs& a, int batch, void* qs, void* ks,
   using flash::bf16;
   cudaError_t err;
   if (P == Pass::kDkDv && ROPE) {
-    fb::PrepassArgs p{};
+    fb::PrepassArgs<bf16> p{};
     p.q = static_cast<const bf16*>(a.q);
     p.k = static_cast<const bf16*>(a.k);
     p.vq = a.vq;
@@ -320,7 +324,7 @@ cudaError_t launch_tma(const GridBwdArgs& a, int batch, void* qs, void* ks,
     p.heads = a.heads;
     p.kvheads = a.heads / a.kv_rep;
     p.s = a.s;
-    if ((err = fb::launch_prepass<D, true>(p, batch, stream)) != cudaSuccess) return err;
+    if ((err = fb::launch_prepass<D, true, bf16>(p, batch, stream)) != cudaSuccess) return err;
   }
   fb::Args g{};
   g.lse = a.lse;
@@ -341,10 +345,10 @@ cudaError_t launch_tma(const GridBwdArgs& a, int batch, void* qs, void* ks,
   g.dq_scale = a.sm_scale;
   const long long blocks = (long long)((a.s + fb::kOwn - 1) / fb::kOwn) * a.heads * batch;
   if (P == Pass::kDkDv)
-    return fb::launch_main(fb::dkdv_kernel<D, true, CAUSAL, ROPE>, fb::Cfg<D>::SMEM, blocks,
-                           m[0], m[1], m[2], m[3], g, stream);
-  return fb::launch_main(fb::dq_kernel<D, true, CAUSAL, ROPE>, fb::Cfg<D>::SMEM, blocks, m[0],
-                         m[1], m[2], m[3], g, stream);
+    return fb::launch_main(fb::dkdv_kernel<D, true, CAUSAL, ROPE, bf16>, fb::Cfg<D>::SMEM,
+                           blocks, m[0], m[1], m[2], m[3], g, stream);
+  return fb::launch_main(fb::dq_kernel<D, true, CAUSAL, ROPE, bf16>, fb::Cfg<D>::SMEM, blocks,
+                         m[0], m[1], m[2], m[3], g, stream);
 }
 
 template <Pass P, int D>

@@ -43,8 +43,10 @@
 // causal or none, and out is written in bf16 or fp32 by strides. fp32,
 // fp16 (the same rounding points at fp16; out in fp16 or fp32), other head
 // dims and operands a tensor map cannot take run a CUDA-core kernel with
-// both flags at run time. The mainloops' tensor maps and wgmma are bf16, so
-// the TMA route is chosen on the type, not on its size.
+// both flags at run time. The shared mainloop also has an fp16 instance
+// (the blocked forward's), but this entry instantiates only the bf16 one:
+// the TMA route is chosen on the type being bf16, not on its size, and the
+// grid kernels at fp16 keep the CUDA-core route.
 //
 // C interface (bound with ctypes): pointers and the stream as void*, strides
 // in a host array of long long, the route taken written through an int*,
@@ -221,10 +223,10 @@ cudaError_t launch_tma(const GridFwdArgs& a, void* kscratch, const CUtensorMap& 
   namespace fw = flash::fwd;
   using flash::bf16;
   if (a.causal)
-    return a.out_f32 ? fw::launch<D, true, true, float>(a, kscratch, tq, tk, tv, stream)
-                     : fw::launch<D, true, true, bf16>(a, kscratch, tq, tk, tv, stream);
-  return a.out_f32 ? fw::launch<D, true, false, float>(a, kscratch, tq, tk, tv, stream)
-                   : fw::launch<D, true, false, bf16>(a, kscratch, tq, tk, tv, stream);
+    return a.out_f32 ? fw::launch<D, true, true, float, bf16>(a, kscratch, tq, tk, tv, stream)
+                     : fw::launch<D, true, true, bf16, bf16>(a, kscratch, tq, tk, tv, stream);
+  return a.out_f32 ? fw::launch<D, true, false, float, bf16>(a, kscratch, tq, tk, tv, stream)
+                   : fw::launch<D, true, false, bf16, bf16>(a, kscratch, tq, tk, tv, stream);
 }
 
 template <typename T>
@@ -233,8 +235,8 @@ cudaError_t dispatch(const GridFwdArgs& a, void* kscratch, cudaStream_t stream, 
   *route = flash::kRouteCudaCore;
   if (std::is_same<T, __nv_bfloat16>::value && fw::can_tma(a, kscratch)) {
     CUtensorMap tq, tk, tv;
-    if (a.d == 128 ? fw::encode_maps<128>(a, kscratch, &tq, &tk, &tv)
-                   : fw::encode_maps<64>(a, kscratch, &tq, &tk, &tv)) {
+    if (a.d == 128 ? fw::encode_maps<flash::bf16, 128>(a, kscratch, &tq, &tk, &tv)
+                   : fw::encode_maps<flash::bf16, 64>(a, kscratch, &tq, &tk, &tv)) {
       *route = flash::kRouteTma;
       return a.d == 128 ? launch_tma<128>(a, kscratch, tq, tk, tv, stream)
                         : launch_tma<64>(a, kscratch, tq, tk, tv, stream);

@@ -38,21 +38,28 @@ Each kernel has three pieces, side by side:
   ``.dq_dtypes``, ``paged_decode_attention.dtypes``: ``str(torch.dtype)``).
 
 Every kernel takes fp32, bf16 and fp16, as the reference's take any float
-dtype. fp16 runs the CUDA-core instances of each kernel (the TMA routes are
-bf16's), rounding where the bf16 instances round.
+dtype, rounding at fp16 where the bf16 instances round at bf16. The TMA
+routes by kernel family (:func:`_tma_blocked`, :func:`_tma_grid`):
 
-The bf16 forwards at head_dim 64 / 128 (``flash_fwd`` and
-``flash_grid_fwd``) run one shared Hopper mainloop
+- the blocked pair (``flash_fwd``, ``flash_bwd``): bf16 and fp16 at head_dim
+  64 / 128, the shared mainloops instantiated for each element type
+  (``.bf16`` or ``.f16`` operands, fp32 accumulation);
+- the grid kernels (``flash_grid_fwd``, ``flash_grid_bwd_parts``): bf16 at
+  head_dim 64 / 128; fp16 runs their CUDA-core instances, as do
+  ``paged_decode_attention`` (no TMA route) and every kernel at fp32 or at
+  another head dim.
+
+The forwards on a TMA route run one shared Hopper mainloop
 (``csrc/flash_fwd_common.cuh``): with RoPE a pre-pass ropes k once per call
 into a scratch the wrapper allocates (:func:`rope_k_plain` is its plain
 twin), then a TMA-fed ``wgmma`` kernel walks 128-key tiles
 (:func:`flash_fwd_tiles_plain` is the plain twin of the grid kernel's
-walk). The bf16 backwards (``flash_bwd`` and the grid dk/dv and dq kernels)
-run another (``csrc/flash_bwd_common.cuh``): a pre-pass ropes q and k once
-per call into scratches the wrapper allocates
-(:func:`flash_bwd_prepass_plain` is its plain twin), then TMA-fed ``wgmma``
-kernels walk the tiles (:func:`flash_bwd_tiles_plain` is the plain twin of
-their decomposition).
+walk). The backwards on a TMA route (``flash_bwd`` and the grid dk/dv and
+dq kernels) run another (``csrc/flash_bwd_common.cuh``): a pre-pass ropes q
+and k once per call into scratches the wrapper allocates
+(:func:`flash_bwd_prepass_plain` is its plain twin), then TMA-fed
+``wgmma`` kernels walk the tiles (:func:`flash_bwd_tiles_plain` is the
+plain twin of their decomposition).
 
 The training entries are ``torch.autograd.Function``s, as the reference's
 are ``jax.custom_vjp``s: :class:`FlashQKV` over the stacked (b, 3, h, s, d)
@@ -92,8 +99,8 @@ from galvatron_tpu_torch.ops import _build
 #: shared memory one thread block may use on Hopper (227 KB)
 _MAX_SMEM_BYTES = 232448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: the dtypes every kernel takes, as the reference's take any float dtype;
-#: fp16 runs the CUDA-core instances (the TMA routes are bf16 only)
+#: the dtypes every kernel takes, as the reference's take any float dtype
+#: (the TMA routes: :func:`_tma_blocked`, :func:`_tma_grid`)
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 #: The routes a C entry reports, by index (``flash::Route`` in
 #: ``csrc/flash_common.cuh``): the CUDA-core kernels (fp32, other head dims,
@@ -197,7 +204,7 @@ def _rope_t_f32(y, c, s):
 
 
 def rope_k_plain(k, cos, sin):
-    """The bf16 forward's k pre-pass in plain PyTorch: k (b, kv heads, s, d)
+    """The TMA forward's k pre-pass in plain PyTorch: k (b, kv heads, s, d)
     roped through the unscaled tables and rounded to k's dtype (the
     reference's ``_rope_rows(k, ck, sk).astype(k.dtype)``), contiguous."""
     return _rope_f32(k, cos, sin).to(k.dtype).contiguous()
@@ -213,7 +220,7 @@ def rope_q_scaled_plain(q, cos, sin, sm_scale):
 
 
 def flash_bwd_prepass_plain(q, k, do, out, cos, sin, sm_scale):
-    """The bf16 backward's pre-pass in plain PyTorch: (q', k', delta) with
+    """The TMA backward's pre-pass in plain PyTorch: (q', k', delta) with
     q' = :func:`rope_q_scaled_plain`, k' = :func:`rope_k_plain` and the fp32
     ``delta = Σ do·out`` per row, (b, h, s). ``csrc/flash_bwd_common.cuh``
     writes the same three into the scratches the kernels then read."""
@@ -453,8 +460,11 @@ def flash_bwd_tiles_plain(q_op, k_op, v, do, lse, delta, sm_scale, causal=True, 
     grid ones are scaled by sm_scale·log2e after the product. p and ds are
     rounded to the input dtype before their products; dk is then scaled by
     ln 2 (blocked) or sm_scale (grid), dq by sm_scale, both counter-rotated
-    through ``rope`` (unscaled tables) when given. Returns (dq, dk, dv) in
-    the input dtype."""
+    through ``rope`` (unscaled tables) when given. The blocked dq kernel
+    (only: not the dk/dv kernel, nor the grid's) sums each diagonal dp_ii
+    as the pre-pass sums delta_i, do_i · v_i in place of the product's
+    entry, so query 0's ds (whose exact value is 0: out_0 is v_0) is 0 here
+    as there. Returns (dq, dk, dv) in the input dtype."""
     dt = q_op.dtype
     b, h, s, d = q_op.shape
     walk = walk or _bwd_walk(d)
@@ -463,14 +473,19 @@ def flash_bwd_tiles_plain(q_op, k_op, v, do, lse, delta, sm_scale, causal=True, 
     dl = delta.float().reshape(b, h, s, 1)
     pos = torch.arange(s, device=q_op.device)
 
-    def p_ds(q0, q1, k0, k1):
+    def p_ds(q0, q1, k0, k1, diag=False):
         sc = qf[:, :, q0:q1] @ kf[:, :, k0:k1].transpose(-1, -2)
         if grid:
             sc = sc * (sm_scale * LOG2E)
         p = torch.exp2(sc - lse2[:, :, q0:q1])
         if causal:
             p = p.masked_fill(pos[q0:q1, None] < pos[None, k0:k1], 0.0)
-        ds = p * (dof[:, :, q0:q1] @ vf[:, :, k0:k1].transpose(-1, -2) - dl[:, :, q0:q1])
+        dp = dof[:, :, q0:q1] @ vf[:, :, k0:k1].transpose(-1, -2)
+        lo, hi = max(q0, k0), min(q1, k1)
+        if diag and lo < hi:  # the diagonal in the pre-pass's delta order
+            i = pos[lo:hi]
+            dp[:, :, i - q0, i - k0] = (dof[:, :, lo:hi] * vf[:, :, lo:hi]).sum(dim=-1)
+        ds = p * (dp - dl[:, :, q0:q1])
         return p.to(dt).float(), ds.to(dt).float()
 
     dq, dk, dv = (torch.zeros(b, h, s, d, device=q_op.device) for _ in range(3))
@@ -484,7 +499,7 @@ def flash_bwd_tiles_plain(q_op, k_op, v, do, lse, delta, sm_scale, causal=True, 
     for q0 in range(0, s, _BWD_OWN):
         q1 = min(q0 + _BWD_OWN, s)
         for k0 in range(0, q1 if causal else s, walk):
-            p, ds = p_ds(q0, q1, k0, min(k0 + walk, s))
+            p, ds = p_ds(q0, q1, k0, min(k0 + walk, s), diag=not grid)
             dq[:, :, q0:q1] += ds @ kf[:, :, k0:min(k0 + walk, s)]
     dk = dk * (sm_scale if grid else LN2)
     dq = dq * sm_scale
@@ -516,8 +531,12 @@ BF16_PARITY_TOL = {"fwd": 2 ** -5, "bwd": 2 ** -4}
 #: fp16 results are held to the same bands, the excess measured past one fp16
 #: ulp: what the bands bound is how far the two fp32 computations differ
 #: before the rounding (summation order, rows that cancel), which a finer
-#: storage type does not shrink. On an H100 the training shape's fp16 dq
-#: read 0.0136 (bf16: 0.0336), forward 0.0013; the dropped-tile control > 1.
+#: storage type does not shrink. The largest reading is dq's at query 0,
+#: whose exact value is 0: the plain version keeps the difference of two fp32
+#: summation orders there (up to 0.042 of the floored row scale at the
+#: training shape on an H100), the tensor-core kernels give 0 exactly (their
+#: dq kernel sums the diagonal dp as the pre-pass sums delta). Forward 0.0013;
+#: the dropped-tile control > 1.
 FP16_PARITY_TOL = dict(BF16_PARITY_TOL)
 
 
@@ -620,14 +639,15 @@ def flash_fwd(q, k, v, cos, sin, sm_scale, kv_rep: int = 1):
         return flash_fwd_blocked_plain(q, k, v, cos, sin, sm_scale, kv_rep)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
-    # roped k for the bf16 tensor-core path, written by the kernel's pre-pass
-    k_roped = torch.empty(k.shape, dtype=k.dtype, device=k.device) if _tma_shape(q) else None
+    # roped k for the tensor-core path, written by the kernel's pre-pass
+    tma = _tma_blocked(q)
+    k_roped = torch.empty(k.shape, dtype=k.dtype, device=k.device) if tma else None
     launch = _entry("galvatron_flash_fwd")
     route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            cos.data_ptr(), sin.data_ptr(), _ptr(k_roped), _ptr(_work_counter(q)),
+            cos.data_ptr(), sin.data_ptr(), _ptr(k_roped), _ptr(_work_counter(q, tma)),
             _strides(q, k, v, out), _DTYPE_CODE[q.dtype], b, h, kv_rep, s, d,
             float(sm_scale * LOG2E),
             torch.cuda.current_stream().cuda_stream, ctypes.byref(route),
@@ -662,8 +682,8 @@ def flash_bwd(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep: int = 1,
         return flash_bwd_plain(q, k, v, do, out, lse, cos, sin, sm_scale, kv_rep, grads)
     dq, dk, dv = _grad_outputs("flash_bwd", q, grads)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    # roped q and k for the bf16 TMA path, written by the kernels' pre-pass
-    q_roped, k_roped = _roped_scratch(q, k)
+    # roped q and k for the TMA path, written by the kernels' pre-pass
+    q_roped, k_roped = _roped_scratch(q, k, _tma_blocked(q))
     launch = _entry("galvatron_flash_bwd")
     route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
@@ -688,23 +708,32 @@ flash_bwd.routes = dict.fromkeys(ROUTES, 0)
 flash_bwd.dtypes = dict.fromkeys(map(str, _DTYPES), 0)
 
 
-def _tma_shape(q):
-    """Whether q's dtype and head dim are those of the TMA routes (bf16 at
-    head_dim 64 or 128); the C entry checks the rest (alignment, strides,
-    the tensor maps) and reports the route it took."""
+def _tma_blocked(q):
+    """Whether q's dtype and head dim are those of the blocked pair's TMA
+    routes (``flash_fwd`` / ``flash_bwd``: bf16 or fp16 at head_dim 64 or
+    128); the C entry checks the rest (alignment, strides, the tensor maps)
+    and reports the route it took."""
+    return q.dtype in (torch.bfloat16, torch.float16) and q.shape[3] in (64, 128)
+
+
+def _tma_grid(q):
+    """Whether q's dtype and head dim are those of the grid kernels' TMA
+    routes (``flash_grid_fwd`` / ``flash_grid_bwd_parts``: bf16 at head_dim
+    64 or 128; fp16 takes their CUDA-core kernels); the C entries check the
+    rest and report the route they took."""
     return q.dtype == torch.bfloat16 and q.shape[3] in (64, 128)
 
 
 _WORK = {}
 
 
-def _work_counter(q):
+def _work_counter(q, tma: bool):
     """The persistent TMA forward's item counter for the current stream on
     q's device: two int32 (the next item, the blocks done), zero between
     calls, since the last block of each call zeroes them again. Calls on one
-    stream never overlap, so one counter a stream serves them all; None off
-    the TMA route's dtype and head dims."""
-    if not _tma_shape(q):
+    stream never overlap, so one counter a stream serves them all; None when
+    ``tma`` (the caller family's predicate on q) is false."""
+    if not tma:
         return None
     key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
     if key not in _WORK:
@@ -712,11 +741,12 @@ def _work_counter(q):
     return _WORK[key]
 
 
-def _roped_scratch(q, k):
-    """(q', k') scratches for a backward's bf16 TMA route at head_dim 64 or
-    128: contiguous like q and like k, written by the kernels' pre-pass;
-    (None, None) elsewhere."""
-    if not _tma_shape(q):
+def _roped_scratch(q, k, tma: bool):
+    """(q', k') scratches for a backward's TMA route, ``tma`` being the
+    caller family's predicate on q: contiguous like q and like k, in their
+    dtype, written by the kernels' pre-pass; (None, None) when ``tma`` is
+    false."""
+    if not tma:
         return None, None
     return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
             torch.empty(k.shape, dtype=k.dtype, device=k.device))
@@ -805,14 +835,15 @@ def flash_grid_fwd(q, k, v, rope, sm_scale, causal: bool, kv_rep: int = 1, out_d
     out = torch.empty((b, s, h, d), dtype=out_dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
     # roped k for the bf16 TMA route with RoPE, written by the kernel's pre-pass
+    tma = _tma_grid(q)
     k_roped = (torch.empty(k.shape, dtype=k.dtype, device=k.device)
-               if rope is not None and _tma_shape(q) else None)
+               if rope is not None and tma else None)
     launch = _entry("galvatron_flash_grid_fwd")
     route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _ptr(cos), _ptr(sin), _ptr(k_roped), _ptr(_work_counter(q)),
+            _ptr(cos), _ptr(sin), _ptr(k_roped), _ptr(_work_counter(q, tma)),
             _strides(q, k, v, out), _DTYPE_CODE[q.dtype],
             int(out_dtype == torch.float32), int(causal), b, h, kv_rep, s, d,
             float(sm_scale * LOG2E), torch.cuda.current_stream().cuda_stream,
@@ -862,7 +893,7 @@ def flash_grid_bwd_parts(q, k, v, do, lse, delta, rope, sm_scale, causal: bool,
             s, d, float(sm_scale * LOG2E), float(sm_scale))
     # roped q and k for the bf16 TMA route with RoPE: the dk/dv call's
     # pre-pass writes them, the dq call reads them
-    q_roped, k_roped = _roped_scratch(q, k) if rope is not None else (None, None)
+    q_roped, k_roped = _roped_scratch(q, k, rope is not None and _tma_grid(q))
     dkv_route, dq_route = ctypes.c_int(-1), ctypes.c_int(-1)
     dkv, dqk = _entry("galvatron_flash_grid_dkv"), _entry("galvatron_flash_grid_dq")
     with torch.cuda.device(q.device):

@@ -437,15 +437,35 @@ TILE_CASES = [(64, "fp32"), (128, "fp32"), (64, "bf16"), (128, "bf16")]
 
 
 def _tiles_close(got, ref, dtype):
-    """fp32: GRAD_ATOL (summation order over tiles); bf16: the card's rule
-    (``bf16_parity_excess`` within ``BF16_PARITY_TOL``: p and ds round at
-    the same points, a value near a rounding boundary may land one bf16 ulp
-    the other way)."""
+    """fp32: GRAD_ATOL (summation order over tiles); bf16 and fp16: the
+    card's rule (``bf16_parity_excess`` within ``BF16_PARITY_TOL``, or
+    ``fp16_parity_excess`` within ``FP16_PARITY_TOL``: p and ds round at
+    the same points, a value near a rounding boundary may land one ulp the
+    other way)."""
     ref = torch.from_numpy(np.array(ref, np.float32))
     if dtype == "fp32":
         np.testing.assert_allclose(_np(got), ref.numpy(), atol=GRAD_ATOL, rtol=0)
+    elif dtype == "fp16":
+        assert tfa.fp16_parity_excess(got, ref) <= tfa.FP16_PARITY_TOL["bwd"]
     else:
         assert tfa.bf16_parity_excess(got, ref) <= tfa.BF16_PARITY_TOL["bwd"]
+
+
+@pytest.mark.parametrize("dtype,d,blocked,grid", [
+    (torch.bfloat16, 64, True, True), (torch.bfloat16, 128, True, True),
+    (torch.float16, 64, True, False), (torch.float16, 128, True, False),
+    (torch.bfloat16, 40, False, False), (torch.float16, 40, False, False),
+    (torch.bfloat16, 256, False, False), (torch.float16, 256, False, False),
+    (torch.float32, 64, False, False), (torch.float32, 128, False, False)])
+def test_tma_predicates_split_by_kernel_family(dtype, d, blocked, grid):
+    """The blocked pair's TMA route takes bf16 and fp16 at head_dim 64 / 128,
+    the grid kernels' only bf16 there: the wrappers allocate the roped
+    scratches and the work counter by these (the C entries check the rest
+    and report the route they took)."""
+    q = torch.empty((1, 2, 8, d), dtype=dtype)
+    assert tfa._tma_blocked(q) is blocked
+    assert tfa._tma_grid(q) is grid
+    assert tfa._roped_scratch(q, q, False) == (None, None)
 
 
 # ---------------------------------------------------------------------------

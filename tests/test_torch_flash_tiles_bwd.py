@@ -15,7 +15,14 @@ from test_torch_flash_attention import TILE_CASES, _arrays, _t, _tables, _tiles_
 import _torch_threads  # noqa: F401
 
 
-@pytest.mark.parametrize("d,dtype", TILE_CASES)
+# the blocked pair's TMA route also runs at fp16 (the grid kernels' does not:
+# TILE_CASES, which their tests read, stays bf16 / fp32)
+BLOCKED_TILE_CASES = TILE_CASES + [(64, "fp16"), (128, "fp16")]
+_DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16),
+           "fp16": (jnp.float16, torch.float16)}
+
+
+@pytest.mark.parametrize("d,dtype", BLOCKED_TILE_CASES)
 def test_bwd_tiles_plain_matches_jax_blocked_kernel(d, dtype):
     """The blocked kernels' decomposition (the pre-pass's q', k' and delta,
     dk/dv summed per 128-key block over walked query tiles from the
@@ -27,7 +34,7 @@ def test_bwd_tiles_plain_matches_jax_blocked_kernel(d, dtype):
     sm = 1 / np.sqrt(d)
     q, k, v, do = _arrays([(b, h, s, d)] * 4, seed=70 + d)
     cos, sin = _tables(s, d)
-    jdt, tdt = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jdt, tdt = _DTYPES[dtype]
     jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
     out, lse = jfa._flash_fwd_blocked(jq, jk, jv, (cos, sin), sm, 128, True)
     jgrads = jfa._flash_bwd_blocked(jq, jk, jv, jdo, out, lse, (cos, sin), sm, 128, 64, True)

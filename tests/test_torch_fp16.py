@@ -232,7 +232,7 @@ def _row_excess(got, ref):
     return float((np.abs(g - r) / rms).max())
 
 
-@pytest.mark.parametrize("s,d", [(128, 32), (384, 64)])
+@pytest.mark.parametrize("s,d", [(128, 32), (384, 64), (256, 128)])
 def test_blocked_plain_versions_at_fp16_match_the_pallas_kernels(s, d):
     """``flash_fwd_blocked_plain`` / ``flash_bwd_blocked_plain`` at fp16
     against ``_flash_fwd_blocked`` / ``_flash_bwd_blocked`` at fp16 in

@@ -186,10 +186,23 @@ FLASH_CASES = {
     # the TMA backward at head_dim 64 (128-row walked tiles)
     "d64_stacked_s1024": (torch.bfloat16, 2, 8, 8, 1024, 64, True),
     "gqa_rep4_d64": (torch.bfloat16, 2, 16, 4, 512, 64, False),
-    # fp16 (the fp16 training path): the CUDA-core kernels' __half instances
+    # fp16 (the fp16 training path): at head_dim 64 / 128 the TMA route's
+    # fp16 instances (.f16 wgmma), as bf16's cases above; off them the
+    # CUDA-core kernels' __half instances
     "main_fp16_stacked": (torch.float16, 2, 32, 32, 2048, 128, True),
     "fp16_gqa_ragged_s1000_d64": (torch.float16, 1, 8, 2, 1000, 64, False),
+    "fp16_ragged_s1000_d128_stacked": (torch.float16, 1, 8, 8, 1000, 128, True),
+    "fp16_d64_stacked_s1024": (torch.float16, 2, 8, 8, 1024, 64, True),
+    "fp16_gqa_rep4_d64": (torch.float16, 2, 16, 4, 512, 64, False),
+    "fp16_ragged_d40": (torch.float16, 1, 4, 2, 77, 40, False),
 }
+
+
+def _blocked_route(dtype, d):
+    """The route a blocked flash call with aligned operands takes: the TMA
+    + wgmma kernels for bf16 and fp16 at head_dim 64 / 128, the CUDA-core
+    kernels elsewhere."""
+    return "tma" if dtype in (torch.bfloat16, torch.float16) and d in (64, 128) else "cuda_core"
 
 
 def _flash_inputs(dtype, b, h, kvh, s, d, stacked, seed=0):
@@ -234,18 +247,22 @@ def _dropped_tile_keep(s, device):
 def test_flash_kernels_match_plain(cuda, case, monkeypatch):
     """flash_fwd / flash_bwd kernels against their plain versions on the
     same CUDA tensors, as in ``_close``; lse within 1e-5 (fp32) or 1e-4
-    (bf16: it is never rounded to bf16, only fp32 summation order differs);
-    one launch each. The plain versions with a key tile dropped must fail
-    the same check."""
+    (16-bit: it is never rounded to 16 bits, only fp32 summation order
+    differs); one launch each, on the route ``_blocked_route`` names. The
+    plain versions with a key tile dropped must fail the same check."""
     dtype, b, h, kvh, s, d, stacked = FLASH_CASES[case]
     q, k, v, do, cos, sin = _flash_inputs(dtype, b, h, kvh, s, d, stacked)
     rep = h // kvh
     sm = 1.0 / math.sqrt(d)
     before = (fa.flash_fwd.launches, fa.flash_bwd.launches)
+    want = _blocked_route(dtype, d)
+    routes_before = (fa.flash_fwd.routes[want], fa.flash_bwd.routes[want])
     out, lse = fa.flash_fwd(q, k, v, cos, sin, sm, rep)
     grads = fa.flash_bwd(q, k, v, do, out, lse, cos, sin, sm, rep)
     torch.cuda.synchronize()
     assert (fa.flash_fwd.launches, fa.flash_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (fa.flash_fwd.routes[want], fa.flash_bwd.routes[want]) == (routes_before[0] + 1,
+                                                                      routes_before[1] + 1)
     ref_out, ref_lse = fa.flash_fwd_blocked_plain(q, k, v, cos, sin, sm, rep)
     assert _close(out, ref_out, "fwd")
     assert (lse - ref_lse).abs().max().item() <= (1e-5 if dtype == torch.float32 else 1e-4)
@@ -254,6 +271,8 @@ def test_flash_kernels_match_plain(cuda, case, monkeypatch):
     for name, g, r in zip("qkv", grads, ref_grads):
         assert torch.isfinite(g).all(), name
         assert _close(g, r, "bwd"), name
+    if want == "tma":  # query 0's dq is 0 exactly: its one key is itself
+        assert (grads[0][:, :, 0] == 0).all()
     monkeypatch.setattr(fa, "_causal_keep", _dropped_tile_keep)
     assert not _close(fa.flash_fwd_blocked_plain(q, k, v, cos, sin, sm, rep)[0], ref_out, "fwd")
     ctl = fa.flash_bwd_blocked_plain(q, kf, vf, do, out, lse, cos, sin, sm)
@@ -261,10 +280,10 @@ def test_flash_kernels_match_plain(cuda, case, monkeypatch):
         assert not _close(c, r, "bwd"), name
 
 
-def test_fp16_takes_the_cuda_core_route_on_every_kernel(cuda):
-    """fp16 runs every kernel's CUDA-core instance (the TMA routes are
-    bf16's): the blocked pair and the grid kernels at head_dim 128, with
-    operands a tensor map would take, report the CUDA-core route, and every
+def test_fp16_blocked_pair_takes_tma_and_the_other_kernels_keep_theirs(cuda):
+    """At fp16 with operands a tensor map takes, head_dim 128: the blocked
+    pair reports the TMA route (its fp16 mainloop instances), the grid
+    kernels the CUDA-core route (their TMA route is bf16's), and every
     launch is counted as fp16, paged_decode's and the norms' too."""
     q, k, v, do, cos, sin = _flash_inputs(torch.float16, 1, 4, 4, 256, 128, True)
     blocked = (fa.flash_fwd, fa.flash_bwd)
@@ -278,7 +297,9 @@ def test_fp16_takes_the_cuda_core_route_on_every_kernel(cuda):
     grads = fa.flash_grid_bwd_parts(q, k, v, do, glse, delta, None, 0.1, True)
     torch.cuda.synchronize()
     assert gout.dtype == torch.float16 and all(g.dtype == torch.float16 for g in grads)
-    for r, r0 in zip([w.routes for w in blocked] + list(grid), before):
+    for r, r0 in zip([w.routes for w in blocked], before):
+        assert r == {"cuda_core": r0["cuda_core"], "tma": r0["tma"] + 1}
+    for r, r0 in zip(grid, before[len(blocked):]):
         assert r == {"cuda_core": r0["cuda_core"] + 1, "tma": r0["tma"]}
     paged = fa.paged_decode_attention.dtypes["torch.float16"]
     out = fa.paged_decode_attention(*_case(cuda, torch.float16, 2, 8, 2, 128, 16, 8, [0, 100]))
@@ -422,6 +443,8 @@ REPEAT_CASES = {
     "blocked_main_d128": ("blocked", torch.bfloat16, 2, 32, 32, 2048, 128, True, True, True),
     "blocked_gqa_d64": ("blocked", torch.bfloat16, 2, 16, 4, 1024, 64, True, True, False),
     "blocked_fp32": ("blocked", torch.float32, 1, 8, 8, 512, 128, True, True, True),
+    "blocked_main_fp16_d128": ("blocked", torch.float16, 2, 32, 32, 2048, 128, True, True, True),
+    "blocked_gqa_fp16_d64": ("blocked", torch.float16, 2, 16, 4, 1024, 64, True, True, False),
     "grid_gpt_d64": ("grid", torch.bfloat16, 2, 25, 25, 1024, 64, True, False, True),
     "grid_rope_noncausal_d128": ("grid", torch.bfloat16, 1, 8, 2, 512, 128, False, True, False),
     "grid_fp32": ("grid", torch.float32, 1, 4, 4, 512, 64, True, False, True),
@@ -433,13 +456,15 @@ def test_backward_kernels_repeat_bitwise_on_their_route(cuda, case):
     """Two calls of a backward wrapper on the same inputs give the same bits
     of dq, dk and dv (sums in registers over in-block loops, no atomics),
     and the call takes the route its inputs call for: the TMA + wgmma
-    kernels for bf16 at head_dim 64 / 128 with aligned operands, the
-    CUDA-core kernels for fp32 (for the grid, the dk/dv and the dq kernel
-    each). The forward reports its route the same way."""
+    kernels with aligned operands at head_dim 64 / 128 for bf16 and, in the
+    blocked pair, fp16; the CUDA-core kernels for fp32 (for the grid, the
+    dk/dv and the dq kernel each). The forward reports its route the same
+    way."""
     family, dtype, b, h, kvh, s, d, causal, rope, stacked = REPEAT_CASES[case]
     q, k, v, do, cos, sin = _flash_inputs(dtype, b, h, kvh, s, d, stacked)
     rep, sm = h // kvh, 1.0 / math.sqrt(d)
-    want = "tma" if dtype == torch.bfloat16 else "cuda_core"
+    want = (_blocked_route(dtype, d) if family == "blocked"
+            else "tma" if dtype == torch.bfloat16 else "cuda_core")
     if family == "blocked":
         fwd_before = dict(fa.flash_fwd.routes)
         out, lse = fa.flash_fwd(q, k, v, cos, sin, sm, rep)
